@@ -38,8 +38,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (on-chip-measurement guide): f32 outside the tensor
-# cores and HBM bandwidth.
+# H100 SXM published peaks: f32 outside the tensor cores and HBM bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 AGREE_ATOL = 1e-3      # per-replica agreement of kernel and plain final x
