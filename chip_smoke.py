@@ -12,7 +12,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    C=2048 (200 steps, burn-in 50, swap every 10) and RWM on MVN d=10,
    C=2048: share of replicas whose final x agrees to 1e-3 (rounding can flip
    a rare accept decision, after which that replica diverges), max |diff|
-   over them, counter rates with a z-score;
+   over them; on them every counter equal and lp and the Kahan sums to
+   rtol 1e-4 (``kernels/agreement.py``); counter rates with a z-score;
 4. fused PT vs the eager engine ``run_pt(swap_sweep="sequential")`` on MVN
    d=10, T=6, C=1024: swap and per-rung MH acceptance;
 5. exact invariance (Geweke) of the fused RWM and PT kernels on MVN d=10,
@@ -20,10 +21,12 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
 6. main paths through the user entry points, launch counters zeroed just
    before and read just after each: the flagship PT run of ``bench.py``
    (30-d FullRosenbrock, 10 rungs 1..0.01, variance 0.5^2/30, swap every
-   100, 65,536 replicas, 2000 steps) and an RWM run of the same target and
-   state size (655,360 chains, 2000 steps).  Each kernel is then held
-   against its plain version on the same inputs, timed with CUDA events
-   (best of 3), and set beside its bound.
+   100, 65,536 replicas, 2000 steps) and the RWM headline run of
+   ``scripts/bench_rwm_impl_block.py`` (30-d FullRosenbrock, 65,536 chains,
+   2000 steps), each timed through its entry point with CUDA events (best
+   of 3).  Each kernel is then timed alone at its main path's size and
+   beside its bound, and held against its plain version at the main path's
+   shapes over 200 steps, as in phase 3.
 
 The line before the last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -41,14 +44,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks: f32 outside the tensor cores and HBM bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-AGREE_ATOL = 1e-3      # per-replica agreement of kernel and plain final x
-AGREE_MIN = 0.95       # share of replicas that must agree
+AGREE_MIN = 0.95       # share of replicas whose final x must agree
 Z_RATE_MAX = 5.0       # counters' rates, kernel vs plain
 Z_INV_MAX = 5.0        # Geweke invariance bound (scripts/tpu_smoke.py)
+HOLD_STEPS = 200       # steps of the kernel-vs-plain run at main-path shapes
 
+# bench.py:63-95, the flagship PT workload
 FLAG = dict(dim=30, T=10, C=65536, iters=2000, swap_every=100,
             base_variance=0.5 ** 2 / 30)
-RWM_MAIN = dict(dim=30, C=655360, iters=2000, base_variance=0.5 ** 2 / 30)
+# scripts/bench_rwm_impl_block.py, the headline RWM workload
+RWM_MAIN = dict(dim=30, C=65536, iters=2000, base_variance=0.5 ** 2 / 30)
 
 
 def fail(msg):
@@ -76,11 +81,15 @@ def cuda_ms(torch, fn, reps=1):
 
 
 # ---------------------------------------------------------------- op counts
-# Float operations the fused kernels need, counted from csrc/*.cuh (an FMA
-# counts 2; logf, sqrtf, expf 1 each; selects and integer work 0):
+# Float operations the fused kernels' function needs, counted from
+# csrc/*.cuh (an FMA counts 2; logf, sqrtf, expf 1 each; selects and
+# integer work 0):
 #   ICDF normal: cvt+scale 2, 2u-1+2^-24 3, (1-x)(1+x) 3, fmax 1, logf 1,
-#     neg 1, w-2.5 1, sqrtf-3 2, two 8-FMA polynomials 32, x*p 1, sqrt2* 1
-#     = 48; increment and proposal 2  -> 50 per coordinate
+#     neg 1, then one branch of Giles' polynomial: w-2.5 1 and 8 FMAs 16
+#     (the tail branch, w >= 5, takes sqrtf-3 instead of w-2.5, one more
+#     op on about 0.3% of draws, left out), x*p 1, sqrt2* 1 = 30;
+#     increment and proposal 2  -> 32 per coordinate.  The kernel
+#     evaluates both polynomials and selects; the bound counts one.
 #   log-density: Rosenbrock 9 per term (d-1 terms) + 1; MVN iso 4 d + 2
 #   accept: lp' - lp, *beta, expf, cvt+scale of u, 2 compares -> 7
 #   squared jump (cold rung / RWM chain) 3 d + Kahan 4
@@ -93,7 +102,7 @@ def lp_flops(kind, d):
 
 def pt_work(kind, d, T, C, steps, burn_in, swap_every, step0=0):
     n_events = (step0 + steps) // swap_every - max(burn_in, step0) // swap_every
-    mh = (50 * d + lp_flops(kind, d) + 7) * T
+    mh = (32 * d + lp_flops(kind, d) + 7) * T
     flops = C * (steps * (mh + 3 * d + 4) + n_events * 10 * (T - 1)
                  + T * lp_flops(kind, d))
     blocks = C * T * steps * -(-(d + 1) // 4)
@@ -103,7 +112,7 @@ def pt_work(kind, d, T, C, steps, burn_in, swap_every, step0=0):
 
 
 def rwm_work(kind, d, C, steps):
-    flops = C * (steps * (50 * d + lp_flops(kind, d) + 7 + 3 * d + 4)
+    flops = C * (steps * (32 * d + lp_flops(kind, d) + 7 + 3 * d + 4)
                  + lp_flops(kind, d))
     int_ops = 100 * C * steps * -(-(d + 1) // 4)
     nbytes = C * (2 * d * 4 + 4 + 2 * 4 + 2 * 4)
@@ -116,19 +125,48 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def agreement(torch, xk, xp, replica_dims):
-    diff = (xk - xp).abs().amax(dim=replica_dims)
-    ok = diff < AGREE_ATOL
-    frac = ok.float().mean().item()
-    max_ok = diff[ok].max().item() if ok.any() else float("inf")
-    return frac, max_ok
-
-
 def rate_z(a, b, n):
     """z of two acceptance proportions over n trials each."""
     p = 0.5 * (a + b)
     se = math.sqrt(max(p * (1 - p), 1e-12) * 2 / n)
     return abs(a - b) / se
+
+
+def kernel_record(torch, name, source, replaces, launches, launch, plain,
+                  make_args, names, iters, work):
+    """Time kernel ``name`` alone at its main path's size (``iters`` steps,
+    best of 3), then at the same shapes over HOLD_STEPS steps time it again,
+    time its plain version once, hold the two together (phase 3's checks)
+    and set both kernel times beside their bounds.  ``ms``, ``plain_ms``
+    and ``bound_ms`` of the record are for the HOLD_STEPS run, the
+    ``main_path_*`` keys for the main path's size."""
+    from rwm_pt_tpu_torch.kernels import agreement
+    full_args = make_args(iters)
+    full_ms, _ = cuda_ms(torch, lambda: launch(*full_args), reps=3)
+    del full_args
+    hold_args = make_args(HOLD_STEPS)
+    ms, k = cuda_ms(torch, lambda: launch(*hold_args), reps=3)
+    plain_ms, p = cuda_ms(torch, lambda: plain(*hold_args))
+    ag = agreement.hold(k, p, names)
+    flops, int_ops, nbytes = work(HOLD_STEPS)
+    b_ms, b_by = bound(flops, nbytes)
+    full_flops, full_int, full_bytes = work(iters)
+    full_b_ms, full_by = bound(full_flops, full_bytes)
+    say(f"phase 6 {name} kernel: {full_ms:.3f} ms for {iters} steps, bound "
+        f"{full_b_ms:.3f} ms by {full_by} ({full_flops:.4g} flops, "
+        f"{full_int:.4g} Philox int ops, {full_bytes:.4g} B); {HOLD_STEPS} "
+        f"steps at the same shapes: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms ({plain_ms / HOLD_STEPS:.3f} ms/step), bound "
+        f"{b_ms:.3f} ms; {agreement.describe(ag)}")
+    if ag.frac < AGREE_MIN or ag.mismatched:
+        fail(f"{name} disagrees with its plain version at main-path shapes")
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=ag.max_dx, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, steps=HOLD_STEPS,
+        agree_frac=ag.frac, max_rel_err=ag.max_rel, flops=flops,
+        philox_int_ops=int_ops, bytes=nbytes, main_path_steps=iters,
+        main_path_ms=full_ms, main_path_bound_ms=full_b_ms)
 
 
 def main():
@@ -137,8 +175,8 @@ def main():
         fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA card")
     sys.path.insert(0, HERE)
     try:
-        from rwm_pt_tpu_torch.kernels import (_build, fused_pt, fused_rwm,
-                                              run_pt, run_pt_fused,
+        from rwm_pt_tpu_torch.kernels import (_build, agreement, fused_pt,
+                                              fused_rwm, run_pt, run_pt_fused,
                                               run_rwm_fused)
         from rwm_pt_tpu_torch.kernels.draws import seed_key
         from rwm_pt_tpu_torch.proposals import NormalProposal
@@ -203,16 +241,15 @@ def main():
     k = fused_pt.launch_pt_kernel(*args)
     p = fused_pt._run_pt_fused_plain(*args)
     torch.cuda.synchronize()
-    frac, dmax = agreement(torch, k[0], p[0], (0, 1))
+    ag = agreement.hold(k, p, agreement.PT_OUTPUTS)
     n_mh, n_sw = 150 * T * C, 15 * (T - 1) * C
     z_mh = rate_z(k[2].sum().item() / n_mh, p[2].sum().item() / n_mh, n_mh)
     z_sw = rate_z(k[3].sum().item() / n_sw, p[3].sum().item() / n_sw, n_sw)
-    say(f"phase 3 PT kernel vs plain: agree {frac:.5f} of replicas "
-        f"(atol {AGREE_ATOL}), max |dx| over them {dmax:.3g}; MH acc "
+    say(f"phase 3 PT kernel vs plain: {agreement.describe(ag)}; MH acc "
         f"{k[2].sum().item() / n_mh:.5f} vs {p[2].sum().item() / n_mh:.5f} "
         f"(z {z_mh:.2f}); swap acc {k[3].sum().item() / n_sw:.5f} vs "
         f"{p[3].sum().item() / n_sw:.5f} (z {z_sw:.2f})")
-    if frac < AGREE_MIN or max(z_mh, z_sw) >= Z_RATE_MAX:
+    if ag.frac < AGREE_MIN or ag.mismatched or max(z_mh, z_sw) >= Z_RATE_MAX:
         fail("PT kernel disagrees with its plain version")
     d2 = 10
     mvn = MultivariateNormal.create(d2, device=dev)
@@ -223,14 +260,13 @@ def main():
     k = fused_rwm.launch_rwm_kernel(*args)
     p = fused_rwm._run_rwm_fused_plain(*args)
     torch.cuda.synchronize()
-    frac_r, dmax_r = agreement(torch, k[0], p[0], (0,))
+    ag = agreement.hold(k, p, agreement.RWM_OUTPUTS)
     n_r = 180 * C
     z_r = rate_z(k[2].sum().item() / n_r, p[2].sum().item() / n_r, n_r)
-    say(f"phase 3 RWM kernel vs plain: agree {frac_r:.5f} of chains, max "
-        f"|dx| over them {dmax_r:.3g}; acc {k[2].sum().item() / n_r:.5f} vs "
-        f"{p[2].sum().item() / n_r:.5f} (z {z_r:.2f}); ESJD "
-        f"{k[3].mean().item() / 180:.5f} vs {p[3].mean().item() / 180:.5f}")
-    if frac_r < AGREE_MIN or z_r >= Z_RATE_MAX:
+    say(f"phase 3 RWM kernel vs plain: {agreement.describe(ag)}; acc "
+        f"{k[2].sum().item() / n_r:.5f} vs {p[2].sum().item() / n_r:.5f} "
+        f"(z {z_r:.2f})")
+    if ag.frac < AGREE_MIN or ag.mismatched or z_r >= Z_RATE_MAX:
         fail("RWM kernel disagrees with its plain version")
 
     # ---- 4. fused PT vs the eager engine (sequential sweep)
@@ -324,40 +360,30 @@ def main():
         f"{[round(a, 4) for a in rung_acc]}; launches fused_pt {pt_launches} "
         f"fused_rwm 0; card {card}")
 
-    # the kernel alone on the flagship's inputs, against its plain version
-    x0 = (1e-8 * torch.randn(d, 1, C, generator=gen, device=dev)).expand(
-        d, T, C).contiguous()
-    sig = torch.sqrt(torch.tensor(FLAG["base_variance"], device=dev) / betas)
-    args = (rb, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig, seed_key(0),
-            0, FLAG["iters"], 0, FLAG["swap_every"])
-    ms, k = cuda_ms(torch, lambda: fused_pt.launch_pt_kernel(*args), reps=3)
-    plain_ms, p = cuda_ms(torch, lambda: fused_pt._run_pt_fused_plain(*args))
-    frac, dmax = agreement(torch, k[0], p[0], (0, 1))
-    flops, int_ops, nbytes = pt_work("rosenbrock", d, T, C, FLAG["iters"], 0,
-                                     FLAG["swap_every"])
-    b_ms, b_by = bound(flops, nbytes)
-    say(f"phase 6 fused_pt kernel: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
-        f"{plain_ms / FLAG['iters']:.3f} ms/step); bound {b_ms:.3f} ms by "
-        f"{b_by} ({flops:.4g} flops, {int_ops:.4g} Philox int ops, "
-        f"{nbytes:.4g} B); agree {frac:.5f} of replicas, max |dx| {dmax:.3g}")
-    if frac < AGREE_MIN:
-        fail("fused_pt disagrees with its plain version at flagship shapes")
-    kernels.append(dict(
-        name="fused_pt", route="cuda",
-        source="rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
-        replaces="rwm_pt_tpu/kernels/pallas_pt.py:399",
-        launches=pt_launches, max_abs_err=dmax, agree_frac=frac, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        flops=flops, philox_int_ops=int_ops, bytes=nbytes))
-    del k, p, res, st
+    def pt_args(steps):
+        x0 = (1e-8 * torch.randn(d, 1, C, generator=gen, device=dev)).expand(
+            d, T, C).contiguous()
+        sig = torch.sqrt(torch.tensor(FLAG["base_variance"], device=dev)
+                         / betas)
+        return (rb, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(0), 0, steps, 0, FLAG["swap_every"])
 
-    # RWM main path: same target and state size (655,360 chains)
+    kernels.append(kernel_record(
+        torch, "fused_pt", "rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
+        "rwm_pt_tpu/kernels/pallas_pt.py:399", pt_launches,
+        fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain, pt_args,
+        agreement.PT_OUTPUTS, FLAG["iters"],
+        lambda steps: pt_work("rosenbrock", d, T, C, steps, 0,
+                              FLAG["swap_every"])))
+    del res, st
+
+    # RWM main path: the headline RWM workload
     Cr = RWM_MAIN["C"]
+    rwm_kw = dict(base_variance=RWM_MAIN["base_variance"], num_chains=Cr,
+                  num_iterations=RWM_MAIN["iters"], device=dev)
     fused_pt.launch_pt_kernel.launches = 0
     fused_rwm.launch_rwm_kernel.launches = 0
-    rr = run_rwm_fused(rb, 0, base_variance=RWM_MAIN["base_variance"],
-                       num_chains=Cr, num_iterations=RWM_MAIN["iters"],
-                       device=dev)
+    rr = run_rwm_fused(rb, 0, **rwm_kw)
     torch.cuda.synchronize()
     rwm_launches = fused_rwm.launch_rwm_kernel.launches
     if rwm_launches < 1 or fused_pt.launch_pt_kernel.launches:
@@ -369,30 +395,26 @@ def main():
     esjd_r = rr.esjd.mean().item()
     if not (0 < acc_r < 1 and esjd_r > 0):
         fail(f"RWM metrics out of range: acc {acc_r}, esjd {esjd_r}")
-    x0 = 1e-8 * torch.randn(d, Cr, generator=gen, device=dev)
-    args = (rb, x0, zi(Cr), zf(Cr), torch.tensor(1.0, device=dev),
-            torch.sqrt(torch.tensor(RWM_MAIN["base_variance"], device=dev)),
-            seed_key(0), 0, RWM_MAIN["iters"], 0)
-    ms_r, k = cuda_ms(torch, lambda: fused_rwm.launch_rwm_kernel(*args),
-                      reps=3)
-    plain_r, p = cuda_ms(torch, lambda: fused_rwm._run_rwm_fused_plain(*args))
-    frac_r, dmax_r = agreement(torch, k[0], p[0], (0,))
-    flops, int_ops, nbytes = rwm_work("rosenbrock", d, Cr, RWM_MAIN["iters"])
-    b_ms, b_by = bound(flops, nbytes)
-    say(f"phase 6 RWM path: {RWM_MAIN['iters'] * Cr / (ms_r / 1e3):.6g} MH "
-        f"steps/s, acc {acc_r:.4f}, ESJD {esjd_r:.5g}, launches fused_rwm "
-        f"{rwm_launches}; fused_rwm kernel {ms_r:.3f} ms (plain "
-        f"{plain_r:.1f} ms), bound {b_ms:.3f} ms by {b_by}; agree "
-        f"{frac_r:.5f} of chains, max |dx| {dmax_r:.3g}")
-    if frac_r < AGREE_MIN:
-        fail("fused_rwm disagrees with its plain version at main-path shapes")
-    kernels.append(dict(
-        name="fused_rwm", route="cuda",
-        source="rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu",
-        replaces="rwm_pt_tpu/kernels/pallas_rwm.py:570",
-        launches=rwm_launches, max_abs_err=dmax_r, agree_frac=frac_r,
-        ms=ms_r, plain_ms=plain_r, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, flops=flops, philox_int_ops=int_ops, bytes=nbytes))
+    e2e_r = [cuda_ms(torch, lambda: run_rwm_fused(rb, rep, **rwm_kw))[0]
+             for rep in (1, 2, 3)]
+    say(f"phase 6 RWM path: {RWM_MAIN['iters'] * Cr / (min(e2e_r) / 1e3):.6g}"
+        f" MH steps/s (best of 3: {[round(t, 3) for t in e2e_r]} ms); acc "
+        f"{acc_r:.4f}, ESJD {esjd_r:.5g}; launches fused_rwm {rwm_launches} "
+        f"fused_pt 0")
+
+    def rwm_args(steps):
+        x0 = 1e-8 * torch.randn(d, Cr, generator=gen, device=dev)
+        return (rb, x0, zi(Cr), zf(Cr), torch.tensor(1.0, device=dev),
+                torch.sqrt(torch.tensor(RWM_MAIN["base_variance"],
+                                        device=dev)),
+                seed_key(0), 0, steps, 0)
+
+    kernels.append(kernel_record(
+        torch, "fused_rwm", "rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu",
+        "rwm_pt_tpu/kernels/pallas_rwm.py:570", rwm_launches,
+        fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain, rwm_args,
+        agreement.RWM_OUTPUTS, RWM_MAIN["iters"],
+        lambda steps: rwm_work("rosenbrock", d, Cr, steps)))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     say(card)

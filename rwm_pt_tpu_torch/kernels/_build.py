@@ -162,10 +162,6 @@ def kernel_target(target) -> tuple[int, torch.Tensor]:
     return kind, torch.cat([p.to(torch.float32) for p in parts]).contiguous()
 
 
-def ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
-
-
 def check_cuda(name: str, dtype: torch.dtype, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
     on one card."""

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from rwm_pt_tpu_torch.kernels import run_pt_fused, run_rwm_fused
+from rwm_pt_tpu_torch.kernels import agreement, run_pt_fused, run_rwm_fused
 from rwm_pt_tpu_torch.kernels.draws import seed_key
 from rwm_pt_tpu_torch.kernels.fused_pt import (_run_pt_fused_plain,
                                                launch_pt_kernel)
@@ -23,7 +23,7 @@ from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
-AGREE_ATOL, AGREE_MIN = 1e-3, 0.95
+AGREE_ATOL, AGREE_MIN = agreement.X_ATOL, 0.95
 
 
 def _card():
@@ -42,8 +42,10 @@ def _rates_agree(a, b, n):
 @pytest.mark.parametrize("kind", ["rosenbrock", "mvn_iso"])
 def test_pt_kernel_matches_plain(kind):
     """Nearly every replica agrees to 1e-3 (f32 rounding can flip a rare
-    accept decision, after which that replica diverges); the counters'
-    rates agree to 5 standard errors; the launch counter moves by one."""
+    accept decision, after which that replica diverges); on those replicas
+    every counter is equal and lp, the beta-jump and the cold-jump sums
+    agree to rtol 1e-4; the counters' rates agree to 5 standard errors; the
+    launch counter moves by one."""
     dev = _card()
     d, T, C = (30, 10, 2048) if kind == "rosenbrock" else (10, 6, 1000)
     target = (FullRosenbrock.create(d, device=dev) if kind == "rosenbrock"
@@ -62,9 +64,9 @@ def test_pt_kernel_matches_plain(kind):
     k = launch_pt_kernel(*args)
     assert launch_pt_kernel.launches == before + 1
     p = _run_pt_fused_plain(*args)
-    diff = (k[0] - p[0]).abs().amax(dim=(0, 1))
-    agree = diff < AGREE_ATOL
-    assert agree.float().mean().item() >= AGREE_MIN
+    a = agreement.hold(k, p, agreement.PT_OUTPUTS)
+    assert a.frac >= AGREE_MIN
+    assert not a.mismatched, agreement.describe(a)
     assert torch.isfinite(k[1]).all()
     n_mh = (207 - 50) * T * C
     assert _rates_agree(k[2], p[2], n_mh)
@@ -84,8 +86,9 @@ def test_rwm_kernel_matches_plain():
     k = launch_rwm_kernel(*args)
     assert launch_rwm_kernel.launches == before + 1
     p = _run_rwm_fused_plain(*args)
-    agree = (k[0] - p[0]).abs().amax(dim=0) < AGREE_ATOL
-    assert agree.float().mean().item() >= AGREE_MIN
+    a = agreement.hold(k, p, agreement.RWM_OUTPUTS)
+    assert a.frac >= AGREE_MIN
+    assert not a.mismatched, agreement.describe(a)
     assert _rates_agree(k[2], p[2], 180 * C)
 
 

@@ -21,6 +21,7 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch
         import rwm_pt_tpu_torch.convert, rwm_pt_tpu_torch.kernels
         import rwm_pt_tpu_torch.kernels._build
+        import rwm_pt_tpu_torch.kernels.agreement
         import rwm_pt_tpu_torch.kernels.draws
         import rwm_pt_tpu_torch.kernels.fused_pt
         import rwm_pt_tpu_torch.kernels.fused_rwm
