@@ -11,14 +11,16 @@ import torch
 
 from .kernels.pt import PTState
 from .kernels.rwm import RWMState
-from .proposals import NormalProposal
+from .proposals import (LaplaceProposal, NormalProposal,
+                        UniformRadiusProposal)
 from .targets import FullRosenbrock, MultivariateNormal
 from .utils.dtypes import resolve_device
 
-_PT_FIELDS = ("x", "logp", "accept_count", "swap_attempt_count",
+# state fields in the JAX dataclasses' order (also the checkpoint's arr_0..)
+PT_FIELDS = ("x", "logp", "accept_count", "swap_attempt_count",
               "swap_accept_count", "sum_beta_sq_jump", "sum_sq_jump_cold",
               "step")
-_RWM_FIELDS = ("x", "logp", "accept_count", "sum_sq_jump", "step")
+RWM_FIELDS = ("x", "logp", "accept_count", "sum_sq_jump", "step")
 _INT_FIELDS = ("step", "swap_attempt_count")
 
 
@@ -48,11 +50,21 @@ def target_from_numpy(name: str, fields: dict, *, device="cuda"):
 
 def proposal_from_numpy(name: str, fields: dict, *, dim: int,
                         device="cuda"):
-    """``NormalProposal`` from its JAX field ``base_variance_scalar``."""
-    if name != "Normal":
-        raise NotImplementedError(f"proposal {name!r} is not ported yet")
-    return NormalProposal(dim=dim, base_variance_scalar=_t(
-        fields["base_variance_scalar"], resolve_device(device)))
+    """A proposal from its JAX fields: ``NormalProposal``
+    (``base_variance_scalar``), ``LaplaceProposal``
+    (``base_variance_vector``) or ``UniformRadiusProposal``
+    (``base_radius``)."""
+    dev = resolve_device(device)
+    if name == "Normal":
+        return NormalProposal(dim=dim, base_variance_scalar=_t(
+            fields["base_variance_scalar"], dev))
+    if name == "Laplace":
+        return LaplaceProposal(dim=dim, base_variance_vector=_t(
+            fields["base_variance_vector"], dev).reshape(dim))
+    if name == "UniformRadius":
+        return UniformRadiusProposal(dim=dim, base_radius=_t(
+            fields["base_radius"], dev))
+    raise NotImplementedError(f"proposal {name!r} is not ported yet")
 
 
 def _state_from_numpy(cls, names, fields, device):
@@ -77,20 +89,20 @@ def _state_to_numpy(state, names) -> dict:
 
 def pt_state_from_numpy(fields: dict, *, device="cuda") -> PTState:
     """``PTState`` from the JAX ``PTState`` fields as numpy arrays."""
-    return _state_from_numpy(PTState, _PT_FIELDS, fields, device)
+    return _state_from_numpy(PTState, PT_FIELDS, fields, device)
 
 
 def pt_state_to_numpy(state: PTState) -> dict:
     """JAX ``PTState`` fields of a port state, as numpy arrays (the counters
     ``step`` and ``swap_attempt_count`` as 0-d int32)."""
-    return _state_to_numpy(state, _PT_FIELDS)
+    return _state_to_numpy(state, PT_FIELDS)
 
 
 def rwm_state_from_numpy(fields: dict, *, device="cuda") -> RWMState:
     """``RWMState`` from the JAX ``RWMState`` fields as numpy arrays."""
-    return _state_from_numpy(RWMState, _RWM_FIELDS, fields, device)
+    return _state_from_numpy(RWMState, RWM_FIELDS, fields, device)
 
 
 def rwm_state_to_numpy(state: RWMState) -> dict:
     """JAX ``RWMState`` fields of a port state, as numpy arrays."""
-    return _state_to_numpy(state, _RWM_FIELDS)
+    return _state_to_numpy(state, RWM_FIELDS)

@@ -1,18 +1,23 @@
 """Build and load the fused CUDA kernels (``csrc/*.cu``).
 
-Each ``csrc/<name>.cu`` compiles on first use into its own shared library
-with a plain C interface, loaded with ``ctypes``:
+Each kernel source ``csrc/<kernel>.cu`` compiles on first use into one
+shared library per proposal, with a plain C interface, loaded with
+``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=<k>
+         -o build/lib<name>-<hash>.so csrc/<kernel>.cu
 
-No ``--use_fast_math``: the kernels keep IEEE ``logf``/``expf``/``sqrtf`` so
-that they agree with their plain PyTorch versions to f32 rounding.  The
-library name carries a hash of the sources and flags, so an edited source
-rebuilds.  ``build()`` starts one ``nvcc`` per source, all at once, and
-keeps each ptxas report (registers, spills) in :data:`PTXAS_LOG`.  Nothing
-here runs at import time: the CPU tests import every module and have no
-``nvcc``.
+``<name>`` is the kernel itself for the Normal proposal (``fused_pt``) and
+``<kernel>_laplace`` / ``<kernel>_uniform_radius`` for the others, so each
+library holds 2 targets x 4 register buckets and the six build in parallel.
+No ``--use_fast_math``: the kernels keep IEEE ``logf``/``log1pf``/``expf``/
+``sqrtf`` so that they agree with their plain PyTorch versions to f32
+rounding.  The library name carries a hash of the sources and flags, so an
+edited source rebuilds.  ``build()`` starts one ``nvcc`` per library, all
+at once, and keeps each ptxas report (registers, spills) in
+:data:`PTXAS_LOG`.  Nothing here runs at import time: the CPU tests import
+every module and have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("fused_pt", "fused_rwm")
+SOURCES = ("fused_pt", "fused_rwm")
+# proposal name -> (library suffix, -DRWM_PT_PROPOSAL value; csrc/draws.cuh)
+PROPOSALS = {"Normal": ("", 0), "Laplace": ("_laplace", 1),
+             "UniformRadius": ("_uniform_radius", 2)}
+# library name -> (source, proposal code)
+LIBRARIES = {src + suffix: (src, code) for src in SOURCES
+             for suffix, code in PROPOSALS.values()}
+KERNELS = tuple(LIBRARIES)
 
 PTXAS_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -37,20 +49,24 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # C signature shared by the entry points' pointer/int arguments
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _ARGTYPES = {
-    # kind, params, n_params, betas, stds, x0, acc0, swapacc0, bj0, cj0,
+    # kind, params, n_params, betas, scales, x0, acc0, swapacc0, bj0, cj0,
     # x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out,
-    # d, T, C, total, burn_in, swap_every, step0, key0, key1, stream
+    # d, T, C, total, burn_in, swap_every, step0, key0, key1,
+    # lap, inv_d, rec, record_every, record_chains, stream
     "fused_pt": ("rwm_pt_fused_pt",
                  [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _U, _U, _P]),
-    # kind, params, n_params, std, beta, x0, acc0, jump0,
+                  _I, _I, _I, _I, _I, _I, _I, _U, _U,
+                  _P, _F, _P, _I, _I, _P]),
+    # kind, params, n_params, scale, beta, x0, acc0, jump0,
     # x_out, lp_out, acc_out, jump_out,
-    # d, C, total, burn_in, step0, key0, key1, stream
+    # d, C, total, burn_in, step0, key0, key1,
+    # lap, inv_d, rec, record_every, record_chains, stream
     "fused_rwm": ("rwm_pt_fused_rwm",
                   [_I, _P, _I, _F, _F, _P, _P, _P,
                    _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _U, _U, _P]),
+                   _I, _I, _I, _I, _I, _U, _U,
+                   _P, _F, _P, _I, _I, _P]),
 }
 
 
@@ -62,18 +78,31 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={LIBRARIES[name][1]}"]
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
-        if src.suffix == ".cuh" or src.stem == name:
+        if src.suffix == ".cuh" or src.stem == LIBRARIES[name][0]:
             h.update(src.name.encode())
             h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def library(source: str, proposal: str) -> str:
+    """Name of the library of kernel ``source`` built for ``proposal``."""
+    if proposal not in PROPOSALS:
+        raise NotImplementedError(
+            f"fused kernels take the Normal, Laplace and UniformRadius "
+            f"proposals; {proposal!r} is not one of them")
+    return source + PROPOSALS[proposal][0]
+
+
 def build(names=KERNELS) -> dict[str, str]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` each,
-    all started together.  Returns ``{name: ptxas report}``; raises with the
+    """Compile the named libraries that are not built yet, one ``nvcc``
+    each, all started together.  Returns ``{name: ptxas report}``; raises with the
     compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -84,7 +113,8 @@ def build(names=KERNELS) -> dict[str, str]:
             PTXAS_LOG[name] = log.read_text()
             continue
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{LIBRARIES[name][0]}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, log)
@@ -108,7 +138,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = _ARGTYPES[name]
+        fn_name, argtypes = _ARGTYPES[LIBRARIES[name][0]]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -117,8 +147,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name``."""
-    return getattr(load(name), _ARGTYPES[name][0])
+    """The C entry point of library ``name``."""
+    return getattr(load(name), _ARGTYPES[LIBRARIES[name][0]][0])
 
 
 def check_launch(name: str, rc: int) -> None:
@@ -154,11 +184,11 @@ def kernel_target(target) -> tuple[int, torch.Tensor]:
         raise NotImplementedError(
             "fused CUDA kernels take the identity-covariance "
             "MultivariateNormal only; a full covariance waits for "
-            "ROADMAP Queue A item 8 (remaining targets in the kernels)")
+            "ROADMAP Queue A item 9 (remaining targets in the kernels)")
     else:
         raise NotImplementedError(
             f"fused CUDA kernels do not support target {name!r} yet "
-            "(ROADMAP Queue A item 8)")
+            "(ROADMAP Queue A item 9)")
     return kind, torch.cat([p.to(torch.float32) for p in parts]).contiguous()
 
 

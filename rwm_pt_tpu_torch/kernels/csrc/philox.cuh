@@ -2,7 +2,8 @@
 // rwm_pt_tpu_torch/kernels/draws.py::philox4x32, whose docstring defines the
 // counter/slot layout the kernels follow:
 //   key = (seed lo, seed hi), counter = (block k, replica, rung, abs_step),
-//   slot j = 4k + w: 0..d-1 normals, d MH uniform, d+1 swap uniform.
+//   slot j = 4k + w: 0..d-1 increment words, d MH uniform, d+1 swap
+//   uniform, d+2 UniformRadius radius uniform.
 #pragma once
 #include <stdint.h>
 

@@ -1,11 +1,11 @@
 """Counter-based random draws of the fused samplers, in plain PyTorch.
 
 Replaces the TPU hardware PRNG helpers of ``rwm_pt_tpu.kernels.pallas_rwm``
-(``_uniform``, ``_erfinv_giles``, ``_normal_icdf``) with Philox4x32-10
-(Salmon et al., SC'11, "Parallel random numbers: as easy as 1, 2, 3").  The
-CUDA kernels (``csrc/philox.cuh``, ``csrc/draws.cuh``) compute the same
-words, so on the card a plain run and a kernel run of one seed consume one
-stream.
+(``_uniform``, ``_erfinv_giles``, ``_normal_icdf``, and the increments
+``_laplace`` and ``_uniform_ball``) with Philox4x32-10 (Salmon et al.,
+SC'11, "Parallel random numbers: as easy as 1, 2, 3").  The CUDA kernels
+(``csrc/philox.cuh``, ``csrc/draws.cuh``) compute the same words, so on the
+card a plain run and a kernel run of one seed consume one stream.
 
 Slot layout (the one definition; the kernels match it)
 ------------------------------------------------------
@@ -16,13 +16,17 @@ Slot layout (the one definition; the kernels match it)
   a resumed segment continues the stream an uninterrupted run would draw;
 * one Philox call gives the four words of block ``k``; word ``w`` of block
   ``k`` is slot ``j = 4k + w`` of that (replica, rung, step);
-* slots ``0 .. d-1``: the standard normals of the proposal increment, one
-  per coordinate (ICDF draw below);
+* slots ``0 .. d-1``: the increment words, one per coordinate: standard
+  normals (ICDF draw below) for ``Normal`` and ``UniformRadius`` (the
+  ball's direction), uniforms for ``Laplace``;
 * slot ``d``: the MH accept uniform;
 * slot ``d+1``: the swap uniform of pair (rung, rung+1), PT only, rungs
-  ``0 .. T-2``, read on swap steps only.
+  ``0 .. T-2``, read on swap steps only;
+* slot ``d+2``: the radius uniform of ``UniformRadius``, read by that
+  proposal only.
 
-RWM uses the same layout at ``rung = 0`` and never reads slot ``d+1``.
+RWM uses the same layout at ``rung = 0`` and never reads slot ``d+1``.  A
+``Normal`` run reads exactly the words it read before slot ``d+2`` existed.
 
 Uniforms are the top 24 bits of a word times 2^-24 -- a *logical* shift
 (``pallas_rwm.py:44-46``: a sign-extending shift of an int32 view makes
@@ -139,14 +143,75 @@ def slot_words(key: tuple[int, int], abs_step: int, n_rungs: int,
     return words.reshape(n_rungs, n_blk * 4, n_chains)[:, :n_slots]
 
 
+PROPOSAL_KINDS = ("Normal", "Laplace", "UniformRadius")
+LAPLACE_CLAMP = -0.999999    # laplace.py:64-67 of the reference
+
+
+def laplace_increment(u: torch.Tensor, scale) -> torch.Tensor:
+    """Laplace increments from U[0,1) words ``u`` by the reference's inverse
+    CDF, exactly ``pallas_rwm.py::_laplace``'s arithmetic: ``v = u - 0.5``,
+    ``-scale * sign(v) * log1p(max(-2|v|, -0.999999))``.  ``sign(0) = 0``,
+    so ``u = 0.5`` gives a zero increment; ``u = 0`` hits the clamp."""
+    v = u - 0.5
+    clamped = torch.clamp_min(-2.0 * torch.abs(v), LAPLACE_CLAMP)
+    return -scale * torch.sign(v) * torch.log1p(clamped)
+
+
+def uniform_ball_increment(normals: torch.Tensor, u_radius: torch.Tensor,
+                           radius) -> torch.Tensor:
+    """Uniform increments in the ``radius``-ball, exactly
+    ``pallas_rwm.py::_uniform_ball``'s arithmetic: the direction
+    ``normals / max(||normals||, 1e-12)`` (norm over axis 0) times
+    ``radius * exp(log(U) / d)``, so ``U = 0`` gives 0.  ``normals``
+    ``(d, *B)``, ``u_radius`` ``(*B)``, ``radius`` broadcastable to
+    ``(*B)``."""
+    d = normals.shape[0]
+    norms = torch.sqrt(torch.sum(normals * normals, dim=0, keepdim=True))
+    dirs = normals / torch.clamp_min(norms, 1e-12)
+    return dirs * (radius * torch.exp(torch.log(u_radius) * (1.0 / d)))
+
+
+def increment(kind: str, inc, u_rad, scale):
+    """Proposal increment of ``kind`` from one step's draws (``inc`` and
+    ``u_rad`` of :func:`step_draws`) and its effective scale: the Normal
+    std, the UniformRadius radius (both broadcastable to the batch axes) or
+    the Laplace scale ``(d, ...)``, broadcastable to ``inc``."""
+    if kind == "Normal":
+        return inc * scale
+    if kind == "Laplace":
+        return laplace_increment(inc, scale)
+    return uniform_ball_increment(inc, u_rad, scale)
+
+
+def n_records(total: int, record_every) -> int:
+    """Trace entries of a recorded launch of ``total`` steps: one after
+    every ``record_every``-th step; trailing steps are run, not recorded."""
+    if not record_every:
+        return 0
+    if record_every < 1 or record_every > total:
+        raise ValueError("record_every exceeds the total step count")
+    return total // record_every
+
+
 def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
-               n_chains: int, device, swap: bool = True):
-    """One step's draws: normals ``(T, d, C)``, MH uniforms ``(T, C)`` and,
-    with ``swap``, swap uniforms ``(T, C)`` (row ``t`` serves pair
-    ``(t, t+1)``; the last row is unused)."""
-    words = slot_words(key, abs_step, n_rungs, dim + 2 if swap else dim + 1,
-                       n_chains, device)
-    normals = normal_icdf(uniform_from_bits(words[:, :dim]))
+               n_chains: int, device, swap: bool = True,
+               kind: str = "Normal"):
+    """One step's draws: ``(inc, u_mh, u_swap, u_radius)``.  ``inc`` is
+    ``(T, d, C)``: normals for ``Normal`` and ``UniformRadius``, uniforms
+    for ``Laplace``; MH uniforms ``(T, C)``; with ``swap``, swap uniforms
+    ``(T, C)`` (row ``t`` serves pair ``(t, t+1)``; the last row is unused),
+    else None; for ``UniformRadius`` the radius uniforms ``(T, C)`` (slot
+    ``d+2``), else None."""
+    if kind not in PROPOSAL_KINDS:
+        raise ValueError(f"unknown proposal kind {kind!r}")
+    n_slots = dim + 3 if kind == "UniformRadius" else (
+        dim + 2 if swap else dim + 1)
+    words = slot_words(key, abs_step, n_rungs, n_slots, n_chains, device)
+    inc = uniform_from_bits(words[:, :dim])
+    if kind != "Laplace":
+        inc = normal_icdf(inc)
     u_mh = uniform_from_bits(words[:, dim])
     u_swap = uniform_from_bits(words[:, dim + 1]) if swap else None
-    return normals, u_mh, u_swap
+    u_rad = (uniform_from_bits(words[:, dim + 2])
+             if kind == "UniformRadius" else None)
+    return inc, u_mh, u_swap, u_rad

@@ -1,4 +1,7 @@
-"""Proposals ported so far: the ``Proposal`` base and ``NormalProposal``."""
-from .proposals import NormalProposal, Proposal
+"""Proposals: the ``Proposal`` base, ``NormalProposal``, ``LaplaceProposal``,
+``UniformRadiusProposal`` and ``create_proposal_distribution``."""
+from .proposals import (LaplaceProposal, NormalProposal, Proposal,
+                        UniformRadiusProposal, create_proposal_distribution)
 
-__all__ = ["Proposal", "NormalProposal"]
+__all__ = ["Proposal", "NormalProposal", "LaplaceProposal",
+           "UniformRadiusProposal", "create_proposal_distribution"]

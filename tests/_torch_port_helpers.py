@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from rwm_pt_tpu.kernels import pallas_pt
+from rwm_pt_tpu.kernels import pallas_pt, pallas_rwm
 
 Z_MAX = 4.5   # per-statistic invariance bound of tests/test_invariance.py
 
@@ -19,9 +19,24 @@ def make_draws(seed, S, T, d, C):
             rng.random((S, max(T - 1, 0), C), dtype=np.float32))
 
 
+def make_proposal_draws(seed, kind, S, T, d, C):
+    """Injected draws of proposal ``kind``: increment draws (S, T, d, C)
+    (standard normals, or for Laplace uniforms on the 2^-24 grid), MH and
+    swap uniforms as :func:`make_draws`, and for UniformRadius the radius
+    uniforms (S, T, C)."""
+    inc, u_mh, u_sw = make_draws(seed, S, T, d, C)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "Laplace":
+        inc = (rng.integers(0, 1 << 24, inc.shape) * 2.0 ** -24).astype(
+            np.float32)
+    if kind == "UniformRadius":
+        return inc, u_mh, u_sw, rng.random((S, T, C), dtype=np.float32)
+    return inc, u_mh, u_sw
+
+
 def run_jax_body(monkeypatch, target, x0, betas, sigmas, draws, step0,
                  burn_in, swap_every, acc0=None, swapacc0=None, bj0=None,
-                 cj0=None):
+                 cj0=None, kind="Normal", snapshots=None):
     """Drive the Pallas PT kernel's own step body
     (``pallas_pt._pt_body_fn``) eagerly, step by step, on the given draws.
 
@@ -29,9 +44,15 @@ def run_jax_body(monkeypatch, target, x0, betas, sigmas, draws, step0,
     uniforms through the module global ``_uniform``; ``monkeypatch``
     replaces the latter for the test only.  Per step the body asks for T
     (increment, MH uniform) pairs, then T-1 swap uniforms, even on steps
-    without a swap.  Returns numpy ``(x (d,T,C), lp, acc, swapacc,
-    betajump, coldjump)``."""
-    normals, u_mh, u_sw = draws
+    without a swap.  ``draw_inc`` is the kernel's own for proposal
+    ``kind`` (``pallas_pt.py:119-124``): ``_normal * sigma_t``,
+    ``pallas_rwm._laplace(shape, scale_t)`` with ``sigmas`` the ``(T, d)``
+    Laplace scales, or ``pallas_rwm._uniform_ball(shape, radius_t)``, with
+    ``pallas_rwm._uniform``/``_normal`` fed the injected draws of
+    :func:`make_proposal_draws`.  ``snapshots``, a list, receives the cold
+    rung (numpy ``(d, C)``) after every step, after the swap sweep.
+    Returns numpy ``(x (d,T,C), lp, acc, swapacc, betajump, coldjump)``."""
+    inc, u_mh, u_sw = draws[:3]
     d, T, C = x0.shape
     feed = []
     monkeypatch.setattr(pallas_pt, "_uniform", lambda shape: feed.pop(0))
@@ -40,7 +61,18 @@ def run_jax_body(monkeypatch, target, x0, betas, sigmas, draws, step0,
 
     def draw_inc(t, shape):
         assert shape == (d, C)
-        return jnp.asarray(normals[cur["s"], t]) * sig[t]
+        s = cur["s"]
+        if kind == "Normal":
+            return jnp.asarray(inc[s, t]) * sig[t]
+        if kind == "Laplace":
+            monkeypatch.setattr(pallas_rwm, "_uniform",
+                                lambda shape: jnp.asarray(inc[s, t]))
+            return pallas_rwm._laplace(shape, sig[t][:, None])
+        monkeypatch.setattr(pallas_rwm, "_normal",
+                            lambda shape, impl=None: jnp.asarray(inc[s, t]))
+        monkeypatch.setattr(pallas_rwm, "_uniform",
+                            lambda shape: jnp.asarray(draws[3][s, t])[None])
+        return pallas_rwm._uniform_ball(shape, sig[t])
 
     body = pallas_pt._pt_body_fn(target, draw_inc,
                                  jnp.asarray(betas, jnp.float32), burn_in,
@@ -55,12 +87,14 @@ def run_jax_body(monkeypatch, target, x0, betas, sigmas, draws, step0,
              jnp.asarray(z_i if swapacc0 is None else swapacc0[None]),
              z_f if bj0 is None else jnp.asarray(bj0[None]), z_f,
              z_f if cj0 is None else jnp.asarray(cj0[None]), z_f)
-    for s in range(normals.shape[0]):
+    for s in range(inc.shape[0]):
         cur["s"] = s
         feed[:] = ([jnp.asarray(u_mh[s, t])[None] for t in range(T)]
                    + [jnp.asarray(u_sw[s, j])[None] for j in range(T - 1)])
         carry = body(s, carry)
         assert not feed, "the body drew fewer uniforms than expected"
+        if snapshots is not None:
+            snapshots.append(np.asarray(carry[0][0]))
     x, lp, acc, swapacc, bj, _, cj, _ = carry
     return (np.stack([np.asarray(v) for v in x], axis=1),
             np.concatenate([np.asarray(v) for v in lp]),

@@ -68,6 +68,38 @@ def test_one_replica_fault_is_caught(field):
     assert a.mismatched == {field: 1}
 
 
+def test_pre_sweep_snapshot_is_caught():
+    """A PT trace entry is rung 0 after the swap sweep of its step.  Entries
+    taken before the sweep fail the hold although x and every counter
+    agree.  On a two-rung ladder they are rebuilt from a step-by-step run:
+    rung 0 before the sweep is rung 1 after it where pair 0 swapped."""
+    g = torch.Generator().manual_seed(2)
+    target = FullRosenbrock.create(D, device="cpu")
+    betas = torch.tensor([1.0, 0.3])
+    x = (0.5 * torch.randn(D, 1, C, generator=g)).expand(D, 2, C)
+    x = x.contiguous()
+
+    def run(x0, step0, total, **kw):
+        zi = torch.zeros(2, C, dtype=torch.int32)
+        return _run_pt_fused_plain(
+            target, x0, zi, zi[0], torch.zeros(C), torch.zeros(C), betas,
+            torch.sqrt(0.1 / betas), seed_key(7), step0, total, 0, 2, **kw)
+
+    steps = 12
+    good = run(x, 0, steps, record_every=1, record_chains=C)
+    pre, post = [], []
+    for s in range(steps):
+        out = run(x, s, 1)
+        x = out[0]
+        post.append(x[:, 0])
+        pre.append(torch.where(out[3] > 0, x[:, 1], x[:, 0]))
+    assert torch.equal(torch.stack(post), good[-1])
+    bad = good[:-1] + (torch.stack(pre),)
+    a = agreement.hold(bad, good, agreement.PT_REC_OUTPUTS)
+    assert a.frac == 1.0
+    assert set(a.mismatched) == {"chain"} and a.mismatched["chain"] > C // 4
+
+
 def test_diverged_replica_is_left_out():
     """A replica whose x parted ways is counted out of the share and its
     other outputs are not compared."""

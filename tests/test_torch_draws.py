@@ -1,12 +1,15 @@
 """The port's counter-based draws (rwm_pt_tpu_torch/kernels/draws.py):
 Philox4x32-10 against Random123's known answers, the Giles erfinv against
-the JAX package's, and the ICDF normal's distribution."""
+the JAX package's, the ICDF normal's distribution, the slot layout of the
+three proposals, and the Laplace and uniform-ball increments against
+pallas_rwm.py's own on the same uniforms and normals."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy.stats import norm
 
+from rwm_pt_tpu.kernels import pallas_rwm
 from rwm_pt_tpu.kernels.pallas_rwm import _erfinv_giles
 from rwm_pt_tpu_torch.kernels import draws
 
@@ -80,10 +83,78 @@ def test_slot_layout():
 
 
 def test_step_draws_shapes_and_seed_mixing():
-    n, u, us = draws.step_draws(draws.seed_key(3), 1, 4, 6, 8, "cpu")
+    n, u, us, ur = draws.step_draws(draws.seed_key(3), 1, 4, 6, 8, "cpu")
     assert n.shape == (4, 6, 8) and u.shape == (4, 8) and us.shape == (4, 8)
-    n2, _, _ = draws.step_draws(draws.seed_key(3), 2, 4, 6, 8, "cpu")
+    assert ur is None
+    n2, _, _, _ = draws.step_draws(draws.seed_key(3), 2, 4, 6, 8, "cpu")
     assert not torch.equal(n, n2)
     g = torch.Generator().manual_seed(0)
     assert draws.resolve_seed(g) == draws.resolve_seed(
         torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("kind", ["Normal", "Laplace", "UniformRadius"])
+def test_step_draws_slots_per_proposal(kind):
+    """Every kind reads its increment words from slots 0..d-1 and its MH
+    uniform from slot d; Normal's words are the ones it read before slot
+    d+2 existed, and UniformRadius adds its radius uniform at slot d+2."""
+    key, d, T, C = draws.seed_key(77), 6, 3, 5
+    words = draws.slot_words(key, 4, T, d + 3, C, "cpu")
+    inc, u, us, ur = draws.step_draws(key, 4, T, d, C, "cpu", kind=kind)
+    u_words = draws.uniform_from_bits(words)
+    want = u_words[:, :d] if kind == "Laplace" else draws.normal_icdf(
+        u_words[:, :d])
+    assert torch.equal(inc, want)
+    assert torch.equal(u, u_words[:, d]) and torch.equal(us, u_words[:, d + 1])
+    if kind == "UniformRadius":
+        assert torch.equal(ur, u_words[:, d + 2])
+    else:
+        assert ur is None
+
+
+def _laplace_uniforms(shape):
+    """Uniforms on the 2^-24 grid with both edge cases: 0.5 (a zero
+    increment, sign(0) = 0) and 0 (the clamp)."""
+    rng = np.random.default_rng(3)
+    u = (rng.integers(0, 1 << 24, shape) * 2.0 ** -24).astype(np.float32)
+    u.flat[0], u.flat[1] = 0.5, 0.0
+    return u
+
+
+def test_laplace_increment_matches_pallas(monkeypatch):
+    """rtol 1e-6: the same f32 arithmetic on both sides (log1p may differ by
+    an ulp between the two libraries)."""
+    d, C = 7, 64
+    u = _laplace_uniforms((d, C))
+    scale = np.linspace(0.1, 2.0, d).astype(np.float32)[:, None]
+    monkeypatch.setattr(pallas_rwm, "_uniform", lambda shape: jnp.asarray(u))
+    ref = np.asarray(pallas_rwm._laplace((d, C), jnp.asarray(scale)))
+    ours = draws.laplace_increment(torch.from_numpy(u),
+                                   torch.from_numpy(scale)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=0)
+    assert ours.flat[0] == 0.0 and np.isfinite(ours).all()
+    # u = 0: v = -0.5, sign -1, the clamp at -0.999999
+    np.testing.assert_allclose(ours.flat[1], 0.1 * np.log1p(
+        np.float32(-0.999999)), rtol=1e-6)
+
+
+def test_uniform_ball_increment_matches_pallas(monkeypatch):
+    """rtol 1e-6 (the norm's sum may be taken in another order); a radius
+    uniform of 0 gives a zero increment."""
+    d, C = 5, 64
+    rng = np.random.default_rng(4)
+    n = rng.standard_normal((d, C)).astype(np.float32)
+    ur = rng.random((1, C), dtype=np.float32)
+    ur[0, 0] = 0.0
+    monkeypatch.setattr(pallas_rwm, "_normal",
+                        lambda shape, impl=None: jnp.asarray(n))
+    monkeypatch.setattr(pallas_rwm, "_uniform",
+                        lambda shape: jnp.asarray(ur))
+    ref = np.asarray(pallas_rwm._uniform_ball((d, C), jnp.float32(0.7)))
+    ours = draws.uniform_ball_increment(torch.from_numpy(n),
+                                        torch.from_numpy(ur[0]),
+                                        0.7).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-7)
+    assert (ours[:, 0] == 0).all()
+    r = np.sqrt((ours ** 2).sum(0))
+    assert (r <= 0.7 * (1 + 1e-6)).all()

@@ -25,6 +25,13 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch.kernels.draws
         import rwm_pt_tpu_torch.kernels.fused_pt
         import rwm_pt_tpu_torch.kernels.fused_rwm
+        import rwm_pt_tpu_torch.analysis.diagnostics
+        import rwm_pt_tpu_torch.api.simulation
+        import rwm_pt_tpu_torch.cli.common
+        import rwm_pt_tpu_torch.cli.experiment_rwm
+        import rwm_pt_tpu_torch.ladders.ladders
+        import rwm_pt_tpu_torch.proposals.proposals
+        import rwm_pt_tpu_torch.targets.registry
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "rwm_pt_tpu")
                   and sys.modules[m] is not None]
@@ -37,11 +44,16 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
-def _entry_points():
+def _entry_points(out_dir):
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli.experiment_rwm import run_study
     from rwm_pt_tpu_torch.kernels import (run_pt, run_pt_fused, run_rwm,
                                           run_rwm_fused)
-    from rwm_pt_tpu_torch.proposals import NormalProposal
-    from rwm_pt_tpu_torch.targets import MultivariateNormal
+    from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
+                                            UniformRadiusProposal,
+                                            create_proposal_distribution)
+    from rwm_pt_tpu_torch.targets import (MultivariateNormal,
+                                          get_target_distribution)
     t = MultivariateNormal.create(2, device="cpu")
     p = NormalProposal.create(2, 1.0, device="cpu")
     kw = dict(num_chains=4, num_iterations=2)
@@ -57,15 +69,37 @@ def _entry_points():
         "run_pt_fused": lambda **d: run_pt_fused(t, 0, [1.0, 0.5],
                                                  base_variance=1.0, **kw,
                                                  **d),
+        "LaplaceProposal.create": lambda **d: LaplaceProposal.create(
+            2, 1.0, **d),
+        "UniformRadiusProposal.create":
+            lambda **d: UniformRadiusProposal.create(2, 1.0, **d),
+        "create_proposal_distribution":
+            lambda **d: create_proposal_distribution(
+                2, {"name": "Laplace",
+                    "params": {"base_variance_vector": 1.0}}, **d),
+        "get_target_distribution": lambda **d: get_target_distribution(
+            "FullRosenbrock", 2, **d),
+        "MCMCSimulation": lambda **d: MCMCSimulation(
+            dim=2, sigma=1.0, num_iterations=2, num_chains=4,
+            target_dist="MultivariateNormal", **d).generate_samples(
+                verbose=False),
+        "run_study": lambda **d: run_study(
+            2, num_iters=2, burn_in=0, num_chains=4, num_configs=1,
+            output_dir=out_dir, make_plots=False, **d),
     }
 
 
 @pytest.mark.parametrize("name", ["MultivariateNormal.create",
                                   "NormalProposal.create", "run_rwm",
-                                  "run_pt", "run_rwm_fused", "run_pt_fused"])
-def test_entry_points_default_to_cuda(name, monkeypatch):
+                                  "run_pt", "run_rwm_fused", "run_pt_fused",
+                                  "LaplaceProposal.create",
+                                  "UniformRadiusProposal.create",
+                                  "create_proposal_distribution",
+                                  "get_target_distribution",
+                                  "MCMCSimulation", "run_study"])
+def test_entry_points_default_to_cuda(name, monkeypatch, tmp_path):
     """With no card, the default device raises; ``device='cpu'`` runs."""
-    fn = _entry_points()[name]
+    fn = _entry_points(str(tmp_path))[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         fn()

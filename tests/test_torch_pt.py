@@ -1,7 +1,9 @@
 """The port's PT engines (eager run_pt, fused run_pt_fused) against the JAX
 package: step for step against the Pallas kernel's own body on shared
-draws, bookkeeping against run_pt_pallas, rates against the scan engine,
-exact invariance per rung, resume and checkpoints."""
+draws (Normal, Laplace, UniformRadius; traces of the cold rung after the
+swap sweep), bookkeeping and trace shapes against run_pt_pallas, rates and
+trace moments against the scan engine, exact invariance per rung, resume
+and checkpoints."""
 import dataclasses
 import zlib
 
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from _torch_port_helpers import (Z_MAX, f32_sigmas, invariance_max_z,
-                                 make_draws, rate_z, run_jax_body)
+                                 make_draws, make_proposal_draws, rate_z,
+                                 run_jax_body)
 from rwm_pt_tpu.kernels import PTState as JPTState
 from rwm_pt_tpu.kernels import run_pt as jrun_pt
 from rwm_pt_tpu.kernels import run_pt_pallas
@@ -23,7 +26,9 @@ from rwm_pt_tpu_torch.convert import (pt_state_from_numpy, pt_state_to_numpy,
                                       target_from_numpy)
 from rwm_pt_tpu_torch.kernels import PTState, run_pt, run_pt_fused
 from rwm_pt_tpu_torch.kernels import _build
-from rwm_pt_tpu_torch.proposals import NormalProposal
+from rwm_pt_tpu_torch.kernels.fused_pt import rung_scales
+from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
+                                        UniformRadiusProposal)
 from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
 
 torch.set_num_threads(1)
@@ -268,3 +273,182 @@ def test_unsupported_inputs_raise():
         _build.kernel_target(full)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build.kernel_target(FullRosenbrock.create(65, device=CPU))
+
+
+def _new_proposal(kind, d, target):
+    """An anisotropic Laplace or a UniformRadius proposal of about the
+    Normal cases' step size."""
+    if kind == "Laplace":
+        lo, hi = (0.02, 0.08) if target == "rosenbrock" else (0.8, 2.0)
+        return LaplaceProposal.create(d, np.linspace(lo, hi, d), device=CPU)
+    return UniformRadiusProposal.create(
+        d, 0.6 if target == "rosenbrock" else 2.5, device=CPU)
+
+
+# (proposal, target, d, T, C, steps, burn_in, swap_every, step0)
+NEW_BODY_CASES = [
+    ("Laplace", "rosenbrock", 6, 4, 16, 30, 5, 5, 0),
+    ("Laplace", "mvn_iso", 5, 4, 16, 30, 10, 4, 12),
+    ("UniformRadius", "rosenbrock", 6, 4, 16, 30, 3, 7, 0),
+    ("UniformRadius", "mvn_iso", 5, 4, 16, 30, 10, 4, 12),
+]
+
+
+@pytest.mark.parametrize("case", NEW_BODY_CASES,
+                         ids=["laplace-rb", "laplace-mvn-resume",
+                              "uniform_radius-rb",
+                              "uniform_radius-mvn-resume"])
+def test_fused_plain_new_proposals_match_pallas_body(monkeypatch, case):
+    """Laplace and UniformRadius: the plain version step for step against
+    ``_pt_body_fn`` with the Pallas kernel's own increments (``_laplace``
+    with per-rung (T, d) scales, ``_uniform_ball`` with per-rung radii) on
+    shared draws, under per-rung scale multipliers.  Counts exact, floats
+    to rtol 1e-5; the per-rung scales equal the reference wrapper's laws
+    (pallas_pt.py:307-320) bit for bit."""
+    prop, kind, d, T, C, S, burn_in, swap_every, step0 = case
+    jt, pt = _jax_target(kind, d)
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    betas = np.geomspace(1.0, 0.05, T).astype(np.float32)
+    mult = np.linspace(1.0, 1.5, T).astype(np.float32)
+    x0 = (rng.normal(size=(d, T, C)) * 0.5).astype(np.float32)
+    acc0 = rng.integers(0, 50, (T, C)).astype(np.int32)
+    swapacc0 = rng.integers(0, 50, C).astype(np.int32)
+    bj0 = rng.random(C).astype(np.float32) * 3
+    cj0 = rng.random(C).astype(np.float32) * 7
+    p = _new_proposal(prop, d, kind)
+    got_kind, scales = rung_scales(p, None, torch.from_numpy(betas),
+                                   torch.from_numpy(mult))
+    jb, jm = jnp.asarray(betas), jnp.asarray(mult)
+    if prop == "Laplace":
+        want = jnp.sqrt(jnp.asarray(p.base_variance_vector.numpy())[None, :]
+                        * jm[:, None] / jb[:, None] / 2.0)
+    else:
+        want = (jnp.asarray(p.base_radius.numpy()) * jnp.sqrt(jm)
+                / jnp.sqrt(jb))
+    assert got_kind == prop
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want))
+
+    draws = make_proposal_draws(11, prop, S, T, d, C)
+    ref = run_jax_body(monkeypatch, jt, x0, betas, scales.numpy(), draws,
+                       step0, burn_in, swap_every, acc0, swapacc0, bj0, cj0,
+                       kind=prop)
+    lp0 = np.asarray(jt.log_density_td(jnp.asarray(x0)))
+    state = pt_state_from_numpy(dict(
+        x=x0, logp=lp0, accept_count=acc0, swap_attempt_count=0,
+        swap_accept_count=swapacc0, sum_beta_sq_jump=bj0,
+        sum_sq_jump_cold=cj0, step=step0), device=CPU)
+    res = run_pt_fused(pt, 0, betas, proposal=p, scale_multipliers=mult,
+                       num_chains=C, num_iterations=S, burn_in=burn_in,
+                       swap_every=swap_every, resume_state=state, device=CPU,
+                       draws=tuple(torch.from_numpy(a) for a in draws))
+    st = res.state
+    np.testing.assert_array_equal(st.accept_count.numpy(), ref[2])
+    np.testing.assert_array_equal(st.swap_accept_count.numpy(), ref[3])
+    np.testing.assert_allclose(st.x.numpy(), ref[0], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(st.logp.numpy(), ref[1], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(st.sum_beta_sq_jump.numpy(), ref[4],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(st.sum_sq_jump_cold.numpy(), ref[5],
+                               rtol=RTOL, atol=ATOL)
+    assert (st.accept_count.numpy() > acc0).any()
+    assert (st.swap_accept_count.numpy() > swapacc0).any()
+
+
+@pytest.mark.parametrize("prop", ["Normal", "UniformRadius"])
+def test_fused_plain_trace_matches_pallas_body(monkeypatch, prop):
+    """Entry k of the trace is rung 0 (the cold chain) of the first
+    ``record_chains`` replicas after launch-relative step (k+1) *
+    record_every, taken after that step's swap sweep; the 3 trailing steps
+    (23 = 4 * 5 + 3) run unrecorded.  Held against ``_pt_body_fn``'s state
+    after every step (floats to rtol 1e-5), with swaps every 2 steps so
+    that two of the four entries fall on swap steps."""
+    d, T, C, S, every, rc = 4, 3, 8, 23, 5, 3
+    jt, pt = _jax_target("mvn_iso", d)
+    betas = np.geomspace(1.0, 0.7, T).astype(np.float32)
+    x0 = (np.random.default_rng(4).normal(size=(d, T, C))).astype(np.float32)
+    if prop == "Normal":
+        p, scales = NormalProposal.create(d, 1.2, device=CPU), None
+    else:
+        p = UniformRadiusProposal.create(d, 2.0, device=CPU)
+    _, scales = rung_scales(p, None, torch.from_numpy(betas),
+                            torch.ones(T))
+    draws = make_proposal_draws(5, prop, S, T, d, C)
+    snaps = []
+    ref = run_jax_body(monkeypatch, jt, x0, betas, scales.numpy(), draws, 0,
+                       3, 2, kind=prop, snapshots=snaps)
+    r = run_pt_fused(pt, 0, betas, proposal=p, num_chains=C,
+                     num_iterations=S - 3, burn_in=3, swap_every=2,
+                     init_states=torch.from_numpy(x0), record_every=every,
+                     record_chains=rc, device=CPU,
+                     draws=tuple(torch.from_numpy(a) for a in draws))
+    assert tuple(r.chain.shape) == (S // every, d, rc)
+    want = np.stack([snaps[(k + 1) * every - 1][:, :rc]
+                     for k in range(S // every)])
+    np.testing.assert_allclose(r.chain.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(r.state.x.numpy(), ref[0], rtol=RTOL,
+                               atol=ATOL)
+    assert r.state.step == S
+    assert int(r.state.swap_accept_count.sum()) > 0
+
+
+def test_record_shapes_match_pallas():
+    """Trace shape ``(total // record_every, d, record_chains)`` and the
+    trailing steps' bookkeeping against ``run_pt_pallas(record_every=...,
+    interpret=True)`` (whose PRNG is degenerate on the CPU); a
+    ``record_every`` beyond the run raises on both."""
+    d, T, C = 2, 3, 8
+    betas = np.asarray([1.0, 0.6, 0.3], np.float32)
+    kw = dict(base_variance=0.5, num_chains=C, num_iterations=25,
+              burn_in=5, swap_every=4, record_every=7, record_chains=2)
+    jr = run_pt_pallas(JMVN.create(d), jax.random.key(0), jnp.asarray(betas),
+                       **kw, interpret=True)
+    pt = MultivariateNormal.create(d, device=CPU)
+    r = run_pt_fused(pt, 0, betas, **kw, device=CPU)
+    e = run_pt(pt, NormalProposal.create(d, 0.5, device=CPU), 0, betas,
+               **{k: v for k, v in kw.items() if k != "base_variance"},
+               device=CPU)
+    assert tuple(jr.chain.shape) == (30 // 7, d, 2)
+    for res in (r, e):
+        assert tuple(res.chain.shape) == tuple(jr.chain.shape)
+        assert res.state.step == int(jr.state.step) == 30
+        assert res.state.swap_attempt_count == int(
+            jr.state.swap_attempt_count)
+    with pytest.raises(ValueError, match="record_every"):
+        run_pt_pallas(JMVN.create(d), jax.random.key(0), jnp.asarray(betas),
+                      **dict(kw, record_every=31), interpret=True)
+    with pytest.raises(ValueError, match="record_every"):
+        run_pt_fused(pt, 0, betas, **dict(kw, record_every=31), device=CPU)
+
+
+def _trace_z(a, b, burn):
+    """Max z over the coordinates' first and second moments of two traces
+    ``(n_rec, d, C)``: per-chain averages over the post-burn-in entries,
+    chains independent."""
+    zs = []
+    for f in (lambda x: x, np.square):
+        ma = f(np.asarray(a, np.float64)[burn:]).mean(0)   # (d, C)
+        mb = f(np.asarray(b, np.float64)[burn:]).mean(0)
+        for i in range(ma.shape[0]):
+            zs.append(rate_z(ma[i], mb[i]))
+    return max(zs)
+
+
+def test_trace_moments_match_jax_scan():
+    """The cold-chain traces of the fused plain version and of the eager
+    engine against the JAX scan engine's on MVN d=2, T=3: the coordinates'
+    first and second moments within 5 Monte-Carlo standard errors."""
+    d, T, C = 2, 3, 256
+    betas = np.asarray([1.0, 0.5, 0.25], np.float32)
+    kw = dict(num_chains=C, num_iterations=240, burn_in=60, swap_every=5,
+              record_every=4, record_chains=C)
+    jr = jrun_pt(JMVN.create(d), JNormalProposal.create(d, 2.0),
+                 jax.random.key(6), jnp.asarray(betas),
+                 swap_sweep="sequential", **kw)
+    pt = MultivariateNormal.create(d, device=CPU)
+    fused = run_pt_fused(pt, 7, betas, base_variance=2.0, device=CPU, **kw)
+    eager = run_pt(pt, NormalProposal.create(d, 2.0, device=CPU), 8, betas,
+                   swap_sweep="sequential", device=CPU, **kw)
+    ref = np.asarray(jr.chain)
+    for label, r in (("fused", fused), ("eager", eager)):
+        assert tuple(r.chain.shape) == ref.shape == (75, d, C)
+        assert _trace_z(r.chain.numpy(), ref, 15) < 5, label

@@ -1,8 +1,9 @@
 """The port's RWM engines (eager run_rwm, fused run_rwm_fused) against the
 JAX package: step for step against the Pallas PT body at T=1 with no swaps
-(the MH body of pallas_rwm.py:293-312) on shared draws, bookkeeping
-against run_rwm_pallas, rates against the scan engine, exact invariance,
-and resume."""
+(the MH body of pallas_rwm.py:293-312) on shared draws, for the Normal,
+Laplace and UniformRadius increments and the recorded trace, bookkeeping
+and trace shapes against run_rwm_pallas, rates and trace moments against
+the scan engine, exact invariance, and resume."""
 import dataclasses
 
 import jax
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from _torch_port_helpers import (Z_MAX, f32_sigmas, invariance_max_z,
-                                 make_draws, rate_z, run_jax_body)
+                                 make_draws, make_proposal_draws, rate_z,
+                                 run_jax_body)
 from rwm_pt_tpu.kernels import RWMState as JRWMState
 from rwm_pt_tpu.kernels import run_rwm as jrun_rwm
 from rwm_pt_tpu.kernels import run_rwm_pallas
@@ -22,7 +24,9 @@ from rwm_pt_tpu.targets import MultivariateNormal as JMVN
 from rwm_pt_tpu_torch.convert import (rwm_state_from_numpy,
                                       rwm_state_to_numpy, target_from_numpy)
 from rwm_pt_tpu_torch.kernels import RWMState, run_rwm, run_rwm_fused
-from rwm_pt_tpu_torch.proposals import NormalProposal
+from rwm_pt_tpu_torch.kernels.fused_rwm import proposal_scale
+from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
+                                        UniformRadiusProposal)
 from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
 
 torch.set_num_threads(1)
@@ -189,3 +193,138 @@ def test_record_every_shapes():
                 device=CPU)
     assert r.chain.shape == (4, 2, 3)
     assert torch.equal(r.chain[-1], r.state.x[:, :3])
+
+
+def _targets(kind, d):
+    if kind == "rosenbrock":
+        jt = JFullRosenbrock.create(d)
+        return jt, target_from_numpy("FullRosenbrock", {
+            k: np.asarray(getattr(jt, k)) for k in ("a_coeff", "b_coeff",
+                                                    "mu")}, device=CPU)
+    jt = JMVN.create(d)
+    return jt, target_from_numpy("MultivariateNormal", {
+        k: np.asarray(getattr(jt, k)) for k in (
+            "mean", "cov", "cov_inv", "chol", "log_norm_const", "iso")},
+        device=CPU)
+
+
+@pytest.mark.parametrize("prop,kind,beta,record_every", [
+    ("Laplace", "rosenbrock", 1.0, 0),
+    ("Laplace", "mvn", 0.5, 7),
+    ("UniformRadius", "rosenbrock", 1.0, 0),
+    ("UniformRadius", "mvn", 0.5, 7),
+], ids=["laplace-rb", "laplace-mvn-tempered-record",
+        "uniform_radius-rb", "uniform_radius-mvn-tempered-record"])
+def test_fused_plain_new_proposals_match_pallas_body(monkeypatch, prop, kind,
+                                                     beta, record_every):
+    """Laplace (anisotropic scales sqrt(v / beta / 2)) and UniformRadius
+    (radius R / sqrt(beta)) step for step against the Pallas MH body with
+    the kernel's own increments on shared draws: counts exact, floats to
+    rtol 1e-5.  The recorded cases hold entry k of the trace against the
+    body's state after step (k+1) * record_every (30 = 4 * 7 + 2: two
+    trailing steps unrecorded)."""
+    d, C, S, burn_in, step0 = 5, 24, 30, 5, 9
+    jt, pt = _targets(kind, d)
+    rng = np.random.default_rng(len(prop) + d)
+    x0 = (rng.normal(size=(d, C)) * 0.7).astype(np.float32)
+    acc0 = rng.integers(0, 20, C).astype(np.int32)
+    jump0 = (rng.random(C) * 5).astype(np.float32)
+    if prop == "Laplace":
+        vec = np.linspace(0.02, 0.1, d) if kind == "rosenbrock" else 1.4
+        p = LaplaceProposal.create(d, vec, device=CPU)
+    else:
+        p = UniformRadiusProposal.create(
+            d, 0.5 if kind == "rosenbrock" else 2.4, device=CPU)
+    _, scale = proposal_scale(p, None, torch.tensor(beta))
+    draws = make_proposal_draws(17, prop, S, 1, d, C)
+    snaps = []
+    ref = run_jax_body(monkeypatch, jt, x0[:, None], np.float32([beta]),
+                       scale.numpy()[None], (*draws[:2], draws[2][:, :0],
+                                             *draws[3:]),
+                       step0, burn_in, 10 ** 6, acc0[None], None, None,
+                       jump0, kind=prop, snapshots=snaps)
+    state = rwm_state_from_numpy(dict(
+        x=x0, logp=np.asarray(jt.log_density_td(jnp.asarray(x0))),
+        accept_count=acc0, sum_sq_jump=jump0, step=step0), device=CPU)
+    inj = [torch.from_numpy(draws[0][:, 0]), torch.from_numpy(draws[1][:, 0])]
+    if prop == "UniformRadius":
+        inj.append(torch.from_numpy(draws[3][:, 0]))
+    r = run_rwm_fused(pt, 0, proposal=p, beta=beta, num_chains=C,
+                      num_iterations=S, burn_in=burn_in, resume_state=state,
+                      record_every=record_every or None, record_chains=3,
+                      device=CPU, draws=tuple(inj))
+    st = r.state
+    np.testing.assert_array_equal(st.accept_count.numpy(), ref[2][0])
+    np.testing.assert_allclose(st.x.numpy(), ref[0][:, 0], rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(st.logp.numpy(), ref[1][0], rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(st.sum_sq_jump.numpy(), ref[5], rtol=RTOL,
+                               atol=ATOL)
+    assert (st.accept_count.numpy() > acc0).any()
+    if record_every:
+        want = np.stack([snaps[(k + 1) * record_every - 1][:, :3]
+                         for k in range(S // record_every)])
+        assert tuple(r.chain.shape) == (S // record_every, d, 3)
+        np.testing.assert_allclose(r.chain.numpy(), want, rtol=RTOL,
+                                   atol=ATOL)
+    else:
+        assert r.chain is None
+
+
+def test_record_shapes_match_pallas():
+    """Trace shape and step count of a recorded run against
+    ``run_rwm_pallas(record_every=..., interpret=True)`` and the eager
+    engine; a ``record_every`` beyond the run raises on both packages."""
+    kw = dict(base_variance=0.5, num_chains=16, num_iterations=26,
+              burn_in=4, record_every=8, record_chains=5)
+    jr = run_rwm_pallas(JMVN.create(3), jax.random.key(0), **kw,
+                        interpret=True)
+    pt = MultivariateNormal.create(3, device=CPU)
+    r = run_rwm_fused(pt, 0, **kw, device=CPU)
+    e = run_rwm(pt, NormalProposal.create(3, 0.5, device=CPU), 0,
+                **{k: v for k, v in kw.items() if k != "base_variance"},
+                device=CPU)
+    assert tuple(jr.chain.shape) == (30 // 8, 3, 5)
+    for res in (r, e):
+        assert tuple(res.chain.shape) == tuple(jr.chain.shape)
+        assert res.state.step == int(jr.state.step) == 30
+    with pytest.raises(ValueError, match="record_every"):
+        run_rwm_pallas(JMVN.create(3), jax.random.key(0),
+                       **dict(kw, record_every=31), interpret=True)
+    with pytest.raises(ValueError, match="record_every"):
+        run_rwm_fused(pt, 0, **dict(kw, record_every=31), device=CPU)
+
+
+@pytest.mark.parametrize("prop", ["Normal", "Laplace", "UniformRadius"])
+def test_trace_moments_match_jax_scan(prop):
+    """Traces of the fused plain version and the eager engine against the
+    JAX scan engine's, for each proposal, on MVN d=2 (the same proposal
+    built by both factories): the coordinates' first and second moments
+    within 5 Monte-Carlo standard errors (per-chain averages, chains
+    independent)."""
+    from rwm_pt_tpu.proposals import create_proposal_distribution as jcreate
+    from rwm_pt_tpu_torch.proposals import create_proposal_distribution
+    d, C = 2, 256
+    params = {"Normal": {"base_variance_scalar": 2.0},
+              "Laplace": {"base_variance_vector": 2.0},
+              "UniformRadius": {"base_radius": 2.5}}[prop]
+    cfg = {"name": prop, "params": params}
+    kw = dict(num_chains=C, num_iterations=240, burn_in=60, record_every=4,
+              record_chains=C)
+    jr = jrun_rwm(JMVN.create(d), jcreate(d, cfg), jax.random.key(6), **kw)
+    pt = MultivariateNormal.create(d, device=CPU)
+    p = create_proposal_distribution(d, cfg, device=CPU)
+    fused = run_rwm_fused(pt, 7, proposal=p, device=CPU, **kw)
+    eager = run_rwm(pt, p, 8, device=CPU, **kw)
+    ref = np.asarray(jr.chain)
+    for label, r in (("fused", fused), ("eager", eager)):
+        assert tuple(r.chain.shape) == ref.shape == (75, d, C)
+        zs = []
+        for f in (lambda x: x, np.square):
+            ma = f(r.chain.numpy().astype(np.float64)[15:]).mean(0)
+            mb = f(ref.astype(np.float64)[15:]).mean(0)
+            zs += [rate_z(ma[i], mb[i]) for i in range(d)]
+        assert max(zs) < 5, (label, zs)
+        assert rate_z(r.acceptance_rate.numpy(),
+                      np.asarray(jr.acceptance_rate)) < 5, label
