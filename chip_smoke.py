@@ -6,9 +6,10 @@
 Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: both kernels from ``rwm_pt_tpu_torch/kernels/csrc``, one library
-   per proposal (six ``nvcc``, all in parallel), with ptxas registers and
-   spills per instantiation;
+2. build: every library the smoke launches, from
+   ``rwm_pt_tpu_torch/kernels/csrc``, one per (kernel, proposal, normal
+   draw, target kind), one ``nvcc`` each, all in parallel, with ptxas
+   registers, stack frame and spills per register bucket;
 3. kernel vs plain on one Philox stream: PT on FullRosenbrock d=30, T=10,
    C=2048 (200 steps, burn-in 50, swap every 10) and RWM on MVN d=10,
    C=2048: share of replicas whose final x agrees to 1e-3 (rounding can flip
@@ -37,7 +38,7 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    snapshot taken before the swap sweep shows); each is also timed alone
    at its main path's size (recording the first 4 replicas).  The RWM
    Laplace and UniformRadius kernels are also held at the study's shape
-   (MVN d=20, 1024 chains) at three scales of its grid;
+   (RoughCarpetScaled d=20, 1024 chains) at three scales of its grid;
 8. fused vs eager rates (z < 5) and exact invariance (Geweke, max z < 5,
    fresh printed seed) for the Laplace and UniformRadius proposals on MVN
    d=10, RWM and PT;
@@ -48,12 +49,48 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    fused kernel per run (and of its recording path), ``engine_used ==
    "pallas"``, a finite ``(2000, 30)`` chain, finite split R-hat and ESS;
 10. the RWM proposal study ``experiment_rwm`` at
-   ``scripts/launch_rwm_pod.sh``'s shape on MultivariateNormal (dim 20,
-   200,000 iterations, burn-in 1000, 1024 chains, var_max 4.0, seed 1,
-   ``--no_plots``) for Laplace and UniformRadius, ``STUDY_CONFIGS`` scale
-   configs each (the cut from the CLI's 40 is printed): one launch per
-   config; the ESJD-optimal acceptance and steps/s.  The study's JSON and
-   logs go to ``smoke_out/study/`` beside this script.
+   ``scripts/launch_rwm_pod.sh``'s shape on its default target
+   RoughCarpetScaled (dim 20, 200,000 iterations, burn-in 1000, 1024
+   chains, var_max 4.0, seed 1, ``--no_plots``) for Laplace and
+   UniformRadius, ``STUDY_CONFIGS`` scale configs each (a cut from the
+   CLI's 40 is printed): one launch per config; the ESJD-optimal
+   acceptance and steps/s.  The study's JSON and logs go to
+   ``smoke_out/study/`` beside this script;
+11. every other target kind (full-covariance MVN, scaled MVN,
+   ThreeMixture, RoughCarpet, EvenRosenbrock, HybridRosenbrock, Hypercube,
+   IIDGamma, IIDBeta, NealFunnel): both kernels timed alone at the
+   flagship shape (d=30 or the kind's nearest valid d, T=10, 65,536
+   replicas or chains, 2000 steps) beside its bound, held against their
+   plain versions at that d and at d=10 (2048 replicas or chains, 200
+   steps, burn-in 50, PT T=10 swapping every 10; the full-covariance MVN
+   PT at d=30 takes the instantiation with fewer than 32 replicas a
+   block), and driven once at the flagship shape through
+   ``run_pt_fused`` / ``run_rwm_fused``; the Geweke gate (max z < 5,
+   fresh printed seed) on ThreeMixture, RoughCarpet, IIDGamma (six rungs
+   1 .. 0.09, exact tempered gamma draws), NealFunnel and the
+   full-covariance MVN;
+12. the normal draws: every path above takes the draw
+   ``resolve_normal_impl`` picks for its kernel, replicas or chains and
+   target kind; here the Normal and UniformRadius variants of the other
+   draw are held against their plain versions at main-path shapes, the
+   Geweke gate runs on MVN d=10 with each draw forced, ICDF is timed
+   against Box-Muller (best of 6, interleaved, launch counters zeroed
+   just before) at the flagship PT (Normal and UniformRadius), the
+   full-covariance MVN at that shape, the PT study's shape, the RWM
+   headline and the RWM study's shape, and the ``resolve_normal_impl``
+   decision is printed beside each measurement;
+13. the PT swap-rate study ``experiment_pt`` at
+   ``scripts/launch_pt_pod.sh``'s shape (ThreeMixture d=10, 200,000
+   iterations, burn-in 1000, 1024 replicas, ``swap_accept_max`` 0.5,
+   ``N_samples_swap_est`` 1e6, tolerance 1e-4, 1000 pn steps, fail factor
+   1, seed 1), all 30 configs: per config the ladder, its build and run seconds, the actual
+   swap acceptance beside the constructed rate, the beta-ESJD and exactly
+   one fused launch; the ESJD-optimal swap acceptance; one
+   ``MCMCSimulation(iterative_temp_spacing=True)`` PT run on ThreeMixture;
+   the study's library held against its plain version at the study's
+   shape (T=7, even/odd, 200 steps); fused ``even_odd`` against the eager
+   engine's ``even_odd`` on MVN d=10.
+   The study's JSON and log go to ``smoke_out/pt_study/``.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -82,13 +119,44 @@ FLAG = dict(dim=30, T=10, C=65536, iters=2000, swap_every=100,
             base_variance=0.5 ** 2 / 30)
 # scripts/bench_rwm_impl_block.py, the headline RWM workload
 RWM_MAIN = dict(dim=30, C=65536, iters=2000, base_variance=0.5 ** 2 / 30)
-# scripts/launch_rwm_pod.sh:29-34, the RWM proposal study, on the README's
-# MultivariateNormal (its default RoughCarpetScaled is not ported yet)
-STUDY = dict(dim=20, iters=200000, burn_in=1000, C=1024, var_max=4.0, seed=1)
+# scripts/launch_rwm_pod.sh:29-34, the RWM proposal study on its default
+# target
+STUDY = dict(target="RoughCarpetScaled", dim=20, iters=200000, burn_in=1000,
+             C=1024, var_max=4.0, seed=1)
 STUDY_CONFIGS = 40     # of the CLI's 40 scale configs per proposal
 REC_CHAINS = 4         # replicas recorded by the harness runs (phase 9)
 REC_HOLD_CHAINS = 1024  # replicas recorded by the held runs (phase 7)
 NEW_PROPOSALS = ("Laplace", "UniformRadius")
+# scripts/launch_pt_pod.sh, the PT swap-rate study
+PT_STUDY = dict(target="ThreeMixture", dim=10, iters=200000, burn_in=1000,
+                C=1024, swap_accept_max=0.5, N=1000000, tol=1e-4, pn=1000,
+                fail=1.0, seed=1, configs=30)
+BM_STUDY_STEPS = 20000  # steps of the ICDF vs Box-Muller timing at the
+#                         RWM study's shape (a config runs 201,000)
+# phase 11: target kind -> (registry name, kwargs at the held d=10, kwargs
+# at the flagship d=30, Normal variance times d)
+KINDS = {
+    "mvn_full": ("MultivariateNormal", "cov", "cov", 1.5 * 2.38 ** 2),
+    "scaled_mvn": ("MultivariateNormalScaled", {}, {}, 0.25 * 2.38 ** 2),
+    "three_mixture": ("ThreeMixtureScaled", {}, {}, 2.38 ** 2),
+    "rough_carpet": ("RoughCarpetScaled", {}, {}, 0.25 * 2.38 ** 2),
+    "even_rosenbrock": ("EvenRosenbrock", {}, {}, 0.5 ** 2),
+    "hybrid_rosenbrock": ("HybridRosenbrock", {"n1": 4, "n2": 3},
+                          {"n1": 3, "n2": 14}, 0.03),
+    "hypercube": ("Hypercube", {}, {}, 2.38 ** 2 / 3),
+    "iid_gamma": ("IIDGamma", {}, {}, 18 * 2.38 ** 2),
+    "iid_beta": ("IIDBeta", {}, {}, 0.04 * 2.38 ** 2),
+    "neal_funnel": ("NealFunnel", {}, {}, 2.38 ** 2),
+}
+GEWEKE_KINDS = {"three_mixture": "ThreeMixture", "rough_carpet": "RoughCarpet",
+                "iid_gamma": "IIDGamma", "neal_funnel": "NealFunnel",
+                "mvn_full": "MultivariateNormal"}
+# kinds whose tempered direct sampler (the JAX package's) is exact at
+# beta = 1 only: a mixture of tempered components is not the tempered
+# mixture (IIDGamma's Gamma(shape beta, scale) is not Gamma^beta either; its
+# gate draws the exact law, tempered_gamma)
+INEXACT_TEMPERED = ("three_mixture", "rough_carpet")
+BM_MARGIN = 0.03       # Box-Muller must beat ICDF by more than this
 
 
 def fail(msg):
@@ -96,8 +164,11 @@ def fail(msg):
     sys.exit(1)
 
 
+T_START = time.time()
+
+
 def say(msg):
-    print(msg, flush=True)
+    print(f"[{time.time() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(torch, fn, reps=1):
@@ -130,25 +201,45 @@ def cuda_ms(torch, fn, reps=1):
 #   UniformRadius: per coordinate the normal 30, square-accumulate 2,
 #     divide by the norm 1, times the radius 1, proposal 1 -> 35; per step
 #     sqrtf 1, fmax 1, radius cvt+scale 2, logf 1, *1/d 1, expf 1, *R 1 -> 8.
-#   log-density: Rosenbrock 9 per term (d-1 terms) + 1; MVN iso 4 d + 2
+#   log-density (per kind, lp_flops; compares count 1, exp/log 1 each)
 #   accept: lp' - lp, *beta, expf, cvt+scale of u, 2 compares -> 7
 #   squared jump (cold rung / RWM chain) 3 d + Kahan 4
 #   swap pair: 2 subs, mul, expf, compare, Kahan 5 -> 10
 # Philox4x32-10 integer work (100 int ops per block of 4 words) is reported
 # beside it and left out of the bound: the published table has no int32 rate.
+#   Box-Muller pair (two normals): cvt+scale 2 x2, fmax 1, logf 1, -2* 1,
+#     sqrtf 1, 2 pi u 1, sincosf 2, r cos, r sin 2 = 12 -> 6 a normal
+#     (+ the proposal's 2: 8 per Normal coordinate instead of 32).
 def lp_flops(kind, d):
-    return 9 * (d - 1) + 1 if kind == "rosenbrock" else 4 * d + 2
+    return {
+        "rosenbrock": 9 * (d - 1) + 1,
+        "mvn_iso": 4 * d + 2,
+        "mvn_full": 2 * d * d + 3 * d + 2,       # sub, d^2 FMA, d FMA
+        "scaled_mvn": 3 * d + 2,
+        "three_mixture": 10 * d + 22,            # s x, 3 (sub, FMA) a dim
+        "rough_carpet": 27 * d + 1,              # 3 quadratics, 3 exp, log
+        "even_rosenbrock": 9 * (d - 1) + 1,
+        "hybrid_rosenbrock": 5 * (d - 1) + 5,
+        "hypercube": 2 * d,
+        "iid_gamma": 6 * d + 2,
+        "iid_beta": 9 * d + 3,
+        "neal_funnel": 3 * (d - 1) + 13,
+    }[kind]
 
 
-def inc_flops(prop, d):
-    return {"Normal": 32 * d, "Laplace": 9 * d,
-            "UniformRadius": 35 * d + 8}[prop]
+def inc_flops(prop, d, draw="icdf"):
+    normal = 30 if draw == "icdf" else 6
+    return {"Normal": (normal + 2) * d, "Laplace": 9 * d,
+            "UniformRadius": (normal + 5) * d + 8}[prop]
 
 
-def philox_blocks(prop, d):
+def philox_blocks(prop, d, draw="icdf"):
     """Philox blocks a (replica, rung) draws per step: slots 0..d
-    (UniformRadius: 0..d+2)."""
-    return -(-(d + (3 if prop == "UniformRadius" else 1)) // 4)
+    (UniformRadius: 0..d+2; Box-Muller with an odd d: 0..d+3)."""
+    last = d + (2 if prop == "UniformRadius" else 0)
+    if draw == "bm" and prop != "Laplace" and d % 2:
+        last = d + 3
+    return last // 4 + 1
 
 
 def rec_bytes(d, steps, record_every, rec_chains):
@@ -156,25 +247,27 @@ def rec_bytes(d, steps, record_every, rec_chains):
 
 
 def pt_work(kind, d, T, C, steps, burn_in, swap_every, step0=0,
-            prop="Normal", record_every=0, rec_chains=0):
+            prop="Normal", record_every=0, rec_chains=0, draw="icdf",
+            n_params=0):
     n_events = (step0 + steps) // swap_every - max(burn_in, step0) // swap_every
-    mh = (inc_flops(prop, d) + lp_flops(kind, d) + 7) * T
+    mh = (inc_flops(prop, d, draw) + lp_flops(kind, d) + 7) * T
     flops = C * (steps * (mh + 3 * d + 4) + n_events * 10 * (T - 1)
                  + T * lp_flops(kind, d))
-    blocks = C * T * steps * philox_blocks(prop, d)
+    blocks = C * T * steps * philox_blocks(prop, d, draw)
     int_ops = 100 * blocks
     nbytes = (C * (2 * d * T * 4 + T * 4 + 2 * T * 4 + 6 * 4)
-              + (T * d * 4 if prop == "Laplace" else 0)
+              + (T * d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
     return flops, int_ops, nbytes
 
 
-def rwm_work(kind, d, C, steps, prop="Normal", record_every=0, rec_chains=0):
-    flops = C * (steps * (inc_flops(prop, d) + lp_flops(kind, d) + 7
+def rwm_work(kind, d, C, steps, prop="Normal", record_every=0, rec_chains=0,
+             draw="icdf", n_params=0):
+    flops = C * (steps * (inc_flops(prop, d, draw) + lp_flops(kind, d) + 7
                           + 3 * d + 4) + lp_flops(kind, d))
-    int_ops = 100 * C * steps * philox_blocks(prop, d)
+    int_ops = 100 * C * steps * philox_blocks(prop, d, draw)
     nbytes = (C * (2 * d * 4 + 4 + 2 * 4 + 2 * 4)
-              + (d * 4 if prop == "Laplace" else 0)
+              + (d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
     return flops, int_ops, nbytes
 
@@ -199,7 +292,7 @@ def hold_run(torch, what, launch, plain, args, kw, names):
     from rwm_pt_tpu_torch.kernels import agreement
     ms, k = cuda_ms(torch, lambda: launch(*args, **kw), reps=3)
     plain_ms, p = cuda_ms(torch, lambda: plain(*args, **kw))
-    ag = agreement.hold(k, p, names)
+    ag = agreement.hold(k, p, names, lp_of=args[0].log_density_td)
     if ag.frac < AGREE_MIN or ag.mismatched:
         fail(f"{what} disagrees with its plain version: "
              f"{agreement.describe(ag)}")
@@ -249,11 +342,34 @@ def reset_launches(*wrappers):
         w.launches.clear()
 
 
-def read_launches(*wrappers):
+def read_launches(*wrappers, by_kind=False):
+    """Launches per kernel variant (``fused_pt``, ``fused_rwm_laplace``,
+    ..), or with ``by_kind`` per ``<variant>.<target kind>``, as the
+    wrappers count them."""
+    from rwm_pt_tpu_torch.kernels import _build
     out = Counter()
     for w in wrappers:
         out.update(w.launches)
-    return out
+    return out if by_kind else _build.by_variant(out)
+
+
+def swap_ok(sw, betas):
+    """Swap acceptance of an invariance run: above 0.02 on rungs that
+    differ; on equal rungs every swap has log a = 0 and is accepted."""
+    if betas is not None and len(set(betas)) == 1:
+        return sw == 1.0
+    return sw > 0.02
+
+
+def tempered_gamma(tg):
+    """Exact draws of an IIDGamma(k, theta) target tempered by beta:
+    Gamma(beta (k - 1) + 1, theta / beta) per coordinate, as ``(n, d)``."""
+    from rwm_pt_tpu_torch.targets.base import _draw_gamma
+
+    def sample(n, beta, g):
+        return _draw_gamma(beta * (tg.shape - 1) + 1, (n, tg.dim), g,
+                           tg.device, tg.dtype) * (tg.scale / beta)
+    return sample
 
 
 def per_chain_z(a, b):
@@ -264,15 +380,19 @@ def per_chain_z(a, b):
     return abs(a.mean().item() - b.mean().item()) / (se + 1e-12)
 
 
-def invariance(torch, mvn, seed, n=4096, **sampler_kw):
-    """Exact invariance (Geweke) of the fused samplers on ``mvn`` with a
-    generator seeded ``seed``: RWM starts 4096 chains from exact draws and
-    runs 50 steps, PT starts 4096 replicas from exact tempered draws on 6
-    rungs (1 .. 0.09) and runs 60 steps with a swap every 5; each ensemble
-    is held against fresh exact draws (max z over the coordinates' first
-    and second moments and the mean log-density).  ``sampler_kw`` is the
-    proposal (``base_variance=`` or ``proposal=``).  Returns
-    ``(max z RWM, max z PT over the rungs, PT swap acceptance)``."""
+def invariance(torch, mvn, seed, n=4096, betas=None, exact=None,
+               **sampler_kw):
+    """Exact invariance (Geweke) of the fused samplers on the target
+    ``mvn`` with a generator seeded ``seed``: RWM starts 4096 chains from
+    exact draws and runs 50 steps, PT starts 4096 replicas from exact
+    tempered draws on the rungs ``betas`` (default 6 rungs 1 .. 0.09) and
+    runs 60 steps with a swap every 5; each ensemble is held against fresh
+    exact draws (max z over the coordinates' first and second moments and
+    the mean log-density).  ``exact(n, beta, generator)`` draws ``(n, d)``
+    from the tempered target (default ``mvn.direct_sample``).
+    ``sampler_kw`` is the proposal (``base_variance=`` or ``proposal=``).
+    Returns ``(max z RWM, max z PT over the rungs, PT swap
+    acceptance)``."""
     from rwm_pt_tpu_torch.kernels import run_pt_fused, run_rwm_fused
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -287,17 +407,18 @@ def invariance(torch, mvn, seed, n=4096, **sampler_kw):
         return ((m1 - m2).abs() / torch.sqrt((v1 + v2) / n + 1e-12)) \
             .max().item()
 
-    exact = mvn.direct_sample(n, 1.0, g).T
+    draw = exact or mvn.direct_sample
     r = run_rwm_fused(mvn, seed, num_chains=n, num_iterations=50,
-                      init_states=exact, device=dev, **sampler_kw)
-    z_rwm = max_z(r.state.x, mvn.direct_sample(n, 1.0, g).T)
-    bi = torch.logspace(0, math.log10(0.09), 6, device=dev)
-    cube = torch.stack([mvn.direct_sample(n, b.item(), g).T for b in bi],
-                       dim=1)
+                      init_states=draw(n, 1.0, g).T, device=dev,
+                      **sampler_kw)
+    z_rwm = max_z(r.state.x, draw(n, 1.0, g).T)
+    bi = (torch.logspace(0, math.log10(0.09), 6, device=dev) if betas is None
+          else torch.tensor(betas, device=dev))
+    cube = torch.stack([draw(n, b.item(), g).T for b in bi], dim=1)
     r = run_pt_fused(mvn, seed + 1, bi, num_chains=n, num_iterations=60,
                      swap_every=5, init_states=cube, device=dev,
                      **sampler_kw)
-    z_pt = max(max_z(r.state.x[:, t], mvn.direct_sample(n, b.item(), g).T)
+    z_pt = max(max_z(r.state.x[:, t], draw(n, b.item(), g).T)
                for t, b in enumerate(bi))
     return z_rwm, z_pt, r.swap_acceptance_rate.mean().item()
 
@@ -328,9 +449,10 @@ def phases_7_to_10(torch, gen):
     from rwm_pt_tpu_torch.kernels import (_build, agreement, fused_pt,
                                           fused_rwm, run_pt, run_pt_fused,
                                           run_rwm, run_rwm_fused)
-    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.kernels.draws import resolve_normal_impl, seed_key
     from rwm_pt_tpu_torch.proposals import create_proposal_distribution
-    from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
+    from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
+                                          get_target_distribution)
 
     dev = torch.device("cuda")
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
@@ -347,28 +469,33 @@ def phases_7_to_10(torch, gen):
             dim, {"name": prop, "params": proposal_params(prop, dim, v)},
             device=dev)
 
-    # ---- 7. every new variant against its plain version
+    # ---- 7. every new variant against its plain version, with the normal
+    # draw the entry points choose at the main paths' size
+    draw = {"PT": resolve_normal_impl("pt", C, "rosenbrock"),
+            "RWM": resolve_normal_impl("rwm", Cr, "rosenbrock")}
     variants = [  # (record name, sampler, proposal, recording, replaces)
         ("fused_rwm_laplace", "RWM", "Laplace", False,
          "rwm_pt_tpu/kernels/pallas_rwm.py:204"),
-        ("fused_rwm_uniform_radius", "RWM", "UniformRadius", False,
-         "rwm_pt_tpu/kernels/pallas_rwm.py:213"),
+        (_build.library("fused_rwm", "UniformRadius", draw["RWM"]), "RWM",
+         "UniformRadius", False, "rwm_pt_tpu/kernels/pallas_rwm.py:213"),
         ("fused_rwm_record", "RWM", "Normal", True,
          "rwm_pt_tpu/kernels/pallas_rwm.py:552"),
         ("fused_pt_laplace", "PT", "Laplace", False,
          "rwm_pt_tpu/kernels/pallas_pt.py:314"),
-        ("fused_pt_uniform_radius", "PT", "UniformRadius", False,
-         "rwm_pt_tpu/kernels/pallas_pt.py:311"),
+        (_build.library("fused_pt", "UniformRadius", draw["PT"]), "PT",
+         "UniformRadius", False, "rwm_pt_tpu/kernels/pallas_pt.py:311"),
         ("fused_pt_record", "PT", "Normal", True,
          "rwm_pt_tpu/kernels/pallas_pt.py:377"),
     ]
     records = {}
     for name, algo, prop, rec, replaces in variants:
+        dr = draw[algo]
         if algo == "PT":
             kind, sig = fused_pt.rung_scales(proposal(prop, d, var), None,
                                              betas, torch.ones_like(betas))
 
-            def case(steps, hold, sig=sig, prop=prop, rec=rec, kind=kind):
+            def case(steps, hold, sig=sig, prop=prop, rec=rec, kind=kind,
+                     dr=dr):
                 # the held recorded run swaps every 10 steps and records
                 # REC_HOLD_CHAINS replicas, so that a snapshot taken before
                 # the swap sweep cannot go unseen
@@ -379,10 +506,10 @@ def phases_7_to_10(torch, gen):
                 args = (rb, x0.contiguous(), zi(T, C), zi(C), zf(C), zf(C),
                         betas, sig, seed_key(0), 0, steps, 0, swap_every)
                 kw = dict(kind=kind, record_every=int(rec),
-                          record_chains=n_rec)
+                          record_chains=n_rec, draw=dr)
                 return args, kw, pt_work(
                     "rosenbrock", d, T, C, steps, 0, swap_every, prop=prop,
-                    record_every=int(rec), rec_chains=n_rec)
+                    record_every=int(rec), rec_chains=n_rec, draw=dr)
             launch, plain = (fused_pt.launch_pt_kernel,
                              fused_pt._run_pt_fused_plain)
             names = agreement.PT_REC_OUTPUTS if rec else agreement.PT_OUTPUTS
@@ -392,16 +519,16 @@ def phases_7_to_10(torch, gen):
                                                    None, beta1)
 
             def case(steps, hold, scale=scale, prop=prop, rec=rec,
-                     kind=kind):
+                     kind=kind, dr=dr):
                 n_rec = (REC_HOLD_CHAINS if hold else REC_CHAINS) if rec else 0
                 x0 = 1e-8 * torch.randn(d, Cr, generator=gen, device=dev)
                 args = (rb, x0, zi(Cr), zf(Cr), beta1, scale, seed_key(0), 0,
                         steps, 0)
                 kw = dict(kind=kind, record_every=int(rec),
-                          record_chains=n_rec)
+                          record_chains=n_rec, draw=dr)
                 return args, kw, rwm_work(
                     "rosenbrock", d, Cr, steps, prop=prop,
-                    record_every=int(rec), rec_chains=n_rec)
+                    record_every=int(rec), rec_chains=n_rec, draw=dr)
             launch, plain = (fused_rwm.launch_rwm_kernel,
                              fused_rwm._run_rwm_fused_plain)
             names = (agreement.RWM_REC_OUTPUTS if rec
@@ -412,14 +539,15 @@ def phases_7_to_10(torch, gen):
             FLAG["iters"], phase=7)
         torch.cuda.empty_cache()
 
-    # The study's instantiations (MVN iso, DMAX 32) at its shape: d=20,
-    # 1024 chains, HOLD_STEPS steps (burn-in 50), at the first, the 25th
-    # and the last scale of its 40-point grid.
-    mvn_s = MultivariateNormal.create(STUDY["dim"], device=dev)
+    # The study's instantiations (RoughCarpetScaled, DMAX 32) at its shape:
+    # d=20, 1024 chains, HOLD_STEPS steps (burn-in 50), at the first, the
+    # 25th and the last scale of its 40-point grid.
+    rc_s = get_target_distribution(STUDY["target"], STUDY["dim"], device=dev)
     Ds, Cs = STUDY["dim"], STUDY["C"]
     grid = np.linspace(0.01, STUDY["var_max"], 40)
-    for name, prop in (("fused_rwm_laplace", "Laplace"),
-                       ("fused_rwm_uniform_radius", "UniformRadius")):
+    study_draw = resolve_normal_impl("rwm", Cs, "rough_carpet")
+    for prop in NEW_PROPOSALS:
+        name = _build.library("fused_rwm", prop, study_draw)
         holds = []
         for i in (0, 24, 39):
             p = create_proposal_distribution(
@@ -427,22 +555,38 @@ def phases_7_to_10(torch, gen):
                 device=dev)
             kind, scale = fused_rwm.proposal_scale(p, None, beta1)
             x0 = torch.randn(Ds, Cs, generator=gen, device=dev)
-            args = (mvn_s, x0, zi(Cs), zf(Cs), beta1, scale, seed_key(i), 0,
+            args = (rc_s, x0, zi(Cs), zf(Cs), beta1, scale, seed_key(i), 0,
                     HOLD_STEPS, 50)
             ms, plain_ms, ag = hold_run(
                 torch, f"{name} at the study's shape, scale {grid[i]:.4f}",
                 fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
-                args, dict(kind=kind), agreement.RWM_OUTPUTS)
-            b_ms, _ = bound(*rwm_work("mvn_iso", Ds, Cs, HOLD_STEPS,
-                                      prop=prop)[::2])
+                args, dict(kind=kind, draw=study_draw),
+                agreement.RWM_OUTPUTS)
+            b_ms, b_by = bound(*rwm_work("rough_carpet", Ds, Cs, HOLD_STEPS,
+                                         prop=prop, draw=study_draw)[::2])
             holds.append(dict(scale=float(grid[i]), ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, agree_frac=ag.frac,
-                              max_abs_err=ag.max_dx, max_rel_err=ag.max_rel))
-            say(f"phase 7 {name} at the study's shape (MVN d={Ds}, {Cs} "
+                              bound_ms=b_ms, bound_by=b_by,
+                              agree_frac=ag.frac, max_abs_err=ag.max_dx,
+                              max_rel_err=ag.max_rel))
+            say(f"phase 7 {name} at the study's shape ({STUDY['target']} "
+                f"d={Ds}, {Cs} "
                 f"chains, scale {grid[i]:.4f} of the grid, {HOLD_STEPS} "
                 f"steps, burn-in 50): kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms; "
                 f"{agreement.describe(ag)}")
+        if name not in records:
+            # a variant the study runs and no main path does (the study's
+            # draw differs from the main paths'): its record is the
+            # study-shape hold at the middle scale
+            mid = holds[1]
+            records[name] = dict(
+                name=name, route="cuda",
+                source="rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu",
+                replaces="rwm_pt_tpu/kernels/pallas_rwm.py:213", launches=0,
+                max_abs_err=0.0, ms=mid["ms"], plain_ms=mid["plain_ms"],
+                bound_ms=mid["bound_ms"], bound_by=mid["bound_by"],
+                library_ms=None, steps=HOLD_STEPS,
+                agree_frac=mid["agree_frac"], max_rel_err=mid["max_rel_err"])
         records[name]["study_shape_holds"] = holds
         records[name]["max_abs_err"] = max(
             [records[name]["max_abs_err"]] + [h["max_abs_err"] for h in holds])
@@ -501,7 +645,8 @@ def phases_7_to_10(torch, gen):
             chain = sim.generate_samples(verbose=False)
             seen = read_launches(*wrappers)
             src = "fused_pt" if algo == "PT" else "fused_rwm"
-            want = {_build.library(src, prop): 1, src + "_record": 1}
+            want = {_build.library(src, prop, draw[algo]): 1,
+                    src + "_record": 1}
             if dict(seen) != want:
                 fail(f"harness {algo} {prop} launches {dict(seen)}, "
                      f"want {want}")
@@ -533,7 +678,7 @@ def phases_7_to_10(torch, gen):
     os.makedirs(out_dir, exist_ok=True)
     study = {}
     for prop in NEW_PROPOSALS:
-        argv = ["--dim", str(STUDY["dim"]), "--target", "MultivariateNormal",
+        argv = ["--dim", str(STUDY["dim"]), "--target", STUDY["target"],
                 "--proposal", prop, "--num_iters", str(STUDY["iters"]),
                 "--burn_in", str(STUDY["burn_in"]), "--num_chains",
                 str(STUDY["C"]), "--var_max", str(STUDY["var_max"]),
@@ -544,7 +689,7 @@ def phases_7_to_10(torch, gen):
                 contextlib.redirect_stdout(log):
             data = experiment_rwm.main(argv)
         seen = read_launches(*wrappers)
-        lib = _build.library("fused_rwm", prop)
+        lib = _build.library("fused_rwm", prop, study_draw)
         want = {lib: STUDY_CONFIGS}
         if dict(seen) != want:
             fail(f"study {prop} launches {dict(seen)}, want {want}")
@@ -555,7 +700,7 @@ def phases_7_to_10(torch, gen):
                 or not all(e > 0 and math.isfinite(e) for e in esjd)):
             fail(f"study {prop} results out of range")
         study[lib] = data
-        say(f"phase 10 study {prop}: MVN d={STUDY['dim']}, "
+        say(f"phase 10 study {prop}: {STUDY['target']} d={STUDY['dim']}, "
             f"{STUDY['iters']} iterations + {STUDY['burn_in']} burn-in, "
             f"{STUDY['C']} chains, {STUDY_CONFIGS} of the CLI's 40 scale "
             f"configs (var_max {STUDY['var_max']}): ESJD-optimal acceptance "
@@ -567,8 +712,7 @@ def phases_7_to_10(torch, gen):
             f" ms a config; launches {dict(seen)}")
 
     out = []
-    for name, _, _, _, _ in variants:
-        r = records[name]
+    for name, r in records.items():
         r["launches"] = seen_main[name]
         if r["launches"] < 1:
             fail(f"{name} was not launched on the harness or study runs")
@@ -578,6 +722,506 @@ def phases_7_to_10(torch, gen):
     return out
 
 
+def kind_target(get_target_distribution, kind, d, dev, name=None, **extra):
+    """Phase 11's target of ``kind`` at d=10 (held) or d=30 (flagship; the
+    kind's nearest valid d), and its Normal proposal variance."""
+    import numpy as np
+    reg, kw10, kw30, var_d = KINDS[kind]
+    kw = kw10 if d == 10 else kw30
+    if kw == "cov":
+        a = np.random.default_rng(3).normal(size=(d, d))
+        kw = {"cov": a @ a.T / d + np.eye(d)}
+    t = get_target_distribution(name or reg, d, device=dev, **kw, **extra)
+    return t, var_d / t.dim
+
+
+def phases_11_to_13(torch, gen):
+    """Phases 11-13: every other target kind in both kernels (11), the
+    Box-Muller draw (12) and the PT swap-rate study (13).  Returns the
+    kernels' JSON records of the new libraries and variants, with their
+    launches on the entry-point runs and the study."""
+    import contextlib
+
+    import numpy as np
+
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import experiment_pt
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          fused_rwm, run_pt, run_pt_fused,
+                                          run_rwm_fused)
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.proposals import (NormalProposal,
+                                            create_proposal_distribution)
+    from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
+                                          get_target_distribution)
+
+    dev = torch.device("cuda")
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    T, C, Cr, iters = FLAG["T"], FLAG["C"], RWM_MAIN["C"], FLAG["iters"]
+    betas = torch.logspace(0, -2, T, device=dev)
+    beta1 = torch.tensor(1.0, device=dev)
+    src = {"pt": "rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
+           "rwm": "rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu"}
+    replaces = {"pt": "rwm_pt_tpu/kernels/pallas_pt.py:399",
+                "rwm": "rwm_pt_tpu/kernels/pallas_rwm.py:570"}
+    out = []
+
+    # ---- 11. every other target kind, both kernels
+    for kind in KINDS:
+        held, var_h = kind_target(get_target_distribution, kind, 10, dev)
+        main, var_m = kind_target(get_target_distribution, kind, 30, dev)
+        for algo in ("pt", "rwm"):
+            # the draw the entry point takes at the flagship shape (the
+            # held runs' 2048 replicas or chains resolve to the same)
+            dr = draws.resolve_normal_impl(algo, C if algo == "pt" else Cr,
+                                           kind)
+
+            def launch_case(tg, var, cc, steps, hold, algo=algo, kind=kind,
+                            dr=dr):
+                """A launch on target ``tg`` with ``cc`` replicas or chains:
+                ``(args, kw, work)``; a held run has a burn-in of 50 and
+                PT swaps every 10 steps in it."""
+                n_params = _build.kernel_target(tg)[1].numel()
+                dd, burn = tg.dim, (50 if hold else 0)
+                if algo == "pt":
+                    swap_every = 10 if hold else FLAG["swap_every"]
+                    sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+                    x0 = tg.init_sample(cc, gen).T[:, None].expand(
+                        dd, T, cc).contiguous()
+                    args = (tg, x0, zi(T, cc), zi(cc), zf(cc), zf(cc), betas,
+                            sig, seed_key(17), 0, steps, burn, swap_every)
+                    return args, dict(draw=dr), pt_work(
+                        kind, dd, T, cc, steps, burn, swap_every, draw=dr,
+                        n_params=n_params)
+                x0 = tg.init_sample(cc, gen).T.contiguous()
+                args = (tg, x0, zi(cc), zf(cc), beta1,
+                        torch.sqrt(torch.tensor(var, device=dev)),
+                        seed_key(17), 0, steps, burn)
+                return args, dict(draw=dr), rwm_work(
+                    kind, dd, cc, steps, draw=dr, n_params=n_params)
+
+            def case(steps, hold, algo=algo, main=main, var_m=var_m,
+                     launch_case=launch_case):
+                # held at the main path's d with 2048 replicas or chains
+                cc = 2048 if hold else (C if algo == "pt" else Cr)
+                return launch_case(main, var_m, cc, steps, hold)
+            name = f"{_build.library(f'fused_{algo}', 'Normal', dr)}.{kind}"
+            if algo == "pt":
+                launch, plain = (fused_pt.launch_pt_kernel,
+                                 fused_pt._run_pt_fused_plain)
+                names = agreement.PT_OUTPUTS
+            else:
+                launch, plain = (fused_rwm.launch_rwm_kernel,
+                                 fused_rwm._run_rwm_fused_plain)
+                names = agreement.RWM_OUTPUTS
+            rec = kernel_record(torch, name, src[algo], replaces[algo], 0,
+                                launch, plain, names, case, iters, phase=11)
+            # and held at d=10, the bucket the PT study runs
+            args, kw, _ = launch_case(held, var_h, 2048, HOLD_STEPS, True)
+            ms, plain_ms, ag = hold_run(torch, f"{name} at d={held.dim}",
+                                        launch, plain, args, kw, names)
+            rec["d10_hold"] = dict(dim=held.dim, ms=ms, plain_ms=plain_ms,
+                                   agree_frac=ag.frac, max_abs_err=ag.max_dx,
+                                   max_rel_err=ag.max_rel)
+            rec["max_abs_err"] = max(rec["max_abs_err"], ag.max_dx)
+            say(f"phase 11 {name} held at d={held.dim} (2048 "
+                f"{'replicas' if algo == 'pt' else 'chains'}, {HOLD_STEPS} "
+                f"steps): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+                f"{agreement.describe(ag)}")
+            del args
+            # the flagship shape through the entry point, counters zeroed
+            # just before and read just after
+            reset_launches(*wrappers)
+            if algo == "pt":
+                res = run_pt_fused(main, 0, betas, base_variance=var_m,
+                                   num_chains=C, num_iterations=iters,
+                                   swap_every=FLAG["swap_every"], device=dev)
+                acc = res.acceptance_rate[0].mean().item()
+                extra = f", swap acc {res.swap_acceptance_rate.mean():.4f}"
+            else:
+                res = run_rwm_fused(main, 0, base_variance=var_m,
+                                    num_chains=Cr, num_iterations=iters,
+                                    device=dev)
+                acc = res.acceptance_rate.mean().item()
+                extra = ""
+            torch.cuda.synchronize()
+            seen = read_launches(*wrappers, by_kind=True)
+            if dict(seen) != {name: 1}:
+                fail(f"{name} entry-point run launched {dict(seen)}")
+            if not (torch.isfinite(res.state.x).all() and 0 < acc <= 1):
+                fail(f"{name} entry-point run: non-finite state or "
+                     f"acceptance {acc}")
+            rec["launches"] = seen[name]
+            rec["dim"] = main.dim
+            say(f"phase 11 {name}: entry point at d={main.dim}, "
+                f"{C if algo == 'pt' else Cr} "
+                f"{'replicas' if algo == 'pt' else 'chains'}, {iters} steps: "
+                f"cold MH acc {acc:.4f}{extra}; launches {dict(seen)}")
+            out.append(rec)
+            del res
+            torch.cuda.empty_cache()
+
+    seed = int.from_bytes(os.urandom(4), "little")
+    for kind, reg in GEWEKE_KINDS.items():
+        extra = {"sigma_v_sq": 0.5} if kind == "neal_funnel" else {}
+        tg, var = kind_target(get_target_distribution, kind, 10, dev,
+                              name=reg, **extra)
+        # the soft funnel and a mild ladder keep e^v inside float32 at the
+        # hot rungs (tests/test_invariance.py:147-160); the mixtures'
+        # tempered samplers (the JAX package's) are exact at beta = 1 only,
+        # so their PT gate runs four rungs at beta = 1, where every swap is
+        # accepted; IIDGamma's tempered law is drawn exactly here
+        ladder = ([1.0, 0.75, 0.55, 0.4] if kind == "neal_funnel"
+                  else [1.0] * 4 if kind in INEXACT_TEMPERED else None)
+        exact = tempered_gamma(tg) if kind == "iid_gamma" else None
+        z_rwm, z_pt, sw = invariance(torch, tg, seed, betas=ladder,
+                                     exact=exact, base_variance=var)
+        say(f"phase 11 invariance {tg.get_name()} d={tg.dim} (seed {seed}): "
+            f"max z RWM {z_rwm:.2f}, PT {z_pt:.2f} (< {Z_INV_MAX}) on rungs "
+            f"{ladder or '1 .. 0.09 (6)'}; PT swap acc {sw:.3f}")
+        if max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, ladder):
+            fail(f"invariance check failed for {reg}")
+
+    # ---- 12. the Box-Muller draw
+    d = FLAG["dim"]
+    rb = FullRosenbrock.create(d, device=dev)
+    var = FLAG["base_variance"]
+
+    def proposal(prop, dim, v):
+        return create_proposal_distribution(
+            dim, {"name": prop, "params": proposal_params(prop, dim, v)},
+            device=dev)
+
+    # The main paths (phases 6-9, 11, 13) run the draw resolve_normal_impl
+    # picks; here the other draw's Normal and UniformRadius variants are
+    # held at the main paths' shapes (RWM UniformRadius at 65,536 chains
+    # is left out: that variant is the RWM study's, held in phase 7).
+    other = {k: ("icdf" if draws.resolve_normal_impl(k, n, "rosenbrock")
+                 == "bm" else "bm")
+             for k, n in (("pt", C), ("rwm", Cr))}
+    other_recs = {}
+    for algo, prop in (("pt", "Normal"), ("pt", "UniformRadius"),
+                       ("rwm", "Normal")):
+        p = proposal(prop, d, var)
+        dr = other[algo]
+        if algo == "pt":
+            kind, sig = fused_pt.rung_scales(p, None, betas,
+                                             torch.ones_like(betas))
+
+            def case(steps, hold, sig=sig, prop=prop, kind=kind, dr=dr):
+                x0 = (1e-8 * torch.randn(d, 1, C, generator=gen,
+                                         device=dev)).expand(d, T, C)
+                args = (rb, x0.contiguous(), zi(T, C), zi(C), zf(C), zf(C),
+                        betas, sig, seed_key(0), 0, steps, 0,
+                        FLAG["swap_every"])
+                return args, dict(kind=kind, draw=dr), pt_work(
+                    "rosenbrock", d, T, C, steps, 0, FLAG["swap_every"],
+                    prop=prop, draw=dr)
+            launch, plain = (fused_pt.launch_pt_kernel,
+                             fused_pt._run_pt_fused_plain)
+            names = agreement.PT_OUTPUTS
+        else:
+            kind, sig = fused_rwm.proposal_scale(p, None, beta1)
+
+            def case(steps, hold, sig=sig, prop=prop, kind=kind, dr=dr):
+                x0 = 1e-8 * torch.randn(d, Cr, generator=gen, device=dev)
+                args = (rb, x0, zi(Cr), zf(Cr), beta1, sig, seed_key(0), 0,
+                        steps, 0)
+                return args, dict(kind=kind, draw=dr), rwm_work(
+                    "rosenbrock", d, Cr, steps, prop=prop, draw=dr)
+            launch, plain = (fused_rwm.launch_rwm_kernel,
+                             fused_rwm._run_rwm_fused_plain)
+            names = agreement.RWM_OUTPUTS
+        name = _build.library(f"fused_{algo}", prop, dr)
+        other_recs[name] = kernel_record(
+            torch, name, src[algo], (
+                "rwm_pt_tpu/kernels/pallas_rwm.py:53" if dr == "bm"
+                else replaces[algo]), 0,
+            launch, plain, names, case, iters, phase=12)
+        torch.cuda.empty_cache()
+
+    # invariance with each draw forced, through the entry points
+    d2, bv = 10, 2.38 ** 2 / 10
+    mvn = MultivariateNormal.create(d2, device=dev)
+    old_impl = draws.NORMAL_IMPL
+    try:
+        reset_launches(*wrappers)
+        for impl in ("bm", "icdf"):
+            draws.NORMAL_IMPL = impl
+            for prop in ("Normal", "UniformRadius"):
+                z_rwm, z_pt, sw = invariance(torch, mvn, seed,
+                                             proposal=proposal(prop, d2, bv))
+                say(f"phase 12 invariance, NORMAL_IMPL {impl!r}, {prop} MVN "
+                    f"d={d2} (seed {seed}): max z RWM {z_rwm:.2f}, PT "
+                    f"{z_pt:.2f} (< {Z_INV_MAX}); PT swap acc {sw:.3f}")
+                if max(z_rwm, z_pt) >= Z_INV_MAX or sw <= 0.02:
+                    fail(f"invariance failed for {prop} with {impl}")
+        seen_inv = read_launches(*wrappers, by_kind=True)
+        # ICDF against Box-Muller through the entry points, best of 3
+        # each, interleaved: the main paths' shapes, the studies' and the
+        # full-covariance MVN at the flagship PT's
+        rc_s = get_target_distribution(STUDY["target"], STUDY["dim"],
+                                       device=dev)
+        study_prop = create_proposal_distribution(
+            STUDY["dim"], {"name": "UniformRadius",
+                           "params": {"base_radius": 2.4654}}, device=dev)
+        tm = get_target_distribution(PT_STUDY["target"], PT_STUDY["dim"],
+                                     device=dev, variant="pt_gpu")
+        mf, var_mf = kind_target(get_target_distribution, "mvn_full", d, dev)
+        betas7 = torch.logspace(0, -2, 7, device=dev)
+        shapes = {  # key -> (label, kernel, block, target kind, run)
+            "pt": ("flagship PT", "pt", C, "rosenbrock", lambda: run_pt_fused(
+                rb, 1, betas, base_variance=var, num_chains=C,
+                num_iterations=iters, swap_every=FLAG["swap_every"],
+                device=dev)),
+            "pt_uniform_radius": (
+                "flagship PT, UniformRadius", "pt", C, "rosenbrock",
+                lambda: run_pt_fused(
+                    rb, 1, betas, proposal=proposal("UniformRadius", d, var),
+                    num_chains=C, num_iterations=iters,
+                    swap_every=FLAG["swap_every"], device=dev)),
+            "pt_mvn_full": (
+                f"flagship PT shape on the full-covariance MVN d={d}", "pt",
+                C, "mvn_full", lambda: run_pt_fused(
+                    mf, 1, betas, base_variance=var_mf, num_chains=C,
+                    num_iterations=iters, swap_every=FLAG["swap_every"],
+                    device=dev)),
+            "pt_study": (
+                f"PT study shape ({PT_STUDY['target']} d={PT_STUDY['dim']}, "
+                f"{PT_STUDY['C']} replicas, T=7, even/odd, {BM_STUDY_STEPS} "
+                f"steps)", "pt", PT_STUDY["C"], "three_mixture",
+                lambda: run_pt_fused(
+                    tm, 1, betas7, base_variance=2.38 ** 2 / PT_STUDY["dim"],
+                    num_chains=PT_STUDY["C"], num_iterations=BM_STUDY_STEPS,
+                    swap_every=100, swap_sweep="even_odd", device=dev)),
+            "rwm": ("RWM headline", "rwm", Cr, "rosenbrock",
+                    lambda: run_rwm_fused(
+                        rb, 1, base_variance=var, num_chains=Cr,
+                        num_iterations=iters, device=dev)),
+            "rwm_study": (f"RWM study shape ({STUDY['target']} d="
+                          f"{STUDY['dim']}, UniformRadius, {STUDY['C']} "
+                          f"chains, {BM_STUDY_STEPS} steps)", "rwm",
+                          STUDY["C"], "rough_carpet",
+                          lambda: run_rwm_fused(
+                              rc_s, 1, proposal=study_prop,
+                              num_chains=STUDY["C"],
+                              num_iterations=BM_STUDY_STEPS, device=dev)),
+        }
+        decision = {}
+        reset_launches(*wrappers)
+        for key, (label, _, _, _, fn) in shapes.items():
+            t = {}
+            for impl in ("icdf", "bm", "icdf", "bm"):
+                draws.NORMAL_IMPL = impl
+                ms, _ = cuda_ms(torch, fn, reps=3)
+                t[impl] = min(t.get(impl, math.inf), ms)
+            gain = t["icdf"] / t["bm"] - 1.0
+            decision[key] = (t["icdf"], t["bm"], gain)
+            say(f"phase 12 ICDF vs Box-Muller at the {label}: icdf "
+                f"{t['icdf']:.3f} ms, bm {t['bm']:.3f} ms (best of 6 "
+                f"interleaved), Box-Muller {100 * gain:+.2f} % faster")
+        seen_timed = read_launches(*wrappers, by_kind=True)
+    finally:
+        draws.NORMAL_IMPL = old_impl
+    for key, (label, k, n, tk, _) in shapes.items():
+        icdf_ms, bm_ms, gain = decision[key]
+        wins = gain > BM_MARGIN
+        rule = draws.resolve_normal_impl(k, n, tk)
+        say(f"phase 12 resolve_normal_impl decision at the {label} ({k}, "
+            f"{n}, {tk}): Box-Muller {'wins' if wins else 'does not win'} "
+            f"by > {100 * BM_MARGIN:.0f} % ({icdf_ms:.3f} vs {bm_ms:.3f} "
+            f"ms); the code's rule: {rule!r}")
+    for name, rec in other_recs.items():
+        # launches of the timing runs (all at the main paths' shapes, on
+        # FullRosenbrock) apart from those of the invariance runs
+        rec["launches"] = seen_timed[f"{name}.rosenbrock"]
+        rec["invariance_launches"] = seen_inv[f"{name}.mvn_iso"]
+        if rec["launches"] < 1:
+            fail(f"{name} was not launched through the entry points")
+        out.append(rec)
+    timed = {"pt": _build.library("fused_pt", "Normal", other["pt"]),
+             "pt_uniform_radius": _build.library("fused_pt", "UniformRadius",
+                                                 other["pt"]),
+             "rwm": _build.library("fused_rwm", "Normal", other["rwm"])}
+    for key, name in timed.items():
+        icdf_ms, bm_ms, gain = decision[key]
+        other_recs[name]["icdf_vs_bm"] = dict(icdf_ms=icdf_ms, bm_ms=bm_ms,
+                                              bm_gain=gain)
+
+    # ---- 13. the PT swap-rate study at launch_pt_pod.sh's shape
+    out_dir = os.path.join(HERE, "smoke_out", "pt_study")
+    os.makedirs(out_dir, exist_ok=True)
+    per = []
+    real_ladder = experiment_pt.construct_iterative_ladder
+    real_run = experiment_pt.run_pt_fused
+
+    def ladder_spy(*a, **k):
+        t0 = time.perf_counter()
+        ladder = real_ladder(*a, **k)
+        per.append(dict(ladder=ladder, ladder_s=time.perf_counter() - t0))
+        return ladder
+
+    def run_spy(*a, **k):
+        reset_launches(*wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_run(*a, **k)
+        torch.cuda.synchronize()
+        per[-1].update(run_s=time.perf_counter() - t0,
+                       launches=read_launches(*wrappers, by_kind=True))
+        return res
+
+    n_cfg = PT_STUDY["configs"]
+    experiment_pt.construct_iterative_ladder = ladder_spy
+    experiment_pt.run_pt_fused = run_spy
+    try:
+        with open(os.path.join(out_dir, "study.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            data = experiment_pt.run_study(
+                PT_STUDY["dim"], PT_STUDY["target"], PT_STUDY["iters"],
+                PT_STUDY["swap_accept_max"], PT_STUDY["seed"],
+                PT_STUDY["burn_in"], PT_STUDY["N"], PT_STUDY["tol"],
+                PT_STUDY["pn"], PT_STUDY["fail"], num_chains=PT_STUDY["C"],
+                num_configs=n_cfg, output_dir=out_dir, make_plots=False,
+                device=dev)
+    finally:
+        experiment_pt.construct_iterative_ladder = real_ladder
+        experiment_pt.run_pt_fused = real_run
+    study_draw = draws.resolve_normal_impl("pt", PT_STUDY["C"],
+                                           "three_mixture")
+    lib = _build.library("fused_pt", "Normal", study_draw) + ".three_mixture"
+    study_launches = 0
+    for i, c in enumerate(per):
+        say(f"phase 13 config {i}: constructed swap rate "
+            f"{data['swap_acceptance_rates_range'][i]:.4f}, actual "
+            f"{data['acceptance_rates'][i]:.4f}, beta-ESJD "
+            f"{data['expected_squared_jump_distances'][i]:.6f}; T="
+            f"{len(c['ladder'])} {[round(b, 5) for b in c['ladder']]}; "
+            f"ladder {c['ladder_s']:.2f} s, run {c['run_s']:.3f} s; "
+            f"launches {dict(c['launches'])}")
+        if dict(c["launches"]) != {lib: 1}:
+            fail(f"PT study config {i} launched {dict(c['launches'])}")
+        study_launches += 1
+    if len(per) != n_cfg or not all(
+            0 <= a <= 1 for a in data["acceptance_rates"]):
+        fail("PT study results out of range")
+    say(f"phase 13 PT study {PT_STUDY['target']} d={PT_STUDY['dim']}, "
+        f"{PT_STUDY['iters']} iterations + {PT_STUDY['burn_in']} burn-in, "
+        f"{PT_STUDY['C']} replicas, {n_cfg} configs: ESJD-optimal swap "
+        f"acceptance {data['max_actual_acceptance_rate']:.4f} (constructed "
+        f"{data['max_constr_acceptance_rate']:.4f}, beta-ESJD "
+        f"{data['max_esjd']:.6f}); {data['total_time']:.1f} s in all, "
+        f"ladders {sum(c['ladder_s'] for c in per):.1f} s, runs "
+        f"{sum(c['run_s'] for c in per):.1f} s")
+
+    reset_launches(*wrappers)
+    sim = MCMCSimulation(dim=PT_STUDY["dim"], sigma=2.38 ** 2 / PT_STUDY["dim"],
+                         num_iterations=20000, algorithm="PT",
+                         target_dist=PT_STUDY["target"], seed=1,
+                         burn_in=1000, num_chains=PT_STUDY["C"],
+                         iterative_temp_spacing=True, record_chain=False,
+                         device=dev)
+    sim.generate_samples(verbose=False)
+    seen = read_launches(*wrappers, by_kind=True)
+    if (dict(seen) != {lib: 1} or sim.engine_used != "pallas"
+            or sim.algorithm_name != "PT_RWM_GPU_ITERATIVE_LADDER"):
+        fail(f"harness iterative-ladder PT run: launches {dict(seen)}, "
+             f"engine {sim.engine_used}, {sim.algorithm_name}")
+    say(f"phase 13 MCMCSimulation PT {PT_STUDY['target']} iterative ladder "
+        f"{[round(b, 5) for b in sim.beta_ladder]}: swap acc "
+        f"{sim.acceptance_rate():.4f}, beta-ESJD "
+        f"{sim.pt_expected_squared_jump_distance():.6f}, "
+        f"{sim.elapsed_time:.3f} s; launches {dict(seen)}")
+
+    # the study's library held at the study's shape: the pt_gpu
+    # ThreeMixture d=10, 1024 replicas, a 7-rung ladder, the even/odd order
+    tm = get_target_distribution(PT_STUDY["target"], PT_STUDY["dim"],
+                                 device=dev, variant="pt_gpu")
+    Cs, betas7 = PT_STUDY["C"], torch.logspace(0, -2, 7, device=dev)
+    sig = torch.sqrt(torch.tensor(2.38 ** 2 / PT_STUDY["dim"], device=dev)
+                     / betas7)
+    x0 = tm.init_sample(Cs, gen).T[:, None].expand(
+        tm.dim, 7, Cs).contiguous()
+    args = (tm, x0, zi(7, Cs), zi(Cs), zf(Cs), zf(Cs), betas7, sig,
+            seed_key(19), 0, HOLD_STEPS, 50, 10)
+    ms, plain_ms, ag = hold_run(
+        torch, f"{lib} at the PT study's shape", fused_pt.launch_pt_kernel,
+        fused_pt._run_pt_fused_plain, args,
+        dict(draw=study_draw, swap_sweep="even_odd"), agreement.PT_OUTPUTS)
+    b_ms, b_by = bound(*pt_work(
+        "three_mixture", tm.dim, 7, Cs, HOLD_STEPS, 50, 10, draw=study_draw,
+        n_params=_build.kernel_target(tm)[1].numel())[::2])
+    say(f"phase 13 {lib} at the PT study's shape (d={tm.dim}, {Cs} "
+        f"replicas, T=7, even/odd, {HOLD_STEPS} steps, burn-in 50, swap "
+        f"every 10): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms; {agreement.describe(ag)}")
+    hold = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                agree_frac=ag.frac, max_abs_err=ag.max_dx,
+                max_rel_err=ag.max_rel)
+    rec = next((r for r in out if r["name"] == lib), None)
+    if rec is None:
+        # the study's draw differs from the flagship's: its record is this
+        # hold
+        rec = dict(name=lib, route="cuda", source=src["pt"],
+                   replaces=replaces["pt"], launches=0, library_ms=None,
+                   steps=HOLD_STEPS)
+        rec.update(hold)
+        out.append(rec)
+    rec["launches"] += study_launches + 1
+    rec["pt_study_run_s"] = [c["run_s"] for c in per]
+    rec["study_shape_hold"] = hold
+    rec["max_abs_err"] = max(rec["max_abs_err"], ag.max_dx)
+
+    bv = 2.38 ** 2 / d2
+    betas6 = torch.logspace(0, -2, 6, device=dev)
+    kw = dict(num_chains=1024, num_iterations=2000, burn_in=200,
+              swap_every=20, device=dev)
+    fz = run_pt_fused(mvn, 41, betas6, base_variance=bv,
+                      swap_sweep="even_odd", **kw)
+    ez = run_pt(mvn, NormalProposal.create(d2, bv, device=dev), 42, betas6,
+                swap_sweep="even_odd", **kw)
+    d_swap = abs(fz.swap_acceptance_rate.mean().item()
+                 - ez.swap_acceptance_rate.mean().item())
+    z = max([per_chain_z(fz.acceptance_rate[t], ez.acceptance_rate[t])
+             for t in range(6)]
+            + [per_chain_z(fz.swap_acceptance_rate, ez.swap_acceptance_rate)])
+    say(f"phase 13 fused even_odd vs eager even_odd (MVN d={d2}, 6 rungs): "
+        f"swap acc {fz.swap_acceptance_rate.mean().item():.4f} vs "
+        f"{ez.swap_acceptance_rate.mean().item():.4f} (|d| {d_swap:.4f} < "
+        f"0.05), max z over swap and per-rung MH acc {z:.2f} (< "
+        f"{Z_RATE_MAX})")
+    if d_swap >= 0.05 or z >= Z_RATE_MAX:
+        fail("fused even_odd and the eager engine disagree")
+    return out
+
+
+def smoke_libraries(_build):
+    """Every library the smoke launches: (variant, target kind, bucket)."""
+    lib = _build.lib_name
+    base = ("fused_pt", "fused_rwm", "fused_pt_laplace", "fused_rwm_laplace",
+            "fused_pt_uniform_radius", "fused_rwm_uniform_radius")
+    bm = ("fused_pt_bm", "fused_rwm_bm", "fused_pt_uniform_radius_bm",
+          "fused_rwm_uniform_radius_bm")
+    names = [lib(v, "rosenbrock", 30) for v in base + bm]      # 6, 7, 9, 12
+    names += [lib(v, "mvn_iso", 10) for v in base + bm]        # 3-5, 8, 12
+    names += [lib(v, "rough_carpet", STUDY["dim"])             # 7, 10, 12
+              for v in ("fused_rwm_laplace", "fused_rwm_uniform_radius",
+                        "fused_rwm_uniform_radius_bm")]
+    from rwm_pt_tpu_torch.kernels.draws import resolve_normal_impl
+    for k in KINDS:                                              # 11
+        for algo, n in (("pt", FLAG["C"]), ("rwm", RWM_MAIN["C"])):
+            v = _build.library(f"fused_{algo}", "Normal",
+                               resolve_normal_impl(algo, n, k))
+            names += [lib(v, k, 10), lib(v, k, 30)]
+    names += [lib(v, "three_mixture", PT_STUDY["dim"])          # 12, 13
+              for v in ("fused_pt", "fused_pt_bm")]
+    names += [lib(v, "mvn_full", FLAG["dim"])                    # 12
+              for v in ("fused_pt", "fused_pt_bm")]
+    return list(dict.fromkeys(names))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -585,9 +1229,11 @@ def main():
     sys.path.insert(0, HERE)
     try:
         from rwm_pt_tpu_torch.api import MCMCSimulation  # noqa: F401
-        from rwm_pt_tpu_torch.kernels import (_build, agreement, fused_pt,
-                                              fused_rwm, run_pt, run_pt_fused,
-                                              run_rwm, run_rwm_fused)
+        from rwm_pt_tpu_torch.kernels import (_build, agreement, draws,
+                                              fused_pt, fused_rwm,
+                                              ptxas_report, run_pt,
+                                              run_pt_fused, run_rwm,
+                                              run_rwm_fused)
         from rwm_pt_tpu_torch.kernels.draws import seed_key
         from rwm_pt_tpu_torch.proposals import NormalProposal
         from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
@@ -609,31 +1255,17 @@ def main():
     card = smi[0] if smi else "nvidia-smi unavailable"
     say(f"phase 1 device: {name} x{count}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; nvidia-smi name, power.limit:")
-    say(card)
+    print(card, flush=True)
 
     # ---- 2. build
     t0 = time.time()
-    logs = _build.build()
+    logs = _build.build(smoke_libraries(_build))
     for kname, log in logs.items():
-        regs = []
-        func = None
-        for line in log.splitlines():
-            m = re.search(r"entry function '([^']+)'", line)
-            if m:
-                t = re.search(r"kernelILi(\d)ELi(\d+)E", m.group(1))
-                func = (("rosenbrock" if t.group(1) == "0" else "mvn_iso")
-                        + f"/D{t.group(2)}") if t else m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            if m and func:
-                regs.append([func, None, int(m.group(1)) + int(m.group(2))])
-            m = re.search(r"Used (\d+) registers", line)
-            if m and regs and regs[-1][1] is None:
-                regs[-1][1] = int(m.group(1))
-        desc = ", ".join(f"{f} {r} regs {s} B spill" for f, r, s in regs)
-        say(f"phase 2 build {kname}: {desc}")
-    say(f"phase 2 build: {len(logs)} libraries (both kernels x 3 "
-        f"proposals) in {time.time() - t0:.1f} s")
+        say(f"phase 2 build {kname}: " + "; ".join(
+            f"{n} {r} regs, {f} B stack, {sp} B spill"
+            for n, r, f, sp in sorted(ptxas_report.parse(log))))
+    say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
+        f"target kind and register bucket) in {time.time() - t0:.1f} s")
 
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
     zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
@@ -652,7 +1284,8 @@ def main():
     k = fused_pt.launch_pt_kernel(*args)
     p = fused_pt._run_pt_fused_plain(*args)
     torch.cuda.synchronize()
-    ag = agreement.hold(k, p, agreement.PT_OUTPUTS)
+    ag = agreement.hold(k, p, agreement.PT_OUTPUTS,
+                        lp_of=rb.log_density_td)
     n_mh, n_sw = 150 * T * C, 15 * (T - 1) * C
     z_mh = rate_z(k[2].sum().item() / n_mh, p[2].sum().item() / n_mh, n_mh)
     z_sw = rate_z(k[3].sum().item() / n_sw, p[3].sum().item() / n_sw, n_sw)
@@ -671,7 +1304,8 @@ def main():
     k = fused_rwm.launch_rwm_kernel(*args)
     p = fused_rwm._run_rwm_fused_plain(*args)
     torch.cuda.synchronize()
-    ag = agreement.hold(k, p, agreement.RWM_OUTPUTS)
+    ag = agreement.hold(k, p, agreement.RWM_OUTPUTS,
+                        lp_of=mvn.log_density_td)
     n_r = 180 * C
     z_r = rate_z(k[2].sum().item() / n_r, p[2].sum().item() / n_r, n_r)
     say(f"phase 3 RWM kernel vs plain: {agreement.describe(ag)}; acc "
@@ -722,8 +1356,10 @@ def main():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     seen = read_launches(*wrappers)
-    pt_launches = seen["fused_pt"]
-    if pt_launches < 1 or set(seen) != {"fused_pt"}:
+    pt_draw = draws.resolve_normal_impl("pt", C, "rosenbrock")
+    pt_main = _build.library("fused_pt", "Normal", pt_draw)
+    pt_launches = seen[pt_main]
+    if pt_launches < 1 or set(seen) != {pt_main}:
         fail(f"flagship path launches: {dict(seen)}")
     st = res.state
     if (tuple(st.x.shape) != (d, T, C) or not torch.isfinite(st.x).all()
@@ -743,8 +1379,8 @@ def main():
         f"steps/s (best of 3: {[round(t, 3) for t in e2e_ms]} ms; first call "
         f"{first_s:.3f} s incl. build load); swap acc {swap_acc:.4f}, cold "
         f"ESJD {cold:.5g}, per-rung MH acc "
-        f"{[round(a, 4) for a in rung_acc]}; launches fused_pt {pt_launches} "
-        f"fused_rwm 0; card {card}")
+        f"{[round(a, 4) for a in rung_acc]}; launches {dict(seen)}; card "
+        f"{card}")
 
     def pt_args(steps):
         x0 = (1e-8 * torch.randn(d, 1, C, generator=gen, device=dev)).expand(
@@ -755,12 +1391,13 @@ def main():
                 seed_key(0), 0, steps, 0, FLAG["swap_every"])
 
     kernels.append(kernel_record(
-        torch, "fused_pt", "rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
+        torch, pt_main, "rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
         "rwm_pt_tpu/kernels/pallas_pt.py:399", pt_launches,
         fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
         agreement.PT_OUTPUTS,
-        lambda steps, hold: (pt_args(steps), {}, pt_work(
-            "rosenbrock", d, T, C, steps, 0, FLAG["swap_every"])),
+        lambda steps, hold: (pt_args(steps), dict(draw=pt_draw), pt_work(
+            "rosenbrock", d, T, C, steps, 0, FLAG["swap_every"],
+            draw=pt_draw)),
         FLAG["iters"]))
     del res, st
 
@@ -772,8 +1409,10 @@ def main():
     rr = run_rwm_fused(rb, 0, **rwm_kw)
     torch.cuda.synchronize()
     seen = read_launches(*wrappers)
-    rwm_launches = seen["fused_rwm"]
-    if rwm_launches < 1 or set(seen) != {"fused_rwm"}:
+    rwm_draw = draws.resolve_normal_impl("rwm", Cr, "rosenbrock")
+    rwm_main = _build.library("fused_rwm", "Normal", rwm_draw)
+    rwm_launches = seen[rwm_main]
+    if rwm_launches < 1 or set(seen) != {rwm_main}:
         fail(f"RWM path launches: {dict(seen)}")
     if not torch.isfinite(rr.state.x).all():
         fail("RWM main-path state is not finite")
@@ -785,8 +1424,7 @@ def main():
              for rep in (1, 2, 3)]
     say(f"phase 6 RWM path: {RWM_MAIN['iters'] * Cr / (min(e2e_r) / 1e3):.6g}"
         f" MH steps/s (best of 3: {[round(t, 3) for t in e2e_r]} ms); acc "
-        f"{acc_r:.4f}, ESJD {esjd_r:.5g}; launches fused_rwm {rwm_launches} "
-        f"fused_pt 0")
+        f"{acc_r:.4f}, ESJD {esjd_r:.5g}; launches {dict(seen)}")
 
     def rwm_args(steps):
         x0 = 1e-8 * torch.randn(d, Cr, generator=gen, device=dev)
@@ -796,18 +1434,20 @@ def main():
                 seed_key(0), 0, steps, 0)
 
     kernels.append(kernel_record(
-        torch, "fused_rwm", "rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu",
+        torch, rwm_main, "rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu",
         "rwm_pt_tpu/kernels/pallas_rwm.py:570", rwm_launches,
         fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
         agreement.RWM_OUTPUTS,
-        lambda steps, hold: (rwm_args(steps), {},
-                             rwm_work("rosenbrock", d, Cr, steps)),
+        lambda steps, hold: (rwm_args(steps), dict(draw=rwm_draw),
+                             rwm_work("rosenbrock", d, Cr, steps,
+                                      draw=rwm_draw)),
         RWM_MAIN["iters"]))
 
     kernels.extend(phases_7_to_10(torch, gen))
+    kernels.extend(phases_11_to_13(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
-    say(card)
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

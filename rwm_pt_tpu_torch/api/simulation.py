@@ -18,10 +18,12 @@ Unlike on the TPU, recorded runs go to the fused samplers too: on a card
 a snapshot is a store from registers, not a VMEM round trip, and nothing
 limits the recorded batch.
 
-Not ported yet, and raised with ``NotImplementedError`` naming the ROADMAP
-item: ``iterative_temp_spacing`` (Queue A item 10), ``autotune`` and
-``autotune_ladder`` (A11), ``use_mesh`` (A13), ``cpu_semantics=True``,
-``symmetric=False`` and ``progress_bar=True`` (A7).
+``iterative_temp_spacing=True`` builds the ladder with the host-loop
+iterative construction (``ladders.construct_iterative_ladder``, seeded by
+``seed``).  Not ported yet, and raised with ``NotImplementedError`` naming
+the ROADMAP item: ``autotune`` and ``autotune_ladder`` (Queue A item 11),
+``use_mesh`` (A13), ``cpu_semantics=True``, ``symmetric=False`` and
+``progress_bar=True`` (A7).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from ..convert import (PT_FIELDS, RWM_FIELDS, pt_state_from_numpy,
                        rwm_state_to_numpy)
 from ..kernels import _build, run_pt, run_pt_fused, run_rwm, run_rwm_fused
 from ..kernels.rwm import step_generator
-from ..ladders import construct_geometric_ladder
+from ..ladders import construct_geometric_ladder, construct_iterative_ladder
 from ..proposals import create_proposal_distribution
 from ..targets import get_target_distribution
 from ..targets.base import TargetMixin
@@ -180,10 +182,26 @@ class MCMCSimulation:
             if beta_ladder is not None:
                 self.beta_ladder = [float(b) for b in beta_ladder]
             elif iterative_temp_spacing:
-                raise _not_ported("iterative_temp_spacing (the iterative "
-                                  "ladder)", "A item 10")
+                self.beta_ladder = construct_iterative_ladder(
+                    target_dist,
+                    target_swap_acceptance_rate=(swap_acceptance_rate
+                                                 or 0.234),
+                    beta_min=beta_min_iterative,
+                    N_samples_swap_est=N_samples_swap_est,
+                    tolerance=iterative_tolerance,
+                    initial_pn=iterative_initial_pn,
+                    pn_update_power=iterative_pn_update_power,
+                    max_pn_adjustment_steps=iterative_max_pn_steps,
+                    pn_clamping_range=(iterative_pn_clamp_min,
+                                       iterative_pn_clamp_max),
+                    convergence_failure_tolerance_factor=(
+                        iterative_fail_tol_factor),
+                    seed=self.seed)
             else:
                 self.beta_ladder = construct_geometric_ladder()
+            self.algorithm_name = ("PT_RWM_GPU_ITERATIVE_LADDER"
+                                   if iterative_temp_spacing
+                                   else "PT_RWM_GPU")
             if (self._rung_multipliers is not None
                     and len(self._rung_multipliers) != len(self.beta_ladder)):
                 raise ValueError(

@@ -15,7 +15,8 @@ import argparse
 import json
 import os
 
-from ..targets.registry import PORTED_TARGETS
+from ..targets.registry import (PORTED_TARGETS,
+                                calculate_hybrid_rosenbrock_dim)
 
 
 def add_target_args(parser: argparse.ArgumentParser):
@@ -98,12 +99,18 @@ def target_kwargs_from_args(args) -> dict:
 
 
 def resolve_actual_dim(args) -> int:
-    """``--dim`` for the ported targets; the targets whose dimension derives
-    from their own structure are not ported yet."""
+    """The target's dimension: ``--dim``, or for HybridRosenbrock
+    ``1 + n2 (n1 - 1)``; an odd ``--dim`` for EvenRosenbrock exits, as in
+    the JAX CLIs, and SuperFunnel is not ported (ROADMAP Queue A item 9)."""
     if args.target not in PORTED_TARGETS:
         raise NotImplementedError(
             f"target {args.target!r} is not ported to the PyTorch package "
             f"yet (ROADMAP Queue A item 9); ported: {PORTED_TARGETS}")
+    if args.target == "HybridRosenbrock":
+        return calculate_hybrid_rosenbrock_dim(args.hybrid_rosenbrock_n1,
+                                               args.hybrid_rosenbrock_n2)
+    if args.target == "EvenRosenbrock" and args.dim % 2:
+        raise SystemExit("EvenRosenbrock requires an even --dim")
     return args.dim
 
 

@@ -6,6 +6,8 @@ a port state resumes on JAX.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -13,7 +15,10 @@ from .kernels.pt import PTState
 from .kernels.rwm import RWMState
 from .proposals import (LaplaceProposal, NormalProposal,
                         UniformRadiusProposal)
-from .targets import FullRosenbrock, MultivariateNormal
+from .targets import (EvenRosenbrock, FullRosenbrock, HybridRosenbrock,
+                      Hypercube, IIDBeta, IIDGamma, MultivariateNormal,
+                      NealFunnel, RoughCarpet, ScaledMultivariateNormal,
+                      ThreeMixture)
 from .utils.dtypes import resolve_device
 
 # state fields in the JAX dataclasses' order (also the checkpoint's arr_0..)
@@ -28,24 +33,53 @@ def _t(v, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(v)).to(dev)
 
 
+_TARGETS = {cls.__name__: cls for cls in (
+    FullRosenbrock, EvenRosenbrock, HybridRosenbrock, MultivariateNormal,
+    ScaledMultivariateNormal, ThreeMixture, RoughCarpet, Hypercube,
+    IIDGamma, IIDBeta, NealFunnel)}
+
+
 def target_from_numpy(name: str, fields: dict, *, device="cuda"):
-    """``FullRosenbrock`` (``a_coeff``, ``b_coeff``, ``mu``) or
-    ``MultivariateNormal`` (``mean``, ``cov``, ``cov_inv``, ``chol``,
-    ``log_norm_const``, ``iso``) from the JAX dataclass fields."""
+    """The port's target of class ``name`` (the JAX class name, e.g.
+    ``"ThreeMixture"``) from the JAX dataclass fields as numpy arrays and
+    Python values.  ``dim`` may be left out for ``FullRosenbrock``,
+    ``EvenRosenbrock`` (``mu`` has d-1 entries) and ``MultivariateNormal``
+    (from ``mean``); ``name`` keeps the class default when left out."""
+    cls = _TARGETS.get(name)
+    if cls is None:
+        raise NotImplementedError(f"target {name!r} is not ported yet")
     dev = resolve_device(device)
-    if name == "FullRosenbrock":
-        mu = _t(fields["mu"], dev).reshape(-1)
-        return FullRosenbrock(dim=mu.shape[0] + 1,
-                              a_coeff=_t(fields["a_coeff"], dev),
-                              b_coeff=_t(fields["b_coeff"], dev), mu=mu)
-    if name == "MultivariateNormal":
-        mean = _t(fields["mean"], dev)
-        return MultivariateNormal(
-            dim=mean.shape[0], iso=bool(fields["iso"]), mean=mean,
-            cov=_t(fields["cov"], dev), cov_inv=_t(fields["cov_inv"], dev),
-            chol=_t(fields["chol"], dev),
-            log_norm_const=_t(fields["log_norm_const"], dev))
-    raise NotImplementedError(f"target {name!r} is not ported yet")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in fields:
+            continue
+        v = fields[f.name]
+        if f.type in ("int", int):
+            kw[f.name] = int(np.asarray(v))
+        elif f.type in ("bool", bool):
+            kw[f.name] = bool(np.asarray(v))
+        elif f.type in ("str", str):
+            kw[f.name] = str(v)
+        else:
+            kw[f.name] = _t(v, dev)
+    if "dim" not in kw:
+        kw["dim"] = (kw["mean"].shape[0] if name == "MultivariateNormal"
+                     else kw["mu"].reshape(-1).shape[0] + 1)
+    if "mu" in kw and name != "HybridRosenbrock":
+        kw["mu"] = kw["mu"].reshape(-1)
+    return cls(**kw)
+
+
+def target_to_numpy(target) -> dict:
+    """Every dataclass field of a port target, tensors as numpy arrays (the
+    JAX dataclass field names, so ``Cls(**fields)`` rebuilds a JAX
+    target)."""
+    out = {}
+    for f in dataclasses.fields(target):
+        v = getattr(target, f.name)
+        out[f.name] = (v.detach().cpu().numpy()
+                       if isinstance(v, torch.Tensor) else v)
+    return out
 
 
 def proposal_from_numpy(name: str, fields: dict, *, dim: int,

@@ -10,6 +10,14 @@ floats (log-densities, Kahan sums) to ``RTOL``, and a recorded trace
 (``chain``, whose replica axis holds the first few replicas only) to
 ``X_ATOL`` like x.  An off-by-one in the burn-in gate, a wrong cold-rung
 jump or a snapshot taken at the wrong step then fails even where x agrees.
+
+The log-densities are held against the target's log-density at the
+kernel's own final x when the caller passes it (``lp_of``): the kernel's
+lp must be the log-density of its state.  The plain version's lp belongs
+to the plain version's x, which may sit a few float32 ulps away; where a
+log-density's terms cancel (IIDBeta near lp = 0, with gradients of ~100
+near the support's edges) that distance alone moves lp by more than
+``RTOL`` of its value, which is rounding of x, not of lp.
 """
 from __future__ import annotations
 
@@ -35,10 +43,16 @@ class Agreement(NamedTuple):
     mismatched: dict     # output -> agreeing replicas where it disagrees
 
 
-def hold(kernel_out, plain_out, names) -> Agreement:
+def hold(kernel_out, plain_out, names, lp_of=None) -> Agreement:
     """Compare two tuples of outputs named ``names``, ``names[0] == "x"``;
-    every output has the replica axis last."""
+    every output has the replica axis last.  ``lp_of``: the target's
+    ``log_density_td``; when given, ``lp`` is held against it at the
+    kernel's x instead of against the plain version's lp."""
     xk, xp = kernel_out[0], plain_out[0]
+    if lp_of is not None and "lp" in names:
+        i = names.index("lp")
+        plain_out = (tuple(plain_out[:i]) + (lp_of(xk),)
+                     + tuple(plain_out[i + 1:]))
     diff = (xk - xp).abs().reshape(-1, xk.shape[-1]).amax(0)
     ok = diff < X_ATOL
     frac = ok.float().mean().item()

@@ -1,11 +1,13 @@
-// Uniform and inverse-CDF normal draws and the Laplace increment, the same
-// scheme as rwm_pt_tpu_torch/kernels/draws.py (uniform_from_bits,
-// erfinv_giles, normal_icdf, laplace_increment), replacing
-// rwm_pt_tpu/kernels/pallas_rwm.py::_uniform, _erfinv_giles, _normal_icdf and
-// _laplace.  Per normal: 1 logf + 1 sqrtf + 16 FMA of Giles' two
-// polynomials + a select.  Built without --use_fast_math: logf, log1pf,
-// expf and sqrtf stay IEEE-accurate so the draws agree with the plain
-// version (and logf(0) = -inf, expf(-inf) = 0 hold for the uniform ball).
+// Uniform, inverse-CDF and Box-Muller normal draws and the Laplace
+// increment, the same scheme as rwm_pt_tpu_torch/kernels/draws.py
+// (uniform_from_bits, erfinv_giles, normal_icdf, normal_bm,
+// laplace_increment), replacing rwm_pt_tpu/kernels/pallas_rwm.py::_uniform,
+// _erfinv_giles, _normal_icdf, _normal_bm and _laplace.  Per ICDF normal:
+// 1 logf + 1 sqrtf + 16 FMA of Giles' two polynomials + a select; per
+// Box-Muller pair (two normals): 1 logf + 1 sqrtf + 1 sincosf.  Built
+// without --use_fast_math: logf, log1pf, expf, sqrtf and sincosf stay
+// IEEE-accurate so the draws agree with the plain version (and logf(0) =
+// -inf, expf(-inf) = 0 hold for the uniform ball).
 #pragma once
 #include <stdint.h>
 
@@ -13,6 +15,9 @@
 #define PROPOSAL_NORMAL 0
 #define PROPOSAL_LAPLACE 1
 #define PROPOSAL_UNIFORM_RADIUS 2
+// Normal draws; each library is built for one (-DRWM_PT_NORMAL).
+#define DRAW_ICDF 0
+#define DRAW_BM 1
 
 // top 24 bits, logical shift (uint32), times 2^-24: U[0,1)
 __device__ __forceinline__ float uniform_from_bits(uint32_t w) {
@@ -59,4 +64,16 @@ __device__ __forceinline__ float laplace_increment(float u, float scale) {
   const float c = fmaxf(-2.0f * fabsf(v), -0.999999f);
   const float sg = v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
   return __fmul_rn(-scale * sg, log1pf(c));
+}
+
+// One Box-Muller pair, pallas_rwm.py::_normal_bm's arithmetic: u1 already
+// clamped at 1e-7, r = sqrt(-2 log u1), theta = 2 pi u2 rounded to f32;
+// rs = r sin theta, rc = r cos theta, each product rounded on its own.
+__device__ __forceinline__ void box_muller(float u1, float u2, float& r,
+                                           float& rs, float& rc) {
+  r = sqrtf(-2.0f * logf(u1));
+  float s, c;
+  sincosf(__fmul_rn(6.28318530717958648f, u2), &s, &c);
+  rs = __fmul_rn(r, s);
+  rc = __fmul_rn(r, c);
 }

@@ -2,25 +2,34 @@
 //
 // Replaces rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
 // _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96), the
-// Pallas kernels behind run_pt_pallas (ICDF draw), with the Normal, Laplace
-// and UniformRadius increments (csrc/mh.cuh; per-rung scales as
-// pallas_pt.py:307-320).  One library is built per proposal
-// (-DRWM_PT_PROPOSAL=0/1/2) from this one source.  One launch runs all
-// `total` steps:
+// Pallas kernels behind run_pt_pallas, with the Normal, Laplace and
+// UniformRadius increments and the ICDF or Box-Muller normal draw
+// (csrc/mh.cuh; per-rung scales as pallas_pt.py:307-320).  One library is
+// built per (proposal, draw, target kind, register bucket DMAX = 8, 16, 32
+// or 64) from this one source (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL,
+// -DRWM_PT_TARGET, -DRWM_PT_DMAX).  One launch runs all `total` steps:
 //   * MH move on every rung, every step (csrc/mh.cuh), int32 per-rung accept
 //     counts after burn-in (post = step0 + s + 1 > burn_in);
-//   * on post-burn-in multiples of swap_every, the exact sequential swap
-//     sweep j = 0..T-2, log a = (beta_j - beta_{j+1})(lp_{j+1} - lp_j), each
-//     pair seeing the state the pairs before it left;
+//   * on post-burn-in multiples of swap_every, a swap sweep over the pairs
+//     (j, j+1), log a = (beta_j - beta_{j+1})(lp_{j+1} - lp_j), each pair
+//     seeing the state the pairs before it left, in the runtime pair order
+//     `order`: 0 = j = 0..T-2 (the Pallas sweep), 1 = even pairs 0, 2, 4..
+//     then odd pairs 1, 3, 5.. (the JAX scan engine's two half-sweeps
+//     kernels/pt.py::_swap_phase, equal to this order because the pairs of
+//     one parity are disjoint); pair j draws its uniform from rung j's
+//     Philox slot d+1 in either order;
 //   * int32 swap counts, Kahan-compensated sum of (dbeta)^2 over accepted
 //     swaps and of the cold rung's squared jump (swap moves included).
 //
 // Layout.  A replica's ladder is T*d floats (300 at the flagship d=30,
 // T=10), above a thread's 255 registers, so one thread holds one
 // (replica, slot): its d coordinates in registers, 2*DMAX floats live with
-// the proposal.  A block is 32 replicas (threadIdx.x, so loads and stores of
+// the proposal.  A block is R replicas (threadIdx.x, so loads and stores of
 // the (d, T, C) state are coalesced on the replica axis) x T slots
-// (threadIdx.y).  A swap does not move states between threads: it swaps the
+// (threadIdx.y), R = 32 (a compile-time constant) unless 32 T threads would
+// need more registers than an SM has (launch_pt asks cudaFuncGetAttributes;
+// the full-covariance MVN at DMAX 32, or T above 17 for most kinds), then
+// the most that fit, from an instantiation that reads R at run time.  A swap does not move states between threads: it swaps the
 // rung->slot map in shared memory, and each thread then reads its new rung
 // (its beta, sigma and draw stream).  The states go to their rungs' places
 // when the run ends.  The cold-rung jump across a pair-0 swap needs the old
@@ -44,10 +53,11 @@
 // Bound: operations (Philox integer rounds, one logf + one sqrtf per normal,
 // Giles' polynomials, the target's terms); global memory sees the initial
 // state and the final state + accumulators only.  The ragged edge (C not a
-// multiple of 32) is masked: those threads run on zeros and store nothing.
+// multiple of R) is masked: those threads run on zeros and store nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=k (no --use_fast_math)
+//        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
+//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,24 +67,36 @@
 #ifndef RWM_PT_PROPOSAL
 #define RWM_PT_PROPOSAL PROPOSAL_NORMAL
 #endif
+#ifndef RWM_PT_NORMAL
+#define RWM_PT_NORMAL DRAW_ICDF
+#endif
+#ifndef RWM_PT_TARGET
+#define RWM_PT_TARGET TARGET_ROSENBROCK
+#endif
+#ifndef RWM_PT_DMAX
+#define RWM_PT_DMAX 32
+#endif
 
 namespace {
 
-constexpr int kReplicas = 32;   // replicas per block (threadIdx.x)
+constexpr int kMaxReplicas = 32;   // replicas per block (threadIdx.x)
 
 constexpr int kProp = RWM_PT_PROPOSAL;
+constexpr int kDraw = RWM_PT_NORMAL;
+constexpr int kKind = RWM_PT_TARGET;
+constexpr int kDmax = RWM_PT_DMAX;   // the register bucket: d <= kDmax
 
 template <int DMAX>
-__host__ __device__ constexpr size_t shared_words(int n_params, int T, int d) {
+__host__ __device__ constexpr size_t shared_words(int n_params, int T, int d,
+                                                  int R) {
   // params, beta, sigma | lp, u (per slot / pair) | old cold state | cold sum,
   // compensation | slot_of_rung, rung_of_slot, accepts | pair-0 flag |
   // Laplace scales (T, d)
-  return (size_t)n_params + 2 * T + 2 * T * kReplicas + DMAX * kReplicas +
-         2 * kReplicas + 3 * T * kReplicas + kReplicas +
-         (kProp == PROPOSAL_LAPLACE ? T * d : 0);
+  return (size_t)n_params + 2 * T + 2 * T * R + DMAX * R + 2 * R +
+         3 * T * R + R + (kProp == PROPOSAL_LAPLACE ? T * d : 0);
 }
 
-template <int KIND, int DMAX>
+template <int KIND, int DMAX, int RFIX>
 __global__ void fused_pt_kernel(
     const float* __restrict__ params, int n_params,
     const float* __restrict__ betas, const float* __restrict__ sigmas,
@@ -86,26 +108,29 @@ __global__ void fused_pt_kernel(
     float* __restrict__ cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* __restrict__ lap, float inv_d, float* __restrict__ rec,
-    int record_every, int record_chains) {
+    int record_every, int record_chains, int order) {
   extern __shared__ float smem[];
+  // replicas per block: a compile-time 32 on the usual path (a runtime R
+  // in the shared-memory indexing costs ~2 % of the flagship's time)
+  const int R = RFIX ? RFIX : (int)blockDim.x;
   float* s_params = smem;
   float* s_beta = s_params + n_params;
   float* s_sigma = s_beta + T;
   float* s_lp = s_sigma + T;                  // [slot][replica]
-  float* s_u = s_lp + T * kReplicas;          // [pair][replica]
-  float* s_old = s_u + T * kReplicas;         // [i][replica]
-  float* s_cold = s_old + DMAX * kReplicas;   // [replica]
-  float* s_cc = s_cold + kReplicas;           // [replica]
-  int* s_slot = (int*)(s_cc + kReplicas);     // [rung][replica] -> slot
-  int* s_rung = s_slot + T * kReplicas;       // [slot][replica] -> rung
-  int* s_acc = s_rung + T * kReplicas;        // [rung][replica]
-  int* s_flag = s_acc + T * kReplicas;        // [replica]
-  float* s_lap = (float*)(s_flag + kReplicas);  // [rung][i], Laplace only
+  float* s_u = s_lp + T * R;          // [pair][replica]
+  float* s_old = s_u + T * R;         // [i][replica]
+  float* s_cold = s_old + DMAX * R;   // [replica]
+  float* s_cc = s_cold + R;           // [replica]
+  int* s_slot = (int*)(s_cc + R);     // [rung][replica] -> slot
+  int* s_rung = s_slot + T * R;       // [slot][replica] -> rung
+  int* s_acc = s_rung + T * R;        // [rung][replica]
+  int* s_flag = s_acc + T * R;        // [replica]
+  float* s_lap = (float*)(s_flag + R);  // [rung][i], Laplace only
 
   const int cx = threadIdx.x, slot = threadIdx.y;
   const int nthreads = blockDim.x * blockDim.y;
-  const int tid = slot * kReplicas + cx;
-  const int c = blockIdx.x * kReplicas + cx;
+  const int tid = slot * R + cx;
+  const int c = blockIdx.x * R + cx;
   const bool valid = c < C;
 
   for (int i = tid; i < n_params; i += nthreads) s_params[i] = params[i];
@@ -115,9 +140,9 @@ __global__ void fused_pt_kernel(
   }
   if (kProp == PROPOSAL_LAPLACE)
     for (int i = tid; i < T * d; i += nthreads) s_lap[i] = lap[i];
-  s_slot[slot * kReplicas + cx] = slot;
-  s_rung[slot * kReplicas + cx] = slot;
-  s_acc[slot * kReplicas + cx] = valid ? acc0[(size_t)slot * C + c] : 0;
+  s_slot[slot * R + cx] = slot;
+  s_rung[slot * R + cx] = slot;
+  s_acc[slot * R + cx] = valid ? acc0[(size_t)slot * C + c] : 0;
   if (slot == 0) {
     s_cold[cx] = valid ? cj0[c] : 0.0f;
     s_cc[cx] = 0.0f;
@@ -141,30 +166,33 @@ __global__ void fused_pt_kernel(
     uint4 blk;
     int cur_k = -1;
     float jump;
-    const bool accept = mh_move<KIND, kProp, DMAX>(
+    const bool accept = mh_move<KIND, kProp, kDraw, DMAX>(
         x, p, lp, jump, d, s_params, s_sigma[rung], s_lap + rung * d, inv_d,
         s_beta[rung], c, rung, abs_step, key0, key1, blk, cur_k);
-    if (post && accept) s_acc[rung * kReplicas + cx] += 1;
+    if (post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung;
     if (do_swap) {   // the same for every thread of the block
-      s_lp[slot * kReplicas + cx] = lp;
+      s_lp[slot * R + cx] = lp;
       if (rung < T - 1)
-        s_u[rung * kReplicas + cx] = uniform_from_bits(slot_word(
+        s_u[rung * R + cx] = uniform_from_bits(slot_word(
             d + 1, blk, cur_k, c, rung, abs_step, key0, key1));
       __syncthreads();
       if (slot == 0) {
         int flag = 0;
-        for (int j = 0; j < T - 1; ++j) {
-          const int a = s_slot[j * kReplicas + cx];
-          const int b = s_slot[(j + 1) * kReplicas + cx];
+        const int n_even = T >> 1;   // pairs 0, 2, .. of 0..T-2
+        for (int jj = 0; jj < T - 1; ++jj) {
+          const int j = order == 0 ? jj
+                        : (jj < n_even ? 2 * jj : 2 * (jj - n_even) + 1);
+          const int a = s_slot[j * R + cx];
+          const int b = s_slot[(j + 1) * R + cx];
           const float db = s_beta[j] - s_beta[j + 1];
           const float log_swap =
-              db * (s_lp[b * kReplicas + cx] - s_lp[a * kReplicas + cx]);
-          const bool sw = s_u[j * kReplicas + cx] < expf(log_swap);
+              db * (s_lp[b * R + cx] - s_lp[a * R + cx]);
+          const bool sw = s_u[j * R + cx] < expf(log_swap);
           if (sw) {
-            s_slot[j * kReplicas + cx] = b;
-            s_slot[(j + 1) * kReplicas + cx] = a;
+            s_slot[j * R + cx] = b;
+            s_slot[(j + 1) * R + cx] = a;
             swapacc += 1;
             if (j == 0) flag = 1;
           }
@@ -174,16 +202,16 @@ __global__ void fused_pt_kernel(
           bj = tot;
         }
         for (int j = 0; j < T; ++j)
-          s_rung[s_slot[j * kReplicas + cx] * kReplicas + cx] = j;
+          s_rung[s_slot[j * R + cx] * R + cx] = j;
         s_flag[cx] = flag;
       }
       __syncthreads();
-      new_rung = s_rung[slot * kReplicas + cx];
+      new_rung = s_rung[slot * R + cx];
       const bool moved = s_flag[cx] != 0;   // rung 0 changed hands
       if (moved && rung == 0) {
 #pragma unroll
         for (int i = 0; i < DMAX; ++i)
-          if (i < d) s_old[i * kReplicas + cx] = p[i];
+          if (i < d) s_old[i * R + cx] = p[i];
       }
       __syncthreads();
       if (moved && new_rung == 0) {
@@ -191,7 +219,7 @@ __global__ void fused_pt_kernel(
 #pragma unroll
         for (int i = 0; i < DMAX; ++i) {
           if (i < d) {
-            const float dd = x[i] - s_old[i * kReplicas + cx];
+            const float dd = x[i] - s_old[i * R + cx];
             jump += dd * dd;
           }
         }
@@ -228,7 +256,7 @@ __global__ void fused_pt_kernel(
     for (int i = 0; i < DMAX; ++i)
       if (i < d) x_out[((size_t)i * T + rung) * C + c] = x[i];
     lp_out[(size_t)rung * C + c] = lp;
-    acc_out[(size_t)slot * C + c] = s_acc[slot * kReplicas + cx];
+    acc_out[(size_t)slot * C + c] = s_acc[slot * R + cx];
     if (slot == 0) {
       swapacc_out[c] = swapacc;
       bj_out[c] = bj;
@@ -245,16 +273,37 @@ int launch_pt(const float* params, int n_params, const float* betas,
               float* bj_out, float* cj_out, int d, int T, int C, int total,
               int burn_in, int swap_every, int step0, uint32_t key0,
               uint32_t key1, const float* lap, float inv_d, float* rec,
-              int record_every, int record_chains, cudaStream_t stream) {
-  const size_t shmem = shared_words<DMAX>(n_params, T, d) * sizeof(float);
-  if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((C + kReplicas - 1) / kReplicas);
-  const dim3 block(kReplicas, T);
-  fused_pt_kernel<KIND, DMAX><<<grid, block, shmem, stream>>>(
+              int record_every, int record_chains, int order,
+              cudaStream_t stream) {
+  // 32 replicas a block where 32 T threads fit the register file, else the
+  // runtime-R instantiation with as many replicas as fit
+  auto kernel = fused_pt_kernel<KIND, DMAX, kMaxReplicas>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int R = kMaxReplicas;
+  if (kMaxReplicas * T > attr.maxThreadsPerBlock) {
+    kernel = fused_pt_kernel<KIND, DMAX, 0>;
+    e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return (int)e;
+    R = attr.maxThreadsPerBlock / T;
+  }
+  if (R < 1) return (int)cudaErrorInvalidConfiguration;
+  const size_t shmem = shared_words<DMAX>(n_params, T, d, R) * sizeof(float);
+  if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (shmem > 48 * 1024) {   // the full-covariance MVN's cov_inv, mostly
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((C + R - 1) / R);
+  const dim3 block(R, T);
+  kernel<<<grid, block, shmem, stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
       swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains);
+      record_chains, order);
   return (int)cudaGetLastError();
 }
 
@@ -268,18 +317,16 @@ extern "C" int rwm_pt_fused_pt(
     float* cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* lap, float inv_d, float* rec, int record_every,
-    int record_chains, void* stream) {
-  if (d < 1 || d > 64 || T < 1 || T > 32 || C < 1 || total < 0 ||
-      swap_every < 1 ||
-      (kind != TARGET_ROSENBROCK && kind != TARGET_MVN_ISO) ||
+    int record_chains, int order, void* stream) {
+  if (d < 1 || d > kDmax || T < 1 || T > 32 || C < 1 || total < 0 ||
+      swap_every < 1 || kind != kKind || (order != 0 && order != 1) ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
-  RWM_PT_DISPATCH(kind, d, launch_pt, params, n_params, betas, sigmas, x0,
-                  acc0, swapacc0, bj0, cj0, x_out, lp_out, acc_out,
-                  swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
-                  swap_every, step0, key0, key1, lap, inv_d, rec,
-                  record_every, record_chains, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;  // unreachable: every branch returns
+  return launch_pt<kKind, kDmax>(
+      params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
+      lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
+      swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
+      record_chains, order, (cudaStream_t)stream);
 }

@@ -2,9 +2,11 @@
 //
 // Replaces rwm_pt_tpu/kernels/pallas_rwm.py::_make_kernel (:259-321) and
 // _make_record_kernel (:324-414), the Pallas kernels behind run_rwm_pallas
-// (ICDF draw), with the Normal, Laplace and UniformRadius increments
-// (csrc/mh.cuh).  One library is built per proposal (-DRWM_PT_PROPOSAL=0/1/2)
-// from this one source.
+// with the Normal, Laplace and UniformRadius increments and the ICDF or
+// Box-Muller normal draw (csrc/mh.cuh).  One library is built per
+// (proposal, draw, target kind, register bucket DMAX = 8, 16, 32 or 64)
+// from this one source (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL,
+// -DRWM_PT_TARGET, -DRWM_PT_DMAX).
 // One thread per chain holds the chain's d coordinates in registers and runs
 // all `total` steps: Philox draws, proposal, log-density, accept, an int32
 // accept count after burn-in and a Kahan-summed squared-jump (ESJD) sum.
@@ -25,7 +27,8 @@
 // recording (the Pallas recording kernel sums it plainly, :382).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=k (no --use_fast_math)
+//        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
+//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D (no --use_fast_math)
 // Plain PyTorch version: fused_rwm.py::_run_rwm_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,11 +38,23 @@
 #ifndef RWM_PT_PROPOSAL
 #define RWM_PT_PROPOSAL PROPOSAL_NORMAL
 #endif
+#ifndef RWM_PT_NORMAL
+#define RWM_PT_NORMAL DRAW_ICDF
+#endif
+#ifndef RWM_PT_TARGET
+#define RWM_PT_TARGET TARGET_ROSENBROCK
+#endif
+#ifndef RWM_PT_DMAX
+#define RWM_PT_DMAX 32
+#endif
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kProp = RWM_PT_PROPOSAL;
+constexpr int kDraw = RWM_PT_NORMAL;
+constexpr int kKind = RWM_PT_TARGET;
+constexpr int kDmax = RWM_PT_DMAX;   // the register bucket: d <= kDmax
 
 template <int KIND, int DMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -78,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     uint4 blk;
     int cur_k = -1;
     float jump;
-    const bool accept = mh_move<KIND, kProp, DMAX>(
+    const bool accept = mh_move<KIND, kProp, kDraw, DMAX>(
         x, p, lp, jump, d, s_params, scale, s_lap, inv_d, beta, c, 0,
         abs_step, key0, key1, blk, cur_k);
     acc += (post && accept) ? 1 : 0;
@@ -112,6 +127,13 @@ int launch_rwm(const float* params, int n_params, float scale, float beta,
   const dim3 grid((C + kThreads - 1) / kThreads);
   const size_t shmem =
       (n_params + (kProp == PROPOSAL_LAPLACE ? d : 0)) * sizeof(float);
+  if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_rwm_kernel<KIND, DMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
   fused_rwm_kernel<KIND, DMAX><<<grid, kThreads, shmem, stream>>>(
       params, n_params, scale, beta, x0, acc0, jump0, x_out, lp_out, acc_out,
       jump_out, d, C, total, burn_in, step0, key0, key1, lap, inv_d, rec,
@@ -130,15 +152,13 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
                                 uint32_t key1, const float* lap, float inv_d,
                                 float* rec, int record_every,
                                 int record_chains, void* stream) {
-  if (d < 1 || d > 64 || C < 1 || total < 0 ||
-      (kind != TARGET_ROSENBROCK && kind != TARGET_MVN_ISO) ||
+  if (d < 1 || d > kDmax || C < 1 || total < 0 || kind != kKind ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
-  RWM_PT_DISPATCH(kind, d, launch_rwm, params, n_params, scale, beta, x0,
-                  acc0, jump0, x_out, lp_out, acc_out, jump_out, d, C, total,
-                  burn_in, step0, key0, key1, lap, inv_d, rec, record_every,
-                  record_chains, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;  // unreachable: every branch returns
+  return launch_rwm<kKind, kDmax>(
+      params, n_params, scale, beta, x0, acc0, jump0, x_out, lp_out, acc_out,
+      jump_out, d, C, total, burn_in, step0, key0, key1, lap, inv_d, rec,
+      record_every, record_chains, (cudaStream_t)stream);
 }

@@ -3,12 +3,24 @@
 // rwm_pt_tpu/kernels/pallas_pt.py::_pt_body_fn (:57-68) and
 // pallas_rwm.py::_make_kernel (:293-312), with the three increments of
 // pallas_rwm.py (_normal, _laplace, _uniform_ball):
-//   Normal         eps_i = N_i * scale                   (slots 0..d-1)
+//   Normal         eps_i = N_i * scale
 //   Laplace        eps_i = laplace_increment(U_i, lap[i]) (slots 0..d-1)
 //   UniformRadius  eps = N / max(||N||, 1e-12) * scale * exp(log(U) / d)
-//                  (normals in slots 0..d-1, U in slot d+2)
+//                  (U in slot d+2)
 //   y = x + eps, r = beta (lp(y) - lp(x)), accept if r > 0 or u < exp(r)
-//   (u in slot d; NaN rejects).
+//   (u in slot d; NaN rejects, and so does lp(x) = lp(y) = -inf).
+// The normals N (Normal, UniformRadius) come from the draw DRAW:
+//   DRAW_ICDF  N_i = normal_icdf(U_i), U_i in slot i (i < d);
+//   DRAW_BM    Box-Muller (pallas_rwm.py::_normal_bm :53-64): pair
+//              k < h = ceil(d/2) draws u1 from slot k (clamped at 1e-7) and
+//              u2 from slot h + k (slot d+3 for the last pair of an odd d),
+//              r = sqrt(-2 log u1), theta = 2 pi u2 (rounded), and gives
+//              r cos theta to coordinate k and r sin theta to coordinate
+//              k + h (kernels/draws.py::bm_slots).
+// Box-Muller's second half lands at a runtime offset h, so the sines wait
+// in a small per-thread array (local memory) until the coordinates k + h,
+// which are compile-time indices again, read them back; x[] and p[] stay
+// in registers.
 // The uniform ball's direction stays in p[]: first the normals, then the
 // norm, then x + n/||n|| * r; no third array of DMAX floats.  Its MH word
 // (slot d) is read before the radius word (slot d+2), so Philox blocks are
@@ -22,27 +34,70 @@
 #include "philox.cuh"
 #include "targets.cuh"
 
-template <int KIND, int PROP, int DMAX>
+// Fill p[0..d-1] with Box-Muller normals; leaves the block of the last
+// word drawn in (blk, cur_k).
+template <int DMAX>
+__device__ __forceinline__ void bm_normals(float (&p)[DMAX], int d,
+                                           int replica, int rung,
+                                           int abs_step, uint32_t key0,
+                                           uint32_t key1, uint4& blk,
+                                           int& cur_k) {
+  constexpr int HMAX = (DMAX + 1) / 2;
+  const int h = (d + 1) >> 1;
+  float sn[HMAX];
+  uint4 blk2;
+  int cur2 = -1;
+#pragma unroll
+  for (int k = 0; k < HMAX; ++k) {
+    if (k < h) {
+      const float u1 = fmaxf(uniform_from_bits(slot_word(
+          k, blk, cur_k, replica, rung, abs_step, key0, key1)), 1e-7f);
+      const int j2 = h + k < d ? h + k : d + 3;
+      const float u2 = uniform_from_bits(slot_word(
+          j2, blk2, cur2, replica, rung, abs_step, key0, key1));
+      float r, sn_k, cs_k;
+      box_muller(u1, u2, r, sn_k, cs_k);
+      p[k] = cs_k;
+      sn[k] = sn_k;
+    }
+  }
+#pragma unroll
+  for (int i = 1; i < DMAX; ++i)
+    if (i >= h && i < d) p[i] = sn[i - h];
+  blk = blk2;
+  cur_k = cur2;
+}
+
+template <int KIND, int PROP, int DRAW, int DMAX>
 __device__ __forceinline__ bool mh_move(
     float (&x)[DMAX], float (&p)[DMAX], float& lp, float& jump, int d,
     const float* __restrict__ params, float scale,
     const float* __restrict__ lap, float inv_d, float beta, int replica,
     int rung, int abs_step, uint32_t key0, uint32_t key1, uint4& blk,
     int& cur_k) {
+  if constexpr (PROP != PROPOSAL_LAPLACE && DRAW == DRAW_BM) {
+    bm_normals<DMAX>(p, d, replica, rung, abs_step, key0, key1, blk, cur_k);
+    if constexpr (PROP == PROPOSAL_NORMAL) {
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    if (i < d) {
-      if ((i & 3) == 0) {
-        blk = philox_block(i >> 2, replica, rung, abs_step, key0, key1);
-        cur_k = i >> 2;
-      }
-      const float u = uniform_from_bits(philox_word(blk, i & 3));
-      if constexpr (PROP == PROPOSAL_NORMAL) {
-        p[i] = x[i] + __fmul_rn(normal_icdf(u), scale);
-      } else if constexpr (PROP == PROPOSAL_LAPLACE) {
-        p[i] = x[i] + laplace_increment(u, lap[i]);
-      } else {
-        p[i] = normal_icdf(u);
+      for (int i = 0; i < DMAX; ++i)
+        if (i < d) p[i] = x[i] + __fmul_rn(p[i], scale);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        if ((i & 3) == 0) {
+          blk = philox_block(i >> 2, replica, rung, abs_step, key0, key1);
+          cur_k = i >> 2;
+        }
+        const float u = uniform_from_bits(philox_word(blk, i & 3));
+        if constexpr (PROP == PROPOSAL_NORMAL) {
+          p[i] = x[i] + __fmul_rn(normal_icdf(u), scale);
+        } else if constexpr (PROP == PROPOSAL_LAPLACE) {
+          p[i] = x[i] + laplace_increment(u, lap[i]);
+        } else {
+          p[i] = normal_icdf(u);
+        }
       }
     }
   }

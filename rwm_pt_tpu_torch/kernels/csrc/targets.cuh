@@ -1,22 +1,77 @@
 // Log-densities of the targets the fused kernels take, on one replica's
 // state held in registers: x[i] for i < d, with d <= DMAX (the compiled
 // register bucket).  Loops run over the compile-time DMAX and test i < d,
-// so x[] is indexed with constants only and stays in registers.
-//   TARGET_ROSENBROCK  params = [a, b, mu_0 .. mu_{d-2}]
-//     log p = -( sum_i b (x_{i+1} - x_i^2)^2 + sum_i a (x_i - mu_i)^2 )
-//     (rwm_pt_tpu/targets/rosenbrock.py::FullRosenbrock.log_density_td)
-//   TARGET_MVN_ISO     params = [log_norm_const, mean_0 .. mean_{d-1}]
-//     log p = -0.5 sum_i (x_i - mean_i)^2 + log_norm_const
-//     (rwm_pt_tpu/targets/gaussian.py::MultivariateNormal, iso path)
+// so x[] is indexed with constants only and stays in registers; parameters
+// are read from shared memory (p), where a warp reading one element is a
+// broadcast.  Each library is built for one kind (-DRWM_PT_TARGET=k) and
+// one register bucket DMAX (-DRWM_PT_DMAX: 8, 16, 32 or 64), with the
+// parameter vector kernels/_build.py::kernel_target lays out for it:
+//
+//   0 ROSENBROCK       [a, b, mu_0 .. mu_{d-2}]
+//     -( sum_i b (x_{i+1} - x_i^2)^2 + sum_i a (x_i - mu_i)^2 )
+//   1 MVN_ISO          [log_norm_const, mean_0 .. mean_{d-1}]
+//     -0.5 sum_i (x_i - mean_i)^2 + log_norm_const
+//   2 MVN_FULL         [log_norm_const, mean (d), cov_inv (d x d, rows)]
+//     -0.5 sum_i xc_i (sum_j cov_inv_ij xc_j) + log_norm_const
+//   3 SCALED_MVN       [log_norm_const, c_0 .. c_{d-1}]
+//     log_norm_const - 0.5 sum_i (c_i x_i)^2
+//   4 THREE_MIXTURE    [log_jacobian, 0.5 d log 2pi, lw_0..2, s (d),
+//                       means (3 x d, rows)]
+//     logsumexp_k(-0.5 |s x - mu_k|^2 - 0.5 d log 2pi + lw_k) + log_jacobian
+//     (jax.nn.logsumexp: shift by the max, by 0 where it is not finite)
+//   5 ROUGH_CARPET     [log_jacobian, lw_0..2, mode_0..2, s (d)]
+//     sum_i (m + log sum_k exp(p_k - m0) - log sqrt(2pi)) + log_jacobian,
+//     p_k = lw_k - 0.5 (s_i x_i - mode_k)^2, m = max_k p_k,
+//     m0 = m if finite else 0
+//   6 EVEN_ROSENBROCK  [a_vec (d-1), b_vec (d-1), mu (d-1)] (pairs folded)
+//     -sum_i (a_i (x_i - mu_i)^2 + b_i (x_{i+1} - x_i^2)^2)
+//   7 HYBRID_ROSENBROCK [a, b, mu, first_1 .. first_{d-1}]
+//     -a (x_0 - mu)^2 - sum_k b (x_k - parent_k^2)^2, parent_k = x_0 where
+//     first_k = 1 (the first variable of a block), else x_{k-1}
+//   8 HYPERCUBE        [left, right, log_uniform_density]
+//     log_uniform_density if every left <= x_i <= right, else -inf
+//   9 IID_GAMMA        [shape, scale, log_norm_const]
+//     sum_i ((shape-1) log x_i - x_i / scale) - log_norm_const, -inf unless
+//     every x_i > 0 (the logs read 1 there)
+//  10 IID_BETA         [alpha, beta, log_norm_const]
+//     sum_i ((alpha-1) log x_i + (beta-1) log1p(-x_i)) + log_norm_const,
+//     -inf unless every 0 < x_i < 1 (the logs read 0.5 there)
+//  11 NEAL_FUNNEL      [mu_v, sigma_v^2, mu_z, A, B, C]  (A, B, C float32
+//                       constants of the JAX formula: A = -0.5 log 2pi -
+//                       0.5 log sigma_v^2, B = -0.5 (d-1) log 2pi,
+//                       C = 0.5 (d-1))
+//     A - 0.5 (v - mu_v)^2 / sigma_v^2 + (B - C v)
+//       - 0.5 exp(-v) sum_k (z_k - mu_z)^2
+// The JAX formulas are in rwm_pt_tpu/targets/*.py (log_density_td); each
+// kind computes them in the same order with the same masking, summing the
+// coordinates' terms in index order.  The products that the JAX formula
+// rounds before an add are rounded on their own here (__fmul_rn) where
+// nvcc would otherwise contract them.  The kinds whose terms differ in
+// sign (IID_GAMMA, IID_BETA, NEAL_FUNNEL) then round as the plain
+// version does (targets/base.py::sum0), which matters where their
+// log-density is near 0.
 #pragma once
+#include <math.h>
 
 #define TARGET_ROSENBROCK 0
 #define TARGET_MVN_ISO 1
+#define TARGET_MVN_FULL 2
+#define TARGET_SCALED_MVN 3
+#define TARGET_THREE_MIXTURE 4
+#define TARGET_ROUGH_CARPET 5
+#define TARGET_EVEN_ROSENBROCK 6
+#define TARGET_HYBRID_ROSENBROCK 7
+#define TARGET_HYPERCUBE 8
+#define TARGET_IID_GAMMA 9
+#define TARGET_IID_BETA 10
+#define TARGET_NEAL_FUNNEL 11
+
+__device__ __forceinline__ float sq(float v) { return v * v; }
 
 template <int KIND, int DMAX>
 __device__ __forceinline__ float log_density(const float (&x)[DMAX], int d,
                                              const float* __restrict__ p) {
-  if (KIND == TARGET_ROSENBROCK) {
+  if constexpr (KIND == TARGET_ROSENBROCK) {
     const float a = p[0], b = p[1];
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
@@ -29,7 +84,7 @@ __device__ __forceinline__ float log_density(const float (&x)[DMAX], int d,
       }
     }
     return -(s1 + s2);
-  } else {
+  } else if constexpr (KIND == TARGET_MVN_ISO) {
     float quad = 0.0f;
 #pragma unroll
     for (int i = 0; i < DMAX; ++i) {
@@ -39,20 +94,146 @@ __device__ __forceinline__ float log_density(const float (&x)[DMAX], int d,
       }
     }
     return -0.5f * quad + p[0];
+  } else if constexpr (KIND == TARGET_MVN_FULL) {
+    const float* cinv = p + 1 + d;
+    float xc[DMAX];
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) xc[i] = i < d ? x[i] - p[1 + i] : 0.0f;
+    float quad = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        float y = 0.0f;
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j)
+          if (j < d) y = fmaf(cinv[i * d + j], xc[j], y);
+        quad = fmaf(xc[i], y, quad);
+      }
+    }
+    return -0.5f * quad + p[0];
+  } else if constexpr (KIND == TARGET_SCALED_MVN) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        const float sx = p[1 + i] * x[i];
+        s += sx * sx;
+      }
+    }
+    return p[0] - __fmul_rn(0.5f, s);
+  } else if constexpr (KIND == TARGET_THREE_MIXTURE) {
+    const float* s = p + 5;
+    const float* mu = p + 5 + d;
+    float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        const float y = s[i] * x[i];
+        const float e0 = y - mu[i], e1 = y - mu[d + i], e2 = y - mu[2 * d + i];
+        q0 += e0 * e0;
+        q1 += e1 * e1;
+        q2 += e2 * e2;
+      }
+    }
+    const float c0 = (__fmul_rn(-0.5f, q0) - p[1]) + p[2];
+    const float c1 = (__fmul_rn(-0.5f, q1) - p[1]) + p[3];
+    const float c2 = (__fmul_rn(-0.5f, q2) - p[1]) + p[4];
+    const float m = fmaxf(fmaxf(c0, c1), c2);
+    const float m0 = isfinite(m) ? m : 0.0f;
+    return (logf(expf(c0 - m0) + expf(c1 - m0) + expf(c2 - m0)) + m0) + p[0];
+  } else if constexpr (KIND == TARGET_ROUGH_CARPET) {
+    const float* s = p + 7;
+    float total = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        const float y = s[i] * x[i];
+        const float a0 = p[1] - __fmul_rn(0.5f, sq(y - p[4]));
+        const float a1 = p[2] - __fmul_rn(0.5f, sq(y - p[5]));
+        const float a2 = p[3] - __fmul_rn(0.5f, sq(y - p[6]));
+        const float m = fmaxf(fmaxf(a0, a1), a2);
+        const float m0 = isfinite(m) ? m : 0.0f;
+        total += (m + logf(expf(a0 - m0) + expf(a1 - m0) + expf(a2 - m0))) -
+                 0.918938533204672742f;   // log sqrt(2 pi)
+      }
+    }
+    return total + p[0];
+  } else if constexpr (KIND == TARGET_EVEN_ROSENBROCK) {
+    const int n = d - 1;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX - 1; ++i) {
+      if (i < n) {
+        const float t1 = __fmul_rn(p[i], sq(x[i] - p[2 * n + i]));
+        const float t2 = __fmul_rn(p[n + i], sq(x[i + 1] - x[i] * x[i]));
+        s += t1 + t2;
+      }
+    }
+    return -s;
+  } else if constexpr (KIND == TARGET_HYBRID_ROSENBROCK) {
+    const float a = p[0], b = p[1];
+    const float x0 = x[0];
+    const float x0sq = x0 * x0;
+    float s_first = 0.0f, s_in = 0.0f;
+#pragma unroll
+    for (int k = 1; k < DMAX; ++k) {
+      if (k < d) {
+        const bool first = p[2 + k] != 0.0f;
+        const float par = first ? x0sq : x[k - 1] * x[k - 1];
+        const float t = __fmul_rn(b, sq(x[k] - par));
+        if (first) s_first += t; else s_in += t;
+      }
+    }
+    return (__fmul_rn(-a, sq(x0 - p[2])) - s_first) - s_in;
+  } else if constexpr (KIND == TARGET_HYPERCUBE) {
+    bool inside = true;   // & (no short circuit): no branch a coordinate
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) inside &= (x[i] >= p[0]) & (x[i] <= p[1]);
+    return inside ? p[2] : -INFINITY;
+  } else if constexpr (KIND == TARGET_IID_GAMMA) {
+    const float sh1 = p[0] - 1.0f;
+    bool valid = true;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        const bool pos = x[i] > 0.0f;
+        valid &= pos;
+        const float sx = pos ? x[i] : 1.0f;
+        s += __fmul_rn(sh1, logf(sx)) - sx / p[1];
+      }
+    }
+    return valid ? s - p[2] : -INFINITY;
+  } else if constexpr (KIND == TARGET_IID_BETA) {
+    const float a1 = p[0] - 1.0f, b1 = p[1] - 1.0f;
+    bool valid = true;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        const bool in = (x[i] > 0.0f) & (x[i] < 1.0f);
+        valid &= in;
+        const float sx = in ? x[i] : 0.5f;
+        s += __fmul_rn(a1, logf(sx)) + __fmul_rn(b1, log1pf(-sx));
+      }
+    }
+    return valid ? s + p[2] : -INFINITY;
+  } else {   // TARGET_NEAL_FUNNEL
+    const float v = x[0];
+    const float prior = p[3] - __fmul_rn(0.5f, sq(v - p[0])) / p[1];
+    if (d == 1) return prior;
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 1; k < DMAX; ++k) {
+      if (k < d) {
+        const float z = x[k] - p[2];
+        ss += __fmul_rn(z, z);
+      }
+    }
+    const float lik = (p[4] - __fmul_rn(p[5], v)) -
+                      __fmul_rn(__fmul_rn(0.5f, expf(-v)), ss);
+    return prior + lik;
   }
 }
 
-// Dispatch a templated launcher on (target kind, register bucket).
-#define RWM_PT_DISPATCH(KIND_VAR, D_VAR, LAUNCH, ...)                        \
-  do {                                                                      \
-    if (KIND_VAR == TARGET_ROSENBROCK) {                                    \
-      if (D_VAR <= 8) return LAUNCH<TARGET_ROSENBROCK, 8>(__VA_ARGS__);      \
-      if (D_VAR <= 16) return LAUNCH<TARGET_ROSENBROCK, 16>(__VA_ARGS__);    \
-      if (D_VAR <= 32) return LAUNCH<TARGET_ROSENBROCK, 32>(__VA_ARGS__);    \
-      return LAUNCH<TARGET_ROSENBROCK, 64>(__VA_ARGS__);                     \
-    }                                                                       \
-    if (D_VAR <= 8) return LAUNCH<TARGET_MVN_ISO, 8>(__VA_ARGS__);           \
-    if (D_VAR <= 16) return LAUNCH<TARGET_MVN_ISO, 16>(__VA_ARGS__);         \
-    if (D_VAR <= 32) return LAUNCH<TARGET_MVN_ISO, 32>(__VA_ARGS__);         \
-    return LAUNCH<TARGET_MVN_ISO, 64>(__VA_ARGS__);                          \
-  } while (0)

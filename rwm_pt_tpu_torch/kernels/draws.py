@@ -1,8 +1,9 @@
 """Counter-based random draws of the fused samplers, in plain PyTorch.
 
 Replaces the TPU hardware PRNG helpers of ``rwm_pt_tpu.kernels.pallas_rwm``
-(``_uniform``, ``_erfinv_giles``, ``_normal_icdf``, and the increments
-``_laplace`` and ``_uniform_ball``) with Philox4x32-10 (Salmon et al.,
+(``_uniform``, ``_erfinv_giles``, ``_normal_icdf``, ``_normal_bm``, the
+draw decision ``resolve_normal_impl`` and the increments ``_laplace`` and
+``_uniform_ball``) with Philox4x32-10 (Salmon et al.,
 SC'11, "Parallel random numbers: as easy as 1, 2, 3").  The CUDA kernels
 (``csrc/philox.cuh``, ``csrc/draws.cuh``) compute the same words, so on the
 card a plain run and a kernel run of one seed consume one stream.
@@ -17,16 +18,27 @@ Slot layout (the one definition; the kernels match it)
 * one Philox call gives the four words of block ``k``; word ``w`` of block
   ``k`` is slot ``j = 4k + w`` of that (replica, rung, step);
 * slots ``0 .. d-1``: the increment words, one per coordinate: standard
-  normals (ICDF draw below) for ``Normal`` and ``UniformRadius`` (the
-  ball's direction), uniforms for ``Laplace``;
+  normals for ``Normal`` and ``UniformRadius`` (the ball's direction),
+  uniforms for ``Laplace``;
 * slot ``d``: the MH accept uniform;
 * slot ``d+1``: the swap uniform of pair (rung, rung+1), PT only, rungs
   ``0 .. T-2``, read on swap steps only;
 * slot ``d+2``: the radius uniform of ``UniformRadius``, read by that
-  proposal only.
+  proposal only;
+* slot ``d+3``: with the Box-Muller draw and an odd ``d``, the angle
+  uniform of the last pair.
 
-RWM uses the same layout at ``rung = 0`` and never reads slot ``d+1``.  A
-``Normal`` run reads exactly the words it read before slot ``d+2`` existed.
+The normals come from one of two draws (:func:`resolve_normal_impl`):
+``"icdf"``, normal ``i`` = ``normal_icdf`` of slot ``i``; or ``"bm"``,
+Box-Muller in ``pallas_rwm.py::_normal_bm``'s coordinate map: with
+``h = ceil(d/2)``, pair ``k < h`` takes ``u1`` from slot ``k`` and ``u2``
+from slot :func:`bm_slots` ``[1][k]`` (``h + k``, or ``d+3`` for the last
+pair of an odd ``d``) and gives ``r cos(theta)`` to coordinate ``k`` and
+``r sin(theta)`` to coordinate ``k + h``.
+
+RWM uses the same layout at ``rung = 0`` and never reads slot ``d+1``.  An
+ICDF ``Normal`` run reads exactly the words it read before slots ``d+2``
+and ``d+3`` existed.
 
 Uniforms are the top 24 bits of a word times 2^-24 -- a *logical* shift
 (``pallas_rwm.py:44-46``: a sign-extending shift of an int32 view makes
@@ -143,6 +155,70 @@ def slot_words(key: tuple[int, int], abs_step: int, n_rungs: int,
     return words.reshape(n_rungs, n_blk * 4, n_chains)[:, :n_slots]
 
 
+_TWO_PI_F32 = 6.2831854820251465   # float32(2 pi), pallas_rwm.py:38
+
+
+def bm_slots(dim: int):
+    """Box-Muller slots: ``(u1 slots, u2 slots)`` of the ``ceil(d/2)``
+    pairs (module docstring)."""
+    h = (dim + 1) // 2
+    return (list(range(h)),
+            [h + k if h + k < dim else dim + 3 for k in range(h)])
+
+
+def normal_bm(u1: torch.Tensor, u2: torch.Tensor, dim: int) -> torch.Tensor:
+    """``(d, *B)`` normals from ``(ceil(d/2), *B)`` uniforms, exactly
+    ``pallas_rwm.py::_normal_bm``'s arithmetic: ``u1`` clamped at 1e-7,
+    ``r = sqrt(-2 log u1)``, ``theta = 2 pi u2`` rounded to float32, then
+    ``concat(r cos theta, r sin theta)[:d]``."""
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp_min(u1, 1e-7)))
+    theta = _TWO_PI_F32 * u2
+    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)],
+                     dim=0)[:dim]
+
+
+NORMAL_IMPLS = ("icdf", "bm")
+# Module-level override of the normal draw, read at each launch; "auto"
+# resolves per (kernel, block) from the measured decision
+# (resolve_normal_impl).
+NORMAL_IMPL = "auto"
+# The measured rule of resolve_normal_impl: a kernel draws Box-Muller above
+# BM_ABOVE[kernel] replicas or chains, except on the target kinds of
+# ICDF_KINDS[kernel].
+BM_ABOVE = {"pt": 1024, "rwm": 1024}
+ICDF_KINDS = {"pt": ("mvn_full",), "rwm": ()}
+
+
+def resolve_normal_impl(kernel: str, block: int,
+                        target_kind: str | None = None) -> str:
+    """The (kernel, block) -> normal-draw decision, with the JAX signature
+    (``pallas_rwm.py:184-195``; ``block``: the launch's replicas or
+    chains) and the target's kernel kind (``_build.target_kind``) besides.
+    A non-"auto" :data:`NORMAL_IMPL` wins.  Otherwise the rule
+    measured on one H100 (``chip_smoke.py`` phase 12, PERF.md; Box-Muller
+    must beat ICDF by more than 3 % at the shape; NVIDIA H100 80GB HBM3 at
+    700 W): both kernels draw Box-Muller above 1024 replicas or chains
+    (8.45 % faster at the flagship PT, 65,536 replicas; 7.06 % at the RWM
+    headline, 65,536 chains) and ICDF up to 1024 (Box-Muller 2.55 % faster
+    at the PT study's 1024 replicas, 2.71 % slower at the RWM study's
+    1024 chains); PT on the full-covariance MVN draws ICDF (Box-Muller
+    14.57 % slower at the flagship shape: its sines' stack frame on top of
+    254 registers).
+    The JAX draw-study probes (``icdf_fastlog``, ``lax_erfinv``,
+    ``fake_uniform``) are not ported (ROADMAP Queue B item 10)."""
+    if NORMAL_IMPL != "auto":
+        if NORMAL_IMPL not in NORMAL_IMPLS:
+            raise NotImplementedError(
+                f"normal draw {NORMAL_IMPL!r} is not ported (ROADMAP Queue "
+                f"B item 10); the port draws {NORMAL_IMPLS}")
+        return NORMAL_IMPL
+    if kernel not in BM_ABOVE:
+        raise ValueError(f"kernel must be 'pt' or 'rwm', not {kernel!r}")
+    if block <= BM_ABOVE[kernel] or target_kind in ICDF_KINDS[kernel]:
+        return "icdf"
+    return "bm"
+
+
 PROPOSAL_KINDS = ("Normal", "Laplace", "UniformRadius")
 LAPLACE_CLAMP = -0.999999    # laplace.py:64-67 of the reference
 
@@ -195,21 +271,31 @@ def n_records(total: int, record_every) -> int:
 
 def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
                n_chains: int, device, swap: bool = True,
-               kind: str = "Normal"):
+               kind: str = "Normal", draw: str = "icdf"):
     """One step's draws: ``(inc, u_mh, u_swap, u_radius)``.  ``inc`` is
-    ``(T, d, C)``: normals for ``Normal`` and ``UniformRadius``, uniforms
-    for ``Laplace``; MH uniforms ``(T, C)``; with ``swap``, swap uniforms
-    ``(T, C)`` (row ``t`` serves pair ``(t, t+1)``; the last row is unused),
-    else None; for ``UniformRadius`` the radius uniforms ``(T, C)`` (slot
-    ``d+2``), else None."""
+    ``(T, d, C)``: normals of ``draw`` for ``Normal`` and
+    ``UniformRadius``, uniforms for ``Laplace``; MH uniforms ``(T, C)``;
+    with ``swap``, swap uniforms ``(T, C)`` (row ``t`` serves pair
+    ``(t, t+1)``; the last row is unused), else None; for ``UniformRadius``
+    the radius uniforms ``(T, C)`` (slot ``d+2``), else None."""
     if kind not in PROPOSAL_KINDS:
         raise ValueError(f"unknown proposal kind {kind!r}")
-    n_slots = dim + 3 if kind == "UniformRadius" else (
-        dim + 2 if swap else dim + 1)
+    if draw not in NORMAL_IMPLS:
+        raise ValueError(f"unknown normal draw {draw!r}")
+    bm = draw == "bm" and kind != "Laplace"
+    n_slots = (dim + 4 if bm and dim % 2 else
+               dim + 3 if kind == "UniformRadius" else
+               dim + 2 if swap else dim + 1)
     words = slot_words(key, abs_step, n_rungs, n_slots, n_chains, device)
-    inc = uniform_from_bits(words[:, :dim])
-    if kind != "Laplace":
-        inc = normal_icdf(inc)
+    if bm:
+        s1, s2 = bm_slots(dim)
+        inc = normal_bm(uniform_from_bits(words[:, s1]).transpose(0, 1),
+                        uniform_from_bits(words[:, s2]).transpose(0, 1),
+                        dim).transpose(0, 1)
+    else:
+        inc = uniform_from_bits(words[:, :dim])
+        if kind != "Laplace":
+            inc = normal_icdf(inc)
     u_mh = uniform_from_bits(words[:, dim])
     u_swap = uniform_from_bits(words[:, dim + 1]) if swap else None
     u_rad = (uniform_from_bits(words[:, dim + 2])

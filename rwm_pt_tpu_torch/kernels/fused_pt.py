@@ -1,8 +1,9 @@
 """Fused whole-run Parallel Tempering: the CUDA kernel ``csrc/fused_pt.cu``
 and its plain PyTorch version (port of
 ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its cold-chain
-recording variant, the Normal, Laplace and UniformRadius proposals, ICDF
-draw).
+recording variant, the Normal, Laplace and UniformRadius proposals, the
+ICDF and Box-Muller normal draws, every target kind of
+``_build.kernel_target``).
 
 ``run_pt_fused`` does the wrapper's bookkeeping (per-rung scales, seeding,
 resume, initial states, analytic swap attempts, post-burn-in normalization)
@@ -12,7 +13,12 @@ stream of :mod:`.draws`, so on the card they follow one trajectory up to
 f32 rounding.  There is no fallback: a CUDA run launches the kernel or
 raises.
 
-Not ported yet (ROADMAP): the Box-Muller draw.
+The swap sweep runs its pairs in one of two orders (``swap_sweep``):
+``"sequential"``, j = 0..T-2, the Pallas kernel's sweep; or
+``"even_odd"``, the even pairs 0, 2, 4.. then the odd pairs 1, 3, 5..,
+which equals the JAX scan engine's two half-sweeps (pairs of one parity
+are disjoint).  Each pair draws its uniform from rung j's Philox slot d+1
+in either order.
 """
 from __future__ import annotations
 
@@ -22,18 +28,33 @@ import torch
 
 from ..utils.dtypes import as_tensor, resolve_device
 from . import _build
-from .draws import increment, n_records, resolve_seed, seed_key, step_draws
+from .draws import (increment, n_records, resolve_normal_impl,
+                    resolve_seed, seed_key, step_draws)
 from .pt import PTResult, PTState
 from .rwm import step_generator
+
+
+SWEEPS = ("sequential", "even_odd")
+
+
+def pair_order(T: int, swap_sweep: str = "sequential") -> list:
+    """The pairs (j, j+1) of a swap sweep, in the order they are tried."""
+    if swap_sweep == "sequential":
+        return list(range(T - 1))
+    if swap_sweep == "even_odd":
+        return list(range(0, T - 1, 2)) + list(range(1, T - 1, 2))
+    raise ValueError("swap_sweep must be 'sequential' or 'even_odd'")
 
 
 def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
                         betas, sigmas, key, step0, total, burn_in,
                         swap_every, draws=None, *, kind="Normal",
-                        record_every=0, record_chains=0):
+                        record_every=0, record_chains=0, draw="icdf",
+                        swap_sweep="sequential"):
     """Plain version of the kernel, step by step with its arithmetic: MH on
-    every rung; on post-burn-in multiples of ``swap_every`` the sequential
-    sweep j = 0..T-2; int32 counts; Kahan-compensated beta-jump and
+    every rung; on post-burn-in multiples of ``swap_every`` the swap sweep
+    over the pairs in the order :func:`pair_order`; normals of ``draw``;
+    int32 counts; Kahan-compensated beta-jump and
     cold-jump sums (the compensation steps run on every step, as in the
     kernel body ``pallas_pt.py::_pt_body_fn``).
 
@@ -58,13 +79,15 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
     bj, cj = betajump0.clone(), coldjump0.clone()
     bc, cc = torch.zeros_like(bj), torch.zeros_like(cj)
     no_swap = torch.zeros(C, dtype=torch.bool, device=x.device)
+    order = pair_order(T, swap_sweep)
     for s in range(total):
         abs_step = step0 + s + 1
         post = abs_step > burn_in
         do_swap = post and abs_step % swap_every == 0
         if draws is None:
             inc, u_mh, u_sw, u_rad = step_draws(key, abs_step, T, d, C,
-                                                x.device, kind=kind)
+                                                x.device, kind=kind,
+                                                draw=draw)
         else:
             inc, u_mh, u_sw = draws[0][s], draws[1][s], draws[2][s]
             u_rad = draws[3][s] if len(draws) > 3 else None
@@ -78,8 +101,8 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
         lp = torch.where(accept, lp_prop, lp)
         if post:
             acc = acc + accept.to(torch.int32)
-        # ---- sequential swap sweep (compensation steps on every step)
-        for j in range(T - 1):
+        # ---- swap sweep (compensation steps on every step)
+        for j in order:
             db = betas[j] - betas[j + 1]
             if do_swap:
                 sw = u_sw[j] < torch.exp(db * (lp[j + 1] - lp[j]))
@@ -112,16 +135,22 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
 
 def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
-                     *, kind="Normal", record_every=0, record_chains=0):
-    """Launch ``csrc/fused_pt.cu`` (the library built for ``kind``) on the
-    current stream; same arguments and results as
-    :func:`_run_pt_fused_plain`.  ``launches`` counts each launch under
-    the library's name, and a recorded one also under
-    ``fused_pt_record``."""
-    lib = _build.library("fused_pt", kind)
+                     *, kind="Normal", record_every=0, record_chains=0,
+                     draw="icdf", swap_sweep="sequential"):
+    """Launch ``csrc/fused_pt.cu`` (the library built for proposal ``kind``,
+    ``draw`` and the target's kind) on the current stream; same arguments
+    and results as :func:`_run_pt_fused_plain`.  ``launches`` counts each
+    launch under ``<variant>.<target kind>`` (the library's name without
+    its register bucket: ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
+    ..; ``_build.by_variant`` sums them by variant), and a recorded one
+    also under ``fused_pt_record``."""
+    variant = _build.library("fused_pt", kind, draw)
     tkind, params = _build.kernel_target(target)
+    lib = _build.lib_name(variant, tkind, target.dim)
     params = params.to(x0.device)
     d, T, C = x0.shape
+    pair_order(T, swap_sweep)                # raises for an unknown order
+    order = SWEEPS.index(swap_sweep)
     if target.dim != d:
         raise ValueError(f"x0 has {d} coordinates, the target {target.dim}")
     if T > _build.MAX_RUNGS:
@@ -155,17 +184,18 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     bj = torch.empty_like(betajump0)
     cj = torch.empty_like(coldjump0)
     fn = _build.entry(lib)
-    rc = fn(tkind, params.data_ptr(), params.numel(), betas.data_ptr(),
+    rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
+            betas.data_ptr(),
             sigmas.data_ptr(), x0.data_ptr(), acc0.data_ptr(),
             swapacc0.data_ptr(), betajump0.data_ptr(), coldjump0.data_ptr(),
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), swapacc.data_ptr(),
             bj.data_ptr(), cj.data_ptr(), d, T, C, total, burn_in,
             swap_every, step0, key[0], key[1],
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
-            rec_ptr, record_every or 0, record_chains if n_rec else 0,
+            rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
-    launch_pt_kernel.launches[lib] += 1
+    launch_pt_kernel.launches[f"{variant}.{tkind}"] += 1
     if n_rec:
         launch_pt_kernel.launches["fused_pt_record"] += 1
         return x, lp, acc, swapacc, bj, cj, chain
@@ -205,7 +235,8 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
                  burn_in: int = 0, swap_every: int = 100, init_states=None,
                  resume_state: PTState | None = None, scale_multipliers=None,
                  record_every: int | None = None, record_chains: int = 1,
-                 device="cuda", draws=None) -> PTResult:
+                 swap_sweep: str = "sequential", device="cuda",
+                 draws=None) -> PTResult:
     """Fused PT run with the metrics contract of ``run_pt``.
 
     ``proposal`` (a ``NormalProposal``, ``LaplaceProposal`` or
@@ -222,8 +253,11 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
     0 (the cold chain) of the first ``record_chains`` replicas, taken after
     the swap sweep of every ``record_every``-th step of this launch,
     ``(total // record_every, d, record_chains)``; a ``record_every`` beyond
-    the launch's steps raises.  ``draws`` (CPU only, for tests) replaces
-    the Philox stream."""
+    the launch's steps raises.  ``swap_sweep``: the pair order of a swap
+    event, ``"sequential"`` (the Pallas sweep, the default) or
+    ``"even_odd"`` (module docstring).  The normals are drawn by
+    ``draws.resolve_normal_impl("pt", num_chains, <the target's kind>)``.
+    ``draws`` (CPU only, for tests) replaces the Philox stream."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:
         raise ValueError("pass either base_variance or a proposal")
@@ -267,8 +301,11 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
     key = seed_key(seed)
     args = (target, x0, acc0, swapacc0, bj0, cj0, betas, sigmas, key, step0,
             total, burn_in, swap_every)
+    pair_order(T, swap_sweep)                # raises for an unknown order
     kw = dict(kind=kind, record_every=record_every or 0,
-              record_chains=record_chains)
+              record_chains=record_chains, swap_sweep=swap_sweep,
+              draw=resolve_normal_impl("pt", x0.shape[2],
+                                       _build.target_kind(target)))
     if dev.type == "cpu":
         out = _run_pt_fused_plain(*args, draws=draws, **kw)
     else:

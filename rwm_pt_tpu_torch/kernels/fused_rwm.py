@@ -1,7 +1,8 @@
 """Fused whole-run RWM: the CUDA kernel ``csrc/fused_rwm.cu`` and its plain
 PyTorch version (port of ``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas``
 with its recording variant, the Normal, Laplace and UniformRadius
-proposals, ICDF draw).
+proposals, the ICDF and Box-Muller normal draws, every target kind of
+``_build.kernel_target``).
 
 ``run_rwm_fused`` does the wrapper's bookkeeping (proposal scales, seeding,
 resume, initial states, post-burn-in normalization) and hands the step loop
@@ -10,8 +11,6 @@ to :func:`launch_rwm_kernel` for CUDA tensors or to
 stream of :mod:`.draws` (slot layout there), so on the card they follow one
 trajectory up to f32 rounding.  There is no fallback: a CUDA run launches
 the kernel or raises.
-
-Not ported yet (ROADMAP): the Box-Muller draw.
 """
 from __future__ import annotations
 
@@ -21,16 +20,17 @@ import torch
 
 from ..utils.dtypes import as_tensor, resolve_device
 from . import _build
-from .draws import increment, n_records, resolve_seed, seed_key, step_draws
+from .draws import (increment, n_records, resolve_normal_impl,
+                    resolve_seed, seed_key, step_draws)
 from .rwm import RWMResult, RWMState, step_generator
 
 
 def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
                          total, burn_in, draws=None, *, kind="Normal",
-                         record_every=0, record_chains=0):
+                         record_every=0, record_chains=0, draw="icdf"):
     """Plain version of the kernel: ``total`` MH steps of every chain, step
-    by step, with the kernel's arithmetic (int32 accepts after burn-in,
-    Kahan-summed squared jumps).  ``beta`` is a 0-d f32 tensor, ``scale``
+    by step, with the kernel's arithmetic (normals of ``draw``, int32
+    accepts after burn-in, Kahan-summed squared jumps).  ``beta`` is a 0-d f32 tensor, ``scale``
     the effective scale of proposal ``kind``: a 0-d std (Normal) or radius
     (UniformRadius), or the ``(d,)`` Laplace scales.  ``draws``, for tests:
     ``(increment draws (S, d, C), MH uniforms (S, C)[, radius uniforms
@@ -51,7 +51,7 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
         post = abs_step > burn_in
         if draws is None:
             inc, u, _, u_rad = step_draws(key, abs_step, 1, d, C, x.device,
-                                          swap=False, kind=kind)
+                                          swap=False, kind=kind, draw=draw)
             inc, u = inc[0], u[0]
             u_rad = None if u_rad is None else u_rad[0]
         else:
@@ -81,14 +81,17 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
 
 def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
                       total, burn_in, *, kind="Normal", record_every=0,
-                      record_chains=0):
-    """Launch ``csrc/fused_rwm.cu`` (the library built for ``kind``) on the
-    current stream; same arguments and results as
-    :func:`_run_rwm_fused_plain`.  ``launches`` counts each launch under
-    the library's name, and a recorded one also under
-    ``fused_rwm_record``."""
-    lib = _build.library("fused_rwm", kind)
+                      record_chains=0, draw="icdf"):
+    """Launch ``csrc/fused_rwm.cu`` (the library built for proposal
+    ``kind``, ``draw`` and the target's kind) on the current stream; same
+    arguments and results as :func:`_run_rwm_fused_plain`.  ``launches``
+    counts each launch under ``<variant>.<target kind>``
+    (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``, ..;
+    ``_build.by_variant`` sums them by variant), and a recorded one also
+    under ``fused_rwm_record``."""
+    variant = _build.library("fused_rwm", kind, draw)
     tkind, params = _build.kernel_target(target)
+    lib = _build.lib_name(variant, tkind, target.dim)
     params = params.to(x0.device)
     _build.check_cuda("fused_rwm", torch.float32, x0=x0, jump0=jump0,
                       params=params)
@@ -122,14 +125,15 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     acc = torch.empty_like(acc0)
     jump = torch.empty_like(jump0)
     fn = _build.entry(lib)
-    rc = fn(tkind, params.data_ptr(), params.numel(), scalar, float(beta),
+    rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
+            scalar, float(beta),
             x0.data_ptr(), acc0.data_ptr(), jump0.data_ptr(),
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), jump.data_ptr(),
             d, C, total, burn_in, step0, key[0], key[1], lap_ptr, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
-    launch_rwm_kernel.launches[lib] += 1
+    launch_rwm_kernel.launches[f"{variant}.{tkind}"] += 1
     if n_rec:
         launch_rwm_kernel.launches["fused_rwm_record"] += 1
         return x, lp, acc, jump, chain
@@ -176,8 +180,10 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
     uninterrupted run would have.  ``record_every``: trace ``chain`` of the
     first ``record_chains`` chains after every ``record_every``-th step of
     this launch, ``(total // record_every, d, record_chains)``; a
-    ``record_every`` beyond the launch's steps raises.  ``draws`` (CPU
-    only, for tests) replaces the Philox stream."""
+    ``record_every`` beyond the launch's steps raises.  The normals are
+    drawn by ``draws.resolve_normal_impl("rwm", num_chains, <the target's
+    kind>)``.  ``draws`` (CPU only, for tests) replaces the Philox
+    stream."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:
         raise ValueError("pass either base_variance or a proposal")
@@ -212,7 +218,9 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
     args = (target, x0, acc0, jump0, beta_t, scale, key, step0, total,
             burn_in)
     kw = dict(kind=kind, record_every=record_every or 0,
-              record_chains=record_chains)
+              record_chains=record_chains,
+              draw=resolve_normal_impl("rwm", x0.shape[1],
+                                       _build.target_kind(target)))
     if dev.type == "cpu":
         out = _run_rwm_fused_plain(*args, draws=draws, **kw)
     else:

@@ -1,0 +1,65 @@
+"""Registers, stack frame and spills of the fused kernels' libraries, as
+ptxas reports them, for every target kind and register bucket:
+
+    python -m rwm_pt_tpu_torch.kernels.ptxas_report [variant ...]
+
+(default variants ``fused_pt`` and ``fused_rwm``).  Builds each library
+that is not built yet (one ``nvcc`` each, all at once; needs the CUDA
+toolkit) and prints one line per (variant, kind) with the bucket's
+registers, stack frame and spill bytes (PT: the instantiation with 32
+replicas a block, then the one that reads R at run time), and the build
+seconds.
+"""
+from __future__ import annotations
+
+import re
+import sys
+import time
+
+from . import _build
+
+
+def parse(log: str) -> list[tuple[str, int, int, int]]:
+    """``(instantiation, registers, stack frame bytes, spill bytes)`` of
+    each entry function in a ptxas ``-v`` report; an instantiation is
+    named by its register bucket and, for PT, ``R32`` (32 replicas a
+    block) or ``Rrt`` (R read at run time)."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            t = re.findall(r"Li(\d+)E", m.group(1))
+            name = f"D{t[1]}" if len(t) > 1 else m.group(1)
+            if len(t) > 2:
+                name += " R32" if t[2] != "0" else " Rrt"
+            out.append([name, None, 0, 0])
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and out:
+            out[-1][2] = int(m.group(1))
+            out[-1][3] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out and out[-1][1] is None:
+            out[-1][1] = int(m.group(1))
+    return [tuple(e) for e in out]
+
+
+def report(variants) -> list[str]:
+    names = [_build.lib_name(v, k, b) for v in variants
+             for k in _build.TARGET_KINDS for b in _build.BUCKETS]
+    t0 = time.time()
+    logs = _build.build(names)
+    lines = [f"{len(names)} libraries in {time.time() - t0:.1f} s"]
+    for v in variants:
+        for k in _build.TARGET_KINDS:
+            cells = [f"{n} {r}r {f}sf {sp}sp"
+                     for b in _build.BUCKETS
+                     for n, r, f, sp in sorted(parse(
+                         logs[_build.lib_name(v, k, b)]))]
+            lines.append(f"{v}.{k}: " + ", ".join(cells))
+    return lines
+
+
+if __name__ == "__main__":
+    for line in report(sys.argv[1:] or ["fused_pt", "fused_rwm"]):
+        print(line, flush=True)

@@ -1,4 +1,4 @@
-"""Ladders ported so far: the geometric ladder."""
-from .ladders import construct_geometric_ladder
+"""Ladders: the geometric ladder and the iterative (host-loop) ladder."""
+from .ladders import construct_geometric_ladder, construct_iterative_ladder
 
-__all__ = ["construct_geometric_ladder"]
+__all__ = ["construct_geometric_ladder", "construct_iterative_ladder"]

@@ -19,12 +19,52 @@ def bdim(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return p.reshape(p.shape + (1,) * (x.ndim - 1))
 
 
+def sum0(t: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 in index order, ((t0 + t1) + t2) + ..: the order in
+    which the fused kernels (``csrc/targets.cuh``) add a log-density's
+    terms.  The targets whose terms differ in sign (IIDGamma, IIDBeta,
+    NealFunnel) sum with it, so that a log-density near 0, where the terms
+    cancel, rounds as the kernel's does."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def _gen_device(generator, device):
+    return generator.device if generator is not None else device
+
+
 def _draw_normal(shape, generator, device, dtype):
     """Standard normals from ``generator`` (on the generator's own device),
     moved to ``device``."""
-    gdev = generator.device if generator is not None else device
-    return torch.randn(shape, generator=generator, device=gdev,
+    return torch.randn(shape, generator=generator,
+                       device=_gen_device(generator, device),
                        dtype=dtype).to(device)
+
+
+def _draw_uniform(shape, generator, device, dtype, lo=0.0, hi=1.0):
+    """U[lo, hi) from ``generator``, moved to ``device``."""
+    u = torch.rand(shape, generator=generator,
+                   device=_gen_device(generator, device), dtype=dtype)
+    return (u * (hi - lo) + lo).to(device)
+
+
+def _draw_categorical(weights, shape, generator, device):
+    """Indices drawn with probabilities ``weights`` ``(K,)``, of ``shape``."""
+    w = weights.to(_gen_device(generator, device))
+    n = 1
+    for s in shape:
+        n *= s
+    idx = torch.multinomial(w, n, replacement=True, generator=generator)
+    return idx.reshape(shape).to(device)
+
+
+def _draw_gamma(alpha, shape, generator, device, dtype):
+    """Gamma(alpha, 1) variates of ``shape`` (``alpha`` a scalar tensor)."""
+    a = alpha.to(_gen_device(generator, device), dtype).expand(shape)
+    return torch._standard_gamma(a.contiguous(), generator=generator).to(
+        device)
 
 
 class TargetMixin:
@@ -83,6 +123,11 @@ class TargetMixin:
         raise NotImplementedError(
             f"{self.get_name()} has no direct sampler; use a geometric or "
             "manual temperature ladder.")
+
+    def marginal_density(self, axis: int, xs):
+        """Exact 1-D marginal density along coordinate ``axis`` at the
+        points ``xs`` ``(n,)``, or None where it is intractable."""
+        return None
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):
         """Initial chain states ``(n, dim)``: ``1e-8 * N(0, I)``."""

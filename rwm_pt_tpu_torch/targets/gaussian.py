@@ -1,5 +1,5 @@
-"""Multivariate normal target (port of
-``rwm_pt_tpu.targets.gaussian.MultivariateNormal``)."""
+"""Gaussian targets (port of ``rwm_pt_tpu.targets.gaussian``):
+``MultivariateNormal`` and ``ScaledMultivariateNormal``."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +8,7 @@ import math
 import torch
 
 from ..utils.dtypes import as_tensor, default_float, resolve_device
+from ..utils.threefry import uniform
 from .base import TargetMixin, _draw_normal, bdim
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -17,8 +18,10 @@ _LOG_2PI = math.log(2.0 * math.pi)
 class MultivariateNormal(TargetMixin):
     """N(mean, cov); defaults to (0, I).
 
-    ``iso`` marks the identity-covariance fast path (a plain reduction, and
-    the only covariance the fused CUDA kernels take).  The full-covariance
+    ``iso`` marks the identity-covariance fast path (a plain reduction; the
+    fused CUDA kernels build a separate library for each of the two
+    paths, the full one reading ``cov_inv`` from shared memory).  The
+    full-covariance
     path's ``(d, d) @ (d, B)`` product is ``torch.matmul``, which runs in
     full float32 on the card unless the caller has turned TF32 on
     (``torch.backends.cuda.matmul.allow_tf32``, False by default)."""
@@ -64,3 +67,58 @@ class MultivariateNormal(TargetMixin):
         z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
         scale = self.chol / math.sqrt(float(beta))
         return self.mean + z @ scale.T
+
+    def marginal_density(self, axis: int, xs):
+        """Gaussian marginal N(mean[axis], cov[axis, axis])."""
+        var = self.cov[axis, axis]
+        xc = torch.as_tensor(xs, dtype=self.dtype, device=self.device) \
+            - self.mean[axis]
+        return torch.exp(-0.5 * xc * xc / var) / torch.sqrt(
+            2.0 * math.pi * var)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledMultivariateNormal(TargetMixin):
+    """pi(x) = prod_i c_i N(c_i x_i | 0, 1), port of
+    ``rwm_pt_tpu.targets.gaussian.ScaledMultivariateNormal``:
+    log pi(x) = sum log c_i - (d/2) log 2 pi - 0.5 sum (c_i x_i)^2.
+    Default ``c ~ U(0.02, 1.98)`` from ``seed``, the JAX package's draw bit
+    for bit (:func:`rwm_pt_tpu_torch.utils.threefry.uniform`)."""
+
+    dim: int
+    scaling_factors: torch.Tensor   # (d,) c_i
+    log_norm_const: torch.Tensor    # ()
+    name: str = "ScaledMultivariateNormal"
+
+    @classmethod
+    def create(cls, dim: int, scaling_factors=None,
+               scaling_range=(0.02, 1.98), seed: int = 0, *,
+               device="cuda") -> "ScaledMultivariateNormal":
+        dev = resolve_device(device)
+        f = default_float()
+        if scaling_factors is None:
+            c = torch.from_numpy(uniform(seed, dim, *scaling_range)).to(dev, f)
+        else:
+            c = as_tensor(scaling_factors, dev, f)
+        lnc = torch.sum(torch.log(c)) - 0.5 * dim * _LOG_2PI
+        return cls(dim=dim, scaling_factors=c, log_norm_const=lnc)
+
+    def log_density_td(self, x: torch.Tensor) -> torch.Tensor:
+        sx = bdim(self.scaling_factors, x) * x
+        return self.log_norm_const - 0.5 * torch.sum(sx * sx, dim=0)
+
+    def direct_sample(self, n: int, beta: float = 1.0,
+                      generator: torch.Generator | None = None):
+        """x_i ~ N(0, 1 / (c_i^2 beta))."""
+        z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
+        return z * (1.0 / (self.scaling_factors * math.sqrt(float(beta))))
+
+    def get_variances(self):
+        """Equivalent per-dim variances 1/c_i^2."""
+        return 1.0 / (self.scaling_factors ** 2)
+
+    def marginal_density(self, axis: int, xs):
+        """Product target: the axis factor c N(c x | 0, 1)."""
+        c = self.scaling_factors[axis]
+        y = c * torch.as_tensor(xs, dtype=self.dtype, device=self.device)
+        return c * torch.exp(-0.5 * y * y) / math.sqrt(2.0 * math.pi)

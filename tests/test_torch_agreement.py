@@ -110,3 +110,28 @@ def test_diverged_replica_is_left_out():
     a = agreement.hold([x, out[1], acc, out[3]], out, agreement.RWM_OUTPUTS)
     assert a.frac == pytest.approx((C - 1) / C)
     assert not a.mismatched
+
+
+@pytest.mark.parametrize("run,names", [(_pt, agreement.PT_OUTPUTS),
+                                       (_rwm, agreement.RWM_OUTPUTS)])
+def test_lp_held_against_the_kernels_own_x(run, names):
+    """With ``lp_of`` the lp of every agreeing replica must be the
+    target's log-density at the kernel's x: a stale lp on one replica (the
+    value of its previous state) fails, while x moved by a few float32
+    ulps, which moves a near-zero lp by more than RTOL of itself, does
+    not."""
+    target = FullRosenbrock.create(D, device="cpu")
+    out = list(run())
+    assert agreement.hold(out, out, names,
+                          lp_of=target.log_density_td).mismatched == {}
+    i = names.index("lp")
+    stale = out[i].clone()
+    stale[..., 3] = target.log_density_td(out[0][..., 3] + 0.01)
+    bad = out[:i] + [stale] + out[i + 1:]
+    a = agreement.hold(bad, out, names, lp_of=target.log_density_td)
+    assert a.mismatched == {"lp": 1}
+    nudged = out[0] * (1 + 2 ** -22)
+    moved = [nudged] + out[1:i] + [target.log_density_td(nudged)] \
+        + out[i + 1:]
+    assert not agreement.hold(moved, out, names,
+                              lp_of=target.log_density_td).mismatched

@@ -74,9 +74,10 @@ def test_unported_flags_raise(flag):
         tcli.main(ARGS + [flag, "--cpu"])
 
 
-def test_unported_target_raises():
+def test_unported_target_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcli.main(ARGS + ["--target", "RoughCarpet", "--cpu"])
+        tcli.main(ARGS + ["--target", "SuperFunnel", "--cpu",
+                          "--output_dir", str(tmp_path)])
 
 
 def test_optimal_plots_from_a_recorded_run(tmp_path):
@@ -93,3 +94,71 @@ def test_optimal_plots_from_a_recorded_run(tmp_path):
         "seed1.png",
         "traceplot_MultivariateNormal_UniformRadius_RWM_GPU_dim2_40iters_"
         "seed1.png"]
+
+
+PT_ARGS = ["--target", "ThreeMixture", "--dim", "3", "--num_iters", "40",
+           "--burn_in", "10", "--num_configs", "3", "--num_chains", "8",
+           "--N_samples_swap_est", "2000", "--iterative_tolerance", "0.01",
+           "--iterative_max_pn_steps", "30", "--seed", "4"]
+
+
+def test_pt_study_writes_the_jax_json_keys(tmp_path, monkeypatch):
+    """``experiment_pt``: the JAX study's JSON keys, rate grid and list
+    lengths; ``backend`` is the torch device; the ``_PT_GPU_`` file name;
+    one fused run per config with the Philox seed ``config_seed(seed, i)``,
+    the even/odd pair order and the ladder built with seed ``seed + i``."""
+    from rwm_pt_tpu.cli import experiment_pt as jpt
+    from rwm_pt_tpu_torch.cli import experiment_pt as tpt
+    jdata = jpt.run_study(3, "ThreeMixture", num_iters=40, seed=4,
+                          burn_in=10, N_samples_swap_est=2000,
+                          iterative_tolerance=0.01, iterative_max_pn_steps=30,
+                          num_chains=8, num_configs=3,
+                          output_dir=str(tmp_path / "jax"), make_plots=False)
+    calls, ladder_seeds = [], []
+    real_run, real_ladder = tpt.run_pt_fused, tpt.construct_iterative_ladder
+
+    def spy(target, seed, betas, **kw):
+        calls.append((seed, kw["swap_sweep"], len(betas)))
+        return real_run(target, seed, betas, **kw)
+
+    def ladder_spy(target, **kw):
+        ladder_seeds.append(kw["seed"])
+        return real_ladder(target, **kw)
+    monkeypatch.setattr(tpt, "run_pt_fused", spy)
+    monkeypatch.setattr(tpt, "construct_iterative_ladder", ladder_spy)
+    tdata = tpt.main(PT_ARGS + ["--cpu", "--no_plots", "--output_dir",
+                                str(tmp_path / "port")])
+    assert set(tdata) == set(jdata)
+    assert tdata["backend"] == "cpu"
+    assert tdata["swap_acceptance_rates_range"] == \
+        jdata["swap_acceptance_rates_range"]
+    for k in ("expected_squared_jump_distances", "acceptance_rates", "times",
+              "ladder_sizes"):
+        assert len(tdata[k]) == len(jdata[k]) == 3, k
+    for k in ("target_distribution", "dimension", "num_iterations", "seed",
+              "num_chains"):
+        assert tdata[k] == jdata[k], k
+    assert [c[0] for c in calls] == [tcli.config_seed(4, i) for i in range(3)]
+    assert all(c[1] == "even_odd" for c in calls)
+    assert [c[2] for c in calls] == tdata["ladder_sizes"]
+    assert ladder_seeds == [4, 5, 6]
+    assert os.listdir(tmp_path / "port") == [
+        "ThreeMixture_PT_GPU_dim3_40iters_seed4.json"]
+    assert all(0 <= a <= 1 for a in tdata["acceptance_rates"])
+
+
+def test_pt_study_flags(tmp_path, monkeypatch):
+    """``--geom_ladder`` runs the geometric ladder; ``--use_mesh`` raises
+    (ROADMAP A13); a ladder longer than the kernel's 32 rungs raises
+    instead of falling back to the eager engine."""
+    from rwm_pt_tpu_torch.cli import experiment_pt as tpt
+    data = tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
+                               "--output_dir", str(tmp_path)])
+    assert data["ladder_sizes"] == [8, 8, 8]
+    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+        tpt.main(PT_ARGS + ["--use_mesh", "--cpu"])
+    monkeypatch.setattr(tpt, "construct_geometric_ladder",
+                        lambda: list(np.geomspace(1.0, 0.01, 33)))
+    with pytest.raises(NotImplementedError, match="33 rungs"):
+        tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
+                            "--output_dir", str(tmp_path)])

@@ -24,11 +24,39 @@ from rwm_pt_tpu_torch.kernels.fused_rwm import (_run_rwm_fused_plain,
                                                 proposal_scale)
 from rwm_pt_tpu_torch.proposals import (NormalProposal,
                                         create_proposal_distribution)
-from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
+from rwm_pt_tpu_torch.kernels import _build, draws, ptxas_report
+from rwm_pt_tpu_torch.kernels._build import by_variant
+from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
+                                      get_target_distribution)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 AGREE_ATOL, AGREE_MIN = agreement.X_ATOL, 0.95
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _libraries():
+    """Build the libraries these tests launch, one nvcc each, all at once
+    (a test that needs another builds it on first use)."""
+    if not torch.cuda.is_available():
+        return
+    lib = _build.lib_name
+    names = [lib(v, "rosenbrock", d)
+             for v in ("fused_pt", "fused_rwm", "fused_pt_laplace",
+                       "fused_rwm_laplace", "fused_pt_uniform_radius",
+                       "fused_rwm_uniform_radius")
+             for d in (6, 8, 14, 30)]
+    names += [lib(v, "rosenbrock", 9) for v in (
+        "fused_pt_bm", "fused_rwm_bm", "fused_pt_uniform_radius_bm",
+        "fused_rwm_uniform_radius_bm")]
+    names += [lib(v, "rosenbrock", d)
+              for v in ("fused_pt_bm", "fused_rwm_bm") for d in (6, 8)]
+    names += [lib(v, "mvn_iso", d) for v in ("fused_pt", "fused_rwm")
+              for d in (3, 10)]
+    names += [lib(v, kind, KIND_CASES[kind][2])
+              for v in ("fused_pt", "fused_rwm") for kind in KIND_CASES]
+    names.append(lib("fused_pt", "mvn_full", 30))
+    _build.build(list(dict.fromkeys(names)))
 
 
 def _card():
@@ -65,9 +93,9 @@ def test_pt_kernel_matches_plain(kind):
     zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
     args = (target, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
             seed_key(3), 7, 200, 50, 10)
-    before = launch_pt_kernel.launches["fused_pt"]
+    before = launch_pt_kernel.launches[f"fused_pt.{kind}"]
     k = launch_pt_kernel(*args)
-    assert launch_pt_kernel.launches["fused_pt"] == before + 1
+    assert launch_pt_kernel.launches[f"fused_pt.{kind}"] == before + 1
     p = _run_pt_fused_plain(*args)
     a = agreement.hold(k, p, agreement.PT_OUTPUTS)
     assert a.frac >= AGREE_MIN
@@ -87,9 +115,9 @@ def test_rwm_kernel_matches_plain():
             torch.zeros(C, device=dev), torch.tensor(1.0, device=dev),
             torch.sqrt(torch.tensor(2.38 ** 2 / d, device=dev)), seed_key(9),
             0, 200, 20)
-    before = launch_rwm_kernel.launches["fused_rwm"]
+    before = launch_rwm_kernel.launches["fused_rwm.mvn_iso"]
     k = launch_rwm_kernel(*args)
-    assert launch_rwm_kernel.launches["fused_rwm"] == before + 1
+    assert launch_rwm_kernel.launches["fused_rwm.mvn_iso"] == before + 1
     p = _run_rwm_fused_plain(*args)
     a = agreement.hold(k, p, agreement.RWM_OUTPUTS)
     assert a.frac >= AGREE_MIN
@@ -119,13 +147,14 @@ def test_resume_on_card_equals_uninterrupted():
 
 def test_unsupported_inputs_raise_on_card():
     dev = _card()
-    full = MultivariateNormal.create(3, cov=np.diag([1.0, 2.0, 3.0]),
-                                     device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pt_fused(full, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
+        get_target_distribution("SuperFunnel", 3, device=dev)
+    wide = FullRosenbrock.create(65, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
                      num_iterations=2, device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_rwm_fused(full, 0, base_variance=1.0, num_chains=4,
+        run_rwm_fused(wide, 0, base_variance=1.0, num_chains=4,
                       num_iterations=2, device=dev)
     iso = MultivariateNormal.create(3, device=dev)
     with pytest.raises(ValueError, match="draws"):
@@ -191,7 +220,7 @@ def test_new_variant_matches_plain(algo, prop, record):
     want = Counter({lib: 1})
     if record:
         want[f"fused_{algo}_record"] = 1
-    assert launch.launches - before == want
+    assert by_variant(launch.launches - before) == want
     pl = plain(*args, kind=kind, **kw)
     a = agreement.hold(k, pl, names)
     assert a.frac >= AGREE_MIN, agreement.describe(a)
@@ -213,9 +242,12 @@ def test_recorded_harness_run_on_card(algo):
                          device=dev)
     launch = launch_pt_kernel if algo == "PT" else launch_rwm_kernel
     src = "fused_pt" if algo == "PT" else "fused_rwm"
+    variant = _build.library(src, "Normal", draws.resolve_normal_impl(
+        algo.lower(), 5000, "rosenbrock"))
     before = Counter(launch.launches)
     chain = sim.generate_samples(verbose=False)
-    assert launch.launches - before == Counter({src: 1, src + "_record": 1})
+    assert by_variant(launch.launches - before) == Counter(
+        {variant: 1, src + "_record": 1})
     assert sim.engine_used == "pallas"
     assert chain.shape == (300, 6) and np.isfinite(chain).all()
     assert np.isfinite(sim.split_rhat()).all()
@@ -223,3 +255,186 @@ def test_recorded_harness_run_on_card(algo):
     info = sim.get_diagnostic_info()
     assert info["backend"].startswith("cuda")
     assert info["devices"] == [torch.cuda.get_device_name(dev)]
+
+
+# target kind -> (registry name, registry kwargs, dim, Normal variance)
+KIND_CASES = {
+    "mvn_full": ("MultivariateNormal", "cov", 7, 0.8),
+    "scaled_mvn": ("MultivariateNormalScaled", None, 7, 0.5),
+    "three_mixture": ("ThreeMixtureScaled", None, 7, 0.8),
+    "rough_carpet": ("RoughCarpetScaled", None, 7, 0.5),
+    "even_rosenbrock": ("EvenRosenbrock", None, 8, 0.05),
+    "hybrid_rosenbrock": ("HybridRosenbrock", {"n1": 3, "n2": 3}, 7, 0.01),
+    "hypercube": ("Hypercube", None, 7, 0.1),
+    "iid_gamma": ("IIDGamma", None, 7, 2.0),
+    "iid_beta": ("IIDBeta", None, 7, 0.01),
+    "neal_funnel": ("NealFunnel", None, 7, 0.5),
+}
+
+
+def kind_target(kind, dev):
+    name, kw, d, var = KIND_CASES[kind]
+    if kw == "cov":
+        a = np.random.default_rng(3).normal(size=(d, d))
+        kw = {"cov": a @ a.T / d + np.eye(d)}
+    t = get_target_distribution(name, d, device=dev, **(kw or {}))
+    assert _build.kernel_target(t)[0] == kind
+    return t, var
+
+
+@pytest.mark.parametrize("algo", ["pt", "rwm"])
+@pytest.mark.parametrize("kind", list(KIND_CASES))
+def test_target_kind_matches_plain(kind, algo):
+    """Every target kind's library against the plain version (which calls
+    the target's log_density_td) with the hold of the Normal kernels, from
+    the target's own initial states; the launch is counted under
+    ``<variant>.<kind>``."""
+    dev = _card()
+    target, var = kind_target(kind, dev)
+    d, T, C = target.dim, 4, 1000
+    g = torch.Generator(device=dev).manual_seed(4)
+    x0 = target.init_sample(C, g).T.contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    if algo == "pt":
+        betas = torch.logspace(0, -1.5, T, device=dev)
+        sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+        args = (target, x0[:, None].expand(d, T, C).contiguous(), zi(T, C),
+                zi(C), zf(C), zf(C), betas, sig, seed_key(6), 0, 150, 20, 10)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+    else:
+        beta = torch.tensor(1.0, device=dev)
+        args = (target, x0, zi(C), zf(C), beta,
+                torch.sqrt(torch.tensor(var, device=dev)), seed_key(6), 0,
+                150, 20)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+    before = Counter(launch.launches)
+    k = launch(*args)
+    assert launch.launches - before == Counter(
+        {f"fused_{algo}.{kind}": 1})
+    p = plain(*args)
+    a = agreement.hold(k, p, names, lp_of=target.log_density_td)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any()
+
+
+@pytest.mark.parametrize("algo,prop", [("pt", "Normal"),
+                                       ("pt", "UniformRadius"),
+                                       ("rwm", "Normal"),
+                                       ("rwm", "UniformRadius")])
+def test_box_muller_matches_plain(algo, prop):
+    """The Box-Muller variants against their plain versions at an odd d
+    (the last pair's angle in slot d+3) and with NORMAL_IMPL = "bm" through
+    the entry points."""
+    dev = _card()
+    d, T, C = 9, 4, 1000
+    target = FullRosenbrock.create(d, device=dev)
+    p = create_proposal_distribution(d, {"name": prop,
+                                         "params": PARAMS[prop]}, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    if algo == "pt":
+        betas = torch.logspace(0, -2, T, device=dev)
+        kind, sig = rung_scales(p, None, betas, torch.ones_like(betas))
+        x0 = (0.5 * torch.randn(d, 1, C, generator=g, device=dev)).expand(
+            d, T, C).contiguous()
+        args = (target, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(8), 0, 150, 20, 10)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+    else:
+        beta = torch.tensor(1.0, device=dev)
+        kind, sig = proposal_scale(p, None, beta)
+        x0 = 0.5 * torch.randn(d, C, generator=g, device=dev)
+        args = (target, x0, zi(C), zf(C), beta, sig, seed_key(8), 0, 150, 20)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+    variant = _build.library(f"fused_{algo}", prop, "bm")
+    before = Counter(launch.launches)
+    k = launch(*args, kind=kind, draw="bm")
+    assert by_variant(launch.launches - before) == Counter({variant: 1})
+    a = agreement.hold(k, plain(*args, kind=kind, draw="bm"), names)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    old = draws.NORMAL_IMPL
+    draws.NORMAL_IMPL = "bm"
+    try:
+        before = Counter(launch.launches)
+        run = run_pt_fused if algo == "pt" else run_rwm_fused
+        extra = ([1.0, 0.5],) if algo == "pt" else ()
+        run(target, 1, *extra, proposal=p, num_chains=64, num_iterations=5,
+            device=dev)
+        assert by_variant(launch.launches - before) == Counter({variant: 1})
+    finally:
+        draws.NORMAL_IMPL = old
+
+
+def test_even_odd_sweep_matches_plain():
+    """The even/odd pair order of the PT kernel against its plain
+    version, swapping every 5 steps."""
+    dev = _card()
+    d, T, C = 6, 7, 1000
+    target = MultivariateNormal.create(d, device=dev)
+    betas = torch.logspace(0, -2, T, device=dev)
+    sig = torch.sqrt(torch.tensor(2.38 ** 2 / d, device=dev) / betas)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x0 = torch.randn(d, T, C, generator=g, device=dev)
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    args = (target, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+            seed_key(10), 0, 150, 20, 5)
+    k = launch_pt_kernel(*args, swap_sweep="even_odd")
+    p = _run_pt_fused_plain(*args, swap_sweep="even_odd")
+    a = agreement.hold(k, p, agreement.PT_OUTPUTS)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    seq = _run_pt_fused_plain(*args)
+    assert not torch.equal(seq[3], p[3])   # the two orders differ
+
+
+def _mvn_full(d, dev):
+    a = np.random.default_rng(3).normal(size=(d, d))
+    return get_target_distribution("MultivariateNormal", d, device=dev,
+                                   cov=a @ a.T / d + np.eye(d))
+
+
+@pytest.mark.parametrize("kind,T", [("rosenbrock", 20), ("mvn_full", 10)])
+def test_runtime_replicas_per_block_match_plain(kind, T):
+    """Launches whose 32 x T threads need more registers than a block may
+    hold (FullRosenbrock with T=20, the full-covariance MVN with T=10, both
+    at d=30) take the instantiation that reads R, the replicas a block, at
+    run time: fewer than 32, and 1000 replicas leave a ragged last block.
+    It is held against the plain version like the R=32 kernel."""
+    dev = _card()
+    d, C = 30, 1000
+    target = (FullRosenbrock.create(d, device=dev) if kind == "rosenbrock"
+              else _mvn_full(d, dev))
+    name = _build.lib_name("fused_pt", kind, d)
+    _build.build([name])
+    regs = dict((n, r) for n, r, _, _ in
+                ptxas_report.parse(_build.PTXAS_LOG[name]))["D32 R32"]
+    # registers go to a warp in units of 256, a block has 64K of them
+    fits = 65536 // (32 * -(-regs // 8) * 8) * 32
+    assert 32 * T > min(fits, 1024), (regs, fits)
+    base = 0.5 ** 2 / d if kind == "rosenbrock" else 0.4
+    betas = torch.logspace(0, -2, T, device=dev)
+    sig = torch.sqrt(torch.tensor(base, device=dev) / betas)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x0 = target.init_sample(C, g).T[:, None].expand(d, T, C).contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    args = (target, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+            seed_key(12), 0, 150, 20, 10)
+    before = Counter(launch_pt_kernel.launches)
+    k = launch_pt_kernel(*args)
+    assert launch_pt_kernel.launches - before == Counter(
+        {f"fused_pt.{kind}": 1})
+    a = agreement.hold(k, _run_pt_fused_plain(*args), agreement.PT_OUTPUTS,
+                       lp_of=target.log_density_td)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any() and (k[3] > 0).any()

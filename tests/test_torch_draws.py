@@ -158,3 +158,107 @@ def test_uniform_ball_increment_matches_pallas(monkeypatch):
     assert (ours[:, 0] == 0).all()
     r = np.sqrt((ours ** 2).sum(0))
     assert (r <= 0.7 * (1 + 1e-6)).all()
+
+
+def _bm_uniforms(half, C, seed):
+    """u1 and u2 on the 2^-24 grid, u1 with a 0 (the 1e-7 clamp)."""
+    rng = np.random.default_rng(seed)
+    u1, u2 = ((rng.integers(0, 1 << 24, (half, C)) * 2.0 ** -24).astype(
+        np.float32) for _ in range(2))
+    u1[0, 0] = 0.0
+    return u1, u2
+
+
+@pytest.mark.parametrize("d", [1, 6, 7])
+def test_normal_bm_matches_pallas(monkeypatch, d):
+    """Box-Muller against ``pallas_rwm._normal_bm`` on the same uniforms,
+    odd d included: coordinate k takes r cos theta of pair k, coordinate
+    k + ceil(d/2) its r sin theta; rtol 1e-5 (cos and sin may differ by an
+    ulp between the two libraries)."""
+    C, half = 64, (d + 1) // 2
+    u1, u2 = _bm_uniforms(half, C, d)
+    feed = [jnp.asarray(u1), jnp.asarray(u2)]
+    monkeypatch.setattr(pallas_rwm, "_uniform", lambda shape: feed.pop(0))
+    ref = np.asarray(pallas_rwm._normal_bm((d, C)))
+    ours = draws.normal_bm(torch.from_numpy(u1), torch.from_numpy(u2),
+                           d).numpy()
+    assert ours.shape == ref.shape == (d, C)
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=2e-6)
+    assert np.isfinite(ours).all()
+
+
+def test_uniform_ball_bm_matches_pallas(monkeypatch):
+    """UniformRadius draws its direction from the Box-Muller normals
+    (``_uniform_ball(impl="bm")``) at an odd d."""
+    d, C = 5, 64
+    u1, u2 = _bm_uniforms(3, C, 9)
+    ur = np.random.default_rng(2).random((1, C), dtype=np.float32)
+    feed = [jnp.asarray(u1), jnp.asarray(u2), jnp.asarray(ur)]
+    monkeypatch.setattr(pallas_rwm, "_uniform", lambda shape: feed.pop(0))
+    ref = np.asarray(pallas_rwm._uniform_ball((d, C), jnp.float32(0.7),
+                                              "bm"))
+    n = draws.normal_bm(torch.from_numpy(u1), torch.from_numpy(u2), d)
+    ours = draws.uniform_ball_increment(n, torch.from_numpy(ur[0]),
+                                        0.7).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["Normal", "UniformRadius"])
+@pytest.mark.parametrize("d", [6, 7])
+def test_step_draws_bm_slots(kind, d):
+    """With the Box-Muller draw, pair k reads u1 from slot k and u2 from
+    slot ceil(d/2) + k, or d+3 for the last pair of an odd d; the MH, swap
+    and radius uniforms keep their slots."""
+    key, T, C = draws.seed_key(5), 3, 4
+    s1, s2 = draws.bm_slots(d)
+    h = (d + 1) // 2
+    assert s1 == list(range(h))
+    assert s2 == [h + k if h + k < d else d + 3 for k in range(h)]
+    words = draws.uniform_from_bits(draws.slot_words(key, 9, T, d + 4, C,
+                                                     "cpu"))
+    inc, u, us, ur = draws.step_draws(key, 9, T, d, C, "cpu", kind=kind,
+                                      draw="bm")
+    want = draws.normal_bm(words[:, s1].transpose(0, 1),
+                           words[:, s2].transpose(0, 1), d).transpose(0, 1)
+    assert torch.equal(inc, want)
+    assert torch.equal(u, words[:, d]) and torch.equal(us, words[:, d + 1])
+    if kind == "UniformRadius":
+        assert torch.equal(ur, words[:, d + 2])
+    # the ICDF stream is untouched by the Box-Muller slots
+    icdf = draws.step_draws(key, 9, T, d, C, "cpu", kind=kind)[0]
+    assert torch.equal(icdf, draws.normal_icdf(words[:, :d]))
+
+
+def test_normal_bm_distribution():
+    """Box-Muller normals from the Philox stream: N(0, 1) by moments and a
+    Kolmogorov-Smirnov distance."""
+    inc = draws.step_draws(draws.seed_key(3), 1, 1, 7, 40000, "cpu",
+                           draw="bm")[0].double().flatten().numpy()
+    assert abs(inc.mean()) < 5 / np.sqrt(inc.size)
+    assert abs(inc.var() - 1.0) < 5 * np.sqrt(2.0 / inc.size)
+    xs = np.sort(inc)
+    ks = np.abs(norm.cdf(xs) - np.arange(1, xs.size + 1) / xs.size).max()
+    assert ks < 1.63 / np.sqrt(xs.size)
+
+
+def test_resolve_normal_impl(monkeypatch):
+    """The JAX signature and override, with the rule measured on the H100:
+    Box-Muller above 1024 replicas or chains, ICDF up to 1024 and for PT
+    on the full-covariance MVN; NORMAL_IMPL wins; the draw-study probes
+    are not ported."""
+    for block in (512, 1024, 1025, 65536):
+        for kernel in ("pt", "rwm"):
+            for kind in (None, "rosenbrock", "three_mixture"):
+                assert draws.resolve_normal_impl(kernel, block, kind) == (
+                    "icdf" if block <= 1024 else "bm")
+        assert draws.resolve_normal_impl("pt", block, "mvn_full") == "icdf"
+        assert draws.resolve_normal_impl("rwm", block, "mvn_full") == (
+            "icdf" if block <= 1024 else "bm")
+    with pytest.raises(ValueError, match="kernel"):
+        draws.resolve_normal_impl("mala", 65536)
+    monkeypatch.setattr(draws, "NORMAL_IMPL", "icdf")
+    assert draws.resolve_normal_impl("pt", 65536) == "icdf"
+    monkeypatch.setattr(draws, "NORMAL_IMPL", "icdf_fastlog")
+    with pytest.raises(NotImplementedError, match="Queue B item 10"):
+        draws.resolve_normal_impl("rwm", 512)
+    assert set(draws.NORMAL_IMPLS) <= set(pallas_rwm._NORMAL_IMPLS)

@@ -29,9 +29,15 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch.api.simulation
         import rwm_pt_tpu_torch.cli.common
         import rwm_pt_tpu_torch.cli.experiment_rwm
+        import rwm_pt_tpu_torch.cli.experiment_pt
         import rwm_pt_tpu_torch.ladders.ladders
         import rwm_pt_tpu_torch.proposals.proposals
         import rwm_pt_tpu_torch.targets.registry
+        import rwm_pt_tpu_torch.targets.funnel
+        import rwm_pt_tpu_torch.targets.hypercube
+        import rwm_pt_tpu_torch.targets.iid
+        import rwm_pt_tpu_torch.targets.multimodal
+        import rwm_pt_tpu_torch.utils.threefry
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "rwm_pt_tpu")
                   and sys.modules[m] is not None]
@@ -46,6 +52,7 @@ def test_port_imports_without_jax():
 
 def _entry_points(out_dir):
     from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import experiment_pt
     from rwm_pt_tpu_torch.cli.experiment_rwm import run_study
     from rwm_pt_tpu_torch.kernels import (run_pt, run_pt_fused, run_rwm,
                                           run_rwm_fused)
@@ -86,6 +93,13 @@ def _entry_points(out_dir):
         "run_study": lambda **d: run_study(
             2, num_iters=2, burn_in=0, num_chains=4, num_configs=1,
             output_dir=out_dir, make_plots=False, **d),
+        "experiment_pt.run_study": lambda **d: experiment_pt.run_study(
+            2, num_iters=2, burn_in=0, num_chains=4, num_configs=1,
+            geom_ladder=True, output_dir=out_dir, make_plots=False, **d),
+        "ThreeMixture": lambda **d: get_target_distribution(
+            "ThreeMixtureScaled", 3, **d),
+        "NealFunnel": lambda **d: get_target_distribution(
+            "NealFunnel", 3, **d),
     }
 
 
@@ -96,7 +110,9 @@ def _entry_points(out_dir):
                                   "UniformRadiusProposal.create",
                                   "create_proposal_distribution",
                                   "get_target_distribution",
-                                  "MCMCSimulation", "run_study"])
+                                  "MCMCSimulation", "run_study",
+                                  "experiment_pt.run_study", "ThreeMixture",
+                                  "NealFunnel"])
 def test_entry_points_default_to_cuda(name, monkeypatch, tmp_path):
     """With no card, the default device raises; ``device='cpu'`` runs."""
     fn = _entry_points(str(tmp_path))[name]

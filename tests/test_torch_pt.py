@@ -25,11 +25,12 @@ from rwm_pt_tpu.targets import MultivariateNormal as JMVN
 from rwm_pt_tpu_torch.convert import (pt_state_from_numpy, pt_state_to_numpy,
                                       target_from_numpy)
 from rwm_pt_tpu_torch.kernels import PTState, run_pt, run_pt_fused
-from rwm_pt_tpu_torch.kernels import _build
+from rwm_pt_tpu_torch.kernels import _build, fused_pt, fused_rwm
 from rwm_pt_tpu_torch.kernels.fused_pt import rung_scales
 from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
                                         UniformRadiusProposal)
-from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
+from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
+                                      get_target_distribution)
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -266,13 +267,21 @@ def test_unsupported_inputs_raise():
     with pytest.raises(ValueError):
         run_pt_fused(pt, 0, [1.0, 0.5], num_chains=4, num_iterations=1,
                      device=CPU)
-    full = MultivariateNormal.create(3, cov=np.diag([1.0, 2.0, 3.0]),
-                                     device=CPU)
-    # the kernel's target check, which runs before any launch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build.kernel_target(full)
+    cov = np.diag([1.0, 2.0, 3.0])
+    full = MultivariateNormal.create(3, cov=cov, device=CPU)
+    # the kernel's target check, which runs before any launch: the full
+    # covariance has its own kind, [log_norm_const, mean, cov_inv (rows)]
+    kind, params = _build.kernel_target(full)
+    assert kind == "mvn_full"
+    np.testing.assert_allclose(
+        params.numpy(), np.concatenate([[float(full.log_norm_const)],
+                                        np.zeros(3),
+                                        np.linalg.inv(cov).ravel()]),
+        rtol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build.kernel_target(FullRosenbrock.create(65, device=CPU))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_target_distribution("SuperFunnel", 3, device=CPU)
 
 
 def _new_proposal(kind, d, target):
@@ -452,3 +461,96 @@ def test_trace_moments_match_jax_scan():
     for label, r in (("fused", fused), ("eager", eager)):
         assert tuple(r.chain.shape) == ref.shape == (75, d, C)
         assert _trace_z(r.chain.numpy(), ref, 15) < 5, label
+
+
+@pytest.mark.parametrize("T", [5, 6])
+def test_even_odd_order_matches_jax_half_sweeps(monkeypatch, T):
+    """``swap_sweep="even_odd"`` tries the pairs 0, 2, 4.., then 1, 3, 5..:
+    on the same states and per-pair uniforms it equals the JAX scan
+    engine's even then odd half-sweep (``kernels/pt.py::_swap_half_sweep``,
+    whose uniforms are patched in for this test).  One step with zero
+    increments and MH uniforms of 1 leaves the states in place, then
+    swaps."""
+    from rwm_pt_tpu.kernels import pt as jpt
+    d, C = 3, 256
+    jt = JMVN.create(d)
+    rng = np.random.default_rng(T)
+    x = (rng.normal(size=(d, T, C)) * np.geomspace(1, 6, T)[None, :, None]
+         ).astype(np.float32)
+    betas = np.geomspace(1.0, 0.03, T).astype(np.float32)
+    u_sw = rng.random((T - 1, C), dtype=np.float32)
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape, *a, **k: jnp.asarray(u_sw))
+    lp = jt.log_density_td(jnp.asarray(x))
+    x1, lp1, a0 = jpt._swap_half_sweep(jnp.asarray(x), lp, jax.random.key(0),
+                                       jnp.asarray(betas), 0)
+    x2, lp2, a1 = jpt._swap_half_sweep(x1, lp1, jax.random.key(1),
+                                       jnp.asarray(betas), 1)
+    acc = np.asarray(a0 | a1)
+    pt = MultivariateNormal.create(d, device=CPU)
+    zero = np.zeros((1, T, d, C), np.float32)
+    draws = (zero, np.ones((1, T, C), np.float32), u_sw[None])
+    r = run_pt_fused(pt, 0, betas, base_variance=1.0, num_chains=C,
+                     num_iterations=1, swap_every=1,
+                     init_states=torch.from_numpy(x), swap_sweep="even_odd",
+                     device=CPU, draws=tuple(torch.from_numpy(a)
+                                             for a in draws))
+    np.testing.assert_array_equal(r.state.x.numpy(), np.asarray(x2))
+    np.testing.assert_array_equal(r.state.swap_accept_count.numpy(),
+                                  acc.sum(0))
+    np.testing.assert_allclose(r.state.logp.numpy(), np.asarray(lp2),
+                               rtol=RTOL, atol=ATOL)
+    dbeta2 = ((betas[:-1] - betas[1:]) ** 2)[:, None]
+    np.testing.assert_allclose(r.state.sum_beta_sq_jump.numpy(),
+                               (acc * dbeta2).sum(0), rtol=RTOL, atol=ATOL)
+    assert acc[0::2].any() and acc[1::2].any()
+    seq = run_pt_fused(pt, 0, betas, base_variance=1.0, num_chains=C,
+                       num_iterations=1, swap_every=1,
+                       init_states=torch.from_numpy(x), device=CPU,
+                       draws=tuple(torch.from_numpy(a) for a in draws))
+    assert not torch.equal(seq.state.x, r.state.x)   # the orders differ
+
+
+def test_even_odd_rates_match_jax_scan():
+    """The fused plain version with the even/odd order against the JAX
+    scan engine's default (even/odd) sweep on MVN d=10: per-rung MH and
+    swap acceptance within 5 Monte-Carlo standard errors."""
+    d, C = 10, 512
+    betas = np.geomspace(1.0, 0.01, 6).astype(np.float32)
+    var = 2.38 ** 2 / d
+    kw = dict(num_chains=C, num_iterations=300, burn_in=50, swap_every=10)
+    jr = jrun_pt(JMVN.create(d), JNormalProposal.create(d, var),
+                 jax.random.key(8), jnp.asarray(betas), **kw)
+    r = run_pt_fused(MultivariateNormal.create(d, device=CPU), 9, betas,
+                     base_variance=var, swap_sweep="even_odd", device=CPU,
+                     **kw)
+    ja = np.asarray(jr.acceptance_rate)
+    for t in range(len(betas)):
+        assert rate_z(r.acceptance_rate[t].numpy(), ja[t]) < 5, t
+    assert rate_z(r.swap_acceptance_rate.numpy(),
+                  np.asarray(jr.swap_acceptance_rate)) < 5
+    with pytest.raises(ValueError, match="swap_sweep"):
+        run_pt_fused(MultivariateNormal.create(d, device=CPU), 9, betas,
+                     base_variance=var, swap_sweep="random", device=CPU,
+                     **kw)
+
+
+@pytest.mark.parametrize("sweep", ["sequential", "even_odd", "random"])
+def test_launch_wrappers_check_their_inputs(sweep):
+    """The launch wrappers' checks run before any build: CPU tensors are
+    refused (the kernels take CUDA tensors only) and an unknown pair order
+    raises, on a machine without nvcc."""
+    d, T, C = 4, 3, 8
+    t = MultivariateNormal.create(d, device=CPU)
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32)  # noqa
+    zf = lambda *s: torch.zeros(*s)  # noqa
+    betas = torch.tensor([1.0, 0.5, 0.25])
+    with pytest.raises(ValueError, match="swap_sweep" if sweep == "random"
+                       else "CUDA tensor"):
+        fused_pt.launch_pt_kernel(
+            t, zf(d, T, C), zi(T, C), zi(C), zf(C), zf(C), betas,
+            torch.ones(T), (1, 2), 0, 5, 0, 2, swap_sweep=sweep, draw="bm")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_rwm.launch_rwm_kernel(
+            t, zf(d, C), zi(C), zf(C), torch.tensor(1.0), torch.tensor(0.5),
+            (1, 2), 0, 5, 0, draw="bm")

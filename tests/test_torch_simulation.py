@@ -158,7 +158,8 @@ def test_rng_impl_takes_the_jax_values():
 
 
 @pytest.mark.parametrize("opt,item", [
-    (dict(algorithm="PT", iterative_temp_spacing=True), "A item 10"),
+    (dict(algorithm="PT", iterative_temp_spacing=True,
+          target_dist="SuperFunnel"), "A item 9"),
     (dict(autotune=True), "A item 11"),
     (dict(algorithm="PT", autotune_ladder=True), "A item 11"),
     (dict(use_mesh=True), "A item 13"),
@@ -178,23 +179,31 @@ def test_progress_bar_and_engine_refusal():
                target_dist="MultivariateNormal", device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
         sim.generate_samples(progress_bar=True)
+    # the kernels compile dims up to 64: a 65-d target is refused by
+    # engine='pallas' and runs on the eager engine under 'auto'
+    wide = TSim(dim=65, sigma=0.01, num_iterations=10, engine="pallas",
+                target_dist=tget("FullRosenbrock", 65, device=CPU),
+                device=CPU)
+    with pytest.raises(ValueError, match="fused CUDA kernels"):
+        wide.generate_samples(verbose=False)
+    auto = TSim(dim=65, sigma=0.01, num_iterations=10, record_chains=1,
+                target_dist=wide.target_dist, device=CPU)
+    assert auto.generate_samples(verbose=False).shape == (10, 65)
+    assert auto.engine_used == "scan"
+    # the full-covariance MVN is a kernel target of its own
     full = TSim(dim=3, sigma=1.0, num_iterations=10, engine="pallas",
                 target_dist=tget("MultivariateNormal", 3,
                                  cov=np.diag([1.0, 2.0, 3.0]), device=CPU),
                 device=CPU)
-    with pytest.raises(ValueError, match="fused CUDA kernels"):
-        full.generate_samples(verbose=False)
-    auto = TSim(dim=3, sigma=1.0, num_iterations=10, record_chains=1,
-                target_dist=full.target_dist, device=CPU)
-    assert auto.generate_samples(verbose=False).shape == (10, 3)
-    assert auto.engine_used == "scan"
+    assert full.generate_samples(verbose=False).shape == (10, 3)
+    assert full.engine_used == "pallas"
 
 
 def test_registry_matches_jax():
     """The factory defaults of the ported targets, the ``variant`` check
-    and the unknown-name error are the JAX registry's; every other JAX
-    target name raises ``NotImplementedError`` naming ROADMAP Queue A
-    item 9."""
+    and the unknown-name error are the JAX registry's; SuperFunnel, the
+    one JAX target name not ported, raises ``NotImplementedError`` naming
+    ROADMAP Queue A item 9."""
     jr, tr = jget("FullRosenbrock", 6), tget("FullRosenbrock", 6, device=CPU)
     for f in ("a_coeff", "b_coeff", "mu"):
         np.testing.assert_array_equal(getattr(tr, f).numpy(),
@@ -212,7 +221,7 @@ def test_registry_matches_jax():
             tget(*args, **kw, device=CPU)
         assert str(te.value) == str(je.value)
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tget("ThreeMixture", 3, device=CPU)
+        tget("SuperFunnel", 3, device=CPU)
 
 
 @pytest.mark.parametrize("args", [(), (1.0, 0.05, 0.6), (0.8, 0.001, 0.3)])
