@@ -90,7 +90,32 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    the study's library held against its plain version at the study's
    shape (T=7, even/odd, 200 steps); fused ``even_odd`` against the eager
    engine's ``even_odd`` on MVN d=10.
-   The study's JSON and log go to ``smoke_out/pt_study/``.
+   The study's JSON and log go to ``smoke_out/pt_study/``;
+14. the draw study's normals: (a) the two probe kernels, ``draw_normals``
+   of every draw at N = 2^20 (the JAX probe's size) held against its plain
+   version on the same Philox words and, for the normals, put through
+   ``tests/test_pallas_kernels.py:425-440``'s moment, KS and tail gates
+   (the tails against ``torch.randn``), and ``fast_log`` on that test's
+   8192 inputs within its bound of float64 log; (b) the ``icdf_fastlog``,
+   ``lax_erfinv`` and ``fake_uniform`` variants of both kernels, Normal
+   and UniformRadius, timed at their main path's size and held against
+   their plain versions at its shapes over 200 steps; (c) the Geweke gate
+   on MVN d=10 with ``icdf_fastlog`` and ``lax_erfinv`` forced; (d) the
+   draw study (``scripts/bench_normal_impl.py``): the five draws timed
+   interleaved, best of 3, through ``run_pt_fused`` at the flagship shape
+   and ``run_rwm_fused`` at the RWM headline, Normal and UniformRadius,
+   ``draws.NORMAL_IMPL`` forced and the launch counters zeroed just
+   before each call: MH steps/s, acceptance, swap acceptance, ESJD, ms
+   beside the bound, ``draw_cost_share = 1 - rate / rate_fake_uniform``;
+15. burn-in autotuning through ``MCMCSimulation(engine="pallas")``, the
+   eager tuner for the burn-in and one fused launch after it (counted):
+   the scale tuner at the flagship shape from a Normal variance mis-scaled
+   by 1/100 (per-rung acceptance, tuning ms/step, measurement seconds),
+   RWM at 65,536 chains, the ladder tuner at the flagship shape; the JAX
+   tests' rate gates on MVN at 65,536 replicas or chains; Geweke at the
+   tuned multipliers and at a tuned ladder; the ``single_run --autotune
+   --no_plots`` CLI in a process of its own, its JSON with JAX's keys
+   (``smoke_out/single_run/``).
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -157,6 +182,25 @@ GEWEKE_KINDS = {"three_mixture": "ThreeMixture", "rough_carpet": "RoughCarpet",
 # gate draws the exact law, tempered_gamma)
 INEXACT_TEMPERED = ("three_mixture", "rough_carpet")
 BM_MARGIN = 0.03       # Box-Muller must beat ICDF by more than this
+# phase 14, the draw study (scripts/bench_normal_impl.py on the card)
+STUDY_DRAWS = ("icdf_fastlog", "lax_erfinv", "fake_uniform")
+DRAW_SITES = {"icdf_fastlog": "rwm_pt_tpu/kernels/pallas_rwm.py:119",
+              "lax_erfinv": "rwm_pt_tpu/kernels/pallas_rwm.py:146",
+              "fake_uniform": "rwm_pt_tpu/kernels/pallas_rwm.py:152"}
+PROBE_N = 1 << 20      # tests/test_pallas_kernels.py:395
+PROBE_SOURCE = "rwm_pt_tpu_torch/kernels/csrc/draw_probes.cu"
+# phase 15, autotuning: burn-in, window, measured steps, the mis-scale of
+# the Normal variance, and tests/test_adaptive.py's near-optimal MVN d=10
+# variance
+TUNE = dict(burn_in=3000, every=100, iters=2000, mis=1 / 100)
+OPT_VAR = 2.38 ** 2 / 10
+# the keys of the JAX single_run's JSON for an autotuned RWM run
+# (rwm_pt_tpu/cli/single_run.py:55-84)
+SINGLE_RUN_KEYS = {"target_distribution", "proposal_distribution",
+                   "algorithm", "dimension", "num_iterations", "scale_param",
+                   "seed", "total_time", "acceptance_rate", "esjd",
+                   "num_chains", "autotune_target", "tuned_scale_multiplier",
+                   "tuned_proposal_config"}
 
 
 def fail(msg):
@@ -210,6 +254,18 @@ def cuda_ms(torch, fn, reps=1):
 #   Box-Muller pair (two normals): cvt+scale 2 x2, fmax 1, logf 1, -2* 1,
 #     sqrtf 1, 2 pi u 1, sincosf 2, r cos, r sin 2 = 12 -> 6 a normal
 #     (+ the proposal's 2: 8 per Normal coordinate instead of 32).
+#   The draw study's normals (csrc/draws.cuh):
+#     fast_log: compare 1, m*0.5 1, int->float 1, m-1 1, 8 products and 8
+#       sums of the polynomial 16, f*f 1, f2*f 1, *p 1, 0.5*f2 1, three
+#       adds 3, e*ln2 1 = 28;
+#     icdf_fastlog normal: the ICDF normal's 30 with fast_log's 28 in place
+#       of logf's 1, and (sqrt2 x) p as two products: 2+3+3+1+28+1+17+2 = 57;
+#     lax_erfinv normal: CUDA's erfinvf counted as Giles' polynomial, as the
+#       ICDF normal: 30;
+#     fake_uniform: cvt+scale 2, u-0.5 1, *sqrt12 1 = 4 (not a normal).
+NORMAL_FLOPS = {"icdf": 30, "bm": 6, "icdf_fastlog": 57, "lax_erfinv": 30,
+                "fake_uniform": 4}
+FAST_LOG_FLOPS = 28
 def lp_flops(kind, d):
     return {
         "rosenbrock": 9 * (d - 1) + 1,
@@ -228,7 +284,7 @@ def lp_flops(kind, d):
 
 
 def inc_flops(prop, d, draw="icdf"):
-    normal = 30 if draw == "icdf" else 6
+    normal = NORMAL_FLOPS[draw]
     return {"Normal": (normal + 2) * d, "Laplace": 9 * d,
             "UniformRadius": (normal + 5) * d + 8}[prop]
 
@@ -380,7 +436,7 @@ def per_chain_z(a, b):
     return abs(a.mean().item() - b.mean().item()) / (se + 1e-12)
 
 
-def invariance(torch, mvn, seed, n=4096, betas=None, exact=None,
+def invariance(torch, mvn, seed, n=4096, betas=None, exact=None, pt_kw=None,
                **sampler_kw):
     """Exact invariance (Geweke) of the fused samplers on the target
     ``mvn`` with a generator seeded ``seed``: RWM starts 4096 chains from
@@ -390,7 +446,8 @@ def invariance(torch, mvn, seed, n=4096, betas=None, exact=None,
     exact draws (max z over the coordinates' first and second moments and
     the mean log-density).  ``exact(n, beta, generator)`` draws ``(n, d)``
     from the tempered target (default ``mvn.direct_sample``).
-    ``sampler_kw`` is the proposal (``base_variance=`` or ``proposal=``).
+    ``sampler_kw`` is the proposal (``base_variance=`` or ``proposal=``),
+    ``pt_kw`` more arguments of the PT run (``scale_multipliers=``).
     Returns ``(max z RWM, max z PT over the rungs, PT swap
     acceptance)``."""
     from rwm_pt_tpu_torch.kernels import run_pt_fused, run_rwm_fused
@@ -417,7 +474,7 @@ def invariance(torch, mvn, seed, n=4096, betas=None, exact=None,
     cube = torch.stack([draw(n, b.item(), g).T for b in bi], dim=1)
     r = run_pt_fused(mvn, seed + 1, bi, num_chains=n, num_iterations=60,
                      swap_every=5, init_states=cube, device=dev,
-                     **sampler_kw)
+                     **sampler_kw, **(pt_kw or {}))
     z_pt = max(max_z(r.state.x[:, t], draw(n, b.item(), g).T)
                for t, b in enumerate(bi))
     return z_rwm, z_pt, r.swap_acceptance_rate.mean().item()
@@ -1197,6 +1254,514 @@ def phases_11_to_13(torch, gen):
     return out
 
 
+def normal_gates(torch, z, ref):
+    """tests/test_pallas_kernels.py:425-440's gates on the normals ``z``:
+    |mean| < 5e-3, |std - 1| < 5e-3, |E z^3| < 2e-2, |E z^4 - 3| < 5e-2,
+    KS against the exact normal CDF < 3.5e-3, and the shares above 2 and 3
+    within 6 standard errors (+ 2e-5) of ``ref``'s (``torch.randn`` on the
+    card).  Returns ``(statistics, names of the failed gates)``."""
+    n = z.numel()
+    zs = torch.sort(z.double().flatten()).values
+    q = (torch.arange(n, dtype=torch.float64, device=z.device) + 0.5) / n
+    st = dict(mean=zs.mean().item(), std=zs.std(correction=0).item(),
+              skew=(zs ** 3).mean().item(), kurt=(zs ** 4).mean().item(),
+              ks=(torch.special.ndtr(zs) - q).abs().max().item())
+    bad = [k for k, ok in (("mean", abs(st["mean"]) < 5e-3),
+                           ("std", abs(st["std"] - 1.0) < 5e-3),
+                           ("skew", abs(st["skew"]) < 2e-2),
+                           ("kurtosis", abs(st["kurt"] - 3.0) < 5e-2),
+                           ("KS", st["ks"] < 3.5e-3)) if not ok]
+    for thr in (2.0, 3.0):
+        p_z = (zs > thr).double().mean().item()
+        p_r = (ref > thr).double().mean().item()
+        se = math.sqrt(2 * p_r * (1 - p_r) / n) + 1e-9
+        st[f"above_{thr:g}"] = [p_z, p_r]
+        if abs(p_z - p_r) >= 6 * se + 2e-5:
+            bad.append(f"tail above {thr:g}")
+    return st, bad
+
+
+def phase_14(torch, gen):
+    """Phase 14, the draw study's normals (B10): (a) the two probe kernels
+    at the JAX probe's size, (b) the fused variants of the three new draws
+    held at the main paths' shapes, (c) the Geweke gate with each new
+    exact draw forced, (d) the draw study (``scripts/bench_normal_impl.py``)
+    through the entry points.  Returns the kernels' JSON records of the
+    probe kernels and the new variants, with their launches on (a) and
+    (d)."""
+    import numpy as np
+
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draw_probes,
+                                          draws, fused_pt, fused_rwm,
+                                          run_pt_fused, run_rwm_fused)
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.proposals import create_proposal_distribution
+    from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    d, T, C, Cr = FLAG["dim"], FLAG["T"], FLAG["C"], RWM_MAIN["C"]
+    iters, var = FLAG["iters"], FLAG["base_variance"]
+    rb = FullRosenbrock.create(d, device=dev)
+    betas = torch.logspace(0, -2, T, device=dev)
+    beta1 = torch.tensor(1.0, device=dev)
+    out = []
+
+    def proposal(prop, dim, v):
+        return create_proposal_distribution(
+            dim, {"name": prop, "params": proposal_params(prop, dim, v)},
+            device=dev)
+
+    # ---- (a) the probe kernels: every draw's normals at N = 2^20 and the
+    # bit-trick log on tests/test_pallas_kernels.py:454-457's 8192 inputs
+    seed = int.from_bytes(os.urandom(4), "little")
+    probes = (draw_probes.draw_normals, draw_probes.fast_log)
+    y = np.concatenate([
+        np.logspace(-37, 0, 4096).astype(np.float32),
+        np.random.default_rng(0).uniform(1e-7, 1.0, 4096).astype(np.float32),
+    ]).reshape(8, 1024)
+    yt = torch.from_numpy(y).to(dev)
+    reset_launches(*probes)
+    z = {impl: draw_probes.draw_normals(impl, seed, PROBE_N, device=dev)
+         for impl in draws.NORMAL_IMPLS}
+    flog = draw_probes.fast_log(yt)
+    torch.cuda.synchronize()
+    seen = read_launches(*probes, by_kind=True)
+    want = Counter({impl: 1 for impl in draws.NORMAL_IMPLS})
+    want["fast_log"] = 1
+    if seen != want:
+        fail(f"probe launches {dict(seen)}, want {dict(want)}")
+    ref = torch.randn(PROBE_N, generator=gen, device=dev)
+    u = draws.uniform_from_bits(draws.slot_words(
+        seed_key(seed), 1, 1, 8, PROBE_N // 8, dev))[0]
+    for impl in draws.NORMAL_IMPLS:
+        p = draw_probes._draw_normals_plain(impl, seed, PROBE_N, dev)
+        diff = (z[impl] - p).abs()
+        share = (diff <= 1e-5 * p.abs()).double().mean().item()
+        max_d = diff.max().item()
+        ms, _ = cuda_ms(torch, lambda: draw_probes.draw_normals(
+            impl, seed, PROBE_N, device=dev), reps=20)
+        plain_ms, _ = cuda_ms(torch, lambda: draw_probes._draw_normals_plain(
+            impl, seed, PROBE_N, dev), reps=3)
+        # one PyTorch call for the same function: Phi^-1 of the same
+        # uniforms for the ICDF-slot normals, N normals for Box-Muller;
+        # the uniform probe has none
+        lib_ms = None
+        if impl == "bm":
+            lib_ms, _ = cuda_ms(torch, lambda: torch.randn(
+                PROBE_N, device=dev), reps=20)
+        elif impl != "fake_uniform":
+            lib_ms, _ = cuda_ms(torch, lambda: draws.SQRT2 * torch.erfinv(
+                2.0 * u - 1.0 + 2.0 ** -24), reps=20)
+        b_ms, b_by = bound(PROBE_N * NORMAL_FLOPS[impl], 4 * PROBE_N)
+        st, bad = ({}, []) if impl == "fake_uniform" else normal_gates(
+            torch, z[impl], ref)
+        say(f"phase 14 probe draw_normals {impl} (seed {seed}, N={PROBE_N}):"
+            f" {100 * share:.4f} % of elements agree with the plain version "
+            f"to 1e-5 relative, max |diff| {max_d:.3g}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by}"
+            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
+            + ("; not a normal, no gates" if impl == "fake_uniform" else
+               f"; mean {st['mean']:.2e}, std {st['std']:.6f}, E z^3 "
+               f"{st['skew']:.2e}, E z^4 {st['kurt']:.5f}, KS {st['ks']:.2e},"
+               f" above 2 {st['above_2'][0]:.6f} vs randn "
+               f"{st['above_2'][1]:.6f}, above 3 {st['above_3'][0]:.6f} vs "
+               f"{st['above_3'][1]:.6f}"))
+        if max_d >= agreement.X_ATOL or share < 0.999 or bad:
+            fail(f"draw_normals {impl}: max |diff| {max_d}, share {share}, "
+                 f"failed gates {bad}")
+        out.append(dict(
+            name=f"draw_normals.{impl}", route="cuda", source=PROBE_SOURCE,
+            replaces="tests/test_pallas_kernels.py:403",
+            launches=seen[impl], max_abs_err=max_d, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, n=PROBE_N, agree_share_1e5_rel=share,
+            gates=st))
+    del z, ref
+    fp = draws.fast_log(yt)
+    rel_ok = bool(((flog - fp).abs() <= 2.4e-7 * fp.abs()).all())
+    exact = np.log(y.astype(np.float64))
+    err = np.abs(flog.cpu().numpy().astype(np.float64) - exact)
+    worst = float((err / (1e-6 + 1e-7 * np.abs(exact))).max())
+    ms, _ = cuda_ms(torch, lambda: draw_probes.fast_log(yt), reps=20)
+    plain_ms, _ = cuda_ms(torch, lambda: draws.fast_log(yt), reps=3)
+    lib_ms, _ = cuda_ms(torch, lambda: torch.log(yt), reps=20)
+    b_ms, b_by = bound(FAST_LOG_FLOPS * y.size, 8 * y.size)
+    max_d = (flog - fp).abs().max().item()
+    say(f"phase 14 probe fast_log ({y.size} inputs): max |diff| to the plain "
+        f"version {max_d:.3g} (within 2 ulp: {rel_ok}); worst error / "
+        f"(1e-6 + 1e-7 |log y|) against float64 log {worst:.4f} (< 1); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.log "
+        f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+    if not rel_ok or worst >= 1.0:
+        fail("fast_log probe disagrees with its plain version or float64 log")
+    out.append(dict(
+        name="fast_log", route="cuda", source=PROBE_SOURCE,
+        replaces="tests/test_pallas_kernels.py:462",
+        launches=seen["fast_log"], max_abs_err=max_d, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        n=int(y.size), worst_error_over_bound=worst))
+    say(f"phase 14a {time.time() - t_phase:.1f} s")
+
+    # ---- (b) each new draw's Normal and UniformRadius variants of both
+    # kernels held at the main paths' shapes
+    recs = {}
+    src = {"pt": "rwm_pt_tpu_torch/kernels/csrc/fused_pt.cu",
+           "rwm": "rwm_pt_tpu_torch/kernels/csrc/fused_rwm.cu"}
+    for impl in STUDY_DRAWS:
+        for algo in ("pt", "rwm"):
+            for prop in ("Normal", "UniformRadius"):
+                p = proposal(prop, d, var)
+                if algo == "pt":
+                    kind, sig = fused_pt.rung_scales(p, None, betas,
+                                                     torch.ones_like(betas))
+
+                    def case(steps, hold, sig=sig, prop=prop, kind=kind,
+                             impl=impl):
+                        x0 = (1e-8 * torch.randn(d, 1, C, generator=gen,
+                                                 device=dev)).expand(d, T, C)
+                        args = (rb, x0.contiguous(), zi(T, C), zi(C), zf(C),
+                                zf(C), betas, sig, seed_key(0), 0, steps, 0,
+                                FLAG["swap_every"])
+                        return args, dict(kind=kind, draw=impl), pt_work(
+                            "rosenbrock", d, T, C, steps, 0,
+                            FLAG["swap_every"], prop=prop, draw=impl)
+                    launch, plain = (fused_pt.launch_pt_kernel,
+                                     fused_pt._run_pt_fused_plain)
+                    names = agreement.PT_OUTPUTS
+                else:
+                    kind, sig = fused_rwm.proposal_scale(p, None, beta1)
+
+                    def case(steps, hold, sig=sig, prop=prop, kind=kind,
+                             impl=impl):
+                        x0 = 1e-8 * torch.randn(d, Cr, generator=gen,
+                                                device=dev)
+                        args = (rb, x0, zi(Cr), zf(Cr), beta1, sig,
+                                seed_key(0), 0, steps, 0)
+                        return args, dict(kind=kind, draw=impl), rwm_work(
+                            "rosenbrock", d, Cr, steps, prop=prop, draw=impl)
+                    launch, plain = (fused_rwm.launch_rwm_kernel,
+                                     fused_rwm._run_rwm_fused_plain)
+                    names = agreement.RWM_OUTPUTS
+                name = _build.library(f"fused_{algo}", prop, impl)
+                recs[name] = kernel_record(
+                    torch, name, src[algo], DRAW_SITES[impl], 0, launch,
+                    plain, names, case, iters, phase=14)
+                torch.cuda.empty_cache()
+    say(f"phase 14b {time.time() - t_phase:.1f} s")
+
+    # ---- (c) Geweke with each new exact draw forced, (d) the draw study
+    d2 = 10
+    mvn = MultivariateNormal.create(d2, device=dev)
+    gseed = int.from_bytes(os.urandom(4), "little")
+    old = draws.NORMAL_IMPL
+    study = {}
+    launches = Counter()
+    try:
+        for impl in ("icdf_fastlog", "lax_erfinv"):
+            draws.NORMAL_IMPL = impl
+            for prop in ("Normal", "UniformRadius"):
+                reset_launches(*wrappers)
+                z_rwm, z_pt, sw = invariance(torch, mvn, gseed,
+                                             proposal=proposal(prop, d2,
+                                                               OPT_VAR))
+                seen = read_launches(*wrappers)
+                want = {_build.library("fused_pt", prop, impl): 1,
+                        _build.library("fused_rwm", prop, impl): 1}
+                say(f"phase 14 invariance, NORMAL_IMPL {impl!r}, {prop} MVN "
+                    f"d={d2} (seed {gseed}): max z RWM {z_rwm:.2f}, PT "
+                    f"{z_pt:.2f} (< {Z_INV_MAX}); PT swap acc {sw:.3f}; "
+                    f"launches {dict(seen)}")
+                if dict(seen) != want:
+                    fail(f"invariance runs launched {dict(seen)}, want {want}")
+                if max(z_rwm, z_pt) >= Z_INV_MAX or sw <= 0.02:
+                    fail(f"invariance failed for {prop} with {impl}")
+        runs = {  # (kernel, proposal) -> run(seed)
+            ("pt", "Normal"): lambda r: run_pt_fused(
+                rb, r, betas, base_variance=var, num_chains=C,
+                num_iterations=iters, swap_every=FLAG["swap_every"],
+                device=dev),
+            ("pt", "UniformRadius"): lambda r: run_pt_fused(
+                rb, r, betas, proposal=proposal("UniformRadius", d, var),
+                num_chains=C, num_iterations=iters,
+                swap_every=FLAG["swap_every"], device=dev),
+            ("rwm", "Normal"): lambda r: run_rwm_fused(
+                rb, r, base_variance=var, num_chains=Cr,
+                num_iterations=iters, device=dev),
+            ("rwm", "UniformRadius"): lambda r: run_rwm_fused(
+                rb, r, proposal=proposal("UniformRadius", d, var),
+                num_chains=Cr, num_iterations=iters, device=dev),
+        }
+        for (algo, prop), run in runs.items():
+            best = {}
+            for rep in (1, 2, 3):
+                for impl in draws.NORMAL_IMPLS:      # interleaved
+                    draws.NORMAL_IMPL = impl
+                    reset_launches(*wrappers)
+                    ms, res = cuda_ms(torch, lambda: run(rep))
+                    seen = read_launches(*wrappers)
+                    lib = _build.library(f"fused_{algo}", prop, impl)
+                    if dict(seen) != {lib: 1}:
+                        fail(f"draw study {algo} {prop} {impl} launched "
+                             f"{dict(seen)}")
+                    launches[lib] += 1
+                    if impl in best and best[impl]["ms"] <= ms:
+                        continue
+                    m = dict(ms=ms, mh_acc=res.acceptance_rate.mean().item())
+                    if algo == "pt":
+                        m.update(cold_mh_acc=res.acceptance_rate[0].mean()
+                                 .item(),
+                                 swap_acc=res.swap_acceptance_rate.mean()
+                                 .item(),
+                                 cold_esjd=res.cold_esjd.mean().item())
+                    else:
+                        m.update(esjd=res.esjd.mean().item())
+                    best[impl] = m
+                    del res
+            study[(algo, prop)] = best
+    finally:
+        draws.NORMAL_IMPL = old
+    for (algo, prop), best in study.items():
+        n_steps = iters * (T * C if algo == "pt" else Cr)
+        fake_rate = n_steps / (best["fake_uniform"]["ms"] / 1e3)
+        for impl, m in best.items():
+            rate = n_steps / (m["ms"] / 1e3)
+            work = (pt_work("rosenbrock", d, T, C, iters, 0,
+                            FLAG["swap_every"], prop=prop, draw=impl)
+                    if algo == "pt" else
+                    rwm_work("rosenbrock", d, Cr, iters, prop=prop,
+                             draw=impl))
+            b_ms, b_by = bound(work[0], work[2])
+            m.update(mh_steps_per_s=rate, bound_ms=b_ms, bound_by=b_by,
+                     draw_cost_share=1.0 - rate / fake_rate)
+            extra = (f"swap acc {m['swap_acc']:.4f}, cold MH acc "
+                     f"{m['cold_mh_acc']:.4f}, cold ESJD {m['cold_esjd']:.5g}"
+                     if algo == "pt" else f"ESJD {m['esjd']:.5g}")
+            say(f"phase 14 draw study {algo.upper()} {prop} {impl}: "
+                f"{rate:.6g} MH steps/s, {m['ms']:.3f} ms (best of 3, "
+                f"interleaved; bound {b_ms:.3f} ms by {b_by}); MH acc "
+                f"{m['mh_acc']:.4f}, {extra}; draw_cost_share "
+                f"{m['draw_cost_share']:+.4f}")
+            name = _build.library(f"fused_{algo}", prop, impl)
+            if name in recs:
+                recs[name]["draw_study"] = m
+    for name, rec in recs.items():
+        rec["launches"] = launches[name]
+        if rec["launches"] < 1:
+            fail(f"{name} was not launched by the draw study")
+        out.append(rec)
+    say(f"phase 14 {time.time() - t_phase:.1f} s")
+    return out
+
+
+def phase_15(torch):
+    """Phase 15, burn-in autotuning (A11): two-phase ``MCMCSimulation``
+    runs (the eager tuner for the burn-in, then one fused launch) at the
+    flagship shape (scale tuner and ladder tuner) and the RWM headline,
+    the JAX tests' rate gates on MVN at 65,536 replicas or chains, Geweke
+    at the tuned multipliers and at a tuned ladder, and the single_run
+    CLI."""
+    import numpy as np
+
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.kernels import (_build, draws, fused_pt, fused_rwm,
+                                          run_pt_adaptive,
+                                          run_pt_ladder_adaptive)
+    from rwm_pt_tpu_torch.proposals import NormalProposal
+    from rwm_pt_tpu_torch.targets import FullRosenbrock, MultivariateNormal
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    d, T, C, Cr = FLAG["dim"], FLAG["T"], FLAG["C"], RWM_MAIN["C"]
+    flag_betas = torch.logspace(0, -2, T, device=dev).tolist()
+    geom6 = np.geomspace(1.0, 0.01, 6).tolist()
+    mis_var = FLAG["base_variance"] * TUNE["mis"]
+
+    def lib(algo, n, kind):
+        return _build.library(f"fused_{algo}", "Normal",
+                              draws.resolve_normal_impl(algo, n, kind))
+
+    def tuned_run(label, want, **kw):
+        """A two-phase autotuned harness run with the launch counters
+        zeroed just before and read just after: exactly one launch, of
+        library ``want``, and engine_used 'pallas'."""
+        kw = dict(dict(num_iterations=TUNE["iters"],
+                       burn_in=TUNE["burn_in"],
+                       autotune_every=TUNE["every"], seed=0,
+                       record_chain=False, engine="pallas", device=dev),
+                  **kw)
+        sim = MCMCSimulation(**kw)
+        reset_launches(*wrappers)
+        sim.generate_samples(verbose=False)
+        seen = read_launches(*wrappers)
+        if dict(seen) != {want: 1} or sim.engine_used != "pallas":
+            fail(f"{label}: launches {dict(seen)} (want {want}: 1), engine "
+                 f"{sim.engine_used}")
+        return sim
+
+    def fmt(v, k=4):
+        return [round(float(a), k) for a in v]
+
+    # ---- (a) PT at the flagship shape, Normal variance mis-scaled 1/100
+    sim = tuned_run("PT flagship autotune", lib("pt", C, "rosenbrock"),
+                    dim=d, sigma=mis_var, algorithm="PT",
+                    target_dist="FullRosenbrock", beta_ladder=flag_betas,
+                    num_chains=C, swap_every=FLAG["swap_every"],
+                    autotune=True)
+    mult = np.asarray(sim.get_diagnostic_info()["tuned_scale_multiplier"])
+    if mult.shape != (T,) or not (np.isfinite(mult).all()
+                                  and (mult > 0).all()):
+        fail(f"PT flagship tuned multipliers {mult}")
+    acc = sim._result.acceptance_rate.mean(1).tolist()
+    off = [t for t, a in enumerate(acc) if abs(a - 0.234) >= 0.05]
+    measure_s = sim._phase_seconds["measure"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_pt_adaptive(FullRosenbrock.create(d, device=dev),
+                    NormalProposal.create(d, mis_var, device=dev), 1,
+                    flag_betas, num_chains=C, num_iterations=0,
+                    burn_in=TUNE["burn_in"], swap_every=FLAG["swap_every"],
+                    adapt_every=TUNE["every"], device=dev)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    say(f"phase 15 PT flagship autotune (FullRosenbrock d={d}, T={T}, {C} "
+        f"replicas, variance (0.5^2/30)/100, burn-in {TUNE['burn_in']} in "
+        f"windows of {TUNE['every']}, {TUNE['iters']} measured): tuned "
+        f"multipliers {fmt(mult, 3)}; per-rung MH acc {fmt(acc)} (rungs "
+        f"outside 0.234 +- 0.05: {off}); swap acc {sim.acceptance_rate():.4f},"
+        f" cold ESJD {sim.expected_squared_jump_distance():.5g}; tune "
+        f"(run_pt_adaptive alone) {tune_s:.3f} s = "
+        f"{1e3 * tune_s / TUNE['burn_in']:.3f} ms/step, measure "
+        f"{measure_s:.3f} s")
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- (b) RWM at 65,536 chains, the multiplier folded into the proposal
+    sim = tuned_run("RWM autotune", lib("rwm", Cr, "rosenbrock"), dim=d,
+                    sigma=mis_var, algorithm="RWM",
+                    target_dist="FullRosenbrock", num_chains=Cr,
+                    autotune=True)
+    c = sim.get_diagnostic_info()["tuned_scale_multiplier"]
+    folded = sim.tuned_proposal_config()["params"]["base_variance_scalar"]
+    if not (math.isfinite(c) and c > 0
+            and abs(folded - mis_var * c) <= 1e-6 * folded):
+        fail(f"RWM tuned multiplier {c}, folded variance {folded}")
+    ps = sim._phase_seconds
+    say(f"phase 15 RWM autotune (FullRosenbrock d={d}, {Cr} chains, same "
+        f"mis-scale): tuned multiplier {c:.4f}, folded variance "
+        f"{folded:.6g}; acc {sim.acceptance_rate():.4f}, ESJD "
+        f"{sim.expected_squared_jump_distance():.5g}; tune {ps['tune']:.3f} "
+        f"s ({1e3 * ps['tune'] / TUNE['burn_in']:.3f} ms/step), measure "
+        f"{ps['measure']:.3f} s")
+    del sim
+
+    # ---- (c) the ladder tuner at the flagship shape
+    sim = tuned_run("ladder flagship autotune", lib("pt", C, "rosenbrock"),
+                    dim=d, sigma=FLAG["base_variance"], algorithm="PT",
+                    target_dist="FullRosenbrock", beta_ladder=flag_betas,
+                    num_chains=C, swap_every=FLAG["swap_every"],
+                    autotune_ladder=True)
+    lad = sim.tuned_ladder
+    if not (len(lad) == T and lad[0] == 1.0 and lad[-1] > 0
+            and all(b < a for a, b in zip(lad, lad[1:]))):
+        fail(f"tuned flagship ladder {lad}")
+    ps = sim._phase_seconds
+    say(f"phase 15 ladder autotune (FullRosenbrock d={d}, T={T}, {C} "
+        f"replicas, target swap acc 0.234): ladder {fmt(lad, 5)}; measured "
+        f"swap acc {sim.acceptance_rate():.4f}, per-rung MH acc "
+        f"{fmt(sim._result.acceptance_rate.mean(1))}; tune {ps['tune']:.3f} s"
+        f" ({1e3 * ps['tune'] / TUNE['burn_in']:.3f} ms/step), measure "
+        f"{ps['measure']:.3f} s")
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- (d) the JAX tests' rate gates on MVN, at 65,536 replicas/chains
+    gates = []
+    pt = tuned_run("MVN PT autotune", lib("pt", C, "mvn_iso"), dim=10,
+                   sigma=OPT_VAR * TUNE["mis"], algorithm="PT",
+                   target_dist="MultivariateNormal", beta_ladder=geom6,
+                   num_chains=C, swap_every=20, autotune=True)
+    acc = pt._result.acceptance_rate.mean(1).tolist()
+    gates.append(("PT per-rung MH acc", max(abs(a - 0.234) for a in acc),
+                  0.05, fmt(acc)))
+    pt_mult = pt.get_diagnostic_info()["tuned_scale_multiplier"]
+    rwm = tuned_run("MVN RWM autotune", lib("rwm", Cr, "mvn_iso"), dim=10,
+                    sigma=OPT_VAR * TUNE["mis"], algorithm="RWM",
+                    target_dist="MultivariateNormal", num_chains=Cr,
+                    autotune=True)
+    gates.append(("RWM acc", abs(rwm.acceptance_rate() - 0.234), 0.04,
+                  round(rwm.acceptance_rate(), 4)))
+    lad = tuned_run("MVN ladder autotune", lib("pt", C, "mvn_iso"), dim=5,
+                    sigma=2.38 ** 2 / 5, algorithm="PT",
+                    target_dist="MultivariateNormal", beta_ladder=geom6,
+                    num_chains=C, swap_every=10, burn_in=4000,
+                    num_iterations=4000, autotune_every=200,
+                    swap_acceptance_rate=0.234, autotune_ladder=True)
+    gates.append(("ladder swap acc", abs(lad.acceptance_rate() - 0.234),
+                  0.06, round(lad.acceptance_rate(), 4)))
+    for what, dev_, lim, val in gates:
+        say(f"phase 15 rate gate {what}: {val} (|acc - 0.234| "
+            f"{dev_:.4f} < {lim})")
+        if dev_ >= lim:
+            fail(f"autotune rate gate failed: {what} {val}")
+    say(f"phase 15 MVN d=5 tuned ladder {fmt(lad.tuned_ladder, 5)}")
+    del pt, rwm, lad
+    torch.cuda.empty_cache()
+
+    # ---- (e) Geweke at the tuned multipliers and at a tuned ladder
+    mvn = MultivariateNormal.create(10, device=dev)
+    seed = int.from_bytes(os.urandom(4), "little")
+    z_rwm, z_pt, sw = invariance(
+        torch, mvn, seed, betas=geom6, base_variance=OPT_VAR * TUNE["mis"],
+        pt_kw={"scale_multipliers": pt_mult})
+    say(f"phase 15 invariance at the tuned multipliers {fmt(pt_mult, 3)} "
+        f"(MVN d=10, rungs 1 .. 0.01 (6), seed {seed}): max z PT "
+        f"{z_pt:.2f}, RWM {z_rwm:.2f} (< {Z_INV_MAX}); swap acc {sw:.3f}")
+    if max(z_rwm, z_pt) >= Z_INV_MAX or sw <= 0.02:
+        fail("invariance failed at the tuned multipliers")
+    tuned = run_pt_ladder_adaptive(
+        mvn, NormalProposal.create(10, OPT_VAR, device=dev), seed,
+        num_rungs=6, num_chains=4096, num_iterations=0, burn_in=1500,
+        swap_every=5, adapt_every=50, target_swap_accept=0.4, beta_min=0.09,
+        device=dev)
+    ladder = tuned.tuned_betas.tolist()
+    z_rwm, z_pt, sw = invariance(torch, mvn, seed, betas=ladder,
+                                 base_variance=OPT_VAR)
+    say(f"phase 15 invariance at a tuned ladder {fmt(ladder, 5)} (MVN d=10,"
+        f" seed {seed}): max z PT {z_pt:.2f}, RWM {z_rwm:.2f} (< "
+        f"{Z_INV_MAX}); swap acc {sw:.3f}")
+    if max(z_rwm, z_pt) >= Z_INV_MAX or sw <= 0.02:
+        fail("invariance failed at the tuned ladder")
+
+    # ---- (f) the single_run CLI, autotuned, in a process of its own
+    out_dir = os.path.join(HERE, "smoke_out", "single_run")
+    cmd = [sys.executable, "-m", "rwm_pt_tpu_torch.cli.single_run",
+           "--dim", "5", "--target", "MultivariateNormal", "--num_chains",
+           "1024", "--burn_in", "1000", "--num_iters", "1000", "--seed", "3",
+           "--autotune", "--no_plots", "--output_dir", out_dir]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode:
+        fail(f"single_run exited {r.returncode}: {r.stderr[-2000:]}")
+    path = os.path.join(out_dir, "MultivariateNormal_single_run_RWM_GPU_"
+                                 "dim5_1000iters_seed3.json")
+    with open(path) as f:
+        data = json.load(f)
+    say(f"phase 15 single_run --autotune --no_plots: {time.time() - t0:.1f} "
+        f"s; acc {data['acceptance_rate']:.4f}, tuned multiplier "
+        f"{data['tuned_scale_multiplier']:.4f}, tuned config "
+        f"{data['tuned_proposal_config']}; JSON keys are JAX's: "
+        f"{set(data) == SINGLE_RUN_KEYS}")
+    if set(data) != SINGLE_RUN_KEYS:
+        fail(f"single_run JSON keys {sorted(data)}")
+    say(f"phase 15 {time.time() - t_phase:.1f} s")
+
+
 def smoke_libraries(_build):
     """Every library the smoke launches: (variant, target kind, bucket)."""
     lib = _build.lib_name
@@ -1219,6 +1784,17 @@ def smoke_libraries(_build):
               for v in ("fused_pt", "fused_pt_bm")]
     names += [lib(v, "mvn_full", FLAG["dim"])                    # 12
               for v in ("fused_pt", "fused_pt_bm")]
+    names += [lib(_build.library(f"fused_{a}", p, impl), "rosenbrock", 30)
+              for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
+              for impl in STUDY_DRAWS]                           # 14
+    names += [lib(_build.library(f"fused_{a}", p, impl), "mvn_iso", 10)
+              for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
+              for impl in ("icdf_fastlog", "lax_erfinv")]        # 14
+    names.append(_build.PROBES)                                  # 14
+    names += [lib(_build.library("fused_pt", "Normal", resolve_normal_impl(
+        "pt", FLAG["C"], "mvn_iso")), "mvn_iso", 5),             # 15
+              lib(_build.library("fused_rwm", "Normal", resolve_normal_impl(
+                  "rwm", 1024, "mvn_iso")), "mvn_iso", 5)]
     return list(dict.fromkeys(names))
 
 
@@ -1443,8 +2019,15 @@ def main():
                                       draw=rwm_draw)),
         RWM_MAIN["iters"]))
 
+    say(f"phases 1-6 {time.time() - t_start:.1f} s")
+    t0 = time.time()
     kernels.extend(phases_7_to_10(torch, gen))
+    say(f"phases 7-10 {time.time() - t0:.1f} s")
+    t0 = time.time()
     kernels.extend(phases_11_to_13(torch, gen))
+    say(f"phases 11-13 {time.time() - t0:.1f} s")
+    kernels.extend(phase_14(torch, gen))
+    phase_15(torch)
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

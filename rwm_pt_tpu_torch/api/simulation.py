@@ -20,10 +20,17 @@ limits the recorded batch.
 
 ``iterative_temp_spacing=True`` builds the ladder with the host-loop
 iterative construction (``ladders.construct_iterative_ladder``, seeded by
-``seed``).  Not ported yet, and raised with ``NotImplementedError`` naming
-the ROADMAP item: ``autotune`` and ``autotune_ladder`` (Queue A item 11),
-``use_mesh`` (A13), ``cpu_semantics=True``, ``symmetric=False`` and
-``progress_bar=True`` (A7).
+``seed``).  ``autotune=True`` tunes the proposal scale (per rung for PT)
+and ``autotune_ladder=True`` the PT ladder during burn-in, on the eager
+adaptive engines (``kernels/adapt.py``).  With ``engine='pallas'`` that is
+a two-phase run, as in JAX: the adaptive engine runs exactly the
+``burn_in`` steps, then one launch of the fused kernel measures
+``num_iterations`` steps from the tuned state, at the frozen per-rung
+multipliers (PT), the multiplier folded into the proposal (RWM) or the
+tuned ladder; with ``'auto'`` or ``'scan'`` the adaptive engine runs the
+whole run.  Not ported yet, and raised with ``NotImplementedError`` naming
+the ROADMAP item: ``use_mesh`` (A13), ``cpu_semantics=True``,
+``symmetric=False`` and ``progress_bar=True`` (A7).
 """
 from __future__ import annotations
 
@@ -38,7 +45,9 @@ import torch
 from ..convert import (PT_FIELDS, RWM_FIELDS, pt_state_from_numpy,
                        pt_state_to_numpy, rwm_state_from_numpy,
                        rwm_state_to_numpy)
-from ..kernels import _build, run_pt, run_pt_fused, run_rwm, run_rwm_fused
+from ..kernels import (_build, run_pt, run_pt_adaptive, run_pt_fused,
+                       run_pt_ladder_adaptive, run_rwm, run_rwm_adaptive,
+                       run_rwm_fused)
 from ..kernels.rwm import step_generator
 from ..ladders import construct_geometric_ladder, construct_iterative_ladder
 from ..proposals import create_proposal_distribution
@@ -159,7 +168,8 @@ class MCMCSimulation:
         if swap_sweep not in ("even_odd", "sequential"):
             raise ValueError("swap_sweep must be 'even_odd' or 'sequential'")
         self.swap_sweep = swap_sweep
-        if cpu_semantics:
+        if cpu_semantics and not (autotune or autotune_ladder):
+            # the autotune checks below refuse it with JAX's ValueErrors
             raise _not_ported("cpu_semantics=True (the CPU PT semantics)",
                               "A item 7")
         self.cpu_semantics = cpu_semantics
@@ -212,12 +222,67 @@ class MCMCSimulation:
         else:
             self.beta_ladder = None
 
+        # burn-in proposal-scale tuning to the optimal acceptance, in
+        # place of the reference's scale sweeps (kernels/adapt.py)
+        self.autotune = autotune
+        self.autotune_target = autotune_target
+        self.autotune_every = autotune_every
+        self._tuned = None
+        # wall seconds of an autotuned run's phases, {"tune", "measure"}
+        self._phase_seconds = None
+        if autotune and record_chain:
+            raise ValueError("autotune=True requires record_chain=False "
+                             "(the adaptive kernels record no traces)")
+        if autotune and self.burn_in < autotune_every:
+            raise ValueError(
+                f"autotune=True needs burn_in >= autotune_every "
+                f"({autotune_every}) adaptation windows to run; got "
+                f"burn_in={self.burn_in}. Use burn_in of at least a few "
+                f"thousand steps so the recursion can converge.")
+        if autotune and cpu_semantics:
+            raise ValueError("autotune is not implemented for the CPU PT "
+                             "semantics path (cpu_semantics=True)")
+        if autotune and engine == "pallas" and use_mesh:
+            raise ValueError("autotune with engine='pallas' does not "
+                             "support a mesh (the tuned handoff resumes an "
+                             "unsharded scan state); drop use_mesh or use "
+                             "engine='scan'")
         if autotune:
-            raise _not_ported("autotune (burn-in scale adaptation)",
-                              "A item 11")
+            record_chain = False
+
+        # burn-in ladder adaptation from swap acceptance measured on the
+        # running chains; needs no direct sampler (kernels/adapt.py)
+        self.autotune_ladder = autotune_ladder
+        self._tuned_ladder = None
+        self._target_swap_accept = swap_acceptance_rate or 0.234
+        self._beta_min = beta_min_iterative
         if autotune_ladder:
-            raise _not_ported("autotune_ladder (burn-in ladder adaptation)",
-                              "A item 11")
+            if not self.is_pt:
+                raise ValueError("autotune_ladder=True requires a PT "
+                                 "algorithm (it adapts the beta ladder)")
+            if autotune:
+                raise ValueError("autotune and autotune_ladder are mutually "
+                                 "exclusive (run the ladder tuner first, "
+                                 "then feed its beta_ladder to a scale-"
+                                 "autotuned run)")
+            if iterative_temp_spacing:
+                raise ValueError("autotune_ladder replaces "
+                                 "iterative_temp_spacing; pick one")
+            if cpu_semantics:
+                raise ValueError("autotune_ladder runs on the scan engine "
+                                 "with GPU swap semantics")
+            if engine == "pallas" and use_mesh:
+                raise ValueError("autotune_ladder with engine='pallas' does "
+                                 "not support a mesh; drop use_mesh or use "
+                                 "engine='scan'")
+            if record_chain:
+                raise ValueError("autotune_ladder=True requires "
+                                 "record_chain=False")
+            if self.burn_in < autotune_every:
+                raise ValueError(
+                    f"autotune_ladder=True needs burn_in >= autotune_every "
+                    f"({autotune_every}); got burn_in={self.burn_in}")
+            record_chain = False
 
         if not 1 <= record_chains <= num_chains:
             raise ValueError(f"record_chains must be in [1, num_chains"
@@ -234,7 +299,9 @@ class MCMCSimulation:
             raise ValueError(
                 "record_chains > 1 requires chain recording, but recording "
                 "is off for this run ("
-                + ("record_chain=False" if record_chain is False and
+                + ("autotune=True disables it"
+                   if autotune else
+                   "record_chain=False" if record_chain is False and
                    rec_floats <= _RECORD_LIMIT else
                    f"{rec_floats:,} recorded floats exceed the "
                    f"{_RECORD_LIMIT:,} budget; raise record_every or lower "
@@ -362,6 +429,10 @@ class MCMCSimulation:
         if checkpoint_every:
             if checkpoint_path is None:
                 raise ValueError("checkpoint_every requires checkpoint_path")
+            if self.autotune or self.autotune_ladder:
+                raise ValueError("autotune and checkpoint_every cannot be "
+                                 "combined (the adaptive kernels are not "
+                                 "resumable mid-adaptation)")
             if self.num_iterations <= 0:
                 raise ValueError("checkpoint_every requires num_iterations > 0")
             if self.record_chain:
@@ -370,6 +441,8 @@ class MCMCSimulation:
                                  "be stitched across segments)")
             return self._generate_samples_segmented(
                 checkpoint_every, checkpoint_path, verbose)
+        if self.autotune or self.autotune_ladder:
+            return self._generate_tuned(verbose)
         fused = self._use_pallas()
         self._sync()
         start = time.time()
@@ -385,6 +458,117 @@ class MCMCSimulation:
             self._chain_np = self._get_chains_3d()[:, :, 0]
         self._report(verbose)
         return self._chain_np
+
+    def _generate_tuned(self, verbose: bool):
+        """An ``autotune`` or ``autotune_ladder`` run (module docstring):
+        with ``engine='pallas'`` the adaptive engine runs the burn-in alone
+        and one fused launch measures from its state; otherwise the
+        adaptive engine runs it all.  Records no trace; returns None."""
+        two_phase = self.engine == "pallas"
+        if two_phase:
+            self._check_pallas_measurement()    # before the tuning run
+        seed = self._sampler_seed()
+        kw = dict(num_chains=self.num_chains,
+                  num_iterations=0 if two_phase else self.num_iterations,
+                  burn_in=self.burn_in, adapt_every=self.autotune_every,
+                  init_states=self._init_states(), device=self.device)
+        self._sync()
+        start = time.time()
+        if self.autotune_ladder:
+            tuned = run_pt_ladder_adaptive(
+                self.target_dist, self.proposal_dist, seed,
+                num_rungs=len(self.beta_ladder), swap_every=self.swap_every,
+                target_swap_accept=self._target_swap_accept,
+                beta_min=self._beta_min, **kw)
+            mult = None
+            self._tuned_ladder = tuned.tuned_betas.cpu().numpy()
+            # the tuned ladder becomes the run's: diagnostics, JSON output
+            # and the measurement phase see it
+            self.beta_ladder = [float(b) for b in self._tuned_ladder]
+        elif self.is_pt:
+            tuned = run_pt_adaptive(
+                self.target_dist, self.proposal_dist, seed,
+                torch.tensor(self.beta_ladder, dtype=default_float(),
+                             device=self.device),
+                swap_every=self.swap_every,
+                target_accept=self.autotune_target, **kw)
+            self._tuned = tuned
+            mult = tuned.tuned_scale_multipliers
+        else:
+            tuned = run_rwm_adaptive(
+                self.target_dist, self.proposal_dist, seed,
+                target_accept=self.autotune_target, **kw)
+            self._tuned = tuned
+            mult = tuned.tuned_scale_multiplier
+        self._sync()
+        t_tune = time.time() - start
+        self._result = (self._pallas_measurement(tuned.result.state, mult)
+                        if two_phase else tuned.result)
+        self._sync()
+        self._elapsed = time.time() - start
+        self._phase_seconds = {"tune": t_tune,
+                               "measure": self._elapsed - t_tune}
+        self._engine_used = "pallas" if two_phase else "scan"
+        self._chain_np = None
+        if verbose:
+            tail = " [measurement phase: pallas]" if two_phase else ""
+            if self.autotune_ladder:
+                print(f"Autotuned beta ladder: "
+                      f"{np.array2string(self._tuned_ladder, precision=4)} "
+                      f"(target swap acceptance {self._target_swap_accept})"
+                      + tail)
+            else:
+                print(f"Autotuned proposal scale multiplier: "
+                      f"{np.array2string(mult.cpu().numpy(), precision=3)} "
+                      f"(target acceptance {self.autotune_target})" + tail)
+        return None
+
+    def _check_pallas_measurement(self):
+        why = self._fused_refusal()
+        if why is not None:
+            raise ValueError(f"autotune with engine='pallas' (the fused CUDA "
+                             f"kernels) requires {why}; use engine='scan' "
+                             f"otherwise")
+
+    def _pallas_measurement(self, state, mult):
+        """Measurement phase of a two-phase run: one fused launch of
+        ``num_iterations`` steps resumed from the tuned ``state``.  PT: the
+        full per-rung multiplier vector ``mult`` feeds the kernel's
+        per-rung scales (None after ladder tuning: the proposal's own
+        scales on the tuned ladder).  RWM: the scalar multiplier folds
+        into the proposal's base scale (:meth:`_scaled_config`)."""
+        kw = dict(num_chains=self.num_chains,
+                  num_iterations=self.num_iterations, burn_in=self.burn_in,
+                  resume_state=state, device=self.device)
+        seed = self._sampler_seed()
+        if self.is_pt:
+            return run_pt_fused(
+                self.target_dist, seed,
+                torch.tensor(self.beta_ladder, dtype=default_float(),
+                             device=self.device),
+                proposal=self.proposal_dist, swap_every=self.swap_every,
+                scale_multipliers=mult, **kw)
+        prop = create_proposal_distribution(
+            self.dim, self._scaled_config(float(mult)), device=self.device)
+        return run_rwm_fused(self.target_dist, seed, proposal=prop, **kw)
+
+    def _scaled_config(self, c: float) -> dict:
+        """The proposal config with its base scale rescaled by a variance
+        multiplier ``c``: variance times c (Normal, Laplace), radius times
+        sqrt(c) (UniformRadius), the reference's laws."""
+        name = self.proposal_config["name"]
+        params = dict(self.proposal_config.get("params", {}))
+        params.pop("rung_scale_multipliers", None)
+        if name == "Normal":
+            params["base_variance_scalar"] = (
+                float(params["base_variance_scalar"]) * c)
+        elif name == "Laplace":
+            params["base_variance_vector"] = (
+                np.asarray(params["base_variance_vector"], float) * c).tolist()
+        else:  # UniformRadius
+            params["base_radius"] = (
+                float(params["base_radius"]) * float(np.sqrt(c)))
+        return {"name": name, "params": params}
 
     def _generate_samples_segmented(self, segment_every: int,
                                     checkpoint_path: str, verbose: bool):
@@ -460,7 +644,8 @@ class MCMCSimulation:
     @property
     def engine_used(self) -> Optional[str]:
         """Engine of the last run: 'scan' (eager) or 'pallas' (fused); None
-        before a run."""
+        before a run.  A two-phase autotuned run reports 'pallas': its
+        measurement phase ran there."""
         return self._engine_used
 
     def get_diagnostic_info(self) -> dict:
@@ -494,7 +679,42 @@ class MCMCSimulation:
                 "swap_acceptance_rate": self.swap_acceptance_rate(),
                 "pt_esjd": self.pt_expected_squared_jump_distance(),
             })
+        if self._tuned is not None:
+            mult = self._tuned[1].cpu().numpy()
+            info.update({
+                "autotune_target": self.autotune_target,
+                "tuned_scale_multiplier": (mult.tolist() if mult.ndim
+                                           else float(mult)),
+            })
+        if self._tuned_ladder is not None:
+            info.update({
+                "autotune_ladder_target": self._target_swap_accept,
+                "tuned_beta_ladder": [float(b) for b in self._tuned_ladder],
+            })
         return info
+
+    @property
+    def tuned_ladder(self):
+        """The burn-in-adapted beta ladder of an ``autotune_ladder=True``
+        run, or None."""
+        return (None if self._tuned_ladder is None
+                else [float(b) for b in self._tuned_ladder])
+
+    def tuned_proposal_config(self) -> dict:
+        """The proposal config carrying the autotuned multiplier(s), for a
+        fresh ``MCMCSimulation`` at the tuned scale.  RWM: the multiplier
+        folds into the base scale.  PT: the full per-rung vector rides
+        along as ``params['rung_scale_multipliers']`` (effective variance
+        ``base * c_t / beta_t``); pass the fresh simulation this run's
+        ``beta_ladder``."""
+        if self._tuned is None:
+            raise ValueError("run generate_samples with autotune=True first")
+        c = self._tuned[1].cpu().numpy()
+        if c.ndim == 1:
+            params = dict(self.proposal_config.get("params", {}))
+            params["rung_scale_multipliers"] = [float(x) for x in c]
+            return {"name": self.proposal_config["name"], "params": params}
+        return self._scaled_config(float(c))
 
     # ----------------------------------------------------------- persistence
     def _write_state(self, state, path: str):

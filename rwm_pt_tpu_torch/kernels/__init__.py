@@ -1,6 +1,10 @@
-"""Samplers ported so far: the eager RWM and PT engines and the fused
-whole-run RWM and PT kernels (CUDA, with plain PyTorch versions), for the
-Normal, Laplace and UniformRadius proposals, with trace recording."""
+"""Samplers ported so far: the eager RWM and PT engines, their burn-in
+adaptive variants, and the fused whole-run RWM and PT kernels (CUDA, with
+plain PyTorch versions), for the Normal, Laplace and UniformRadius
+proposals, with trace recording."""
+from .adapt import (AdaptiveLadderPTResult, AdaptivePTResult,
+                    AdaptiveRWMResult, run_pt_adaptive,
+                    run_pt_ladder_adaptive, run_rwm_adaptive)
 from .fused_pt import run_pt_fused
 from .fused_rwm import run_rwm_fused
 from .pt import PTResult, PTState, pt_init, pt_step, run_pt
@@ -8,4 +12,6 @@ from .rwm import RWMResult, RWMState, run_rwm, rwm_init, rwm_step
 
 __all__ = ["RWMState", "RWMResult", "rwm_init", "rwm_step", "run_rwm",
            "PTState", "PTResult", "pt_init", "pt_step", "run_pt",
-           "run_rwm_fused", "run_pt_fused"]
+           "run_rwm_fused", "run_pt_fused", "AdaptiveRWMResult",
+           "AdaptivePTResult", "AdaptiveLadderPTResult", "run_rwm_adaptive",
+           "run_pt_adaptive", "run_pt_ladder_adaptive"]

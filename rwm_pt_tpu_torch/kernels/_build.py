@@ -1,8 +1,8 @@
-"""Build and load the fused CUDA kernels (``csrc/*.cu``).
+"""Build and load the CUDA kernels (``csrc/*.cu``).
 
-Each kernel source ``csrc/<kernel>.cu`` compiles on first use into one
-shared library per (proposal, normal draw, target kind, register bucket),
-with a plain C interface, loaded with ``ctypes``:
+Each fused kernel source ``csrc/<kernel>.cu`` compiles on first use into
+one shared library per (proposal, normal draw, target kind, register
+bucket), with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=<p>
@@ -11,7 +11,8 @@ with a plain C interface, loaded with ``ctypes``:
 
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
 draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
-proposals and ``_bm`` for the Box-Muller draw; ``<kind>`` is the target
+proposals and ``_bm``, ``_icdf_fastlog``, ``_lax_erfinv`` or
+``_fake_uniform`` for the other normal draws; ``<kind>`` is the target
 kind (:data:`TARGET_KINDS`); ``<D>`` the register bucket (:data:`BUCKETS`),
 the smallest that holds the state's d coordinates.  Each library holds one
 instantiation, so a run builds only what it launches, and :func:`build`
@@ -20,8 +21,10 @@ starts one ``nvcc`` per library, all at once.  No
 ``sqrtf``/``sincosf`` so that they agree with their plain PyTorch versions
 to f32 rounding.  The library name carries a hash of the sources and
 flags, so an edited source rebuilds.  Each ptxas report (registers,
-spills) is kept in :data:`PTXAS_LOG`.  Nothing here runs at import time:
-the CPU tests import every module and have no ``nvcc``.
+spills) is kept in :data:`PTXAS_LOG`.  The draw study's probe kernels
+(``csrc/draw_probes.cu``) are one library of their own, ``draw_probes``,
+with no kind and no bucket.  Nothing here runs at import time: the CPU
+tests import every module and have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -44,8 +47,12 @@ SOURCES = ("fused_pt", "fused_rwm")
 # proposal name -> (variant suffix, -DRWM_PT_PROPOSAL; csrc/draws.cuh)
 PROPOSALS = {"Normal": ("", 0), "Laplace": ("_laplace", 1),
              "UniformRadius": ("_uniform_radius", 2)}
-# normal draw -> (variant suffix, -DRWM_PT_NORMAL); Laplace draws no normals
-DRAWS = {"icdf": ("", 0), "bm": ("_bm", 1)}
+# normal draw -> (variant suffix, -DRWM_PT_NORMAL; csrc/draws.cuh); Laplace
+# draws no normals
+DRAWS = {"icdf": ("", 0), "bm": ("_bm", 1),
+         "icdf_fastlog": ("_icdf_fastlog", 2),
+         "lax_erfinv": ("_lax_erfinv", 3),
+         "fake_uniform": ("_fake_uniform", 4)}
 # target kind -> -DRWM_PT_TARGET (csrc/targets.cuh)
 TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "scaled_mvn": 3, "three_mixture": 4, "rough_carpet": 5,
@@ -53,6 +60,7 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "hypercube": 8, "iid_gamma": 9, "iid_beta": 10,
                 "neal_funnel": 11}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
+PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
 # variant name -> (source, proposal code, draw code)
 VARIANTS = {src + ps + ds: (src, pc, dc) for src in SOURCES
             for prop, (ps, pc) in PROPOSALS.items()
@@ -62,27 +70,31 @@ VARIANTS = {src + ps + ds: (src, pc, dc) for src in SOURCES
 PTXAS_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
-# C signature shared by the entry points' pointer/int arguments
+# library source -> {C entry point: argtypes}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_ARGTYPES = {
+_ENTRIES = {
     # kind, params, n_params, betas, scales, x0, acc0, swapacc0, bj0, cj0,
     # x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out,
     # d, T, C, total, burn_in, swap_every, step0, key0, key1,
     # lap, inv_d, rec, record_every, record_chains, order, stream
-    "fused_pt": ("rwm_pt_fused_pt",
+    "fused_pt": {"rwm_pt_fused_pt":
                  [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _U, _U,
-                  _P, _F, _P, _I, _I, _I, _P]),
+                  _P, _F, _P, _I, _I, _I, _P]},
     # kind, params, n_params, scale, beta, x0, acc0, jump0,
     # x_out, lp_out, acc_out, jump_out,
     # d, C, total, burn_in, step0, key0, key1,
     # lap, inv_d, rec, record_every, record_chains, stream
-    "fused_rwm": ("rwm_pt_fused_rwm",
+    "fused_rwm": {"rwm_pt_fused_rwm":
                   [_I, _P, _I, _F, _F, _P, _P, _P,
                    _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _U, _U,
-                   _P, _F, _P, _I, _I, _P]),
+                   _P, _F, _P, _I, _I, _P]},
+    # impl (a DRAWS code), key0, key1, cols, out, stream |
+    # y, out, n, stream
+    PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
+             "rwm_pt_fast_log": [_P, _P, _I, _P]},
 }
 
 
@@ -118,7 +130,13 @@ def _parts(name: str):
     return src, pc, dc, TARGET_KINDS[kind], int(dmax[1:])
 
 
+def _source(name: str) -> str:
+    return PROBES if name == PROBES else _parts(name)[0]
+
+
 def _flags(name: str) -> list[str]:
+    if name == PROBES:
+        return list(NVCC_FLAGS)
     _, pc, dc, kc, dmax = _parts(name)
     return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={pc}", f"-DRWM_PT_NORMAL={dc}",
                          f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}"]
@@ -126,7 +144,7 @@ def _flags(name: str) -> list[str]:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    src = _parts(name)[0]
+    src = _source(name)
     for f in sorted(CSRC.glob("*.cu*")):
         if f.suffix == ".cuh" or f.stem == src:
             h.update(f.name.encode())
@@ -136,7 +154,7 @@ def _lib_path(name: str) -> Path:
 
 def library(source: str, proposal: str, draw: str = "icdf") -> str:
     """Name of the variant of kernel ``source`` for ``proposal`` and the
-    normal ``draw`` (``"icdf"`` or ``"bm"``; Laplace draws no normals)."""
+    normal ``draw`` (one of :data:`DRAWS`; Laplace draws no normals)."""
     if proposal not in PROPOSALS:
         raise NotImplementedError(
             f"fused kernels take the Normal, Laplace and UniformRadius "
@@ -162,7 +180,7 @@ def build(names) -> dict[str, str]:
             continue
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
-               str(CSRC / f"{_parts(name)[0]}.cu")]
+               str(CSRC / f"{_source(name)}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, log)
@@ -186,17 +204,18 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = _ARGTYPES[_parts(name)[0]]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _ENTRIES[_source(name)].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
 
-def entry(name: str):
-    """The C entry point of library ``name``."""
-    return getattr(load(name), _ARGTYPES[_parts(name)[0]][0])
+def entry(name: str, fn: str | None = None):
+    """The C entry point ``fn`` of library ``name`` (by default its
+    only one)."""
+    return getattr(load(name), fn or next(iter(_ENTRIES[_source(name)])))
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -10,7 +10,10 @@
 //   y = x + eps, r = beta (lp(y) - lp(x)), accept if r > 0 or u < exp(r)
 //   (u in slot d; NaN rejects, and so does lp(x) = lp(y) = -inf).
 // The normals N (Normal, UniformRadius) come from the draw DRAW:
-//   DRAW_ICDF  N_i = normal_icdf(U_i), U_i in slot i (i < d);
+//   DRAW_ICDF  N_i = normal_icdf(U_i), U_i in slot i (i < d); the draw
+//              study's DRAW_ICDF_FASTLOG, DRAW_LAX_ERFINV and
+//              DRAW_FAKE_UNIFORM read the same slots, N_i =
+//              icdf_layout_normal<DRAW>(U_i) (csrc/draws.cuh);
 //   DRAW_BM    Box-Muller (pallas_rwm.py::_normal_bm :53-64): pair
 //              k < h = ceil(d/2) draws u1 from slot k (clamped at 1e-7) and
 //              u2 from slot h + k (slot d+3 for the last pair of an odd d),
@@ -92,11 +95,11 @@ __device__ __forceinline__ bool mh_move(
         }
         const float u = uniform_from_bits(philox_word(blk, i & 3));
         if constexpr (PROP == PROPOSAL_NORMAL) {
-          p[i] = x[i] + __fmul_rn(normal_icdf(u), scale);
+          p[i] = x[i] + __fmul_rn(icdf_layout_normal<DRAW>(u), scale);
         } else if constexpr (PROP == PROPOSAL_LAPLACE) {
           p[i] = x[i] + laplace_increment(u, lap[i]);
         } else {
-          p[i] = normal_icdf(u);
+          p[i] = icdf_layout_normal<DRAW>(u);
         }
       }
     }

@@ -2,8 +2,10 @@
 
 Replaces the TPU hardware PRNG helpers of ``rwm_pt_tpu.kernels.pallas_rwm``
 (``_uniform``, ``_erfinv_giles``, ``_normal_icdf``, ``_normal_bm``, the
-draw decision ``resolve_normal_impl`` and the increments ``_laplace`` and
-``_uniform_ball``) with Philox4x32-10 (Salmon et al.,
+draw study's ``_fast_log``, ``_normal_icdf_fastlog``, ``_normal_laxerfinv``
+and ``_normal_fake_uniform``, the draw decision ``resolve_normal_impl`` and
+the increments ``_laplace`` and ``_uniform_ball``) with Philox4x32-10
+(Salmon et al.,
 SC'11, "Parallel random numbers: as easy as 1, 2, 3").  The CUDA kernels
 (``csrc/philox.cuh``, ``csrc/draws.cuh``) compute the same words, so on the
 card a plain run and a kernel run of one seed consume one stream.
@@ -28,8 +30,12 @@ Slot layout (the one definition; the kernels match it)
 * slot ``d+3``: with the Box-Muller draw and an odd ``d``, the angle
   uniform of the last pair.
 
-The normals come from one of two draws (:func:`resolve_normal_impl`):
-``"icdf"``, normal ``i`` = ``normal_icdf`` of slot ``i``; or ``"bm"``,
+The normals come from one of five draws (:data:`NORMAL_IMPLS`,
+:func:`resolve_normal_impl`).  Four read the ICDF slot layout, normal
+``i`` from the uniform of slot ``i`` and no slot ``d+3``
+(:data:`ICDF_LAYOUT`): ``"icdf"`` (``normal_icdf``) and the draw study's
+``"icdf_fastlog"``, ``"lax_erfinv"`` and ``"fake_uniform"`` (not a
+normal).  The fifth, ``"bm"``, is
 Box-Muller in ``pallas_rwm.py::_normal_bm``'s coordinate map: with
 ``h = ceil(d/2)``, pair ``k < h`` takes ``u1`` from slot ``k`` and ``u2``
 from slot :func:`bm_slots` ``[1][k]`` (``h + k``, or ``d+3`` for the last
@@ -118,23 +124,81 @@ def uniform_from_bits(words: torch.Tensor) -> torch.Tensor:
     return (words >> 8).to(torch.float32) * _TWO_M24
 
 
-def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
-    """Giles' single-precision erfinv, with the log argument clamped at
-    1e-37 (pallas_rwm.py:78-87)."""
-    w = -torch.log(torch.clamp_min((1.0 - x) * (1.0 + x), 1e-37))
+def _giles_poly(w: torch.Tensor) -> torch.Tensor:
+    """Giles' polynomial of ``w = -log((1-x)(1+x))``: erfinv(x) / x."""
     wc = w - 2.5
     wt = torch.sqrt(w) - 3.0
-    pc = torch.full_like(x, GILES_P1[0])
-    pt = torch.full_like(x, GILES_P2[0])
+    pc = torch.full_like(w, GILES_P1[0])
+    pt = torch.full_like(w, GILES_P2[0])
     for c1, c2 in zip(GILES_P1[1:], GILES_P2[1:]):
         pc = pc * wc + c1
         pt = pt * wt + c2
-    return x * torch.where(w < 5.0, pc, pt)
+    return torch.where(w < 5.0, pc, pt)
+
+
+def erfinv_giles(x: torch.Tensor) -> torch.Tensor:
+    """Giles' single-precision erfinv, with the log argument clamped at
+    1e-37 (pallas_rwm.py:78-87)."""
+    return x * _giles_poly(-torch.log(torch.clamp_min((1.0 - x) * (1.0 + x),
+                                                      1e-37)))
 
 
 def normal_icdf(u: torch.Tensor) -> torch.Tensor:
     """N(0,1) from U[0,1): sqrt(2) erfinv(2u - 1 + 2^-24)."""
     return SQRT2 * erfinv_giles(2.0 * u - 1.0 + _TWO_M24)
+
+
+# Cephes logf minimax polynomial for log(1+f), f in [sqrt(1/2)-1,
+# sqrt(2)-1] (pallas_rwm.py:94-97), highest power first
+LOGF_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+LN2 = 0.6931471805599453
+
+
+def fast_log(y: torch.Tensor) -> torch.Tensor:
+    """log(y) of finite f32 ``y > 0`` by exponent extraction and a mantissa
+    polynomial, ``pallas_rwm.py::_fast_log``'s arithmetic: ``y = m 2^e``
+    with ``m`` in [sqrt(1/2), sqrt(2)), ``log y = e ln2 + log m``, the bits
+    read through ``Tensor.view(torch.int32)``."""
+    bits = y.contiguous().view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    m = ((bits & 0x007FFFFF) | 0x3F800000).view(torch.float32)
+    big = m > 1.41421356
+    m = torch.where(big, m * 0.5, m)
+    e = (e + big.to(torch.int32)).to(torch.float32)
+    f = m - 1.0
+    p = torch.full_like(f, LOGF_P[0])
+    for c in LOGF_P[1:]:
+        p = p * f + c
+    f2 = f * f
+    return (f2 * f) * p - 0.5 * f2 + f + e * LN2
+
+
+def normal_icdf_fastlog(u: torch.Tensor) -> torch.Tensor:
+    """The ICDF normal with :func:`fast_log` in place of the log in Giles'
+    erfinv, ``pallas_rwm.py::_normal_icdf_fastlog``'s arithmetic (its
+    ``sqrt(2) x p`` product order too)."""
+    x = 2.0 * u - 1.0 + _TWO_M24
+    w = -fast_log(torch.clamp_min((1.0 - x) * (1.0 + x), 1e-37))
+    return SQRT2 * x * _giles_poly(w)
+
+
+def normal_laxerfinv(u: torch.Tensor) -> torch.Tensor:
+    """sqrt(2) erfinv(2u - 1 + 2^-24) with the library erfinv
+    (``torch.erfinv``; ``pallas_rwm.py::_normal_laxerfinv`` takes
+    ``lax.erf_inv``, the kernels CUDA's ``erfinvf``)."""
+    return SQRT2 * torch.erfinv(2.0 * u - 1.0 + _TWO_M24)
+
+
+_SQRT12_F32 = 3.464101552963257    # float32(sqrt(12)), pallas_rwm.py:157
+
+
+def normal_fake_uniform(u: torch.Tensor) -> torch.Tensor:
+    """NOT a normal: the variance-matched uniform ``(u - 0.5) sqrt(12)``
+    (``pallas_rwm.py::_normal_fake_uniform``), only for timing a sampler
+    with a near-free draw; never valid for sampling."""
+    return (u - 0.5) * _SQRT12_F32
 
 
 def slot_words(key: tuple[int, int], abs_step: int, n_rungs: int,
@@ -177,10 +241,16 @@ def normal_bm(u1: torch.Tensor, u2: torch.Tensor, dim: int) -> torch.Tensor:
                      dim=0)[:dim]
 
 
-NORMAL_IMPLS = ("icdf", "bm")
+NORMAL_IMPLS = ("icdf", "bm", "icdf_fastlog", "lax_erfinv", "fake_uniform")
+# the draws of the ICDF slot layout (normal i from slot i) -> the map from
+# the uniform of slot i to normal i
+ICDF_LAYOUT = {"icdf": normal_icdf, "icdf_fastlog": normal_icdf_fastlog,
+               "lax_erfinv": normal_laxerfinv,
+               "fake_uniform": normal_fake_uniform}
 # Module-level override of the normal draw, read at each launch; "auto"
 # resolves per (kernel, block) from the measured decision
-# (resolve_normal_impl).
+# (resolve_normal_impl).  The draw study (chip_smoke.py phase 14) forces
+# each of NORMAL_IMPLS in turn.
 NORMAL_IMPL = "auto"
 # The measured rule of resolve_normal_impl: a kernel draws Box-Muller above
 # BM_ABOVE[kernel] replicas or chains, except on the target kinds of
@@ -203,14 +273,14 @@ def resolve_normal_impl(kernel: str, block: int,
     at the PT study's 1024 replicas, 2.71 % slower at the RWM study's
     1024 chains); PT on the full-covariance MVN draws ICDF (Box-Muller
     14.57 % slower at the flagship shape: its sines' stack frame on top of
-    254 registers).
-    The JAX draw-study probes (``icdf_fastlog``, ``lax_erfinv``,
-    ``fake_uniform``) are not ported (ROADMAP Queue B item 10)."""
+    254 registers).  The rule never picks the draw study's ``icdf_fastlog``,
+    ``lax_erfinv`` or ``fake_uniform``; the override takes all five draws
+    of :data:`NORMAL_IMPLS`, and any other name raises ``ValueError``."""
     if NORMAL_IMPL != "auto":
         if NORMAL_IMPL not in NORMAL_IMPLS:
-            raise NotImplementedError(
-                f"normal draw {NORMAL_IMPL!r} is not ported (ROADMAP Queue "
-                f"B item 10); the port draws {NORMAL_IMPLS}")
+            raise ValueError(f"unknown normal draw {NORMAL_IMPL!r}; "
+                             f"NORMAL_IMPL takes 'auto' or one of "
+                             f"{NORMAL_IMPLS}")
         return NORMAL_IMPL
     if kernel not in BM_ABOVE:
         raise ValueError(f"kernel must be 'pt' or 'rwm', not {kernel!r}")
@@ -273,7 +343,8 @@ def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
                n_chains: int, device, swap: bool = True,
                kind: str = "Normal", draw: str = "icdf"):
     """One step's draws: ``(inc, u_mh, u_swap, u_radius)``.  ``inc`` is
-    ``(T, d, C)``: normals of ``draw`` for ``Normal`` and
+    ``(T, d, C)``: normals of ``draw`` (any of :data:`NORMAL_IMPLS`) for
+    ``Normal`` and
     ``UniformRadius``, uniforms for ``Laplace``; MH uniforms ``(T, C)``;
     with ``swap``, swap uniforms ``(T, C)`` (row ``t`` serves pair
     ``(t, t+1)``; the last row is unused), else None; for ``UniformRadius``
@@ -295,7 +366,7 @@ def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
     else:
         inc = uniform_from_bits(words[:, :dim])
         if kind != "Laplace":
-            inc = normal_icdf(inc)
+            inc = ICDF_LAYOUT[draw](inc)
     u_mh = uniform_from_bits(words[:, dim])
     u_swap = uniform_from_bits(words[:, dim + 1]) if swap else None
     u_rad = (uniform_from_bits(words[:, dim + 2])

@@ -1,8 +1,8 @@
 """Fused whole-run Parallel Tempering: the CUDA kernel ``csrc/fused_pt.cu``
 and its plain PyTorch version (port of
 ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its cold-chain
-recording variant, the Normal, Laplace and UniformRadius proposals, the
-ICDF and Box-Muller normal draws, every target kind of
+recording variant, the Normal, Laplace and UniformRadius proposals, every
+normal draw of ``draws.NORMAL_IMPLS``, every target kind of
 ``_build.kernel_target``).
 
 ``run_pt_fused`` does the wrapper's bookkeeping (per-rung scales, seeding,
@@ -256,7 +256,9 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
     the launch's steps raises.  ``swap_sweep``: the pair order of a swap
     event, ``"sequential"`` (the Pallas sweep, the default) or
     ``"even_odd"`` (module docstring).  The normals are drawn by
-    ``draws.resolve_normal_impl("pt", num_chains, <the target's kind>)``.
+    ``draws.resolve_normal_impl("pt", num_chains, <the target's kind>)``
+    (``draws.NORMAL_IMPL`` forces any of the five draws, each launching its
+    own library).
     ``draws`` (CPU only, for tests) replaces the Philox stream."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:

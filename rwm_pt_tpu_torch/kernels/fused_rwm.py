@@ -1,8 +1,8 @@
 """Fused whole-run RWM: the CUDA kernel ``csrc/fused_rwm.cu`` and its plain
 PyTorch version (port of ``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas``
 with its recording variant, the Normal, Laplace and UniformRadius
-proposals, the ICDF and Box-Muller normal draws, every target kind of
-``_build.kernel_target``).
+proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
+of ``_build.kernel_target``).
 
 ``run_rwm_fused`` does the wrapper's bookkeeping (proposal scales, seeding,
 resume, initial states, post-burn-in normalization) and hands the step loop
@@ -182,8 +182,9 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
     this launch, ``(total // record_every, d, record_chains)``; a
     ``record_every`` beyond the launch's steps raises.  The normals are
     drawn by ``draws.resolve_normal_impl("rwm", num_chains, <the target's
-    kind>)``.  ``draws`` (CPU only, for tests) replaces the Philox
-    stream."""
+    kind>)`` (``draws.NORMAL_IMPL`` forces any of the five draws, each
+    launching its own library).  ``draws`` (CPU only, for tests) replaces
+    the Philox stream."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:
         raise ValueError("pass either base_variance or a proposal")

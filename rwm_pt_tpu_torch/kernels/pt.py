@@ -161,17 +161,16 @@ def _swap_phase_sequential(state: PTState, generator, betas) -> PTState:
 _SWEEPS = {"even_odd": _swap_phase, "sequential": _swap_phase_sequential}
 
 
-def pt_step(state: PTState, generator, target, proposal, betas, burn_in,
-            swap_every, swap_sweep: str = "even_odd",
-            betas_proposal=None) -> PTState:
-    """One PT step: MH move on every rung, then, on post-burn-in multiples
-    of ``swap_every``, a swap event."""
+def _pt_step_core(state: PTState, generator, target, proposal, betas,
+                  burn_in, swap_every, swap_sweep: str = "even_odd",
+                  betas_proposal=None):
+    """:func:`pt_step` that also returns the ``(T, C)`` MH accept mask."""
     if swap_sweep not in _SWEEPS:
         raise ValueError("swap_sweep must be 'even_odd' or 'sequential'")
     cold_before = state.x[:, 0, :]
     step_counter = state.step + 1
-    state, _ = _mh_phase(state, generator, target, proposal, betas, burn_in,
-                         betas_proposal)
+    state, accept = _mh_phase(state, generator, target, proposal, betas,
+                              burn_in, betas_proposal)
     post = step_counter > burn_in
     if post and step_counter % swap_every == 0:
         state = _SWEEPS[swap_sweep](state, generator, betas)
@@ -180,7 +179,16 @@ def pt_step(state: PTState, generator, target, proposal, betas, burn_in,
         cold = cold + torch.sum(torch.square(state.x[:, 0, :] - cold_before),
                                 dim=0)
     return dataclasses.replace(state, sum_sq_jump_cold=cold,
-                               step=step_counter)
+                               step=step_counter), accept
+
+
+def pt_step(state: PTState, generator, target, proposal, betas, burn_in,
+            swap_every, swap_sweep: str = "even_odd",
+            betas_proposal=None) -> PTState:
+    """One PT step: MH move on every rung, then, on post-burn-in multiples
+    of ``swap_every``, a swap event."""
+    return _pt_step_core(state, generator, target, proposal, betas, burn_in,
+                         swap_every, swap_sweep, betas_proposal)[0]
 
 
 def pt_result(state: PTState, burn_in: int, chain=None) -> PTResult:

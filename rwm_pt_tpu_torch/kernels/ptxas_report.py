@@ -3,7 +3,10 @@ ptxas reports them, for every target kind and register bucket:
 
     python -m rwm_pt_tpu_torch.kernels.ptxas_report [variant ...]
 
-(default variants ``fused_pt`` and ``fused_rwm``).  Builds each library
+(default: the Normal variants of both kernels with the two draws the
+rule picks, ``fused_pt``, ``fused_rwm``, ``fused_pt_bm`` and
+``fused_rwm_bm``; name any other variant, such as
+``fused_pt_icdf_fastlog``, to report it).  Builds each library
 that is not built yet (one ``nvcc`` each, all at once; needs the CUDA
 toolkit) and prints one line per (variant, kind) with the bucket's
 registers, stack frame and spill bytes (PT: the instantiation with 32
@@ -21,15 +24,20 @@ from . import _build
 
 def parse(log: str) -> list[tuple[str, int, int, int]]:
     """``(instantiation, registers, stack frame bytes, spill bytes)`` of
-    each entry function in a ptxas ``-v`` report; an instantiation is
-    named by its register bucket and, for PT, ``R32`` (32 replicas a
-    block) or ``Rrt`` (R read at run time)."""
+    each entry function in a ptxas ``-v`` report; a fused kernel's
+    instantiation is named by its register bucket and, for PT, ``R32``
+    (32 replicas a block) or ``Rrt`` (R read at run time), a probe kernel
+    by its name and template argument (``draw_normals_kernel<2>``: the
+    draw's ``_build.DRAWS`` code)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             t = re.findall(r"Li(\d+)E", m.group(1))
-            name = f"D{t[1]}" if len(t) > 1 else m.group(1)
+            k = re.search(r"\d+([A-Za-z_]+_kernel)", m.group(1))
+            name = (f"D{t[1]}" if len(t) > 1 else
+                    k.group(1) + "".join(f"<{a}>" for a in t) if k else
+                    m.group(1))
             if len(t) > 2:
                 name += " R32" if t[2] != "0" else " Rrt"
             out.append([name, None, 0, 0])
@@ -60,6 +68,9 @@ def report(variants) -> list[str]:
     return lines
 
 
+DEFAULT_VARIANTS = [_build.library(src, "Normal", draw)
+                    for draw in ("icdf", "bm") for src in _build.SOURCES]
+
 if __name__ == "__main__":
-    for line in report(sys.argv[1:] or ["fused_pt", "fused_rwm"]):
+    for line in report(sys.argv[1:] or DEFAULT_VARIANTS):
         print(line, flush=True)

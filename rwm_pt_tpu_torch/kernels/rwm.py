@@ -83,12 +83,12 @@ def rwm_init(target, generator, num_chains: int,
                     step=0)
 
 
-def rwm_step(state: RWMState, generator, target, proposal, beta,
-             burn_in: int) -> RWMState:
-    """One MH step for all chains: accept if ``r > 0`` or ``u < exp(r)``
-    with ``r = beta (logpi(y) - logpi(x))``; NaN rejects."""
+def _rwm_step_core(state: RWMState, generator, target, proposal, beta,
+                   burn_in: int, beta_proposal=None):
+    """:func:`rwm_step` that also returns the ``(C,)`` accept mask."""
     C = state.x.shape[1]
-    inc = proposal.sample_td(generator, beta, (C,))
+    inc = proposal.sample_td(
+        generator, beta if beta_proposal is None else beta_proposal, (C,))
     prop = state.x + inc
     lp_prop = target.log_density_td(prop)
     log_ratio = beta * (lp_prop - state.logp)
@@ -102,7 +102,17 @@ def rwm_step(state: RWMState, generator, target, proposal, beta,
         acc = acc + accept.to(torch.int32)
         ssj = ssj + torch.sum(torch.square(x_new - state.x), dim=0)
     return RWMState(x=x_new, logp=lp_new, accept_count=acc,
-                    sum_sq_jump=ssj, step=state.step + 1)
+                    sum_sq_jump=ssj, step=state.step + 1), accept
+
+
+def rwm_step(state: RWMState, generator, target, proposal, beta,
+             burn_in: int, beta_proposal=None) -> RWMState:
+    """One MH step for all chains: accept if ``r > 0`` or ``u < exp(r)``
+    with ``r = beta (logpi(y) - logpi(x))``; NaN rejects.
+    ``beta_proposal`` rescales only the increment draw (the adaptive
+    tuner's multiplier, :mod:`.adapt`); the accept ratio keeps ``beta``."""
+    return _rwm_step_core(state, generator, target, proposal, beta, burn_in,
+                          beta_proposal)[0]
 
 
 def run_rwm(target, proposal, seed, *, num_chains: int,

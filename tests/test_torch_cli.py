@@ -162,3 +162,58 @@ def test_pt_study_flags(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="33 rungs"):
         tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
                             "--output_dir", str(tmp_path)])
+
+
+SINGLE_ARGS = ["--dim", "3", "--num_iters", "300", "--burn_in", "300",
+               "--num_chains", "16", "--seed", "5", "--no_plots", "--cpu"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--autotune"], ["--autotune", "--algorithm", "PT"],
+    ["--diagnostics", "4", "--algorithm", "PT", "--proposal", "Laplace"]],
+    ids=["autotune-rwm", "autotune-pt", "diagnostics-pt"])
+def test_single_run_writes_the_jax_json_keys(tmp_path, extra):
+    """``single_run`` writes a JSON file of the JAX CLI's name whose keys
+    are the JAX CLI's on the same arguments; with ``--autotune`` that
+    includes the tuned multiplier and ``tuned_proposal_config``, whose
+    keys and lengths match JAX's too."""
+    from rwm_pt_tpu.cli import single_run as jsingle
+    from rwm_pt_tpu_torch.cli import single_run as tsingle
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jsingle.main(SINGLE_ARGS + extra + ["--output_dir", str(jdir)])
+    (jfile,) = os.listdir(jdir)
+    with open(jdir / jfile) as f:
+        jdata = json.load(f)
+    tdata = tsingle.main(SINGLE_ARGS + extra + ["--output_dir", str(tdir)])
+    (tfile,) = os.listdir(tdir)
+    assert tfile == jfile.replace("TPU", "GPU")
+    with open(tdir / tfile) as f:
+        assert json.load(f) == json.loads(json.dumps(tdata))
+    assert set(tdata) == set(jdata)
+    if "--autotune" in extra:
+        tc, jc = tdata["tuned_proposal_config"], jdata["tuned_proposal_config"]
+        assert tc["name"] == jc["name"] and set(tc["params"]) == set(
+            jc["params"])
+        assert np.shape(tdata["tuned_scale_multiplier"]) == np.shape(
+            jdata["tuned_scale_multiplier"])
+    for k in ("dimension", "num_iterations", "seed", "num_chains",
+              "scale_param"):
+        assert tdata[k] == jdata[k], k
+    assert 0 < tdata["acceptance_rate"] <= 1
+
+
+def test_single_run_plots(tmp_path):
+    """The plot suite draws from the recorded chain (matplotlib imported
+    there only): trace plot, histogram and the marginals."""
+    pytest.importorskip("matplotlib")
+    from rwm_pt_tpu_torch.cli import single_run as tsingle
+    tsingle.run_single_simulation(
+        2, "MultivariateNormal", 200, 2.38, 1, 50, num_chains=4,
+        output_dir=str(tmp_path / "d"), images_dir=str(tmp_path / "img"),
+        device="cpu")
+    names = sorted(os.listdir(tmp_path / "img"))
+    assert len(names) == 3 and names[1].startswith("marginals_")
+    with pytest.raises(ValueError, match="--diagnostics"):
+        tsingle.run_single_simulation(2, "MultivariateNormal", 20, 1.0, 1,
+                                      200, autotune=True, diagnostics=4,
+                                      device="cpu")

@@ -24,7 +24,7 @@ from rwm_pt_tpu_torch.kernels.fused_rwm import (_run_rwm_fused_plain,
                                                 proposal_scale)
 from rwm_pt_tpu_torch.proposals import (NormalProposal,
                                         create_proposal_distribution)
-from rwm_pt_tpu_torch.kernels import _build, draws, ptxas_report
+from rwm_pt_tpu_torch.kernels import _build, draw_probes, draws, ptxas_report
 from rwm_pt_tpu_torch.kernels._build import by_variant
 from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
                                       get_target_distribution)
@@ -32,6 +32,7 @@ from rwm_pt_tpu_torch.targets import (FullRosenbrock, MultivariateNormal,
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 AGREE_ATOL, AGREE_MIN = agreement.X_ATOL, 0.95
+STUDY_DRAWS = ("icdf_fastlog", "lax_erfinv", "fake_uniform")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,6 +57,10 @@ def _libraries():
     names += [lib(v, kind, KIND_CASES[kind][2])
               for v in ("fused_pt", "fused_rwm") for kind in KIND_CASES]
     names.append(lib("fused_pt", "mvn_full", 30))
+    names += [lib(_build.library(f"fused_{a}", p, impl), "rosenbrock", 9)
+              for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
+              for impl in STUDY_DRAWS]
+    names.append(_build.PROBES)
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -329,6 +334,23 @@ def test_box_muller_matches_plain(algo, prop):
     """The Box-Muller variants against their plain versions at an odd d
     (the last pair's angle in slot d+3) and with NORMAL_IMPL = "bm" through
     the entry points."""
+    _hold_draw_variant(algo, prop, "bm")
+
+
+@pytest.mark.parametrize("algo,prop,impl", [
+    (a, p, i) for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
+    for i in STUDY_DRAWS])
+def test_study_draw_matches_plain(algo, prop, impl):
+    """The draw study's variants (icdf_fastlog, lax_erfinv, fake_uniform)
+    against their plain versions, and forced through the entry points with
+    NORMAL_IMPL, each launch counted under its own library."""
+    _hold_draw_variant(algo, prop, impl)
+
+
+def _hold_draw_variant(algo, prop, impl):
+    """Hold the ``impl`` variant of kernel ``algo`` for ``prop`` against
+    its plain version on FullRosenbrock d=9, then run it once through the
+    entry point with ``draws.NORMAL_IMPL = impl``."""
     dev = _card()
     d, T, C = 9, 4, 1000
     target = FullRosenbrock.create(d, device=dev)
@@ -353,15 +375,15 @@ def test_box_muller_matches_plain(algo, prop):
         args = (target, x0, zi(C), zf(C), beta, sig, seed_key(8), 0, 150, 20)
         launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
                                 agreement.RWM_OUTPUTS)
-    variant = _build.library(f"fused_{algo}", prop, "bm")
+    variant = _build.library(f"fused_{algo}", prop, impl)
     before = Counter(launch.launches)
-    k = launch(*args, kind=kind, draw="bm")
+    k = launch(*args, kind=kind, draw=impl)
     assert by_variant(launch.launches - before) == Counter({variant: 1})
-    a = agreement.hold(k, plain(*args, kind=kind, draw="bm"), names)
+    a = agreement.hold(k, plain(*args, kind=kind, draw=impl), names)
     assert a.frac >= AGREE_MIN, agreement.describe(a)
     assert not a.mismatched, agreement.describe(a)
     old = draws.NORMAL_IMPL
-    draws.NORMAL_IMPL = "bm"
+    draws.NORMAL_IMPL = impl
     try:
         before = Counter(launch.launches)
         run = run_pt_fused if algo == "pt" else run_rwm_fused
@@ -438,3 +460,41 @@ def test_runtime_replicas_per_block_match_plain(kind, T):
     assert a.frac >= AGREE_MIN, agreement.describe(a)
     assert not a.mismatched, agreement.describe(a)
     assert (k[2] > 0).any() and (k[3] > 0).any()
+
+
+@pytest.mark.parametrize("impl", draws.NORMAL_IMPLS)
+def test_draw_normals_probe_matches_plain(impl):
+    """The normal-draw probe kernel against its plain version on the same
+    Philox words: every element to rtol 1e-5 (CUDA's erfinvf and ATen's
+    erfinv may differ by a few ulp), the launch counted under its draw."""
+    dev = _card()
+    n = 1 << 16
+    before = Counter(draw_probes.draw_normals.launches)
+    z = draw_probes.draw_normals(impl, 7, n, device=dev)
+    torch.cuda.synchronize()
+    assert draw_probes.draw_normals.launches - before == Counter({impl: 1})
+    assert z.shape == (8, n // 8) and torch.isfinite(z).all()
+    p = draw_probes._draw_normals_plain(impl, 7, n, dev)
+    torch.testing.assert_close(z, p, rtol=1e-5, atol=1e-6)
+
+
+def test_fast_log_probe_matches_plain():
+    """The fast_log probe kernel on the 8192 inputs of
+    tests/test_pallas_kernels.py:454-457: its plain version's bits (both
+    round every product and sum on its own), and within the JAX test's
+    bound 1e-6 + 1e-7 |log y| of float64 log."""
+    dev = _card()
+    y = np.concatenate([
+        np.logspace(-37, 0, 4096).astype(np.float32),
+        np.random.default_rng(0).uniform(1e-7, 1.0, 4096).astype(np.float32),
+    ]).reshape(8, 1024)
+    yt = torch.from_numpy(y).to(dev)
+    before = Counter(draw_probes.fast_log.launches)
+    out = draw_probes.fast_log(yt)
+    torch.cuda.synchronize()
+    assert draw_probes.fast_log.launches - before == Counter({"fast_log": 1})
+    torch.testing.assert_close(out, draws.fast_log(yt), rtol=2.4e-7,
+                               atol=1e-30)
+    exact = np.log(y.astype(np.float64))
+    err = np.abs(out.cpu().numpy().astype(np.float64) - exact)
+    assert (err < 1e-6 + 1e-7 * np.abs(exact)).all()

@@ -1,12 +1,16 @@
 """The port's counter-based draws (rwm_pt_tpu_torch/kernels/draws.py):
 Philox4x32-10 against Random123's known answers, the Giles erfinv against
-the JAX package's, the ICDF normal's distribution, the slot layout of the
-three proposals, and the Laplace and uniform-ball increments against
+the JAX package's, the normals' distributions, the draw study's bit-trick
+log and draws against pallas_rwm.py's, the slot layout of the three
+proposals, and the Laplace and uniform-ball increments against
 pallas_rwm.py's own on the same uniforms and normals."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 from scipy.stats import norm
 
 from rwm_pt_tpu.kernels import pallas_rwm
@@ -244,8 +248,9 @@ def test_normal_bm_distribution():
 def test_resolve_normal_impl(monkeypatch):
     """The JAX signature and override, with the rule measured on the H100:
     Box-Muller above 1024 replicas or chains, ICDF up to 1024 and for PT
-    on the full-covariance MVN; NORMAL_IMPL wins; the draw-study probes
-    are not ported."""
+    on the full-covariance MVN; NORMAL_IMPL wins and takes all five draws
+    of the JAX package (the rule never picks a draw-study one); an unknown
+    name raises ValueError."""
     for block in (512, 1024, 1025, 65536):
         for kernel in ("pt", "rwm"):
             for kind in (None, "rosenbrock", "three_mixture"):
@@ -256,9 +261,195 @@ def test_resolve_normal_impl(monkeypatch):
             "icdf" if block <= 1024 else "bm")
     with pytest.raises(ValueError, match="kernel"):
         draws.resolve_normal_impl("mala", 65536)
-    monkeypatch.setattr(draws, "NORMAL_IMPL", "icdf")
-    assert draws.resolve_normal_impl("pt", 65536) == "icdf"
-    monkeypatch.setattr(draws, "NORMAL_IMPL", "icdf_fastlog")
-    with pytest.raises(NotImplementedError, match="Queue B item 10"):
+    assert set(draws.NORMAL_IMPLS) == set(pallas_rwm._NORMAL_IMPLS)
+    for impl in draws.NORMAL_IMPLS:
+        monkeypatch.setattr(draws, "NORMAL_IMPL", impl)
+        assert draws.resolve_normal_impl("pt", 65536) == impl
+        assert draws.resolve_normal_impl("rwm", 512, "mvn_full") == impl
+    monkeypatch.setattr(draws, "NORMAL_IMPL", "ziggurat")
+    with pytest.raises(ValueError, match="unknown normal draw 'ziggurat'"):
         draws.resolve_normal_impl("rwm", 512)
-    assert set(draws.NORMAL_IMPLS) <= set(pallas_rwm._NORMAL_IMPLS)
+
+
+# the 8192 inputs of tests/test_pallas_kernels.py::test_fast_log_accuracy_
+# interpret: the magnitudes the ICDF feeds the log
+FAST_LOG_Y = np.concatenate([
+    np.logspace(-37, 0, 4096).astype(np.float32),
+    np.random.default_rng(0).uniform(1e-7, 1.0, 4096).astype(np.float32),
+]).reshape(8, 1024)
+
+
+def _interpret(fn, *inputs, shape):
+    """``fn(*input values)`` inside a Pallas kernel run by the TPU
+    interpreter on the CPU, as the JAX package's tests run ``_fast_log``
+    (``pltpu.bitcast`` fails eagerly there)."""
+    def kernel(*refs):
+        refs[-1][...] = fn(*[r[...] for r in refs[:-1]])
+    return np.asarray(pl.pallas_call(
+        kernel, in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(inputs),
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+        interpret=pltpu.InterpretParams())(*map(jnp.asarray, inputs)))
+
+
+def test_fast_log_matches_jax():
+    """``draws.fast_log`` against ``pallas_rwm._fast_log`` (interpreted) to
+    2 f32 ulp (rtol 2.4e-7: XLA may contract the polynomial's products
+    into FMAs), and against float64 log under the JAX test's own bound
+    ``1e-6 + 1e-7 |log y|``."""
+    ref = _interpret(pallas_rwm._fast_log, FAST_LOG_Y, shape=(8, 1024))
+    ours = draws.fast_log(torch.from_numpy(FAST_LOG_Y)).numpy()
+    np.testing.assert_allclose(ours, ref, rtol=2.4e-7, atol=1e-30)
+    exact = np.log(FAST_LOG_Y.astype(np.float64))
+    err = np.abs(ours.astype(np.float64) - exact)
+    assert (err < 1e-6 + 1e-7 * np.abs(exact)).all()
+
+
+def _grid_uniforms(shape, seed, lo=0):
+    """Uniforms on the 2^-24 grid in [lo 2^-24, 1) with both ends."""
+    u = (np.random.default_rng(seed).integers(lo, 1 << 24, shape)
+         * 2.0 ** -24).astype(np.float32)
+    u.flat[0], u.flat[1] = lo * 2.0 ** -24, 1 - 2.0 ** -24
+    return u
+
+
+def test_normal_icdf_fastlog_matches_jax(monkeypatch):
+    """``normal_icdf_fastlog`` against ``pallas_rwm._normal_icdf_fastlog``
+    fed the same uniforms inside the interpreted kernel.  The interpreter
+    rounds ``x = 2u - 1 + 2^-24`` in another order, by up to one ulp of 1
+    (2^-24 below it), which the lower tail magnifies by dz/dx =
+    sqrt(pi/2) exp(z^2/2); so the bound per element is two such ulps times
+    that slope, plus 1e-6.  u = 0 is left out: there the interpreted
+    kernel gives 504.87 (ROADMAP Queue C).  Against the port's ICDF
+    normal, whose Giles erfinv matches JAX's to 1e-6, the bit-trick log
+    moves z by < 2e-6 everywhere, u = 0 included."""
+    u = _grid_uniforms((32, 128), 1, lo=1)
+    held = {}
+    monkeypatch.setattr(pallas_rwm, "_uniform", lambda shape: held["u"])
+
+    def fn(uv):
+        held["u"] = uv
+        return pallas_rwm._normal_icdf_fastlog(uv.shape)
+    ref = _interpret(fn, u, shape=u.shape)
+    ours = draws.normal_icdf_fastlog(torch.from_numpy(u)).numpy()
+    slope = np.sqrt(np.pi / 2) * np.exp(ref.astype(np.float64) ** 2 / 2)
+    assert (np.abs(ours - ref) < 2 * 2.0 ** -24 * slope + 1e-6).all()
+    u[0, 0] = 0.0
+    t = torch.from_numpy(u)
+    icdf = draws.normal_icdf(t).numpy()
+    fast = draws.normal_icdf_fastlog(t).numpy()
+    assert np.isfinite(fast).all() and np.abs(fast - icdf).max() < 2e-6
+
+
+@pytest.mark.parametrize("impl", ["lax_erfinv", "fake_uniform"])
+def test_study_draws_match_jax(monkeypatch, impl):
+    """``normal_laxerfinv`` and ``normal_fake_uniform`` against
+    ``pallas_rwm``'s, eagerly, on the same uniforms.  fake_uniform is the
+    same f32 arithmetic, bit for bit.  lax_erfinv: XLA and PyTorch
+    approximate erfinv differently (XLA by Giles' f32 polynomial, whose own
+    relative error in the tail branch is a few 1e-6), so rtol 1e-5."""
+    u = _grid_uniforms((32, 128), 2)
+    monkeypatch.setattr(pallas_rwm, "_uniform",
+                        lambda shape: jnp.asarray(u))
+    ref = np.asarray(pallas_rwm._NORMAL_IMPLS[impl](u.shape))
+    ours = draws.ICDF_LAYOUT[impl](torch.from_numpy(u)).numpy()
+    assert np.isfinite(ours).all()
+    if impl == "fake_uniform":
+        np.testing.assert_array_equal(ours, ref)
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("impl", ["icdf_fastlog", "lax_erfinv", "bm"])
+def test_study_draw_distribution(impl):
+    """Moments and KS of 2^20 Philox normals of each exact draw from
+    ``step_draws`` (d=64 coordinates of 16,384 chains), with the bounds of
+    test_pallas_kernels.py::test_normal_impl_icdf_distribution."""
+    N = 1 << 20
+    z = np.sort(draws.step_draws(draws.seed_key(12345), 1, 1, 64, N // 64,
+                                 "cpu", swap=False, draw=impl)[0]
+                .numpy().ravel().astype(np.float64))
+    assert z.size == N and np.isfinite(z).all()
+    assert abs(z.mean()) < 5e-3
+    assert abs(z.std() - 1.0) < 5e-3
+    assert abs((z ** 3).mean()) < 2e-2
+    assert abs((z ** 4).mean() - 3.0) < 5e-2
+    q = (np.arange(N) + 0.5) / N
+    assert np.max(np.abs(norm.cdf(z) - q)) < 3.5e-3
+
+
+@pytest.mark.parametrize("kind", ["Normal", "UniformRadius"])
+@pytest.mark.parametrize("impl", ["icdf_fastlog", "lax_erfinv",
+                                  "fake_uniform"])
+def test_step_draws_study_draws_read_icdf_slots(kind, impl):
+    """The draw-study draws read the ICDF slot layout: normal i from slot
+    i, the MH, swap and radius uniforms in slots d, d+1, d+2, no slot
+    d+3; Laplace ignores the draw."""
+    key, d, T, C = draws.seed_key(21), 7, 3, 5
+    words = draws.uniform_from_bits(draws.slot_words(key, 4, T, d + 3, C,
+                                                     "cpu"))
+    inc, u, us, ur = draws.step_draws(key, 4, T, d, C, "cpu", kind=kind,
+                                      draw=impl)
+    assert torch.equal(inc, draws.ICDF_LAYOUT[impl](words[:, :d]))
+    assert torch.equal(u, words[:, d]) and torch.equal(us, words[:, d + 1])
+    if kind == "UniformRadius":
+        assert torch.equal(ur, words[:, d + 2])
+    lap = draws.step_draws(key, 4, T, d, C, "cpu", kind="Laplace",
+                           draw=impl)[0]
+    assert torch.equal(lap, words[:, :d])
+
+
+@pytest.mark.parametrize("impl", list(draws.NORMAL_IMPLS))
+def test_draw_normals_probe_plain(impl):
+    """The normal-draw probe's plain version (draw_probes.py, the port of
+    tests/test_pallas_kernels.py:399-412): an (8, n/8) block whose column
+    j holds the d = 8 increment normals of replica j at rung 0 and absolute
+    step 1, row k from slot k (Box-Muller: rows k and k + 4 from the pair
+    of slots k and 4 + k)."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    z = draw_probes.draw_normals(impl, 99, 64, device="cpu")
+    assert z.shape == (8, 8) and z.dtype == torch.float32
+    u = draws.uniform_from_bits(draws.slot_words(draws.seed_key(99), 1, 1,
+                                                 8, 8, "cpu"))[0]
+    want = (draws.normal_bm(u[:4], u[4:], 8) if impl == "bm"
+            else draws.ICDF_LAYOUT[impl](u))
+    assert torch.equal(z, want)
+    assert not draw_probes.draw_normals.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        draw_probes.draw_normals(impl, 99, 60, device="cpu")
+    with pytest.raises(ValueError, match="unknown normal draw"):
+        draw_probes.draw_normals("ziggurat", 99, 64, device="cpu")
+
+
+def test_fast_log_probe_plain_matches_jax():
+    """The fast_log probe (the port of tests/test_pallas_kernels.py:
+    459-468) on a CPU tensor runs its plain version, held against JAX's
+    interpreted probe on the same 8192 inputs to 2 ulp, and launches
+    nothing."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    ref = _interpret(pallas_rwm._fast_log, FAST_LOG_Y, shape=(8, 1024))
+    out = draw_probes.fast_log(torch.from_numpy(FAST_LOG_Y))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2.4e-7, atol=1e-30)
+    assert not draw_probes.fast_log.launches
+
+
+def test_draw_libraries_are_named_and_flagged():
+    """Each forced draw has a library of its own for Normal and
+    UniformRadius (Laplace draws no normals), built with its
+    -DRWM_PT_NORMAL code; the probe kernels are one library without kind
+    or bucket, hashed over their own source."""
+    from rwm_pt_tpu_torch.kernels import _build
+    for impl, (suffix, code) in _build.DRAWS.items():
+        for src in ("fused_pt", "fused_rwm"):
+            name = _build.library(src, "UniformRadius", impl)
+            assert name == f"{src}_uniform_radius{suffix}"
+            flags = _build._flags(_build.lib_name(name, "rosenbrock", 30))
+            assert f"-DRWM_PT_NORMAL={code}" in flags
+            assert _build.library(src, "Laplace", impl) == f"{src}_laplace"
+    assert set(_build.DRAWS) == set(draws.NORMAL_IMPLS)
+    assert len(_build.VARIANTS) == 2 * (2 * len(_build.DRAWS) + 1)
+    assert _build._flags(_build.PROBES) == _build.NVCC_FLAGS
+    assert _build._source(_build.PROBES) == "draw_probes"
+    assert _build._lib_path(_build.PROBES).name.startswith("libdraw_probes-")
+    with pytest.raises(ValueError, match="unknown normal draw"):
+        _build.library("fused_pt", "Normal", "ziggurat")

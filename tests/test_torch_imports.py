@@ -21,6 +21,8 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch
         import rwm_pt_tpu_torch.convert, rwm_pt_tpu_torch.kernels
         import rwm_pt_tpu_torch.kernels._build
+        import rwm_pt_tpu_torch.kernels.adapt
+        import rwm_pt_tpu_torch.kernels.draw_probes
         import rwm_pt_tpu_torch.kernels.agreement
         import rwm_pt_tpu_torch.kernels.draws
         import rwm_pt_tpu_torch.kernels.fused_pt
@@ -30,6 +32,7 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch.cli.common
         import rwm_pt_tpu_torch.cli.experiment_rwm
         import rwm_pt_tpu_torch.cli.experiment_pt
+        import rwm_pt_tpu_torch.cli.single_run
         import rwm_pt_tpu_torch.ladders.ladders
         import rwm_pt_tpu_torch.proposals.proposals
         import rwm_pt_tpu_torch.targets.registry
@@ -54,8 +57,12 @@ def _entry_points(out_dir):
     from rwm_pt_tpu_torch.api import MCMCSimulation
     from rwm_pt_tpu_torch.cli import experiment_pt
     from rwm_pt_tpu_torch.cli.experiment_rwm import run_study
-    from rwm_pt_tpu_torch.kernels import (run_pt, run_pt_fused, run_rwm,
-                                          run_rwm_fused)
+    from rwm_pt_tpu_torch.cli.single_run import run_single_simulation
+    from rwm_pt_tpu_torch.kernels import (run_pt, run_pt_adaptive,
+                                          run_pt_fused,
+                                          run_pt_ladder_adaptive, run_rwm,
+                                          run_rwm_adaptive, run_rwm_fused)
+    from rwm_pt_tpu_torch.kernels.draw_probes import draw_normals
     from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
                                             UniformRadiusProposal,
                                             create_proposal_distribution)
@@ -100,6 +107,17 @@ def _entry_points(out_dir):
             "ThreeMixtureScaled", 3, **d),
         "NealFunnel": lambda **d: get_target_distribution(
             "NealFunnel", 3, **d),
+        "run_rwm_adaptive": lambda **d: run_rwm_adaptive(
+            t, p, 0, burn_in=2, adapt_every=1, **kw, **d),
+        "run_pt_adaptive": lambda **d: run_pt_adaptive(
+            t, p, 0, [1.0, 0.5], burn_in=2, adapt_every=1, **kw, **d),
+        "run_pt_ladder_adaptive": lambda **d: run_pt_ladder_adaptive(
+            t, p, 0, num_rungs=2, burn_in=2, adapt_every=1,
+            adapt_swap_every=1, **kw, **d),
+        "draw_normals": lambda **d: draw_normals("bm", 0, 16, **d),
+        "single_run": lambda **d: run_single_simulation(
+            2, "MultivariateNormal", 2, 1.0, 0, 100, num_chains=4,
+            autotune=True, make_plots=False, output_dir=out_dir, **d),
     }
 
 
@@ -112,7 +130,10 @@ def _entry_points(out_dir):
                                   "get_target_distribution",
                                   "MCMCSimulation", "run_study",
                                   "experiment_pt.run_study", "ThreeMixture",
-                                  "NealFunnel"])
+                                  "NealFunnel", "run_rwm_adaptive",
+                                  "run_pt_adaptive",
+                                  "run_pt_ladder_adaptive", "draw_normals",
+                                  "single_run"])
 def test_entry_points_default_to_cuda(name, monkeypatch, tmp_path):
     """With no card, the default device raises; ``device='cpu'`` runs."""
     fn = _entry_points(str(tmp_path))[name]

@@ -1,8 +1,10 @@
 """The port's harness (rwm_pt_tpu_torch.api.MCMCSimulation) and its parts
 (target registry, geometric ladder) against the JAX package's: rates and
 output shapes on the same configuration for each proposal, checkpoints
-that resume across the two packages, the constructor's checks and the
-options that are not ported yet."""
+that resume across the two packages, the constructor's checks, burn-in
+autotuning (the two-phase handoff to the fused samplers, the diagnostics
+and the tuned proposal config) and the options that are not ported
+yet."""
 import json
 
 import numpy as np
@@ -160,8 +162,6 @@ def test_rng_impl_takes_the_jax_values():
 @pytest.mark.parametrize("opt,item", [
     (dict(algorithm="PT", iterative_temp_spacing=True,
           target_dist="SuperFunnel"), "A item 9"),
-    (dict(autotune=True), "A item 11"),
-    (dict(algorithm="PT", autotune_ladder=True), "A item 11"),
     (dict(use_mesh=True), "A item 13"),
     (dict(cpu_semantics=True), "A item 7"),
     (dict(symmetric=False), "A item 7"),
@@ -227,3 +227,186 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("args", [(), (1.0, 0.05, 0.6), (0.8, 0.001, 0.3)])
 def test_geometric_ladder_matches_jax(args):
     assert tladder(*args) == jladder(*args)
+
+
+AUTOTUNE_BAD = {
+    "record-chain": dict(autotune=True, burn_in=200, record_chain=True),
+    "burn-in": dict(autotune=True),
+    "cpu-semantics": dict(algorithm="PT", autotune=True, burn_in=200,
+                          cpu_semantics=True),
+    "pallas-mesh": dict(autotune=True, burn_in=200, engine="pallas",
+                        use_mesh=True),
+    "record-chains": dict(autotune=True, burn_in=200, record_chains=4),
+    "ladder-rwm": dict(autotune_ladder=True, burn_in=200),
+    "ladder-exclusive": dict(algorithm="PT", autotune=True,
+                             autotune_ladder=True, burn_in=200),
+    "ladder-iterative": dict(algorithm="PT", autotune_ladder=True,
+                             iterative_temp_spacing=True, burn_in=200),
+    "ladder-cpu-semantics": dict(algorithm="PT", autotune_ladder=True,
+                                 burn_in=200, cpu_semantics=True),
+    "ladder-pallas-mesh": dict(algorithm="PT", autotune_ladder=True,
+                               burn_in=200, engine="pallas", use_mesh=True),
+    "ladder-record-chain": dict(algorithm="PT", autotune_ladder=True,
+                                burn_in=200, record_chain=True),
+    "ladder-burn-in": dict(algorithm="PT", autotune_ladder=True, burn_in=50),
+}
+
+
+@pytest.mark.parametrize("case", list(AUTOTUNE_BAD))
+def test_autotune_validation_matches_jax(case):
+    """tests/test_adaptive.py's test_api_autotune_validation and
+    test_api_autotune_ladder_validation: the constructor refuses JAX's
+    invalid autotune and autotune_ladder combinations with JAX's
+    ValueErrors, in JAX's order."""
+    kw = dict(dim=2, sigma=1.0, num_iterations=10, algorithm="RWM",
+              target_dist="MultivariateNormal", num_chains=8)
+    kw.update(AUTOTUNE_BAD[case])
+    with pytest.raises(ValueError) as je:
+        JSim(**kw)
+    with pytest.raises(ValueError) as te:
+        TSim(**kw, device=CPU)
+    assert str(te.value) == str(je.value)
+
+
+def test_autotune_run_refusals(monkeypatch):
+    """engine='pallas' refuses a run the fused samplers cannot take before
+    spending the tuning burn-in; autotune and checkpoint_every cannot be
+    combined (JAX's message)."""
+    from rwm_pt_tpu_torch.api import simulation
+    monkeypatch.setattr(simulation, "run_rwm_adaptive", None)   # never run
+    wide = TSim(dim=65, sigma=0.01, num_iterations=10, autotune=True,
+                burn_in=200, engine="pallas",
+                target_dist=tget("FullRosenbrock", 65, device=CPU),
+                device=CPU)
+    with pytest.raises(ValueError, match="autotune with engine='pallas'"):
+        wide.generate_samples(verbose=False)
+    kw = dict(dim=2, sigma=1.0, num_iterations=50, algorithm="RWM",
+              target_dist="MultivariateNormal", num_chains=2, burn_in=200,
+              autotune=True)
+    with pytest.raises(ValueError) as je:
+        JSim(**kw).generate_samples(verbose=False, checkpoint_every=10,
+                                    checkpoint_path="ck")
+    with pytest.raises(ValueError) as te:
+        TSim(**kw, device=CPU).generate_samples(
+            verbose=False, checkpoint_every=10, checkpoint_path="ck")
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("mode", ["RWM", "PT", "ladder"])
+def test_two_phase_autotune_one_fused_run(mode, monkeypatch):
+    """engine='pallas': the adaptive engine runs exactly the burn-in
+    (num_iterations=0), then one fused run (the plain version on the CPU)
+    measures num_iterations steps from the tuned state, with the full
+    per-rung multipliers (PT), the multiplier folded into the proposal
+    (RWM) or the tuned ladder; engine_used is 'pallas'."""
+    from rwm_pt_tpu_torch.api import simulation
+    calls, tunes = [], []
+    for name in ("run_pt_fused", "run_rwm_fused", "run_rwm_adaptive",
+                 "run_pt_adaptive", "run_pt_ladder_adaptive"):
+        real = getattr(simulation, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            (tunes if "adaptive" in _name else calls).append((_name, a, k))
+            return _real(*a, **k)
+        monkeypatch.setattr(simulation, name, spy)
+    sim = TSim(dim=4, sigma=2.38 ** 2 / 4 / 30, num_iterations=300,
+               algorithm="RWM" if mode == "RWM" else "PT",
+               target_dist="MultivariateNormal", num_chains=64, burn_in=1000,
+               swap_every=10, beta_ladder=[1.0, 0.5, 0.25],
+               autotune=mode != "ladder", autotune_ladder=mode == "ladder",
+               engine="pallas", device=CPU)
+    assert sim.generate_samples(verbose=False) is None
+    assert sim.engine_used == "pallas"
+    assert len(tunes) == 1 and tunes[0][2]["num_iterations"] == 0
+    assert len(calls) == 1
+    name, a, k = calls[0]
+    assert name == ("run_rwm_fused" if mode == "RWM" else "run_pt_fused")
+    assert k["num_iterations"] == 300 and k["resume_state"].step == 1000
+    res = sim._result
+    assert res.state.step == 1300
+    if mode == "PT":
+        np.testing.assert_array_equal(
+            k["scale_multipliers"].numpy(),
+            sim.get_diagnostic_info()["tuned_scale_multiplier"])
+        assert (res.acceptance_rate.mean(1) - 0.234).abs().max() < 0.1
+    elif mode == "RWM":
+        c = sim.get_diagnostic_info()["tuned_scale_multiplier"]
+        assert abs(float(k["proposal"].base_variance_scalar)
+                   - 2.38 ** 2 / 4 / 30 * c) < 1e-6 * c
+        assert abs(sim.acceptance_rate() - 0.234) < 0.1
+    else:
+        assert k["scale_multipliers"] is None
+        assert sim.beta_ladder == sim.tuned_ladder != [1.0, 0.5, 0.25]
+        assert a[2].tolist() == sim.tuned_ladder
+    ps = sim._phase_seconds
+    assert ps["tune"] > 0 and ps["measure"] > 0
+
+
+@pytest.mark.parametrize("mode", ["RWM", "PT", "ladder"])
+def test_autotune_diagnostics_keys_match_jax(mode):
+    """An autotuned run's get_diagnostic_info has the JAX harness's keys
+    (autotune_target and tuned_scale_multiplier, or
+    autotune_ladder_target and tuned_beta_ladder)."""
+    kw = dict(dim=3, sigma=0.5, num_iterations=100,
+              algorithm="RWM" if mode == "RWM" else "PT",
+              target_dist="MultivariateNormal", num_chains=16, burn_in=200,
+              swap_every=10, beta_ladder=[1.0, 0.5, 0.25],
+              autotune=mode != "ladder", autotune_ladder=mode == "ladder")
+    js, ts = JSim(**kw), TSim(**kw, device=CPU)
+    js.generate_samples(verbose=False)
+    ts.generate_samples(verbose=False)
+    ti, ji = ts.get_diagnostic_info(), js.get_diagnostic_info()
+    assert set(ti) == set(ji)
+    assert ts.engine_used == js.engine_used == "scan"
+    if mode == "ladder":
+        assert ti["tuned_beta_ladder"] == ts.tuned_ladder == ts.beta_ladder
+        assert len(ts.tuned_ladder) == len(js.tuned_ladder) == 3
+        with pytest.raises(ValueError, match="autotune=True first"):
+            ts.tuned_proposal_config()
+    else:
+        assert np.shape(ti["tuned_scale_multiplier"]) == np.shape(
+            ji["tuned_scale_multiplier"])
+        assert ti["autotune_target"] == ji["autotune_target"] == 0.234
+
+
+def test_autotune_rwm_integration():
+    """tests/test_adaptive.py:79-90: RWM from 1/50 of the optimal variance
+    lands at 0.234 acceptance; the tuned config carries the grown
+    variance."""
+    opt = 2.38 ** 2 / 10
+    sim = TSim(dim=10, sigma=opt / 50.0, num_iterations=2000,
+               algorithm="RWM", target_dist="MultivariateNormal",
+               num_chains=256, burn_in=3000, autotune=True, device=CPU)
+    assert sim.generate_samples(verbose=False) is None
+    assert abs(sim.acceptance_rate() - 0.234) < 0.05
+    info = sim.get_diagnostic_info()
+    assert info["autotune_target"] == 0.234
+    assert info["tuned_scale_multiplier"] > 1.0
+    cfg = sim.tuned_proposal_config()
+    assert cfg["params"]["base_variance_scalar"] > opt / 50.0
+
+
+def test_tuned_proposal_config_round_trip():
+    """tests/test_adaptive.py:233-257: a PT run tuned from a 50x-oversized
+    base carries every rung's multiplier in tuned_proposal_config(); a
+    fresh, untuned simulation on the fused samplers with that config and
+    the same ladder reproduces 0.234 per rung (atol 0.06)."""
+    opt = 2.38 ** 2 / 10
+    betas = [1.0, 0.4, 0.15, 0.05]
+    sim = TSim(dim=10, sigma=50.0, num_iterations=3000, algorithm="PT",
+               target_dist="MultivariateNormal", num_chains=128,
+               burn_in=3000, autotune=True, beta_ladder=betas, swap_every=10,
+               device=CPU)
+    sim.generate_samples(verbose=False)
+    cfg = sim.tuned_proposal_config()
+    mult = cfg["params"]["rung_scale_multipliers"]
+    assert len(mult) == 4
+    assert all(0.3 < m * 50.0 / opt < 3.0 for m in mult)
+    sim2 = TSim(dim=10, proposal_config=cfg, num_iterations=3000,
+                algorithm="PT", target_dist="MultivariateNormal",
+                num_chains=128, burn_in=500, beta_ladder=betas,
+                swap_every=10, record_chain=False, device=CPU)
+    sim2.generate_samples(verbose=False)
+    assert sim2.engine_used == "pallas"
+    acc = sim2._result.acceptance_rate.mean(1).numpy()
+    np.testing.assert_allclose(acc, 0.234, atol=0.06)
