@@ -9,7 +9,10 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
 2. build: every library the smoke launches, from
    ``rwm_pt_tpu_torch/kernels/csrc``, one per (kernel, proposal, normal
    draw, target kind), one ``nvcc`` each, all in parallel, with ptxas
-   registers, stack frame and spills per register bucket;
+   registers, stack frame and spills per register bucket, and each
+   library's launch geometry and blocks and warps per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` beside
+   ``kernels/_build.py``'s count); a stack frame or a spill fails;
 3. kernel vs plain on one Philox stream: PT on FullRosenbrock d=30, T=10,
    C=2048 (200 steps, burn-in 50, swap every 10) and RWM on MVN d=10,
    C=2048: share of replicas whose final x agrees to 1e-3 (rounding can flip
@@ -71,14 +74,16 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    full-covariance MVN;
 12. the normal draws: every path above takes the draw
    ``resolve_normal_impl`` picks for its kernel, replicas or chains and
-   target kind; here the Normal and UniformRadius variants of the other
-   draw are held against their plain versions at main-path shapes, the
-   Geweke gate runs on MVN d=10 with each draw forced, ICDF is timed
-   against Box-Muller (best of 6, interleaved, launch counters zeroed
+   target kind; here the Normal and UniformRadius variants of ICDF and
+   Box-Muller, where the rule does not pick them, are held against their
+   plain versions at main-path shapes, the Geweke gate runs on MVN d=10
+   with each of the two forced, the four exact draws (``icdf``, ``bm``,
+   ``icdf_fastlog``, ``lax_erfinv``) are timed through the entry points
+   (a warm-up call, then best of 3, interleaved, launch counters zeroed
    just before) at the flagship PT (Normal and UniformRadius), the
    full-covariance MVN at that shape, the PT study's shape, the RWM
    headline and the RWM study's shape, and the ``resolve_normal_impl``
-   decision is printed beside each measurement;
+   decision is printed beside the fastest draw at each;
 13. the PT swap-rate study ``experiment_pt`` at
    ``scripts/launch_pt_pod.sh``'s shape (ThreeMixture d=10, 200,000
    iterations, burn-in 1000, 1024 replicas, ``swap_accept_max`` 0.5,
@@ -131,9 +136,13 @@ from collections import Counter
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks: f32 outside the tensor cores and HBM bandwidth.
+# H100 SXM published peaks: f32 outside the tensor cores and HBM bandwidth
+# (NVIDIA's data sheet), and int32: 64 INT32 results a clock an SM (the
+# Hopper architecture white paper) x 132 SMs x 1.98 GHz, the clock the data
+# sheet's 67 TFLOP/s f32 implies (128 FP32 lanes an SM, 2 flops an FMA)
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 AGREE_MIN = 0.95       # share of replicas whose final x must agree
 Z_RATE_MAX = 5.0       # counters' rates, kernel vs plain
 Z_INV_MAX = 5.0        # Geweke invariance bound (scripts/tpu_smoke.py)
@@ -181,7 +190,10 @@ GEWEKE_KINDS = {"three_mixture": "ThreeMixture", "rough_carpet": "RoughCarpet",
 # mixture (IIDGamma's Gamma(shape beta, scale) is not Gamma^beta either; its
 # gate draws the exact law, tempered_gamma)
 INEXACT_TEMPERED = ("three_mixture", "rough_carpet")
-BM_MARGIN = 0.03       # Box-Muller must beat ICDF by more than this
+# phase 12: the exact normal draws the rule chooses among, and their times
+# at each shape of draw_shapes (ms, best of 3)
+EXACT_DRAWS = ("icdf", "bm", "icdf_fastlog", "lax_erfinv")
+DRAW_TIMES = {}
 # phase 14, the draw study (scripts/bench_normal_impl.py on the card)
 STUDY_DRAWS = ("icdf_fastlog", "lax_erfinv", "fake_uniform")
 DRAW_SITES = {"icdf_fastlog": "rwm_pt_tpu/kernels/pallas_rwm.py:119",
@@ -249,8 +261,9 @@ def cuda_ms(torch, fn, reps=1):
 #   accept: lp' - lp, *beta, expf, cvt+scale of u, 2 compares -> 7
 #   squared jump (cold rung / RWM chain) 3 d + Kahan 4
 #   swap pair: 2 subs, mul, expf, compare, Kahan 5 -> 10
-# Philox4x32-10 integer work (100 int ops per block of 4 words) is reported
-# beside it and left out of the bound: the published table has no int32 rate.
+# Philox4x32-10 integer work: PHILOX_BLOCK_OPS int32 operations a block of
+# 4 words, at PEAK_INT32_OPS; the bound is the largest of the float, int32
+# and byte times.
 #   Box-Muller pair (two normals): cvt+scale 2 x2, fmax 1, logf 1, -2* 1,
 #     sqrtf 1, 2 pi u 1, sincosf 2, r cos, r sin 2 = 12 -> 6 a normal
 #     (+ the proposal's 2: 8 per Normal coordinate instead of 32).
@@ -266,6 +279,16 @@ def cuda_ms(torch, fn, reps=1):
 NORMAL_FLOPS = {"icdf": 30, "bm": 6, "icdf_fastlog": 57, "lax_erfinv": 30,
                 "fake_uniform": 4}
 FAST_LOG_FLOPS = 28
+FAST_LOG_INT_OPS = 6    # exponent shift, mask, -127, mantissa and/or, e + 1
+# A Philox round per block: 2 high and 2 low 32-bit products and two
+# three-input XORs (hi ^ c ^ k, one LOP3 each); the key schedule's two
+# additions depend on the launch's key alone, not on the counter, so the
+# compiler does them once a thread, not once a block: 10 rounds x 6
+PHILOX_BLOCK_OPS = 60
+# a probe normal: two Philox blocks a column of 8
+PROBE_INT_OPS = 2 * PHILOX_BLOCK_OPS // 8
+
+
 def lp_flops(kind, d):
     return {
         "rosenbrock": 9 * (d - 1) + 1,
@@ -310,7 +333,7 @@ def pt_work(kind, d, T, C, steps, burn_in, swap_every, step0=0,
     flops = C * (steps * (mh + 3 * d + 4) + n_events * 10 * (T - 1)
                  + T * lp_flops(kind, d))
     blocks = C * T * steps * philox_blocks(prop, d, draw)
-    int_ops = 100 * blocks
+    int_ops = PHILOX_BLOCK_OPS * blocks
     nbytes = (C * (2 * d * T * 4 + T * 4 + 2 * T * 4 + 6 * 4)
               + (T * d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
@@ -321,17 +344,23 @@ def rwm_work(kind, d, C, steps, prop="Normal", record_every=0, rec_chains=0,
              draw="icdf", n_params=0):
     flops = C * (steps * (inc_flops(prop, d, draw) + lp_flops(kind, d) + 7
                           + 3 * d + 4) + lp_flops(kind, d))
-    int_ops = 100 * C * steps * philox_blocks(prop, d, draw)
+    int_ops = PHILOX_BLOCK_OPS * C * steps * philox_blocks(prop, d, draw)
     nbytes = (C * (2 * d * 4 + 4 + 2 * 4 + 2 * 4)
               + (d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
     return flops, int_ops, nbytes
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops, int_ops, nbytes):
+    """The least time the card could take, in ms: the largest of the float
+    operations at PEAK_F32_FLOPS, the int32 operations at PEAK_INT32_OPS
+    and the bytes at PEAK_HBM_BYTES.  Returns ``(ms, "operations" or
+    "bytes", which limit: "float32", "int32" or "bytes")``."""
+    t = {"float32": flops / PEAK_F32_FLOPS * 1e3,
+         "int32": int_ops / PEAK_INT32_OPS * 1e3,
+         "bytes": nbytes / PEAK_HBM_BYTES * 1e3}
+    limit = max(t, key=t.get)
+    return t[limit], ("bytes" if limit == "bytes" else "operations"), limit
 
 
 def rate_z(a, b, n):
@@ -375,11 +404,12 @@ def kernel_record(torch, name, source, replaces, launches, launch, plain,
     hold_args, hold_kw, (flops, int_ops, nbytes) = case(HOLD_STEPS, True)
     ms, plain_ms, ag = hold_run(torch, f"{name} at main-path shapes", launch,
                                 plain, hold_args, hold_kw, names)
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by, b_limit = bound(flops, int_ops, nbytes)
     full_flops, full_int, full_bytes = full_work
-    full_b_ms, full_by = bound(full_flops, full_bytes)
+    full_b_ms, _, full_by = bound(full_flops, full_int, full_bytes)
     say(f"phase {phase} {name} kernel: {full_ms:.3f} ms at its main path's "
-        f"size, bound {full_b_ms:.3f} ms by {full_by} ({full_flops:.4g} "
+        f"size, bound {full_b_ms:.3f} ms by {full_by} "
+        f"({100 * full_b_ms / full_ms:.1f} % of it reached; {full_flops:.4g} "
         f"flops, {full_int:.4g} Philox int ops, {full_bytes:.4g} B); "
         f"{HOLD_STEPS} steps at main-path shapes: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms ({plain_ms / HOLD_STEPS:.3f} ms/step), bound "
@@ -390,7 +420,9 @@ def kernel_record(torch, name, source, replaces, launches, launch, plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, steps=HOLD_STEPS,
         agree_frac=ag.frac, max_rel_err=ag.max_rel, flops=flops,
         philox_int_ops=int_ops, bytes=nbytes, main_path_steps=iters,
-        main_path_ms=full_ms, main_path_bound_ms=full_b_ms)
+        main_path_ms=full_ms, main_path_bound_ms=full_b_ms,
+        bound_limit=b_limit, main_path_bound_limit=full_by,
+        main_path_bound_share=full_b_ms / full_ms)
 
 
 def reset_launches(*wrappers):
@@ -619,8 +651,9 @@ def phases_7_to_10(torch, gen):
                 fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
                 args, dict(kind=kind, draw=study_draw),
                 agreement.RWM_OUTPUTS)
-            b_ms, b_by = bound(*rwm_work("rough_carpet", Ds, Cs, HOLD_STEPS,
-                                         prop=prop, draw=study_draw)[::2])
+            b_ms, b_by, _ = bound(*rwm_work("rough_carpet", Ds, Cs,
+                                            HOLD_STEPS, prop=prop,
+                                            draw=study_draw))
             holds.append(dict(scale=float(grid[i]), ms=ms, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by,
                               agree_frac=ag.frac, max_abs_err=ag.max_dx,
@@ -792,6 +825,55 @@ def kind_target(get_target_distribution, kind, d, dev, name=None, **extra):
     return t, var_d / t.dim
 
 
+def draw_shapes(torch, rb, var, betas, proposal, rc_s, study_prop, tm, mf,
+                var_mf, betas7):
+    """Phase 12's timed shapes: key -> (label, kernel, replicas or chains,
+    target kind, a run through the entry point).  The five of the draw
+    rule (the flagship PT, the RWM headline, the two studies' and the
+    full-covariance MVN at the flagship's) and the flagship's
+    UniformRadius."""
+    from rwm_pt_tpu_torch.kernels import run_pt_fused, run_rwm_fused
+    dev = torch.device("cuda")
+    d, C, Cr, iters = FLAG["dim"], FLAG["C"], RWM_MAIN["C"], FLAG["iters"]
+    return {
+        "pt": ("flagship PT", "pt", C, "rosenbrock", lambda: run_pt_fused(
+            rb, 1, betas, base_variance=var, num_chains=C,
+            num_iterations=iters, swap_every=FLAG["swap_every"],
+            device=dev)),
+        "pt_uniform_radius": (
+            "flagship PT, UniformRadius", "pt", C, "rosenbrock",
+            lambda: run_pt_fused(
+                rb, 1, betas, proposal=proposal("UniformRadius", d, var),
+                num_chains=C, num_iterations=iters,
+                swap_every=FLAG["swap_every"], device=dev)),
+        "pt_mvn_full": (
+            f"flagship PT shape on the full-covariance MVN d={d}", "pt", C,
+            "mvn_full", lambda: run_pt_fused(
+                mf, 1, betas, base_variance=var_mf, num_chains=C,
+                num_iterations=iters, swap_every=FLAG["swap_every"],
+                device=dev)),
+        "pt_study": (
+            f"PT study shape ({PT_STUDY['target']} d={PT_STUDY['dim']}, "
+            f"{PT_STUDY['C']} replicas, T=7, even/odd, {BM_STUDY_STEPS} "
+            f"steps)", "pt", PT_STUDY["C"], "three_mixture",
+            lambda: run_pt_fused(
+                tm, 1, betas7, base_variance=2.38 ** 2 / PT_STUDY["dim"],
+                num_chains=PT_STUDY["C"], num_iterations=BM_STUDY_STEPS,
+                swap_every=100, swap_sweep="even_odd", device=dev)),
+        "rwm": ("RWM headline", "rwm", Cr, "rosenbrock",
+                lambda: run_rwm_fused(rb, 1, base_variance=var,
+                                      num_chains=Cr, num_iterations=iters,
+                                      device=dev)),
+        "rwm_study": (f"RWM study shape ({STUDY['target']} d="
+                      f"{STUDY['dim']}, UniformRadius, {STUDY['C']} chains, "
+                      f"{BM_STUDY_STEPS} steps)", "rwm", STUDY["C"],
+                      "rough_carpet", lambda: run_rwm_fused(
+                          rc_s, 1, proposal=study_prop,
+                          num_chains=STUDY["C"],
+                          num_iterations=BM_STUDY_STEPS, device=dev)),
+    }
+
+
 def phases_11_to_13(torch, gen):
     """Phases 11-13: every other target kind in both kernels (11), the
     Box-Muller draw (12) and the PT swap-rate study (13).  Returns the
@@ -941,7 +1023,8 @@ def phases_11_to_13(torch, gen):
         if max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, ladder):
             fail(f"invariance check failed for {reg}")
 
-    # ---- 12. the Box-Muller draw
+    # ---- 12. the normal draws: the rule's other draws held, every exact
+    # draw timed
     d = FLAG["dim"]
     rb = FullRosenbrock.create(d, device=dev)
     var = FLAG["base_variance"]
@@ -952,17 +1035,18 @@ def phases_11_to_13(torch, gen):
             device=dev)
 
     # The main paths (phases 6-9, 11, 13) run the draw resolve_normal_impl
-    # picks; here the other draw's Normal and UniformRadius variants are
-    # held at the main paths' shapes (RWM UniformRadius at 65,536 chains
-    # is left out: that variant is the RWM study's, held in phase 7).
-    other = {k: ("icdf" if draws.resolve_normal_impl(k, n, "rosenbrock")
-                 == "bm" else "bm")
+    # picks; here ICDF and Box-Muller, where the rule does not pick them,
+    # have their Normal and UniformRadius variants held at the main paths'
+    # shapes (RWM UniformRadius at 65,536 chains is left out: that variant
+    # is the RWM study's, held in phase 7); phase 14 holds the draw study's.
+    other = {k: [dr for dr in ("icdf", "bm")
+                 if dr != draws.resolve_normal_impl(k, n, "rosenbrock")]
              for k, n in (("pt", C), ("rwm", Cr))}
     other_recs = {}
-    for algo, prop in (("pt", "Normal"), ("pt", "UniformRadius"),
-                       ("rwm", "Normal")):
+    for algo, prop, dr in [(a, p, dr) for a, p in (
+            ("pt", "Normal"), ("pt", "UniformRadius"), ("rwm", "Normal"))
+            for dr in other[a]]:
         p = proposal(prop, d, var)
-        dr = other[algo]
         if algo == "pt":
             kind, sig = fused_pt.rung_scales(p, None, betas,
                                              torch.ones_like(betas))
@@ -1016,9 +1100,9 @@ def phases_11_to_13(torch, gen):
                 if max(z_rwm, z_pt) >= Z_INV_MAX or sw <= 0.02:
                     fail(f"invariance failed for {prop} with {impl}")
         seen_inv = read_launches(*wrappers, by_kind=True)
-        # ICDF against Box-Muller through the entry points, best of 3
-        # each, interleaved: the main paths' shapes, the studies' and the
-        # full-covariance MVN at the flagship PT's
+        # every exact draw through the entry points, one warm-up call and
+        # best of 3, interleaved: the main paths' shapes, the studies' and
+        # the full-covariance MVN at the flagship PT's
         rc_s = get_target_distribution(STUDY["target"], STUDY["dim"],
                                        device=dev)
         study_prop = create_proposal_distribution(
@@ -1028,68 +1112,33 @@ def phases_11_to_13(torch, gen):
                                      device=dev, variant="pt_gpu")
         mf, var_mf = kind_target(get_target_distribution, "mvn_full", d, dev)
         betas7 = torch.logspace(0, -2, 7, device=dev)
-        shapes = {  # key -> (label, kernel, block, target kind, run)
-            "pt": ("flagship PT", "pt", C, "rosenbrock", lambda: run_pt_fused(
-                rb, 1, betas, base_variance=var, num_chains=C,
-                num_iterations=iters, swap_every=FLAG["swap_every"],
-                device=dev)),
-            "pt_uniform_radius": (
-                "flagship PT, UniformRadius", "pt", C, "rosenbrock",
-                lambda: run_pt_fused(
-                    rb, 1, betas, proposal=proposal("UniformRadius", d, var),
-                    num_chains=C, num_iterations=iters,
-                    swap_every=FLAG["swap_every"], device=dev)),
-            "pt_mvn_full": (
-                f"flagship PT shape on the full-covariance MVN d={d}", "pt",
-                C, "mvn_full", lambda: run_pt_fused(
-                    mf, 1, betas, base_variance=var_mf, num_chains=C,
-                    num_iterations=iters, swap_every=FLAG["swap_every"],
-                    device=dev)),
-            "pt_study": (
-                f"PT study shape ({PT_STUDY['target']} d={PT_STUDY['dim']}, "
-                f"{PT_STUDY['C']} replicas, T=7, even/odd, {BM_STUDY_STEPS} "
-                f"steps)", "pt", PT_STUDY["C"], "three_mixture",
-                lambda: run_pt_fused(
-                    tm, 1, betas7, base_variance=2.38 ** 2 / PT_STUDY["dim"],
-                    num_chains=PT_STUDY["C"], num_iterations=BM_STUDY_STEPS,
-                    swap_every=100, swap_sweep="even_odd", device=dev)),
-            "rwm": ("RWM headline", "rwm", Cr, "rosenbrock",
-                    lambda: run_rwm_fused(
-                        rb, 1, base_variance=var, num_chains=Cr,
-                        num_iterations=iters, device=dev)),
-            "rwm_study": (f"RWM study shape ({STUDY['target']} d="
-                          f"{STUDY['dim']}, UniformRadius, {STUDY['C']} "
-                          f"chains, {BM_STUDY_STEPS} steps)", "rwm",
-                          STUDY["C"], "rough_carpet",
-                          lambda: run_rwm_fused(
-                              rc_s, 1, proposal=study_prop,
-                              num_chains=STUDY["C"],
-                              num_iterations=BM_STUDY_STEPS, device=dev)),
-        }
-        decision = {}
+        shapes = draw_shapes(torch, rb, var, betas, proposal, rc_s,
+                             study_prop, tm, mf, var_mf, betas7)
         reset_launches(*wrappers)
         for key, (label, _, _, _, fn) in shapes.items():
             t = {}
-            for impl in ("icdf", "bm", "icdf", "bm"):
-                draws.NORMAL_IMPL = impl
-                ms, _ = cuda_ms(torch, fn, reps=3)
-                t[impl] = min(t.get(impl, math.inf), ms)
-            gain = t["icdf"] / t["bm"] - 1.0
-            decision[key] = (t["icdf"], t["bm"], gain)
-            say(f"phase 12 ICDF vs Box-Muller at the {label}: icdf "
-                f"{t['icdf']:.3f} ms, bm {t['bm']:.3f} ms (best of 6 "
-                f"interleaved), Box-Muller {100 * gain:+.2f} % faster")
+            for rep in range(4):
+                for impl in EXACT_DRAWS:
+                    draws.NORMAL_IMPL = impl
+                    ms, _ = cuda_ms(torch, fn)
+                    if rep:
+                        t[impl] = min(t.get(impl, math.inf), ms)
+            DRAW_TIMES[key] = t
+            say(f"phase 12 exact draws at the {label}: " + ", ".join(
+                f"{impl} {t[impl]:.3f} ms" for impl in EXACT_DRAWS)
+                + " (best of 3 after a warm-up call, interleaved); fastest "
+                f"{min(t, key=t.get)}")
         seen_timed = read_launches(*wrappers, by_kind=True)
     finally:
         draws.NORMAL_IMPL = old_impl
     for key, (label, k, n, tk, _) in shapes.items():
-        icdf_ms, bm_ms, gain = decision[key]
-        wins = gain > BM_MARGIN
+        t = DRAW_TIMES[key]
         rule = draws.resolve_normal_impl(k, n, tk)
         say(f"phase 12 resolve_normal_impl decision at the {label} ({k}, "
-            f"{n}, {tk}): Box-Muller {'wins' if wins else 'does not win'} "
-            f"by > {100 * BM_MARGIN:.0f} % ({icdf_ms:.3f} vs {bm_ms:.3f} "
-            f"ms); the code's rule: {rule!r}")
+            f"{n}, {tk}): fastest exact draw {min(t, key=t.get)} "
+            f"({min(t.values()):.3f} ms); the code's rule: {rule!r} "
+            f"({t[rule]:.3f} ms, {100 * (t[rule] / min(t.values()) - 1):+.2f}"
+            f" %)")
     for name, rec in other_recs.items():
         # launches of the timing runs (all at the main paths' shapes, on
         # FullRosenbrock) apart from those of the invariance runs
@@ -1098,14 +1147,13 @@ def phases_11_to_13(torch, gen):
         if rec["launches"] < 1:
             fail(f"{name} was not launched through the entry points")
         out.append(rec)
-    timed = {"pt": _build.library("fused_pt", "Normal", other["pt"]),
-             "pt_uniform_radius": _build.library("fused_pt", "UniformRadius",
-                                                 other["pt"]),
-             "rwm": _build.library("fused_rwm", "Normal", other["rwm"])}
-    for key, name in timed.items():
-        icdf_ms, bm_ms, gain = decision[key]
-        other_recs[name]["icdf_vs_bm"] = dict(icdf_ms=icdf_ms, bm_ms=bm_ms,
-                                              bm_gain=gain)
+    timed = {"pt": "fused_pt", "pt_uniform_radius": "fused_pt",
+             "rwm": "fused_rwm"}
+    for key, source in timed.items():
+        prop = "UniformRadius" if key == "pt_uniform_radius" else "Normal"
+        for dr in other[source[6:]]:
+            other_recs[_build.library(source, prop, dr)]["draw_times_ms"] = (
+                DRAW_TIMES[key])
 
     # ---- 13. the PT swap-rate study at launch_pt_pod.sh's shape
     out_dir = os.path.join(HERE, "smoke_out", "pt_study")
@@ -1207,9 +1255,9 @@ def phases_11_to_13(torch, gen):
         torch, f"{lib} at the PT study's shape", fused_pt.launch_pt_kernel,
         fused_pt._run_pt_fused_plain, args,
         dict(draw=study_draw, swap_sweep="even_odd"), agreement.PT_OUTPUTS)
-    b_ms, b_by = bound(*pt_work(
+    b_ms, b_by, _ = bound(*pt_work(
         "three_mixture", tm.dim, 7, Cs, HOLD_STEPS, 50, 10, draw=study_draw,
-        n_params=_build.kernel_target(tm)[1].numel())[::2])
+        n_params=_build.kernel_target(tm)[1].numel()))
     say(f"phase 13 {lib} at the PT study's shape (d={tm.dim}, {Cs} "
         f"replicas, T=7, even/odd, {HOLD_STEPS} steps, burn-in 50, swap "
         f"every 10): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
@@ -1281,14 +1329,15 @@ def normal_gates(torch, z, ref):
     return st, bad
 
 
-def phase_14(torch, gen):
+def phase_14(torch, gen, recorded):
     """Phase 14, the draw study's normals (B10): (a) the two probe kernels
     at the JAX probe's size, (b) the fused variants of the three new draws
-    held at the main paths' shapes, (c) the Geweke gate with each new
-    exact draw forced, (d) the draw study (``scripts/bench_normal_impl.py``)
-    through the entry points.  Returns the kernels' JSON records of the
-    probe kernels and the new variants, with their launches on (a) and
-    (d)."""
+    held at the main paths' shapes (but those an earlier phase recorded,
+    ``recorded``: the main paths' where the rule picks one of these draws),
+    (c) the Geweke gate with each new exact draw forced, (d) the draw study
+    (``scripts/bench_normal_impl.py``) through the entry points.  Returns
+    the kernels' JSON records of the probe kernels and the new variants,
+    with their launches on (a) and (d)."""
     import numpy as np
 
     from rwm_pt_tpu_torch.kernels import (_build, agreement, draw_probes,
@@ -1356,7 +1405,8 @@ def phase_14(torch, gen):
         elif impl != "fake_uniform":
             lib_ms, _ = cuda_ms(torch, lambda: draws.SQRT2 * torch.erfinv(
                 2.0 * u - 1.0 + 2.0 ** -24), reps=20)
-        b_ms, b_by = bound(PROBE_N * NORMAL_FLOPS[impl], 4 * PROBE_N)
+        b_ms, b_by, _ = bound(PROBE_N * NORMAL_FLOPS[impl],
+                              PROBE_N * PROBE_INT_OPS, 4 * PROBE_N)
         st, bad = ({}, []) if impl == "fake_uniform" else normal_gates(
             torch, z[impl], ref)
         say(f"phase 14 probe draw_normals {impl} (seed {seed}, N={PROBE_N}):"
@@ -1389,7 +1439,8 @@ def phase_14(torch, gen):
     ms, _ = cuda_ms(torch, lambda: draw_probes.fast_log(yt), reps=20)
     plain_ms, _ = cuda_ms(torch, lambda: draws.fast_log(yt), reps=3)
     lib_ms, _ = cuda_ms(torch, lambda: torch.log(yt), reps=20)
-    b_ms, b_by = bound(FAST_LOG_FLOPS * y.size, 8 * y.size)
+    b_ms, b_by, _ = bound(FAST_LOG_FLOPS * y.size, FAST_LOG_INT_OPS * y.size,
+                          8 * y.size)
     max_d = (flog - fp).abs().max().item()
     say(f"phase 14 probe fast_log ({y.size} inputs): max |diff| to the plain "
         f"version {max_d:.3g} (within 2 ulp: {rel_ok}); worst error / "
@@ -1447,6 +1498,8 @@ def phase_14(torch, gen):
                                      fused_rwm._run_rwm_fused_plain)
                     names = agreement.RWM_OUTPUTS
                 name = _build.library(f"fused_{algo}", prop, impl)
+                if name in recorded:
+                    continue
                 recs[name] = kernel_record(
                     torch, name, src[algo], DRAW_SITES[impl], 0, launch,
                     plain, names, case, iters, phase=14)
@@ -1534,7 +1587,7 @@ def phase_14(torch, gen):
                     if algo == "pt" else
                     rwm_work("rosenbrock", d, Cr, iters, prop=prop,
                              draw=impl))
-            b_ms, b_by = bound(work[0], work[2])
+            b_ms, b_by, _ = bound(*work)
             m.update(mh_steps_per_s=rate, bound_ms=b_ms, bound_by=b_by,
                      draw_cost_share=1.0 - rate / fake_rate)
             extra = (f"swap acc {m['swap_acc']:.4f}, cold MH acc "
@@ -1762,6 +1815,33 @@ def phase_15(torch):
     say(f"phase 15 {time.time() - t_phase:.1f} s")
 
 
+def occupancy(torch, _build, name, d=None, T=10, n_params=0):
+    """Phase 2's line for library ``name``: the launch geometry of a launch
+    at d coordinates (default: the bucket's largest d) and T = 10 rungs
+    (PT), with the blocks and warps per SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives beside the count of
+    ``_build.pt_block_geometry`` / ``rwm_block_geometry``."""
+    src, pc, dc, _, dmax, blocks = _build._parts(name)
+    prop = next(p for p, (_, c) in _build.PROPOSALS.items() if c == pc)
+    draw = next(k for k, (_, c) in _build.DRAWS.items() if c == dc)
+    d = d or dmax
+    pt = src == "fused_pt"
+    geo = _build.launch_geometry(name, d, 65536, T if pt else 0, prop, draw,
+                                 n_params)
+    info = _build.kernel_info(
+        name, d, T if pt else 1, geo.replicas, n_params,
+        runtime_r=geo.runtime_r)
+    warps = -(-geo.threads // 32)
+    return (f"min blocks {blocks}; {info['registers']} regs, "
+            f"{info['local_bytes']} B local at d={d}"
+            + (f", T={T}: R={geo.replicas}" if pt else
+               f": {geo.threads} chains a block")
+            + f", {info['shared_bytes']} B shared (calculated "
+            f"{geo.shared_bytes}); {info['blocks_per_sm']} blocks, "
+            f"{info['blocks_per_sm'] * warps} warps per SM (calculated "
+            f"{geo.blocks_per_sm} blocks)")
+
+
 def smoke_libraries(_build):
     """Every library the smoke launches: (variant, target kind, bucket)."""
     lib = _build.lib_name
@@ -1772,18 +1852,18 @@ def smoke_libraries(_build):
     names = [lib(v, "rosenbrock", 30) for v in base + bm]      # 6, 7, 9, 12
     names += [lib(v, "mvn_iso", 10) for v in base + bm]        # 3-5, 8, 12
     names += [lib(v, "rough_carpet", STUDY["dim"])             # 7, 10, 12
-              for v in ("fused_rwm_laplace", "fused_rwm_uniform_radius",
-                        "fused_rwm_uniform_radius_bm")]
+              for v in ["fused_rwm_laplace"] + [_build.library(
+                  "fused_rwm", "UniformRadius", dr) for dr in EXACT_DRAWS]]
     from rwm_pt_tpu_torch.kernels.draws import resolve_normal_impl
     for k in KINDS:                                              # 11
         for algo, n in (("pt", FLAG["C"]), ("rwm", RWM_MAIN["C"])):
             v = _build.library(f"fused_{algo}", "Normal",
                                resolve_normal_impl(algo, n, k))
             names += [lib(v, k, 10), lib(v, k, 30)]
-    names += [lib(v, "three_mixture", PT_STUDY["dim"])          # 12, 13
-              for v in ("fused_pt", "fused_pt_bm")]
-    names += [lib(v, "mvn_full", FLAG["dim"])                    # 12
-              for v in ("fused_pt", "fused_pt_bm")]
+    names += [lib(_build.library("fused_pt", "Normal", dr), k, dim)  # 12, 13
+              for dr in EXACT_DRAWS for k, dim in (
+                  ("three_mixture", PT_STUDY["dim"]),
+                  ("mvn_full", FLAG["dim"]))]
     names += [lib(_build.library(f"fused_{a}", p, impl), "rosenbrock", 30)
               for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
               for impl in STUDY_DRAWS]                           # 14
@@ -1836,12 +1916,27 @@ def main():
     # ---- 2. build
     t0 = time.time()
     logs = _build.build(smoke_libraries(_build))
+    build_s = time.time() - t0
+    frames = []
     for kname, log in logs.items():
-        say(f"phase 2 build {kname}: " + "; ".join(
-            f"{n} {r} regs, {f} B stack, {sp} B spill"
-            for n, r, f, sp in sorted(ptxas_report.parse(log))))
+        entries = sorted(ptxas_report.parse(log))
+        line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
+                         for n, r, f, sp in entries)
+        if kname != _build.PROBES:
+            frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
+            line += "; " + occupancy(torch, _build, kname)
+        say(f"phase 2 build {kname}: {line}")
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
-        f"target kind and register bucket) in {time.time() - t0:.1f} s")
+        f"target kind and register bucket) in {build_s:.1f} s")
+    flag_lib = _build.lib_name(_build.library(
+        "fused_pt", "Normal", draws.resolve_normal_impl(
+            "pt", FLAG["C"], "rosenbrock")), "rosenbrock", FLAG["dim"])
+    say(f"phase 2 flagship {flag_lib} at its shape (d={FLAG['dim']}, "
+        f"T={FLAG['T']}, {FLAG['C']} replicas): " + occupancy(
+            torch, _build, flag_lib, FLAG["dim"], FLAG["T"],
+            n_params=FLAG["dim"] + 1))
+    if frames:
+        fail(f"a fused kernel has a stack frame or spills: {frames}")
 
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
     zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
@@ -2026,7 +2121,7 @@ def main():
     t0 = time.time()
     kernels.extend(phases_11_to_13(torch, gen))
     say(f"phases 11-13 {time.time() - t0:.1f} s")
-    kernels.extend(phase_14(torch, gen))
+    kernels.extend(phase_14(torch, gen, {r["name"] for r in kernels}))
     phase_15(torch)
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")

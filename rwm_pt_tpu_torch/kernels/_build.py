@@ -7,6 +7,7 @@ bucket), with a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=<p>
          -DRWM_PT_NORMAL=<n> -DRWM_PT_TARGET=<k> -DRWM_PT_DMAX=<D>
+         -DRWM_PT_MINBLOCKS=<b>
          -o build/lib<variant>.<kind>.d<D>-<hash>.so csrc/<kernel>.cu
 
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
@@ -14,7 +15,10 @@ draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
 proposals and ``_bm``, ``_icdf_fastlog``, ``_lax_erfinv`` or
 ``_fake_uniform`` for the other normal draws; ``<kind>`` is the target
 kind (:data:`TARGET_KINDS`); ``<D>`` the register bucket (:data:`BUCKETS`),
-the smallest that holds the state's d coordinates.  Each library holds one
+the smallest that holds the state's d coordinates; ``<b>`` the blocks an SM
+must hold (:func:`min_blocks`, the kernels' ``__launch_bounds__``, which
+caps the registers; a stated rule, not the outcome of a build).  Each
+library holds one
 instantiation, so a run builds only what it launches, and :func:`build`
 starts one ``nvcc`` per library, all at once.  No
 ``--use_fast_math``: the kernels keep IEEE ``logf``/``log1pf``/``expf``/
@@ -25,6 +29,14 @@ spills) is kept in :data:`PTXAS_LOG`.  The draw study's probe kernels
 (``csrc/draw_probes.cu``) are one library of their own, ``draw_probes``,
 with no kind and no bucket.  Nothing here runs at import time: the CPU
 tests import every module and have no ``nvcc``.
+
+Launch geometry (:func:`pt_block_geometry`, :func:`rwm_block_geometry`)
+is plain Python: the replicas (chains) a block, the dynamic shared memory
+its state slabs take and the blocks an SM holds, from the kernel's
+registers and ``maxThreadsPerBlock`` (each library exports them,
+:func:`kernel_info`) by the CUDA occupancy calculator's rules for Hopper.
+The wrappers pass the replicas a block to the launcher, which refuses what
+does not fit.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -61,6 +74,23 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "neal_funnel": 11}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
+# Blocks of a kernel's launch bound (PT: 320 threads, RWM: 128) that an SM
+# must hold, per source, for register buckets up to 32: the register cap
+# measured fastest at the flagship and the RWM headline (the cap sweep in
+# PERF.md): PT 2 (96 registers, 20 warps), RWM 1 (no cap: at 80-94
+# registers it holds 20-24 warps, and caps to 24 or 32 warps were no
+# faster).  The 64 bucket's proposal alone takes 64 registers, so it is
+# held to one block.
+MIN_BLOCKS = {"fused_pt": 2, "fused_rwm": 1}
+# (source, target kind, bucket) -> blocks, for the libraries that spill
+# under MIN_BLOCKS (ptxas; chip_smoke.py's phase 2 fails on any stack
+# frame or spill, so a new one shows there): the full-covariance MVN's
+# quadratic form, one block at d16 and no launch bound at all (0: the
+# compiler takes the registers it needs and a block holds the threads they
+# allow) at d32, and Hypercube's PT at d32, one block.
+FEWER_BLOCKS = {("fused_pt", "mvn_full", 16): 1,
+                ("fused_pt", "mvn_full", 32): 0,
+                ("fused_pt", "hypercube", 32): 1}
 # variant name -> (source, proposal code, draw code)
 VARIANTS = {src + ps + ds: (src, pc, dc) for src in SOURCES
             for prop, (ps, pc) in PROPOSALS.items()
@@ -76,21 +106,26 @@ _ENTRIES = {
     # kind, params, n_params, betas, scales, x0, acc0, swapacc0, bj0, cj0,
     # x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out,
     # d, T, C, total, burn_in, swap_every, step0, key0, key1,
-    # lap, inv_d, rec, record_every, record_chains, order, stream
+    # lap, inv_d, rec, record_every, record_chains, order, R, runtime_r,
+    # stream |
+    # runtime_r, d, T, R, n_params, out (5 ints)
     "fused_pt": {"rwm_pt_fused_pt":
                  [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _U, _U,
-                  _P, _F, _P, _I, _I, _I, _P]},
+                  _P, _F, _P, _I, _I, _I, _I, _I, _P],
+                 "rwm_pt_fused_pt_info": [_I, _I, _I, _I, _I, _P]},
     # kind, params, n_params, scale, beta, x0, acc0, jump0,
     # x_out, lp_out, acc_out, jump_out,
     # d, C, total, burn_in, step0, key0, key1,
-    # lap, inv_d, rec, record_every, record_chains, stream
+    # lap, inv_d, rec, record_every, record_chains, threads, stream |
+    # d, threads, n_params, out (5 ints)
     "fused_rwm": {"rwm_pt_fused_rwm":
                   [_I, _P, _I, _F, _F, _P, _P, _P,
                    _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _U, _U,
-                   _P, _F, _P, _I, _I, _P]},
+                   _P, _F, _P, _I, _I, _I, _P],
+                  "rwm_pt_fused_rwm_info": [_I, _I, _I, _P]},
     # impl (a DRAWS code), key0, key1, cols, out, stream |
     # y, out, n, stream
     PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
@@ -124,10 +159,24 @@ def lib_name(variant: str, kind: str, dim: int) -> str:
     return f"{variant}.{kind}.d{bucket(dim)}"
 
 
+def min_blocks(source: str, kind: str, dmax: int) -> int:
+    """Blocks of the launch bound an SM must hold (``-DRWM_PT_MINBLOCKS``)
+    for kernel ``source`` on target kind ``kind`` at register bucket
+    ``dmax``: :data:`MIN_BLOCKS` up to the 32 bucket, one block above it,
+    :data:`FEWER_BLOCKS` where the capped build spills."""
+    if dmax > 32:
+        return 1
+    return FEWER_BLOCKS.get((source, kind, dmax), MIN_BLOCKS[source])
+
+
 def _parts(name: str):
+    """(source, proposal code, draw code, kind code, bucket, min blocks) of
+    a library name ``<variant>.<kind>.d<D>``."""
     variant, kind, dmax = name.split(".")
     src, pc, dc = VARIANTS[variant]
-    return src, pc, dc, TARGET_KINDS[kind], int(dmax[1:])
+    dmax = int(dmax[1:])
+    return (src, pc, dc, TARGET_KINDS[kind], dmax,
+            min_blocks(src, kind, dmax))
 
 
 def _source(name: str) -> str:
@@ -137,9 +186,10 @@ def _source(name: str) -> str:
 def _flags(name: str) -> list[str]:
     if name == PROBES:
         return list(NVCC_FLAGS)
-    _, pc, dc, kc, dmax = _parts(name)
+    _, pc, dc, kc, dmax, blocks = _parts(name)
     return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={pc}", f"-DRWM_PT_NORMAL={dc}",
-                         f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}"]
+                         f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}",
+                         f"-DRWM_PT_MINBLOCKS={blocks}"]
 
 
 def _lib_path(name: str) -> Path:
@@ -168,9 +218,10 @@ def library(source: str, proposal: str, draw: str = "icdf") -> str:
 
 def build(names) -> dict[str, str]:
     """Compile the named libraries (:func:`lib_name`) that are not built
-    yet, one ``nvcc`` each, all started together.  Returns ``{name: ptxas report}``; raises with the
-    compiler's output if any build fails."""
+    yet, one ``nvcc`` each, all started together.  Returns ``{name: ptxas
+    report}``; raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    names = list(names)
     procs = {}
     for name in names:
         out = _lib_path(name)
@@ -221,6 +272,191 @@ def entry(name: str, fn: str | None = None):
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------- geometry
+# One H100 SM, as the CUDA occupancy calculator counts it (cuda_occupancy.h)
+SM_REGISTERS = 65536
+REG_SUB_PARTITIONS = 4       # the register file's quarters, one a scheduler
+REG_ALLOC_UNIT = 256         # registers a warp is given at a time
+SM_WARPS, SM_BLOCKS = 64, 32
+SM_SHARED = 228 * 1024       # shared memory with the carveout at its most
+BLOCK_SHARED = 227 * 1024    # a block's most dynamic shared memory
+BLOCK_RESERVED = 1024        # shared memory the system keeps for each block
+PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads
+PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
+RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
+
+
+class Geometry(NamedTuple):
+    """A launch: ``replicas`` a block (RWM: chains), ``threads`` a block,
+    ``shared_bytes`` of dynamic shared memory, ``blocks_per_sm`` resident
+    at once, ``grid`` blocks (the last one ragged unless ``replicas``
+    divides C); PT: whether it takes the instantiation that reads R at
+    run time (``runtime_r``) or the 32-replica one."""
+    replicas: int
+    threads: int
+    shared_bytes: int
+    blocks_per_sm: int
+    grid: int
+    runtime_r: bool = False
+
+
+def blocks_per_sm(regs: int, threads: int, shared_bytes: int) -> int:
+    """Blocks of ``threads`` threads, ``regs`` registers each and
+    ``shared_bytes`` of dynamic shared memory that one SM holds at once:
+    the least of the register, warp, block and shared-memory limits, the
+    registers given a warp at a time in units of 256 from one quarter of
+    the register file."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+    quarter = SM_REGISTERS // REG_SUB_PARTITIONS
+    by_regs = ((quarter // per_warp) * REG_SUB_PARTITIONS // warps
+               if per_warp else SM_BLOCKS)
+    by_shared = SM_SHARED // (shared_bytes + BLOCK_RESERVED)
+    return min(by_regs, SM_WARPS // warps, SM_BLOCKS, by_shared)
+
+
+def row_words(dmax: int, proposal: str = "Normal",
+              draw: str = "icdf") -> int:
+    """Shared-memory words a thread's rows take (``csrc/mh.cuh``): the
+    state row, DMAX + 4 words (16-byte accesses, no bank conflicts), and
+    for Box-Muller normals the sine row, DMAX/2 + 1 (odd)."""
+    sines = draw == "bm" and proposal != "Laplace"
+    return dmax + 4 + (dmax // 2 + 1 if sines else 0)
+
+
+def pt_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
+                    proposal: str = "Normal", draw: str = "icdf") -> int:
+    """Dynamic shared memory of a PT block of R replicas x T rungs at d
+    coordinates in bucket ``dmax`` (``csrc/fused_pt.cu::shared_words``):
+    the R T threads' rows, parameters, the ladder, the sweep's
+    per-(replica, rung) words and Laplace's (T, d) scales."""
+    words = (T * R * row_words(dmax, proposal, draw) + n_params + 2 * T
+             + 2 * T * R + 2 * R + 3 * T * R + R
+             + (T * d if proposal == "Laplace" else 0))
+    return 4 * words
+
+
+def rwm_shared_bytes(n_params: int, d: int, threads: int, dmax: int,
+                     proposal: str = "Normal", draw: str = "icdf") -> int:
+    """Dynamic shared memory of an RWM block of ``threads`` chains in
+    bucket ``dmax`` (``csrc/fused_rwm.cu::shared_words``): the chains'
+    rows, parameters and Laplace's (d,) scales."""
+    words = (threads * row_words(dmax, proposal, draw) + n_params
+             + (d if proposal == "Laplace" else 0))
+    return 4 * words
+
+
+def _check_dim(d: int, dmax: int) -> None:
+    if not 1 <= d <= dmax:
+        raise ValueError(f"d={d} is not in the register bucket 1..{dmax}")
+
+
+def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
+                      T: int, C: int, proposal: str = "Normal",
+                      draw: str = "icdf", n_params: int = 0) -> Geometry:
+    """The fused PT launch of C replicas x T rungs at d coordinates
+    (bucket ``dmax``) for a kernel of ``regs`` registers and
+    ``max_threads`` threads a block.  Of the R that fit (at most 32
+    replicas a block, R T threads within ``max_threads``, the slabs within
+    a block's shared memory) it takes the one whose blocks let an SM hold
+    the most threads, the largest R of those: R = 32 at the flagship,
+    fewer where 32 T threads do not fit or where smaller blocks fill the
+    register file better (a 105-register kernel at T = 15 holds one block
+    of 21 replicas, 315 threads, but two of 17, 510).  Raises
+    ``ValueError`` when not even one replica's ladder fits."""
+    _check_dim(d, dmax)
+    if not 1 <= T <= MAX_RUNGS or C < 1:
+        raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
+    fixed = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw)
+    per_replica = (pt_shared_bytes(n_params, T, d, 1, dmax, proposal, draw)
+                   - fixed)
+    r_max = min(PT_MAX_REPLICAS, max_threads // T,
+                (BLOCK_SHARED - fixed) // per_replica)
+    if r_max < 1:
+        raise ValueError(
+            f"one replica's ladder does not fit a block: T={T} rungs of "
+            f"d={d} need {T} threads ({max_threads} allowed) and "
+            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B)")
+
+    def launch(R):
+        shared = pt_shared_bytes(n_params, T, d, R, dmax, proposal, draw)
+        return Geometry(R, R * T, shared, blocks_per_sm(regs, R * T, shared),
+                        -(-C // R))
+
+    return max((launch(R) for R in range(1, r_max + 1)),
+               key=lambda g: (g.blocks_per_sm * g.threads, g.replicas))
+
+
+def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
+                       C: int, proposal: str = "Normal", draw: str = "icdf",
+                       n_params: int = 0) -> Geometry:
+    """The fused RWM launch of C chains at d coordinates (bucket ``dmax``)
+    for a kernel of ``regs`` registers and ``max_threads`` threads a
+    block: 128 chains a block, fewer where the slabs or ``max_threads``
+    do not allow them.  Raises ``ValueError`` when not even one chain
+    fits."""
+    _check_dim(d, dmax)
+    if C < 1:
+        raise ValueError(f"C={C} must be >= 1")
+    fixed = rwm_shared_bytes(n_params, d, 0, dmax, proposal, draw)
+    per_chain = rwm_shared_bytes(n_params, d, 1, dmax, proposal, draw) - fixed
+    n = min(RWM_THREADS, max_threads, (BLOCK_SHARED - fixed) // per_chain)
+    if n < 1:
+        raise ValueError(
+            f"one chain does not fit a block: {fixed + per_chain} B of "
+            f"shared memory ({BLOCK_SHARED} B), {max_threads} threads")
+    shared = rwm_shared_bytes(n_params, d, n, dmax, proposal, draw)
+    return Geometry(n, n, shared, blocks_per_sm(regs, n, shared), -(-C // n))
+
+
+_INFO: dict[tuple, tuple] = {}
+
+
+def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
+                n_params: int = 0, runtime_r: bool = False) -> dict:
+    """What library ``name``'s kernel and the CUDA runtime say of a launch
+    at d coordinates (PT: T rungs, R replicas a block, the instantiation
+    with a runtime R or the compile-time one; RWM: R chains a block):
+    ``registers``, ``max_threads`` (``maxThreadsPerBlock``),
+    ``local_bytes`` a thread, ``shared_bytes`` and ``blocks_per_sm``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where the launch
+    does not fit).  Needs the card."""
+    key = (name, d, T, R, n_params, runtime_r)
+    if key not in _INFO:
+        out = (ctypes.c_int * 5)()
+        if _source(name) == "fused_pt":
+            rc = entry(name, "rwm_pt_fused_pt_info")(
+                int(runtime_r), d, T, R, n_params, out)
+        else:
+            rc = entry(name, "rwm_pt_fused_rwm_info")(d, R, n_params, out)
+        check_launch(name, rc)
+        _INFO[key] = tuple(out)
+    return dict(zip(("registers", "max_threads", "local_bytes",
+                     "shared_bytes", "blocks_per_sm"), _INFO[key]))
+
+
+def launch_geometry(name: str, d: int, C: int, T: int = 0,
+                    proposal: str = "Normal", draw: str = "icdf",
+                    n_params: int = 0) -> Geometry:
+    """The geometry of a launch of library ``name`` (PT when ``T`` is
+    given), from its kernel's registers and ``maxThreadsPerBlock``: the
+    compile-time 32-replica PT instantiation where its attributes allow 32
+    replicas, else the runtime-R one with its own attributes."""
+    dmax = _parts(name)[4]
+    if not T:
+        a = kernel_info(name, d)
+        return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
+                                  C, proposal, draw, n_params)
+    a = kernel_info(name, d)
+    geo = pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
+                            proposal, draw, n_params)
+    if geo.replicas == PT_MAX_REPLICAS:
+        return geo
+    a = kernel_info(name, d, runtime_r=True)
+    return pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
+                             proposal, draw, n_params)._replace(runtime_r=True)
 
 
 # ---------------------------------------------------------------- targets

@@ -40,7 +40,9 @@ __global__ void __launch_bounds__(kThreads)
   uint4 blk;
   int cur_k = -1;
   if constexpr (DRAW == DRAW_BM) {
-    bm_normals<kRows>(p, kRows, j, 0, 1, key0, key1, blk, cur_k);
+    __shared__ float s_sn[kThreads * kSinePitch<kRows>];   // the sines' rows
+    bm_normals<kRows>(p, s_sn + threadIdx.x * kSinePitch<kRows>, kRows, j, 0,
+                      1, key0, key1, blk, cur_k);
   } else {
 #pragma unroll
     for (int i = 0; i < kRows; ++i)

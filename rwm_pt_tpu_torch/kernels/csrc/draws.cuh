@@ -151,11 +151,15 @@ __device__ __forceinline__ float laplace_increment(float u, float scale) {
 // One Box-Muller pair, pallas_rwm.py::_normal_bm's arithmetic: u1 already
 // clamped at 1e-7, r = sqrt(-2 log u1), theta = 2 pi u2 rounded to f32;
 // rs = r sin theta, rc = r cos theta, each product rounded on its own.
+// theta lies in [0, 2 pi); the test around sincosf is the one sincosf
+// makes before its Payne-Hanek reduction for |theta| >= 105615 (whose
+// table is a 32-byte local array), so the compiler may drop that path.
 __device__ __forceinline__ void box_muller(float u1, float u2, float& r,
                                            float& rs, float& rc) {
   r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(__fmul_rn(6.28318530717958648f, u2), &s, &c);
+  const float theta = __fmul_rn(6.28318530717958648f, u2);
+  float s = 0.0f, c = 1.0f;
+  if (!(fabsf(theta) >= 105615.0f)) sincosf(theta, &s, &c);
   rs = __fmul_rn(r, s);
   rc = __fmul_rn(r, c);
 }

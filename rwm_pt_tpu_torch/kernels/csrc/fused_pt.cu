@@ -3,11 +3,14 @@
 // Replaces rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
 // _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96), the
 // Pallas kernels behind run_pt_pallas, with the Normal, Laplace and
-// UniformRadius increments and the ICDF or Box-Muller normal draw
-// (csrc/mh.cuh; per-rung scales as pallas_pt.py:307-320).  One library is
-// built per (proposal, draw, target kind, register bucket DMAX = 8, 16, 32
-// or 64) from this one source (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL,
-// -DRWM_PT_TARGET, -DRWM_PT_DMAX).  One launch runs all `total` steps:
+// UniformRadius increments and the ICDF, Box-Muller or draw-study normal
+// draw (csrc/mh.cuh; per-rung scales as pallas_pt.py:307-320).  One library
+// is built per (proposal, draw, target kind, register bucket DMAX = 8, 16,
+// 32 or 64) from this one source (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL,
+// -DRWM_PT_TARGET, -DRWM_PT_DMAX, and -DRWM_PT_MINBLOCKS, the blocks of
+// kBlockThreads threads an SM must hold, which caps the registers of the
+// 32-replica instantiation, 0 for no launch bound; see
+// kernels/_build.py::min_blocks).  One launch runs all `total` steps:
 //   * MH move on every rung, every step (csrc/mh.cuh), int32 per-rung accept
 //     counts after burn-in (post = step0 + s + 1 > burn_in);
 //   * on post-burn-in multiples of swap_every, a swap sweep over the pairs
@@ -21,20 +24,32 @@
 //   * int32 swap counts, Kahan-compensated sum of (dbeta)^2 over accepted
 //     swaps and of the cold rung's squared jump (swap moves included).
 //
-// Layout.  A replica's ladder is T*d floats (300 at the flagship d=30,
-// T=10), above a thread's 255 registers, so one thread holds one
-// (replica, slot): its d coordinates in registers, 2*DMAX floats live with
-// the proposal.  A block is R replicas (threadIdx.x, so loads and stores of
-// the (d, T, C) state are coalesced on the replica axis) x T slots
-// (threadIdx.y), R = 32 (a compile-time constant) unless 32 T threads would
-// need more registers than an SM has (launch_pt asks cudaFuncGetAttributes;
-// the full-covariance MVN at DMAX 32, or T above 17 for most kinds), then
-// the most that fit, from an instantiation that reads R at run time.  A swap does not move states between threads: it swaps the
-// rung->slot map in shared memory, and each thread then reads its new rung
-// (its beta, sigma and draw stream).  The states go to their rungs' places
-// when the run ends.  The cold-rung jump across a pair-0 swap needs the old
-// owner's pre-move state: that one case goes through shared memory.
-// Swap steps cost three __syncthreads; other steps none.
+// Layout.  One thread holds one (replica, slot).  A block is R replicas
+// (threadIdx.x, so loads and stores of the (d, T, C) state are coalesced
+// on the replica axis) x T slots (threadIdx.y).  The states live in a
+// shared-memory slab, a row of DMAX + 4 words a thread, read and written
+// four coordinates at a time with no bank conflicts (csrc/mh.cuh); a
+// thread keeps only its proposal y[DMAX] in registers.  With the state in
+// registers too, a thread took 116-125 registers at DMAX 32 and
+// one 320-thread block filled an SM (10 of 64 warps), too few to hide
+// Philox's chains of dependent integer multiplies; the slab halves the
+// state's registers, and __launch_bounds__(kBlockThreads,
+// RWM_PT_MINBLOCKS) holds the rest to what lets that many blocks share an
+// SM.  Box-Muller's sines wait in a second slab (mh.cuh).  R = 32 (a
+// compile-time constant) where 32 T threads fit the instantiation's
+// maxThreadsPerBlock and the slabs fit a block's shared memory, else
+// fewer, from an instantiation that reads R at run time (its runtime R
+// takes registers of its own, so it is held to one block an SM and does
+// not spill); the caller chooses R and the instantiation
+// (kernels/_build.py::launch_geometry) and the launcher refuses what does
+// not fit.
+// A swap does not move states between threads: it swaps the rung->slot map
+// in shared memory, and each thread then reads its new rung (its beta,
+// sigma and draw stream).  The states go to their rungs' places when the
+// run ends.  A move's accept writes y into the slab only after the swap
+// sweep, so the cold-rung jump across a pair-0 swap reads the old owner's
+// pre-move state straight from the old owner's row.  Swap steps cost
+// three __syncthreads; other steps none.
 //
 // Per-rung scales: s_sigma[t] is the Normal std sqrt(v c_t / beta_t) or the
 // UniformRadius radius R sqrt(c_t) / sqrt(beta_t); Laplace reads a (T, d)
@@ -50,14 +65,18 @@
 // sums run on unbroken while recording (the Pallas recording kernel
 // restarts their compensation every segment, :196-199).
 //
-// Bound: operations (Philox integer rounds, one logf + one sqrtf per normal,
-// Giles' polynomials, the target's terms); global memory sees the initial
-// state and the final state + accumulators only.  The ragged edge (C not a
-// multiple of R) is masked: those threads run on zeros and store nothing.
+// Bound: operations.  Philox's integer work (60 int32 operations a block
+// of four words, 6.29e11 at the flagship) outweighs the float work (one
+// logf + one sqrtf + one sincosf a Box-Muller pair, Giles' polynomials,
+// the target's terms) at the card's int32 and float32 rates; global memory
+// sees the initial state and the final state + accumulators only.  The
+// ragged edge (C not a multiple of R) is masked: those threads run on
+// zeros in their own rows and store nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
-//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D (no --use_fast_math)
+//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_MINBLOCKS=b
+//        (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,28 +95,51 @@
 #ifndef RWM_PT_DMAX
 #define RWM_PT_DMAX 32
 #endif
+#ifndef RWM_PT_MINBLOCKS
+#define RWM_PT_MINBLOCKS 1
+#endif
 
 namespace {
 
-constexpr int kMaxReplicas = 32;   // replicas per block (threadIdx.x)
+constexpr int kMaxReplicas = 32;    // replicas per block (threadIdx.x)
+constexpr int kBlockThreads = 320;  // the launch bound: 32 replicas x 10 rungs
+constexpr int kMaxSharedBytes = 227 * 1024;   // a block's dynamic shared memory
 
 constexpr int kProp = RWM_PT_PROPOSAL;
 constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the register bucket: d <= kDmax
+constexpr int kMinBlocks = RWM_PT_MINBLOCKS;
 
-template <int DMAX>
+constexpr int kPitch = kRowPitch<kDmax>;   // words of a thread's state row
+constexpr int kSines = (kProp != PROPOSAL_LAPLACE && kDraw == DRAW_BM)
+                           ? kSinePitch<kDmax> : 0;   // of its sine row
+
+// Words of dynamic shared memory: the state slab (T R rows of kPitch,
+// first, so that its rows are 16-byte aligned) | Box-Muller sines (T R
+// rows of kSines) | params, beta, sigma | lp, u (per slot / pair) | cold
+// sum, compensation | slot_of_rung, rung_of_slot, accepts | the slot that
+// held rung 0 before a sweep that moved it | Laplace scales (T, d).
+// kernels/_build.py::pt_shared_bytes mirrors this count.
 __host__ __device__ constexpr size_t shared_words(int n_params, int T, int d,
                                                   int R) {
-  // params, beta, sigma | lp, u (per slot / pair) | old cold state | cold sum,
-  // compensation | slot_of_rung, rung_of_slot, accepts | pair-0 flag |
-  // Laplace scales (T, d)
-  return (size_t)n_params + 2 * T + 2 * T * R + DMAX * R + 2 * R +
-         3 * T * R + R + (kProp == PROPOSAL_LAPLACE ? T * d : 0);
+  return (size_t)T * R * (kPitch + kSines) + n_params + 2 * T + 2 * T * R +
+         2 * R + 3 * T * R + R + (kProp == PROPOSAL_LAPLACE ? T * d : 0);
 }
 
+// The launch bound of an instantiation: kMinBlocks blocks of kBlockThreads
+// for the 32-replica one, one block for the runtime-R one; none at all
+// for kMinBlocks 0 (a kernel that spills even under one block's cap: the
+// compiler takes the registers it needs, and a block holds the threads
+// they allow)
+#if RWM_PT_MINBLOCKS > 0
+#define RWM_PT_BOUNDS(rfix) __launch_bounds__(kBlockThreads, (rfix) ? kMinBlocks : 1)
+#else
+#define RWM_PT_BOUNDS(rfix)
+#endif
+
 template <int KIND, int DMAX, int RFIX>
-__global__ void fused_pt_kernel(
+__global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     const float* __restrict__ params, int n_params,
     const float* __restrict__ betas, const float* __restrict__ sigmas,
     const float* __restrict__ x0, const int* __restrict__ acc0,
@@ -109,29 +151,31 @@ __global__ void fused_pt_kernel(
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* __restrict__ lap, float inv_d, float* __restrict__ rec,
     int record_every, int record_chains, int order) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   // replicas per block: a compile-time 32 on the usual path (a runtime R
   // in the shared-memory indexing costs ~2 % of the flagship's time)
   const int R = RFIX ? RFIX : (int)blockDim.x;
-  float* s_params = smem;
+  const int nthreads = R * T;
+  float* s_x = (float*)smem4;         // [tid][i]
+  float* s_sn = s_x + nthreads * kPitch;   // [tid][k], Box-Muller only
+  float* s_params = s_sn + nthreads * kSines;
   float* s_beta = s_params + n_params;
   float* s_sigma = s_beta + T;
-  float* s_lp = s_sigma + T;                  // [slot][replica]
+  float* s_lp = s_sigma + T;          // [slot][replica]
   float* s_u = s_lp + T * R;          // [pair][replica]
-  float* s_old = s_u + T * R;         // [i][replica]
-  float* s_cold = s_old + DMAX * R;   // [replica]
+  float* s_cold = s_u + T * R;        // [replica]
   float* s_cc = s_cold + R;           // [replica]
   int* s_slot = (int*)(s_cc + R);     // [rung][replica] -> slot
   int* s_rung = s_slot + T * R;       // [slot][replica] -> rung
   int* s_acc = s_rung + T * R;        // [rung][replica]
-  int* s_flag = s_acc + T * R;        // [replica]
-  float* s_lap = (float*)(s_flag + R);  // [rung][i], Laplace only
+  int* s_owner = s_acc + T * R;       // [replica]
+  float* s_lap = (float*)(s_owner + R);   // [rung][i], Laplace only
 
   const int cx = threadIdx.x, slot = threadIdx.y;
-  const int nthreads = blockDim.x * blockDim.y;
   const int tid = slot * R + cx;
   const int c = blockIdx.x * R + cx;
   const bool valid = c < C;
+  float* xs = s_x + tid * kPitch;     // this thread's state row
 
   for (int i = tid; i < n_params; i += nthreads) s_params[i] = params[i];
   for (int i = tid; i < T; i += nthreads) {
@@ -140,20 +184,21 @@ __global__ void fused_pt_kernel(
   }
   if (kProp == PROPOSAL_LAPLACE)
     for (int i = tid; i < T * d; i += nthreads) s_lap[i] = lap[i];
-  s_slot[slot * R + cx] = slot;
-  s_rung[slot * R + cx] = slot;
-  s_acc[slot * R + cx] = valid ? acc0[(size_t)slot * C + c] : 0;
+  s_slot[tid] = slot;
+  s_rung[tid] = slot;
+  s_acc[tid] = valid ? acc0[(size_t)slot * C + c] : 0;
   if (slot == 0) {
     s_cold[cx] = valid ? cj0[c] : 0.0f;
     s_cc[cx] = 0.0f;
   }
 
-  float x[DMAX], p[DMAX];
+  float y[DMAX];   // the state, then each step's proposal
 #pragma unroll
   for (int i = 0; i < DMAX; ++i)
-    x[i] = (i < d && valid) ? x0[((size_t)i * T + slot) * C + c] : 0.0f;
+    y[i] = (i < d && valid) ? x0[((size_t)i * T + slot) * C + c] : 0.0f;
+  store_row<DMAX>(y, xs, d);
   __syncthreads();
-  float lp = log_density<KIND, DMAX>(x, d, s_params);
+  float lp = log_density<KIND, DMAX>(y, d, s_params);
   int rung = slot;
   // the sweep's per-replica sums live in the slot-0 thread, which runs it
   int swapacc = (slot == 0 && valid) ? swapacc0[c] : 0;
@@ -165,21 +210,22 @@ __global__ void fused_pt_kernel(
     const bool do_swap = post && (abs_step % swap_every == 0);
     uint4 blk;
     int cur_k = -1;
-    float jump;
-    const bool accept = mh_move<KIND, kProp, kDraw, DMAX>(
-        x, p, lp, jump, d, s_params, s_sigma[rung], s_lap + rung * d, inv_d,
-        s_beta[rung], c, rung, abs_step, key0, key1, blk, cur_k);
+    const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
+        y, xs, s_sn + tid * kSines, lp, d, s_params, s_sigma[rung],
+        s_lap + rung * d, inv_d, s_beta[rung], c, rung, abs_step, key0, key1,
+        blk, cur_k);
     if (post && accept) s_acc[rung * R + cx] += 1;
 
-    int new_rung = rung;
+    int new_rung = rung, owner = -1;
     if (do_swap) {   // the same for every thread of the block
-      s_lp[slot * R + cx] = lp;
+      s_lp[tid] = lp;
       if (rung < T - 1)
         s_u[rung * R + cx] = uniform_from_bits(slot_word(
             d + 1, blk, cur_k, c, rung, abs_step, key0, key1));
       __syncthreads();
       if (slot == 0) {
-        int flag = 0;
+        const int first = s_slot[cx];   // rung 0's slot before the sweep
+        int moved = 0;
         const int n_even = T >> 1;   // pairs 0, 2, .. of 0..T-2
         for (int jj = 0; jj < T - 1; ++jj) {
           const int j = order == 0 ? jj
@@ -194,59 +240,55 @@ __global__ void fused_pt_kernel(
             s_slot[j * R + cx] = b;
             s_slot[(j + 1) * R + cx] = a;
             swapacc += 1;
-            if (j == 0) flag = 1;
+            if (j == 0) moved = 1;
           }
-          const float y = (sw ? __fmul_rn(db, db) : 0.0f) - bc;
-          const float tot = bj + y;
-          bc = (tot - bj) - y;
+          const float yk = (sw ? __fmul_rn(db, db) : 0.0f) - bc;
+          const float tot = bj + yk;
+          bc = (tot - bj) - yk;
           bj = tot;
         }
         for (int j = 0; j < T; ++j)
           s_rung[s_slot[j * R + cx] * R + cx] = j;
-        s_flag[cx] = flag;
+        s_owner[cx] = moved ? first : -1;
       }
       __syncthreads();
-      new_rung = s_rung[slot * R + cx];
-      const bool moved = s_flag[cx] != 0;   // rung 0 changed hands
-      if (moved && rung == 0) {
-#pragma unroll
-        for (int i = 0; i < DMAX; ++i)
-          if (i < d) s_old[i * R + cx] = p[i];
-      }
-      __syncthreads();
-      if (moved && new_rung == 0) {
-        jump = 0.0f;
-#pragma unroll
-        for (int i = 0; i < DMAX; ++i) {
-          if (i < d) {
-            const float dd = x[i] - s_old[i * R + cx];
-            jump += dd * dd;
-          }
-        }
-      }
+      new_rung = s_rung[tid];
+      owner = s_owner[cx];   // >= 0: rung 0 changed hands in this sweep
     } else if (slot == 0 && bc != 0.0f) {
       // the sweep's compensation step with no swap accepted (exactly what a
       // no-swap step does to the sums; a no-op while bc == 0)
       for (int j = 0; j < T - 1; ++j) {
-        const float y = 0.0f - bc;
-        const float tot = bj + y;
-        bc = (tot - bj) - y;
+        const float yk = 0.0f - bc;
+        const float tot = bj + yk;
+        bc = (tot - bj) - yk;
         bj = tot;
       }
     }
     rung = new_rung;
     if (rung == 0) {   // cold-rung squared jump, Kahan-summed
-      const float y = (post ? jump : 0.0f) - s_cc[cx];
-      const float tot = s_cold[cx] + y;
-      s_cc[cx] = (tot - s_cold[cx]) - y;
+      float jump = 0.0f;
+      if (owner >= 0) {
+        // this thread took rung 0 in the sweep: its state after the move
+        // against the old owner's state before it (the slab still holds
+        // every pre-move state)
+        if (!accept) load_row<DMAX>(y, xs, d);
+        jump = sq_jump<DMAX>(y, s_x + (owner * R + cx) * kPitch, d);
+      } else if (accept) {
+        jump = sq_jump<DMAX>(y, xs, d);
+      }
+      const float yk = (post ? jump : 0.0f) - s_cc[cx];
+      const float tot = s_cold[cx] + yk;
+      s_cc[cx] = (tot - s_cold[cx]) - yk;
       s_cold[cx] = tot;
     }
+    if (do_swap) __syncthreads();   // the pre-move states have been read
+    if (accept) store_row<DMAX>(y, xs, d);
     if (rec != nullptr && rung == 0 && c < record_chains &&
         (s + 1) % record_every == 0) {   // the cold chain, after the sweep
       const size_t k = (size_t)((s + 1) / record_every - 1);
 #pragma unroll
       for (int i = 0; i < DMAX; ++i)
-        if (i < d) rec[(k * d + i) * record_chains + c] = x[i];
+        if (i < d) rec[(k * d + i) * record_chains + c] = xs[i];
     }
   }
 
@@ -254,9 +296,9 @@ __global__ void fused_pt_kernel(
   if (valid) {
 #pragma unroll
     for (int i = 0; i < DMAX; ++i)
-      if (i < d) x_out[((size_t)i * T + rung) * C + c] = x[i];
+      if (i < d) x_out[((size_t)i * T + rung) * C + c] = xs[i];
     lp_out[(size_t)rung * C + c] = lp;
-    acc_out[(size_t)slot * C + c] = s_acc[slot * R + cx];
+    acc_out[(size_t)slot * C + c] = s_acc[tid];
     if (slot == 0) {
       swapacc_out[c] = swapacc;
       bj_out[c] = bj;
@@ -265,49 +307,52 @@ __global__ void fused_pt_kernel(
   }
 }
 
-template <int KIND, int DMAX>
-int launch_pt(const float* params, int n_params, const float* betas,
-              const float* sigmas, const float* x0, const int* acc0,
-              const int* swapacc0, const float* bj0, const float* cj0,
-              float* x_out, float* lp_out, int* acc_out, int* swapacc_out,
-              float* bj_out, float* cj_out, int d, int T, int C, int total,
-              int burn_in, int swap_every, int step0, uint32_t key0,
-              uint32_t key1, const float* lap, float inv_d, float* rec,
-              int record_every, int record_chains, int order,
-              cudaStream_t stream) {
-  // 32 replicas a block where 32 T threads fit the register file, else the
-  // runtime-R instantiation with as many replicas as fit
-  auto kernel = fused_pt_kernel<KIND, DMAX, kMaxReplicas>;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int R = kMaxReplicas;
-  if (kMaxReplicas * T > attr.maxThreadsPerBlock) {
-    kernel = fused_pt_kernel<KIND, DMAX, 0>;
-    e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return (int)e;
-    R = attr.maxThreadsPerBlock / T;
-  }
-  if (R < 1) return (int)cudaErrorInvalidConfiguration;
-  const size_t shmem = shared_words<DMAX>(n_params, T, d, R) * sizeof(float);
-  if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (shmem > 48 * 1024) {   // the full-covariance MVN's cov_inv, mostly
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((C + R - 1) / R);
-  const dim3 block(R, T);
-  kernel<<<grid, block, shmem, stream>>>(
-      params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
-      lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
-      swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order);
-  return (int)cudaGetLastError();
+using Kernel = decltype(&fused_pt_kernel<kKind, kDmax, 0>);
+
+// The instantiation for R replicas a block: compile-time 32, else runtime.
+Kernel kernel_for(int runtime_r) {
+  return runtime_r ? fused_pt_kernel<kKind, kDmax, 0>
+                   : fused_pt_kernel<kKind, kDmax, kMaxReplicas>;
+}
+
+// Every launch needs more than the default 48 KB of dynamic shared memory
+// at the flagship, and the most shared memory an SM can give (228 KB) so
+// that several blocks share it.
+cudaError_t prepare(Kernel kernel, size_t shmem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
+
+// Attributes of the instantiation a launch of R replicas x T rungs at d
+// coordinates takes (runtime_r: the runtime-R one): out = {registers,
+// maxThreadsPerBlock, local bytes a thread, dynamic shared bytes, blocks
+// per SM by cudaOccupancyMaxActiveBlocksPerMultiprocessor}.
+extern "C" int rwm_pt_fused_pt_info(int runtime_r, int d, int T, int R,
+                                    int n_params, int* out) {
+  if (d < 1 || T < 1 || R < 1 || n_params < 0)
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(runtime_r);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  const size_t shmem = shared_words(n_params, T, d, R) * sizeof(float);
+  out[0] = attr.numRegs;
+  out[1] = attr.maxThreadsPerBlock;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = (int)shmem;
+  out[4] = 0;
+  if (shmem > kMaxSharedBytes || R * T > attr.maxThreadsPerBlock) return 0;
+  e = prepare(kernel, shmem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[4], kernel, R * T, shmem);
+}
 
 extern "C" int rwm_pt_fused_pt(
     int kind, const float* params, int n_params, const float* betas,
@@ -317,16 +362,33 @@ extern "C" int rwm_pt_fused_pt(
     float* cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* lap, float inv_d, float* rec, int record_every,
-    int record_chains, int order, void* stream) {
+    int record_chains, int order, int R, int runtime_r, void* stream) {
   if (d < 1 || d > kDmax || T < 1 || T > 32 || C < 1 || total < 0 ||
       swap_every < 1 || kind != kKind || (order != 0 && order != 1) ||
+      R < 1 || R > kMaxReplicas || (!runtime_r && R != kMaxReplicas) ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
-  return launch_pt<kKind, kDmax>(
+  // R replicas a block in the instantiation the caller chose; refused if
+  // R x T threads exceed its maxThreadsPerBlock or the slabs a block's
+  // shared memory
+  const Kernel kernel = kernel_for(runtime_r);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (R * T > attr.maxThreadsPerBlock)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t shmem = shared_words(n_params, T, d, R) * sizeof(float);
+  if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  e = prepare(kernel, shmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((C + R - 1) / R);
+  const dim3 block(R, T);
+  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
       swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order, (cudaStream_t)stream);
+      record_chains, order);
+  return (int)cudaGetLastError();
 }

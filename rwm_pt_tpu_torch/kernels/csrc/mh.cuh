@@ -1,5 +1,5 @@
-// One Metropolis-Hastings move of one (replica, rung) state held in
-// registers, shared by fused_pt.cu and fused_rwm.cu: the MH body of
+// One Metropolis-Hastings proposal and accept test of one (replica, rung)
+// state, shared by fused_pt.cu and fused_rwm.cu: the MH body of
 // rwm_pt_tpu/kernels/pallas_pt.py::_pt_body_fn (:57-68) and
 // pallas_rwm.py::_make_kernel (:293-312), with the three increments of
 // pallas_rwm.py (_normal, _laplace, _uniform_ball):
@@ -20,16 +20,29 @@
 //              r = sqrt(-2 log u1), theta = 2 pi u2 (rounded), and gives
 //              r cos theta to coordinate k and r sin theta to coordinate
 //              k + h (kernels/draws.py::bm_slots).
-// Box-Muller's second half lands at a runtime offset h, so the sines wait
-// in a small per-thread array (local memory) until the coordinates k + h,
-// which are compile-time indices again, read them back; x[] and p[] stay
-// in registers.
-// The uniform ball's direction stays in p[]: first the normals, then the
-// norm, then x + n/||n|| * r; no third array of DMAX floats.  Its MH word
-// (slot d) is read before the radius word (slot d+2), so Philox blocks are
-// taken in order and none is computed twice.
-// On return x holds the new state, p the state before the move, lp the new
-// log-density and `jump` = sum_i (x_new_i - x_old_i)^2 (0 on reject).
+//
+// State layout.  The current state x lives in a shared-memory slab, one
+// row per thread: coordinate i of a thread's state is row[i], rows
+// kRowPitch<DMAX> = DMAX + 4 words apart (a multiple of four that is 4 x an
+// odd number, so the 16-byte accesses of a quarter-warp's 8 threads cover
+// 32 distinct banks).  Rows are read and written four coordinates at a
+// time (float4), at offsets fixed at compile time from one base address:
+// no address arithmetic on the integer pipe that Philox already fills.
+// Only the proposal y[DMAX] is held in registers (the target's
+// log-density takes it there); that halves the registers a state costs
+// and lets more warps share an SM.  mh_propose reads x from the slab and
+// does not write it: the caller stores y on an accept once nothing needs
+// the pre-move state any more (the PT swap sweep's cold-rung jump does).
+// Box-Muller's sine of pair k belongs to coordinate k + h, an index known
+// at run time only, so it waits in a shared-memory row of its own
+// (kSinePitch<DMAX> = DMAX/2 + 1 words, odd, so a warp's 32 scalar
+// accesses hit 32 banks) until coordinate i >= h reads word i - h: a
+// runtime index into shared memory, where a register array would go to a
+// local-memory stack frame.
+// The uniform ball's direction stays in y[]: first the normals, then the
+// norm, then x + n/||n|| * r.  Its MH word (slot d) is read before the
+// radius word (slot d+2), so Philox blocks are taken in order and none is
+// computed twice.
 // Each increment product is rounded on its own (__fmul_rn), as the plain
 // version rounds it, instead of being contracted into the add.
 #pragma once
@@ -37,17 +50,31 @@
 #include "philox.cuh"
 #include "targets.cuh"
 
-// Fill p[0..d-1] with Box-Muller normals; leaves the block of the last
-// word drawn in (blk, cur_k).
 template <int DMAX>
-__device__ __forceinline__ void bm_normals(float (&p)[DMAX], int d,
-                                           int replica, int rung,
+constexpr int kRowPitch = DMAX + 4;
+template <int DMAX>
+constexpr int kSinePitch = DMAX / 2 + 1;
+
+__device__ __forceinline__ float quad_word(const float4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
+
+// Words 4q..4q+3 of a state row (16-byte aligned).
+__device__ __forceinline__ float4 row_quad(const float* row, int q) {
+  return reinterpret_cast<const float4*>(row)[q];
+}
+
+// Fill y[0..d-1] with Box-Muller normals, the sines through the thread's
+// shared-memory row sn; leaves the block of the last word drawn in
+// (blk, cur_k).
+template <int DMAX>
+__device__ __forceinline__ void bm_normals(float (&y)[DMAX], float* sn,
+                                           int d, int replica, int rung,
                                            int abs_step, uint32_t key0,
                                            uint32_t key1, uint4& blk,
                                            int& cur_k) {
   constexpr int HMAX = (DMAX + 1) / 2;
   const int h = (d + 1) >> 1;
-  float sn[HMAX];
   uint4 blk2;
   int cur2 = -1;
 #pragma unroll
@@ -60,30 +87,84 @@ __device__ __forceinline__ void bm_normals(float (&p)[DMAX], int d,
           j2, blk2, cur2, replica, rung, abs_step, key0, key1));
       float r, sn_k, cs_k;
       box_muller(u1, u2, r, sn_k, cs_k);
-      p[k] = cs_k;
+      y[k] = cs_k;
       sn[k] = sn_k;
     }
   }
 #pragma unroll
   for (int i = 1; i < DMAX; ++i)
-    if (i >= h && i < d) p[i] = sn[i - h];
+    if (i >= h && i < d) y[i] = sn[i - h];
   blk = blk2;
   cur_k = cur2;
 }
 
+// y[0..d-1] = the state row (and the row's words up to the next multiple
+// of four, which are never read as coordinates)
+template <int DMAX>
+__device__ __forceinline__ void load_row(float (&y)[DMAX], const float* row,
+                                         int d) {
+#pragma unroll
+  for (int q = 0; q < DMAX / 4; ++q) {
+    if (4 * q < d) {
+      const float4 v = row_quad(row, q);
+      y[4 * q] = v.x;
+      y[4 * q + 1] = v.y;
+      y[4 * q + 2] = v.z;
+      y[4 * q + 3] = v.w;
+    }
+  }
+}
+
+template <int DMAX>
+__device__ __forceinline__ void store_row(const float (&y)[DMAX], float* row,
+                                          int d) {
+#pragma unroll
+  for (int q = 0; q < DMAX / 4; ++q)
+    if (4 * q < d)
+      reinterpret_cast<float4*>(row)[q] =
+          make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2], y[4 * q + 3]);
+}
+
+// sum_i (y_i - row_i)^2 over i < d, in index order: the squared jump from
+// the state in the row to the state y
+template <int DMAX>
+__device__ __forceinline__ float sq_jump(const float (&y)[DMAX],
+                                         const float* row, int d) {
+  float jump = 0.0f;
+  float4 v;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) {
+    if (i < d) {
+      if ((i & 3) == 0) v = row_quad(row, i >> 2);
+      const float dd = y[i] - quad_word(v, i & 3);
+      jump += dd * dd;
+    }
+  }
+  return jump;
+}
+
+// Propose y from the state in the thread's slab row xs (sn: its
+// Box-Muller sine row) and test it.  Returns the decision; lp becomes the
+// proposal's log-density on an accept.  The slab is left as it was.
 template <int KIND, int PROP, int DRAW, int DMAX>
-__device__ __forceinline__ bool mh_move(
-    float (&x)[DMAX], float (&p)[DMAX], float& lp, float& jump, int d,
+__device__ __forceinline__ bool mh_propose(
+    float (&y)[DMAX], const float* xs, float* sn, float& lp, int d,
     const float* __restrict__ params, float scale,
     const float* __restrict__ lap, float inv_d, float beta, int replica,
     int rung, int abs_step, uint32_t key0, uint32_t key1, uint4& blk,
     int& cur_k) {
+  float4 xq;
   if constexpr (PROP != PROPOSAL_LAPLACE && DRAW == DRAW_BM) {
-    bm_normals<DMAX>(p, d, replica, rung, abs_step, key0, key1, blk, cur_k);
+    bm_normals<DMAX>(y, sn, d, replica, rung, abs_step, key0, key1, blk,
+                     cur_k);
     if constexpr (PROP == PROPOSAL_NORMAL) {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i)
-        if (i < d) p[i] = x[i] + __fmul_rn(p[i], scale);
+      for (int i = 0; i < DMAX; ++i) {
+        if (i < d) {
+          if ((i & 3) == 0) xq = row_quad(xs, i >> 2);
+          y[i] = quad_word(xq, i & 3) + __fmul_rn(y[i], scale);
+        }
+      }
     }
   } else {
 #pragma unroll
@@ -92,14 +173,17 @@ __device__ __forceinline__ bool mh_move(
         if ((i & 3) == 0) {
           blk = philox_block(i >> 2, replica, rung, abs_step, key0, key1);
           cur_k = i >> 2;
+          if constexpr (PROP != PROPOSAL_UNIFORM_RADIUS)
+            xq = row_quad(xs, i >> 2);
         }
         const float u = uniform_from_bits(philox_word(blk, i & 3));
         if constexpr (PROP == PROPOSAL_NORMAL) {
-          p[i] = x[i] + __fmul_rn(icdf_layout_normal<DRAW>(u), scale);
+          y[i] = quad_word(xq, i & 3) +
+                 __fmul_rn(icdf_layout_normal<DRAW>(u), scale);
         } else if constexpr (PROP == PROPOSAL_LAPLACE) {
-          p[i] = x[i] + laplace_increment(u, lap[i]);
+          y[i] = quad_word(xq, i & 3) + laplace_increment(u, lap[i]);
         } else {
-          p[i] = icdf_layout_normal<DRAW>(u);
+          y[i] = icdf_layout_normal<DRAW>(u);
         }
       }
     }
@@ -113,30 +197,22 @@ __device__ __forceinline__ bool mh_move(
     float nrm2 = 0.0f;
 #pragma unroll
     for (int i = 0; i < DMAX; ++i)
-      if (i < d) nrm2 += p[i] * p[i];
+      if (i < d) nrm2 += y[i] * y[i];
     const float den = fmaxf(sqrtf(nrm2), 1e-12f);
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i)
-      if (i < d) p[i] = x[i] + __fmul_rn(p[i] / den, r);
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) {
+        if ((i & 3) == 0) xq = row_quad(xs, i >> 2);
+        y[i] = quad_word(xq, i & 3) + __fmul_rn(y[i] / den, r);
+      }
+    }
   }
-  const float lp_prop = log_density<KIND, DMAX>(p, d, params);
+  const float lp_prop = log_density<KIND, DMAX>(y, d, params);
   const float log_ratio = beta * (lp_prop - lp);
   if constexpr (PROP != PROPOSAL_UNIFORM_RADIUS)
     w_mh = slot_word(d, blk, cur_k, replica, rung, abs_step, key0, key1);
   const float u = uniform_from_bits(w_mh);
   const bool accept = (log_ratio > 0.0f) || (u < expf(log_ratio));
-  jump = 0.0f;
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    if (i < d) {
-      const float old = x[i];
-      const float nx = accept ? p[i] : old;
-      const float dd = nx - old;
-      jump += dd * dd;
-      x[i] = nx;
-      p[i] = old;
-    }
-  }
   if (accept) lp = lp_prop;
   return accept;
 }

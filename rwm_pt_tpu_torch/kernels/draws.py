@@ -248,15 +248,11 @@ ICDF_LAYOUT = {"icdf": normal_icdf, "icdf_fastlog": normal_icdf_fastlog,
                "lax_erfinv": normal_laxerfinv,
                "fake_uniform": normal_fake_uniform}
 # Module-level override of the normal draw, read at each launch; "auto"
-# resolves per (kernel, block) from the measured decision
-# (resolve_normal_impl).  The draw study (chip_smoke.py phase 14) forces
+# takes the measured decision (resolve_normal_impl).  The draw study (chip_smoke.py phase 14) forces
 # each of NORMAL_IMPLS in turn.
 NORMAL_IMPL = "auto"
-# The measured rule of resolve_normal_impl: a kernel draws Box-Muller above
-# BM_ABOVE[kernel] replicas or chains, except on the target kinds of
-# ICDF_KINDS[kernel].
-BM_ABOVE = {"pt": 1024, "rwm": 1024}
-ICDF_KINDS = {"pt": ("mvn_full",), "rwm": ()}
+# The draw of resolve_normal_impl's measured rule, for both kernels
+RULE_DRAW = "lax_erfinv"
 
 
 def resolve_normal_impl(kernel: str, block: int,
@@ -264,29 +260,30 @@ def resolve_normal_impl(kernel: str, block: int,
     """The (kernel, block) -> normal-draw decision, with the JAX signature
     (``pallas_rwm.py:184-195``; ``block``: the launch's replicas or
     chains) and the target's kernel kind (``_build.target_kind``) besides.
-    A non-"auto" :data:`NORMAL_IMPL` wins.  Otherwise the rule
-    measured on one H100 (``chip_smoke.py`` phase 12, PERF.md; Box-Muller
-    must beat ICDF by more than 3 % at the shape; NVIDIA H100 80GB HBM3 at
-    700 W): both kernels draw Box-Muller above 1024 replicas or chains
-    (8.45 % faster at the flagship PT, 65,536 replicas; 7.06 % at the RWM
-    headline, 65,536 chains) and ICDF up to 1024 (Box-Muller 2.55 % faster
-    at the PT study's 1024 replicas, 2.71 % slower at the RWM study's
-    1024 chains); PT on the full-covariance MVN draws ICDF (Box-Muller
-    14.57 % slower at the flagship shape: its sines' stack frame on top of
-    254 registers).  The rule never picks the draw study's ``icdf_fastlog``,
-    ``lax_erfinv`` or ``fake_uniform``; the override takes all five draws
-    of :data:`NORMAL_IMPLS`, and any other name raises ``ValueError``."""
+    A non-"auto" :data:`NORMAL_IMPL` wins.  Otherwise the rule measured on
+    one H100 on the shared-memory kernels (``chip_smoke.py`` phase 12: the
+    four exact draws through the entry points, best of 3, interleaved;
+    NVIDIA H100 80GB HBM3 at 700 W; PERF.md): CUDA's ``erfinvf`` draw
+    (``lax_erfinv``) is the fastest exact draw at every shape timed, for
+    both kernels, so neither ``block`` nor the kind changes the pick:
+    122.787 ms at the flagship PT, 65,536 replicas (Box-Muller 169.664,
+    ICDF 192.866), 13.493 ms at the RWM headline, 65,536 chains
+    (Box-Muller 18.299), 52.550 ms at the PT study's 1024 replicas (ICDF
+    63.899), 151.371 ms at the RWM study's 1024 chains (ICDF 168.559) and
+    492.036 ms on the full-covariance MVN at the flagship's shape (ICDF
+    558.125).  ``icdf_fastlog`` was the slowest at each.  The rule never
+    picks ``fake_uniform`` (not a normal); the override takes all five
+    draws of :data:`NORMAL_IMPLS`, and any other name raises
+    ``ValueError``."""
     if NORMAL_IMPL != "auto":
         if NORMAL_IMPL not in NORMAL_IMPLS:
             raise ValueError(f"unknown normal draw {NORMAL_IMPL!r}; "
                              f"NORMAL_IMPL takes 'auto' or one of "
                              f"{NORMAL_IMPLS}")
         return NORMAL_IMPL
-    if kernel not in BM_ABOVE:
+    if kernel not in ("pt", "rwm"):
         raise ValueError(f"kernel must be 'pt' or 'rwm', not {kernel!r}")
-    if block <= BM_ABOVE[kernel] or target_kind in ICDF_KINDS[kernel]:
-        return "icdf"
-    return "bm"
+    return RULE_DRAW
 
 
 PROPOSAL_KINDS = ("Normal", "Laplace", "UniformRadius")

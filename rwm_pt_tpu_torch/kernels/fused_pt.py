@@ -143,7 +143,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     launch under ``<variant>.<target kind>`` (the library's name without
     its register bucket: ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
     ..; ``_build.by_variant`` sums them by variant), and a recorded one
-    also under ``fused_pt_record``."""
+    also under ``fused_pt_record``.  The replicas a block come from
+    ``_build.launch_geometry`` (the kernel's registers and launch bound,
+    the slabs' shared memory)."""
     variant = _build.library("fused_pt", kind, draw)
     tkind, params = _build.kernel_target(target)
     lib = _build.lib_name(variant, tkind, target.dim)
@@ -183,6 +185,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     swapacc = torch.empty_like(swapacc0)
     bj = torch.empty_like(betajump0)
     cj = torch.empty_like(coldjump0)
+    geo = _build.launch_geometry(lib, d, C, T, kind, draw, params.numel())
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             betas.data_ptr(),
@@ -193,6 +196,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             swap_every, step0, key[0], key[1],
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
+            geo.replicas, int(geo.runtime_r),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_pt_kernel.launches[f"{variant}.{tkind}"] += 1

@@ -88,7 +88,8 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     counts each launch under ``<variant>.<target kind>``
     (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``, ..;
     ``_build.by_variant`` sums them by variant), and a recorded one also
-    under ``fused_rwm_record``."""
+    under ``fused_rwm_record``.  The chains a block come from
+    ``_build.launch_geometry``."""
     variant = _build.library("fused_rwm", kind, draw)
     tkind, params = _build.kernel_target(target)
     lib = _build.lib_name(variant, tkind, target.dim)
@@ -124,6 +125,8 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     lp = torch.empty(C, dtype=torch.float32, device=x0.device)
     acc = torch.empty_like(acc0)
     jump = torch.empty_like(jump0)
+    geo = _build.launch_geometry(lib, d, C, proposal=kind, draw=draw,
+                                 n_params=params.numel())
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             scalar, float(beta),
@@ -131,7 +134,7 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), jump.data_ptr(),
             d, C, total, burn_in, step0, key[0], key[1], lap_ptr, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
-            torch.cuda.current_stream(x0.device).cuda_stream)
+            geo.threads, torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_rwm_kernel.launches[f"{variant}.{tkind}"] += 1
     if n_rec:

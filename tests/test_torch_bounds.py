@@ -1,0 +1,82 @@
+"""The least time the card could take for a fused kernel's work
+(``chip_smoke.py``'s ``pt_work``, ``rwm_work`` and ``bound``): the largest
+of the float operations at 67 TFLOP/s, Philox's int32 operations at 64 a
+clock an SM x 132 SMs x 1.98 GHz and the bytes at 3.35 TB/s, pinned to
+the hand counts of the flagship PT run and the RWM headline.  A Philox
+block is 10 rounds of 2 high and 2 low products and 2 three-input XORs:
+60 operations (the key schedule's additions depend on the key alone and
+are done once a thread)."""
+import pytest
+
+import chip_smoke as cs
+
+# bench.py:63-95 and scripts/bench_rwm_impl_block.py
+D, T, C, STEPS, SWAP_EVERY = 30, 10, 65536, 2000, 100
+
+
+def test_int32_peak():
+    assert cs.PEAK_INT32_OPS == pytest.approx(1.6727e13, rel=1e-4)
+
+
+def test_philox_block_ops():
+    assert cs.PHILOX_BLOCK_OPS == 10 * (2 + 2 + 2)
+    assert cs.PROBE_INT_OPS == 15      # two blocks a column of 8 normals
+
+
+def test_flagship_bound_counts_philox():
+    """8 Philox blocks (slots 0..30) a (replica, rung, step), 60 int32
+    operations each: 65,536 x 10 x 2000 x 480 = 6.2915e11, 37.6 ms, 3.7
+    times the Box-Muller float bound of 10.1 ms."""
+    flops, int_ops, nbytes = cs.pt_work("rosenbrock", D, T, C, STEPS, 0,
+                                        SWAP_EVERY, draw="bm")
+    assert int_ops == 65536 * 10 * 2000 * 8 * 60 == pytest.approx(
+        6.2915e11, rel=1e-4)
+    assert flops / cs.PEAK_F32_FLOPS * 1e3 == pytest.approx(10.146, rel=1e-3)
+    ms, by, limit = cs.bound(flops, int_ops, nbytes)
+    assert (by, limit) == ("operations", "int32")
+    assert ms == pytest.approx(37.612, rel=1e-3)
+
+
+def test_rwm_headline_bound_counts_philox():
+    flops, int_ops, nbytes = cs.rwm_work("rosenbrock", D, C, STEPS,
+                                         draw="bm")
+    assert int_ops == pytest.approx(6.2915e10, rel=1e-4)
+    assert flops / cs.PEAK_F32_FLOPS * 1e3 == pytest.approx(1.180, rel=1e-3)
+    ms, by, limit = cs.bound(flops, int_ops, nbytes)
+    assert (by, limit) == ("operations", "int32")
+    assert ms == pytest.approx(3.7612, rel=1e-3)
+
+
+@pytest.mark.parametrize("prop,d,draw,blocks", [
+    ("Normal", 30, "icdf", 8), ("Normal", 30, "bm", 8),
+    ("Normal", 31, "bm", 9),             # the odd d's angle in slot d+3
+    ("Normal", 31, "icdf", 8), ("UniformRadius", 30, "icdf", 9),
+    ("Laplace", 31, "bm", 8)])
+def test_philox_blocks(prop, d, draw, blocks):
+    assert cs.philox_blocks(prop, d, draw) == blocks
+
+
+def test_bound_takes_the_largest_time():
+    assert cs.bound(67e9, 0, 0) == (pytest.approx(1.0), "operations",
+                                    "float32")
+    assert cs.bound(0, 0, 3.35e9) == (pytest.approx(1.0), "bytes", "bytes")
+    ms, by, limit = cs.bound(67e9, 2 * cs.PEAK_INT32_OPS / 1e3, 3.35e9)
+    assert (ms, by, limit) == (pytest.approx(2.0), "operations", "int32")
+    # the probes move bytes: fast_log on 8192 floats
+    n = 8192
+    assert cs.bound(cs.FAST_LOG_FLOPS * n, cs.FAST_LOG_INT_OPS * n,
+                    8 * n)[2] == "bytes"
+
+
+def test_the_rules_draw_stays_int32_bound_and_the_full_mvn_does_not():
+    """At the flagship the rule's draw (CUDA's erfinvf, counted as Giles'
+    polynomial) takes 24.2 ms of float work, under Philox's 37.6; the
+    full-covariance MVN's d^2 quadratic form makes it float-bound."""
+    w = cs.pt_work("rosenbrock", D, T, C, STEPS, 0, SWAP_EVERY,
+                   draw="lax_erfinv")
+    assert w[0] / cs.PEAK_F32_FLOPS * 1e3 == pytest.approx(24.231, rel=1e-3)
+    assert cs.bound(*w)[2] == "int32"
+    ms, _, limit = cs.bound(*cs.pt_work("mvn_full", D, T, C, STEPS, 0,
+                                        SWAP_EVERY, draw="lax_erfinv",
+                                        n_params=1 + D + D * D))
+    assert limit == "float32" and ms == pytest.approx(56.135, rel=1e-3)

@@ -57,6 +57,13 @@ def _libraries():
     names += [lib(v, kind, KIND_CASES[kind][2])
               for v in ("fused_pt", "fused_rwm") for kind in KIND_CASES]
     names.append(lib("fused_pt", "mvn_full", 30))
+    names.append(lib("fused_pt", "rosenbrock", 64))
+    names += [lib(v, "mvn_iso", d)
+              for v in ("fused_pt", "fused_rwm", "fused_pt_bm", "fused_rwm_bm")
+              for d in (1, 32, 33)]
+    names += [lib(_build.library(f"fused_{a}", "Normal", draws.
+                                 resolve_normal_impl(a, 65536, "rosenbrock")),
+                  "rosenbrock", 30) for a in ("pt", "rwm")]
     names += [lib(_build.library(f"fused_{a}", p, impl), "rosenbrock", 9)
               for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
               for impl in STUDY_DRAWS]
@@ -424,24 +431,26 @@ def _mvn_full(d, dev):
                                    cov=a @ a.T / d + np.eye(d))
 
 
-@pytest.mark.parametrize("kind,T", [("rosenbrock", 20), ("mvn_full", 10)])
-def test_runtime_replicas_per_block_match_plain(kind, T):
-    """Launches whose 32 x T threads need more registers than a block may
-    hold (FullRosenbrock with T=20, the full-covariance MVN with T=10, both
-    at d=30) take the instantiation that reads R, the replicas a block, at
-    run time: fewer than 32, and 1000 replicas leave a ragged last block.
-    It is held against the plain version like the R=32 kernel."""
+@pytest.mark.parametrize("kind,T,d", [("rosenbrock", 20, 30),
+                                      ("rosenbrock", 32, 64),
+                                      ("mvn_full", 32, 30)])
+def test_runtime_replicas_per_block_match_plain(kind, T, d):
+    """Launches whose 32 x T threads exceed the kernel's 320-thread launch
+    bound (T = 20 and T = 32, at d = 30 and at the 64 bucket, where the
+    state and sine slabs take 120 KB a block, and the full-covariance MVN)
+    take the instantiation that reads R, the replicas a block, at run time:
+    fewer than 32, and 1003 replicas leave a ragged last block.  It is
+    held against the plain version like the R=32 kernel."""
     dev = _card()
-    d, C = 30, 1000
+    C = 1003
     target = (FullRosenbrock.create(d, device=dev) if kind == "rosenbrock"
               else _mvn_full(d, dev))
     name = _build.lib_name("fused_pt", kind, d)
-    _build.build([name])
-    regs = dict((n, r) for n, r, _, _ in
-                ptxas_report.parse(_build.PTXAS_LOG[name]))["D32 R32"]
-    # registers go to a warp in units of 256, a block has 64K of them
-    fits = 65536 // (32 * -(-regs // 8) * 8) * 32
-    assert 32 * T > min(fits, 1024), (regs, fits)
+    n_params = _build.kernel_target(target)[1].numel()
+    geo = _build.launch_geometry(name, d, C, T, "Normal", "icdf", n_params)
+    assert geo.runtime_r and geo.replicas < 32 and C % geo.replicas, geo
+    assert _build.kernel_info(name, d, T, geo.replicas, n_params,
+                              runtime_r=True)["blocks_per_sm"] >= 1
     base = 0.5 ** 2 / d if kind == "rosenbrock" else 0.4
     betas = torch.logspace(0, -2, T, device=dev)
     sig = torch.sqrt(torch.tensor(base, device=dev) / betas)
@@ -460,6 +469,82 @@ def test_runtime_replicas_per_block_match_plain(kind, T):
     assert a.frac >= AGREE_MIN, agreement.describe(a)
     assert not a.mismatched, agreement.describe(a)
     assert (k[2] > 0).any() and (k[3] > 0).any()
+
+
+@pytest.mark.parametrize("algo", ["pt", "rwm"])
+def test_main_path_library_layout(algo):
+    """The flagship's and the RWM headline's libraries: no stack frame and
+    no spills in either instantiation (Box-Muller's sines wait in shared
+    memory), the PT one 32 replicas a block and at least two 320-thread
+    blocks an SM; the shared bytes and blocks per SM of
+    ``_build.launch_geometry`` are what the CUDA runtime reports."""
+    _card()
+    d, T, C = 30, 10, 65536
+    draw = draws.resolve_normal_impl(algo, C, "rosenbrock")
+    name = _build.lib_name(_build.library(f"fused_{algo}", "Normal", draw),
+                           "rosenbrock", d)
+    entries = ptxas_report.parse(_build.build([name])[name])
+    assert entries and all(f == 0 and sp == 0 for _, _, f, sp in entries), \
+        entries
+    # built under its source's cap, not one of the fewer-block exceptions
+    assert _build._parts(name)[5] == _build.MIN_BLOCKS[f"fused_{algo}"]
+    if algo == "pt":
+        geo = _build.launch_geometry(name, d, C, T, "Normal", draw, d + 1)
+        info = _build.kernel_info(name, d, T, geo.replicas, d + 1)
+        assert not geo.runtime_r and geo.replicas == 32, geo
+        assert info["blocks_per_sm"] >= 2, info
+    else:
+        geo = _build.launch_geometry(name, d, C, 0, "Normal", draw, d + 1)
+        info = _build.kernel_info(name, d, 1, geo.replicas, d + 1)
+    assert info["local_bytes"] == 0
+    assert info["shared_bytes"] == geo.shared_bytes
+    assert info["blocks_per_sm"] == geo.blocks_per_sm, (info, geo)
+
+
+# (algo, d, T, C): d at the bottom and top of a bucket and just above it,
+# one rung and 32 rungs, one replica, and C not a multiple of the block
+EDGE_CASES = [("pt", 1, 4, 1000), ("pt", 32, 4, 1000), ("pt", 33, 4, 1000),
+              ("pt", 32, 1, 1000), ("pt", 1, 32, 1000), ("pt", 33, 3, 1),
+              ("rwm", 1, 1, 1000), ("rwm", 32, 1, 1000),
+              ("rwm", 33, 1, 1000), ("rwm", 33, 1, 1)]
+
+
+@pytest.mark.parametrize("draw", ["icdf", "bm"])
+@pytest.mark.parametrize("algo,d,T,C", EDGE_CASES,
+                         ids=[f"{a}-d{d}-T{t}-C{c}"
+                              for a, d, t, c in EDGE_CASES])
+def test_edge_shapes_match_plain(algo, d, T, C, draw):
+    """The slab layout at the edges of its shapes, held against the plain
+    version on the isotropic MVN (Box-Muller's sines too: at d = 1 the
+    only pair's angle sits in slot d+3, at d = 33 the sines take 17 rows):
+    every replica that runs shares no column with another."""
+    dev = _card()
+    target = MultivariateNormal.create(d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    var = 2.38 ** 2 / d
+    if algo == "pt":
+        betas = torch.logspace(0, -1.5, T, device=dev)
+        sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+        x0 = torch.randn(d, T, C, generator=g, device=dev)
+        args = (target, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(14), 0, 120, 20, 5)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+    else:
+        x0 = torch.randn(d, C, generator=g, device=dev)
+        args = (target, x0, zi(C), zf(C), torch.tensor(1.0, device=dev),
+                torch.sqrt(torch.tensor(var, device=dev)), seed_key(14), 0,
+                120, 20)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+    k = launch(*args, draw=draw)
+    p = plain(*args, draw=draw)
+    a = agreement.hold(k, p, names, lp_of=target.log_density_td)
+    assert a.frac >= (AGREE_MIN if C > 1 else 1.0), agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    assert torch.isfinite(k[1]).all() and (k[2] > 0).any()
 
 
 @pytest.mark.parametrize("impl", draws.NORMAL_IMPLS)

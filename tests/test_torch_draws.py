@@ -246,19 +246,18 @@ def test_normal_bm_distribution():
 
 
 def test_resolve_normal_impl(monkeypatch):
-    """The JAX signature and override, with the rule measured on the H100:
-    Box-Muller above 1024 replicas or chains, ICDF up to 1024 and for PT
-    on the full-covariance MVN; NORMAL_IMPL wins and takes all five draws
-    of the JAX package (the rule never picks a draw-study one); an unknown
-    name raises ValueError."""
+    """The JAX signature and override, with the rule measured on the H100
+    on the shared-memory kernels: CUDA's erfinvf draw (``lax_erfinv``) for
+    both kernels at every size and on every target kind, the studies' 1024
+    replicas or chains and the full-covariance MVN included; NORMAL_IMPL
+    wins and takes all five draws of the JAX package (the rule never picks
+    the fake uniform); an unknown name raises ValueError."""
     for block in (512, 1024, 1025, 65536):
         for kernel in ("pt", "rwm"):
-            for kind in (None, "rosenbrock", "three_mixture"):
+            for kind in (None, "rosenbrock", "three_mixture", "rough_carpet",
+                         "mvn_full"):
                 assert draws.resolve_normal_impl(kernel, block, kind) == (
-                    "icdf" if block <= 1024 else "bm")
-        assert draws.resolve_normal_impl("pt", block, "mvn_full") == "icdf"
-        assert draws.resolve_normal_impl("rwm", block, "mvn_full") == (
-            "icdf" if block <= 1024 else "bm")
+                    "lax_erfinv")
     with pytest.raises(ValueError, match="kernel"):
         draws.resolve_normal_impl("mala", 65536)
     assert set(draws.NORMAL_IMPLS) == set(pallas_rwm._NORMAL_IMPLS)
