@@ -120,7 +120,28 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    tests' rate gates on MVN at 65,536 replicas or chains; Geweke at the
    tuned multipliers and at a tuned ladder; the ``single_run --autotune
    --no_plots`` CLI in a process of its own, its JSON with JAX's keys
-   (``smoke_out/single_run/``).
+   (``smoke_out/single_run/``);
+16. the warp kernels above 64 dimensions (``csrc/fused_pt_warp.cu``,
+   ``csrc/fused_rwm_warp.cu``, one warp a replica): (a) built with the
+   rest in phase 2 (no stack frame, no spill; registers and blocks per
+   SM); (b) every warp library held against its plain version (phase 3's
+   checks) at d = 100 on every target kind, RWM and PT (T = 10, both
+   sweeps), Laplace and UniformRadius and the five draws on the iso MVN,
+   recorded, and at the buckets' edges d = 65, 124, 125, 252 (1000
+   replicas, ragged; Box-Muller at the odd 65); (c) Geweke at d = 100 on
+   the iso MVN and IIDGamma's exact tempered law; (d) the reference's
+   d = 100 RWM campaigns (``data/ref_averaged``) through ``run_rwm_fused``
+   under the JAX parity protocol, max z <= 4 on the MVN under Laplace and
+   UniformRadius and IIDGamma, Hypercube printed, s a point beside the
+   JAX run's (a TPU time, ``data/parity_r2``); (e) ``MCMCSimulation``
+   RWM and PT (``engine='auto'``), ``experiment_rwm``, ``single_run``
+   and an autotuned PT run at d = 100, each launching only ``.w128``
+   libraries; (f) each warp kernel at the main shape (d = 100,
+   FullRosenbrock and the iso MVN, 65,536 replicas x T = 10 or chains,
+   2000 steps) beside its bound and the eager engine, the exact draws at
+   d = 100, and for the record the warp kernels beside the thread kernels
+   at d = 30 and at the RWM study's d = 20.  Output under
+   ``smoke_out/warp/``.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -206,6 +227,28 @@ PROBE_SOURCE = "rwm_pt_tpu_torch/kernels/csrc/draw_probes.cu"
 # variance
 TUNE = dict(burn_in=3000, every=100, iters=2000, mis=1 / 100)
 OPT_VAR = 2.38 ** 2 / 10
+# phase 16, the warp kernels above 64 dimensions: the d of the reference's
+# campaigns, the buckets' edges, HybridRosenbrock's blocks at d = 100
+# (d = 1 + n2 (n1 - 1)), the holds' shape, the main shape's held steps (its
+# plain version takes ~0.1 s a step), the eager engine's timed steps
+WARP_D = 100
+WARP_EDGES = (65, 124, 125, 252)
+WARP_KW = {"hybrid_rosenbrock": {"n1": 4, "n2": 33}}
+WARP_HOLD = dict(steps=100, burn_in=20, swap_every=10, T=10, C_pt=512,
+                 C_rwm=1024)
+WARP_MAIN_HOLD_STEPS = 50
+EAGER_STEPS = 20
+# the reference's d = 100 RWM campaigns (scripts/run_parity_matrix.sh:32,
+# 36-37, 39-40; data/ref_averaged/) under the JAX parity protocol
+# (scripts/parity_vs_reference.py:38-53, 95-140): every second scale of the
+# reference's grid, 512 chains, burn-in 1000, the reference's iterations;
+# gated: max z <= 4 of |acc - ref| / the reference's single-seed spread
+# (:398-405); Hypercube printed only (the JAX run's own z is 6.0)
+CAMPAIGNS = (("MultivariateNormal", "Laplace", 100000, True),
+             ("MultivariateNormal", "UniformRadius", 100000, True),
+             ("IIDGamma", "Normal", 100000, True),
+             ("Hypercube", "Normal", 200000, False))
+CAMPAIGN = dict(chains=512, burn_in=1000, stride=2, z_max=4.0)
 # the keys of the JAX single_run's JSON for an autotuned RWM run
 # (rwm_pt_tpu/cli/single_run.py:55-84)
 SINGLE_RUN_KEYS = {"target_distribution", "proposal_distribution",
@@ -385,23 +428,23 @@ def hold_run(torch, what, launch, plain, args, kw, names):
 
 
 def kernel_record(torch, name, source, replaces, launches, launch, plain,
-                  names, case, iters, phase=6):
+                  names, case, iters, phase=6, hold_steps=HOLD_STEPS):
     """Time kernel ``name`` alone at its main path's size (``iters`` steps,
-    best of 3), then over HOLD_STEPS steps at the main path's shapes time
+    best of 3), then over ``hold_steps`` steps at the main path's shapes time
     it again, time its plain version once, hold the two together
     (:func:`hold_run`) and set both kernel times beside their bounds.
     ``case(steps, hold)`` gives a launch's ``(args, kw, work)``, ``work``
     being ``(flops, Philox int ops, bytes)``; the held run (``hold=True``)
     may record more replicas or swap more often than the main path, so
     that the hold sees more.  ``ms``, ``plain_ms`` and ``bound_ms`` of the
-    record are for the HOLD_STEPS run, the ``main_path_*`` keys for the
+    record are for the ``hold_steps`` run, the ``main_path_*`` keys for the
     main path's size."""
     from rwm_pt_tpu_torch.kernels import agreement
     full_args, full_kw, full_work = case(iters, False)
     full_ms, _ = cuda_ms(torch, lambda: launch(*full_args, **full_kw),
                          reps=3)
     del full_args, _
-    hold_args, hold_kw, (flops, int_ops, nbytes) = case(HOLD_STEPS, True)
+    hold_args, hold_kw, (flops, int_ops, nbytes) = case(hold_steps, True)
     ms, plain_ms, ag = hold_run(torch, f"{name} at main-path shapes", launch,
                                 plain, hold_args, hold_kw, names)
     b_ms, b_by, b_limit = bound(flops, int_ops, nbytes)
@@ -411,13 +454,13 @@ def kernel_record(torch, name, source, replaces, launches, launch, plain,
         f"size, bound {full_b_ms:.3f} ms by {full_by} "
         f"({100 * full_b_ms / full_ms:.1f} % of it reached; {full_flops:.4g} "
         f"flops, {full_int:.4g} Philox int ops, {full_bytes:.4g} B); "
-        f"{HOLD_STEPS} steps at main-path shapes: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms ({plain_ms / HOLD_STEPS:.3f} ms/step), bound "
+        f"{hold_steps} steps at main-path shapes: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms ({plain_ms / hold_steps:.3f} ms/step), bound "
         f"{b_ms:.3f} ms; {agreement.describe(ag)}")
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=ag.max_dx, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, steps=HOLD_STEPS,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, steps=hold_steps,
         agree_frac=ag.frac, max_rel_err=ag.max_rel, flops=flops,
         philox_int_ops=int_ops, bytes=nbytes, main_path_steps=iters,
         main_path_ms=full_ms, main_path_bound_ms=full_b_ms,
@@ -812,12 +855,14 @@ def phases_7_to_10(torch, gen):
     return out
 
 
-def kind_target(get_target_distribution, kind, d, dev, name=None, **extra):
+def kind_target(get_target_distribution, kind, d, dev, name=None, kw=None,
+                **extra):
     """Phase 11's target of ``kind`` at d=10 (held) or d=30 (flagship; the
-    kind's nearest valid d), and its Normal proposal variance."""
+    kind's nearest valid d), or with the registry arguments ``kw``, and its
+    Normal proposal variance."""
     import numpy as np
     reg, kw10, kw30, var_d = KINDS[kind]
-    kw = kw10 if d == 10 else kw30
+    kw = kw or (kw10 if d == 10 else kw30)
     if kw == "cov":
         a = np.random.default_rng(3).normal(size=(d, d))
         kw = {"cov": a @ a.T / d + np.eye(d)}
@@ -1815,6 +1860,404 @@ def phase_15(torch):
     say(f"phase 15 {time.time() - t_phase:.1f} s")
 
 
+def warp_target(get_target_distribution, kind, d, dev):
+    """Phase 16's target of kernel kind ``kind`` at d coordinates (phase
+    11's kinds with their d=30 arguments, HybridRosenbrock's blocks for
+    d = 100; the iso MVN and FullRosenbrock besides), and its Normal
+    variance."""
+    if kind == "mvn_iso":
+        return (get_target_distribution("MultivariateNormal", d, device=dev),
+                2.38 ** 2 / d)
+    if kind == "rosenbrock":
+        return (get_target_distribution("FullRosenbrock", d, device=dev),
+                FLAG["base_variance"] * FLAG["dim"] / d)
+    return kind_target(get_target_distribution, kind, d, dev,
+                       kw=WARP_KW.get(kind))
+
+
+def phase_16(torch, gen):
+    """Phase 16, the warp kernels above 64 dimensions (A15): (b) every warp
+    library held against its plain version, (c) Geweke at d = 100, (d) the
+    reference's d = 100 RWM campaigns, (e) the entry points at d = 100,
+    (f) timing at the main shape beside the bound and the eager engine,
+    the normal draws at d = 100, and (for the record) the warp kernels
+    beside the thread kernels at d = 30 and the RWM study's d = 20.
+    Returns the warp kernels' JSON records, with their launches on the
+    runs of (d) and (e)."""
+    import contextlib
+    import glob
+
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import experiment_rwm, single_run
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          fused_rwm, run_pt, run_rwm,
+                                          run_rwm_fused)
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.proposals import (NormalProposal,
+                                            create_proposal_distribution)
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    D = WARP_D
+    h = WARP_HOLD
+    rule = {a: draws.resolve_normal_impl(a, 65536) for a in ("pt", "rwm")}
+
+    def proposal(prop, dim, var):
+        return None if prop == "Normal" else create_proposal_distribution(
+            dim, {"name": prop, "params": proposal_params(prop, dim, var)},
+            device=dev)
+
+    def case(algo, tg, var, steps, C, T=h["T"], prop="Normal", draw=None,
+             burn_in=h["burn_in"], swap_every=h["swap_every"], seed=61):
+        """(launch, plain, output names, args, kw, work) of a launch of
+        kernel ``algo`` on ``tg``."""
+        draw = draw or rule[algo]
+        n_params = _build.kernel_target(tg)[1].numel()
+        pr = proposal(prop, tg.dim, var)
+        if algo == "pt":
+            betas = torch.logspace(0, -2, T, device=dev)
+            kind, sig = fused_pt.rung_scales(pr, var, betas,
+                                             torch.ones_like(betas))
+            x0 = tg.init_sample(C, gen).T[:, None].expand(
+                tg.dim, T, C).contiguous()
+            args = (tg, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                    seed_key(seed), 0, steps, burn_in, swap_every)
+            work = pt_work(_build.target_kind(tg), tg.dim, T, C, steps,
+                           burn_in, swap_every, prop=kind, draw=draw,
+                           n_params=n_params)
+            return (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+                    agreement.PT_OUTPUTS, args, dict(kind=kind, draw=draw),
+                    work)
+        beta = torch.tensor(1.0, device=dev)
+        kind, scale = fused_rwm.proposal_scale(pr, var, beta)
+        x0 = tg.init_sample(C, gen).T.contiguous()
+        args = (tg, x0, zi(C), zf(C), beta, scale, seed_key(seed), 0, steps,
+                burn_in)
+        work = rwm_work(_build.target_kind(tg), tg.dim, C, steps, prop=kind,
+                        draw=draw, n_params=n_params)
+        return (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+                agreement.RWM_OUTPUTS, args, dict(kind=kind, draw=draw), work)
+
+    def hold(label, algo, tg, var, C=None, record=False, sweep=None, **kw):
+        """One 16b hold: the warp library against its plain version
+        (:func:`hold_run`), its launches counted under the library's
+        ``.w<D>`` key and nowhere else."""
+        C = C or (h["C_pt"] if algo == "pt" else h["C_rwm"])
+        launch, plain, names, args, lkw, _ = case(algo, tg, var, h["steps"],
+                                                  C, **kw)
+        if sweep:
+            lkw["swap_sweep"] = sweep
+        if record:
+            lkw.update(record_every=1, record_chains=C)
+            names = names + ("chain",)
+        lib = _build.lib_name(_build.library(f"fused_{algo}", lkw["kind"],
+                                             lkw["draw"]),
+                              _build.target_kind(tg), tg.dim)
+        reset_launches(*wrappers)
+        ms, plain_ms, ag = hold_run(torch, f"phase 16b {label} ({lib})",
+                                    launch, plain, args, lkw, names)
+        seen = read_launches(*wrappers, by_kind=True)
+        want = {_build.launch_key(lib)} | (
+            {f"fused_{algo}_record"} if record else set())
+        if not _build.is_warp(lib) or set(seen) != want:
+            fail(f"phase 16b {label}: launches {dict(seen)}, want {want}")
+        say(f"phase 16b {label}: {lib} kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms; {agreement.describe(ag)}")
+        return ag
+
+    # ---- (b) holds
+    worst = 1.0
+    for kind in _build.TARGET_KINDS:
+        tg, var = warp_target(get_target_distribution, kind, D, dev)
+        worst = min(worst, hold(f"{kind} d={tg.dim} RWM", "rwm", tg,
+                                var).frac)
+        for sweep in ("sequential", "even_odd"):
+            worst = min(worst, hold(f"{kind} d={tg.dim} PT T={h['T']} "
+                                    f"{sweep}", "pt", tg, var,
+                                    sweep=sweep).frac)
+    mvn, var = warp_target(get_target_distribution, "mvn_iso", D, dev)
+    for algo in ("rwm", "pt"):
+        for prop in NEW_PROPOSALS:
+            hold(f"{prop} MVN d={D} {algo.upper()}", algo, mvn, var,
+                 prop=prop)
+        for dr in draws.NORMAL_IMPLS:
+            if dr != rule[algo]:
+                hold(f"draw {dr} MVN d={D} {algo.upper()}", algo, mvn, var,
+                     draw=dr)
+        hold(f"recorded MVN d={D} {algo.upper()}", algo, mvn, var,
+             record=True)
+        for d_e in WARP_EDGES:
+            te, ve = warp_target(get_target_distribution, "mvn_iso", d_e,
+                                 dev)
+            hold(f"edge d={d_e} {algo.upper()} (1000, ragged)", algo, te, ve,
+                 C=1000, T=4)
+        te, ve = warp_target(get_target_distribution, "mvn_iso",
+                             WARP_EDGES[0], dev)
+        hold(f"edge d={WARP_EDGES[0]} {algo.upper()} Box-Muller (odd d)",
+             algo, te, ve, C=1000, T=4, draw="bm")
+    say(f"phase 16b {time.time() - t_phase:.1f} s; least share of replicas "
+        f"that agree over the kinds {worst:.5f}")
+
+    # ---- (c) Geweke at d = 100: the iso MVN and IIDGamma's exact
+    # tempered law, RWM and PT on six rungs 1 .. 0.3
+    seed = int.from_bytes(os.urandom(4), "little")
+    ladder = [0.3 ** (t / 5) for t in range(6)]
+    gamma, var_g = warp_target(get_target_distribution, "iid_gamma", D, dev)
+    for tg, v, exact in ((mvn, var, None),
+                         (gamma, var_g, tempered_gamma(gamma))):
+        reset_launches(*wrappers)
+        z_rwm, z_pt, sw = invariance(torch, tg, seed, betas=ladder,
+                                     exact=exact, base_variance=v)
+        seen = read_launches(*wrappers, by_kind=True)
+        say(f"phase 16c invariance {tg.get_name()} d={tg.dim} (seed {seed}): "
+            f"max z RWM {z_rwm:.2f}, PT {z_pt:.2f} (< {Z_INV_MAX}) on rungs "
+            f"1 .. 0.3 (6); PT swap acc {sw:.3f}; launches {dict(seen)}")
+        if (max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, ladder)
+                or not all(k.endswith(".w128") for k in seen)):
+            fail(f"phase 16c invariance failed for {tg.get_name()}")
+
+    # ---- (d) the reference's d = 100 campaigns through run_rwm_fused
+    t0 = time.time()
+    reset_launches(*wrappers)
+    main_seen = Counter()
+    n_runs = 0
+    for name, prop, iters, gated in CAMPAIGNS:
+        (path,) = glob.glob(os.path.join(
+            HERE, "data", "ref_averaged", f"{name}_{prop}_RWM_GPU_dim{D}_"
+            f"{iters}iters_seeds*_averaged.json"))
+        with open(path) as f:
+            ref = json.load(f)
+        st = CAMPAIGN["stride"]
+        grid = ref["scale_param_range"][::st]
+        ref_acc = ref["acceptance_rates"][::st]
+        spread = ref["acceptance_rates_seed_std"][::st]
+        tg = get_target_distribution(name, D, device=dev)
+        zs, accs, secs = [], [], []
+        for i, sc in enumerate(grid):
+            var_i = float(sc) ** 2 / D
+            params = ({"base_radius": float(sc)} if prop == "UniformRadius"
+                      else {"base_variance_vector": var_i}
+                      if prop == "Laplace" else
+                      {"base_variance_scalar": var_i})
+            pr = create_proposal_distribution(
+                D, {"name": prop, "params": params}, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run_rwm_fused(tg, 1000 + i, proposal=pr,
+                                num_chains=CAMPAIGN["chains"],
+                                num_iterations=iters,
+                                burn_in=CAMPAIGN["burn_in"], device=dev)
+            acc = res.acceptance_rate.mean().item()
+            secs.append(time.perf_counter() - t1)
+            accs.append(acc)
+            zs.append(abs(acc - ref_acc[i]) / spread[i])
+            n_runs += 1
+        jax_file = os.path.join(HERE, "data", "parity_r2",
+                                f"{name}_{prop}_RWM_GPU_dim{D}_{iters}"
+                                "iters.json")
+        with open(jax_file) as f:
+            jax_s = json.load(f)["elapsed_s"] / len(grid)
+        z_max = max(zs)
+        say(f"phase 16d campaign {name} {prop} d={D} {iters} iterations "
+            f"({len(grid)} scales, {CAMPAIGN['chains']} chains, burn-in "
+            f"{CAMPAIGN['burn_in']}): max z {z_max:.3f} "
+            f"({'gate <= ' + str(CAMPAIGN['z_max']) if gated else 'printed'}"
+            f"), points beyond 2 sd {sum(z > 2 for z in zs)}; acc "
+            f"{[round(a, 4) for a in accs]}; {sum(secs) / len(secs):.3f} s a "
+            f"point on this card (the JAX run on its TPU: "
+            f"{jax_s:.3f} s a point, data/parity_r2)")
+        if gated and z_max > CAMPAIGN["z_max"]:
+            fail(f"campaign {name} {prop} d={D}: max z {z_max:.3f}")
+    main_seen.update(read_launches(*wrappers))
+    if (not all(k.endswith(".w128") for k in main_seen)
+            or sum(main_seen.values()) != n_runs):
+        fail(f"phase 16d launches {dict(main_seen)}")
+    say(f"phase 16d {time.time() - t0:.1f} s; launches {dict(main_seen)}")
+
+    # ---- (e) the entry points at d = 100
+    def want_warp(label, seen, n=None):
+        keys = [k for k in seen if not k.endswith("_record")]
+        if not keys or not all(k.endswith(".w128") for k in keys) or (
+                n is not None and sum(seen[k] for k in keys) != n):
+            fail(f"phase 16e {label}: launches {dict(seen)}")
+        main_seen.update(seen)
+
+    betas4 = [1.0, 0.7, 0.5, 0.35]
+    for algo in ("RWM", "PT"):
+        sim = MCMCSimulation(
+            dim=D, sigma=var, num_iterations=2000, algorithm=algo,
+            target_dist="MultivariateNormal", seed=0,
+            beta_ladder=betas4 if algo == "PT" else None, num_chains=4096,
+            swap_every=100, record_chain=True, record_chains=REC_CHAINS,
+            engine="auto", device=dev)
+        reset_launches(*wrappers)
+        chain = sim.generate_samples(verbose=False)
+        seen = read_launches(*wrappers)
+        want_warp(f"MCMCSimulation {algo}", seen, 1)
+        if (sim.engine_used != "pallas" or chain.shape != (2000, D)
+                or not torch.isfinite(torch.as_tensor(chain)).all()):
+            fail(f"phase 16e MCMCSimulation {algo}: engine "
+                 f"{sim.engine_used}, chain {getattr(chain, 'shape', None)}")
+        say(f"phase 16e MCMCSimulation {algo} d={D} (4096, engine='auto'): "
+            f"engine {sim.engine_used}, {sim.elapsed_time * 1e3:.3f} ms "
+            f"wall, acc {sim.acceptance_rate():.4f}; launches {dict(seen)}")
+        del sim, chain
+    out_dir = os.path.join(HERE, "smoke_out", "warp")
+    reset_launches(*wrappers)
+    with contextlib.redirect_stdout(sys.stderr):
+        data = experiment_rwm.main([
+            "--dim", str(D), "--target", "MultivariateNormal",
+            "--num_iters", "2000", "--burn_in", "200", "--num_configs", "4",
+            "--num_chains", "512", "--no_plots", "--output_dir",
+            os.path.join(out_dir, "study")])
+    seen = read_launches(*wrappers)
+    want_warp("experiment_rwm", seen, 4)
+    say(f"phase 16e experiment_rwm --dim {D}, 4 configs: acc "
+        f"{[round(a, 4) for a in data['acceptance_rates']]}; launches "
+        f"{dict(seen)}")
+    reset_launches(*wrappers)
+    with contextlib.redirect_stdout(sys.stderr):
+        data = single_run.main([
+            "--dim", str(D), "--target", "MultivariateNormal",
+            "--num_chains", "1024", "--burn_in", "200", "--num_iters",
+            "1000", "--seed", "3", "--no_plots", "--output_dir",
+            os.path.join(out_dir, "single_run")])
+    seen = read_launches(*wrappers)
+    want_warp("single_run", seen)
+    say(f"phase 16e single_run --dim {D}: acc {data['acceptance_rate']:.4f};"
+        f" launches {dict(seen)}")
+    sim = MCMCSimulation(
+        dim=D, sigma=var * TUNE["mis"] * 10, num_iterations=1000,
+        algorithm="PT", target_dist="MultivariateNormal", seed=0,
+        beta_ladder=betas4, num_chains=1024, swap_every=100, burn_in=1000,
+        autotune=True, autotune_every=TUNE["every"], record_chain=False,
+        engine="pallas", device=dev)
+    reset_launches(*wrappers)
+    sim.generate_samples(verbose=False)
+    seen = read_launches(*wrappers)
+    want_warp("autotuned PT", seen, 1)
+    mult = sim.get_diagnostic_info()["tuned_scale_multiplier"]
+    accs = sim._result.acceptance_rate.mean(1).tolist()
+    say(f"phase 16e autotuned PT d={D} (1024 x 4 rungs, variance /10, "
+        f"burn-in 1000): tuned multipliers "
+        f"{[round(float(m), 3) for m in mult]}, per-rung acc "
+        f"{[round(a, 4) for a in accs]}; engine {sim.engine_used}; "
+        f"launches {dict(seen)}")
+    del sim
+
+    # ---- (f) timing at the main shape, d = 100
+    C, Cr, T, iters = FLAG["C"], RWM_MAIN["C"], FLAG["T"], FLAG["iters"]
+    kernels = []
+    for algo, src, site in (
+            ("pt", "fused_pt_warp.cu", "rwm_pt_tpu/kernels/pallas_pt.py:399"),
+            ("rwm", "fused_rwm_warp.cu",
+             "rwm_pt_tpu/kernels/pallas_rwm.py:570")):
+        rb, var_rb = warp_target(get_target_distribution, "rosenbrock", D,
+                                 dev)
+        name = f"{_build.library(f'fused_{algo}', 'Normal', rule[algo])}.w128"
+        cc = C if algo == "pt" else Cr
+
+        def rb_case(steps, hold_, algo=algo, rb=rb, var_rb=var_rb, cc=cc):
+            _, _, _, args, kw, work = case(
+                algo, rb, var_rb, steps, cc, burn_in=0,
+                swap_every=10 if hold_ else FLAG["swap_every"])
+            return args, kw, work
+        launch, plain, names = (
+            (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+             agreement.PT_OUTPUTS) if algo == "pt" else
+            (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+             agreement.RWM_OUTPUTS))
+        rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
+                            + src, site, main_seen[name], launch, plain,
+                            names, rb_case, iters, phase=16,
+                            hold_steps=WARP_MAIN_HOLD_STEPS)
+        rec["dim"] = D
+        rec["record_launches"] = main_seen[f"fused_{algo}_record"]
+        # the iso MVN at the same shape, kernel alone
+        _, _, _, args, kw, work = case(algo, mvn, var, iters, cc, burn_in=0,
+                                       swap_every=FLAG["swap_every"])
+        ms, _ = cuda_ms(torch, lambda: launch(*args, **kw), reps=3)
+        b_ms, _, b_lim = bound(*work)
+        rec["mvn_iso_ms"], rec["mvn_iso_bound_ms"] = ms, b_ms
+        del args
+        # the eager engine the harness took before this slice, EAGER_STEPS
+        # steps at the same shape, scaled to the main path's steps
+        pr = NormalProposal.create(D, var, device=dev)
+        if algo == "pt":
+            betas = torch.logspace(0, -2, T, device=dev)
+            eager = lambda: run_pt(mvn, pr, 5, betas, num_chains=C,  # noqa
+                                   num_iterations=EAGER_STEPS,
+                                   swap_every=FLAG["swap_every"],
+                                   swap_sweep="sequential", device=dev)
+        else:
+            eager = lambda: run_rwm(mvn, pr, 5, num_chains=Cr,  # noqa
+                                    num_iterations=EAGER_STEPS, device=dev)
+        eager()
+        e_ms, _ = cuda_ms(torch, eager)
+        e_step = e_ms / EAGER_STEPS
+        say(f"phase 16f {name} MVN d={D} at the main shape ({cc} "
+            f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {iters} "
+            f"steps): kernel {ms:.3f} ms, bound {b_ms:.3f} ms by {b_lim} "
+            f"({100 * b_ms / ms:.1f} %); the eager engine {e_step:.3f} ms a "
+            f"step ({EAGER_STEPS} steps), {e_step * iters:.1f} ms for "
+            f"{iters} steps")
+        rec["eager_ms_per_step"] = e_step
+        kernels.append(rec)
+        torch.cuda.empty_cache()
+
+    # the exact draws at d = 100 (interleaved, best of 3): the warp rule
+    for algo, steps, cc in (("rwm", iters, Cr), ("pt", 200, C)):
+        times = {dr: math.inf for dr in EXACT_DRAWS}
+        for rep in range(3):
+            for dr in (EXACT_DRAWS if rep % 2 == 0 else EXACT_DRAWS[::-1]):
+                launch, _, _, args, kw, _ = case(algo, mvn, var, steps, cc,
+                                                 draw=dr, burn_in=0,
+                                                 swap_every=100)
+                ms, _ = cuda_ms(torch, lambda: launch(*args, **kw))
+                times[dr] = min(times[dr], ms)
+                del args
+        best = min(times, key=times.get)
+        say(f"phase 16f exact draws, {algo.upper()} MVN d={D}, {cc} "
+            f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {steps} "
+            f"steps: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                   times.items())
+            + f"; fastest {best}, the rule takes {rule[algo]}")
+
+    # for the record: the warp kernels beside the thread kernels at d = 30
+    # (the flagship and the RWM headline) and the RWM study's d = 20
+    study = get_target_distribution(STUDY["target"], STUDY["dim"],
+                                    device=dev)
+    rb30, var30 = warp_target(get_target_distribution, "rosenbrock",
+                              FLAG["dim"], dev)
+    for label, algo, tg, v, cc, steps, prop in (
+            (f"flagship PT d={FLAG['dim']}", "pt", rb30, var30, C, iters,
+             "Normal"),
+            (f"RWM headline d={FLAG['dim']}", "rwm", rb30, var30, Cr, iters,
+             "Normal"),
+            (f"RWM study {STUDY['target']} d={STUDY['dim']}, UniformRadius",
+             "rwm", study, 2.4654 ** 2 / STUDY["dim"], STUDY["C"],
+             BM_STUDY_STEPS, "UniformRadius")):
+        launch, _, _, args, kw, _ = case(algo, tg, v, steps, cc, prop=prop,
+                                         draw=draws.resolve_normal_impl(
+                                             algo, cc, None), burn_in=0,
+                                         swap_every=FLAG["swap_every"])
+        t = {False: math.inf, True: math.inf}
+        for w in (False, True, True, False):
+            ms, _ = cuda_ms(torch, lambda: launch(*args, warp=w, **kw))
+            t[w] = min(t[w], ms)
+        say(f"phase 16f (record only) {label}, {cc} "
+            f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {steps} "
+            f"steps: thread kernel {t[False]:.3f} ms, warp kernel "
+            f"{t[True]:.3f} ms ({t[True] / t[False]:.2f}x)")
+        del args
+    say(f"phase 16 {time.time() - t_phase:.1f} s")
+    return kernels
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -1824,8 +2267,8 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     src, pc, dc, _, dmax, blocks = _build._parts(name)
     prop = next(p for p, (_, c) in _build.PROPOSALS.items() if c == pc)
     draw = next(k for k, (_, c) in _build.DRAWS.items() if c == dc)
-    d = d or dmax
-    pt = src == "fused_pt"
+    d = d or (dmax - 4 if _build.is_warp(name) else dmax)
+    pt = src.startswith("fused_pt")
     geo = _build.launch_geometry(name, d, 65536, T if pt else 0, prop, draw,
                                  n_params)
     info = _build.kernel_info(
@@ -1875,6 +2318,19 @@ def smoke_libraries(_build):
         "pt", FLAG["C"], "mvn_iso")), "mvn_iso", 5),             # 15
               lib(_build.library("fused_rwm", "Normal", resolve_normal_impl(
                   "rwm", 1024, "mvn_iso")), "mvn_iso", 5)]
+    for a in ("pt", "rwm"):                                      # 16
+        rule = resolve_normal_impl(a, 65536)
+        v = _build.library(f"fused_{a}", "Normal", rule)
+        names += [lib(v, k, WARP_D) for k in _build.TARGET_KINDS]
+        names += [lib(_build.library(f"fused_{a}", p, rule), "mvn_iso",
+                      WARP_D) for p in NEW_PROPOSALS]
+        names += [lib(_build.library(f"fused_{a}", "Normal", dr), "mvn_iso",
+                      WARP_D) for dr in _build.DRAWS]
+        names += [lib(v, "mvn_iso", d) for d in WARP_EDGES]
+        names.append(lib(v, "rosenbrock", FLAG["dim"], warp=True))
+    names.append(lib(_build.library("fused_rwm", "UniformRadius",
+                                    resolve_normal_impl("rwm", STUDY["C"])),
+                     "rough_carpet", STUDY["dim"], warp=True))
     return list(dict.fromkeys(names))
 
 
@@ -1935,6 +2391,15 @@ def main():
         f"T={FLAG['T']}, {FLAG['C']} replicas): " + occupancy(
             torch, _build, flag_lib, FLAG["dim"], FLAG["T"],
             n_params=FLAG["dim"] + 1))
+    warp_libs = [k for k in logs if k != _build.PROBES and _build.is_warp(k)]
+    regs = [r for k in warp_libs for _, r, _, _ in ptxas_report.parse(logs[k])]
+    warp_main = _build.lib_name(_build.library(
+        "fused_pt", "Normal", draws.resolve_normal_impl(
+            "pt", FLAG["C"], "rosenbrock")), "rosenbrock", WARP_D)
+    say(f"phase 16a build: {len(warp_libs)} warp libraries (one warp a "
+        f"replica, d > 64), {min(regs)}-{max(regs)} registers; {warp_main} "
+        f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
+            torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
     if frames:
         fail(f"a fused kernel has a stack frame or spills: {frames}")
 
@@ -2123,6 +2588,7 @@ def main():
     say(f"phases 11-13 {time.time() - t0:.1f} s")
     kernels.extend(phase_14(torch, gen, {r["name"] for r in kernels}))
     phase_15(torch)
+    kernels.extend(phase_16(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

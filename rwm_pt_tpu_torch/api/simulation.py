@@ -331,8 +331,9 @@ class MCMCSimulation:
             return "a library proposal (Normal/Laplace/UniformRadius)"
         if default_float() != torch.float32:
             return "float32 (the port's x64 switch is on)"
-        if self.is_pt and len(self.beta_ladder) > _build.MAX_RUNGS:
-            return f"at most {_build.MAX_RUNGS} rungs"
+        rungs = _build.max_rungs(self.target_dist.dim)
+        if self.is_pt and len(self.beta_ladder) > rungs:
+            return f"at most {rungs} rungs"
         try:
             _build.kernel_target(self.target_dist)
         except NotImplementedError as e:

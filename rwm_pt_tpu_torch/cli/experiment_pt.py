@@ -18,7 +18,7 @@ the ESJD-optimal point and writes the JAX study's JSON schema, with
 ``"backend"`` the torch device.  Files are named
 ``{target}_PT_GPU_dim{d}_{iters}iters_seed{seed}.json``.
 
-A ladder longer than the kernel's ``MAX_RUNGS`` raises; nothing falls back
+A ladder longer than the kernel's ``max_rungs`` raises; nothing falls back
 to the eager engine.  ``--rng`` is accepted and changes nothing (the
 sampler draws Philox4x32-10).  The plot needs matplotlib, imported there
 only; ``--no_plots`` skips it.
@@ -82,10 +82,10 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
                 max_pn_adjustment_steps=iterative_max_pn_steps,
                 convergence_failure_tolerance_factor=iterative_fail_tol_factor,
                 seed=seed + i)
-        if len(ladder) > _build.MAX_RUNGS:
+        if len(ladder) > _build.max_rungs(target.dim):
             raise NotImplementedError(
                 f"config {i}: the ladder has {len(ladder)} rungs; the fused "
-                f"PT kernel runs at most {_build.MAX_RUNGS}")
+                f"PT kernel runs at most {_build.max_rungs(target.dim)}")
         res = run_pt_fused(target, config_seed(seed, i),
                            torch.tensor(ladder, dtype=torch.float32),
                            base_variance=proposal_variance,

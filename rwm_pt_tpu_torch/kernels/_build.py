@@ -10,6 +10,10 @@ bucket), with a plain C interface, loaded with ``ctypes``:
          -DRWM_PT_MINBLOCKS=<b>
          -o build/lib<variant>.<kind>.d<D>-<hash>.so csrc/<kernel>.cu
 
+Above 64 dimensions the same variants build from ``csrc/<kernel>_warp.cu``
+(one warp a replica, ``csrc/warp.cuh``) into ``lib<variant>.<kind>.w<D>``,
+``<D>`` the warp bucket (:data:`WARP_BUCKETS`: d + 4 <= D slots).
+
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
 draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
 proposals and ``_bm``, ``_icdf_fastlog``, ``_lax_erfinv`` or
@@ -30,9 +34,11 @@ spills) is kept in :data:`PTXAS_LOG`.  The draw study's probe kernels
 with no kind and no bucket.  Nothing here runs at import time: the CPU
 tests import every module and have no ``nvcc``.
 
-Launch geometry (:func:`pt_block_geometry`, :func:`rwm_block_geometry`)
-is plain Python: the replicas (chains) a block, the dynamic shared memory
-its state slabs take and the blocks an SM holds, from the kernel's
+Launch geometry (:func:`pt_block_geometry`, :func:`rwm_block_geometry`,
+and for the warp kernels :func:`pt_warp_geometry`,
+:func:`rwm_warp_geometry`) is plain Python: the replicas (chains) a
+block, the dynamic shared memory its state slabs take and the blocks an
+SM holds, from the kernel's
 registers and ``maxThreadsPerBlock`` (each library exports them,
 :func:`kernel_info`) by the CUDA occupancy calculator's rules for Hopper.
 The wrappers pass the replicas a block to the launcher, which refuses what
@@ -56,7 +62,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("fused_pt", "fused_rwm")
+SOURCES = ("fused_pt", "fused_rwm", "fused_pt_warp", "fused_rwm_warp")
+WARP = "_warp"     # the suffix of the warp-per-replica sources
 # proposal name -> (variant suffix, -DRWM_PT_PROPOSAL; csrc/draws.cuh)
 PROPOSALS = {"Normal": ("", 0), "Laplace": ("_laplace", 1),
              "UniformRadius": ("_uniform_radius", 2)}
@@ -73,6 +80,7 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "hypercube": 8, "iid_gamma": 9, "iid_beta": 10,
                 "neal_funnel": 11}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
+WARP_BUCKETS = (128, 256)    # warp buckets: d + 4 <= DMAX slots (warp.cuh)
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
 # Blocks of a kernel's launch bound (PT: 320 threads, RWM: 128) that an SM
 # must hold, per source, for register buckets up to 32: the register cap
@@ -92,7 +100,7 @@ FEWER_BLOCKS = {("fused_pt", "mvn_full", 16): 1,
                 ("fused_pt", "mvn_full", 32): 0,
                 ("fused_pt", "hypercube", 32): 1}
 # variant name -> (source, proposal code, draw code)
-VARIANTS = {src + ps + ds: (src, pc, dc) for src in SOURCES
+VARIANTS = {src + ps + ds: (src, pc, dc) for src in ("fused_pt", "fused_rwm")
             for prop, (ps, pc) in PROPOSALS.items()
             for ds, dc in DRAWS.values()
             if not (prop == "Laplace" and dc)}
@@ -131,6 +139,10 @@ _ENTRIES = {
     PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
              "rwm_pt_fast_log": [_P, _P, _I, _P]},
 }
+# the warp kernels take the same arguments (RWM: chains, i.e. warps, a
+# block for threads; PT: runtime_r is ignored)
+_ENTRIES["fused_pt_warp"] = _ENTRIES["fused_pt"]
+_ENTRIES["fused_rwm_warp"] = _ENTRIES["fused_rwm"]
 
 
 def _nvcc() -> str:
@@ -142,21 +154,54 @@ def _nvcc() -> str:
 
 
 def bucket(dim: int) -> int:
-    """The smallest register bucket that holds ``dim`` coordinates."""
+    """The smallest register bucket of the thread-per-replica kernels that
+    holds ``dim`` coordinates."""
     for b in BUCKETS:
         if dim <= b:
             return b
     raise NotImplementedError(
-        f"fused kernels compile dims up to {BUCKETS[-1]}; dim={dim} needs "
-        "another state layout than registers (ROADMAP Queue A item 15)")
+        f"the thread-per-replica kernels compile dims up to {BUCKETS[-1]}; "
+        f"dim={dim} runs one warp a replica (warp_bucket)")
 
 
-def lib_name(variant: str, kind: str, dim: int) -> str:
+def warp_bucket(dim: int) -> int:
+    """The smallest warp bucket whose slots hold ``dim`` coordinates and
+    the four slots after them (csrc/warp.cuh)."""
+    for b in WARP_BUCKETS:
+        if dim + 4 <= b:
+            return b
+    raise NotImplementedError(
+        f"fused kernels compile dims up to {MAX_DIM}: one warp a replica, "
+        f"{WARP_BUCKETS[-1] // 32} slots a lane; dim={dim} needs more slots "
+        "a lane (ROADMAP Queue A item 15, the remainder above d = 252)")
+
+
+def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None
+             ) -> str:
     """Library of kernel variant ``variant`` for target kind ``kind`` at
-    ``dim`` coordinates (its register bucket)."""
+    ``dim`` coordinates: its register bucket ``.d<D>`` up to 64
+    coordinates, its warp bucket ``.w<D>`` above (``warp=True`` takes the
+    warp kernel at any d, for comparing the two layouts)."""
     if variant not in VARIANTS or kind not in TARGET_KINDS:
         raise ValueError(f"no library {variant}.{kind}")
+    if warp is None:
+        warp = dim > BUCKETS[-1]
+    if warp:
+        return f"{variant}.{kind}.w{warp_bucket(dim)}"
     return f"{variant}.{kind}.d{bucket(dim)}"
+
+
+def is_warp(name: str) -> bool:
+    """Whether library ``name`` is a warp-per-replica one."""
+    return name.split(".")[-1].startswith("w")
+
+
+def launch_key(name: str) -> str:
+    """The wrappers' launch-counter key of library ``name``:
+    ``<variant>.<kind>`` for a thread-per-replica library (its register
+    bucket dropped), the whole name ``<variant>.<kind>.w<D>``
+    for a warp one."""
+    return name if is_warp(name) else name.rsplit(".", 1)[0]
 
 
 def min_blocks(source: str, kind: str, dmax: int) -> int:
@@ -164,17 +209,23 @@ def min_blocks(source: str, kind: str, dmax: int) -> int:
     for kernel ``source`` on target kind ``kind`` at register bucket
     ``dmax``: :data:`MIN_BLOCKS` up to the 32 bucket, one block above it,
     :data:`FEWER_BLOCKS` where the capped build spills."""
-    if dmax > 32:
+    if dmax > 32 or source.endswith(WARP):
         return 1
     return FEWER_BLOCKS.get((source, kind, dmax), MIN_BLOCKS[source])
 
 
 def _parts(name: str):
     """(source, proposal code, draw code, kind code, bucket, min blocks) of
-    a library name ``<variant>.<kind>.d<D>``."""
-    variant, kind, dmax = name.split(".")
+    a library name ``<variant>.<kind>.d<D>`` or ``<variant>.<kind>.w<D>``
+    (a warp bucket: source ``<kernel>_warp``, whose launch bound is fixed
+    in its source)."""
+    variant, kind, tag = name.split(".")
     src, pc, dc = VARIANTS[variant]
-    dmax = int(dmax[1:])
+    if tag[0] not in "dw":
+        raise ValueError(f"no library {name}")
+    dmax = int(tag[1:])
+    if tag[0] == "w":
+        src += WARP
     return (src, pc, dc, TARGET_KINDS[kind], dmax,
             min_blocks(src, kind, dmax))
 
@@ -286,6 +337,11 @@ BLOCK_RESERVED = 1024        # shared memory the system keeps for each block
 PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads
 PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
+# warp bucket -> csrc/fused_pt_warp.cu's kMaxWarps, its launch bound / 32
+PT_WARP_MAX_WARPS = {128: 32, 256: 16}
+RWM_WARP_CHAINS = 8          # csrc/fused_rwm_warp.cu: kThreads / 32
+PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
+SM_COUNT = 132               # the H100 SXM's SMs
 
 
 class Geometry(NamedTuple):
@@ -411,6 +467,133 @@ def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
     return Geometry(n, n, shared, blocks_per_sm(regs, n, shared), -(-C // n))
 
 
+# ------------------------------------------------ warp layout (csrc/warp.cuh)
+def warp_slot_owner(j: int) -> tuple[int, int, int]:
+    """(lane, register quad, word) that holds Philox slot (and coordinate)
+    ``j`` in a warp kernel: slot j = 4q + w is word w of block q, which
+    lane q mod 32 computes into its register quad q // 32."""
+    q = j >> 2
+    return q & 31, q >> 5, j & 3
+
+
+def warp_blocks(d: int, dmax: int) -> dict[int, list[int]]:
+    """The Philox blocks each lane computes a step at d coordinates in warp
+    bucket ``dmax``: block 32 k + lane for each register quad k < dmax /
+    128 with 4 (32 k + lane) <= d + 3 (csrc/warp.cuh::lane_block)."""
+    return {lane: [32 * k + lane for k in range(dmax // 128)
+                   if 4 * (32 * k + lane) <= d + 3] for lane in range(32)}
+
+
+def bm_lanes(k: int, d: int) -> tuple[int, int, int]:
+    """Box-Muller pair ``k`` (< ceil(d/2)) in a warp kernel: the lane that
+    computes it (the owner of coordinate k and of u1's slot k), the lane
+    whose block holds u2 (slot h + k, or d + 3 for the last pair of an odd
+    d) and the lane of coordinate k + h, which reads the sine (-1 where
+    k + h = d: no such coordinate)."""
+    h = (d + 1) // 2
+    j2 = h + k if h + k < d else d + 3
+    return (warp_slot_owner(k)[0], warp_slot_owner(j2)[0],
+            warp_slot_owner(k + h)[0] if k + h < d else -1)
+
+
+def params_shared_words(n_params: int) -> int:
+    """Parameter words a warp kernel keeps in shared memory: all of them up
+    to :data:`PARAMS_SHARED_MAX` (12,288 words: the full-covariance MVN to
+    d = 110), else none (read through L2)."""
+    return n_params if n_params <= PARAMS_SHARED_MAX else 0
+
+
+def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
+                         proposal: str = "Normal") -> int:
+    """Dynamic shared memory of a warp PT block of R replicas x T rungs in
+    warp bucket ``dmax`` (``csrc/fused_pt_warp.cu::shared_words``): each
+    warp's state and scratch rows, the parameters that fit, the ladder, the
+    sweep's words (its per-replica sums too) and Laplace's (T, d)
+    scales."""
+    words = (T * R * 2 * dmax + params_shared_words(n_params) + 2 * T
+             + 2 * T * R + 5 * R + 3 * T * R + R
+             + (T * d if proposal == "Laplace" else 0))
+    return 4 * words
+
+
+def rwm_warp_shared_bytes(n_params: int, d: int, chains: int, dmax: int,
+                          proposal: str = "Normal") -> int:
+    """Dynamic shared memory of a warp RWM block of ``chains`` warps
+    (``csrc/fused_rwm_warp.cu::shared_words``)."""
+    words = (chains * 2 * dmax + params_shared_words(n_params)
+             + (d if proposal == "Laplace" else 0))
+    return 4 * words
+
+
+def _check_warp_dim(d: int, dmax: int) -> None:
+    if not 1 <= d <= dmax - 4:
+        raise ValueError(f"d={d} is not in the warp bucket 1..{dmax - 4}")
+
+
+def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
+                     T: int, C: int, proposal: str = "Normal",
+                     draw: str = "icdf", n_params: int = 0) -> Geometry:
+    """The warp PT launch of C replicas x T rungs at d coordinates (warp
+    bucket ``dmax``) for a kernel of ``regs`` registers and
+    ``max_threads`` threads a block: R replicas of T rung-warps, R T
+    within the bucket's :data:`PT_WARP_MAX_WARPS` (32, or 16 in the 256
+    bucket), ``max_threads`` and the rows within a block's shared
+    memory; of those R the one whose blocks let an SM hold the most
+    threads, the largest R of those (3 at T = 10).  ``draw`` takes no
+    shared memory of its own here (Box-Muller's sines use the scratch
+    row).  Raises ``ValueError`` when not even one replica's ladder
+    fits."""
+    _check_warp_dim(d, dmax)
+    if not 1 <= T <= MAX_RUNGS or C < 1:
+        raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
+    fixed = pt_warp_shared_bytes(n_params, T, d, 0, dmax, proposal)
+    per_replica = pt_warp_shared_bytes(n_params, T, d, 1, dmax,
+                                       proposal) - fixed
+    r_max = min(PT_WARP_MAX_WARPS[dmax] // T, max_threads // (32 * T),
+                (BLOCK_SHARED - fixed) // per_replica)
+    if r_max < 1:
+        raise ValueError(
+            f"one replica's ladder does not fit a block: T={T} rung-warps "
+            f"need {32 * T} threads ({max_threads} allowed) and "
+            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B)")
+
+    def launch(R):
+        shared = pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal)
+        return Geometry(R, 32 * R * T, shared,
+                        blocks_per_sm(regs, 32 * R * T, shared), -(-C // R))
+
+    return max((launch(R) for R in range(1, r_max + 1)),
+               key=lambda g: (g.blocks_per_sm * g.threads, g.replicas))
+
+
+def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
+                      C: int, proposal: str = "Normal", draw: str = "icdf",
+                      n_params: int = 0, sms: int = SM_COUNT) -> Geometry:
+    """The warp RWM launch of C chains at d coordinates (warp bucket
+    ``dmax``): one warp a chain, the most chains a block (at most 8, within
+    ``max_threads`` and a block's shared memory) whose grid still gives
+    each of the ``sms`` SMs a block (512 chains: 3 a block, 171 blocks),
+    one a block when none does.  ``replicas`` is the chains (warps) a
+    block, ``threads`` 32 of them.  Raises ``ValueError`` when not even
+    one chain fits."""
+    _check_warp_dim(d, dmax)
+    if C < 1:
+        raise ValueError(f"C={C} must be >= 1")
+    fixed = rwm_warp_shared_bytes(n_params, d, 0, dmax, proposal)
+    per_chain = rwm_warp_shared_bytes(n_params, d, 1, dmax, proposal) - fixed
+    n = min(RWM_WARP_CHAINS, max_threads // 32,
+            (BLOCK_SHARED - fixed) // per_chain)
+    if n < 1:
+        raise ValueError(
+            f"one chain does not fit a block: {fixed + per_chain} B of "
+            f"shared memory ({BLOCK_SHARED} B), {max_threads} threads")
+    while n > 1 and -(-C // n) < sms:
+        n -= 1
+    shared = rwm_warp_shared_bytes(n_params, d, n, dmax, proposal)
+    return Geometry(n, 32 * n, shared, blocks_per_sm(regs, 32 * n, shared),
+                    -(-C // n))
+
+
 _INFO: dict[tuple, tuple] = {}
 
 
@@ -426,7 +609,7 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
     key = (name, d, T, R, n_params, runtime_r)
     if key not in _INFO:
         out = (ctypes.c_int * 5)()
-        if _source(name) == "fused_pt":
+        if _source(name).startswith("fused_pt"):
             rc = entry(name, "rwm_pt_fused_pt_info")(
                 int(runtime_r), d, T, R, n_params, out)
         else:
@@ -443,8 +626,16 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     """The geometry of a launch of library ``name`` (PT when ``T`` is
     given), from its kernel's registers and ``maxThreadsPerBlock``: the
     compile-time 32-replica PT instantiation where its attributes allow 32
-    replicas, else the runtime-R one with its own attributes."""
+    replicas, else the runtime-R one with its own attributes; a warp
+    library's :func:`pt_warp_geometry` / :func:`rwm_warp_geometry`."""
     dmax = _parts(name)[4]
+    if is_warp(name):
+        a = kernel_info(name, d)
+        if not T:
+            return rwm_warp_geometry(a["registers"], a["max_threads"], d,
+                                     dmax, C, proposal, draw, n_params)
+        return pt_warp_geometry(a["registers"], a["max_threads"], d, dmax, T,
+                                C, proposal, draw, n_params)
     if not T:
         a = kernel_info(name, d)
         return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
@@ -460,8 +651,18 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
 
 
 # ---------------------------------------------------------------- targets
-MAX_DIM = 64        # largest register bucket compiled (csrc/targets.cuh)
-MAX_RUNGS = 32      # one thread per (replica, rung): 32 x T threads a block
+MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (252)
+MAX_RUNGS = 32      # rungs a replica: T threads (T warps above d = 64)
+
+
+def max_rungs(dim: int) -> int:
+    """Rungs a fused PT launch takes at ``dim`` coordinates:
+    :data:`MAX_RUNGS`, but in the 256 warp bucket (124 < d <= 252) 16, the
+    warps its launch bound allows (csrc/fused_pt_warp.cu: at 32 or 24
+    warps a block its kernels spill)."""
+    if BUCKETS[-1] < dim <= MAX_DIM:
+        return min(MAX_RUNGS, PT_WARP_MAX_WARPS[warp_bucket(dim)])
+    return MAX_RUNGS
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -490,19 +691,16 @@ def target_kind(target) -> str | None:
 
 def kernel_target(target) -> tuple[str, torch.Tensor]:
     """(kind, f32 parameter vector on the CPU) of a target the kernels
-    take, laid out as ``csrc/targets.cuh`` reads it.  Any other target,
-    and a dim above :data:`MAX_DIM`, raises ``NotImplementedError``: there
-    is no fallback."""
+    take, laid out as ``csrc/targets.cuh`` (and ``csrc/warp.cuh``) reads
+    it.  Any other target, and a dim above :data:`MAX_DIM`, raises
+    ``NotImplementedError``: there is no fallback."""
     kind = target_kind(target)
     if kind is None:
         raise NotImplementedError(
             f"fused CUDA kernels do not support target "
             f"{type(target).__name__!r} (ROADMAP Queue A item 9)")
     if target.dim > MAX_DIM:
-        raise NotImplementedError(
-            f"fused kernels compile dims up to {MAX_DIM}; dim={target.dim} "
-            "needs another state layout than registers (ROADMAP Queue A "
-            "item 15)")
+        warp_bucket(target.dim)          # raises, naming the warp layout
     t, d = target, target.dim
     if kind == "rosenbrock":
         return kind, _f32(t.a_coeff, t.b_coeff, t.mu)
@@ -539,10 +737,12 @@ def kernel_target(target) -> tuple[str, torch.Tensor]:
 
 def by_variant(launches) -> Counter:
     """Launch counts keyed ``<variant>.<target kind>`` (the wrappers'
-    ``launches``) summed by variant; the ``*_record`` keys pass through."""
+    ``launches``; :func:`launch_key`) summed by variant, a warp library's
+    under ``<variant>.w<D>``; the ``*_record`` keys pass through."""
     out = Counter()
     for key, n in launches.items():
-        out[key.split(".")[0]] += n
+        parts = key.split(".")
+        out[parts[0] + (f".{parts[2]}" if len(parts) > 2 else "")] += n
     return out
 
 

@@ -259,22 +259,27 @@ def resolve_normal_impl(kernel: str, block: int,
                         target_kind: str | None = None) -> str:
     """The (kernel, block) -> normal-draw decision, with the JAX signature
     (``pallas_rwm.py:184-195``; ``block``: the launch's replicas or
-    chains) and the target's kernel kind (``_build.target_kind``) besides.
-    A non-"auto" :data:`NORMAL_IMPL` wins.  Otherwise the rule measured on
-    one H100 on the shared-memory kernels (``chip_smoke.py`` phase 12: the
-    four exact draws through the entry points, best of 3, interleaved;
-    NVIDIA H100 80GB HBM3 at 700 W; PERF.md): CUDA's ``erfinvf`` draw
-    (``lax_erfinv``) is the fastest exact draw at every shape timed, for
-    both kernels, so neither ``block`` nor the kind changes the pick:
-    122.787 ms at the flagship PT, 65,536 replicas (Box-Muller 169.664,
-    ICDF 192.866), 13.493 ms at the RWM headline, 65,536 chains
-    (Box-Muller 18.299), 52.550 ms at the PT study's 1024 replicas (ICDF
-    63.899), 151.371 ms at the RWM study's 1024 chains (ICDF 168.559) and
-    492.036 ms on the full-covariance MVN at the flagship's shape (ICDF
-    558.125).  ``icdf_fastlog`` was the slowest at each.  The rule never
-    picks ``fake_uniform`` (not a normal); the override takes all five
-    draws of :data:`NORMAL_IMPLS`, and any other name raises
-    ``ValueError``."""
+    chains) and the target's kernel kind (``_build.target_kind``)
+    besides.  A non-"auto" :data:`NORMAL_IMPL` wins.  Otherwise
+    the rule measured on one H100 (NVIDIA H100 80GB HBM3 at 700 W;
+    PERF.md section 6).  Up to 64 dimensions (the thread-per-replica
+    kernels; ``chip_smoke.py`` phase 12: the four exact
+    draws through the entry points, best of 3, interleaved) CUDA's
+    ``erfinvf`` draw (``lax_erfinv``) is the fastest exact draw at every
+    shape timed, for both kernels, so neither ``block`` nor the kind
+    changes the pick: 122.516 ms at the flagship PT, 65,536 replicas
+    (Box-Muller 169.530, ICDF 192.856), 13.129 ms at the RWM headline,
+    65,536 chains (Box-Muller 18.176), 49.220 ms at the PT study's 1024
+    replicas (ICDF 59.651), 151.280 ms at the RWM study's 1024 chains
+    (ICDF 168.222) and 373.770 ms on the full-covariance MVN at the
+    flagship's shape (ICDF 442.222).  Above 64 dimensions the warp
+    kernels rank the draws the same (``chip_smoke.py`` phase 16f, the
+    iso MVN at d = 100): 45.493 ms at 65,536 chains over 2000 steps (ICDF
+    66.542, Box-Muller 86.642) and 72.122 ms at 65,536 replicas x 10
+    rungs over 200 (ICDF 94.132, Box-Muller 124.778), so d does not
+    change the pick either.  The rule never picks ``fake_uniform``
+    (not a normal); the override takes all five draws of
+    :data:`NORMAL_IMPLS`, and any other name raises ``ValueError``."""
     if NORMAL_IMPL != "auto":
         if NORMAL_IMPL not in NORMAL_IMPLS:
             raise ValueError(f"unknown normal draw {NORMAL_IMPL!r}; "

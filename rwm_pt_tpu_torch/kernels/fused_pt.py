@@ -1,6 +1,7 @@
-"""Fused whole-run Parallel Tempering: the CUDA kernel ``csrc/fused_pt.cu``
-and its plain PyTorch version (port of
-``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its cold-chain
+"""Fused whole-run Parallel Tempering: the CUDA kernels ``csrc/fused_pt.cu``
+(one thread a (replica, rung), d <= 64) and ``csrc/fused_pt_warp.cu`` (one
+warp a (replica, rung), 64 < d <= 252) and their plain PyTorch version
+(port of ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its cold-chain
 recording variant, the Normal, Laplace and UniformRadius proposals, every
 normal draw of ``draws.NORMAL_IMPLS``, every target kind of
 ``_build.kernel_target``).
@@ -136,29 +137,33 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
 def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
                      *, kind="Normal", record_every=0, record_chains=0,
-                     draw="icdf", swap_sweep="sequential"):
-    """Launch ``csrc/fused_pt.cu`` (the library built for proposal ``kind``,
-    ``draw`` and the target's kind) on the current stream; same arguments
+                     draw="icdf", swap_sweep="sequential", warp=None):
+    """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
+    ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
+    ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
+    any d, to compare the layouts) on the current stream; same arguments
     and results as :func:`_run_pt_fused_plain`.  ``launches`` counts each
-    launch under ``<variant>.<target kind>`` (the library's name without
-    its register bucket: ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
-    ..; ``_build.by_variant`` sums them by variant), and a recorded one
-    also under ``fused_pt_record``.  The replicas a block come from
-    ``_build.launch_geometry`` (the kernel's registers and launch bound,
-    the slabs' shared memory)."""
+    launch under ``_build.launch_key`` of its library (the name without
+    its register bucket, ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
+    .., or a warp library's whole name,
+    ``fused_pt_lax_erfinv.mvn_iso.w128``; ``_build.by_variant`` sums them
+    by variant), and a recorded one also under ``fused_pt_record``.  The
+    replicas a block come from ``_build.launch_geometry`` (the kernel's
+    registers and launch bound, the rows' shared memory)."""
     variant = _build.library("fused_pt", kind, draw)
     tkind, params = _build.kernel_target(target)
-    lib = _build.lib_name(variant, tkind, target.dim)
+    lib = _build.lib_name(variant, tkind, target.dim, warp)
     params = params.to(x0.device)
     d, T, C = x0.shape
     pair_order(T, swap_sweep)                # raises for an unknown order
     order = SWEEPS.index(swap_sweep)
     if target.dim != d:
         raise ValueError(f"x0 has {d} coordinates, the target {target.dim}")
-    if T > _build.MAX_RUNGS:
+    if T > _build.max_rungs(d):
         raise NotImplementedError(
-            f"fused PT runs one thread per (replica, rung), at most "
-            f"{_build.MAX_RUNGS} rungs; T={T}")
+            f"fused PT runs one thread (a warp above 64 dimensions) per "
+            f"(replica, rung), at most {_build.max_rungs(d)} rungs at d={d} "
+            f"(ROADMAP Queue A item 15 for more above d = 124); T={T}")
     _build.check_cuda("fused_pt", torch.float32, x0=x0, betajump0=betajump0,
                       coldjump0=coldjump0, betas=betas, sigmas=sigmas,
                       params=params)
@@ -199,7 +204,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             geo.replicas, int(geo.runtime_r),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
-    launch_pt_kernel.launches[f"{variant}.{tkind}"] += 1
+    launch_pt_kernel.launches[_build.launch_key(lib)] += 1
     if n_rec:
         launch_pt_kernel.launches["fused_pt_record"] += 1
         return x, lp, acc, swapacc, bj, cj, chain

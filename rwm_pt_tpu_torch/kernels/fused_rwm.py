@@ -1,6 +1,7 @@
-"""Fused whole-run RWM: the CUDA kernel ``csrc/fused_rwm.cu`` and its plain
-PyTorch version (port of ``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas``
-with its recording variant, the Normal, Laplace and UniformRadius
+"""Fused whole-run RWM: the CUDA kernels ``csrc/fused_rwm.cu`` (one thread a
+chain, d <= 64) and ``csrc/fused_rwm_warp.cu`` (one warp a chain, 64 < d
+<= 252) and their plain PyTorch version (port of
+``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas`` with its recording variant, the Normal, Laplace and UniformRadius
 proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
 of ``_build.kernel_target``).
 
@@ -81,18 +82,20 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
 
 def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
                       total, burn_in, *, kind="Normal", record_every=0,
-                      record_chains=0, draw="icdf"):
-    """Launch ``csrc/fused_rwm.cu`` (the library built for proposal
-    ``kind``, ``draw`` and the target's kind) on the current stream; same
-    arguments and results as :func:`_run_rwm_fused_plain`.  ``launches``
-    counts each launch under ``<variant>.<target kind>``
-    (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``, ..;
-    ``_build.by_variant`` sums them by variant), and a recorded one also
-    under ``fused_rwm_record``.  The chains a block come from
-    ``_build.launch_geometry``."""
+                      record_chains=0, draw="icdf", warp=None):
+    """Launch ``csrc/fused_rwm.cu``, or above 64 dimensions
+    ``csrc/fused_rwm_warp.cu`` (the library built for proposal ``kind``,
+    ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
+    any d, to compare the layouts) on the current stream; same arguments
+    and results as :func:`_run_rwm_fused_plain`.  ``launches`` counts each
+    launch under ``_build.launch_key`` of its library
+    (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``,
+    ``fused_rwm_lax_erfinv.mvn_iso.w128``, ..; ``_build.by_variant`` sums
+    them by variant), and a recorded one also under ``fused_rwm_record``.
+    The chains a block come from ``_build.launch_geometry``."""
     variant = _build.library("fused_rwm", kind, draw)
     tkind, params = _build.kernel_target(target)
-    lib = _build.lib_name(variant, tkind, target.dim)
+    lib = _build.lib_name(variant, tkind, target.dim, warp)
     params = params.to(x0.device)
     _build.check_cuda("fused_rwm", torch.float32, x0=x0, jump0=jump0,
                       params=params)
@@ -134,9 +137,9 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), jump.data_ptr(),
             d, C, total, burn_in, step0, key[0], key[1], lap_ptr, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
-            geo.threads, torch.cuda.current_stream(x0.device).cuda_stream)
+            geo.replicas, torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
-    launch_rwm_kernel.launches[f"{variant}.{tkind}"] += 1
+    launch_rwm_kernel.launches[_build.launch_key(lib)] += 1
     if n_rec:
         launch_rwm_kernel.launches["fused_rwm_record"] += 1
         return x, lp, acc, jump, chain

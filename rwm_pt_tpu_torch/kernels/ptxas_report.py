@@ -1,5 +1,6 @@
 """Registers, stack frame and spills of the fused kernels' libraries, as
-ptxas reports them, for every target kind and register bucket:
+ptxas reports them, for every target kind, register bucket and warp
+bucket:
 
     python -m rwm_pt_tpu_torch.kernels.ptxas_report [variant ...]
 
@@ -26,7 +27,8 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
     """``(instantiation, registers, stack frame bytes, spill bytes)`` of
     each entry function in a ptxas ``-v`` report; a fused kernel's
     instantiation is named by its register bucket and, for PT, ``R32``
-    (32 replicas a block) or ``Rrt`` (R read at run time), a probe kernel
+    (32 replicas a block) or ``Rrt`` (R read at run time), a warp kernel's
+    by its warp bucket (``W128``: one register quad a lane), a probe kernel
     by its name and template argument (``draw_normals_kernel<2>``: the
     draw's ``_build.DRAWS`` code)."""
     out, name = [], None
@@ -35,7 +37,8 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
         if m:
             t = re.findall(r"Li(\d+)E", m.group(1))
             k = re.search(r"\d+([A-Za-z_]+_kernel)", m.group(1))
-            name = (f"D{t[1]}" if len(t) > 1 else
+            name = (f"W{128 * int(t[1])}" if "warp_kernel" in m.group(1)
+                    else f"D{t[1]}" if len(t) > 1 else
                     k.group(1) + "".join(f"<{a}>" for a in t) if k else
                     m.group(1))
             if len(t) > 2:
@@ -53,23 +56,25 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
 
 
 def report(variants) -> list[str]:
-    names = [_build.lib_name(v, k, b) for v in variants
-             for k in _build.TARGET_KINDS for b in _build.BUCKETS]
+    def libs(v, k):
+        return ([_build.lib_name(v, k, b) for b in _build.BUCKETS]
+                + [_build.lib_name(v, k, b - 4) for b in _build.WARP_BUCKETS])
+    names = [n for v in variants for k in _build.TARGET_KINDS
+             for n in libs(v, k)]
     t0 = time.time()
     logs = _build.build(names)
     lines = [f"{len(names)} libraries in {time.time() - t0:.1f} s"]
     for v in variants:
         for k in _build.TARGET_KINDS:
-            cells = [f"{n} {r}r {f}sf {sp}sp"
-                     for b in _build.BUCKETS
-                     for n, r, f, sp in sorted(parse(
-                         logs[_build.lib_name(v, k, b)]))]
+            cells = [f"{n} {r}r {f}sf {sp}sp" for name in libs(v, k)
+                     for n, r, f, sp in sorted(parse(logs[name]))]
             lines.append(f"{v}.{k}: " + ", ".join(cells))
     return lines
 
 
 DEFAULT_VARIANTS = [_build.library(src, "Normal", draw)
-                    for draw in ("icdf", "bm") for src in _build.SOURCES]
+                    for draw in ("icdf", "bm")
+                    for src in ("fused_pt", "fused_rwm")]
 
 if __name__ == "__main__":
     for line in report(sys.argv[1:] or DEFAULT_VARIANTS):

@@ -33,6 +33,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 AGREE_ATOL, AGREE_MIN = agreement.X_ATOL, 0.95
 STUDY_DRAWS = ("icdf_fastlog", "lax_erfinv", "fake_uniform")
+WARP_DRAW = draws.resolve_normal_impl("pt", 65536)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,6 +69,9 @@ def _libraries():
               for a in ("pt", "rwm") for p in ("Normal", "UniformRadius")
               for impl in STUDY_DRAWS]
     names.append(_build.PROBES)
+    names += [lib(_build.library(f"fused_{a}", "Normal", WARP_DRAW), k, d)
+              for a in ("pt", "rwm") for k in ("rosenbrock", "mvn_iso")
+              for d in (100, 200)]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -161,7 +165,7 @@ def test_unsupported_inputs_raise_on_card():
     dev = _card()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_target_distribution("SuperFunnel", 3, device=dev)
-    wide = FullRosenbrock.create(65, device=dev)
+    wide = FullRosenbrock.create(253, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
                      num_iterations=2, device=dev)
@@ -583,3 +587,83 @@ def test_fast_log_probe_matches_plain():
     exact = np.log(y.astype(np.float64))
     err = np.abs(out.cpu().numpy().astype(np.float64) - exact)
     assert (err < 1e-6 + 1e-7 * np.abs(exact)).all()
+
+
+WARP_CASES = [("pt", 65, "sequential", 10), ("pt", 100, "even_odd", 10),
+              ("pt", 200, "sequential", 16), ("rwm", 65, None, 1),
+              ("rwm", 100, None, 1)]
+
+
+@pytest.mark.parametrize("algo,d,sweep,T", WARP_CASES)
+def test_warp_kernels_match_plain(algo, d, sweep, T):
+    """Above 64 dimensions the wrappers launch the warp library (one warp a
+    replica, its launch counted under ``<variant>.<kind>.w128`` or
+    ``.w256``), held against the plain version like the thread kernels:
+    FullRosenbrock, whose neighbour terms cross lanes, 1003 replicas (a
+    ragged last block), PT on 10 rungs, and on 16, the most the 256
+    bucket's block takes."""
+    dev = _card()
+    C = 1003
+    target = FullRosenbrock.create(d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    x0 = target.init_sample(C, g).T.contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    var = 0.5 ** 2 / d
+    if algo == "pt":
+        betas = torch.logspace(0, -2, T, device=dev)
+        sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+        args = (target, x0[:, None].expand(d, T, C).contiguous(), zi(T, C),
+                zi(C), zf(C), zf(C), betas, sig, seed_key(32), 0, 150, 20,
+                10)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+        kw = dict(draw=WARP_DRAW, swap_sweep=sweep)
+    else:
+        args = (target, x0, zi(C), zf(C), torch.tensor(1.0, device=dev),
+                torch.sqrt(torch.tensor(var, device=dev)), seed_key(32), 0,
+                150, 20)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+        kw = dict(draw=WARP_DRAW)
+    before = Counter(launch.launches)
+    k = launch(*args, **kw)
+    variant = _build.library(f"fused_{algo}", "Normal", WARP_DRAW)
+    assert launch.launches - before == Counter(
+        {f"{variant}.rosenbrock.w{_build.warp_bucket(d)}": 1})
+    a = agreement.hold(k, plain(*args, **kw), names,
+                       lp_of=target.log_density_td)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any()
+
+
+def test_warp_lanes_accept_alike():
+    """A state where the lanes' partial sums of lp round differently from
+    one another: |x| ~ 1 in 100 coordinates (lp ~ -100, an ulp of 8e-6),
+    steps of 1e-3 and beta = 1e4, so that the log-ratio's rounding moves
+    it by ~0.04 and about one decision in a thousand hinges on it.  The
+    butterfly sums give every lane the same lp, so every recorded step of
+    every chain moves all of its coordinates or none (an increment rounds
+    to 0 on about 5e-5 of them): no row is torn.  The final lp is the
+    target's at the final x."""
+    dev = _card()
+    d, C, S = 100, 1024, 100
+    target = MultivariateNormal.create(d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x0 = torch.randn(d, C, generator=g, device=dev)
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    out = launch_rwm_kernel(target, x0, zi(C), zf(C),
+                            torch.tensor(1e4, device=dev),
+                            torch.tensor(1e-3, device=dev), seed_key(23), 0,
+                            S, 0, draw=WARP_DRAW, record_every=1,
+                            record_chains=C)
+    chain = out[4]                                   # (S, d, C)
+    prev = torch.cat([x0[None], chain[:-1]])
+    moved = (chain != prev).float().mean(1)          # (S, C)
+    assert ((moved == 0) | (moved >= 0.97)).all(), moved[
+        (moved > 0) & (moved < 0.97)][:10]
+    assert 0 < int(out[2].sum()) < S * C
+    torch.testing.assert_close(out[1], target.log_density_td(out[0]),
+                               rtol=1e-5, atol=1e-4)

@@ -278,8 +278,10 @@ def test_unsupported_inputs_raise():
                                         np.zeros(3),
                                         np.linalg.inv(cov).ravel()]),
         rtol=1e-6)
+    # above the warp kernels' largest bucket (d + 4 <= 256 slots)
+    _build.kernel_target(FullRosenbrock.create(252, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build.kernel_target(FullRosenbrock.create(65, device=CPU))
+        _build.kernel_target(FullRosenbrock.create(253, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_target_distribution("SuperFunnel", 3, device=CPU)
 

@@ -179,17 +179,23 @@ def test_progress_bar_and_engine_refusal():
                target_dist="MultivariateNormal", device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
         sim.generate_samples(progress_bar=True)
-    # the kernels compile dims up to 64: a 65-d target is refused by
-    # engine='pallas' and runs on the eager engine under 'auto'
-    wide = TSim(dim=65, sigma=0.01, num_iterations=10, engine="pallas",
-                target_dist=tget("FullRosenbrock", 65, device=CPU),
+    # the kernels compile dims up to 252 (one warp a replica above 64): a
+    # 253-d target is refused by engine='pallas' and runs on the eager
+    # engine under 'auto'; a 65-d one takes the fused kernels
+    wide = TSim(dim=253, sigma=0.01, num_iterations=10, engine="pallas",
+                target_dist=tget("FullRosenbrock", 253, device=CPU),
                 device=CPU)
     with pytest.raises(ValueError, match="fused CUDA kernels"):
         wide.generate_samples(verbose=False)
-    auto = TSim(dim=65, sigma=0.01, num_iterations=10, record_chains=1,
+    auto = TSim(dim=253, sigma=0.01, num_iterations=10, record_chains=1,
                 target_dist=wide.target_dist, device=CPU)
-    assert auto.generate_samples(verbose=False).shape == (10, 65)
+    assert auto.generate_samples(verbose=False).shape == (10, 253)
     assert auto.engine_used == "scan"
+    auto65 = TSim(dim=65, sigma=0.01, num_iterations=10, record_chains=1,
+                  target_dist=tget("FullRosenbrock", 65, device=CPU),
+                  device=CPU)
+    assert auto65.generate_samples(verbose=False).shape == (10, 65)
+    assert auto65.engine_used == "pallas"
     # the full-covariance MVN is a kernel target of its own
     full = TSim(dim=3, sigma=1.0, num_iterations=10, engine="pallas",
                 target_dist=tget("MultivariateNormal", 3,
@@ -274,9 +280,9 @@ def test_autotune_run_refusals(monkeypatch):
     combined (JAX's message)."""
     from rwm_pt_tpu_torch.api import simulation
     monkeypatch.setattr(simulation, "run_rwm_adaptive", None)   # never run
-    wide = TSim(dim=65, sigma=0.01, num_iterations=10, autotune=True,
+    wide = TSim(dim=253, sigma=0.01, num_iterations=10, autotune=True,
                 burn_in=200, engine="pallas",
-                target_dist=tget("FullRosenbrock", 65, device=CPU),
+                target_dist=tget("FullRosenbrock", 253, device=CPU),
                 device=CPU)
     with pytest.raises(ValueError, match="autotune with engine='pallas'"):
         wide.generate_samples(verbose=False)
