@@ -96,12 +96,20 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    shape (T=7, even/odd, 200 steps); fused ``even_odd`` against the eager
    engine's ``even_odd`` on MVN d=10.
    The study's JSON and log go to ``smoke_out/pt_study/``;
-14. the draw study's normals: (a) the two probe kernels, ``draw_normals``
-   of every draw at N = 2^20 (the JAX probe's size) held against its plain
-   version on the same Philox words and, for the normals, put through
+14. the draw study's normals: (a) the two probe kernels, launches counted:
+   ``draw_normals`` of every draw at N = 2^20 (the JAX probe's size) and
+   2^24 (the bandwidth shape) held against its plain version on the same
+   Philox words and, for the normals, put through
    ``tests/test_pallas_kernels.py:425-440``'s moment, KS and tail gates
    (the tails against ``torch.randn``), and ``fast_log`` on that test's
-   8192 inputs within its bound of float64 log; (b) the ``icdf_fastlog``,
+   8192 inputs, on 2^24 + 3 inputs and on a view of them one float off
+   16-byte alignment, within 2 ulp of its plain version and the JAX bound
+   of float64 log; then each probe and its library call (``torch.randn``,
+   sqrt(2) erfinv(2u - 1 + 2^-24), ``torch.log``) at both shapes, timed
+   kernel, library, library, kernel: device us a launch (100 launches in
+   one CUDA graph), host us a call (1000 calls on a host clock, then one
+   synchronise) and the single-call event time, beside the bound; and the
+   launch path's host work piece by piece; (b) the ``icdf_fastlog``,
    ``lax_erfinv`` and ``fake_uniform`` variants of both kernels, Normal
    and UniformRadius, timed at their main path's size and held against
    their plain versions at its shapes over 200 steps; (c) the Geweke gate
@@ -221,6 +229,10 @@ DRAW_SITES = {"icdf_fastlog": "rwm_pt_tpu/kernels/pallas_rwm.py:119",
               "lax_erfinv": "rwm_pt_tpu/kernels/pallas_rwm.py:146",
               "fake_uniform": "rwm_pt_tpu/kernels/pallas_rwm.py:152"}
 PROBE_N = 1 << 20      # tests/test_pallas_kernels.py:395
+PROBE_BW_N = 1 << 24   # the probes' bandwidth shape: 64 MiB of normals
+#                        written, 128 MiB through fast_log, above the 50 MB L2
+GRAPH_LAUNCHES = 100   # launches a CUDA graph holds for device us a launch
+HOST_CALLS = 1000      # calls a host-clock loop times for host us a call
 PROBE_SOURCE = "rwm_pt_tpu_torch/kernels/csrc/draw_probes.cu"
 # phase 15, autotuning: burn-in, window, measured steps, the mis-scale of
 # the Normal variance, and tests/test_adaptive.py's near-optimal MVN d=10
@@ -283,6 +295,218 @@ def cuda_ms(torch, fn, reps=1):
         torch.cuda.synchronize()
         best = min(best, a.elapsed_time(b))
     return best, out
+
+
+def graph_us(torch, fn, launches=GRAPH_LAUNCHES, reps=5):
+    """Device us per launch of ``fn()``: ``launches`` back-to-back calls
+    captured in one CUDA graph (after a warm-up call on the capture's side
+    stream), its replay timed with CUDA events, best of ``reps``, over
+    ``launches``.  No host work between the launches is timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    best = cuda_ms(torch, g.replay, reps)[0]
+    del g
+    return best * 1e3 / launches
+
+
+def host_us(torch, fn, calls=HOST_CALLS):
+    """Host us per call of ``fn()``: ``time.perf_counter_ns`` around
+    ``calls`` calls, read before and after one ``torch.cuda.synchronize()``
+    (enqueue, and enqueue until the card is done).  Returns both."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter_ns()
+    return (t1 - t0) / 1e3 / calls, (t2 - t0) / 1e3 / calls
+
+
+def loop_us(fn, calls=HOST_CALLS):
+    """Host us per call of ``fn()`` over ``calls`` calls (no synchronise)."""
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter_ns() - t0) / 1e3 / calls
+
+
+def kernel_and_library(torch, kernel, library, k_fast=None, l_fast=None):
+    """(a), (b) and (c) of a probe ``kernel`` and its ``library`` call (or
+    None), each measured kernel, library, library, kernel and the better
+    of the two kept: device us per launch (:func:`graph_us`, through
+    ``k_fast`` / ``l_fast``, the calls into preallocated outputs, where
+    given), host us per call (:func:`host_us`: enqueue, and until the card
+    is done) and the single-call event time in ms (:func:`cuda_ms`, best
+    of 20, as the earlier single-call figures were taken)."""
+    measures = (("device_us", lambda f, fast: graph_us(torch, fast or f)),
+                ("host_us", lambda f, fast: host_us(torch, f)),
+                ("single_ms", lambda f, fast: cuda_ms(torch, f, reps=20)[0]))
+    fig = {}
+    for key, measure in measures:
+        k1 = measure(kernel, k_fast)
+        lib = [measure(library, l_fast) for _ in range(2)] if library else []
+        k2 = measure(kernel, k_fast)
+        fig[key] = min(k1, k2)
+        fig["library_" + key] = min(lib) if lib else None
+    for who in ("", "library_"):
+        h = fig[who + "host_us"]
+        fig[who + "host_us"], fig[who + "host_sync_us"] = (
+            (h[0], h[1]) if h else (None, None))
+    return fig
+
+
+def probe_work(probe, n, impl=None):
+    """(float operations, int32 operations, bytes) of a probe on ``n``
+    elements: ``draw_normals`` of draw ``impl`` writes n floats (two
+    Philox blocks a column of 8), ``fast_log`` reads and writes n."""
+    if probe == "draw_normals":
+        return n * NORMAL_FLOPS[impl], n * PROBE_INT_OPS, 4 * n
+    return FAST_LOG_FLOPS * n, FAST_LOG_INT_OPS * n, 8 * n
+
+
+def probe_cases(torch, dp, draws, dev, seed, n, y):
+    """Phase 14a's timed cases at one shape: ``draw_normals`` of every draw
+    at ``n`` and ``fast_log`` on ``y``: name -> (kernel call, library call
+    or None, the kernel into a preallocated output, the library into one,
+    library label, work).  The library call is one PyTorch call for the
+    same function: ``torch.randn`` for Box-Muller, Phi^-1 of the same
+    uniforms for the ICDF-slot normals, ``torch.log``; the uniform probe
+    has none."""
+    buf = torch.empty((8, n // 8), device=dev)
+    lbuf = torch.empty(n, device=dev)
+    ybuf = torch.empty_like(y)
+    u = draws.uniform_from_bits(draws.slot_words(
+        draws.seed_key(seed), 1, 1, 8, n // 8, dev))[0]
+    cases = {}
+    for impl in draws.NORMAL_IMPLS:
+        k = (lambda impl=impl:  # noqa: E731
+             dp.draw_normals(impl, seed, n, device=dev))
+        k_fast = (lambda impl=impl: dp.draw_normals(  # noqa
+            impl, seed, n, device=dev, out=buf))
+        if impl == "bm":
+            lib = ("torch.randn", lambda: torch.randn(n, device=dev),
+                   lambda: torch.randn(n, device=dev, out=lbuf))
+        elif impl != "fake_uniform":
+            icdf = lambda: draws.SQRT2 * torch.erfinv(  # noqa
+                2.0 * u - 1.0 + 2.0 ** -24)
+            lib = ("sqrt2*erfinv(2u-1+2^-24)", icdf, None)
+        else:
+            lib = (None, None, None)
+        cases[f"draw_normals.{impl}"] = (k, lib[1], k_fast, lib[2], lib[0],
+                                         probe_work("draw_normals", n, impl))
+    cases["fast_log"] = (
+        lambda: dp.fast_log(y), lambda: torch.log(y),
+        lambda: dp.fast_log(y, out=ybuf),
+        lambda: torch.log(y, out=ybuf), "torch.log",
+        probe_work("fast_log", y.numel()))
+    return cases
+
+
+def probe_timings(torch, dp, draws, dev, seed, n, y, label, phase="14a"):
+    """(a), (b), (c) of every probe case at one shape (:func:`probe_cases`),
+    each beside its library call and its bound; one line a case.  Returns
+    name -> figures."""
+    out = {}
+    for name, (k, lib, k_fast, l_fast, l_name, work) in probe_cases(
+            torch, dp, draws, dev, seed, n, y).items():
+        fig = kernel_and_library(torch, k, lib, k_fast, l_fast)
+        b_ms, b_by, _ = bound(*work)
+        fig.update(bound_us=b_ms * 1e3, bound_by=b_by, library=l_name,
+                   n=work[2] // (4 if name.startswith("draw") else 8),
+                   bound_share=b_ms * 1e3 / fig["device_us"])
+
+        def pair(key, unit="us", f=fig):
+            lv = f["library_" + key]
+            return (f"{f[key]:.4f} {unit}" + ("" if lv is None else
+                                              f" (library {lv:.4f})"))
+        say(f"phase {phase} {label} {name} n={fig['n']}: device "
+            f"{pair('device_us')} a launch over {GRAPH_LAUNCHES} in a CUDA "
+            f"graph; host {pair('host_us')} a call over {HOST_CALLS} "
+            f"(until done {pair('host_sync_us')}); single call "
+            f"{pair('single_ms', 'ms')}; bound {fig['bound_us']:.4f} us by "
+            f"{b_by}, {100 * fig['bound_share']:.1f} % of the device time"
+            + ("" if l_name is None else f"; library {l_name}"))
+        out[name] = fig
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_breakdown(torch, dp, dev, seed, n, y, phase="14a"):
+    """The probes' host work a call, one piece at a time, each in a loop of
+    its own (:func:`loop_us`): the pieces of the earlier launch path
+    (``resolve_device``, ``_build.entry``,
+    ``torch.cuda.current_stream(dev).cuda_stream``) beside those the
+    wrapper takes (``draw_probes._device``, ``_cuda_getCurrentRawStream``),
+    a whole call into ``out=``, the allocation, the key, the ctypes call
+    that launches, ``check_launch``, the counter and the library calls
+    whole.  Returns ``[(piece, us)]``."""
+    from rwm_pt_tpu_torch.kernels import _build
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.utils.dtypes import resolve_device
+    cols = n // 8
+    buf = torch.empty((8, cols), device=dev)
+    ybuf = torch.empty_like(y)
+    k0, k1 = seed_key(seed)
+    draw = _build.entry(_build.PROBES, "rwm_pt_draw_normals")
+    flog = _build.entry(_build.PROBES, "rwm_pt_fast_log")
+    idx = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _build.DRAWS["bm"][1]
+    count = Counter()
+    pieces = [
+        ("device: resolve_device(dev)", lambda: resolve_device(dev)),
+        ("device: resolve_device('cuda')", lambda: resolve_device("cuda")),
+        ("device: draw_probes._device(dev)", lambda: dp._device(dev)),
+        ("device: draw_probes._device('cuda')", lambda: dp._device("cuda")),
+        ("whole call: draw_normals('bm', out=)", lambda: dp.draw_normals(
+            "bm", seed, n, device=dev, out=buf)),
+        ("whole call: fast_log(y, out=)", lambda: dp.fast_log(y, out=ybuf)),
+        ("entry: _build.entry", lambda: _build.entry(
+            _build.PROBES, "rwm_pt_draw_normals")),
+        ("stream: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("stream: torch._C._cuda_getCurrentRawStream(index)",
+         lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        ("torch.empty((8, n/8))", lambda: torch.empty(
+            (8, cols), dtype=torch.float32, device=dev)),
+        ("torch.empty(8, n/8)", lambda: torch.empty(
+            8, cols, dtype=torch.float32, device=dev)),
+        ("torch.empty_like(y)", lambda: torch.empty_like(y)),
+        ("_build.check_cuda(y)", lambda: _build.check_cuda(
+            "fast_log", torch.float32, y=y)),
+        ("seed_key(seed)", lambda: seed_key(seed)),
+        ("ctypes call: rwm_pt_draw_normals (launches bm)",
+         lambda: draw(code, k0, k1, cols, buf.data_ptr(), stream)),
+        ("ctypes call: rwm_pt_fast_log (launches)",
+         lambda: flog(y.data_ptr(), ybuf.data_ptr(), y.numel(), stream)),
+        ("check_launch(name, 0)", lambda: _build.check_launch("probe", 0)),
+        ("counter: launches[key] += 1",
+         lambda: count.__setitem__("bm", count["bm"] + 1)),
+        ("torch.randn(n) (library, whole call)",
+         lambda: torch.randn(n, device=dev)),
+        ("torch.log(y) (library, whole call)", lambda: torch.log(y)),
+    ]
+    out = []
+    for piece, fn in pieces:
+        fn()
+        torch.cuda.synchronize()
+        us = loop_us(fn)
+        torch.cuda.synchronize()
+        out.append((piece, us))
+    say(f"phase {phase} host breakdown a call (n={n}, y of {y.numel()}; "
+        f"each piece alone, {HOST_CALLS} calls): "
+        + "; ".join(f"{p} {us:.3f} us" for p, us in out))
+    return out
 
 
 # ---------------------------------------------------------------- op counts
@@ -1374,6 +1598,95 @@ def normal_gates(torch, z, ref):
     return st, bad
 
 
+def fast_log_inputs(torch, dev, n, gen):
+    """``n`` finite positive f32 inputs for ``fast_log`` on the card, as
+    tests/test_pallas_kernels.py:454-457 makes its 8192: half log-spaced
+    over 1e-37 .. 1, half uniform on [1e-7, 1)."""
+    k = n // 2
+    return torch.cat([
+        torch.logspace(-37, 0, k, dtype=torch.float64, device=dev).float(),
+        1e-7 + (1 - 1e-7) * torch.rand(n - k, generator=gen, device=dev)])
+
+
+def hold_fast_log(torch, draws, k, y):
+    """The ``fast_log`` kernel's output ``k`` on ``y`` against the plain
+    version (within 2 f32 ulp, rtol 2.4e-7) and float64 log (the JAX
+    test's bound 1e-6 + 1e-7 |log y|).  Returns ``(max |diff| to the
+    plain version, within 2 ulp, worst error over the bound)``."""
+    p = draws.fast_log(y)
+    exact = torch.log(y.double())
+    worst = ((k.double() - exact).abs()
+             / (1e-6 + 1e-7 * exact.abs())).max().item()
+    return ((k - p).abs().max().item(),
+            bool(((k - p).abs() <= 2.4e-7 * p.abs()).all()), worst)
+
+
+def probe_inputs(torch, dev, gen):
+    """``fast_log``'s inputs on the card: tests/test_pallas_kernels.py:
+    454-457's 8192 and the bandwidth shape's 2^24 + 3."""
+    import numpy as np
+    y = np.concatenate([
+        np.logspace(-37, 0, 4096).astype(np.float32),
+        np.random.default_rng(0).uniform(1e-7, 1.0, 4096).astype(np.float32),
+    ]).reshape(8, 1024)
+    return (torch.from_numpy(y).to(dev),
+            fast_log_inputs(torch, dev, PROBE_BW_N + 3, gen))
+
+
+def hold_probes(torch, dev, seed, gen, yt, ybw, phase="14a"):
+    """Launch each probe once and hold it against its plain version:
+    ``draw_normals`` of every draw at N = 2^20 and 2^24 (>= 99.9 % of
+    elements to 1e-5 relative, max |diff| < ``agreement.X_ATOL``, and the
+    exact draws through :func:`normal_gates` against ``torch.randn``), and
+    ``fast_log`` on ``yt``, ``ybw`` and the view ``ybw[1:]``, one float off
+    16-byte alignment (:func:`hold_fast_log`: 2 ulp, the JAX bound).
+    Fails on any disagreement.  Returns ``{(draw, N) or ("fast_log",
+    n): figures}``."""
+    from rwm_pt_tpu_torch.kernels import agreement, draw_probes, draws
+    held = {}
+    for n in (PROBE_N, PROBE_BW_N):
+        ref = torch.randn(n, generator=gen, device=dev)
+        for impl in draws.NORMAL_IMPLS:
+            zk = draw_probes.draw_normals(impl, seed, n, device=dev)
+            p = draw_probes._draw_normals_plain(impl, seed, n, dev)
+            diff = (zk - p).abs()
+            share = (diff <= 1e-5 * p.abs()).double().mean().item()
+            max_d = diff.max().item()
+            st, bad = ({}, []) if impl == "fake_uniform" else normal_gates(
+                torch, zk, ref)
+            say(f"phase {phase} probe draw_normals {impl} (seed {seed}, "
+                f"N={n}): {100 * share:.4f} % of elements agree with the "
+                f"plain version to 1e-5 relative, max |diff| {max_d:.3g}"
+                + ("; not a normal, no gates" if impl == "fake_uniform" else
+                   f"; mean {st['mean']:.2e}, std {st['std']:.6f}, E z^3 "
+                   f"{st['skew']:.2e}, E z^4 {st['kurt']:.5f}, KS "
+                   f"{st['ks']:.2e}, above 2 {st['above_2'][0]:.6f} vs randn "
+                   f"{st['above_2'][1]:.6f}, above 3 {st['above_3'][0]:.6f} "
+                   f"vs {st['above_3'][1]:.6f}"))
+            if max_d >= agreement.X_ATOL or share < 0.999 or bad:
+                fail(f"draw_normals {impl} at N={n}: max |diff| {max_d}, "
+                     f"share {share}, failed gates {bad}")
+            held[impl, n] = dict(max_abs_err=max_d, agree_share_1e5_rel=share,
+                                 gates=st)
+            del zk, p, diff
+        del ref
+    for label, v in (("8192 inputs", yt), (f"{ybw.numel()} inputs", ybw),
+                     (f"view [1:] of {ybw.numel()}", ybw[1:])):
+        max_d, rel_ok, worst = hold_fast_log(torch, draws,
+                                             draw_probes.fast_log(v), v)
+        say(f"phase {phase} probe fast_log ({label}): max |diff| to the "
+            f"plain version {max_d:.3g} (within 2 ulp: {rel_ok}); worst "
+            f"error / (1e-6 + 1e-7 |log y|) against float64 log "
+            f"{worst:.4f} (< 1)")
+        if not rel_ok or worst >= 1.0:
+            fail(f"fast_log probe on {label} disagrees with its plain "
+                 "version or float64 log")
+        held["fast_log", v.numel()] = dict(max_abs_err=max_d,
+                                           worst_error_over_bound=worst)
+    torch.cuda.empty_cache()
+    return held
+
+
 def phase_14(torch, gen, recorded):
     """Phase 14, the draw study's normals (B10): (a) the two probe kernels
     at the JAX probe's size, (b) the fused variants of the three new draws
@@ -1383,8 +1696,6 @@ def phase_14(torch, gen, recorded):
     (``scripts/bench_normal_impl.py``) through the entry points.  Returns
     the kernels' JSON records of the probe kernels and the new variants,
     with their launches on (a) and (d)."""
-    import numpy as np
-
     from rwm_pt_tpu_torch.kernels import (_build, agreement, draw_probes,
                                           draws, fused_pt, fused_rwm,
                                           run_pt_fused, run_rwm_fused)
@@ -1409,97 +1720,51 @@ def phase_14(torch, gen, recorded):
             dim, {"name": prop, "params": proposal_params(prop, dim, v)},
             device=dev)
 
-    # ---- (a) the probe kernels: every draw's normals at N = 2^20 and the
-    # bit-trick log on tests/test_pallas_kernels.py:454-457's 8192 inputs
+    # ---- (a) the probe kernels, launches counted: every draw's normals at
+    # N = 2^20 (the JAX probe's size) and 2^24 (the bandwidth shape), the
+    # bit-trick log on tests/test_pallas_kernels.py:454-457's 8192 inputs,
+    # on 2^24 + 3 inputs and on a view of them one float off 16-byte
+    # alignment, each held against its plain version; then timed
     seed = int.from_bytes(os.urandom(4), "little")
     probes = (draw_probes.draw_normals, draw_probes.fast_log)
-    y = np.concatenate([
-        np.logspace(-37, 0, 4096).astype(np.float32),
-        np.random.default_rng(0).uniform(1e-7, 1.0, 4096).astype(np.float32),
-    ]).reshape(8, 1024)
-    yt = torch.from_numpy(y).to(dev)
+    yt, ybw = probe_inputs(torch, dev, gen)
     reset_launches(*probes)
-    z = {impl: draw_probes.draw_normals(impl, seed, PROBE_N, device=dev)
-         for impl in draws.NORMAL_IMPLS}
-    flog = draw_probes.fast_log(yt)
+    held = hold_probes(torch, dev, seed, gen, yt, ybw)
     torch.cuda.synchronize()
     seen = read_launches(*probes, by_kind=True)
-    want = Counter({impl: 1 for impl in draws.NORMAL_IMPLS})
-    want["fast_log"] = 1
+    want = Counter({impl: 2 for impl in draws.NORMAL_IMPLS})
+    want["fast_log"] = 3
     if seen != want:
         fail(f"probe launches {dict(seen)}, want {dict(want)}")
-    ref = torch.randn(PROBE_N, generator=gen, device=dev)
-    u = draws.uniform_from_bits(draws.slot_words(
-        seed_key(seed), 1, 1, 8, PROBE_N // 8, dev))[0]
-    for impl in draws.NORMAL_IMPLS:
-        p = draw_probes._draw_normals_plain(impl, seed, PROBE_N, dev)
-        diff = (z[impl] - p).abs()
-        share = (diff <= 1e-5 * p.abs()).double().mean().item()
-        max_d = diff.max().item()
-        ms, _ = cuda_ms(torch, lambda: draw_probes.draw_normals(
-            impl, seed, PROBE_N, device=dev), reps=20)
-        plain_ms, _ = cuda_ms(torch, lambda: draw_probes._draw_normals_plain(
-            impl, seed, PROBE_N, dev), reps=3)
-        # one PyTorch call for the same function: Phi^-1 of the same
-        # uniforms for the ICDF-slot normals, N normals for Box-Muller;
-        # the uniform probe has none
-        lib_ms = None
-        if impl == "bm":
-            lib_ms, _ = cuda_ms(torch, lambda: torch.randn(
-                PROBE_N, device=dev), reps=20)
-        elif impl != "fake_uniform":
-            lib_ms, _ = cuda_ms(torch, lambda: draws.SQRT2 * torch.erfinv(
-                2.0 * u - 1.0 + 2.0 ** -24), reps=20)
-        b_ms, b_by, _ = bound(PROBE_N * NORMAL_FLOPS[impl],
-                              PROBE_N * PROBE_INT_OPS, 4 * PROBE_N)
-        st, bad = ({}, []) if impl == "fake_uniform" else normal_gates(
-            torch, z[impl], ref)
-        say(f"phase 14 probe draw_normals {impl} (seed {seed}, N={PROBE_N}):"
-            f" {100 * share:.4f} % of elements agree with the plain version "
-            f"to 1e-5 relative, max |diff| {max_d:.3g}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by}"
-            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
-            + ("; not a normal, no gates" if impl == "fake_uniform" else
-               f"; mean {st['mean']:.2e}, std {st['std']:.6f}, E z^3 "
-               f"{st['skew']:.2e}, E z^4 {st['kurt']:.5f}, KS {st['ks']:.2e},"
-               f" above 2 {st['above_2'][0]:.6f} vs randn "
-               f"{st['above_2'][1]:.6f}, above 3 {st['above_3'][0]:.6f} vs "
-               f"{st['above_3'][1]:.6f}"))
-        if max_d >= agreement.X_ATOL or share < 0.999 or bad:
-            fail(f"draw_normals {impl}: max |diff| {max_d}, share {share}, "
-                 f"failed gates {bad}")
-        out.append(dict(
-            name=f"draw_normals.{impl}", route="cuda", source=PROBE_SOURCE,
-            replaces="tests/test_pallas_kernels.py:403",
-            launches=seen[impl], max_abs_err=max_d, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, n=PROBE_N, agree_share_1e5_rel=share,
-            gates=st))
-    del z, ref
-    fp = draws.fast_log(yt)
-    rel_ok = bool(((flog - fp).abs() <= 2.4e-7 * fp.abs()).all())
-    exact = np.log(y.astype(np.float64))
-    err = np.abs(flog.cpu().numpy().astype(np.float64) - exact)
-    worst = float((err / (1e-6 + 1e-7 * np.abs(exact))).max())
-    ms, _ = cuda_ms(torch, lambda: draw_probes.fast_log(yt), reps=20)
-    plain_ms, _ = cuda_ms(torch, lambda: draws.fast_log(yt), reps=3)
-    lib_ms, _ = cuda_ms(torch, lambda: torch.log(yt), reps=20)
-    b_ms, b_by, _ = bound(FAST_LOG_FLOPS * y.size, FAST_LOG_INT_OPS * y.size,
-                          8 * y.size)
-    max_d = (flog - fp).abs().max().item()
-    say(f"phase 14 probe fast_log ({y.size} inputs): max |diff| to the plain "
-        f"version {max_d:.3g} (within 2 ulp: {rel_ok}); worst error / "
-        f"(1e-6 + 1e-7 |log y|) against float64 log {worst:.4f} (< 1); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.log "
-        f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
-    if not rel_ok or worst >= 1.0:
-        fail("fast_log probe disagrees with its plain version or float64 log")
-    out.append(dict(
-        name="fast_log", route="cuda", source=PROBE_SOURCE,
-        replaces="tests/test_pallas_kernels.py:462",
-        launches=seen["fast_log"], max_abs_err=max_d, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        n=int(y.size), worst_error_over_bound=worst))
+    figs = {n: probe_timings(torch, draw_probes, draws, dev, seed, n, yy,
+                             label)
+            for n, yy, label in ((PROBE_N, yt, "test shape"),
+                                 (PROBE_BW_N, ybw[:PROBE_BW_N],
+                                  "bandwidth shape"))}
+    host_breakdown(torch, draw_probes, dev, seed, PROBE_N, yt)
+    for name, fig in figs[PROBE_N].items():
+        if name == "fast_log":
+            plain_ms = cuda_ms(torch, lambda: draws.fast_log(yt), reps=3)[0]
+            hk, bk = ("fast_log", yt.numel()), ("fast_log", PROBE_BW_N + 3)
+            replaces = "tests/test_pallas_kernels.py:462"
+        else:
+            impl = name.split(".")[1]
+            plain_ms = cuda_ms(torch, lambda: draw_probes._draw_normals_plain(
+                impl, seed, PROBE_N, dev), reps=3)[0]
+            hk, bk = (impl, PROBE_N), (impl, PROBE_BW_N)
+            replaces = "tests/test_pallas_kernels.py:403"
+        lib_us = fig["library_device_us"]
+        rec = dict(fig, **held[hk])
+        rec.update(
+            name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
+            launches=seen[hk[0]], ms=fig["device_us"] / 1e3,
+            plain_ms=plain_ms, bound_ms=fig["bound_us"] / 1e3,
+            library_ms=None if lib_us is None else lib_us / 1e3,
+            timing=f"device us a launch in a CUDA graph of {GRAPH_LAUNCHES}",
+            bandwidth=dict(figs[PROBE_BW_N][name], **held[bk]))
+        if name == "fast_log":
+            rec["view"] = held["fast_log", PROBE_BW_N + 2]
+        out.append(rec)
     say(f"phase 14a {time.time() - t_phase:.1f} s")
 
     # ---- (b) each new draw's Normal and UniformRadius variants of both
@@ -2378,8 +2643,8 @@ def main():
         entries = sorted(ptxas_report.parse(log))
         line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
                          for n, r, f, sp in entries)
+        frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
         if kname != _build.PROBES:
-            frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
             line += "; " + occupancy(torch, _build, kname)
         say(f"phase 2 build {kname}: {line}")
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
@@ -2401,7 +2666,7 @@ def main():
         f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
             torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
     if frames:
-        fail(f"a fused kernel has a stack frame or spills: {frames}")
+        fail(f"a kernel has a stack frame or spills: {frames}")
 
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
     zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa

@@ -135,9 +135,9 @@ _ENTRIES = {
                    _P, _F, _P, _I, _I, _I, _P],
                   "rwm_pt_fused_rwm_info": [_I, _I, _I, _P]},
     # impl (a DRAWS code), key0, key1, cols, out, stream |
-    # y, out, n, stream
+    # y, out, n (64-bit), stream
     PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
-             "rwm_pt_fast_log": [_P, _P, _I, _P]},
+             "rwm_pt_fast_log": [_P, _P, ctypes.c_int64, _P]},
 }
 # the warp kernels take the same arguments (RWM: chains, i.e. warps, a
 # block for threads; PT: runtime_r is ignored)

@@ -80,3 +80,30 @@ def test_the_rules_draw_stays_int32_bound_and_the_full_mvn_does_not():
                                         SWAP_EVERY, draw="lax_erfinv",
                                         n_params=1 + D + D * D))
     assert limit == "float32" and ms == pytest.approx(56.135, rel=1e-3)
+
+
+@pytest.mark.parametrize("impl", sorted(cs.NORMAL_FLOPS))
+def test_draw_normals_bandwidth_shape_is_byte_bound(impl):
+    """The probes' bandwidth shape: 2^24 normals write 4 x 2^24 =
+    67,108,864 bytes, 20.03 us at 3.35 TB/s, more than their float work
+    (at most 57 a normal, 14.3 us) or Philox's (15 int32 operations a
+    normal, 15.0 us) takes."""
+    n = cs.PROBE_BW_N
+    assert n == 1 << 24
+    flops, int_ops, nbytes = cs.probe_work("draw_normals", n, impl)
+    assert nbytes == 67_108_864 and int_ops == 15 * n
+    ms, by, limit = cs.bound(flops, int_ops, nbytes)
+    assert (by, limit) == ("bytes", "bytes")
+    assert ms == pytest.approx(0.0200325, rel=1e-5)
+
+
+def test_fast_log_bandwidth_shape_is_byte_bound():
+    """fast_log on 2^24 floats reads and writes 8 x 2^24 = 134,217,728
+    bytes, 40.06 us at 3.35 TB/s; its 28 float and 6 int32 operations a
+    float take 7.0 and 6.0 us."""
+    flops, int_ops, nbytes = cs.probe_work("fast_log", cs.PROBE_BW_N)
+    assert nbytes == 134_217_728
+    assert (flops, int_ops) == (28 * cs.PROBE_BW_N, 6 * cs.PROBE_BW_N)
+    ms, by, limit = cs.bound(flops, int_ops, nbytes)
+    assert (by, limit) == ("bytes", "bytes")
+    assert ms == pytest.approx(0.0400650, rel=1e-5)

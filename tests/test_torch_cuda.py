@@ -589,6 +589,174 @@ def test_fast_log_probe_matches_plain():
     assert (err < 1e-6 + 1e-7 * np.abs(exact)).all()
 
 
+def _log_inputs(n, dev, seed=5):
+    """n finite positive f32 inputs for fast_log: half log-spaced over
+    1e-37 .. 1, half uniform on [1e-7, 1), as the JAX test makes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = n // 2
+    return torch.cat([
+        torch.logspace(-37, 0, k, dtype=torch.float64, device=dev).float(),
+        1e-7 + (1 - 1e-7) * torch.rand(n - k, generator=g, device=dev)])
+
+
+def _assert_fast_log(out, y):
+    """The kernel's logs ``out`` of ``y``: the plain version's to 2 ulp and
+    within the JAX test's bound 1e-6 + 1e-7 |log y| of float64 log."""
+    torch.testing.assert_close(out, draws.fast_log(y), rtol=2.4e-7,
+                               atol=1e-30)
+    exact = torch.log(y.double())
+    assert ((out.double() - exact).abs()
+            < 1e-6 + 1e-7 * exact.abs()).all()
+
+
+@pytest.mark.parametrize("impl", draws.NORMAL_IMPLS)
+@pytest.mark.parametrize("n", [1 << 24, 8 * 1001])
+def test_draw_normals_probe_large_and_ragged(impl, n):
+    """The normal-draw probe at the bandwidth shape (2^24 normals, 2^21
+    columns, 8192 blocks) and at 1001 columns (not a multiple of 4 or of a
+    block, so the last block is ragged) against its plain version to rtol
+    1e-5."""
+    dev = _card()
+    z = draw_probes.draw_normals(impl, 11, n, device=dev)
+    p = draw_probes._draw_normals_plain(impl, 11, n, dev)
+    torch.testing.assert_close(z, p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("y_off,out_off", [(0, 0), (1, 0), (2, 0), (3, 0),
+                                           (0, 1), (1, 3), (3, 3)])
+def test_fast_log_probe_long_and_misaligned(y_off, out_off):
+    """fast_log on 2^24 + 3 floats read from ``y_off`` floats into a buffer
+    and written ``out_off`` floats into another: the scalar head up to y's
+    16-byte boundary, the float4 body (scalar stores where out is off by
+    another amount) and the scalar tail of n % 4, all the plain version's."""
+    dev = _card()
+    n = (1 << 24) + 3
+    y = _log_inputs(n + y_off, dev)[y_off:]
+    assert (y.data_ptr() % 16 == 0) == (y_off == 0)
+    buf = torch.full((n + out_off,), float("nan"), device=dev)
+    out = draw_probes.fast_log(y, out=buf[out_off:])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == buf[out_off:].data_ptr()
+    _assert_fast_log(out, y)
+    if out_off:
+        assert torch.isnan(buf[:out_off]).all()
+
+
+def test_fast_log_probe_in_place_and_overlap():
+    """fast_log on the card into ``out=y`` (in place, from a misaligned
+    view) gives the plain version's logs of the old ``y``; an ``out``
+    shifted one float against ``y`` raises and launches nothing."""
+    dev = _card()
+    n = (1 << 20) + 3
+    buf = _log_inputs(n + 2, dev)
+    y = buf[1:n + 1]
+    want = draws.fast_log(y.clone())
+    before = Counter(draw_probes.fast_log.launches)
+    assert draw_probes.fast_log(y, out=y) is y
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=2.4e-7, atol=1e-30)
+    with pytest.raises(ValueError, match="out overlaps y"):
+        draw_probes.fast_log(buf[:n], out=buf[1:n + 1])
+    assert draw_probes.fast_log.launches - before == Counter(
+        {"fast_log": 1})
+
+
+def test_probes_launch_on_the_current_stream():
+    """Inside ``torch.cuda.stream(side)`` both probes launch on ``side``:
+    their inputs and outputs are written there after a sleep of ~10 ms, so
+    a launch on another stream would read the old input or be overwritten;
+    the results are read after ``side.synchronize()``."""
+    dev = _card()
+    y = _log_inputs(1 << 20, dev)
+    y_in = torch.ones_like(y)
+    z_out = torch.empty((8, 1 << 17), device=dev)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        y_in.copy_(y)
+        z_out.fill_(float("nan"))
+        flog = draw_probes.fast_log(y_in)
+        z = draw_probes.draw_normals("lax_erfinv", 3, 1 << 20, device=dev,
+                                     out=z_out)
+    side.synchronize()
+    _assert_fast_log(flog, y)
+    torch.testing.assert_close(z, draw_probes._draw_normals_plain(
+        "lax_erfinv", 3, 1 << 20, dev), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", draws.NORMAL_IMPLS)
+def test_probes_reuse_out(impl):
+    """Both probes write into a reused ``out=`` and return it: each call's
+    values are its own call's, none left from the last."""
+    dev = _card()
+    n = 1 << 16
+    out = torch.empty((8, n // 8), device=dev)
+    for seed in (1, 2):
+        before = Counter(draw_probes.draw_normals.launches)
+        assert draw_probes.draw_normals(impl, seed, n, device=dev,
+                                        out=out) is out
+        assert draw_probes.draw_normals.launches - before == Counter(
+            {impl: 1})
+        torch.testing.assert_close(out, draw_probes._draw_normals_plain(
+            impl, seed, n, dev), rtol=1e-5, atol=1e-6)
+    lout = torch.empty(n, device=dev)
+    for seed in (1, 2):
+        y = _log_inputs(n, dev, seed)
+        assert draw_probes.fast_log(y, out=lout) is lout
+        _assert_fast_log(lout, y)
+
+
+def test_probes_replay_in_a_cuda_graph():
+    """Each probe captured in a CUDA graph (after a warm-up on the capture's
+    side stream) replays to the eager launch's values; fast_log's replay
+    reads what its input holds at replay time."""
+    dev = _card()
+    n = 1 << 20
+    y = _log_inputs(n, dev)
+    y_static = y.clone()
+    z_out = torch.empty((8, n // 8), device=dev)
+    l_out = torch.empty_like(y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw_probes.draw_normals("bm", 9, n, device=dev, out=z_out)
+        draw_probes.fast_log(y_static, out=l_out)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        draw_probes.draw_normals("bm", 9, n, device=dev, out=z_out)
+        draw_probes.fast_log(y_static, out=l_out)
+    z_out.zero_()
+    y2 = _log_inputs(n, dev, seed=6)
+    y_static.copy_(y2)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(z_out, draw_probes.draw_normals("bm", 9, n,
+                                                        device=dev))
+    assert torch.equal(l_out, draw_probes.fast_log(y2))
+
+
+def test_probe_launch_errors_raise(monkeypatch):
+    """A nonzero cudaError from a probe's C entry point raises with its
+    code and counts no launch: the entry refuses an unknown draw code
+    (cudaErrorInvalidValue), and the wrapper raises on what it returns."""
+    dev = _card()
+    out = torch.empty((8, 8), device=dev)
+    draw_probes.draw_normals("bm", 1, 64, device=dev, out=out)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert draw_probes._DRAW_NORMALS(99, 1, 0, 8, out.data_ptr(),
+                                     stream) == 1
+    before = Counter(draw_probes.draw_normals.launches)
+    monkeypatch.setattr(draw_probes, "_DRAW_NORMALS", lambda *a: 700)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        draw_probes.draw_normals("bm", 1, 64, device=dev)
+    monkeypatch.setattr(draw_probes, "_FAST_LOG", lambda *a: 1)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        draw_probes.fast_log(_log_inputs(64, dev))
+    assert draw_probes.draw_normals.launches == before
+
+
 WARP_CASES = [("pt", 65, "sequential", 10), ("pt", 100, "even_odd", 10),
               ("pt", 200, "sequential", 16), ("rwm", 65, None, 1),
               ("rwm", 100, None, 1)]

@@ -432,6 +432,106 @@ def test_fast_log_probe_plain_matches_jax():
     assert not draw_probes.fast_log.launches
 
 
+@pytest.mark.parametrize("impl", list(draws.NORMAL_IMPLS))
+def test_draw_normals_probe_fills_out(impl):
+    """``draw_normals(..., out=)`` on the CPU writes the plain version's
+    normals into the given tensor and returns it: the values of a call
+    without ``out``, whatever ``out`` held, and again when reused."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    want = draw_probes.draw_normals(impl, 99, 64, device="cpu")
+    out = torch.full((8, 8), float("nan"))
+    got = draw_probes.draw_normals(impl, 99, 64, device="cpu", out=out)
+    assert got is out and torch.equal(out, want)
+    other = draw_probes.draw_normals(impl, 100, 64, device="cpu")
+    assert draw_probes.draw_normals(impl, 100, 64, device="cpu",
+                                    out=out) is out
+    assert torch.equal(out, other) and not torch.equal(out, want)
+    assert not draw_probes.draw_normals.launches
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_fast_log_probe_fills_out(offset):
+    """``fast_log(y, out=)`` on the CPU writes the plain version's logs of
+    ``y`` (a view at ``offset`` floats into the JAX test's inputs) into the
+    given tensor and returns it, equal to a call without ``out``."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    y = torch.from_numpy(FAST_LOG_Y).flatten()[offset:]
+    out = torch.full_like(y, float("nan"))
+    got = draw_probes.fast_log(y, out=out)
+    assert got is out and torch.equal(out, draw_probes.fast_log(y))
+    assert torch.equal(out, draws.fast_log(y))
+    assert not draw_probes.fast_log.launches
+
+
+def _bad_outs(shape):
+    """``out`` tensors that the probes refuse for an output of ``shape``:
+    wrong shape, type, device, or not contiguous."""
+    rows, cols = shape
+    return {"shape": torch.empty(rows, cols + 1),
+            "dtype": torch.empty(shape, dtype=torch.float64),
+            "device": torch.empty(shape, device="meta"),
+            "contiguity": torch.empty(cols, rows).t()}
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device", "contiguity"])
+def test_probe_out_is_checked(bad):
+    """A wrong shape, type or device for ``out``, or an ``out`` that is not
+    contiguous, raises in either probe before anything is written."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    out = _bad_outs((8, 8))[bad]
+    with pytest.raises(ValueError, match="out must be a contiguous float32"):
+        draw_probes.draw_normals("bm", 99, 64, device="cpu", out=out)
+    y = torch.from_numpy(FAST_LOG_Y[:, :8].copy())
+    with pytest.raises(ValueError, match="out must be a contiguous float32"):
+        draw_probes.fast_log(y, out=_bad_outs((8, 8))[bad])
+    assert not draw_probes.draw_normals.launches
+    assert not draw_probes.fast_log.launches
+
+
+@pytest.mark.parametrize("y_at,out_at,ok", [
+    (0, 0, True),      # out is y: in place
+    (0, 64, True),     # apart in one storage
+    (0, 1, False),     # out one float past y
+    (1, 0, False),     # out one float before y
+    (3, 60, False),    # out's last float is y's first
+])
+def test_fast_log_out_overlapping_y(y_at, out_at, ok):
+    """``fast_log(y, out=)`` takes ``y`` itself (in place) or memory apart
+    from it, and refuses an ``out`` that partly overlaps ``y`` (a shifted
+    view of the same storage), before anything is written."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    y0 = torch.from_numpy(FAST_LOG_Y).flatten()[:63].clone()
+    buf = torch.ones(130)
+    buf[y_at:y_at + 63] = y0
+    y, out = buf[y_at:y_at + 63], buf[out_at:out_at + 63]
+    if ok:
+        assert draw_probes.fast_log(y, out=out) is out
+        assert torch.equal(out, draws.fast_log(y0))
+    else:
+        before = buf.clone()
+        with pytest.raises(ValueError, match="out overlaps y"):
+            draw_probes.fast_log(y, out=out)
+        assert torch.equal(buf, before)
+    assert not draw_probes.fast_log.launches
+
+
+def test_probe_device_is_resolved_once_and_cuda_raises(monkeypatch):
+    """The probes resolve a device argument once (``resolve_device``) and
+    keep it with its card index (-1: the current card); ``device='cuda'``
+    with no card raises every time, and nothing is kept for it."""
+    from rwm_pt_tpu_torch.kernels import draw_probes
+    monkeypatch.setattr(draw_probes, "_DEVICES", {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert draw_probes._device("cpu") == (torch.device("cpu"), -1)
+    assert draw_probes._device("cpu") is draw_probes._DEVICES["cpu"]
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cuda"):
+            draw_probes.draw_normals("bm", 1, 64, device="cuda")
+    assert "cuda" not in draw_probes._DEVICES
+    with pytest.raises(ValueError, match="seed must be non-negative"):
+        draw_probes.draw_normals("bm", -1, 64, device="cpu")
+
+
 def test_draw_libraries_are_named_and_flagged():
     """Each forced draw has a library of its own for Normal and
     UniformRadius (Laplace draws no normals), built with its
