@@ -130,11 +130,15 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    --no_plots`` CLI in a process of its own, its JSON with JAX's keys
    (``smoke_out/single_run/``);
 16. the warp kernels above 64 dimensions (``csrc/fused_pt_warp.cu``,
-   ``csrc/fused_rwm_warp.cu``, one warp a replica): (a) built with the
-   rest in phase 2 (no stack frame, no spill; registers and blocks per
-   SM); (b) every warp library held against its plain version (phase 3's
-   checks) at d = 100 on every target kind, RWM and PT (T = 10, both
-   sweeps), Laplace and UniformRadius and the five draws on the iso MVN,
+   ``csrc/fused_rwm_warp.cu``, a team of G lanes a replica, each library
+   holding the team sizes of ``_build.WARP_TEAMS``): (a) built with the
+   rest in phase 2, every target kind in both warp buckets (d = 100 and
+   200) and the full-covariance MVN under UniformRadius (no stack frame,
+   no spill in any team size; registers, the team size the geometry
+   picks and blocks per SM); (b) every warp library held against its
+   plain version at every team size it holds (phase 3's checks) at
+   d = 100 on every target kind, RWM and PT (T = 10, both sweeps),
+   Laplace and UniformRadius and the five draws on the iso MVN,
    recorded, and at the buckets' edges d = 65, 124, 125, 252 (1000
    replicas, ragged; Box-Muller at the odd 65); (c) Geweke at d = 100 on
    the iso MVN and IIDGamma's exact tempered law; (d) the reference's
@@ -146,10 +150,11 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    and an autotuned PT run at d = 100, each launching only ``.w128``
    libraries; (f) each warp kernel at the main shape (d = 100,
    FullRosenbrock and the iso MVN, 65,536 replicas x T = 10 or chains,
-   2000 steps) beside its bound and the eager engine, the exact draws at
-   d = 100, and for the record the warp kernels beside the thread kernels
-   at d = 30 and at the RWM study's d = 20.  Output under
-   ``smoke_out/warp/``.
+   2000 steps) beside its bound and the eager engine, with the team size
+   the geometry picks, the exact draws at d = 100, and for the record the
+   warp kernels beside the thread kernels at d = 30 and at the RWM study's
+   d = 20 (``scripts/bench_torch_warp.py`` times every team size, and an
+   earlier tree, at these shapes).  Output under ``smoke_out/warp/``.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -244,6 +249,7 @@ OPT_VAR = 2.38 ** 2 / 10
 # (d = 1 + n2 (n1 - 1)), the holds' shape, the main shape's held steps (its
 # plain version takes ~0.1 s a step), the eager engine's timed steps
 WARP_D = 100
+WARP_D_256 = 200   # a d of the 256 bucket, whose libraries phase 2 builds
 WARP_EDGES = (65, 124, 125, 252)
 WARP_KW = {"hybrid_rosenbrock": {"n1": 4, "n2": 33}}
 WARP_HOLD = dict(steps=100, burn_in=20, swap_every=10, T=10, C_pt=512,
@@ -2222,17 +2228,30 @@ def phase_16(torch, gen):
         lib = _build.lib_name(_build.library(f"fused_{algo}", lkw["kind"],
                                              lkw["draw"]),
                               _build.target_kind(tg), tg.dim)
-        reset_launches(*wrappers)
-        ms, plain_ms, ag = hold_run(torch, f"phase 16b {label} ({lib})",
-                                    launch, plain, args, lkw, names)
-        seen = read_launches(*wrappers, by_kind=True)
         want = {_build.launch_key(lib)} | (
             {f"fused_{algo}_record"} if record else set())
-        if not _build.is_warp(lib) or set(seen) != want:
-            fail(f"phase 16b {label}: launches {dict(seen)}, want {want}")
-        say(f"phase 16b {label}: {lib} kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms; {agreement.describe(ag)}")
-        return ag
+        plain_ms, p = cuda_ms(torch, lambda: plain(*args, **lkw))
+        worst = None
+        rungs = kw.get("T", h["T"]) if algo == "pt" else 1
+        for team in _build.library_teams(lib):
+            if rungs * team > _build.pt_team_threads(
+                    _build.warp_bucket(tg.dim), team):
+                continue   # G = 32 takes 16 rungs in the 256 bucket
+            reset_launches(*wrappers)
+            ms, k = cuda_ms(torch, lambda: launch(*args, team=team, **lkw),
+                            reps=3)
+            seen = read_launches(*wrappers, by_kind=True)
+            ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+            if not _build.is_warp(lib) or set(seen) != want:
+                fail(f"phase 16b {label} G={team}: launches {dict(seen)}, "
+                     f"want {want}")
+            say(f"phase 16b {label}: {lib} G={team} kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.1f} ms; {agreement.describe(ag)}")
+            if ag.frac < AGREE_MIN or ag.mismatched:
+                fail(f"phase 16b {label} G={team} disagrees with its plain "
+                     f"version: {agreement.describe(ag)}")
+            worst = ag if worst is None or ag.frac < worst.frac else worst
+        return worst
 
     # ---- (b) holds
     worst = 1.0
@@ -2264,6 +2283,12 @@ def phase_16(torch, gen):
                              WARP_EDGES[0], dev)
         hold(f"edge d={WARP_EDGES[0]} {algo.upper()} Box-Muller (odd d)",
              algo, te, ve, C=1000, T=4, draw="bm")
+    # odd ladders that fill no whole warp below G = 32: blocks padded with
+    # idle teams (and the 256 bucket's only way past 16 rungs)
+    for d_o, T_o in ((D, 17), (200, 17), (200, 31)):
+        te, ve = warp_target(get_target_distribution, "rosenbrock", d_o, dev)
+        hold(f"odd ladder d={d_o} PT T={T_o} (1000, idle teams)", "pt", te,
+             ve, C=1000, T=T_o)
     say(f"phase 16b {time.time() - t_phase:.1f} s; least share of replicas "
         f"that agree over the kinds {worst:.5f}")
 
@@ -2442,6 +2467,17 @@ def phase_16(torch, gen):
                             hold_steps=WARP_MAIN_HOLD_STEPS)
         rec["dim"] = D
         rec["record_launches"] = main_seen[f"fused_{algo}_record"]
+        geo = _build.launch_geometry(
+            _build.lib_name(_build.library(f"fused_{algo}", "Normal",
+                                           rule[algo]), "rosenbrock", D),
+            D, cc, T if algo == "pt" else 0, "Normal", rule[algo], D + 1)
+        rec["team"], rec["replicas_a_block"] = geo.team, geo.replicas
+        say(f"phase 16f {name} FullRosenbrock d={D} at the main shape: the "
+            f"geometry's team G={geo.team} ({geo.replicas} "
+            f"{'replicas' if algo == 'pt' else 'chains'} a block, "
+            f"{geo.threads} threads); {rec['main_path_ms']:.3f} ms against "
+            f"its {rec['main_path_bound_ms']:.3f} ms bound "
+            f"({100 * rec['main_path_bound_share']:.1f} %)")
         # the iso MVN at the same shape, kernel alone
         _, _, _, args, kw, work = case(algo, mvn, var, iters, cc, burn_in=0,
                                        swap_every=FLAG["swap_every"])
@@ -2514,10 +2550,16 @@ def phase_16(torch, gen):
         for w in (False, True, True, False):
             ms, _ = cuda_ms(torch, lambda: launch(*args, warp=w, **kw))
             t[w] = min(t[w], ms)
+        geo = _build.launch_geometry(
+            _build.lib_name(_build.library(f"fused_{algo}", kw["kind"],
+                                           kw["draw"]),
+                            _build.target_kind(tg), tg.dim, True),
+            tg.dim, cc, FLAG["T"] if algo == "pt" else 0, kw["kind"],
+            kw["draw"], _build.kernel_target(tg)[1].numel())
         say(f"phase 16f (record only) {label}, {cc} "
             f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {steps} "
             f"steps: thread kernel {t[False]:.3f} ms, warp kernel "
-            f"{t[True]:.3f} ms ({t[True] / t[False]:.2f}x)")
+            f"(G={geo.team}) {t[True]:.3f} ms ({t[True] / t[False]:.2f}x)")
         del args
     say(f"phase 16 {time.time() - t_phase:.1f} s")
     return kernels
@@ -2528,7 +2570,8 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
     (PT), with the blocks and warps per SM that
     cudaOccupancyMaxActiveBlocksPerMultiprocessor gives beside the count of
-    ``_build.pt_block_geometry`` / ``rwm_block_geometry``."""
+    ``_build.pt_block_geometry`` / ``rwm_block_geometry`` (a warp
+    library: the team size G the geometry picks for 65,536 replicas)."""
     src, pc, dc, _, dmax, blocks = _build._parts(name)
     prop = next(p for p, (_, c) in _build.PROPOSALS.items() if c == pc)
     draw = next(k for k, (_, c) in _build.DRAWS.items() if c == dc)
@@ -2538,12 +2581,13 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
                                  n_params)
     info = _build.kernel_info(
         name, d, T if pt else 1, geo.replicas, n_params,
-        runtime_r=geo.runtime_r)
+        runtime_r=geo.runtime_r, team=geo.team)
     warps = -(-geo.threads // 32)
+    team = f" G={geo.team}," if _build.is_warp(name) else ""
     return (f"min blocks {blocks}; {info['registers']} regs, "
             f"{info['local_bytes']} B local at d={d}"
-            + (f", T={T}: R={geo.replicas}" if pt else
-               f": {geo.threads} chains a block")
+            + (f", T={T}:{team} R={geo.replicas}" if pt else
+               f":{team} {geo.replicas} chains a block")
             + f", {info['shared_bytes']} B shared (calculated "
             f"{geo.shared_bytes}); {info['blocks_per_sm']} blocks, "
             f"{info['blocks_per_sm'] * warps} warps per SM (calculated "
@@ -2586,7 +2630,10 @@ def smoke_libraries(_build):
     for a in ("pt", "rwm"):                                      # 16
         rule = resolve_normal_impl(a, 65536)
         v = _build.library(f"fused_{a}", "Normal", rule)
-        names += [lib(v, k, WARP_D) for k in _build.TARGET_KINDS]
+        names += [lib(v, k, d) for k in _build.TARGET_KINDS
+                  for d in (WARP_D, WARP_D_256)]
+        names += [lib(_build.library(f"fused_{a}", "UniformRadius", rule),
+                      "mvn_full", d) for d in (WARP_D, WARP_D_256)]
         names += [lib(_build.library(f"fused_{a}", p, rule), "mvn_iso",
                       WARP_D) for p in NEW_PROPOSALS]
         names += [lib(_build.library(f"fused_{a}", "Normal", dr), "mvn_iso",
@@ -2661,8 +2708,9 @@ def main():
     warp_main = _build.lib_name(_build.library(
         "fused_pt", "Normal", draws.resolve_normal_impl(
             "pt", FLAG["C"], "rosenbrock")), "rosenbrock", WARP_D)
-    say(f"phase 16a build: {len(warp_libs)} warp libraries (one warp a "
-        f"replica, d > 64), {min(regs)}-{max(regs)} registers; {warp_main} "
+    say(f"phase 16a build: {len(warp_libs)} warp libraries (a team of G "
+        f"lanes a replica, d > 64; team sizes {_build.WARP_TEAMS}), "
+        f"{min(regs)}-{max(regs)} registers; {warp_main} "
         f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
             torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
     if frames:

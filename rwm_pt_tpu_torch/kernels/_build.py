@@ -11,8 +11,11 @@ bucket), with a plain C interface, loaded with ``ctypes``:
          -o build/lib<variant>.<kind>.d<D>-<hash>.so csrc/<kernel>.cu
 
 Above 64 dimensions the same variants build from ``csrc/<kernel>_warp.cu``
-(one warp a replica, ``csrc/warp.cuh``) into ``lib<variant>.<kind>.w<D>``,
-``<D>`` the warp bucket (:data:`WARP_BUCKETS`: d + 4 <= D slots).
+(a team of G lanes a replica, ``csrc/warp.cuh``) into
+``lib<variant>.<kind>.w<D>``, ``<D>`` the warp bucket
+(:data:`WARP_BUCKETS`: d + 4 <= D slots), with ``-DRWM_PT_TEAMS=<mask>``,
+the team sizes G the library instantiates (:data:`WARP_TEAMS`, a mask of
+powers of two); the launcher takes one of them (:func:`choose_team`).
 
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
 draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
@@ -139,10 +142,14 @@ _ENTRIES = {
     PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
              "rwm_pt_fast_log": [_P, _P, ctypes.c_int64, _P]},
 }
-# the warp kernels take the same arguments (RWM: chains, i.e. warps, a
-# block for threads; PT: runtime_r is ignored)
+# the warp kernels: PT takes the same arguments, the team size G in
+# runtime_r's place; RWM takes chains (teams) a block for threads and the
+# team size after them, and its info function the team size first
 _ENTRIES["fused_pt_warp"] = _ENTRIES["fused_pt"]
-_ENTRIES["fused_rwm_warp"] = _ENTRIES["fused_rwm"]
+_ENTRIES["fused_rwm_warp"] = {
+    "rwm_pt_fused_rwm": _ENTRIES["fused_rwm"]["rwm_pt_fused_rwm"][:-1]
+    + [_I, _P],
+    "rwm_pt_fused_rwm_info": [_I, _I, _I, _I, _P]}
 
 
 def _nvcc() -> str:
@@ -161,7 +168,7 @@ def bucket(dim: int) -> int:
             return b
     raise NotImplementedError(
         f"the thread-per-replica kernels compile dims up to {BUCKETS[-1]}; "
-        f"dim={dim} runs one warp a replica (warp_bucket)")
+        f"dim={dim} runs a team of lanes a replica (warp_bucket)")
 
 
 def warp_bucket(dim: int) -> int:
@@ -171,9 +178,9 @@ def warp_bucket(dim: int) -> int:
         if dim + 4 <= b:
             return b
     raise NotImplementedError(
-        f"fused kernels compile dims up to {MAX_DIM}: one warp a replica, "
-        f"{WARP_BUCKETS[-1] // 32} slots a lane; dim={dim} needs more slots "
-        "a lane (ROADMAP Queue A item 15, the remainder above d = 252)")
+        f"fused kernels compile dims up to {MAX_DIM}, the {WARP_BUCKETS[-1]}"
+        f"-slot warp bucket; dim={dim} needs a larger bucket (ROADMAP "
+        "Queue A item 15, the remainder above d = 252)")
 
 
 def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None
@@ -237,10 +244,12 @@ def _source(name: str) -> str:
 def _flags(name: str) -> list[str]:
     if name == PROBES:
         return list(NVCC_FLAGS)
-    _, pc, dc, kc, dmax, blocks = _parts(name)
+    src, pc, dc, kc, dmax, blocks = _parts(name)
+    teams = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
+             if src.endswith(WARP) else [])
     return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={pc}", f"-DRWM_PT_NORMAL={dc}",
                          f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}",
-                         f"-DRWM_PT_MINBLOCKS={blocks}"]
+                         f"-DRWM_PT_MINBLOCKS={blocks}"] + teams
 
 
 def _lib_path(name: str) -> Path:
@@ -337,9 +346,11 @@ BLOCK_RESERVED = 1024        # shared memory the system keeps for each block
 PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads
 PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
-# warp bucket -> csrc/fused_pt_warp.cu's kMaxWarps, its launch bound / 32
+# warp bucket -> the warps a block of csrc/fused_pt_warp.cu's one-warp-a-
+# state instantiation (G = 32) takes, its launch bound / 32
 PT_WARP_MAX_WARPS = {128: 32, 256: 16}
-RWM_WARP_CHAINS = 8          # csrc/fused_rwm_warp.cu: kThreads / 32
+PT_TEAM_THREADS = 512        # fused_pt_warp.cu's launch bound below G = 32
+RWM_WARP_THREADS = 256       # csrc/fused_rwm_warp.cu: kThreads
 PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
 SM_COUNT = 132               # the H100 SXM's SMs
 
@@ -349,13 +360,15 @@ class Geometry(NamedTuple):
     ``shared_bytes`` of dynamic shared memory, ``blocks_per_sm`` resident
     at once, ``grid`` blocks (the last one ragged unless ``replicas``
     divides C); PT: whether it takes the instantiation that reads R at
-    run time (``runtime_r``) or the 32-replica one."""
+    run time (``runtime_r``) or the 32-replica one; a warp kernel's team
+    size G, the lanes a state (``team``: 32 is one warp a state)."""
     replicas: int
     threads: int
     shared_bytes: int
     blocks_per_sm: int
     grid: int
     runtime_r: bool = False
+    team: int = 32
 
 
 def blocks_per_sm(regs: int, threads: int, shared_bytes: int) -> int:
@@ -468,32 +481,73 @@ def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
 
 # ------------------------------------------------ warp layout (csrc/warp.cuh)
-def warp_slot_owner(j: int) -> tuple[int, int, int]:
-    """(lane, register quad, word) that holds Philox slot (and coordinate)
-    ``j`` in a warp kernel: slot j = 4q + w is word w of block q, which
-    lane q mod 32 computes into its register quad q // 32."""
+TEAMS = (4, 8, 16, 32)       # the team sizes csrc/warp.cuh's layout takes
+# warp bucket -> the team sizes G its libraries instantiate (-DRWM_PT_TEAMS;
+# the launchers' switch holds no other): the fastest at the main shape
+# (d = 100: G = 4; d = 200: G = 8, where G = 4's 13 block trips a step
+# lost) and one warp a state for the grids that fill no SM (measured with
+# scripts/bench_torch_warp.py)
+WARP_TEAMS = {128: (4, 32), 256: (8, 32)}
+
+
+def team_quads(dmax: int, team: int = 32) -> int:
+    """Quads (four words) a lane holds in a row of warp bucket ``dmax``
+    with teams of ``team`` lanes: dmax / (4 team)."""
+    if team not in TEAMS or dmax % (4 * team):
+        raise ValueError(f"no team of {team} lanes in warp bucket {dmax}")
+    return dmax // (4 * team)
+
+
+def team_pitch(dmax: int, team: int = 32) -> int:
+    """Words of a team's state row and of its scratch row
+    (``csrc/warp.cuh::kTeamPitch``): dmax, plus G below G = 32, so that the
+    teams of a warp start on distinct banks."""
+    team_quads(dmax, team)
+    return dmax + (team if team < 32 else 0)
+
+
+def warp_slot_owner(j: int, team: int = 32) -> tuple[int, int, int]:
+    """(team lane, trip, word) that holds Philox slot (and coordinate)
+    ``j`` in a warp kernel with teams of ``team`` lanes: slot j = 4q + w is
+    word w of block q, which team lane q mod G computes in trip q // G of
+    its block loop."""
     q = j >> 2
-    return q & 31, q >> 5, j & 3
+    return q % team, q // team, j & 3
 
 
-def warp_blocks(d: int, dmax: int) -> dict[int, list[int]]:
-    """The Philox blocks each lane computes a step at d coordinates in warp
-    bucket ``dmax``: block 32 k + lane for each register quad k < dmax /
-    128 with 4 (32 k + lane) <= d + 3 (csrc/warp.cuh::lane_block)."""
-    return {lane: [32 * k + lane for k in range(dmax // 128)
-                   if 4 * (32 * k + lane) <= d + 3] for lane in range(32)}
+def warp_blocks(d: int, dmax: int, team: int = 32) -> dict[int, list[int]]:
+    """The Philox blocks each lane of a team computes a step at d
+    coordinates in warp bucket ``dmax``: block G k + t for each trip
+    k < :func:`team_quads` with 4 (G k + t) <= d + 3
+    (csrc/warp.cuh::team_block)."""
+    nq = team_quads(dmax, team)
+    return {t: [team * k + t for k in range(nq)
+                if 4 * (team * k + t) <= d + 3] for t in range(team)}
 
 
-def bm_lanes(k: int, d: int) -> tuple[int, int, int]:
-    """Box-Muller pair ``k`` (< ceil(d/2)) in a warp kernel: the lane that
-    computes it (the owner of coordinate k and of u1's slot k), the lane
-    whose block holds u2 (slot h + k, or d + 3 for the last pair of an odd
-    d) and the lane of coordinate k + h, which reads the sine (-1 where
-    k + h = d: no such coordinate)."""
+def bm_lanes(k: int, d: int, team: int = 32) -> tuple[int, int, int]:
+    """Box-Muller pair ``k`` (< ceil(d/2)) in a warp kernel with teams of
+    ``team`` lanes: the team lane that computes it (the owner of
+    coordinate k and of u1's slot k), the lane whose block holds u2 (slot
+    h + k, or d + 3 for the last pair of an odd d) and the lane of
+    coordinate k + h, which reads the sine (-1 where k + h = d: no such
+    coordinate)."""
     h = (d + 1) // 2
     j2 = h + k if h + k < d else d + 3
-    return (warp_slot_owner(k)[0], warp_slot_owner(j2)[0],
-            warp_slot_owner(k + h)[0] if k + h < d else -1)
+    return (warp_slot_owner(k, team)[0], warp_slot_owner(j2, team)[0],
+            warp_slot_owner(k + h, team)[0] if k + h < d else -1)
+
+
+# the kinds whose warp kernels stage a third row a team
+# (csrc/warp.cuh::kTermsRow): the IID kinds' terms, the full MVN's x - mean
+TERMS_ROW_KINDS = ("iid_gamma", "iid_beta", "mvn_full")
+
+
+def team_rows(kind: str | None = None) -> int:
+    """Rows of :func:`team_pitch` words a team of a warp kernel keeps in
+    shared memory for target kind ``kind``: the state and the proposal, and
+    for :data:`TERMS_ROW_KINDS` the log-density's terms."""
+    return 3 if kind in TERMS_ROW_KINDS else 2
 
 
 def params_shared_words(n_params: int) -> int:
@@ -503,24 +557,37 @@ def params_shared_words(n_params: int) -> int:
     return n_params if n_params <= PARAMS_SHARED_MAX else 0
 
 
+def pt_block_threads(R: int, T: int, team: int = 32) -> int:
+    """Threads of a warp PT block of R replicas x T rung-teams of ``team``
+    lanes: R T G, rounded up to whole warps (the idle teams that pad it
+    run on zeros in rows of their own and store nothing)."""
+    return -(-R * T * team // 32) * 32
+
+
 def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
-                         proposal: str = "Normal") -> int:
-    """Dynamic shared memory of a warp PT block of R replicas x T rungs in
-    warp bucket ``dmax`` (``csrc/fused_pt_warp.cu::shared_words``): each
-    warp's state and scratch rows, the parameters that fit, the ladder, the
-    sweep's words (its per-replica sums too) and Laplace's (T, d)
+                         proposal: str = "Normal", team: int = 32,
+                         kind: str | None = None) -> int:
+    """Dynamic shared memory of a warp PT block of R replicas x T
+    rung-teams in warp bucket ``dmax`` (``csrc/fused_pt_warp.cu::
+    shared_words``): each team's rows (:func:`team_rows`; the idle teams
+    of :func:`pt_block_threads` too), the parameters that fit, the ladder,
+    the sweep's words (its per-replica sums too) and Laplace's (T, d)
     scales."""
-    words = (T * R * 2 * dmax + params_shared_words(n_params) + 2 * T
+    words = (pt_block_threads(R, T, team) // team * team_rows(kind)
+             * team_pitch(dmax, team)
+             + params_shared_words(n_params) + 2 * T
              + 2 * T * R + 5 * R + 3 * T * R + R
              + (T * d if proposal == "Laplace" else 0))
     return 4 * words
 
 
 def rwm_warp_shared_bytes(n_params: int, d: int, chains: int, dmax: int,
-                          proposal: str = "Normal") -> int:
-    """Dynamic shared memory of a warp RWM block of ``chains`` warps
+                          proposal: str = "Normal", team: int = 32,
+                          kind: str | None = None) -> int:
+    """Dynamic shared memory of a warp RWM block of ``chains`` teams
     (``csrc/fused_rwm_warp.cu::shared_words``)."""
-    words = (chains * 2 * dmax + params_shared_words(n_params)
+    words = (chains * team_rows(kind) * team_pitch(dmax, team)
+             + params_shared_words(n_params)
              + (d if proposal == "Laplace" else 0))
     return 4 * words
 
@@ -530,88 +597,151 @@ def _check_warp_dim(d: int, dmax: int) -> None:
         raise ValueError(f"d={d} is not in the warp bucket 1..{dmax - 4}")
 
 
+def pt_team_threads(dmax: int, team: int = 32) -> int:
+    """The launch bound of ``csrc/fused_pt_warp.cu``'s team-size-``team``
+    instantiation in warp bucket ``dmax``: 32 :data:`PT_WARP_MAX_WARPS`
+    threads at G = 32, :data:`PT_TEAM_THREADS` below."""
+    return 32 * PT_WARP_MAX_WARPS[dmax] if team == 32 else PT_TEAM_THREADS
+
+
 def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                      T: int, C: int, proposal: str = "Normal",
-                     draw: str = "icdf", n_params: int = 0) -> Geometry:
+                     draw: str = "icdf", n_params: int = 0,
+                     team: int = 32, kind: str | None = None) -> Geometry:
     """The warp PT launch of C replicas x T rungs at d coordinates (warp
-    bucket ``dmax``) for a kernel of ``regs`` registers and
-    ``max_threads`` threads a block: R replicas of T rung-warps, R T
-    within the bucket's :data:`PT_WARP_MAX_WARPS` (32, or 16 in the 256
-    bucket), ``max_threads`` and the rows within a block's shared
-    memory; of those R the one whose blocks let an SM hold the most
-    threads, the largest R of those (3 at T = 10).  ``draw`` takes no
-    shared memory of its own here (Box-Muller's sines use the scratch
-    row).  Raises ``ValueError`` when not even one replica's ladder
-    fits."""
+    bucket ``dmax``) with teams of ``team`` lanes, for a kernel of ``regs``
+    registers and ``max_threads`` threads a block: R replicas of T
+    rung-teams, :func:`pt_block_threads` within :func:`pt_team_threads`
+    and ``max_threads``, the rows within a block's shared memory.  Of those
+    R, the whole-warp ones (R T G a multiple of 32) where any fits, else
+    all (padded with idle teams: an odd T of 17 to 31 at G = 8 makes no
+    whole warp within 512 threads); of those the one whose blocks let an
+    SM hold the most threads, the largest R of those (3 at T = 10 and
+    G = 32).  ``draw`` takes no shared memory of its own here (Box-Muller's
+    sines use the scratch row).  Raises ``ValueError`` when not even one
+    replica's ladder fits."""
     _check_warp_dim(d, dmax)
     if not 1 <= T <= MAX_RUNGS or C < 1:
         raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
-    fixed = pt_warp_shared_bytes(n_params, T, d, 0, dmax, proposal)
-    per_replica = pt_warp_shared_bytes(n_params, T, d, 1, dmax,
-                                       proposal) - fixed
-    r_max = min(PT_WARP_MAX_WARPS[dmax] // T, max_threads // (32 * T),
-                (BLOCK_SHARED - fixed) // per_replica)
-    if r_max < 1:
+    cap = min(pt_team_threads(dmax, team), max_threads)
+
+    def shared(R):
+        return pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal, team,
+                                    kind)
+
+    fits = [R for R in range(1, cap // (team * T) + 1)
+            if pt_block_threads(R, T, team) <= cap
+            and shared(R) <= BLOCK_SHARED]
+    if not fits:
         raise ValueError(
-            f"one replica's ladder does not fit a block: T={T} rung-warps "
-            f"need {32 * T} threads ({max_threads} allowed) and "
-            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B)")
+            f"one replica's ladder does not fit a block: T={T} rung-teams "
+            f"of {team} lanes need {pt_block_threads(1, T, team)} threads "
+            f"({cap} allowed) and {shared(1)} B of shared memory "
+            f"({BLOCK_SHARED} B)")
+    whole = [R for R in fits if R * T * team % 32 == 0]
 
     def launch(R):
-        shared = pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal)
-        return Geometry(R, 32 * R * T, shared,
-                        blocks_per_sm(regs, 32 * R * T, shared), -(-C // R))
+        threads = pt_block_threads(R, T, team)
+        return Geometry(R, threads, shared(R),
+                        blocks_per_sm(regs, threads, shared(R)), -(-C // R),
+                        team=team)
 
-    return max((launch(R) for R in range(1, r_max + 1)),
+    return max((launch(R) for R in whole or fits),
                key=lambda g: (g.blocks_per_sm * g.threads, g.replicas))
 
 
 def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                       C: int, proposal: str = "Normal", draw: str = "icdf",
-                      n_params: int = 0, sms: int = SM_COUNT) -> Geometry:
+                      n_params: int = 0, sms: int = SM_COUNT,
+                      team: int = 32, kind: str | None = None) -> Geometry:
     """The warp RWM launch of C chains at d coordinates (warp bucket
-    ``dmax``): one warp a chain, the most chains a block (at most 8, within
-    ``max_threads`` and a block's shared memory) whose grid still gives
-    each of the ``sms`` SMs a block (512 chains: 3 a block, 171 blocks),
-    one a block when none does.  ``replicas`` is the chains (warps) a
-    block, ``threads`` 32 of them.  Raises ``ValueError`` when not even
-    one chain fits."""
+    ``dmax``) with teams of ``team`` lanes: the most chains a block (G
+    chains a multiple of 32, at most :data:`RWM_WARP_THREADS` threads,
+    within ``max_threads`` and a block's shared memory) whose grid still
+    gives each of the ``sms`` SMs a block (512 chains at G = 32: 3 a block,
+    171 blocks), the fewest a block when none does.  ``replicas`` is the
+    chains (teams) a block, ``threads`` G of them.  Raises ``ValueError``
+    when not even one chain fits."""
     _check_warp_dim(d, dmax)
     if C < 1:
         raise ValueError(f"C={C} must be >= 1")
-    fixed = rwm_warp_shared_bytes(n_params, d, 0, dmax, proposal)
-    per_chain = rwm_warp_shared_bytes(n_params, d, 1, dmax, proposal) - fixed
-    n = min(RWM_WARP_CHAINS, max_threads // 32,
+    fixed = rwm_warp_shared_bytes(n_params, d, 0, dmax, proposal, team,
+                                  kind)
+    per_chain = rwm_warp_shared_bytes(n_params, d, 1, dmax, proposal,
+                                      team, kind) - fixed
+    step = 32 // team                     # a warp's teams
+    n = min(min(RWM_WARP_THREADS, max_threads) // team,
             (BLOCK_SHARED - fixed) // per_chain)
-    if n < 1:
+    n -= n % step
+    if n < step:
         raise ValueError(
-            f"one chain does not fit a block: {fixed + per_chain} B of "
-            f"shared memory ({BLOCK_SHARED} B), {max_threads} threads")
-    while n > 1 and -(-C // n) < sms:
-        n -= 1
-    shared = rwm_warp_shared_bytes(n_params, d, n, dmax, proposal)
-    return Geometry(n, 32 * n, shared, blocks_per_sm(regs, 32 * n, shared),
-                    -(-C // n))
+            f"one chain does not fit a block: {fixed + step * per_chain} B "
+            f"of shared memory ({BLOCK_SHARED} B), {max_threads} threads")
+    while n > step and -(-C // n) < sms:
+        n -= step
+    shared = rwm_warp_shared_bytes(n_params, d, n, dmax, proposal, team,
+                                   kind)
+    return Geometry(n, team * n, shared,
+                    blocks_per_sm(regs, team * n, shared), -(-C // n),
+                    team=team)
+
+
+def block_trips(d: int, team: int = 32) -> int:
+    """Trips of a warp kernel's block loop a step at d coordinates with
+    teams of ``team`` lanes (``csrc/warp.cuh::block_trips``): the Philox
+    blocks a lane computes in series, ceil((floor((d + 3) / 4) + 1) / G)."""
+    return ((d + 3) // 4) // team + 1
+
+
+def fills(geo: Geometry, sms: int = SM_COUNT) -> bool:
+    """Whether a launch fills the card: its grid is at least half a wave
+    of the blocks that ``sms`` SMs hold at once.  Measured on the H100
+    with each team size forced (scripts/bench_torch_warp.py's ``GRIDS``):
+    the small team lost at up to 0.39 of a wave and won from 0.65."""
+    return 2 * geo.grid >= sms * max(geo.blocks_per_sm, 1)
+
+
+def choose_team(geos: dict[int, Geometry], d: int, sms: int = SM_COUNT
+                ) -> Geometry:
+    """Of the launches a warp library offers at d coordinates, one per team
+    size G that fits (``{G: Geometry}``), the smallest G whose grid still
+    fills the ``sms`` SMs (:func:`fills`): a team's fixed work a step is
+    shared by 32 / G states a warp.  Where none fills, the card runs at a
+    step's latency, which grows with the block loop's trips
+    (:func:`block_trips`): the smallest G of the fewest trips."""
+    if not geos:
+        raise ValueError("no team size of the library fits the launch")
+    full = [g for g in sorted(geos) if fills(geos[g], sms)]
+    if full:
+        return geos[full[0]]
+    least = min(block_trips(d, g) for g in geos)
+    return geos[min(g for g in geos if block_trips(d, g) == least)]
 
 
 _INFO: dict[tuple, tuple] = {}
 
 
 def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
-                n_params: int = 0, runtime_r: bool = False) -> dict:
+                n_params: int = 0, runtime_r: bool = False,
+                team: int = 32) -> dict:
     """What library ``name``'s kernel and the CUDA runtime say of a launch
     at d coordinates (PT: T rungs, R replicas a block, the instantiation
-    with a runtime R or the compile-time one; RWM: R chains a block):
-    ``registers``, ``max_threads`` (``maxThreadsPerBlock``),
-    ``local_bytes`` a thread, ``shared_bytes`` and ``blocks_per_sm``
+    with a runtime R or the compile-time one; RWM: R chains a block; a warp
+    library: the instantiation of team size ``team``): ``registers``,
+    ``max_threads`` (``maxThreadsPerBlock``), ``local_bytes`` a thread,
+    ``shared_bytes`` and ``blocks_per_sm``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where the launch
     does not fit).  Needs the card."""
-    key = (name, d, T, R, n_params, runtime_r)
+    key = (name, d, T, R, n_params, runtime_r, team)
     if key not in _INFO:
         out = (ctypes.c_int * 5)()
+        warp = is_warp(name)
         if _source(name).startswith("fused_pt"):
             rc = entry(name, "rwm_pt_fused_pt_info")(
-                int(runtime_r), d, T, R, n_params, out)
+                team if warp else int(runtime_r), d, T, R, n_params, out)
+        elif warp:
+            rc = entry(name, "rwm_pt_fused_rwm_info")(team, d, R, n_params,
+                                                      out)
         else:
             rc = entry(name, "rwm_pt_fused_rwm_info")(d, R, n_params, out)
         check_launch(name, rc)
@@ -620,22 +750,45 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
                      "shared_bytes", "blocks_per_sm"), _INFO[key]))
 
 
+def library_teams(name: str) -> tuple[int, ...]:
+    """The team sizes warp library ``name`` instantiates."""
+    return WARP_TEAMS[_parts(name)[4]]
+
+
 def launch_geometry(name: str, d: int, C: int, T: int = 0,
                     proposal: str = "Normal", draw: str = "icdf",
-                    n_params: int = 0) -> Geometry:
+                    n_params: int = 0, team: int | None = None) -> Geometry:
     """The geometry of a launch of library ``name`` (PT when ``T`` is
     given), from its kernel's registers and ``maxThreadsPerBlock``: the
     compile-time 32-replica PT instantiation where its attributes allow 32
     replicas, else the runtime-R one with its own attributes; a warp
-    library's :func:`pt_warp_geometry` / :func:`rwm_warp_geometry`."""
+    library's :func:`pt_warp_geometry` / :func:`rwm_warp_geometry` for each
+    team size it holds that fits, of which :func:`choose_team` takes one
+    (``team`` forces one, for comparisons)."""
     dmax = _parts(name)[4]
     if is_warp(name):
-        a = kernel_info(name, d)
-        if not T:
-            return rwm_warp_geometry(a["registers"], a["max_threads"], d,
-                                     dmax, C, proposal, draw, n_params)
-        return pt_warp_geometry(a["registers"], a["max_threads"], d, dmax, T,
-                                C, proposal, draw, n_params)
+        kind = name.split(".")[1]
+        teams = library_teams(name)
+        if team is not None and team not in teams:
+            raise ValueError(f"{name} holds teams of {teams} lanes, not "
+                             f"{team}")
+        geos = {}
+        for g in ([team] if team is not None else teams):
+            a = kernel_info(name, d, team=g)
+            try:
+                geos[g] = (pt_warp_geometry(
+                    a["registers"], a["max_threads"], d, dmax, T, C,
+                    proposal, draw, n_params, team=g, kind=kind) if T else
+                    rwm_warp_geometry(a["registers"], a["max_threads"], d,
+                                      dmax, C, proposal, draw, n_params,
+                                      team=g, kind=kind))
+            except ValueError:
+                if team is not None:
+                    raise
+        return choose_team(geos, d)
+    if team is not None:
+        raise ValueError(f"{name} runs one thread a state: team= is for the "
+                         "warp libraries")
     if not T:
         a = kernel_info(name, d)
         return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
@@ -657,11 +810,13 @@ MAX_RUNGS = 32      # rungs a replica: T threads (T warps above d = 64)
 
 def max_rungs(dim: int) -> int:
     """Rungs a fused PT launch takes at ``dim`` coordinates:
-    :data:`MAX_RUNGS`, but in the 256 warp bucket (124 < d <= 252) 16, the
-    warps its launch bound allows (csrc/fused_pt_warp.cu: at 32 or 24
-    warps a block its kernels spill)."""
+    :data:`MAX_RUNGS`, and above 64 dimensions the most rung-teams of one
+    replica that a block of the warp bucket's libraries takes at any of
+    their team sizes (:func:`pt_team_threads` / G)."""
     if BUCKETS[-1] < dim <= MAX_DIM:
-        return min(MAX_RUNGS, PT_WARP_MAX_WARPS[warp_bucket(dim)])
+        dmax = warp_bucket(dim)
+        return min(MAX_RUNGS, max(pt_team_threads(dmax, g) // g
+                                  for g in WARP_TEAMS[dmax]))
     return MAX_RUNGS
 _LOG_2PI = math.log(2.0 * math.pi)
 

@@ -1,48 +1,67 @@
-// Fused whole-run Parallel Tempering kernel for Hopper (sm_90a), one warp
-// a (replica, rung): the d > 64 configuration of
-// rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
-// _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96),
-// which run at any d (the Pallas kernel only shrinks its VMEM block as d
-// grows, :31-38).  csrc/fused_pt.cu keeps d <= 64 at one thread a
-// (replica, rung); above that a thread's proposal no longer fits its
-// registers and one thread would compute ceil((d + 2) / 4) Philox blocks
-// in series each step.  Here each lane computes its own block(s) of the
-// step and the coordinates' terms, sums are butterflies every lane holds
-// alike (csrc/warp.cuh), so the warp's 32 lanes move or stay together.
+// Fused whole-run Parallel Tempering kernel for Hopper (sm_90a), one team
+// of G lanes a (replica, rung), above 64 dimensions.
+//
+// Replaces: rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
+// _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96), in
+// their d > 64 configuration (the Pallas kernel runs at any d and only
+// shrinks its VMEM block as d grows, :31-38).  csrc/fused_pt.cu keeps
+// d <= 64 at one thread a (replica, rung); above that a thread's proposal
+// no longer fits its registers.
+//
+// Bound: operations, Philox's int32 work (chip_smoke.py::bound): 26 blocks
+// of 60 int32 operations a (replica, rung, step) at d = 100, 2.045e12 over
+// the main shape (65,536 replicas x T = 10 x 2000 steps), 122.2 ms at the
+// card's int32 peak.  What cost time beside it with one warp a state
+// (G = 32, the layout before teams) was the step's fixed work a state, paid
+// by all 32 lanes for one state: the butterflies of its sums, the
+// broadcasts of its uniforms, the accept, the Kahan sums and the counters;
+// and 6 of the 32 lanes held no Philox block at d = 100.  A team of G
+// lanes (csrc/warp.cuh) pays that work once for 32 / G states a warp, with
+// log2 G butterfly levels, and each lane computes ceil(26 / G) blocks in a
+// rolled loop; the proposal lives in the team's scratch row, not in
+// registers, so a small team keeps 56-72 registers and the occupancy of one
+// warp a state.  The geometry (kernels/_build.py::choose_team) takes the
+// smallest G whose grid fills the card (half a wave of blocks: G = 4 at the
+// d = 100 main shape, 8 in the 256 bucket) and G = 32 for grids that leave
+// it short of warps.
 //
 // One library per (proposal, draw, target kind, warp bucket DMAX = 128 or
-// 256 slots, d + 4 <= DMAX) from this source.  Everything of
-// csrc/fused_pt.cu carries over at the warp level: MH on every rung every
-// step with int32 per-rung accepts after burn-in; on post-burn-in
-// multiples of swap_every the sweep over the pairs (j, j+1) in the
-// runtime order `order` (0: j = 0..T-2, the Pallas sweep; 1: even pairs
-// then odd pairs, the scan engine's two half-sweeps), pair j's uniform
-// from rung j's slot d+1, run by lane 0 of the slot-0 warp of each
-// replica between two __syncthreads; "move" semantics (a swap changes the
-// rung->slot map in shared memory, and the states reach their rungs'
+// 256 slots, d + 4 <= DMAX) from this source, holding the team sizes of
+// RWM_PT_TEAMS (a mask of G values) as instantiations; the launcher takes
+// G.  Everything of csrc/fused_pt.cu carries over at the team level: MH on
+// every rung every step with int32 per-rung accepts after burn-in; on
+// post-burn-in multiples of swap_every the sweep over the pairs (j, j+1)
+// in the runtime order `order` (0: j = 0..T-2, the Pallas sweep; 1: even
+// pairs then odd pairs, the scan engine's two half-sweeps), pair j's
+// uniform from rung j's slot d+1, run by team lane 0 of the slot-0 team of
+// each replica between two __syncthreads; "move" semantics (a swap changes
+// the rung->slot map in shared memory, and the states reach their rungs'
 // places when the run ends); an accept's store deferred past the sweep so
 // the cold-rung jump across a pair-0 swap reads the old owner's pre-move
 // row; Kahan sums of (dbeta)^2 over accepted swaps and of the cold rung's
 // squared jump; per-rung scales s_sigma[t] (Normal std, UniformRadius
-// radius) and Laplace's (T, d) table, so the autotune handoff's per-rung
-// multipliers land here as on the thread kernel; the runtime `rec` trace
-// of the cold chain.
+// radius) and Laplace's (T, d) table; the runtime `rec` trace of the cold
+// chain.
 //
-// Layout.  A block is R replicas x T rung-warps, threadIdx = (lane,
-// replica, slot), R T <= 32 warps (kernels/_build.py::pt_warp_geometry
-// chooses R; the launcher refuses what does not fit).  Each warp's state
-// row and scratch row (DMAX words each) live in shared memory with the
-// parameters (when at most kParamsShared words; else read through L2),
-// the ladder and the sweep's words.  __launch_bounds__(32 kMaxWarps): 32
-// warps a block at T = 32 in the 128 bucket, so at most 64 registers a
-// thread; 16 warps, at most 128 registers, in the 256 bucket.
-// Bound: operations, Philox's int32 work as at d <= 64.  The ragged edge
-// (C not a multiple of R) is masked: those warps run on zeros in their
-// own rows and store nothing.
+// Layout.  A block is R replicas x T rung-teams of G lanes, team = slot R +
+// replica, padded to whole warps with idle teams where R T G is not a
+// multiple of 32 (kernels/_build.py::pt_warp_geometry chooses R and G; the
+// launcher refuses what does not fit).  Each team's
+// state row and scratch row (kTeamPitch words each) live in shared memory
+// with the parameters (when at most kParamsShared words; else read through
+// L2), the ladder and the sweep's words.  Launch bounds: G = 32 keeps one
+// warp a state, 32 warps a block (T up to 32) in the 128 bucket, so at most
+// 64 registers a thread, and 16 warps in the 256 bucket (T up to 16 at
+// G = 32); a team of G < 32 lanes is bound to 512 threads a block, so
+// that T = 32 rungs fit at G = 8 (a cap of 64 registers, two such blocks
+// an SM, measured slower).
+// The ragged edge (C not a multiple of R) and the idle teams are masked:
+// they run on zeros in their own rows and store nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
-//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D (no --use_fast_math)
+//        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_TEAMS=m
+//        (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,68 +80,85 @@
 #ifndef RWM_PT_DMAX
 #define RWM_PT_DMAX 128
 #endif
+#ifndef RWM_PT_TEAMS
+#define RWM_PT_TEAMS 36   // G = 4 and G = 32
+#endif
 
 namespace {
 
-// R x T warps a block, the launch bound's: 32 (T up to 32) in the 128
-// bucket, whose kernels fit 64 registers; 16 in the 256 bucket, whose
-// second register quad a lane and the sweep's bookkeeping need more (at
-// 64 and at 80 registers they spill), so T <= 16 there
-// (kernels/_build.py::max_rungs)
-constexpr int kMaxWarps = RWM_PT_DMAX > 128 ? 16 : 32;
-constexpr int kBlockThreads = 32 * kMaxWarps;
-constexpr int kMaxSharedBytes = 227 * 1024;     // a block's dynamic shared memory
-constexpr int kParamsShared = 12288;            // params in shared memory up to
 constexpr int kProp = RWM_PT_PROPOSAL;
 constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the warp bucket: d + 4 <= kDmax
-constexpr int kNQ = kDmax / 128;     // register quads a lane
+constexpr int kMaxSharedBytes = 227 * 1024;     // a block's dynamic shared memory
+constexpr int kParamsShared = 12288;            // params in shared memory up to
+constexpr int kMaxRungs = 32;
+constexpr int kRows = kTermsRow<kKind> ? 3 : 2;   // rows a team
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
+
+// A block's threads, the launch bound: one warp a state (G = 32) takes 32
+// warps in the 128 bucket and 16 in the 256 bucket, whose second register
+// quad a lane and the sweep's bookkeeping need more registers (at 64 and at
+// 80 they spilled); teams of G < 32 lanes take 512 threads
+template <int G>
+constexpr int kBlockThreads = G == 32 ? (kDmax > 128 ? 512 : 1024) : 512;
 
 __host__ __device__ constexpr int params_in_shared(int n_params) {
   return n_params <= kParamsShared ? n_params : 0;
 }
 
-// Words of dynamic shared memory: state rows (T R x kDmax, first, so
-// 16-byte aligned) | scratch rows (T R x kDmax) | params (when they fit)
+// Words of dynamic shared memory: state rows (teams x pitch, first, so
+// 16-byte aligned; the block's teams, idle ones too) | scratch rows (teams
+// x pitch) | the kTermsRow kinds' terms rows (teams x pitch) | params (when
+// they fit)
 // | beta, sigma | lp, u (per slot / pair) | cold sum, compensation, the
 // sweep's beta-jump sum, its compensation, its swap count (per replica:
 // kept in shared memory, not in the sweeping lane's registers) |
 // slot_of_rung, rung_of_slot, accepts | the slot that held rung 0 before a
 // sweep that moved it | Laplace scales (T, d).
 // kernels/_build.py::pt_warp_shared_bytes mirrors this count.
-__host__ __device__ constexpr size_t shared_words(int n_params, int T, int d,
-                                                  int R) {
-  return (size_t)T * R * 2 * kDmax + params_in_shared(n_params) + 2 * T +
+__host__ __device__ constexpr size_t shared_words(int pitch, int n_params,
+                                                  int T, int d, int R,
+                                                  int teams) {
+  return (size_t)teams * kRows * pitch + params_in_shared(n_params) + 2 * T +
          2 * T * R + 5 * R + 3 * T * R + R +
          (kProp == PROPOSAL_LAPLACE ? T * d : 0);
 }
 
-template <int KIND, int NQ>
-__global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
-    const float* __restrict__ params, int n_params,
-    const float* __restrict__ betas, const float* __restrict__ sigmas,
-    const float* __restrict__ x0, const int* __restrict__ acc0,
-    const int* __restrict__ swapacc0, const float* __restrict__ bj0,
-    const float* __restrict__ cj0, float* __restrict__ x_out,
-    float* __restrict__ lp_out, int* __restrict__ acc_out,
-    int* __restrict__ swapacc_out, float* __restrict__ bj_out,
-    float* __restrict__ cj_out, int d, int T, int C, int total, int burn_in,
-    int swap_every, int step0, uint32_t key0, uint32_t key1,
-    const float* __restrict__ lap, float inv_d, float* __restrict__ rec,
-    int record_every, int record_chains, int order) {
+// (the explicit one block an SM matters: without it ptxas took fewer
+// registers and the 256 bucket's G = 32 kernels spilled)
+template <int KIND, int DMAX, int G>
+__global__ void __launch_bounds__(kBlockThreads<G>, 1)
+    fused_pt_warp_kernel(
+        const float* __restrict__ params, int n_params,
+        const float* __restrict__ betas, const float* __restrict__ sigmas,
+        const float* __restrict__ x0, const int* __restrict__ acc0,
+        const int* __restrict__ swapacc0, const float* __restrict__ bj0,
+        const float* __restrict__ cj0, float* __restrict__ x_out,
+        float* __restrict__ lp_out, int* __restrict__ acc_out,
+        int* __restrict__ swapacc_out, float* __restrict__ bj_out,
+        float* __restrict__ cj_out, int d, int T, int C, int total,
+        int burn_in, int swap_every, int step0, uint32_t key0,
+        uint32_t key1, const float* __restrict__ lap, float inv_d,
+        float* __restrict__ rec, int record_every, int record_chains,
+        int order, int R) {
+  constexpr int NQ = DMAX / (4 * G);   // quads a lane holds in a row
+  constexpr int kPitch = kTeamPitch<DMAX, G>;
+  static_assert(DMAX % (4 * G) == 0, "a team's lanes split the bucket");
   extern __shared__ float4 smem4[];
-  const int lane = threadIdx.x, cx = threadIdx.y, slot = threadIdx.z;
-  const int R = blockDim.y;
-  const int nwarps = R * T;
-  const int tid = slot * R + cx;          // the warp
-  const int flat = tid * 32 + lane;       // the thread, for block-wide loads
-  const int nthreads = nwarps * 32;
+  const int lane = threadIdx.x & 31;
+  const int t = threadIdx.x & (G - 1);    // the lane in its team
+  const int tid = threadIdx.x / G;        // the team: slot R + replica
+  const int nteams = blockDim.x / G;      // R T and the idle teams
+  const bool live = tid < R * T;          // not an idle team
+  const int slot = live ? tid / R : T - 1, cx = live ? tid - slot * R : 0;
+  const int flat = threadIdx.x;           // for block-wide loads
+  const int nthreads = blockDim.x;
   const int n_shared = params_in_shared(n_params);
-  float* s_x = (float*)smem4;             // [warp][i]
-  float* s_row = s_x + nwarps * kDmax;    // [warp][i], scratch
-  float* s_params = s_row + nwarps * kDmax;
+  float* s_x = (float*)smem4;             // [team][i]
+  float* s_row = s_x + nteams * kPitch;   // [team][i], scratch
+  float* s_terms = s_row + nteams * kPitch;   // [team][i], kTermsRow
+  float* s_params = s_x + nteams * kRows * kPitch;
   float* s_beta = s_params + n_shared;
   float* s_sigma = s_beta + T;
   float* s_lp = s_sigma + T;              // [slot][replica]
@@ -139,9 +175,10 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
   float* s_lap = (float*)(s_owner + R);   // [rung][i], Laplace only
 
   const int c = blockIdx.x * R + cx;
-  const bool valid = c < C;
-  float* xs = s_x + tid * kDmax;          // this warp's state row
-  float* row = s_row + tid * kDmax;
+  const bool valid = live && c < C;
+  float* xs = s_x + tid * kPitch;         // this team's state row
+  float* row = s_row + tid * kPitch;
+  float* trow = s_terms + tid * kPitch;
 
   for (int i = flat; i < n_shared; i += nthreads) s_params[i] = params[i];
   for (int i = flat; i < T; i += nthreads) {
@@ -150,7 +187,7 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
   }
   if (kProp == PROPOSAL_LAPLACE)
     for (int i = flat; i < T * d; i += nthreads) s_lap[i] = lap[i];
-  if (lane == 0) {
+  if (t == 0 && live) {
     s_slot[tid] = slot;
     s_rung[tid] = slot;
     s_acc[tid] = valid ? acc0[(size_t)slot * C + c] : 0;
@@ -163,36 +200,40 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
     }
   }
 
-  float4 y[NQ];   // the lane's coordinates of the state, then the proposal
+#pragma unroll 1
+  for (int k = 0; k < coord_trips<G, NQ>(d); ++k) {   // the lane's quads
+    const int q = G * k + t;
+    if (4 * q < d) {
+      float4 v;
 #pragma unroll
-  for (int k = 0; k < NQ; ++k)
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int i = own_index(k, lane, w);
-      set_word(y[k], w, (i < d && valid)
-                            ? x0[((size_t)i * T + slot) * C + c] : 0.0f);
+      for (int w = 0; w < 4; ++w) {
+        const int i = 4 * q + w;
+        set_word(v, w, (i < d && valid)
+                           ? x0[((size_t)i * T + slot) * C + c] : 0.0f);
+      }
+      row4(xs, q) = v;
     }
-  warp_store<NQ>(y, xs, d, lane);
+  }
   __syncthreads();
   const float* p = n_shared ? s_params : params;
-  float lp = warp_log_density<KIND, NQ>(y, row, d, p, lane);
+  float lp = team_log_density<KIND, G, NQ>(xs, trow, d, p, lane);
   int rung = slot;
-  // lane 0 of the slot-0 warp runs the sweep of its replica
-  const bool sweeper = slot == 0 && lane == 0;
+  // team lane 0 of the slot-0 team runs the sweep of its replica
+  const bool sweeper = live && slot == 0 && t == 0;
 
   for (int s = 0; s < total; ++s) {
     const int abs_step = step0 + s + 1;
     const bool post = abs_step > burn_in;
     const bool do_swap = post && (abs_step % swap_every == 0);
-    float u_swap;
-    const bool accept = warp_mh_propose<KIND, kProp, kDraw, NQ>(
-        y, xs, row, lp, d, p, s_sigma[rung], s_lap + rung * d, inv_d,
-        s_beta[rung], lane, c, rung, abs_step, key0, key1, u_swap);
-    if (lane == 0 && post && accept) s_acc[rung * R + cx] += 1;
+    float u_swap, part;
+    const bool accept = team_mh_propose<KIND, kProp, kDraw, G, NQ>(
+        xs, row, trow, lp, d, p, s_sigma[rung], s_lap + rung * d, inv_d,
+        s_beta[rung], lane, c, rung, abs_step, key0, key1, u_swap, part);
+    if (t == 0 && live && post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung, owner = -1;
-    if (do_swap) {   // the same for every warp of the block
-      if (lane == 0) {
+    if (do_swap) {   // the same for every team of the block
+      if (t == 0 && live) {
         s_lp[tid] = lp;
         if (rung < T - 1) s_u[rung * R + cx] = u_swap;
       }
@@ -230,8 +271,10 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
         s_bc[cx] = bc;
       }
       __syncthreads();
-      new_rung = s_rung[tid];
-      owner = s_owner[cx];   // >= 0: rung 0 changed hands in this sweep
+      if (live) {
+        new_rung = s_rung[tid];
+        owner = s_owner[cx];   // >= 0: rung 0 changed hands in this sweep
+      }
     } else if (sweeper && s_bc[cx] != 0.0f) {
       // the sweep's compensation step with no swap accepted
       float bj = s_bj[cx], bc = s_bc[cx];
@@ -245,48 +288,49 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
       s_bc[cx] = bc;
     }
     rung = new_rung;
-    if (rung == 0) {   // cold-rung squared jump, Kahan-summed
-      float jump = 0.0f;
-      if (owner >= 0) {
-        // this warp took rung 0 in the sweep: its state after the move
-        // against the old owner's state before it
-        if (!accept) warp_load<NQ>(y, xs, d, lane);
-        jump = warp_sq_jump<NQ>(y, s_x + (owner * R + cx) * kDmax, d, lane);
-      } else if (accept) {
-        jump = warp_sq_jump<NQ>(y, xs, d, lane);
-      }
-      if (lane == 0) {
-        const float yk = (post ? jump : 0.0f) - s_cc[cx];
-        const float tot = s_cold[cx] + yk;
-        s_cc[cx] = (tot - s_cold[cx]) - yk;
-        s_cold[cx] = tot;
-      }
+    // cold-rung squared jump, Kahan-summed.  A team that took rung 0 in the
+    // sweep holds its state after the move (its proposal or its state)
+    // against the old owner's state before it; else the rung-0 team's
+    // accepted proposal against its state (the proposal's part).  Every
+    // team of a warp that holds such a team computes the sum (its shuffles
+    // need the whole warp): across a swap with the rows (an accepted
+    // proposal against the state, where the team did not take rung 0), else
+    // from the parts; the rung-0 team keeps it.
+    const bool cold = live && rung == 0;
+    const bool took = cold && owner >= 0;
+    float jump = 0.0f;
+    if (do_swap && __any_sync(kFullMask, took))
+      jump = team_sq_jump<G, NQ>(
+          accept ? row : xs, took ? s_x + (owner * R + cx) * kPitch : xs, d,
+          t);
+    else if (__any_sync(kFullMask, cold && accept))
+      jump = team_sum<G>(part);
+    if (cold && t == 0) {
+      const float yk = ((post && (took || accept)) ? jump : 0.0f) - s_cc[cx];
+      const float tot = s_cold[cx] + yk;
+      s_cc[cx] = (tot - s_cold[cx]) - yk;
+      s_cold[cx] = tot;
     }
     if (do_swap) __syncthreads();   // the pre-move states have been read
-    if (accept) warp_store<NQ>(y, xs, d, lane);
-    if (rec != nullptr && rung == 0 && c < record_chains &&
+    if (accept) team_copy<G, NQ>(row, xs, d, t);
+    if (rec != nullptr && cold && c < record_chains &&
         (s + 1) % record_every == 0) {   // the cold chain, after the sweep
-      const size_t k = (size_t)((s + 1) / record_every - 1);
-#pragma unroll
-      for (int kq = 0; kq < NQ; ++kq)
+      const size_t kr = (size_t)((s + 1) / record_every - 1);
+#pragma unroll 1
+      for (int k = 0; k < coord_trips<G, NQ>(d); ++k)   // the lane's words
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
-          const int i = own_index(kq, lane, w);
-          if (i < d) rec[(k * d + i) * record_chains + c] = xs[i];
+          const int i = 4 * (G * k + t) + w;
+          if (i < d) rec[(kr * d + i) * record_chains + c] = xs[i];
         }
     }
   }
 
   __syncthreads();
   if (valid) {
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < d) x_out[((size_t)i * T + rung) * C + c] = xs[i];
-      }
-    if (lane == 0) {
+    for (int i = t; i < d; i += G)
+      x_out[((size_t)i * T + rung) * C + c] = xs[i];
+    if (t == 0) {
       lp_out[(size_t)rung * C + c] = lp;
       acc_out[(size_t)slot * C + c] = s_acc[tid];
       if (slot == 0) {
@@ -298,50 +342,77 @@ __global__ void __launch_bounds__(kBlockThreads) fused_pt_warp_kernel(
   }
 }
 
-using Kernel = decltype(&fused_pt_warp_kernel<kKind, kNQ>);
+using Kernel = decltype(&fused_pt_warp_kernel<kKind, kDmax, 32>);
 
-// the library's one instantiation
-Kernel kernel() { return fused_pt_warp_kernel<kKind, kNQ>; }
+// The instantiation of team size G, when RWM_PT_TEAMS holds it
+template <int G>
+Kernel team_kernel() {
+  if constexpr ((RWM_PT_TEAMS & G) != 0)
+    return fused_pt_warp_kernel<kKind, kDmax, G>;
+  else
+    return nullptr;
+}
 
-cudaError_t prepare(size_t shmem) {
+Kernel kernel(int team) {
+  switch (team) {
+    case 4: return team_kernel<4>();
+    case 8: return team_kernel<8>();
+    case 32: return team_kernel<32>();
+    default: return nullptr;
+  }
+}
+
+int pitch(int team) { return kDmax + (team < 32 ? team : 0); }
+
+// R T teams of `team` lanes, padded to whole warps with idle teams
+// (kernels/_build.py::pt_block_threads)
+int block_threads(int team, int R, int T) {
+  return (team * R * T + 31) / 32 * 32;
+}
+
+cudaError_t prepare(Kernel k, size_t shmem) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel(),
+  return cudaFuncSetAttribute(k,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
 
-// Attributes of a launch of R replicas x T rung-warps at d coordinates:
-// out = {registers, maxThreadsPerBlock, local bytes a thread, dynamic
-// shared bytes, blocks per SM by
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor}.  The same C interface
-// as csrc/fused_pt.cu's; `runtime_r` is accepted and ignored (one
-// instantiation, R read at run time).
-extern "C" int rwm_pt_fused_pt_info(int runtime_r, int d, int T, int R,
+// Attributes of a launch of team size `team`, R replicas x T rung-teams at
+// d coordinates: out = {registers, maxThreadsPerBlock, local bytes a
+// thread, dynamic shared bytes, blocks per SM by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor}.  The same C interface as
+// csrc/fused_pt.cu's, whose first argument (runtime_r there) is the team
+// size here.
+extern "C" int rwm_pt_fused_pt_info(int team, int d, int T, int R,
                                     int n_params, int* out) {
-  (void)runtime_r;
-  if (d < 1 || T < 1 || R < 1 || n_params < 0)
+  const Kernel k = kernel(team);
+  if (k == nullptr || d < 1 || T < 1 || R < 1 || n_params < 0)
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel());
+  cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
-  const size_t shmem = shared_words(n_params, T, d, R) * sizeof(float);
+  const int threads = block_threads(team, R, T);
+  const size_t shmem =
+      shared_words(pitch(team), n_params, T, d, R, threads / team) *
+      sizeof(float);
   out[0] = attr.numRegs;
   out[1] = attr.maxThreadsPerBlock;
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)shmem;
   out[4] = 0;
-  if (shmem > kMaxSharedBytes || 32 * R * T > attr.maxThreadsPerBlock)
-    return 0;
-  e = prepare(shmem);
+  if (shmem > kMaxSharedBytes || threads > attr.maxThreadsPerBlock) return 0;
+  e = prepare(k, shmem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[4], kernel(), 32 * R * T, shmem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k,
+                                                            threads, shmem);
 }
 
+// The run: the arguments of csrc/fused_pt.cu's rwm_pt_fused_pt, whose
+// runtime_r is the team size here
 extern "C" int rwm_pt_fused_pt(
     int kind, const float* params, int n_params, const float* betas,
     const float* sigmas, const float* x0, const int* acc0,
@@ -350,30 +421,31 @@ extern "C" int rwm_pt_fused_pt(
     float* cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* lap, float inv_d, float* rec, int record_every,
-    int record_chains, int order, int R, int runtime_r, void* stream) {
-  (void)runtime_r;
-  if (d < 1 || d + 4 > kDmax || T < 1 || T > kMaxWarps || C < 1 ||
-      total < 0 || swap_every < 1 || kind != kKind ||
-      (order != 0 && order != 1) || R < 1 || R * T > kMaxWarps ||
+    int record_chains, int order, int R, int team, void* stream) {
+  const Kernel k = kernel(team);
+  if (k == nullptr || d < 1 || d + 4 > kDmax || T < 1 || T > kMaxRungs ||
+      C < 1 || total < 0 || swap_every < 1 || kind != kKind ||
+      (order != 0 && order != 1) || R < 1 ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel());
+  cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
-  if (32 * R * T > attr.maxThreadsPerBlock)
+  const int threads = block_threads(team, R, T);
+  if (threads > attr.maxThreadsPerBlock)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t shmem = shared_words(n_params, T, d, R) * sizeof(float);
+  const size_t shmem =
+      shared_words(pitch(team), n_params, T, d, R, threads / team) *
+      sizeof(float);
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
-  e = prepare(shmem);
+  e = prepare(k, shmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((C + R - 1) / R);
-  const dim3 block(32, R, T);
-  kernel()<<<grid, block, shmem, (cudaStream_t)stream>>>(
+  k<<<(C + R - 1) / R, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
       swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order);
+      record_chains, order, R);
   return (int)cudaGetLastError();
 }

@@ -1,45 +1,101 @@
-// One warp a (replica, rung) state: the lane layout, the Metropolis-
-// Hastings step and the log-densities of the fused kernels above 64
-// dimensions (csrc/fused_pt_warp.cu, csrc/fused_rwm_warp.cu), the warp form
-// of csrc/mh.cuh and csrc/targets.cuh.  kernels/_build.py mirrors the
-// layout in Python (warp_slot_owner, warp_blocks, bm_lanes).
+// A team of G lanes a (replica, rung) state: the lane layout, the
+// Metropolis-Hastings step and the log-densities of the fused kernels above
+// 64 dimensions (csrc/fused_pt_warp.cu, csrc/fused_rwm_warp.cu), the team
+// form of csrc/mh.cuh and csrc/targets.cuh.  kernels/_build.py mirrors the
+// layout in Python (warp_slot_owner, warp_blocks, bm_lanes, team_pitch,
+// team_rows).
 //
-// Layout.  A warp bucket DMAX (128 or 256 slots, d + 4 <= DMAX) holds
-// NQ = DMAX / 128 register quads a lane.  Coordinate i = 4q + w belongs
-// to lane q mod 32, word w of its register quad floor(q / 32), and so does
-// Philox slot i: lane l computes block q = 32 k + l of the counter
-// (q, replica, rung, abs_step) for each k < NQ with 4q <= d + 3, so the
-// blocks of a step run side by side and the stream is the one the plain
-// versions consume (kernels/draws.py).  The MH uniform (slot d), the swap
-// uniform (d + 1) and the radius uniform (d + 2) are broadcast from the
-// lane that owns them with __shfl_sync; when d is not a multiple of 4
-// they may sit in two lanes' blocks.
+// Teams.  G (4, 8, 16 or 32, a template argument; a library instantiates
+// those of kernels/_build.py::WARP_TEAMS) divides the warp into 32 / G
+// aligned teams of G lanes; lane t = lane mod G of a team.  G = 32 is one
+// warp a state.  A team's shuffles (__shfl_xor_sync with m < G,
+// __shfl_sync with width G) never leave it, and every one of them is issued
+// by all 32 lanes alike: the teams of a warp follow the same control flow
+// up to their per-state branches (accept, the cold rung, a ragged edge),
+// and no shuffle sits inside one.
 //
-// Sums.  Every sum over the coordinates is a butterfly of
-// __shfl_xor_sync: at each level lane l adds a_l + a_{l^m} and lane l^m
-// adds a_{l^m} + a_l, the same float, so all 32 lanes end with the
+// Layout.  Coordinate i = 4q + w belongs to team lane q mod G, and so does
+// Philox slot i: the lane computes block q = G k + t of the counter
+// (q, replica, rung, abs_step) for each k with 4q <= d + 3, ceil(blocks /
+// G) blocks a step, so the stream is the one the plain versions consume
+// (kernels/draws.py) at every G.  The MH uniform (slot d), the swap uniform
+// (d + 1) and the radius uniform (d + 2) are broadcast inside the team from
+// the lane that owns them.
+//
+// Rows, no register arrays.  Each team has a state row (x) and a scratch
+// row (the step's proposal y) of team_pitch(DMAX, G) words in shared
+// memory; the IID kinds and the full-covariance MVN a third, for their
+// terms (kTermsRow).  Every pass over a lane's quads is a rolled loop that
+// reads and writes them there (16-byte accesses), so a lane's registers do
+// not grow with its DMAX / (4 G) quads and a small G keeps the occupancy
+// of one warp a state.  A step: one rolled loop computes each of the
+// lane's Philox blocks and uses it up (its broadcast slots, and its
+// proposal words, normals or Box-Muller uniforms into the scratch row);
+// Box-Muller (pair k < h = ceil(d/2) computed by the lane of coordinate k,
+// which alone reads slots k and h + k, or d + 3, and writes the cosine and
+// the sine over them) and the uniform ball's direction then work on the
+// row in place; after one __syncwarp every lane reads any word of the
+// proposal (a Rosenbrock neighbour, HybridRosenbrock's x0, the quadratic
+// form's columns) from the row.  The iso and scaled MVN (kOwnTerms) read
+// none back: a lane adds its words' terms of the log-density where it
+// writes them, from registers.  An accept copies the lane's quads of the
+// scratch row to the state row, after anything that needs the pre-move
+// state (PT's cold jump across a swap) has read it.  The row pitch is
+// DMAX, plus G below G = 32, so that the 32 / G teams of a warp start on
+// distinct banks (a word read by every lane of every team, as the in-order
+// sums read, is conflict-free; a quarter-warp's 16-byte accesses lie in
+// one team's row for G >= 8).
+//
+// Sums.  Every sum over the coordinates is a butterfly of log2 G levels of
+// __shfl_xor_sync: at each level lane t adds a_t + a_{t^m} and lane t^m
+// adds a_{t^m} + a_t, the same float, so every lane of a team ends with the
 // bit-identical lp, log-ratio and accept decision, and every lane stores
-// its part of a move or none does (a sum read in another order by each
-// lane would let lanes disagree and tear the row).  The two kinds whose
-// terms differ in sign (IIDGamma, IIDBeta) stage their terms in the warp's
-// shared row and every lane adds them in index order, the plain version's
-// order (targets/base.py::sum0), which matters where lp is near 0; the
-// others sum in the butterfly's order, within the agreement gate's
-// tolerance of the plain version (kernels/agreement.py).
-//
-// Shared rows.  Each warp has a state row (DMAX words, float4 per lane:
-// a warp's 16-byte accesses are contiguous, no bank conflicts) and a
-// scratch row of DMAX words: the step's proposal words as the rolled loop
-// over the register quads leaves them, and what crosses lanes: Box-Muller's angle
-// uniforms and sines (pair k < h = ceil(d/2) is computed by the lane of
-// coordinate k, its u2 read from slot h + k or d + 3, its sine written
-// for the lane of coordinate k + h), the proposal for the neighbour terms
-// of the Rosenbrock kinds, x - mean for the full-covariance quadratic
-// form, and the IID kinds' terms.  __syncwarp orders each use.
+// its part of a move or none does (a sum read in another order by each lane
+// would let lanes disagree and tear the row).  The three kinds whose terms
+// differ in sign or cancel (IIDGamma, IIDBeta, NealFunnel) add their terms
+// in index order in every lane, the plain version's order
+// (targets/base.py::sum0), which matters where lp is near 0; the others sum
+// in the butterfly's order, within the agreement gate's tolerance of the
+// plain version (kernels/agreement.py).
 #pragma once
 #include "mh.cuh"
 
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// Words of each of a team's rows
+template <int DMAX, int G>
+constexpr int kTeamPitch = DMAX + (G < 32 ? G : 0);
+
+// The kinds whose log-density stages a row of its own: the IID kinds'
+// terms, summed in index order, and the full-covariance MVN's x - mean
+template <int KIND>
+constexpr bool kTermsRow = KIND == TARGET_IID_GAMMA ||
+                           KIND == TARGET_IID_BETA || KIND == TARGET_MVN_FULL;
+
+// The kinds whose log-density sums a term of each coordinate's own word,
+// the iso and the scaled MVN: team_mh_propose adds a lane's terms where it
+// writes its proposal, so the step needs no __syncwarp and no second pass
+// over the row for them (on an H100 that pass cost the d = 100 Laplace
+// campaign 6 % at G = 32 and the d = 100 MVN main shape 11 % at G = 4,
+// scripts/bench_torch_warp.py)
+template <int KIND>
+constexpr bool kOwnTerms = KIND == TARGET_MVN_ISO || KIND == TARGET_SCALED_MVN;
+
+// Coordinate i's term of a kOwnTerms kind at word y
+template <int KIND>
+__device__ __forceinline__ float own_term(float y, int i, const float* p) {
+  const float v = KIND == TARGET_MVN_ISO ? y - p[1 + i] : p[1 + i] * y;
+  return v * v;
+}
+
+// A kOwnTerms kind's log-density from the sum s of its terms
+template <int KIND>
+__device__ __forceinline__ float own_terms_density(float s, const float* p) {
+  if constexpr (KIND == TARGET_MVN_ISO)
+    return -0.5f * s + p[0];
+  else
+    return p[0] - __fmul_rn(0.5f, s);
+}
 
 __device__ __forceinline__ void set_word(float4& v, int w, float f) {
   if (w == 0) v.x = f;
@@ -48,21 +104,45 @@ __device__ __forceinline__ void set_word(float4& v, int w, float f) {
   else v.w = f;
 }
 
-// the coordinate (and slot) of word w of register quad k of lane `lane`
-__device__ __forceinline__ int own_index(int k, int lane, int w) {
-  return 4 * (32 * k + lane) + w;
+__device__ __forceinline__ float4& row4(float* row, int q) {
+  return reinterpret_cast<float4*>(row)[q];
 }
 
-// Butterfly sum: every lane ends with the same float.
-__device__ __forceinline__ float warp_sum(float v) {
+// Trips of a rolled loop over the lane's quads that hold a coordinate
+// (4 q < d), and over those that hold a slot of the step (4 q <= d + 3);
+// one where the bucket gives a lane one quad
+template <int G, int NQ>
+__device__ __forceinline__ int coord_trips(int d) {
+  return NQ == 1 ? 1 : ((d - 1) >> 2) / G + 1;
+}
+template <int G, int NQ>
+__device__ __forceinline__ int block_trips(int d) {
+  return NQ == 1 ? 1 : ((d + 3) >> 2) / G + 1;
+}
+
+// Butterfly sum over the team: every lane of it ends with the same float.
+template <int G>
+__device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(kFullMask, v, m);
+  for (int m = G / 2; m > 0; m >>= 1) v += __shfl_xor_sync(kFullMask, v, m);
   return v;
 }
 
-// Philox block q = 32 k + lane of the step (those that hold a slot of
-// 0..d+3; zeros past them)
-__device__ __forceinline__ uint4 lane_block(int q, int d, int replica,
+// Whether `pred` holds in every lane of the team of warp lane `lane`
+template <int G>
+__device__ __forceinline__ bool team_all(bool pred, int lane) {
+  const unsigned b = __ballot_sync(kFullMask, pred);
+  if constexpr (G == 32) {
+    return b == kFullMask;
+  } else {
+    const unsigned m = ((1u << G) - 1u) << (lane & ~(G - 1));
+    return (b & m) == m;
+  }
+}
+
+// Philox block q of the step (those that hold a slot of 0..d+3; zeros
+// past them)
+__device__ __forceinline__ uint4 team_block(int q, int d, int replica,
                                             int rung, int abs_step,
                                             uint32_t key0, uint32_t key1) {
   return 4 * q <= d + 3
@@ -70,66 +150,51 @@ __device__ __forceinline__ uint4 lane_block(int q, int d, int replica,
              : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The word of slot j (the same j in every lane) into w, from the lane that
-// holds it, while the warp's register quad k holds block b: a shuffle in
-// the one k whose quads hold slot j (a condition every lane takes alike)
+// The word of slot j (the same j in every lane) into w, from the team lane
+// that holds it, while trip k of the block loop holds its block: a shuffle
+// in the one k whose blocks hold slot j (a condition every lane of the
+// warp takes alike)
+template <int G>
 __device__ __forceinline__ void take_slot(const uint4& b, int k, int j,
                                           uint32_t& w) {
   const int q = j >> 2;
-  if (k == (q >> 5)) w = __shfl_sync(kFullMask, philox_word(b, j & 3), q & 31);
+  if (k == q / G)
+    w = __shfl_sync(kFullMask, philox_word(b, j & 3), q % G, G);
 }
 
-// The lane's quads of a row (zeros past d)
-template <int NQ>
-__device__ __forceinline__ void warp_load(float4 (&v)[NQ], const float* row,
-                                          int d, int lane) {
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) {
-    const int q = 32 * k + lane;
-    v[k] = 4 * q < d ? row_quad(row, q) : make_float4(0.f, 0.f, 0.f, 0.f);
+// The lane's quads of row `from` into row `to`
+template <int G, int NQ>
+__device__ __forceinline__ void team_copy(const float* from, float* to,
+                                          int d, int t) {
+  const int n = coord_trips<G, NQ>(d);
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    const int q = G * k + t;
+    if (4 * q < d) row4(to, q) = row_quad(from, q);
   }
 }
 
-template <int NQ>
-__device__ __forceinline__ void warp_store(const float4 (&v)[NQ], float* row,
-                                           int d, int lane) {
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) {
-    const int q = 32 * k + lane;
-    if (4 * q < d) reinterpret_cast<float4*>(row)[q] = v[k];
-  }
-}
-
-// Write the lane's quads to the warp's scratch row for the other lanes
-template <int NQ>
-__device__ __forceinline__ void warp_stage(const float4 (&v)[NQ], float* row,
-                                           int d, int lane) {
-  __syncwarp();
-  warp_store<NQ>(v, row, d, lane);
-  __syncwarp();
-}
-
-// sum_i (y_i - row_i)^2 over i < d, every lane the same float
-template <int NQ>
-__device__ __forceinline__ float warp_sq_jump(const float4 (&y)[NQ],
-                                              const float* row, int d,
-                                              int lane) {
+// sum_i (a_i - b_i)^2 over i < d, every lane of the team the same float
+template <int G, int NQ>
+__device__ __forceinline__ float team_sq_jump(const float* a, const float* b,
+                                              int d, int t) {
+  const int n = coord_trips<G, NQ>(d);
   float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) {
-    const int q = 32 * k + lane;
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    const int q = G * k + t;
     if (4 * q < d) {
-      const float4 xq = row_quad(row, q);
+      const float4 aq = row_quad(a, q), bq = row_quad(b, q);
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         if (4 * q + w < d) {
-          const float dd = quad_word(y[k], w) - quad_word(xq, w);
+          const float dd = quad_word(aq, w) - quad_word(bq, w);
           s += dd * dd;
         }
       }
     }
   }
-  return warp_sum(s);
+  return team_sum<G>(s);
 }
 
 // sum_{i < d} row[i] in index order, read by every lane alike
@@ -139,146 +204,146 @@ __device__ __forceinline__ float row_sum_in_order(const float* row, int d) {
   return s;
 }
 
-// Box-Muller normals of the lane's coordinates (csrc/mh.cuh::bm_normals'
-// map), from the uniforms of every slot, which the lanes have written to
-// the scratch row: the angle uniforms and then the sines cross lanes there
-template <int NQ>
-__device__ __forceinline__ void warp_bm_normals(float4 (&n)[NQ], float* row,
-                                                int d, int lane) {
+// Box-Muller normals (csrc/mh.cuh::bm_normals' map) over the uniforms of
+// every slot, which the team's lanes have written to its scratch row: the
+// lane of coordinate i < h writes r cos over slot i and r sin over slot
+// h + i (words it alone reads), so after the second __syncwarp word i of
+// the row is normal i, i < d.
+template <int G, int NQ>
+__device__ __forceinline__ void team_bm_rows(float* row, int d, int t) {
   const int h = (d + 1) >> 1;
+  const int n = coord_trips<G, NQ>(d);
   __syncwarp();   // every slot's uniform is in the row
-  float4 sn[NQ];
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) {
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      const int i = own_index(k, lane, w);
-      float rc = 0.0f, rs = 0.0f;
+      const int i = 4 * (G * k + t) + w;
       if (i < h) {
         const float u1 = fmaxf(row[i], 1e-7f);
-        const float u2 = row[h + i < d ? h + i : d + 3];
-        float r;
-        box_muller(u1, u2, r, rs, rc);
+        const int j2 = h + i < d ? h + i : d + 3;
+        float r, rs, rc;
+        box_muller(u1, row[j2], r, rs, rc);
+        row[i] = rc;
+        if (h + i < d) row[h + i] = rs;
       }
-      set_word(n[k], w, rc);
-      set_word(sn[k], w, rs);
     }
   }
-  __syncwarp();   // every angle uniform has been read
-#pragma unroll
-  for (int k = 0; k < NQ; ++k)
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int i = own_index(k, lane, w);
-      if (i < h && i + h < d) row[i + h] = quad_word(sn[k], w);
-    }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < NQ; ++k)
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int i = own_index(k, lane, w);
-      if (i >= h && i < d) set_word(n[k], w, row[i]);
-    }
+  __syncwarp();   // every sine is in the row
 }
 
-// The log-density of the state y (the lane's quads; words past d are 0),
-// csrc/targets.cuh's formulas; `row` is the warp's scratch row.
-template <int KIND, int NQ>
-__device__ __forceinline__ float warp_log_density(const float4 (&y)[NQ],
-                                                  float* row, int d,
+// The log-density of the state in row y (words past d unread),
+// csrc/targets.cuh's formulas, every lane of the team the same float.
+// Every word of y must be visible to the team (a __syncwarp after its
+// last write); `trow` is the team's terms row (kTermsRow kinds).
+template <int KIND, int G, int NQ>
+__device__ __forceinline__ float team_log_density(const float* y,
+                                                  float* trow, int d,
                                                   const float* p, int lane) {
+  const int t = lane & (G - 1);
+  const int nc = coord_trips<G, NQ>(d);
   if constexpr (KIND == TARGET_ROSENBROCK || KIND == TARGET_EVEN_ROSENBROCK) {
-    warp_stage<NQ>(y, row, d, lane);
     const int n = d - 1;
     float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < n) {
+        const float4 yq = row_quad(y, q);
+        const float next = y[4 * q + 4];   // 4 q + 4 <= d - 1 + 3 < DMAX
 #pragma unroll
-    for (int k = 0; k < NQ; ++k) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < n) {
-          const float xi = quad_word(y[k], w);
-          const float xn = w < 3 ? quad_word(y[k], w + 1) : row[i + 1];
-          if constexpr (KIND == TARGET_ROSENBROCK) {
-            const float t = xn - xi * xi;
-            s1 += p[1] * (t * t);
-            const float u = xi - p[2 + i];
-            s2 += p[0] * (u * u);
-          } else {
-            const float t1 = __fmul_rn(p[i], sq(xi - p[2 * n + i]));
-            const float t2 = __fmul_rn(p[n + i], sq(xn - xi * xi));
-            s1 += t1 + t2;
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          if (i < n) {
+            const float xi = quad_word(yq, w);
+            const float xn = w < 3 ? quad_word(yq, w + 1) : next;
+            if constexpr (KIND == TARGET_ROSENBROCK) {
+              const float tt = xn - xi * xi;
+              s1 += p[1] * (tt * tt);
+              const float u = xi - p[2 + i];
+              s2 += p[0] * (u * u);
+            } else {
+              const float t1 = __fmul_rn(p[i], sq(xi - p[2 * n + i]));
+              const float t2 = __fmul_rn(p[n + i], sq(xn - xi * xi));
+              s1 += t1 + t2;
+            }
           }
         }
       }
     }
     if constexpr (KIND == TARGET_ROSENBROCK)
-      return -(warp_sum(s1) + warp_sum(s2));
+      return -(team_sum<G>(s1) + team_sum<G>(s2));
     else
-      return -warp_sum(s1);
-  } else if constexpr (KIND == TARGET_MVN_ISO || KIND == TARGET_SCALED_MVN) {
+      return -team_sum<G>(s1);
+  } else if constexpr (kOwnTerms<KIND>) {
     float s = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
 #pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < d) {
-          const float v = KIND == TARGET_MVN_ISO
-                              ? quad_word(y[k], w) - p[1 + i]
-                              : p[1 + i] * quad_word(y[k], w);
-          s += v * v;
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          if (i < d) s += own_term<KIND>(quad_word(yq, w), i, p);
         }
       }
-    s = warp_sum(s);
-    if constexpr (KIND == TARGET_MVN_ISO)
-      return -0.5f * s + p[0];
-    else
-      return p[0] - __fmul_rn(0.5f, s);
+    }
+    return own_terms_density<KIND>(team_sum<G>(s), p);
   } else if constexpr (KIND == TARGET_MVN_FULL) {
-    // x - mean in the scratch row; lane l takes the columns j = l mod 32
-    // of every row of the precision matrix, so a warp reads a row's
+    // x - mean in the terms row; lane t takes the columns j = t mod G of
+    // every row of the precision matrix, so a team reads a row's
     // contiguous words (shared memory or L2, kernels/_build.py
-    // params_in_shared)
-    float4 xc[NQ];
+    // params_shared_words)
+    __syncwarp();   // the terms row's last readers are done
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        float4 v = row_quad(y, q);
 #pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        set_word(xc[k], w, i < d ? quad_word(y[k], w) - p[1 + i] : 0.0f);
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          set_word(v, w, i < d ? quad_word(v, w) - p[1 + i] : 0.0f);
+        }
+        row4(trow, q) = v;
       }
-    warp_stage<NQ>(xc, row, d, lane);
+    }
+    __syncwarp();
     const float* cinv = p + 1 + d;
     float acc = 0.0f;
     for (int i = 0; i < d; ++i) {
-      float t = 0.0f;
-      for (int j = lane; j < d; j += 32) t = fmaf(cinv[i * d + j], row[j], t);
-      acc = fmaf(row[i], t, acc);
+      float tt = 0.0f;
+      for (int j = t; j < d; j += G) tt = fmaf(cinv[i * d + j], trow[j], tt);
+      acc = fmaf(trow[i], tt, acc);
     }
-    return -0.5f * warp_sum(acc) + p[0];
+    return -0.5f * team_sum<G>(acc) + p[0];
   } else if constexpr (KIND == TARGET_THREE_MIXTURE) {
     const float* s = p + 5;
     const float* mu = p + 5 + d;
     float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
 #pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < d) {
-          const float v = s[i] * quad_word(y[k], w);
-          const float e0 = v - mu[i], e1 = v - mu[d + i],
-                      e2 = v - mu[2 * d + i];
-          q0 += e0 * e0;
-          q1 += e1 * e1;
-          q2 += e2 * e2;
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          if (i < d) {
+            const float v = s[i] * quad_word(yq, w);
+            const float e0 = v - mu[i], e1 = v - mu[d + i],
+                        e2 = v - mu[2 * d + i];
+            q0 += e0 * e0;
+            q1 += e1 * e1;
+            q2 += e2 * e2;
+          }
         }
       }
-    q0 = warp_sum(q0);
-    q1 = warp_sum(q1);
-    q2 = warp_sum(q2);
+    }
+    q0 = team_sum<G>(q0);
+    q1 = team_sum<G>(q1);
+    q2 = team_sum<G>(q2);
     const float c0 = (__fmul_rn(-0.5f, q0) - p[1]) + p[2];
     const float c1 = (__fmul_rn(-0.5f, q1) - p[1]) + p[3];
     const float c2 = (__fmul_rn(-0.5f, q2) - p[1]) + p[4];
@@ -288,134 +353,153 @@ __device__ __forceinline__ float warp_log_density(const float4 (&y)[NQ],
   } else if constexpr (KIND == TARGET_ROUGH_CARPET) {
     const float* s = p + 7;
     float total = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
 #pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < d) {
-          const float v = s[i] * quad_word(y[k], w);
-          const float a0 = p[1] - __fmul_rn(0.5f, sq(v - p[4]));
-          const float a1 = p[2] - __fmul_rn(0.5f, sq(v - p[5]));
-          const float a2 = p[3] - __fmul_rn(0.5f, sq(v - p[6]));
-          const float m = fmaxf(fmaxf(a0, a1), a2);
-          const float m0 = isfinite(m) ? m : 0.0f;
-          total += (m + logf(expf(a0 - m0) + expf(a1 - m0) + expf(a2 - m0))) -
-                   0.918938533204672742f;   // log sqrt(2 pi)
-        }
-      }
-    return warp_sum(total) + p[0];
-  } else if constexpr (KIND == TARGET_HYBRID_ROSENBROCK) {
-    warp_stage<NQ>(y, row, d, lane);
-    const float a = p[0], b = p[1];
-    const float x0 = __shfl_sync(kFullMask, y[0].x, 0);
-    const float x0sq = x0 * x0;
-    float s_first = 0.0f, s_in = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i >= 1 && i < d) {
-          const bool first = p[2 + i] != 0.0f;
-          const float prev = w > 0 ? quad_word(y[k], w - 1) : row[i - 1];
-          const float par = first ? x0sq : prev * prev;
-          const float t = __fmul_rn(b, sq(quad_word(y[k], w) - par));
-          if (first) s_first += t; else s_in += t;
-        }
-      }
-    return (__fmul_rn(-a, sq(x0 - p[2])) - warp_sum(s_first)) -
-           warp_sum(s_in);
-  } else if constexpr (KIND == TARGET_HYPERCUBE) {
-    bool inside = true;
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i < d)
-          inside &= (quad_word(y[k], w) >= p[0]) & (quad_word(y[k], w) <= p[1]);
-      }
-    return __all_sync(kFullMask, inside) ? p[2] : -INFINITY;
-  } else if constexpr (KIND == TARGET_IID_GAMMA || KIND == TARGET_IID_BETA) {
-    bool valid = true;
-    float4 t[NQ];
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        float term = 0.0f;
-        if (i < d) {
-          const float xi = quad_word(y[k], w);
-          if constexpr (KIND == TARGET_IID_GAMMA) {
-            const bool pos = xi > 0.0f;
-            valid &= pos;
-            const float sx = pos ? xi : 1.0f;
-            term = __fmul_rn(p[0] - 1.0f, logf(sx)) - sx / p[1];
-          } else {
-            const bool in = (xi > 0.0f) & (xi < 1.0f);
-            valid &= in;
-            const float sx = in ? xi : 0.5f;
-            term = __fmul_rn(p[0] - 1.0f, logf(sx)) +
-                   __fmul_rn(p[1] - 1.0f, log1pf(-sx));
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          if (i < d) {
+            const float v = s[i] * quad_word(yq, w);
+            const float a0 = p[1] - __fmul_rn(0.5f, sq(v - p[4]));
+            const float a1 = p[2] - __fmul_rn(0.5f, sq(v - p[5]));
+            const float a2 = p[3] - __fmul_rn(0.5f, sq(v - p[6]));
+            const float m = fmaxf(fmaxf(a0, a1), a2);
+            const float m0 = isfinite(m) ? m : 0.0f;
+            total +=
+                (m + logf(expf(a0 - m0) + expf(a1 - m0) + expf(a2 - m0))) -
+                0.918938533204672742f;   // log sqrt(2 pi)
           }
         }
-        set_word(t[k], w, term);
       }
-    warp_stage<NQ>(t, row, d, lane);
-    const float s = row_sum_in_order(row, d);
-    if (!__all_sync(kFullMask, valid)) return -INFINITY;
+    }
+    return team_sum<G>(total) + p[0];
+  } else if constexpr (KIND == TARGET_HYBRID_ROSENBROCK) {
+    const float a = p[0], b = p[1];
+    const float x0 = y[0];
+    const float x0sq = x0 * x0;
+    float s_first = 0.0f, s_in = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
+        const float before = q > 0 ? y[4 * q - 1] : 0.0f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int i = 4 * q + w;
+          if (i >= 1 && i < d) {
+            const bool first = p[2 + i] != 0.0f;
+            const float prev = w > 0 ? quad_word(yq, w - 1) : before;
+            const float par = first ? x0sq : prev * prev;
+            const float tt = __fmul_rn(b, sq(quad_word(yq, w) - par));
+            if (first) s_first += tt; else s_in += tt;
+          }
+        }
+      }
+    }
+    return (__fmul_rn(-a, sq(x0 - p[2])) - team_sum<G>(s_first)) -
+           team_sum<G>(s_in);
+  } else if constexpr (KIND == TARGET_HYPERCUBE) {
+    bool inside = true;
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (4 * q + w < d)
+            inside &= (quad_word(yq, w) >= p[0]) & (quad_word(yq, w) <= p[1]);
+      }
+    }
+    return team_all<G>(inside, lane) ? p[2] : -INFINITY;
+  } else if constexpr (KIND == TARGET_IID_GAMMA || KIND == TARGET_IID_BETA) {
+    bool valid = true;
+    __syncwarp();   // the terms row's last readers are done
+#pragma unroll 1
+    for (int k = 0; k < nc; ++k) {
+      const int q = G * k + t;
+      if (4 * q < d) {
+        const float4 yq = row_quad(y, q);
+        float4 tq;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          float term = 0.0f;
+          if (4 * q + w < d) {
+            const float xi = quad_word(yq, w);
+            if constexpr (KIND == TARGET_IID_GAMMA) {
+              const bool pos = xi > 0.0f;
+              valid &= pos;
+              const float sx = pos ? xi : 1.0f;
+              term = __fmul_rn(p[0] - 1.0f, logf(sx)) - sx / p[1];
+            } else {
+              const bool in = (xi > 0.0f) & (xi < 1.0f);
+              valid &= in;
+              const float sx = in ? xi : 0.5f;
+              term = __fmul_rn(p[0] - 1.0f, logf(sx)) +
+                     __fmul_rn(p[1] - 1.0f, log1pf(-sx));
+            }
+          }
+          set_word(tq, w, term);
+        }
+        row4(trow, q) = tq;
+      }
+    }
+    __syncwarp();
+    const float s = row_sum_in_order(trow, d);
+    if (!team_all<G>(valid, lane)) return -INFINITY;
     return KIND == TARGET_IID_GAMMA ? s - p[2] : s + p[2];
-  } else {   // TARGET_NEAL_FUNNEL
-    const float v = __shfl_sync(kFullMask, y[0].x, 0);
+  } else {   // TARGET_NEAL_FUNNEL: the squares in index order from k = 1
+    const float v = y[0];
     const float prior = p[3] - __fmul_rn(0.5f, sq(v - p[0])) / p[1];
     if (d == 1) return prior;
     float ss = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int i = own_index(k, lane, w);
-        if (i >= 1 && i < d) {
-          const float z = quad_word(y[k], w) - p[2];
-          ss += __fmul_rn(z, z);
-        }
-      }
-    ss = warp_sum(ss);
+    for (int i = 1; i < d; ++i) {
+      const float z = y[i] - p[2];
+      ss += __fmul_rn(z, z);
+    }
     const float lik = (p[4] - __fmul_rn(p[5], v)) -
                       __fmul_rn(__fmul_rn(0.5f, expf(-v)), ss);
     return prior + lik;
   }
 }
 
-// Propose y from the state in the warp's state row xs and test it
-// (csrc/mh.cuh::mh_propose in warp form).  Returns the decision, the same
-// in every lane; lp becomes the proposal's log-density on an accept;
-// u_swap is the uniform of slot d + 1 (PT's pair uniform).  The state row
-// is left as it was.  A loop over the lane's register quads, kept rolled
-// (one inlined copy of the normal draw, however many quads a lane has),
-// computes each quad's Philox block and uses it up there: the broadcast
-// slots it holds, and its proposal words (Normal, Laplace), normals
-// (UniformRadius) or uniforms (Box-Muller) into the scratch row, from
-// which the lane reads its own quads back.
-template <int KIND, int PROP, int DRAW, int NQ>
-__device__ __forceinline__ bool warp_mh_propose(
-    float4 (&y)[NQ], const float* xs, float* row, float& lp, int d,
+// Propose from the state in the team's state row xs into its scratch row
+// and test it (csrc/mh.cuh::mh_propose in team form).  Returns the
+// decision, the same in every lane of the team; lp becomes the proposal's
+// log-density on an accept; u_swap is the uniform of slot d + 1 (PT's pair
+// uniform); jump the lane's part of sum_i (y_i - x_i)^2, added in
+// team_sq_jump's order (team_sum of it is the squared jump); a kOwnTerms
+// kind's lp terms are added in the same order beside it, as
+// team_log_density adds them.  The state row is left as it was; on an accept the caller copies the scratch row's
+// words 0..d-1 to it.  The loop over the lane's
+// blocks is kept rolled (one inlined copy of the normal draw, however many
+// blocks a lane has) and uses each block up there: the broadcast slots it
+// holds, and its proposal words (Normal, Laplace), normals (UniformRadius)
+// or uniforms (Box-Muller) into the scratch row.
+template <int KIND, int PROP, int DRAW, int G, int NQ>
+__device__ __forceinline__ bool team_mh_propose(
+    const float* xs, float* row, float* trow, float& lp, int d,
     const float* p, float scale, const float* lap, float inv_d, float beta,
     int lane, int replica, int rung, int abs_step, uint32_t key0,
-    uint32_t key1, float& u_swap) {
+    uint32_t key1, float& u_swap, float& jump) {
   constexpr bool kBM = PROP != PROPOSAL_LAPLACE && DRAW == DRAW_BM;
   constexpr bool kUR = PROP == PROPOSAL_UNIFORM_RADIUS;
+  const int t = lane & (G - 1);
+  const int nb = block_trips<G, NQ>(d);
   uint32_t w_mh = 0u, w_sw = 0u, w_r = 0u;
+  float sj = 0.0f, slp = 0.0f;   // the jump's and the lp's parts
   __syncwarp();   // the scratch row's last readers are done
 #pragma unroll 1
-  for (int k = 0; k < NQ; ++k) {
-    const int q = 32 * k + lane;
-    const uint4 b = lane_block(q, d, replica, rung, abs_step, key0, key1);
-    take_slot(b, k, d, w_mh);
-    take_slot(b, k, d + 1, w_sw);
-    if constexpr (kUR) take_slot(b, k, d + 2, w_r);
+  for (int k = 0; k < nb; ++k) {
+    const int q = G * k + t;
+    const uint4 b = team_block(q, d, replica, rung, abs_step, key0, key1);
+    take_slot<G>(b, k, d, w_mh);
+    take_slot<G>(b, k, d + 1, w_sw);
+    if constexpr (kUR) take_slot<G>(b, k, d + 2, w_r);
     float4 v;
     if constexpr (kBM) {
       v = make_float4(uniform_from_bits(b.x), uniform_from_bits(b.y),
@@ -436,65 +520,93 @@ __device__ __forceinline__ bool warp_mh_propose(
           else
             out = quad_word(xq, w) +
                   __fmul_rn(icdf_layout_normal<DRAW>(u), scale);
+          if constexpr (!kUR) {
+            const float dd = out - quad_word(xq, w);
+            sj += dd * dd;
+            if constexpr (kOwnTerms<KIND>) slp += own_term<KIND>(out, i, p);
+          }
         }
         set_word(v, w, out);
       }
     }
-    if (4 * q <= d + 3) reinterpret_cast<float4*>(row)[q] = v;
+    if (4 * q <= d + 3) row4(row, q) = v;
   }
-  float4 n[NQ];   // the normals (Box-Muller, UniformRadius)
-  if constexpr (kBM) {
-    warp_bm_normals<NQ>(n, row, d, lane);
-  } else {
+  if constexpr (kBM) team_bm_rows<G, NQ>(row, d, t);   // the normals
+  if constexpr (kBM || kUR) {
+    // the proposal from the normals, over the lane's quads in place:
+    // x + n scale, or the uniform ball's x + n / ||n|| r
+    const int nc = coord_trips<G, NQ>(d);
+    float f = scale;
+    if constexpr (kUR) {
+      float nrm2 = 0.0f;
+#pragma unroll 1
+      for (int k = 0; k < nc; ++k) {
+        const int q = G * k + t;
+        if (4 * q < d) {
+          const float4 nq = row_quad(row, q);
 #pragma unroll
-    for (int k = 0; k < NQ; ++k) {   // the lane's own words of the row
-      const int q = 32 * k + lane;
-      const float4 v =
-          4 * q < d ? row_quad(row, q) : make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (kUR) n[k] = v; else y[k] = v;
+          for (int w = 0; w < 4; ++w)
+            if (4 * q + w < d) nrm2 += quad_word(nq, w) * quad_word(nq, w);
+        }
+      }
+      nrm2 = team_sum<G>(nrm2);
+      f = scale * expf(logf(uniform_from_bits(w_r)) * inv_d);
+      const float den = fmaxf(sqrtf(nrm2), 1e-12f);
+#pragma unroll 1
+      for (int k = 0; k < nc; ++k) {
+        const int q = G * k + t;
+        if (4 * q < d) {
+          const float4 xq = row_quad(xs, q), nq = row_quad(row, q);
+          float4 v;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            float out = 0.0f;
+            if (4 * q + w < d) {
+              out = quad_word(xq, w) + __fmul_rn(quad_word(nq, w) / den, f);
+              const float dd = out - quad_word(xq, w);
+              sj += dd * dd;
+              if constexpr (kOwnTerms<KIND>)
+                slp += own_term<KIND>(out, 4 * q + w, p);
+            }
+            set_word(v, w, out);
+          }
+          row4(row, q) = v;
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < nc; ++k) {
+        const int q = G * k + t;
+        if (4 * q < d) {
+          const float4 xq = row_quad(xs, q), nq = row_quad(row, q);
+          float4 v;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            float out = 0.0f;
+            if (4 * q + w < d) {
+              out = quad_word(xq, w) + __fmul_rn(quad_word(nq, w), f);
+              const float dd = out - quad_word(xq, w);
+              sj += dd * dd;
+              if constexpr (kOwnTerms<KIND>)
+                slp += own_term<KIND>(out, 4 * q + w, p);
+            }
+            set_word(v, w, out);
+          }
+          row4(row, q) = v;
+        }
+      }
     }
   }
-  if constexpr (kBM && !kUR) {
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) {
-      const int q = 32 * k + lane;
-      const float4 xq =
-          4 * q < d ? row_quad(xs, q) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        set_word(y[k], w, 4 * q + w < d
-                              ? quad_word(xq, w) +
-                                    __fmul_rn(quad_word(n[k], w), scale)
-                              : 0.0f);
-    }
-  }
-  if constexpr (kUR) {   // the uniform ball: direction n / ||n||
-    float nrm2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NQ; ++k)
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        if (own_index(k, lane, w) < d)
-          nrm2 += quad_word(n[k], w) * quad_word(n[k], w);
-    nrm2 = warp_sum(nrm2);
-    const float r = scale * expf(logf(uniform_from_bits(w_r)) * inv_d);
-    const float den = fmaxf(sqrtf(nrm2), 1e-12f);
-#pragma unroll
-    for (int k = 0; k < NQ; ++k) {
-      const int q = 32 * k + lane;
-      const float4 xq =
-          4 * q < d ? row_quad(xs, q) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        set_word(y[k], w, 4 * q + w < d
-                              ? quad_word(xq, w) +
-                                    __fmul_rn(quad_word(n[k], w) / den, r)
-                              : 0.0f);
-    }
-  }
+  jump = sj;
   u_swap = uniform_from_bits(w_sw);
   const float u = uniform_from_bits(w_mh);
-  const float lp_prop = warp_log_density<KIND, NQ>(y, row, d, p, lane);
+  float lp_prop;
+  if constexpr (kOwnTerms<KIND>) {
+    lp_prop = own_terms_density<KIND>(team_sum<G>(slp), p);
+  } else {
+    __syncwarp();   // the proposal is in the row
+    lp_prop = team_log_density<KIND, G, NQ>(row, trow, d, p, lane);
+  }
   const float log_ratio = beta * (lp_prop - lp);
   const bool accept = (log_ratio > 0.0f) || (u < expf(log_ratio));
   if (accept) lp = lp_prop;

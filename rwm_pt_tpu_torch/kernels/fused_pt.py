@@ -1,10 +1,10 @@
 """Fused whole-run Parallel Tempering: the CUDA kernels ``csrc/fused_pt.cu``
-(one thread a (replica, rung), d <= 64) and ``csrc/fused_pt_warp.cu`` (one
-warp a (replica, rung), 64 < d <= 252) and their plain PyTorch version
-(port of ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its cold-chain
-recording variant, the Normal, Laplace and UniformRadius proposals, every
-normal draw of ``draws.NORMAL_IMPLS``, every target kind of
-``_build.kernel_target``).
+(one thread a (replica, rung), d <= 64) and ``csrc/fused_pt_warp.cu`` (a
+team of G lanes a (replica, rung), 64 < d <= 252) and their plain PyTorch
+version (port of ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its
+cold-chain recording variant, the Normal, Laplace and UniformRadius
+proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
+of ``_build.kernel_target``).
 
 ``run_pt_fused`` does the wrapper's bookkeeping (per-rung scales, seeding,
 resume, initial states, analytic swap attempts, post-burn-in normalization)
@@ -137,11 +137,14 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
 def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
                      *, kind="Normal", record_every=0, record_chains=0,
-                     draw="icdf", swap_sweep="sequential", warp=None):
+                     draw="icdf", swap_sweep="sequential", warp=None,
+                     team=None):
     """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
     ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
-    any d, to compare the layouts) on the current stream; same arguments
+    any d, to compare the layouts; ``team`` forces the warp kernel's team
+    size G, the lanes a (replica, rung), where ``_build.choose_team``
+    would pick one, for comparisons only) on the current stream; same arguments
     and results as :func:`_run_pt_fused_plain`.  ``launches`` counts each
     launch under ``_build.launch_key`` of its library (the name without
     its register bucket, ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
@@ -149,7 +152,8 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     ``fused_pt_lax_erfinv.mvn_iso.w128``; ``_build.by_variant`` sums them
     by variant), and a recorded one also under ``fused_pt_record``.  The
     replicas a block come from ``_build.launch_geometry`` (the kernel's
-    registers and launch bound, the rows' shared memory)."""
+    registers and launch bound, the rows' shared memory; a warp library's
+    team size too)."""
     variant = _build.library("fused_pt", kind, draw)
     tkind, params = _build.kernel_target(target)
     lib = _build.lib_name(variant, tkind, target.dim, warp)
@@ -161,9 +165,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
         raise ValueError(f"x0 has {d} coordinates, the target {target.dim}")
     if T > _build.max_rungs(d):
         raise NotImplementedError(
-            f"fused PT runs one thread (a warp above 64 dimensions) per "
-            f"(replica, rung), at most {_build.max_rungs(d)} rungs at d={d} "
-            f"(ROADMAP Queue A item 15 for more above d = 124); T={T}")
+            f"fused PT runs one thread (a team of lanes above 64 dimensions) "
+            f"per (replica, rung), at most {_build.max_rungs(d)} rungs at "
+            f"d={d}; T={T}")
     _build.check_cuda("fused_pt", torch.float32, x0=x0, betajump0=betajump0,
                       coldjump0=coldjump0, betas=betas, sigmas=sigmas,
                       params=params)
@@ -190,7 +194,8 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     swapacc = torch.empty_like(swapacc0)
     bj = torch.empty_like(betajump0)
     cj = torch.empty_like(coldjump0)
-    geo = _build.launch_geometry(lib, d, C, T, kind, draw, params.numel())
+    geo = _build.launch_geometry(lib, d, C, T, kind, draw, params.numel(),
+                                 team)
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             betas.data_ptr(),
@@ -201,7 +206,8 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             swap_every, step0, key[0], key[1],
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
-            geo.replicas, int(geo.runtime_r),
+            geo.replicas,
+            geo.team if _build.is_warp(lib) else int(geo.runtime_r),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_pt_kernel.launches[_build.launch_key(lib)] += 1

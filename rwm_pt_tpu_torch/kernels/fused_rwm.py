@@ -1,6 +1,6 @@
 """Fused whole-run RWM: the CUDA kernels ``csrc/fused_rwm.cu`` (one thread a
-chain, d <= 64) and ``csrc/fused_rwm_warp.cu`` (one warp a chain, 64 < d
-<= 252) and their plain PyTorch version (port of
+chain, d <= 64) and ``csrc/fused_rwm_warp.cu`` (a team of G lanes a
+chain, 64 < d <= 252) and their plain PyTorch version (port of
 ``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas`` with its recording variant, the Normal, Laplace and UniformRadius
 proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
 of ``_build.kernel_target``).
@@ -82,17 +82,21 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
 
 def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
                       total, burn_in, *, kind="Normal", record_every=0,
-                      record_chains=0, draw="icdf", warp=None):
+                      record_chains=0, draw="icdf", warp=None,
+                      team=None):
     """Launch ``csrc/fused_rwm.cu``, or above 64 dimensions
     ``csrc/fused_rwm_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
-    any d, to compare the layouts) on the current stream; same arguments
+    any d, to compare the layouts; ``team`` forces the warp kernel's team
+    size G, the lanes a chain, where ``_build.choose_team`` would pick
+    one, for comparisons only) on the current stream; same arguments
     and results as :func:`_run_rwm_fused_plain`.  ``launches`` counts each
     launch under ``_build.launch_key`` of its library
     (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``,
     ``fused_rwm_lax_erfinv.mvn_iso.w128``, ..; ``_build.by_variant`` sums
     them by variant), and a recorded one also under ``fused_rwm_record``.
-    The chains a block come from ``_build.launch_geometry``."""
+    The chains a block (and a warp library's team size) come from
+    ``_build.launch_geometry``."""
     variant = _build.library("fused_rwm", kind, draw)
     tkind, params = _build.kernel_target(target)
     lib = _build.lib_name(variant, tkind, target.dim, warp)
@@ -129,7 +133,7 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     acc = torch.empty_like(acc0)
     jump = torch.empty_like(jump0)
     geo = _build.launch_geometry(lib, d, C, proposal=kind, draw=draw,
-                                 n_params=params.numel())
+                                 n_params=params.numel(), team=team)
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             scalar, float(beta),
@@ -137,7 +141,8 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), jump.data_ptr(),
             d, C, total, burn_in, step0, key[0], key[1], lap_ptr, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
-            geo.replicas, torch.cuda.current_stream(x0.device).cuda_stream)
+            geo.replicas, *((geo.team,) if _build.is_warp(lib) else ()),
+            torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_rwm_kernel.launches[_build.launch_key(lib)] += 1
     if n_rec:

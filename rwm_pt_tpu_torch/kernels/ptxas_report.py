@@ -28,7 +28,8 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
     each entry function in a ptxas ``-v`` report; a fused kernel's
     instantiation is named by its register bucket and, for PT, ``R32``
     (32 replicas a block) or ``Rrt`` (R read at run time), a warp kernel's
-    by its warp bucket (``W128``: one register quad a lane), a probe kernel
+    by its warp bucket and team size (``W128 G4``: teams of 4 lanes), a
+    probe kernel
     by its name and template argument (``draw_normals_kernel<2>``: the
     draw's ``_build.DRAWS`` code)."""
     out, name = [], None
@@ -37,11 +38,11 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
         if m:
             t = re.findall(r"Li(\d+)E", m.group(1))
             k = re.search(r"\d+([A-Za-z_]+_kernel)", m.group(1))
-            name = (f"W{128 * int(t[1])}" if "warp_kernel" in m.group(1)
+            name = (f"W{t[1]} G{t[2]}" if "warp_kernel" in m.group(1)
                     else f"D{t[1]}" if len(t) > 1 else
                     k.group(1) + "".join(f"<{a}>" for a in t) if k else
                     m.group(1))
-            if len(t) > 2:
+            if len(t) > 2 and "warp_kernel" not in m.group(1):
                 name += " R32" if t[2] != "0" else " Rrt"
             out.append([name, None, 0, 0])
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

@@ -758,18 +758,35 @@ def test_probe_launch_errors_raise(monkeypatch):
 
 
 WARP_CASES = [("pt", 65, "sequential", 10), ("pt", 100, "even_odd", 10),
-              ("pt", 200, "sequential", 16), ("rwm", 65, None, 1),
-              ("rwm", 100, None, 1)]
+              ("pt", 100, "sequential", 17),
+              ("pt", 200, "sequential", 16), ("pt", 200, "even_odd", 17),
+              ("pt", 200, "sequential", 31), ("pt", 200, "even_odd", 32),
+              ("rwm", 65, None, 1), ("rwm", 100, None, 1),
+              ("rwm", 200, None, 1)]
 
 
-@pytest.mark.parametrize("algo,d,sweep,T", WARP_CASES)
-def test_warp_kernels_match_plain(algo, d, sweep, T):
-    """Above 64 dimensions the wrappers launch the warp library (one warp a
-    replica, its launch counted under ``<variant>.<kind>.w128`` or
-    ``.w256``), held against the plain version like the thread kernels:
+def _team_cases(cases):
+    """Each case at every team size its warp bucket's libraries hold that
+    takes its rungs (``_build.WARP_TEAMS``, a static table: every worker
+    collects the same tests)."""
+    out = []
+    for algo, d, sweep, T in cases:
+        dmax = _build.warp_bucket(d)
+        out += [(algo, d, sweep, T, g) for g in _build.WARP_TEAMS[dmax]
+                if algo == "rwm" or T * g <= _build.pt_team_threads(dmax, g)]
+    return out
+
+
+@pytest.mark.parametrize("algo,d,sweep,T,team", _team_cases(WARP_CASES))
+def test_warp_kernels_match_plain(algo, d, sweep, T, team):
+    """Above 64 dimensions the wrappers launch the warp library (a team of
+    G lanes a replica, its launch counted under ``<variant>.<kind>.w128``
+    or ``.w256``), held against the plain version like the thread kernels
+    at every team size G the library holds (``team=`` forces it):
     FullRosenbrock, whose neighbour terms cross lanes, 1003 replicas (a
-    ragged last block), PT on 10 rungs, and on 16, the most the 256
-    bucket's block takes."""
+    ragged last block), PT on 10 rungs, and on 16 and 32 in the 256
+    bucket; odd ladders of 17 and 31 rungs, whose blocks below G = 32 are
+    padded to whole warps with idle teams."""
     dev = _card()
     C = 1003
     target = FullRosenbrock.create(d, device=dev)
@@ -786,16 +803,17 @@ def test_warp_kernels_match_plain(algo, d, sweep, T):
                 10)
         launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
                                 agreement.PT_OUTPUTS)
-        kw = dict(draw=WARP_DRAW, swap_sweep=sweep)
+        kw = dict(draw=WARP_DRAW, swap_sweep=sweep, team=team)
     else:
         args = (target, x0, zi(C), zf(C), torch.tensor(1.0, device=dev),
                 torch.sqrt(torch.tensor(var, device=dev)), seed_key(32), 0,
                 150, 20)
         launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
                                 agreement.RWM_OUTPUTS)
-        kw = dict(draw=WARP_DRAW)
+        kw = dict(draw=WARP_DRAW, team=team)
     before = Counter(launch.launches)
     k = launch(*args, **kw)
+    kw.pop("team")
     variant = _build.library(f"fused_{algo}", "Normal", WARP_DRAW)
     assert launch.launches - before == Counter(
         {f"{variant}.rosenbrock.w{_build.warp_bucket(d)}": 1})
@@ -806,15 +824,18 @@ def test_warp_kernels_match_plain(algo, d, sweep, T):
     assert (k[2] > 0).any()
 
 
-def test_warp_lanes_accept_alike():
+@pytest.mark.parametrize("team", _build.WARP_TEAMS[128])
+def test_warp_lanes_accept_alike(team):
     """A state where the lanes' partial sums of lp round differently from
     one another: |x| ~ 1 in 100 coordinates (lp ~ -100, an ulp of 8e-6),
     steps of 1e-3 and beta = 1e4, so that the log-ratio's rounding moves
     it by ~0.04 and about one decision in a thousand hinges on it.  The
-    butterfly sums give every lane the same lp, so every recorded step of
-    every chain moves all of its coordinates or none (an increment rounds
-    to 0 on about 5e-5 of them): no row is torn.  The final lp is the
-    target's at the final x."""
+    butterfly sums give every lane of a team the same lp, so every
+    recorded step of every chain moves all of its coordinates or none (an
+    increment rounds to 0 on about 5e-5 of them): no row is torn, at every
+    team size G.  The final lp is the target's at the final x, and on the
+    chains whose final x agrees with the plain version's the counters are
+    the plain version's."""
     dev = _card()
     d, C, S = 100, 1024, 100
     target = MultivariateNormal.create(d, device=dev)
@@ -822,11 +843,10 @@ def test_warp_lanes_accept_alike():
     x0 = torch.randn(d, C, generator=g, device=dev)
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
     zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
-    out = launch_rwm_kernel(target, x0, zi(C), zf(C),
-                            torch.tensor(1e4, device=dev),
-                            torch.tensor(1e-3, device=dev), seed_key(23), 0,
-                            S, 0, draw=WARP_DRAW, record_every=1,
-                            record_chains=C)
+    args = (target, x0, zi(C), zf(C), torch.tensor(1e4, device=dev),
+            torch.tensor(1e-3, device=dev), seed_key(23), 0, S, 0)
+    out = launch_rwm_kernel(*args, draw=WARP_DRAW, record_every=1,
+                            record_chains=C, team=team)
     chain = out[4]                                   # (S, d, C)
     prev = torch.cat([x0[None], chain[:-1]])
     moved = (chain != prev).float().mean(1)          # (S, C)
@@ -835,3 +855,6 @@ def test_warp_lanes_accept_alike():
     assert 0 < int(out[2].sum()) < S * C
     torch.testing.assert_close(out[1], target.log_density_td(out[0]),
                                rtol=1e-5, atol=1e-4)
+    a = agreement.hold(out[:4], _run_rwm_fused_plain(*args, draw=WARP_DRAW),
+                       agreement.RWM_OUTPUTS, lp_of=target.log_density_td)
+    assert a.frac > 0.5 and not a.mismatched, agreement.describe(a)

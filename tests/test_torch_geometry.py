@@ -197,3 +197,208 @@ def test_a_library_takes_the_stated_blocks(name, blocks):
     the few PT libraries whose capped build spills held to fewer."""
     assert _build._parts(name)[5] == blocks
     assert f"-DRWM_PT_MINBLOCKS={blocks}" in _build._flags(name)
+
+
+# ------------------------------------------- teams of the warp kernels
+# the (warp bucket, team size) instantiations of the warp libraries
+INSTANTIATED = [(dmax, g) for dmax, teams in _build.WARP_TEAMS.items()
+                for g in teams]
+
+
+@pytest.mark.parametrize("dmax,team", INSTANTIATED)
+@pytest.mark.parametrize("T", [1, 3, 7, 10, 16, 17, 31, 32])
+def test_pt_team_blocks_are_whole_warps(dmax, team, T):
+    """A warp PT block of R replicas x T rung-teams of G lanes is R T G
+    threads rounded up to whole warps (the teams of a warp never straddle
+    two blocks; an odd T that fits no whole-warp block takes idle teams)
+    within the instantiation's launch bound; its shared memory is the
+    teams' rows of ``team_pitch`` words, the idle ones' too, and the
+    sweep's words.  Only G = 32 in the 256 bucket (16 warps) refuses a
+    replica of more than 16 rungs."""
+    d = dmax - 28
+    cap = _build.pt_team_threads(dmax, team)
+    if T * team > cap:
+        assert (dmax, team) == (256, 32) and T > 16
+        with pytest.raises(ValueError, match="does not fit a block"):
+            _build.pt_warp_geometry(64, cap, d, dmax, T, 65536,
+                                    n_params=d + 1, team=team)
+        return
+    g = _build.pt_warp_geometry(64, cap, d, dmax, T, 65536, n_params=d + 1,
+                                team=team)
+    live = team * g.replicas * T
+    assert g.team == team and g.threads % 32 == 0 and g.threads <= cap
+    assert g.threads == _build.pt_block_threads(g.replicas, T, team)
+    assert live <= g.threads < live + 32
+    if any(R * T * team % 32 == 0 and R * T * team <= cap
+           for R in range(1, 33)):
+        assert g.threads == live   # padded only where no whole warp fits
+    pitch = _build.team_pitch(dmax, team)
+    words = (g.threads // team * 2 * pitch + d + 1 + 2 * T
+             + 2 * T * g.replicas + 5 * g.replicas + 3 * T * g.replicas
+             + g.replicas)
+    assert g.shared_bytes == 4 * words
+
+
+@pytest.mark.parametrize("T,replicas,threads", [(17, 3, 416), (31, 1, 256),
+                                                (32, 1, 256)])
+def test_the_256_bucket_fits_32_rungs_at_8_lanes(T, replicas, threads):
+    """d = 200 (the 256 bucket, G = 8 and 32): more than 16 rungs take the
+    G = 8 instantiation (512 threads a block), odd ladders with idle teams
+    (T = 17: 3 replicas, 51 teams and one idle, 416 threads; T = 31: one
+    replica and one idle team); one warp a state would need more than 16
+    warps and is refused, so ``launch_geometry`` takes G = 8 at any grid
+    and the harness runs every ladder up to 32 rungs there."""
+    g = _build.pt_warp_geometry(64, 512, 200, 256, T, 65536, n_params=201,
+                                team=8)
+    assert (g.replicas, g.threads, g.team) == (replicas, threads, 8)
+    with pytest.raises(ValueError, match="does not fit a block"):
+        _build.pt_warp_geometry(64, 512, 200, 256, T, 65536, n_params=201,
+                                team=32)
+    for C in (1, 512, 65536):
+        geos = {8: _build.pt_warp_geometry(64, 512, 200, 256, T, C,
+                                           n_params=201, team=8)}
+        assert _build.choose_team(geos, 200).team == 8
+    assert _build.max_rungs(200) == 32
+
+
+def test_pt_team_geometry_at_the_main_shape():
+    """d = 100, T = 10, 65,536 replicas.  Teams of 4 lanes at 64
+    registers: R a multiple of 4 (R T G = 40 R threads, whole warps) up to
+    the 512-thread launch bound.  Shared memory sets the blocks an SM
+    holds: R = 4 (160 threads, 44 kB) 5 blocks, 800 threads; R = 8 (320,
+    87 kB) 2, 640; R = 12 (480, 130 kB) 1, 480; so R = 4.  One warp a
+    state (G = 32): R = 3, 30 warps, as before."""
+    g = _build.pt_warp_geometry(64, 512, 100, 128, 10, 65536, n_params=101,
+                                team=4)
+    assert (g.replicas, g.threads, g.blocks_per_sm, g.team) == (4, 160, 5, 4)
+    assert g.grid == 65536 // 4
+    assert _build.fills(g)
+    g32 = _build.pt_warp_geometry(64, 1024, 100, 128, 10, 65536,
+                                  n_params=101)
+    assert (g32.replicas, g32.threads, g32.team) == (3, 960, 32)
+
+
+def test_team_rows_of_the_terms_kinds():
+    """The IID kinds and the full-covariance MVN keep a third row a team
+    (their terms); the other kinds two."""
+    assert [_build.team_rows(k) for k in _build.TARGET_KINDS].count(3) == 3
+    two = _build.rwm_warp_shared_bytes(101, 100, 8, 128, team=8)
+    three = _build.rwm_warp_shared_bytes(101, 100, 8, 128, team=8,
+                                         kind="iid_gamma")
+    assert three - two == 4 * 8 * _build.team_pitch(128, 8)
+
+
+@pytest.mark.parametrize("d,dmax,team,chains,grid", [
+    (100, 128, 4, 8, 64), (100, 128, 32, 3, 171), (200, 256, 8, 4, 128),
+    (200, 256, 32, 3, 171)])
+def test_rwm_team_geometry_at_the_campaigns(d, dmax, team, chains, grid):
+    """The reference's campaigns, 512 chains: at every instantiated team
+    size the chains a block shrink to whole warps until the grid gives
+    each SM a block (G = 4: eight chains, one warp, 64 blocks, the fewest;
+    G = 8: four, 128 blocks), and no grid fills the card."""
+    g = _build.rwm_warp_geometry(56, 256, d, dmax, 512, n_params=d + 1,
+                                 team=team)
+    assert (g.replicas, g.threads, g.grid) == (chains, team * chains, grid)
+    assert g.threads % 32 == 0 and not _build.fills(g)
+
+
+def test_rwm_team_geometry_at_the_main_shape():
+    """65,536 chains: 256 threads a block at every G (32 chains of 8
+    lanes), and the grid fills the card."""
+    g = _build.rwm_warp_geometry(56, 256, 100, 128, 65536, n_params=101,
+                                 team=8)
+    assert (g.replicas, g.threads, g.grid) == (32, 256, 2048)
+    assert _build.fills(g)
+
+
+def test_choose_team_takes_the_smallest_team_that_fills():
+    """Of the launches a library offers, the smallest G whose grid fills
+    the card; where none fills, the smallest G of the fewest block-loop
+    trips a step (d = 100, 26 blocks: G = 32 alone takes one; d = 20, six
+    blocks: G = 8 takes one as G = 32 does); none at all raises."""
+    main = {g: _build.rwm_warp_geometry(56, 256, 100, 128, 65536,
+                                        n_params=101, team=g)
+            for g in (4, 8, 32)}
+    assert _build.choose_team(main, 100).team == 4
+    small = {g: _build.rwm_warp_geometry(56, 256, 100, 128, 512,
+                                         n_params=101, team=g)
+             for g in (4, 8, 32)}
+    assert _build.choose_team(small, 100).team == 32
+    study = {g: _build.rwm_warp_geometry(56, 256, 20, 128, 1024,
+                                         n_params=21, team=g)
+             for g in (4, 8, 32)}
+    assert not any(_build.fills(g) for g in study.values())
+    assert _build.choose_team(study, 20).team == 8
+    assert _build.choose_team({4: study[4], 32: study[32]}, 20).team == 32
+    assert [_build.block_trips(100, g) for g in (4, 8, 16, 32)] == \
+        [7, 4, 2, 1]
+    with pytest.raises(ValueError, match="no team size"):
+        _build.choose_team({}, 100)
+
+
+# (algo, d, replicas or chains, the G measured faster) with each team size
+# forced, 2000 steps on FullRosenbrock (scripts/bench_torch_warp.py on an
+# H100: the main shapes and GRIDS; RWM's 512 chains: the campaigns' kinds)
+MEASURED_GRIDS = [("pt", 100, 512, 32), ("pt", 100, 1024, 32),
+                  ("pt", 100, 2048, 4), ("pt", 100, 4096, 4),
+                  ("pt", 100, 65536, 4), ("rwm", 100, 512, 32),
+                  ("rwm", 100, 2048, 32), ("rwm", 100, 4096, 32),
+                  ("rwm", 100, 8192, 32), ("rwm", 100, 16384, 4),
+                  ("rwm", 100, 32768, 4), ("rwm", 100, 65536, 4),
+                  ("pt", 200, 1024, 8), ("pt", 200, 4096, 8),
+                  ("rwm", 200, 4096, 32), ("rwm", 200, 16384, 8)]
+# registers of the FullRosenbrock instantiations, as ptxas reports them
+ROSENBROCK_REGS = {("pt", 128): {4: 64, 32: 56}, ("pt", 256): {8: 64, 32: 64},
+                   ("rwm", 128): {4: 56, 32: 56},
+                   ("rwm", 256): {8: 56, 32: 56}}
+
+
+@pytest.mark.parametrize("algo,d,C,faster", MEASURED_GRIDS)
+def test_choose_team_takes_the_measured_faster_team(algo, d, C, faster):
+    """At every grid timed with each team size forced, the rule (the
+    smallest G whose grid is half a wave, else the fewest block trips)
+    picks the one that measured faster: G = 32 up to 1,024 PT replicas
+    (0.39 of a wave at G = 4) and 8,192 RWM chains (0.37), the small team
+    from 2,048 replicas (0.78) and 16,384 chains (0.65)."""
+    dmax = _build.warp_bucket(d)
+    geos = {}
+    for g, regs in ROSENBROCK_REGS[algo, dmax].items():
+        if algo == "pt":
+            geos[g] = _build.pt_warp_geometry(
+                regs, _build.pt_team_threads(dmax, g), d, dmax, 10, C,
+                n_params=d + 2, team=g)
+        else:
+            geos[g] = _build.rwm_warp_geometry(regs, 256, d, dmax, C,
+                                               n_params=d + 2, team=g)
+    assert _build.choose_team(geos, d).team == faster
+
+
+def test_launch_geometry_offers_the_library_teams(monkeypatch):
+    """``launch_geometry`` asks the library for each team size it holds
+    (``kernel_info(team=G)``) and lets ``choose_team`` pick; ``team=``
+    forces one it holds, refuses one it does not, and refuses a
+    thread-per-replica library."""
+    asked = []
+
+    def info(name, d, T=1, R=1, n_params=0, runtime_r=False, team=32):
+        asked.append(team)
+        return {"registers": 56, "max_threads": 256 if "rwm" in name
+                else _build.pt_team_threads(128, team), "local_bytes": 0,
+                "shared_bytes": 0, "blocks_per_sm": 1}
+
+    monkeypatch.setattr(_build, "kernel_info", info)
+    name = "fused_rwm_lax_erfinv.rosenbrock.w128"
+    teams = _build.library_teams(name)
+    g = _build.launch_geometry(name, 100, 65536, proposal="Normal",
+                               draw="lax_erfinv", n_params=101)
+    assert sorted(asked) == sorted(teams) and g.team == min(teams)
+    assert _build.launch_geometry(name, 100, 512, n_params=101).team == 32
+    assert _build.launch_geometry(name, 100, 65536, n_params=101,
+                                  team=32).team == 32
+    with pytest.raises(ValueError, match="holds teams"):
+        _build.launch_geometry(name, 100, 65536, team=64)
+    with pytest.raises(ValueError, match="team= is for the warp"):
+        _build.launch_geometry("fused_rwm.rosenbrock.d32", 30, 65536, team=8)
+    pt = "fused_pt_lax_erfinv.rosenbrock.w128"
+    g = _build.launch_geometry(pt, 100, 65536, T=10, n_params=101)
+    assert g.team == min(_build.library_teams(pt)) and g.threads % 32 == 0

@@ -179,7 +179,7 @@ def test_progress_bar_and_engine_refusal():
                target_dist="MultivariateNormal", device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
         sim.generate_samples(progress_bar=True)
-    # the kernels compile dims up to 252 (one warp a replica above 64): a
+    # the kernels compile dims up to 252 (teams of lanes above 64): a
     # 253-d target is refused by engine='pallas' and runs on the eager
     # engine under 'auto'; a 65-d one takes the fused kernels
     wide = TSim(dim=253, sigma=0.01, num_iterations=10, engine="pallas",

@@ -1,4 +1,4 @@
-"""The fused kernels above 64 dimensions (one warp a replica,
+"""The fused kernels above 64 dimensions (a team of G lanes a replica,
 ``csrc/fused_pt_warp.cu``, ``csrc/fused_rwm_warp.cu``): the lane layout of
 ``csrc/warp.cuh`` through its Python mirror in ``kernels/_build.py``, the
 warp buckets, library names and launch geometry, and the plain versions
@@ -57,58 +57,103 @@ KINDS_100 = {
 
 
 # ------------------------------------------------------------ the layout
+@pytest.mark.parametrize("team", _build.TEAMS)
 @pytest.mark.parametrize("d", [65, 100, 123, 124, 125, 200, 251, 252])
-def test_every_slot_is_computed_by_one_lane(d):
+def test_every_slot_is_computed_by_one_lane(d, team):
     """Slots 0..d+3 (the increments, the MH, swap and radius uniforms and
-    Box-Muller's odd-d angle) each come from exactly one lane's Philox
-    block, the lane ``warp_slot_owner`` names, in a register quad the
-    bucket has."""
+    Box-Muller's odd-d angle) each come from exactly one lane of a team of
+    G lanes, the lane ``warp_slot_owner`` names, in a trip of its block
+    loop that the bucket has at that G."""
     dmax = _build.warp_bucket(d)
-    blocks = _build.warp_blocks(d, dmax)
+    blocks = _build.warp_blocks(d, dmax, team)
+    assert set(blocks) == set(range(team))
+    nq = _build.team_quads(dmax, team)
+    assert nq == dmax // (4 * team)
     seen = {}
     for lane, qs in blocks.items():
         for q in qs:
+            assert q % team == lane
             for j in range(4 * q, 4 * q + 4):
                 assert j not in seen
                 seen[j] = lane
     assert set(range(d + 4)) <= set(seen)
     assert max(seen) < dmax
     for j in range(d + 4):
-        lane, quad, word = _build.warp_slot_owner(j)
-        assert seen[j] == lane and 4 * (32 * quad + lane) + word == j
-        assert quad < dmax // 128
+        lane, quad, word = _build.warp_slot_owner(j, team)
+        assert seen[j] == lane and 4 * (team * quad + lane) + word == j
+        assert lane < team and quad < nq
 
 
-def test_every_dimension_of_the_warp_buckets():
-    """For every d in 65..252, the blocks computed are exactly those that
-    hold a slot of 0..d+3, and no lane computes more than its register
-    quads."""
+@pytest.mark.parametrize("team", _build.TEAMS)
+def test_every_dimension_of_the_warp_buckets(team):
+    """For every d in 65..252 and every team size G, the blocks computed
+    are exactly those that hold a slot of 0..d+3, no lane computes more
+    than the bucket's quads a lane, and the lanes' counts differ by at most
+    one (the rolled loop's trips, ceil(blocks / G))."""
     for d in range(65, _build.MAX_DIM + 1):
         dmax = _build.warp_bucket(d)
-        blocks = _build.warp_blocks(d, dmax)
+        blocks = _build.warp_blocks(d, dmax, team)
         got = sorted(q for qs in blocks.values() for q in qs)
         assert got == list(range((d + 3) // 4 + 1)), d
-        assert all(len(qs) <= dmax // 128 for qs in blocks.values())
+        counts = [len(qs) for qs in blocks.values()]
+        assert max(counts) <= _build.team_quads(dmax, team)
+        assert max(counts) - min(counts) <= 1
+        assert max(counts) == -(-len(got) // team) == \
+            _build.block_trips(d, team)
 
 
+@pytest.mark.parametrize("team", _build.TEAMS)
 @pytest.mark.parametrize("d", [65, 100, 125, 252])
-def test_box_muller_partner_lanes(d):
+def test_box_muller_partner_lanes(d, team):
     """Pair k takes u1 from slot k and u2 from ``draws.bm_slots``' slot;
-    the lane of coordinate k computes it, and each coordinate in
-    [h, d) receives exactly one sine, from pair i - h."""
+    the team lane of coordinate k computes it, and each coordinate in
+    [h, d) receives exactly one sine, from pair i - h, all inside the
+    team."""
     h = (d + 1) // 2
     s1, s2 = draws.bm_slots(d)
     sines = {}
     for k in range(h):
-        own, u2_lane, sine_lane = _build.bm_lanes(k, d)
-        assert own == _build.warp_slot_owner(int(s1[k]))[0] == (k // 4) % 32
-        assert u2_lane == _build.warp_slot_owner(int(s2[k]))[0]
+        own, u2_lane, sine_lane = _build.bm_lanes(k, d, team)
+        assert own == _build.warp_slot_owner(int(s1[k]), team)[0] \
+            == (k // 4) % team
+        assert u2_lane == _build.warp_slot_owner(int(s2[k]), team)[0]
+        assert 0 <= own < team and 0 <= u2_lane < team
         if k + h < d:
-            assert sine_lane == _build.warp_slot_owner(k + h)[0]
+            assert sine_lane == _build.warp_slot_owner(k + h, team)[0]
+            assert 0 <= sine_lane < team
             sines[k + h] = k
         else:
             assert sine_lane == -1 and d % 2 and int(s2[k]) == d + 3
     assert sorted(sines) == list(range(h, d))
+
+
+@pytest.mark.parametrize("team", _build.TEAMS)
+def test_box_muller_partners_stay_in_the_team_at_every_d(team):
+    """For every d in 65..252: each pair's u2 slot and sine coordinate are
+    owned by a lane of the same team of G lanes (csrc/warp.cuh computes the
+    pair in the lane of coordinate k, which alone reads slot h + k and
+    writes the sine over it)."""
+    for d in range(65, _build.MAX_DIM + 1):
+        h = (d + 1) // 2
+        lanes = [_build.bm_lanes(k, d, team) for k in range(h)]
+        assert all(0 <= a < team and 0 <= b < team and -1 <= c < team
+                   for a, b, c in lanes), d
+        assert sum(c >= 0 for _, _, c in lanes) == d - h
+
+
+@pytest.mark.parametrize("dmax,team,pitch", [
+    (128, 4, 132), (128, 8, 136), (128, 16, 144), (128, 32, 128),
+    (256, 8, 264), (256, 16, 272), (256, 32, 256)])
+def test_team_rows_start_on_distinct_banks(dmax, team, pitch):
+    """A team's state and scratch rows are ``team_pitch`` words: the
+    bucket, plus G below G = 32, so that the 32 / G teams of a warp start
+    on distinct banks (a word every lane reads, as the in-order sums read,
+    is conflict-free)."""
+    assert _build.team_pitch(dmax, team) == pitch
+    banks = {(j * pitch) % 32 for j in range(32 // team)}
+    assert len(banks) == 32 // team
+    with pytest.raises(ValueError, match="no team"):
+        _build.team_quads(dmax, 64)
 
 
 @pytest.mark.parametrize("d,dmax", [(65, 128), (100, 128), (124, 128),
@@ -121,6 +166,11 @@ def test_warp_bucket_edges(d, dmax):
     src, _, _, _, bucket, blocks = _build._parts(name)
     assert (src, bucket, blocks) == ("fused_pt_warp", dmax, 1)
     assert f"-DRWM_PT_DMAX={dmax}" in _build._flags(name)
+    teams = _build.library_teams(name)
+    assert teams == _build.WARP_TEAMS[dmax] and 32 in teams
+    assert f"-DRWM_PT_TEAMS={sum(teams)}" in _build._flags(name)
+    assert not any(f.startswith("-DRWM_PT_TEAMS") for f in _build._flags(
+        "fused_pt_lax_erfinv.mvn_iso.d64"))
 
 
 def test_above_252_raises_and_64_stays_a_thread_bucket():
@@ -177,25 +227,35 @@ def test_pt_warp_replicas_within_32_warps(T, replicas):
 
 
 def test_the_256_bucket_takes_16_rungs():
-    """The 256 bucket's PT kernel is bound to 16 warps a block (at 32 and
-    at 24 it spills): 16 rungs of one replica fit, 17 do not; the harness
-    refuses a longer ladder there and keeps 32 rungs below d = 125."""
+    """The 256 bucket's one-warp-a-state instantiation (G = 32) is bound to
+    16 warps a block (at 32 and at 24 it spilled): 16 rungs of one replica
+    fit it, 17 do not.  Its libraries' smaller team (G < 32, 512 threads a
+    block, no spill in the smoke's phase 2) takes a replica of 32 rungs, so
+    PT takes 32 rungs up to d = 252, and the harness refuses 33 there as
+    it does below d = 125."""
     g = _build.pt_warp_geometry(96, 512, 200, 256, 16, 1000, n_params=201)
-    assert (g.replicas, g.threads) == (1, 512)
+    assert (g.replicas, g.threads, g.team) == (1, 512, 32)
     g = _build.pt_warp_geometry(96, 512, 200, 256, 10, 1000, n_params=201)
     assert (g.replicas, g.threads, g.blocks_per_sm) == (1, 320, 2)
     with pytest.raises(ValueError, match="does not fit a block"):
         _build.pt_warp_geometry(96, 512, 200, 256, 17, 1000, n_params=201)
+    small = min(_build.WARP_TEAMS[256])
+    g = _build.pt_warp_geometry(64, 512, 200, 256, 32, 1000, n_params=201,
+                                team=small)
+    assert g.threads == small * 32 * g.replicas <= 512
     assert [_build.max_rungs(d) for d in (30, 64, 100, 124, 125, 252)] == \
-        [32, 32, 32, 32, 16, 16]
+        [32] * 6
     kw = dict(sigma=0.01, num_iterations=2, algorithm="PT",
               target_dist="MultivariateNormal", num_chains=2, device=CPU)
-    assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 16,
+    assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 32,
                           **kw)._fused_refusal() is None
-    assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 17,
-                          **kw)._fused_refusal() == "at most 16 rungs"
-    assert MCMCSimulation(dim=124, beta_ladder=[1.0] * 32,
-                          **kw)._fused_refusal() is None
+    for T in (17, 31):   # odd ladders: G = 8 with an idle team
+        assert MCMCSimulation(dim=200, beta_ladder=[1.0] * T,
+                              **kw)._fused_refusal() is None
+    assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 33,
+                          **kw)._fused_refusal() == "at most 32 rungs"
+    assert MCMCSimulation(dim=124, beta_ladder=[1.0] * 33,
+                          **kw)._fused_refusal() == "at most 32 rungs"
 
 
 def test_pt_warp_geometry_refusals():
