@@ -154,7 +154,34 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    the geometry picks, the exact draws at d = 100, and for the record the
    warp kernels beside the thread kernels at d = 30 and at the RWM study's
    d = 20 (``scripts/bench_torch_warp.py`` times every team size, and an
-   earlier tree, at these shapes).  Output under ``smoke_out/warp/``.
+   earlier tree, at these shapes).  Output under ``smoke_out/warp/``;
+17. SuperFunnel (kernel kind 12, the hierarchical logistic regression on
+   the reference's synthetic dataset, drawn from JAX's threefry streams
+   under seed 42): (a) every SuperFunnel library held against its plain
+   version from the default init (most states start at -inf): the thread
+   kernels at J = 5, K = 3, n = 20 (d = 26, .d32; 2048 replicas or
+   chains, 200 steps) and, Normal only, at d = 8, 14 and 46 (.d8, .d16,
+   .d64; 50 steps), the team kernels at J = 10, K = 5 (d = 68, .w128) and
+   J = 40, K = 3 (d = 166, .w256) at every team size (50 steps), PT on
+   the geometric ladder (T = 8) and RWM, the Normal proposal with the
+   rule's draw, Laplace, UniformRadius and PT recorded; the MUFU
+   instructions of the observation loop from ``cuobjdump -sass``; (b) the
+   main paths through ``MCMCSimulation(target_dist="SuperFunnel")``, RWM
+   at 65,536 chains and PT at 65,536 replicas x T = 8, 2000 steps, swap
+   every 100, launch counters zeroed just before and read just after,
+   best of 3 through the entry point; each kernel alone at that size,
+   held against its plain version there, whose run counts the
+   log-densities with valid taus (the only ones whose likelihood the
+   kernels compute) for the bound (float32, int32 or MUFU); the team
+   kernels through the entry point at d = 68 and 166 and timed and held
+   alike at 65,536 chains and 16,384 replicas x T = 8, 50 steps; fused
+   against eager at 4096 (per-rung MH and swap acceptance, z < 5; no
+   direct sampler, so no Geweke gate); (c) ``experiment_rwm --target
+   SuperFunnel`` at ``launch_rwm_pod.sh``'s shape (Normal, 1024 chains,
+   200,000 iterations, burn-in 1000), 4 of the CLI's 40 configs, s a
+   config and the JAX study's JSON keys (``smoke_out/super_funnel/``);
+   (d) a PT run with ``autotune_ladder=True``: the tuner, then one fused
+   launch.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -177,6 +204,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# the special-function units (MUFU: ex2, lg2, rcp, rsqrt, sin, cos): 16
+# results a clock an SM (the Hopper architecture white paper) at that clock
+PEAK_MUFU_OPS = 16 * 132 * 1.98e9
 AGREE_MIN = 0.95       # share of replicas whose final x must agree
 Z_RATE_MAX = 5.0       # counters' rates, kernel vs plain
 Z_INV_MAX = 5.0        # Geweke invariance bound (scripts/tpu_smoke.py)
@@ -191,7 +221,9 @@ RWM_MAIN = dict(dim=30, C=65536, iters=2000, base_variance=0.5 ** 2 / 30)
 # target
 STUDY = dict(target="RoughCarpetScaled", dim=20, iters=200000, burn_in=1000,
              C=1024, var_max=4.0, seed=1)
-STUDY_CONFIGS = 40     # of the CLI's 40 scale configs per proposal
+# of the CLI's 40 scale configs per proposal: a config's time does not
+# depend on its scale, and a quarter of them keeps the smoke's time
+STUDY_CONFIGS = 10
 REC_CHAINS = 4         # replicas recorded by the harness runs (phase 9)
 REC_HOLD_CHAINS = 1024  # replicas recorded by the held runs (phase 7)
 NEW_PROPOSALS = ("Laplace", "UniformRadius")
@@ -267,6 +299,33 @@ CAMPAIGNS = (("MultivariateNormal", "Laplace", 100000, True),
              ("IIDGamma", "Normal", 100000, True),
              ("Hypercube", "Normal", 200000, False))
 CAMPAIGN = dict(chains=512, burn_in=1000, stride=2, z_max=4.0)
+# phase 17, SuperFunnel (kind 12): the reference's dataset (J, K, n; seed
+# 42: d = 26, the .d32 bucket), a shape in each other thread bucket (d = 8,
+# 14, 46) and the team kernels' two shapes (d = 68 in .w128, 166 in .w256),
+# the holds' sizes, the main paths (the RWM headline's and the flagship's
+# sizes on the geometric ladder, T = 8; the kernels alone are held there
+# too, their plain version taking ~9-13 ms a step), the team kernels'
+# timing shape, fused against eager, the study's configs (of the CLI's 40)
+# and the ladder tuner's run; a Normal variance of 0.01 (the RWM
+# headline's acceptance on it is ~0.1)
+SF = dict(J=5, K=3, n=20)
+SF_THREAD_EDGES = ((2, 1), (3, 2), (10, 3))
+SF_WARP = ((10, 5), (40, 3))
+SF_HOLD = dict(C=2048, steps=200, edge_steps=50, warp_steps=50,
+               warp_C_pt=512, warp_C_rwm=1024, burn_in=20, swap_every=10)
+SF_VAR = 0.01
+SF_MAIN = dict(C=65536, iters=2000, swap_every=100)
+SF_TEAM_TIME = dict(C_pt=16384, C_rwm=65536, steps=50)
+SF_EAGER = dict(C=4096, iters=1000, burn_in=500, swap_every=100)
+SF_STUDY_CONFIGS = 4
+SF_TUNE = dict(C=4096, burn_in=1000, iters=2000)
+# the keys of the JAX study's JSON (rwm_pt_tpu/cli/experiment_rwm.py:99-115)
+SF_STUDY_KEYS = {"target_distribution", "proposal_distribution", "dimension",
+                 "num_iterations", "seed", "total_time", "max_esjd",
+                 "max_acceptance_rate", "max_scale_param",
+                 "expected_squared_jump_distances", "acceptance_rates",
+                 "scale_param_range", "times", "num_chains", "backend",
+                 "mh_steps_per_sec"}
 # the keys of the JAX single_run's JSON for an autotuned RWM run
 # (rwm_pt_tpu/cli/single_run.py:55-84)
 SINGLE_RUN_KEYS = {"target_distribution", "proposal_distribution",
@@ -562,7 +621,34 @@ PHILOX_BLOCK_OPS = 60
 PROBE_INT_OPS = 2 * PHILOX_BLOCK_OPS // 8
 
 
+# SuperFunnel (kind 12; csrc/targets.cuh::super_funnel_log_density) at J
+# groups, K covariates, n observations a group, in this convention:
+#   an observation: eta's K products and K adds 2K; -|eta| 1, expf 1,
+#     log1pf 1, -eta 1, fmax 1, + log1p 1, the sum's add 1 -> 2K + 7;
+#   a group's sum into ll 1; the priors' squares: alpha (sub, mul, add) 3 J,
+#     beta 3 J K, mu_beta (mul, add) 2 K; the two taus' validity 2 and the
+#     closing formula (2 logf, 2 log1pf, 4 divisions, 9 products, 8
+#     adds) 25 + 11 -> 38.
+# At the reference's J = 5, K = 3, n = 20: 100 x 13 + 5 + 15 + 45 + 6 + 38
+# = 1409 a log-density whose taus both exceed 1e-9; the kernels return -inf
+# after the taus' test (2) on the others and compute none of the rest, so
+# a run's work counts the likelihood on its valid evaluations alone
+# (:func:`sf_counted`).  An observation's expf is one MUFU.EX2; CUDA's
+# log1pf is a polynomial of FFMAs and takes none: SF_MUFU_PER_OBS = 1 (the
+# SASS of fused_pt_lax_erfinv.super_funnel.d32's observation loop, 82
+# instructions at K = 3, cuobjdump -sass; phase 17 reads it again and fails
+# if it differs), which bound() counts for this kind alone at
+# PEAK_MUFU_OPS.
+SF_MUFU_PER_OBS = 1
+
+
+def sf_lp_flops(J, K, n):
+    return J * n * (2 * K + 7) + J + 3 * J + 3 * J * K + 2 * K + 38
+
+
 def lp_flops(kind, d):
+    """Float operations of one log-density of kind ``kind`` at d
+    coordinates (not SuperFunnel's: :func:`lp_work`)."""
     return {
         "rosenbrock": 9 * (d - 1) + 1,
         "mvn_iso": 4 * d + 2,
@@ -577,6 +663,19 @@ def lp_flops(kind, d):
         "iid_beta": 9 * d + 3,
         "neal_funnel": 3 * (d - 1) + 13,
     }[kind]
+
+
+def lp_work(kind, d, evals, sf=None):
+    """``(flops, MUFU instructions or None)`` of a run's ``evals``
+    log-densities of kind ``kind``; SuperFunnel's (``sf = (J, K, n,
+    valid)``) count the whole formula and its J n MUFU on the ``valid``
+    evaluations whose taus both exceed 1e-9, the taus' test alone on the
+    others."""
+    if kind != "super_funnel":
+        return evals * lp_flops(kind, d), None
+    J, K, n, valid = sf
+    return (valid * sf_lp_flops(J, K, n) + (evals - valid) * 2,
+            valid * J * n * SF_MUFU_PER_OBS)
 
 
 def inc_flops(prop, d, draw="icdf"):
@@ -600,38 +699,46 @@ def rec_bytes(d, steps, record_every, rec_chains):
 
 def pt_work(kind, d, T, C, steps, burn_in, swap_every, step0=0,
             prop="Normal", record_every=0, rec_chains=0, draw="icdf",
-            n_params=0):
+            n_params=0, sf=None):
+    """``(flops, Philox int32 ops, bytes, MUFU or None)`` of a fused PT
+    run: T C (steps + 1) log-densities (:func:`lp_work`; SuperFunnel's
+    ``sf = (J, K, n, valid)``)."""
     n_events = (step0 + steps) // swap_every - max(burn_in, step0) // swap_every
-    mh = (inc_flops(prop, d, draw) + lp_flops(kind, d) + 7) * T
-    flops = C * (steps * (mh + 3 * d + 4) + n_events * 10 * (T - 1)
-                 + T * lp_flops(kind, d))
+    lp, mufu = lp_work(kind, d, C * T * (steps + 1), sf)
+    flops = (C * (steps * ((inc_flops(prop, d, draw) + 7) * T + 3 * d + 4)
+                  + n_events * 10 * (T - 1)) + lp)
     blocks = C * T * steps * philox_blocks(prop, d, draw)
     int_ops = PHILOX_BLOCK_OPS * blocks
     nbytes = (C * (2 * d * T * 4 + T * 4 + 2 * T * 4 + 6 * 4)
               + (T * d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
-    return flops, int_ops, nbytes
+    return flops, int_ops, nbytes, mufu
 
 
 def rwm_work(kind, d, C, steps, prop="Normal", record_every=0, rec_chains=0,
-             draw="icdf", n_params=0):
-    flops = C * (steps * (inc_flops(prop, d, draw) + lp_flops(kind, d) + 7
-                          + 3 * d + 4) + lp_flops(kind, d))
+             draw="icdf", n_params=0, sf=None):
+    """``(flops, Philox int32 ops, bytes, MUFU or None)`` of a fused RWM
+    run: C (steps + 1) log-densities (:func:`lp_work`)."""
+    lp, mufu = lp_work(kind, d, C * (steps + 1), sf)
+    flops = C * steps * (inc_flops(prop, d, draw) + 7 + 3 * d + 4) + lp
     int_ops = PHILOX_BLOCK_OPS * C * steps * philox_blocks(prop, d, draw)
     nbytes = (C * (2 * d * 4 + 4 + 2 * 4 + 2 * 4)
               + (d * 4 if prop == "Laplace" else 0) + 4 * n_params
               + rec_bytes(d, steps, record_every, rec_chains))
-    return flops, int_ops, nbytes
+    return flops, int_ops, nbytes, mufu
 
 
-def bound(flops, int_ops, nbytes):
+def bound(flops, int_ops, nbytes, mufu=None):
     """The least time the card could take, in ms: the largest of the float
-    operations at PEAK_F32_FLOPS, the int32 operations at PEAK_INT32_OPS
-    and the bytes at PEAK_HBM_BYTES.  Returns ``(ms, "operations" or
-    "bytes", which limit: "float32", "int32" or "bytes")``."""
+    operations at PEAK_F32_FLOPS, the int32 operations at PEAK_INT32_OPS,
+    the bytes at PEAK_HBM_BYTES and, where given (SuperFunnel), the MUFU
+    instructions at PEAK_MUFU_OPS.  Returns ``(ms, "operations" or
+    "bytes", which limit: "float32", "int32", "mufu" or "bytes")``."""
     t = {"float32": flops / PEAK_F32_FLOPS * 1e3,
          "int32": int_ops / PEAK_INT32_OPS * 1e3,
          "bytes": nbytes / PEAK_HBM_BYTES * 1e3}
+    if mufu is not None:
+        t["mufu"] = mufu / PEAK_MUFU_OPS * 1e3
     limit = max(t, key=t.get)
     return t[limit], ("bytes" if limit == "bytes" else "operations"), limit
 
@@ -664,22 +771,23 @@ def kernel_record(torch, name, source, replaces, launches, launch, plain,
     it again, time its plain version once, hold the two together
     (:func:`hold_run`) and set both kernel times beside their bounds.
     ``case(steps, hold)`` gives a launch's ``(args, kw, work)``, ``work``
-    being ``(flops, Philox int ops, bytes)``; the held run (``hold=True``)
-    may record more replicas or swap more often than the main path, so
-    that the hold sees more.  ``ms``, ``plain_ms`` and ``bound_ms`` of the
-    record are for the ``hold_steps`` run, the ``main_path_*`` keys for the
-    main path's size."""
+    being :func:`pt_work`'s or :func:`rwm_work`'s; the held run
+    (``hold=True``) may record more replicas or swap more often than the
+    main path, so that the hold sees more.  ``ms``, ``plain_ms`` and
+    ``bound_ms`` of the record are for the ``hold_steps`` run, the
+    ``main_path_*`` keys for the main path's size."""
     from rwm_pt_tpu_torch.kernels import agreement
     full_args, full_kw, full_work = case(iters, False)
     full_ms, _ = cuda_ms(torch, lambda: launch(*full_args, **full_kw),
                          reps=3)
     del full_args, _
-    hold_args, hold_kw, (flops, int_ops, nbytes) = case(hold_steps, True)
+    hold_args, hold_kw, work = case(hold_steps, True)
+    flops, int_ops, nbytes, _ = work
     ms, plain_ms, ag = hold_run(torch, f"{name} at main-path shapes", launch,
                                 plain, hold_args, hold_kw, names)
-    b_ms, b_by, b_limit = bound(flops, int_ops, nbytes)
-    full_flops, full_int, full_bytes = full_work
-    full_b_ms, _, full_by = bound(full_flops, full_int, full_bytes)
+    b_ms, b_by, b_limit = bound(*work)
+    full_flops, full_int, full_bytes, _ = full_work
+    full_b_ms, _, full_by = bound(*full_work)
     say(f"phase {phase} {name} kernel: {full_ms:.3f} ms at its main path's "
         f"size, bound {full_b_ms:.3f} ms by {full_by} "
         f"({100 * full_b_ms / full_ms:.1f} % of it reached; {full_flops:.4g} "
@@ -2256,6 +2364,8 @@ def phase_16(torch, gen):
     # ---- (b) holds
     worst = 1.0
     for kind in _build.TARGET_KINDS:
+        if kind == "super_funnel":
+            continue   # phase 17 holds it at its structure's d
         tg, var = warp_target(get_target_distribution, kind, D, dev)
         worst = min(worst, hold(f"{kind} d={tg.dim} RWM", "rwm", tg,
                                 var).frac)
@@ -2565,6 +2675,447 @@ def phase_16(torch, gen):
     return kernels
 
 
+def sf_target(get_target_distribution, J, K, dev):
+    """Phase 17's SuperFunnel: the reference's dataset generator at J
+    groups, K covariates, SF["n"] observations a group, seed 42."""
+    return get_target_distribution("SuperFunnel", 0, J=J, K=K,
+                                   n_per_group=SF["n"], device=dev)
+
+
+def sf_mufu_per_obs(_build, name):
+    """MUFU instructions of the observation loop of library ``name``'s
+    kernels (``cuobjdump -sass``; in each kernel function, of the loops
+    between a backward branch's target and the branch, the innermost one
+    that holds a MUFU and a loop of its own, the covariates' loop; and
+    beside it the function's total), as ``{function: (in the loop, in the
+    function)}``; fails where the toolkit lacks cuobjdump.  The SASS goes
+    to ``smoke_out/super_funnel/``."""
+    exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        fail(f"no cuobjdump beside nvcc ({exe}): phase 17 cannot read the "
+             f"MUFU instructions its bound counts")
+    sass = subprocess.run([exe, "-sass", str(_build._lib_path(name))],
+                          capture_output=True, text=True, timeout=300).stdout
+    out_dir = os.path.join(HERE, "smoke_out", "super_funnel")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}.sass"), "w") as f:
+        f.write(sass)
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split()[0]
+        code = [(int(m.group(1), 16), ln) for ln in part.splitlines()
+                for m in [re.search(r"/\*([0-9a-f]{4,})\*/", ln)] if m]
+        loops = []
+        for a, ln in code:
+            br = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", ln)
+            if br and int(br.group(1), 16) < a:
+                t = int(br.group(1), 16)
+                loops.append((t, a, [x for b, x in code if t <= b <= a]))
+        inner = [lp for t, a, lp in loops if any("MUFU" in x for x in lp)
+                 and any(t <= t2 and a2 < a for t2, a2, _ in loops)]
+        body = min(inner, key=len) if inner else []
+        out[fn] = (sum("MUFU" in x for x in body),
+                   sum("MUFU" in x for _, x in code))
+    return out
+
+
+def sf_counted(plain, args, kw):
+    """``plain(*args, **kw)`` with its SuperFunnel target ``args[0]``
+    counting the log-densities whose taus both exceed 1e-9, the only ones
+    whose likelihood the kernels compute (the others return -inf after
+    the taus' test): ``(outputs, count)``.  The count adds a compare and
+    a sum to each of the plain version's log-densities."""
+    tg, total = args[0], [0]
+
+    class Counted:
+        def __getattr__(self, name):
+            return getattr(tg, name)
+
+        def log_density_td(self, x):
+            total[0] = total[0] + ((x[-2] > 1e-9) & (x[-1] > 1e-9)).sum()
+            return tg.log_density_td(x)
+
+    out = plain(Counted(), *args[1:], **kw)
+    return out, int(total[0])
+
+
+def phase_17(torch, gen):
+    """Phase 17, SuperFunnel (kernel kind 12, A9): (a) every SuperFunnel
+    kernel held against its plain version from the default init's -inf
+    starts: the thread kernels at the reference's J = 5, K = 3, n = 20
+    (d = 26) and the team kernels at J = 10, K = 5 (d = 68, .w128) and
+    J = 40, K = 3 (d = 166, .w256) at every team size, PT and RWM, the
+    Normal proposal with the rule's draw, Laplace, UniformRadius and PT
+    recorded; (b) the main paths through MCMCSimulation, RWM at 65,536
+    chains and PT on the geometric ladder (T = 8) at 65,536 replicas, 2000
+    steps, launches counted, best of 3 beside the kernel alone and its
+    bound, the team kernels' entry points at d = 68 and 166, fused against
+    eager at 4096 replicas (no direct sampler: no Geweke gate); (c) the
+    RWM study at launch_rwm_pod.sh's shape, 4 configs; (d) a PT run with
+    autotune_ladder=True.  Returns the kernels' JSON records."""
+    import contextlib
+
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import experiment_rwm
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          fused_rwm, run_pt, run_pt_fused,
+                                          run_rwm, run_rwm_fused)
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.ladders import construct_geometric_ladder
+    from rwm_pt_tpu_torch.proposals import (NormalProposal,
+                                            create_proposal_distribution)
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    h = SF_HOLD
+    var = SF_VAR
+    ladder = construct_geometric_ladder()          # 1 .. 0.01, T = 8
+    T = len(ladder)
+    rule = {a: draws.resolve_normal_impl(a, 65536, "super_funnel")
+            for a in ("pt", "rwm")}
+
+    def case(algo, tg, steps, C, prop="Normal", draw=None, record=False,
+             burn_in=h["burn_in"], swap_every=h["swap_every"], seed=71):
+        """(launch, plain, names, args, kw, work_of) of a kernel launch on
+        SuperFunnel ``tg`` from the default init (most states at -inf);
+        ``work_of(valid)`` is its work with ``valid`` log-densities whose
+        taus are valid (:func:`sf_counted`)."""
+        sf = (tg.J, tg.K, tg.Y.shape[1])
+        draw = draw or rule[algo]
+        n_params = _build.kernel_target(tg)[1].numel()
+        pr = None if prop == "Normal" else create_proposal_distribution(
+            tg.dim, {"name": prop, "params": proposal_params(
+                prop, tg.dim, var)}, device=dev)
+        rec = dict(record_every=1, record_chains=C) if record else {}
+        if algo == "pt":
+            betas = torch.tensor(ladder, device=dev)
+            kind, sig = fused_pt.rung_scales(pr, var, betas,
+                                             torch.ones_like(betas))
+            x0 = tg.init_sample(C, gen).T[:, None].expand(
+                tg.dim, T, C).contiguous()
+            args = (tg, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                    seed_key(seed), 0, steps, burn_in, swap_every)
+            work = lambda valid: pt_work(  # noqa: E731
+                "super_funnel", tg.dim, T, C, steps, burn_in, swap_every,
+                prop=kind, draw=draw, n_params=n_params, sf=sf + (valid,),
+                record_every=1 if record else 0,
+                rec_chains=C if record else 0)
+            names = agreement.PT_REC_OUTPUTS if record else \
+                agreement.PT_OUTPUTS
+            return (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+                    names, args, dict(kind=kind, draw=draw, **rec), work)
+        beta = torch.tensor(1.0, device=dev)
+        kind, scale = fused_rwm.proposal_scale(pr, var, beta)
+        x0 = tg.init_sample(C, gen).T.contiguous()
+        args = (tg, x0, zi(C), zf(C), beta, scale, seed_key(seed), 0, steps,
+                burn_in)
+        work = lambda valid: rwm_work(  # noqa: E731
+            "super_funnel", tg.dim, C, steps, prop=kind, draw=draw,
+            n_params=n_params, sf=sf + (valid,),
+            record_every=1 if record else 0, rec_chains=C if record else 0)
+        names = agreement.RWM_REC_OUTPUTS if record else agreement.RWM_OUTPUTS
+        return (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+                names, args, dict(kind=kind, draw=draw, **rec), work)
+
+    # ---- (a) holds, every variant, every team size, from -inf starts
+    thread_tg = sf_target(get_target_distribution, SF["J"], SF["K"], dev)
+    every = [("Normal", False), ("Laplace", False), ("UniformRadius", False)]
+    shapes = [(thread_tg, h["steps"], h["C"], h["C"], every)]
+    shapes += [(sf_target(get_target_distribution, J, K, dev),
+                h["edge_steps"], h["C"], h["C"], [("Normal", False)])
+               for J, K in SF_THREAD_EDGES]
+    shapes += [(sf_target(get_target_distribution, J, K, dev),
+                h["warp_steps"], h["warp_C_pt"], h["warp_C_rwm"], every)
+               for J, K in SF_WARP]
+    worst, n_holds = 1.0, 0
+    for tg, steps, c_pt, c_rwm, props in shapes:
+        for algo in ("pt", "rwm"):
+            C = c_pt if algo == "pt" else c_rwm
+            variants = props + ([("Normal", True)] if algo == "pt"
+                                and len(props) > 1 else [])
+            for prop, record in variants:
+                launch, plain, names, args, kw, _ = case(
+                    algo, tg, steps, C, prop=prop, record=record)
+                lib = _build.lib_name(_build.library(f"fused_{algo}",
+                                                     kw["kind"], kw["draw"]),
+                                      "super_funnel", tg.dim)
+                starts = torch.isinf(tg.log_density_td(args[1])).float() \
+                    .mean().item()
+                plain_ms, p = cuda_ms(torch, lambda: plain(*args, **kw))
+                teams = (_build.library_teams(lib) if _build.is_warp(lib)
+                         else (None,))
+                for team in teams:
+                    if algo == "pt" and team is not None and \
+                            T * team > _build.pt_team_threads(
+                                _build.warp_bucket(tg.dim), team):
+                        continue
+                    reset_launches(*wrappers)
+                    tkw = dict(kw) if team is None else dict(kw, team=team)
+                    ms, k = cuda_ms(torch, lambda: launch(*args, **tkw))
+                    seen = read_launches(*wrappers, by_kind=True)
+                    ag = agreement.hold(k, p, names,
+                                        lp_of=tg.log_density_td)
+                    g_txt = "" if team is None else f" G={team}"
+                    what = (f"replicas x T={T}" if algo == "pt"
+                            else "chains")
+                    label = (f"phase 17a {lib}{g_txt}"
+                             f" {'recorded ' if record else ''}d={tg.dim} "
+                             f"(J={tg.J}, K={tg.K}) {C} {what}, {steps} "
+                             f"steps, {100 * starts:.1f} % of the states "
+                             f"start at -inf")
+                    if _build.launch_key(lib) not in seen:
+                        fail(f"{label}: launches {dict(seen)}")
+                    say(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+                        f"ms; {agreement.describe(ag)}")
+                    if ag.frac < AGREE_MIN or ag.mismatched:
+                        fail(f"{label} disagrees with its plain version")
+                    worst = min(worst, ag.frac)
+                    n_holds += 1
+                del args, p
+    say(f"phase 17a {time.time() - t_phase:.1f} s: {n_holds} holds; least "
+        f"share of replicas that agree {worst:.5f}")
+
+    # the observation loop's MUFU instructions, from the SASS
+    sass_lib = _build.lib_name(_build.library("fused_pt", "Normal",
+                                              rule["pt"]),
+                               "super_funnel", thread_tg.dim)
+    mufu = sf_mufu_per_obs(_build, sass_lib)
+    mufu_obs = max(v[0] for v in mufu.values())
+    say(f"phase 17 SASS {sass_lib}: MUFU (in the observation loop, the "
+        f"innermost loop with a MUFU and a loop in it; in the kernel) "
+        f"{mufu}; the bound counts SF_MUFU_PER_OBS = {SF_MUFU_PER_OBS} an "
+        f"observation")
+    if mufu_obs != SF_MUFU_PER_OBS:
+        fail(f"phase 17: the observation loop holds {mufu_obs} MUFU, the "
+             f"bound counts {SF_MUFU_PER_OBS}")
+
+    # ---- (b) the main paths through MCMCSimulation
+    main_seen = Counter()
+    kernels = []
+    C = SF_MAIN["C"]
+    iters = SF_MAIN["iters"]
+    for algo in ("RWM", "PT"):
+        def make(seed, algo=algo):
+            return MCMCSimulation(
+                dim=None, sigma=var, num_iterations=iters, algorithm=algo,
+                target_dist="SuperFunnel", seed=seed,
+                beta_ladder=ladder if algo == "PT" else None,
+                num_chains=C, swap_every=SF_MAIN["swap_every"],
+                record_chain=False, device=dev)
+        sim = make(0)
+        reset_launches(*wrappers)
+        sim.generate_samples(verbose=False)
+        torch.cuda.synchronize()
+        seen = read_launches(*wrappers, by_kind=True)
+        main_seen.update(seen)
+        lib = _build.library(f"fused_{algo.lower()}", "Normal",
+                             rule[algo.lower()])
+        key = f"{lib}.super_funnel"
+        if dict(seen) != {key: 1} or sim.engine_used != "pallas":
+            fail(f"phase 17b {algo}: launches {dict(seen)}, engine "
+                 f"{sim.engine_used}")
+        res = sim._result
+        acc = res.acceptance_rate.float()
+        lp = res.state.logp
+        if not (torch.isfinite(res.state.x).all() and sim.dim == 26
+                and 0 < acc.mean().item() < 1):
+            fail(f"phase 17b {algo}: state or acceptance out of range")
+        wall = []
+        for rep in (1, 2, 3):
+            s2 = make(rep)
+            ms, _ = cuda_ms(torch, lambda: s2.generate_samples(verbose=False))
+            wall.append(ms)
+            del s2
+        per_rung = acc.mean(-1).tolist() if algo == "PT" else [
+            acc.mean().item()]
+        extra = (f", swap acc {res.swap_acceptance_rate.mean().item():.4f}"
+                 if algo == "PT" else "")
+        steps_mh = iters * C * (T if algo == "PT" else 1)
+        say(f"phase 17b MCMCSimulation SuperFunnel {algo} (d=26, {C} "
+            f"{'replicas x T=%d' % T if algo == 'PT' else 'chains'}, {iters} "
+            f"steps, variance {var}): engine {sim.engine_used}, launches "
+            f"{dict(seen)}; {steps_mh / (min(wall) / 1e3):.6g} MH steps/s "
+            f"(best of 3 through the entry point: "
+            f"{[round(t, 3) for t in wall]} ms); acc "
+            f"{[round(a, 4) for a in per_rung]}{extra}; final -inf share "
+            f"{torch.isinf(lp).float().mean().item():.5f}")
+        del sim, res
+        torch.cuda.empty_cache()
+
+    # the team kernels' entry points: RWM and PT at d = 68 and 166
+    for J, K in SF_WARP:
+        for algo in ("RWM", "PT"):
+            sim = MCMCSimulation(
+                dim=None, sigma=var, num_iterations=200, algorithm=algo,
+                target_dist="SuperFunnel", target_kwargs={"J": J, "K": K},
+                beta_ladder=ladder if algo == "PT" else None,
+                num_chains=4096, swap_every=SF_MAIN["swap_every"],
+                record_chain=False, device=dev)
+            reset_launches(*wrappers)
+            sim.generate_samples(verbose=False)
+            seen = read_launches(*wrappers, by_kind=True)
+            main_seen.update(seen)
+            if (len(seen) != 1 or not next(iter(seen)).startswith(
+                    f"fused_{algo.lower()}") or not _build.is_warp(
+                    next(iter(seen))) or sim.engine_used != "pallas"
+                    or not torch.isfinite(sim._result.state.x).all()):
+                fail(f"phase 17b team {algo} J={J} K={K}: launches "
+                     f"{dict(seen)}, engine {sim.engine_used}")
+            say(f"phase 17b MCMCSimulation SuperFunnel {algo} J={J} K={K} "
+                f"(d={sim.dim}, 4096, 200 steps): engine {sim.engine_used}, "
+                f"launches {dict(seen)}, acc "
+                f"{sim._result.acceptance_rate.float().mean().item():.4f}")
+            del sim
+
+    # fused against eager at 4096 replicas: per-rung MH and swap acceptance
+    Ce = SF_EAGER["C"]
+    kw = dict(num_chains=Ce, num_iterations=SF_EAGER["iters"],
+              burn_in=SF_EAGER["burn_in"], swap_every=SF_EAGER["swap_every"],
+              device=dev)
+    fz = run_pt_fused(thread_tg, 31, ladder, base_variance=var, **kw)
+    ez = run_pt(thread_tg, NormalProposal.create(thread_tg.dim, var,
+                                                 device=dev), 32, ladder,
+                swap_sweep="sequential", **kw)
+    zs = [per_chain_z(fz.acceptance_rate[t], ez.acceptance_rate[t])
+          for t in range(T)]
+    z_sw = per_chain_z(fz.swap_acceptance_rate, ez.swap_acceptance_rate)
+    fr = run_rwm_fused(thread_tg, 33, base_variance=var, num_chains=Ce,
+                       num_iterations=SF_EAGER["iters"],
+                       burn_in=SF_EAGER["burn_in"], device=dev)
+    er = run_rwm(thread_tg, NormalProposal.create(thread_tg.dim, var,
+                                                  device=dev), 34,
+                 num_chains=Ce, num_iterations=SF_EAGER["iters"],
+                 burn_in=SF_EAGER["burn_in"], device=dev)
+    z_r = per_chain_z(fr.acceptance_rate, er.acceptance_rate)
+    say(f"phase 17b fused vs eager (SuperFunnel d=26, {Ce} replicas x T={T}"
+        f", {SF_EAGER['iters']} steps after {SF_EAGER['burn_in']}): per-rung "
+        f"MH acc {[round(a, 4) for a in fz.acceptance_rate.mean(1).tolist()]}"
+        f" vs {[round(a, 4) for a in ez.acceptance_rate.mean(1).tolist()]} "
+        f"(max z {max(zs):.2f}), swap acc "
+        f"{fz.swap_acceptance_rate.mean().item():.4f} vs "
+        f"{ez.swap_acceptance_rate.mean().item():.4f} (z {z_sw:.2f}); RWM "
+        f"acc {fr.acceptance_rate.mean().item():.4f} vs "
+        f"{er.acceptance_rate.mean().item():.4f} (z {z_r:.2f}); z < "
+        f"{Z_RATE_MAX}.  No Geweke gate: SuperFunnel has no direct sampler")
+    if max(zs + [z_sw, z_r]) >= Z_RATE_MAX:
+        fail("phase 17b fused and eager rates disagree on SuperFunnel")
+    del fz, ez, fr, er
+
+    # each kernel alone, best of 3, at the main path's size (the thread
+    # kernels) and at SF_TEAM_TIME's (the team kernels, at the team size
+    # the geometry picks), held against its plain version there, whose run
+    # counts the valid log-densities that the bound's work counts
+    records = [(thread_tg, algo, C, iters) for algo in ("pt", "rwm")]
+    records += [(sf_target(get_target_distribution, J, K, dev), algo,
+                 SF_TEAM_TIME["C_pt" if algo == "pt" else "C_rwm"],
+                 SF_TEAM_TIME["steps"])
+                for J, K in SF_WARP for algo in ("pt", "rwm")]
+    for tg, algo, cc, steps in records:
+        lib = _build.lib_name(_build.library(f"fused_{algo}", "Normal",
+                                             rule[algo]),
+                              "super_funnel", tg.dim)
+        key = _build.launch_key(lib)
+        warp = _build.is_warp(lib)
+        launch, plain, names, args, kw, work_of = case(
+            algo, tg, steps, cc, burn_in=0, swap_every=SF_MAIN["swap_every"])
+        ms, k = cuda_ms(torch, lambda: launch(*args, **kw), reps=3)
+        plain_ms, (p, valid) = cuda_ms(
+            torch, lambda: sf_counted(plain, args, kw))
+        ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+        if ag.frac < AGREE_MIN or ag.mismatched:
+            fail(f"phase 17 {lib} disagrees with its plain version: "
+                 f"{agreement.describe(ag)}")
+        flops, int_ops, nbytes, mufu_n = work = work_of(valid)
+        b_ms, b_by, b_lim = bound(*work)
+        evals = cc * (T if algo == "pt" else 1) * (steps + 1)
+        team = (_build.launch_geometry(
+            lib, tg.dim, cc, T if algo == "pt" else 0, "Normal", rule[algo],
+            _build.kernel_target(tg)[1].numel()).team if warp else None)
+        say(f"phase 17 {lib} (J={tg.J}, K={tg.K}, d={tg.dim}"
+            f"{f', G={team}' if warp else ''}) at {cc} "
+            f"{'replicas x T=%d' % T if algo == 'pt' else 'chains'}, {steps} "
+            f"steps: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+            f"{valid} of {evals} log-densities valid "
+            f"({100 * valid / evals:.2f} %); bound {b_ms:.3f} ms by {b_lim} "
+            f"({100 * b_ms / ms:.1f} % of it reached; {flops:.4g} flops, "
+            f"{int_ops:.4g} Philox int ops, {mufu_n:.4g} MUFU, {nbytes:.4g} "
+            f"B); {agreement.describe(ag)}")
+        kernels.append(dict(
+            name=key, route="cuda",
+            source=f"rwm_pt_tpu_torch/kernels/csrc/fused_{algo}"
+                   f"{'_warp' if warp else ''}.cu",
+            replaces=("rwm_pt_tpu/kernels/pallas_pt.py:399" if algo == "pt"
+                      else "rwm_pt_tpu/kernels/pallas_rwm.py:570"),
+            launches=main_seen[key], max_abs_err=ag.max_dx, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, steps=steps, chains=cc, agree_frac=ag.frac,
+            max_rel_err=ag.max_rel, flops=flops, philox_int_ops=int_ops,
+            mufu=mufu_n, bytes=nbytes, bound_limit=b_lim,
+            bound_share=b_ms / ms, valid_share=valid / evals, dim=tg.dim,
+            J=tg.J, K=tg.K, n=SF["n"], team=team,
+            mufu_per_obs_sass=mufu_obs))
+        del args, k, p
+        torch.cuda.empty_cache()
+
+    # ---- (c) the RWM study at launch_rwm_pod.sh's shape, 4 configs
+    out_dir = os.path.join(HERE, "smoke_out", "super_funnel")
+    reset_launches(*wrappers)
+    with contextlib.redirect_stdout(sys.stderr):
+        data = experiment_rwm.main([
+            "--target", "SuperFunnel", "--proposal", "Normal",
+            "--num_iters", str(STUDY["iters"]), "--burn_in",
+            str(STUDY["burn_in"]), "--num_chains", str(STUDY["C"]),
+            "--var_max", str(STUDY["var_max"]), "--seed", str(STUDY["seed"]),
+            "--num_configs", str(SF_STUDY_CONFIGS), "--no_plots",
+            "--output_dir", os.path.join(out_dir, "study")])
+    seen = read_launches(*wrappers, by_kind=True)
+    key = f"{_build.library('fused_rwm', 'Normal', rule['rwm'])}.super_funnel"
+    if dict(seen) != {key: SF_STUDY_CONFIGS}:
+        fail(f"phase 17c study launches {dict(seen)}")
+    missing = SF_STUDY_KEYS - set(data)
+    if missing or len(data["acceptance_rates"]) != SF_STUDY_CONFIGS:
+        fail(f"phase 17c study JSON lacks the JAX keys {missing}")
+    say(f"phase 17c experiment_rwm --target SuperFunnel (d=26, Normal, "
+        f"{STUDY['C']} chains, {STUDY['iters']} iterations, burn-in "
+        f"{STUDY['burn_in']}, {SF_STUDY_CONFIGS} of the CLI's 40 configs): "
+        f"{[round(t, 3) for t in data['times']]} s a config; acc "
+        f"{[round(a, 4) for a in data['acceptance_rates']]}; ESJD-optimal "
+        f"acc {data['max_acceptance_rate']:.4f} at scale "
+        f"{data['max_scale_param']:.4f}; launches {dict(seen)}; JSON keys as "
+        f"JAX's")
+
+    # ---- (d) a PT run with the ladder tuner, then one fused launch
+    sim = MCMCSimulation(
+        dim=None, sigma=var, num_iterations=SF_TUNE["iters"], algorithm="PT",
+        target_dist="SuperFunnel", beta_ladder=ladder,
+        num_chains=SF_TUNE["C"], swap_every=SF_MAIN["swap_every"],
+        burn_in=SF_TUNE["burn_in"], autotune_ladder=True,
+        autotune_every=TUNE["every"], record_chain=False, engine="pallas",
+        seed=0, device=dev)
+    reset_launches(*wrappers)
+    sim.generate_samples(verbose=False)
+    seen = read_launches(*wrappers, by_kind=True)
+    lad = sim.tuned_ladder
+    if (dict(seen) != {f"{_build.library('fused_pt', 'Normal', rule['pt'])}"
+                       ".super_funnel": 1} or sim.engine_used != "pallas"
+            or not (lad[0] == 1.0 and all(b < a for a, b in
+                                          zip(lad, lad[1:])))):
+        fail(f"phase 17d: launches {dict(seen)}, ladder {lad}")
+    ps = sim._phase_seconds
+    say(f"phase 17d autotune_ladder PT SuperFunnel ({SF_TUNE['C']} x T={T}, "
+        f"burn-in {SF_TUNE['burn_in']}): ladder "
+        f"{[round(float(b), 5) for b in lad]}; swap acc "
+        f"{sim.acceptance_rate():.4f}; tune {ps['tune']:.3f} s, measure "
+        f"{ps['measure']:.3f} s; launches {dict(seen)}")
+    del sim
+    say(f"phase 17 {time.time() - t_phase:.1f} s")
+    return kernels
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -2643,6 +3194,14 @@ def smoke_libraries(_build):
     names.append(lib(_build.library("fused_rwm", "UniformRadius",
                                     resolve_normal_impl("rwm", STUDY["C"])),
                      "rough_carpet", STUDY["dim"], warp=True))
+    for a in ("pt", "rwm"):                                      # 17
+        rule = resolve_normal_impl(a, 65536, "super_funnel")
+        names += [lib(_build.library(f"fused_{a}", p, rule), "super_funnel",
+                      J + J * K + K + 3) for p in _build.PROPOSALS
+                  for J, K in ((SF["J"], SF["K"]),) + SF_WARP]
+        names += [lib(_build.library(f"fused_{a}", "Normal", rule),
+                      "super_funnel", J + J * K + K + 3)
+                  for J, K in SF_THREAD_EDGES]
     return list(dict.fromkeys(names))
 
 
@@ -2902,6 +3461,7 @@ def main():
     kernels.extend(phase_14(torch, gen, {r["name"] for r in kernels}))
     phase_15(torch)
     kernels.extend(phase_16(torch, gen))
+    kernels.extend(phase_17(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

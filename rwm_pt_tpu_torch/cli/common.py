@@ -15,8 +15,8 @@ import argparse
 import json
 import os
 
-from ..targets.registry import (PORTED_TARGETS,
-                                calculate_hybrid_rosenbrock_dim)
+from ..targets.registry import (calculate_hybrid_rosenbrock_dim,
+                                calculate_super_funnel_dim)
 
 
 def add_target_args(parser: argparse.ArgumentParser):
@@ -100,15 +100,14 @@ def target_kwargs_from_args(args) -> dict:
 
 def resolve_actual_dim(args) -> int:
     """The target's dimension: ``--dim``, or for HybridRosenbrock
-    ``1 + n2 (n1 - 1)``; an odd ``--dim`` for EvenRosenbrock exits, as in
-    the JAX CLIs, and SuperFunnel is not ported (ROADMAP Queue A item 9)."""
-    if args.target not in PORTED_TARGETS:
-        raise NotImplementedError(
-            f"target {args.target!r} is not ported to the PyTorch package "
-            f"yet (ROADMAP Queue A item 9); ported: {PORTED_TARGETS}")
+    ``1 + n2 (n1 - 1)``, for SuperFunnel ``J + J K + 1 + K + 2``; an odd
+    ``--dim`` for EvenRosenbrock exits, as in the JAX CLIs."""
     if args.target == "HybridRosenbrock":
         return calculate_hybrid_rosenbrock_dim(args.hybrid_rosenbrock_n1,
                                                args.hybrid_rosenbrock_n2)
+    if args.target == "SuperFunnel":
+        return calculate_super_funnel_dim(args.super_funnel_J,
+                                          args.super_funnel_K)
     if args.target == "EvenRosenbrock" and args.dim % 2:
         raise SystemExit("EvenRosenbrock requires an even --dim")
     return args.dim

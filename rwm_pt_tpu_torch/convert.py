@@ -18,7 +18,7 @@ from .proposals import (LaplaceProposal, NormalProposal,
 from .targets import (EvenRosenbrock, FullRosenbrock, HybridRosenbrock,
                       Hypercube, IIDBeta, IIDGamma, MultivariateNormal,
                       NealFunnel, RoughCarpet, ScaledMultivariateNormal,
-                      ThreeMixture)
+                      SuperFunnel, ThreeMixture)
 from .utils.dtypes import resolve_device
 
 # state fields in the JAX dataclasses' order (also the checkpoint's arr_0..)
@@ -36,7 +36,7 @@ def _t(v, dev) -> torch.Tensor:
 _TARGETS = {cls.__name__: cls for cls in (
     FullRosenbrock, EvenRosenbrock, HybridRosenbrock, MultivariateNormal,
     ScaledMultivariateNormal, ThreeMixture, RoughCarpet, Hypercube,
-    IIDGamma, IIDBeta, NealFunnel)}
+    IIDGamma, IIDBeta, NealFunnel, SuperFunnel)}
 
 
 def target_from_numpy(name: str, fields: dict, *, device="cuda"):
@@ -44,7 +44,8 @@ def target_from_numpy(name: str, fields: dict, *, device="cuda"):
     ``"ThreeMixture"``) from the JAX dataclass fields as numpy arrays and
     Python values.  ``dim`` may be left out for ``FullRosenbrock``,
     ``EvenRosenbrock`` (``mu`` has d-1 entries) and ``MultivariateNormal``
-    (from ``mean``); ``name`` keeps the class default when left out."""
+    (from ``mean``) and ``SuperFunnel`` (from ``J`` and ``K``); ``name``
+    keeps the class default when left out."""
     cls = _TARGETS.get(name)
     if cls is None:
         raise NotImplementedError(f"target {name!r} is not ported yet")
@@ -64,6 +65,8 @@ def target_from_numpy(name: str, fields: dict, *, device="cuda"):
             kw[f.name] = _t(v, dev)
     if "dim" not in kw:
         kw["dim"] = (kw["mean"].shape[0] if name == "MultivariateNormal"
+                     else kw["J"] + kw["J"] * kw["K"] + kw["K"] + 3
+                     if name == "SuperFunnel"
                      else kw["mu"].reshape(-1).shape[0] + 1)
     if "mu" in kw and name != "HybridRosenbrock":
         kw["mu"] = kw["mu"].reshape(-1)

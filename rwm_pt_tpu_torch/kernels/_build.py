@@ -81,7 +81,7 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "scaled_mvn": 3, "three_mixture": 4, "rough_carpet": 5,
                 "even_rosenbrock": 6, "hybrid_rosenbrock": 7,
                 "hypercube": 8, "iid_gamma": 9, "iid_beta": 10,
-                "neal_funnel": 11}
+                "neal_funnel": 11, "super_funnel": 12}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
 WARP_BUCKETS = (128, 256)    # warp buckets: d + 4 <= DMAX slots (warp.cuh)
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
@@ -98,10 +98,12 @@ MIN_BLOCKS = {"fused_pt": 2, "fused_rwm": 1}
 # frame or spill, so a new one shows there): the full-covariance MVN's
 # quadratic form, one block at d16 and no launch bound at all (0: the
 # compiler takes the registers it needs and a block holds the threads they
-# allow) at d32, and Hypercube's PT at d32, one block.
+# allow) at d32, and Hypercube's and SuperFunnel's PT at d32, one block
+# (SuperFunnel's Normal and Laplace builds spilled 16-40 B at 96 registers).
 FEWER_BLOCKS = {("fused_pt", "mvn_full", 16): 1,
                 ("fused_pt", "mvn_full", 32): 0,
-                ("fused_pt", "hypercube", 32): 1}
+                ("fused_pt", "hypercube", 32): 1,
+                ("fused_pt", "super_funnel", 32): 1}
 # variant name -> (source, proposal code, draw code)
 VARIANTS = {src + ps + ds: (src, pc, dc) for src in ("fused_pt", "fused_rwm")
             for prop, (ps, pc) in PROPOSALS.items()
@@ -386,33 +388,42 @@ def blocks_per_sm(regs: int, threads: int, shared_bytes: int) -> int:
     return min(by_regs, SM_WARPS // warps, SM_BLOCKS, by_shared)
 
 
+# the kinds whose thread-per-replica log-density reads the proposal at
+# run-time indices, from a shared-memory stage row (csrc/mh.cuh::kStage)
+STAGE_ROW_KINDS = ("super_funnel",)
+
+
 def row_words(dmax: int, proposal: str = "Normal",
-              draw: str = "icdf") -> int:
+              draw: str = "icdf", kind: str | None = None) -> int:
     """Shared-memory words a thread's rows take (``csrc/mh.cuh``): the
-    state row, DMAX + 4 words (16-byte accesses, no bank conflicts), and
-    for Box-Muller normals the sine row, DMAX/2 + 1 (odd)."""
+    state row, DMAX + 4 words (16-byte accesses, no bank conflicts), for
+    Box-Muller normals the sine row, DMAX/2 + 1 (odd), and for
+    :data:`STAGE_ROW_KINDS` the stage row, DMAX + 1 (odd)."""
     sines = draw == "bm" and proposal != "Laplace"
-    return dmax + 4 + (dmax // 2 + 1 if sines else 0)
+    return (dmax + 4 + (dmax // 2 + 1 if sines else 0)
+            + (dmax + 1 if kind in STAGE_ROW_KINDS else 0))
 
 
 def pt_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
-                    proposal: str = "Normal", draw: str = "icdf") -> int:
+                    proposal: str = "Normal", draw: str = "icdf",
+                    kind: str | None = None) -> int:
     """Dynamic shared memory of a PT block of R replicas x T rungs at d
     coordinates in bucket ``dmax`` (``csrc/fused_pt.cu::shared_words``):
     the R T threads' rows, parameters, the ladder, the sweep's
     per-(replica, rung) words and Laplace's (T, d) scales."""
-    words = (T * R * row_words(dmax, proposal, draw) + n_params + 2 * T
-             + 2 * T * R + 2 * R + 3 * T * R + R
+    words = (T * R * row_words(dmax, proposal, draw, kind) + n_params
+             + 2 * T + 2 * T * R + 2 * R + 3 * T * R + R
              + (T * d if proposal == "Laplace" else 0))
     return 4 * words
 
 
 def rwm_shared_bytes(n_params: int, d: int, threads: int, dmax: int,
-                     proposal: str = "Normal", draw: str = "icdf") -> int:
+                     proposal: str = "Normal", draw: str = "icdf",
+                     kind: str | None = None) -> int:
     """Dynamic shared memory of an RWM block of ``threads`` chains in
     bucket ``dmax`` (``csrc/fused_rwm.cu::shared_words``): the chains'
     rows, parameters and Laplace's (d,) scales."""
-    words = (threads * row_words(dmax, proposal, draw) + n_params
+    words = (threads * row_words(dmax, proposal, draw, kind) + n_params
              + (d if proposal == "Laplace" else 0))
     return 4 * words
 
@@ -424,7 +435,8 @@ def _check_dim(d: int, dmax: int) -> None:
 
 def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
                       T: int, C: int, proposal: str = "Normal",
-                      draw: str = "icdf", n_params: int = 0) -> Geometry:
+                      draw: str = "icdf", n_params: int = 0,
+                      kind: str | None = None) -> Geometry:
     """The fused PT launch of C replicas x T rungs at d coordinates
     (bucket ``dmax``) for a kernel of ``regs`` registers and
     ``max_threads`` threads a block.  Of the R that fit (at most 32
@@ -438,19 +450,21 @@ def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
     _check_dim(d, dmax)
     if not 1 <= T <= MAX_RUNGS or C < 1:
         raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
-    fixed = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw)
-    per_replica = (pt_shared_bytes(n_params, T, d, 1, dmax, proposal, draw)
-                   - fixed)
+    fixed = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw, kind)
+    per_replica = (pt_shared_bytes(n_params, T, d, 1, dmax, proposal, draw,
+                                   kind) - fixed)
     r_max = min(PT_MAX_REPLICAS, max_threads // T,
                 (BLOCK_SHARED - fixed) // per_replica)
     if r_max < 1:
         raise ValueError(
             f"one replica's ladder does not fit a block: T={T} rungs of "
             f"d={d} need {T} threads ({max_threads} allowed) and "
-            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B)")
+            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B), "
+            f"{n_params} of its words the target's parameters")
 
     def launch(R):
-        shared = pt_shared_bytes(n_params, T, d, R, dmax, proposal, draw)
+        shared = pt_shared_bytes(n_params, T, d, R, dmax, proposal, draw,
+                                 kind)
         return Geometry(R, R * T, shared, blocks_per_sm(regs, R * T, shared),
                         -(-C // R))
 
@@ -460,7 +474,8 @@ def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
 def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
                        C: int, proposal: str = "Normal", draw: str = "icdf",
-                       n_params: int = 0) -> Geometry:
+                       n_params: int = 0, kind: str | None = None
+                       ) -> Geometry:
     """The fused RWM launch of C chains at d coordinates (bucket ``dmax``)
     for a kernel of ``regs`` registers and ``max_threads`` threads a
     block: 128 chains a block, fewer where the slabs or ``max_threads``
@@ -469,14 +484,16 @@ def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
     _check_dim(d, dmax)
     if C < 1:
         raise ValueError(f"C={C} must be >= 1")
-    fixed = rwm_shared_bytes(n_params, d, 0, dmax, proposal, draw)
-    per_chain = rwm_shared_bytes(n_params, d, 1, dmax, proposal, draw) - fixed
+    fixed = rwm_shared_bytes(n_params, d, 0, dmax, proposal, draw, kind)
+    per_chain = rwm_shared_bytes(n_params, d, 1, dmax, proposal, draw,
+                                 kind) - fixed
     n = min(RWM_THREADS, max_threads, (BLOCK_SHARED - fixed) // per_chain)
     if n < 1:
         raise ValueError(
             f"one chain does not fit a block: {fixed + per_chain} B of "
-            f"shared memory ({BLOCK_SHARED} B), {max_threads} threads")
-    shared = rwm_shared_bytes(n_params, d, n, dmax, proposal, draw)
+            f"shared memory ({BLOCK_SHARED} B), {n_params} of its words "
+            f"the target's parameters, {max_threads} threads")
+    shared = rwm_shared_bytes(n_params, d, n, dmax, proposal, draw, kind)
     return Geometry(n, n, shared, blocks_per_sm(regs, n, shared), -(-C // n))
 
 
@@ -539,8 +556,9 @@ def bm_lanes(k: int, d: int, team: int = 32) -> tuple[int, int, int]:
 
 
 # the kinds whose warp kernels stage a third row a team
-# (csrc/warp.cuh::kTermsRow): the IID kinds' terms, the full MVN's x - mean
-TERMS_ROW_KINDS = ("iid_gamma", "iid_beta", "mvn_full")
+# (csrc/warp.cuh::kTermsRow): the IID kinds' terms, SuperFunnel's group
+# likelihoods, the full MVN's x - mean
+TERMS_ROW_KINDS = ("iid_gamma", "iid_beta", "mvn_full", "super_funnel")
 
 
 def team_rows(kind: str | None = None) -> int:
@@ -789,18 +807,20 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     if team is not None:
         raise ValueError(f"{name} runs one thread a state: team= is for the "
                          "warp libraries")
+    kind = name.split(".")[1]
     if not T:
         a = kernel_info(name, d)
         return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
-                                  C, proposal, draw, n_params)
+                                  C, proposal, draw, n_params, kind)
     a = kernel_info(name, d)
     geo = pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
-                            proposal, draw, n_params)
+                            proposal, draw, n_params, kind)
     if geo.replicas == PT_MAX_REPLICAS:
         return geo
     a = kernel_info(name, d, runtime_r=True)
     return pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
-                             proposal, draw, n_params)._replace(runtime_r=True)
+                             proposal, draw, n_params,
+                             kind)._replace(runtime_r=True)
 
 
 # ---------------------------------------------------------------- targets
@@ -832,7 +852,7 @@ _KIND_OF = {"FullRosenbrock": "rosenbrock",
             "EvenRosenbrock": "even_rosenbrock",
             "HybridRosenbrock": "hybrid_rosenbrock", "Hypercube": "hypercube",
             "IIDGamma": "iid_gamma", "IIDBeta": "iid_beta",
-            "NealFunnel": "neal_funnel"}
+            "NealFunnel": "neal_funnel", "SuperFunnel": "super_funnel"}
 
 
 def target_kind(target) -> str | None:
@@ -847,13 +867,15 @@ def target_kind(target) -> str | None:
 def kernel_target(target) -> tuple[str, torch.Tensor]:
     """(kind, f32 parameter vector on the CPU) of a target the kernels
     take, laid out as ``csrc/targets.cuh`` (and ``csrc/warp.cuh``) reads
-    it.  Any other target, and a dim above :data:`MAX_DIM`, raises
-    ``NotImplementedError``: there is no fallback."""
+    it.  A target of no kind (a class outside the registry's), and a dim
+    above :data:`MAX_DIM`, raises ``NotImplementedError``: there is no
+    fallback."""
     kind = target_kind(target)
     if kind is None:
         raise NotImplementedError(
-            f"fused CUDA kernels do not support target "
-            f"{type(target).__name__!r} (ROADMAP Queue A item 9)")
+            f"fused CUDA kernels take the registry's targets, each a kind "
+            f"of csrc/targets.cuh; {type(target).__name__!r} is not one of "
+            f"them (run it on the eager engine, engine='scan')")
     if target.dim > MAX_DIM:
         warp_bucket(target.dim)          # raises, naming the warp layout
     t, d = target, target.dim
@@ -884,6 +906,19 @@ def kernel_target(target) -> tuple[str, torch.Tensor]:
         return kind, _f32(t.shape, t.scale, t.log_norm_const)
     if kind == "iid_beta":
         return kind, _f32(t.alpha, t.beta, t.log_norm_const)
+    if kind == "super_funnel":
+        # the constants as the plain version rounds them, on its device
+        J, K = t.J, t.K
+        hv = t.prior_hypermean_std * t.prior_hypermean_std
+        s = t.prior_tau_scale
+        f = torch.float32
+        return kind, _f32(
+            J, K, t.Y.shape[1], torch.tensor(-0.5 * J * _LOG_2PI, dtype=f),
+            torch.tensor(-0.5 * J * K * _LOG_2PI, dtype=f), hv,
+            -0.5 * _LOG_2PI - 0.5 * torch.log(hv),
+            -0.5 * K * _LOG_2PI - 0.5 * K * torch.log(hv),
+            math.log(2.0) - math.log(math.pi) - torch.log(s), s,
+            t.X_cols, t.Y)
     s = t.sigma_v_sq.to(torch.float32)        # the log on the target's device
     d1 = d - 1
     return kind, _f32(t.mu_v, s, t.mu_z, -0.5 * _LOG_2PI - 0.5 * torch.log(s),

@@ -38,7 +38,8 @@ RWM_REC_OUTPUTS = RWM_OUTPUTS + ("chain",)
 class Agreement(NamedTuple):
     frac: float          # share of replicas whose final x agrees
     max_dx: float        # max |x_kernel - x_plain| over them
-    max_rel: dict        # float output -> max |k - p| / max(|p|, 1e-6)
+    max_rel: dict        # float output -> max |k - p| / max(|p|, 1e-6),
+    #                      0 where k == p (-inf on both sides too)
     #                      (the trace: max |k - p|)
     mismatched: dict     # output -> agreeing replicas where it disagrees
 
@@ -66,7 +67,8 @@ def hold(kernel_out, plain_out, names, lp_of=None) -> Agreement:
             max_rel[name] = err.max().item() if err.numel() else 0.0
             bad = ~(err < X_ATOL)
         elif a.dtype.is_floating_point:
-            err = (a - b).abs()
+            # equal values (a log-density of -inf on both sides) differ by 0
+            err = torch.where(a == b, 0.0, (a - b).abs())
             max_rel[name] = (err / b.abs().clamp_min(1e-6)).max().item() \
                 if err.numel() else 0.0
             bad = ~torch.isclose(a, b, rtol=RTOL, atol=FLOAT_ATOL)

@@ -69,8 +69,12 @@
 // of four words, 6.29e11 at the flagship) outweighs the float work (one
 // logf + one sqrtf + one sincosf a Box-Muller pair, Giles' polynomials,
 // the target's terms) at the card's int32 and float32 rates; global memory
-// sees the initial state and the final state + accumulators only.  The
-// ragged edge (C not a multiple of R) is masked: those threads run on
+// sees the initial state and the final state + accumulators only.
+// SuperFunnel (kind 12) is the exception: its likelihood (J n
+// observations of 2K + 7 flops, an expf and a log1pf each) outweighs
+// Philox, so its bound is the float32 or the special-function (MUFU) work
+// (chip_smoke.py::sf_lp_flops, SF_MUFU_PER_OBS).  The ragged edge (C
+// not a multiple of R) is masked: those threads run on
 // zeros in their own rows and store nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -114,16 +118,19 @@ constexpr int kMinBlocks = RWM_PT_MINBLOCKS;
 constexpr int kPitch = kRowPitch<kDmax>;   // words of a thread's state row
 constexpr int kSines = (kProp != PROPOSAL_LAPLACE && kDraw == DRAW_BM)
                            ? kSinePitch<kDmax> : 0;   // of its sine row
+constexpr int kStageWords = kStage<kKind, kDmax>;   // of its stage row
 
 // Words of dynamic shared memory: the state slab (T R rows of kPitch,
 // first, so that its rows are 16-byte aligned) | Box-Muller sines (T R
-// rows of kSines) | params, beta, sigma | lp, u (per slot / pair) | cold
+// rows of kSines) | SuperFunnel's stage rows (T R rows of kStageWords) |
+// params, beta, sigma | lp, u (per slot / pair) | cold
 // sum, compensation | slot_of_rung, rung_of_slot, accepts | the slot that
 // held rung 0 before a sweep that moved it | Laplace scales (T, d).
 // kernels/_build.py::pt_shared_bytes mirrors this count.
 __host__ __device__ constexpr size_t shared_words(int n_params, int T, int d,
                                                   int R) {
-  return (size_t)T * R * (kPitch + kSines) + n_params + 2 * T + 2 * T * R +
+  return (size_t)T * R * (kPitch + kSines + kStageWords) + n_params + 2 * T +
+         2 * T * R +
          2 * R + 3 * T * R + R + (kProp == PROPOSAL_LAPLACE ? T * d : 0);
 }
 
@@ -158,7 +165,8 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
   const int nthreads = R * T;
   float* s_x = (float*)smem4;         // [tid][i]
   float* s_sn = s_x + nthreads * kPitch;   // [tid][k], Box-Muller only
-  float* s_params = s_sn + nthreads * kSines;
+  float* s_stage = s_sn + nthreads * kSines;   // [tid][i], SuperFunnel
+  float* s_params = s_stage + nthreads * kStageWords;
   float* s_beta = s_params + n_params;
   float* s_sigma = s_beta + T;
   float* s_lp = s_sigma + T;          // [slot][replica]
@@ -176,6 +184,7 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
   const int c = blockIdx.x * R + cx;
   const bool valid = c < C;
   float* xs = s_x + tid * kPitch;     // this thread's state row
+  float* stage = s_stage + tid * kStageWords;
 
   for (int i = tid; i < n_params; i += nthreads) s_params[i] = params[i];
   for (int i = tid; i < T; i += nthreads) {
@@ -198,7 +207,7 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     y[i] = (i < d && valid) ? x0[((size_t)i * T + slot) * C + c] : 0.0f;
   store_row<DMAX>(y, xs, d);
   __syncthreads();
-  float lp = log_density<KIND, DMAX>(y, d, s_params);
+  float lp = state_log_density<KIND, DMAX>(y, stage, d, s_params);
   int rung = slot;
   // the sweep's per-replica sums live in the slot-0 thread, which runs it
   int swapacc = (slot == 0 && valid) ? swapacc0[c] : 0;
@@ -211,9 +220,9 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     uint4 blk;
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
-        y, xs, s_sn + tid * kSines, lp, d, s_params, s_sigma[rung],
-        s_lap + rung * d, inv_d, s_beta[rung], c, rung, abs_step, key0, key1,
-        blk, cur_k);
+        y, xs, s_sn + tid * kSines, stage, lp, d, s_params,
+        s_sigma[rung], s_lap + rung * d, inv_d, s_beta[rung], c, rung,
+        abs_step, key0, key1, blk, cur_k);
     if (post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung, owner = -1;

@@ -11,7 +11,8 @@
 // Bound: operations, Philox's int32 work (chip_smoke.py::bound): 26 blocks
 // of 60 int32 operations a (replica, rung, step) at d = 100, 2.045e12 over
 // the main shape (65,536 replicas x T = 10 x 2000 steps), 122.2 ms at the
-// card's int32 peak.  What cost time beside it with one warp a state
+// card's int32 peak (SuperFunnel's likelihood binds instead,
+// csrc/fused_pt.cu).  What cost time beside it with one warp a state
 // (G = 32, the layout before teams) was the step's fixed work a state, paid
 // by all 32 lanes for one state: the butterflies of its sums, the
 // broadcasts of its uniforms, the accept, the Kahan sums and the counters;

@@ -21,7 +21,9 @@
 // bound by operations: Philox's integer work (60 int32 operations a block
 // of four words, 6.29e10 at the 65,536-chain headline) outweighs the float
 // work (one logf and one sqrtf per normal, Giles' polynomials, log1pf per
-// Laplace coordinate, the target's terms) at the card's rates.
+// Laplace coordinate, the target's terms) at the card's rates, but for
+// SuperFunnel, whose likelihood's float and special-function work binds
+// (csrc/fused_pt.cu).
 // Consecutive threads take consecutive chains, so every load and store of
 // the (d, C) state is coalesced on the chain axis.  The ragged edge (C not
 // a multiple of the block) is masked.
@@ -72,14 +74,16 @@ constexpr int kMinBlocks = RWM_PT_MINBLOCKS;
 constexpr int kPitch = kRowPitch<kDmax>;   // words of a chain's state row
 constexpr int kSines = (kProp != PROPOSAL_LAPLACE && kDraw == DRAW_BM)
                            ? kSinePitch<kDmax> : 0;   // of its sine row
+constexpr int kStageWords = kStage<kKind, kDmax>;   // of its stage row
 
 // Words of dynamic shared memory: the state slab (threads rows of kPitch,
 // first, 16-byte aligned) | Box-Muller sines (threads rows of kSines) |
-// params | Laplace scales (d).  kernels/_build.py::rwm_shared_bytes
+// SuperFunnel's stage rows (threads rows of kStageWords) | params |
+// Laplace scales (d).  kernels/_build.py::rwm_shared_bytes
 // mirrors this count.
 __host__ __device__ constexpr size_t shared_words(int n_params, int d,
                                                   int threads) {
-  return (size_t)threads * (kPitch + kSines) + n_params +
+  return (size_t)threads * (kPitch + kSines + kStageWords) + n_params +
          (kProp == PROPOSAL_LAPLACE ? d : 0);
 }
 
@@ -106,7 +110,8 @@ __global__ void RWM_PT_BOUNDS
   extern __shared__ float4 smem4[];
   float* s_x = (float*)smem4;           // [thread][i]
   float* s_sn = s_x + blockDim.x * kPitch;   // [thread][k], Box-Muller only
-  float* s_params = s_sn + blockDim.x * kSines;
+  float* s_stage = s_sn + blockDim.x * kSines;   // [thread][i], SuperFunnel
+  float* s_params = s_stage + blockDim.x * kStageWords;
   float* s_lap = s_params + n_params;   // (d,) Laplace scales
   for (int i = threadIdx.x; i < n_params; i += blockDim.x)
     s_params[i] = params[i];
@@ -116,13 +121,14 @@ __global__ void RWM_PT_BOUNDS
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   float* xs = s_x + threadIdx.x * kPitch;   // this chain's state row
+  float* stage = s_stage + threadIdx.x * kStageWords;
 
   float y[DMAX];   // the state, then each step's proposal
 #pragma unroll
   for (int i = 0; i < DMAX; ++i)
     y[i] = i < d ? x0[(size_t)i * C + c] : 0.0f;
   store_row<DMAX>(y, xs, d);
-  float lp = log_density<KIND, DMAX>(y, d, s_params);
+  float lp = state_log_density<KIND, DMAX>(y, stage, d, s_params);
   int acc = acc0[c];
   float esjd = jump0[c], comp = 0.0f;   // Kahan sum and its compensation
 
@@ -132,8 +138,8 @@ __global__ void RWM_PT_BOUNDS
     uint4 blk;
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
-        y, xs, s_sn + threadIdx.x * kSines, lp, d, s_params, scale, s_lap,
-        inv_d, beta, c, 0, abs_step, key0, key1, blk, cur_k);
+        y, xs, s_sn + threadIdx.x * kSines, stage, lp, d, s_params, scale,
+        s_lap, inv_d, beta, c, 0, abs_step, key0, key1, blk, cur_k);
     acc += (post && accept) ? 1 : 0;
     float jump = 0.0f;
     if (accept) {

@@ -9,7 +9,8 @@
 //
 // Bound: operations, Philox's int32 work (chip_smoke.py::bound): 26 blocks
 // of 60 int32 operations a (chain, step) at d = 100, 2.045e11 over the main
-// shape (65,536 chains x 2000 steps), 12.2 ms at the card's int32 peak.
+// shape (65,536 chains x 2000 steps), 12.2 ms at the card's int32 peak
+// (SuperFunnel's likelihood binds instead, csrc/fused_pt.cu).
 // Beside it the step's fixed work a chain (the butterflies of its sums,
 // the uniform's broadcast, the accept, the Kahan sum, the counter) cost a
 // whole warp's issue slots with one warp a chain (G = 32, the layout

@@ -39,6 +39,12 @@
 // accesses hit 32 banks) until coordinate i >= h reads word i - h: a
 // runtime index into shared memory, where a register array would go to a
 // local-memory stack frame.
+// SuperFunnel (csrc/targets.cuh kind 12) reads the proposal's alphas and
+// betas at run-time indices (group j, covariate k): a run-time index into
+// y[] would put it on a stack frame, so state_log_density first writes y
+// to the thread's stage row (kStagePitch<DMAX> = DMAX + 1 words, odd, so
+// that a warp's 32 scalar accesses of one word hit 32 banks) and the
+// log-density reads it there.
 // The uniform ball's direction stays in y[]: first the normals, then the
 // norm, then x + n/||n|| * r.  Its MH word (slot d) is read before the
 // radius word (slot d+2), so Philox blocks are taken in order and none is
@@ -54,6 +60,28 @@ template <int DMAX>
 constexpr int kRowPitch = DMAX + 4;
 template <int DMAX>
 constexpr int kSinePitch = DMAX / 2 + 1;
+template <int DMAX>
+constexpr int kStagePitch = DMAX + 1;
+// Words of a thread's stage row for target kind KIND (SuperFunnel's alone)
+template <int KIND, int DMAX>
+constexpr int kStage = KIND == TARGET_SUPER_FUNNEL ? kStagePitch<DMAX> : 0;
+
+// The log-density of the state y (registers); SuperFunnel's through the
+// thread's stage row
+template <int KIND, int DMAX>
+__device__ __forceinline__ float state_log_density(
+    const float (&y)[DMAX], float* stage, int d,
+    const float* __restrict__ p) {
+  if constexpr (KIND == TARGET_SUPER_FUNNEL) {
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) stage[i] = y[i];
+    return super_funnel_log_density([stage](int i) { return stage[i]; }, d,
+                                    p);
+  } else {
+    return log_density<KIND, DMAX>(y, d, p);
+  }
+}
 
 __device__ __forceinline__ float quad_word(const float4& v, int w) {
   return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
@@ -144,11 +172,12 @@ __device__ __forceinline__ float sq_jump(const float (&y)[DMAX],
 }
 
 // Propose y from the state in the thread's slab row xs (sn: its
-// Box-Muller sine row) and test it.  Returns the decision; lp becomes the
+// Box-Muller sine row; stage: its stage row) and test it.  Returns the decision; lp becomes the
 // proposal's log-density on an accept.  The slab is left as it was.
 template <int KIND, int PROP, int DRAW, int DMAX>
 __device__ __forceinline__ bool mh_propose(
-    float (&y)[DMAX], const float* xs, float* sn, float& lp, int d,
+    float (&y)[DMAX], const float* xs, float* sn, float* stage, float& lp,
+    int d,
     const float* __restrict__ params, float scale,
     const float* __restrict__ lap, float inv_d, float beta, int replica,
     int rung, int abs_step, uint32_t key0, uint32_t key1, uint4& blk,
@@ -207,7 +236,7 @@ __device__ __forceinline__ bool mh_propose(
       }
     }
   }
-  const float lp_prop = log_density<KIND, DMAX>(y, d, params);
+  const float lp_prop = state_log_density<KIND, DMAX>(y, stage, d, params);
   const float log_ratio = beta * (lp_prop - lp);
   if constexpr (PROP != PROPOSAL_UNIFORM_RADIUS)
     w_mh = slot_word(d, blk, cur_k, replica, rung, abs_step, key0, key1);

@@ -42,13 +42,33 @@
 //                       C = 0.5 (d-1))
 //     A - 0.5 (v - mu_v)^2 / sigma_v^2 + (B - C v)
 //       - 0.5 exp(-v) sum_k (z_k - mu_z)^2
+//  12 SUPER_FUNNEL     [J, K, n, c_a, c_b, h, c_ma, c_mb, c_t, s,
+//                       X_cols (J K x n, row j K + k), Y (J x n)]
+//     (float32 constants of the JAX formula: c_a = -0.5 J log 2pi,
+//     c_b = -0.5 J K log 2pi, h = hypermean std^2, c_ma = -0.5 log 2pi -
+//     0.5 log h, c_mb = -0.5 K log 2pi - 0.5 K log h, c_t = log 2 -
+//     log pi - log s, s = the tau scale; the state is alpha (J),
+//     beta (J K), mu_alpha, mu_beta (K), tau_a, tau_b)
+//     sum_j sum_i ls_ji + (c_a - J log tau_a) - 0.5 sum_j (alpha_j -
+//       mu_alpha)^2 / tau_a^2 + (c_b - J K log tau_b) - 0.5 sum_jk
+//       (beta_jk - mu_beta_k)^2 / tau_b^2 + c_ma - 0.5 mu_alpha^2 / h +
+//       c_mb - 0.5 sum_k mu_beta_k^2 / h + (c_t - log1p((tau_a / s)^2)
+//       + c_t) - log1p((tau_b / s)^2), -inf unless both taus exceed
+//       1e-9; eta = alpha_j + sum_k X_jki beta_jk, ls = log_sigmoid(eta)
+//       if Y_ji = 1, else log_sigmoid(-eta), -(max(-+eta, 0) + log1p(
+//       exp(-|eta|))): JAX's y ls(eta) + (1 - y) ls(-eta) with y in {0,
+//       1} equals the selected term exactly (0 times a finite term is 0).
+//     Its alphas and betas are read at run-time indices (group j,
+//     covariate k), so it reads the state from a shared-memory row
+//     (super_funnel_log_density; csrc/mh.cuh stages the proposal there)
+//     and not from the register array of the other kinds.
 // The JAX formulas are in rwm_pt_tpu/targets/*.py (log_density_td); each
 // kind computes them in the same order with the same masking, summing the
 // coordinates' terms in index order.  The products that the JAX formula
 // rounds before an add are rounded on their own here (__fmul_rn) where
 // nvcc would otherwise contract them.  The kinds whose terms differ in
-// sign (IID_GAMMA, IID_BETA, NEAL_FUNNEL) then round as the plain
-// version does (targets/base.py::sum0), which matters where their
+// sign (IID_GAMMA, IID_BETA, NEAL_FUNNEL, SUPER_FUNNEL) then round as the
+// plain version does (targets/base.py::sum0), which matters where their
 // log-density is near 0.
 #pragma once
 #include <math.h>
@@ -65,12 +85,96 @@
 #define TARGET_IID_GAMMA 9
 #define TARGET_IID_BETA 10
 #define TARGET_NEAL_FUNNEL 11
+#define TARGET_SUPER_FUNNEL 12
 
 __device__ __forceinline__ float sq(float v) { return v * v; }
+// v * v rounded on its own, never contracted into the add it feeds
+__device__ __forceinline__ float sq_rn(float v) { return __fmul_rn(v, v); }
+
+// SuperFunnel's parameter words before X_cols
+constexpr int kSuperFunnelHead = 10;
+
+// One observation's term of SuperFunnel's likelihood at linear predictor
+// eta and label y (0 or 1): log_sigmoid(eta) if y = 1, else
+// log_sigmoid(-eta), as -softplus(-+eta) (jnp.logaddexp(v, 0) = max(v, 0)
+// + log1p(exp(-|v|))), one exp and one log1p
+__device__ __forceinline__ float super_funnel_term(float eta, float y) {
+  const float l = log1pf(expf(-fabsf(eta)));
+  return -(fmaxf(y != 0.0f ? -eta : eta, 0.0f) + l);
+}
+
+// Group j's likelihood, its n observations summed in order, from the
+// state's coordinates x(i) (read at run-time indices: the alphas and the
+// betas of group j).  A warp's threads read one X and one Y word at a
+// time (a broadcast).
+template <class Coord>
+__device__ __forceinline__ float super_funnel_group(
+    Coord x, int j, const float* __restrict__ p) {
+  const int J = (int)p[0], K = (int)p[1], n = (int)p[2];
+  const float* X = p + kSuperFunnelHead + j * K * n;
+  const float* Y = p + kSuperFunnelHead + J * K * n + j * n;
+  const int b = J + j * K;   // beta_j0
+  const float alpha = x(j);
+  float s = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    float eta = alpha;
+    for (int k = 0; k < K; ++k) eta += __fmul_rn(X[k * n + i], x(b + k));
+    s += super_funnel_term(eta, Y[i]);
+  }
+  return s;
+}
+
+// SuperFunnel's log-density of a state whose taus both exceed 1e-9, from
+// its coordinates x(i) and its groups' likelihoods group(j): the groups
+// and the priors' squares summed in index order (the plain version's
+// sum0), then the JAX formula in its order.
+template <class Coord, class Group>
+__device__ __forceinline__ float super_funnel_valid(
+    Coord x, Group group, int d, const float* __restrict__ p) {
+  const int J = (int)p[0], K = (int)p[1];
+  const int m = J + J * K;   // mu_alpha; mu_beta from m + 1
+  const float mu_a = x(m), tau_a = x(d - 2), tau_b = x(d - 1);
+  float ll = 0.0f, sa = 0.0f, sb = 0.0f, smb = 0.0f;
+  for (int j = 0; j < J; ++j) ll += group(j);
+  for (int j = 0; j < J; ++j) sa += sq_rn(x(j) - mu_a);
+  for (int j = 0; j < J; ++j)
+    for (int k = 0; k < K; ++k) sb += sq_rn(x(J + j * K + k) - x(m + 1 + k));
+  for (int k = 0; k < K; ++k) smb += sq_rn(x(m + 1 + k));
+  const float lp_alpha = (p[3] - __fmul_rn(p[0], logf(tau_a))) -
+                         (0.5f * sa) / __fmul_rn(tau_a, tau_a);
+  const float lp_beta = (p[4] - __fmul_rn(p[0] * p[1], logf(tau_b))) -
+                        (0.5f * sb) / __fmul_rn(tau_b, tau_b);
+  const float lp_mu_a = p[6] - (0.5f * __fmul_rn(mu_a, mu_a)) / p[5];
+  const float lp_mu_b = p[7] - (0.5f * smb) / p[5];
+  const float qa = tau_a / p[9], qb = tau_b / p[9];
+  const float lp_tau = ((p[8] - log1pf(__fmul_rn(qa, qa))) + p[8]) -
+                       log1pf(__fmul_rn(qb, qb));
+  return ((((ll + lp_alpha) + lp_beta) + lp_mu_a) + lp_mu_b) + lp_tau;
+}
+
+// Whether SuperFunnel's state is valid: both taus above 1e-9
+__device__ __forceinline__ bool super_funnel_taus_valid(float tau_a,
+                                                        float tau_b) {
+  return (tau_a > 1e-9f) & (tau_b > 1e-9f);
+}
+
+// SuperFunnel's log-density of the state whose coordinate i is x(i) (a
+// shared-memory row read at run-time indices), the groups one after
+// another; -inf where a tau is at most 1e-9.
+template <class Coord>
+__device__ __forceinline__ float super_funnel_log_density(
+    Coord x, int d, const float* __restrict__ p) {
+  if (!super_funnel_taus_valid(x(d - 2), x(d - 1))) return -INFINITY;
+  return super_funnel_valid(
+      x, [&](int j) { return super_funnel_group(x, j, p); }, d, p);
+}
 
 template <int KIND, int DMAX>
 __device__ __forceinline__ float log_density(const float (&x)[DMAX], int d,
                                              const float* __restrict__ p) {
+  static_assert(KIND != TARGET_SUPER_FUNNEL,
+                "SuperFunnel reads its state from a shared-memory row: "
+                "super_funnel_log_density");
   if constexpr (KIND == TARGET_ROSENBROCK) {
     const float a = p[0], b = p[1];
     float s1 = 0.0f, s2 = 0.0f;

@@ -54,7 +54,9 @@
 // would let lanes disagree and tear the row).  The three kinds whose terms
 // differ in sign or cancel (IIDGamma, IIDBeta, NealFunnel) add their terms
 // in index order in every lane, the plain version's order
-// (targets/base.py::sum0), which matters where lp is near 0; the others sum
+// (targets/base.py::sum0), which matters where lp is near 0, and so does
+// SuperFunnel, whose groups' likelihoods the lanes compute in parallel
+// (each group's in order) into a terms row; the others sum
 // in the butterfly's order, within the agreement gate's tolerance of the
 // plain version (kernels/agreement.py).
 #pragma once
@@ -67,10 +69,13 @@ template <int DMAX, int G>
 constexpr int kTeamPitch = DMAX + (G < 32 ? G : 0);
 
 // The kinds whose log-density stages a row of its own: the IID kinds'
-// terms, summed in index order, and the full-covariance MVN's x - mean
+// terms and SuperFunnel's group likelihoods, summed in index order, and
+// the full-covariance MVN's x - mean
 template <int KIND>
 constexpr bool kTermsRow = KIND == TARGET_IID_GAMMA ||
-                           KIND == TARGET_IID_BETA || KIND == TARGET_MVN_FULL;
+                           KIND == TARGET_IID_BETA ||
+                           KIND == TARGET_MVN_FULL ||
+                           KIND == TARGET_SUPER_FUNNEL;
 
 // The kinds whose log-density sums a term of each coordinate's own word,
 // the iso and the scaled MVN: team_mh_propose adds a lane's terms where it
@@ -233,7 +238,8 @@ __device__ __forceinline__ void team_bm_rows(float* row, int d, int t) {
 }
 
 // The log-density of the state in row y (words past d unread),
-// csrc/targets.cuh's formulas, every lane of the team the same float.
+// csrc/targets.cuh's formulas, every lane of the team the same float
+// (SuperFunnel's likelihood too: its groups split over the lanes).
 // Every word of y must be visible to the team (a __syncwarp after its
 // last write); `trow` is the team's terms row (kTermsRow kinds).
 template <int KIND, int G, int NQ>
@@ -452,6 +458,21 @@ __device__ __forceinline__ float team_log_density(const float* y,
     const float s = row_sum_in_order(trow, d);
     if (!team_all<G>(valid, lane)) return -INFINITY;
     return KIND == TARGET_IID_GAMMA ? s - p[2] : s + p[2];
+  } else if constexpr (KIND == TARGET_SUPER_FUNNEL) {
+    // group j's likelihood by team lane j mod G into word j of the terms
+    // row; then every lane adds the groups and the priors' squares in
+    // index order, the plain version's order (terms of both signs: lp near
+    // 0 rounds as the plain lp does).  The taus are read alike by every
+    // lane, so `valid` holds team-wide.
+    const auto x = [y](int i) { return y[i]; };
+    const bool valid = super_funnel_taus_valid(y[d - 2], y[d - 1]);
+    __syncwarp();   // the terms row's last readers are done
+    if (valid)
+      for (int j = t; j < (int)p[0]; j += G)
+        trow[j] = super_funnel_group(x, j, p);
+    __syncwarp();
+    if (!valid) return -INFINITY;
+    return super_funnel_valid(x, [trow](int j) { return trow[j]; }, d, p);
   } else {   // TARGET_NEAL_FUNNEL: the squares in index order from k = 1
     const float v = y[0];
     const float prior = p[3] - __fmul_rn(0.5f, sq(v - p[0])) / p[1];

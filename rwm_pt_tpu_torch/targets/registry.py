@@ -6,13 +6,14 @@ targets' modes differ between the reference's factories, and ``variant``
 picks a set (``"rwm_gpu"``: RoughCarpet modes +-4, ThreeMixture offsets
 +-5; ``"pt_gpu"`` and ``"cpu"``: +-15 and +-15; ``"class"``: +-5 and
 +-5).  Explicit ``mode_centers``/``mode_weights`` always win.  Every JAX
-name but ``SuperFunnel`` is ported; ``SuperFunnel`` raises
-``NotImplementedError`` (ROADMAP Queue A item 9); an unknown name raises
-the JAX ``ValueError``.
+name is ported (:data:`PORTED_TARGETS` is :data:`TARGET_NAMES`);
+``SuperFunnel`` takes its structure from ``J``, ``K`` and
+``n_per_group`` and ignores ``dim``; an unknown name raises the JAX
+``ValueError``.
 """
 from __future__ import annotations
 
-from .funnel import NealFunnel
+from .funnel import NealFunnel, SuperFunnel
 from .gaussian import MultivariateNormal, ScaledMultivariateNormal
 from .hypercube import Hypercube
 from .iid import IIDBeta, IIDGamma
@@ -27,7 +28,7 @@ TARGET_NAMES = (
     "FullRosenbrock", "EvenRosenbrock", "HybridRosenbrock",
     "NealFunnel", "SuperFunnel",
 )
-PORTED_TARGETS = tuple(n for n in TARGET_NAMES if n != "SuperFunnel")
+PORTED_TARGETS = TARGET_NAMES
 _VARIANTS = ("rwm_gpu", "pt_gpu", "cpu", "class")
 # RoughCarpet mode centers per reference factory
 _RC_CENTERS = {"rwm_gpu": [-4.0, 0.0, 4.0], "pt_gpu": [-15.0, 0.0, 15.0],
@@ -39,6 +40,11 @@ _TM_OFFSET = {"rwm_gpu": 5.0, "pt_gpu": 15.0, "cpu": 15.0, "class": 5.0}
 def calculate_hybrid_rosenbrock_dim(n1: int, n2: int) -> int:
     """dim = 1 + n2 (n1 - 1)."""
     return 1 + n2 * (n1 - 1)
+
+
+def calculate_super_funnel_dim(J: int, K: int) -> int:
+    """dim = J + J K + 1 + K + 1 + 1."""
+    return J + J * K + 1 + K + 1 + 1
 
 
 def get_target_distribution(name: str, dim: int, variant: str = "rwm_gpu",
@@ -98,9 +104,10 @@ def get_target_distribution(name: str, dim: int, variant: str = "rwm_gpu",
                                  sigma_v_sq=kwargs.get("sigma_v_sq", 9.0),
                                  mu_z=kwargs.get("mu_z", 0.0), **dev)
     if name == "SuperFunnel":
-        raise NotImplementedError(
-            "target 'SuperFunnel' is not ported to the PyTorch package yet: "
-            "its synthetic dataset is drawn from JAX's threefry normal and "
-            "bernoulli streams (ROADMAP Queue A item 9)")
+        return SuperFunnel.create_synthetic(
+            J=kwargs.get("J", 5), K=kwargs.get("K", 3),
+            n_per_group=kwargs.get("n_per_group", 20),
+            prior_hypermean_std=kwargs.get("prior_hypermean_std", 10.0),
+            prior_tau_scale=kwargs.get("prior_tau_scale", 2.5), **dev)
     raise ValueError(f"Unknown target distribution name: {name!r}. "
                      f"Known names: {TARGET_NAMES}")

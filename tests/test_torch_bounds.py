@@ -27,8 +27,9 @@ def test_flagship_bound_counts_philox():
     """8 Philox blocks (slots 0..30) a (replica, rung, step), 60 int32
     operations each: 65,536 x 10 x 2000 x 480 = 6.2915e11, 37.6 ms, 3.7
     times the Box-Muller float bound of 10.1 ms."""
-    flops, int_ops, nbytes = cs.pt_work("rosenbrock", D, T, C, STEPS, 0,
-                                        SWAP_EVERY, draw="bm")
+    flops, int_ops, nbytes, mufu = cs.pt_work("rosenbrock", D, T, C, STEPS,
+                                              0, SWAP_EVERY, draw="bm")
+    assert mufu is None
     assert int_ops == 65536 * 10 * 2000 * 8 * 60 == pytest.approx(
         6.2915e11, rel=1e-4)
     assert flops / cs.PEAK_F32_FLOPS * 1e3 == pytest.approx(10.146, rel=1e-3)
@@ -38,8 +39,9 @@ def test_flagship_bound_counts_philox():
 
 
 def test_rwm_headline_bound_counts_philox():
-    flops, int_ops, nbytes = cs.rwm_work("rosenbrock", D, C, STEPS,
-                                         draw="bm")
+    flops, int_ops, nbytes, mufu = cs.rwm_work("rosenbrock", D, C, STEPS,
+                                               draw="bm")
+    assert mufu is None
     assert int_ops == pytest.approx(6.2915e10, rel=1e-4)
     assert flops / cs.PEAK_F32_FLOPS * 1e3 == pytest.approx(1.180, rel=1e-3)
     ms, by, limit = cs.bound(flops, int_ops, nbytes)
@@ -107,3 +109,49 @@ def test_fast_log_bandwidth_shape_is_byte_bound():
     ms, by, limit = cs.bound(flops, int_ops, nbytes)
     assert (by, limit) == ("bytes", "bytes")
     assert ms == pytest.approx(0.0400650, rel=1e-5)
+
+
+def test_super_funnel_bound_counts_its_likelihood():
+    """SuperFunnel at the reference's J = 5, K = 3, n = 20 (d = 26): 100
+    observations of 2K + 7 flops and the priors' 109 a log-density, 1409;
+    one MUFU (the expf) an observation, a limit that only this kind's work
+    carries.  At the PT main path (65,536 x T = 8, 2000 steps) with every
+    log-density's taus valid, float32 binds, 35.35 ms, over Philox's 26.33
+    and the MUFU's 25.09."""
+    assert cs.sf_lp_flops(5, 3, 20) == 1409
+    evals = 65536 * 8 * 2001
+    work = cs.pt_work("super_funnel", 26, 8, 65536, 2000, 0, 100,
+                      draw="lax_erfinv", n_params=410, sf=(5, 3, 20, evals))
+    assert work[3] == evals * 100 * cs.SF_MUFU_PER_OBS
+    assert work[3] / cs.PEAK_MUFU_OPS * 1e3 == pytest.approx(25.088,
+                                                             rel=1e-3)
+    ms, by, limit = cs.bound(*work)
+    assert (by, limit) == ("operations", "float32")
+    assert ms == pytest.approx(35.355, rel=1e-3)
+    assert cs.bound(0, 0, 0, 16 * 132 * 1.98e9) == (
+        pytest.approx(1000.0), "operations", "mufu")
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 0.5])
+def test_super_funnel_bound_counts_only_valid_likelihoods(share):
+    """The kernels return -inf after the taus' test (2 flops) and compute
+    neither the likelihood nor the priors where a tau is at most 1e-9, so
+    the work counts the whole log-density and its MUFU on the valid
+    evaluations alone: at half of them valid or fewer the PT main path's
+    float work (24.34 ms at half) falls under Philox's 26.33 ms, which
+    then binds."""
+    evals = 65536 * 8 * 2001
+    valid = int(evals * share)
+    full = cs.pt_work("super_funnel", 26, 8, 65536, 2000, 0, 100,
+                      draw="lax_erfinv", n_params=410, sf=(5, 3, 20, evals))
+    work = cs.pt_work("super_funnel", 26, 8, 65536, 2000, 0, 100,
+                      draw="lax_erfinv", n_params=410, sf=(5, 3, 20, valid))
+    assert full[0] - work[0] == (evals - valid) * (1409 - 2)
+    assert work[3] == valid * 100
+    ms, by, limit = cs.bound(*work)
+    assert (by, limit) == ("operations", "int32")
+    assert ms == pytest.approx(26.329, rel=1e-3)
+    rwm = cs.rwm_work("super_funnel", 26, 64, 10, sf=(5, 3, 20, 0))
+    assert rwm[0] == cs.rwm_work("mvn_iso", 26, 64, 10)[0] \
+        - 64 * 11 * cs.lp_flops("mvn_iso", 26) + 64 * 11 * 2
+    assert rwm[3] == 0

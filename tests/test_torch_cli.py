@@ -75,9 +75,15 @@ def test_unported_flags_raise(flag):
 
 
 def test_unported_target_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tcli.main(ARGS + ["--target", "SuperFunnel", "--cpu",
-                          "--output_dir", str(tmp_path)])
+    """Every registry name is ported; a name outside the registry raises
+    the JAX registry's ValueError."""
+    args = ARGS + ["--target", "Banana", "--cpu", "--output_dir",
+                   str(tmp_path)]
+    with pytest.raises(ValueError) as je:
+        jcli.main(args)
+    with pytest.raises(ValueError) as te:
+        tcli.main(args)
+    assert str(te.value) == str(je.value)
 
 
 def test_optimal_plots_from_a_recorded_run(tmp_path):

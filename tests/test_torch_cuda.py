@@ -72,6 +72,11 @@ def _libraries():
     names += [lib(_build.library(f"fused_{a}", "Normal", WARP_DRAW), k, d)
               for a in ("pt", "rwm") for k in ("rosenbrock", "mvn_iso")
               for d in (100, 200)]
+    names += [lib(_build.library(f"fused_{a}", "Normal", draws.
+                                 resolve_normal_impl(a, 1003,
+                                                     "super_funnel")),
+                  "super_funnel", d)
+              for a in ("pt", "rwm") for d in (26, 68, 166)]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -163,8 +168,16 @@ def test_resume_on_card_equals_uninterrupted():
 
 def test_unsupported_inputs_raise_on_card():
     dev = _card()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_target_distribution("SuperFunnel", 3, device=dev)
+    # a dataset that no thread-per-replica block holds (80,010 parameter
+    # words, d = 26) is refused, naming the words; no fallback
+    big = get_target_distribution("SuperFunnel", 0, n_per_group=4000,
+                                  device=dev)
+    with pytest.raises(ValueError, match="80010 of its words"):
+        run_pt_fused(big, 0, [1.0, 0.5], base_variance=0.01, num_chains=64,
+                     num_iterations=2, device=dev)
+    with pytest.raises(ValueError, match="80010 of its words"):
+        run_rwm_fused(big, 0, base_variance=0.01, num_chains=64,
+                      num_iterations=2, device=dev)
     wide = FullRosenbrock.create(253, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
@@ -822,6 +835,72 @@ def test_warp_kernels_match_plain(algo, d, sweep, T, team):
     assert a.frac >= AGREE_MIN, agreement.describe(a)
     assert not a.mismatched, agreement.describe(a)
     assert (k[2] > 0).any()
+
+
+def _sf_cases():
+    """SuperFunnel's layouts: the thread kernels in every register bucket
+    (J = 2, K = 1: d = 8; J = 3, K = 2: d = 14; the reference's J = 5,
+    K = 3: d = 26; J = 10, K = 3: d = 46), the team kernels at J = 10,
+    K = 5 (d = 68, .w128) and J = 40, K = 3 (d = 166, .w256) at every team
+    size their library holds (a static table)."""
+    out = []
+    for algo in ("pt", "rwm"):
+        out += [(algo, J, K, None) for J, K in ((2, 1), (3, 2), (5, 3),
+                                                (10, 3))]
+        for J, K in ((10, 5), (40, 3)):
+            dmax = _build.warp_bucket(J + J * K + K + 3)
+            out += [(algo, J, K, g) for g in _build.WARP_TEAMS[dmax]
+                    if algo == "rwm" or 8 * g <= _build.pt_team_threads(
+                        dmax, g)]
+    return out
+
+
+@pytest.mark.parametrize("algo,J,K,team", _sf_cases())
+def test_super_funnel_kernels_match_plain(algo, J, K, team):
+    """SuperFunnel (kind 12) held against its plain version in both
+    layouts and at every team size, PT on the geometric ladder (T = 8) and
+    RWM, from the default init 1e-8 N(0, 1), where most states start at
+    -inf (log-ratio NaN until a proposal is valid: rejected, as in the
+    plain version); the launch counted under the library's key."""
+    dev = _card()
+    C = 1003
+    target = get_target_distribution("SuperFunnel", 0, J=J, K=K,
+                                     device=dev)
+    d = target.dim
+    g = torch.Generator(device=dev).manual_seed(41)
+    x0 = target.init_sample(C, g).T.contiguous()
+    assert torch.isinf(target.log_density_td(x0)).float().mean() > 0.5
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    var = 0.01
+    draw = draws.resolve_normal_impl(algo, C, "super_funnel")
+    steps = 100 if team is None else 40
+    if algo == "pt":
+        betas = torch.tensor([0.5 ** t for t in range(7)] + [0.01],
+                             device=dev)
+        sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+        args = (target, x0[:, None].expand(d, 8, C).contiguous(), zi(8, C),
+                zi(C), zf(C), zf(C), betas, sig, seed_key(42), 0, steps, 10,
+                5)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+    else:
+        args = (target, x0, zi(C), zf(C), torch.tensor(1.0, device=dev),
+                torch.sqrt(torch.tensor(var, device=dev)), seed_key(42), 0,
+                steps, 10)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+    kw = dict(draw=draw)
+    before = Counter(launch.launches)
+    k = launch(*args, **kw, **({} if team is None else {"team": team}))
+    lib = _build.lib_name(_build.library(f"fused_{algo}", "Normal", draw),
+                          "super_funnel", d)
+    assert launch.launches - before == Counter({_build.launch_key(lib): 1})
+    a = agreement.hold(k, plain(*args, **kw), names,
+                       lp_of=target.log_density_td)
+    assert a.frac >= AGREE_MIN, agreement.describe(a)
+    assert not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any() and torch.isfinite(k[1]).any()
 
 
 @pytest.mark.parametrize("team", _build.WARP_TEAMS[128])

@@ -279,9 +279,11 @@ def test_pt_team_geometry_at_the_main_shape():
 
 
 def test_team_rows_of_the_terms_kinds():
-    """The IID kinds and the full-covariance MVN keep a third row a team
-    (their terms); the other kinds two."""
-    assert [_build.team_rows(k) for k in _build.TARGET_KINDS].count(3) == 3
+    """The IID kinds, SuperFunnel (its groups' likelihoods) and the
+    full-covariance MVN keep a third row a team (their terms); the other
+    kinds two."""
+    assert [_build.team_rows(k) for k in _build.TARGET_KINDS].count(3) == 4
+    assert _build.team_rows("super_funnel") == 3
     two = _build.rwm_warp_shared_bytes(101, 100, 8, 128, team=8)
     three = _build.rwm_warp_shared_bytes(101, 100, 8, 128, team=8,
                                          kind="iid_gamma")

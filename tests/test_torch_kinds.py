@@ -1,4 +1,5 @@
-"""The port's other targets (every registry name but SuperFunnel) against
+"""The port's other targets (every registry name but SuperFunnel, which
+tests/test_torch_super_funnel.py holds) against
 the JAX package's, on the same numpy inputs: log-densities, the registry's
 constructors and Scaled factors bit for bit, the fused PT and RWM plain
 versions step for step against the Pallas body on shared draws, the exact
@@ -287,7 +288,9 @@ def test_marginal_density_matches_jax(case):
 @pytest.mark.parametrize("name", PORTED_TARGETS)
 def test_every_registry_name_runs_fused_on_cpu(name):
     """Every ported registry name builds and runs through both fused
-    samplers on the CPU plain path."""
+    samplers on the CPU plain path: finite log-densities, but SuperFunnel's
+    -inf exactly where a tau is at most 1e-9 (most chains of its default
+    initial states 1e-8 N(0, 1) start there)."""
     t = tget(name, 4, device=CPU)
     kind, params = _build.kernel_target(t)
     assert kind in _build.TARGET_KINDS and params.dtype == torch.float32
@@ -298,7 +301,12 @@ def test_every_registry_name_runs_fused_on_cpu(name):
                      num_iterations=5, swap_every=2, device=CPU)
     for res in (r, p):
         assert torch.isfinite(res.state.x).all()
-        assert torch.isfinite(res.state.logp).all()
+        if name == "SuperFunnel":
+            tau = res.state.x[-2:]
+            assert torch.equal(torch.isfinite(res.state.logp),
+                               ((tau > 1e-9).all(0)))
+        else:
+            assert torch.isfinite(res.state.logp).all()
         assert res.state.step == 5
 
 

@@ -282,8 +282,18 @@ def test_unsupported_inputs_raise():
     _build.kernel_target(FullRosenbrock.create(252, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build.kernel_target(FullRosenbrock.create(253, device=CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_target_distribution("SuperFunnel", 3, device=CPU)
+    # every registry target is a kind; a target class outside the
+    # registry is refused, naming the eager engine
+    assert _build.kernel_target(
+        get_target_distribution("SuperFunnel", 3, device=CPU))[0] == \
+        "super_funnel"
+    class Custom(MultivariateNormal):
+        """A target class outside the registry."""
+
+    custom = Custom(**{f.name: getattr(full, f.name)
+                       for f in dataclasses.fields(full)})
+    with pytest.raises(NotImplementedError, match="engine='scan'"):
+        _build.kernel_target(custom)
 
 
 def _new_proposal(kind, d, target):

@@ -160,8 +160,6 @@ def test_rng_impl_takes_the_jax_values():
 
 
 @pytest.mark.parametrize("opt,item", [
-    (dict(algorithm="PT", iterative_temp_spacing=True,
-          target_dist="SuperFunnel"), "A item 9"),
     (dict(use_mesh=True), "A item 13"),
     (dict(cpu_semantics=True), "A item 7"),
     (dict(symmetric=False), "A item 7"),
@@ -206,10 +204,9 @@ def test_progress_bar_and_engine_refusal():
 
 
 def test_registry_matches_jax():
-    """The factory defaults of the ported targets, the ``variant`` check
-    and the unknown-name error are the JAX registry's; SuperFunnel, the
-    one JAX target name not ported, raises ``NotImplementedError`` naming
-    ROADMAP Queue A item 9."""
+    """The factory defaults of the ported targets (SuperFunnel's dataset
+    too), the ``variant`` check and the unknown-name error are the JAX
+    registry's."""
     jr, tr = jget("FullRosenbrock", 6), tget("FullRosenbrock", 6, device=CPU)
     for f in ("a_coeff", "b_coeff", "mu"):
         np.testing.assert_array_equal(getattr(tr, f).numpy(),
@@ -226,8 +223,11 @@ def test_registry_matches_jax():
         with pytest.raises(ValueError) as te:
             tget(*args, **kw, device=CPU)
         assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tget("SuperFunnel", 3, device=CPU)
+    js, ts = jget("SuperFunnel", 3), tget("SuperFunnel", 3, device=CPU)
+    assert (ts.dim, ts.J, ts.K) == (js.dim, js.J, js.K) == (26, 5, 3)
+    for f in ("X_cols", "Y", "prior_hypermean_std", "prior_tau_scale"):
+        np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                      np.asarray(getattr(js, f)))
 
 
 @pytest.mark.parametrize("args", [(), (1.0, 0.05, 0.6), (0.8, 0.001, 0.3)])

@@ -1,0 +1,418 @@
+"""SuperFunnel in the port against the JAX package, on the same numpy
+inputs: JAX's threefry streams (``split``, ``normal``, ``bernoulli``,
+``erf_inv``) bit for bit, the synthetic dataset, the log-density with its
+-inf where a tau is at most 1e-9, ``convert`` both ways, the plain fused
+PT and RWM versions step for step against the Pallas body from the
+default init's -inf starts, the eager engines' rates against the JAX scan
+engine, the harness, the study CLI, and the kernel's parameter layout and
+shared-memory geometry (kind 12, ``csrc/targets.cuh``)."""
+import json
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from _torch_port_helpers import f32_sigmas, make_draws, rate_z, run_jax_body
+from rwm_pt_tpu.api import MCMCSimulation as JSim
+from rwm_pt_tpu.cli import experiment_rwm as jcli
+from rwm_pt_tpu.cli.common import resolve_actual_dim as jdim
+from rwm_pt_tpu.kernels import run_pt as jrun_pt
+from rwm_pt_tpu.kernels import run_rwm as jrun_rwm
+from rwm_pt_tpu.proposals import NormalProposal as JNormalProposal
+from rwm_pt_tpu.targets import SuperFunnel as JSuperFunnel
+from rwm_pt_tpu.targets import calculate_super_funnel_dim as jsf_dim
+from rwm_pt_tpu_torch.api import MCMCSimulation as TSim
+from rwm_pt_tpu_torch.cli import experiment_rwm as tcli
+from rwm_pt_tpu_torch.cli.common import resolve_actual_dim as tdim
+from rwm_pt_tpu_torch.convert import (pt_state_from_numpy,
+                                      rwm_state_from_numpy,
+                                      target_from_numpy, target_to_numpy)
+from rwm_pt_tpu_torch.kernels import (_build, run_pt, run_pt_fused, run_rwm,
+                                      run_rwm_fused)
+from rwm_pt_tpu_torch.proposals import NormalProposal
+from rwm_pt_tpu_torch.targets import (SuperFunnel, calculate_super_funnel_dim,
+                                      get_target_distribution)
+from rwm_pt_tpu_torch.utils import threefry
+
+torch.set_num_threads(1)
+CPU = "cpu"
+RTOL = 1e-5       # the port's f32 log-density against JAX's (sum orders)
+CONFIGS = [(5, 3, 20, 42), (3, 2, 10, 0), (10, 5, 20, 7), (40, 3, 20, 1)]
+SMALL = (3, 2, 10, 0)     # J, K, n, seed of the step-for-step holds
+
+
+def _ulps(a, b):
+    return int(np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32)).max(initial=0))
+
+
+def _pair(J, K, n, seed):
+    return (JSuperFunnel.create_synthetic(J, K, n, seed=seed),
+            SuperFunnel.create_synthetic(J, K, n, seed=seed, device=CPU))
+
+
+def _states(jt, batch, seed):
+    """Valid states (taus in [0.1, 2.1)) with some taus set at or below
+    1e-9 (at it, 0, negative) in the first rows of the last batch axis."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(jt.dim,) + batch).astype(np.float32)
+    x[-2:] = np.abs(x[-2:]) * 2 + np.float32(0.1)
+    flat = x.reshape(jt.dim, -1)
+    flat[-1, 0], flat[-2, 1], flat[-2, 2] = 1e-9, 0.0, -1.0
+    flat[-1, 3], flat[-2, 3] = -1e-3, 1e-9
+    flat[-1, 4] = np.float32(1.0000001e-9)          # just above: valid
+    return x
+
+
+# ---------------------------------------------------------------- threefry
+@pytest.mark.parametrize("seed", [0, 1, 42, 7, 123456789])
+def test_threefry_split_normal_bernoulli_match_jax(seed):
+    """``split``, ``uniform``, ``normal`` and ``bernoulli`` bit for bit
+    against ``jax.random`` at several shapes."""
+    keys = jax.random.split(jax.random.key(seed))
+    ours = threefry.split(seed)
+    assert ours == [tuple(int(v) for v in jax.random.key_data(k))
+                    for k in keys]
+    assert threefry.split(seed, 3) == [
+        tuple(int(v) for v in jax.random.key_data(k))
+        for k in jax.random.split(jax.random.key(seed), 3)]
+    rng = np.random.default_rng(seed)
+    for shape in [(5, 20, 3), (7,), (3, 4), (40, 20, 3)]:
+        for ko, kj in zip(ours, keys):
+            np.testing.assert_array_equal(
+                threefry.uniform(ko, shape),
+                np.asarray(jax.random.uniform(kj, shape)))
+            n_ours = threefry.normal(ko, shape)
+            n_jax = np.asarray(jax.random.normal(kj, shape))
+            assert n_ours.dtype == np.float32
+            assert _ulps(n_ours, n_jax) == 0
+            p = rng.random(shape, dtype=np.float32)
+            np.testing.assert_array_equal(
+                threefry.bernoulli(ko, p),
+                np.asarray(jax.random.bernoulli(kj, p)))
+
+
+def test_erf_inv_matches_lax_on_a_dense_grid():
+    """``erf_inv`` bit for bit against ``lax.erf_inv`` on a dense grid of
+    (-1, 1), on both sides of w = 5 and of log1p's |x| = sqrt(2) - 1
+    switch, and on the uniforms ``normal`` feeds it."""
+    one = np.float32(1.0)
+    grid = np.concatenate([
+        np.linspace(-0.99999994, 0.99999994, 1 << 20, dtype=np.float32),
+        np.nextafter(one, np.float32(0)) - np.arange(4096, dtype=np.float32)
+        * np.float32(2 ** -24),
+        np.float32([0.0, -0.0, 2 ** -24, -(2 ** -24), 0.6435942, 0.9966]),
+        threefry.uniform(3, 1 << 16, np.nextafter(-one, np.float32(0)), 1.0),
+    ]).astype(np.float32)
+    assert _ulps(threefry.erf_inv(grid),
+                 np.asarray(jax.jit(lax.erf_inv)(grid))) == 0
+    with pytest.raises(ValueError):
+        threefry.erf_inv(np.float32([1.0]))
+
+
+# ---------------------------------------------------------------- the target
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "J{}K{}n{}s{}".format(*c))
+def test_create_synthetic_matches_jax(cfg):
+    """The dataset of one seed: X_cols bit for bit (0 ulps, enforced), Y
+    exactly, the JAX dim and name."""
+    jt, pt = _pair(*cfg)
+    J, K, n, _ = cfg
+    assert pt.dim == jt.dim == calculate_super_funnel_dim(J, K) == \
+        jsf_dim(J, K)
+    assert (pt.J, pt.K, pt.get_name()) == (jt.J, jt.K, jt.get_name())
+    assert tuple(pt.X_cols.shape) == (J * K, n) and pt.X_cols.dtype == \
+        torch.float32
+    assert _ulps(pt.X_cols.numpy(), np.asarray(jt.X_cols)) == 0
+    np.testing.assert_array_equal(pt.Y.numpy(), np.asarray(jt.Y))
+    for f in ("prior_hypermean_std", "prior_tau_scale"):
+        assert float(getattr(pt, f)) == float(getattr(jt, f))
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "J{}K{}n{}s{}".format(*c))
+def test_log_density_matches_jax(cfg):
+    """rtol 1e-5 on valid states, -inf in the same places where a tau is
+    at or below 1e-9; both layouts."""
+    jt, pt = _pair(*cfg)
+    x = _states(jt, (3, 40), cfg[3])
+    ref = np.asarray(jt.log_density_td(jnp.asarray(x)))
+    ours = pt.log_density_td(torch.from_numpy(x)).numpy()
+    fin = np.isfinite(ref)
+    assert not fin.all() and fin.mean() > 0.9
+    np.testing.assert_array_equal(np.isfinite(ours), fin)
+    assert (ours[~fin] == -np.inf).all() and (ref[~fin] == -np.inf).all()
+    np.testing.assert_allclose(ours[fin], ref[fin], rtol=RTOL)
+    xb = np.moveaxis(x[:, 0], 0, -1)                        # (C, d)
+    np.testing.assert_allclose(pt.log_density(torch.from_numpy(xb)).numpy(),
+                               np.asarray(jt.log_density(jnp.asarray(xb))),
+                               rtol=RTOL)
+    one = pt.log_density(torch.from_numpy(xb[5]))
+    assert one.shape == () and np.isclose(float(one), ours[0, 5], rtol=RTOL)
+
+
+def test_create_checks_shapes_and_has_no_direct_sampler():
+    X = np.zeros((2, 4, 3), np.float32)
+    with pytest.raises(ValueError, match="X_data"):
+        SuperFunnel.create(2, 2, X, np.zeros((2, 4)), device=CPU)
+    with pytest.raises(ValueError, match="Y_data"):
+        SuperFunnel.create(2, 3, X, np.zeros((2, 5)), device=CPU)
+    t = SuperFunnel.create(2, 3, X, np.ones((2, 4)), device=CPU)
+    assert t.dim == 2 + 6 + 1 + 3 + 2
+    with pytest.raises(NotImplementedError, match="direct sampler"):
+        t.direct_sample(4)
+    init = t.init_sample(8, torch.Generator().manual_seed(0))
+    assert init.shape == (8, t.dim) and init.abs().max() < 1e-6
+
+
+def test_convert_both_ways():
+    """JAX's exact arrays build the port's target (dim from J and K when
+    left out), and the port's fields rebuild the JAX target."""
+    jt, pt = _pair(*SMALL)
+    fields = {k: np.asarray(getattr(jt, k)) if k not in ("J", "K", "dim")
+              else getattr(jt, k)
+              for k in ("dim", "J", "K", "X_cols", "Y",
+                        "prior_hypermean_std", "prior_tau_scale")}
+    back = target_from_numpy("SuperFunnel", fields, device=CPU)
+    del fields["dim"]
+    assert target_from_numpy("SuperFunnel", fields, device=CPU).dim == jt.dim
+    out = target_to_numpy(pt)
+    assert set(out) == {"dim", "J", "K", "X_cols", "Y", "name",
+                        "prior_hypermean_std", "prior_tau_scale"}
+    jback = JSuperFunnel(**{k: (v if k in ("dim", "J", "K", "name")
+                               else jnp.asarray(v)) for k, v in out.items()})
+    x = _states(jt, (30,), 5)
+    ref = np.asarray(jt.log_density_td(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        back.log_density_td(torch.from_numpy(x)).numpy(),
+        pt.log_density_td(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jback.log_density_td(jnp.asarray(x))), ref)
+
+
+# ------------------------------------------------- plain fused, step by step
+def _default_starts(pt, batch, seed):
+    """The default init, 1e-8 N(0, 1): most states start at -inf."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(np.prod(batch))
+    x = pt.init_sample(n, g).T.reshape((pt.dim,) + batch)
+    return x.numpy().copy()
+
+
+def test_fused_pt_plain_matches_pallas_body(monkeypatch):
+    """The plain fused PT version step for step against the Pallas body
+    ``_pt_body_fn`` on injected draws, from the default init's -inf starts:
+    counters exactly, floats to rtol 1e-5, -inf in the same places."""
+    jt, pt = _pair(*SMALL)
+    d, T, C, S = jt.dim, 3, 24, 16
+    betas = np.asarray([1.0, 0.5, 0.25], np.float32)
+    var = 0.05
+    x0 = _default_starts(pt, (T, C), 3)
+    lp0 = np.asarray(jt.log_density_td(jnp.asarray(x0)))
+    assert 0.5 < np.isinf(lp0).mean() < 1.0
+    draws = make_draws(11, S, T, d, C)
+    ref = run_jax_body(monkeypatch, jt, x0, betas, f32_sigmas(var, betas),
+                       draws, 0, 4, 3)
+    z = np.zeros(C, np.float32)
+    state = pt_state_from_numpy(dict(
+        x=x0, logp=lp0, accept_count=np.zeros((T, C), np.int32),
+        swap_attempt_count=0, swap_accept_count=np.zeros(C, np.int32),
+        sum_beta_sq_jump=z, sum_sq_jump_cold=z, step=0), device=CPU)
+    res = run_pt_fused(pt, 0, betas, base_variance=var, num_chains=C,
+                       num_iterations=S, burn_in=4, swap_every=3,
+                       resume_state=state, device=CPU,
+                       draws=tuple(torch.from_numpy(a) for a in draws))
+    st = res.state
+    np.testing.assert_array_equal(st.accept_count.numpy(), ref[2])
+    np.testing.assert_array_equal(st.swap_accept_count.numpy(), ref[3])
+    np.testing.assert_allclose(st.x.numpy(), ref[0], rtol=RTOL, atol=1e-6)
+    np.testing.assert_array_equal(np.isfinite(st.logp.numpy()),
+                                  np.isfinite(ref[1]))
+    np.testing.assert_allclose(st.logp.numpy(), ref[1], rtol=RTOL)
+    np.testing.assert_allclose(st.sum_beta_sq_jump.numpy(), ref[4],
+                               rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(st.sum_sq_jump_cold.numpy(), ref[5],
+                               rtol=RTOL, atol=1e-6)
+    assert (st.accept_count.numpy() > 0).any()
+    assert (st.swap_accept_count.numpy() > 0).any()
+
+
+def test_fused_rwm_plain_matches_pallas_body(monkeypatch):
+    """The plain fused RWM version against the Pallas body at T = 1 with
+    no swaps, from the default init's -inf starts."""
+    jt, pt = _pair(*SMALL)
+    d, C, S = jt.dim, 32, 16
+    x0 = _default_starts(pt, (C,), 4)
+    lp0 = np.asarray(jt.log_density_td(jnp.asarray(x0)))
+    assert np.isinf(lp0).any()
+    normals, u_mh, _ = make_draws(17, S, 1, d, C)
+    betas = np.ones(1, np.float32)
+    ref = run_jax_body(monkeypatch, jt, x0[:, None], betas,
+                       f32_sigmas(0.05, betas), (normals, u_mh, u_mh[:, :0]),
+                       0, 5, 10 ** 6)
+    state = rwm_state_from_numpy(dict(
+        x=x0, logp=lp0, accept_count=np.zeros(C, np.int32),
+        sum_sq_jump=np.zeros(C, np.float32), step=0), device=CPU)
+    r = run_rwm_fused(pt, 0, base_variance=0.05, num_chains=C,
+                      num_iterations=S, burn_in=5, resume_state=state,
+                      device=CPU, draws=(torch.from_numpy(normals[:, 0]),
+                                         torch.from_numpy(u_mh[:, 0])))
+    st = r.state
+    np.testing.assert_array_equal(st.accept_count.numpy(), ref[2][0])
+    np.testing.assert_allclose(st.x.numpy(), ref[0][:, 0], rtol=RTOL,
+                               atol=1e-6)
+    np.testing.assert_allclose(st.logp.numpy(), ref[1][0], rtol=RTOL)
+    np.testing.assert_allclose(st.sum_sq_jump.numpy(), ref[5], rtol=RTOL,
+                               atol=1e-6)
+
+
+# ------------------------------------------------------------ rates, harness
+def test_eager_rates_match_jax_scan():
+    """The eager RWM and PT engines' acceptance (per rung) and swap
+    acceptance against the JAX scan engine's at the reference's dataset:
+    within 5 Monte-Carlo standard errors."""
+    jt = JSuperFunnel.create_synthetic()
+    pt = SuperFunnel.create_synthetic(device=CPU)
+    d, var = jt.dim, 0.05
+    kw = dict(num_chains=512, num_iterations=200, burn_in=100)
+    jr = jrun_rwm(jt, JNormalProposal.create(d, var), jax.random.key(1), **kw)
+    r = run_rwm(pt, NormalProposal.create(d, var, device=CPU), 2,
+                device=CPU, **kw)
+    assert rate_z(r.acceptance_rate.numpy(),
+                  np.asarray(jr.acceptance_rate)) < 5
+    betas = np.asarray([1.0, 0.6, 0.35], np.float32)
+    kw = dict(num_chains=256, num_iterations=150, burn_in=100, swap_every=5)
+    jp = jrun_pt(jt, JNormalProposal.create(d, var), jax.random.key(3),
+                 jnp.asarray(betas), swap_sweep="sequential", **kw)
+    p = run_pt(pt, NormalProposal.create(d, var, device=CPU), 4, betas,
+               swap_sweep="sequential", device=CPU, **kw)
+    ja, acc = np.asarray(jp.acceptance_rate), p.acceptance_rate.numpy()
+    for t in range(len(betas)):
+        assert rate_z(acc[t], ja[t]) < 5, t
+    assert rate_z(p.swap_acceptance_rate.numpy(),
+                  np.asarray(jp.swap_acceptance_rate)) < 5
+
+
+def test_simulation_takes_dim_from_the_target():
+    """``dim=None`` takes the target's dim (26 at J = 5, K = 3), as JAX's
+    harness does (tests/test_rwm_correctness.py::
+    test_dim_derived_from_structured_target); the fused engine runs it."""
+    kw = dict(dim=None, sigma=0.1, num_iterations=40, algorithm="RWM",
+              target_dist="SuperFunnel", num_chains=8, burn_in=20,
+              record_chain=False, seed=2,
+              target_kwargs={"J": 5, "K": 3, "n_per_group": 20})
+    sim = TSim(device=CPU, **kw)
+    assert sim.dim == JSim(**kw).dim == 26
+    sim.generate_samples(verbose=False)
+    assert sim.engine_used == "pallas"
+    assert 0.0 <= float(np.mean(sim.acceptance_rate())) <= 1.0
+    pt = TSim(dim=None, sigma=0.01, num_iterations=20, algorithm="PT",
+              target_dist="SuperFunnel", num_chains=4, burn_in=10,
+              beta_ladder=[1.0, 0.5], swap_every=5, record_chain=False,
+              device=CPU)
+    pt.generate_samples(verbose=False)
+    assert pt.dim == 26 and pt.engine_used == "pallas"
+
+
+def test_iterative_ladder_refuses_as_jax_does():
+    """No direct sampler, so no iterative ladder: the JAX message."""
+    kw = dict(dim=None, sigma=0.1, num_iterations=10, algorithm="PT",
+              iterative_temp_spacing=True, target_dist="SuperFunnel",
+              num_chains=8)
+    with pytest.raises(NotImplementedError) as je:
+        JSim(**kw)
+    with pytest.raises(NotImplementedError, match="direct_sample") as te:
+        TSim(device=CPU, **kw)
+    assert "iterative temperature ladder" in str(je.value)
+    assert "iterative temperature ladder" in str(te.value)
+
+
+def test_cli_dim_and_study_json_keys(tmp_path):
+    """``resolve_actual_dim`` as JAX's, and ``experiment_rwm --target
+    SuperFunnel --cpu`` writes the JAX study's JSON keys."""
+    args = types.SimpleNamespace(target="SuperFunnel", dim=7,
+                                 super_funnel_J=4, super_funnel_K=2)
+    assert tdim(args) == jdim(args) == 4 + 8 + 1 + 2 + 2
+    argv = ["--target", "SuperFunnel", "--num_iters", "30", "--burn_in",
+            "10", "--num_configs", "2", "--num_chains", "8", "--var_max",
+            "1.0", "--seed", "4", "--no_plots", "--proposal", "Normal",
+            "--cpu"]
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jcli.main(argv + ["--output_dir", str(jdir)])
+    tcli.main(argv + ["--output_dir", str(tdir)])
+    (jfile,), (tfile,) = os.listdir(jdir), os.listdir(tdir)
+    assert tfile.startswith("SuperFunnel_Normal_") and "dim26" in tfile
+    with open(jdir / jfile) as f:
+        jdata = json.load(f)
+    with open(tdir / tfile) as f:
+        tdata = json.load(f)
+    assert set(tdata) == set(jdata)
+
+
+# ---------------------------------------------------- the kernel's layout
+def test_kernel_target_layout():
+    """Kind 12's parameter vector (``csrc/targets.cuh``): J, K, n, the
+    float32 constants as the plain version rounds them, X_cols, Y."""
+    pt = get_target_distribution("SuperFunnel", 0, J=4, K=2, n_per_group=6,
+                                 prior_hypermean_std=3.0,
+                                 prior_tau_scale=1.5, device=CPU)
+    kind, p = _build.kernel_target(pt)
+    assert kind == "super_funnel" and _build.TARGET_KINDS[kind] == 12
+    assert _build.target_kind(pt) == kind
+    J, K, n, head = 4, 2, 6, 10
+    assert p.dtype == torch.float32 and p.numel() == head + J * K * n + J * n
+    f = np.float32
+    l2p = np.log(2 * np.pi)
+    hv = f(3.0) * f(3.0)
+    np.testing.assert_array_equal(p[:3].numpy(), [4, 2, 6])
+    np.testing.assert_array_equal(p[3:head].numpy(), np.array([
+        f(-0.5 * J * l2p), f(-0.5 * J * K * l2p), hv,
+        f(f(-0.5 * l2p) - f(f(0.5) * np.log(hv))),
+        f(f(-0.5 * K * l2p) - f(f(0.5 * K) * np.log(hv))),
+        f(f(np.log(2.0) - np.log(np.pi)) - np.log(f(1.5))), f(1.5)],
+        np.float32))
+    np.testing.assert_array_equal(p[head:head + J * K * n].numpy(),
+                                  pt.X_cols.numpy().ravel())
+    np.testing.assert_array_equal(p[head + J * K * n:].numpy(),
+                                  pt.Y.numpy().ravel())
+    # the team kernels above 64 dimensions take it too
+    wide = get_target_distribution("SuperFunnel", 0, J=10, K=5, device=CPU)
+    assert wide.dim == 68 and _build.lib_name(
+        "fused_pt_lax_erfinv", "super_funnel", wide.dim).endswith(".w128")
+    assert _build.lib_name("fused_rwm", "super_funnel", 166).endswith(
+        ".w256")
+
+
+def test_geometry_counts_the_stage_row_and_refuses_oversized_data():
+    """The thread kernels' stage row (DMAX + 1 words a thread) is counted
+    for kind 12 only; a dataset that no block holds is refused with a
+    message that names its words, at d = 26 (bucket 32)."""
+    assert _build.row_words(32, kind="super_funnel") == \
+        _build.row_words(32) + 33
+    assert _build.row_words(32, kind="rosenbrock") == _build.row_words(32)
+    small = 10 + 15 * 20 + 5 * 20
+    g = _build.pt_block_geometry(96, 320, 26, 32, 8, 65536, "Normal",
+                                 "lax_erfinv", small, "super_funnel")
+    assert g.shared_bytes == _build.pt_shared_bytes(
+        small, 8, 26, g.replicas, 32, "Normal", "lax_erfinv",
+        "super_funnel") > _build.pt_shared_bytes(
+        small, 8, 26, g.replicas, 32, "Normal", "lax_erfinv")
+    r = _build.rwm_block_geometry(80, 128, 26, 32, 65536, "Normal",
+                                  "lax_erfinv", small, "super_funnel")
+    assert r.replicas == 128 and r.shared_bytes == 4 * (
+        128 * (36 + 33) + small)
+    big = 10 + 15 * 4000 + 5 * 4000
+    with pytest.raises(ValueError, match=f"{big} of its words"):
+        _build.pt_block_geometry(96, 320, 26, 32, 8, 65536, "Normal",
+                                 "lax_erfinv", big, "super_funnel")
+    with pytest.raises(ValueError, match=f"{big} of its words"):
+        _build.rwm_block_geometry(80, 128, 26, 32, 65536, "Normal",
+                                  "lax_erfinv", big, "super_funnel")
+    # the team kernels read parameters beyond the shared cap through L2
+    assert _build.params_shared_words(big) == 0
+    assert _build.pt_warp_shared_bytes(big, 8, 166, 1, 256, team=8,
+                                       kind="super_funnel") < \
+        _build.BLOCK_SHARED
