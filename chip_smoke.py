@@ -159,18 +159,26 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    the reference's synthetic dataset, drawn from JAX's threefry streams
    under seed 42): (a) every SuperFunnel library held against its plain
    version from the default init (most states start at -inf): the thread
-   kernels at J = 5, K = 3, n = 20 (d = 26, .d32; 2048 replicas or
-   chains, 200 steps) and, Normal only, at d = 8, 14 and 46 (.d8, .d16,
-   .d64; 50 steps), the team kernels at J = 10, K = 5 (d = 68, .w128) and
-   J = 40, K = 3 (d = 166, .w256) at every team size (50 steps), PT on
-   the geometric ladder (T = 8) and RWM, the Normal proposal with the
-   rule's draw, Laplace, UniformRadius and PT recorded; the MUFU
-   instructions of the observation loop from ``cuobjdump -sass``; (b) the
+   kernels built for the dataset's shape at J = 5, K = 3, n = 20 (d = 26,
+   .j5k3n20u2b3.d32 and .j5k3n20u4b1.d32; 2048 replicas or chains, 200
+   steps; the run-time-shape
+   library .d32 too, Normal) and, Normal only, at d = 8, 14 and 46, the
+   team kernels at J = 10, K = 5 (d = 68, .w128) and J = 40, K = 3
+   (d = 166, .w256) at every team size (50 steps), PT on the geometric
+   ladder (T = 8) and RWM, the Normal proposal with the rule's draw,
+   Laplace, UniformRadius and PT recorded; the MUFU and the instructions
+   an observation of both thread forms from ``cuobjdump -sass``; (b) the
    main paths through ``MCMCSimulation(target_dist="SuperFunnel")``, RWM
    at 65,536 chains and PT at 65,536 replicas x T = 8, 2000 steps, swap
    every 100, launch counters zeroed just before and read just after,
-   best of 3 through the entry point; each kernel alone at that size,
-   held against its plain version there, whose run counts the
+   best of 3 through the entry point, routed to the fixed-shape builds;
+   the run-time-shape library's entry point at n = 50 (a dataset too
+   large for the fixed builds; 4096 replicas x T = 8 or chains, 200
+   steps); each kernel alone at its path's size, held against its plain
+   version there on every replica (counters equal, lp rel diff 0), and
+   beside the fixed-shape builds, as a side record, the run-time-shape
+   library on their inputs (equal bit for bit); the plain version's run
+   counts the
    log-densities with valid taus (the only ones whose likelihood the
    kernels compute) for the bound (float32, int32 or MUFU); the team
    kernels through the entry point at d = 68 and 166 and timed and held
@@ -309,6 +317,12 @@ CAMPAIGN = dict(chains=512, burn_in=1000, stride=2, z_max=4.0)
 # and the ladder tuner's run; a Normal variance of 0.01 (the RWM
 # headline's acceptance on it is ~0.1)
 SF = dict(J=5, K=3, n=20)
+# observations a group of the dataset that the run-time-shape library
+# takes at the reference's J and K (1010 packed words, over the fixed-shape
+# builds' 896): phase 17b drives it through the entry point at
+# SF_RUN_TIME_PATH's size, where its kernels are timed and held
+SF_RUN_TIME_N = 50
+SF_RUN_TIME_PATH = dict(C=4096, iters=200)
 SF_THREAD_EDGES = ((2, 1), (3, 2), (10, 3))
 SF_WARP = ((10, 5), (40, 3))
 SF_HOLD = dict(C=2048, steps=200, edge_steps=50, warp_steps=50,
@@ -633,10 +647,10 @@ PROBE_INT_OPS = 2 * PHILOX_BLOCK_OPS // 8
 # = 1409 a log-density whose taus both exceed 1e-9; the kernels return -inf
 # after the taus' test (2) on the others and compute none of the rest, so
 # a run's work counts the likelihood on its valid evaluations alone
-# (:func:`sf_counted`).  An observation's expf is one MUFU.EX2; CUDA's
-# log1pf is a polynomial of FFMAs and takes none: SF_MUFU_PER_OBS = 1 (the
-# SASS of fused_pt_lax_erfinv.super_funnel.d32's observation loop, 82
-# instructions at K = 3, cuobjdump -sass; phase 17 reads it again and fails
+# (:func:`sf_counted`), whatever build computes it.  An observation's expf
+# is one MUFU.EX2; CUDA's log1pf is a polynomial of FFMAs and takes none:
+# SF_MUFU_PER_OBS = 1 (phase 17 reads the likelihood's SASS in the
+# fixed-shape and the run-time-shape libraries, :func:`sf_sass`, and fails
 # if it differs), which bound() counts for this kind alone at
 # PEAK_MUFU_OPS.
 SF_MUFU_PER_OBS = 1
@@ -2682,14 +2696,38 @@ def sf_target(get_target_distribution, J, K, dev):
                                    n_per_group=SF["n"], device=dev)
 
 
-def sf_mufu_per_obs(_build, name):
-    """MUFU instructions of the observation loop of library ``name``'s
-    kernels (``cuobjdump -sass``; in each kernel function, of the loops
-    between a backward branch's target and the branch, the innermost one
-    that holds a MUFU and a loop of its own, the covariates' loop; and
-    beside it the function's total), as ``{function: (in the loop, in the
-    function)}``; fails where the toolkit lacks cuobjdump.  The SASS goes
-    to ``smoke_out/super_funnel/``."""
+# SASS opcode -> the class phase 17 counts an observation's instructions in
+SASS_CLASSES = (("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)),
+                ("FMUL/FADD", ("FMUL", "FADD")),
+                ("compare/select", ("FSETP", "FSEL", "FMNMX", "FCHK")),
+                ("LDS", ("LDS",)), ("LDC", ("LDC", "ULDC")),
+                ("integer/index", ("IMAD", "IADD3", "LEA", "SHF", "LOP3",
+                                   "ISETP", "SEL", "IABS", "I2F", "F2I",
+                                   "MOV", "UMOV", "UIADD3", "ULEA", "USHF",
+                                   "UIMAD", "PRMT", "P2R", "R2P", "PLOP3")),
+                ("branch", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "WARPSYNC",
+                            "EXIT", "BREAK", "NOP")))
+
+
+def sass_class(line):
+    """The class (:data:`SASS_CLASSES`) of a SASS instruction line."""
+    m = re.search(r"\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_]*)", line)
+    op = m.group(1) if m else ""
+    return next((c for c, ops in SASS_CLASSES if op in ops), "other")
+
+
+def sf_sass(_build, name):
+    """The SuperFunnel likelihood's code in library ``name``'s kernels
+    (``cuobjdump -sass``, written to ``smoke_out/super_funnel/``), per
+    kernel function ``{function: (MUFU an observation, instructions an
+    observation, {class: instructions an observation})}``, static counts:
+    the run-time-shape library's observation loop (of the loops between a
+    backward branch's target and the branch, the innermost that holds a
+    MUFU and a loop of its own, the covariates'; one observation a trip);
+    a fixed-shape build's (``_build.fixed_shape``) loop that reads the
+    observations' words with LDC at a register index, ``unroll`` of them a
+    trip (a build unrolled whole has no such loop: its counts are 0).
+    Fails where the toolkit lacks cuobjdump."""
     exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(exe):
         fail(f"no cuobjdump beside nvcc ({exe}): phase 17 cannot read the "
@@ -2700,9 +2738,13 @@ def sf_mufu_per_obs(_build, name):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{name}.sass"), "w") as f:
         f.write(sass)
+    sf = _build.fixed_shape(name)
     out = {}
     for part in sass.split("Function : ")[1:]:
-        fn = part.split()[0]
+        # the kernel's template arguments: <kind, bucket[, replicas]>
+        m = re.search(r"_kernelI((?:Li-?\d+E)+)E", part.split()[0])
+        fn = "<" + ",".join(re.findall(r"Li(-?\d+)E", m.group(1) if m
+                                       else "")) + ">"
         code = [(int(m.group(1), 16), ln) for ln in part.splitlines()
                 for m in [re.search(r"/\*([0-9a-f]{4,})\*/", ln)] if m]
         loops = []
@@ -2711,11 +2753,24 @@ def sf_mufu_per_obs(_build, name):
             if br and int(br.group(1), 16) < a:
                 t = int(br.group(1), 16)
                 loops.append((t, a, [x for b, x in code if t <= b <= a]))
-        inner = [lp for t, a, lp in loops if any("MUFU" in x for x in lp)
-                 and any(t <= t2 and a2 < a for t2, a2, _ in loops)]
-        body = min(inner, key=len) if inner else []
-        out[fn] = (sum("MUFU" in x for x in body),
-                   sum("MUFU" in x for _, x in code))
+        if sf is None:
+            per = 1
+            runs = [lp for t, a, lp in loops
+                    if any("MUFU" in x for x in lp)
+                    and any(t <= t2 and a2 < a for t2, a2, _ in loops)]
+        else:
+            per = sf["unroll"]
+            runs = [lp for _, _, lp in loops
+                    if any("MUFU" in x for x in lp) and any(
+                        re.search(r"LDC[^;]*c\[0x0\]\[R", x) for x in lp)]
+        runs = [min(runs, key=len)] if runs else []
+        n_ins = sum(len(r) for r in runs)
+        if not runs:
+            out[fn] = (0.0, 0.0, {})
+            continue
+        classes = Counter(sass_class(x) for r in runs for x in r)
+        out[fn] = (classes["MUFU"] / per, n_ins / per,
+                   {c: round(v / per, 2) for c, v in classes.items()})
     return out
 
 
@@ -2835,14 +2890,17 @@ def phase_17(torch, gen):
     for tg, steps, c_pt, c_rwm, props in shapes:
         for algo in ("pt", "rwm"):
             C = c_pt if algo == "pt" else c_rwm
-            variants = props + ([("Normal", True)] if algo == "pt"
-                                and len(props) > 1 else [])
-            for prop, record in variants:
+            # the reference's dataset: also its run-time-shape library
+            variants = [v + (True,) for v in props] + (
+                [("Normal", True, True)] if algo == "pt" and len(props) > 1
+                else []) + ([("Normal", False, False)] if tg is thread_tg
+                            else [])
+            for prop, record, spec in variants:
                 launch, plain, names, args, kw, _ = case(
                     algo, tg, steps, C, prop=prop, record=record)
-                lib = _build.lib_name(_build.library(f"fused_{algo}",
-                                                     kw["kind"], kw["draw"]),
-                                      "super_funnel", tg.dim)
+                lib = _build.route(_build.library(f"fused_{algo}",
+                                                  kw["kind"], kw["draw"]),
+                                   tg, specialize=spec)[0]
                 starts = torch.isinf(tg.log_density_td(args[1])).float() \
                     .mean().item()
                 plain_ms, p = cuda_ms(torch, lambda: plain(*args, **kw))
@@ -2854,7 +2912,8 @@ def phase_17(torch, gen):
                                 _build.warp_bucket(tg.dim), team):
                         continue
                     reset_launches(*wrappers)
-                    tkw = dict(kw) if team is None else dict(kw, team=team)
+                    tkw = (dict(kw, specialize=spec) if team is None
+                           else dict(kw, team=team))
                     ms, k = cuda_ms(torch, lambda: launch(*args, **tkw))
                     seen = read_launches(*wrappers, by_kind=True)
                     ag = agreement.hold(k, p, names,
@@ -2879,19 +2938,28 @@ def phase_17(torch, gen):
     say(f"phase 17a {time.time() - t_phase:.1f} s: {n_holds} holds; least "
         f"share of replicas that agree {worst:.5f}")
 
-    # the observation loop's MUFU instructions, from the SASS
-    sass_lib = _build.lib_name(_build.library("fused_pt", "Normal",
-                                              rule["pt"]),
-                               "super_funnel", thread_tg.dim)
-    mufu = sf_mufu_per_obs(_build, sass_lib)
-    mufu_obs = max(v[0] for v in mufu.values())
-    say(f"phase 17 SASS {sass_lib}: MUFU (in the observation loop, the "
-        f"innermost loop with a MUFU and a loop in it; in the kernel) "
-        f"{mufu}; the bound counts SF_MUFU_PER_OBS = {SF_MUFU_PER_OBS} an "
-        f"observation")
-    if mufu_obs != SF_MUFU_PER_OBS:
-        fail(f"phase 17: the observation loop holds {mufu_obs} MUFU, the "
-             f"bound counts {SF_MUFU_PER_OBS}")
+    # the likelihood's MUFU and instructions an observation, from the SASS
+    # of the fixed-shape and the run-time-shape libraries
+    sass = {}
+    for algo in ("pt", "rwm"):
+        for spec in (True, False):
+            sass_lib = _build.route(_build.library(
+                f"fused_{algo}", "Normal", rule[algo]), thread_tg,
+                specialize=spec)[0]
+            per_fn = sf_sass(_build, sass_lib)
+            sass[sass_lib] = per_fn
+            say(f"phase 17 SASS {sass_lib} (static, per kernel "
+                f"instantiation <kind, bucket[, replicas]>): MUFU, "
+                f"instructions and their classes an observation "
+                + "; ".join(f"{fn} {m:.3f} MUFU, {i:.2f} instructions "
+                            f"{cls}" for fn, (m, i, cls) in per_fn.items())
+                + f"; the bound counts SF_MUFU_PER_OBS = {SF_MUFU_PER_OBS}")
+            # exact: both are loops, a whole number of observations a trip
+            if not per_fn or any(m != SF_MUFU_PER_OBS
+                                 for m, _, _ in per_fn.values()):
+                fail(f"phase 17: {sass_lib}'s likelihood holds "
+                     f"{[m for m, _, _ in per_fn.values()]} MUFU an "
+                     f"observation, the bound counts {SF_MUFU_PER_OBS}")
 
     # ---- (b) the main paths through MCMCSimulation
     main_seen = Counter()
@@ -2912,10 +2980,11 @@ def phase_17(torch, gen):
         torch.cuda.synchronize()
         seen = read_launches(*wrappers, by_kind=True)
         main_seen.update(seen)
-        lib = _build.library(f"fused_{algo.lower()}", "Normal",
-                             rule[algo.lower()])
-        key = f"{lib}.super_funnel"
-        if dict(seen) != {key: 1} or sim.engine_used != "pallas":
+        key = _build.launch_key(_build.route(_build.library(
+            f"fused_{algo.lower()}", "Normal", rule[algo.lower()]),
+            thread_tg)[0])
+        if dict(seen) != {key: 1} or sim.engine_used != "pallas" or \
+                _build.fixed_shape(key + ".d32") is None:
             fail(f"phase 17b {algo}: launches {dict(seen)}, engine "
                  f"{sim.engine_used}")
         res = sim._result
@@ -2945,6 +3014,37 @@ def phase_17(torch, gen):
             f"{torch.isinf(lp).float().mean().item():.5f}")
         del sim, res
         torch.cuda.empty_cache()
+
+    # the run-time-shape library's entry point: a dataset of the reference's
+    # J and K too large for the fixed-shape builds (SF_RUN_TIME_N a group)
+    run_time_tg = get_target_distribution(
+        "SuperFunnel", 0, J=SF["J"], K=SF["K"], n_per_group=SF_RUN_TIME_N,
+        device=dev)
+    for algo in ("RWM", "PT"):
+        sim = MCMCSimulation(
+            dim=None, sigma=var, num_iterations=SF_RUN_TIME_PATH["iters"],
+            algorithm=algo, target_dist="SuperFunnel",
+            target_kwargs={"n_per_group": SF_RUN_TIME_N},
+            beta_ladder=ladder if algo == "PT" else None,
+            num_chains=SF_RUN_TIME_PATH["C"],
+            swap_every=SF_MAIN["swap_every"], record_chain=False, device=dev)
+        reset_launches(*wrappers)
+        sim.generate_samples(verbose=False)
+        seen = read_launches(*wrappers, by_kind=True)
+        main_seen.update(seen)
+        key = _build.launch_key(_build.lib_name(_build.library(
+            f"fused_{algo.lower()}", "Normal", rule[algo.lower()]),
+            "super_funnel", sim.dim))
+        if dict(seen) != {key: 1} or sim.engine_used != "pallas" or \
+                not torch.isfinite(sim._result.state.x).all():
+            fail(f"phase 17b run-time shape {algo}: launches {dict(seen)}, "
+                 f"engine {sim.engine_used}")
+        say(f"phase 17b MCMCSimulation SuperFunnel {algo} n_per_group="
+            f"{SF_RUN_TIME_N} (d={sim.dim}, {SF_RUN_TIME_PATH['C']}, "
+            f"{SF_RUN_TIME_PATH['iters']} steps; the run-time-shape "
+            f"library): launches {dict(seen)}, acc "
+            f"{sim._result.acceptance_rate.float().mean().item():.4f}")
+        del sim
 
     # the team kernels' entry points: RWM and PT at d = 68 and 166
     for J, K in SF_WARP:
@@ -3005,60 +3105,103 @@ def phase_17(torch, gen):
         fail("phase 17b fused and eager rates disagree on SuperFunnel")
     del fz, ez, fr, er
 
-    # each kernel alone, best of 3, at the main path's size (the thread
-    # kernels) and at SF_TEAM_TIME's (the team kernels, at the team size
-    # the geometry picks), held against its plain version there, whose run
-    # counts the valid log-densities that the bound's work counts
+    # each kernel alone, best of 3, at its path's size: the thread kernels
+    # at the main path's (the fixed-shape builds) and at the n = 50 entry
+    # point's (the run-time-shape library), the team kernels at
+    # SF_TEAM_TIME's at the team size the geometry picks; each held
+    # against its plain version there, whose run counts the valid
+    # log-densities that the bound's work counts
     records = [(thread_tg, algo, C, iters) for algo in ("pt", "rwm")]
+    records += [(run_time_tg, algo, SF_RUN_TIME_PATH["C"],
+                 SF_RUN_TIME_PATH["iters"]) for algo in ("pt", "rwm")]
     records += [(sf_target(get_target_distribution, J, K, dev), algo,
                  SF_TEAM_TIME["C_pt" if algo == "pt" else "C_rwm"],
                  SF_TEAM_TIME["steps"])
                 for J, K in SF_WARP for algo in ("pt", "rwm")]
     for tg, algo, cc, steps in records:
-        lib = _build.lib_name(_build.library(f"fused_{algo}", "Normal",
-                                             rule[algo]),
-                              "super_funnel", tg.dim)
-        key = _build.launch_key(lib)
-        warp = _build.is_warp(lib)
+        variant = _build.library(f"fused_{algo}", "Normal", rule[algo])
         launch, plain, names, args, kw, work_of = case(
             algo, tg, steps, cc, burn_in=0, swap_every=SF_MAIN["swap_every"])
-        ms, k = cuda_ms(torch, lambda: launch(*args, **kw), reps=3)
         plain_ms, (p, valid) = cuda_ms(
             torch, lambda: sf_counted(plain, args, kw))
-        ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
-        if ag.frac < AGREE_MIN or ag.mismatched:
-            fail(f"phase 17 {lib} disagrees with its plain version: "
-                 f"{agreement.describe(ag)}")
         flops, int_ops, nbytes, mufu_n = work = work_of(valid)
         b_ms, b_by, b_lim = bound(*work)
         evals = cc * (T if algo == "pt" else 1) * (steps + 1)
+        n_obs = tg.Y.shape[1]
+        lib = _build.route(variant, tg)[0]
+        key = _build.launch_key(lib)
+        warp = _build.is_warp(lib)
+        what = (f"at {cc} "
+                f"{'replicas x T=%d' % T if algo == 'pt' else 'chains'}, "
+                f"{steps} steps")
+
+        def held(spec, lib):
+            """(ms, outputs, agreement) of ``lib`` launched as the route
+            takes it (``spec``: specialize=), held against the plain
+            version: every replica, lp rel diff 0, in a thread kernel."""
+            ms, k = cuda_ms(torch, lambda: launch(*args, **kw, **(
+                {} if spec else {"specialize": False})), reps=3)
+            ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+            strict = not warp and (ag.frac < 1.0 or
+                                   ag.max_rel.get("lp", 0.0) != 0.0)
+            if ag.frac < AGREE_MIN or ag.mismatched or strict:
+                fail(f"phase 17 {lib} disagrees with its plain version "
+                     f"{what}: {agreement.describe(ag)}")
+            return ms, k, ag
+
+        ms, k, ag = held(True, lib)
         team = (_build.launch_geometry(
-            lib, tg.dim, cc, T if algo == "pt" else 0, "Normal", rule[algo],
-            _build.kernel_target(tg)[1].numel()).team if warp else None)
-        say(f"phase 17 {lib} (J={tg.J}, K={tg.K}, d={tg.dim}"
-            f"{f', G={team}' if warp else ''}) at {cc} "
-            f"{'replicas x T=%d' % T if algo == 'pt' else 'chains'}, {steps} "
-            f"steps: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
-            f"{valid} of {evals} log-densities valid "
-            f"({100 * valid / evals:.2f} %); bound {b_ms:.3f} ms by {b_lim} "
-            f"({100 * b_ms / ms:.1f} % of it reached; {flops:.4g} flops, "
-            f"{int_ops:.4g} Philox int ops, {mufu_n:.4g} MUFU, {nbytes:.4g} "
-            f"B); {agreement.describe(ag)}")
-        kernels.append(dict(
+            lib, tg.dim, cc, T if algo == "pt" else 0, "Normal",
+            rule[algo], _build.kernel_target(tg)[1].numel()).team
+            if warp else None)
+        say(f"phase 17 {lib} (J={tg.J}, K={tg.K}, n={n_obs}, d={tg.dim}"
+            f"{f', G={team}' if warp else ''}) {what}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms; {valid} of {evals} log-densities "
+            f"valid ({100 * valid / evals:.2f} %); bound {b_ms:.3f} ms by "
+            f"{b_lim} ({100 * b_ms / ms:.1f} % of it reached; "
+            f"{flops:.4g} flops, {int_ops:.4g} Philox int ops, "
+            f"{mufu_n:.4g} MUFU, {nbytes:.4g} B); {agreement.describe(ag)}")
+        rec = dict(
             name=key, route="cuda",
             source=f"rwm_pt_tpu_torch/kernels/csrc/fused_{algo}"
                    f"{'_warp' if warp else ''}.cu",
-            replaces=("rwm_pt_tpu/kernels/pallas_pt.py:399" if algo == "pt"
-                      else "rwm_pt_tpu/kernels/pallas_rwm.py:570"),
+            replaces=("rwm_pt_tpu/kernels/pallas_pt.py:399"
+                      if algo == "pt" else
+                      "rwm_pt_tpu/kernels/pallas_rwm.py:570"),
             launches=main_seen[key], max_abs_err=ag.max_dx, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, steps=steps, chains=cc, agree_frac=ag.frac,
             max_rel_err=ag.max_rel, flops=flops, philox_int_ops=int_ops,
             mufu=mufu_n, bytes=nbytes, bound_limit=b_lim,
             bound_share=b_ms / ms, valid_share=valid / evals, dim=tg.dim,
-            J=tg.J, K=tg.K, n=SF["n"], team=team,
-            mufu_per_obs_sass=mufu_obs))
-        del args, k, p
+            J=tg.J, K=tg.K, n=n_obs, team=team,
+            fixed_shape=_build.fixed_shape(lib) is not None,
+            sass_per_obs={fn: dict(mufu=m, instructions=i)
+                          for fn, (m, i, _) in sass.get(lib, {}).items()})
+        if rec["fixed_shape"]:
+            # a side record: the run-time-shape library on the same inputs,
+            # held alike and equal to the fixed-shape build bit for bit
+            rt_lib = _build.route(variant, tg, specialize=False)[0]
+            rt_ms, rt, rt_ag = held(False, rt_lib)
+            same = [torch.equal(x, y) for x, y in zip(k, rt)]
+            say(f"phase 17 side record {rt_lib} on {lib}'s inputs {what}: "
+                f"kernel {rt_ms:.3f} ms ({100 * b_ms / rt_ms:.1f} % of the "
+                f"bound); {agreement.describe(rt_ag)}; outputs equal to the "
+                f"fixed-shape build's bit for bit: "
+                f"{dict(zip(names, same))}")
+            if not all(same):
+                fail(f"phase 17 {variant}: the fixed-shape and the run-time "
+                     f"libraries part ways")
+            rec["run_time_on_these_inputs"] = dict(
+                name=_build.launch_key(rt_lib), ms=rt_ms,
+                bound_share=b_ms / rt_ms, agree_frac=rt_ag.frac,
+                max_abs_err=rt_ag.max_dx, equal_bit_for_bit=True,
+                sass_per_obs={fn: dict(mufu=m, instructions=i)
+                              for fn, (m, i, _) in
+                              sass.get(rt_lib, {}).items()})
+            del rt
+        kernels.append(rec)
+        del args, p, k
         torch.cuda.empty_cache()
 
     # ---- (c) the RWM study at launch_rwm_pod.sh's shape, 4 configs
@@ -3073,7 +3216,8 @@ def phase_17(torch, gen):
             "--num_configs", str(SF_STUDY_CONFIGS), "--no_plots",
             "--output_dir", os.path.join(out_dir, "study")])
     seen = read_launches(*wrappers, by_kind=True)
-    key = f"{_build.library('fused_rwm', 'Normal', rule['rwm'])}.super_funnel"
+    key = _build.launch_key(_build.route(
+        _build.library("fused_rwm", "Normal", rule["rwm"]), thread_tg)[0])
     if dict(seen) != {key: SF_STUDY_CONFIGS}:
         fail(f"phase 17c study launches {dict(seen)}")
     missing = SF_STUDY_KEYS - set(data)
@@ -3100,8 +3244,9 @@ def phase_17(torch, gen):
     sim.generate_samples(verbose=False)
     seen = read_launches(*wrappers, by_kind=True)
     lad = sim.tuned_ladder
-    if (dict(seen) != {f"{_build.library('fused_pt', 'Normal', rule['pt'])}"
-                       ".super_funnel": 1} or sim.engine_used != "pallas"
+    if (dict(seen) != {_build.launch_key(_build.route(_build.library(
+            "fused_pt", "Normal", rule["pt"]), thread_tg)[0]): 1}
+            or sim.engine_used != "pallas"
             or not (lad[0] == 1.0 and all(b < a for a, b in
                                           zip(lad, lad[1:])))):
         fail(f"phase 17d: launches {dict(seen)}, ladder {lad}")
@@ -3126,7 +3271,9 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     src, pc, dc, _, dmax, blocks = _build._parts(name)
     prop = next(p for p, (_, c) in _build.PROPOSALS.items() if c == pc)
     draw = next(k for k, (_, c) in _build.DRAWS.items() if c == dc)
-    d = d or (dmax - 4 if _build.is_warp(name) else dmax)
+    sf = _build.fixed_shape(name)
+    d = d or (sf["dim"] if sf else dmax - 4 if _build.is_warp(name)
+              else dmax)
     pt = src.startswith("fused_pt")
     geo = _build.launch_geometry(name, d, 65536, T if pt else 0, prop, draw,
                                  n_params)
@@ -3194,14 +3341,22 @@ def smoke_libraries(_build):
     names.append(lib(_build.library("fused_rwm", "UniformRadius",
                                     resolve_normal_impl("rwm", STUDY["C"])),
                      "rough_carpet", STUDY["dim"], warp=True))
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+    sf = {(J, K, n): get_target_distribution(
+        "SuperFunnel", 0, J=J, K=K, n_per_group=n, device="cpu")
+        for J, K, n in ((SF["J"], SF["K"], SF["n"]),
+                        (SF["J"], SF["K"], SF_RUN_TIME_N))
+        + tuple((J, K, SF["n"]) for J, K in SF_WARP + SF_THREAD_EDGES)}
     for a in ("pt", "rwm"):                                      # 17
         rule = resolve_normal_impl(a, 65536, "super_funnel")
-        names += [lib(_build.library(f"fused_{a}", p, rule), "super_funnel",
-                      J + J * K + K + 3) for p in _build.PROPOSALS
+        names += [_build.route(_build.library(f"fused_{a}", p, rule),
+                               sf[J, K, SF["n"]])[0]
+                  for p in _build.PROPOSALS
                   for J, K in ((SF["J"], SF["K"]),) + SF_WARP]
-        names += [lib(_build.library(f"fused_{a}", "Normal", rule),
-                      "super_funnel", J + J * K + K + 3)
+        v = _build.library(f"fused_{a}", "Normal", rule)
+        names += [_build.route(v, sf[J, K, SF["n"]])[0]
                   for J, K in SF_THREAD_EDGES]
+        names.append(_build.route(v, sf[SF["J"], SF["K"], SF_RUN_TIME_N])[0])
     return list(dict.fromkeys(names))
 
 
@@ -3251,7 +3406,9 @@ def main():
                          for n, r, f, sp in entries)
         frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
         if kname != _build.PROBES:
-            line += "; " + occupancy(torch, _build, kname)
+            line += "; " + occupancy(   # SuperFunnel: its ladder's T = 8
+                torch, _build, kname,
+                T=8 if ".super_funnel." in kname else 10)
         say(f"phase 2 build {kname}: {line}")
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
         f"target kind and register bucket) in {build_s:.1f} s")

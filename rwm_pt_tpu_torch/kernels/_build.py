@@ -17,6 +17,15 @@ Above 64 dimensions the same variants build from ``csrc/<kernel>_warp.cu``
 the team sizes G the library instantiates (:data:`WARP_TEAMS`, a mask of
 powers of two); the launcher takes one of them (:func:`choose_team`).
 
+SuperFunnel (kind 12) at d <= 64 builds with its dataset's shape fixed,
+as the TPU kernel fixes it at trace time: ``lib<variant>.super_funnel.
+j<J>k<K>n<n>u<u>b<b>.d<D>`` with ``-DRWM_PT_SF_J=<J> -DRWM_PT_SF_K=<K>
+-DRWM_PT_SF_N=<n> -DRWM_PT_SF_UNROLL=<u> -DRWM_PT_MINBLOCKS=<b>``
+(:func:`sf_tag`: the build's choices are in its name), the dataset
+packed by :func:`sf_pack` into a kernel parameter; :func:`route` takes
+it wherever the dataset fits (:func:`sf_shape`), the run-time-shape
+library ``lib<variant>.super_funnel.d<D>`` elsewhere.
+
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
 draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
 proposals and ``_bm``, ``_icdf_fastlog``, ``_lax_erfinv`` or
@@ -53,6 +62,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from collections import Counter
@@ -99,7 +109,8 @@ MIN_BLOCKS = {"fused_pt": 2, "fused_rwm": 1}
 # quadratic form, one block at d16 and no launch bound at all (0: the
 # compiler takes the registers it needs and a block holds the threads they
 # allow) at d32, and Hypercube's and SuperFunnel's PT at d32, one block
-# (SuperFunnel's Normal and Laplace builds spilled 16-40 B at 96 registers).
+# (SuperFunnel's Normal and Laplace builds spilled 16-40 B at 96 registers;
+# its fixed-shape builds, which stage nothing, take SF_MIN_BLOCKS).
 FEWER_BLOCKS = {("fused_pt", "mvn_full", 16): 1,
                 ("fused_pt", "mvn_full", 32): 0,
                 ("fused_pt", "hypercube", 32): 1,
@@ -185,16 +196,24 @@ def warp_bucket(dim: int) -> int:
         "Queue A item 15, the remainder above d = 252)")
 
 
-def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None
-             ) -> str:
+def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None,
+             sf: str | None = None) -> str:
     """Library of kernel variant ``variant`` for target kind ``kind`` at
     ``dim`` coordinates: its register bucket ``.d<D>`` up to 64
     coordinates, its warp bucket ``.w<D>`` above (``warp=True`` takes the
-    warp kernel at any d, for comparing the two layouts)."""
+    warp kernel at any d, for comparing the two layouts); ``sf``, a
+    SuperFunnel dataset shape (:func:`sf_tag`), names the build with that
+    shape fixed, ``<variant>.super_funnel.<sf>.d<D>``."""
     if variant not in VARIANTS or kind not in TARGET_KINDS:
         raise ValueError(f"no library {variant}.{kind}")
     if warp is None:
         warp = dim > BUCKETS[-1]
+    if sf is not None:
+        shape = fixed_shape(f"{variant}.{kind}.{sf}.d0")
+        if warp or shape is None or shape["dim"] != dim:
+            raise ValueError(f"no fixed-shape library {variant}.{kind}.{sf} "
+                             f"at d={dim}")
+        return f"{variant}.{kind}.{sf}.d{bucket(dim)}"
     if warp:
         return f"{variant}.{kind}.w{warp_bucket(dim)}"
     return f"{variant}.{kind}.d{bucket(dim)}"
@@ -217,7 +236,8 @@ def min_blocks(source: str, kind: str, dmax: int) -> int:
     """Blocks of the launch bound an SM must hold (``-DRWM_PT_MINBLOCKS``)
     for kernel ``source`` on target kind ``kind`` at register bucket
     ``dmax``: :data:`MIN_BLOCKS` up to the 32 bucket, one block above it,
-    :data:`FEWER_BLOCKS` where the capped build spills."""
+    :data:`FEWER_BLOCKS` where the capped build spills (a SuperFunnel
+    build of fixed shape names its own, :func:`sf_tag`)."""
     if dmax > 32 or source.endswith(WARP):
         return 1
     return FEWER_BLOCKS.get((source, kind, dmax), MIN_BLOCKS[source])
@@ -227,16 +247,97 @@ def _parts(name: str):
     """(source, proposal code, draw code, kind code, bucket, min blocks) of
     a library name ``<variant>.<kind>.d<D>`` or ``<variant>.<kind>.w<D>``
     (a warp bucket: source ``<kernel>_warp``, whose launch bound is fixed
-    in its source)."""
-    variant, kind, tag = name.split(".")
+    in its source), or ``<variant>.super_funnel.<sf>.d<D>`` (a fixed
+    dataset shape, :func:`fixed_shape`)."""
+    parts = name.split(".")
+    shape = fixed_shape(name)
+    if len(parts) == 4 and shape is not None:
+        parts = parts[:2] + parts[3:]
+    variant, kind, tag = parts
     src, pc, dc = VARIANTS[variant]
-    if tag[0] not in "dw":
+    if tag[0] not in "dw" or (shape is not None and tag[0] != "d"):
         raise ValueError(f"no library {name}")
     dmax = int(tag[1:])
     if tag[0] == "w":
         src += WARP
-    return (src, pc, dc, TARGET_KINDS[kind], dmax,
-            min_blocks(src, kind, dmax))
+    blocks = (min_blocks(src, kind, dmax) if shape is None
+              else shape["blocks"])
+    return src, pc, dc, TARGET_KINDS[kind], dmax, blocks
+
+
+# ------------------------------------------ SuperFunnel of a fixed shape
+SF_HEAD = 10    # csrc/targets.cuh::kSuperFunnelHead, the words before X
+# csrc/targets.cuh::kSuperFunnelFixedMaxWords: the packed dataset's words
+# that a fixed-shape build may take as a kernel parameter (3,584 of the 4 KB
+# of a kernel's parameters; the other arguments take < 512 B)
+SF_FIXED_MAX_WORDS = 896
+# Per source, a fixed-shape build's observations a trip of its
+# observation loop and blocks of the launch bound an SM (PT: of 256
+# threads, csrc/fused_pt.cu::kBlockThreads), the fastest measured with no
+# stack frame or spill (scripts/bench_torch_super_funnel.py on an H100,
+# PERF.md §6): PT 2 at 3 blocks (80 registers, 24 warps an SM at T = 8), RWM 4
+# with no cap (its caps lost, and unrolling 2 lost 21 % at the study's
+# 1024 chains).  A comparison sets them and names the builds again.
+SF_UNROLL = {"fused_pt": 2, "fused_rwm": 4}
+SF_MIN_BLOCKS = {"fused_pt": 3, "fused_rwm": 1}
+_SF_TAG = re.compile(r"j(\d+)k(\d+)n(\d+)u(\d+)b(\d+)")
+
+
+def sf_words(J: int, K: int, n: int) -> int:
+    """Words of a SuperFunnel dataset of J groups, K covariates and n
+    observations a group, packed by :func:`sf_pack` (as many as the
+    run-time parameter vector has)."""
+    return SF_HEAD + J * n * (K + 1)
+
+
+def sf_tag(J: int, K: int, n: int, source: str) -> str:
+    """The library-name tag of a fixed SuperFunnel shape built from kernel
+    ``source``, ``j<J>k<K>n<n>u<u>b<b>``: the dataset's shape, then the
+    build's observations a trip of its loop (:data:`SF_UNROLL`, at most n)
+    and blocks of its launch bound an SM (:data:`SF_MIN_BLOCKS` up to the
+    32 bucket, one above it)."""
+    blocks = SF_MIN_BLOCKS[source] if bucket(J + J * K + K + 3) <= 32 else 1
+    return f"j{J}k{K}n{n}u{min(SF_UNROLL[source], n)}b{blocks}"
+
+
+def fixed_shape(name: str) -> dict | None:
+    """``{J, K, n, dim, unroll, blocks}`` of library ``name`` if it is a
+    SuperFunnel build of fixed shape (:func:`sf_tag`), else None."""
+    parts = name.split(".")
+    m = _SF_TAG.fullmatch(parts[2]) if len(parts) == 4 else None
+    if m is None or parts[0] not in VARIANTS or parts[1] != "super_funnel":
+        return None
+    J, K, n, unroll, blocks = (int(v) for v in m.groups())
+    return dict(J=J, K=K, n=n, dim=J + J * K + K + 3, unroll=unroll,
+                blocks=blocks)
+
+
+def sf_shape(kind: str, dim: int, params: torch.Tensor,
+             warp: bool | None = None) -> tuple[int, int, int] | None:
+    """``(J, K, n)`` of a SuperFunnel launch that a fixed-shape build takes:
+    kind 12 on the thread kernels (d <= 64, ``warp`` not True) whose packed
+    dataset fits :data:`SF_FIXED_MAX_WORDS`; None for any other launch
+    (which takes the run-time-shape library)."""
+    if kind != "super_funnel" or warp or dim > BUCKETS[-1]:
+        return None
+    J, K, n = (int(v) for v in params[:3].tolist())
+    return (J, K, n) if sf_words(J, K, n) <= SF_FIXED_MAX_WORDS else None
+
+
+def sf_pack(params: torch.Tensor) -> torch.Tensor:
+    """The fixed-shape builds' dataset (``csrc/targets.cuh::
+    SuperFunnelFixed``) from SuperFunnel's run-time parameter vector
+    (:func:`kernel_target`: the head, X_cols (J K, n), Y (J, n)): the head,
+    then for each group j and observation i the K signed covariates
+    X'_jki = sigma_ji X_jki and sigma_ji = -1 where Y_ji != 0, else +1
+    (f32, on the CPU; the launcher copies it into a kernel parameter)."""
+    J, K, n = (int(v) for v in params[:3].tolist())
+    X = params[SF_HEAD:SF_HEAD + J * K * n].reshape(J, K, n)
+    Y = params[SF_HEAD + J * K * n:].reshape(J, n)
+    sign = torch.where(Y != 0, -1.0, 1.0).to(torch.float32)
+    obs = torch.cat([(X * sign[:, None, :]).permute(0, 2, 1),
+                     sign[..., None]], dim=2)
+    return torch.cat([params[:SF_HEAD], obs.reshape(-1)]).cpu().contiguous()
 
 
 def _source(name: str) -> str:
@@ -247,11 +348,15 @@ def _flags(name: str) -> list[str]:
     if name == PROBES:
         return list(NVCC_FLAGS)
     src, pc, dc, kc, dmax, blocks = _parts(name)
-    teams = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
+    extra = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
              if src.endswith(WARP) else [])
+    sf = fixed_shape(name)
+    if sf is not None:
+        extra = [f"-DRWM_PT_SF_{k.upper()}={sf[k]}"
+                 for k in ("J", "K", "n", "unroll")]
     return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={pc}", f"-DRWM_PT_NORMAL={dc}",
                          f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}",
-                         f"-DRWM_PT_MINBLOCKS={blocks}"] + teams
+                         f"-DRWM_PT_MINBLOCKS={blocks}"] + extra
 
 
 def _lib_path(name: str) -> Path:
@@ -283,7 +388,7 @@ def build(names) -> dict[str, str]:
     yet, one ``nvcc`` each, all started together.  Returns ``{name: ptxas
     report}``; raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    names = list(names)
+    names = list(dict.fromkeys(names))
     procs = {}
     for name in names:
         out = _lib_path(name)
@@ -345,7 +450,8 @@ SM_WARPS, SM_BLOCKS = 64, 32
 SM_SHARED = 228 * 1024       # shared memory with the carveout at its most
 BLOCK_SHARED = 227 * 1024    # a block's most dynamic shared memory
 BLOCK_RESERVED = 1024        # shared memory the system keeps for each block
-PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads
+PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads (256 at a
+#                              fixed SuperFunnel shape)
 PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
 # warp bucket -> the warps a block of csrc/fused_pt_warp.cu's one-warp-a-
@@ -394,24 +500,29 @@ STAGE_ROW_KINDS = ("super_funnel",)
 
 
 def row_words(dmax: int, proposal: str = "Normal",
-              draw: str = "icdf", kind: str | None = None) -> int:
+              draw: str = "icdf", kind: str | None = None,
+              fixed: bool = False) -> int:
     """Shared-memory words a thread's rows take (``csrc/mh.cuh``): the
     state row, DMAX + 4 words (16-byte accesses, no bank conflicts), for
     Box-Muller normals the sine row, DMAX/2 + 1 (odd), and for
-    :data:`STAGE_ROW_KINDS` the stage row, DMAX + 1 (odd)."""
+    :data:`STAGE_ROW_KINDS` the stage row, DMAX + 1 (odd), but in a
+    SuperFunnel build of ``fixed`` shape (registers, no stage row)."""
     sines = draw == "bm" and proposal != "Laplace"
+    stage = kind in STAGE_ROW_KINDS and not fixed
     return (dmax + 4 + (dmax // 2 + 1 if sines else 0)
-            + (dmax + 1 if kind in STAGE_ROW_KINDS else 0))
+            + (dmax + 1 if stage else 0))
 
 
 def pt_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
                     proposal: str = "Normal", draw: str = "icdf",
-                    kind: str | None = None) -> int:
+                    kind: str | None = None, fixed: bool = False) -> int:
     """Dynamic shared memory of a PT block of R replicas x T rungs at d
     coordinates in bucket ``dmax`` (``csrc/fused_pt.cu::shared_words``):
-    the R T threads' rows, parameters, the ladder, the sweep's
-    per-(replica, rung) words and Laplace's (T, d) scales."""
-    words = (T * R * row_words(dmax, proposal, draw, kind) + n_params
+    the R T threads' rows, parameters (none in a SuperFunnel build of
+    ``fixed`` shape, which takes them as a kernel parameter), the ladder,
+    the sweep's per-(replica, rung) words and Laplace's (T, d) scales."""
+    words = (T * R * row_words(dmax, proposal, draw, kind, fixed)
+             + (0 if fixed else n_params)
              + 2 * T + 2 * T * R + 2 * R + 3 * T * R + R
              + (T * d if proposal == "Laplace" else 0))
     return 4 * words
@@ -419,11 +530,13 @@ def pt_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
 
 def rwm_shared_bytes(n_params: int, d: int, threads: int, dmax: int,
                      proposal: str = "Normal", draw: str = "icdf",
-                     kind: str | None = None) -> int:
+                     kind: str | None = None, fixed: bool = False) -> int:
     """Dynamic shared memory of an RWM block of ``threads`` chains in
     bucket ``dmax`` (``csrc/fused_rwm.cu::shared_words``): the chains'
-    rows, parameters and Laplace's (d,) scales."""
-    words = (threads * row_words(dmax, proposal, draw, kind) + n_params
+    rows, parameters (none at a ``fixed`` SuperFunnel shape) and
+    Laplace's (d,) scales."""
+    words = (threads * row_words(dmax, proposal, draw, kind, fixed)
+             + (0 if fixed else n_params)
              + (d if proposal == "Laplace" else 0))
     return 4 * words
 
@@ -436,7 +549,8 @@ def _check_dim(d: int, dmax: int) -> None:
 def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
                       T: int, C: int, proposal: str = "Normal",
                       draw: str = "icdf", n_params: int = 0,
-                      kind: str | None = None) -> Geometry:
+                      kind: str | None = None, fixed: bool = False
+                      ) -> Geometry:
     """The fused PT launch of C replicas x T rungs at d coordinates
     (bucket ``dmax``) for a kernel of ``regs`` registers and
     ``max_threads`` threads a block.  Of the R that fit (at most 32
@@ -445,26 +559,28 @@ def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
     the most threads, the largest R of those: R = 32 at the flagship,
     fewer where 32 T threads do not fit or where smaller blocks fill the
     register file better (a 105-register kernel at T = 15 holds one block
-    of 21 replicas, 315 threads, but two of 17, 510).  Raises
+    of 21 replicas, 315 threads, but two of 17, 510); ``fixed``: a
+    SuperFunnel build of fixed shape (:func:`pt_shared_bytes`).  Raises
     ``ValueError`` when not even one replica's ladder fits."""
     _check_dim(d, dmax)
     if not 1 <= T <= MAX_RUNGS or C < 1:
         raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
-    fixed = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw, kind)
+    base = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw, kind,
+                           fixed)
     per_replica = (pt_shared_bytes(n_params, T, d, 1, dmax, proposal, draw,
-                                   kind) - fixed)
+                                   kind, fixed) - base)
     r_max = min(PT_MAX_REPLICAS, max_threads // T,
-                (BLOCK_SHARED - fixed) // per_replica)
+                (BLOCK_SHARED - base) // per_replica)
     if r_max < 1:
         raise ValueError(
             f"one replica's ladder does not fit a block: T={T} rungs of "
             f"d={d} need {T} threads ({max_threads} allowed) and "
-            f"{fixed + per_replica} B of shared memory ({BLOCK_SHARED} B), "
+            f"{base + per_replica} B of shared memory ({BLOCK_SHARED} B), "
             f"{n_params} of its words the target's parameters")
 
     def launch(R):
         shared = pt_shared_bytes(n_params, T, d, R, dmax, proposal, draw,
-                                 kind)
+                                 kind, fixed)
         return Geometry(R, R * T, shared, blocks_per_sm(regs, R * T, shared),
                         -(-C // R))
 
@@ -474,26 +590,28 @@ def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
 def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
                        C: int, proposal: str = "Normal", draw: str = "icdf",
-                       n_params: int = 0, kind: str | None = None
-                       ) -> Geometry:
+                       n_params: int = 0, kind: str | None = None,
+                       fixed: bool = False) -> Geometry:
     """The fused RWM launch of C chains at d coordinates (bucket ``dmax``)
     for a kernel of ``regs`` registers and ``max_threads`` threads a
     block: 128 chains a block, fewer where the slabs or ``max_threads``
-    do not allow them.  Raises ``ValueError`` when not even one chain
-    fits."""
+    do not allow them (``fixed``: :func:`rwm_shared_bytes`).  Raises
+    ``ValueError`` when not even one chain fits."""
     _check_dim(d, dmax)
     if C < 1:
         raise ValueError(f"C={C} must be >= 1")
-    fixed = rwm_shared_bytes(n_params, d, 0, dmax, proposal, draw, kind)
+    base = rwm_shared_bytes(n_params, d, 0, dmax, proposal, draw, kind,
+                            fixed)
     per_chain = rwm_shared_bytes(n_params, d, 1, dmax, proposal, draw,
-                                 kind) - fixed
-    n = min(RWM_THREADS, max_threads, (BLOCK_SHARED - fixed) // per_chain)
+                                 kind, fixed) - base
+    n = min(RWM_THREADS, max_threads, (BLOCK_SHARED - base) // per_chain)
     if n < 1:
         raise ValueError(
-            f"one chain does not fit a block: {fixed + per_chain} B of "
+            f"one chain does not fit a block: {base + per_chain} B of "
             f"shared memory ({BLOCK_SHARED} B), {n_params} of its words "
             f"the target's parameters, {max_threads} threads")
-    shared = rwm_shared_bytes(n_params, d, n, dmax, proposal, draw, kind)
+    shared = rwm_shared_bytes(n_params, d, n, dmax, proposal, draw, kind,
+                              fixed)
     return Geometry(n, n, shared, blocks_per_sm(regs, n, shared), -(-C // n))
 
 
@@ -808,19 +926,20 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
         raise ValueError(f"{name} runs one thread a state: team= is for the "
                          "warp libraries")
     kind = name.split(".")[1]
+    fixed = fixed_shape(name) is not None
     if not T:
         a = kernel_info(name, d)
         return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
-                                  C, proposal, draw, n_params, kind)
+                                  C, proposal, draw, n_params, kind, fixed)
     a = kernel_info(name, d)
     geo = pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
-                            proposal, draw, n_params, kind)
+                            proposal, draw, n_params, kind, fixed)
     if geo.replicas == PT_MAX_REPLICAS:
         return geo
     a = kernel_info(name, d, runtime_r=True)
     return pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
-                             proposal, draw, n_params,
-                             kind)._replace(runtime_r=True)
+                             proposal, draw, n_params, kind,
+                             fixed)._replace(runtime_r=True)
 
 
 # ---------------------------------------------------------------- targets
@@ -925,10 +1044,29 @@ def kernel_target(target) -> tuple[str, torch.Tensor]:
                       -0.5 * d1 * _LOG_2PI, 0.5 * d1)
 
 
+def route(variant: str, target, warp: bool | None = None,
+          specialize: bool = True) -> tuple[str, str, torch.Tensor]:
+    """``(library, kind, parameter words on the CPU)`` of a launch of
+    kernel variant ``variant`` on ``target`` (:func:`lib_name`; ``warp`` as
+    there).  A SuperFunnel whose dataset fits a fixed-shape build
+    (:func:`sf_shape`) takes one (:func:`sf_tag`), with the dataset packed
+    by :func:`sf_pack`; every other launch the library of its kind and
+    bucket, with :func:`kernel_target`'s words.  ``specialize=False``
+    forces the run-time-shape library, for comparisons only."""
+    kind, params = kernel_target(target)
+    shape = sf_shape(kind, target.dim, params, warp) if specialize else None
+    if shape is None:
+        return lib_name(variant, kind, target.dim, warp), kind, params
+    return (lib_name(variant, kind, target.dim, warp,
+                     sf=sf_tag(*shape, VARIANTS[variant][0])), kind,
+            sf_pack(params))
+
+
 def by_variant(launches) -> Counter:
     """Launch counts keyed ``<variant>.<target kind>`` (the wrappers'
     ``launches``; :func:`launch_key`) summed by variant, a warp library's
-    under ``<variant>.w<D>``; the ``*_record`` keys pass through."""
+    under ``<variant>.w<D>`` and a fixed SuperFunnel shape's under
+    ``<variant>.<sf>``; the ``*_record`` keys pass through."""
     out = Counter()
     for key, n in launches.items():
         parts = key.split(".")

@@ -73,17 +73,27 @@
 // SuperFunnel (kind 12) is the exception: its likelihood (J n
 // observations of 2K + 7 flops, an expf and a log1pf each) outweighs
 // Philox, so its bound is the float32 or the special-function (MUFU) work
-// (chip_smoke.py::sf_lp_flops, SF_MUFU_PER_OBS).  The ragged edge (C
-// not a multiple of R) is masked: those threads run on
-// zeros in their own rows and store nothing.
+// (chip_smoke.py::sf_lp_flops, SF_MUFU_PER_OBS).  Its usual build fixes
+// the dataset's shape (-DRWM_PT_SF_J, -DRWM_PT_SF_K, -DRWM_PT_SF_N, and
+// -DRWM_PT_SF_UNROLL, the observation loop's unroll), as the TPU kernel
+// fixes it at trace time: d is then a constant, the proposal's alphas and
+// betas are registers at compile-time indices, and the dataset rides in
+// the kernel's parameters (csrc/targets.cuh::SuperFunnelFixed; the
+// launcher copies it from the host) instead of the shared-memory slabs;
+// the run-time-shape build stages the proposal in a row for the
+// datasets too large for the parameters.  The ragged edge (C not a
+// multiple of R) is masked: those threads run on zeros in their own rows
+// and store nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_MINBLOCKS=b
-//        (no --use_fast_math)
+//        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
+//         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mh.cuh"
 
@@ -102,11 +112,27 @@
 #ifndef RWM_PT_MINBLOCKS
 #define RWM_PT_MINBLOCKS 1
 #endif
+// SuperFunnel with the dataset's shape fixed at build time: the kernel
+// takes the dataset as its last parameter
+#ifdef RWM_PT_SF_N
+using FixedData = SuperFunnelBuild;   // csrc/mh.cuh
+constexpr int kFixedDim = FixedData::kDim;
+#define RWM_PT_FIXED_PARAM , const __grid_constant__ FixedData fixed
+#define RWM_PT_FIXED_ARG , fixed
+#else
+constexpr int kFixedDim = 0;   // none: the target's parameters in shared memory
+#define RWM_PT_FIXED_PARAM
+#define RWM_PT_FIXED_ARG
+#endif
 
 namespace {
 
 constexpr int kMaxReplicas = 32;    // replicas per block (threadIdx.x)
-constexpr int kBlockThreads = 320;  // the launch bound: 32 replicas x 10 rungs
+// the launch bound: 32 replicas x 10 rungs, or in a fixed SuperFunnel
+// shape's build 32 x 8, the rungs of its geometric ladder, so that blocks
+// of T = 8 meet the register cap that kMinBlocks of them set (four of 320
+// threads, 64 registers, spill; three of 256, 80 registers, do not)
+constexpr int kBlockThreads = kFixedDim ? 256 : 320;
 constexpr int kMaxSharedBytes = 227 * 1024;   // a block's dynamic shared memory
 
 constexpr int kProp = RWM_PT_PROPOSAL;
@@ -118,18 +144,20 @@ constexpr int kMinBlocks = RWM_PT_MINBLOCKS;
 constexpr int kPitch = kRowPitch<kDmax>;   // words of a thread's state row
 constexpr int kSines = (kProp != PROPOSAL_LAPLACE && kDraw == DRAW_BM)
                            ? kSinePitch<kDmax> : 0;   // of its sine row
-constexpr int kStageWords = kStage<kKind, kDmax>;   // of its stage row
+constexpr int kStageWords =
+    kFixedDim ? 0 : kStage<kKind, kDmax>;   // of its stage row
 
 // Words of dynamic shared memory: the state slab (T R rows of kPitch,
 // first, so that its rows are 16-byte aligned) | Box-Muller sines (T R
 // rows of kSines) | SuperFunnel's stage rows (T R rows of kStageWords) |
-// params, beta, sigma | lp, u (per slot / pair) | cold
-// sum, compensation | slot_of_rung, rung_of_slot, accepts | the slot that
-// held rung 0 before a sweep that moved it | Laplace scales (T, d).
-// kernels/_build.py::pt_shared_bytes mirrors this count.
+// params (none in a fixed-shape build), beta, sigma | lp, u (per slot /
+// pair) | cold sum, compensation | slot_of_rung, rung_of_slot, accepts |
+// the slot that held rung 0 before a sweep that moved it | Laplace scales
+// (T, d).  kernels/_build.py::pt_shared_bytes mirrors this count.
 __host__ __device__ constexpr size_t shared_words(int n_params, int T, int d,
                                                   int R) {
-  return (size_t)T * R * (kPitch + kSines + kStageWords) + n_params + 2 * T +
+  return (size_t)T * R * (kPitch + kSines + kStageWords) +
+         (kFixedDim ? 0 : n_params) + 2 * T +
          2 * T * R +
          2 * R + 3 * T * R + R + (kProp == PROPOSAL_LAPLACE ? T * d : 0);
 }
@@ -157,8 +185,9 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     float* __restrict__ cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1,
     const float* __restrict__ lap, float inv_d, float* __restrict__ rec,
-    int record_every, int record_chains, int order) {
+    int record_every, int record_chains, int order RWM_PT_FIXED_PARAM) {
   extern __shared__ float4 smem4[];
+  if (kFixedDim) d = kFixedDim;   // a constant in a fixed-shape build
   // replicas per block: a compile-time 32 on the usual path (a runtime R
   // in the shared-memory indexing costs ~2 % of the flagship's time)
   const int R = RFIX ? RFIX : (int)blockDim.x;
@@ -167,6 +196,12 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
   float* s_sn = s_x + nthreads * kPitch;   // [tid][k], Box-Muller only
   float* s_stage = s_sn + nthreads * kSines;   // [tid][i], SuperFunnel
   float* s_params = s_stage + nthreads * kStageWords;
+#ifdef RWM_PT_SF_N
+  // the log-density's parameters: the kernel parameter's dataset
+  const float* lp_params = reinterpret_cast<const float*>(&fixed);
+#else
+  const float* lp_params = s_params;
+#endif
   float* s_beta = s_params + n_params;
   float* s_sigma = s_beta + T;
   float* s_lp = s_sigma + T;          // [slot][replica]
@@ -207,7 +242,7 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     y[i] = (i < d && valid) ? x0[((size_t)i * T + slot) * C + c] : 0.0f;
   store_row<DMAX>(y, xs, d);
   __syncthreads();
-  float lp = state_log_density<KIND, DMAX>(y, stage, d, s_params);
+  float lp = state_log_density<KIND, DMAX>(y, stage, d, lp_params);
   int rung = slot;
   // the sweep's per-replica sums live in the slot-0 thread, which runs it
   int swapacc = (slot == 0 && valid) ? swapacc0[c] : 0;
@@ -220,7 +255,7 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     uint4 blk;
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
-        y, xs, s_sn + tid * kSines, stage, lp, d, s_params,
+        y, xs, s_sn + tid * kSines, stage, lp, d, lp_params,
         s_sigma[rung], s_lap + rung * d, inv_d, s_beta[rung], c, rung,
         abs_step, key0, key1, blk, cur_k);
     if (post && accept) s_acc[rung * R + cx] += 1;
@@ -374,6 +409,7 @@ extern "C" int rwm_pt_fused_pt(
     int record_chains, int order, int R, int runtime_r, void* stream) {
   if (d < 1 || d > kDmax || T < 1 || T > 32 || C < 1 || total < 0 ||
       swap_every < 1 || kind != kKind || (order != 0 && order != 1) ||
+      (kFixedDim && d != kFixedDim) ||
       R < 1 || R > kMaxReplicas || (!runtime_r && R != kMaxReplicas) ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
@@ -392,12 +428,22 @@ extern "C" int rwm_pt_fused_pt(
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   e = prepare(kernel, shmem);
   if (e != cudaSuccess) return (int)e;
+#ifdef RWM_PT_SF_N
+  // a fixed-shape build: params is the host's packed dataset
+  // (kernels/_build.py::sf_pack), copied into the kernel's last parameter
+  if (params == nullptr || n_params * sizeof(float) != sizeof(FixedData))
+    return (int)cudaErrorInvalidValue;
+  FixedData fixed;
+  memcpy(&fixed, params, sizeof(FixedData));
+  params = nullptr;
+  n_params = 0;
+#endif
   const dim3 grid((C + R - 1) / R);
   const dim3 block(R, T);
   kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
       swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order);
+      record_chains, order RWM_PT_FIXED_ARG);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,8 @@
 // work (one logf and one sqrtf per normal, Giles' polynomials, log1pf per
 // Laplace coordinate, the target's terms) at the card's rates, but for
 // SuperFunnel, whose likelihood's float and special-function work binds
-// (csrc/fused_pt.cu).
+// (csrc/fused_pt.cu; as there, its usual build fixes the dataset's shape
+// and takes the dataset as a kernel parameter).
 // Consecutive threads take consecutive chains, so every load and store of
 // the (d, C) state is coalesced on the chain axis.  The ragged edge (C not
 // a multiple of the block) is masked.
@@ -39,10 +40,12 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_MINBLOCKS=b
-//        (no --use_fast_math)
+//        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
+//         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_rwm.py::_run_rwm_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mh.cuh"
 
@@ -61,6 +64,17 @@
 #ifndef RWM_PT_MINBLOCKS
 #define RWM_PT_MINBLOCKS 1
 #endif
+// SuperFunnel with the dataset's shape fixed at build time (fused_pt.cu)
+#ifdef RWM_PT_SF_N
+using FixedData = SuperFunnelBuild;   // csrc/mh.cuh
+constexpr int kFixedDim = FixedData::kDim;
+#define RWM_PT_FIXED_PARAM , const __grid_constant__ FixedData fixed
+#define RWM_PT_FIXED_ARG , fixed
+#else
+constexpr int kFixedDim = 0;
+#define RWM_PT_FIXED_PARAM
+#define RWM_PT_FIXED_ARG
+#endif
 
 namespace {
 
@@ -74,17 +88,18 @@ constexpr int kMinBlocks = RWM_PT_MINBLOCKS;
 constexpr int kPitch = kRowPitch<kDmax>;   // words of a chain's state row
 constexpr int kSines = (kProp != PROPOSAL_LAPLACE && kDraw == DRAW_BM)
                            ? kSinePitch<kDmax> : 0;   // of its sine row
-constexpr int kStageWords = kStage<kKind, kDmax>;   // of its stage row
+constexpr int kStageWords =
+    kFixedDim ? 0 : kStage<kKind, kDmax>;   // of its stage row
 
 // Words of dynamic shared memory: the state slab (threads rows of kPitch,
 // first, 16-byte aligned) | Box-Muller sines (threads rows of kSines) |
-// SuperFunnel's stage rows (threads rows of kStageWords) | params |
-// Laplace scales (d).  kernels/_build.py::rwm_shared_bytes
-// mirrors this count.
+// SuperFunnel's stage rows (threads rows of kStageWords) | params (none
+// in a fixed-shape build) | Laplace scales (d).
+// kernels/_build.py::rwm_shared_bytes mirrors this count.
 __host__ __device__ constexpr size_t shared_words(int n_params, int d,
                                                   int threads) {
-  return (size_t)threads * (kPitch + kSines + kStageWords) + n_params +
-         (kProp == PROPOSAL_LAPLACE ? d : 0);
+  return (size_t)threads * (kPitch + kSines + kStageWords) +
+         (kFixedDim ? 0 : n_params) + (kProp == PROPOSAL_LAPLACE ? d : 0);
 }
 
 // The launch bound: kMinBlocks blocks of kThreads; none for kMinBlocks 0
@@ -106,13 +121,20 @@ __global__ void RWM_PT_BOUNDS
                      uint32_t key0, uint32_t key1,
                      const float* __restrict__ lap, float inv_d,
                      float* __restrict__ rec, int record_every,
-                     int record_chains) {
+                     int record_chains RWM_PT_FIXED_PARAM) {
   extern __shared__ float4 smem4[];
+  if (kFixedDim) d = kFixedDim;   // a constant in a fixed-shape build
   float* s_x = (float*)smem4;           // [thread][i]
   float* s_sn = s_x + blockDim.x * kPitch;   // [thread][k], Box-Muller only
   float* s_stage = s_sn + blockDim.x * kSines;   // [thread][i], SuperFunnel
   float* s_params = s_stage + blockDim.x * kStageWords;
   float* s_lap = s_params + n_params;   // (d,) Laplace scales
+#ifdef RWM_PT_SF_N
+  // the log-density's parameters: the kernel parameter's dataset
+  const float* lp_params = reinterpret_cast<const float*>(&fixed);
+#else
+  const float* lp_params = s_params;
+#endif
   for (int i = threadIdx.x; i < n_params; i += blockDim.x)
     s_params[i] = params[i];
   if (kProp == PROPOSAL_LAPLACE)
@@ -128,7 +150,7 @@ __global__ void RWM_PT_BOUNDS
   for (int i = 0; i < DMAX; ++i)
     y[i] = i < d ? x0[(size_t)i * C + c] : 0.0f;
   store_row<DMAX>(y, xs, d);
-  float lp = state_log_density<KIND, DMAX>(y, stage, d, s_params);
+  float lp = state_log_density<KIND, DMAX>(y, stage, d, lp_params);
   int acc = acc0[c];
   float esjd = jump0[c], comp = 0.0f;   // Kahan sum and its compensation
 
@@ -138,7 +160,7 @@ __global__ void RWM_PT_BOUNDS
     uint4 blk;
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
-        y, xs, s_sn + threadIdx.x * kSines, stage, lp, d, s_params, scale,
+        y, xs, s_sn + threadIdx.x * kSines, stage, lp, d, lp_params, scale,
         s_lap, inv_d, beta, c, 0, abs_step, key0, key1, blk, cur_k);
     acc += (post && accept) ? 1 : 0;
     float jump = 0.0f;
@@ -220,6 +242,7 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
                                 int record_chains, int threads,
                                 void* stream) {
   if (d < 1 || d > kDmax || C < 1 || total < 0 || kind != kKind ||
+      (kFixedDim && d != kFixedDim) ||
       threads < 1 || threads > kThreads ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
@@ -231,10 +254,20 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   const cudaError_t e = prepare(shmem);
   if (e != cudaSuccess) return (int)e;
+#ifdef RWM_PT_SF_N
+  // a fixed-shape build: params is the host's packed dataset
+  // (kernels/_build.py::sf_pack), copied into the kernel's last parameter
+  if (params == nullptr || n_params * sizeof(float) != sizeof(FixedData))
+    return (int)cudaErrorInvalidValue;
+  FixedData fixed;
+  memcpy(&fixed, params, sizeof(FixedData));
+  params = nullptr;
+  n_params = 0;
+#endif
   const Kernel k = kernel();
   k<<<(C + threads - 1) / threads, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, scale, beta, x0, acc0, jump0, x_out, lp_out, acc_out,
       jump_out, d, C, total, burn_in, step0, key0, key1, lap, inv_d, rec,
-      record_every, record_chains);
+      record_every, record_chains RWM_PT_FIXED_ARG);
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,10 @@
 // y[] would put it on a stack frame, so state_log_density first writes y
 // to the thread's stage row (kStagePitch<DMAX> = DMAX + 1 words, odd, so
 // that a warp's 32 scalar accesses of one word hit 32 banks) and the
-// log-density reads it there.
+// log-density reads it there.  A build with the dataset's shape fixed
+// (-DRWM_PT_SF_J, _K, _N, _UNROLL; csrc/targets.cuh::SuperFunnelFixed)
+// reads y from the registers, takes no stage row, and its parameter
+// pointer points at the kernel parameter that holds the dataset.
 // The uniform ball's direction stays in y[]: first the normals, then the
 // norm, then x + n/||n|| * r.  Its MH word (slot d) is read before the
 // radius word (slot d+2), so Philox blocks are taken in order and none is
@@ -65,6 +68,11 @@ constexpr int kStagePitch = DMAX + 1;
 // Words of a thread's stage row for target kind KIND (SuperFunnel's alone)
 template <int KIND, int DMAX>
 constexpr int kStage = KIND == TARGET_SUPER_FUNNEL ? kStagePitch<DMAX> : 0;
+#ifdef RWM_PT_SF_N
+// the dataset of a build with SuperFunnel's shape fixed
+using SuperFunnelBuild = SuperFunnelFixed<RWM_PT_SF_J, RWM_PT_SF_K,
+                                          RWM_PT_SF_N, RWM_PT_SF_UNROLL>;
+#endif
 
 // The log-density of the state y (registers); SuperFunnel's through the
 // thread's stage row
@@ -73,11 +81,17 @@ __device__ __forceinline__ float state_log_density(
     const float (&y)[DMAX], float* stage, int d,
     const float* __restrict__ p) {
   if constexpr (KIND == TARGET_SUPER_FUNNEL) {
+#ifdef RWM_PT_SF_N
+    // a fixed-shape build: p is the kernel parameter's dataset
+    return super_funnel_log_density_fixed(
+        y, reinterpret_cast<const SuperFunnelBuild*>(p));
+#else
 #pragma unroll
     for (int i = 0; i < DMAX; ++i)
       if (i < d) stage[i] = y[i];
     return super_funnel_log_density([stage](int i) { return stage[i]; }, d,
                                     p);
+#endif
   } else {
     return log_density<KIND, DMAX>(y, d, p);
   }

@@ -59,9 +59,12 @@
 //       exp(-|eta|))): JAX's y ls(eta) + (1 - y) ls(-eta) with y in {0,
 //       1} equals the selected term exactly (0 times a finite term is 0).
 //     Its alphas and betas are read at run-time indices (group j,
-//     covariate k), so it reads the state from a shared-memory row
-//     (super_funnel_log_density; csrc/mh.cuh stages the proposal there)
-//     and not from the register array of the other kinds.
+//     covariate k), so the run-time-shape build reads the state from a
+//     shared-memory row (super_funnel_log_density; csrc/mh.cuh stages the
+//     proposal there) and not from the register array of the other kinds.
+//     A build with the dataset's shape fixed (-DRWM_PT_SF_J, _K, _N; see
+//     SuperFunnelFixed below) reads it from the registers instead and
+//     takes the dataset, signs folded in, as a kernel parameter.
 // The JAX formulas are in rwm_pt_tpu/targets/*.py (log_density_td); each
 // kind computes them in the same order with the same masking, summing the
 // coordinates' terms in index order.  The products that the JAX formula
@@ -124,6 +127,25 @@ __device__ __forceinline__ float super_funnel_group(
   return s;
 }
 
+// The closing formula of SuperFunnel's log-density, in the JAX formula's
+// order: the likelihood ll, the priors' sums of squares sa (alphas), sb
+// (betas) and smb (mu_beta), mu_alpha, the taus, J and J K as floats and
+// the parameter vector's head p (its words 3..9)
+__device__ __forceinline__ float super_funnel_close(
+    float ll, float sa, float sb, float smb, float mu_a, float tau_a,
+    float tau_b, float fJ, float fJK, const float* __restrict__ p) {
+  const float lp_alpha = (p[3] - __fmul_rn(fJ, logf(tau_a))) -
+                         (0.5f * sa) / __fmul_rn(tau_a, tau_a);
+  const float lp_beta = (p[4] - __fmul_rn(fJK, logf(tau_b))) -
+                        (0.5f * sb) / __fmul_rn(tau_b, tau_b);
+  const float lp_mu_a = p[6] - (0.5f * __fmul_rn(mu_a, mu_a)) / p[5];
+  const float lp_mu_b = p[7] - (0.5f * smb) / p[5];
+  const float qa = tau_a / p[9], qb = tau_b / p[9];
+  const float lp_tau = ((p[8] - log1pf(__fmul_rn(qa, qa))) + p[8]) -
+                       log1pf(__fmul_rn(qb, qb));
+  return ((((ll + lp_alpha) + lp_beta) + lp_mu_a) + lp_mu_b) + lp_tau;
+}
+
 // SuperFunnel's log-density of a state whose taus both exceed 1e-9, from
 // its coordinates x(i) and its groups' likelihoods group(j): the groups
 // and the priors' squares summed in index order (the plain version's
@@ -140,16 +162,8 @@ __device__ __forceinline__ float super_funnel_valid(
   for (int j = 0; j < J; ++j)
     for (int k = 0; k < K; ++k) sb += sq_rn(x(J + j * K + k) - x(m + 1 + k));
   for (int k = 0; k < K; ++k) smb += sq_rn(x(m + 1 + k));
-  const float lp_alpha = (p[3] - __fmul_rn(p[0], logf(tau_a))) -
-                         (0.5f * sa) / __fmul_rn(tau_a, tau_a);
-  const float lp_beta = (p[4] - __fmul_rn(p[0] * p[1], logf(tau_b))) -
-                        (0.5f * sb) / __fmul_rn(tau_b, tau_b);
-  const float lp_mu_a = p[6] - (0.5f * __fmul_rn(mu_a, mu_a)) / p[5];
-  const float lp_mu_b = p[7] - (0.5f * smb) / p[5];
-  const float qa = tau_a / p[9], qb = tau_b / p[9];
-  const float lp_tau = ((p[8] - log1pf(__fmul_rn(qa, qa))) + p[8]) -
-                       log1pf(__fmul_rn(qb, qb));
-  return ((((ll + lp_alpha) + lp_beta) + lp_mu_a) + lp_mu_b) + lp_tau;
+  return super_funnel_close(ll, sa, sb, smb, mu_a, tau_a, tau_b, p[0],
+                            p[0] * p[1], p);
 }
 
 // Whether SuperFunnel's state is valid: both taus above 1e-9
@@ -167,6 +181,89 @@ __device__ __forceinline__ float super_funnel_log_density(
   if (!super_funnel_taus_valid(x(d - 2), x(d - 1))) return -INFINITY;
   return super_funnel_valid(
       x, [&](int j) { return super_funnel_group(x, j, p); }, d, p);
+}
+
+// ---- SuperFunnel with the dataset's shape fixed at build time.
+// The TPU kernel unrolls the groups and the covariates at trace time
+// (rwm_pt_tpu/targets/funnel.py:188-211); this form fixes J, K and N
+// (-DRWM_PT_SF_J, -DRWM_PT_SF_K, -DRWM_PT_SF_N; the library
+// <variant>.super_funnel.j<J>k<K>n<N>u<U>b<b>.d<D>, kernels/_build.py::
+// sf_tag) and
+// so d, and the likelihood reads the proposal from registers at
+// compile-time indices: no stage row, no index arithmetic, a group's
+// alpha and K betas held in registers across its N observations.
+// The dataset is a kernel parameter passed by value (SuperFunnelFixed,
+// __grid_constant__): it sits in the constant bank, where an unrolled
+// observation's words are constant operands of its FMULs, and a loop over
+// the observations reads them with LDC at a register index.  Not a
+// __constant__ symbol set before each launch: two launches with different
+// datasets would race for it.  Kernel parameters take at most 4 KB; the
+// dataset may take kSuperFunnelFixedMaxWords words of them (the other
+// arguments need < 512 B), a larger one takes the run-time-shape build
+// (kernels/_build.py::SF_FIXED_MAX_WORDS, sf_shape).
+// The labels are folded into signs (kernels/_build.py::sf_pack): sigma_ji
+// = -1 where Y_ji != 0, else +1, and X'_jki = sigma_ji X_jki, so eta' =
+// sigma alpha + sum_k X'_k beta_k is sigma eta exactly (negation commutes
+// with rounding to nearest; sigma alpha is exact, so an FFMA adds it to
+// the first product) and its term -(max(eta', 0) + log1p(exp(-|eta'|)))
+// is super_funnel_term(eta, y) bit for bit.
+constexpr int kSuperFunnelFixedMaxWords = 896;   // 3,584 B
+
+// The dataset of a build with J groups, K covariates and N observations a
+// group; U: observations a trip of the observation loop (N: unrolled
+// whole)
+template <int J, int K, int N, int U>
+struct SuperFunnelFixed {
+  static constexpr int kDim = J + J * K + K + 3;
+  float head[kSuperFunnelHead];   // the parameter vector's first words
+  float obs[J * N * (K + 1)];     // (j, i): X'_ji0 .. X'_ji(K-1), sigma_ji
+};
+
+// An observation's term at its signed linear predictor e = sigma eta
+__device__ __forceinline__ float super_funnel_signed_term(float e) {
+  const float l = log1pf(expf(-fabsf(e)));
+  return -(fmaxf(e, 0.0f) + l);
+}
+
+// SuperFunnel's log-density of the state y (registers) from the fixed
+// dataset p, in super_funnel_log_density's order
+template <int J, int K, int N, int U, int DMAX>
+__device__ __forceinline__ float super_funnel_log_density_fixed(
+    const float (&y)[DMAX], const SuperFunnelFixed<J, K, N, U>* p) {
+  constexpr int d = J + J * K + K + 3;
+  constexpr int m = J + J * K;   // mu_alpha; mu_beta from m + 1
+  static_assert(d <= DMAX && sizeof(SuperFunnelFixed<J, K, N, U>) <=
+                                 4 * kSuperFunnelFixedMaxWords,
+                "the dataset does not fit the kernel's parameters");
+  static_assert(U >= 1 && U <= N, "unroll by 1 .. N observations");
+  if (!super_funnel_taus_valid(y[d - 2], y[d - 1])) return -INFINITY;
+  float ll = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float* o = p->obs + j * N * (K + 1);
+    float s = 0.0f;
+#pragma unroll (U)
+    for (int i = 0; i < N; ++i) {
+      const float* w = o + i * (K + 1);
+      float eta = fmaf(w[K], y[j], __fmul_rn(w[0], y[J + j * K]));
+#pragma unroll
+      for (int k = 1; k < K; ++k) eta += __fmul_rn(w[k], y[J + j * K + k]);
+      s += super_funnel_signed_term(eta);
+    }
+    ll += s;
+  }
+  const float mu_a = y[m];
+  float sa = 0.0f, sb = 0.0f, smb = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) sa += sq_rn(y[j] - mu_a);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) sb += sq_rn(y[J + j * K + k] - y[m + 1 + k]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) smb += sq_rn(y[m + 1 + k]);
+  return super_funnel_close(ll, sa, sb, smb, mu_a, y[d - 2], y[d - 1],
+                            (float)J, (float)(J * K), p->head);
 }
 
 template <int KIND, int DMAX>

@@ -138,16 +138,20 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
                      *, kind="Normal", record_every=0, record_chains=0,
                      draw="icdf", swap_sweep="sequential", warp=None,
-                     team=None):
+                     team=None, specialize=True):
     """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
     ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
-    ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
-    any d, to compare the layouts; ``team`` forces the warp kernel's team
-    size G, the lanes a (replica, rung), where ``_build.choose_team``
-    would pick one, for comparisons only) on the current stream; same arguments
-    and results as :func:`_run_pt_fused_plain`.  ``launches`` counts each
-    launch under ``_build.launch_key`` of its library (the name without
-    its register bucket, ``fused_pt.rosenbrock``, ``fused_pt_bm.mvn_iso``,
+    ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
+    dataset fits takes the build with its shape fixed; ``warp=True`` takes
+    the warp kernel at any d, to compare the layouts; ``team`` forces the
+    warp kernel's team size G, the lanes a (replica, rung), where
+    ``_build.choose_team`` would pick one; ``specialize=False`` forces
+    SuperFunnel's run-time-shape library; ``team`` and ``specialize`` for
+    comparisons only) on the current stream; same
+    arguments and results as :func:`_run_pt_fused_plain`.  ``launches``
+    counts each launch under ``_build.launch_key`` of its library (the name
+    without its register bucket, ``fused_pt.rosenbrock``,
+    ``fused_pt_bm.mvn_iso``, ``fused_pt_lax_erfinv.super_funnel.j5k3n20u2b3``,
     .., or a warp library's whole name,
     ``fused_pt_lax_erfinv.mvn_iso.w128``; ``_build.by_variant`` sums them
     by variant), and a recorded one also under ``fused_pt_record``.  The
@@ -155,9 +159,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     registers and launch bound, the rows' shared memory; a warp library's
     team size too)."""
     variant = _build.library("fused_pt", kind, draw)
-    tkind, params = _build.kernel_target(target)
-    lib = _build.lib_name(variant, tkind, target.dim, warp)
-    params = params.to(x0.device)
+    lib, tkind, params = _build.route(variant, target, warp, specialize)
+    if _build.fixed_shape(lib) is None:
+        params = params.to(x0.device)   # a fixed shape's: a kernel parameter
     d, T, C = x0.shape
     pair_order(T, swap_sweep)                # raises for an unknown order
     order = SWEEPS.index(swap_sweep)
@@ -169,8 +173,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             f"per (replica, rung), at most {_build.max_rungs(d)} rungs at "
             f"d={d}; T={T}")
     _build.check_cuda("fused_pt", torch.float32, x0=x0, betajump0=betajump0,
-                      coldjump0=coldjump0, betas=betas, sigmas=sigmas,
-                      params=params)
+                      coldjump0=coldjump0, betas=betas, sigmas=sigmas)
     _build.check_cuda("fused_pt", torch.int32, acc0=acc0, swapacc0=swapacc0)
     shapes = [(acc0, (T, C)), (swapacc0, (C,)), (betajump0, (C,)),
               (coldjump0, (C,)), (betas, (T,)),

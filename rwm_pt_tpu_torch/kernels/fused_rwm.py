@@ -83,26 +83,29 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
 def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
                       total, burn_in, *, kind="Normal", record_every=0,
                       record_chains=0, draw="icdf", warp=None,
-                      team=None):
+                      team=None, specialize=True):
     """Launch ``csrc/fused_rwm.cu``, or above 64 dimensions
     ``csrc/fused_rwm_warp.cu`` (the library built for proposal ``kind``,
-    ``draw`` and the target's kind; ``warp=True`` takes the warp kernel at
-    any d, to compare the layouts; ``team`` forces the warp kernel's team
-    size G, the lanes a chain, where ``_build.choose_team`` would pick
-    one, for comparisons only) on the current stream; same arguments
-    and results as :func:`_run_rwm_fused_plain`.  ``launches`` counts each
-    launch under ``_build.launch_key`` of its library
+    ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
+    dataset fits takes the build with its shape fixed; ``warp=True`` takes
+    the warp kernel at any d, to compare the layouts; ``team`` forces the
+    warp kernel's team size G, the lanes a chain, where
+    ``_build.choose_team`` would pick one; ``specialize=False`` forces
+    SuperFunnel's run-time-shape library; ``team`` and ``specialize`` for
+    comparisons only) on the current stream; same
+    arguments and results as :func:`_run_rwm_fused_plain`.  ``launches``
+    counts each launch under ``_build.launch_key`` of its library
     (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``,
+    ``fused_rwm_lax_erfinv.super_funnel.j5k3n20u4b1``,
     ``fused_rwm_lax_erfinv.mvn_iso.w128``, ..; ``_build.by_variant`` sums
     them by variant), and a recorded one also under ``fused_rwm_record``.
     The chains a block (and a warp library's team size) come from
     ``_build.launch_geometry``."""
     variant = _build.library("fused_rwm", kind, draw)
-    tkind, params = _build.kernel_target(target)
-    lib = _build.lib_name(variant, tkind, target.dim, warp)
-    params = params.to(x0.device)
-    _build.check_cuda("fused_rwm", torch.float32, x0=x0, jump0=jump0,
-                      params=params)
+    lib, tkind, params = _build.route(variant, target, warp, specialize)
+    if _build.fixed_shape(lib) is None:
+        params = params.to(x0.device)   # a fixed shape's: a kernel parameter
+    _build.check_cuda("fused_rwm", torch.float32, x0=x0, jump0=jump0)
     _build.check_cuda("fused_rwm", torch.int32, acc0=acc0)
     d, C = x0.shape
     if target.dim != d:

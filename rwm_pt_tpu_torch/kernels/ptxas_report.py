@@ -36,7 +36,10 @@ def parse(log: str) -> list[tuple[str, int, int, int]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            t = re.findall(r"Li(\d+)E", m.group(1))
+            # the kernel's own template arguments (a parameter's type, such
+            # as a fixed SuperFunnel dataset, has its own)
+            args = re.search(r"_kernelI((?:Li-?\d+E)+)E", m.group(1))
+            t = re.findall(r"Li(-?\d+)E", args.group(1) if args else "")
             k = re.search(r"\d+([A-Za-z_]+_kernel)", m.group(1))
             name = (f"W{t[1]} G{t[2]}" if "warp_kernel" in m.group(1)
                     else f"D{t[1]}" if len(t) > 1 else

@@ -72,11 +72,14 @@ def _libraries():
     names += [lib(_build.library(f"fused_{a}", "Normal", WARP_DRAW), k, d)
               for a in ("pt", "rwm") for k in ("rosenbrock", "mvn_iso")
               for d in (100, 200)]
-    names += [lib(_build.library(f"fused_{a}", "Normal", draws.
-                                 resolve_normal_impl(a, 1003,
-                                                     "super_funnel")),
-                  "super_funnel", d)
-              for a in ("pt", "rwm") for d in (26, 68, 166)]
+    for a in ("pt", "rwm"):
+        v = _build.library(f"fused_{a}", "Normal", draws.resolve_normal_impl(
+            a, 1003, "super_funnel"))
+        for J, K in SF_SHAPES:
+            tg = get_target_distribution("SuperFunnel", 0, J=J, K=K,
+                                         device="cpu")
+            names += [_build.route(v, tg, specialize=spec)[0]
+                      for spec in (True, False)]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -166,7 +169,7 @@ def test_resume_on_card_equals_uninterrupted():
     assert b.state.swap_attempt_count == whole.state.swap_attempt_count
 
 
-def test_unsupported_inputs_raise_on_card():
+def test_unsupported_inputs_raise_on_card(monkeypatch):
     dev = _card()
     # a dataset that no thread-per-replica block holds (80,010 parameter
     # words, d = 26) is refused, naming the words; no fallback
@@ -178,6 +181,18 @@ def test_unsupported_inputs_raise_on_card():
     with pytest.raises(ValueError, match="80010 of its words"):
         run_rwm_fused(big, 0, base_variance=0.01, num_chains=64,
                       num_iterations=2, device=dev)
+    # and a fixed-shape build of it, routed there by a raised word limit,
+    # fails to build (the kernel's own limit) and raises: no fallback
+    monkeypatch.setattr(_build, "SF_FIXED_MAX_WORDS", 10 ** 6)
+    x0 = torch.zeros(big.dim, 64, device=dev)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        launch_rwm_kernel(big, x0, torch.zeros(64, dtype=torch.int32,
+                                               device=dev),
+                          torch.zeros(64, device=dev),
+                          torch.tensor(1.0, device=dev),
+                          torch.tensor(0.1, device=dev), seed_key(1), 0, 2,
+                          0)
+    monkeypatch.undo()
     wide = FullRosenbrock.create(253, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
@@ -837,16 +852,21 @@ def test_warp_kernels_match_plain(algo, d, sweep, T, team):
     assert (k[2] > 0).any()
 
 
+# SuperFunnel's (J, K): the thread kernels in every register bucket (J = 2,
+# K = 1: d = 8; J = 3, K = 2: d = 14; the reference's J = 5, K = 3: d = 26;
+# J = 10, K = 3: d = 46), the team kernels at J = 10, K = 5 (d = 68,
+# .w128) and J = 40, K = 3 (d = 166, .w256)
+SF_THREAD = ((2, 1), (3, 2), (5, 3), (10, 3))
+SF_SHAPES = SF_THREAD + ((10, 5), (40, 3))
+
+
 def _sf_cases():
-    """SuperFunnel's layouts: the thread kernels in every register bucket
-    (J = 2, K = 1: d = 8; J = 3, K = 2: d = 14; the reference's J = 5,
-    K = 3: d = 26; J = 10, K = 3: d = 46), the team kernels at J = 10,
-    K = 5 (d = 68, .w128) and J = 40, K = 3 (d = 166, .w256) at every team
-    size their library holds (a static table)."""
+    """SuperFunnel's layouts: the thread kernels at each SF_THREAD shape,
+    the team kernels at every team size their library holds (a static
+    table)."""
     out = []
     for algo in ("pt", "rwm"):
-        out += [(algo, J, K, None) for J, K in ((2, 1), (3, 2), (5, 3),
-                                                (10, 3))]
+        out += [(algo, J, K, None) for J, K in SF_THREAD]
         for J, K in ((10, 5), (40, 3)):
             dmax = _build.warp_bucket(J + J * K + K + 3)
             out += [(algo, J, K, g) for g in _build.WARP_TEAMS[dmax]
@@ -861,7 +881,10 @@ def test_super_funnel_kernels_match_plain(algo, J, K, team):
     layouts and at every team size, PT on the geometric ladder (T = 8) and
     RWM, from the default init 1e-8 N(0, 1), where most states start at
     -inf (log-ratio NaN until a proposal is valid: rejected, as in the
-    plain version); the launch counted under the library's key."""
+    plain version); the launch counted under the library's key.  The
+    thread shapes hold the fixed-shape build the route takes and the
+    run-time-shape library (``specialize=False``) alike, and the two give
+    the same outputs bit for bit."""
     dev = _card()
     C = 1003
     target = get_target_distribution("SuperFunnel", 0, J=J, K=K,
@@ -891,16 +914,27 @@ def test_super_funnel_kernels_match_plain(algo, J, K, team):
         launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
                                 agreement.RWM_OUTPUTS)
     kw = dict(draw=draw)
-    before = Counter(launch.launches)
-    k = launch(*args, **kw, **({} if team is None else {"team": team}))
-    lib = _build.lib_name(_build.library(f"fused_{algo}", "Normal", draw),
-                          "super_funnel", d)
-    assert launch.launches - before == Counter({_build.launch_key(lib): 1})
-    a = agreement.hold(k, plain(*args, **kw), names,
-                       lp_of=target.log_density_td)
-    assert a.frac >= AGREE_MIN, agreement.describe(a)
-    assert not a.mismatched, agreement.describe(a)
-    assert (k[2] > 0).any() and torch.isfinite(k[1]).any()
+    p = plain(*args, **kw)
+    outs = []
+    for spec in ((True, False) if team is None else (True,)):
+        before = Counter(launch.launches)
+        k = launch(*args, **kw, **({"specialize": spec} if team is None
+                                   else {"team": team}))
+        lib = _build.route(_build.library(f"fused_{algo}", "Normal", draw),
+                           target, specialize=spec)[0]
+        assert (_build.fixed_shape(lib) is not None) == (
+            spec and team is None)
+        assert launch.launches - before == Counter(
+            {_build.launch_key(lib): 1})
+        a = agreement.hold(k, p, names, lp_of=target.log_density_td)
+        assert a.frac >= AGREE_MIN, agreement.describe(a)
+        assert not a.mismatched, agreement.describe(a)
+        assert (k[2] > 0).any() and torch.isfinite(k[1]).any()
+        outs.append(k)
+    if team is None:
+        fixed, run_time = outs
+        for name, x, y in zip(names, fixed, run_time):
+            assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("team", _build.WARP_TEAMS[128])

@@ -416,3 +416,237 @@ def test_geometry_counts_the_stage_row_and_refuses_oversized_data():
     assert _build.pt_warp_shared_bytes(big, 8, 166, 1, 256, team=8,
                                        kind="super_funnel") < \
         _build.BLOCK_SHARED
+
+
+# ------------------------------------ the build with the dataset's shape fixed
+FITS = [(2, 1, 20), (3, 2, 20), (5, 3, 20), (10, 3, 20)]
+
+
+@pytest.mark.parametrize("algo", ["pt", "rwm"])
+@pytest.mark.parametrize("shape", FITS, ids=lambda s: "J{}K{}n{}".format(*s))
+def test_route_takes_the_fixed_shape_where_the_dataset_fits(shape, algo):
+    """A dataset whose packed words fit the kernel's parameters takes the
+    library of its shape, ``<variant>.super_funnel.j<J>k<K>n<n>u<u>b<b>.
+    d<D>``, built with the shape's defines, its source's unroll and
+    ``SF_MIN_BLOCKS`` (not ``FEWER_BLOCKS``: it stages nothing), both in
+    its name, launched under its own key, its dataset packed on the host;
+    ``specialize=False`` forces the run-time library, which keeps
+    ``FEWER_BLOCKS``."""
+    J, K, n = shape
+    pt = get_target_distribution("SuperFunnel", 0, J=J, K=K, n_per_group=n,
+                                 device=CPU)
+    variant = _build.library(f"fused_{algo}", "Normal", "lax_erfinv")
+    lib, kind, words = _build.route(variant, pt)
+    dmax = _build.bucket(pt.dim)
+    unroll = min(_build.SF_UNROLL[f"fused_{algo}"], n)
+    blocks = _build.SF_MIN_BLOCKS[f"fused_{algo}"] if dmax <= 32 else 1
+    tag = f"j{J}k{K}n{n}u{unroll}b{blocks}"
+    assert kind == "super_funnel"
+    assert lib == f"{variant}.super_funnel.{tag}.d{dmax}"
+    assert _build.launch_key(lib) == f"{variant}.super_funnel.{tag}"
+    assert _build.by_variant({_build.launch_key(lib): 2}) == {
+        f"{variant}.{tag}": 2}
+    flags = _build._flags(lib)
+    for define, v in (("J", J), ("K", K), ("N", n), ("UNROLL", unroll)):
+        assert f"-DRWM_PT_SF_{define}={v}" in flags
+    assert f"-DRWM_PT_MINBLOCKS={blocks}" in flags
+    assert words.device.type == "cpu" and words.dtype == torch.float32
+    assert words.numel() == _build.sf_words(J, K, n) <= \
+        _build.SF_FIXED_MAX_WORDS
+    assert _build.fixed_shape(lib) == dict(J=J, K=K, n=n, dim=pt.dim,
+                                           unroll=unroll, blocks=blocks)
+    run_time, _, params = _build.route(variant, pt, specialize=False)
+    assert run_time == f"{variant}.super_funnel.d{dmax}"
+    assert _build.fixed_shape(run_time) is None
+    assert "-DRWM_PT_SF_J" not in " ".join(_build._flags(run_time))
+    assert _build._lib_path(lib) != _build._lib_path(run_time)
+    assert torch.equal(params, _build.kernel_target(pt)[1])
+
+
+@pytest.mark.parametrize("J,K,n", [(5, 3, 4000), (5, 3, 45), (10, 5, 20),
+                                   (40, 3, 20)])
+def test_route_takes_the_run_time_library_elsewhere(J, K, n):
+    """A dataset over the parameters' words (n_per_group = 4000, and 45 at
+    the reference's J and K: 910 words), and every d > 64 shape (the team
+    kernels, unchanged), take the run-time-shape library, whether or not
+    ``specialize=False`` forces it; warp=True takes the team kernel at any
+    d, and no fixed-shape name exists there."""
+    pt = get_target_distribution("SuperFunnel", 0, J=J, K=K, n_per_group=n,
+                                 device=CPU)
+    for algo in ("pt", "rwm"):
+        variant = _build.library(f"fused_{algo}", "Normal", "lax_erfinv")
+        lib, _, params = _build.route(variant, pt)
+        assert lib == _build.lib_name(variant, "super_funnel", pt.dim)
+        assert _build.fixed_shape(lib) is None
+        assert torch.equal(params, _build.kernel_target(pt)[1])
+        if pt.dim <= 64:
+            assert lib.endswith(f".d{_build.bucket(pt.dim)}")
+            assert _build.sf_words(J, K, n) > _build.SF_FIXED_MAX_WORDS
+        else:
+            assert lib.endswith(f".w{_build.warp_bucket(pt.dim)}")
+        assert _build.route(variant, pt, specialize=False)[0] == lib
+    ref = get_target_distribution("SuperFunnel", 0, device=CPU)
+    assert _build.route("fused_pt", ref, warp=True)[0] == \
+        "fused_pt.super_funnel.w128"
+    with pytest.raises(ValueError, match="no fixed-shape library"):
+        _build.lib_name("fused_pt", "super_funnel", ref.dim, warp=True,
+                        sf=_build.sf_tag(5, 3, 20, "fused_pt"))
+
+
+def test_forced_fixed_shape_builds_and_tags(monkeypatch):
+    """A fixed-shape build's observation unroll and blocks an SM come from
+    ``SF_UNROLL`` and ``SF_MIN_BLOCKS`` into its name and its flags, so a
+    comparison that sets them gets builds of their own; the d > 32 buckets
+    hold one block; bad tags are refused."""
+    pt = get_target_distribution("SuperFunnel", 0, device=CPU)
+    assert _build.route("fused_pt_lax_erfinv", pt)[0] == \
+        "fused_pt_lax_erfinv.super_funnel.j5k3n20u2b3.d32"
+    monkeypatch.setitem(_build.SF_UNROLL, "fused_pt", 4)
+    monkeypatch.setitem(_build.SF_MIN_BLOCKS, "fused_pt", 2)
+    lib = _build.route("fused_pt_lax_erfinv", pt)[0]
+    assert lib == "fused_pt_lax_erfinv.super_funnel.j5k3n20u4b2.d32"
+    assert _build._parts(lib)[4:] == (32, 2)
+    assert {"-DRWM_PT_SF_UNROLL=4", "-DRWM_PT_MINBLOCKS=2"} <= set(
+        _build._flags(lib))
+    monkeypatch.setitem(_build.SF_UNROLL, "fused_pt", 25)
+    assert _build.sf_tag(5, 3, 20, "fused_pt") == "j5k3n20u20b2"
+    assert _build.sf_tag(10, 3, 20, "fused_pt") == "j10k3n20u20b1"   # d46
+    with pytest.raises(ValueError):
+        _build.lib_name("fused_pt", "rosenbrock", 26, sf="j5k3n20u2b3")
+    with pytest.raises(ValueError):
+        _build.lib_name("fused_pt", "super_funnel", 27, sf="j5k3n20u2b3")
+    with pytest.raises(ValueError):
+        _build.lib_name("fused_pt", "super_funnel", 26, sf="j5k3n20")
+    with pytest.raises(ValueError):
+        _build._parts("fused_pt.super_funnel.j5k3n20u2b3.w128")
+    assert _build.fixed_shape("fused_pt.super_funnel.d32") is None
+    assert _build.fixed_shape("fused_pt.mvn_iso.w128") is None
+
+
+def _fixed_log_density(words, x, J, K, n):
+    """The fixed-shape build's arithmetic (``csrc/targets.cuh::
+    super_funnel_log_density_fixed``) in f32 on the CPU, from the packed
+    words: eta' = sigma alpha + X'_0 beta_0 (sigma alpha exact, so one
+    rounding, as the FFMA) + X'_k beta_k .., each term -(max(eta', 0) +
+    log1p(exp(-|eta'|))), the sums in order, then the closing formula."""
+    h = words[:_build.SF_HEAD]
+    obs = words[_build.SF_HEAD:].reshape(J, n, K + 1)
+    d, m = J + J * K + K + 3, J + J * K
+    x = x.reshape(d, -1)
+    tau_a, tau_b = x[d - 2], x[d - 1]
+    valid = (tau_a > 1e-9) & (tau_b > 1e-9)
+    ll = torch.zeros_like(tau_a)
+    for j in range(J):
+        s = torch.zeros_like(tau_a)
+        for i in range(n):
+            w = obs[j, i]
+            eta = w[K] * x[j] + w[0] * x[J + j * K]
+            for k in range(1, K):
+                eta = eta + w[k] * x[J + j * K + k]
+            s = s + -(torch.clamp_min(eta, 0.0)
+                      + torch.log1p(torch.exp(-eta.abs())))
+        ll = ll + s
+    mu_a = x[m]
+    sa = sb = smb = torch.zeros_like(tau_a)
+    for j in range(J):
+        sa = sa + (x[j] - mu_a) * (x[j] - mu_a)
+    for j in range(J):
+        for k in range(K):
+            v = x[J + j * K + k] - x[m + 1 + k]
+            sb = sb + v * v
+    for k in range(K):
+        smb = smb + x[m + 1 + k] * x[m + 1 + k]
+    ta = torch.where(valid, tau_a, 1.0)
+    tb = torch.where(valid, tau_b, 1.0)
+    lp_a = (h[3] - float(J) * torch.log(ta)) - (0.5 * sa) / (ta * ta)
+    lp_b = (h[4] - float(J * K) * torch.log(tb)) - (0.5 * sb) / (tb * tb)
+    lp_ma = h[6] - (0.5 * (mu_a * mu_a)) / h[5]
+    lp_mb = h[7] - (0.5 * smb) / h[5]
+    qa, qb = ta / h[9], tb / h[9]
+    lp_t = ((h[8] - torch.log1p(qa * qa)) + h[8]) - torch.log1p(qb * qb)
+    total = ((((ll + lp_a) + lp_b) + lp_ma) + lp_mb) + lp_t
+    return torch.where(valid, total, -torch.inf)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS[:2] + [(10, 3, 20, 3), (2, 1, 20, 5)],
+                         ids=lambda c: "J{}K{}n{}s{}".format(*c))
+def test_packed_dataset_gives_the_plain_log_density_bit_for_bit(cfg):
+    """``sf_pack``'s signed covariates X' and signs sigma (X' = sigma X,
+    sigma = -1 where Y = 1), run through the fixed-shape build's f32
+    arithmetic on the CPU, give the plain ``log_density_td`` bit for bit
+    on JAX's dataset (the reference's seed 42 first), -inf where a tau is
+    at most 1e-9, and stay within RTOL of JAX's ``log_density``."""
+    J, K, n, seed = cfg
+    jt, pt = _pair(*cfg)
+    words = _build.sf_pack(_build.kernel_target(pt)[1])
+    obs = words[_build.SF_HEAD:].reshape(J, n, K + 1)
+    sign = obs[..., K]
+    np.testing.assert_array_equal(sign.numpy(), np.where(
+        np.asarray(jt.Y) != 0, -1.0, 1.0))
+    np.testing.assert_array_equal(
+        obs[..., :K].numpy(), (pt.X_cols.reshape(J, K, n).permute(0, 2, 1)
+                               * sign[..., None]).numpy())
+    x = _states(jt, (3, 40), seed)
+    ours = _fixed_log_density(words, torch.from_numpy(x), J, K, n).reshape(
+        x.shape[1:])
+    plain = pt.log_density_td(torch.from_numpy(x))
+    assert torch.equal(ours, plain)
+    ref = np.asarray(jt.log_density_td(jnp.asarray(x)))
+    fin = np.isfinite(ref)
+    assert not fin.all() and fin.mean() > 0.9
+    np.testing.assert_array_equal(np.isfinite(ours.numpy()), fin)
+    np.testing.assert_allclose(ours.numpy()[fin], ref[fin], rtol=RTOL)
+
+
+def test_fixed_shape_geometry_drops_the_stage_row_and_the_params():
+    """A fixed-shape build takes no stage row (the proposal stays in
+    registers) and no parameter words in shared memory (the dataset is a
+    kernel parameter): at the reference's dataset (410 words, d = 26) its
+    PT block is 33 words a thread and 410 words smaller, its RWM block
+    likewise; the run-time library's counts are unchanged."""
+    small = _build.sf_words(5, 3, 20)
+    assert small == 10 + 15 * 20 + 5 * 20
+    assert _build.row_words(32, kind="super_funnel", fixed=True) == \
+        _build.row_words(32) == _build.row_words(32, kind="super_funnel") - 33
+    run = _build.pt_shared_bytes(small, 8, 26, 32, 32, "Normal",
+                                 "lax_erfinv", "super_funnel")
+    fix = _build.pt_shared_bytes(small, 8, 26, 32, 32, "Normal",
+                                 "lax_erfinv", "super_funnel", fixed=True)
+    assert run - fix == 4 * (8 * 32 * 33 + small)
+    assert fix == _build.pt_shared_bytes(0, 8, 26, 32, 32, "Normal",
+                                         "lax_erfinv")
+    assert _build.rwm_shared_bytes(small, 26, 128, 32, "Normal", "lax_erfinv",
+                                   "super_funnel", fixed=True) == 4 * 128 * 36
+    g = _build.pt_block_geometry(96, 320, 26, 32, 8, 65536, "Normal",
+                                 "lax_erfinv", small, "super_funnel",
+                                 fixed=True)
+    assert g.shared_bytes == _build.pt_shared_bytes(
+        small, 8, 26, g.replicas, 32, "Normal", "lax_erfinv", "super_funnel",
+        fixed=True)
+    r = _build.rwm_block_geometry(80, 128, 26, 32, 65536, "Normal",
+                                  "lax_erfinv", small, "super_funnel",
+                                  fixed=True)
+    assert r.replicas == 128 and r.shared_bytes == 4 * 128 * 36
+
+
+def test_ptxas_report_names_fixed_shape_instantiations():
+    """ptxas's entry names of a fixed-shape build carry the dataset type's
+    template arguments after the kernel's; the report names the kernel's
+    own (bucket, and for PT R32 or Rrt)."""
+    from rwm_pt_tpu_torch.kernels import ptxas_report
+    sf = "16SuperFunnelFixedILi5ELi3ELi20ELi20EE"
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115fused"
+        f"_pt_kernelILi12ELi32ELi32EEEvPKfiS2_{sf}' for 'sm_90a'",
+        "ptxas info    : Used 96 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115fused"
+        f"_pt_kernelILi12ELi32ELi0EEEvPKfiS2_{sf}' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116fused"
+        f"_rwm_kernelILi12ELi32EEEvPKfiffS2_{sf}' for 'sm_90a'",
+        "ptxas info    : Used 80 registers"])
+    assert ptxas_report.parse(log) == [("D32 R32", 96, 0, 0),
+                                       ("D32 Rrt", 168, 8, 8),
+                                       ("D32", 80, 0, 0)]
