@@ -163,11 +163,14 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    .j5k3n20u2b3.d32 and .j5k3n20u4b1.d32; 2048 replicas or chains, 200
    steps; the run-time-shape
    library .d32 too, Normal) and, Normal only, at d = 8, 14 and 46, the
-   team kernels at J = 10, K = 5 (d = 68, .w128) and J = 40, K = 3
-   (d = 166, .w256) at every team size (50 steps), PT on the geometric
-   ladder (T = 8) and RWM, the Normal proposal with the rule's draw,
-   Laplace, UniformRadius and PT recorded; the MUFU and the instructions
-   an observation of both thread forms from ``cuobjdump -sass``; (b) the
+   team kernels built for the dataset's shape at J = 10, K = 5 (d = 68,
+   .j10k5n20u2.w128 and .j10k5n20u4.w128) and J = 40, K = 3 (d = 166, .w256) at every team
+   size (50 steps), each beside the run-time-shape team library on the
+   same inputs (equal bit for bit), PT on the geometric ladder (T = 8)
+   and RWM, the Normal proposal with the rule's draw, Laplace,
+   UniformRadius and PT recorded; every fixed-shape build on every
+   replica, lp rel diff 0; the MUFU and the instructions an observation
+   of the thread and the team forms from ``cuobjdump -sass``; (b) the
    main paths through ``MCMCSimulation(target_dist="SuperFunnel")``, RWM
    at 65,536 chains and PT at 65,536 replicas x T = 8, 2000 steps, swap
    every 100, launch counters zeroed just before and read just after,
@@ -181,8 +184,15 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    counts the
    log-densities with valid taus (the only ones whose likelihood the
    kernels compute) for the bound (float32, int32 or MUFU); the team
-   kernels through the entry point at d = 68 and 166 and timed and held
-   alike at 65,536 chains and 16,384 replicas x T = 8, 50 steps; fused
+   kernels through the entry point at d = 68 and 166 (the fixed-shape
+   team builds) at 65,536 chains and 16,384 replicas x T = 8, 50 steps,
+   their launches counted there and the kernels timed and held alike at
+   that size (with the run-time team library's side record), and as a
+   side line outside the kernels record at the full width, 65,536
+   replicas x T = 8 or chains, 2000 steps, timed against the bound if
+   every log-density were valid; the run-time team library's own entry point at datasets over
+   the team kernels' shared memory (J = 10, K = 5, n = 210; J = 40,
+   K = 3, n = 80; 4096, 50 steps), timed and held there; fused
    against eager at 4096 (per-rung MH and swap acceptance, z < 5; no
    direct sampler, so no Geweke gate); (c) ``experiment_rwm --target
    SuperFunnel`` at ``launch_rwm_pod.sh``'s shape (Normal, 1024 chains,
@@ -313,7 +323,7 @@ CAMPAIGN = dict(chains=512, burn_in=1000, stride=2, z_max=4.0)
 # the holds' sizes, the main paths (the RWM headline's and the flagship's
 # sizes on the geometric ladder, T = 8; the kernels alone are held there
 # too, their plain version taking ~9-13 ms a step), the team kernels'
-# timing shape, fused against eager, the study's configs (of the CLI's 40)
+# entry-point shape (where they are timed and held), fused against eager, the study's configs (of the CLI's 40)
 # and the ladder tuner's run; a Normal variance of 0.01 (the RWM
 # headline's acceptance on it is ~0.1)
 SF = dict(J=5, K=3, n=20)
@@ -323,6 +333,11 @@ SF = dict(J=5, K=3, n=20)
 # SF_RUN_TIME_PATH's size, where its kernels are timed and held
 SF_RUN_TIME_N = 50
 SF_RUN_TIME_PATH = dict(C=4096, iters=200)
+# the team kernels' likewise: datasets of the team shapes' J and K whose
+# padded words (12,632 and 12,972) exceed the shared memory's 12,288 take
+# the run-time team library, driven and held at SF_TEAM_RUN_TIME_PATH
+SF_TEAM_RUN_TIME = ((10, 5, 210), (40, 3, 80))
+SF_TEAM_RUN_TIME_PATH = dict(C=4096, iters=50)
 SF_THREAD_EDGES = ((2, 1), (3, 2), (10, 3))
 SF_WARP = ((10, 5), (40, 3))
 SF_HOLD = dict(C=2048, steps=200, edge_steps=50, warp_steps=50,
@@ -2721,13 +2736,17 @@ def sf_sass(_build, name):
     (``cuobjdump -sass``, written to ``smoke_out/super_funnel/``), per
     kernel function ``{function: (MUFU an observation, instructions an
     observation, {class: instructions an observation})}``, static counts:
-    the run-time-shape library's observation loop (of the loops between a
-    backward branch's target and the branch, the innermost that holds a
-    MUFU and a loop of its own, the covariates'; one observation a trip);
-    a fixed-shape build's (``_build.fixed_shape``) loop that reads the
-    observations' words with LDC at a register index, ``unroll`` of them a
-    trip (a build unrolled whole has no such loop: its counts are 0).
-    Fails where the toolkit lacks cuobjdump."""
+    the run-time-shape library's observation loop, thread or team (of the
+    loops between a backward branch's target and the branch, the innermost
+    that holds a MUFU and a loop of its own, the covariates'; one
+    observation a trip); a fixed-shape thread build's (``_build.
+    fixed_shape``) loop that reads the observations' words with LDC at a
+    register index, ``unroll`` of them a trip; a fixed-shape team build's
+    innermost loop that holds a MUFU and an LDS (the dataset's words in
+    shared memory) and no SHFL (the Philox block loop's broadcasts),
+    ``unroll`` a trip, the smallest of its lane's rounds of groups (a build
+    unrolled whole has no such loop: its counts are 0).  Fails where the
+    toolkit lacks cuobjdump."""
     exe = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(exe):
         fail(f"no cuobjdump beside nvcc ({exe}): phase 17 cannot read the "
@@ -2758,6 +2777,14 @@ def sf_sass(_build, name):
             runs = [lp for t, a, lp in loops
                     if any("MUFU" in x for x in lp)
                     and any(t <= t2 and a2 < a for t2, a2, _ in loops)]
+        elif _build.is_warp(name):
+            per = sf["unroll"]
+            runs = [lp for t, a, lp in loops
+                    if any("MUFU" in x for x in lp)
+                    and any(re.search(r"\bLDS", x) for x in lp)
+                    and not any("SHFL" in x for x in lp)
+                    and not any(t <= t2 and a2 < a and (t2, a2) != (t, a)
+                                for t2, a2, _ in loops)]
         else:
             per = sf["unroll"]
             runs = [lp for _, _, lp in loops
@@ -2801,11 +2828,14 @@ def phase_17(torch, gen):
     (d = 26) and the team kernels at J = 10, K = 5 (d = 68, .w128) and
     J = 40, K = 3 (d = 166, .w256) at every team size, PT and RWM, the
     Normal proposal with the rule's draw, Laplace, UniformRadius and PT
-    recorded; (b) the main paths through MCMCSimulation, RWM at 65,536
-    chains and PT on the geometric ladder (T = 8) at 65,536 replicas, 2000
-    steps, launches counted, best of 3 beside the kernel alone and its
-    bound, the team kernels' entry points at d = 68 and 166, fused against
-    eager at 4096 replicas (no direct sampler: no Geweke gate); (c) the
+    recorded, the fixed-shape builds beside the run-time-shape ones; (b)
+    the main paths through MCMCSimulation, RWM at 65,536 chains and PT on
+    the geometric ladder (T = 8) at 65,536 replicas, 2000 steps, launches
+    counted, best of 3 beside the kernel alone and its bound, the team
+    kernels' entry points at d = 68 and 166 (4096 and the full width)
+    and the run-time team library's at datasets over the shared memory,
+    fused against eager at 4096 replicas (no direct sampler: no Geweke
+    gate); (c) the
     RWM study at launch_rwm_pod.sh's shape, 4 configs; (d) a PT run with
     autotune_ladder=True.  Returns the kernels' JSON records."""
     import contextlib
@@ -2890,20 +2920,24 @@ def phase_17(torch, gen):
     for tg, steps, c_pt, c_rwm, props in shapes:
         for algo in ("pt", "rwm"):
             C = c_pt if algo == "pt" else c_rwm
-            # the reference's dataset: also its run-time-shape library
-            variants = [v + (True,) for v in props] + (
-                [("Normal", True, True)] if algo == "pt" and len(props) > 1
-                else []) + ([("Normal", False, False)] if tg is thread_tg
-                            else [])
-            for prop, record, spec in variants:
+            warp_shape = tg.dim > _build.BUCKETS[-1]
+            variants = props + ([("Normal", True)]
+                                if algo == "pt" and len(props) > 1 else [])
+            for prop, record in variants:
                 launch, plain, names, args, kw, _ = case(
                     algo, tg, steps, C, prop=prop, record=record)
-                lib = _build.route(_build.library(f"fused_{algo}",
-                                                  kw["kind"], kw["draw"]),
-                                   tg, specialize=spec)[0]
+                variant = _build.library(f"fused_{algo}", kw["kind"],
+                                         kw["draw"])
+                # the fixed-shape build the route takes, and on the same
+                # inputs the run-time-shape library: the team shapes' at
+                # every variant, the reference's dataset's at its Normal
+                specs = ((True, False) if warp_shape or (
+                    tg is thread_tg and prop == "Normal" and not record)
+                    else (True,))
                 starts = torch.isinf(tg.log_density_td(args[1])).float() \
                     .mean().item()
                 plain_ms, p = cuda_ms(torch, lambda: plain(*args, **kw))
+                lib = _build.route(variant, tg)[0]
                 teams = (_build.library_teams(lib) if _build.is_warp(lib)
                          else (None,))
                 for team in teams:
@@ -2911,55 +2945,78 @@ def phase_17(torch, gen):
                             T * team > _build.pt_team_threads(
                                 _build.warp_bucket(tg.dim), team):
                         continue
-                    reset_launches(*wrappers)
-                    tkw = (dict(kw, specialize=spec) if team is None
-                           else dict(kw, team=team))
-                    ms, k = cuda_ms(torch, lambda: launch(*args, **tkw))
-                    seen = read_launches(*wrappers, by_kind=True)
-                    ag = agreement.hold(k, p, names,
-                                        lp_of=tg.log_density_td)
-                    g_txt = "" if team is None else f" G={team}"
-                    what = (f"replicas x T={T}" if algo == "pt"
-                            else "chains")
-                    label = (f"phase 17a {lib}{g_txt}"
-                             f" {'recorded ' if record else ''}d={tg.dim} "
-                             f"(J={tg.J}, K={tg.K}) {C} {what}, {steps} "
-                             f"steps, {100 * starts:.1f} % of the states "
-                             f"start at -inf")
-                    if _build.launch_key(lib) not in seen:
-                        fail(f"{label}: launches {dict(seen)}")
-                    say(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} "
-                        f"ms; {agreement.describe(ag)}")
-                    if ag.frac < AGREE_MIN or ag.mismatched:
-                        fail(f"{label} disagrees with its plain version")
-                    worst = min(worst, ag.frac)
-                    n_holds += 1
+                    outs = {}
+                    for spec in specs:
+                        lib = _build.route(variant, tg, specialize=spec)[0]
+                        reset_launches(*wrappers)
+                        tkw = dict(kw, specialize=spec, **(
+                            {} if team is None else {"team": team}))
+                        ms, k = cuda_ms(torch, lambda: launch(*args, **tkw))
+                        seen = read_launches(*wrappers, by_kind=True)
+                        ag = agreement.hold(k, p, names,
+                                            lp_of=tg.log_density_td)
+                        g_txt = "" if team is None else f" G={team}"
+                        what = (f"replicas x T={T}" if algo == "pt"
+                                else "chains")
+                        label = (f"phase 17a {lib}{g_txt}"
+                                 f" {'recorded ' if record else ''}"
+                                 f"d={tg.dim} (J={tg.J}, K={tg.K}) {C} "
+                                 f"{what}, {steps} steps, "
+                                 f"{100 * starts:.1f} % of the states "
+                                 f"start at -inf")
+                        if _build.launch_key(lib) not in seen:
+                            fail(f"{label}: launches {dict(seen)}")
+                        say(f"{label}: kernel {ms:.3f} ms, plain "
+                            f"{plain_ms:.1f} ms; {agreement.describe(ag)}")
+                        # a fixed-shape build holds on every replica with
+                        # lp bit-equal to the plain version's
+                        strict = spec and (ag.frac < 1.0 or ag.max_rel.get(
+                            "lp", 0.0) != 0.0)
+                        if ag.frac < AGREE_MIN or ag.mismatched or strict:
+                            fail(f"{label} disagrees with its plain version")
+                        worst = min(worst, ag.frac)
+                        n_holds += 1
+                        outs[spec] = k
+                    if len(outs) == 2:
+                        same = {n: torch.equal(x, y) for n, x, y in zip(
+                            names, outs[True], outs[False])}
+                        say(f"phase 17a {variant} d={tg.dim}{g_txt}: the "
+                            f"fixed-shape and the run-time-shape libraries' "
+                            f"outputs equal bit for bit: {same}")
+                        if not all(same.values()):
+                            fail(f"phase 17a {variant} d={tg.dim}{g_txt}: "
+                                 f"the fixed-shape and the run-time-shape "
+                                 f"libraries part ways")
+                    del outs, k
                 del args, p
     say(f"phase 17a {time.time() - t_phase:.1f} s: {n_holds} holds; least "
         f"share of replicas that agree {worst:.5f}")
 
     # the likelihood's MUFU and instructions an observation, from the SASS
-    # of the fixed-shape and the run-time-shape libraries
+    # of the fixed-shape and the run-time-shape libraries, thread and team
     sass = {}
-    for algo in ("pt", "rwm"):
-        for spec in (True, False):
-            sass_lib = _build.route(_build.library(
-                f"fused_{algo}", "Normal", rule[algo]), thread_tg,
-                specialize=spec)[0]
-            per_fn = sf_sass(_build, sass_lib)
-            sass[sass_lib] = per_fn
-            say(f"phase 17 SASS {sass_lib} (static, per kernel "
-                f"instantiation <kind, bucket[, replicas]>): MUFU, "
-                f"instructions and their classes an observation "
-                + "; ".join(f"{fn} {m:.3f} MUFU, {i:.2f} instructions "
-                            f"{cls}" for fn, (m, i, cls) in per_fn.items())
-                + f"; the bound counts SF_MUFU_PER_OBS = {SF_MUFU_PER_OBS}")
-            # exact: both are loops, a whole number of observations a trip
-            if not per_fn or any(m != SF_MUFU_PER_OBS
-                                 for m, _, _ in per_fn.values()):
-                fail(f"phase 17: {sass_lib}'s likelihood holds "
-                     f"{[m for m, _, _ in per_fn.values()]} MUFU an "
-                     f"observation, the bound counts {SF_MUFU_PER_OBS}")
+    team_tgs = [sf_target(get_target_distribution, J, K, dev)
+                for J, K in SF_WARP]
+    for algo, sass_tg, spec in [(a, t, s) for a in ("pt", "rwm")
+                                for t in [thread_tg] + team_tgs
+                                for s in (True, False)]:
+        sass_lib = _build.route(_build.library(
+            f"fused_{algo}", "Normal", rule[algo]), sass_tg,
+            specialize=spec)[0]
+        per_fn = sf_sass(_build, sass_lib)
+        sass[sass_lib] = per_fn
+        say(f"phase 17 SASS {sass_lib} (static, per kernel "
+            f"instantiation <kind, bucket[, replicas]>): MUFU, "
+            f"instructions and their classes an observation "
+            + "; ".join(f"{fn} {m:.3f} MUFU, {i:.2f} instructions "
+                        f"{cls}" for fn, (m, i, cls) in per_fn.items())
+            + f"; the bound counts SF_MUFU_PER_OBS = {SF_MUFU_PER_OBS}")
+        # exact: both are loops, a whole number of observations a trip
+        if not per_fn or any(m != SF_MUFU_PER_OBS
+                             for m, _, _ in per_fn.values()):
+            fail(f"phase 17: {sass_lib}'s likelihood holds "
+                 f"{[m for m, _, _ in per_fn.values()]} MUFU an "
+                 f"observation, the bound counts {SF_MUFU_PER_OBS}")
 
     # ---- (b) the main paths through MCMCSimulation
     main_seen = Counter()
@@ -3046,30 +3103,110 @@ def phase_17(torch, gen):
             f"{sim._result.acceptance_rate.float().mean().item():.4f}")
         del sim
 
-    # the team kernels' entry points: RWM and PT at d = 68 and 166
-    for J, K in SF_WARP:
+    # the run-time team library's entry points: datasets over the team
+    # kernels' shared-memory budget
+    for J, K, n in SF_TEAM_RUN_TIME:
         for algo in ("RWM", "PT"):
             sim = MCMCSimulation(
-                dim=None, sigma=var, num_iterations=200, algorithm=algo,
-                target_dist="SuperFunnel", target_kwargs={"J": J, "K": K},
+                dim=None, sigma=var,
+                num_iterations=SF_TEAM_RUN_TIME_PATH["iters"],
+                algorithm=algo, target_dist="SuperFunnel",
+                target_kwargs={"J": J, "K": K, "n_per_group": n},
                 beta_ladder=ladder if algo == "PT" else None,
-                num_chains=4096, swap_every=SF_MAIN["swap_every"],
-                record_chain=False, device=dev)
+                num_chains=SF_TEAM_RUN_TIME_PATH["C"],
+                swap_every=SF_MAIN["swap_every"], record_chain=False,
+                device=dev)
             reset_launches(*wrappers)
             sim.generate_samples(verbose=False)
             seen = read_launches(*wrappers, by_kind=True)
             main_seen.update(seen)
-            if (len(seen) != 1 or not next(iter(seen)).startswith(
-                    f"fused_{algo.lower()}") or not _build.is_warp(
-                    next(iter(seen))) or sim.engine_used != "pallas"
-                    or not torch.isfinite(sim._result.state.x).all()):
-                fail(f"phase 17b team {algo} J={J} K={K}: launches "
-                     f"{dict(seen)}, engine {sim.engine_used}")
+            key = _build.launch_key(_build.lib_name(_build.library(
+                f"fused_{algo.lower()}", "Normal", rule[algo.lower()]),
+                "super_funnel", sim.dim))
+            if dict(seen) != {key: 1} or sim.engine_used != "pallas" or \
+                    not torch.isfinite(sim._result.state.x).all():
+                fail(f"phase 17b run-time team {algo} J={J} K={K} n={n}: "
+                     f"launches {dict(seen)}, engine {sim.engine_used}")
             say(f"phase 17b MCMCSimulation SuperFunnel {algo} J={J} K={K} "
-                f"(d={sim.dim}, 4096, 200 steps): engine {sim.engine_used}, "
-                f"launches {dict(seen)}, acc "
+                f"n_per_group={n} (d={sim.dim}, {SF_TEAM_RUN_TIME_PATH['C']}"
+                f", {SF_TEAM_RUN_TIME_PATH['iters']} steps; the run-time "
+                f"team library): launches {dict(seen)}, acc "
                 f"{sim._result.acceptance_rate.float().mean().item():.4f}")
             del sim
+
+    # the team kernels' entry points: RWM and PT at d = 68 and 166, each
+    # through the fixed-shape team build, at SF_TEAM_TIME's size (the main
+    # path of these builds: its launches are the records' below, which
+    # hold the kernels at this size) and, as a side line outside the
+    # records, at the main paths' full width, timed best of 2 through the
+    # entry point against the bound if every log-density were valid (no
+    # plain run at this size counts them: the share is at most the one
+    # printed)
+    for J, K in SF_WARP:
+        team_tg = sf_target(get_target_distribution, J, K, dev)
+        for algo in ("RWM", "PT"):
+            key = _build.launch_key(_build.route(_build.library(
+                f"fused_{algo.lower()}", "Normal", rule[algo.lower()]),
+                team_tg)[0])
+            entry = SF_TEAM_TIME["C_pt" if algo == "PT" else "C_rwm"]
+            for cc, n_it in ((entry, SF_TEAM_TIME["steps"]), (C, iters)):
+                def make(seed, algo=algo, cc=cc, n_it=n_it):
+                    return MCMCSimulation(
+                        dim=None, sigma=var, num_iterations=n_it,
+                        algorithm=algo, target_dist="SuperFunnel",
+                        target_kwargs={"J": J, "K": K}, seed=seed,
+                        beta_ladder=ladder if algo == "PT" else None,
+                        num_chains=cc, swap_every=SF_MAIN["swap_every"],
+                        record_chain=False, device=dev)
+                side = n_it == iters
+                sim = make(0)
+                reset_launches(*wrappers)
+                sim.generate_samples(verbose=False)
+                torch.cuda.synchronize()
+                seen = read_launches(*wrappers, by_kind=True)
+                if not side:
+                    main_seen.update(seen)
+                if (dict(seen) != {key: 1} or not _build.is_warp(key)
+                        or _build.fixed_shape(key) is None
+                        or sim.engine_used != "pallas"
+                        or not torch.isfinite(sim._result.state.x).all()):
+                    fail(f"phase 17b team {algo} J={J} K={K} ({cc}): "
+                         f"launches {dict(seen)}, engine {sim.engine_used}")
+                acc = sim._result.acceptance_rate.float().mean().item()
+                timing = ""
+                if side:
+                    wall = []
+                    for rep in (1, 2):
+                        s2 = make(rep)
+                        ms, _ = cuda_ms(torch, lambda: s2.generate_samples(
+                            verbose=False))
+                        wall.append(ms)
+                        del s2
+                    rungs = T if algo == "PT" else 1
+                    evals = cc * rungs * (n_it + 1)
+                    sf = (J, K, SF["n"], evals)
+                    work = (pt_work("super_funnel", team_tg.dim, T, cc, n_it,
+                                    0, SF_MAIN["swap_every"],
+                                    draw=rule["pt"], sf=sf)
+                            if algo == "PT" else
+                            rwm_work("super_funnel", team_tg.dim, cc, n_it,
+                                     draw=rule["rwm"], sf=sf))
+                    b_ms, _, b_lim = bound(*work)
+                    timing = (f"; {n_it * cc * rungs / (min(wall) / 1e3):.6g}"
+                              f" MH steps/s (best of 2 through the entry "
+                              f"point: {[round(t, 3) for t in wall]} ms); "
+                              f"bound at most {b_ms:.3f} ms by {b_lim} "
+                              f"(every log-density counted valid): at most "
+                              f"{100 * b_ms / min(wall):.1f} % of it reached")
+                label = "side line, not in the kernels record: " \
+                    if side else ""
+                say(f"phase 17b {label}MCMCSimulation SuperFunnel {algo} "
+                    f"J={J} K={K} (d={sim.dim}, {cc}"
+                    f"{' x T=%d' % T if algo == 'PT' else ''}, {n_it} "
+                    f"steps): engine {sim.engine_used}, launches "
+                    f"{dict(seen)}, acc {acc:.4f}{timing}")
+                del sim
+                torch.cuda.empty_cache()
 
     # fused against eager at 4096 replicas: per-rung MH and swap acceptance
     Ce = SF_EAGER["C"]
@@ -3105,12 +3242,13 @@ def phase_17(torch, gen):
         fail("phase 17b fused and eager rates disagree on SuperFunnel")
     del fz, ez, fr, er
 
-    # each kernel alone, best of 3, at its path's size: the thread kernels
-    # at the main path's (the fixed-shape builds) and at the n = 50 entry
-    # point's (the run-time-shape library), the team kernels at
-    # SF_TEAM_TIME's at the team size the geometry picks; each held
-    # against its plain version there, whose run counts the valid
-    # log-densities that the bound's work counts
+    # each kernel alone, best of 3, at its entry point's size: the thread
+    # kernels at the main path's (the fixed-shape builds) and at the n = 50
+    # entry point's (the run-time-shape library), the team kernels at
+    # SF_TEAM_TIME's (the fixed-shape builds) and at SF_TEAM_RUN_TIME_PATH's
+    # (the run-time team library) at the team size the geometry picks;
+    # each held against its plain version there, whose run counts the
+    # valid log-densities that the bound's work counts
     records = [(thread_tg, algo, C, iters) for algo in ("pt", "rwm")]
     records += [(run_time_tg, algo, SF_RUN_TIME_PATH["C"],
                  SF_RUN_TIME_PATH["iters"]) for algo in ("pt", "rwm")]
@@ -3118,6 +3256,10 @@ def phase_17(torch, gen):
                  SF_TEAM_TIME["C_pt" if algo == "pt" else "C_rwm"],
                  SF_TEAM_TIME["steps"])
                 for J, K in SF_WARP for algo in ("pt", "rwm")]
+    records += [(get_target_distribution(
+        "SuperFunnel", 0, J=J, K=K, n_per_group=n, device=dev), algo,
+        SF_TEAM_RUN_TIME_PATH["C"], SF_TEAM_RUN_TIME_PATH["iters"])
+        for J, K, n in SF_TEAM_RUN_TIME for algo in ("pt", "rwm")]
     for tg, algo, cc, steps in records:
         variant = _build.library(f"fused_{algo}", "Normal", rule[algo])
         launch, plain, names, args, kw, work_of = case(
@@ -3138,12 +3280,13 @@ def phase_17(torch, gen):
         def held(spec, lib):
             """(ms, outputs, agreement) of ``lib`` launched as the route
             takes it (``spec``: specialize=), held against the plain
-            version: every replica, lp rel diff 0, in a thread kernel."""
+            version: every replica, lp rel diff 0, in a thread kernel and
+            in a fixed-shape team build."""
             ms, k = cuda_ms(torch, lambda: launch(*args, **kw, **(
                 {} if spec else {"specialize": False})), reps=3)
             ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
-            strict = not warp and (ag.frac < 1.0 or
-                                   ag.max_rel.get("lp", 0.0) != 0.0)
+            strict = (not _build.is_warp(lib) or _build.fixed_shape(lib)) \
+                and (ag.frac < 1.0 or ag.max_rel.get("lp", 0.0) != 0.0)
             if ag.frac < AGREE_MIN or ag.mismatched or strict:
                 fail(f"phase 17 {lib} disagrees with its plain version "
                      f"{what}: {agreement.describe(ag)}")
@@ -3200,6 +3343,8 @@ def phase_17(torch, gen):
                               for fn, (m, i, _) in
                               sass.get(rt_lib, {}).items()})
             del rt
+        if rec["launches"] < 1:
+            fail(f"phase 17: {key} was not launched on its entry point")
         kernels.append(rec)
         del args, p, k
         torch.cuda.empty_cache()
@@ -3274,6 +3419,8 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     sf = _build.fixed_shape(name)
     d = d or (sf["dim"] if sf else dmax - 4 if _build.is_warp(name)
               else dmax)
+    if sf and _build.is_warp(name):   # its padded dataset in shared memory
+        n_params = _build.sf_team_words(sf["J"], sf["K"], sf["n"])
     pt = src.startswith("fused_pt")
     geo = _build.launch_geometry(name, d, 65536, T if pt else 0, prop, draw,
                                  n_params)
@@ -3346,17 +3493,22 @@ def smoke_libraries(_build):
         "SuperFunnel", 0, J=J, K=K, n_per_group=n, device="cpu")
         for J, K, n in ((SF["J"], SF["K"], SF["n"]),
                         (SF["J"], SF["K"], SF_RUN_TIME_N))
-        + tuple((J, K, SF["n"]) for J, K in SF_WARP + SF_THREAD_EDGES)}
+        + tuple((J, K, SF["n"]) for J, K in SF_WARP + SF_THREAD_EDGES)
+        + SF_TEAM_RUN_TIME}
     for a in ("pt", "rwm"):                                      # 17
         rule = resolve_normal_impl(a, 65536, "super_funnel")
         names += [_build.route(_build.library(f"fused_{a}", p, rule),
                                sf[J, K, SF["n"]])[0]
                   for p in _build.PROPOSALS
                   for J, K in ((SF["J"], SF["K"]),) + SF_WARP]
+        names += [_build.route(_build.library(f"fused_{a}", p, rule),
+                               sf[J, K, SF["n"]], specialize=False)[0]
+                  for p in _build.PROPOSALS for J, K in SF_WARP]
         v = _build.library(f"fused_{a}", "Normal", rule)
         names += [_build.route(v, sf[J, K, SF["n"]])[0]
                   for J, K in SF_THREAD_EDGES]
         names.append(_build.route(v, sf[SF["J"], SF["K"], SF_RUN_TIME_N])[0])
+        names += [_build.route(v, sf[shape])[0] for shape in SF_TEAM_RUN_TIME]
     return list(dict.fromkeys(names))
 
 

@@ -3,8 +3,11 @@
 Random Walk Metropolis and Parallel Tempering over analytic targets, with
 the whole-run samplers as hand-written CUDA kernels for Hopper (``sm_90a``,
 ``kernels/csrc``) beside plain PyTorch versions of the same functions, the
-``MCMCSimulation`` harness (``api``) and the RWM proposal study
-(``python -m rwm_pt_tpu_torch.cli.experiment_rwm``).
+``MCMCSimulation`` harness (``api``; burn-in autotuning of the proposal or
+the ladder) and the three CLIs: the RWM proposal study (``python -m
+rwm_pt_tpu_torch.cli.experiment_rwm``), the PT swap-rate study
+(``python -m rwm_pt_tpu_torch.cli.experiment_pt``) and one autotuned run
+(``python -m rwm_pt_tpu_torch.cli.single_run``).
 Imports ``torch`` and numpy only; the JAX package ``rwm_pt_tpu`` is the
 reference it is tested against.  Entry points run on ``device="cuda"``
 unless the caller passes ``device="cpu"``.

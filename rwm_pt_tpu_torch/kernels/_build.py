@@ -17,14 +17,18 @@ Above 64 dimensions the same variants build from ``csrc/<kernel>_warp.cu``
 the team sizes G the library instantiates (:data:`WARP_TEAMS`, a mask of
 powers of two); the launcher takes one of them (:func:`choose_team`).
 
-SuperFunnel (kind 12) at d <= 64 builds with its dataset's shape fixed,
-as the TPU kernel fixes it at trace time: ``lib<variant>.super_funnel.
-j<J>k<K>n<n>u<u>b<b>.d<D>`` with ``-DRWM_PT_SF_J=<J> -DRWM_PT_SF_K=<K>
--DRWM_PT_SF_N=<n> -DRWM_PT_SF_UNROLL=<u> -DRWM_PT_MINBLOCKS=<b>``
-(:func:`sf_tag`: the build's choices are in its name), the dataset
-packed by :func:`sf_pack` into a kernel parameter; :func:`route` takes
-it wherever the dataset fits (:func:`sf_shape`), the run-time-shape
-library ``lib<variant>.super_funnel.d<D>`` elsewhere.
+SuperFunnel (kind 12) builds with its dataset's shape fixed, as the TPU
+kernel fixes it at trace time: ``lib<variant>.super_funnel.
+j<J>k<K>n<n>u<u>b<b>.d<D>`` at d <= 64 and ``...j<J>k<K>n<n>u<u>.w<D>``
+above (the team kernels) with ``-DRWM_PT_SF_J=<J> -DRWM_PT_SF_K=<K>
+-DRWM_PT_SF_N=<n> -DRWM_PT_SF_UNROLL=<u>`` and a thread build's
+``-DRWM_PT_MINBLOCKS=<b>`` (:func:`sf_tag`: the build's choices are in
+its name), the dataset packed by :func:`sf_pack`
+into a kernel parameter (thread kernels) or padded by
+:func:`sf_team_pack` into the block's shared memory (team kernels);
+:func:`route` takes it wherever the dataset fits (:func:`sf_shape`), the
+run-time-shape library ``lib<variant>.super_funnel.d<D>`` (``.w<D>``)
+elsewhere.
 
 ``<variant>`` is the kernel itself for the Normal proposal with the ICDF
 draw (``fused_pt``), with ``_laplace`` / ``_uniform_radius`` for the other
@@ -209,11 +213,14 @@ def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None,
     if warp is None:
         warp = dim > BUCKETS[-1]
     if sf is not None:
+        # a fixed shape takes the layout of its d: no team build at d <= 64
         shape = fixed_shape(f"{variant}.{kind}.{sf}.d0")
-        if warp or shape is None or shape["dim"] != dim:
+        if (shape is None or shape["dim"] != dim
+                or warp != (dim > BUCKETS[-1])):
             raise ValueError(f"no fixed-shape library {variant}.{kind}.{sf} "
                              f"at d={dim}")
-        return f"{variant}.{kind}.{sf}.d{bucket(dim)}"
+        return (f"{variant}.{kind}.{sf}."
+                + (f"w{warp_bucket(dim)}" if warp else f"d{bucket(dim)}"))
     if warp:
         return f"{variant}.{kind}.w{warp_bucket(dim)}"
     return f"{variant}.{kind}.d{bucket(dim)}"
@@ -247,40 +254,53 @@ def _parts(name: str):
     """(source, proposal code, draw code, kind code, bucket, min blocks) of
     a library name ``<variant>.<kind>.d<D>`` or ``<variant>.<kind>.w<D>``
     (a warp bucket: source ``<kernel>_warp``, whose launch bound is fixed
-    in its source), or ``<variant>.super_funnel.<sf>.d<D>`` (a fixed
-    dataset shape, :func:`fixed_shape`)."""
+    in its source), or ``<variant>.super_funnel.<sf>.d<D>`` / ``.w<D>``
+    (a fixed dataset shape, :func:`fixed_shape`, in the layout and bucket
+    of its d)."""
     parts = name.split(".")
     shape = fixed_shape(name)
     if len(parts) == 4 and shape is not None:
         parts = parts[:2] + parts[3:]
     variant, kind, tag = parts
     src, pc, dc = VARIANTS[variant]
-    if tag[0] not in "dw" or (shape is not None and tag[0] != "d"):
+    if tag[0] not in "dw":
         raise ValueError(f"no library {name}")
     dmax = int(tag[1:])
+    if shape is not None:
+        d = shape["dim"]
+        team = BUCKETS[-1] < d <= MAX_DIM
+        if d > MAX_DIM or team != (shape["blocks"] is None) or (
+                tag[0], dmax) != (("w", warp_bucket(d)) if team
+                                  else ("d", bucket(d))):
+            raise ValueError(f"no library {name}")
     if tag[0] == "w":
         src += WARP
     blocks = (min_blocks(src, kind, dmax) if shape is None
-              else shape["blocks"])
+              or shape["blocks"] is None else shape["blocks"])
     return src, pc, dc, TARGET_KINDS[kind], dmax, blocks
 
 
 # ------------------------------------------ SuperFunnel of a fixed shape
 SF_HEAD = 10    # csrc/targets.cuh::kSuperFunnelHead, the words before X
+SF_TEAM_HEAD = 12   # csrc/targets.cuh::SuperFunnelTeamLayout::kHead
 # csrc/targets.cuh::kSuperFunnelFixedMaxWords: the packed dataset's words
 # that a fixed-shape build may take as a kernel parameter (3,584 of the 4 KB
 # of a kernel's parameters; the other arguments take < 512 B)
 SF_FIXED_MAX_WORDS = 896
 # Per source, a fixed-shape build's observations a trip of its
-# observation loop and blocks of the launch bound an SM (PT: of 256
-# threads, csrc/fused_pt.cu::kBlockThreads), the fastest measured with no
-# stack frame or spill (scripts/bench_torch_super_funnel.py on an H100,
-# PERF.md §6): PT 2 at 3 blocks (80 registers, 24 warps an SM at T = 8), RWM 4
-# with no cap (its caps lost, and unrolling 2 lost 21 % at the study's
-# 1024 chains).  A comparison sets them and names the builds again.
-SF_UNROLL = {"fused_pt": 2, "fused_rwm": 4}
+# observation loop and (thread kernels) blocks of the launch bound an SM,
+# the fastest measured with no stack frame or spill
+# (scripts/bench_torch_super_funnel.py on an H100, PERF.md §6).  Thread
+# kernels (PT's bound 256 threads, csrc/fused_pt.cu::kBlockThreads): PT 2
+# at 3 blocks (80 registers, 24 warps an SM at T = 8), RWM 4 with no cap
+# (its caps lost, and unrolling 2 lost 21 % at the study's 1024 chains).
+# Team kernels (d > 64, whose launch bound is fixed in their source): PT 2,
+# RWM 4, the fastest summed over d = 68 and 166.  A comparison sets them
+# and names the builds again.
+SF_UNROLL = {"fused_pt": 2, "fused_rwm": 4, "fused_pt_warp": 2,
+             "fused_rwm_warp": 4}
 SF_MIN_BLOCKS = {"fused_pt": 3, "fused_rwm": 1}
-_SF_TAG = re.compile(r"j(\d+)k(\d+)n(\d+)u(\d+)b(\d+)")
+_SF_TAG = re.compile(r"j(\d+)k(\d+)n(\d+)u(\d+)(?:b(\d+))?")
 
 
 def sf_words(J: int, K: int, n: int) -> int:
@@ -292,22 +312,29 @@ def sf_words(J: int, K: int, n: int) -> int:
 
 def sf_tag(J: int, K: int, n: int, source: str) -> str:
     """The library-name tag of a fixed SuperFunnel shape built from kernel
-    ``source``, ``j<J>k<K>n<n>u<u>b<b>``: the dataset's shape, then the
-    build's observations a trip of its loop (:data:`SF_UNROLL`, at most n)
-    and blocks of its launch bound an SM (:data:`SF_MIN_BLOCKS` up to the
-    32 bucket, one above it)."""
-    blocks = SF_MIN_BLOCKS[source] if bucket(J + J * K + K + 3) <= 32 else 1
+    ``source`` (``fused_pt`` or ``fused_rwm``): the dataset's shape, then
+    the build's observations a trip of its loop (:data:`SF_UNROLL` of the
+    source its d takes, ``<source>_warp`` above 64; at most n), and in a
+    thread build blocks of its launch bound an SM (:data:`SF_MIN_BLOCKS`
+    up to the 32 bucket, one above it): ``j<J>k<K>n<n>u<u>b<b>`` (thread)
+    or ``j<J>k<K>n<n>u<u>`` (team)."""
+    d = J + J * K + K + 3
+    if d > BUCKETS[-1]:
+        return f"j{J}k{K}n{n}u{min(SF_UNROLL[source + WARP], n)}"
+    blocks = SF_MIN_BLOCKS[source] if bucket(d) <= 32 else 1
     return f"j{J}k{K}n{n}u{min(SF_UNROLL[source], n)}b{blocks}"
 
 
 def fixed_shape(name: str) -> dict | None:
     """``{J, K, n, dim, unroll, blocks}`` of library ``name`` if it is a
-    SuperFunnel build of fixed shape (:func:`sf_tag`), else None."""
+    SuperFunnel build of fixed shape (:func:`sf_tag`; ``blocks`` None in a
+    tag without them), else None."""
     parts = name.split(".")
     m = _SF_TAG.fullmatch(parts[2]) if len(parts) == 4 else None
     if m is None or parts[0] not in VARIANTS or parts[1] != "super_funnel":
         return None
-    J, K, n, unroll, blocks = (int(v) for v in m.groups())
+    J, K, n, unroll = (int(v) for v in m.groups()[:4])
+    blocks = None if m.group(5) is None else int(m.group(5))
     return dict(J=J, K=K, n=n, dim=J + J * K + K + 3, unroll=unroll,
                 blocks=blocks)
 
@@ -315,13 +342,20 @@ def fixed_shape(name: str) -> dict | None:
 def sf_shape(kind: str, dim: int, params: torch.Tensor,
              warp: bool | None = None) -> tuple[int, int, int] | None:
     """``(J, K, n)`` of a SuperFunnel launch that a fixed-shape build takes:
-    kind 12 on the thread kernels (d <= 64, ``warp`` not True) whose packed
-    dataset fits :data:`SF_FIXED_MAX_WORDS`; None for any other launch
-    (which takes the run-time-shape library)."""
-    if kind != "super_funnel" or warp or dim > BUCKETS[-1]:
+    kind 12 in the layout of its d (``warp`` None or that layout's) whose
+    dataset fits the build: on the thread kernels (d <= 64) its packed
+    words within :data:`SF_FIXED_MAX_WORDS`, on the team kernels (64 < d
+    <= 252) its padded words (:func:`sf_team_words`) within the shared
+    memory's :data:`PARAMS_SHARED_MAX`; None for any other launch (which
+    takes the run-time-shape library; ``warp=True`` at d <= 64 the
+    run-time team library)."""
+    team = dim > BUCKETS[-1]
+    if kind != "super_funnel" or (warp is not None and warp != team):
         return None
     J, K, n = (int(v) for v in params[:3].tolist())
-    return (J, K, n) if sf_words(J, K, n) <= SF_FIXED_MAX_WORDS else None
+    fits = (sf_team_words(J, K, n) <= PARAMS_SHARED_MAX if team
+            else sf_words(J, K, n) <= SF_FIXED_MAX_WORDS)
+    return (J, K, n) if fits else None
 
 
 def sf_pack(params: torch.Tensor) -> torch.Tensor:
@@ -340,6 +374,47 @@ def sf_pack(params: torch.Tensor) -> torch.Tensor:
     return torch.cat([params[:SF_HEAD], obs.reshape(-1)]).cpu().contiguous()
 
 
+def sf_team_stride(K: int, n: int) -> tuple[int, int]:
+    """(words a load, words a group) of a fixed team build's dataset
+    (``csrc/targets.cuh::SuperFunnelTeamLayout``: kAccess, kStride): an
+    observation's K + 1 words as 4-, 2- or 1-word loads, a group's n
+    observations padded to an odd number of such loads, so that the groups
+    a team's lanes read at once start on distinct banks."""
+    a = 4 if (K + 1) % 4 == 0 else 2 if (K + 1) % 2 == 0 else 1
+    return a, (n * (K + 1) // a | 1) * a
+
+
+def sf_team_words(J: int, K: int, n: int) -> int:
+    """Words of a fixed team build's dataset (:func:`sf_team_pack`): the
+    head padded to :data:`SF_TEAM_HEAD`, then J groups of
+    :func:`sf_team_stride` words."""
+    return SF_TEAM_HEAD + J * sf_team_stride(K, n)[1]
+
+
+def sf_team_pack(params: torch.Tensor) -> torch.Tensor:
+    """A fixed team build's dataset from SuperFunnel's run-time parameter
+    vector: :func:`sf_pack`'s words (labels folded into signs) with the
+    head padded to 16 bytes and each group's n (K + 1) words padded to
+    :func:`sf_team_stride`'s stride, zeros between (f32, on the CPU; the
+    launcher copies it to the card and the kernel into shared memory)."""
+    J, K, n = (int(v) for v in params[:3].tolist())
+    words = sf_pack(params)
+    stride = sf_team_stride(K, n)[1]
+    out = torch.zeros(sf_team_words(J, K, n), dtype=torch.float32)
+    out[:SF_HEAD] = words[:SF_HEAD]
+    out[SF_TEAM_HEAD:].view(J, stride)[:, :n * (K + 1)] = \
+        words[SF_HEAD:].view(J, n * (K + 1))
+    return out
+
+
+def sf_team_dmax(d: int, team: int) -> int:
+    """The words a row's quads span in a fixed team build of d
+    coordinates at team size ``team`` (``csrc/warp.cuh::row_dmax``):
+    the smallest multiple of 4 G that holds d + 4, in place of the warp
+    bucket (80 at d = 68, G = 4; 192 at d = 166, G = 8)."""
+    return -(-(d + 4) // (4 * team)) * 4 * team
+
+
 def _source(name: str) -> str:
     return PROBES if name == PROBES else _parts(name)[0]
 
@@ -352,8 +427,8 @@ def _flags(name: str) -> list[str]:
              if src.endswith(WARP) else [])
     sf = fixed_shape(name)
     if sf is not None:
-        extra = [f"-DRWM_PT_SF_{k.upper()}={sf[k]}"
-                 for k in ("J", "K", "n", "unroll")]
+        extra += [f"-DRWM_PT_SF_{k.upper()}={sf[k]}"
+                  for k in ("J", "K", "n", "unroll")]
     return NVCC_FLAGS + [f"-DRWM_PT_PROPOSAL={pc}", f"-DRWM_PT_NORMAL={dc}",
                          f"-DRWM_PT_TARGET={kc}", f"-DRWM_PT_DMAX={dmax}",
                          f"-DRWM_PT_MINBLOCKS={blocks}"] + extra
@@ -679,11 +754,13 @@ def bm_lanes(k: int, d: int, team: int = 32) -> tuple[int, int, int]:
 TERMS_ROW_KINDS = ("iid_gamma", "iid_beta", "mvn_full", "super_funnel")
 
 
-def team_rows(kind: str | None = None) -> int:
+def team_rows(kind: str | None = None, fixed: bool = False) -> int:
     """Rows of :func:`team_pitch` words a team of a warp kernel keeps in
-    shared memory for target kind ``kind``: the state and the proposal, and
-    for :data:`TERMS_ROW_KINDS` the log-density's terms."""
-    return 3 if kind in TERMS_ROW_KINDS else 2
+    shared memory for target kind ``kind`` (``csrc/warp.cuh::kTeamRows``):
+    the state and the proposal, and for :data:`TERMS_ROW_KINDS` the
+    log-density's terms, but in a build of ``fixed`` SuperFunnel shape,
+    whose group sums pass by ``__shfl_sync``."""
+    return 3 if kind in TERMS_ROW_KINDS and not fixed else 2
 
 
 def params_shared_words(n_params: int) -> int:
@@ -702,14 +779,17 @@ def pt_block_threads(R: int, T: int, team: int = 32) -> int:
 
 def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
                          proposal: str = "Normal", team: int = 32,
-                         kind: str | None = None) -> int:
+                         kind: str | None = None,
+                         rows: int | None = None) -> int:
     """Dynamic shared memory of a warp PT block of R replicas x T
-    rung-teams in warp bucket ``dmax`` (``csrc/fused_pt_warp.cu::
-    shared_words``): each team's rows (:func:`team_rows`; the idle teams
-    of :func:`pt_block_threads` too), the parameters that fit, the ladder,
-    the sweep's words (its per-replica sums too) and Laplace's (T, d)
-    scales."""
-    words = (pt_block_threads(R, T, team) // team * team_rows(kind)
+    rung-teams whose rows' quads span ``dmax`` words (the warp bucket, or
+    :func:`sf_team_dmax`; ``csrc/fused_pt_warp.cu::shared_words``): each
+    team's ``rows`` rows (by default :func:`team_rows` of ``kind``; the
+    idle teams of :func:`pt_block_threads` too), the parameters that fit,
+    the ladder, the sweep's words (its per-replica sums too) and Laplace's
+    (T, d) scales."""
+    rows = team_rows(kind) if rows is None else rows
+    words = (pt_block_threads(R, T, team) // team * rows
              * team_pitch(dmax, team)
              + params_shared_words(n_params) + 2 * T
              + 2 * T * R + 5 * R + 3 * T * R + R
@@ -719,10 +799,13 @@ def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
 
 def rwm_warp_shared_bytes(n_params: int, d: int, chains: int, dmax: int,
                           proposal: str = "Normal", team: int = 32,
-                          kind: str | None = None) -> int:
+                          kind: str | None = None,
+                          rows: int | None = None) -> int:
     """Dynamic shared memory of a warp RWM block of ``chains`` teams
-    (``csrc/fused_rwm_warp.cu::shared_words``)."""
-    words = (chains * team_rows(kind) * team_pitch(dmax, team)
+    (``csrc/fused_rwm_warp.cu::shared_words``; ``dmax`` and ``rows`` as for
+    :func:`pt_warp_shared_bytes`)."""
+    rows = team_rows(kind) if rows is None else rows
+    words = (chains * rows * team_pitch(dmax, team)
              + params_shared_words(n_params)
              + (d if proposal == "Laplace" else 0))
     return 4 * words
@@ -743,11 +826,12 @@ def pt_team_threads(dmax: int, team: int = 32) -> int:
 def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                      T: int, C: int, proposal: str = "Normal",
                      draw: str = "icdf", n_params: int = 0,
-                     team: int = 32, kind: str | None = None) -> Geometry:
-    """The warp PT launch of C replicas x T rungs at d coordinates (warp
-    bucket ``dmax``) with teams of ``team`` lanes, for a kernel of ``regs``
-    registers and ``max_threads`` threads a block: R replicas of T
-    rung-teams, :func:`pt_block_threads` within :func:`pt_team_threads`
+                     team: int = 32, kind: str | None = None,
+                     rows: int | None = None) -> Geometry:
+    """The warp PT launch of C replicas x T rungs at d coordinates (``rows``
+    rows of ``dmax`` words, :func:`pt_warp_shared_bytes`) with teams of
+    ``team`` lanes, for a kernel of ``regs`` registers and ``max_threads``
+    threads a block: R replicas of T rung-teams, :func:`pt_block_threads` within :func:`pt_team_threads`
     and ``max_threads``, the rows within a block's shared memory.  Of those
     R, the whole-warp ones (R T G a multiple of 32) where any fits, else
     all (padded with idle teams: an odd T of 17 to 31 at G = 8 makes no
@@ -763,7 +847,7 @@ def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
     def shared(R):
         return pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal, team,
-                                    kind)
+                                    kind, rows)
 
     fits = [R for R in range(1, cap // (team * T) + 1)
             if pt_block_threads(R, T, team) <= cap
@@ -789,10 +873,11 @@ def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
 def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                       C: int, proposal: str = "Normal", draw: str = "icdf",
                       n_params: int = 0, sms: int = SM_COUNT,
-                      team: int = 32, kind: str | None = None) -> Geometry:
-    """The warp RWM launch of C chains at d coordinates (warp bucket
-    ``dmax``) with teams of ``team`` lanes: the most chains a block (G
-    chains a multiple of 32, at most :data:`RWM_WARP_THREADS` threads,
+                      team: int = 32, kind: str | None = None,
+                      rows: int | None = None) -> Geometry:
+    """The warp RWM launch of C chains at d coordinates (``rows`` rows of
+    ``dmax`` words, :func:`rwm_warp_shared_bytes`) with teams of ``team``
+    lanes: the most chains a block (G chains a multiple of 32, at most :data:`RWM_WARP_THREADS` threads,
     within ``max_threads`` and a block's shared memory) whose grid still
     gives each of the ``sms`` SMs a block (512 chains at G = 32: 3 a block,
     171 blocks), the fewest a block when none does.  ``replicas`` is the
@@ -802,9 +887,9 @@ def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
     if C < 1:
         raise ValueError(f"C={C} must be >= 1")
     fixed = rwm_warp_shared_bytes(n_params, d, 0, dmax, proposal, team,
-                                  kind)
+                                  kind, rows)
     per_chain = rwm_warp_shared_bytes(n_params, d, 1, dmax, proposal,
-                                      team, kind) - fixed
+                                      team, kind, rows) - fixed
     step = 32 // team                     # a warp's teams
     n = min(min(RWM_WARP_THREADS, max_threads) // team,
             (BLOCK_SHARED - fixed) // per_chain)
@@ -816,7 +901,7 @@ def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
     while n > step and -(-C // n) < sms:
         n -= step
     shared = rwm_warp_shared_bytes(n_params, d, n, dmax, proposal, team,
-                                   kind)
+                                   kind, rows)
     return Geometry(n, team * n, shared,
                     blocks_per_sm(regs, team * n, shared), -(-C // n),
                     team=team)
@@ -902,6 +987,7 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     team size it holds that fits, of which :func:`choose_team` takes one
     (``team`` forces one, for comparisons)."""
     dmax = _parts(name)[4]
+    fixed = fixed_shape(name) is not None
     if is_warp(name):
         kind = name.split(".")[1]
         teams = library_teams(name)
@@ -909,15 +995,18 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
             raise ValueError(f"{name} holds teams of {teams} lanes, not "
                              f"{team}")
         geos = {}
+        rows = team_rows(kind, fixed)
         for g in ([team] if team is not None else teams):
             a = kernel_info(name, d, team=g)
+            # a fixed shape's rows are sized by d (csrc/warp.cuh::row_dmax)
+            words = sf_team_dmax(d, g) if fixed else dmax
             try:
                 geos[g] = (pt_warp_geometry(
-                    a["registers"], a["max_threads"], d, dmax, T, C,
-                    proposal, draw, n_params, team=g, kind=kind) if T else
+                    a["registers"], a["max_threads"], d, words, T, C,
+                    proposal, draw, n_params, team=g, rows=rows) if T else
                     rwm_warp_geometry(a["registers"], a["max_threads"], d,
-                                      dmax, C, proposal, draw, n_params,
-                                      team=g, kind=kind))
+                                      words, C, proposal, draw, n_params,
+                                      team=g, rows=rows))
             except ValueError:
                 if team is not None:
                     raise
@@ -926,7 +1015,6 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
         raise ValueError(f"{name} runs one thread a state: team= is for the "
                          "warp libraries")
     kind = name.split(".")[1]
-    fixed = fixed_shape(name) is not None
     if not T:
         a = kernel_info(name, d)
         return rwm_block_geometry(a["registers"], a["max_threads"], d, dmax,
@@ -1050,16 +1138,17 @@ def route(variant: str, target, warp: bool | None = None,
     kernel variant ``variant`` on ``target`` (:func:`lib_name`; ``warp`` as
     there).  A SuperFunnel whose dataset fits a fixed-shape build
     (:func:`sf_shape`) takes one (:func:`sf_tag`), with the dataset packed
-    by :func:`sf_pack`; every other launch the library of its kind and
+    by :func:`sf_pack` (a thread build) or :func:`sf_team_pack` (a team
+    build, d > 64); every other launch the library of its kind and
     bucket, with :func:`kernel_target`'s words.  ``specialize=False``
     forces the run-time-shape library, for comparisons only."""
     kind, params = kernel_target(target)
     shape = sf_shape(kind, target.dim, params, warp) if specialize else None
     if shape is None:
         return lib_name(variant, kind, target.dim, warp), kind, params
-    return (lib_name(variant, kind, target.dim, warp,
-                     sf=sf_tag(*shape, VARIANTS[variant][0])), kind,
-            sf_pack(params))
+    lib = lib_name(variant, kind, target.dim, warp,
+                   sf=sf_tag(*shape, VARIANTS[variant][0]))
+    return lib, kind, (sf_team_pack if is_warp(lib) else sf_pack)(params)
 
 
 def by_variant(launches) -> Counter:

@@ -12,7 +12,12 @@
 // of 60 int32 operations a (replica, rung, step) at d = 100, 2.045e12 over
 // the main shape (65,536 replicas x T = 10 x 2000 steps), 122.2 ms at the
 // card's int32 peak (SuperFunnel's likelihood binds instead,
-// csrc/fused_pt.cu).  What cost time beside it with one warp a state
+// csrc/fused_pt.cu, whose usual build here fixes the dataset's shape as
+// the thread kernel's does: -DRWM_PT_SF_J, _K, _N, _UNROLL; d is a
+// constant, two blocks an SM below G = 32 (kMinBlocks), each team size's
+// rows are sized by d (csrc/warp.cuh::row_dmax) with no terms row, and csrc/warp.cuh::team_super_funnel_fixed
+// reads the dataset from shared memory at compile-time offsets).  What
+// cost time beside it with one warp a state
 // (G = 32, the layout before teams) was the step's fixed work a state, paid
 // by all 32 lanes for one state: the butterflies of its sums, the
 // broadcasts of its uniforms, the accept, the Kahan sums and the counters;
@@ -62,7 +67,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_TEAMS=m
-//        (no --use_fast_math)
+//        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
+//         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,9 +98,8 @@ constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the warp bucket: d + 4 <= kDmax
 constexpr int kMaxSharedBytes = 227 * 1024;     // a block's dynamic shared memory
-constexpr int kParamsShared = 12288;            // params in shared memory up to
 constexpr int kMaxRungs = 32;
-constexpr int kRows = kTermsRow<kKind> ? 3 : 2;   // rows a team
+constexpr int kRows = kTeamRows<kKind>;   // rows a team
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
 
 // A block's threads, the launch bound: one warp a state (G = 32) takes 32
@@ -103,6 +108,13 @@ static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
 // 80 they spilled); teams of G < 32 lanes take 512 threads
 template <int G>
 constexpr int kBlockThreads = G == 32 ? (kDmax > 128 ? 512 : 1024) : 512;
+// Blocks of that bound an SM: two for a build of fixed SuperFunnel shape
+// below G = 32, which caps it at 64 registers (at d = 68, G = 4 ptxas
+// took 65 without the cap: 14 replicas a block and 28 warps an SM in
+// place of 16 and 32, and the full width ran 5 % slower; PERF.md §6),
+// else one
+template <int G>
+constexpr int kMinBlocks = kFixedDim && G < 32 ? 2 : 1;
 
 __host__ __device__ constexpr int params_in_shared(int n_params) {
   return n_params <= kParamsShared ? n_params : 0;
@@ -129,7 +141,7 @@ __host__ __device__ constexpr size_t shared_words(int pitch, int n_params,
 // (the explicit one block an SM matters: without it ptxas took fewer
 // registers and the 256 bucket's G = 32 kernels spilled)
 template <int KIND, int DMAX, int G>
-__global__ void __launch_bounds__(kBlockThreads<G>, 1)
+__global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     fused_pt_warp_kernel(
         const float* __restrict__ params, int n_params,
         const float* __restrict__ betas, const float* __restrict__ sigmas,
@@ -147,6 +159,9 @@ __global__ void __launch_bounds__(kBlockThreads<G>, 1)
   constexpr int kPitch = kTeamPitch<DMAX, G>;
   static_assert(DMAX % (4 * G) == 0, "a team's lanes split the bucket");
   extern __shared__ float4 smem4[];
+#ifdef RWM_PT_SF_N
+  d = kFixedDim;   // a constant in a fixed-shape build
+#endif
   const int lane = threadIdx.x & 31;
   const int t = threadIdx.x & (G - 1);    // the lane in its team
   const int tid = threadIdx.x / G;        // the team: slot R + replica
@@ -216,7 +231,13 @@ __global__ void __launch_bounds__(kBlockThreads<G>, 1)
     }
   }
   __syncthreads();
+#ifdef RWM_PT_SF_N
+  // the fixed dataset always lies in shared memory (the launcher checks
+  // its words): LDS, not generic loads
+  const float* p = s_params;
+#else
   const float* p = n_shared ? s_params : params;
+#endif
   float lp = team_log_density<KIND, G, NQ>(xs, trow, d, p, lane);
   int rung = slot;
   // team lane 0 of the slot-0 team runs the sweep of its replica
@@ -349,7 +370,7 @@ using Kernel = decltype(&fused_pt_warp_kernel<kKind, kDmax, 32>);
 template <int G>
 Kernel team_kernel() {
   if constexpr ((RWM_PT_TEAMS & G) != 0)
-    return fused_pt_warp_kernel<kKind, kDmax, G>;
+    return fused_pt_warp_kernel<kKind, row_dmax<kDmax>(G), G>;
   else
     return nullptr;
 }
@@ -363,7 +384,9 @@ Kernel kernel(int team) {
   }
 }
 
-int pitch(int team) { return kDmax + (team < 32 ? team : 0); }
+int pitch(int team) {
+  return row_dmax<kDmax>(team) + (team < 32 ? team : 0);
+}
 
 // R T teams of `team` lanes, padded to whole warps with idle teams
 // (kernels/_build.py::pt_block_threads)
@@ -431,6 +454,13 @@ extern "C" int rwm_pt_fused_pt(
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
+#ifdef RWM_PT_SF_N
+  // a fixed-shape build: params is the host's padded dataset
+  // (kernels/_build.py::sf_team_pack), staged in shared memory
+  if (d != kFixedDim || params == nullptr ||
+      n_params != SuperFunnelTeamBuild::kWords)
+    return (int)cudaErrorInvalidValue;
+#endif
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;

@@ -10,7 +10,8 @@
 // Bound: operations, Philox's int32 work (chip_smoke.py::bound): 26 blocks
 // of 60 int32 operations a (chain, step) at d = 100, 2.045e11 over the main
 // shape (65,536 chains x 2000 steps), 12.2 ms at the card's int32 peak
-// (SuperFunnel's likelihood binds instead, csrc/fused_pt.cu).
+// (SuperFunnel's likelihood binds instead, csrc/fused_pt.cu; its usual
+// build fixes the dataset's shape, as csrc/fused_pt_warp.cu's does).
 // Beside it the step's fixed work a chain (the butterflies of its sums,
 // the uniform's broadcast, the accept, the Kahan sum, the counter) cost a
 // whole warp's issue slots with one warp a chain (G = 32, the layout
@@ -44,7 +45,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_TEAMS=m
-//        (no --use_fast_math)
+//        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
+//         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_rwm.py::_run_rwm_fused_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,13 +73,12 @@ namespace {
 
 constexpr int kThreads = 256;       // the launch bound: 8 warps a block
 constexpr int kMaxSharedBytes = 227 * 1024;   // a block's dynamic shared memory
-constexpr int kParamsShared = 12288;          // params in shared memory up to
 constexpr int kProp = RWM_PT_PROPOSAL;
 constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the warp bucket: d + 4 <= kDmax
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
-constexpr int kRows = kTermsRow<kKind> ? 3 : 2;   // rows a team
+constexpr int kRows = kTeamRows<kKind>;   // rows a team
 
 __host__ __device__ constexpr int params_in_shared(int n_params) {
   return n_params <= kParamsShared ? n_params : 0;
@@ -115,6 +116,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kPitch = kTeamPitch<DMAX, G>;
   static_assert(DMAX % (4 * G) == 0, "a team's lanes split the bucket");
   extern __shared__ float4 smem4[];
+#ifdef RWM_PT_SF_N
+  d = kFixedDim;   // a constant in a fixed-shape build
+#endif
   const int nteams = blockDim.x / G;
   const int lane = threadIdx.x & 31;
   const int t = threadIdx.x & (G - 1);
@@ -134,7 +138,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the whole warp, when its first team lies past C
   if (blockIdx.x * nteams + (threadIdx.x >> 5) * (32 / G) >= C) return;
   const bool valid = c < C;
+#ifdef RWM_PT_SF_N
+  // the fixed dataset always lies in shared memory (the launcher checks
+  // its words): LDS, not generic loads
+  const float* p = s_params;
+#else
   const float* p = n_shared ? s_params : params;
+#endif
   float* xs = s_x + team * kPitch;         // this chain's state row
   float* row = s_row + team * kPitch;
   float* trow = s_terms + team * kPitch;
@@ -203,7 +213,7 @@ using Kernel = decltype(&fused_rwm_warp_kernel<kKind, kDmax, 32>);
 template <int G>
 Kernel team_kernel() {
   if constexpr ((RWM_PT_TEAMS & G) != 0)
-    return fused_rwm_warp_kernel<kKind, kDmax, G>;
+    return fused_rwm_warp_kernel<kKind, row_dmax<kDmax>(G), G>;
   else
     return nullptr;
 }
@@ -217,7 +227,9 @@ Kernel kernel(int team) {
   }
 }
 
-int pitch(int team) { return kDmax + (team < 32 ? team : 0); }
+int pitch(int team) {
+  return row_dmax<kDmax>(team) + (team < 32 ? team : 0);
+}
 
 cudaError_t prepare(Kernel k, size_t shmem) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -280,6 +292,13 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
                           record_chains > C)))
     return (int)cudaErrorInvalidValue;
+#ifdef RWM_PT_SF_N
+  // a fixed-shape build: params is the host's padded dataset
+  // (kernels/_build.py::sf_team_pack), staged in shared memory
+  if (d != kFixedDim || params == nullptr ||
+      n_params != SuperFunnelTeamBuild::kWords)
+    return (int)cudaErrorInvalidValue;
+#endif
   const size_t shmem =
       shared_words(pitch(team), n_params, d, chains) * sizeof(float);
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;

@@ -219,6 +219,26 @@ struct SuperFunnelFixed {
   float obs[J * N * (K + 1)];     // (j, i): X'_ji0 .. X'_ji(K-1), sigma_ji
 };
 
+// The dataset of a team build (csrc/warp.cuh::team_super_funnel_fixed, d >
+// 64) with J groups, K covariates and N observations a group fixed, in the
+// block's shared memory (kernels/_build.py::sf_team_pack): the head padded
+// to kHead words (16 bytes), then group j's N observations of K + 1 words
+// (X'_0 .. X'_{K-1}, sigma, signs folded in as above) from word kHead +
+// j kStride.  An observation is read as (K + 1) / kAccess loads of kAccess
+// words (16 bytes at K = 3, 8 at K = 5).  kStride pads a group to an odd
+// number of such loads, so that the groups a team's lanes read at once
+// (j = t + G r, lane t) start on distinct banks (n (K + 1) = 80 words at
+// K = 3, n = 20 put lanes t and t + 2 on the same banks).
+template <int J, int K, int N>
+struct SuperFunnelTeamLayout {
+  static constexpr int kDim = J + J * K + K + 3;
+  static constexpr int kAccess = (K + 1) % 4 == 0 ? 4 : (K + 1) % 2 == 0 ? 2
+                                                                          : 1;
+  static constexpr int kHead = 12;
+  static constexpr int kStride = (N * (K + 1) / kAccess | 1) * kAccess;
+  static constexpr int kWords = kHead + J * kStride;
+};
+
 // An observation's term at its signed linear predictor e = sigma eta
 __device__ __forceinline__ float super_funnel_signed_term(float e) {
   const float l = log1pf(expf(-fabsf(e)));

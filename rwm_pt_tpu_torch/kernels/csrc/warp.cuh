@@ -24,11 +24,13 @@
 //
 // Rows, no register arrays.  Each team has a state row (x) and a scratch
 // row (the step's proposal y) of team_pitch(DMAX, G) words in shared
-// memory; the IID kinds and the full-covariance MVN a third, for their
-// terms (kTermsRow).  Every pass over a lane's quads is a rolled loop that
-// reads and writes them there (16-byte accesses), so a lane's registers do
-// not grow with its DMAX / (4 G) quads and a small G keeps the occupancy
-// of one warp a state.  A step: one rolled loop computes each of the
+// memory; the IID kinds, the full-covariance MVN and SuperFunnel's
+// run-time-shape build a third, for their terms (kTermsRow; a build with
+// SuperFunnel's shape fixed sizes its rows by d, not by the bucket:
+// team_super_funnel_fixed).  Every pass over a lane's quads is a rolled
+// loop that reads and writes them there (16-byte accesses), so a lane's
+// registers do not grow with its DMAX / (4 G) quads and a small G keeps
+// the occupancy of one warp a state.  A step: one rolled loop computes each of the
 // lane's Philox blocks and uses it up (its broadcast slots, and its
 // proposal words, normals or Box-Muller uniforms into the scratch row);
 // Box-Muller (pair k < h = ceil(d/2) computed by the lane of coordinate k,
@@ -56,7 +58,9 @@
 // in index order in every lane, the plain version's order
 // (targets/base.py::sum0), which matters where lp is near 0, and so does
 // SuperFunnel, whose groups' likelihoods the lanes compute in parallel
-// (each group's in order) into a terms row; the others sum
+// (each group's in order: group j by team lane j mod G) into a terms row,
+// or with its shape fixed into registers that every lane then reads in
+// index order by __shfl_sync; the others sum
 // in the butterfly's order, within the agreement gate's tolerance of the
 // plain version (kernels/agreement.py).
 #pragma once
@@ -235,6 +239,144 @@ __device__ __forceinline__ void team_bm_rows(float* row, int d, int t) {
     }
   }
   __syncwarp();   // every sine is in the row
+}
+
+// Parameters of up to this many words lie in a block's shared memory
+// (kernels/_build.py::PARAMS_SHARED_MAX)
+constexpr int kParamsShared = 12288;
+
+#ifdef RWM_PT_SF_N
+// SuperFunnel with the dataset's shape fixed at build time (-DRWM_PT_SF_J,
+// _K, _N, _UNROLL; the library <variant>.super_funnel.j<J>k<K>n<N>u<U>.
+// w<D>, kernels/_build.py::sf_tag): d is a constant, the rows are sized by
+// it (row_dmax) and the dataset lies in shared memory in
+// SuperFunnelTeamLayout's words
+using SuperFunnelTeamBuild =
+    SuperFunnelTeamLayout<RWM_PT_SF_J, RWM_PT_SF_K, RWM_PT_SF_N>;
+constexpr int kFixedDim = SuperFunnelTeamBuild::kDim;
+static_assert(SuperFunnelTeamBuild::kWords <= kParamsShared,
+              "the fixed shape's dataset does not fit shared memory");
+#else
+constexpr int kFixedDim = 0;   // d at run time
+#endif
+
+// Rows a team keeps (kernels/_build.py::team_rows): the state and the
+// proposal, and a third for the kTermsRow kinds but in a build of fixed
+// shape, whose group sums pass by __shfl_sync
+template <int KIND>
+constexpr int kTeamRows = kTermsRow<KIND> && !kFixedDim ? 3 : 2;
+
+// The words a row's quads span at team size G in warp bucket DMAX: the
+// bucket, or in a build of fixed shape the smallest multiple of 4 G that
+// holds d + 4 (kernels/_build.py::sf_team_dmax)
+template <int DMAX>
+__host__ __device__ constexpr int row_dmax(int team) {
+  static_assert(kFixedDim + 4 <= DMAX, "the fixed shape's d exceeds DMAX");
+  return kFixedDim ? (kFixedDim + 4 + 4 * team - 1) / (4 * team) * (4 * team)
+                   : DMAX;
+}
+
+// Words 0..K of the observation at w (A-word loads; w A-word aligned)
+template <int K, int A>
+__device__ __forceinline__ void load_observation(const float* w,
+                                                 float (&v)[K + 1]) {
+#pragma unroll
+  for (int a = 0; a < K + 1; a += A) {
+    if constexpr (A == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(w + a);
+      v[a] = q.x;
+      v[a + 1] = q.y;
+      v[a + 2] = q.z;
+      v[a + 3] = q.w;
+    } else if constexpr (A == 2) {
+      const float2 q = *reinterpret_cast<const float2*>(w + a);
+      v[a] = q.x;
+      v[a + 1] = q.y;
+    } else {
+      v[a] = w[a];
+    }
+  }
+}
+
+// SuperFunnel's log-density of the state in row y from the fixed dataset p
+// (SuperFunnelTeamLayout<J, K, N>, in shared memory), every lane of the team
+// the same float: the team form of csrc/targets.cuh::
+// super_funnel_log_density_fixed, in its order.  Group j belongs to team
+// lane j mod G, which reads its alpha and K betas from the row once (at
+// compile-time offsets from the lane's first group), sums its N
+// observations in order, U a trip (an observation's words one 16- or
+// 8-byte load, sigma alpha exact so one FFMA adds it), and keeps the sum in
+// a register; every lane then adds the J sums in index order, each taken
+// from its lane by __shfl_sync (no terms row), and the priors' squares in
+// index order, read as quads at compile-time offsets.  The taus are read
+// alike by every lane, so `valid` holds team-wide; the shuffles sit
+// outside the branch on it, which a warp's teams may take apart.
+template <int J, int K, int N, int U, int G>
+__device__ __forceinline__ float team_super_funnel_fixed(const float* y,
+                                                         const float* p,
+                                                         int lane) {
+  using L = SuperFunnelTeamLayout<J, K, N>;
+  constexpr int d = L::kDim;
+  constexpr int m = J + J * K;             // mu_alpha; mu_beta from m + 1
+  constexpr int kRounds = (J + G - 1) / G;   // groups t + G r a lane takes
+  static_assert(U >= 1 && U <= N, "unroll by 1 .. N observations");
+  const int t = lane & (G - 1);
+  const bool valid = super_funnel_taus_valid(y[d - 2], y[d - 1]);
+  float g[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) g[r] = 0.0f;
+  if (valid) {
+    const float* ya = y + t;               // alpha_t
+    const float* yb = y + J + t * K;       // beta_t0
+    const float* o = p + L::kHead + t * L::kStride;
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (J % G == 0 || r + 1 < kRounds || t + G * r < J) {
+        const float alpha = ya[G * r];
+        float b[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) b[k] = yb[G * r * K + k];
+        const float* og = o + G * r * L::kStride;
+        float s = 0.0f;
+#pragma unroll (U)
+        for (int i = 0; i < N; ++i) {
+          float w[K + 1];
+          load_observation<K, L::kAccess>(og + i * (K + 1), w);
+          float eta = fmaf(w[K], alpha, __fmul_rn(w[0], b[0]));
+#pragma unroll
+          for (int k = 1; k < K; ++k) eta += __fmul_rn(w[k], b[k]);
+          s += super_funnel_signed_term(eta);
+        }
+        g[r] = s;
+      }
+    }
+  }
+  float ll = 0.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    ll += __shfl_sync(kFullMask, g[j / G], j % G, G);
+  if (!valid) return -INFINITY;
+  const float mu_a = y[m];
+  float mb[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) mb[k] = y[m + 1 + k];
+  float sa = 0.0f, sb = 0.0f, smb = 0.0f;
+#pragma unroll
+  for (int q = 0; q < (m + 3) / 4; ++q) {   // words 0 .. m - 1 by quads
+    const float4 v = row_quad(y, q);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int i = 4 * q + w;
+      if (i < J)
+        sa += sq_rn(quad_word(v, w) - mu_a);
+      else if (i < m)
+        sb += sq_rn(quad_word(v, w) - mb[(i - J) % K]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) smb += sq_rn(mb[k]);
+  return super_funnel_close(ll, sa, sb, smb, mu_a, y[d - 2], y[d - 1],
+                            (float)J, (float)(J * K), p);
 }
 
 // The log-density of the state in row y (words past d unread),
@@ -459,6 +601,10 @@ __device__ __forceinline__ float team_log_density(const float* y,
     if (!team_all<G>(valid, lane)) return -INFINITY;
     return KIND == TARGET_IID_GAMMA ? s - p[2] : s + p[2];
   } else if constexpr (KIND == TARGET_SUPER_FUNNEL) {
+#ifdef RWM_PT_SF_N
+    return team_super_funnel_fixed<RWM_PT_SF_J, RWM_PT_SF_K, RWM_PT_SF_N,
+                                   RWM_PT_SF_UNROLL, G>(y, p, lane);
+#else
     // group j's likelihood by team lane j mod G into word j of the terms
     // row; then every lane adds the groups and the priors' squares in
     // index order, the plain version's order (terms of both signs: lp near
@@ -473,6 +619,7 @@ __device__ __forceinline__ float team_log_density(const float* y,
     __syncwarp();
     if (!valid) return -INFINITY;
     return super_funnel_valid(x, [trow](int j) { return trow[j]; }, d, p);
+#endif
   } else {   // TARGET_NEAL_FUNNEL: the squares in index order from k = 1
     const float v = y[0];
     const float prior = p[3] - __fmul_rn(0.5f, sq(v - p[0])) / p[1];

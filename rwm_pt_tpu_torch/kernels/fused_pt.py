@@ -160,8 +160,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     team size too)."""
     variant = _build.library("fused_pt", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
-    if _build.fixed_shape(lib) is None:
-        params = params.to(x0.device)   # a fixed shape's: a kernel parameter
+    if _build.fixed_shape(lib) is None or _build.is_warp(lib):
+        # (a fixed thread build's words are a kernel parameter, on the host)
+        params = params.to(x0.device)
     d, T, C = x0.shape
     pair_order(T, swap_sweep)                # raises for an unknown order
     order = SWEEPS.index(swap_sweep)

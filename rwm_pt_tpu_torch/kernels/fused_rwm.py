@@ -91,20 +91,23 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     the warp kernel at any d, to compare the layouts; ``team`` forces the
     warp kernel's team size G, the lanes a chain, where
     ``_build.choose_team`` would pick one; ``specialize=False`` forces
-    SuperFunnel's run-time-shape library; ``team`` and ``specialize`` for
-    comparisons only) on the current stream; same
+    SuperFunnel's run-time-shape library, thread or team; ``team`` and
+    ``specialize`` for comparisons only) on the current stream; same
     arguments and results as :func:`_run_rwm_fused_plain`.  ``launches``
     counts each launch under ``_build.launch_key`` of its library
     (``fused_rwm.rosenbrock``, ``fused_rwm_bm.mvn_iso``,
     ``fused_rwm_lax_erfinv.super_funnel.j5k3n20u4b1``,
-    ``fused_rwm_lax_erfinv.mvn_iso.w128``, ..; ``_build.by_variant`` sums
-    them by variant), and a recorded one also under ``fused_rwm_record``.
+    ``fused_rwm_lax_erfinv.mvn_iso.w128``,
+    ``fused_rwm_lax_erfinv.super_funnel.j10k5n20u4.w128``, ..;
+    ``_build.by_variant`` sums them by variant), and a recorded one also
+    under ``fused_rwm_record``.
     The chains a block (and a warp library's team size) come from
     ``_build.launch_geometry``."""
     variant = _build.library("fused_rwm", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
-    if _build.fixed_shape(lib) is None:
-        params = params.to(x0.device)   # a fixed shape's: a kernel parameter
+    if _build.fixed_shape(lib) is None or _build.is_warp(lib):
+        # (a fixed thread build's words are a kernel parameter, on the host)
+        params = params.to(x0.device)
     _build.check_cuda("fused_rwm", torch.float32, x0=x0, jump0=jump0)
     _build.check_cuda("fused_rwm", torch.int32, acc0=acc0)
     d, C = x0.shape

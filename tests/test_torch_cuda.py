@@ -192,6 +192,20 @@ def test_unsupported_inputs_raise_on_card(monkeypatch):
                           torch.tensor(1.0, device=dev),
                           torch.tensor(0.1, device=dev), seed_key(1), 0, 2,
                           0)
+    # likewise a team dataset over the shared-memory budget (d = 166,
+    # 12,972 padded words) routed to a fixed team build by a raised budget
+    monkeypatch.setattr(_build, "PARAMS_SHARED_MAX", 10 ** 6)
+    wide_sf = get_target_distribution("SuperFunnel", 0, J=40, K=3,
+                                      n_per_group=80, device=dev)
+    assert _build.fixed_shape(_build.route("fused_rwm", wide_sf)[0])
+    x0 = torch.zeros(wide_sf.dim, 64, device=dev)
+    with pytest.raises(RuntimeError, match="kernel build failed"):
+        launch_rwm_kernel(wide_sf, x0, torch.zeros(64, dtype=torch.int32,
+                                                   device=dev),
+                          torch.zeros(64, device=dev),
+                          torch.tensor(1.0, device=dev),
+                          torch.tensor(0.1, device=dev), seed_key(1), 0, 2,
+                          0)
     monkeypatch.undo()
     wide = FullRosenbrock.create(253, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -881,10 +895,10 @@ def test_super_funnel_kernels_match_plain(algo, J, K, team):
     layouts and at every team size, PT on the geometric ladder (T = 8) and
     RWM, from the default init 1e-8 N(0, 1), where most states start at
     -inf (log-ratio NaN until a proposal is valid: rejected, as in the
-    plain version); the launch counted under the library's key.  The
-    thread shapes hold the fixed-shape build the route takes and the
-    run-time-shape library (``specialize=False``) alike, and the two give
-    the same outputs bit for bit."""
+    plain version); the launch counted under the library's key.  Every
+    shape holds the fixed-shape build the route takes (the team shapes' at
+    each team size) and the run-time-shape library (``specialize=False``)
+    alike, and the two give the same outputs bit for bit."""
     dev = _card()
     C = 1003
     target = get_target_distribution("SuperFunnel", 0, J=J, K=K,
@@ -916,14 +930,14 @@ def test_super_funnel_kernels_match_plain(algo, J, K, team):
     kw = dict(draw=draw)
     p = plain(*args, **kw)
     outs = []
-    for spec in ((True, False) if team is None else (True,)):
+    for spec in (True, False):
         before = Counter(launch.launches)
-        k = launch(*args, **kw, **({"specialize": spec} if team is None
-                                   else {"team": team}))
+        k = launch(*args, **kw, specialize=spec,
+                   **({} if team is None else {"team": team}))
         lib = _build.route(_build.library(f"fused_{algo}", "Normal", draw),
                            target, specialize=spec)[0]
-        assert (_build.fixed_shape(lib) is not None) == (
-            spec and team is None)
+        assert (_build.fixed_shape(lib) is not None) == spec
+        assert _build.is_warp(lib) == (team is not None)
         assert launch.launches - before == Counter(
             {_build.launch_key(lib): 1})
         a = agreement.hold(k, p, names, lp_of=target.log_density_td)
@@ -931,10 +945,9 @@ def test_super_funnel_kernels_match_plain(algo, J, K, team):
         assert not a.mismatched, agreement.describe(a)
         assert (k[2] > 0).any() and torch.isfinite(k[1]).any()
         outs.append(k)
-    if team is None:
-        fixed, run_time = outs
-        for name, x, y in zip(names, fixed, run_time):
-            assert torch.equal(x, y), name
+    fixed, run_time = outs
+    for name, x, y in zip(names, fixed, run_time):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("team", _build.WARP_TEAMS[128])

@@ -463,14 +463,15 @@ def test_route_takes_the_fixed_shape_where_the_dataset_fits(shape, algo):
     assert torch.equal(params, _build.kernel_target(pt)[1])
 
 
-@pytest.mark.parametrize("J,K,n", [(5, 3, 4000), (5, 3, 45), (10, 5, 20),
-                                   (40, 3, 20)])
+@pytest.mark.parametrize("J,K,n", [(5, 3, 4000), (5, 3, 45), (10, 5, 210),
+                                   (40, 3, 80)])
 def test_route_takes_the_run_time_library_elsewhere(J, K, n):
     """A dataset over the parameters' words (n_per_group = 4000, and 45 at
-    the reference's J and K: 910 words), and every d > 64 shape (the team
-    kernels, unchanged), take the run-time-shape library, whether or not
-    ``specialize=False`` forces it; warp=True takes the team kernel at any
-    d, and no fixed-shape name exists there."""
+    the reference's J and K: 910 words), and a d > 64 dataset whose padded
+    words exceed the team kernels' shared-memory budget (12,632 and 12,972
+    of PARAMS_SHARED_MAX's 12,288), take the run-time-shape library,
+    whether or not ``specialize=False`` forces it; warp=True takes the
+    team kernel at any d, and no fixed-shape name exists there below 65."""
     pt = get_target_distribution("SuperFunnel", 0, J=J, K=K, n_per_group=n,
                                  device=CPU)
     for algo in ("pt", "rwm"):
@@ -484,6 +485,7 @@ def test_route_takes_the_run_time_library_elsewhere(J, K, n):
             assert _build.sf_words(J, K, n) > _build.SF_FIXED_MAX_WORDS
         else:
             assert lib.endswith(f".w{_build.warp_bucket(pt.dim)}")
+            assert _build.sf_team_words(J, K, n) > _build.PARAMS_SHARED_MAX
         assert _build.route(variant, pt, specialize=False)[0] == lib
     ref = get_target_distribution("SuperFunnel", 0, device=CPU)
     assert _build.route("fused_pt", ref, warp=True)[0] == \
@@ -493,11 +495,67 @@ def test_route_takes_the_run_time_library_elsewhere(J, K, n):
                         sf=_build.sf_tag(5, 3, 20, "fused_pt"))
 
 
+TEAM_SHAPES = [(10, 5, 20), (40, 3, 20)]     # d = 68 (.w128), 166 (.w256)
+
+
+@pytest.mark.parametrize("J,K,n", TEAM_SHAPES)
+def test_route_takes_the_fixed_team_build_above_64_dimensions(J, K, n):
+    """Above 64 dimensions a dataset whose padded words fit the team
+    kernels' shared memory takes the team build of its shape,
+    ``<variant>.super_funnel.j<J>k<K>n<n>u<u>.w<D>``: the shape's
+    defines, the team sizes of its bucket, the team source's ``SF_UNROLL``
+    in its name and flags (no blocks: the team kernels' launch bound is
+    fixed in their source), launched under its whole
+    name, its dataset padded by ``sf_team_pack`` (to go to the card);
+    ``specialize=False`` forces the run-time team library, and ``warp=
+    False`` has no library there."""
+    pt = get_target_distribution("SuperFunnel", 0, J=J, K=K, n_per_group=n,
+                                 device=CPU)
+    dmax = _build.warp_bucket(pt.dim)
+    for algo in ("pt", "rwm"):
+        src = f"fused_{algo}"
+        variant = _build.library(src, "Normal", "lax_erfinv")
+        lib, kind, words = _build.route(variant, pt)
+        unroll = min(_build.SF_UNROLL[src + _build.WARP], n)
+        tag = f"j{J}k{K}n{n}u{unroll}"
+        assert kind == "super_funnel"
+        assert lib == f"{variant}.super_funnel.{tag}.w{dmax}"
+        assert _build.is_warp(lib) and _build.launch_key(lib) == lib
+        assert _build.by_variant({lib: 3}) == {f"{variant}.{tag}": 3}
+        assert _build.fixed_shape(lib) == dict(J=J, K=K, n=n, dim=pt.dim,
+                                               unroll=unroll, blocks=None)
+        assert _build._parts(lib) == (src + _build.WARP, 0, 3, 12, dmax, 1)
+        assert _build.library_teams(lib) == _build.WARP_TEAMS[dmax]
+        assert {f"-DRWM_PT_SF_J={J}", f"-DRWM_PT_SF_K={K}",
+                f"-DRWM_PT_SF_N={n}", f"-DRWM_PT_SF_UNROLL={unroll}",
+                "-DRWM_PT_MINBLOCKS=1", f"-DRWM_PT_DMAX={dmax}",
+                f"-DRWM_PT_TEAMS={sum(_build.WARP_TEAMS[dmax])}"} <= set(
+                    _build._flags(lib))
+        assert words.device.type == "cpu" and words.dtype == torch.float32
+        assert torch.equal(words, _build.sf_team_pack(
+            _build.kernel_target(pt)[1]))
+        assert words.numel() == _build.sf_team_words(J, K, n) <= \
+            _build.PARAMS_SHARED_MAX
+        assert _build.sf_shape("super_funnel", pt.dim,
+                               _build.kernel_target(pt)[1]) == (J, K, n)
+        assert _build.sf_shape("super_funnel", pt.dim,
+                               _build.kernel_target(pt)[1], warp=True) == \
+            (J, K, n)
+        run_time, _, params = _build.route(variant, pt, specialize=False)
+        assert run_time == f"{variant}.super_funnel.w{dmax}"
+        assert torch.equal(params, _build.kernel_target(pt)[1])
+        assert "-DRWM_PT_SF_J" not in " ".join(_build._flags(run_time))
+        assert _build._lib_path(lib) != _build._lib_path(run_time)
+        with pytest.raises(NotImplementedError):
+            _build.route(variant, pt, warp=False)
+
+
 def test_forced_fixed_shape_builds_and_tags(monkeypatch):
     """A fixed-shape build's observation unroll and blocks an SM come from
     ``SF_UNROLL`` and ``SF_MIN_BLOCKS`` into its name and its flags, so a
     comparison that sets them gets builds of their own; the d > 32 buckets
-    hold one block; bad tags are refused."""
+    hold one block, and a team build's name carries no blocks; bad tags
+    are refused."""
     pt = get_target_distribution("SuperFunnel", 0, device=CPU)
     assert _build.route("fused_pt_lax_erfinv", pt)[0] == \
         "fused_pt_lax_erfinv.super_funnel.j5k3n20u2b3.d32"
@@ -517,35 +575,103 @@ def test_forced_fixed_shape_builds_and_tags(monkeypatch):
         _build.lib_name("fused_pt", "super_funnel", 27, sf="j5k3n20u2b3")
     with pytest.raises(ValueError):
         _build.lib_name("fused_pt", "super_funnel", 26, sf="j5k3n20")
+    # a fixed name takes the layout and the bucket of its d: d = 26 has no
+    # team build, d = 68 no thread build and no .w256 one; a thread name
+    # carries its blocks, a team name none
     with pytest.raises(ValueError):
         _build._parts("fused_pt.super_funnel.j5k3n20u2b3.w128")
+    with pytest.raises(ValueError):
+        _build._parts("fused_pt.super_funnel.j5k3n20u2.d32")
+    for bad in ("d64", "w256", "d128"):
+        with pytest.raises(ValueError):
+            _build._parts(f"fused_pt.super_funnel.j10k5n20u2.{bad}")
+    with pytest.raises(ValueError):
+        _build._parts("fused_pt.super_funnel.j10k5n20u2b2.w128")
+    assert _build._parts("fused_pt.super_funnel.j10k5n20u4.w128") == (
+        "fused_pt_warp", 0, 0, 12, 128, 1)
+    monkeypatch.setitem(_build.SF_UNROLL, "fused_pt_warp", 5)
+    assert _build.sf_tag(10, 5, 20, "fused_pt") == "j10k5n20u5"   # d68
+    wide = get_target_distribution("SuperFunnel", 0, J=10, K=5, device=CPU)
+    lib = _build.route("fused_pt_lax_erfinv", wide)[0]
+    assert lib == "fused_pt_lax_erfinv.super_funnel.j10k5n20u5.w128"
+    assert {"-DRWM_PT_SF_UNROLL=5", "-DRWM_PT_MINBLOCKS=1"} <= set(
+        _build._flags(lib))
+    assert _build.lib_name("fused_pt_lax_erfinv", "super_funnel", 68,
+                           sf="j10k5n20u5") == lib
+    with pytest.raises(ValueError, match="no fixed-shape library"):
+        _build.lib_name("fused_pt", "super_funnel", 68, warp=False,
+                        sf="j10k5n20u5")
     assert _build.fixed_shape("fused_pt.super_funnel.d32") is None
     assert _build.fixed_shape("fused_pt.mvn_iso.w128") is None
 
 
-def _fixed_log_density(words, x, J, K, n):
-    """The fixed-shape build's arithmetic (``csrc/targets.cuh::
-    super_funnel_log_density_fixed``) in f32 on the CPU, from the packed
-    words: eta' = sigma alpha + X'_0 beta_0 (sigma alpha exact, so one
+def _signed_group(obs, alpha, betas, K):
+    """A group's likelihood from its observations' packed words ``obs``
+    ((n, K + 1): X'_0 .. X'_{K-1}, sigma) as the fixed-shape builds compute
+    it: eta' = sigma alpha + X'_0 beta_0 (sigma alpha exact, so one
     rounding, as the FFMA) + X'_k beta_k .., each term -(max(eta', 0) +
-    log1p(exp(-|eta'|))), the sums in order, then the closing formula."""
-    h = words[:_build.SF_HEAD]
+    log1p(exp(-|eta'|))), summed in order."""
+    s = torch.zeros_like(alpha)
+    for w in obs:
+        eta = w[K] * alpha + w[0] * betas[0]
+        for k in range(1, K):
+            eta = eta + w[k] * betas[k]
+        s = s + -(torch.clamp_min(eta, 0.0)
+                  + torch.log1p(torch.exp(-eta.abs())))
+    return s
+
+
+def _fixed_log_density(words, x, J, K, n):
+    """The fixed-shape thread build's arithmetic (``csrc/targets.cuh::
+    super_funnel_log_density_fixed``) in f32 on the CPU, from the packed
+    words: each group by :func:`_signed_group`, the sums in order, then
+    the closing formula."""
     obs = words[_build.SF_HEAD:].reshape(J, n, K + 1)
-    d, m = J + J * K + K + 3, J + J * K
+    d = J + J * K + K + 3
     x = x.reshape(d, -1)
+    ll = torch.zeros_like(x[0])
+    for j in range(J):
+        ll = ll + _signed_group(obs[j], x[j], x[J + j * K:J + j * K + K], K)
+    return _close(words, x, ll, J, K)
+
+
+def _team_log_density(words, x, J, K, n, G):
+    """The fixed-shape team build's arithmetic (``csrc/warp.cuh::
+    team_super_funnel_fixed``) in f32 on the CPU, from ``sf_team_pack``'s
+    padded words at team size G: team lane t takes groups j = t + G r,
+    reads alpha and the betas at offsets from its first group's and its
+    observations from word SF_TEAM_HEAD + t kStride + G r kStride, sums
+    them in order (:func:`_signed_group`); every lane then adds the J sums
+    in index order, group j from lane j mod G, round j // G (the
+    ``__shfl_sync`` reads), then the closing formula."""
+    _, stride = _build.sf_team_stride(K, n)
+    d = J + J * K + K + 3
+    x = x.reshape(d, -1)
+    held = {}
+    for t in range(G):
+        o = _build.SF_TEAM_HEAD + t * stride
+        for r in range(-(-J // G)):
+            if t + G * r >= J:
+                continue
+            og = o + G * r * stride
+            b0 = J + t * K + G * r * K
+            held[t, r] = _signed_group(
+                words[og:og + n * (K + 1)].reshape(n, K + 1), x[t + G * r],
+                x[b0:b0 + K], K)
+    ll = torch.zeros_like(x[0])
+    for j in range(J):
+        ll = ll + held[j % G, j // G]
+    return _close(words, x, ll, J, K)
+
+
+def _close(words, x, ll, J, K):
+    """The priors' squares in index order and the closing formula, from
+    the head's words 3..9 (both builds' first words), -inf where a tau is
+    at most 1e-9."""
+    h = words[:_build.SF_HEAD]
+    d, m = J + J * K + K + 3, J + J * K
     tau_a, tau_b = x[d - 2], x[d - 1]
     valid = (tau_a > 1e-9) & (tau_b > 1e-9)
-    ll = torch.zeros_like(tau_a)
-    for j in range(J):
-        s = torch.zeros_like(tau_a)
-        for i in range(n):
-            w = obs[j, i]
-            eta = w[K] * x[j] + w[0] * x[J + j * K]
-            for k in range(1, K):
-                eta = eta + w[k] * x[J + j * K + k]
-            s = s + -(torch.clamp_min(eta, 0.0)
-                      + torch.log1p(torch.exp(-eta.abs())))
-        ll = ll + s
     mu_a = x[m]
     sa = sb = smb = torch.zeros_like(tau_a)
     for j in range(J):
@@ -568,14 +694,16 @@ def _fixed_log_density(words, x, J, K, n):
     return torch.where(valid, total, -torch.inf)
 
 
-@pytest.mark.parametrize("cfg", CONFIGS[:2] + [(10, 3, 20, 3), (2, 1, 20, 5)],
+@pytest.mark.parametrize("cfg", CONFIGS[:2] + [(10, 3, 20, 3), (2, 1, 20, 5)]
+                         + CONFIGS[2:],
                          ids=lambda c: "J{}K{}n{}s{}".format(*c))
 def test_packed_dataset_gives_the_plain_log_density_bit_for_bit(cfg):
     """``sf_pack``'s signed covariates X' and signs sigma (X' = sigma X,
     sigma = -1 where Y = 1), run through the fixed-shape build's f32
     arithmetic on the CPU, give the plain ``log_density_td`` bit for bit
-    on JAX's dataset (the reference's seed 42 first), -inf where a tau is
-    at most 1e-9, and stay within RTOL of JAX's ``log_density``."""
+    on JAX's dataset (the reference's seed 42 first; the team shapes
+    d = 68 and 166 last), -inf where a tau is at most 1e-9, and stay
+    within RTOL of JAX's ``log_density``."""
     J, K, n, seed = cfg
     jt, pt = _pair(*cfg)
     words = _build.sf_pack(_build.kernel_target(pt)[1])
@@ -596,6 +724,101 @@ def test_packed_dataset_gives_the_plain_log_density_bit_for_bit(cfg):
     assert not fin.all() and fin.mean() > 0.9
     np.testing.assert_array_equal(np.isfinite(ours.numpy()), fin)
     np.testing.assert_allclose(ours.numpy()[fin], ref[fin], rtol=RTOL)
+
+
+@pytest.mark.parametrize("team", [4, 8, 32])
+@pytest.mark.parametrize("cfg", CONFIGS[2:],
+                         ids=lambda c: "J{}K{}n{}s{}".format(*c))
+def test_team_arithmetic_gives_the_plain_log_density_bit_for_bit(cfg, team):
+    """``sf_team_pack``'s padded words (the head to 12 words, each group
+    to an odd number of 16- or 8-byte loads, zeros between), run through
+    the team build's f32 arithmetic at team size G on the CPU (lane j mod
+    G, the in-order sums), give the plain ``log_density_td`` bit for bit
+    at d = 68 and 166, -inf where a tau is at most 1e-9, and stay within
+    RTOL of JAX's ``log_density_td`` (run on the CPU as the JAX package's
+    tests run it)."""
+    J, K, n, seed = cfg
+    jt, pt = _pair(*cfg)
+    params = _build.kernel_target(pt)[1]
+    packed, words = _build.sf_pack(params), _build.sf_team_pack(params)
+    a, stride = _build.sf_team_stride(K, n)
+    assert (a, stride) == ((2, 122) if K == 5 else (4, 84))
+    assert words.numel() == _build.SF_TEAM_HEAD + J * stride
+    assert torch.equal(words[:_build.SF_HEAD], packed[:_build.SF_HEAD])
+    assert not words[_build.SF_HEAD:_build.SF_TEAM_HEAD].any()
+    groups = words[_build.SF_TEAM_HEAD:].reshape(J, stride)
+    assert torch.equal(groups[:, :n * (K + 1)],
+                       packed[_build.SF_HEAD:].reshape(J, n * (K + 1)))
+    assert not groups[:, n * (K + 1):].any()
+    x = _states(jt, (3, 40), seed)
+    ours = _team_log_density(words, torch.from_numpy(x), J, K, n,
+                             team).reshape(x.shape[1:])
+    assert torch.equal(ours, pt.log_density_td(torch.from_numpy(x)))
+    ref = np.asarray(jt.log_density_td(jnp.asarray(x)))
+    fin = np.isfinite(ref)
+    assert not fin.all() and fin.mean() > 0.9
+    np.testing.assert_array_equal(np.isfinite(ours.numpy()), fin)
+    np.testing.assert_allclose(ours.numpy()[fin], ref[fin], rtol=RTOL)
+
+
+@pytest.mark.parametrize("J,K,n,team", [(10, 5, 20, 4), (10, 5, 20, 32),
+                                        (40, 3, 20, 8), (40, 3, 20, 32)])
+def test_fixed_team_shared_bytes_mirror_the_layout(J, K, n, team):
+    """A fixed team build's shared memory (``csrc/fused_*_warp.cu::
+    shared_words`` with ``csrc/warp.cuh::row_dmax`` and ``kTeamRows``):
+    two rows a team (no terms row) of the smallest multiple of 4 G that
+    holds d + 4 words, plus G below G = 32, then the padded dataset; the
+    run-time library keeps three rows of the bucket.  The pitch puts a
+    warp's teams, and the stride a team's groups, on distinct banks.  At
+    64 registers the fixed build holds 2 PT blocks of 16 replicas (32 warps
+    an SM) and 4 RWM blocks at d = 68, G = 4; 2 of 7 replicas (28 warps)
+    and 3 at d = 166, G = 8."""
+    d = J + J * K + K + 3
+    dmax, T = _build.warp_bucket(d), 8
+    words = _build.sf_team_words(J, K, n)
+    row = _build.sf_team_dmax(d, team)
+    rows = _build.team_rows("super_funnel", fixed=True)
+    assert rows == 2 and _build.team_rows("super_funnel") == 3
+    assert row % (4 * team) == 0 and d + 4 <= row < d + 4 + 4 * team
+    assert row == {(68, 4): 80, (68, 32): 128, (166, 8): 192,
+                   (166, 32): 256}[d, team]
+    pitch = _build.team_pitch(row, team)
+    assert pitch == row + (team if team < 32 else 0)
+    starts = [(k * pitch) % 32 for k in range(32 // team)]
+    assert len(set(starts)) == len(starts)
+    a, stride = _build.sf_team_stride(K, n)
+    lanes = min(team, 32 // a)
+    assert len({(t * stride) % 32 // a for t in range(lanes)}) == lanes
+    for R in (1, 2, 7, 16):
+        threads = _build.pt_block_threads(R, T, team)
+        if threads > _build.pt_team_threads(dmax, team):
+            continue
+        misc = 2 * T + 2 * T * R + 5 * R + 3 * T * R + R
+        for prop, lap in (("Normal", 0), ("Laplace", T * d)):
+            assert _build.pt_warp_shared_bytes(
+                words, T, d, R, row, prop, team, rows=rows) == 4 * (
+                threads // team * 2 * pitch + words + misc + lap)
+        params = _build.sf_words(J, K, n)   # the run-time vector
+        assert _build.pt_warp_shared_bytes(
+            params, T, d, R, dmax, "Normal", team, "super_funnel") == 4 * (
+            threads // team * 3 * _build.team_pitch(dmax, team) + params
+            + misc)
+    for chains in (8, 32, 64):
+        assert _build.rwm_warp_shared_bytes(
+            words, d, chains, row, "Laplace", team,
+            rows=rows) == 4 * (chains * 2 * pitch + words + d)
+    if team < 32:
+        g = _build.pt_warp_geometry(64, 512, d, row, T, 65536, "Normal",
+                                    "lax_erfinv", words, team=team,
+                                    rows=rows)
+        r = _build.rwm_warp_geometry(64, 256, d, row, 65536, "Normal",
+                                     "lax_erfinv", words, team=team,
+                                     rows=rows)
+        want = {68: ((16, 2), (64, 4)), 166: ((7, 2), (32, 3))}[d]
+        assert ((g.replicas, g.blocks_per_sm),
+                (r.replicas, r.blocks_per_sm)) == want
+        assert g.shared_bytes == _build.pt_warp_shared_bytes(
+            words, T, d, g.replicas, row, "Normal", team, rows=rows)
 
 
 def test_fixed_shape_geometry_drops_the_stage_row_and_the_params():
