@@ -88,10 +88,12 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    ``scripts/launch_pt_pod.sh``'s shape (ThreeMixture d=10, 200,000
    iterations, burn-in 1000, 1024 replicas, ``swap_accept_max`` 0.5,
    ``N_samples_swap_est`` 1e6, tolerance 1e-4, 1000 pn steps, fail factor
-   1, seed 1), all 30 configs: per config the ladder, its build and run seconds, the actual
+   1, seed 1), all 30 configs: per config the ladder (one launch of the
+   ladder kernel, phase 18), its build and run seconds, the actual
    swap acceptance beside the constructed rate, the beta-ESJD and exactly
    one fused launch; the ESJD-optimal swap acceptance; one
-   ``MCMCSimulation(iterative_temp_spacing=True)`` PT run on ThreeMixture;
+   ``MCMCSimulation(iterative_temp_spacing=True)`` PT run on ThreeMixture
+   (one ladder launch, one fused launch);
    the study's library held against its plain version at the study's
    shape (T=7, even/odd, 200 steps); fused ``even_odd`` against the eager
    engine's ``even_odd`` on MVN d=10.
@@ -200,6 +202,26 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    config and the JAX study's JSON keys (``smoke_out/super_funnel/``);
    (d) a PT run with ``autotune_ladder=True``: the tuner, then one fused
    launch.
+
+18. the one-launch iterative ladder builder (``csrc/ladder_build.cu``,
+   ``construct_iterative_ladder_device``; A10): (a) every kind with a
+   direct sampler at d = 10 (the iso MVN at d = 100 too): its main path
+   through ``MCMCSimulation(iterative_temp_spacing=True)`` with the launch
+   counted (the count of the kernels line), then the kernel against its
+   plain version at N = 20,000, tolerance 0.01 and the harness's room
+   (the same T and probes, betas to rtol 1e-5, the swap estimates to rtol
+   1e-5 up to the first that differs), timed beside its bound; (b) the PT
+   study's 30 ladders at ``experiment_pt``'s defaults and room (N =
+   50,000, tolerance 5e-4, 500 pn steps, fail factor 1.5): the host loop
+   against the kernel, seconds each, the ladders equal; (c) one
+   production build (``launch_pt_pod.sh:27-30``: N = 10^6, tolerance
+   1e-4, 1000 pn steps, fail factor 1, phase 13's shape): seconds,
+   probes, us a probe against its bound, held against its plain version
+   (the host loop's search; the same T and probes, betas to rtol 1e-5),
+   whose us a probe are given over all its probes and its first 50; (d)
+   the ``demo`` CLI on the card (2000 iterations, no plots), the
+   profiling helpers on a fused run, and the eager engines' options
+   (CPU semantics, ``symmetric=False``, ``progress_every``, float64).
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -362,6 +384,35 @@ SINGLE_RUN_KEYS = {"target_distribution", "proposal_distribution",
                    "seed", "total_time", "acceptance_rate", "esjd",
                    "num_chains", "autotune_target", "tuned_scale_multiplier",
                    "tuned_proposal_config"}
+
+
+# phase 18, the ladder builder: the kinds with a direct sampler at the held
+# d = 10 (registry name, kwargs; "cov": phase 11's covariance), the study's
+# ThreeMixture (pt_gpu) for its kind, the d of the wide bucket's hold, the
+# held build, the study's defaults (rwm_pt_tpu_torch/cli/experiment_pt.py
+# run_study) and the production build (scripts/launch_pt_pod.sh:27-30)
+LADDER_KINDS = {
+    "mvn_iso": ("MultivariateNormal", {}),
+    "mvn_full": ("MultivariateNormal", "cov"),
+    "scaled_mvn": ("MultivariateNormalScaled", {}),
+    "three_mixture": ("ThreeMixture", {"variant": "pt_gpu"}),
+    "rough_carpet": ("RoughCarpetScaled", {}),
+    "even_rosenbrock": ("EvenRosenbrock", {}),
+    "hybrid_rosenbrock": ("HybridRosenbrock", {"n1": 4, "n2": 3}),
+    "hypercube": ("Hypercube", {}),
+    "iid_gamma": ("IIDGamma", {}),
+    "iid_beta": ("IIDBeta", {}),
+    "neal_funnel": ("NealFunnel", {}),
+}
+LADDER_D, LADDER_WIDE_D = 10, 100
+LADDER_HOLD = dict(N_samples_swap_est=20000, tolerance=0.01, seed=1)
+LADDER_STUDY = dict(N_samples_swap_est=50000, tolerance=0.0005,
+                    max_pn_adjustment_steps=500,
+                    convergence_failure_tolerance_factor=1.5)
+LADDER_PROD = dict(N_samples_swap_est=1000000, tolerance=1e-4,
+                   max_pn_adjustment_steps=1000,
+                   convergence_failure_tolerance_factor=1.0, seed=1)
+LADDER_HOST_PROBES = 50   # the host loop's first probes, timed alone
 
 
 def fail(msg):
@@ -1571,8 +1622,9 @@ def phases_11_to_13(torch, gen):
     out_dir = os.path.join(HERE, "smoke_out", "pt_study")
     os.makedirs(out_dir, exist_ok=True)
     per = []
-    real_ladder = experiment_pt.construct_iterative_ladder
+    real_ladder = experiment_pt.construct_iterative_ladder_device
     real_run = experiment_pt.run_pt_fused
+    from rwm_pt_tpu_torch.kernels.ladder_build import launch_ladder_kernel
 
     def ladder_spy(*a, **k):
         t0 = time.perf_counter()
@@ -1591,8 +1643,9 @@ def phases_11_to_13(torch, gen):
         return res
 
     n_cfg = PT_STUDY["configs"]
-    experiment_pt.construct_iterative_ladder = ladder_spy
+    experiment_pt.construct_iterative_ladder_device = ladder_spy
     experiment_pt.run_pt_fused = run_spy
+    launch_ladder_kernel.launches.clear()
     try:
         with open(os.path.join(out_dir, "study.log"), "w") as log, \
                 contextlib.redirect_stdout(log):
@@ -1604,8 +1657,11 @@ def phases_11_to_13(torch, gen):
                 num_configs=n_cfg, output_dir=out_dir, make_plots=False,
                 device=dev)
     finally:
-        experiment_pt.construct_iterative_ladder = real_ladder
+        experiment_pt.construct_iterative_ladder_device = real_ladder
         experiment_pt.run_pt_fused = real_run
+    ladder_seen = dict(launch_ladder_kernel.launches)
+    if ladder_seen != {"ladder_build.three_mixture": PT_STUDY["configs"]}:
+        fail(f"PT study ladder launches {ladder_seen}")
     study_draw = draws.resolve_normal_impl("pt", PT_STUDY["C"],
                                            "three_mixture")
     lib = _build.library("fused_pt", "Normal", study_draw) + ".three_mixture"
@@ -1630,10 +1686,11 @@ def phases_11_to_13(torch, gen):
         f"acceptance {data['max_actual_acceptance_rate']:.4f} (constructed "
         f"{data['max_constr_acceptance_rate']:.4f}, beta-ESJD "
         f"{data['max_esjd']:.6f}); {data['total_time']:.1f} s in all, "
-        f"ladders {sum(c['ladder_s'] for c in per):.1f} s, runs "
+        f"ladders {sum(c['ladder_s'] for c in per):.1f} s (one launch of "
+        f"the ladder kernel each: {ladder_seen}), runs "
         f"{sum(c['run_s'] for c in per):.1f} s")
 
-    reset_launches(*wrappers)
+    reset_launches(*wrappers, launch_ladder_kernel)
     sim = MCMCSimulation(dim=PT_STUDY["dim"], sigma=2.38 ** 2 / PT_STUDY["dim"],
                          num_iterations=20000, algorithm="PT",
                          target_dist=PT_STUDY["target"], seed=1,
@@ -1642,10 +1699,14 @@ def phases_11_to_13(torch, gen):
                          device=dev)
     sim.generate_samples(verbose=False)
     seen = read_launches(*wrappers, by_kind=True)
+    ladder_seen = dict(launch_ladder_kernel.launches)
     if (dict(seen) != {lib: 1} or sim.engine_used != "pallas"
+            or ladder_seen != {"ladder_build.three_mixture": 1}
             or sim.algorithm_name != "PT_RWM_GPU_ITERATIVE_LADDER"):
         fail(f"harness iterative-ladder PT run: launches {dict(seen)}, "
-             f"engine {sim.engine_used}, {sim.algorithm_name}")
+             f"ladder {ladder_seen}, engine {sim.engine_used}, "
+             f"{sim.algorithm_name}")
+    seen.update(launch_ladder_kernel.launches)
     say(f"phase 13 MCMCSimulation PT {PT_STUDY['target']} iterative ladder "
         f"{[round(b, 5) for b in sim.beta_ladder]}: swap acc "
         f"{sim.acceptance_rate():.4f}, beta-ESJD "
@@ -3406,6 +3467,354 @@ def phase_17(torch, gen):
     return kernels
 
 
+# ---------------------------------------------------------- the ladder kernel
+# Work of a ladder build (csrc/ladder_build.cu), per probe: 2N samples (N at
+# beta*, N at beta), each drawn from Philox blocks of 4 words and evaluated
+# by the target's log-density (lp_flops), then the term min(1, exp((b -
+# b*)(lp* - lp))) (2 subs, mul, min, exp, the double add: 6 per sample).
+# A side's draw, in this convention: a lax_erfinv normal 30 (NORMAL_FLOPS)
+# a coordinate (NealFunnel, the MVNs, the mixtures, the Rosenbrocks) and
+# the sampler's own arithmetic a coordinate: 2 (iso MVN: product, add;
+# Hypercube: product, add), 3 (scaled MVN, the mixtures, the Rosenbrocks,
+# NealFunnel's z: quotient or product, add, quotient), the full MVN's
+# quotient and FMA a pair (3 d^2) and its add (d), the mixtures' compares
+# (2 a categorical draw, 1 word); a gamma variate's accepted attempt
+# (Marsaglia-Tsang: the bit-exact normal 57, fast_log twice 56, 10 more
+# products and sums, 125; the boost below shape 1, where beta* < 1/shape,
+# left out, and rejections, 2-5 % of attempts, not counted) and its
+# scale (IIDGamma 1; IIDBeta two gammas, then an add and a quotient).
+# Philox: ceil(words / 4) blocks a side (a gamma variate: one block an
+# attempt), PHILOX_BLOCK_OPS int32 operations each.  Bytes: the tile sums
+# (8 B a 256 samples, written and read) and the parameters, negligible.
+def ladder_side(kind, d):
+    """(float operations, Philox blocks) of one sample on one side."""
+    if kind in ("iid_gamma", "iid_beta"):
+        g = 2 if kind == "iid_beta" else 1
+        return d * (125 * g + (2 if g == 2 else 1)), d * g
+    words = d + {"three_mixture": 1, "rough_carpet": d}.get(kind, 0)
+    per = {"mvn_iso": 32, "hypercube": 2}.get(kind, 33)
+    flops = d * (per if kind != "hypercube" else 2)
+    if kind == "mvn_full":
+        flops = 30 * d + 3 * d * d + d
+    if kind in ("three_mixture", "rough_carpet"):
+        flops += 2 * (words - d)
+    return flops + lp_flops(kind, d), -(-words // 4)
+
+
+def ladder_work(kind, d, n, probes):
+    """``(flops, Philox int32 ops, bytes)`` of a build of ``probes``
+    probes of ``n`` samples a side."""
+    f, blocks = ladder_side(kind, d)
+    samples = probes * n
+    return (samples * (2 * f + 6), samples * 2 * blocks * PHILOX_BLOCK_OPS,
+            probes * 16 * -(-n // 256))
+
+
+def ladder_target(get_target_distribution, kind, d, dev):
+    """Phase 18's target of ``kind`` at ``d`` coordinates."""
+    import numpy as np
+    name, kw = LADDER_KINDS[kind]
+    if kw == "cov":
+        a = np.random.default_rng(3).normal(size=(d, d))
+        kw = {"cov": a @ a.T / d + np.eye(d)}
+    if kind == "hybrid_rosenbrock":
+        d = 0    # the registry's d comes from n1, n2
+    return get_target_distribution(name, d, device=dev, **kw)
+
+
+def first_difference(a, b, rtol=1e-5):
+    """Index of the first pair of swap estimates that differ beyond
+    ``rtol``, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b))
+                 if abs(x - y) > rtol * abs(y)), None)
+
+
+def phase_18(torch, gen):
+    """Phase 18, the one-launch ladder builder (A10; module docstring).
+    Returns the kernels' JSON records, one a kind."""
+    import contextlib
+    import io
+
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import demo
+    from rwm_pt_tpu_torch.kernels import (_build, fused_pt, fused_rwm,
+                                          ladder_build, run_pt, run_pt_fused,
+                                          run_rwm)
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    from rwm_pt_tpu_torch.proposals import NormalProposal
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+    from rwm_pt_tpu_torch.utils import profiling, set_x64
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    launch = ladder_build.launch_ladder_kernel
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    src = "rwm_pt_tpu_torch/kernels/csrc/ladder_build.cu"
+    site = "rwm_pt_tpu/ladders/ladders.py:148"
+    kernels = []
+
+    # the room MCMCSimulation's default engine gives the ladder (its main
+    # path below), so the hold is at the shape the main path launches
+    held = dict(LADDER_HOLD, max_T=L.EAGER_MAX_RUNGS + 1)
+
+    def hold(tg, kind, label):
+        """The kernel (best of 3) against its plain version (once) at
+        LADDER_HOLD: same T and probes, betas rtol 1e-5."""
+        ms, k = cuda_ms(torch, lambda: launch(tg, **held), reps=3)
+        plain_ms, p = cuda_ms(
+            torch, lambda: L._construct_iterative_ladder_device_plain(
+                tg, **held))
+        first = first_difference(k.a_hats, p.a_hats)
+        err = max([abs(a - b) for a, b in zip(k.a_hats, p.a_hats)] or [0])
+        same = (len(k.betas) == len(p.betas) and k.probes == p.probes
+                and all(abs(a - b) <= 1e-5 * abs(b)
+                        for a, b in zip(k.betas, p.betas)))
+        flops, ints, nbytes = ladder_work(kind, tg.dim,
+                                          LADDER_HOLD["N_samples_swap_est"],
+                                          k.probes)
+        b_ms, b_by, b_limit = bound(flops, ints, nbytes)
+        say(f"phase 18a {label}: T {len(k.betas)} / {len(p.betas)}, probes "
+            f"{k.probes} / {p.probes}, betas equal to 1e-5: {same}; swap "
+            f"estimates max |diff| {err:.3g}, first beyond rtol 1e-5 at "
+            f"probe {first}; kernel {ms:.3f} ms ({1e3 * ms / k.probes:.1f} "
+            f"us a probe), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by "
+            f"{b_limit} ({100 * b_ms / ms:.1f} %); "
+            f"{[round(b, 5) for b in k.betas]}")
+        if not same:
+            fail(f"{label}: the ladder kernel disagrees with its plain "
+                 f"version: {k.betas} ({k.probes}) vs {p.betas} "
+                 f"({p.probes})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    bound_limit=b_limit, max_abs_err=err, probes=k.probes,
+                    T=len(k.betas), first_difference=first, flops=flops,
+                    philox_int_ops=ints, bytes=nbytes,
+                    us_a_probe=1e3 * ms / k.probes)
+
+    # ---- (a) every kind: its main path, then the kernel against plain
+    for kind in LADDER_KINDS:
+        tg = ladder_target(get_target_distribution, kind, LADDER_D, dev)
+        name = f"{_build.LADDER}.{kind}"
+        reset_launches(launch, *wrappers)
+        sim = MCMCSimulation(
+            dim=tg.dim, sigma=2.38 ** 2 / tg.dim, num_iterations=200,
+            algorithm="PT", target_dist=tg, num_chains=1024, seed=1,
+            iterative_temp_spacing=True, record_chain=False,
+            N_samples_swap_est=LADDER_HOLD["N_samples_swap_est"],
+            iterative_tolerance=LADDER_HOLD["tolerance"], device=dev)
+        sim.generate_samples(verbose=False)
+        torch.cuda.synchronize()
+        seen = dict(launch.launches)
+        if seen != {name: 1} or sim.engine_used != "pallas":
+            fail(f"phase 18a {kind}: ladder launches {seen}, engine "
+                 f"{sim.engine_used}")
+        launches = seen[name]     # this main path's run alone
+        say(f"phase 18a {kind} main path: MCMCSimulation(iterative_temp_"
+            f"spacing=True) d={tg.dim}, ladder "
+            f"{[round(b, 5) for b in sim.beta_ladder]}, swap acc "
+            f"{sim.acceptance_rate():.4f}; launches {seen}, fused "
+            f"{dict(read_launches(*wrappers))}")
+        del sim
+        rec = dict(name=name, route="cuda", source=src, replaces=site,
+                   launches=launches, library_ms=None, dim=tg.dim)
+        rec.update(hold(tg, kind, f"{kind} d={tg.dim}"))
+        info = ladder_build.info(kind, tg.dim,
+                                 _build.kernel_target(tg)[1].numel())
+        rec.update(registers=info["registers"],
+                   local_bytes=info["local_bytes"],
+                   blocks_per_sm=info["blocks_per_sm"])
+        if kind == "mvn_iso":
+            wide = ladder_target(get_target_distribution, kind,
+                                 LADDER_WIDE_D, dev)
+            rec["wide"] = hold(wide, kind, f"{kind} d={LADDER_WIDE_D}")
+            rec["wide"].update(ladder_build.info(kind, LADDER_WIDE_D))
+        kernels.append(rec)
+    say(f"phase 18a {time.time() - t_phase:.1f} s")
+
+    # ---- (b) the PT study's 30 ladders, host loop against the kernel, in
+    # the room experiment_pt gives them (the fused kernel's rungs)
+    room = _build.max_rungs(PT_STUDY["dim"]) + 1
+    tm = get_target_distribution(PT_STUDY["target"], PT_STUDY["dim"],
+                                 device=dev, variant="pt_gpu")
+    rates = [0.01 + (PT_STUDY["swap_accept_max"] - 0.01) * i
+             / (PT_STUDY["configs"] - 1) for i in range(PT_STUDY["configs"])]
+    host_s, dev_s, unequal = [], [], []
+    for i, rate in enumerate(rates):
+        kw = dict(LADDER_STUDY, target_swap_acceptance_rate=rate,
+                  seed=PT_STUDY["seed"] + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = L.construct_iterative_ladder(tm, **kw)
+        host_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        devl = L.construct_iterative_ladder_device(tm, max_T=room, **kw)
+        torch.cuda.synchronize()
+        dev_s.append(time.perf_counter() - t0)
+        if len(host) != len(devl) or any(
+                abs(a - b) > 1e-5 * abs(b) for a, b in zip(devl, host)):
+            unequal.append((i, host, devl))
+        say(f"phase 18b config {i} (rate {rate:.4f}): host {host_s[-1]:.3f} "
+            f"s, device {dev_s[-1]:.4f} s, T={len(devl)} "
+            f"{[round(b, 5) for b in devl]}")
+    say(f"phase 18b PT study ladders ({PT_STUDY['target']} d="
+        f"{PT_STUDY['dim']}, N={LADDER_STUDY['N_samples_swap_est']}, tol "
+        f"{LADDER_STUDY['tolerance']}, {PT_STUDY['configs']} configs): host "
+        f"{sum(host_s):.2f} s, device {sum(dev_s):.3f} s "
+        f"({sum(host_s) / sum(dev_s):.1f}x); ladders equal: {not unequal}")
+    if unequal:
+        fail(f"phase 18b: host and device ladders differ: {unequal}")
+    tm_rec = next(r for r in kernels if r["name"].endswith("three_mixture"))
+    tm_rec.update(study_host_s=host_s, study_device_s=dev_s)
+
+    # ---- (c) one production build, held against its plain version (the
+    # host loop's search under the same cap), each of whose probes is timed
+    kw = dict(LADDER_PROD, target_swap_acceptance_rate=0.234, max_T=room)
+    best, prod = math.inf, None
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prod = launch(tm, **kw)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    flops, ints, nbytes = ladder_work("three_mixture", tm.dim,
+                                      kw["N_samples_swap_est"], prod.probes)
+    b_ms, _, b_limit = bound(flops, ints, nbytes)
+    timed, real = [], L._estimate_swap_prob
+
+    def timed_probe(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        timed.append(time.perf_counter() - t0)
+        return out
+
+    L._estimate_swap_prob = timed_probe
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = L._construct_iterative_ladder_device_plain(tm, **kw)
+        plain_s = time.perf_counter() - t0
+    finally:
+        L._estimate_swap_prob = real
+    first = first_difference(prod.a_hats, plain.a_hats)
+    same = (len(prod.betas) == len(plain.betas)
+            and prod.probes == plain.probes == len(timed)
+            and all(abs(a - b) <= 1e-5 * abs(b)
+                    for a, b in zip(prod.betas, plain.betas)))
+    host_us = 1e6 * sum(timed[:LADDER_HOST_PROBES]) / min(
+        len(timed), LADDER_HOST_PROBES)
+    plain_us = 1e6 * plain_s / plain.probes
+    us = 1e6 * best / prod.probes
+    say(f"phase 18c production build ({PT_STUDY['target']} d={tm.dim}, "
+        f"N={kw['N_samples_swap_est']}, tol {kw['tolerance']}, "
+        f"{kw['max_pn_adjustment_steps']} pn steps, fail "
+        f"{kw['convergence_failure_tolerance_factor']}): {best:.4f} s, "
+        f"{prod.probes} probes, {us:.1f} us a probe against a bound of "
+        f"{1e3 * b_ms / prod.probes:.2f} us by {b_limit} ("
+        f"{100 * b_ms / (1e3 * best):.1f} %); T={len(prod.betas)} "
+        f"{[round(b, 5) for b in prod.betas]}; its plain version (the host "
+        f"loop's search) {plain_s:.3f} s, T={len(plain.betas)}, "
+        f"{plain.probes} probes, betas equal to 1e-5: {same}, swap "
+        f"estimates first beyond rtol 1e-5 at probe {first}; "
+        f"{plain_us:.1f} us a probe ({plain_us / us:.1f}x), "
+        f"{host_us:.1f} us over its first "
+        f"{min(len(timed), LADDER_HOST_PROBES)}")
+    if not same:
+        fail(f"phase 18c: the production build disagrees with its plain "
+             f"version: {prod.betas} ({prod.probes}) vs {plain.betas} "
+             f"({plain.probes})")
+    tm_rec.update(production_s=best, production_probes=prod.probes,
+                  production_us_a_probe=us,
+                  production_bound_us_a_probe=1e3 * b_ms / prod.probes,
+                  production_plain_s=plain_s,
+                  production_plain_us_a_probe=plain_us,
+                  production_host_us_a_probe=host_us,
+                  production_first_difference=first)
+
+    # ---- (d) the demo, the profiling helpers, the eager engines' options
+    reset_launches(launch, *wrappers)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        demo.main(["--num_iters", "2000", "--no_plots"])
+    seen = dict(read_launches(*wrappers))
+    seen.update(launch.launches)
+    if (launch.launches.get(f"{_build.LADDER}.mvn_iso") != 1
+            or "swap acceptance" not in buf.getvalue()):
+        fail(f"phase 18d demo: launches {seen}")
+    say(f"phase 18d demo --num_iters 2000 --no_plots: "
+        f"{time.perf_counter() - t0:.2f} s, launches {seen}; "
+        + "; ".join(ln.strip() for ln in buf.getvalue().splitlines()
+                    if "acceptance" in ln))
+
+    rb = get_target_distribution("FullRosenbrock", FLAG["dim"], device=dev)
+    betas = torch.logspace(0, -2, FLAG["T"], device=dev)
+
+    def fused(seed):
+        return run_pt_fused(rb, seed, betas,
+                            base_variance=FLAG["base_variance"],
+                            num_chains=FLAG["C"], num_iterations=200,
+                            swap_every=FLAG["swap_every"], device=dev)
+
+    timer = profiling.DeviceTimer()
+    timer.run(fused, 1)
+    mem = profiling.memory_stats()
+    prof_dir = os.path.join(HERE, "smoke_out", "profile")
+    with profiling.profile_trace(prof_dir) as prof:
+        fused(2)
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages())
+    report = profiling.throughput_forensics(fused, 3, num_chunks=3,
+                                            verbose=False)
+    keys = set(next(iter(mem.values()))) if mem else set()
+    if (keys != {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+            or not timer.elapsed > 0
+            or not os.path.exists(os.path.join(prof_dir, "trace.json"))):
+        fail(f"phase 18d profiling: memory {mem}, timer {timer.elapsed}")
+    say(f"phase 18d profiling (flagship shape, 200 steps): DeviceTimer "
+        f"{1e3 * timer.elapsed:.3f} ms on the card, {1e3 * timer.wall:.3f}"
+        f" ms wall; memory_stats {mem}; profile_trace device time "
+        f"{dev_us / 1e3:.3f} ms in {len(prof.key_averages())} ops "
+        f"(smoke_out/profile/trace.json); throughput_forensics chunks "
+        f"{[round(t * 1e3, 3) for t in report['chunk_times']]} ms, "
+        f"degradation {report['rate_degradation']:.3f}")
+
+    mvn = get_target_distribution("MultivariateNormal", 5, device=dev)
+    prop = NormalProposal.create(5, 2.38 ** 2 / 5, device=dev)
+    kw = dict(num_chains=1024, num_iterations=400, burn_in=100, device=dev)
+    cpu_sem = run_pt(mvn, prop, 5, [1.0, 0.5, 0.25, 0.1], swap_every=10,
+                     cpu_semantics=True, **kw)
+    a = run_rwm(mvn, prop, 6, symmetric=False, **kw)
+    b = run_rwm(mvn, prop, 6, **kw)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        c = run_rwm(mvn, prop, 6, progress_every=250, unroll=8, **kw)
+    set_x64(True)
+    try:
+        mvn64 = get_target_distribution("MultivariateNormal", 5, device=dev)
+        r64 = run_rwm(mvn64, NormalProposal.create(5, 2.38 ** 2 / 5,
+                                                   device=dev), 7, **kw)
+    finally:
+        set_x64(False)
+    lines = out.getvalue().count("progress: step")
+    if (not torch.equal(a.state.x, b.state.x)
+            or not torch.equal(b.state.x, c.state.x) or lines != 2
+            or r64.state.x.dtype != torch.float64
+            or cpu_sem.state.swap_attempt_count != 50 * 3
+            or float(cpu_sem.acceptance_rate.max()) > 1.0):
+        fail("phase 18d: an eager engine option misbehaves on the card")
+    say(f"phase 18d eager options on the card (MVN d=5, 1024 chains): "
+        f"cpu_semantics per-rung acc "
+        f"{[round(x, 4) for x in cpu_sem.acceptance_rate.mean(1).tolist()]}"
+        f", swap acc {cpu_sem.swap_acceptance_rate.mean().item():.4f}; "
+        f"symmetric=False equal to True: True; progress_every 250: {lines} "
+        f"lines, run unchanged; float64 RWM acc "
+        f"{r64.acceptance_rate.mean().item():.4f} ({r64.state.x.dtype})")
+    say(f"phase 18 {time.time() - t_phase:.1f} s")
+    return kernels
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -3509,6 +3918,10 @@ def smoke_libraries(_build):
                   for J, K in SF_THREAD_EDGES]
         names.append(_build.route(v, sf[SF["J"], SF["K"], SF_RUN_TIME_N])[0])
         names += [_build.route(v, sf[shape])[0] for shape in SF_TEAM_RUN_TIME]
+    names += [_build.ladder_lib(k, LADDER_D) for k in LADDER_KINDS]  # 18
+    names += [_build.ladder_lib("mvn_iso", d) for d in (LADDER_WIDE_D, 5)]
+    names.append(lib(_build.library("fused_pt", "Normal", resolve_normal_impl(
+        "pt", 8, "three_mixture")), "three_mixture", 2))       # 18d's demo
     return list(dict.fromkeys(names))
 
 
@@ -3556,6 +3969,23 @@ def main():
         entries = sorted(ptxas_report.parse(log))
         line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
                          for n, r, f, sp in entries)
+        if kname.startswith(_build.LADDER + "."):
+            # a ladder library's coordinates live in registers up to the
+            # 64 bucket, in local memory above it (no gate there)
+            from rwm_pt_tpu_torch.kernels import ladder_build
+            kind, tag = kname.split(".")[1:]
+            dmax = int(tag[1:])
+            if dmax <= _build.BUCKETS[-1]:
+                frames += [f"{kname} {n}" for n, _, f, sp in entries
+                           if f or sp]
+            info = ladder_build.info(   # a d of this library's bucket
+                kind, dmax if dmax <= _build.BUCKETS[-1] else dmax - 4)
+            say(f"phase 2 build {kname}: {line}; {info['registers']} regs, "
+                f"{info['local_bytes']} B local; {info['blocks_per_sm']} "
+                f"blocks of {ladder_build.THREADS} threads an SM, "
+                f"{info['sms']} SMs (a cooperative grid of "
+                f"{info['blocks_per_sm'] * info['sms']})")
+            continue
         frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
         if kname != _build.PROBES:
             line += "; " + occupancy(   # SuperFunnel: its ladder's T = 8
@@ -3571,7 +4001,8 @@ def main():
         f"T={FLAG['T']}, {FLAG['C']} replicas): " + occupancy(
             torch, _build, flag_lib, FLAG["dim"], FLAG["T"],
             n_params=FLAG["dim"] + 1))
-    warp_libs = [k for k in logs if k != _build.PROBES and _build.is_warp(k)]
+    warp_libs = [k for k in logs if k != _build.PROBES and _build.is_warp(k)
+                 and not k.startswith(_build.LADDER + ".")]
     regs = [r for k in warp_libs for _, r, _, _ in ptxas_report.parse(logs[k])]
     warp_main = _build.lib_name(_build.library(
         "fused_pt", "Normal", draws.resolve_normal_impl(
@@ -3771,6 +4202,7 @@ def main():
     phase_15(torch)
     kernels.extend(phase_16(torch, gen))
     kernels.extend(phase_17(torch, gen))
+    kernels.extend(phase_18(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

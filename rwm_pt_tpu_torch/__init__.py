@@ -4,10 +4,15 @@ Random Walk Metropolis and Parallel Tempering over analytic targets, with
 the whole-run samplers as hand-written CUDA kernels for Hopper (``sm_90a``,
 ``kernels/csrc``) beside plain PyTorch versions of the same functions, the
 ``MCMCSimulation`` harness (``api``; burn-in autotuning of the proposal or
-the ladder) and the three CLIs: the RWM proposal study (``python -m
+the ladder), the iterative ladder built in one launch of a CUDA kernel
+(``ladders.construct_iterative_ladder_device``) or by the host loop, the
+four CLIs: the RWM proposal study (``python -m
 rwm_pt_tpu_torch.cli.experiment_rwm``), the PT swap-rate study
-(``python -m rwm_pt_tpu_torch.cli.experiment_pt``) and one autotuned run
-(``python -m rwm_pt_tpu_torch.cli.single_run``).
+(``python -m rwm_pt_tpu_torch.cli.experiment_pt``), one autotuned run
+(``python -m rwm_pt_tpu_torch.cli.single_run``) and the walkthrough
+(``python -m rwm_pt_tpu_torch.cli.demo``), the analysis tools
+(``analysis``: seed averaging, ``batch_average_seeds``, ``combine_data``,
+plots, diagnostics) and the profiling utilities (``utils.profiling``).
 Imports ``torch`` and numpy only; the JAX package ``rwm_pt_tpu`` is the
 reference it is tested against.  Entry points run on ``device="cuda"``
 unless the caller passes ``device="cpu"``.

@@ -18,9 +18,15 @@ Unlike on the TPU, recorded runs go to the fused samplers too: on a card
 a snapshot is a store from registers, not a VMEM round trip, and nothing
 limits the recorded batch.
 
-``iterative_temp_spacing=True`` builds the ladder with the host-loop
-iterative construction (``ladders.construct_iterative_ladder``, seeded by
-``seed``).  ``autotune=True`` tunes the proposal scale (per rung for PT)
+``iterative_temp_spacing=True`` builds the ladder, seeded by ``seed``,
+with the one-program builder (``ladders.construct_iterative_ladder_device``:
+one launch of the ladder kernel on the card, its plain version on the CPU,
+the pn exponent and clamp passed through), with room for the fused
+kernel's rungs under ``engine='pallas'`` and for
+``ladders.EAGER_MAX_RUNGS`` otherwise, so it lands the host loop's
+uncapped ladder (``construct_iterative_ladder``); a ladder that needs more
+rungs raises ``NotImplementedError``.
+``autotune=True`` tunes the proposal scale (per rung for PT)
 and ``autotune_ladder=True`` the PT ladder during burn-in, on the eager
 adaptive engines (``kernels/adapt.py``).  With ``engine='pallas'`` that is
 a two-phase run, as in JAX: the adaptive engine runs exactly the
@@ -28,9 +34,12 @@ a two-phase run, as in JAX: the adaptive engine runs exactly the
 ``num_iterations`` steps from the tuned state, at the frozen per-rung
 multipliers (PT), the multiplier folded into the proposal (RWM) or the
 tuned ladder; with ``'auto'`` or ``'scan'`` the adaptive engine runs the
-whole run.  Not ported yet, and raised with ``NotImplementedError`` naming
-the ROADMAP item: ``use_mesh`` (A13), ``cpu_semantics=True``,
-``symmetric=False`` and ``progress_bar=True`` (A7).
+whole run.  ``cpu_semantics=True`` and ``symmetric=False`` run on the
+eager engines (the fused kernels refuse them, as JAX's Pallas kernels
+do), as does float64 (``utils.dtypes.set_x64``); ``progress_bar=True``
+prints JAX's progress lines: from inside the eager engines' loops, or
+after each of ten segments of a fused run.  Not ported yet, and raised
+with ``NotImplementedError`` naming the ROADMAP item: ``use_mesh`` (A13).
 """
 from __future__ import annotations
 
@@ -49,7 +58,9 @@ from ..kernels import (_build, run_pt, run_pt_adaptive, run_pt_fused,
                        run_pt_ladder_adaptive, run_rwm, run_rwm_adaptive,
                        run_rwm_fused)
 from ..kernels.rwm import step_generator
-from ..ladders import construct_geometric_ladder, construct_iterative_ladder
+from ..ladders import (construct_geometric_ladder,
+                       construct_iterative_ladder_device)
+from ..ladders.ladders import EAGER_MAX_RUNGS, check_room
 from ..proposals import create_proposal_distribution
 from ..targets import get_target_distribution
 from ..targets.base import TargetMixin
@@ -168,18 +179,11 @@ class MCMCSimulation:
         if swap_sweep not in ("even_odd", "sequential"):
             raise ValueError("swap_sweep must be 'even_odd' or 'sequential'")
         self.swap_sweep = swap_sweep
-        if cpu_semantics and not (autotune or autotune_ladder):
-            # the autotune checks below refuse it with JAX's ValueErrors
-            raise _not_ported("cpu_semantics=True (the CPU PT semantics)",
-                              "A item 7")
         self.cpu_semantics = cpu_semantics
         self.seed = 42 if seed is None else seed
         if rng_impl not in _RNG_IMPLS:
             raise ValueError(f"rng_impl must be one of {_RNG_IMPLS}")
         self.rng_impl = rng_impl
-        if not symmetric:
-            raise _not_ported("symmetric=False (the asymmetric MH "
-                              "correction)", "A item 7")
         self.symmetric = symmetric
 
         self.is_pt = is_pt
@@ -192,21 +196,28 @@ class MCMCSimulation:
             if beta_ladder is not None:
                 self.beta_ladder = [float(b) for b in beta_ladder]
             elif iterative_temp_spacing:
-                self.beta_ladder = construct_iterative_ladder(
-                    target_dist,
+                kw = dict(
                     target_swap_acceptance_rate=(swap_acceptance_rate
                                                  or 0.234),
                     beta_min=beta_min_iterative,
                     N_samples_swap_est=N_samples_swap_est,
                     tolerance=iterative_tolerance,
                     initial_pn=iterative_initial_pn,
-                    pn_update_power=iterative_pn_update_power,
                     max_pn_adjustment_steps=iterative_max_pn_steps,
-                    pn_clamping_range=(iterative_pn_clamp_min,
-                                       iterative_pn_clamp_max),
                     convergence_failure_tolerance_factor=(
                         iterative_fail_tol_factor),
-                    seed=self.seed)
+                    seed=self.seed,
+                    pn_update_power=iterative_pn_update_power,
+                    pn_clamping_range=(iterative_pn_clamp_min,
+                                       iterative_pn_clamp_max))
+                # room for the fused kernel's rungs under engine='pallas';
+                # else the eager engine takes a longer ladder
+                rungs = (_build.max_rungs(target_dist.dim)
+                         if engine == "pallas" else EAGER_MAX_RUNGS)
+                self.beta_ladder = check_room(
+                    construct_iterative_ladder_device(
+                        target_dist, max_T=rungs + 1, **kw),
+                    rungs, beta_min_iterative)
             else:
                 self.beta_ladder = construct_geometric_ladder()
             self.algorithm_name = ("PT_RWM_GPU_ITERATIVE_LADDER"
@@ -331,6 +342,11 @@ class MCMCSimulation:
             return "a library proposal (Normal/Laplace/UniformRadius)"
         if default_float() != torch.float32:
             return "float32 (the port's x64 switch is on)"
+        if self.cpu_semantics:
+            return "GPU swap semantics (cpu_semantics=False)"
+        if not self.symmetric:
+            return ("symmetric=True (the kernels omit the asymmetric "
+                    "correction term)")
         rungs = _build.max_rungs(self.target_dist.dim)
         if self.is_pt and len(self.beta_ladder) > rungs:
             return f"at most {rungs} rungs"
@@ -357,12 +373,13 @@ class MCMCSimulation:
             torch.cuda.synchronize(self.device)
 
     def _run(self, fused: bool, n: int, init_states=None, resume_state=None,
-             record_every=None):
+             record_every=None, progress_every=None):
         seed = self._sampler_seed()
         kw = dict(num_chains=self.num_chains, num_iterations=n,
                   burn_in=self.burn_in, init_states=init_states,
                   resume_state=resume_state, record_every=record_every,
                   record_chains=self.record_chains, device=self.device)
+        eager = dict(symmetric=self.symmetric, progress_every=progress_every)
         if self.is_pt:
             betas = torch.tensor(self.beta_ladder, dtype=default_float(),
                                  device=self.device)
@@ -374,11 +391,13 @@ class MCMCSimulation:
             return run_pt(self.target_dist, self.proposal_dist, seed, betas,
                           swap_every=self.swap_every,
                           swap_sweep=self.swap_sweep,
-                          scale_multipliers=self._rung_multipliers, **kw)
+                          scale_multipliers=self._rung_multipliers,
+                          cpu_semantics=self.cpu_semantics, **eager, **kw)
         if fused:
             return run_rwm_fused(self.target_dist, seed,
                                  proposal=self.proposal_dist, **kw)
-        return run_rwm(self.target_dist, self.proposal_dist, seed, **kw)
+        return run_rwm(self.target_dist, self.proposal_dist, seed, **eager,
+                       **kw)
 
     # ------------------------------------------------------------------ run
     def has_run(self) -> bool:
@@ -424,9 +443,6 @@ class MCMCSimulation:
         ``record_chain=False``."""
         if self.has_run():
             raise ValueError("Please reset the algorithm before running it again.")
-        if progress_bar:
-            raise _not_ported("progress_bar=True (in-run progress lines)",
-                              "A item 7")
         if checkpoint_every:
             if checkpoint_path is None:
                 raise ValueError("checkpoint_every requires checkpoint_path")
@@ -441,15 +457,31 @@ class MCMCSimulation:
                                  "record_chain=False (thinned traces cannot "
                                  "be stitched across segments)")
             return self._generate_samples_segmented(
-                checkpoint_every, checkpoint_path, verbose)
+                checkpoint_every, checkpoint_path, verbose,
+                progress=progress_bar)
         if self.autotune or self.autotune_ladder:
             return self._generate_tuned(verbose)
         fused = self._use_pallas()
+        progress_every = None
+        if progress_bar:
+            # ~20 lines a run, never more than one a 1000 steps (JAX's rule)
+            progress_every = max(1000,
+                                 (self.burn_in + self.num_iterations) // 20)
+            if fused and not self.record_chain:
+                # a fused launch reports nothing until it ends: run it in
+                # ten segments with a line after each, as JAX's Pallas path
+                return self._generate_samples_segmented(
+                    max(1, (self.burn_in + self.num_iterations) // 10),
+                    None, verbose, progress=True)
+            if fused and verbose:
+                print("  (in-run progress is unavailable for recorded fused "
+                      "runs; use engine='scan' for live progress)")
         self._sync()
         start = time.time()
         rec = self.record_every if self.record_chain else None
         res = self._run(fused, self.num_iterations,
-                        init_states=self._init_states(), record_every=rec)
+                        init_states=self._init_states(), record_every=rec,
+                        progress_every=progress_every)
         self._sync()
         self._elapsed = time.time() - start
         self._engine_used = "pallas" if fused else "scan"
@@ -572,26 +604,39 @@ class MCMCSimulation:
         return {"name": name, "params": params}
 
     def _generate_samples_segmented(self, segment_every: int,
-                                    checkpoint_path: str, verbose: bool):
-        """Segmented run with a checkpoint after every segment; the sums
-        and counters carry over exactly."""
+                                    checkpoint_path: Optional[str],
+                                    verbose: bool, progress: bool = False):
+        """Segmented run: a checkpoint after every segment when
+        ``checkpoint_path`` is set, a progress line (JAX's) after every
+        segment when ``progress``; the sums and counters carry over
+        exactly."""
         fused = self._use_pallas()
         self._engine_used = "pallas" if fused else "scan"
         self._sync()
         start = time.time()
         state, done = None, 0
+        T = len(self.beta_ladder) if self.is_pt else 1
         while done < self.num_iterations:
             n = min(segment_every, self.num_iterations - done)
+            seg_start = time.time()
+            seg_steps = n + (self.burn_in if state is None else 0)
             res = self._run(fused, n,
                             init_states=(self._init_states() if state is None
                                          else None),
                             resume_state=state)
             state = res.state
             done += n
-            self._write_state(state, checkpoint_path)
-            if verbose:
-                print(f"  checkpoint @ {done}/{self.num_iterations} "
-                      f"iterations -> {checkpoint_path}")
+            if checkpoint_path:
+                self._write_state(state, checkpoint_path)
+                if verbose:
+                    print(f"  checkpoint @ {done}/{self.num_iterations} "
+                          f"iterations -> {checkpoint_path}")
+            if progress and verbose:
+                self._sync()
+                rate = (seg_steps * self.num_chains * T
+                        / max(time.time() - seg_start, 1e-9))
+                print(f"  progress: {done:,}/{self.num_iterations:,} "
+                      f"iterations ({rate:,.0f} MH steps/s)", flush=True)
         self._sync()
         self._result = res
         self._elapsed = time.time() - start

@@ -4,10 +4,12 @@ The JAX CLIs' argument surface: target selection with per-target
 hyperparameters, run arguments, the scale-parameter -> proposal-config
 mapping of the reference sweep, and JSON output.  ``--cpu`` runs on the
 CPU (``device="cpu"``, the fused samplers' plain PyTorch versions);
-otherwise the card.  ``--use_mesh``, ``--multihost`` and ``--x64`` are
-accepted by the parser and raise in :func:`resolve_device_from_args`: the
-port runs one process on one card in float32 (ROADMAP Queue A items 13
-and 7).
+otherwise the card.  ``--x64`` (``--use_double_precision``) turns the
+port's float64 switch on (``utils.dtypes.set_x64``): the runs then take
+the eager engines, the fused kernels being float32.  ``--use_mesh`` and
+``--multihost`` are accepted by the parser and raise in
+:func:`resolve_device_from_args`: the port runs one process on one card
+(ROADMAP Queue A item 13).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import os
 
 from ..targets.registry import (calculate_hybrid_rosenbrock_dim,
                                 calculate_super_funnel_dim)
+from ..utils.dtypes import set_x64
 
 
 def add_target_args(parser: argparse.ArgumentParser):
@@ -63,19 +66,19 @@ def add_run_args(parser: argparse.ArgumentParser, default_iters: int):
                         help="Multi-host runs (not ported yet: raises)")
     parser.add_argument("--x64", "--use_double_precision", action="store_true",
                         dest="use_double_precision",
-                        help="float64 (not ported to the fused kernels: "
-                             "raises)")
+                        help="float64, on the eager engines (the fused "
+                             "kernels are float32)")
 
 
 def resolve_device_from_args(args) -> str:
-    """``"cpu"`` with ``--cpu``, else ``"cuda"``; raises for the flags the
-    port does not run."""
-    for flag, item in (("use_mesh", "A item 13"), ("multihost", "A item 13"),
-                       ("use_double_precision", "A item 7")):
+    """``"cpu"`` with ``--cpu``, else ``"cuda"``; sets the float64 switch
+    from ``--x64``; raises for the flags the port does not run."""
+    for flag in ("use_mesh", "multihost"):
         if getattr(args, flag, False):
             raise NotImplementedError(
                 f"--{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP Queue {item})")
+                f"(ROADMAP Queue A item 13)")
+    set_x64(getattr(args, "use_double_precision", False))
     return "cpu" if getattr(args, "cpu", False) else "cuda"
 
 

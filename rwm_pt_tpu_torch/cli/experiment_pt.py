@@ -9,7 +9,9 @@
 Sweeps ``num_configs`` target swap acceptance rates over
 ``linspace(0.01, swap_accept_max)`` (the reference: 30).  For each, it
 builds an iterative ladder for that rate (seed ``seed + i``; the geometric
-ladder with ``--geom_ladder``), runs ``num_chains`` PT replicas with the
+ladder with ``--geom_ladder``) with the one-program builder
+(``construct_iterative_ladder_device``: one launch of the ladder kernel
+on the card, the host loop's ladder), runs ``num_chains`` PT replicas with the
 Normal proposal of variance ``2.38^2 / d`` through the fused PT sampler
 (one launch of the CUDA kernel per config on the card, with the JAX scan
 engine's even/odd swap order, Philox seed :func:`config_seed` ``(seed,
@@ -18,8 +20,12 @@ the ESJD-optimal point and writes the JAX study's JSON schema, with
 ``"backend"`` the torch device.  Files are named
 ``{target}_PT_GPU_dim{d}_{iters}iters_seed{seed}.json``.
 
-A ladder longer than the kernel's ``max_rungs`` raises; nothing falls back
-to the eager engine.  ``--rng`` is accepted and changes nothing (the
+The iterative builder runs with room for the fused kernel's ``max_rungs``
+rungs (under ``--x64``, :data:`~rwm_pt_tpu_torch.ladders.ladders.
+EAGER_MAX_RUNGS`), so it lands the host loop's uncapped ladder; a ladder
+that needs more rungs raises, as does a longer geometric one: nothing
+falls back to the eager engine.  Under ``--x64`` the runs take the eager engine in
+float64 (the same even/odd swap order).  ``--rng`` is accepted and changes nothing (the
 sampler draws Philox4x32-10).  The plot needs matplotlib, imported there
 only; ``--no_plots`` skips it.
 """
@@ -31,10 +37,13 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import _build, run_pt_fused
-from ..ladders import construct_geometric_ladder, construct_iterative_ladder
+from ..kernels import _build, run_pt, run_pt_fused
+from ..ladders import (construct_geometric_ladder,
+                       construct_iterative_ladder_device)
+from ..ladders.ladders import EAGER_MAX_RUNGS, check_room
+from ..proposals import NormalProposal
 from ..targets import get_target_distribution
-from ..utils.dtypes import resolve_device
+from ..utils.dtypes import default_float, resolve_device
 from .common import (add_run_args, add_target_args, resolve_actual_dim,
                      resolve_device_from_args, save_json,
                      target_kwargs_from_args)
@@ -69,29 +78,39 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
     acceptance_rates, esjds, times, ladder_sizes = [], [], [], []
     _sync(dev)
     total_start = time.time()
+    # the fused kernel's rungs; the eager engine (--x64) takes any ladder
+    rungs = (_build.max_rungs(actual_dim) if default_float() == torch.float32
+             else EAGER_MAX_RUNGS)
     for i, target_rate in enumerate(swap_rates_range):
         t0 = time.time()
         if geom_ladder:
             ladder = construct_geometric_ladder()
         else:
-            ladder = construct_iterative_ladder(
+            ladder = check_room(construct_iterative_ladder_device(
                 target,
                 target_swap_acceptance_rate=float(target_rate),
                 N_samples_swap_est=N_samples_swap_est,
                 tolerance=iterative_tolerance,
                 max_pn_adjustment_steps=iterative_max_pn_steps,
                 convergence_failure_tolerance_factor=iterative_fail_tol_factor,
-                seed=seed + i)
-        if len(ladder) > _build.max_rungs(target.dim):
-            raise NotImplementedError(
-                f"config {i}: the ladder has {len(ladder)} rungs; the fused "
-                f"PT kernel runs at most {_build.max_rungs(target.dim)}")
-        res = run_pt_fused(target, config_seed(seed, i),
-                           torch.tensor(ladder, dtype=torch.float32),
-                           base_variance=proposal_variance,
-                           num_chains=num_chains, num_iterations=num_iters,
-                           burn_in=burn_in, swap_every=swap_every,
-                           swap_sweep="even_odd", device=dev)
+                seed=seed + i, max_T=rungs + 1), rungs)
+        run_kw = dict(num_chains=num_chains, num_iterations=num_iters,
+                      burn_in=burn_in, swap_every=swap_every,
+                      swap_sweep="even_odd", device=dev)
+        if default_float() == torch.float64:
+            res = run_pt(target, NormalProposal.create(
+                actual_dim, proposal_variance, device=dev),
+                config_seed(seed, i),
+                torch.tensor(ladder, dtype=torch.float64), **run_kw)
+        else:
+            if len(ladder) > _build.max_rungs(target.dim):
+                raise NotImplementedError(
+                    f"config {i}: the ladder has {len(ladder)} rungs; the "
+                    f"fused PT kernel runs at most "
+                    f"{_build.max_rungs(target.dim)}")
+            res = run_pt_fused(target, config_seed(seed, i),
+                               torch.tensor(ladder, dtype=torch.float32),
+                               base_variance=proposal_variance, **run_kw)
         _sync(dev)
         dt = time.time() - t0
         times.append(dt)

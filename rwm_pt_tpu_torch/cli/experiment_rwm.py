@@ -13,6 +13,7 @@ the ESJD-optimal point and writes the JAX study's JSON schema, with
 ``{target}_{proposal}_RWM_GPU_dim{d}_{iters}iters_seed{seed}.json``.
 
 Config ``i`` draws from the Philox seed :func:`config_seed` ``(seed, i)``.
+Under ``--x64`` the configs run on the eager engine in float64.
 The plots of the optimum (``_make_optimal_plots``) need matplotlib, which
 is imported there only; ``--no_plots`` skips them.
 """
@@ -25,10 +26,10 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import run_rwm_fused
+from ..kernels import run_rwm, run_rwm_fused
 from ..proposals import create_proposal_distribution
 from ..targets import get_target_distribution
-from ..utils.dtypes import resolve_device
+from ..utils.dtypes import default_float, resolve_device
 from .common import (add_run_args, add_target_args, build_proposal_config,
                      resolve_actual_dim, resolve_device_from_args, save_json,
                      target_kwargs_from_args)
@@ -39,6 +40,14 @@ def config_seed(seed: int, i: int) -> int:
     ``(seed mod 2^32) * 2^16 + i`` (distinct for the first 65,536 configs
     of every 32-bit seed)."""
     return (int(seed) % (1 << 32)) * (1 << 16) + int(i)
+
+
+def _run_rwm(target, seed, prop, **kw):
+    """The fused RWM sampler, or under the float64 switch (``--x64``) the
+    eager engine."""
+    if default_float() == torch.float64:
+        return run_rwm(target, prop, seed, **kw)
+    return run_rwm_fused(target, seed, proposal=prop, **kw)
 
 
 def _sync(dev):
@@ -72,9 +81,9 @@ def run_study(dim, target_name="MultivariateNormal", num_iters=100000,
                                     anisotropic)
         prop = create_proposal_distribution(actual_dim, cfg, device=dev)
         t0 = time.time()
-        res = run_rwm_fused(target, config_seed(seed, i), proposal=prop,
-                            num_chains=num_chains, num_iterations=num_iters,
-                            burn_in=burn_in, device=dev)
+        res = _run_rwm(target, config_seed(seed, i), prop,
+                       num_chains=num_chains, num_iterations=num_iters,
+                       burn_in=burn_in, device=dev)
         _sync(dev)
         dt = time.time() - t0
         times.append(dt)
@@ -143,9 +152,9 @@ def _make_optimal_plots(target, target_name, proposal_name, max_scale_param,
     prop = create_proposal_distribution(actual_dim, cfg, device=dev)
     n_plot = min(num_iters, 100000)
     rec = max(1, (n_plot + burn_in) // 100000)
-    res = run_rwm_fused(target, seed, proposal=prop, num_chains=8,
-                        num_iterations=n_plot, burn_in=burn_in,
-                        record_every=rec, record_chains=1, device=dev)
+    res = _run_rwm(target, seed, prop, num_chains=8, num_iterations=n_plot,
+                   burn_in=burn_in, record_every=rec, record_chains=1,
+                   device=dev)
     chain = res.chain.cpu().numpy()[..., 0]      # (n_rec, d)
     chain = chain[burn_in // rec:]
     os.makedirs(images_dir, exist_ok=True)

@@ -1,7 +1,10 @@
-"""Samplers ported so far: the eager RWM and PT engines, their burn-in
+"""Samplers: the eager RWM and PT engines (with JAX's options: the CPU PT
+semantics, ``symmetric=False``, ``progress_every``), their burn-in
 adaptive variants, and the fused whole-run RWM and PT kernels (CUDA, with
 plain PyTorch versions), for the Normal, Laplace and UniformRadius
-proposals, with trace recording."""
+proposals, with trace recording; and the one-launch iterative ladder
+kernel (``ladder_build``, driven by
+``ladders.construct_iterative_ladder_device``)."""
 from .adapt import (AdaptiveLadderPTResult, AdaptivePTResult,
                     AdaptiveRWMResult, run_pt_adaptive,
                     run_pt_ladder_adaptive, run_rwm_adaptive)

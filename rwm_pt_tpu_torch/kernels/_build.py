@@ -59,6 +59,14 @@ registers and ``maxThreadsPerBlock`` (each library exports them,
 :func:`kernel_info`) by the CUDA occupancy calculator's rules for Hopper.
 The wrappers pass the replicas a block to the launcher, which refuses what
 does not fit.
+
+The iterative ladder builder (``csrc/ladder_build.cu``,
+``kernels/ladder_build.py``) builds one library per target kind with a
+direct sampler and bucket, ``libladder_build.<kind>.d<D>`` with
+``-DRWM_PT_TARGET=<k> -DRWM_PT_DMAX=<D>`` (:func:`ladder_lib`: the register
+buckets up to 64 coordinates, the warp buckets' sizes above, where a
+sample's coordinates sit in local memory); it has no proposal or draw
+variants and sizes its own cooperative grid.
 """
 from __future__ import annotations
 
@@ -99,6 +107,7 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
 WARP_BUCKETS = (128, 256)    # warp buckets: d + 4 <= DMAX slots (warp.cuh)
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
+LADDER = "ladder_build"      # the ladder builder's source (csrc/ladder_build.cu)
 # Blocks of a kernel's launch bound (PT: 320 threads, RWM: 128) that an SM
 # must hold, per source, for register buckets up to 32: the register cap
 # measured fastest at the flagship and the RWM headline (the cap sweep in
@@ -130,6 +139,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 # library source -> {C entry point: argtypes}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_D = ctypes.c_double
 _ENTRIES = {
     # kind, params, n_params, betas, scales, x0, acc0, swapacc0, bj0, cj0,
     # x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out,
@@ -158,6 +168,13 @@ _ENTRIES = {
     # y, out, n (64-bit), stream
     PROBES: {"rwm_pt_draw_normals": [_I, _U, _U, _I, _P, _P],
              "rwm_pt_fast_log": [_P, _P, ctypes.c_int64, _P]},
+    # params, n_params, sparams, d, N, key0, key1, rate, beta_min, tol,
+    # initial_pn, pn_step, pn_lo, pn_hi, max_pn, fail_tol, max_T, bf16,
+    # trace_cap, tile_sums, ctl, out, stream | shared, out (5 ints)
+    LADDER: {"rwm_pt_ladder_build":
+             [_P, _I, _P, _I, _I, _U, _U, _D, _D, _D, _D, _P, _D, _D, _I, _D,
+              _I, _I, _I, _P, _P, _P, _P],
+             "rwm_pt_ladder_build_info": [_I, _P]},
 }
 # the warp kernels: PT takes the same arguments, the team size G in
 # runtime_r's place; RWM takes chains (teams) a block for threads and the
@@ -415,13 +432,31 @@ def sf_team_dmax(d: int, team: int) -> int:
     return -(-(d + 4) // (4 * team)) * 4 * team
 
 
+def ladder_lib(kind: str, dim: int) -> str:
+    """The ladder builder's library for target kind ``kind`` at ``dim``
+    coordinates, ``ladder_build.<kind>.d<D>``: ``<D>`` the register bucket
+    up to 64 coordinates (:func:`bucket`), above it the warp bucket
+    (:func:`warp_bucket`; the arrays in local memory), which raises above
+    :data:`MAX_DIM`."""
+    if kind not in TARGET_KINDS:
+        raise ValueError(f"no library {LADDER}.{kind}")
+    return f"{LADDER}.{kind}.d" + str(
+        bucket(dim) if dim <= BUCKETS[-1] else warp_bucket(dim))
+
+
 def _source(name: str) -> str:
-    return PROBES if name == PROBES else _parts(name)[0]
+    if name == PROBES:
+        return PROBES
+    return LADDER if name.startswith(LADDER + ".") else _parts(name)[0]
 
 
 def _flags(name: str) -> list[str]:
     if name == PROBES:
         return list(NVCC_FLAGS)
+    if name.startswith(LADDER + "."):
+        _, kind, tag = name.split(".")
+        return NVCC_FLAGS + [f"-DRWM_PT_TARGET={TARGET_KINDS[kind]}",
+                             f"-DRWM_PT_DMAX={int(tag[1:])}"]
     src, pc, dc, kc, dmax, blocks = _parts(name)
     extra = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
              if src.endswith(WARP) else [])

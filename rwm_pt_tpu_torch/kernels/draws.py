@@ -374,3 +374,112 @@ def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
     u_rad = (uniform_from_bits(words[:, dim + 2])
              if kind == "UniformRadius" else None)
     return inc, u_mh, u_swap, u_rad
+
+
+# ------------------------------------------------- the ladder probes' stream
+# The iterative ladder's swap-rate probes (ladders/ladders.py) draw from the
+# same Philox4x32-10 under ``seed_key(seed)``, with counters no fused run
+# uses: the fused layout's third word is a rung (< 32), a probe's carries
+# LADDER_TAG.  Block ``k`` of sample ``n`` on side ``side`` (0: the samples
+# at beta*, 1: those at the current beta) of probe ``i`` (counted from 1 over
+# a build) is Philox of
+#     (k, n, LADDER_TAG | side << 20, i);
+# its word ``w`` is slot ``4k + w`` of the sample, read by the target's
+# stream sampler (``targets/*.py::stream_sample``).  A gamma variate
+# (IIDGamma; IIDBeta's two, g = 0 and 1) of coordinate ``j`` draws its
+# rejection attempt ``a`` from
+#     (a, n, LADDER_TAG | GAMMA_TAG | side << 20 | g << 16 | j, i):
+# word 0 the attempt's normal (normal_icdf_fastlog), word 1 its accept
+# uniform, and word 2 of attempt 0 the shape < 1 boost's uniform.
+# csrc/ladder_build.cu computes the same words.
+LADDER_TAG = 0x80000000
+GAMMA_TAG = 0x40000000
+_THIRD_F32 = 0.3333333432674408    # float32(1/3)
+
+
+def ladder_words(key: tuple[int, int], probe: int, side: int, n: int,
+                 n_slots: int, device) -> torch.Tensor:
+    """Slots ``0 .. n_slots-1`` of samples ``0 .. n-1`` of one side of a
+    ladder probe: int64 ``(n, n_slots)``."""
+    n_blk = -(-n_slots // 4)
+    k_ctr = torch.arange(n_blk, dtype=torch.int64, device=device)[None]
+    n_ctr = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    words = torch.stack(philox4x32(
+        k_ctr, n_ctr, torch.tensor(LADDER_TAG | side << 20, device=device),
+        torch.tensor(probe & _MASK32, device=device), *key), dim=2)
+    return words.reshape(n, 4 * n_blk)[:, :n_slots]
+
+
+def ladder_gamma(key: tuple[int, int], probe: int, side: int, g: int,
+                 alpha: torch.Tensor, n: int, d: int,
+                 device) -> torch.Tensor:
+    """``(n, d)`` Gamma(alpha, 1) variates of one side of a ladder probe
+    (gamma ``g`` of the sample; ``alpha`` a float32 0-d tensor), by
+    Marsaglia and Tsang (2000) in float32, each operation rounded on its own
+    as csrc/ladder_build.cu rounds it: with a = alpha (alpha + 1 below 1),
+    dd = a - 1/3, c = 1 / sqrt(9 dd), attempt t = 1 + c x of a normal x is
+    taken where t > 0 and log u < ((0.5 x^2 + dd) - dd v) + dd log v, v =
+    t^3, giving dd v; below 1 the boost u0^(1/alpha) = exp(log u0 / alpha)
+    multiplies it.  The normal and both logs are the bit-exact
+    ``normal_icdf_fastlog`` and ``fast_log``, so the card takes the same
+    attempts; every element loops until it is accepted.  A NaN ``alpha``
+    (a probe at a NaN beta*) gives NaN variates and no attempt."""
+    alpha = alpha.to(device=device, dtype=torch.float32)
+    if bool(torch.isnan(alpha)):
+        return torch.full((n, d), math.nan, device=device)
+    boost = bool(alpha < 1.0)
+    a = alpha + 1.0 if boost else alpha
+    dd = a - _THIRD_F32
+    c = 1.0 / torch.sqrt(9.0 * dd)
+    out = torch.empty(n * d, dtype=torch.float32, device=device)
+    pending = torch.arange(n * d, dtype=torch.int64, device=device)
+    base = LADDER_TAG | GAMMA_TAG | side << 20 | g << 16
+    p_ctr = torch.tensor(probe & _MASK32, device=device)
+    attempt, u0 = 0, None
+    while pending.numel():
+        w = philox4x32(torch.tensor(attempt, device=device), pending // d,
+                       base | pending % d, p_ctr, *key)
+        if attempt == 0 and boost:
+            u0 = uniform_from_bits(w[2])
+        x = normal_icdf_fastlog(uniform_from_bits(w[0]))
+        t = 1.0 + c * x
+        pos = t > 0
+        v = torch.where(pos, t, torch.ones_like(t))
+        v = v * v * v
+        rhs = ((0.5 * (x * x) + dd) - dd * v) + dd * fast_log(v)
+        ok = pos & (fast_log(uniform_from_bits(w[1])) < rhs)
+        out[pending[ok]] = (dd * v)[ok]
+        pending = pending[~ok]
+        attempt += 1
+    if boost:
+        out = out * torch.exp(fast_log(u0) / alpha)
+    return out.reshape(n, d)
+
+
+class ProbeStream:
+    """The draws of one side of one ladder probe, for a target's
+    ``stream_sample``: ``uniforms(lo, hi)`` the U[0,1) of slots ``lo ..
+    hi-1``, ``normals(k)`` the ``lax_erfinv`` normals of slots ``0 ..
+    k-1``, ``gamma(alpha, g)`` gamma ``g``'s ``(n, d)`` variates; each
+    ``(n, .)`` float32 on ``device``."""
+
+    def __init__(self, key, probe: int, side: int, n: int, device):
+        self.key, self.probe, self.side = key, probe, side
+        self.n, self.device = n, device
+        self._words = None
+
+    def _slots(self, hi: int) -> torch.Tensor:
+        if self._words is None or self._words.shape[1] < hi:
+            self._words = ladder_words(self.key, self.probe, self.side,
+                                       self.n, hi, self.device)
+        return self._words
+
+    def uniforms(self, lo: int, hi: int) -> torch.Tensor:
+        return uniform_from_bits(self._slots(hi)[:, lo:hi])
+
+    def normals(self, k: int) -> torch.Tensor:
+        return normal_laxerfinv(self.uniforms(0, k))
+
+    def gamma(self, alpha: torch.Tensor, d: int, g: int = 0):
+        return ladder_gamma(self.key, self.probe, self.side, g, alpha,
+                            self.n, d, self.device)

@@ -11,8 +11,14 @@ accumulates ``(beta_j - beta_{j+1})^2`` per accepted swap; the cold-chain
 ESJD includes swap moves.  One layout only: the JAX ``layout="flat"`` option
 is a TPU sublane fix.
 
-Not ported yet (ROADMAP): ``cpu_semantics``, ``symmetric=False``,
-``progress_every``, ``unroll``.
+``cpu_semantics=True`` runs the reference's CPU PT step (JAX
+``pt.py:281-300``): on every multiple of ``swap_every``, burn-in included,
+the rungs swap instead of moving, and only the hottest rung takes its MH
+move; per-rung acceptance then divides by the MH attempts each rung made
+(:func:`pt_result`).  ``symmetric=False`` adds the proposal's ``log q(x|y) -
+log q(y|x)`` to the MH ratio; ``progress_every`` prints JAX's progress
+lines (``rwm.maybe_report_progress``), leaving the run unchanged;
+``unroll`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 
 from ..utils.dtypes import as_tensor, default_float, resolve_device
 from .draws import resolve_seed
-from .rwm import stack_trace, step_generator, uniform
+from .rwm import (maybe_report_progress, progress_run_id, stack_trace,
+                  step_generator, uniform)
 
 
 @dataclasses.dataclass
@@ -71,18 +78,24 @@ def pt_init(target, generator, betas, num_chains: int,
 
 
 def _mh_phase(state: PTState, generator, target, proposal, betas, burn_in,
-              betas_proposal=None):
+              betas_proposal=None, rung_mask=None, symmetric: bool = True):
     """Batched MH move on every rung.  ``betas_proposal`` rescales only the
     increment draws (per-rung scale multipliers); the accept ratio uses the
-    true ``betas``.  Returns ``(new_state, accept_mask)``."""
+    true ``betas``.  ``rung_mask`` ``(T,)``: rungs where it is False keep
+    their state (the CPU semantics' swap steps).  Returns ``(new_state,
+    accept_mask)``."""
     B = tuple(state.logp.shape)
     inc = proposal.sample_td(
         generator, betas if betas_proposal is None else betas_proposal, B)
     prop = state.x + inc
     lp_prop = target.log_density_td(prop)
     log_ratio = betas[:, None] * (lp_prop - state.logp)
+    if not symmetric:
+        log_ratio = log_ratio + proposal.log_q_ratio(inc, betas)
     u = uniform(B, generator, state.x.dtype)
     accept = (log_ratio > 0.0) | (u < torch.exp(log_ratio))
+    if rung_mask is not None:
+        accept = accept & rung_mask[:, None]
     x_new = torch.where(accept[None], prop, state.x)
     lp_new = torch.where(accept, lp_prop, state.logp)
     acc = state.accept_count
@@ -163,17 +176,28 @@ _SWEEPS = {"even_odd": _swap_phase, "sequential": _swap_phase_sequential}
 
 def _pt_step_core(state: PTState, generator, target, proposal, betas,
                   burn_in, swap_every, swap_sweep: str = "even_odd",
-                  betas_proposal=None):
+                  betas_proposal=None, cpu_semantics: bool = False,
+                  symmetric: bool = True):
     """:func:`pt_step` that also returns the ``(T, C)`` MH accept mask."""
     if swap_sweep not in _SWEEPS:
         raise ValueError("swap_sweep must be 'even_odd' or 'sequential'")
     cold_before = state.x[:, 0, :]
     step_counter = state.step + 1
-    state, accept = _mh_phase(state, generator, target, proposal, betas,
-                              burn_in, betas_proposal)
     post = step_counter > burn_in
-    if post and step_counter % swap_every == 0:
+    if cpu_semantics and step_counter % swap_every == 0:
+        # swap first, then only the hottest rung moves
         state = _SWEEPS[swap_sweep](state, generator, betas)
+        hot = torch.arange(betas.shape[0], device=betas.device) \
+            == betas.shape[0] - 1
+        state, accept = _mh_phase(state, generator, target, proposal, betas,
+                                  burn_in, betas_proposal, rung_mask=hot,
+                                  symmetric=symmetric)
+    else:
+        state, accept = _mh_phase(state, generator, target, proposal, betas,
+                                  burn_in, betas_proposal,
+                                  symmetric=symmetric)
+        if not cpu_semantics and post and step_counter % swap_every == 0:
+            state = _SWEEPS[swap_sweep](state, generator, betas)
     cold = state.sum_sq_jump_cold
     if post:
         cold = cold + torch.sum(torch.square(state.x[:, 0, :] - cold_before),
@@ -184,25 +208,38 @@ def _pt_step_core(state: PTState, generator, target, proposal, betas,
 
 def pt_step(state: PTState, generator, target, proposal, betas, burn_in,
             swap_every, swap_sweep: str = "even_odd",
-            betas_proposal=None) -> PTState:
+            betas_proposal=None, cpu_semantics: bool = False,
+            symmetric: bool = True) -> PTState:
     """One PT step: MH move on every rung, then, on post-burn-in multiples
-    of ``swap_every``, a swap event."""
+    of ``swap_every``, a swap event (with ``cpu_semantics``, the module
+    docstring's step)."""
     return _pt_step_core(state, generator, target, proposal, betas, burn_in,
-                         swap_every, swap_sweep, betas_proposal)[0]
+                         swap_every, swap_sweep, betas_proposal,
+                         cpu_semantics, symmetric)[0]
 
 
-def pt_result(state: PTState, burn_in: int, chain=None) -> PTResult:
+def pt_result(state: PTState, burn_in: int, chain=None,
+              cpu_semantics: bool = False, swap_every: int = 1) -> PTResult:
     """Metrics with the reference normalizations: swap acceptance =
     accepts / attempts, beta-ESJD = sum (dbeta^2) / attempts, cold ESJD and
-    per-rung acceptance over the cumulative post-burn-in steps."""
+    per-rung acceptance over the cumulative post-burn-in steps; with
+    ``cpu_semantics`` the rungs below the hottest attempted MH on the
+    post-burn-in steps that were no swap step (JAX ``pt.py:432-442``)."""
     n = float(max(state.step - burn_in, 1))
     attempts = float(max(state.swap_attempt_count, 1))
+    mh_attempts = n
+    if cpu_semantics:
+        T = state.logp.shape[0]
+        n_swap = float(state.step // swap_every - burn_in // swap_every)
+        mh_attempts = torch.full((T, 1), max(n - n_swap, 1.0),
+                                 dtype=state.x.dtype, device=state.x.device)
+        mh_attempts[T - 1] = n
     return PTResult(
         state=state,
         swap_acceptance_rate=state.swap_accept_count / attempts,
         pt_esjd=state.sum_beta_sq_jump / attempts,
         cold_esjd=state.sum_sq_jump_cold / n,
-        acceptance_rate=state.accept_count / n,
+        acceptance_rate=state.accept_count / mh_attempts,
         chain=chain)
 
 
@@ -211,6 +248,8 @@ def run_pt(target, proposal, seed, betas, *, num_chains: int,
            init_states=None, record_every: int | None = None,
            record_chains: int = 1, resume_state: PTState | None = None,
            swap_sweep: str = "even_odd", scale_multipliers=None,
+           unroll: int = 2, cpu_semantics: bool = False,
+           symmetric: bool = True, progress_every: int | None = None,
            device="cuda") -> PTResult:
     """Run ``burn_in + num_iterations`` PT steps on ``num_chains`` replicas
     (``num_iterations`` more when resuming).
@@ -219,7 +258,8 @@ def run_pt(target, proposal, seed, betas, *, num_chains: int,
     optional ``(T,)`` per-rung multipliers ``c`` (effective proposal
     variance ``base * c_t / beta_t``); the accept ratio keeps the true
     betas.  ``record_every``: thinned trace of rung 0 of the first
-    ``record_chains`` replicas."""
+    ``record_chains`` replicas.  ``cpu_semantics``, ``symmetric``,
+    ``progress_every`` and ``unroll`` as in the module docstring."""
     dev = resolve_device(device)
     target = target.to(dev)
     proposal = proposal.to(dev)
@@ -236,12 +276,15 @@ def run_pt(target, proposal, seed, betas, *, num_chains: int,
     if scale_multipliers is not None:
         betas_prop = betas / as_tensor(scale_multipliers, dev, betas.dtype)
     trace = []
+    end, run_id = state.step + total, progress_run_id(seed)
     for i in range(total):
         state = pt_step(state, step_generator(seed, state.step, dev), target,
                         proposal, betas, burn_in, swap_every, swap_sweep,
-                        betas_prop)
+                        betas_prop, cpu_semantics, symmetric)
+        maybe_report_progress(state.step, end, progress_every, run_id)
         if record_every and (i + 1) % record_every == 0:
             trace.append(state.x[:, 0, :record_chains].clone())
     return pt_result(state, burn_in,
                      stack_trace(trace, record_every,
-                                 state.x[:, 0, :record_chains]))
+                                 state.x[:, 0, :record_chains]),
+                     cpu_semantics, swap_every)

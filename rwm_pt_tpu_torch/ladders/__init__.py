@@ -1,4 +1,7 @@
-"""Ladders: the geometric ladder and the iterative (host-loop) ladder."""
-from .ladders import construct_geometric_ladder, construct_iterative_ladder
+"""Ladders: the geometric ladder and the iterative ladder, built by the
+host loop or in one program (one CUDA kernel launch on the card)."""
+from .ladders import (construct_geometric_ladder, construct_iterative_ladder,
+                      construct_iterative_ladder_device)
 
-__all__ = ["construct_geometric_ladder", "construct_iterative_ladder"]
+__all__ = ["construct_geometric_ladder", "construct_iterative_ladder",
+           "construct_iterative_ladder_device"]

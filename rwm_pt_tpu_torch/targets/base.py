@@ -31,6 +31,26 @@ def sum0(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def round_operand(t: torch.Tensor, matmul_precision: str) -> torch.Tensor:
+    """A matmul operand at ``matmul_precision``: itself under "float32",
+    rounded to bfloat16 (and held in float32, so that the products are
+    exact and accumulate in float32) under "bfloat16"."""
+    if matmul_precision == "float32":
+        return t
+    if matmul_precision == "bfloat16":
+        return t.to(torch.bfloat16).to(t.dtype)
+    raise ValueError(f"matmul_precision must be 'float32' or 'bfloat16', "
+                     f"not {matmul_precision!r}")
+
+
+def categorical_index(u: torch.Tensor, cum_weights: torch.Tensor):
+    """Index k of each uniform ``u`` against the float32 cumulative
+    weights of three categories: the count of ``cum_weights[:2]`` at or
+    below ``u``."""
+    return ((u >= cum_weights[0]).to(torch.int64)
+            + (u >= cum_weights[1]).to(torch.int64))
+
+
 def _gen_device(generator, device):
     return generator.device if generator is not None else device
 
@@ -48,16 +68,6 @@ def _draw_uniform(shape, generator, device, dtype, lo=0.0, hi=1.0):
     u = torch.rand(shape, generator=generator,
                    device=_gen_device(generator, device), dtype=dtype)
     return (u * (hi - lo) + lo).to(device)
-
-
-def _draw_categorical(weights, shape, generator, device):
-    """Indices drawn with probabilities ``weights`` ``(K,)``, of ``shape``."""
-    w = weights.to(_gen_device(generator, device))
-    n = 1
-    for s in shape:
-        n *= s
-    idx = torch.multinomial(w, n, replacement=True, generator=generator)
-    return idx.reshape(shape).to(device)
 
 
 def _draw_gamma(alpha, shape, generator, device, dtype):
@@ -119,7 +129,28 @@ class TargetMixin:
 
     def direct_sample(self, n: int, beta: float = 1.0,
                       generator: torch.Generator | None = None):
-        """``(n, dim)`` exact draws from the beta-tempered target."""
+        """``(n, dim)`` exact draws from the beta-tempered target in the
+        target's dtype: :meth:`stream_sample` (in float32) on the words of
+        a ladder stream keyed by one draw of ``generator`` (torch's
+        default generator when None).  A target without a direct sampler
+        raises ``NotImplementedError``."""
+        from ..kernels.draws import ProbeStream, resolve_seed, seed_key
+        seed = resolve_seed(generator if generator is not None
+                            else torch.default_generator)
+        f32 = self if self.dtype == torch.float32 else self.to(
+            dtype=torch.float32)
+        x = f32.stream_sample(ProbeStream(seed_key(seed), 1, 0, n,
+                                          self.device), n,
+                              torch.tensor(float(beta), dtype=torch.float32,
+                                           device=self.device))
+        return x.to(self.dtype)
+
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """``(n, dim)`` draws from the beta-tempered target from the
+        Philox words of one side of an iterative-ladder probe
+        (``kernels/draws.py::ProbeStream``) at the float32 0-d ``beta``,
+        in the arithmetic ``csrc/ladder_build.cu`` repeats on the card."""
         raise NotImplementedError(
             f"{self.get_name()} has no direct sampler; use a geometric or "
             "manual temperature ladder.")

@@ -14,7 +14,7 @@ import torch
 
 from ..utils import threefry
 from ..utils.dtypes import default_float, resolve_device
-from .base import TargetMixin, _draw_normal, bdim, sum0
+from .base import TargetMixin, bdim, sum0
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -60,22 +60,20 @@ class NealFunnel(TargetMixin):
     def get_name(self) -> str:
         return f"{self.name}_D{self.dim}"
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Exact sampler of the beta-tempered funnel: integrating the z's out
-        of pi^beta leaves a Gaussian v,
-        v ~ N(mu_v + (1 - beta)(d-1) sigma_v^2 / (2 beta), sigma_v^2 / beta),
-        then z_k | v ~ N(mu_z, e^v / beta)."""
-        beta = float(beta)
-        d1 = self.dim - 1
-        mean_v = self.mu_v + (1.0 - beta) * d1 * self.sigma_v_sq / (2.0 * beta)
-        v = mean_v + torch.sqrt(self.sigma_v_sq / beta) * _draw_normal(
-            (n,), generator, self.device, self.dtype)
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """The exact tempered sampler from the normals z of slots 0 .. d-1:
+        v = (mu_v + ((1 - beta)(d-1)) sigma_v^2 / (2 beta)) + sqrt(sigma_v^2
+        / beta) z_0, then z_k' = mu_z + (exp(v / 2) / sqrt(beta)) z_k."""
+        z = stream.normals(self.dim)
+        mean_v = self.mu_v + ((1.0 - beta) * float(self.dim - 1)
+                              * self.sigma_v_sq) / (2.0 * beta)
+        v = mean_v + torch.sqrt(self.sigma_v_sq / beta) * z[:, 0]
         if self.dim == 1:
             return v[:, None]
-        z = (self.mu_z + torch.exp(v[:, None] / 2.0) / math.sqrt(beta)
-             * _draw_normal((n, d1), generator, self.device, self.dtype))
-        return torch.cat([v[:, None], z], dim=1)
+        zz = self.mu_z + (torch.exp(v / 2.0) / torch.sqrt(beta))[:, None] \
+            * z[:, 1:]
+        return torch.cat([v[:, None], zz], dim=1)
 
     def marginal_density(self, axis: int, xs):
         """v's marginal is N(mu_v, sigma_v^2); a z coordinate's is the 1-D

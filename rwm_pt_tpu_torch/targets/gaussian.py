@@ -9,7 +9,7 @@ import torch
 
 from ..utils.dtypes import as_tensor, default_float, resolve_device
 from ..utils.threefry import uniform
-from .base import TargetMixin, _draw_normal, bdim
+from .base import TargetMixin, bdim, round_operand
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -61,12 +61,29 @@ class MultivariateNormal(TargetMixin):
             quad = torch.sum(xc * y, dim=0)
         return -0.5 * quad + self.log_norm_const
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """x = mean + chol(cov / beta) z."""
-        z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
-        scale = self.chol / math.sqrt(float(beta))
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """x = mean + z (chol / sqrt(beta))^T, z the normals of slots
+        0 .. d-1, the product's operands at ``matmul_precision``."""
+        z = round_operand(stream.normals(self.dim), matmul_precision)
+        scale = round_operand(self.chol / torch.sqrt(beta),
+                              matmul_precision)
         return self.mean + z @ scale.T
+
+    def log_density_at(self, x: torch.Tensor,
+                       matmul_precision: str = "float32") -> torch.Tensor:
+        """:meth:`log_density` of ``(..., dim)`` with the full
+        covariance's product ``cov_inv @ (x - mean)`` at
+        ``matmul_precision`` (JAX's ``tensordot`` under
+        ``jax.default_matmul_precision``)."""
+        if self.iso or matmul_precision == "float32":
+            return self.log_density(x)
+        xc = torch.movedim(x, -1, 0) - bdim(self.mean, torch.movedim(x, -1,
+                                                                     0))
+        y = torch.tensordot(round_operand(self.cov_inv, matmul_precision),
+                            round_operand(xc, matmul_precision),
+                            dims=([1], [0]))
+        return -0.5 * torch.sum(xc * y, dim=0) + self.log_norm_const
 
     def marginal_density(self, axis: int, xs):
         """Gaussian marginal N(mean[axis], cov[axis, axis])."""
@@ -107,11 +124,11 @@ class ScaledMultivariateNormal(TargetMixin):
         sx = bdim(self.scaling_factors, x) * x
         return self.log_norm_const - 0.5 * torch.sum(sx * sx, dim=0)
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """x_i ~ N(0, 1 / (c_i^2 beta))."""
-        z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
-        return z * (1.0 / (self.scaling_factors * math.sqrt(float(beta))))
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """x_i = z_i / (c_i sqrt(beta)), z the normals of slots 0 .. d-1."""
+        z = stream.normals(self.dim)
+        return z * (1.0 / (self.scaling_factors * torch.sqrt(beta)))
 
     def get_variances(self):
         """Equivalent per-dim variances 1/c_i^2."""

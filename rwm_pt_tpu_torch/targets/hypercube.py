@@ -35,11 +35,11 @@ class Hypercube(TargetMixin):
         return torch.where(within, self.log_uniform_density,
                            torch.full_like(within, -torch.inf, dtype=x.dtype))
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Uniform draws; beta has no effect on a flat density."""
-        u = _draw_uniform((n, self.dim), generator, self.device, self.dtype)
-        return u * (self.right - self.left) + self.left
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """x = u (right - left) + left, u the uniforms of slots 0 .. d-1."""
+        return (stream.uniforms(0, self.dim) * (self.right - self.left)
+                + self.left)
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):
         """Start at 20-80 % of the box, inside the support."""

@@ -12,8 +12,7 @@ import math
 import torch
 
 from ..utils.dtypes import default_float, resolve_device
-from .base import (TargetMixin, _draw_gamma, _draw_normal, _draw_uniform,
-                   sum0)
+from .base import TargetMixin, _draw_normal, _draw_uniform, sum0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +43,11 @@ class IIDGamma(TargetMixin):
                   - safe_x / self.scale) - self.log_norm_const
         return torch.where(valid, ld, torch.full_like(ld, -torch.inf))
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Tempered Gamma: shape * beta, the same scale."""
-        g = _draw_gamma(self.shape * float(beta), (n, self.dim), generator,
-                        self.device, self.dtype)
-        return g * self.scale
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """Gamma(shape beta) variates (``ProbeStream.gamma``) times the
+        scale."""
+        return stream.gamma(self.shape * beta, self.dim) * self.scale
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):
         """Gamma targets start at 5 + 0.01 N(0, I)."""
@@ -94,15 +92,12 @@ class IIDBeta(TargetMixin):
         return torch.where(valid, ld + self.log_norm_const,
                            torch.full_like(ld, -torch.inf))
 
-    def direct_sample(self, n: int, beta_temp: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Both shapes tempered by beta: G1 / (G1 + G2) with
-        G1 ~ Gamma(alpha beta), G2 ~ Gamma(beta_param beta)."""
-        shape = (n, self.dim)
-        g1 = _draw_gamma(self.alpha * float(beta_temp), shape, generator,
-                         self.device, self.dtype)
-        g2 = _draw_gamma(self.beta * float(beta_temp), shape, generator,
-                         self.device, self.dtype)
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """G1 / (G1 + G2) of the stream's gammas 0 and 1, of shapes alpha
+        beta and beta_param beta."""
+        g1 = stream.gamma(self.alpha * beta, self.dim, 0)
+        g2 = stream.gamma(self.beta * beta, self.dim, 1)
         return g1 / (g1 + g2)
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):

@@ -16,7 +16,7 @@ import torch
 
 from ..utils.dtypes import as_tensor, default_float, resolve_device
 from ..utils.threefry import uniform
-from .base import (TargetMixin, _draw_categorical, _draw_normal, bdim)
+from .base import TargetMixin, bdim, categorical_index
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_SQRT_2PI = 0.5 * _LOG_2PI
@@ -45,6 +45,13 @@ def _scalings(dim, scaling, scaling_factors, seed, dev, f):
     else:
         s = torch.from_numpy(uniform(seed, dim, 0.02, 1.98)).to(dev, f)
     return s, torch.sum(torch.log(s))
+
+
+def cum_weights(weights: torch.Tensor, device) -> torch.Tensor:
+    """The float32 cumulative weights of a mixture, summed on the CPU
+    (the ladder kernel takes these very words), on ``device``."""
+    return torch.cumsum(weights.detach().cpu().to(torch.float32),
+                        0).to(device)
 
 
 def _mixture_marginal(s, centers, weights, xs):
@@ -111,13 +118,15 @@ class ThreeMixture(TargetMixin):
         return (torch.log(torch.sum(torch.exp(comp - m0), dim=0)) + m0
                 + self.log_jacobian)
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Tempered component sampler: pick a mode k with probability w_k,
-        y ~ N(mu_k, I / beta), x = y / s."""
-        idx = _draw_categorical(self.weights, (n,), generator, self.device)
-        z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
-        y = self.means[idx] + z / math.sqrt(float(beta))
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """Mode k of the uniform of slot d against the cumulative weights,
+        y = mu_k + z / sqrt(beta) (z the normals of slots 0 .. d-1), x = y
+        / s."""
+        d = self.dim
+        idx = categorical_index(stream.uniforms(d, d + 1)[:, 0],
+                                cum_weights(self.weights, self.device))
+        y = self.means[idx] + stream.normals(d) / torch.sqrt(beta)
         return y / self.scaling_factors
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):
@@ -182,13 +191,15 @@ class RoughCarpet(TargetMixin):
                                 + torch.exp(parts[2] - m0)) - _LOG_SQRT_2PI
         return torch.sum(per_dim, dim=0) + self.log_jacobian
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Per coordinate a mode pick and Gaussian noise / sqrt(beta)."""
-        idx = _draw_categorical(self.weights, (n, self.dim), generator,
-                                self.device)
-        z = _draw_normal((n, self.dim), generator, self.device, self.dtype)
-        y = self.modes[idx] + z / math.sqrt(float(beta))
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """Per coordinate j, mode k of the uniform of slot d + j against the
+        cumulative weights, y = mode_k + z_j / sqrt(beta) (z the normals of
+        slots 0 .. d-1), x = y / s."""
+        d = self.dim
+        idx = categorical_index(stream.uniforms(d, 2 * d),
+                                cum_weights(self.weights, self.device))
+        y = self.modes[idx] + stream.normals(d) / torch.sqrt(beta)
         return y / self.scaling_factors
 
     def init_sample(self, n: int, generator: torch.Generator | None = None):

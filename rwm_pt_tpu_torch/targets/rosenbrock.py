@@ -7,12 +7,11 @@ Default coefficients a = 1/20, b = 100/20, mu = 1 (the JAX package's
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from ..utils.dtypes import as_tensor, default_float, resolve_device
-from .base import TargetMixin, _draw_normal, bdim
+from .base import TargetMixin, bdim
 
 DEFAULT_A_COEFF = 1.0 / 20.0
 DEFAULT_B_COEFF = 100.0 / 20.0
@@ -96,20 +95,18 @@ class EvenRosenbrock(TargetMixin):
         t2 = bdim(self.b_vec, x_i) * torch.square(x_ip1 - x_i * x_i)
         return -torch.sum(t1 + t2, dim=0)
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Exact conditional-Gaussian sampler: x_{2i} ~ N(mu, 1/(2 a beta)),
-        x_{2i+1} | x_{2i} ~ N(x_{2i}^2, 1/(2 b beta))."""
-        pairs = self.dim // 2
-        eff_a = self.a_coeff * float(beta)
-        eff_b = self.b_coeff * float(beta)
-        z1 = _draw_normal((n, pairs), generator, self.device, self.dtype)
-        z2 = _draw_normal((n, pairs), generator, self.device, self.dtype)
-        x_odd = self.mu[0::2] + z1 * torch.sqrt(1.0 / (2 * eff_a))
-        x_even = x_odd ** 2 + z2 * torch.sqrt(1.0 / (2 * eff_b))
-        out = torch.zeros((n, self.dim), dtype=self.dtype, device=self.device)
-        out[:, 0::2] = x_odd
-        out[:, 1::2] = x_even
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """The conditional-Gaussian sampler from the normals z of slots 0
+        .. d-1: x_{2i} = mu + z_{2i} sqrt(1 / (2 a beta)), x_{2i+1} =
+        x_{2i}^2 + z_{2i+1} sqrt(1 / (2 b beta))."""
+        z = stream.normals(self.dim)
+        sa = torch.sqrt(1.0 / (2.0 * (self.a_coeff * beta)))
+        sb = torch.sqrt(1.0 / (2.0 * (self.b_coeff * beta)))
+        first = self.mu[0::2] + z[:, 0::2] * sa
+        out = torch.empty_like(z)
+        out[:, 0::2] = first
+        out[:, 1::2] = first * first + z[:, 1::2] * sb
         return out
 
 
@@ -155,21 +152,18 @@ class HybridRosenbrock(TargetMixin):
             log_prob = log_prob - torch.sum(t_in, dim=(0, 1))
         return log_prob
 
-    def direct_sample(self, n: int, beta: float = 1.0,
-                      generator: torch.Generator | None = None):
-        """Ancestral sampling down the DAG: x_0 ~ N(mu, 1/(2 a beta)), each
-        block's first variable ~ N(x_0^2, 1/(2 b beta)), then each next one
-        ~ N(previous^2, 1/(2 b beta))."""
-        std_g1 = math.sqrt(1.0 / (2 * float(self.a_coeff) * float(beta)))
-        std_blk = math.sqrt(1.0 / (2 * float(self.b_coeff) * float(beta)))
-        x_g1 = self.mu + _draw_normal((n,), generator, self.device,
-                                      self.dtype) * std_g1
-        noise = _draw_normal((self.n2, self.n1 - 1, n), generator,
-                             self.device, self.dtype) * std_blk
-        cols = [x_g1[None] ** 2 + noise[:, 0]]             # (n2, n)
-        for i in range(1, self.n1 - 1):
-            cols.append(cols[-1] ** 2 + noise[:, i])
-        blocks = torch.stack(cols, dim=1)                  # (n2, n1-1, n)
-        out = torch.cat([x_g1[None],
-                         blocks.reshape(self.n2 * (self.n1 - 1), n)], dim=0)
-        return out.T
+    def stream_sample(self, stream, n: int, beta: torch.Tensor,
+                      matmul_precision: str = "float32"):
+        """Ancestral sampling from the normals z of slots 0 .. d-1: x_0 =
+        mu + z_0 sqrt(1 / (2 a beta)), then coordinate k (block by block)
+        parent^2 + z_k sqrt(1 / (2 b beta)), the parent x_0 for a block's
+        first variable and x_{k-1} after it."""
+        z = stream.normals(self.dim)
+        sg = torch.sqrt(1.0 / (2.0 * (self.a_coeff * beta)))
+        sk = torch.sqrt(1.0 / (2.0 * (self.b_coeff * beta)))
+        x0 = self.mu + z[:, 0] * sg
+        cols = [x0]
+        for k in range(1, self.dim):
+            par = x0 if (k - 1) % (self.n1 - 1) == 0 else cols[-1]
+            cols.append(par * par + z[:, k] * sk)
+        return torch.stack(cols, dim=1)

@@ -69,9 +69,25 @@ def test_proposal_config_matches_jax(prop, scale, aniso):
 
 
 @pytest.mark.parametrize("flag", ["--use_mesh", "--multihost", "--x64"])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        tcli.main(ARGS + [flag, "--cpu"])
+def test_unported_flags_raise(flag, tmp_path):
+    """The multi-card flags raise naming ROADMAP Queue A; ``--x64`` is
+    ported (A7): the study runs on the eager engine in float64, never
+    launching the float32 fused kernel."""
+    if flag != "--x64":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+            tcli.main(ARGS + [flag, "--cpu"])
+        return
+    from rwm_pt_tpu_torch.utils import default_float, set_x64
+    fused_rwm.launch_rwm_kernel.launches.clear()
+    try:
+        data = tcli.main(ARGS + [flag, "--cpu", "--output_dir",
+                                 str(tmp_path)])
+        assert default_float() == torch.float64
+    finally:
+        set_x64(False)
+    assert not fused_rwm.launch_rwm_kernel.launches
+    accs = np.asarray(data["acceptance_rates"])
+    assert ((accs > 0) & (accs <= 1)).all() and accs[0] > accs[-1]
 
 
 def test_unported_target_raises(tmp_path):
@@ -112,7 +128,8 @@ def test_pt_study_writes_the_jax_json_keys(tmp_path, monkeypatch):
     """``experiment_pt``: the JAX study's JSON keys, rate grid and list
     lengths; ``backend`` is the torch device; the ``_PT_GPU_`` file name;
     one fused run per config with the Philox seed ``config_seed(seed, i)``,
-    the even/odd pair order and the ladder built with seed ``seed + i``."""
+    the even/odd pair order and the ladder built by the one-program builder
+    with seed ``seed + i``."""
     from rwm_pt_tpu.cli import experiment_pt as jpt
     from rwm_pt_tpu_torch.cli import experiment_pt as tpt
     jdata = jpt.run_study(3, "ThreeMixture", num_iters=40, seed=4,
@@ -121,7 +138,8 @@ def test_pt_study_writes_the_jax_json_keys(tmp_path, monkeypatch):
                           num_chains=8, num_configs=3,
                           output_dir=str(tmp_path / "jax"), make_plots=False)
     calls, ladder_seeds = [], []
-    real_run, real_ladder = tpt.run_pt_fused, tpt.construct_iterative_ladder
+    real_run = tpt.run_pt_fused
+    real_ladder = tpt.construct_iterative_ladder_device
 
     def spy(target, seed, betas, **kw):
         calls.append((seed, kw["swap_sweep"], len(betas)))
@@ -131,7 +149,7 @@ def test_pt_study_writes_the_jax_json_keys(tmp_path, monkeypatch):
         ladder_seeds.append(kw["seed"])
         return real_ladder(target, **kw)
     monkeypatch.setattr(tpt, "run_pt_fused", spy)
-    monkeypatch.setattr(tpt, "construct_iterative_ladder", ladder_spy)
+    monkeypatch.setattr(tpt, "construct_iterative_ladder_device", ladder_spy)
     tdata = tpt.main(PT_ARGS + ["--cpu", "--no_plots", "--output_dir",
                                 str(tmp_path / "port")])
     assert set(tdata) == set(jdata)

@@ -80,6 +80,9 @@ def _libraries():
                                          device="cpu")
             names += [_build.route(v, tg, specialize=spec)[0]
                       for spec in (True, False)]
+    names += [_build.ladder_lib(k, 7) for k in _build.TARGET_KINDS
+              if k not in ("rosenbrock", "super_funnel")]
+    names.append(_build.ladder_lib("mvn_iso", 100))
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -984,3 +987,100 @@ def test_warp_lanes_accept_alike(team):
     a = agreement.hold(out[:4], _run_rwm_fused_plain(*args, draw=WARP_DRAW),
                        agreement.RWM_OUTPUTS, lp_of=target.log_density_td)
     assert a.frac > 0.5 and not a.mismatched, agreement.describe(a)
+
+
+# ------------------------------------------------- the ladder kernel (A10)
+LADDER_CASES = {"mvn_iso": ("MultivariateNormal", None, 7)}
+LADDER_CASES.update({k: (n, kw, d) for k, (n, kw, d, _) in KIND_CASES.items()})
+
+
+def ladder_target(kind, dev):
+    name, kw, d = LADDER_CASES[kind]
+    if kw == "cov":
+        a = np.random.default_rng(5).normal(size=(d, d))
+        kw = {"cov": a @ a.T / d + np.eye(d)}
+    return get_target_distribution(name, 0 if kind == "hybrid_rosenbrock"
+                                   else d, device=dev, **(kw or {}))
+
+
+def _same_ladder(k, p):
+    assert len(k.betas) == len(p.betas) and k.probes == p.probes
+    np.testing.assert_allclose(k.betas, p.betas, rtol=1e-5)
+    np.testing.assert_allclose(k.a_hats, p.a_hats, rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", sorted(LADDER_CASES))
+def test_ladder_kernel_matches_plain(kind):
+    """One launch builds the plain version's ladder: the same rungs and
+    probes, the swap estimates to their ulps (the gamma kinds bit for
+    bit: their rejection tests are exact on both sides)."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    tg = ladder_target(kind, dev)
+    kw = dict(N_samples_swap_est=3000, tolerance=0.02, seed=3,
+              max_pn_adjustment_steps=40)
+    ladder_build.launch_ladder_kernel.launches.clear()
+    k = ladder_build.launch_ladder_kernel(tg, **kw)
+    assert ladder_build.launch_ladder_kernel.launches == {
+        f"ladder_build.{kind}": 1}
+    p = L._construct_iterative_ladder_device_plain(tg, **kw)
+    _same_ladder(k, p)
+    if kind in ("iid_gamma", "iid_beta"):
+        np.testing.assert_array_equal(k.a_hats, p.a_hats)   # NaN == NaN
+    assert L.construct_iterative_ladder_device(tg, **kw) == k.betas
+
+
+@pytest.mark.parametrize("kind,d", [("mvn_iso", 100), ("mvn_full", 7),
+                                    ("mvn_iso", 7)])
+def test_ladder_kernel_bucket_and_precision(kind, d):
+    """The d = 100 iso MVN (the .d128 bucket, arrays in local memory),
+    the max_T cap and the bfloat16 matmul operands against the plain
+    version."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    tg = (get_target_distribution("MultivariateNormal", d, device=dev)
+          if d == 100 else ladder_target(kind, dev))
+    for kw in (dict(N_samples_swap_est=3000, tolerance=0.02, seed=4),
+               dict(N_samples_swap_est=3000, tolerance=0.02, seed=4,
+                    max_T=4, matmul_precision="bfloat16")):
+        k = ladder_build.launch_ladder_kernel(tg, **kw)
+        _same_ladder(k, L._construct_iterative_ladder_device_plain(tg, **kw))
+    assert len(k.betas) == 4
+
+
+@pytest.mark.parametrize("power,clamp,max_T", [(-0.6, (-1.5, 3.0), 33),
+                                               (-0.1, (-10.0, 0.2), 1024)])
+def test_ladder_kernel_takes_pn_exponent_clamp_and_room(power, clamp, max_T):
+    """The pn exponent and clamp (the harness's options) and a ladder room
+    of the fused kernel's rungs or of the eager engines' reach the kernel:
+    the plain version's ladder, whose probes differ from the defaults'."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    tg = ladder_target("three_mixture", dev)
+    base = dict(N_samples_swap_est=3000, tolerance=0.005, seed=6,
+                max_T=max_T)
+    kw = dict(base, pn_update_power=power, pn_clamping_range=clamp)
+    k = ladder_build.launch_ladder_kernel(tg, **kw)
+    _same_ladder(k, L._construct_iterative_ladder_device_plain(tg, **kw))
+    assert k.a_hats != ladder_build.launch_ladder_kernel(tg, **base).a_hats
+
+
+def test_ladder_kernel_refuses_before_launching():
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import construct_iterative_ladder_device
+    dev = _card()
+    ladder_build.launch_ladder_kernel.launches.clear()
+    for name in ("FullRosenbrock", "SuperFunnel"):
+        with pytest.raises(NotImplementedError, match="direct_sample"):
+            construct_iterative_ladder_device(
+                get_target_distribution(name, 4, device=dev))
+        with pytest.raises(NotImplementedError):
+            ladder_build.launch_ladder_kernel(
+                get_target_distribution(name, 4, device=dev))
+    with pytest.raises(NotImplementedError, match="252"):
+        ladder_build.launch_ladder_kernel(
+            get_target_distribution("MultivariateNormal", 300, device=dev))
+    assert not ladder_build.launch_ladder_kernel.launches

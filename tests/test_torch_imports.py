@@ -28,6 +28,13 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch.kernels.fused_pt
         import rwm_pt_tpu_torch.kernels.fused_rwm
         import rwm_pt_tpu_torch.analysis.diagnostics
+        import rwm_pt_tpu_torch.analysis.average_seeds
+        import rwm_pt_tpu_torch.analysis.batch_average_seeds
+        import rwm_pt_tpu_torch.analysis.combine_data
+        import rwm_pt_tpu_torch.analysis.plotting
+        import rwm_pt_tpu_torch.cli.demo
+        import rwm_pt_tpu_torch.kernels.ladder_build
+        import rwm_pt_tpu_torch.utils.profiling
         import rwm_pt_tpu_torch.api.simulation
         import rwm_pt_tpu_torch.cli.common
         import rwm_pt_tpu_torch.cli.experiment_rwm
@@ -57,7 +64,9 @@ def _entry_points(out_dir):
     from rwm_pt_tpu_torch.api import MCMCSimulation
     from rwm_pt_tpu_torch.cli import experiment_pt
     from rwm_pt_tpu_torch.cli.experiment_rwm import run_study
+    from rwm_pt_tpu_torch.cli import demo
     from rwm_pt_tpu_torch.cli.single_run import run_single_simulation
+    from rwm_pt_tpu_torch.ladders import construct_iterative_ladder_device
     from rwm_pt_tpu_torch.kernels import (run_pt, run_pt_adaptive,
                                           run_pt_fused,
                                           run_pt_ladder_adaptive, run_rwm,
@@ -118,6 +127,13 @@ def _entry_points(out_dir):
         "single_run": lambda **d: run_single_simulation(
             2, "MultivariateNormal", 2, 1.0, 0, 100, num_chains=4,
             autotune=True, make_plots=False, output_dir=out_dir, **d),
+        "construct_iterative_ladder_device":
+            lambda **d: construct_iterative_ladder_device(
+                MultivariateNormal.create(2, **d), N_samples_swap_est=64,
+                tolerance=0.05),
+        "demo": lambda **d: demo.main(
+            ["--num_iters", "20", "--no_plots"]
+            + (["--cpu"] if d.get("device") == "cpu" else [])),
     }
 
 
@@ -133,7 +149,9 @@ def _entry_points(out_dir):
                                   "NealFunnel", "run_rwm_adaptive",
                                   "run_pt_adaptive",
                                   "run_pt_ladder_adaptive", "draw_normals",
-                                  "single_run"])
+                                  "single_run",
+                                  "construct_iterative_ladder_device",
+                                  "demo"])
 def test_entry_points_default_to_cuda(name, monkeypatch, tmp_path):
     """With no card, the default device raises; ``device='cpu'`` runs."""
     fn = _entry_points(str(tmp_path))[name]

@@ -20,6 +20,7 @@ from rwm_pt_tpu_torch.convert import (pt_state_from_numpy,
                                       rwm_state_from_numpy,
                                       target_from_numpy, target_to_numpy)
 from rwm_pt_tpu_torch.kernels import _build, run_pt_fused, run_rwm_fused
+from rwm_pt_tpu_torch.kernels.draws import ProbeStream, seed_key
 from rwm_pt_tpu_torch.targets import (PORTED_TARGETS, RoughCarpet,
                                       ScaledMultivariateNormal, ThreeMixture)
 from rwm_pt_tpu_torch.targets import get_target_distribution as tget
@@ -223,6 +224,7 @@ def test_fused_rwm_plain_matches_pallas_body(monkeypatch, case):
 # tempered exact samplers; the funnel is the soft one of
 # tests/test_invariance.py (sigma_v^2 = 0.5), whose moments stay finite
 SAMPLER_CASES = {
+    "mvn_iso": ("MultivariateNormal", {}, 4),
     "mvn_full": ("MultivariateNormal", {"cov": _spd(4)}, 4),
     "scaled_mvn": ("MultivariateNormalScaled", {"seed": 3}, 4),
     "three_mixture": ("ThreeMixtureScaled", {}, 4),
@@ -236,16 +238,26 @@ SAMPLER_CASES = {
 }
 
 
+@pytest.mark.parametrize("sampler", ["direct", "stream"])
 @pytest.mark.parametrize("beta", [1.0, 0.3])
 @pytest.mark.parametrize("case", list(SAMPLER_CASES))
-def test_direct_sample_moments_match_jax(case, beta):
+def test_direct_sample_moments_match_jax(case, beta, sampler):
     """First and second moments of 20,000 tempered exact draws per
-    coordinate, the port's against the JAX sampler's: z < 5."""
+    coordinate, the port's against the JAX sampler's: z < 5.  The port's
+    draws come from ``direct_sample`` with a generator, or from
+    ``stream_sample`` on one side of a ladder probe, the draws of the
+    iterative ladder builders and their kernel."""
     name, kw, d = SAMPLER_CASES[case]
     jt, tt = jget(name, d, **kw), tget(name, d, device=CPU, **kw)
     n = 20000
-    g = torch.Generator().manual_seed(zlib.crc32(case.encode()))
-    ours = tt.direct_sample(n, beta, g).double().numpy()
+    s = zlib.crc32(case.encode())
+    if sampler == "direct":
+        g = torch.Generator().manual_seed(s)
+        ours = tt.direct_sample(n, beta, g)
+    else:
+        ours = tt.stream_sample(ProbeStream(seed_key(s), 1, 0, n, "cpu"), n,
+                                torch.tensor(beta, dtype=torch.float32))
+    ours = ours.double().numpy()
     theirs = np.asarray(jt.direct_sample(jax.random.key(1), n, beta),
                         np.float64)
     assert ours.shape == theirs.shape == (n, jt.dim)

@@ -165,18 +165,32 @@ def test_rng_impl_takes_the_jax_values():
     (dict(symmetric=False), "A item 7"),
 ])
 def test_options_not_ported_raise(opt, item):
+    """``use_mesh`` raises naming A13; the A7 options are ported and run on
+    the eager engine (the fused kernels refuse them, as JAX's Pallas
+    kernels do)."""
     kw = dict(dim=3, sigma=1.0, num_iterations=10, algorithm="RWM",
               target_dist="MultivariateNormal", num_chains=8, device=CPU)
     kw.update(opt)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
-        TSim(**kw)
+    if item != "A item 7":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue {item}"):
+            TSim(**kw)
+        return
+    sim = TSim(**kw)
+    sim.generate_samples(verbose=False)
+    assert sim.engine_used == "scan"
+    with pytest.raises(ValueError, match="fused CUDA kernels"):
+        TSim(**kw, engine="pallas").generate_samples(verbose=False)
 
 
-def test_progress_bar_and_engine_refusal():
-    sim = TSim(dim=3, sigma=1.0, num_iterations=10,
+def test_progress_bar_and_engine_refusal(capsys):
+    """``progress_bar=True`` (A7) prints JAX's lines: a fused run in ten
+    segments, a line after each."""
+    sim = TSim(dim=3, sigma=1.0, num_iterations=10, record_chain=False,
                target_dist="MultivariateNormal", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        sim.generate_samples(progress_bar=True)
+    sim.generate_samples(progress_bar=True)
+    assert sim.engine_used == "pallas"
+    assert "progress: 10/10 iterations" in capsys.readouterr().out
     # the kernels compile dims up to 252 (teams of lanes above 64): a
     # 253-d target is refused by engine='pallas' and runs on the eager
     # engine under 'auto'; a 65-d one takes the fused kernels
