@@ -222,6 +222,29 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    the ``demo`` CLI on the card (2000 iterations, no plots), the
    profiling helpers on a fused run, and the eager engines' options
    (CPU semantics, ``symmetric=False``, ``progress_every``, float64).
+19. the sharded fused runs (``kernels/fused_sharded.py``, B9) over meshes
+   (``parallel/mesh.py``, A13) of virtual shards on ``cuda:0``, launch
+   counters zeroed just before and read just after each sharded run: (a)
+   chains-sharded on 1, 2 and 4 shards, each equal bit for bit (x, lp,
+   every counter and sum) to the unsharded run: the flagship PT, the RWM
+   headline, d = 100 PT and RWM (the team kernels, the G the unsharded
+   launch picks) and SuperFunnel's fixed thread builds (PT T = 8 and RWM,
+   65,536, 200 steps); (b) the temps-sharded hybrid at the flagship shape
+   on ``temps`` meshes of 2, 5 and 10 shards and a ``chains`` x ``temps``
+   mesh of 2 x 5: x, lp, MH and swap counts equal bit for bit across the
+   four partitions, held against ``run_pt_fused(swap_sweep="even_odd")``
+   by ``kernels/agreement.py``'s gate (its cold-jump sum, whose MH and
+   swap moves the hybrid sums apart, printed beside), the swap acceptance
+   within 0.05 of it; (c) ``MCMCSimulation(use_mesh=True)`` PT and RWM at
+   the flagship and headline shapes and ``experiment_rwm --use_mesh`` at
+   the study's shape (2 configs) on the card's mesh, equal to the runs
+   without the mesh (the study's JSON under ``smoke_out/mesh/``); each
+   sharded run's ms and MH steps/s beside the unsharded run's, with its
+   launches and swap events; (d) each sharded entry point (4 shards; the
+   hybrid on 5 temps shards) held against its plain version (every
+   shard's plain version on the card) over 200 steps at the main path's
+   shapes, as phase 6 holds the kernels, and timed beside its bound: the
+   kernel's bound for the same work plus the swap events' bytes.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -413,6 +436,19 @@ LADDER_PROD = dict(N_samples_swap_est=1000000, tolerance=1e-4,
                    max_pn_adjustment_steps=1000,
                    convergence_failure_tolerance_factor=1.0, seed=1)
 LADDER_HOST_PROBES = 50   # the host loop's first probes, timed alone
+# phase 19, the sharded runs: the chains meshes' shard counts, the temps
+# meshes (axis sizes, names), SuperFunnel's steps, the held runs' shards
+# and swap interval, the RWM study's configs with and without the mesh
+SHARD_COUNTS = (1, 2, 4)
+TEMP_MESHES = (((2,), ("temps",)), ((5,), ("temps",)), ((10,), ("temps",)),
+               ((2, 5), ("chains", "temps")))
+SHARD_SF_STEPS = 200
+SHARD_HOLD = dict(shards=4, temps=5, swap_every=10)
+# the hybrid at d = WARP_D (the team kernels): its temps meshes, steps and
+# swap interval
+SHARD_WIDE_TEMPS = (5, 10)
+SHARD_WIDE = dict(steps=200, swap_every=20)
+SHARD_STUDY_CONFIGS = 2
 
 
 def fail(msg):
@@ -3815,6 +3851,387 @@ def phase_18(torch, gen):
     return kernels
 
 
+# ------------------------------------------------------- the sharded runs
+def same(torch, a, b):
+    """Whether two tensors are equal bit for bit (NaN where both are)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+PT_STATE = ("x", "logp", "accept_count", "swap_accept_count",
+            "sum_beta_sq_jump", "sum_sq_jump_cold")
+RWM_STATE = ("x", "logp", "accept_count", "sum_sq_jump")
+
+
+def differ(torch, a, b, fields):
+    """The state fields in which results ``a`` and ``b`` differ."""
+    return [f for f in fields
+            if not same(torch, getattr(a.state, f), getattr(b.state, f))]
+
+
+def event_bytes(d, T, C, n_events, n_t):
+    """Bytes the hybrid's swap events must move: each event reads and
+    writes every rung's x and lp, and each half-sweep passes each of the
+    n_t - 1 shard edges two boundary rows (x, lp, beta) each way."""
+    return n_events * 4 * C * (2 * (d + 1) * T + 2 * 2 * (n_t - 1) * (d + 2))
+
+
+def phase_19(torch, card, dev=None):
+    """Phase 19, the sharded fused runs (B9) over meshes of virtual shards
+    of ``cuda:0`` (A13; module docstring; ``dev``: the card, or the CPU
+    for a dry run of the phase's code at small sizes).  Returns the kernels
+    line's records of the three sharded entry points; each record's
+    launches are those of its one main path (the flagship PT and the RWM
+    headline on the largest chains mesh, the hybrid on SHARD_HOLD's temps
+    mesh), counted from 0 just before that run.  The earlier records keep
+    their own main paths' launches: the launches of all of this phase's
+    runs are printed on a line of their own."""
+    import contextlib
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.cli import experiment_rwm
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, fused_pt,
+                                          fused_rwm, fused_sharded,
+                                          run_pt_fused, run_pt_fused_sharded,
+                                          run_pt_fused_tempsharded,
+                                          run_rwm_fused,
+                                          run_rwm_fused_sharded)
+    from rwm_pt_tpu_torch.ladders import construct_geometric_ladder
+    from rwm_pt_tpu_torch.parallel import make_mesh
+    from rwm_pt_tpu_torch.targets import (FullRosenbrock,
+                                          get_target_distribution)
+    t_phase = time.time()
+    dev = dev or torch.device("cuda", 0)
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    path = Counter()        # every counted run's launches, by library
+    main_launches = {}      # each sharded entry point's main-path launches
+
+    def mesh(sizes, names=("chains",)):
+        return make_mesh(sizes, names, devices=[dev] * math.prod(sizes))
+
+    def counted(fn, main=None):
+        """``fn()`` timed once with its launches counted from 0: (ms,
+        result, launches by library); ``main`` names the sharded entry
+        point whose main path this run is."""
+        reset_launches(*wrappers)
+        ms, out = cuda_ms(torch, fn)
+        seen = read_launches(*wrappers, by_kind=True)
+        path.update(seen)
+        if main:
+            main_launches[main] = sum(seen.values())
+        return ms, out, seen
+
+    def rate(steps, ms):
+        return f"{steps / ms * 1e3:.6g}"
+
+    # ---- 19a chains-sharded, bit for bit against the unsharded runs
+    def chains_case(label, fields, steps, unsharded, sharded, best_of=1,
+                    main=False):
+        """``main``: the run on the largest mesh is its entry point's main
+        path."""
+        who = ("run_pt_fused_sharded" if fields == PT_STATE
+               else "run_rwm_fused_sharded")
+        ref = unsharded()           # the reference, and a warm-up
+        ms0 = cuda_ms(torch, unsharded, best_of)[0]
+        line = [f"unsharded {ms0:.3f} ms ({rate(steps, ms0)} MH steps/s)"]
+        times = {}
+        for k in SHARD_COUNTS:
+            m = mesh((k,))
+            _, res, seen = counted(lambda: sharded(m), who if main and k ==
+                                   max(SHARD_COUNTS) else None)
+            ms = cuda_ms(torch, lambda: sharded(m), best_of)[0]
+            bad = differ(torch, res, ref, fields)
+            if bad or sum(seen.values()) != k:
+                fail(f"phase 19a {label} on {k} shards: differs from the "
+                     f"unsharded run in {bad}; launches {dict(seen)}")
+            times[k] = ms
+            line.append(f"{k} shards {ms:.3f} ms ({rate(steps, ms)} MH "
+                        f"steps/s, {sum(seen.values())} launches)")
+            del res
+        say(f"phase 19a {label}: equal bit for bit ({', '.join(fields)}) to "
+            f"the unsharded run on {SHARD_COUNTS} shards; " + "; ".join(line))
+        return times
+
+    d, T, C = FLAG["dim"], FLAG["T"], FLAG["C"]
+    rb = FullRosenbrock.create(d, device=dev)
+    betas = torch.logspace(0, -2, T, device=dev)
+    pt_kw = dict(base_variance=FLAG["base_variance"], num_chains=C,
+                 num_iterations=FLAG["iters"], swap_every=FLAG["swap_every"])
+    pt_steps = FLAG["iters"] * T * C
+    flag_times = chains_case(
+        f"flagship PT (d={d}, T={T}, {C} replicas, {FLAG['iters']} steps)",
+        PT_STATE, pt_steps,
+        lambda: run_pt_fused(rb, 0, betas, device=dev, **pt_kw),
+        lambda m: run_pt_fused_sharded(rb, 0, betas, m, **pt_kw), 3, True)
+    rwm_kw = dict(base_variance=RWM_MAIN["base_variance"],
+                  num_chains=RWM_MAIN["C"], num_iterations=RWM_MAIN["iters"])
+    rwm_steps = RWM_MAIN["iters"] * RWM_MAIN["C"]
+    rwm_times = chains_case(
+        f"RWM headline ({RWM_MAIN['C']} chains)", RWM_STATE, rwm_steps,
+        lambda: run_rwm_fused(rb, 0, device=dev, **rwm_kw),
+        lambda m: run_rwm_fused_sharded(rb, 0, m, **rwm_kw), 3, True)
+    wide = FullRosenbrock.create(WARP_D, device=dev)
+    wide_var = 0.5 ** 2 / WARP_D
+    team = fused_sharded._layout("fused_pt", wide, None, C, T, dev)[1]
+    chains_case(
+        f"d={WARP_D} PT (the team kernels, G={team}; T={T}, {C} replicas, "
+        f"{FLAG['iters']} steps)", PT_STATE, pt_steps,
+        lambda: run_pt_fused(wide, 0, betas, base_variance=wide_var,
+                             num_chains=C, num_iterations=FLAG["iters"],
+                             swap_every=FLAG["swap_every"], device=dev),
+        lambda m: run_pt_fused_sharded(
+            wide, 0, betas, m, base_variance=wide_var, num_chains=C,
+            num_iterations=FLAG["iters"], swap_every=FLAG["swap_every"]))
+    team = fused_sharded._layout("fused_rwm", wide, None, C, 0, dev)[1]
+    chains_case(
+        f"d={WARP_D} RWM (G={team}; {C} chains)", RWM_STATE, rwm_steps,
+        lambda: run_rwm_fused(wide, 0, base_variance=wide_var, num_chains=C,
+                              num_iterations=RWM_MAIN["iters"], device=dev),
+        lambda m: run_rwm_fused_sharded(
+            wide, 0, m, base_variance=wide_var, num_chains=C,
+            num_iterations=RWM_MAIN["iters"]))
+    sf = sf_target(get_target_distribution, SF["J"], SF["K"], dev)
+    ladder = torch.tensor(construct_geometric_ladder(), dtype=torch.float32,
+                          device=dev)
+    sf_kw = dict(base_variance=SF_VAR, num_chains=SF_MAIN["C"],
+                 num_iterations=SHARD_SF_STEPS)
+    lib = _build.route(_build.library("fused_pt", "Normal",
+                                      fused_sharded._layout(
+                                          "fused_pt", sf, None, SF_MAIN["C"],
+                                          len(ladder), dev)[0]),
+                       sf)[0]
+    chains_case(
+        f"SuperFunnel PT ({lib}, T={len(ladder)}, {SF_MAIN['C']} replicas, "
+        f"{SHARD_SF_STEPS} steps)", PT_STATE,
+        SHARD_SF_STEPS * len(ladder) * SF_MAIN["C"],
+        lambda: run_pt_fused(sf, 0, ladder, swap_every=SF_MAIN["swap_every"],
+                             device=dev, **sf_kw),
+        lambda m: run_pt_fused_sharded(sf, 0, ladder, m,
+                                       swap_every=SF_MAIN["swap_every"],
+                                       **sf_kw))
+    chains_case(
+        f"SuperFunnel RWM ({SF_MAIN['C']} chains, {SHARD_SF_STEPS} steps)",
+        RWM_STATE, SHARD_SF_STEPS * SF_MAIN["C"],
+        lambda: run_rwm_fused(sf, 0, device=dev, **sf_kw),
+        lambda m: run_rwm_fused_sharded(sf, 0, m, **sf_kw))
+    torch.cuda.empty_cache()
+
+    # ---- 19b the temps-sharded hybrid across partitions
+    def hybrid_case(label, tg, kw, meshes, steps):
+        """The hybrid of ``tg`` with ``kw`` on each of ``meshes``: x, lp, MH
+        and swap counts equal bit for bit across them, and held by the
+        agreement gate and the swap-acceptance gate against the unsharded
+        even/odd run.  The run on SHARD_HOLD's temps mesh is the main path
+        of ``run_pt_fused_tempsharded``.  Returns the ms by mesh label."""
+        ms_eo, eo = cuda_ms(torch, lambda: run_pt_fused(
+            tg, 0, betas, swap_sweep="even_odd", device=dev, **kw), 2)
+        n_events = kw["num_iterations"] // kw["swap_every"]
+        line = [f"run_pt_fused(even_odd) {ms_eo:.3f} ms "
+                f"({rate(steps, ms_eo)} MH steps/s)"]
+        first, times = None, {}
+        for sizes, names in meshes:
+            m = mesh(sizes, names)
+            main = ("run_pt_fused_tempsharded" if tg is rb and (sizes, names)
+                    == ((SHARD_HOLD["temps"],), ("temps",)) else None)
+            ms, res, seen = counted(lambda: run_pt_fused_tempsharded(
+                tg, 0, betas, m, **kw), main)
+            ms = min(ms, cuda_ms(torch, lambda: run_pt_fused_tempsharded(
+                tg, 0, betas, m, **kw))[0])
+            shards = math.prod(sizes)
+            if sum(seen.values()) != shards * n_events:
+                fail(f"phase 19b {label} on {m}: launches {dict(seen)}, want "
+                     f"{shards * n_events}")
+            if first is None:
+                first = res
+            else:
+                bad = differ(torch, res, first, PT_STATE[:4])
+                if bad:
+                    fail(f"phase 19b {label} on {m} differs from the "
+                         f"{meshes[0]} partition in {bad}")
+            mlabel = " x ".join(f"{n} {a}" for a, n in zip(names, sizes))
+            times[mlabel] = ms
+            line.append(f"{mlabel}: {ms:.3f} ms ({rate(steps, ms)} MH "
+                        f"steps/s, {sum(seen.values())} launches, {n_events} "
+                        f"swap events of {shards} shards)")
+        ag = agreement.hold(
+            tuple(getattr(first.state, f) for f in PT_STATE[:5]),
+            tuple(getattr(eo.state, f) for f in PT_STATE[:5]),
+            ("x", "lp", "acc", "swapacc", "betajump"))
+        sw_h = first.swap_acceptance_rate.mean().item()
+        sw_e = eo.swap_acceptance_rate.mean().item()
+        cj_h, cj_e = first.state.sum_sq_jump_cold, eo.state.sum_sq_jump_cold
+        cold_rel = ((cj_h - cj_e).abs()
+                    / cj_e.abs().clamp_min(1e-6)).max().item()
+        say(f"phase 19b {label}: x, lp, MH and swap counts equal bit for bit "
+            f"across {[s for s, _ in meshes]}; against run_pt_fused("
+            f"even_odd): {agreement.describe(ag)}; swap acc {sw_h:.5f} vs "
+            f"{sw_e:.5f} (|d| {abs(sw_h - sw_e):.5f} < 0.05); cold-jump sum "
+            f"(MH and swap moves summed apart) max rel diff {cold_rel:.4g}, "
+            f"cold ESJD {first.cold_esjd.mean().item():.6g} vs "
+            f"{eo.cold_esjd.mean().item():.6g}; " + "; ".join(line))
+        if ag.frac < AGREE_MIN or ag.mismatched or abs(sw_h - sw_e) >= 0.05:
+            fail(f"the temps-sharded {label} disagrees with "
+                 f"run_pt_fused(even_odd)")
+        del first, eo, res
+        torch.cuda.empty_cache()
+        return times
+
+    n_events = FLAG["iters"] // FLAG["swap_every"]
+    hyb_times = hybrid_case(
+        f"hybrid (flagship shape, swap every {FLAG['swap_every']})", rb,
+        pt_kw, TEMP_MESHES, pt_steps)
+    team = fused_sharded._layout("fused_pt", wide, None, C, T, dev)[1]
+    hybrid_case(
+        f"hybrid d={WARP_D} (the team kernels, G={team} for every segment; "
+        f"{SHARD_WIDE['steps']} steps, swap every {SHARD_WIDE['swap_every']})",
+        wide, dict(base_variance=wide_var, num_chains=C,
+                   num_iterations=SHARD_WIDE["steps"],
+                   swap_every=SHARD_WIDE["swap_every"]),
+        [((n,), ("temps",)) for n in SHARD_WIDE_TEMPS],
+        SHARD_WIDE["steps"] * T * C)
+
+    # ---- 19c the entry points on the card's mesh
+    for algo, kw in (("PT", dict(beta_ladder=betas.tolist(),
+                                 swap_every=FLAG["swap_every"],
+                                 num_chains=C)),
+                     ("RWM", dict(num_chains=RWM_MAIN["C"]))):
+        sims = []
+        for use_mesh in (False, True):
+            sim = MCMCSimulation(
+                dim=d, sigma=FLAG["base_variance"], algorithm=algo,
+                target_dist="FullRosenbrock", num_iterations=FLAG["iters"],
+                record_chain=False, seed=0, use_mesh=use_mesh,
+                device=dev, **kw)
+            run = lambda: sim.generate_samples(verbose=False)  # noqa
+            if use_mesh:
+                ms, _, seen = counted(run)
+            else:
+                ms, _ = cuda_ms(torch, run)
+                seen = None
+            sims.append((sim, ms, seen))
+        (a, ms_a, _), (b, ms_b, seen) = sims
+        bad = differ(torch, a._result, b._result,
+                     PT_STATE if algo == "PT" else RWM_STATE)
+        if bad or b.engine_used != "pallas" or not seen:
+            fail(f"phase 19c MCMCSimulation {algo} with the mesh differs in "
+                 f"{bad}; engine {b.engine_used}, launches {dict(seen)}")
+        say(f"phase 19c MCMCSimulation {algo} use_mesh=True on {b.mesh}: "
+            f"equal bit for bit to the run without; {ms_b:.3f} ms vs "
+            f"{ms_a:.3f}; launches {dict(seen)}")
+    out_dir = os.path.join(HERE, "smoke_out", "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = {}
+    for flag in ((), ("--use_mesh",)):
+        argv = ["--dim", str(STUDY["dim"]), "--target", STUDY["target"],
+                "--proposal", "UniformRadius", "--num_iters",
+                str(STUDY["iters"]), "--burn_in", str(STUDY["burn_in"]),
+                "--num_chains", str(STUDY["C"]), "--var_max",
+                str(STUDY["var_max"]), "--seed", str(STUDY["seed"]),
+                "--num_configs", str(SHARD_STUDY_CONFIGS), "--no_plots",
+                "--output_dir", os.path.join(out_dir, "mesh" if flag
+                                             else "plain")] + list(flag)
+        if dev.type == "cpu":
+            argv.append("--cpu")
+        log = os.path.join(out_dir, ("mesh" if flag else "plain") + ".log")
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            if flag:
+                t0 = time.time()
+                _, runs["mesh"], seen = counted(
+                    lambda: experiment_rwm.main(argv))
+                study_s = time.time() - t0
+            else:
+                runs["plain"] = experiment_rwm.main(argv)
+    timing = ("total_time", "times", "mh_steps_per_sec")
+    keep = [{k: v for k, v in r.items() if k not in timing}
+            for r in (runs["plain"], runs["mesh"])]
+    if keep[0] != keep[1] or sum(seen.values()) != SHARD_STUDY_CONFIGS:
+        fail(f"phase 19c experiment_rwm --use_mesh differs from the run "
+             f"without it (launches {dict(seen)})")
+    say(f"phase 19c experiment_rwm --use_mesh ({STUDY['target']} d="
+        f"{STUDY['dim']}, {STUDY['C']} chains, {STUDY['iters']} iterations, "
+        f"{SHARD_STUDY_CONFIGS} configs): the JSON equals the run without "
+        f"the mesh but for its times; {study_s:.2f} s, "
+        f"{runs['mesh']['mh_steps_per_sec']:.6g} MH steps/s "
+        f"(without: {runs['plain']['mh_steps_per_sec']:.6g}); launches "
+        f"{dict(seen)}")
+
+    # ---- 19d each sharded entry point against its plain version
+    k, n_t, se = SHARD_HOLD["shards"], SHARD_HOLD["temps"], \
+        SHARD_HOLD["swap_every"]
+    hold_kw = dict(base_variance=FLAG["base_variance"], num_chains=C,
+                   num_iterations=HOLD_STEPS, swap_every=se)
+    pt_draw = fused_sharded._layout("fused_pt", rb, None, C, T, dev)[0]
+    rwm_draw = fused_sharded._layout("fused_rwm", rb, None, C, 0, dev)[0]
+    cases = (
+        ("run_pt_fused_sharded", ":107", (k,), ("chains",),
+         lambda m, plain: run_pt_fused_sharded(rb, 0, betas, m, _plain=plain,
+                                               **hold_kw),
+         agreement.PT_OUTPUTS, PT_STATE,
+         pt_work("rosenbrock", d, T, C, HOLD_STEPS, 0, se, draw=pt_draw),
+         0, pt_work("rosenbrock", d, T, C, FLAG["iters"], 0,
+                    FLAG["swap_every"], draw=pt_draw), 0,
+         flag_times[max(SHARD_COUNTS)]),
+        ("run_rwm_fused_sharded", ":71", (k,), ("chains",),
+         lambda m, plain: run_rwm_fused_sharded(
+             rb, 0, m, base_variance=RWM_MAIN["base_variance"],
+             num_chains=RWM_MAIN["C"], num_iterations=HOLD_STEPS,
+             _plain=plain),
+         agreement.RWM_OUTPUTS, RWM_STATE,
+         rwm_work("rosenbrock", d, RWM_MAIN["C"], HOLD_STEPS, draw=rwm_draw),
+         0, rwm_work("rosenbrock", d, RWM_MAIN["C"], RWM_MAIN["iters"],
+                     draw=rwm_draw), 0, rwm_times[max(SHARD_COUNTS)]),
+        ("run_pt_fused_tempsharded", ":226", (n_t,), ("temps",),
+         lambda m, plain: run_pt_fused_tempsharded(rb, 0, betas, m,
+                                                   _plain=plain, **hold_kw),
+         agreement.PT_OUTPUTS, PT_STATE,
+         pt_work("rosenbrock", d, T, C, HOLD_STEPS, 0, se, draw=pt_draw),
+         event_bytes(d, T, C, HOLD_STEPS // se, n_t),
+         pt_work("rosenbrock", d, T, C, FLAG["iters"], 0,
+                 FLAG["swap_every"], draw=pt_draw),
+         event_bytes(d, T, C, n_events, n_t), hyb_times[f"{n_t} temps"]))
+    records = []
+    for (name, line_no, sizes, names, run, outs, fields, work, ev, full_work,
+         full_ev, main_ms) in cases:
+        if main_launches.get(name, 0) < 1:
+            fail(f"phase 19 {name}: its main path launched no kernel")
+        m = mesh(sizes, names)
+        ms, kern = cuda_ms(torch, lambda: run(m, False), 3)
+        plain_ms, plain = cuda_ms(torch, lambda: run(m, True))
+        ag = agreement.hold(tuple(getattr(kern.state, f) for f in fields),
+                            tuple(getattr(plain.state, f) for f in fields),
+                            outs, lp_of=rb.log_density_td)
+        if ag.frac < AGREE_MIN or ag.mismatched:
+            fail(f"phase 19d {name} disagrees with its plain version: "
+                 f"{agreement.describe(ag)}")
+        b_ms, b_by, b_limit = bound(*work)
+        b_ms += ev / PEAK_HBM_BYTES * 1e3
+        full_b = bound(*full_work)[0] + full_ev / PEAK_HBM_BYTES * 1e3
+        say(f"phase 19d {name} on {m}: {HOLD_STEPS} steps at main-path "
+            f"shapes: kernels {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.3f} ms (the kernel's by {b_limit}, plus "
+            f"{ev:.4g} B of swap events); main path {main_ms:.3f} ms against "
+            f"{full_b:.3f} ({100 * full_b / main_ms:.1f} %); "
+            f"{agreement.describe(ag)}")
+        records.append(dict(
+            name=f"fused_sharded.{name}", route="cuda",
+            source="rwm_pt_tpu_torch/kernels/fused_sharded.py",
+            replaces=f"rwm_pt_tpu/kernels/pallas_sharded.py{line_no}",
+            launches=main_launches[name], max_abs_err=ag.max_dx, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, steps=HOLD_STEPS,
+            agree_frac=ag.frac, max_rel_err=ag.max_rel,
+            swap_event_bytes=ev, main_path_ms=main_ms,
+            main_path_bound_ms=full_b, main_path_bound_share=full_b / main_ms))
+        del kern, plain
+        torch.cuda.empty_cache()
+    say(f"phase 19 launches of all its counted runs, by library (not in the "
+        f"kernels line, whose records count their own main paths): "
+        f"{dict(path)}")
+    say(f"phase 19 {time.time() - t_phase:.1f} s; card {card}")
+    return records
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -4203,6 +4620,7 @@ def main():
     kernels.extend(phase_16(torch, gen))
     kernels.extend(phase_17(torch, gen))
     kernels.extend(phase_18(torch, gen))
+    kernels.extend(phase_19(torch, card))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

@@ -38,8 +38,15 @@ whole run.  ``cpu_semantics=True`` and ``symmetric=False`` run on the
 eager engines (the fused kernels refuse them, as JAX's Pallas kernels
 do), as does float64 (``utils.dtypes.set_x64``); ``progress_bar=True``
 prints JAX's progress lines: from inside the eager engines' loops, or
-after each of ten segments of a fused run.  Not ported yet, and raised
-with ``NotImplementedError`` naming the ROADMAP item: ``use_mesh`` (A13).
+after each of ten segments of a fused run.  ``use_mesh=True`` builds a
+mesh over the harness's device (``parallel.make_mesh``: every visible
+card, or the CPU under ``device="cpu"``) and, with JAX's rule, runs the
+fused samplers sharded over it (``kernels/fused_sharded.py``: a chains
+mesh, or the temperature-sharded hybrid where a ``temps`` axis divides
+the ladder), with results equal to the unsharded runs' on a chains mesh;
+the eager engines, a recorded run and a segmented run (checkpoints,
+resume) take the whole batch on the mesh's first device, as JAX's scan
+engine gives the unsharded result.
 """
 from __future__ import annotations
 
@@ -55,12 +62,14 @@ from ..convert import (PT_FIELDS, RWM_FIELDS, pt_state_from_numpy,
                        pt_state_to_numpy, rwm_state_from_numpy,
                        rwm_state_to_numpy)
 from ..kernels import (_build, run_pt, run_pt_adaptive, run_pt_fused,
+                       run_pt_fused_sharded, run_pt_fused_tempsharded,
                        run_pt_ladder_adaptive, run_rwm, run_rwm_adaptive,
-                       run_rwm_fused)
+                       run_rwm_fused, run_rwm_fused_sharded)
 from ..kernels.rwm import step_generator
 from ..ladders import (construct_geometric_ladder,
                        construct_iterative_ladder_device)
 from ..ladders.ladders import EAGER_MAX_RUNGS, check_room
+from ..parallel import make_mesh
 from ..proposals import create_proposal_distribution
 from ..targets import get_target_distribution
 from ..targets.base import TargetMixin
@@ -68,11 +77,6 @@ from ..utils.dtypes import default_float, resolve_device
 
 _RECORD_LIMIT = 2_000_000  # max recorded floats per run before auto-thinning
 _RNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch "
-                               f"package yet (ROADMAP Queue {item})")
 
 
 class MCMCSimulation:
@@ -324,9 +328,10 @@ class MCMCSimulation:
                 record_every = max(1, rec_floats // _RECORD_LIMIT)
         self.record_every = record_every
 
-        if use_mesh:
-            raise _not_ported("use_mesh (multi-GPU runs)", "A item 13")
         self.mesh = None
+        if use_mesh:
+            self.mesh = (make_mesh(devices=[self.device])
+                         if self.device.type == "cpu" else make_mesh())
         if engine not in ("auto", "pallas", "scan"):
             raise ValueError("engine must be 'auto', 'pallas', or 'scan'")
         self.engine = engine
@@ -354,6 +359,21 @@ class MCMCSimulation:
             _build.kernel_target(self.target_dist)
         except NotImplementedError as e:
             return str(e)
+        if self.mesh is not None:
+            # JAX's mesh rule: a chains mesh whose size divides the chains,
+            # or (PT) a temps axis whose size divides the ladder
+            shape = self.mesh.shape
+            n_c, n_t = shape.get("chains", 1), shape.get("temps", 1)
+            if not (all(n == 1 for a, n in shape.items()
+                        if a not in ("chains", "temps"))
+                    and self.num_chains % n_c == 0
+                    and (n_t == 1 or (self.is_pt and
+                                      len(self.beta_ladder) % n_t == 0))):
+                return ("a chains-only mesh (or none) with num_chains "
+                        "divisible by its size, or a temps axis that "
+                        "divides the ladder")
+            if self.record_chain:
+                return "no mesh when recording (a sharded run records none)"
         return None
 
     def _use_pallas(self) -> bool:
@@ -380,6 +400,8 @@ class MCMCSimulation:
                   resume_state=resume_state, record_every=record_every,
                   record_chains=self.record_chains, device=self.device)
         eager = dict(symmetric=self.symmetric, progress_every=progress_every)
+        if fused and self.mesh is not None and resume_state is None:
+            return self._run_sharded(seed, n, init_states)
         if self.is_pt:
             betas = torch.tensor(self.beta_ladder, dtype=default_float(),
                                  device=self.device)
@@ -398,6 +420,23 @@ class MCMCSimulation:
                                  proposal=self.proposal_dist, **kw)
         return run_rwm(self.target_dist, self.proposal_dist, seed, **eager,
                        **kw)
+
+    def _run_sharded(self, seed: int, n: int, init_states):
+        """A fused run sharded over the mesh: a temps-sharded mesh takes the
+        hybrid, a chains mesh the chains-sharded runs."""
+        kw = dict(proposal=self.proposal_dist, num_chains=self.num_chains,
+                  num_iterations=n, burn_in=self.burn_in,
+                  init_states=init_states)
+        if not self.is_pt:
+            return run_rwm_fused_sharded(self.target_dist, seed, self.mesh,
+                                         **kw)
+        run = (run_pt_fused_tempsharded
+               if self.mesh.shape.get("temps", 1) > 1
+               else run_pt_fused_sharded)
+        betas = torch.tensor(self.beta_ladder, dtype=default_float(),
+                             device=self.device)
+        return run(self.target_dist, seed, betas, self.mesh,
+                   swap_every=self.swap_every, **kw)
 
     # ------------------------------------------------------------------ run
     def has_run(self) -> bool:
@@ -456,6 +495,11 @@ class MCMCSimulation:
                 raise ValueError("periodic checkpointing requires "
                                  "record_chain=False (thinned traces cannot "
                                  "be stitched across segments)")
+            if self.engine == "pallas" and self.mesh is not None:
+                raise ValueError("periodic checkpointing on the fused "
+                                 "engine requires no mesh (the sharded runs "
+                                 "are not resumable); drop the mesh or use "
+                                 "engine='scan'")
             return self._generate_samples_segmented(
                 checkpoint_every, checkpoint_path, verbose,
                 progress=progress_bar)
@@ -467,15 +511,16 @@ class MCMCSimulation:
             # ~20 lines a run, never more than one a 1000 steps (JAX's rule)
             progress_every = max(1000,
                                  (self.burn_in + self.num_iterations) // 20)
-            if fused and not self.record_chain:
+            if fused and self.mesh is None and not self.record_chain:
                 # a fused launch reports nothing until it ends: run it in
                 # ten segments with a line after each, as JAX's Pallas path
                 return self._generate_samples_segmented(
                     max(1, (self.burn_in + self.num_iterations) // 10),
                     None, verbose, progress=True)
             if fused and verbose:
-                print("  (in-run progress is unavailable for recorded fused "
-                      "runs; use engine='scan' for live progress)")
+                print("  (in-run progress is unavailable for recorded or "
+                      "sharded fused runs; use engine='scan' for live "
+                      "progress)")
         self._sync()
         start = time.time()
         rec = self.record_every if self.record_chain else None
@@ -609,8 +654,9 @@ class MCMCSimulation:
         """Segmented run: a checkpoint after every segment when
         ``checkpoint_path`` is set, a progress line (JAX's) after every
         segment when ``progress``; the sums and counters carry over
-        exactly."""
-        fused = self._use_pallas()
+        exactly.  With a mesh it runs on the eager engine (the sharded runs
+        are not resumable), as JAX's does."""
+        fused = self._use_pallas() and self.mesh is None
         self._engine_used = "pallas" if fused else "scan"
         self._sync()
         start = time.time()
@@ -813,10 +859,11 @@ class MCMCSimulation:
         """Continue a checkpointed run for ``num_iterations`` more steps.
         A checkpoint written by the eager engine (``engine == 'scan'`` in
         its meta) resumes on the eager engine; any other on the fused
-        samplers when they take the run."""
+        samplers when they take the run and there is no mesh."""
         state, meta = self.restore_state(path)
         n = num_iterations or self.num_iterations
-        fused = self._use_pallas() and meta.get("engine") != "scan"
+        fused = (self._use_pallas() and self.mesh is None
+                 and meta.get("engine") != "scan")
         self._sync()
         start = time.time()
         self._result = self._run(fused, n, resume_state=state)

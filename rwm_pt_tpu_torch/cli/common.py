@@ -6,10 +6,11 @@ mapping of the reference sweep, and JSON output.  ``--cpu`` runs on the
 CPU (``device="cpu"``, the fused samplers' plain PyTorch versions);
 otherwise the card.  ``--x64`` (``--use_double_precision``) turns the
 port's float64 switch on (``utils.dtypes.set_x64``): the runs then take
-the eager engines, the fused kernels being float32.  ``--use_mesh`` and
-``--multihost`` are accepted by the parser and raise in
-:func:`resolve_device_from_args`: the port runs one process on one card
-(ROADMAP Queue A item 13).
+the eager engines, the fused kernels being float32.  ``--use_mesh`` shards
+the chains over a mesh of every visible card (:func:`make_cli_mesh`; the
+CPU under ``--cpu``), with results equal to the unsharded runs';
+``--multihost`` calls ``parallel.initialize_distributed``, which continues
+on a lone host and raises for a mesh across processes.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ import argparse
 import json
 import os
 
+from ..parallel import initialize_distributed, make_mesh
 from ..targets.registry import (calculate_hybrid_rosenbrock_dim,
                                 calculate_super_funnel_dim)
-from ..utils.dtypes import set_x64
+from ..utils.dtypes import resolve_device, set_x64
 
 
 def add_target_args(parser: argparse.ArgumentParser):
@@ -56,14 +58,15 @@ def add_run_args(parser: argparse.ArgumentParser, default_iters: int):
                         help="Run on the CPU (plain PyTorch versions of the "
                              "kernels) instead of the card")
     parser.add_argument("--use_mesh", action="store_true",
-                        help="Shard chains over several cards (not ported "
-                             "yet: raises)")
+                        help="Shard the chains over every visible card "
+                             "(the results equal the unsharded run's)")
     parser.add_argument("--rng", type=str, default="threefry2x32",
                         choices=["threefry2x32", "rbg"],
                         help="Accepted for the JAX CLI's sake; the port "
                              "draws Philox4x32-10 either way")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host runs (not ported yet: raises)")
+                        help="Multi-host bring-up: continues on a lone "
+                             "host; a mesh across processes raises")
     parser.add_argument("--x64", "--use_double_precision", action="store_true",
                         dest="use_double_precision",
                         help="float64, on the eager engines (the fused "
@@ -72,14 +75,22 @@ def add_run_args(parser: argparse.ArgumentParser, default_iters: int):
 
 def resolve_device_from_args(args) -> str:
     """``"cpu"`` with ``--cpu``, else ``"cuda"``; sets the float64 switch
-    from ``--x64``; raises for the flags the port does not run."""
-    for flag in ("use_mesh", "multihost"):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP Queue A item 13)")
+    from ``--x64``; ``--multihost`` runs the distributed bring-up, as the
+    JAX CLIs do."""
+    if getattr(args, "multihost", False):
+        initialize_distributed()
     set_x64(getattr(args, "use_double_precision", False))
     return "cpu" if getattr(args, "cpu", False) else "cuda"
+
+
+def make_cli_mesh(device, num_chains: int):
+    """The studies' ``--use_mesh`` mesh: a ``chains`` mesh over every
+    visible card (the CPU for a CPU run), announced as JAX's CLIs do."""
+    dev = resolve_device(device)
+    mesh = make_mesh(devices=[dev]) if dev.type == "cpu" else make_mesh()
+    print(f"Mesh: {mesh} — {num_chains} chains sharded over "
+          f"{mesh.size} devices")
+    return mesh
 
 
 def target_kwargs_from_args(args) -> dict:

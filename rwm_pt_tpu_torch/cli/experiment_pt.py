@@ -25,7 +25,9 @@ rungs (under ``--x64``, :data:`~rwm_pt_tpu_torch.ladders.ladders.
 EAGER_MAX_RUNGS`), so it lands the host loop's uncapped ladder; a ladder
 that needs more rungs raises, as does a longer geometric one: nothing
 falls back to the eager engine.  Under ``--x64`` the runs take the eager engine in
-float64 (the same even/odd swap order).  ``--rng`` is accepted and changes nothing (the
+float64 (the same even/odd swap order).  ``--use_mesh`` shards the
+replicas over a mesh of every visible card (``run_pt_fused_sharded``),
+with the JSON of the unsharded run.  ``--rng`` is accepted and changes nothing (the
 sampler draws Philox4x32-10).  The plot needs matplotlib, imported there
 only; ``--no_plots`` skips it.
 """
@@ -37,15 +39,15 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import _build, run_pt, run_pt_fused
+from ..kernels import _build, run_pt, run_pt_fused, run_pt_fused_sharded
 from ..ladders import (construct_geometric_ladder,
                        construct_iterative_ladder_device)
 from ..ladders.ladders import EAGER_MAX_RUNGS, check_room
 from ..proposals import NormalProposal
 from ..targets import get_target_distribution
 from ..utils.dtypes import default_float, resolve_device
-from .common import (add_run_args, add_target_args, resolve_actual_dim,
-                     resolve_device_from_args, save_json,
+from .common import (add_run_args, add_target_args, make_cli_mesh,
+                     resolve_actual_dim, resolve_device_from_args, save_json,
                      target_kwargs_from_args)
 from .experiment_rwm import _sync, config_seed
 
@@ -57,10 +59,6 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
               num_chains=64, num_configs=30, swap_every=100,
               geom_ladder=False, output_dir="data", images_dir="images",
               make_plots=True, use_mesh=False, device="cuda", **kwargs):
-    if use_mesh:
-        raise NotImplementedError("use_mesh (multi-GPU runs) is not ported "
-                                  "to the PyTorch package yet (ROADMAP "
-                                  "Queue A item 13)")
     dev = resolve_device(device)
     print("=" * 60)
     print(f"Target: {target_name}, Dimension: {dim}, Samples: {num_iters}, "
@@ -74,6 +72,7 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
     actual_dim = target.dim
     swap_rates_range = np.linspace(0.01, swap_accept_max, num_configs)
     proposal_variance = (2.38 ** 2) / actual_dim
+    mesh = make_cli_mesh(dev, num_chains) if use_mesh else None
 
     acceptance_rates, esjds, times, ladder_sizes = [], [], [], []
     _sync(dev)
@@ -108,9 +107,15 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
                     f"config {i}: the ladder has {len(ladder)} rungs; the "
                     f"fused PT kernel runs at most "
                     f"{_build.max_rungs(target.dim)}")
-            res = run_pt_fused(target, config_seed(seed, i),
-                               torch.tensor(ladder, dtype=torch.float32),
-                               base_variance=proposal_variance, **run_kw)
+            betas = torch.tensor(ladder, dtype=torch.float32)
+            if mesh is None:
+                res = run_pt_fused(target, config_seed(seed, i), betas,
+                                   base_variance=proposal_variance, **run_kw)
+            else:
+                run_kw.pop("device")
+                res = run_pt_fused_sharded(
+                    target, config_seed(seed, i), betas, mesh,
+                    base_variance=proposal_variance, **run_kw)
         _sync(dev)
         dt = time.time() - t0
         times.append(dt)
@@ -214,8 +219,8 @@ def main(argv=None):
                      swap_every=args.swap_every,
                      geom_ladder=args.geom_ladder,
                      output_dir=args.output_dir, images_dir=args.images_dir,
-                     make_plots=not args.no_plots, device=device,
-                     **target_kwargs_from_args(args))
+                     make_plots=not args.no_plots, use_mesh=args.use_mesh,
+                     device=device, **target_kwargs_from_args(args))
     print("Finished running parallel tempering experiment.")
     return data
 

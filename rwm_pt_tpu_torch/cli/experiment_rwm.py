@@ -13,7 +13,10 @@ the ESJD-optimal point and writes the JAX study's JSON schema, with
 ``{target}_{proposal}_RWM_GPU_dim{d}_{iters}iters_seed{seed}.json``.
 
 Config ``i`` draws from the Philox seed :func:`config_seed` ``(seed, i)``.
-Under ``--x64`` the configs run on the eager engine in float64.
+``--use_mesh`` shards the chains over a mesh of every visible card
+(``run_rwm_fused_sharded``, one launch a card and config), with the JSON
+of the unsharded run.  Under ``--x64`` the configs run on the eager engine
+in float64 (the whole batch on one device, mesh or not).
 The plots of the optimum (``_make_optimal_plots``) need matplotlib, which
 is imported there only; ``--no_plots`` skips them.
 """
@@ -26,12 +29,13 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import run_rwm, run_rwm_fused
+from ..kernels import run_rwm, run_rwm_fused, run_rwm_fused_sharded
 from ..proposals import create_proposal_distribution
 from ..targets import get_target_distribution
 from ..utils.dtypes import default_float, resolve_device
 from .common import (add_run_args, add_target_args, build_proposal_config,
-                     resolve_actual_dim, resolve_device_from_args, save_json,
+                     make_cli_mesh, resolve_actual_dim,
+                     resolve_device_from_args, save_json,
                      target_kwargs_from_args)
 
 
@@ -42,11 +46,14 @@ def config_seed(seed: int, i: int) -> int:
     return (int(seed) % (1 << 32)) * (1 << 16) + int(i)
 
 
-def _run_rwm(target, seed, prop, **kw):
-    """The fused RWM sampler, or under the float64 switch (``--x64``) the
-    eager engine."""
+def _run_rwm(target, seed, prop, mesh=None, **kw):
+    """The fused RWM sampler (sharded over ``mesh`` when given), or under
+    the float64 switch (``--x64``) the eager engine."""
     if default_float() == torch.float64:
         return run_rwm(target, prop, seed, **kw)
+    if mesh is not None:
+        kw.pop("device")
+        return run_rwm_fused_sharded(target, seed, mesh, proposal=prop, **kw)
     return run_rwm_fused(target, seed, proposal=prop, **kw)
 
 
@@ -59,7 +66,7 @@ def run_study(dim, target_name="MultivariateNormal", num_iters=100000,
               var_max=3.5, seed=42, burn_in=1000, proposal_name="Normal",
               proposal_params=None, num_chains=64, num_configs=40,
               output_dir="data", images_dir="images", make_plots=True,
-              device="cuda", **kwargs):
+              use_mesh=False, device="cuda", **kwargs):
     dev = resolve_device(device)
     print("=" * 60)
     print(f"Target: {target_name}, Dimension: {dim}, "
@@ -72,6 +79,8 @@ def run_study(dim, target_name="MultivariateNormal", num_iters=100000,
     actual_dim = target.dim
     scale_param_range = np.linspace(0.01, var_max, num_configs)
     anisotropic = (proposal_params or {}).get("anisotropic")
+    # seed-parallelism in-mesh: the chains sharded over every card
+    mesh = make_cli_mesh(dev, num_chains) if use_mesh else None
 
     acceptance_rates, esjds, times = [], [], []
     _sync(dev)
@@ -81,7 +90,7 @@ def run_study(dim, target_name="MultivariateNormal", num_iters=100000,
                                     anisotropic)
         prop = create_proposal_distribution(actual_dim, cfg, device=dev)
         t0 = time.time()
-        res = _run_rwm(target, config_seed(seed, i), prop,
+        res = _run_rwm(target, config_seed(seed, i), prop, mesh,
                        num_chains=num_chains, num_iterations=num_iters,
                        burn_in=burn_in, device=dev)
         _sync(dev)
@@ -249,8 +258,8 @@ def main(argv=None):
                      args.burn_in, args.proposal, proposal_params,
                      num_chains=args.num_chains, num_configs=args.num_configs,
                      output_dir=args.output_dir, images_dir=args.images_dir,
-                     make_plots=not args.no_plots, device=device,
-                     **target_kwargs_from_args(args))
+                     make_plots=not args.no_plots, use_mesh=args.use_mesh,
+                     device=device, **target_kwargs_from_args(args))
     print(f"Finished running experiment with {args.proposal} proposal.")
     return data
 

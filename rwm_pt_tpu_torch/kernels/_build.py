@@ -144,24 +144,25 @@ _ENTRIES = {
     # kind, params, n_params, betas, scales, x0, acc0, swapacc0, bj0, cj0,
     # x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out,
     # d, T, C, total, burn_in, swap_every, step0, key0, key1,
-    # lap, inv_d, rec, record_every, record_chains, order, R, runtime_r,
+    # replica0, rung0 (csrc/philox.cuh), lap, inv_d, rec, record_every,
+    # record_chains, order, R, runtime_r,
     # stream |
     # runtime_r, d, T, R, n_params, out (5 ints)
     "fused_pt": {"rwm_pt_fused_pt":
                  [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _U, _U,
+                  _I, _I, _I, _I, _I, _I, _I, _U, _U, _I, _I,
                   _P, _F, _P, _I, _I, _I, _I, _I, _P],
                  "rwm_pt_fused_pt_info": [_I, _I, _I, _I, _I, _P]},
     # kind, params, n_params, scale, beta, x0, acc0, jump0,
     # x_out, lp_out, acc_out, jump_out,
-    # d, C, total, burn_in, step0, key0, key1,
+    # d, C, total, burn_in, step0, key0, key1, replica0,
     # lap, inv_d, rec, record_every, record_chains, threads, stream |
     # d, threads, n_params, out (5 ints)
     "fused_rwm": {"rwm_pt_fused_rwm":
                   [_I, _P, _I, _F, _F, _P, _P, _P,
                    _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _U, _U,
+                   _I, _I, _I, _I, _I, _U, _U, _I,
                    _P, _F, _P, _I, _I, _I, _P],
                   "rwm_pt_fused_rwm_info": [_I, _I, _I, _P]},
     # impl (a DRAWS code), key0, key1, cols, out, stream |
@@ -1063,6 +1064,22 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     return pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
                              proposal, draw, n_params, kind,
                              fixed)._replace(runtime_r=True)
+
+
+class Shard(NamedTuple):
+    """What one shard of a sharded fused run (``fused_sharded.py``) gives
+    ``run_pt_fused`` / ``run_rwm_fused``: its first replica and rung (PT
+    only: an RWM run draws at rung 0), added to the Philox counter's
+    (``csrc/philox.cuh``), and the team size and
+    normal draw that the whole run resolved (None: the launch resolves
+    them), so that every shard runs the unsharded launch's layout;
+    ``plain`` runs the shard's plain version on its device (for holding a
+    sharded run against its plain version on the card)."""
+    replica0: int = 0
+    rung0: int = 0
+    team: int | None = None
+    draw: str | None = None
+    plain: bool = False
 
 
 # ---------------------------------------------------------------- targets

@@ -183,9 +183,10 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     float* __restrict__ lp_out, int* __restrict__ acc_out,
     int* __restrict__ swapacc_out, float* __restrict__ bj_out,
     float* __restrict__ cj_out, int d, int T, int C, int total, int burn_in,
-    int swap_every, int step0, uint32_t key0, uint32_t key1,
-    const float* __restrict__ lap, float inv_d, float* __restrict__ rec,
-    int record_every, int record_chains, int order RWM_PT_FIXED_PARAM) {
+    int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
+    int rung0, const float* __restrict__ lap, float inv_d,
+    float* __restrict__ rec, int record_every, int record_chains,
+    int order RWM_PT_FIXED_PARAM) {
   extern __shared__ float4 smem4[];
   if (kFixedDim) d = kFixedDim;   // a constant in a fixed-shape build
   // replicas per block: a compile-time 32 on the usual path (a runtime R
@@ -256,8 +257,8 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
         y, xs, s_sn + tid * kSines, stage, lp, d, lp_params,
-        s_sigma[rung], s_lap + rung * d, inv_d, s_beta[rung], c, rung,
-        abs_step, key0, key1, blk, cur_k);
+        s_sigma[rung], s_lap + rung * d, inv_d, s_beta[rung], c + replica0,
+        rung + rung0, abs_step, key0, key1, blk, cur_k);
     if (post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung, owner = -1;
@@ -265,7 +266,8 @@ __global__ void RWM_PT_BOUNDS(RFIX) fused_pt_kernel(
       s_lp[tid] = lp;
       if (rung < T - 1)
         s_u[rung * R + cx] = uniform_from_bits(slot_word(
-            d + 1, blk, cur_k, c, rung, abs_step, key0, key1));
+            d + 1, blk, cur_k, c + replica0, rung + rung0, abs_step, key0,
+            key1));
       __syncthreads();
       if (slot == 0) {
         const int first = s_slot[cx];   // rung 0's slot before the sweep
@@ -404,8 +406,8 @@ extern "C" int rwm_pt_fused_pt(
     const int* swapacc0, const float* bj0, const float* cj0, float* x_out,
     float* lp_out, int* acc_out, int* swapacc_out, float* bj_out,
     float* cj_out, int d, int T, int C, int total, int burn_in,
-    int swap_every, int step0, uint32_t key0, uint32_t key1,
-    const float* lap, float inv_d, float* rec, int record_every,
+    int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
+    int rung0, const float* lap, float inv_d, float* rec, int record_every,
     int record_chains, int order, int R, int runtime_r, void* stream) {
   if (d < 1 || d > kDmax || T < 1 || T > 32 || C < 1 || total < 0 ||
       swap_every < 1 || kind != kKind || (order != 0 && order != 1) ||
@@ -443,7 +445,7 @@ extern "C" int rwm_pt_fused_pt(
   kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
-      swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order RWM_PT_FIXED_ARG);
+      swap_every, step0, key0, key1, replica0, rung0, lap, inv_d, rec,
+      record_every, record_chains, order RWM_PT_FIXED_ARG);
   return (int)cudaGetLastError();
 }

@@ -152,7 +152,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
         int* __restrict__ swapacc_out, float* __restrict__ bj_out,
         float* __restrict__ cj_out, int d, int T, int C, int total,
         int burn_in, int swap_every, int step0, uint32_t key0,
-        uint32_t key1, const float* __restrict__ lap, float inv_d,
+        uint32_t key1, int replica0, int rung0,
+        const float* __restrict__ lap, float inv_d,
         float* __restrict__ rec, int record_every, int record_chains,
         int order, int R) {
   constexpr int NQ = DMAX / (4 * G);   // quads a lane holds in a row
@@ -250,7 +251,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     float u_swap, part;
     const bool accept = team_mh_propose<KIND, kProp, kDraw, G, NQ>(
         xs, row, trow, lp, d, p, s_sigma[rung], s_lap + rung * d, inv_d,
-        s_beta[rung], lane, c, rung, abs_step, key0, key1, u_swap, part);
+        s_beta[rung], lane, c + replica0, rung + rung0, abs_step, key0, key1,
+        u_swap, part);
     if (t == 0 && live && post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung, owner = -1;
@@ -443,8 +445,8 @@ extern "C" int rwm_pt_fused_pt(
     const int* swapacc0, const float* bj0, const float* cj0, float* x_out,
     float* lp_out, int* acc_out, int* swapacc_out, float* bj_out,
     float* cj_out, int d, int T, int C, int total, int burn_in,
-    int swap_every, int step0, uint32_t key0, uint32_t key1,
-    const float* lap, float inv_d, float* rec, int record_every,
+    int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
+    int rung0, const float* lap, float inv_d, float* rec, int record_every,
     int record_chains, int order, int R, int team, void* stream) {
   const Kernel k = kernel(team);
   if (k == nullptr || d < 1 || d + 4 > kDmax || T < 1 || T > kMaxRungs ||
@@ -476,7 +478,7 @@ extern "C" int rwm_pt_fused_pt(
   k<<<(C + R - 1) / R, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
-      swap_every, step0, key0, key1, lap, inv_d, rec, record_every,
-      record_chains, order, R);
+      swap_every, step0, key0, key1, replica0, rung0, lap, inv_d, rec,
+      record_every, record_chains, order, R);
   return (int)cudaGetLastError();
 }

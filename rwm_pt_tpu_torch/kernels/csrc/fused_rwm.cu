@@ -118,7 +118,7 @@ __global__ void RWM_PT_BOUNDS
                      float* __restrict__ x_out, float* __restrict__ lp_out,
                      int* __restrict__ acc_out, float* __restrict__ jump_out,
                      int d, int C, int total, int burn_in, int step0,
-                     uint32_t key0, uint32_t key1,
+                     uint32_t key0, uint32_t key1, int replica0,
                      const float* __restrict__ lap, float inv_d,
                      float* __restrict__ rec, int record_every,
                      int record_chains RWM_PT_FIXED_PARAM) {
@@ -161,7 +161,8 @@ __global__ void RWM_PT_BOUNDS
     int cur_k = -1;
     const bool accept = mh_propose<KIND, kProp, kDraw, DMAX>(
         y, xs, s_sn + threadIdx.x * kSines, stage, lp, d, lp_params, scale,
-        s_lap, inv_d, beta, c, 0, abs_step, key0, key1, blk, cur_k);
+        s_lap, inv_d, beta, c + replica0, 0, abs_step, key0, key1, blk,
+        cur_k);
     acc += (post && accept) ? 1 : 0;
     float jump = 0.0f;
     if (accept) {
@@ -237,7 +238,8 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
                                 float* x_out, float* lp_out, int* acc_out,
                                 float* jump_out, int d, int C, int total,
                                 int burn_in, int step0, uint32_t key0,
-                                uint32_t key1, const float* lap, float inv_d,
+                                uint32_t key1, int replica0,
+                                const float* lap, float inv_d,
                                 float* rec, int record_every,
                                 int record_chains, int threads,
                                 void* stream) {
@@ -267,7 +269,7 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
   const Kernel k = kernel();
   k<<<(C + threads - 1) / threads, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, scale, beta, x0, acc0, jump0, x_out, lp_out, acc_out,
-      jump_out, d, C, total, burn_in, step0, key0, key1, lap, inv_d, rec,
-      record_every, record_chains RWM_PT_FIXED_ARG);
+      jump_out, d, C, total, burn_in, step0, key0, key1, replica0, lap,
+      inv_d, rec, record_every, record_chains RWM_PT_FIXED_ARG);
   return (int)cudaGetLastError();
 }

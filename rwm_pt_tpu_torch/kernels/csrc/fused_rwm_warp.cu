@@ -109,7 +109,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           int* __restrict__ acc_out,
                           float* __restrict__ jump_out, int d, int C,
                           int total, int burn_in, int step0, uint32_t key0,
-                          uint32_t key1, const float* __restrict__ lap,
+                          uint32_t key1, int replica0,
+                          const float* __restrict__ lap,
                           float inv_d, float* __restrict__ rec,
                           int record_every, int record_chains) {
   constexpr int NQ = DMAX / (4 * G);   // quads a lane holds in a row
@@ -172,8 +173,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool post = abs_step > burn_in;
     float u_swap, part;
     const bool accept = team_mh_propose<KIND, kProp, kDraw, G, NQ>(
-        xs, row, trow, lp, d, p, scale, s_lap, inv_d, beta, lane, c, 0,
-        abs_step, key0, key1, u_swap, part);
+        xs, row, trow, lp, d, p, scale, s_lap, inv_d, beta, lane,
+        c + replica0, 0, abs_step, key0, key1, u_swap, part);
     acc += (post && accept) ? 1 : 0;
     // the squared jump of an accept: summed by every team of a warp in
     // which one accepted (its shuffles need the whole warp)
@@ -280,7 +281,8 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
                                 float* x_out, float* lp_out, int* acc_out,
                                 float* jump_out, int d, int C, int total,
                                 int burn_in, int step0, uint32_t key0,
-                                uint32_t key1, const float* lap, float inv_d,
+                                uint32_t key1, int replica0,
+                                const float* lap, float inv_d,
                                 float* rec, int record_every,
                                 int record_chains, int chains, int team,
                                 void* stream) {
@@ -306,7 +308,7 @@ extern "C" int rwm_pt_fused_rwm(int kind, const float* params, int n_params,
   if (e != cudaSuccess) return (int)e;
   k<<<(C + chains - 1) / chains, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, scale, beta, x0, acc0, jump0, x_out, lp_out, acc_out,
-      jump_out, d, C, total, burn_in, step0, key0, key1, lap, inv_d, rec,
-      record_every, record_chains);
+      jump_out, d, C, total, burn_in, step0, key0, key1, replica0, lap,
+      inv_d, rec, record_every, record_chains);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,11 @@
 //   key = (seed lo, seed hi), counter = (block k, replica, rung, abs_step),
 //   slot j = 4k + w: 0..d-1 increment words, d MH uniform, d+1 swap
 //   uniform, d+2 UniformRadius radius uniform.
+// The replica and rung are those of the whole run: a launch that runs one
+// shard of it (kernels/fused_sharded.py) adds its first replica and rung,
+// the kernels' replica0 and rung0 (the RWM kernels take replica0 alone:
+// they draw at rung 0), so it draws what the unsharded launch draws for
+// those rows.
 #pragma once
 #include <stdint.h>
 

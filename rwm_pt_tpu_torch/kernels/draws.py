@@ -17,6 +17,9 @@ Slot layout (the one definition; the kernels match it)
   ``abs_step = step0 + s + 1`` is the 1-based absolute step (``step0`` the
   state's step count when the launch starts, ``s`` the step within it), so
   a resumed segment continues the stream an uninterrupted run would draw;
+  ``replica`` and ``rung`` are the whole run's: a launch that runs one shard
+  of it (``fused_sharded.py``) adds the shard's first replica and rung
+  (``replica0``, ``rung0``), so every partition draws the same words;
 * one Philox call gives the four words of block ``k``; word ``w`` of block
   ``k`` is slot ``j = 4k + w`` of that (replica, rung, step);
 * slots ``0 .. d-1``: the increment words, one per coordinate: standard
@@ -202,15 +205,17 @@ def normal_fake_uniform(u: torch.Tensor) -> torch.Tensor:
 
 
 def slot_words(key: tuple[int, int], abs_step: int, n_rungs: int,
-               n_slots: int, n_chains: int, device) -> torch.Tensor:
+               n_slots: int, n_chains: int, device, replica0: int = 0,
+               rung0: int = 0) -> torch.Tensor:
     """Random words of slots ``0 .. n_slots-1`` for every (rung, replica)
-    at one absolute step: int64 ``(n_rungs, n_slots, n_chains)``."""
+    at one absolute step: int64 ``(n_rungs, n_slots, n_chains)``, of
+    replicas ``replica0 ..`` and rungs ``rung0 ..``."""
     n_blk = -(-n_slots // 4)
     kk = torch.arange(n_blk, dtype=torch.int64, device=device)
     k_ctr = kk.reshape(1, n_blk, 1)
-    c_ctr = torch.arange(n_chains, dtype=torch.int64,
+    c_ctr = torch.arange(replica0, replica0 + n_chains, dtype=torch.int64,
                          device=device).reshape(1, 1, n_chains)
-    t_ctr = torch.arange(n_rungs, dtype=torch.int64,
+    t_ctr = torch.arange(rung0, rung0 + n_rungs, dtype=torch.int64,
                          device=device).reshape(n_rungs, 1, 1)
     s_ctr = torch.tensor(abs_step & _MASK32, dtype=torch.int64,
                          device=device)
@@ -343,14 +348,16 @@ def n_records(total: int, record_every) -> int:
 
 def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
                n_chains: int, device, swap: bool = True,
-               kind: str = "Normal", draw: str = "icdf"):
+               kind: str = "Normal", draw: str = "icdf", replica0: int = 0,
+               rung0: int = 0):
     """One step's draws: ``(inc, u_mh, u_swap, u_radius)``.  ``inc`` is
     ``(T, d, C)``: normals of ``draw`` (any of :data:`NORMAL_IMPLS`) for
     ``Normal`` and
     ``UniformRadius``, uniforms for ``Laplace``; MH uniforms ``(T, C)``;
     with ``swap``, swap uniforms ``(T, C)`` (row ``t`` serves pair
     ``(t, t+1)``; the last row is unused), else None; for ``UniformRadius``
-    the radius uniforms ``(T, C)`` (slot ``d+2``), else None."""
+    the radius uniforms ``(T, C)`` (slot ``d+2``), else None.  Of replicas
+    ``replica0 ..`` and rungs ``rung0 ..`` (:func:`slot_words`)."""
     if kind not in PROPOSAL_KINDS:
         raise ValueError(f"unknown proposal kind {kind!r}")
     if draw not in NORMAL_IMPLS:
@@ -359,7 +366,8 @@ def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
     n_slots = (dim + 4 if bm and dim % 2 else
                dim + 3 if kind == "UniformRadius" else
                dim + 2 if swap else dim + 1)
-    words = slot_words(key, abs_step, n_rungs, n_slots, n_chains, device)
+    words = slot_words(key, abs_step, n_rungs, n_slots, n_chains, device,
+                       replica0, rung0)
     if bm:
         s1, s2 = bm_slots(dim)
         inc = normal_bm(uniform_from_bits(words[:, s1]).transpose(0, 1),
@@ -374,6 +382,22 @@ def step_draws(key: tuple[int, int], abs_step: int, n_rungs: int, dim: int,
     u_rad = (uniform_from_bits(words[:, dim + 2])
              if kind == "UniformRadius" else None)
     return inc, u_mh, u_swap, u_rad
+
+
+def swap_uniforms(key: tuple[int, int], abs_step: int, dim: int,
+                  rungs: torch.Tensor, replica0: int, n_chains: int
+                  ) -> torch.Tensor:
+    """The swap uniforms (slot ``d+1``) of pairs ``(g, g+1)``, ``g`` in the
+    int64 tensor ``rungs`` (on the device to draw on), of replicas
+    ``replica0 ..`` at one absolute step: ``(len(rungs), n_chains)``, the
+    words the fused kernel's sweep reads for those pairs."""
+    dev = rungs.device
+    c_ctr = torch.arange(replica0, replica0 + n_chains, dtype=torch.int64,
+                         device=dev)[None]
+    words = philox4x32(torch.tensor((dim + 1) // 4, device=dev), c_ctr,
+                       (rungs & _MASK32)[:, None],
+                       torch.tensor(abs_step & _MASK32, device=dev), *key)
+    return uniform_from_bits(words[(dim + 1) % 4])
 
 
 # ------------------------------------------------- the ladder probes' stream

@@ -51,7 +51,7 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
                         betas, sigmas, key, step0, total, burn_in,
                         swap_every, draws=None, *, kind="Normal",
                         record_every=0, record_chains=0, draw="icdf",
-                        swap_sweep="sequential"):
+                        swap_sweep="sequential", replica0=0, rung0=0):
     """Plain version of the kernel, step by step with its arithmetic: MH on
     every rung; on post-burn-in multiples of ``swap_every`` the swap sweep
     over the pairs in the order :func:`pair_order`; normals of ``draw``;
@@ -67,7 +67,9 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
     Philox stream.  Returns ``(x, lp, acc, swapacc, betajump, coldjump)``,
     and after them, when ``record_every`` is set, the trace
     ``(n_rec, d, record_chains)`` of rung 0 taken after the swap sweep of
-    every ``record_every``-th step."""
+    every ``record_every``-th step.  ``replica0`` and ``rung0`` offset the
+    Philox counter's replica and rung (a shard of a sharded run,
+    ``draws.slot_words``)."""
     d, T, C = x0.shape
     scale = (sigmas.T[:, :, None] if kind == "Laplace"
              else sigmas[:, None] if kind == "UniformRadius"
@@ -88,7 +90,8 @@ def _run_pt_fused_plain(target, x0, acc0, swapacc0, betajump0, coldjump0,
         if draws is None:
             inc, u_mh, u_sw, u_rad = step_draws(key, abs_step, T, d, C,
                                                 x.device, kind=kind,
-                                                draw=draw)
+                                                draw=draw, replica0=replica0,
+                                                rung0=rung0)
         else:
             inc, u_mh, u_sw = draws[0][s], draws[1][s], draws[2][s]
             u_rad = draws[3][s] if len(draws) > 3 else None
@@ -138,7 +141,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
                      *, kind="Normal", record_every=0, record_chains=0,
                      draw="icdf", swap_sweep="sequential", warp=None,
-                     team=None, specialize=True):
+                     team=None, specialize=True, replica0=0, rung0=0):
     """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
     ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
@@ -207,7 +210,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             swapacc0.data_ptr(), betajump0.data_ptr(), coldjump0.data_ptr(),
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), swapacc.data_ptr(),
             bj.data_ptr(), cj.data_ptr(), d, T, C, total, burn_in,
-            swap_every, step0, key[0], key[1],
+            swap_every, step0, key[0], key[1], replica0, rung0,
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
             geo.replicas,
@@ -255,7 +258,7 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
                  resume_state: PTState | None = None, scale_multipliers=None,
                  record_every: int | None = None, record_chains: int = 1,
                  swap_sweep: str = "sequential", device="cuda",
-                 draws=None) -> PTResult:
+                 draws=None, _shard: _build.Shard | None = None) -> PTResult:
     """Fused PT run with the metrics contract of ``run_pt``.
 
     ``proposal`` (a ``NormalProposal``, ``LaplaceProposal`` or
@@ -278,7 +281,9 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
     ``draws.resolve_normal_impl("pt", num_chains, <the target's kind>)``
     (``draws.NORMAL_IMPL`` forces any of the five draws, each launching its
     own library).
-    ``draws`` (CPU only, for tests) replaces the Philox stream."""
+    ``draws`` (CPU only, for tests) replaces the Philox stream.  ``_shard``
+    is the counter layout of one shard of ``fused_sharded.py``'s runs, not
+    a user option."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:
         raise ValueError("pass either base_variance or a proposal")
@@ -323,14 +328,16 @@ def run_pt_fused(target, seed, betas, *, base_variance: float | None = None,
     args = (target, x0, acc0, swapacc0, bj0, cj0, betas, sigmas, key, step0,
             total, burn_in, swap_every)
     pair_order(T, swap_sweep)                # raises for an unknown order
+    shard = _shard or _build.Shard()
     kw = dict(kind=kind, record_every=record_every or 0,
               record_chains=record_chains, swap_sweep=swap_sweep,
-              draw=resolve_normal_impl("pt", x0.shape[2],
-                                       _build.target_kind(target)))
-    if dev.type == "cpu":
+              draw=shard.draw or resolve_normal_impl(
+                  "pt", x0.shape[2], _build.target_kind(target)),
+              replica0=shard.replica0, rung0=shard.rung0)
+    if dev.type == "cpu" or shard.plain:
         out = _run_pt_fused_plain(*args, draws=draws, **kw)
     else:
-        out = launch_pt_kernel(*args, **kw)
+        out = launch_pt_kernel(*args, team=shard.team, **kw)
     x, lp, acc, swapacc, bj, cj = out[:6]
     n = float(max(step0 + total - burn_in, 1))
     n_events = (step0 + total) // swap_every - burn_in // swap_every

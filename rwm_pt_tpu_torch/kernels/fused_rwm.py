@@ -28,7 +28,8 @@ from .rwm import RWMResult, RWMState, step_generator
 
 def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
                          total, burn_in, draws=None, *, kind="Normal",
-                         record_every=0, record_chains=0, draw="icdf"):
+                         record_every=0, record_chains=0, draw="icdf",
+                         replica0=0):
     """Plain version of the kernel: ``total`` MH steps of every chain, step
     by step, with the kernel's arithmetic (normals of ``draw``, int32
     accepts after burn-in, Kahan-summed squared jumps).  ``beta`` is a 0-d f32 tensor, ``scale``
@@ -37,7 +38,9 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
     ``(increment draws (S, d, C), MH uniforms (S, C)[, radius uniforms
     (S, C)])`` in place of the Philox stream.  Returns
     ``(x, lp, acc, jump)``, and the trace ``(n_rec, d, record_chains)``
-    after them when ``record_every`` is set."""
+    after them when ``record_every`` is set.  ``replica0`` offsets the
+    Philox counter's replica (a shard of a sharded run,
+    ``draws.slot_words``); its rung is 0."""
     d, C = x0.shape
     x = x0.clone()
     lp = target.log_density_td(x)
@@ -52,7 +55,8 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
         post = abs_step > burn_in
         if draws is None:
             inc, u, _, u_rad = step_draws(key, abs_step, 1, d, C, x.device,
-                                          swap=False, kind=kind, draw=draw)
+                                          swap=False, kind=kind, draw=draw,
+                                          replica0=replica0)
             inc, u = inc[0], u[0]
             u_rad = None if u_rad is None else u_rad[0]
         else:
@@ -83,7 +87,7 @@ def _run_rwm_fused_plain(target, x0, acc0, jump0, beta, scale, key, step0,
 def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
                       total, burn_in, *, kind="Normal", record_every=0,
                       record_chains=0, draw="icdf", warp=None,
-                      team=None, specialize=True):
+                      team=None, specialize=True, replica0=0):
     """Launch ``csrc/fused_rwm.cu``, or above 64 dimensions
     ``csrc/fused_rwm_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
@@ -102,7 +106,8 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     ``_build.by_variant`` sums them by variant), and a recorded one also
     under ``fused_rwm_record``.
     The chains a block (and a warp library's team size) come from
-    ``_build.launch_geometry``."""
+    ``_build.launch_geometry``.  ``replica0`` offsets the Philox
+    counter's replica; its rung is the kernels' constant 0."""
     variant = _build.library("fused_rwm", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
     if _build.fixed_shape(lib) is None or _build.is_warp(lib):
@@ -145,7 +150,8 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
             scalar, float(beta),
             x0.data_ptr(), acc0.data_ptr(), jump0.data_ptr(),
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), jump.data_ptr(),
-            d, C, total, burn_in, step0, key[0], key[1], lap_ptr, 1.0 / d,
+            d, C, total, burn_in, step0, key[0], key[1], replica0, lap_ptr,
+            1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
             geo.replicas, *((geo.team,) if _build.is_warp(lib) else ()),
             torch.cuda.current_stream(x0.device).cuda_stream)
@@ -185,7 +191,8 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
                   burn_in: int = 0, beta: float = 1.0, init_states=None,
                   resume_state: RWMState | None = None,
                   record_every: int | None = None, record_chains: int = 1,
-                  device="cuda", draws=None) -> RWMResult:
+                  device="cuda", draws=None,
+                  _shard: _build.Shard | None = None) -> RWMResult:
     """Fused RWM run with the metrics contract of ``run_rwm``.
 
     ``proposal`` (a ``NormalProposal``, ``LaplaceProposal`` or
@@ -201,7 +208,8 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
     drawn by ``draws.resolve_normal_impl("rwm", num_chains, <the target's
     kind>)`` (``draws.NORMAL_IMPL`` forces any of the five draws, each
     launching its own library).  ``draws`` (CPU only, for tests) replaces
-    the Philox stream."""
+    the Philox stream.  ``_shard`` is the counter layout of one shard of
+    ``fused_sharded.py``'s runs, not a user option."""
     dev = resolve_device(device)
     if proposal is None and base_variance is None:
         raise ValueError("pass either base_variance or a proposal")
@@ -235,14 +243,17 @@ def run_rwm_fused(target, seed, *, base_variance: float | None = None,
     key = seed_key(seed)
     args = (target, x0, acc0, jump0, beta_t, scale, key, step0, total,
             burn_in)
+    shard = _shard or _build.Shard()
+    assert shard.rung0 == 0, "an RWM run draws at rung 0"
     kw = dict(kind=kind, record_every=record_every or 0,
               record_chains=record_chains,
-              draw=resolve_normal_impl("rwm", x0.shape[1],
-                                       _build.target_kind(target)))
-    if dev.type == "cpu":
+              draw=shard.draw or resolve_normal_impl(
+                  "rwm", x0.shape[1], _build.target_kind(target)),
+              replica0=shard.replica0)
+    if dev.type == "cpu" or shard.plain:
         out = _run_rwm_fused_plain(*args, draws=draws, **kw)
     else:
-        out = launch_rwm_kernel(*args, **kw)
+        out = launch_rwm_kernel(*args, team=shard.team, **kw)
     x, lp, acc, jump = out[:4]
     n = max(step0 + total - burn_in, 1)
     state = RWMState(x=x, logp=lp, accept_count=acc, sum_sq_jump=jump,

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedTensor
+
 _X64 = False
 
 
@@ -40,9 +42,12 @@ def resolve_device(device) -> torch.device:
 
 
 def as_tensor(value, device, dtype) -> torch.Tensor:
-    """``value`` (tensor, numpy array, list or scalar) as a tensor on
-    ``device`` of ``dtype``; array inputs are copied, so read-only arrays
-    (JAX exports) are safe to hand in."""
-    if not isinstance(value, torch.Tensor):
+    """``value`` (tensor, numpy array, list or scalar, or a mesh's
+    ``ShardedTensor``, gathered) as a tensor on ``device`` of ``dtype``;
+    array inputs are copied, so read-only arrays (JAX exports) are safe to
+    hand in."""
+    if isinstance(value, ShardedTensor):
+        value = value.gather(device)
+    elif not isinstance(value, torch.Tensor):
         value = torch.tensor(np.array(value))
     return value.to(device, dtype)

@@ -68,13 +68,46 @@ def test_proposal_config_matches_jax(prop, scale, aniso):
     assert tbuild(prop, scale, 3, aniso) == jbuild(prop, scale, 3, aniso)
 
 
+TIMES = ("total_time", "times", "mh_steps_per_sec")
+
+
+def _untimed(data):
+    return {k: v for k, v in data.items() if k not in TIMES}
+
+
 @pytest.mark.parametrize("flag", ["--use_mesh", "--multihost", "--x64"])
-def test_unported_flags_raise(flag, tmp_path):
-    """The multi-card flags raise naming ROADMAP Queue A; ``--x64`` is
-    ported (A7): the study runs on the eager engine in float64, never
-    launching the float32 fused kernel."""
+def test_unported_flags_raise(flag, tmp_path, capsys, monkeypatch):
+    """Every flag runs now.  ``--use_mesh`` (A13) shards the chains over a
+    mesh (the CPU here), one sharded run a config, and writes the JSON of
+    the run without it but for the times; ``--multihost`` prints JAX's
+    single-host line on a lone host, writes that JSON too, and under
+    ``WORLD_SIZE=2`` raises naming A13's remainder (meshes across
+    processes); ``--x64`` is ported (A7): the study runs on the eager
+    engine in float64, never launching the float32 fused kernel."""
     if flag != "--x64":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+        base = tcli.main(ARGS + ["--cpu", "--output_dir",
+                                 str(tmp_path / "base")])
+        calls = []
+        real = tcli.run_rwm_fused_sharded
+
+        def spy(target, seed, mesh, **kw):
+            calls.append(mesh)
+            return real(target, seed, mesh, **kw)
+        monkeypatch.setattr(tcli, "run_rwm_fused_sharded", spy)
+        capsys.readouterr()
+        data = tcli.main(ARGS + [flag, "--cpu", "--output_dir",
+                                 str(tmp_path / "flag")])
+        out = capsys.readouterr().out
+        assert _untimed(data) == _untimed(base)
+        if flag == "--use_mesh":
+            assert len(calls) == 3 and calls[0].shape == {"chains": 1}
+            assert "8 chains sharded over 1 devices" in out
+            return
+        assert not calls
+        assert "[parallel] single-host run" in out
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(NotImplementedError,
+                           match="Queue A item 13's remainder"):
             tcli.main(ARGS + [flag, "--cpu"])
         return
     from rwm_pt_tpu_torch.utils import default_float, set_x64
@@ -172,15 +205,19 @@ def test_pt_study_writes_the_jax_json_keys(tmp_path, monkeypatch):
 
 
 def test_pt_study_flags(tmp_path, monkeypatch):
-    """``--geom_ladder`` runs the geometric ladder; ``--use_mesh`` raises
-    (ROADMAP A13); a ladder longer than the kernel's 32 rungs raises
-    instead of falling back to the eager engine."""
+    """``--geom_ladder`` runs the geometric ladder; ``--use_mesh`` (A13)
+    runs the replicas sharded over a mesh (the CPU here) and writes the
+    JSON of the run without it but for the times; a ladder longer than the
+    kernel's 32 rungs raises instead of falling back to the eager
+    engine."""
     from rwm_pt_tpu_torch.cli import experiment_pt as tpt
     data = tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
                                "--output_dir", str(tmp_path)])
     assert data["ladder_sizes"] == [8, 8, 8]
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        tpt.main(PT_ARGS + ["--use_mesh", "--cpu"])
+    meshed = tpt.main(PT_ARGS + ["--geom_ladder", "--use_mesh", "--cpu",
+                                 "--no_plots", "--output_dir",
+                                 str(tmp_path / "mesh")])
+    assert _untimed(meshed) == _untimed(data)
     monkeypatch.setattr(tpt, "construct_geometric_ladder",
                         lambda: list(np.geomspace(1.0, 0.01, 33)))
     with pytest.raises(NotImplementedError, match="33 rungs"):

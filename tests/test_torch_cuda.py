@@ -1084,3 +1084,77 @@ def test_ladder_kernel_refuses_before_launching():
         ladder_build.launch_ladder_kernel(
             get_target_distribution("MultivariateNormal", 300, device=dev))
     assert not ladder_build.launch_ladder_kernel.launches
+
+
+# ---------------------------------------------- the sharded runs (B9, A13)
+SHARDED_PT = ("x", "logp", "accept_count", "swap_accept_count",
+              "sum_beta_sq_jump", "sum_sq_jump_cold")
+
+
+@pytest.mark.parametrize("algo,d", [("pt", 30), ("rwm", 30), ("pt", 100),
+                                    ("rwm", 100)])
+def test_sharded_runs_equal_unsharded_bit_for_bit(algo, d):
+    """On meshes of 2 and 4 virtual shards of the card, the chains-sharded
+    kernels draw the unsharded launch's words (the Philox counter's
+    replica offset) and take its team size: x, lp and every counter and
+    sum equal bit for bit, one launch a shard."""
+    from rwm_pt_tpu_torch.kernels import (fused_pt, fused_rwm,
+                                          run_pt_fused_sharded,
+                                          run_rwm_fused_sharded)
+    from rwm_pt_tpu_torch.parallel import make_mesh
+    dev = _card()
+    tg = FullRosenbrock.create(d, device=dev)
+    betas = torch.logspace(0, -2, 6, device=dev)
+    kw = dict(base_variance=0.25 / d, num_chains=8192, num_iterations=120,
+              burn_in=20)
+    if algo == "pt":
+        ref = run_pt_fused(tg, 3, betas, swap_every=10, device=dev, **kw)
+        fields = SHARDED_PT
+    else:
+        ref = run_rwm_fused(tg, 3, device=dev, **kw)
+        fields = ("x", "logp", "accept_count", "sum_sq_jump")
+    for k in (2, 4):
+        mesh = make_mesh((k,), devices=[dev] * k)
+        launch_pt_kernel.launches.clear()
+        launch_rwm_kernel.launches.clear()
+        res = (run_pt_fused_sharded(tg, 3, betas, mesh, swap_every=10, **kw)
+               if algo == "pt" else run_rwm_fused_sharded(tg, 3, mesh, **kw))
+        seen = (fused_pt.launch_pt_kernel if algo == "pt"
+                else fused_rwm.launch_rwm_kernel).launches
+        assert sum(seen.values()) == k
+        for f in fields:
+            assert torch.equal(getattr(res.state, f),
+                               getattr(ref.state, f)), (k, f)
+
+
+@pytest.mark.parametrize("d", [30, 100])
+def test_tempsharded_hybrid_across_partitions(d):
+    """The temps-sharded hybrid at T = 10 on 2, 5 and 10 virtual shards and
+    a 2 x 5 chains x temps mesh: x, lp, MH and swap counts equal bit for
+    bit; against the unsharded kernel's even/odd sweep the agreement gate
+    holds (the cold-jump sum, MH and swap moves summed apart, left out).
+    At d = 100 every segment's team launch (1 or 2 rungs) takes the team
+    size the whole ladder resolves."""
+    from rwm_pt_tpu_torch.kernels import run_pt_fused_tempsharded
+    from rwm_pt_tpu_torch.parallel import make_mesh
+    dev = _card()
+    tg = FullRosenbrock.create(d, device=dev)
+    betas = torch.logspace(0, -2, 10, device=dev)
+    kw = dict(base_variance=0.25 / d, num_chains=4096, num_iterations=300,
+              burn_in=50, swap_every=25)
+    runs = [run_pt_fused_tempsharded(tg, 5, betas,
+                                     make_mesh(s, n, devices=[dev] * k), **kw)
+            for s, n, k in (((2,), ("temps",), 2), ((5,), ("temps",), 5),
+                            ((10,), ("temps",), 10),
+                            ((2, 5), ("chains", "temps"), 10))]
+    for r in runs[1:]:
+        for f in SHARDED_PT[:4]:
+            assert torch.equal(getattr(r.state, f),
+                               getattr(runs[0].state, f)), f
+    eo = run_pt_fused(tg, 5, betas, swap_sweep="even_odd", device=dev, **kw)
+    ag = agreement.hold(
+        tuple(getattr(runs[0].state, f) for f in SHARDED_PT[:5]),
+        tuple(getattr(eo.state, f) for f in SHARDED_PT[:5]),
+        ("x", "lp", "acc", "swapacc", "betajump"))
+    assert ag.frac >= AGREE_MIN and not ag.mismatched, agreement.describe(ag)
+    assert runs[0].state.swap_attempt_count == eo.state.swap_attempt_count

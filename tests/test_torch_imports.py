@@ -27,6 +27,8 @@ def test_port_imports_without_jax():
         import rwm_pt_tpu_torch.kernels.draws
         import rwm_pt_tpu_torch.kernels.fused_pt
         import rwm_pt_tpu_torch.kernels.fused_rwm
+        import rwm_pt_tpu_torch.kernels.fused_sharded
+        import rwm_pt_tpu_torch.parallel.mesh
         import rwm_pt_tpu_torch.analysis.diagnostics
         import rwm_pt_tpu_torch.analysis.average_seeds
         import rwm_pt_tpu_torch.analysis.batch_average_seeds
@@ -72,6 +74,8 @@ def _entry_points(out_dir):
                                           run_pt_ladder_adaptive, run_rwm,
                                           run_rwm_adaptive, run_rwm_fused)
     from rwm_pt_tpu_torch.kernels.draw_probes import draw_normals
+    from rwm_pt_tpu_torch.kernels import run_rwm_fused_sharded
+    from rwm_pt_tpu_torch.parallel import make_mesh
     from rwm_pt_tpu_torch.proposals import (LaplaceProposal, NormalProposal,
                                             UniformRadiusProposal,
                                             create_proposal_distribution)
@@ -134,6 +138,13 @@ def _entry_points(out_dir):
         "demo": lambda **d: demo.main(
             ["--num_iters", "20", "--no_plots"]
             + (["--cpu"] if d.get("device") == "cpu" else [])),
+        "make_mesh": lambda **d: run_rwm_fused_sharded(
+            t, 0, make_mesh(devices=[d["device"]] * 2) if d else make_mesh(),
+            base_variance=1.0, **kw),
+        "MCMCSimulation(use_mesh=True)": lambda **d: MCMCSimulation(
+            dim=2, sigma=1.0, num_iterations=2, num_chains=4,
+            target_dist="MultivariateNormal", use_mesh=True, **d
+        ).generate_samples(verbose=False),
     }
 
 
@@ -151,7 +162,8 @@ def _entry_points(out_dir):
                                   "run_pt_ladder_adaptive", "draw_normals",
                                   "single_run",
                                   "construct_iterative_ladder_device",
-                                  "demo"])
+                                  "demo", "make_mesh",
+                                  "MCMCSimulation(use_mesh=True)"])
 def test_entry_points_default_to_cuda(name, monkeypatch, tmp_path):
     """With no card, the default device raises; ``device='cpu'`` runs."""
     fn = _entry_points(str(tmp_path))[name]

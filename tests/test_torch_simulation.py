@@ -165,16 +165,34 @@ def test_rng_impl_takes_the_jax_values():
     (dict(symmetric=False), "A item 7"),
 ])
 def test_options_not_ported_raise(opt, item):
-    """``use_mesh`` raises naming A13; the A7 options are ported and run on
-    the eager engine (the fused kernels refuse them, as JAX's Pallas
-    kernels do)."""
+    """Every option runs now.  ``use_mesh`` (A13) builds a mesh over the
+    harness's device (the CPU here) and gives the fused run without the
+    mesh bit for bit, RWM and PT; a recorded run with a mesh takes the
+    eager engine, as JAX's does.  The A7 options are ported and run on the
+    eager engine (the fused kernels refuse them, as JAX's Pallas kernels
+    do)."""
     kw = dict(dim=3, sigma=1.0, num_iterations=10, algorithm="RWM",
               target_dist="MultivariateNormal", num_chains=8, device=CPU)
     kw.update(opt)
     if item != "A item 7":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue {item}"):
-            TSim(**kw)
+        for algo in ("RWM", "PT"):
+            kw.update(algorithm=algo, record_chain=False,
+                      beta_ladder=[1.0, 0.5, 0.2], swap_every=2)
+            sims = [TSim(**dict(kw, use_mesh=m)) for m in (False, True)]
+            for sim in sims:
+                sim.generate_samples(verbose=False)
+                assert sim.engine_used == "pallas"
+            assert sims[0].mesh is None
+            assert sims[1].mesh.shape == {"chains": 1}
+            for f in ("x", "logp", "accept_count"):
+                assert torch.equal(getattr(sims[0]._result.state, f),
+                                   getattr(sims[1]._result.state, f)), f
+        rec = TSim(**dict(kw, record_chain=True))
+        rec.generate_samples(verbose=False)
+        assert rec.engine_used == "scan"
+        with pytest.raises(ValueError, match="no mesh when recording"):
+            TSim(**dict(kw, record_chain=True), engine="pallas") \
+                .generate_samples(verbose=False)
         return
     sim = TSim(**kw)
     sim.generate_samples(verbose=False)
