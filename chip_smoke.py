@@ -436,6 +436,7 @@ LADDER_PROD = dict(N_samples_swap_est=1000000, tolerance=1e-4,
                    max_pn_adjustment_steps=1000,
                    convergence_failure_tolerance_factor=1.0, seed=1)
 LADDER_HOST_PROBES = 50   # the host loop's first probes, timed alone
+LADDER_HARNESS_N = 3000   # MCMCSimulation's N_samples_swap_est
 # phase 19, the sharded runs: the chains meshes' shard counts, the temps
 # meshes (axis sizes, names), SuperFunnel's steps, the held runs' shards
 # and swap interval, the RWM study's configs with and without the mesh
@@ -3593,23 +3594,24 @@ def phase_18(torch, gen):
     # path below), so the hold is at the shape the main path launches
     held = dict(LADDER_HOLD, max_T=L.EAGER_MAX_RUNGS + 1)
 
-    def hold(tg, kind, label):
+    def hold(tg, kind, label, n=LADDER_HOLD["N_samples_swap_est"]):
         """The kernel (best of 3) against its plain version (once) at
-        LADDER_HOLD: same T and probes, betas rtol 1e-5."""
-        ms, k = cuda_ms(torch, lambda: launch(tg, **held), reps=3)
+        LADDER_HOLD (``n`` samples a side): same T and probes, betas rtol
+        1e-5."""
+        kw = dict(held, N_samples_swap_est=n)
+        ms, k = cuda_ms(torch, lambda: launch(tg, **kw), reps=3)
         plain_ms, p = cuda_ms(
             torch, lambda: L._construct_iterative_ladder_device_plain(
-                tg, **held))
+                tg, **kw))
         first = first_difference(k.a_hats, p.a_hats)
         err = max([abs(a - b) for a, b in zip(k.a_hats, p.a_hats)] or [0])
         same = (len(k.betas) == len(p.betas) and k.probes == p.probes
                 and all(abs(a - b) <= 1e-5 * abs(b)
                         for a, b in zip(k.betas, p.betas)))
-        flops, ints, nbytes = ladder_work(kind, tg.dim,
-                                          LADDER_HOLD["N_samples_swap_est"],
-                                          k.probes)
+        flops, ints, nbytes = ladder_work(kind, tg.dim, n, k.probes)
         b_ms, b_by, b_limit = bound(flops, ints, nbytes)
-        say(f"phase 18a {label}: T {len(k.betas)} / {len(p.betas)}, probes "
+        say(f"phase 18a {label} N={n}: T {len(k.betas)} / {len(p.betas)}, "
+            f"probes "
             f"{k.probes} / {p.probes}, betas equal to 1e-5: {same}; swap "
             f"estimates max |diff| {err:.3g}, first beyond rtol 1e-5 at "
             f"probe {first}; kernel {ms:.3f} ms ({1e3 * ms / k.probes:.1f} "
@@ -3657,7 +3659,13 @@ def phase_18(torch, gen):
                                  _build.kernel_target(tg)[1].numel())
         rec.update(registers=info["registers"],
                    local_bytes=info["local_bytes"],
-                   blocks_per_sm=info["blocks_per_sm"])
+                   blocks_per_sm=info["blocks_per_sm"],
+                   warps_per_sm=info["blocks_per_sm"]
+                   * info["max_threads"] // 32)
+        if kind == "three_mixture":
+            # the harness's N (MCMCSimulation's default), a few tiles a probe
+            rec["harness"] = hold(tg, kind, f"{kind} d={tg.dim}",
+                                  n=LADDER_HARNESS_N)
         if kind == "mvn_iso":
             wide = ladder_target(get_target_distribution, kind,
                                  LADDER_WIDE_D, dev)
@@ -3765,6 +3773,16 @@ def phase_18(torch, gen):
                   production_plain_us_a_probe=plain_us,
                   production_host_us_a_probe=host_us,
                   production_first_difference=first)
+
+    # the per-probe split of the harness's build and the production build
+    # (the measuring build's stamps, phase 2 built it; µs a probe)
+    split = {f"N={c['N_samples_swap_est']}": ladder_build.probe_split(tm, **c)
+             for c in (dict(held, N_samples_swap_est=LADDER_HARNESS_N), kw)}
+    say("phase 18c per-probe split (ThreeMixture d=10, us a probe, the "
+        "parts in their order): " + "; ".join(
+            f"{n}: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            for n, parts in split.items()))
+    tm_rec.update(split_us_a_probe=split)
 
     # ---- (d) the demo, the profiling helpers, the eager engines' options
     reset_launches(launch, *wrappers)
@@ -4336,6 +4354,7 @@ def smoke_libraries(_build):
         names.append(_build.route(v, sf[SF["J"], SF["K"], SF_RUN_TIME_N])[0])
         names += [_build.route(v, sf[shape])[0] for shape in SF_TEAM_RUN_TIME]
     names += [_build.ladder_lib(k, LADDER_D) for k in LADDER_KINDS]  # 18
+    names += [_build.ladder_lib("three_mixture", LADDER_D, stamps=True)]
     names += [_build.ladder_lib("mvn_iso", d) for d in (LADDER_WIDE_D, 5)]
     names.append(lib(_build.library("fused_pt", "Normal", resolve_normal_impl(
         "pt", 8, "three_mixture")), "three_mixture", 2))       # 18d's demo
@@ -4387,10 +4406,15 @@ def main():
         line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
                          for n, r, f, sp in entries)
         if kname.startswith(_build.LADDER + "."):
-            # a ladder library's coordinates live in registers up to the
-            # 64 bucket, in local memory above it (no gate there)
+            # a ladder library's loops are unrolled up to the 64 bucket,
+            # rolled above it (no gate there)
             from rwm_pt_tpu_torch.kernels import ladder_build
-            kind, tag = kname.split(".")[1:]
+            kind, tag, *stamps = kname.split(".")[1:]
+            if stamps:
+                # phase 18c's measuring build: no entry point launches it,
+                # and its stamps cost registers (no gate)
+                say(f"phase 2 build {kname} (measuring build): {line}")
+                continue
             dmax = int(tag[1:])
             if dmax <= _build.BUCKETS[-1]:
                 frames += [f"{kname} {n}" for n, _, f, sp in entries
@@ -4399,7 +4423,7 @@ def main():
                 kind, dmax if dmax <= _build.BUCKETS[-1] else dmax - 4)
             say(f"phase 2 build {kname}: {line}; {info['registers']} regs, "
                 f"{info['local_bytes']} B local; {info['blocks_per_sm']} "
-                f"blocks of {ladder_build.THREADS} threads an SM, "
+                f"blocks of {info['max_threads']} threads an SM, "
                 f"{info['sms']} SMs (a cooperative grid of "
                 f"{info['blocks_per_sm'] * info['sms']})")
             continue

@@ -64,9 +64,9 @@ The iterative ladder builder (``csrc/ladder_build.cu``,
 ``kernels/ladder_build.py``) builds one library per target kind with a
 direct sampler and bucket, ``libladder_build.<kind>.d<D>`` with
 ``-DRWM_PT_TARGET=<k> -DRWM_PT_DMAX=<D>`` (:func:`ladder_lib`: the register
-buckets up to 64 coordinates, the warp buckets' sizes above, where a
-sample's coordinates sit in local memory); it has no proposal or draw
-variants and sizes its own cooperative grid.
+buckets up to 64 coordinates, whose loops it unrolls, the warp buckets'
+sizes above, whose loops it rolls); it has no proposal or draw variants
+and sizes its own cooperative grid.
 """
 from __future__ import annotations
 
@@ -77,6 +77,7 @@ import os
 import re
 import shutil
 import subprocess
+import weakref
 from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
@@ -433,16 +434,19 @@ def sf_team_dmax(d: int, team: int) -> int:
     return -(-(d + 4) // (4 * team)) * 4 * team
 
 
-def ladder_lib(kind: str, dim: int) -> str:
+def ladder_lib(kind: str, dim: int, stamps: bool = False) -> str:
     """The ladder builder's library for target kind ``kind`` at ``dim``
     coordinates, ``ladder_build.<kind>.d<D>``: ``<D>`` the register bucket
     up to 64 coordinates (:func:`bucket`), above it the warp bucket
-    (:func:`warp_bucket`; the arrays in local memory), which raises above
-    :data:`MAX_DIM`."""
+    (:func:`warp_bucket`; rolled loops), which raises above
+    :data:`MAX_DIM`.  ``stamps``: its measuring build, ``...d<D>.stamps``
+    (``-DRWM_PT_LADDER_STAMPS``: ``%globaltimer`` stamps a probe;
+    ``ladder_build.probe_split``), which no entry point launches."""
     if kind not in TARGET_KINDS:
         raise ValueError(f"no library {LADDER}.{kind}")
     return f"{LADDER}.{kind}.d" + str(
-        bucket(dim) if dim <= BUCKETS[-1] else warp_bucket(dim))
+        bucket(dim) if dim <= BUCKETS[-1] else warp_bucket(dim)) + (
+            ".stamps" if stamps else "")
 
 
 def _source(name: str) -> str:
@@ -455,9 +459,10 @@ def _flags(name: str) -> list[str]:
     if name == PROBES:
         return list(NVCC_FLAGS)
     if name.startswith(LADDER + "."):
-        _, kind, tag = name.split(".")
+        _, kind, tag, *stamps = name.split(".")
         return NVCC_FLAGS + [f"-DRWM_PT_TARGET={TARGET_KINDS[kind]}",
-                             f"-DRWM_PT_DMAX={int(tag[1:])}"]
+                             f"-DRWM_PT_DMAX={int(tag[1:])}"] + (
+                                 ["-DRWM_PT_LADDER_STAMPS"] if stamps else [])
     src, pc, dc, kc, dmax, blocks = _parts(name)
     extra = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
              if src.endswith(WARP) else [])
@@ -1100,6 +1105,10 @@ def max_rungs(dim: int) -> int:
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+# id(target) -> (a weak reference to it, {key: what per_target made})
+_PER_TARGET: dict = {}
+
+
 def _f32(*parts) -> torch.Tensor:
     return torch.cat([torch.as_tensor(p).to(torch.float32).reshape(-1)
                       .cpu() for p in parts]).contiguous()
@@ -1123,12 +1132,35 @@ def target_kind(target) -> str | None:
     return _KIND_OF.get(name)
 
 
+def per_target(target, key, make):
+    """``make()``, made once for ``target`` under ``key`` and kept while
+    the target lives (the targets are frozen dataclasses): its words, their
+    copies on a device.  Nothing is kept where ``make`` raises."""
+    hit = _PER_TARGET.get(id(target))
+    if hit is not None and hit[0]() is target and key in hit[1]:
+        return hit[1][key]
+    value = make()   # which may keep words of its own (kernel_target)
+    hit = _PER_TARGET.get(id(target))
+    if hit is None or hit[0]() is not target:
+        hit = (weakref.ref(target), {})
+        _PER_TARGET[id(target)] = hit
+        weakref.finalize(target, _PER_TARGET.pop, id(target), None)
+    hit[1][key] = value
+    return value
+
+
 def kernel_target(target) -> tuple[str, torch.Tensor]:
     """(kind, f32 parameter vector on the CPU) of a target the kernels
     take, laid out as ``csrc/targets.cuh`` (and ``csrc/warp.cuh``) reads
-    it.  A target of no kind (a class outside the registry's), and a dim
-    above :data:`MAX_DIM`, raises ``NotImplementedError``: there is no
-    fallback."""
+    it, made once a target (:func:`per_target`: the copies from the
+    target's device are made once).  A target of no kind (a class outside
+    the registry's), and a dim above :data:`MAX_DIM`, raises
+    ``NotImplementedError``: there is no fallback."""
+    return per_target(target, "kernel_target",
+                      lambda: _kernel_target(target))
+
+
+def _kernel_target(target) -> tuple[str, torch.Tensor]:
     kind = target_kind(target)
     if kind is None:
         raise NotImplementedError(

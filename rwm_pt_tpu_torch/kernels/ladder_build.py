@@ -12,10 +12,18 @@ is the plain version's, chosen by the caller.  The kernel takes the 11
 kinds with a direct sampler; a target of another kind raises
 ``NotImplementedError`` before any launch.  Each launch adds one to
 ``launches`` under ``ladder_build.<kind>``.
+
+A build's host work is one allocation (the result and the kernel's
+workspaces, :func:`_workspace`), the launch and one read of the result:
+the target's parameter words and the pn-step table reach the card once and
+are kept (:func:`_words`, :func:`_pn_steps`).  :func:`probe_split`
+launches the library's measuring build instead and reads where a probe's
+time goes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -27,9 +35,20 @@ from . import _build
 LADDER_KINDS = ("mvn_iso", "mvn_full", "scaled_mvn", "three_mixture",
                 "rough_carpet", "even_rosenbrock", "hybrid_rosenbrock",
                 "hypercube", "iid_gamma", "iid_beta", "neal_funnel")
-THREADS = 256           # csrc/ladder_build.cu: kThreads
+TILE = 256              # csrc/ladder_build.cu: kTile, a tile's samples
+UNITS = 16              # kUnits: warp-units a tile, a partial sum each
+SUMS_A_TILE = UNITS + 3  # doubles a tile: its two sums, partials, count
+EVERY_TILES = 16        # kEveryTiles: up to it every block sums the slots
+CTL_WORDS = 32          # the ctl workspace, in doubles (kStampOffset bytes)
 STAGE_MAX_BYTES = 32 * 1024   # log-density parameters staged in shared memory
 TRACE_MAX = 1 << 12     # probes' estimates a build keeps and reads back
+# the parts of a probe between its stamps (ladder_lib(..., stamps=True)):
+# to the last block's arrival; up to EVERY_TILES tiles to the latest
+# block's wait for the arrivals over, then to its slots summed; above, to
+# the last block's sum published, then to the latest block holding it;
+# to the latest block's search run
+SPLIT = ("work", "barrier", "reduce", "next")
+SPLIT_PUBLISHED = ("work", "reduce", "barrier", "next")
 
 
 def _f32(*parts) -> torch.Tensor:
@@ -39,7 +58,7 @@ def _f32(*parts) -> torch.Tensor:
 
 def sampler_params(kind: str, target) -> torch.Tensor:
     """The float32 sampler parameters of ``target`` (kind ``kind``) as
-    ``csrc/ladder_build.cu::draw_sample`` reads them, on the CPU."""
+    ``csrc/ladder_build.cu::side_lp`` reads them, on the CPU."""
     t, d = target, target.dim
     if kind == "mvn_iso":
         return _f32(t.mean)
@@ -96,19 +115,83 @@ def info(kind: str, dim: int, n_params: int = 0) -> dict:
     return dict(zip(keys, list(out)))
 
 
-def launch_ladder_kernel(target, *, target_swap_acceptance_rate: float =
-                         0.234, beta_min: float = 0.01,
-                         N_samples_swap_est: int = 3000,
-                         tolerance: float = 0.005, initial_pn: float = 0.5,
-                         pn_update_power: float = -0.25,
-                         max_pn_adjustment_steps: int = 100,
-                         pn_clamping_range=(-10.0, 10.0),
-                         convergence_failure_tolerance_factor: float = 3.0,
-                         seed: int = 0, max_T: int = 24,
-                         matmul_precision: str = "float32") -> DeviceLadder:
+def _words(target, kind: str):
+    """The log-density's and the sampler's float32 words of ``target`` on
+    its device, made (with their copies to the card) once a target."""
+    def make():
+        dev = target.device
+        return (_build.kernel_target(target)[1].to(dev),
+                sampler_params(kind, target).to(dev))
+    return _build.per_target(target, "ladder_words", make)
+
+
+@functools.lru_cache(maxsize=64)
+def _pn_steps(power: float, max_pn: int, dev: torch.device) -> torch.Tensor:
+    """The pn step nu^power of nu = 1 .. max_pn on ``dev``: the plain
+    version's Python arithmetic (no pow on the card)."""
+    return torch.tensor([nu ** power for nu in range(1, max(1, max_pn) + 1)],
+                        dtype=torch.float64).to(dev)
+
+
+def _workspace(n: int, max_T: int, cap: int, dev: torch.device,
+               stamps: int = 0):
+    """One float64 allocation: the result (2 + max_T + cap words), the
+    tiles' sums, partials and counts and the ctl words (with ``stamps``
+    more, zeroed, for a measuring build's stamps)."""
+    n_out = 2 + max_T + cap
+    n_sums = -(-n // TILE) * SUMS_A_TILE
+    buf = torch.empty(n_out + n_sums + CTL_WORDS + stamps,
+                      dtype=torch.float64, device=dev)
+    ctl = buf[n_out + n_sums:]
+    if stamps:
+        ctl[CTL_WORDS:].zero_()
+    return buf[:n_out], buf[n_out:n_out + n_sums], ctl
+
+
+def launch_ladder_kernel(target, **kw) -> DeviceLadder:
     """One build on the card: one launch, one read of its result
-    (``construct_iterative_ladder_device``'s arguments); the estimates of
-    every probe it can make are kept, up to :data:`TRACE_MAX`."""
+    (``construct_iterative_ladder_device``'s arguments, :func:`_launch`);
+    the estimates of every probe it can make are kept, up to
+    :data:`TRACE_MAX`."""
+    ladder, _ = _launch(target, False, **kw)
+    launch_ladder_kernel.launches[
+        f"{_build.LADDER}.{ladder_kind(target)}"] += 1
+    return ladder
+
+
+def probe_split(target, **kw) -> dict:
+    """One build by the library's measuring build (``_build.ladder_lib(...,
+    stamps=True)``) with :func:`launch_ladder_kernel`'s arguments: the mean
+    µs a probe of each part of :data:`SPLIT`, over the probes it stamps (up
+    to :data:`TRACE_MAX`), in their order: :data:`SPLIT` up to
+    :data:`EVERY_TILES` tiles a probe, :data:`SPLIT_PUBLISHED` above.  Not
+    a launch of the ladder kernel: it counts nothing."""
+    ladder, words = _launch(target, True, **kw)
+    n_tiles = -(-int(kw.get("N_samples_swap_est", 3000)) // TILE)
+    names = SPLIT if n_tiles <= EVERY_TILES else SPLIT_PUBLISHED
+    parts = [[] for _ in names]
+    prev = words[0]
+    for i in range(min(ladder.probes, (len(words) - 1) // 4)):
+        marks = [prev] + words[1 + 4 * i:5 + 4 * i]
+        for j in range(len(names)):
+            parts[j].append((marks[j + 1] - marks[j]) / 1e3)
+        prev = marks[-1]
+    return {k: sum(v) / max(1, len(v)) for k, v in zip(names, parts)}
+
+
+def _launch(target, stamps: bool, *, target_swap_acceptance_rate: float =
+            0.234, beta_min: float = 0.01, N_samples_swap_est: int = 3000,
+            tolerance: float = 0.005, initial_pn: float = 0.5,
+            pn_update_power: float = -0.25,
+            max_pn_adjustment_steps: int = 100,
+            pn_clamping_range=(-10.0, 10.0),
+            convergence_failure_tolerance_factor: float = 3.0,
+            seed: int = 0, max_T: int = 24,
+            matmul_precision: str = "float32"):
+    """One launch of the library of ``target`` (its measuring build where
+    ``stamps``) and one read of its result: (the ladder, the stamps as
+    integers: the first probe's start, then 4 a probe, in ns; [] unless
+    ``stamps``)."""
     kind = ladder_kind(target)
     dev = target.device
     if dev.type != "cuda":
@@ -121,20 +204,15 @@ def launch_ladder_kernel(target, *, target_swap_acceptance_rate: float =
         raise ValueError("max_T must be at least 2 and N_samples_swap_est "
                          "at least 1")
     from .draws import seed_key
-    name = _build.ladder_lib(kind, target.dim)
+    name = _build.ladder_lib(kind, target.dim, stamps)
     fn = _build.entry(name, "rwm_pt_ladder_build")
-    params = _build.kernel_target(target)[1].to(dev)
-    sparams = sampler_params(kind, target).to(dev)
+    params, sparams = _words(target, kind)
     n = int(N_samples_swap_est)
     cap = max(1, min(TRACE_MAX, max_T * max_pn_adjustment_steps))
-    tiles = torch.empty(-(-n // THREADS), dtype=torch.float64, device=dev)
-    ctl = torch.empty(4, dtype=torch.int32, device=dev)
-    out = torch.empty(2 + max_T + cap, dtype=torch.float64, device=dev)
-    # the pn step nu^pn_update_power of nu = 1 .. max_pn, the plain
-    # version's Python arithmetic (no pow on the card)
-    steps = torch.tensor([nu ** pn_update_power for nu in
-                          range(1, max(1, max_pn_adjustment_steps) + 1)],
-                         dtype=torch.float64).to(dev)
+    out, sums, ctl = _workspace(n, max_T, cap, dev,
+                                1 + 4 * cap if stamps else 0)
+    steps = _pn_steps(float(pn_update_power), int(max_pn_adjustment_steps),
+                      dev)
     k0, k1 = seed_key(seed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -144,14 +222,16 @@ def launch_ladder_kernel(target, *, target_swap_acceptance_rate: float =
                 steps.data_ptr(), float(pn_clamping_range[0]),
                 float(pn_clamping_range[1]), int(max_pn_adjustment_steps),
                 float(convergence_failure_tolerance_factor), int(max_T),
-                int(matmul_precision == "bfloat16"), cap, tiles.data_ptr(),
+                int(matmul_precision == "bfloat16"), cap, sums.data_ptr(),
                 ctl.data_ptr(), out.data_ptr(), stream)
     _build.check_launch(name, rc)
-    launch_ladder_kernel.launches[f"{_build.LADDER}.{kind}"] += 1
-    host = out.cpu().tolist()
+    host = out.cpu()   # one read; only the words in use become floats
     T, probes = int(host[0]), int(host[1])
-    return DeviceLadder(host[2:2 + T], probes,
-                        host[2 + max_T:2 + max_T + min(probes, cap)])
+    words = (ctl[CTL_WORDS:].view(torch.int64).cpu().tolist() if stamps
+             else [])
+    return DeviceLadder(host[2:2 + T].tolist(), probes,
+                        host[2 + max_T:2 + max_T + min(probes, cap)]
+                        .tolist()), words
 
 
 launch_ladder_kernel.launches = Counter()

@@ -82,7 +82,8 @@ def _libraries():
                       for spec in (True, False)]
     names += [_build.ladder_lib(k, 7) for k in _build.TARGET_KINDS
               if k not in ("rosenbrock", "super_funnel")]
-    names.append(_build.ladder_lib("mvn_iso", 100))
+    names += [_build.ladder_lib("mvn_iso", d) for d in (100, 200)]
+    names += [_build.ladder_lib(k, 72) for k in LADDER_CASES]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -1009,16 +1010,19 @@ def _same_ladder(k, p):
     np.testing.assert_allclose(k.a_hats, p.a_hats, rtol=1e-4, atol=1e-7)
 
 
+@pytest.mark.parametrize("N", [1, 255, 257, 3000])
 @pytest.mark.parametrize("kind", sorted(LADDER_CASES))
-def test_ladder_kernel_matches_plain(kind):
+def test_ladder_kernel_matches_plain(kind, N):
     """One launch builds the plain version's ladder: the same rungs and
     probes, the swap estimates to their ulps (the gamma kinds bit for
-    bit: their rejection tests are exact on both sides)."""
+    bit: their rejection tests are exact on both sides), on grids sized
+    below one wave (N = 1, 255, 257: one or two tiles a probe) and at the
+    harness's N = 3000."""
     from rwm_pt_tpu_torch.kernels import ladder_build
     from rwm_pt_tpu_torch.ladders import ladders as L
     dev = _card()
     tg = ladder_target(kind, dev)
-    kw = dict(N_samples_swap_est=3000, tolerance=0.02, seed=3,
+    kw = dict(N_samples_swap_est=N, tolerance=0.02, seed=3,
               max_pn_adjustment_steps=40)
     ladder_build.launch_ladder_kernel.launches.clear()
     k = ladder_build.launch_ladder_kernel(tg, **kw)
@@ -1031,23 +1035,70 @@ def test_ladder_kernel_matches_plain(kind):
     assert L.construct_iterative_ladder_device(tg, **kw) == k.betas
 
 
-@pytest.mark.parametrize("kind,d", [("mvn_iso", 100), ("mvn_full", 7),
-                                    ("mvn_iso", 7)])
+@pytest.mark.parametrize("kind,d", [("mvn_iso", 100), ("mvn_iso", 200),
+                                    ("mvn_full", 7), ("mvn_iso", 7)])
 def test_ladder_kernel_bucket_and_precision(kind, d):
-    """The d = 100 iso MVN (the .d128 bucket, arrays in local memory),
-    the max_T cap and the bfloat16 matmul operands against the plain
-    version."""
+    """The d = 100 and 200 iso MVN (the rolled .d128 and .d256 buckets:
+    warp-units, a tile's partials summed by its last unit), the max_T cap
+    and the bfloat16 matmul operands against the plain version."""
     from rwm_pt_tpu_torch.kernels import ladder_build
     from rwm_pt_tpu_torch.ladders import ladders as L
     dev = _card()
     tg = (get_target_distribution("MultivariateNormal", d, device=dev)
-          if d == 100 else ladder_target(kind, dev))
+          if d >= 100 else ladder_target(kind, dev))
     for kw in (dict(N_samples_swap_est=3000, tolerance=0.02, seed=4),
                dict(N_samples_swap_est=3000, tolerance=0.02, seed=4,
                     max_T=4, matmul_precision="bfloat16")):
         k = ladder_build.launch_ladder_kernel(tg, **kw)
         _same_ladder(k, L._construct_iterative_ladder_device_plain(tg, **kw))
     assert len(k.betas) == 4
+
+
+@pytest.mark.parametrize("kind", sorted(LADDER_CASES))
+def test_ladder_kernel_rolled_bucket_matches_plain(kind):
+    """Every kind in the rolled .d128 bucket (d = 72; HybridRosenbrock
+    n1 = 8, n2 = 10: 71), whose coordinates loop a Philox block at a time:
+    the plain version's ladder."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    name, kw, _ = LADDER_CASES[kind]
+    if kw == "cov":
+        a = np.random.default_rng(5).normal(size=(72, 72))
+        kw = {"cov": a @ a.T / 72 + np.eye(72)}
+    if kind == "hybrid_rosenbrock":
+        tg = get_target_distribution(name, 0, n1=8, n2=10, device=dev)
+    else:
+        tg = get_target_distribution(name, 72, device=dev, **(kw or {}))
+    opts = dict(N_samples_swap_est=3000, tolerance=0.02, seed=7,
+                max_pn_adjustment_steps=40)
+    _same_ladder(ladder_build.launch_ladder_kernel(tg, **opts),
+                 L._construct_iterative_ladder_device_plain(tg, **opts))
+
+
+@pytest.mark.parametrize("kind,d,N", [("three_mixture", 7, 3000),
+                                      ("three_mixture", 7, 20000),
+                                      ("three_mixture", 7, 32768),
+                                      ("mvn_iso", 100, 3000),
+                                      ("mvn_iso", 100, 20000)])
+def test_ladder_kernel_repeats_bit_for_bit(kind, d, N):
+    """Builds on grids of several blocks (12 tiles a probe, where every
+    block sums the slots; 79 and 128, where the last block to arrive
+    publishes the sum; the rolled bucket's warp-units at d = 100),
+    repeated 20 times, land the same ladder and swap estimates bit for
+    bit, whatever the blocks' order: a block running ahead into the next
+    probe writes its tile sums into the other half of the buffer."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    dev = _card()
+    tg = (get_target_distribution("MultivariateNormal", d, device=dev)
+          if d >= 100 else ladder_target(kind, dev))
+    kw = dict(N_samples_swap_est=N, tolerance=0.005, seed=8)
+    first = ladder_build.launch_ladder_kernel(tg, **kw)
+    assert first.probes > 10
+    for _ in range(20):
+        k = ladder_build.launch_ladder_kernel(tg, **kw)
+        assert (k.probes, k.betas) == (first.probes, first.betas)
+        assert list(map(repr, k.a_hats)) == list(map(repr, first.a_hats))
 
 
 @pytest.mark.parametrize("power,clamp,max_T", [(-0.6, (-1.5, 3.0), 33),

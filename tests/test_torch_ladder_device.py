@@ -199,3 +199,196 @@ def test_bfloat16_operands_change_the_full_mvn_only_slightly():
     np.testing.assert_allclose(a, b, rtol=0.05)
     with pytest.raises(ValueError, match="matmul_precision"):
         construct_iterative_ladder_device(tg, matmul_precision="tf32")
+
+
+# ---- csrc/ladder_build.cu's reduction and its folded log-densities,
+# emulated: the tree by the kernel's lanes, the grid, the lp's order
+def _shfl_tree16(lanes: torch.Tensor) -> torch.Tensor:
+    """``tree16`` over the 32 lanes of warps ``lanes`` ``(..., 32)``:
+    each level every lane adds the lane ``w`` above it
+    (``__shfl_down_sync``; past lane 31 its own value), w = 8, 4, 2, 1."""
+    for w in (8, 4, 2, 1):
+        up = torch.cat([lanes[..., w:], lanes[..., 32 - w:]], dim=-1)
+        lanes = lanes + up
+    return lanes
+
+
+def _warp_tile_sum(v: torch.Tensor) -> torch.Tensor:
+    """A tile's 256 float64 terms summed as the kernel sums them: sample
+    16 j + u in lane j of unit u (lanes 16-31, the samples' other sides,
+    hold 0), tree16 in each unit, the units' partials in lanes 0-15 of one
+    warp, tree16 again."""
+    units = torch.zeros(16, 32, dtype=torch.float64)
+    units[:, :16] = v.reshape(16, 16).T          # [u, j] = v[16 j + u]
+    red = _shfl_tree16(units)[:, 0]
+    warp = torch.zeros(32, dtype=torch.float64)
+    warp[:16] = red
+    return _shfl_tree16(warp)[0]
+
+
+def _terms(kind: str, n: int, seed: int) -> torch.Tensor:
+    """float64 terms as a probe makes them: float32 values in [0, 1] of
+    wide spread, a few NaN (a probe at a NaN beta*) where asked."""
+    rng = np.random.default_rng(seed)
+    v = (rng.random(n) ** 8).astype(np.float32).astype(np.float64)
+    if kind == "nan":
+        v[rng.integers(0, n, 3)] = np.nan
+    if kind == "ones":
+        v[:] = 1.0
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("kind,seed", [("wide", 0), ("wide", 1),
+                                       ("ones", 2), ("nan", 3)])
+def test_warp_tile_tree_equals_tree(kind, seed):
+    """The kernel's tile sum (shuffles within a unit, then across the 16
+    units) pairs what ``_tree`` pairs: equal bit for bit."""
+    v = _terms(kind, 256, seed)
+    got, want = _warp_tile_sum(v), L._tree(v)
+    if kind == "nan":
+        assert torch.isnan(got) and torch.isnan(want)
+    else:
+        assert got.item() == want.item()
+
+
+def _grid_partition_sum(v: torch.Tensor, grid: int, layout: str) -> float:
+    """``partition_sum`` as a grid of ``grid`` blocks computes it, blocks
+    in reverse order of their index: "tiles" (the unrolled buckets) take
+    whole tiles grid-stride and write each tile's sum; "units" (the rolled
+    buckets: 8 warps a block) take warp-units grid-stride and write their
+    partials, which a tile's last unit sums (levels 8 .. 1).  Then slot t
+    adds tiles t, t + 256, ... in order and the slots' tree pairs them by
+    (j, u) as the tiles' does."""
+    n_tiles = -(-v.numel() // L.TILE)
+    v = torch.nn.functional.pad(v, (0, n_tiles * L.TILE - v.numel()))
+    tiles = v.reshape(n_tiles, L.TILE)
+    sums = torch.full((n_tiles,), math.nan, dtype=torch.float64)
+    if layout == "tiles":
+        for b in reversed(range(grid)):
+            for t in range(b, n_tiles, grid):
+                sums[t] = _warp_tile_sum(tiles[t])
+    else:
+        parts = torch.full((n_tiles * 16,), math.nan, dtype=torch.float64)
+        for b in reversed(range(grid)):
+            for w in range(8):
+                for u in range(b * 8 + w, n_tiles * 16, grid * 8):
+                    lanes = torch.zeros(32, dtype=torch.float64)
+                    lanes[:16] = tiles[u // 16].reshape(16, 16)[:, u % 16]
+                    parts[u] = _shfl_tree16(lanes)[0]
+        for t in range(n_tiles):
+            lanes = torch.zeros(32, dtype=torch.float64)
+            lanes[:16] = parts[16 * t:16 * t + 16]
+            sums[t] = _shfl_tree16(lanes)[0]
+    slots = torch.zeros(L.TILE, dtype=torch.float64)
+    for t in range(L.TILE):
+        acc = torch.zeros((), dtype=torch.float64)
+        for r in range(t, n_tiles, L.TILE):
+            acc = acc + sums[r]
+        slots[t] = acc
+    return _warp_tile_sum(slots).item()
+
+
+@pytest.mark.parametrize("layout", ["tiles", "units"])
+@pytest.mark.parametrize("grid", [1, 12, 264])
+def test_partition_sum_does_not_depend_on_the_grid(grid, layout):
+    """Which block sums a tile, and in what order the blocks run, changes
+    nothing: the sum is ``partition_sum``'s bit for bit on any grid (a
+    probe of N = 70,000 samples: 274 tiles, two rows of slots)."""
+    v = _terms("wide", 70000, grid)
+    assert _grid_partition_sum(v, grid, layout) == L.partition_sum(v).item()
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_target_words_made_once_a_target(kind):
+    """``_build.kernel_target``'s words and the ladder wrapper's (made
+    from them, with the sampler's) are made once a target: a second call
+    returns the same tensor, equal to words made afresh; another target of
+    the same kind gets its own; the entry goes with its target."""
+    import gc
+
+    from rwm_pt_tpu_torch.kernels import _build, ladder_build
+    name, d, kw = KINDS[kind]
+    tg = tget(name, d, device=CPU, **kw)
+    got = _build.kernel_target(tg)
+    assert _build.kernel_target(tg)[1] is got[1]
+    assert got[0] == kind
+    assert torch.equal(got[1], _build._kernel_target(tg)[1])
+    other = tget(name, d, device=CPU, **kw)
+    assert _build.kernel_target(other)[1] is not got[1]
+    words = ladder_build._words(tg, kind)   # made from kernel_target's
+    assert ladder_build._words(tg, kind)[1] is words[1]
+    assert torch.equal(words[0], got[1])
+    assert torch.equal(words[1], sampler_params(kind, tg))
+    assert _build.kernel_target(tg)[1] is got[1]
+    key = id(tg)
+    assert key in _build._PER_TARGET
+    del tg, got, words
+    gc.collect()
+    assert key not in _build._PER_TARGET
+
+
+def test_per_target_keeps_nothing_that_raises():
+    """A target no kernel takes raises each time and leaves no entry."""
+    from rwm_pt_tpu_torch.kernels import _build
+
+    class Custom:
+        dim = 3
+    t = Custom()
+    for _ in range(2):
+        with pytest.raises(NotImplementedError):
+            _build.kernel_target(t)
+    assert id(t) not in _build._PER_TARGET
+
+
+@pytest.mark.parametrize("stamps", [False, True])
+def test_ladder_measuring_build_is_its_own_library(stamps):
+    """``ladder_lib(..., stamps=True)`` names the measuring build: the same
+    kind and bucket with ``-DRWM_PT_LADDER_STAMPS``, in a file of its own;
+    the ladder kernel's library carries no stamps."""
+    from rwm_pt_tpu_torch.kernels import _build
+    name = _build.ladder_lib("three_mixture", 10, stamps)
+    flags = _build._flags(name)
+    assert ("-DRWM_PT_LADDER_STAMPS" in flags) == stamps
+    assert f"-DRWM_PT_TARGET={_build.TARGET_KINDS['three_mixture']}" in flags
+    assert "-DRWM_PT_DMAX=16" in flags
+    assert name.endswith(".stamps") == stamps
+    assert (_build._lib_path(name) == _build._lib_path(
+        _build.ladder_lib("three_mixture", 10))) == (not stamps)
+
+
+def _rn32(x):
+    """The float32 nearest the rational ``x`` (ties to even), without
+    rounding twice."""
+    from fractions import Fraction
+    c = np.float32(float(x))
+    near = (np.nextafter(c, np.float32(-np.inf)), c,
+            np.nextafter(c, np.float32(np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x),
+                                    int(v.view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("case", ["draws", "adversarial"])
+def test_div_by_rounds_as_the_quotient(case):
+    """csrc/ladder_build.cu::div_by, a / b from y = RN(1 / b) as RN(q +
+    RN(a - b q) y) with q = RN(a y) (each FMA one rounding, exact rational
+    arithmetic here), equals the IEEE quotient RN(a / b) for the
+    mixtures' quotients (a normal over sqrt(beta), a mean plus that over
+    a scale) and where q is least accurate: b just below a power of two,
+    a / b near the top of its binade (Markstein's theorem)."""
+    from fractions import Fraction as F
+    rng = np.random.default_rng(0 if case == "draws" else 1)
+    f32 = np.float32
+    for _ in range(2000):
+        if case == "draws":
+            b = f32(np.sqrt(f32(rng.uniform(0.01, 1.0))))
+            a = f32(rng.normal() * 3 + rng.choice([0.0, 5.0, -5.0, 100.0]))
+        else:
+            b = f32(np.ldexp(1.0, int(rng.integers(-3, 3)))
+                    * (1 - rng.integers(1, 2000) * 2.0 ** -24))
+            a = f32(np.ldexp(1.0, int(rng.integers(-3, 4)))
+                    * (2 - rng.integers(1, 4000) * 2.0 ** -24) * float(b))
+        y = f32(1) / b
+        q = a * y
+        r = _rn32(F(float(a)) - F(float(b)) * F(float(q)))
+        got = _rn32(F(float(q)) + F(float(r)) * F(float(y)))
+        assert got == a / b, (a, b)
