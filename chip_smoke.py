@@ -209,8 +209,9 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    through ``MCMCSimulation(iterative_temp_spacing=True)`` with the launch
    counted (the count of the kernels line), then the kernel against its
    plain version at N = 20,000, tolerance 0.01 and the harness's room
-   (the same T and probes, betas to rtol 1e-5, the swap estimates to rtol
-   1e-5 up to the first that differs), timed beside its bound; (b) the PT
+   (the same T and probes, betas to rtol 1e-5, the swap estimates
+   non-finite at the same probes and some finite, to rtol 1e-5 up to the
+   first that differs), timed beside its bound; (b) the PT
    study's 30 ladders at ``experiment_pt``'s defaults and room (N =
    50,000, tolerance 5e-4, 500 pn steps, fail factor 1.5): the host loop
    against the kernel, seconds each, the ladders equal; (c) one
@@ -228,8 +229,9 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    chains-sharded on 1, 2 and 4 shards, each equal bit for bit (x, lp,
    every counter and sum) to the unsharded run: the flagship PT, the RWM
    headline, d = 100 PT and RWM (the team kernels, the G the unsharded
-   launch picks) and SuperFunnel's fixed thread builds (PT T = 8 and RWM,
-   65,536, 200 steps); (b) the temps-sharded hybrid at the flagship shape
+   launch picks), d = 500 PT and RWM (the 512 bucket, 4096, 200 steps)
+   and SuperFunnel's fixed thread builds (PT T = 8 and RWM, 65,536, 200
+   steps); (b) the temps-sharded hybrid at the flagship shape
    on ``temps`` meshes of 2, 5 and 10 shards and a ``chains`` x ``temps``
    mesh of 2 x 5: x, lp, MH and swap counts equal bit for bit across the
    four partitions, held against ``run_pt_fused(swap_sweep="even_odd")``
@@ -245,6 +247,40 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    shard's plain version on the card) over 200 steps at the main path's
    shapes, as phase 6 holds the kernels, and timed beside its bound: the
    kernel's bound for the same work plus the swap events' bytes.
+20. the wide warp buckets (252 < d <= 1020, A15's remainder: ``.w512``,
+   d + 4 <= 512 slots, and ``.w1024``, teams of G = 16 and 32 lanes; the
+   ladder kernel's ``.d512`` and ``.d1024``): (a) built with the rest in
+   phase 2, every kind at d = 500 and the kinds (b) holds at d = 1000 with
+   the rule's draw, the full MVN under UniformRadius, the iso MVN under
+   Laplace and UniformRadius,
+   every draw at d = 500, Box-Muller at the odd edges, SuperFunnel built
+   for its dataset's shape at J = 100, K = 3, n = 20 (d = 406), the ladder
+   libraries (no stack frame, no spill; the full MVN ladder's local array
+   stated); (b) every such library held against its plain version at
+   every team size that takes the launch (phase 3's checks): every kind at
+   d = 500 and the iso MVN, FullRosenbrock and IIDGamma at d = 1000 (PT
+   T = 10 on 256 replicas, RWM 512 chains, 30 steps), the proposals, the
+   draws, recorded, PT on each bucket's most rungs (``target_max_rungs``)
+   and an even/odd sweep, the edges d = 253, 508, 509, 1020 (1000, ragged;
+   Box-Muller at the odd ones), SuperFunnel at d = 406 equal bit for bit to
+   its run-time-shape library; (c) Geweke at d = 500 on the iso MVN; (d)
+   the main shapes at full width, FullRosenbrock and the iso MVN at d = 500
+   and 1000 through ``run_pt_fused`` (65,536 replicas x T = 10) and
+   ``run_rwm_fused`` (65,536 chains), 2000 steps, best of 3 calls, the
+   first's launches counted, beside the bound, the team the geometry picked,
+   each kernel held against its plain version at that shape over 5 steps,
+   the eager engine's ms a step; (e) ``MCMCSimulation`` RWM and PT at
+   d = 1000,
+   ``experiment_rwm --dim 1000`` (``smoke_out/wide/``), the ladder kernel's
+   main path (``MCMCSimulation(iterative_temp_spacing=True)`` at d = 1000)
+   and the kernel against its plain version for every kind with a direct
+   sampler at d = 500 (N = 3000; NealFunnel at sigma_v^2 = 0.01, whose
+   swap estimates stay finite, and shown at its default 9, where they are
+   NaN) and the iso MVN at d = 1000 (N = 20,000), the swap estimates
+   finite at the same probes, and d = 1021 refused with
+   ``NotImplementedError``;
+   (f) the RWM acceptance on the iso MVN at d = 1000, from the target's
+   init and from exact draws, beside 0.234.
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -450,6 +486,37 @@ SHARD_HOLD = dict(shards=4, temps=5, swap_every=10)
 SHARD_WIDE_TEMPS = (5, 10)
 SHARD_WIDE = dict(steps=200, swap_every=20)
 SHARD_STUDY_CONFIGS = 2
+
+
+# phase 20, the wide warp buckets (252 < d <= 1020, A15's remainder): a d
+# of each (the 512 bucket's 500, the 1024 bucket's 1000), the buckets'
+# edges, HybridRosenbrock's blocks at those d (d = 1 + n2 (n1 - 1)), the
+# kinds held at d = 1000, the holds' shape, SuperFunnel's shape in the 512
+# bucket (d = 406), the main shapes' held steps (the plain version's step
+# at 65,536 x 10 x 1000 floats is the slow part), the study's configs, the
+# ladder's holds (samples a side: the harness's N at d = 500, at a
+# beta_min and tolerance that keep the rungs and probes (and the plain
+# version's time) few, and N = 20,000 at phase 18's tolerance for the iso
+# MVN at d = 1000, down to a beta_min of 0.2, so that its ladder fits the
+# fused kernel's 26 rungs, which down to 0.01 it does not; NealFunnel at
+# sigma_v^2 = 0.01: the tempered funnel's v has mean (1 - beta)(d - 1)
+# sigma_v^2 / (2 beta), ~3700 at d = 500, sigma_v^2 = 9 and the search's
+# first probe beta* = 0.378, where exp(v) overflows float32 and every swap
+# estimate is NaN, in JAX's builder too; at 0.01 it is ~4) and the
+# chains-sharded runs' shape
+WIDE_D = (500, 1000)
+WIDE_EDGES = (253, 508, 509, 1020)
+WIDE_HYBRID = {500: {"n1": 2, "n2": 499}, 1000: {"n1": 4, "n2": 333}}
+WIDE_KINDS_1000 = ("mvn_iso", "rosenbrock", "iid_gamma")
+WIDE_HOLD = dict(steps=30, burn_in=10, swap_every=10, T=10, C_pt=256,
+                 C_rwm=512)
+WIDE_SF = dict(J=100, K=3, n=20)
+WIDE_MAIN_HOLD_STEPS = 5
+WIDE_STUDY_CONFIGS = 3
+WIDE_LADDER = dict(N=LADDER_HARNESS_N, N_wide=20000, beta_min=0.2,
+                   held=dict(beta_min=0.3, tolerance=0.05),
+                   kw={"neal_funnel": {"sigma_v_sq": 0.01}})
+WIDE_SHARD = dict(C=4096, iters=200)
 
 
 def fail(msg):
@@ -882,9 +949,12 @@ def hold_run(torch, what, launch, plain, args, kw, names):
 
 
 def kernel_record(torch, name, source, replaces, launches, launch, plain,
-                  names, case, iters, phase=6, hold_steps=HOLD_STEPS):
+                  names, case, iters, phase=6, hold_steps=HOLD_STEPS,
+                  main=None):
     """Time kernel ``name`` alone at its main path's size (``iters`` steps,
-    best of 3), then over ``hold_steps`` steps at the main path's shapes time
+    best of 3; ``main``: that time and its work, where the caller timed
+    the main path itself), then over ``hold_steps`` steps at the main
+    path's shapes time
     it again, time its plain version once, hold the two together
     (:func:`hold_run`) and set both kernel times beside their bounds.
     ``case(steps, hold)`` gives a launch's ``(args, kw, work)``, ``work``
@@ -894,10 +964,13 @@ def kernel_record(torch, name, source, replaces, launches, launch, plain,
     ``bound_ms`` of the record are for the ``hold_steps`` run, the
     ``main_path_*`` keys for the main path's size."""
     from rwm_pt_tpu_torch.kernels import agreement
-    full_args, full_kw, full_work = case(iters, False)
-    full_ms, _ = cuda_ms(torch, lambda: launch(*full_args, **full_kw),
-                         reps=3)
-    del full_args, _
+    if main is None:
+        full_args, full_kw, full_work = case(iters, False)
+        full_ms, _ = cuda_ms(torch, lambda: launch(*full_args, **full_kw),
+                             reps=3)
+        del full_args, _
+    else:
+        full_ms, full_work = main
     hold_args, hold_kw, work = case(hold_steps, True)
     flops, int_ops, nbytes, _ = work
     ms, plain_ms, ag = hold_run(torch, f"{name} at main-path shapes", launch,
@@ -2381,6 +2454,168 @@ def warp_target(get_target_distribution, kind, d, dev):
                        kw=WARP_KW.get(kind))
 
 
+def warp_case(torch, gen, algo, tg, var, steps, C, T=10, prop="Normal",
+              draw="lax_erfinv", burn_in=0, swap_every=100, seed=61):
+    """(launch, plain, output names, args, kw, work) of a launch of fused
+    kernel ``algo`` ("pt" or "rwm") on ``tg``: C replicas x T rungs 1 ..
+    0.01 (PT) or C chains from the target's init (``gen``), ``steps``
+    steps, proposal ``prop`` of Normal variance ``var``
+    (:func:`proposal_params`), normal draw ``draw``; ``work`` is
+    :func:`pt_work`'s or :func:`rwm_work`'s (None for SuperFunnel, whose
+    bound counts the valid log-densities a run meets: phase 17)."""
+    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt, fused_rwm
+    from rwm_pt_tpu_torch.kernels.draws import seed_key
+    from rwm_pt_tpu_torch.proposals import create_proposal_distribution
+    dev = torch.device("cuda")
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
+    n_params = _build.kernel_target(tg)[1].numel()
+    tkind = _build.target_kind(tg)
+    pr = None if prop == "Normal" else create_proposal_distribution(
+        tg.dim, {"name": prop, "params": proposal_params(prop, tg.dim, var)},
+        device=dev)
+    if algo == "pt":
+        betas = torch.logspace(0, -2, T, device=dev)
+        kind, sig = fused_pt.rung_scales(pr, var, betas,
+                                         torch.ones_like(betas))
+        x0 = tg.init_sample(C, gen).T[:, None].expand(
+            tg.dim, T, C).contiguous()
+        args = (tg, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(seed), 0, steps, burn_in, swap_every)
+        work = None if tkind == "super_funnel" else pt_work(
+            tkind, tg.dim, T, C, steps, burn_in, swap_every, prop=kind,
+            draw=draw, n_params=n_params)
+        return (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+                agreement.PT_OUTPUTS, args, dict(kind=kind, draw=draw),
+                work)
+    beta = torch.tensor(1.0, device=dev)
+    kind, scale = fused_rwm.proposal_scale(pr, var, beta)
+    x0 = tg.init_sample(C, gen).T.contiguous()
+    args = (tg, x0, zi(C), zf(C), beta, scale, seed_key(seed), 0, steps,
+            burn_in)
+    work = None if tkind == "super_funnel" else rwm_work(
+        tkind, tg.dim, C, steps, prop=kind, draw=draw, n_params=n_params)
+    return (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+            agreement.RWM_OUTPUTS, args, dict(kind=kind, draw=draw), work)
+
+
+def warp_hold(torch, gen, phase, label, algo, tg, var, C, steps,
+              record=False, sweep=None, **kw):
+    """One hold of a warp library (phases 16b, 20b): the launch of
+    :func:`warp_case` (``kw`` its options) against its plain version, at
+    every team size the library holds whose block takes the launch, its
+    launches counted under the library's ``.w<D>`` key and nowhere else;
+    ``record`` records every step of every replica, ``sweep`` the PT pair
+    order.  A disagreement fails the smoke.  Returns the least agreeing
+    team's ``Agreement``."""
+    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt, fused_rwm
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    launch, plain, names, args, lkw, work = warp_case(torch, gen, algo, tg,
+                                                      var, steps, C, **kw)
+    if sweep:
+        lkw["swap_sweep"] = sweep
+    if record:
+        lkw.update(record_every=1, record_chains=C)
+        names = names + ("chain",)
+        work = (work[0], work[1], work[2] + rec_bytes(tg.dim, steps, 1, C),
+                work[3])
+    b_ms, _, b_lim = bound(*work)
+    lib = _build.lib_name(_build.library(f"fused_{algo}", lkw["kind"],
+                                         lkw["draw"]),
+                          _build.target_kind(tg), tg.dim)
+    want = {_build.launch_key(lib)} | (
+        {f"fused_{algo}_record"} if record else set())
+    plain_ms, p = cuda_ms(torch, lambda: plain(*args, **lkw))
+    worst = None
+    rungs = kw.get("T", 10) if algo == "pt" else 0
+    n_params = _build.kernel_target(tg)[1].numel()
+    for team in _build.library_teams(lib):
+        try:   # G = 32 takes 16 rungs above the 128 bucket
+            _build.launch_geometry(lib, tg.dim, C, rungs, lkw["kind"],
+                                   lkw["draw"], n_params, team=team)
+        except ValueError:
+            continue
+        reset_launches(*wrappers)
+        ms, k = cuda_ms(torch, lambda: launch(*args, team=team, **lkw),
+                        reps=3)
+        seen = read_launches(*wrappers, by_kind=True)
+        ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+        if not _build.is_warp(lib) or set(seen) != want:
+            fail(f"phase {phase} {label} G={team}: launches {dict(seen)}, "
+                 f"want {want}")
+        say(f"phase {phase} {label}: {lib} G={team} kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_lim}; "
+            f"{agreement.describe(ag)}")
+        if ag.frac < AGREE_MIN or ag.mismatched:
+            fail(f"phase {phase} {label} G={team} disagrees with its plain "
+                 f"version: {agreement.describe(ag)}")
+        worst = ag if worst is None or ag.frac < worst.frac else worst
+    if worst is None:
+        fail(f"phase {phase} {label}: no team size of {lib} takes it")
+    return worst
+
+
+def harness_entry(torch, phase, suffix, algo, d, steps, **kw):
+    """``MCMCSimulation`` ``algo`` ("RWM" or "PT"), ``steps`` iterations
+    at d coordinates on 4096 chains recording every step of REC_CHAINS
+    (``kw``: its target, variance and other options), its launches
+    counted from 0: the engine "pallas", a finite (steps, d) chain and one
+    launch of a library whose name ends in ``suffix`` (besides the
+    recording path's), else the smoke fails.  Returns the launches."""
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.kernels import fused_pt, fused_rwm
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    sim = MCMCSimulation(dim=d, num_iterations=steps, algorithm=algo,
+                         seed=0, num_chains=4096, swap_every=100,
+                         record_chain=True, record_chains=REC_CHAINS,
+                         device=torch.device("cuda"), **kw)
+    reset_launches(*wrappers)
+    chain = sim.generate_samples(verbose=False)
+    seen = read_launches(*wrappers)
+    keys = [k for k in seen if not k.endswith("_record")]
+    if (sim.engine_used != "pallas" or chain.shape != (steps, d)
+            or not torch.isfinite(torch.as_tensor(chain)).all()
+            or not keys or not all(k.endswith(suffix) for k in keys)
+            or sum(seen[k] for k in keys) != 1):
+        fail(f"phase {phase} MCMCSimulation {algo} d={d}: engine "
+             f"{sim.engine_used}, chain {getattr(chain, 'shape', None)}, "
+             f"launches {dict(seen)}")
+    say(f"phase {phase} MCMCSimulation {algo} d={d} (4096 chains, "
+        f"{len(sim.beta_ladder or [])} rungs): engine {sim.engine_used}, "
+        f"{sim.elapsed_time * 1e3:.3f} ms wall, acc "
+        f"{sim.acceptance_rate():.4f}; launches {dict(seen)}")
+    return seen
+
+
+def study_entry(torch, phase, suffix, d, configs, chains, out_dir):
+    """``experiment_rwm`` on the MVN at d coordinates, ``configs`` configs
+    of ``chains`` chains (2000 iterations after 200, JSON under
+    ``out_dir``), its launches counted from 0: one launch a config, each
+    of a library whose name ends in ``suffix``, else the smoke fails.
+    Returns the launches."""
+    import contextlib
+    from rwm_pt_tpu_torch.cli import experiment_rwm
+    from rwm_pt_tpu_torch.kernels import fused_pt, fused_rwm
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    reset_launches(*wrappers)
+    with contextlib.redirect_stdout(sys.stderr):
+        data = experiment_rwm.main([
+            "--dim", str(d), "--target", "MultivariateNormal",
+            "--num_iters", "2000", "--burn_in", "200", "--num_configs",
+            str(configs), "--num_chains", str(chains), "--no_plots",
+            "--output_dir", out_dir])
+    seen = read_launches(*wrappers)
+    if (not seen or not all(k.endswith(suffix) for k in seen)
+            or sum(seen.values()) != configs):
+        fail(f"phase {phase} experiment_rwm --dim {d}: launches "
+             f"{dict(seen)}")
+    say(f"phase {phase} experiment_rwm --dim {d}, {chains} chains, "
+        f"{configs} configs: acc "
+        f"{[round(a, 4) for a in data['acceptance_rates']]}; launches "
+        f"{dict(seen)}")
+    return seen
+
+
 def phase_16(torch, gen):
     """Phase 16, the warp kernels above 64 dimensions (A15): (b) every warp
     library held against its plain version, (c) Geweke at d = 100, (d) the
@@ -2394,99 +2629,35 @@ def phase_16(torch, gen):
     import glob
 
     from rwm_pt_tpu_torch.api import MCMCSimulation
-    from rwm_pt_tpu_torch.cli import experiment_rwm, single_run
+    from rwm_pt_tpu_torch.cli import single_run
     from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
                                           fused_rwm, run_pt, run_rwm,
                                           run_rwm_fused)
-    from rwm_pt_tpu_torch.kernels.draws import seed_key
     from rwm_pt_tpu_torch.proposals import (NormalProposal,
                                             create_proposal_distribution)
     from rwm_pt_tpu_torch.targets import get_target_distribution
 
     t_phase = time.time()
     dev = torch.device("cuda")
-    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
-    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
     wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
     D = WARP_D
     h = WARP_HOLD
     rule = {a: draws.resolve_normal_impl(a, 65536) for a in ("pt", "rwm")}
 
-    def proposal(prop, dim, var):
-        return None if prop == "Normal" else create_proposal_distribution(
-            dim, {"name": prop, "params": proposal_params(prop, dim, var)},
-            device=dev)
+    def case(algo, tg, var, steps, C, T=h["T"], burn_in=h["burn_in"],
+             swap_every=h["swap_every"], **kw):
+        return warp_case(torch, gen, algo, tg, var, steps, C, T=T,
+                         burn_in=burn_in, swap_every=swap_every,
+                         draw=kw.pop("draw", None) or rule[algo], **kw)
 
-    def case(algo, tg, var, steps, C, T=h["T"], prop="Normal", draw=None,
-             burn_in=h["burn_in"], swap_every=h["swap_every"], seed=61):
-        """(launch, plain, output names, args, kw, work) of a launch of
-        kernel ``algo`` on ``tg``."""
-        draw = draw or rule[algo]
-        n_params = _build.kernel_target(tg)[1].numel()
-        pr = proposal(prop, tg.dim, var)
-        if algo == "pt":
-            betas = torch.logspace(0, -2, T, device=dev)
-            kind, sig = fused_pt.rung_scales(pr, var, betas,
-                                             torch.ones_like(betas))
-            x0 = tg.init_sample(C, gen).T[:, None].expand(
-                tg.dim, T, C).contiguous()
-            args = (tg, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
-                    seed_key(seed), 0, steps, burn_in, swap_every)
-            work = pt_work(_build.target_kind(tg), tg.dim, T, C, steps,
-                           burn_in, swap_every, prop=kind, draw=draw,
-                           n_params=n_params)
-            return (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
-                    agreement.PT_OUTPUTS, args, dict(kind=kind, draw=draw),
-                    work)
-        beta = torch.tensor(1.0, device=dev)
-        kind, scale = fused_rwm.proposal_scale(pr, var, beta)
-        x0 = tg.init_sample(C, gen).T.contiguous()
-        args = (tg, x0, zi(C), zf(C), beta, scale, seed_key(seed), 0, steps,
-                burn_in)
-        work = rwm_work(_build.target_kind(tg), tg.dim, C, steps, prop=kind,
-                        draw=draw, n_params=n_params)
-        return (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
-                agreement.RWM_OUTPUTS, args, dict(kind=kind, draw=draw), work)
-
-    def hold(label, algo, tg, var, C=None, record=False, sweep=None, **kw):
-        """One 16b hold: the warp library against its plain version
-        (:func:`hold_run`), its launches counted under the library's
-        ``.w<D>`` key and nowhere else."""
-        C = C or (h["C_pt"] if algo == "pt" else h["C_rwm"])
-        launch, plain, names, args, lkw, _ = case(algo, tg, var, h["steps"],
-                                                  C, **kw)
-        if sweep:
-            lkw["swap_sweep"] = sweep
-        if record:
-            lkw.update(record_every=1, record_chains=C)
-            names = names + ("chain",)
-        lib = _build.lib_name(_build.library(f"fused_{algo}", lkw["kind"],
-                                             lkw["draw"]),
-                              _build.target_kind(tg), tg.dim)
-        want = {_build.launch_key(lib)} | (
-            {f"fused_{algo}_record"} if record else set())
-        plain_ms, p = cuda_ms(torch, lambda: plain(*args, **lkw))
-        worst = None
-        rungs = kw.get("T", h["T"]) if algo == "pt" else 1
-        for team in _build.library_teams(lib):
-            if rungs * team > _build.pt_team_threads(
-                    _build.warp_bucket(tg.dim), team):
-                continue   # G = 32 takes 16 rungs in the 256 bucket
-            reset_launches(*wrappers)
-            ms, k = cuda_ms(torch, lambda: launch(*args, team=team, **lkw),
-                            reps=3)
-            seen = read_launches(*wrappers, by_kind=True)
-            ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
-            if not _build.is_warp(lib) or set(seen) != want:
-                fail(f"phase 16b {label} G={team}: launches {dict(seen)}, "
-                     f"want {want}")
-            say(f"phase 16b {label}: {lib} G={team} kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.1f} ms; {agreement.describe(ag)}")
-            if ag.frac < AGREE_MIN or ag.mismatched:
-                fail(f"phase 16b {label} G={team} disagrees with its plain "
-                     f"version: {agreement.describe(ag)}")
-            worst = ag if worst is None or ag.frac < worst.frac else worst
-        return worst
+    def hold(label, algo, tg, var, C=None, **kw):
+        """One 16b hold (:func:`warp_hold`)."""
+        return warp_hold(torch, gen, "16b", label, algo, tg, var,
+                         C or (h["C_pt"] if algo == "pt" else h["C_rwm"]),
+                         h["steps"], **dict(dict(
+                             T=h["T"], burn_in=h["burn_in"],
+                             swap_every=h["swap_every"],
+                             draw=rule[algo]), **kw))
 
     # ---- (b) holds
     worst = 1.0
@@ -2615,37 +2786,13 @@ def phase_16(torch, gen):
 
     betas4 = [1.0, 0.7, 0.5, 0.35]
     for algo in ("RWM", "PT"):
-        sim = MCMCSimulation(
-            dim=D, sigma=var, num_iterations=2000, algorithm=algo,
-            target_dist="MultivariateNormal", seed=0,
-            beta_ladder=betas4 if algo == "PT" else None, num_chains=4096,
-            swap_every=100, record_chain=True, record_chains=REC_CHAINS,
-            engine="auto", device=dev)
-        reset_launches(*wrappers)
-        chain = sim.generate_samples(verbose=False)
-        seen = read_launches(*wrappers)
-        want_warp(f"MCMCSimulation {algo}", seen, 1)
-        if (sim.engine_used != "pallas" or chain.shape != (2000, D)
-                or not torch.isfinite(torch.as_tensor(chain)).all()):
-            fail(f"phase 16e MCMCSimulation {algo}: engine "
-                 f"{sim.engine_used}, chain {getattr(chain, 'shape', None)}")
-        say(f"phase 16e MCMCSimulation {algo} d={D} (4096, engine='auto'): "
-            f"engine {sim.engine_used}, {sim.elapsed_time * 1e3:.3f} ms "
-            f"wall, acc {sim.acceptance_rate():.4f}; launches {dict(seen)}")
-        del sim, chain
+        main_seen.update(harness_entry(
+            torch, "16e", ".w128", algo, D, 2000, sigma=var,
+            target_dist="MultivariateNormal",
+            beta_ladder=betas4 if algo == "PT" else None, engine="auto"))
     out_dir = os.path.join(HERE, "smoke_out", "warp")
-    reset_launches(*wrappers)
-    with contextlib.redirect_stdout(sys.stderr):
-        data = experiment_rwm.main([
-            "--dim", str(D), "--target", "MultivariateNormal",
-            "--num_iters", "2000", "--burn_in", "200", "--num_configs", "4",
-            "--num_chains", "512", "--no_plots", "--output_dir",
-            os.path.join(out_dir, "study")])
-    seen = read_launches(*wrappers)
-    want_warp("experiment_rwm", seen, 4)
-    say(f"phase 16e experiment_rwm --dim {D}, 4 configs: acc "
-        f"{[round(a, 4) for a in data['acceptance_rates']]}; launches "
-        f"{dict(seen)}")
+    main_seen.update(study_entry(torch, "16e", ".w128", D, 4, 512,
+                                 os.path.join(out_dir, "study")))
     reset_launches(*wrappers)
     with contextlib.redirect_stdout(sys.stderr):
         data = single_run.main([
@@ -3547,10 +3694,11 @@ def ladder_work(kind, d, n, probes):
             probes * 16 * -(-n // 256))
 
 
-def ladder_target(get_target_distribution, kind, d, dev):
-    """Phase 18's target of ``kind`` at ``d`` coordinates."""
+def ladder_target(get_target_distribution, kind, d, dev, kw=None):
+    """Phase 18's target of ``kind`` at ``d`` coordinates (``kw``: other
+    arguments than :data:`LADDER_KINDS`')."""
     import numpy as np
-    name, kw = LADDER_KINDS[kind]
+    name, kw = LADDER_KINDS[kind][0], kw or LADDER_KINDS[kind][1]
     if kw == "cov":
         a = np.random.default_rng(3).normal(size=(d, d))
         kw = {"cov": a @ a.T / d + np.eye(d)}
@@ -3564,6 +3712,70 @@ def first_difference(a, b, rtol=1e-5):
     ``rtol``, or None."""
     return next((i for i, (x, y) in enumerate(zip(a, b))
                  if abs(x - y) > rtol * abs(y)), None)
+
+
+def ladder_hold(torch, phase, tg, kind, label, kw, reps=3):
+    """The ladder kernel (best of ``reps``) against its plain version
+    (once) with the builder's options ``kw``: the same T and probes, the
+    betas to rtol 1e-5, the swap estimates non-finite at the same probes
+    and some of them finite; else the smoke fails.  (A NaN estimate, as
+    the tempered funnel's float32 overflow gives on both sides alike,
+    runs a rung's search to its cap and ends the ladder at beta_min: a
+    build of NaN estimates alone would agree with any kernel.)  Returns
+    the kernels line's numbers of the build."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    launch = ladder_build.launch_ladder_kernel
+    ms, k = cuda_ms(torch, lambda: launch(tg, **kw), reps=reps)
+    plain_ms, p = cuda_ms(
+        torch, lambda: L._construct_iterative_ladder_device_plain(tg, **kw))
+    first = first_difference(k.a_hats, p.a_hats)
+    fin_k = [math.isfinite(a) for a in k.a_hats]
+    finite = sum(fin_k)
+    ok_finite = finite > 0 and fin_k == [math.isfinite(a) for a in p.a_hats]
+    err = max([abs(a - b) for a, b in zip(k.a_hats, p.a_hats)
+               if math.isfinite(a) and math.isfinite(b)] or [0])
+    same = (len(k.betas) == len(p.betas) and k.probes == p.probes
+            and all(abs(a - b) <= 1e-5 * abs(b)
+                    for a, b in zip(k.betas, p.betas)))
+    n = kw["N_samples_swap_est"]
+    flops, ints, nbytes = ladder_work(kind, tg.dim, n, k.probes)
+    b_ms, b_by, b_limit = bound(flops, ints, nbytes)
+    us = 1e3 * ms / max(k.probes, 1)
+    say(f"phase {phase} {label} N={n}, beta_min {kw.get('beta_min', 0.01)},"
+        f" tolerance {kw['tolerance']}: T {len(k.betas)} / {len(p.betas)}, "
+        f"probes {k.probes} / {p.probes}, betas equal to 1e-5: {same}; swap "
+        f"estimates finite {finite} of {k.probes} (at the same probes: "
+        f"{ok_finite}), max |diff| over them {err:.3g}, first beyond rtol "
+        f"1e-5 at probe {first}; kernel {ms:.3f} ms ({us:.1f} us a "
+        f"probe), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_limit} "
+        f"({100 * b_ms / ms:.1f} %); {[round(b, 5) for b in k.betas]}")
+    if not same or not ok_finite:
+        fail(f"phase {phase} {label}: the ladder kernel disagrees with its "
+             f"plain version: {k.betas} ({k.probes}) vs {p.betas} "
+             f"({p.probes}), {finite} finite swap estimates")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_limit=b_limit, max_abs_err=err, probes=k.probes,
+                finite_estimates=finite,
+                T=len(k.betas), first_difference=first, flops=flops,
+                philox_int_ops=ints, bytes=nbytes, us_a_probe=us)
+
+
+def ladder_record(name, launches, tg, kind, held):
+    """A ladder library's record in the kernels line: ``launches`` on its
+    main path, the numbers of :func:`ladder_hold` (``held``) and the
+    kernel's registers, local memory and residency at ``tg``'s d."""
+    from rwm_pt_tpu_torch.kernels import _build, ladder_build
+    info = ladder_build.info(kind, tg.dim,
+                             _build.kernel_target(tg)[1].numel())
+    return dict(name=name, route="cuda",
+                source="rwm_pt_tpu_torch/kernels/csrc/ladder_build.cu",
+                replaces="rwm_pt_tpu/ladders/ladders.py:148",
+                launches=launches, library_ms=None, dim=tg.dim, **held,
+                registers=info["registers"], local_bytes=info["local_bytes"],
+                blocks_per_sm=info["blocks_per_sm"],
+                warps_per_sm=info["blocks_per_sm"] * info["max_threads"]
+                // 32)
 
 
 def phase_18(torch, gen):
@@ -3586,8 +3798,6 @@ def phase_18(torch, gen):
     dev = torch.device("cuda")
     launch = ladder_build.launch_ladder_kernel
     wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
-    src = "rwm_pt_tpu_torch/kernels/csrc/ladder_build.cu"
-    site = "rwm_pt_tpu/ladders/ladders.py:148"
     kernels = []
 
     # the room MCMCSimulation's default engine gives the ladder (its main
@@ -3595,38 +3805,9 @@ def phase_18(torch, gen):
     held = dict(LADDER_HOLD, max_T=L.EAGER_MAX_RUNGS + 1)
 
     def hold(tg, kind, label, n=LADDER_HOLD["N_samples_swap_est"]):
-        """The kernel (best of 3) against its plain version (once) at
-        LADDER_HOLD (``n`` samples a side): same T and probes, betas rtol
-        1e-5."""
-        kw = dict(held, N_samples_swap_est=n)
-        ms, k = cuda_ms(torch, lambda: launch(tg, **kw), reps=3)
-        plain_ms, p = cuda_ms(
-            torch, lambda: L._construct_iterative_ladder_device_plain(
-                tg, **kw))
-        first = first_difference(k.a_hats, p.a_hats)
-        err = max([abs(a - b) for a, b in zip(k.a_hats, p.a_hats)] or [0])
-        same = (len(k.betas) == len(p.betas) and k.probes == p.probes
-                and all(abs(a - b) <= 1e-5 * abs(b)
-                        for a, b in zip(k.betas, p.betas)))
-        flops, ints, nbytes = ladder_work(kind, tg.dim, n, k.probes)
-        b_ms, b_by, b_limit = bound(flops, ints, nbytes)
-        say(f"phase 18a {label} N={n}: T {len(k.betas)} / {len(p.betas)}, "
-            f"probes "
-            f"{k.probes} / {p.probes}, betas equal to 1e-5: {same}; swap "
-            f"estimates max |diff| {err:.3g}, first beyond rtol 1e-5 at "
-            f"probe {first}; kernel {ms:.3f} ms ({1e3 * ms / k.probes:.1f} "
-            f"us a probe), plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by "
-            f"{b_limit} ({100 * b_ms / ms:.1f} %); "
-            f"{[round(b, 5) for b in k.betas]}")
-        if not same:
-            fail(f"{label}: the ladder kernel disagrees with its plain "
-                 f"version: {k.betas} ({k.probes}) vs {p.betas} "
-                 f"({p.probes})")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    bound_limit=b_limit, max_abs_err=err, probes=k.probes,
-                    T=len(k.betas), first_difference=first, flops=flops,
-                    philox_int_ops=ints, bytes=nbytes,
-                    us_a_probe=1e3 * ms / k.probes)
+        """:func:`ladder_hold` at LADDER_HOLD, ``n`` samples a side."""
+        return ladder_hold(torch, "18a", tg, kind, label,
+                           dict(held, N_samples_swap_est=n))
 
     # ---- (a) every kind: its main path, then the kernel against plain
     for kind in LADDER_KINDS:
@@ -3652,16 +3833,8 @@ def phase_18(torch, gen):
             f"{sim.acceptance_rate():.4f}; launches {seen}, fused "
             f"{dict(read_launches(*wrappers))}")
         del sim
-        rec = dict(name=name, route="cuda", source=src, replaces=site,
-                   launches=launches, library_ms=None, dim=tg.dim)
-        rec.update(hold(tg, kind, f"{kind} d={tg.dim}"))
-        info = ladder_build.info(kind, tg.dim,
-                                 _build.kernel_target(tg)[1].numel())
-        rec.update(registers=info["registers"],
-                   local_bytes=info["local_bytes"],
-                   blocks_per_sm=info["blocks_per_sm"],
-                   warps_per_sm=info["blocks_per_sm"]
-                   * info["max_threads"] // 32)
+        rec = ladder_record(name, launches, tg, kind,
+                            hold(tg, kind, f"{kind} d={tg.dim}"))
         if kind == "three_mixture":
             # the harness's N (MCMCSimulation's default), a few tiles a probe
             rec["harness"] = hold(tg, kind, f"{kind} d={tg.dim}",
@@ -3946,9 +4119,9 @@ def phase_19(torch, card, dev=None):
 
     # ---- 19a chains-sharded, bit for bit against the unsharded runs
     def chains_case(label, fields, steps, unsharded, sharded, best_of=1,
-                    main=False):
+                    main=False, suffix=""):
         """``main``: the run on the largest mesh is its entry point's main
-        path."""
+        path; ``suffix``: that of the libraries every launch must be of."""
         who = ("run_pt_fused_sharded" if fields == PT_STATE
                else "run_rwm_fused_sharded")
         ref = unsharded()           # the reference, and a warm-up
@@ -3961,7 +4134,8 @@ def phase_19(torch, card, dev=None):
                                    max(SHARD_COUNTS) else None)
             ms = cuda_ms(torch, lambda: sharded(m), best_of)[0]
             bad = differ(torch, res, ref, fields)
-            if bad or sum(seen.values()) != k:
+            if bad or sum(seen.values()) != k or not all(
+                    key.endswith(suffix) for key in seen):
                 fail(f"phase 19a {label} on {k} shards: differs from the "
                      f"unsharded run in {bad}; launches {dict(seen)}")
             times[k] = ms
@@ -4010,6 +4184,26 @@ def phase_19(torch, card, dev=None):
         lambda m: run_rwm_fused_sharded(
             wide, 0, m, base_variance=wide_var, num_chains=C,
             num_iterations=RWM_MAIN["iters"]))
+    # the 512 bucket's team kernels (d = 500)
+    d5 = WIDE_D[0]
+    mvn5 = get_target_distribution("MultivariateNormal", d5, device=dev)
+    w_kw = dict(base_variance=2.38 ** 2 / d5, num_chains=WIDE_SHARD["C"],
+                num_iterations=WIDE_SHARD["iters"])
+    chains_case(
+        f"d={d5} PT (the 512 bucket; T={T}, {WIDE_SHARD['C']} replicas, "
+        f"{WIDE_SHARD['iters']} steps)", PT_STATE,
+        WIDE_SHARD["iters"] * T * WIDE_SHARD["C"],
+        lambda: run_pt_fused(mvn5, 3, betas, swap_every=10, device=dev,
+                             **w_kw),
+        lambda m: run_pt_fused_sharded(mvn5, 3, betas, m, swap_every=10,
+                                       **w_kw), suffix=".w512")
+    chains_case(
+        f"d={d5} RWM (the 512 bucket; {WIDE_SHARD['C']} chains, "
+        f"{WIDE_SHARD['iters']} steps)", RWM_STATE,
+        WIDE_SHARD["iters"] * WIDE_SHARD["C"],
+        lambda: run_rwm_fused(mvn5, 3, device=dev, **w_kw),
+        lambda m: run_rwm_fused_sharded(mvn5, 3, m, **w_kw), suffix=".w512")
+    del mvn5
     sf = sf_target(get_target_distribution, SF["J"], SF["K"], dev)
     ladder = torch.tensor(construct_geometric_ladder(), dtype=torch.float32,
                           device=dev)
@@ -4250,6 +4444,372 @@ def phase_19(torch, card, dev=None):
     return records
 
 
+def wide_target(get_target_distribution, kind, d, dev):
+    """Phase 20's target of kernel kind ``kind`` at d coordinates and its
+    Normal variance: phase 16's (:func:`warp_target`), with
+    HybridRosenbrock's blocks for d (:data:`WIDE_HYBRID`)."""
+    if kind == "hybrid_rosenbrock":
+        return kind_target(get_target_distribution, kind, d, dev,
+                           kw=WIDE_HYBRID[d])
+    return warp_target(get_target_distribution, kind, d, dev)
+
+
+def phase_20(torch, gen):
+    """Phase 20, the wide warp buckets (252 < d <= 1020, A15's remainder;
+    module docstring): (b) the holds, (c) Geweke at d = 500, (d) the main
+    shapes at d = 500 and 1000, (e) the entry points and the ladder
+    kernel, (f) the RWM rate at d = 1000 (phase 19 holds the
+    chains-sharded runs at d = 500).  Returns
+    the kernels' JSON records: PT and RWM of each new bucket, with the
+    launches of their main paths in (d), and the ladder at d = 1000, with
+    the launch of its main path in (e)."""
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          fused_rwm, ladder_build, run_pt,
+                                          run_pt_fused, run_rwm,
+                                          run_rwm_fused)
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    from rwm_pt_tpu_torch.proposals import NormalProposal
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    h = WIDE_HOLD
+    rule = {a: draws.resolve_normal_impl(a, 65536) for a in ("pt", "rwm")}
+    D5, D10 = WIDE_D
+
+    def target(kind, d):
+        return wide_target(get_target_distribution, kind, d, dev)
+
+    def hold(label, algo, tg, var, C=None, **kw):
+        """One 20b hold (:func:`warp_hold`)."""
+        return warp_hold(torch, gen, "20b", label, algo, tg, var,
+                         C or (h["C_pt"] if algo == "pt" else h["C_rwm"]),
+                         h["steps"], **dict(dict(
+                             T=h["T"], burn_in=h["burn_in"],
+                             swap_every=h["swap_every"],
+                             draw=rule[algo]), **kw))
+
+    # ---- (b) holds: every kind at d = 500, three at d = 1000, the
+    # proposals, draws and recording, each bucket's most rungs, the edges
+    worst = 1.0
+    for d in WIDE_D:
+        kinds = ([k for k in _build.TARGET_KINDS if k != "super_funnel"]
+                 if d == D5 else WIDE_KINDS_1000)
+        for kind in kinds:
+            tg, var = target(kind, d)
+            for algo in ("rwm", "pt"):
+                worst = min(worst, hold(f"{kind} d={tg.dim} "
+                                        f"{algo.upper()}", algo, tg,
+                                        var).frac)
+        mvn, var = target("mvn_iso", d)
+        full, var_f = target("mvn_full", d)
+        for algo in ("rwm", "pt"):
+            for prop in NEW_PROPOSALS:
+                hold(f"{prop} MVN d={d} {algo.upper()}", algo, mvn, var,
+                     prop=prop)
+            hold(f"UniformRadius full MVN d={d} {algo.upper()}", algo, full,
+                 var_f, prop="UniformRadius")
+            hold(f"recorded MVN d={d} {algo.upper()}", algo, mvn, var,
+                 record=True)
+            if d == D5:
+                for dr in draws.NORMAL_IMPLS:
+                    if dr != rule[algo]:
+                        hold(f"draw {dr} MVN d={d} {algo.upper()}", algo,
+                             mvn, var, draw=dr)
+        T_max = _build.target_max_rungs(mvn)
+        hold(f"MVN d={d} PT at the bucket's most rungs T={T_max}", "pt",
+             mvn, var, T=T_max, C=64)
+        rb, var_rb = target("rosenbrock", d)
+        hold(f"FullRosenbrock d={d} PT even_odd", "pt", rb, var_rb,
+             sweep="even_odd")
+        del full
+    for d_e in WIDE_EDGES:
+        te, ve = target("mvn_iso", d_e)
+        for algo in ("rwm", "pt"):
+            hold(f"edge d={d_e} {algo.upper()} (1000, ragged)", algo, te, ve,
+                 C=1000, T=4)
+            if d_e % 2:
+                hold(f"edge d={d_e} {algo.upper()} Box-Muller (odd d)", algo,
+                     te, ve, C=1000, T=4, draw="bm")
+    # SuperFunnel built for its dataset's shape in the 512 bucket, against
+    # its run-time-shape library bit for bit and its plain version
+    sf = get_target_distribution("SuperFunnel", 0, J=WIDE_SF["J"],
+                                 K=WIDE_SF["K"], n_per_group=WIDE_SF["n"],
+                                 device=dev)
+    for algo in ("rwm", "pt"):
+        sf_draw = draws.resolve_normal_impl(algo, 65536, "super_funnel")
+        launch, plain, names, args, lkw, _ = warp_case(
+            torch, gen, algo, sf, SF_VAR, h["steps"],
+            h["C_pt"] if algo == "pt" else h["C_rwm"], T=8,
+            burn_in=h["burn_in"], swap_every=h["swap_every"], draw=sf_draw)
+        lib = _build.route(_build.library(f"fused_{algo}", "Normal",
+                                          sf_draw), sf)[0]
+        if _build.fixed_shape(lib) is None or not lib.endswith(".w512"):
+            fail(f"phase 20b SuperFunnel d={sf.dim} routes to {lib}")
+        p = plain(*args, **lkw)
+        for team in _build.library_teams(lib):
+            reset_launches(*wrappers)
+            k = launch(*args, team=team, **lkw)
+            seen = read_launches(*wrappers, by_kind=True)
+            r = launch(*args, team=team, specialize=False, **lkw)
+            ag = agreement.hold(k, p, names, lp_of=sf.log_density_td)
+            equal = all(same(torch, a, b) for a, b in zip(k, r))
+            say(f"phase 20b SuperFunnel d={sf.dim} {algo.upper()} {lib} "
+                f"G={team}: equal to the run-time-shape library bit for "
+                f"bit: {equal}; {agreement.describe(ag)}; launches "
+                f"{dict(seen)}")
+            if (not equal or set(seen) != {lib} or ag.frac < AGREE_MIN
+                    or ag.mismatched):
+                fail(f"phase 20b SuperFunnel d={sf.dim} {algo} G={team}")
+    say(f"phase 20b {time.time() - t_phase:.1f} s; least share of replicas "
+        f"that agree over the kinds {worst:.5f}")
+
+    # ---- (c) Geweke at d = 500: the iso MVN, RWM and PT on six rungs
+    # 1 .. 0.8
+    seed = int.from_bytes(os.urandom(4), "little")
+    ladder = [0.8 ** (t / 5) for t in range(6)]   # swaps accepted at d = 500
+    mvn5, var5 = target("mvn_iso", D5)
+    reset_launches(*wrappers)
+    z_rwm, z_pt, sw = invariance(torch, mvn5, seed, betas=ladder,
+                                 base_variance=var5)
+    seen = read_launches(*wrappers, by_kind=True)
+    say(f"phase 20c invariance MVN d={D5} (seed {seed}): max z RWM "
+        f"{z_rwm:.2f}, PT {z_pt:.2f} (< {Z_INV_MAX}) on rungs 1 .. 0.8 (6); "
+        f"PT swap acc {sw:.3f}; launches {dict(seen)}")
+    if (max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, ladder)
+            or not all(k.endswith(".w512") for k in seen)):
+        fail("phase 20c invariance failed")
+
+    # ---- (d) the main shapes at full width through the entry points, best
+    # of 3 calls, the first's launches counted (the main path), then each
+    # kernel held against its plain version at the main shape over
+    # WIDE_MAIN_HOLD_STEPS steps
+    C, T, iters = FLAG["C"], FLAG["T"], FLAG["iters"]
+    betas = torch.logspace(0, -2, T, device=dev)
+    kernels = []
+    for d in WIDE_D:
+        for algo, src, site in (
+                ("pt", "fused_pt_warp.cu",
+                 "rwm_pt_tpu/kernels/pallas_pt.py:399"),
+                ("rwm", "fused_rwm_warp.cu",
+                 "rwm_pt_tpu/kernels/pallas_rwm.py:570")):
+            name = (f"{_build.library(f'fused_{algo}', 'Normal', rule[algo])}"
+                    f".w{_build.warp_bucket(d)}")
+            launch, plain, names = (
+                (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+                 agreement.PT_OUTPUTS) if algo == "pt" else
+                (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+                 agreement.RWM_OUTPUTS))
+            main = {}
+            for kind in ("rosenbrock", "mvn_iso"):
+                tg, v = target(kind, d)
+
+                def run(rep, tg=tg, v=v):
+                    return (run_pt_fused(tg, rep, betas, base_variance=v,
+                                         num_chains=C, num_iterations=iters,
+                                         swap_every=FLAG["swap_every"],
+                                         device=dev) if algo == "pt" else
+                            run_rwm_fused(tg, rep, base_variance=v,
+                                          num_chains=C, num_iterations=iters,
+                                          device=dev))
+                # the main path's run with its launches counted, then two
+                # more for the best of 3
+                reset_launches(*wrappers)
+                ms, res = cuda_ms(torch, lambda: run(0))
+                seen = read_launches(*wrappers)
+                st = res.state
+                acc = res.acceptance_rate.mean().item()
+                if (set(seen) != {name} or seen[name] != 1
+                        or not torch.isfinite(st.x).all()
+                        or not torch.isfinite(st.logp).all()
+                        or not 0 < acc < 1):
+                    fail(f"phase 20d {kind} d={d} {algo}: launches "
+                         f"{dict(seen)}, acc {acc}")
+                del st, res
+                times = [ms] + [cuda_ms(torch, lambda: run(rep))[0]
+                                for rep in (1, 2)]
+                n_params = _build.kernel_target(tg)[1].numel()
+                work = (pt_work(kind, d, T, C, iters, 0, FLAG["swap_every"],
+                                draw=rule[algo], n_params=n_params)
+                        if algo == "pt" else
+                        rwm_work(kind, d, C, iters, draw=rule[algo],
+                                 n_params=n_params))
+                main[kind] = (min(times), work, seen[name], acc)
+                torch.cuda.empty_cache()
+            rb, var_rb = target("rosenbrock", d)
+            geo = _build.launch_geometry(
+                _build.route(_build.library(f"fused_{algo}", "Normal",
+                                            rule[algo]), rb)[0],
+                d, C, T if algo == "pt" else 0, "Normal", rule[algo],
+                _build.kernel_target(rb)[1].numel())
+
+            def rb_case(steps, hold_, algo=algo, rb=rb, var_rb=var_rb):
+                _, _, _, args, kw, work = warp_case(
+                    torch, gen, algo, rb, var_rb, steps, C, T=T,
+                    draw=rule[algo], burn_in=0,
+                    swap_every=10 if hold_ else FLAG["swap_every"])
+                return args, kw, work
+            full_ms, full_work, launches, acc = main["rosenbrock"]
+            rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
+                                + src, site, launches, launch, plain, names,
+                                rb_case, iters, phase="20d",
+                                hold_steps=WIDE_MAIN_HOLD_STEPS,
+                                main=(full_ms, full_work))
+            mvn_ms, mvn_work, _, mvn_acc = main["mvn_iso"]
+            mb_ms, _, mb_lim = bound(*mvn_work)
+            # the eager engine, EAGER_STEPS steps on the iso MVN
+            mvn, var = target("mvn_iso", d)
+            pr = NormalProposal.create(d, var, device=dev)
+            e_ms, _ = cuda_ms(torch, lambda: (
+                run_pt(mvn, pr, 5, betas, num_chains=C,
+                       num_iterations=EAGER_STEPS,
+                       swap_every=FLAG["swap_every"],
+                       swap_sweep="sequential", device=dev)
+                if algo == "pt" else
+                run_rwm(mvn, pr, 5, num_chains=C,
+                        num_iterations=EAGER_STEPS, device=dev)))
+            del _
+            rec.update(dim=d, team=geo.team, replicas_a_block=geo.replicas,
+                       blocks_per_sm=geo.blocks_per_sm, acceptance=acc,
+                       mvn_iso_ms=mvn_ms, mvn_iso_bound_ms=mb_ms,
+                       mvn_iso_acceptance=mvn_acc,
+                       eager_ms_per_step=e_ms / EAGER_STEPS)
+            say(f"phase 20d {name} d={d} at the main shape ({C} "
+                f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {iters} "
+                f"steps, through run_{algo}_fused, best of 3; team "
+                f"G={geo.team}, {geo.replicas} "
+                f"{'replicas' if algo == 'pt' else 'chains'} a block, "
+                f"{geo.blocks_per_sm} blocks an SM): FullRosenbrock "
+                f"{full_ms:.3f} ms against its {rec['main_path_bound_ms']:.3f}"
+                f" ms bound by {rec['main_path_bound_limit']} "
+                f"({100 * rec['main_path_bound_share']:.1f} %), the iso MVN "
+                f"{mvn_ms:.3f} ms against {mb_ms:.3f} ms by {mb_lim} "
+                f"({100 * mb_ms / mvn_ms:.1f} %); acceptance {acc:.4f}, "
+                f"{mvn_acc:.4f}; the eager engine "
+                f"{e_ms / EAGER_STEPS:.3f} ms a step ({EAGER_STEPS} steps); "
+                f"launches {launches}")
+            kernels.append(rec)
+            torch.cuda.empty_cache()
+    # ---- (f) the RWM rate on the iso MVN at d = 1000, sigma^2 = 2.38^2/d:
+    # (d)'s run from the target's init, and a run from exact draws
+    mvn10, var10 = target("mvn_iso", D10)
+    g = torch.Generator(device=dev).manual_seed(20)
+    stat = run_rwm_fused(mvn10, 20, base_variance=var10, num_chains=4096,
+                         num_iterations=iters, device=dev,
+                         init_states=mvn10.direct_sample(4096, 1.0, g).T)
+    say(f"phase 20f RWM acceptance on the iso MVN d={D10} at sigma^2 = "
+        f"2.38^2/d, {iters} steps: {kernels[-1]['mvn_iso_acceptance']:.4f} "
+        f"from the target's init ({C} chains), "
+        f"{stat.acceptance_rate.mean().item():.4f} from exact draws (4096 "
+        f"chains); the d -> infinity limit 2 Phi(-2.38/2) = "
+        f"{math.erfc(2.38 / 2 / math.sqrt(2)):.4f}")
+    say(f"phase 20d {time.time() - t_phase:.1f} s")
+
+    # ---- (e) the entry points
+    # (400 steps x 1000 x 4 recorded floats: within the harness's budget,
+    # so every step is recorded)
+    for algo in ("RWM", "PT"):
+        harness_entry(torch, "20e", ".w1024", algo, D10, 400, sigma=var10,
+                      target_dist=mvn10)
+    study_entry(torch, "20e", ".w1024", D10, WIDE_STUDY_CONFIGS, 1024,
+                os.path.join(HERE, "smoke_out", "wide", "study"))
+    # the ladder kernel: its main path at d = 1000, then every kind with a
+    # direct sampler at d = 500 and the iso MVN at d = 1000 against its
+    # plain version
+    launch_l = ladder_build.launch_ladder_kernel
+    name_l = f"{_build.LADDER}.mvn_iso"
+    reset_launches(launch_l, *wrappers)
+    sim = MCMCSimulation(
+        dim=D10, sigma=var10, num_iterations=200, algorithm="PT",
+        target_dist=mvn10, num_chains=1024, seed=1,
+        iterative_temp_spacing=True, record_chain=False,
+        beta_min_iterative=WIDE_LADDER["beta_min"],
+        N_samples_swap_est=WIDE_LADDER["N_wide"],
+        iterative_tolerance=LADDER_HOLD["tolerance"], device=dev)
+    sim.generate_samples(verbose=False)
+    torch.cuda.synchronize()
+    seen_l, seen = dict(launch_l.launches), read_launches(*wrappers)
+    if (seen_l != {name_l: 1} or sim.engine_used != "pallas"
+            or not all(k.endswith(".w1024") for k in seen)):
+        fail(f"phase 20e ladder main path d={D10}: ladder {seen_l}, fused "
+             f"{dict(seen)}, engine {sim.engine_used}")
+    say(f"phase 20e ladder main path: MCMCSimulation(iterative_temp_"
+        f"spacing=True) MVN d={D10}, beta_min {WIDE_LADDER['beta_min']}: "
+        f"{len(sim.beta_ladder)} rungs, swap acc {sim.acceptance_rate():.4f};"
+        f" launches {seen_l}, fused {dict(seen)}")
+    del sim
+    # the rungs the iso MVN's ladder takes down to the harness's default
+    # beta_min 0.01 (N = 3000), beside the fused kernel's room (A17)
+    default_probes = {}
+    for d in WIDE_D:
+        tg, _ = target("mvn_iso", d)
+        full_ladder = launch_l(tg, N_samples_swap_est=LADDER_HARNESS_N,
+                               tolerance=LADDER_HOLD["tolerance"], seed=1,
+                               max_T=L.EAGER_MAX_RUNGS + 1)
+        default_probes[d] = full_ladder.probes
+        say(f"phase 20e the iso MVN's ladder at d={d} down to beta_min 0.01:"
+            f" {len(full_ladder.betas)} rungs, {full_ladder.probes} probes;"
+            f" the fused kernel takes {_build.target_max_rungs(tg)}")
+    ladder_rec = None
+    for kind, d in [(k, D5) for k in LADDER_KINDS] + [("mvn_iso", D10)]:
+        tg = ladder_target(get_target_distribution, kind, d, dev,
+                           kw=WIDE_HYBRID[d] if kind == "hybrid_rosenbrock"
+                           else WIDE_LADDER["kw"].get(kind))
+        held = dict(LADDER_HOLD, N_samples_swap_est=WIDE_LADDER[
+            "N_wide" if d == D10 else "N"],
+            beta_min=WIDE_LADDER["beta_min"], max_T=L.EAGER_MAX_RUNGS + 1)
+        if d == D5:
+            held.update(WIDE_LADDER["held"])
+        # the record's kernel best of 3, the others' once
+        got = ladder_hold(torch, "20e", tg, kind, f"ladder {kind} d={tg.dim}",
+                          held, reps=3 if d == D10 else 1)
+        if kind == "mvn_full":
+            say(f"phase 20e the full MVN's ladder at d={d}: "
+                f"{got['us_a_probe'] / 1e3:.1f} ms a probe at N="
+                f"{held['N_samples_swap_est']}, "
+                f"{got['ms'] / got['plain_ms']:.1f}x its plain version's "
+                f"time; a build down to beta_min 0.01 of as many probes as "
+                f"the iso MVN's above ({default_probes[D5]}) would take ~"
+                f"{default_probes[D5] * got['us_a_probe'] / 1e6:.0f} s of "
+                f"this kernel (an estimate, not timed: ROADMAP B17)")
+        if d == D10:
+            ladder_rec = ladder_record(_build.ladder_lib(kind, d),
+                                       seen_l[name_l], tg, kind, got)
+    # the funnel at its default sigma_v^2 = 9, shown and not held: its
+    # tempered v overflows float32 at the search's first probe (WIDE_LADDER)
+    nf = ladder_target(get_target_distribution, "neal_funnel", D5, dev)
+    k = launch_l(nf, **dict(LADDER_HOLD, N_samples_swap_est=WIDE_LADDER["N"],
+                            max_T=L.EAGER_MAX_RUNGS + 1,
+                            **WIDE_LADDER["held"]))
+    say(f"phase 20e ladder neal_funnel d={D5} at sigma_v^2 = 9 (shown, not "
+        f"held): {k.betas}, {k.probes} probes, "
+        f"{sum(not math.isfinite(a) for a in k.a_hats)} of them NaN")
+    kernels.append(ladder_rec)
+    # above the last bucket: no launch, NotImplementedError naming it
+    big, vb = target("mvn_iso", WIDE_EDGES[-1] + 1)
+    for fn in (lambda: run_pt_fused(big, 0, betas, base_variance=vb,
+                                    num_chains=4, num_iterations=2,
+                                    device=dev),
+               lambda: run_rwm_fused(big, 0, base_variance=vb, num_chains=4,
+                                     num_iterations=2, device=dev),
+               lambda: ladder_build.launch_ladder_kernel(big)):
+        reset_launches(launch_l, *wrappers)
+        try:
+            fn()
+        except NotImplementedError as e:
+            if "Queue A item 15" not in str(e) or read_launches(
+                    launch_l, *wrappers):
+                fail(f"phase 20e d={big.dim}: {e}")
+        else:
+            fail(f"phase 20e d={big.dim} ran")
+    say(f"phase 20e d={big.dim} raises NotImplementedError naming ROADMAP "
+        f"Queue A item 15 (run_pt_fused, run_rwm_fused, the ladder kernel)")
+    say(f"phase 20 {time.time() - t_phase:.1f} s")
+    return kernels
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -4358,6 +4918,29 @@ def smoke_libraries(_build):
     names += [_build.ladder_lib("mvn_iso", d) for d in (LADDER_WIDE_D, 5)]
     names.append(lib(_build.library("fused_pt", "Normal", resolve_normal_impl(
         "pt", 8, "three_mixture")), "three_mixture", 2))       # 18d's demo
+    sf_wide = get_target_distribution(
+        "SuperFunnel", 0, J=WIDE_SF["J"], K=WIDE_SF["K"],
+        n_per_group=WIDE_SF["n"], device="cpu")
+    for a in ("pt", "rwm"):                                      # 20
+        rule = resolve_normal_impl(a, 65536)
+        v = _build.library(f"fused_{a}", "Normal", rule)
+        for d in WIDE_D:
+            names += [lib(v, k, d) for k in (
+                _build.TARGET_KINDS if d == WIDE_D[0] else WIDE_KINDS_1000)]
+            names.append(lib(_build.library(f"fused_{a}", "UniformRadius",
+                                            rule), "mvn_full", d))
+            names += [lib(_build.library(f"fused_{a}", p, rule), "mvn_iso",
+                          d) for p in NEW_PROPOSALS]
+        names += [lib(_build.library(f"fused_{a}", "Normal", dr), "mvn_iso",
+                      d) for dr in _build.DRAWS for d in WIDE_D[:1]]
+        names += [lib(_build.library(f"fused_{a}", "Normal", "bm"),
+                      "mvn_iso", d) for d in WIDE_EDGES if d % 2]
+        names.append(_build.route(_build.library(
+            f"fused_{a}", "Normal", resolve_normal_impl(a, 65536,
+                                                        "super_funnel")),
+            sf_wide)[0])
+    names += [_build.ladder_lib(k, WIDE_D[0]) for k in LADDER_KINDS]
+    names.append(_build.ladder_lib("mvn_iso", WIDE_D[1]))
     return list(dict.fromkeys(names))
 
 
@@ -4449,7 +5032,8 @@ def main():
         "fused_pt", "Normal", draws.resolve_normal_impl(
             "pt", FLAG["C"], "rosenbrock")), "rosenbrock", WARP_D)
     say(f"phase 16a build: {len(warp_libs)} warp libraries (a team of G "
-        f"lanes a replica, d > 64; team sizes {_build.WARP_TEAMS}), "
+        f"lanes a replica, d > 64; team sizes {_build.WARP_TEAMS}, RWM's "
+        f"{_build.RWM_WARP_TEAMS}), "
         f"{min(regs)}-{max(regs)} registers; {warp_main} "
         f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
             torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
@@ -4645,6 +5229,7 @@ def main():
     kernels.extend(phase_17(torch, gen))
     kernels.extend(phase_18(torch, gen))
     kernels.extend(phase_19(torch, card))
+    kernels.extend(phase_20(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

@@ -216,7 +216,8 @@ class MCMCSimulation:
                                        iterative_pn_clamp_max))
                 # room for the fused kernel's rungs under engine='pallas';
                 # else the eager engine takes a longer ladder
-                rungs = (_build.max_rungs(target_dist.dim)
+                rungs = (_build.target_max_rungs(
+                    target_dist, proposal_config.get("name"))
                          if engine == "pallas" else EAGER_MAX_RUNGS)
                 self.beta_ladder = check_room(
                     construct_iterative_ladder_device(
@@ -352,7 +353,8 @@ class MCMCSimulation:
         if not self.symmetric:
             return ("symmetric=True (the kernels omit the asymmetric "
                     "correction term)")
-        rungs = _build.max_rungs(self.target_dist.dim)
+        rungs = _build.target_max_rungs(self.target_dist,
+                                        self.proposal_config.get("name"))
         if self.is_pt and len(self.beta_ladder) > rungs:
             return f"at most {rungs} rungs"
         try:

@@ -78,8 +78,8 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
     _sync(dev)
     total_start = time.time()
     # the fused kernel's rungs; the eager engine (--x64) takes any ladder
-    rungs = (_build.max_rungs(actual_dim) if default_float() == torch.float32
-             else EAGER_MAX_RUNGS)
+    rungs = (_build.target_max_rungs(target)
+             if default_float() == torch.float32 else EAGER_MAX_RUNGS)
     for i, target_rate in enumerate(swap_rates_range):
         t0 = time.time()
         if geom_ladder:
@@ -102,11 +102,10 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
                 config_seed(seed, i),
                 torch.tensor(ladder, dtype=torch.float64), **run_kw)
         else:
-            if len(ladder) > _build.max_rungs(target.dim):
+            if len(ladder) > rungs:
                 raise NotImplementedError(
                     f"config {i}: the ladder has {len(ladder)} rungs; the "
-                    f"fused PT kernel runs at most "
-                    f"{_build.max_rungs(target.dim)}")
+                    f"fused PT kernel runs at most {rungs}")
             betas = torch.tensor(ladder, dtype=torch.float32)
             if mesh is None:
                 res = run_pt_fused(target, config_seed(seed, i), betas,

@@ -14,8 +14,8 @@ Above 64 dimensions the same variants build from ``csrc/<kernel>_warp.cu``
 (a team of G lanes a replica, ``csrc/warp.cuh``) into
 ``lib<variant>.<kind>.w<D>``, ``<D>`` the warp bucket
 (:data:`WARP_BUCKETS`: d + 4 <= D slots), with ``-DRWM_PT_TEAMS=<mask>``,
-the team sizes G the library instantiates (:data:`WARP_TEAMS`, a mask of
-powers of two); the launcher takes one of them (:func:`choose_team`).
+the team sizes G the library instantiates (:func:`library_teams`, a mask
+of powers of two); the launcher takes one of them (:func:`choose_team`).
 
 SuperFunnel (kind 12) builds with its dataset's shape fixed, as the TPU
 kernel fixes it at trace time: ``lib<variant>.super_funnel.
@@ -106,7 +106,8 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "hypercube": 8, "iid_gamma": 9, "iid_beta": 10,
                 "neal_funnel": 11, "super_funnel": 12}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
-WARP_BUCKETS = (128, 256)    # warp buckets: d + 4 <= DMAX slots (warp.cuh)
+WARP_BUCKETS = (128, 256, 512, 1024)   # warp buckets: d + 4 <= DMAX slots
+#                                        (warp.cuh)
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
 LADDER = "ladder_build"      # the ladder builder's source (csrc/ladder_build.cu)
 # Blocks of a kernel's launch bound (PT: 320 threads, RWM: 128) that an SM
@@ -216,7 +217,7 @@ def warp_bucket(dim: int) -> int:
     raise NotImplementedError(
         f"fused kernels compile dims up to {MAX_DIM}, the {WARP_BUCKETS[-1]}"
         f"-slot warp bucket; dim={dim} needs a larger bucket (ROADMAP "
-        "Queue A item 15, the remainder above d = 252)")
+        f"Queue A item 15, the remainder above d = {MAX_DIM})")
 
 
 def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None,
@@ -364,8 +365,9 @@ def sf_shape(kind: str, dim: int, params: torch.Tensor,
     kind 12 in the layout of its d (``warp`` None or that layout's) whose
     dataset fits the build: on the thread kernels (d <= 64) its packed
     words within :data:`SF_FIXED_MAX_WORDS`, on the team kernels (64 < d
-    <= 252) its padded words (:func:`sf_team_words`) within the shared
-    memory's :data:`PARAMS_SHARED_MAX`; None for any other launch (which
+    <= :data:`MAX_DIM`) its padded words (:func:`sf_team_words`) within
+    the shared memory's :data:`PARAMS_SHARED_MAX`; None for any other
+    launch (which
     takes the run-time-shape library; ``warp=True`` at d <= 64 the
     run-time team library)."""
     team = dim > BUCKETS[-1]
@@ -464,7 +466,7 @@ def _flags(name: str) -> list[str]:
                              f"-DRWM_PT_DMAX={int(tag[1:])}"] + (
                                  ["-DRWM_PT_LADDER_STAMPS"] if stamps else [])
     src, pc, dc, kc, dmax, blocks = _parts(name)
-    extra = ([f"-DRWM_PT_TEAMS={sum(WARP_TEAMS[dmax])}"]
+    extra = ([f"-DRWM_PT_TEAMS={sum(library_teams(name))}"]
              if src.endswith(WARP) else [])
     sf = fixed_shape(name)
     if sf is not None:
@@ -572,7 +574,7 @@ PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
 # warp bucket -> the warps a block of csrc/fused_pt_warp.cu's one-warp-a-
 # state instantiation (G = 32) takes, its launch bound / 32
-PT_WARP_MAX_WARPS = {128: 32, 256: 16}
+PT_WARP_MAX_WARPS = {128: 32, 256: 16, 512: 16, 1024: 16}
 PT_TEAM_THREADS = 512        # fused_pt_warp.cu's launch bound below G = 32
 RWM_WARP_THREADS = 256       # csrc/fused_rwm_warp.cu: kThreads
 PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
@@ -737,8 +739,18 @@ TEAMS = (4, 8, 16, 32)       # the team sizes csrc/warp.cuh's layout takes
 # the launchers' switch holds no other): the fastest at the main shape
 # (d = 100: G = 4; d = 200: G = 8, where G = 4's 13 block trips a step
 # lost) and one warp a state for the grids that fill no SM (measured with
-# scripts/bench_torch_warp.py)
-WARP_TEAMS = {128: (4, 32), 256: (8, 32)}
+# scripts/bench_torch_warp.py); above d = 252, where a state's rows (2 KB a
+# row in the 512 bucket, 4 KB in the 1024 one) cap the states an SM holds,
+# G = 16 and 32
+WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32)}
+# warp bucket -> the RWM libraries' team sizes where they differ from
+# WARP_TEAMS: in the wide buckets one warp a chain alone.  Forced in turns
+# on an H100 (scripts/bench_torch_warp.py --rwm-teams), G = 16 ran 2-9 %
+# slower than G = 32 at d = 500 from 4096 to 65,536 chains, where
+# choose_team's rule would take it, 1.5x at 1024, and 1.6-2x at d = 1000;
+# one team size also halves the libraries' build.  RWM has no rungs that
+# only G = 16 takes
+RWM_WARP_TEAMS = {512: (32,), 1024: (32,)}
 
 
 def team_quads(dmax: int, team: int = 32) -> int:
@@ -963,19 +975,40 @@ def fills(geo: Geometry, sms: int = SM_COUNT) -> bool:
     return 2 * geo.grid >= sms * max(geo.blocks_per_sm, 1)
 
 
+# Warps an SM a team size's launch must keep resident to be taken over a
+# larger team's.  Above d = 252 a state's rows cap the states an SM holds,
+# so a smaller team holds fewer warps: on an H100 (scripts/
+# bench_torch_warp.py) G = 16 at d = 1000 kept 10 warps an SM and ran
+# 1.5-1.6x slower than G = 32's 20 (PT), while at d = 500 its 25 ran 7-15 %
+# faster than G = 32's 50; every smaller team the buckets up to d = 252
+# pick keeps 20-32.
+MIN_TEAM_WARPS = 16
+
+
+def resident_warps(geo: Geometry) -> int:
+    """Warps of a launch that an SM holds at once."""
+    return geo.blocks_per_sm * -(-geo.threads // 32)
+
+
 def choose_team(geos: dict[int, Geometry], d: int, sms: int = SM_COUNT
                 ) -> Geometry:
     """Of the launches a warp library offers at d coordinates, one per team
     size G that fits (``{G: Geometry}``), the smallest G whose grid still
-    fills the ``sms`` SMs (:func:`fills`): a team's fixed work a step is
-    shared by 32 / G states a warp.  Where none fills, the card runs at a
-    step's latency, which grows with the block loop's trips
+    fills the ``sms`` SMs (:func:`fills`) and whose blocks keep
+    :data:`MIN_TEAM_WARPS` warps an SM resident (:func:`resident_warps`):
+    a team's fixed work a step is shared by 32 / G states a warp, but an
+    SM short of warps hides no latency (of the filling launches none keeps
+    them: the most warps, then the smallest G).  Where none fills, the
+    card runs at a step's latency, which grows with the block loop's trips
     (:func:`block_trips`): the smallest G of the fewest trips."""
     if not geos:
         raise ValueError("no team size of the library fits the launch")
     full = [g for g in sorted(geos) if fills(geos[g], sms)]
     if full:
-        return geos[full[0]]
+        busy = [g for g in full
+                if resident_warps(geos[g]) >= MIN_TEAM_WARPS]
+        return geos[busy[0] if busy else max(
+            full, key=lambda g: (resident_warps(geos[g]), -g))]
     least = min(block_trips(d, g) for g in geos)
     return geos[min(g for g in geos if block_trips(d, g) == least)]
 
@@ -1013,8 +1046,12 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
 
 
 def library_teams(name: str) -> tuple[int, ...]:
-    """The team sizes warp library ``name`` instantiates."""
-    return WARP_TEAMS[_parts(name)[4]]
+    """The team sizes warp library ``name`` instantiates
+    (:data:`WARP_TEAMS`, :data:`RWM_WARP_TEAMS`)."""
+    src, _, _, _, dmax, _ = _parts(name)
+    if src == "fused_rwm" + WARP and dmax in RWM_WARP_TEAMS:
+        return RWM_WARP_TEAMS[dmax]
+    return WARP_TEAMS[dmax]
 
 
 def launch_geometry(name: str, d: int, C: int, T: int = 0,
@@ -1088,20 +1125,55 @@ class Shard(NamedTuple):
 
 
 # ---------------------------------------------------------------- targets
-MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (252)
-MAX_RUNGS = 32      # rungs a replica: T threads (T warps above d = 64)
+MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (1020)
+MAX_RUNGS = 32      # rungs a replica: T threads (T teams above d = 64)
 
 
-def max_rungs(dim: int) -> int:
-    """Rungs a fused PT launch takes at ``dim`` coordinates:
-    :data:`MAX_RUNGS`, and above 64 dimensions the most rung-teams of one
-    replica that a block of the warp bucket's libraries takes at any of
-    their team sizes (:func:`pt_team_threads` / G)."""
-    if BUCKETS[-1] < dim <= MAX_DIM:
-        dmax = warp_bucket(dim)
-        return min(MAX_RUNGS, max(pt_team_threads(dmax, g) // g
-                                  for g in WARP_TEAMS[dmax]))
-    return MAX_RUNGS
+def max_rungs(dim: int, kind: str | None = None, proposal: str = "Normal",
+              n_params: int | None = None) -> int:
+    """Rungs a fused PT launch takes at ``dim`` coordinates on target kind
+    ``kind`` under ``proposal``: :data:`MAX_RUNGS`, and above 64
+    dimensions the most T <= MAX_RUNGS for which :func:`pt_warp_geometry`
+    fits one replica of T rung-teams in a block at one of the warp
+    bucket's team sizes: its threads within :func:`pt_team_threads`, its
+    shared memory (``kind``'s rows, :func:`team_rows`, three where
+    ``kind`` is None; ``n_params`` parameter words, where None the most a
+    block stages, :data:`PARAMS_SHARED_MAX`; Laplace's T d scales) within
+    a block's.  32 up to d = 252 for every kind; above it the rows decide
+    (at d = 1020 about 27 rungs of a two-row kind, 18 of a three-row kind
+    or under Laplace)."""
+    if not BUCKETS[-1] < dim <= MAX_DIM:
+        return MAX_RUNGS
+    dmax = warp_bucket(dim)
+    rows = team_rows(kind) if kind is not None else 3
+    words = PARAMS_SHARED_MAX if n_params is None else n_params
+
+    def fits(T):
+        for g in WARP_TEAMS[dmax]:
+            try:
+                pt_warp_geometry(0, pt_team_threads(dmax, g), dim, dmax, T,
+                                 1, proposal, n_params=words, team=g,
+                                 rows=rows)
+                return True
+            except ValueError:
+                pass
+        return False
+
+    return next(T for T in range(MAX_RUNGS, 0, -1) if fits(T))
+
+
+def target_max_rungs(target, proposal: str = "Normal") -> int:
+    """:func:`max_rungs` of a fused PT run on ``target`` under
+    ``proposal``: its kind and its parameter words
+    (:func:`kernel_target`); the defaults' for a target the kernels do not
+    take (which the fused samplers refuse)."""
+    try:
+        kind, params = kernel_target(target)
+    except NotImplementedError:
+        return max_rungs(target.dim, proposal=proposal)
+    return max_rungs(target.dim, kind, proposal, params.numel())
+
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 

@@ -3,8 +3,8 @@
 //
 // Replaces: rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
 // _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96), in
-// their d > 64 configuration (the Pallas kernel runs at any d and only
-// shrinks its VMEM block as d grows, :31-38).  csrc/fused_pt.cu keeps
+// their 64 < d <= 1020 configuration (the Pallas kernel runs at any d and
+// only shrinks its VMEM block as d grows, :31-38).  csrc/fused_pt.cu keeps
 // d <= 64 at one thread a (replica, rung); above that a thread's proposal
 // no longer fits its registers.
 //
@@ -28,13 +28,16 @@
 // registers, so a small team keeps 56-72 registers and the occupancy of one
 // warp a state.  The geometry (kernels/_build.py::choose_team) takes the
 // smallest G whose grid fills the card (half a wave of blocks: G = 4 at the
-// d = 100 main shape, 8 in the 256 bucket) and G = 32 for grids that leave
-// it short of warps.
+// d = 100 main shape, 8 in the 256 bucket, 16 in the 512 bucket) and keeps
+// 16 warps an SM (in the 1024 bucket a state's 8 KB of rows leave G = 16
+// ten: G = 32 there), and G = 32 for grids that leave the card short of
+// warps.
 //
-// One library per (proposal, draw, target kind, warp bucket DMAX = 128 or
-// 256 slots, d + 4 <= DMAX) from this source, holding the team sizes of
-// RWM_PT_TEAMS (a mask of G values) as instantiations; the launcher takes
-// G.  Everything of csrc/fused_pt.cu carries over at the team level: MH on
+// One library per (proposal, draw, target kind, warp bucket DMAX = 128,
+// 256, 512 or 1024 slots, d + 4 <= DMAX) from this source, holding the
+// team sizes of RWM_PT_TEAMS (a mask of G values) as instantiations; the
+// launcher takes G.  Everything of csrc/fused_pt.cu carries over at the
+// team level: MH on
 // every rung every step with int32 per-rung accepts after burn-in; on
 // post-burn-in multiples of swap_every the sweep over the pairs (j, j+1)
 // in the runtime order `order` (0: j = 0..T-2, the Pallas sweep; 1: even
@@ -57,10 +60,14 @@
 // with the parameters (when at most kParamsShared words; else read through
 // L2), the ladder and the sweep's words.  Launch bounds: G = 32 keeps one
 // warp a state, 32 warps a block (T up to 32) in the 128 bucket, so at most
-// 64 registers a thread, and 16 warps in the 256 bucket (T up to 16 at
-// G = 32); a team of G < 32 lanes is bound to 512 threads a block, so
-// that T = 32 rungs fit at G = 8 (a cap of 64 registers, two such blocks
-// an SM, measured slower).
+// 64 registers a thread, and 16 warps in the 256, 512 and 1024 buckets (T
+// up to 16 at G = 32; 70-80 registers there); a team of G < 32 lanes is
+// bound to 512 threads a block, so that T = 32 rungs fit at G = 8 (a cap
+// of 64 registers, two such blocks an SM, measured slower) and at G = 16
+// (the 1024 bucket's rows cap it below: kernels/_build.py::max_rungs).
+// Every loop over a lane's quads is rolled, so the registers do not grow
+// with the bucket's quads a lane (8 at G = 32 in the 1024 bucket, 16 at
+// G = 16).
 // The ragged edge (C not a multiple of R) and the idle teams are masked:
 // they run on zeros in their own rows and store nothing.
 //
@@ -103,9 +110,9 @@ constexpr int kRows = kTeamRows<kKind>;   // rows a team
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
 
 // A block's threads, the launch bound: one warp a state (G = 32) takes 32
-// warps in the 128 bucket and 16 in the 256 bucket, whose second register
-// quad a lane and the sweep's bookkeeping need more registers (at 64 and at
-// 80 they spilled); teams of G < 32 lanes take 512 threads
+// warps in the 128 bucket and 16 above it, whose sweep's bookkeeping needs
+// more registers (the 256 bucket's spilled at 64 and at 80); teams of
+// G < 32 lanes take 512 threads
 template <int G>
 constexpr int kBlockThreads = G == 32 ? (kDmax > 128 ? 512 : 1024) : 512;
 // Blocks of that bound an SM: two for a build of fixed SuperFunnel shape
@@ -381,6 +388,7 @@ Kernel kernel(int team) {
   switch (team) {
     case 4: return team_kernel<4>();
     case 8: return team_kernel<8>();
+    case 16: return team_kernel<16>();
     case 32: return team_kernel<32>();
     default: return nullptr;
   }

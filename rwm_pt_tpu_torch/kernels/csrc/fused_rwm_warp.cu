@@ -2,10 +2,10 @@
 // team of G lanes a chain, above 64 dimensions.
 //
 // Replaces: rwm_pt_tpu/kernels/pallas_rwm.py::_make_kernel (:259-321) and
-// _make_record_kernel (:324-414) in their d > 64 configuration (the Pallas
-// kernel runs at any d and only shrinks its VMEM block as d grows,
-// :225-234).  csrc/fused_rwm.cu keeps d <= 64 at one thread a chain; above
-// that a thread's proposal no longer fits its registers.
+// _make_record_kernel (:324-414) in their 64 < d <= 1020 configuration
+// (the Pallas kernel runs at any d and only shrinks its VMEM block as d
+// grows, :225-234).  csrc/fused_rwm.cu keeps d <= 64 at one thread a
+// chain; above that a thread's proposal no longer fits its registers.
 //
 // Bound: operations, Philox's int32 work (chip_smoke.py::bound): 26 blocks
 // of 60 int32 operations a (chain, step) at d = 100, 2.045e11 over the main
@@ -22,15 +22,18 @@
 // small team keeps 48-56 registers.  The geometry (kernels/_build.py::
 // choose_team) takes the smallest G whose grid fills the card (half a
 // wave of blocks: G = 4 at the d = 100 main shape, 8 in the 256 bucket,
-// and from 16,384 chains at d = 100) and G = 32 where a smaller
-// team would leave the card short of warps, as the reference's 512-chain
-// campaigns do.
+// and from 16,384 chains at d = 100) and keeps 16 warps an SM, and G = 32
+// where a smaller team would leave the card short of warps, as the
+// reference's 512-chain campaigns do.  The 512 and 1024 buckets' libraries
+// hold G = 32 alone (kernels/_build.py::RWM_WARP_TEAMS: G = 16 measured
+// slower at every grid there).
 //
-// One library per (proposal, draw, target kind, warp bucket DMAX = 128 or
-// 256 slots, d + 4 <= DMAX) from this source (-DRWM_PT_PROPOSAL,
-// -DRWM_PT_NORMAL, -DRWM_PT_TARGET, -DRWM_PT_DMAX), holding the team sizes
-// of RWM_PT_TEAMS (a mask of G values) as instantiations; every proposal
-// and normal draw of csrc/fused_rwm.cu, int32 accepts after burn-in, the
+// One library per (proposal, draw, target kind, warp bucket DMAX = 128,
+// 256, 512 or 1024 slots, d + 4 <= DMAX) from this source
+// (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL, -DRWM_PT_TARGET, -DRWM_PT_DMAX),
+// holding the team sizes of RWM_PT_TEAMS (a mask of G values) as
+// instantiations; every proposal and normal draw of csrc/fused_rwm.cu,
+// int32 accepts after burn-in, the
 // Kahan-summed squared jump, the runtime `rec` trace.  A block holds
 // `chains` teams (kernels/_build.py::rwm_warp_geometry: at most 256
 // threads, G chains a multiple of 32, fewer where a small C would leave
@@ -223,6 +226,7 @@ Kernel kernel(int team) {
   switch (team) {
     case 4: return team_kernel<4>();
     case 8: return team_kernel<8>();
+    case 16: return team_kernel<16>();
     case 32: return team_kernel<32>();
     default: return nullptr;
   }

@@ -4,7 +4,7 @@
 // Monte-Carlo swap estimates and its decisions, with no host round trip.
 // Each library is built for one target kind (-DRWM_PT_TARGET, the 11
 // kinds with a direct sampler) and one bucket (-DRWM_PT_DMAX: 8, 16, 32 or
-// 64, whose loops are unrolled whole; 128 or 256, rolled).
+// 64, whose loops are unrolled whole; 128, 256, 512 or 1024, rolled).
 //
 // A probe of (beta, beta*) estimates a_hat = mean over n < N of
 // min(1, exp((beta - beta*)(lp(x*_n) - lp(x_n)))), x*_n drawn from the
@@ -97,8 +97,12 @@ constexpr int kTile = 256;            // a tile's samples
 constexpr int kEveryTiles = 16;
 constexpr int kUnits = 16;            // warp-units a tile (16 samples each)
 constexpr bool kRolled = DMAX > 64;   // the rolled buckets
-// the bucket's least d (kernels/_build.py: bucket, warp_bucket)
-constexpr int kMinD = DMAX <= 8 ? 1 : DMAX == 256 ? 125 : DMAX / 2 + 1;
+// the bucket's least d (kernels/_build.py: bucket, warp_bucket): the
+// register buckets' and the 128 bucket's DMAX / 2 + 1, the warp buckets'
+// above it DMAX / 2 - 3 (their slots hold d + 4 words: 125, 253, 509)
+constexpr int kMinD = DMAX <= 8     ? 1
+                      : DMAX <= 128 ? DMAX / 2 + 1
+                                    : DMAX / 2 - 3;
 // a block: whole tiles (512 threads) in the unrolled buckets, warp-units
 // in the rolled ones
 constexpr int kThreads = kRolled ? 256 : 512;
@@ -429,7 +433,9 @@ __device__ __forceinline__ float side_lp(const Side& s, int d,
       return -0.5f * quad + p[0];
     } else if constexpr (KIND == TARGET_MVN_FULL) {
       // mean + z (L / sqrt(beta))^T, each row's product accumulated in
-      // order of j: by columns, so that z_j is used as it is drawn
+      // order of j: by columns, so that z_j is used as it is drawn (in the
+      // rolled buckets x lies in local memory: 4 KB a thread in the 1024
+      // bucket, d^2 of its words read and written a sample)
       float x[DMAX];
       const float* L = sp + d;
       const int m = DMAX <= 16 ? DMAX : d;   // as in mvn_full_lp

@@ -1,6 +1,6 @@
 """Fused whole-run Parallel Tempering: the CUDA kernels ``csrc/fused_pt.cu``
 (one thread a (replica, rung), d <= 64) and ``csrc/fused_pt_warp.cu`` (a
-team of G lanes a (replica, rung), 64 < d <= 252) and their plain PyTorch
+team of G lanes a (replica, rung), 64 < d <= 1020) and their plain PyTorch
 version (port of ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its
 cold-chain recording variant, the Normal, Laplace and UniformRadius
 proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
@@ -171,11 +171,13 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     order = SWEEPS.index(swap_sweep)
     if target.dim != d:
         raise ValueError(f"x0 has {d} coordinates, the target {target.dim}")
-    if T > _build.max_rungs(d):
+    rungs = _build.target_max_rungs(target, kind)
+    if T > rungs:
         raise NotImplementedError(
             f"fused PT runs one thread (a team of lanes above 64 dimensions) "
-            f"per (replica, rung), at most {_build.max_rungs(d)} rungs at "
-            f"d={d}; T={T}")
+            f"per (replica, rung), at most {rungs} rungs at d={d} on "
+            f"{tkind} under {kind} (ROADMAP Queue A item 17, more rungs); "
+            f"T={T}")
     _build.check_cuda("fused_pt", torch.float32, x0=x0, betajump0=betajump0,
                       coldjump0=coldjump0, betas=betas, sigmas=sigmas)
     _build.check_cuda("fused_pt", torch.int32, acc0=acc0, swapacc0=swapacc0)

@@ -4,7 +4,7 @@ their users run, with the team size the launch geometry picks and, where
 the tree has team sizes, with each one forced.
 
     python scripts/bench_torch_warp.py [--tree DIR] [--out FILE] [--reps N]
-                                       [--only REGEX]
+                                       [--only REGEX] [--rwm-teams G,G]
 
 ``--tree`` is a checkout of this repository whose ``rwm_pt_tpu_torch`` is
 imported (default: the one holding this script), so that an earlier tree
@@ -15,11 +15,13 @@ each of its libraries' team sizes forced (``team=``).
 
 Shapes (the rule's normal draw, ``lax_erfinv``): the d = 100 main shape,
 PT on 65,536 replicas x T = 10 (swap every 100) and RWM on 65,536 chains,
-2000 steps, on FullRosenbrock (variance 0.5^2/100) and the iso MVN
-(2.38^2/100); the same at d = 200 (the 256 bucket); on FullRosenbrock,
-the grids between the main shape and the campaigns (``GRIDS``: PT on
-512 to 16,384 replicas x T = 10, RWM on 2048 to 32,768 chains), where
-the geometry's rule turns from the small team to G = 32; one scale (the
+2000 steps, on FullRosenbrock (variance 0.5^2/d) and the iso MVN
+(2.38^2/d); the same at d = 200 (the 256 bucket), 500 (the 512 bucket)
+and 1000 (the 1024 bucket); on FullRosenbrock, the grids between the
+main shape and the campaigns (``GRIDS``: PT on 512 to 16,384 replicas x
+T = 10, RWM on 1024 to 32,768 chains; the wide buckets at the studies'
+1024 too), where the geometry's rule turns from the small team to
+G = 32; one scale (the
 middle of the reference's grid) of each of the reference's d = 100 RWM
 campaigns
 (``scripts/run_parity_matrix.sh:32, 36-40``: 512 chains, 100,000
@@ -29,7 +31,10 @@ d = 20, UniformRadius, 1024 chains, 20,000 steps) and the flagship PT and
 RWM headline at d = 30.  Each launch: a warm-up, then the best of
 ``--reps`` CUDA-event timings, beside ``chip_smoke.py::bound`` (this
 script's checkout) and its share; ``--only`` times the shapes whose
-label matches.  Prints a line a launch and writes them as JSON to
+label matches; ``--rwm-teams`` builds the wide RWM libraries with these
+team sizes, forced in this order, in place of ``_build.RWM_WARP_TEAMS``
+(run ``16,32`` and ``32,16`` in turns to compare them).  Prints a line a
+launch and writes them as JSON to
 ``--out``, with the card's name and power limit.  Needs the card and
 ``nvcc``.
 """
@@ -56,7 +61,11 @@ CAMPAIGN_CHAINS, CAMPAIGN_BURN_IN = 512, 1000
 GRIDS = {(100, "pt"): (512, 1024, 2048, 4096, 8192, 16384),
          (100, "rwm"): (2048, 4096, 8192, 16384, 32768),
          (200, "pt"): (1024, 4096, 16384),
-         (200, "rwm"): (4096, 16384)}
+         (200, "rwm"): (4096, 16384),
+         (500, "pt"): (1024, 4096, 16384),
+         (500, "rwm"): (1024, 4096, 16384),
+         (1000, "pt"): (1024, 4096, 16384),
+         (1000, "rwm"): (1024, 4096, 16384)}
 
 
 def main():
@@ -66,6 +75,9 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", default="",
                     help="time only the shapes whose label matches")
+    ap.add_argument("--rwm-teams", default="",
+                    help="team sizes of the wide RWM libraries, in the "
+                    "order they are forced")
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
@@ -76,6 +88,10 @@ def main():
     from rwm_pt_tpu_torch.targets import get_target_distribution
     sys.path.insert(0, HERE)
     from chip_smoke import bound, pt_work, rwm_work
+    if a.rwm_teams:
+        teams = tuple(int(g) for g in a.rwm_teams.split(","))
+        _build.RWM_WARP_TEAMS.update(dict.fromkeys(_build.RWM_WARP_TEAMS,
+                                                   teams))
 
     has_teams = "team" in inspect.signature(
         fused_pt.launch_pt_kernel).parameters
@@ -101,7 +117,7 @@ def main():
     # (label, algo, target, variance, C, T, steps, burn_in, proposal,
     #  warp forced, seconds a point)
     cases = []
-    for d in (100, 200):
+    for d in (100, 200, 500, 1000):
         for algo in ("pt", "rwm"):
             for kind in ("rosenbrock", "mvn_iso"):
                 tg, var = target(kind, d)

@@ -71,7 +71,7 @@ def _libraries():
     names.append(_build.PROBES)
     names += [lib(_build.library(f"fused_{a}", "Normal", WARP_DRAW), k, d)
               for a in ("pt", "rwm") for k in ("rosenbrock", "mvn_iso")
-              for d in (100, 200)]
+              for d in (100, 200, 500, 1000)]
     for a in ("pt", "rwm"):
         v = _build.library(f"fused_{a}", "Normal", draws.resolve_normal_impl(
             a, 1003, "super_funnel"))
@@ -82,8 +82,9 @@ def _libraries():
                       for spec in (True, False)]
     names += [_build.ladder_lib(k, 7) for k in _build.TARGET_KINDS
               if k not in ("rosenbrock", "super_funnel")]
-    names += [_build.ladder_lib("mvn_iso", d) for d in (100, 200)]
-    names += [_build.ladder_lib(k, 72) for k in LADDER_CASES]
+    names += [_build.ladder_lib("mvn_iso", d) for d in (100, 200, 300, 1000)]
+    names += [_build.ladder_lib(k, d) for k in LADDER_CASES
+              for d in (72, 253, 509)]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -211,7 +212,7 @@ def test_unsupported_inputs_raise_on_card(monkeypatch):
                           torch.tensor(0.1, device=dev), seed_key(1), 0, 2,
                           0)
     monkeypatch.undo()
-    wide = FullRosenbrock.create(253, device=dev)   # above the warp buckets
+    wide = FullRosenbrock.create(1021, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
                      num_iterations=2, device=dev)
@@ -808,31 +809,51 @@ WARP_CASES = [("pt", 65, "sequential", 10), ("pt", 100, "even_odd", 10),
               ("pt", 200, "sequential", 16), ("pt", 200, "even_odd", 17),
               ("pt", 200, "sequential", 31), ("pt", 200, "even_odd", 32),
               ("rwm", 65, None, 1), ("rwm", 100, None, 1),
-              ("rwm", 200, None, 1)]
+              ("rwm", 200, None, 1),
+              # the wide buckets (.w512, .w1024): their edges, 32 rungs in
+              # the 512 bucket and the 1024 bucket's most (26) of this kind
+              ("pt", 253, "sequential", 10), ("pt", 508, "even_odd", 32),
+              ("pt", 509, "sequential", 17), ("pt", 1000, "even_odd", 26),
+              ("pt", 1020, "sequential", 10), ("rwm", 253, None, 1),
+              ("rwm", 509, None, 1), ("rwm", 1020, None, 1)]
+
+
+def _fits(dmax, g, d, T):
+    """Whether a replica of T rung-teams of g lanes at d coordinates fits a
+    block of warp bucket ``dmax`` (its threads and rows)."""
+    try:
+        _build.pt_warp_geometry(64, _build.pt_team_threads(dmax, g), d, dmax,
+                                T, 1003, n_params=d + 1, team=g)
+    except ValueError:
+        return False
+    return True
 
 
 def _team_cases(cases):
     """Each case at every team size its warp bucket's libraries hold that
-    takes its rungs (``_build.WARP_TEAMS``, a static table: every worker
-    collects the same tests)."""
+    takes its rungs (``_build.library_teams``, a static table: every
+    worker collects the same tests)."""
     out = []
     for algo, d, sweep, T in cases:
         dmax = _build.warp_bucket(d)
-        out += [(algo, d, sweep, T, g) for g in _build.WARP_TEAMS[dmax]
-                if algo == "rwm" or T * g <= _build.pt_team_threads(dmax, g)]
+        lib = _build.lib_name(f"fused_{algo}", "rosenbrock", d)
+        out += [(algo, d, sweep, T, g) for g in _build.library_teams(lib)
+                if algo == "rwm" or _fits(dmax, g, d, T)]
     return out
 
 
 @pytest.mark.parametrize("algo,d,sweep,T,team", _team_cases(WARP_CASES))
 def test_warp_kernels_match_plain(algo, d, sweep, T, team):
     """Above 64 dimensions the wrappers launch the warp library (a team of
-    G lanes a replica, its launch counted under ``<variant>.<kind>.w128``
-    or ``.w256``), held against the plain version like the thread kernels
-    at every team size G the library holds (``team=`` forces it):
-    FullRosenbrock, whose neighbour terms cross lanes, 1003 replicas (a
-    ragged last block), PT on 10 rungs, and on 16 and 32 in the 256
-    bucket; odd ladders of 17 and 31 rungs, whose blocks below G = 32 are
-    padded to whole warps with idle teams."""
+    G lanes a replica, its launch counted under ``<variant>.<kind>.w128``,
+    ``.w256``, ``.w512`` or ``.w1024``), held against the plain version
+    like the thread kernels at every team size G the library holds
+    (``team=`` forces it): FullRosenbrock, whose neighbour terms cross
+    lanes, 1003 replicas (a ragged last block), PT on 10 rungs, on 16 and
+    32 in the 256 bucket, at the wide buckets' edges, on 32 rungs in the
+    512 bucket and 26 in the 1024 bucket; odd ladders of 17 and 31 rungs,
+    whose blocks below G = 32 are padded to whole warps with idle
+    teams."""
     dev = _card()
     C = 1003
     target = FullRosenbrock.create(d, device=dev)
@@ -873,9 +894,10 @@ def test_warp_kernels_match_plain(algo, d, sweep, T, team):
 # SuperFunnel's (J, K): the thread kernels in every register bucket (J = 2,
 # K = 1: d = 8; J = 3, K = 2: d = 14; the reference's J = 5, K = 3: d = 26;
 # J = 10, K = 3: d = 46), the team kernels at J = 10, K = 5 (d = 68,
-# .w128) and J = 40, K = 3 (d = 166, .w256)
+# .w128), J = 40, K = 3 (d = 166, .w256) and J = 100, K = 3 (d = 406,
+# .w512)
 SF_THREAD = ((2, 1), (3, 2), (5, 3), (10, 3))
-SF_SHAPES = SF_THREAD + ((10, 5), (40, 3))
+SF_SHAPES = SF_THREAD + ((10, 5), (40, 3), (100, 3))
 
 
 def _sf_cases():
@@ -885,9 +907,11 @@ def _sf_cases():
     out = []
     for algo in ("pt", "rwm"):
         out += [(algo, J, K, None) for J, K in SF_THREAD]
-        for J, K in ((10, 5), (40, 3)):
-            dmax = _build.warp_bucket(J + J * K + K + 3)
-            out += [(algo, J, K, g) for g in _build.WARP_TEAMS[dmax]
+        for J, K in SF_SHAPES[len(SF_THREAD):]:
+            d = J + J * K + K + 3
+            dmax = _build.warp_bucket(d)
+            out += [(algo, J, K, g) for g in _build.library_teams(
+                _build.lib_name(f"fused_{algo}", "super_funnel", d))
                     if algo == "rwm" or 8 * g <= _build.pt_team_threads(
                         dmax, g)]
     return out
@@ -1036,11 +1060,13 @@ def test_ladder_kernel_matches_plain(kind, N):
 
 
 @pytest.mark.parametrize("kind,d", [("mvn_iso", 100), ("mvn_iso", 200),
+                                    ("mvn_iso", 300), ("mvn_iso", 1000),
                                     ("mvn_full", 7), ("mvn_iso", 7)])
 def test_ladder_kernel_bucket_and_precision(kind, d):
-    """The d = 100 and 200 iso MVN (the rolled .d128 and .d256 buckets:
-    warp-units, a tile's partials summed by its last unit), the max_T cap
-    and the bfloat16 matmul operands against the plain version."""
+    """The d = 100, 200, 300 and 1000 iso MVN (the rolled .d128, .d256,
+    .d512 and .d1024 buckets: warp-units, a tile's partials summed by its
+    last unit), the max_T cap and the bfloat16 matmul operands against the
+    plain version."""
     from rwm_pt_tpu_torch.kernels import ladder_build
     from rwm_pt_tpu_torch.ladders import ladders as L
     dev = _card()
@@ -1074,6 +1100,36 @@ def test_ladder_kernel_rolled_bucket_matches_plain(kind):
                 max_pn_adjustment_steps=40)
     _same_ladder(ladder_build.launch_ladder_kernel(tg, **opts),
                  L._construct_iterative_ladder_device_plain(tg, **opts))
+
+
+@pytest.mark.parametrize("d", [253, 509])
+@pytest.mark.parametrize("kind", sorted(LADDER_CASES))
+def test_ladder_kernel_wide_buckets_match_plain(kind, d):
+    """Every kind at the least d of the wide buckets (.d512 at 253,
+    .d1024 at 509; HybridRosenbrock n1 = 2: d = 1 + n2, EvenRosenbrock one
+    more), the launch counted under the kind: the plain version's
+    ladder."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    name, kw, _ = LADDER_CASES[kind]
+    d = d + 1 if kind == "even_rosenbrock" else d
+    if kw == "cov":
+        a = np.random.default_rng(5).normal(size=(d, d))
+        kw = {"cov": a @ a.T / d + np.eye(d)}
+    if kind == "hybrid_rosenbrock":
+        tg = get_target_distribution(name, 0, n1=2, n2=d - 1, device=dev)
+    else:
+        tg = get_target_distribution(name, d, device=dev, **(kw or {}))
+    assert _build.ladder_lib(kind, tg.dim).endswith(
+        f".d{_build.warp_bucket(tg.dim)}")
+    opts = dict(N_samples_swap_est=1000, tolerance=0.05, seed=9,
+                max_pn_adjustment_steps=20, max_T=64)
+    ladder_build.launch_ladder_kernel.launches.clear()
+    k = ladder_build.launch_ladder_kernel(tg, **opts)
+    assert ladder_build.launch_ladder_kernel.launches == {
+        f"ladder_build.{kind}": 1}
+    _same_ladder(k, L._construct_iterative_ladder_device_plain(tg, **opts))
 
 
 @pytest.mark.parametrize("kind,d,N", [("three_mixture", 7, 3000),
@@ -1131,9 +1187,9 @@ def test_ladder_kernel_refuses_before_launching():
         with pytest.raises(NotImplementedError):
             ladder_build.launch_ladder_kernel(
                 get_target_distribution(name, 4, device=dev))
-    with pytest.raises(NotImplementedError, match="252"):
+    with pytest.raises(NotImplementedError, match="1020"):
         ladder_build.launch_ladder_kernel(
-            get_target_distribution("MultivariateNormal", 300, device=dev))
+            get_target_distribution("MultivariateNormal", 1021, device=dev))
     assert not ladder_build.launch_ladder_kernel.launches
 
 

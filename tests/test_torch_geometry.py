@@ -213,12 +213,16 @@ def test_pt_team_blocks_are_whole_warps(dmax, team, T):
     two blocks; an odd T that fits no whole-warp block takes idle teams)
     within the instantiation's launch bound; its shared memory is the
     teams' rows of ``team_pitch`` words, the idle ones' too, and the
-    sweep's words.  Only G = 32 in the 256 bucket (16 warps) refuses a
-    replica of more than 16 rungs."""
+    sweep's words.  Up to d = 252 only G = 32 in the 256 bucket (16 warps)
+    refuses a replica of more than 16 rungs; above it G = 32 (16 warps)
+    does too, and a replica whose rows exceed a block's shared memory is
+    refused (the 1024 bucket's 4 KB rows: more than 27 rungs at G = 16)."""
     d = dmax - 28
     cap = _build.pt_team_threads(dmax, team)
-    if T * team > cap:
-        assert (dmax, team) == (256, 32) and T > 16
+    rows = _build.pt_warp_shared_bytes(d + 1, T, d, 1, dmax, team=team)
+    if T * team > cap or rows > _build.BLOCK_SHARED:
+        assert ((dmax, team) == (256, 32) and T > 16) or (
+            dmax > 256 and (team == 32 and T > 16 or T > 27))
         with pytest.raises(ValueError, match="does not fit a block"):
             _build.pt_warp_geometry(64, cap, d, dmax, T, 65536,
                                     n_params=d + 1, team=team)
@@ -348,9 +352,15 @@ MEASURED_GRIDS = [("pt", 100, 512, 32), ("pt", 100, 1024, 32),
                   ("rwm", 100, 8192, 32), ("rwm", 100, 16384, 4),
                   ("rwm", 100, 32768, 4), ("rwm", 100, 65536, 4),
                   ("pt", 200, 1024, 8), ("pt", 200, 4096, 8),
-                  ("rwm", 200, 4096, 32), ("rwm", 200, 16384, 8)]
+                  ("rwm", 200, 4096, 32), ("rwm", 200, 16384, 8),
+                  ("pt", 500, 1024, 16), ("pt", 500, 4096, 16),
+                  ("pt", 500, 16384, 16), ("pt", 500, 65536, 16),
+                  ("pt", 1000, 1024, 32), ("pt", 1000, 4096, 32),
+                  ("pt", 1000, 16384, 32), ("pt", 1000, 65536, 32)]
 # registers of the FullRosenbrock instantiations, as ptxas reports them
 ROSENBROCK_REGS = {("pt", 128): {4: 64, 32: 56}, ("pt", 256): {8: 64, 32: 64},
+                   ("pt", 512): {16: 64, 32: 71},
+                   ("pt", 1024): {16: 64, 32: 71},
                    ("rwm", 128): {4: 56, 32: 56},
                    ("rwm", 256): {8: 56, 32: 56}}
 
@@ -358,10 +368,12 @@ ROSENBROCK_REGS = {("pt", 128): {4: 64, 32: 56}, ("pt", 256): {8: 64, 32: 64},
 @pytest.mark.parametrize("algo,d,C,faster", MEASURED_GRIDS)
 def test_choose_team_takes_the_measured_faster_team(algo, d, C, faster):
     """At every grid timed with each team size forced, the rule (the
-    smallest G whose grid is half a wave, else the fewest block trips)
-    picks the one that measured faster: G = 32 up to 1,024 PT replicas
-    (0.39 of a wave at G = 4) and 8,192 RWM chains (0.37), the small team
-    from 2,048 replicas (0.78) and 16,384 chains (0.65)."""
+    smallest G whose grid is half a wave and whose blocks keep 16 warps an
+    SM, else the fewest block trips) picks the one that measured faster:
+    G = 32 up to 1,024 PT replicas (0.39 of a wave at G = 4) and 8,192 RWM
+    chains (0.37), the small team from 2,048 replicas (0.78) and 16,384
+    chains (0.65); G = 16 at d = 500 (25 warps an SM) and G = 32 at
+    d = 1000, where G = 16's rows leave 10 warps an SM."""
     dmax = _build.warp_bucket(d)
     geos = {}
     for g, regs in ROSENBROCK_REGS[algo, dmax].items():

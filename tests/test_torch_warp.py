@@ -90,7 +90,7 @@ def test_every_dimension_of_the_warp_buckets(team):
     are exactly those that hold a slot of 0..d+3, no lane computes more
     than the bucket's quads a lane, and the lanes' counts differ by at most
     one (the rolled loop's trips, ceil(blocks / G))."""
-    for d in range(65, _build.MAX_DIM + 1):
+    for d in range(65, 253):
         dmax = _build.warp_bucket(d)
         blocks = _build.warp_blocks(d, dmax, team)
         got = sorted(q for qs in blocks.values() for q in qs)
@@ -133,7 +133,7 @@ def test_box_muller_partners_stay_in_the_team_at_every_d(team):
     owned by a lane of the same team of G lanes (csrc/warp.cuh computes the
     pair in the lane of coordinate k, which alone reads slot h + k and
     writes the sine over it)."""
-    for d in range(65, _build.MAX_DIM + 1):
+    for d in range(65, 253):
         h = (d + 1) // 2
         lanes = [_build.bm_lanes(k, d, team) for k in range(h)]
         assert all(0 <= a < team and 0 <= b < team and -1 <= c < team
@@ -174,11 +174,14 @@ def test_warp_bucket_edges(d, dmax):
 
 
 def test_above_252_raises_and_64_stays_a_thread_bucket():
-    assert _build.MAX_DIM == 252
+    """The warp buckets end at 1020 dimensions (the 1024-slot bucket):
+    1021 raises, naming A15's remainder; 253 takes the 512 bucket."""
+    assert _build.MAX_DIM == 1020
+    assert _build.warp_bucket(253) == 512
     with pytest.raises(NotImplementedError, match="Queue A item 15"):
-        _build.warp_bucket(253)
-    with pytest.raises(NotImplementedError, match="252"):
-        _build.lib_name("fused_rwm", "mvn_iso", 253)
+        _build.warp_bucket(1021)
+    with pytest.raises(NotImplementedError, match="1020"):
+        _build.lib_name("fused_rwm", "mvn_iso", 1021)
     assert _build.lib_name("fused_rwm", "mvn_iso", 64) == \
         "fused_rwm.mvn_iso.d64"
     assert _build.launch_key("fused_rwm.mvn_iso.d64") == "fused_rwm.mvn_iso"
@@ -406,7 +409,7 @@ def test_fused_rwm_plain_matches_pallas_body_at_d100(monkeypatch, kind):
 @pytest.mark.parametrize("algo", ["RWM", "PT"])
 def test_harness_takes_the_fused_kernels_at_d100(algo):
     """``engine='auto'`` takes the fused samplers at d = 100, as the JAX
-    harness takes its Pallas kernel at any d; above 252 it names the
+    harness takes its Pallas kernel at any d; above 1020 it names the
     reason (ROADMAP A15's remainder)."""
     kw = dict(sigma=0.05, num_iterations=5, algorithm=algo,
               target_dist="MultivariateNormal", num_chains=4,
@@ -416,7 +419,7 @@ def test_harness_takes_the_fused_kernels_at_d100(algo):
     assert sim._fused_refusal() is None and sim._use_pallas()
     chain = sim.generate_samples(verbose=False)
     assert sim.engine_used == "pallas" and chain.shape == (5, D)
-    big = MCMCSimulation(dim=253, **kw)
+    big = MCMCSimulation(dim=1021, **kw)
     assert not big._use_pallas()
     assert "Queue A item 15" in big._fused_refusal()
 
