@@ -260,13 +260,13 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    every team size that takes the launch (phase 3's checks): every kind at
    d = 500 and the iso MVN, FullRosenbrock and IIDGamma at d = 1000 (PT
    T = 10 on 256 replicas, RWM 512 chains, 30 steps), the proposals, the
-   draws, recorded, PT on each bucket's most rungs (``target_max_rungs``)
+   draws, recorded, PT on the most rungs one block holds (``block_rungs``)
    and an even/odd sweep, the edges d = 253, 508, 509, 1020 (1000, ragged;
    Box-Muller at the odd ones), SuperFunnel at d = 406 equal bit for bit to
    its run-time-shape library; (c) Geweke at d = 500 on the iso MVN; (d)
    the main shapes at full width, FullRosenbrock and the iso MVN at d = 500
    and 1000 through ``run_pt_fused`` (65,536 replicas x T = 10) and
-   ``run_rwm_fused`` (65,536 chains), 2000 steps, best of 3 calls, the
+   ``run_rwm_fused`` (65,536 chains), 2000 steps, best of 2 calls, the
    first's launches counted, beside the bound, the team the geometry picked,
    each kernel held against its plain version at that shape over 5 steps,
    the eager engine's ms a step; (e) ``MCMCSimulation`` RWM and PT at
@@ -281,6 +281,30 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    ``NotImplementedError``;
    (f) the RWM acceptance on the iso MVN at d = 1000, from the target's
    init and from exact draws, beside 0.234.
+21. ladders of more than 32 rungs (A17): the thread kernel's runtime-R
+   instantiation up to its one-block fit, the team kernels in one block
+   where it holds the ladder, else their cluster build (``.c512``,
+   ``.c1024``: a replica's rung-teams over a thread-block cluster, built
+   in phase 2); (a) the iso MVN at T = 33, 50 and 64 at d = 30, 100, 500
+   and 1000 (1024 replicas, 30 steps, a swap every 3) in both sweep
+   orders, Laplace and UniformRadius at d = 500, and the 128 and 256
+   buckets' cluster builds at 256 replicas, each against its plain
+   version (agreement.py: at least 99.6 % of replicas, counters exact),
+   launches under the library the geometry picks; (b) the cluster build
+   forced over 2 and 4 blocks equal bit for bit to the one-block build
+   (d = 500, T = 32 and d = 1000, T = 26 at G = 16, recorded, both
+   orders), and ``run_pt_fused_sharded`` at d = 500, T = 50 on 1, 2 and 4
+   virtual shards equal bit for bit to the unsharded run; (c) Geweke at
+   T = 40 on the iso MVN at d = 10 (the thread kernel) and d = 300 (the
+   cluster build); (d) ``run_pt_fused`` at 65,536 replicas, T = 50 at
+   d = 30 and 100 (2000 steps), T = 36 at d = 500 and 50 at d = 1000 (200
+   steps), beside the bound, its launches counted, and G = 16 against
+   G = 32 forced in turns at d = 1000 (T = 50, 20); (e)
+   ``MCMCSimulation(iterative_temp_spacing=True)`` on the iso MVN at
+   d = 500 and 1000 down to beta_min 0.01 at 65,536 replicas, 100
+   iterations, engine ``pallas``, the rungs its ladder took, its ms a step
+   beside the eager engine's on the same ladder (16,384 replicas, 30
+   steps).
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -517,6 +541,37 @@ WIDE_LADDER = dict(N=LADDER_HARNESS_N, N_wide=20000, beta_min=0.2,
                    held=dict(beta_min=0.3, tolerance=0.05),
                    kw={"neal_funnel": {"sigma_v_sq": 0.01}})
 WIDE_SHARD = dict(C=4096, iters=200)
+
+
+# phase 21, ladders of more than 32 rungs (A17): the rungs held and the d's
+# they are held at (the thread kernel's 30, the 128 bucket's 100, the wide
+# buckets' 500 and 1000), the holds' shape and gate (agreement.py: four
+# replicas of 1024 may part ways by rounding; at T = 64 one of 256 did),
+# the small grids' holds (d, T at 256 replicas: the 128 bucket's cluster
+# build, which G = 32 takes at T = 50 where the grid fills no SM, and the
+# 256 bucket's, which T = 80 needs at G = 8), the
+# cluster build's bit-for-bit cases (d,
+# T, team, blocks a cluster: ladders one block of that team holds), the
+# chains-sharded case, Geweke's rungs (d, beta_min: swaps accepted; the
+# rungs held, the cold one and every 13th: 4 x (2d + 1) statistics keep a
+# true z of 5 rare at d = 300), the main shapes (d, T, steps at 65,536
+# replicas: T = 36 and 50 are the iso MVN's iterative ladders down to 0.01
+# at d = 500 and 1000, as phase 20e finds them), the team sizes forced (d, T),
+# and the harness's iterations and the eager comparison's replicas and
+# steps
+RUNGS_T = (33, 50, 64)
+RUNGS_D = (30, 100, 500, 1000)
+RUNGS_HOLD = dict(C=1024, steps=30, burn_in=10, swap_every=3)
+RUNGS_SMALL = ((100, 50), (200, 80))
+RUNGS_AGREE_MIN = 0.996
+RUNGS_SAME = ((500, 32, 16, (2, 4)), (1000, 26, 16, (2,)))
+RUNGS_SHARD = dict(d=500, T=50, C=4096, iters=200)
+RUNGS_GEWEKE = dict(T=40, d=((10, 0.01), (300, 0.5)), rungs=(0, 13, 26, 39))
+RUNGS_MAIN = ((30, 50, 2000), (100, 50, 2000), (500, 36, 200),
+              (1000, 50, 200))
+RUNGS_TEAMS = ((1000, 50), (1000, 20))
+RUNGS_TEAM_ITERS = 50
+RUNGS_HARNESS = dict(iters=100, eager_C=16384, eager_steps=30)
 
 
 def fail(msg):
@@ -1040,7 +1095,7 @@ def per_chain_z(a, b):
 
 
 def invariance(torch, mvn, seed, n=4096, betas=None, exact=None, pt_kw=None,
-               **sampler_kw):
+               rungs=None, **sampler_kw):
     """Exact invariance (Geweke) of the fused samplers on the target
     ``mvn`` with a generator seeded ``seed``: RWM starts 4096 chains from
     exact draws and runs 50 steps, PT starts 4096 replicas from exact
@@ -1050,9 +1105,9 @@ def invariance(torch, mvn, seed, n=4096, betas=None, exact=None, pt_kw=None,
     the mean log-density).  ``exact(n, beta, generator)`` draws ``(n, d)``
     from the tempered target (default ``mvn.direct_sample``).
     ``sampler_kw`` is the proposal (``base_variance=`` or ``proposal=``),
-    ``pt_kw`` more arguments of the PT run (``scale_multipliers=``).
-    Returns ``(max z RWM, max z PT over the rungs, PT swap
-    acceptance)``."""
+    ``pt_kw`` more arguments of the PT run (``scale_multipliers=``),
+    ``rungs`` the rungs held (default all).  Returns ``(max z RWM, max z PT
+    over the rungs, PT swap acceptance)``."""
     from rwm_pt_tpu_torch.kernels import run_pt_fused, run_rwm_fused
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -1078,8 +1133,8 @@ def invariance(torch, mvn, seed, n=4096, betas=None, exact=None, pt_kw=None,
     r = run_pt_fused(mvn, seed + 1, bi, num_chains=n, num_iterations=60,
                      swap_every=5, init_states=cube, device=dev,
                      **sampler_kw, **(pt_kw or {}))
-    z_pt = max(max_z(r.state.x[:, t], draw(n, b.item(), g).T)
-               for t, b in enumerate(bi))
+    z_pt = max(max_z(r.state.x[:, t], draw(n, bi[t].item(), g).T)
+               for t in (range(len(bi)) if rungs is None else rungs))
     return z_rwm, z_pt, r.swap_acceptance_rate.mean().item()
 
 
@@ -2531,8 +2586,10 @@ def warp_hold(torch, gen, phase, label, algo, tg, var, C, steps,
     n_params = _build.kernel_target(tg)[1].numel()
     for team in _build.library_teams(lib):
         try:   # G = 32 takes 16 rungs above the 128 bucket
-            _build.launch_geometry(lib, tg.dim, C, rungs, lkw["kind"],
-                                   lkw["draw"], n_params, team=team)
+            if _build.launch_geometry(lib, tg.dim, C, rungs, lkw["kind"],
+                                      lkw["draw"], n_params,
+                                      team=team).cluster:
+                continue   # more than one block of G holds: phase 21
         except ValueError:
             continue
         reset_launches(*wrappers)
@@ -4454,6 +4511,25 @@ def wide_target(get_target_distribution, kind, d, dev):
     return warp_target(get_target_distribution, kind, d, dev)
 
 
+def block_rungs(_build, d, n_params, kind="mvn_iso"):
+    """The most rungs one block of a team library's team sizes holds at d
+    coordinates (``_build.pt_warp_geometry``; more run over a cluster of
+    blocks, phase 21): phase 20b's hold."""
+    dmax = _build.warp_bucket(d)
+
+    def fits(T):
+        for g in _build.WARP_TEAMS[dmax]:
+            try:
+                _build.pt_warp_geometry(
+                    0, _build.pt_team_threads(dmax, g), d, dmax, T, 1,
+                    n_params=n_params, team=g, rows=_build.team_rows(kind))
+                return True
+            except ValueError:
+                pass
+        return False
+    return max(T for T in range(1, 129) if fits(T))
+
+
 def phase_20(torch, gen):
     """Phase 20, the wide warp buckets (252 < d <= 1020, A15's remainder;
     module docstring): (b) the holds, (c) Geweke at d = 500, (d) the main
@@ -4518,8 +4594,8 @@ def phase_20(torch, gen):
                     if dr != rule[algo]:
                         hold(f"draw {dr} MVN d={d} {algo.upper()}", algo,
                              mvn, var, draw=dr)
-        T_max = _build.target_max_rungs(mvn)
-        hold(f"MVN d={d} PT at the bucket's most rungs T={T_max}", "pt",
+        T_max = block_rungs(_build, d, mvn.dim + 1)
+        hold(f"MVN d={d} PT at one block's most rungs T={T_max}", "pt",
              mvn, var, T=T_max, C=64)
         rb, var_rb = target("rosenbrock", d)
         hold(f"FullRosenbrock d={d} PT even_odd", "pt", rb, var_rb,
@@ -4583,7 +4659,7 @@ def phase_20(torch, gen):
         fail("phase 20c invariance failed")
 
     # ---- (d) the main shapes at full width through the entry points, best
-    # of 3 calls, the first's launches counted (the main path), then each
+    # of 2 calls, the first's launches counted (the main path), then each
     # kernel held against its plain version at the main shape over
     # WIDE_MAIN_HOLD_STEPS steps
     C, T, iters = FLAG["C"], FLAG["T"], FLAG["iters"]
@@ -4628,8 +4704,7 @@ def phase_20(torch, gen):
                     fail(f"phase 20d {kind} d={d} {algo}: launches "
                          f"{dict(seen)}, acc {acc}")
                 del st, res
-                times = [ms] + [cuda_ms(torch, lambda: run(rep))[0]
-                                for rep in (1, 2)]
+                times = [ms, cuda_ms(torch, lambda: run(1))[0]]
                 n_params = _build.kernel_target(tg)[1].numel()
                 work = (pt_work(kind, d, T, C, iters, 0, FLAG["swap_every"],
                                 draw=rule[algo], n_params=n_params)
@@ -4678,7 +4753,7 @@ def phase_20(torch, gen):
                        eager_ms_per_step=e_ms / EAGER_STEPS)
             say(f"phase 20d {name} d={d} at the main shape ({C} "
                 f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {iters} "
-                f"steps, through run_{algo}_fused, best of 3; team "
+                f"steps, through run_{algo}_fused, best of 2; team "
                 f"G={geo.team}, {geo.replicas} "
                 f"{'replicas' if algo == 'pt' else 'chains'} a block, "
                 f"{geo.blocks_per_sm} blocks an SM): FullRosenbrock "
@@ -4810,6 +4885,301 @@ def phase_20(torch, gen):
     return kernels
 
 
+def rungs_layout(geo):
+    """A launch's layout in a few words (phase 21)."""
+    if geo.cluster:
+        return (f"G={geo.team}, clusters of {geo.cluster} blocks of "
+                f"{geo.slots} slots, {geo.replicas} replicas a cluster")
+    if geo.runtime_r:
+        return f"runtime-R, {geo.replicas} replicas a block"
+    return f"G={geo.team}, one block of {geo.replicas} replicas"
+
+
+def rungs_record(name, source, launches, held, main):
+    """A kernels-line record of a build that takes more than 32 rungs:
+    ``held`` = (kernel ms, plain ms, Agreement, work) of its 21a hold (of
+    the same library),
+    ``main`` = (ms, work) of its 21d main path at 65,536 replicas."""
+    ms, plain_ms, ag, work = held
+    b_ms, b_by, b_lim = bound(*work)
+    m_ms, m_work = main
+    mb_ms, _, mb_lim = bound(*m_work)
+    return dict(
+        name=name, route="cuda", source=source,
+        replaces="rwm_pt_tpu/kernels/pallas_pt.py:399", launches=launches,
+        max_abs_err=ag.max_dx, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, steps=RUNGS_HOLD["steps"],
+        replicas=RUNGS_HOLD["C"], agree_frac=ag.frac,
+        max_rel_err=ag.max_rel, bound_limit=b_lim, main_path_ms=m_ms,
+        main_path_bound_ms=mb_ms, main_path_bound_limit=mb_lim,
+        main_path_bound_share=mb_ms / m_ms)
+
+
+def phase_21(torch, gen):
+    """Phase 21, ladders of more than 32 rungs (A17; module docstring):
+    (a) the holds, (b) the cluster build bit for bit against the one-block
+    build, and the chains-sharded runs, (c) Geweke, (d) the main shapes at
+    65,536 replicas and the team sizes forced, (e) the harness's iterative
+    ladders at d = 500 and 1000.  Returns the kernels line's records of the
+    T > 32 builds: the thread kernel's runtime-R instantiation (d = 30),
+    the one-block team kernel (d = 100) and the cluster build (d = 500 and
+    1000), each with the launches of its main path in (d)."""
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          run_pt, run_pt_fused,
+                                          run_pt_fused_sharded)
+    from rwm_pt_tpu_torch.kernels.fused_pt import SWEEPS
+    from rwm_pt_tpu_torch.parallel import make_mesh
+    from rwm_pt_tpu_torch.proposals import NormalProposal
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    launch = fused_pt.launch_pt_kernel
+    rule = draws.resolve_normal_impl("pt", 65536, "mvn_iso")
+    h = RUNGS_HOLD
+    C = FLAG["C"]
+    mvn = {}
+
+    def target(d):
+        if d not in mvn:
+            mvn[d] = get_target_distribution("MultivariateNormal", d,
+                                             device=dev)
+        return mvn[d], 2.38 ** 2 / d
+
+    def geometry(d, T, C, prop="Normal", team=None, cluster=None):
+        """(library, geometry) of a launch of T rungs at d on C replicas."""
+        tg, _ = target(d)
+        lib = _build.route(_build.library("fused_pt", prop, rule), tg)[0]
+        geo = _build.launch_geometry(lib, d, C, T, prop, rule,
+                                     _build.kernel_target(tg)[1].numel(),
+                                     team, cluster)
+        return (_build.cluster_lib(lib) if geo.cluster else lib), geo
+
+    say(f"phase 21 the draw rule (phase 12, measured at T <= 32, not "
+        f"retuned) picks {rule} for the iso MVN's PT at {C} replicas and "
+        f"{draws.resolve_normal_impl('pt', h['C'], 'mvn_iso')} at {h['C']}; "
+        f"phase 21 runs {rule}")
+
+    # ---- (a) every T > 32 build against its plain version: T = 33, 50
+    # and 64 at each d in both sweep orders, the proposals at d = 500
+    cases = [(d, T, sweep, prop, h["C"]) for d in RUNGS_D for T in RUNGS_T
+             for sweep in SWEEPS for prop in ("Normal",) + (
+                 NEW_PROPOSALS if d == 500 and sweep == SWEEPS[0] else ())]
+    cases += [(d, T, SWEEPS[0], "Normal", 256) for d, T in RUNGS_SMALL]
+    held, worst = {}, 1.0
+    for d, T, sweep, prop, Ch in cases:
+        tg, var = target(d)
+        _, plain, names, args, lkw, work = warp_case(
+            torch, gen, "pt", tg, var, h["steps"], Ch, T=T, prop=prop,
+            draw=rule, burn_in=h["burn_in"], swap_every=h["swap_every"])
+        lkw["swap_sweep"] = sweep
+        lib, geo = geometry(d, T, Ch, prop)
+        reset_launches(launch)
+        ms, k = cuda_ms(torch, lambda: launch(*args, **lkw))
+        seen = read_launches(launch, by_kind=True)
+        plain_ms, p = cuda_ms(torch, lambda: plain(*args, **lkw))
+        ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+        b_ms, _, b_lim = bound(*work)
+        say(f"phase 21a d={d} T={T} {prop} {sweep} ({Ch} replicas): {lib} "
+            f"({rungs_layout(geo)}) kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_lim}; "
+            f"{int(k[3].sum())} swaps; {agreement.describe(ag)}")
+        if (dict(seen) != {_build.launch_key(lib): 1}
+                or ag.frac < RUNGS_AGREE_MIN or ag.mismatched
+                or not (k[3] > 0).any()):
+            fail(f"phase 21a d={d} T={T} {prop} {sweep}: launches "
+                 f"{dict(seen)}, {agreement.describe(ag)}")
+        worst = min(worst, ag.frac)
+        if prop == "Normal" and sweep == SWEEPS[0] and Ch == h["C"]:
+            held[d, T] = (ms, plain_ms, ag, work, lib)
+        del k, p
+    say(f"phase 21a {time.time() - t_phase:.1f} s; least share of replicas "
+        f"that agree {worst:.5f} (>= {RUNGS_AGREE_MIN})")
+
+    # ---- (b) the cluster build forced against the one-block build, bit for
+    # bit, where one block holds the ladder; the chains-sharded runs
+    for d, T, team, ks in RUNGS_SAME:
+        tg, var = target(d)
+        _, _, names, args, lkw, _ = warp_case(
+            torch, gen, "pt", tg, var, h["steps"], h["C"], T=T, draw=rule,
+            burn_in=h["burn_in"], swap_every=h["swap_every"])
+        lkw.update(team=team, record_every=3, record_chains=h["C"])
+        one_lib = geometry(d, T, h["C"], team=team)[0]
+        for sweep in SWEEPS:
+            lkw["swap_sweep"] = sweep
+            one = launch(*args, **lkw)
+            for k in ks:
+                reset_launches(launch)
+                out = launch(*args, cluster=k, **lkw)
+                seen = read_launches(launch, by_kind=True)
+                bad = [n for n, a, b in zip(agreement.PT_REC_OUTPUTS, one,
+                                            out) if not same(torch, a, b)]
+                if bad or set(seen) != {_build.cluster_lib(one_lib),
+                                        "fused_pt_record"}:
+                    fail(f"phase 21b d={d} T={T} G={team} {sweep} over {k} "
+                         f"blocks: differs from one block in {bad}; "
+                         f"launches {dict(seen)}")
+        say(f"phase 21b d={d} T={T} G={team}: {one_lib}'s cluster build over "
+            f"{ks} blocks equals its one-block build bit for bit (x, lp, "
+            f"counts, both sums, the cold trace) in both sweep orders")
+    d, T = RUNGS_SHARD["d"], RUNGS_SHARD["T"]
+    tg, var = target(d)
+    betas = torch.logspace(0, -2, T, device=dev)
+    kw = dict(base_variance=var, num_chains=RUNGS_SHARD["C"],
+              num_iterations=RUNGS_SHARD["iters"], swap_every=10)
+    lib, geo = geometry(d, T, RUNGS_SHARD["C"])
+    ref = run_pt_fused(tg, 7, betas, device=dev, **kw)
+    line = []
+    for n in SHARD_COUNTS:
+        reset_launches(launch)
+        ms, res = cuda_ms(torch, lambda: run_pt_fused_sharded(
+            tg, 7, betas, make_mesh((n,), ("chains",), devices=[dev] * n),
+            **kw))
+        seen = read_launches(launch, by_kind=True)
+        bad = differ(torch, res, ref, PT_STATE)
+        if bad or sum(seen.values()) != n:
+            fail(f"phase 21b d={d} T={T} on {n} shards: differs in {bad}; "
+                 f"launches {dict(seen)}")
+        line.append(f"{n} shards {ms:.3f} ms ({dict(seen)})")
+    say(f"phase 21b chains-sharded d={d} T={T} ({RUNGS_SHARD['C']} "
+        f"replicas, {RUNGS_SHARD['iters']} steps; unsharded {lib}, "
+        f"{rungs_layout(geo)}): equal bit for bit ({', '.join(PT_STATE)}) "
+        f"to the unsharded run on {SHARD_COUNTS} shards; " + "; ".join(line))
+    del ref, res
+
+    # ---- (c) Geweke at T = 40: the thread kernel and the cluster build
+    g = RUNGS_GEWEKE
+    for d, beta_min in g["d"]:
+        tg, var = target(d)
+        seed = int.from_bytes(os.urandom(4), "little")
+        ladder = [beta_min ** (t / (g["T"] - 1)) for t in range(g["T"])]
+        lib, geo = geometry(d, g["T"], 4096)
+        reset_launches(launch)
+        z_rwm, z_pt, sw = invariance(torch, tg, seed, betas=ladder,
+                                     rungs=g["rungs"], base_variance=var)
+        seen = read_launches(launch, by_kind=True)
+        say(f"phase 21c invariance MVN d={d}, T={g['T']} rungs 1 .. "
+            f"{beta_min} (seed {seed}; {lib}, {rungs_layout(geo)}): max z "
+            f"RWM {z_rwm:.2f}, PT {z_pt:.2f} at rungs {g['rungs']} (< "
+            f"{Z_INV_MAX}); PT swap acc {sw:.3f}; launches {dict(seen)}")
+        if (max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, ladder)
+                or _build.launch_key(lib) not in seen):
+            fail(f"phase 21c invariance failed at d={d}")
+
+    # ---- (d) the main shapes at 65,536 replicas through run_pt_fused, one
+    # call, its launches counted (the main path)
+    records = []
+    for (d, T, iters), src in zip(RUNGS_MAIN, (
+            "fused_pt.cu", "fused_pt_warp.cu", "fused_pt_warp.cu",
+            "fused_pt_warp.cu")):
+        tg, var = target(d)
+        betas = torch.logspace(0, -2, T, device=dev)
+        lib, geo = geometry(d, T, C)
+
+        def run(rep):
+            return run_pt_fused(tg, rep, betas, base_variance=var,
+                                num_chains=C, num_iterations=iters,
+                                swap_every=FLAG["swap_every"], device=dev)
+        reset_launches(launch)
+        ms, res = cuda_ms(torch, lambda: run(0))
+        seen = read_launches(launch, by_kind=True)
+        acc = res.acceptance_rate.mean().item()
+        if (dict(seen) != {_build.launch_key(lib): 1}
+                or not torch.isfinite(res.state.x).all()
+                or not torch.isfinite(res.state.logp).all()
+                or not 0 < acc < 1):
+            fail(f"phase 21d d={d} T={T}: launches {dict(seen)}, acc {acc}")
+        swap = res.swap_acceptance_rate.mean().item()
+        del res
+        work = pt_work("mvn_iso", d, T, C, iters, 0, FLAG["swap_every"],
+                       draw=rule, n_params=d + 1)
+        b_ms, _, b_lim = bound(*work)
+        say(f"phase 21d d={d} T={T} ({C} replicas, {iters} steps, through "
+            f"run_pt_fused): {lib} ({rungs_layout(geo)}, "
+            f"{geo.blocks_per_sm} blocks, {_build.resident_warps(geo)} warps "
+            f"an SM) {ms:.3f} ms against its {b_ms:.3f} ms bound by {b_lim} "
+            f"({100 * b_ms / ms:.1f} %), {ms / iters:.4f} ms a step; "
+            f"acceptance {acc:.4f}, swap {swap:.4f}; launches {dict(seen)}")
+        key = _build.launch_key(lib)
+        name = (f"{lib} (runtime-R, T={T})" if geo.runtime_r else
+                f"{key} (T={T})")
+        if held[d, 50][4] != lib:   # the record's hold is of its library
+            fail(f"phase 21d d={d}: held {held[d, 50][4]}, ran {lib}")
+        records.append(rungs_record(
+            name, "rwm_pt_tpu_torch/kernels/csrc/" + src, seen[key],
+            held[d, 50][:4], (ms, work)))
+        torch.cuda.empty_cache()
+    for d, T in RUNGS_TEAMS:   # each team size forced, in turns
+        tg, var = target(d)
+        betas = torch.logspace(0, -2, T, device=dev)
+        line = []
+        for team in (16, 32, 32, 16):
+            lib, geo = geometry(d, T, C, team=team)
+            ms, _ = cuda_ms(torch, lambda: run_pt_fused(
+                tg, 2, betas, base_variance=var, num_chains=C,
+                num_iterations=RUNGS_TEAM_ITERS,
+                swap_every=FLAG["swap_every"], device=dev,
+                _shard=_build.Shard(team=team)))
+            line.append(f"G={team} {ms:.3f} ms ({rungs_layout(geo)}, "
+                        f"{geo.blocks_per_sm} blocks, "
+                        f"{_build.resident_warps(geo)} warps an SM)")
+            del _
+            torch.cuda.empty_cache()
+        say(f"phase 21d teams forced in turns at d={d} T={T} ({C} replicas,"
+            f" {RUNGS_TEAM_ITERS} steps; the geometry takes "
+            f"G={geometry(d, T, C)[1].team}): " + "; ".join(line))
+
+    # ---- (e) the harness's iterative ladders down to beta_min 0.01 at
+    # d = 500 and 1000 on the fused kernels, beside the eager engine on the
+    # same ladder
+    for d in WIDE_D:
+        tg, var = target(d)
+        reset_launches(launch)
+        t0 = time.time()
+        sim = MCMCSimulation(
+            dim=d, sigma=var, num_iterations=RUNGS_HARNESS["iters"],
+            algorithm="PT", target_dist=tg, num_chains=C, seed=1,
+            iterative_temp_spacing=True, beta_min_iterative=0.01,
+            record_chain=False, device=dev)
+        ladder_s = time.time() - t0
+        sim.generate_samples(verbose=False)
+        torch.cuda.synchronize()
+        seen = read_launches(launch, by_kind=True)
+        ladder = list(sim.beta_ladder)
+        T = len(ladder)
+        if (sim._engine_used != "pallas" or T <= 32
+                or abs(ladder[-1] - 0.01) > 1e-6
+                or sum(seen.values()) != 1):
+            fail(f"phase 21e MCMCSimulation d={d}: engine "
+                 f"{sim._engine_used}, {T} rungs, launches {dict(seen)}")
+        run_ms = sim.elapsed_time * 1e3
+        swap = sim.acceptance_rate()
+        del sim
+        torch.cuda.empty_cache()
+        betas = torch.tensor(ladder, dtype=torch.float32, device=dev)
+        Ce, steps = RUNGS_HARNESS["eager_C"], RUNGS_HARNESS["eager_steps"]
+        kw = dict(num_chains=Ce, num_iterations=steps,
+                  swap_every=FLAG["swap_every"], device=dev)
+        f_ms = cuda_ms(torch, lambda: run_pt_fused(
+            tg, 3, betas, base_variance=var, **kw), 2)[0]
+        e_ms = cuda_ms(torch, lambda: run_pt(
+            tg, NormalProposal.create(d, var, device=dev), 3, betas,
+            swap_sweep="sequential", **kw))[0]
+        say(f"phase 21e MCMCSimulation(iterative_temp_spacing=True) MVN "
+            f"d={d} down to beta_min 0.01: {T} rungs (ladder {ladder_s:.2f} "
+            f"s), engine pallas, {C} replicas x {RUNGS_HARNESS['iters']} "
+            f"iterations in {run_ms:.1f} ms "
+            f"({run_ms / RUNGS_HARNESS['iters']:.3f} ms a step), swap acc "
+            f"{swap:.4f}; launches {dict(seen)}; on the same ladder at {Ce} "
+            f"replicas, {steps} steps: fused {f_ms / steps:.3f} ms a step, "
+            f"the eager engine {e_ms / steps:.3f} ms a step "
+            f"({e_ms / f_ms:.1f}x)")
+        torch.cuda.empty_cache()
+    say(f"phase 21 {time.time() - t_phase:.1f} s")
+    return records
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -4830,9 +5200,12 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
                                  n_params)
     info = _build.kernel_info(
         name, d, T if pt else 1, geo.replicas, n_params,
-        runtime_r=geo.runtime_r, team=geo.team)
+        runtime_r=geo.runtime_r, team=geo.team, cluster=geo.cluster)
     warps = -(-geo.threads // 32)
     team = f" G={geo.team}," if _build.is_warp(name) else ""
+    if geo.cluster:
+        team += (f" {geo.cluster} blocks a cluster of {geo.slots} slots, "
+                 f"{info['clusters']} clusters the card holds,")
     return (f"min blocks {blocks}; {info['registers']} regs, "
             f"{info['local_bytes']} B local at d={d}"
             + (f", T={T}:{team} R={geo.replicas}" if pt else
@@ -4941,6 +5314,14 @@ def smoke_libraries(_build):
             sf_wide)[0])
     names += [_build.ladder_lib(k, WIDE_D[0]) for k in LADDER_KINDS]
     names.append(_build.ladder_lib("mvn_iso", WIDE_D[1]))
+    rule = resolve_normal_impl("pt", 65536, "mvn_iso")            # 21
+    names += [_build.cluster_lib(lib(_build.library("fused_pt", p, rule),
+                                     "mvn_iso", d))
+              for d in WIDE_D for p in (
+                  _build.PROPOSALS if d == WIDE_D[0] else ("Normal",))]
+    names += [_build.cluster_lib(lib(_build.library("fused_pt", "Normal",
+                                                    rule), "mvn_iso", d))
+              for d, _ in RUNGS_SMALL]
     return list(dict.fromkeys(names))
 
 
@@ -5014,7 +5395,8 @@ def main():
         if kname != _build.PROBES:
             line += "; " + occupancy(   # SuperFunnel: its ladder's T = 8
                 torch, _build, kname,
-                T=8 if ".super_funnel." in kname else 10)
+                T=8 if ".super_funnel." in kname else
+                50 if _build.is_cluster(kname) else 10)
         say(f"phase 2 build {kname}: {line}")
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
         f"target kind and register bucket) in {build_s:.1f} s")
@@ -5230,6 +5612,7 @@ def main():
     kernels.extend(phase_18(torch, gen))
     kernels.extend(phase_19(torch, card))
     kernels.extend(phase_20(torch, gen))
+    kernels.extend(phase_21(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

@@ -216,13 +216,14 @@ class MCMCSimulation:
                                        iterative_pn_clamp_max))
                 # room for the fused kernel's rungs under engine='pallas';
                 # else the eager engine takes a longer ladder
-                rungs = (_build.target_max_rungs(
+                fit = (_build.target_rungs_fit(
                     target_dist, proposal_config.get("name"))
-                         if engine == "pallas" else EAGER_MAX_RUNGS)
+                       if engine == "pallas" else
+                       _build.RungsFit(EAGER_MAX_RUNGS, "the eager engine"))
                 self.beta_ladder = check_room(
                     construct_iterative_ladder_device(
-                        target_dist, max_T=rungs + 1, **kw),
-                    rungs, beta_min_iterative)
+                        target_dist, max_T=fit.rungs + 1, **kw),
+                    fit.rungs, beta_min_iterative, fit.layout)
             else:
                 self.beta_ladder = construct_geometric_ladder()
             self.algorithm_name = ("PT_RWM_GPU_ITERATIVE_LADDER"
@@ -353,10 +354,10 @@ class MCMCSimulation:
         if not self.symmetric:
             return ("symmetric=True (the kernels omit the asymmetric "
                     "correction term)")
-        rungs = _build.target_max_rungs(self.target_dist,
-                                        self.proposal_config.get("name"))
-        if self.is_pt and len(self.beta_ladder) > rungs:
-            return f"at most {rungs} rungs"
+        fit = _build.target_rungs_fit(self.target_dist,
+                                      self.proposal_config.get("name"))
+        if self.is_pt and len(self.beta_ladder) > fit.rungs:
+            return f"at most {fit.rungs} rungs ({fit.layout})"
         try:
             _build.kernel_target(self.target_dist)
         except NotImplementedError as e:

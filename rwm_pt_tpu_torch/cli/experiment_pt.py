@@ -78,8 +78,10 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
     _sync(dev)
     total_start = time.time()
     # the fused kernel's rungs; the eager engine (--x64) takes any ladder
-    rungs = (_build.target_max_rungs(target)
-             if default_float() == torch.float32 else EAGER_MAX_RUNGS)
+    fit = (_build.target_rungs_fit(target)
+           if default_float() == torch.float32 else
+           _build.RungsFit(EAGER_MAX_RUNGS, "the eager engine"))
+    rungs = fit.rungs
     for i, target_rate in enumerate(swap_rates_range):
         t0 = time.time()
         if geom_ladder:
@@ -92,7 +94,7 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
                 tolerance=iterative_tolerance,
                 max_pn_adjustment_steps=iterative_max_pn_steps,
                 convergence_failure_tolerance_factor=iterative_fail_tol_factor,
-                seed=seed + i, max_T=rungs + 1), rungs)
+                seed=seed + i, max_T=rungs + 1), rungs, layout=fit.layout)
         run_kw = dict(num_chains=num_chains, num_iterations=num_iters,
                       burn_in=burn_in, swap_every=swap_every,
                       swap_sweep="even_odd", device=dev)
@@ -105,7 +107,7 @@ def run_study(dim, target_name="ThreeMixture", num_iters=200000,
             if len(ladder) > rungs:
                 raise NotImplementedError(
                     f"config {i}: the ladder has {len(ladder)} rungs; the "
-                    f"fused PT kernel runs at most {rungs}")
+                    f"fused PT kernel runs at most {rungs} ({fit.layout})")
             betas = torch.tensor(ladder, dtype=torch.float32)
             if mesh is None:
                 res = run_pt_fused(target, config_seed(seed, i), betas,

@@ -71,6 +71,7 @@ and sizes its own cooperative grid.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -180,9 +181,14 @@ _ENTRIES = {
              "rwm_pt_ladder_build_info": [_I, _P]},
 }
 # the warp kernels: PT takes the same arguments, the team size G in
-# runtime_r's place; RWM takes chains (teams) a block for threads and the
+# runtime_r's place and the blocks a cluster after it (0: one block a
+# replica's ladder; csrc/fused_pt_warp.cu's cluster build), its info
+# function the team size and the blocks a cluster first; RWM takes chains (teams) a block for threads and the
 # team size after them, and its info function the team size first
-_ENTRIES["fused_pt_warp"] = _ENTRIES["fused_pt"]
+_ENTRIES["fused_pt_warp"] = {
+    "rwm_pt_fused_pt": _ENTRIES["fused_pt"]["rwm_pt_fused_pt"][:-1]
+    + [_I, _P],   # the blocks a cluster after the team size
+    "rwm_pt_fused_pt_info": [_I, _I, _I, _I, _I, _I, _P]}
 _ENTRIES["fused_rwm_warp"] = {
     "rwm_pt_fused_rwm": _ENTRIES["fused_rwm"]["rwm_pt_fused_rwm"][:-1]
     + [_I, _P],
@@ -247,14 +253,32 @@ def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None,
 
 
 def is_warp(name: str) -> bool:
-    """Whether library ``name`` is a warp-per-replica one."""
-    return name.split(".")[-1].startswith("w")
+    """Whether library ``name`` is a warp-per-replica one (a team of lanes
+    a state: ``.w<D>``, or PT's cluster build ``.c<D>``)."""
+    return name.split(".")[-1][:1] in ("w", "c")
+
+
+def is_cluster(name: str) -> bool:
+    """Whether library ``name`` is PT's cluster build (``.c<D>``:
+    ``csrc/fused_pt_warp.cu`` with ``-DRWM_PT_CLUSTER``, a replica's
+    rung-teams spread over the blocks of a thread-block cluster)."""
+    return name.split(".")[-1].startswith("c")
+
+
+def cluster_lib(name: str) -> str:
+    """The cluster build of PT warp library ``name``: its warp bucket's tag
+    ``w<D>`` as ``c<D>`` (``fused_pt_lax_erfinv.mvn_iso.c1024``)."""
+    head, tag = name.rsplit(".", 1)
+    if tag[0] not in "wc" or not name.startswith("fused_pt"):
+        raise ValueError(f"{name} has no cluster build: PT's team "
+                         f"libraries (d > 64) have one")
+    return f"{head}.c{tag[1:]}"
 
 
 def launch_key(name: str) -> str:
     """The wrappers' launch-counter key of library ``name``:
     ``<variant>.<kind>`` for a thread-per-replica library (its register
-    bucket dropped), the whole name ``<variant>.<kind>.w<D>``
+    bucket dropped), the whole name ``<variant>.<kind>.w<D>`` (``.c<D>``)
     for a warp one."""
     return name if is_warp(name) else name.rsplit(".", 1)[0]
 
@@ -283,17 +307,17 @@ def _parts(name: str):
         parts = parts[:2] + parts[3:]
     variant, kind, tag = parts
     src, pc, dc = VARIANTS[variant]
-    if tag[0] not in "dw":
+    if tag[0] not in "dwc" or (tag[0] == "c" and src != "fused_pt"):
         raise ValueError(f"no library {name}")
     dmax = int(tag[1:])
     if shape is not None:
         d = shape["dim"]
         team = BUCKETS[-1] < d <= MAX_DIM
         if d > MAX_DIM or team != (shape["blocks"] is None) or (
-                tag[0], dmax) != (("w", warp_bucket(d)) if team
-                                  else ("d", bucket(d))):
+                tag[0].replace("c", "w"), dmax) != (
+                    ("w", warp_bucket(d)) if team else ("d", bucket(d))):
             raise ValueError(f"no library {name}")
-    if tag[0] == "w":
+    if tag[0] in "wc":
         src += WARP
     blocks = (min_blocks(src, kind, dmax) if shape is None
               or shape["blocks"] is None else shape["blocks"])
@@ -468,6 +492,8 @@ def _flags(name: str) -> list[str]:
     src, pc, dc, kc, dmax, blocks = _parts(name)
     extra = ([f"-DRWM_PT_TEAMS={sum(library_teams(name))}"]
              if src.endswith(WARP) else [])
+    if is_cluster(name):
+        extra.append("-DRWM_PT_CLUSTER=1")
     sf = fixed_shape(name)
     if sf is not None:
         extra += [f"-DRWM_PT_SF_{k.upper()}={sf[k]}"
@@ -570,6 +596,11 @@ BLOCK_SHARED = 227 * 1024    # a block's most dynamic shared memory
 BLOCK_RESERVED = 1024        # shared memory the system keeps for each block
 PT_BLOCK_THREADS = 320       # csrc/fused_pt.cu: kBlockThreads (256 at a
 #                              fixed SuperFunnel shape)
+# the threads a block of csrc/fused_pt.cu's runtime-R instantiation holds
+# for certain, without a build: its launch bound, one block of
+# kBlockThreads; in a build with no launch bound (min_blocks 0) 256, since
+# ptxas gives a thread at most 255 registers, 8 warps of the register file
+PT_UNBOUND_THREADS = 256
 PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
 # warp bucket -> the warps a block of csrc/fused_pt_warp.cu's one-warp-a-
@@ -587,7 +618,11 @@ class Geometry(NamedTuple):
     at once, ``grid`` blocks (the last one ragged unless ``replicas``
     divides C); PT: whether it takes the instantiation that reads R at
     run time (``runtime_r``) or the 32-replica one; a warp kernel's team
-    size G, the lanes a state (``team``: 32 is one warp a state)."""
+    size G, the lanes a state (``team``: 32 is one warp a state); PT's
+    cluster build (:func:`pt_cluster_geometry`): the blocks a cluster
+    (``cluster``, 0 for a launch of one block a replica's ladder), which
+    hold ``slots`` rung-teams of each of its ``replicas`` each (``grid``
+    counts blocks, ``cluster`` a cluster)."""
     replicas: int
     threads: int
     shared_bytes: int
@@ -595,6 +630,8 @@ class Geometry(NamedTuple):
     grid: int
     runtime_r: bool = False
     team: int = 32
+    cluster: int = 0
+    slots: int = 0
 
 
 def blocks_per_sm(regs: int, threads: int, shared_bytes: int) -> int:
@@ -681,8 +718,8 @@ def pt_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
     SuperFunnel build of fixed shape (:func:`pt_shared_bytes`).  Raises
     ``ValueError`` when not even one replica's ladder fits."""
     _check_dim(d, dmax)
-    if not 1 <= T <= MAX_RUNGS or C < 1:
-        raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
+    if T < 1 or C < 1:
+        raise ValueError(f"T={T} and C={C} must be >= 1")
     base = pt_shared_bytes(n_params, T, d, 0, dmax, proposal, draw, kind,
                            fixed)
     per_replica = (pt_shared_bytes(n_params, T, d, 1, dmax, proposal, draw,
@@ -833,20 +870,23 @@ def pt_block_threads(R: int, T: int, team: int = 32) -> int:
 def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
                          proposal: str = "Normal", team: int = 32,
                          kind: str | None = None,
-                         rows: int | None = None) -> int:
+                         rows: int | None = None,
+                         slots: int | None = None) -> int:
     """Dynamic shared memory of a warp PT block of R replicas x T
     rung-teams whose rows' quads span ``dmax`` words (the warp bucket, or
     :func:`sf_team_dmax`; ``csrc/fused_pt_warp.cu::shared_words``): each
     team's ``rows`` rows (by default :func:`team_rows` of ``kind``; the
     idle teams of :func:`pt_block_threads` too), the parameters that fit,
     the ladder, the sweep's words (its per-replica sums too) and Laplace's
-    (T, d) scales."""
+    (T, d) scales.  ``slots``: a block of the cluster build, which holds
+    that many rung-teams of each replica and reads Laplace's scales
+    through L2 (its sweep's words sized by T as in every block)."""
     rows = team_rows(kind) if rows is None else rows
-    words = (pt_block_threads(R, T, team) // team * rows
-             * team_pitch(dmax, team)
+    teams = pt_block_threads(R, T if slots is None else slots, team) // team
+    words = (teams * rows * team_pitch(dmax, team)
              + params_shared_words(n_params) + 2 * T
              + 2 * T * R + 5 * R + 3 * T * R + R
-             + (T * d if proposal == "Laplace" else 0))
+             + (T * d if proposal == "Laplace" and slots is None else 0))
     return 4 * words
 
 
@@ -869,11 +909,16 @@ def _check_warp_dim(d: int, dmax: int) -> None:
         raise ValueError(f"d={d} is not in the warp bucket 1..{dmax - 4}")
 
 
-def pt_team_threads(dmax: int, team: int = 32) -> int:
+def pt_team_threads(dmax: int, team: int = 32,
+                    cluster: bool = False) -> int:
     """The launch bound of ``csrc/fused_pt_warp.cu``'s team-size-``team``
     instantiation in warp bucket ``dmax``: 32 :data:`PT_WARP_MAX_WARPS`
-    threads at G = 32, :data:`PT_TEAM_THREADS` below."""
-    return 32 * PT_WARP_MAX_WARPS[dmax] if team == 32 else PT_TEAM_THREADS
+    threads at G = 32, :data:`PT_TEAM_THREADS` below; in the ``cluster``
+    build :data:`PT_TEAM_THREADS` at every G (its G = 32 spilled at the
+    128 bucket's 1024)."""
+    if team == 32 and not cluster:
+        return 32 * PT_WARP_MAX_WARPS[dmax]
+    return PT_TEAM_THREADS
 
 
 def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
@@ -894,8 +939,8 @@ def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
     sines use the scratch row).  Raises ``ValueError`` when not even one
     replica's ladder fits."""
     _check_warp_dim(d, dmax)
-    if not 1 <= T <= MAX_RUNGS or C < 1:
-        raise ValueError(f"T={T} must be in 1..{MAX_RUNGS} and C={C} >= 1")
+    if T < 1 or C < 1:
+        raise ValueError(f"T={T} and C={C} must be >= 1")
     cap = min(pt_team_threads(dmax, team), max_threads)
 
     def shared(R):
@@ -918,6 +963,63 @@ def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
         return Geometry(R, threads, shared(R),
                         blocks_per_sm(regs, threads, shared(R)), -(-C // R),
                         team=team)
+
+    return max((launch(R) for R in whole or fits),
+               key=lambda g: (g.blocks_per_sm * g.threads, g.replicas))
+
+
+CLUSTER_MAX = 8   # blocks a cluster: the portable cluster size
+
+
+def pt_cluster_geometry(regs: int, max_threads: int, d: int, dmax: int,
+                        T: int, C: int, proposal: str = "Normal",
+                        draw: str = "icdf", n_params: int = 0,
+                        team: int = 32, kind: str | None = None,
+                        rows: int | None = None,
+                        cluster: int | None = None) -> Geometry:
+    """The launch of PT's cluster build (``csrc/fused_pt_warp.cu`` with
+    ``-DRWM_PT_CLUSTER``) of C replicas x T rungs: a cluster of k blocks
+    holds R replicas, each block ``slots`` = ceil(T / k) rung-teams of
+    each of them (the last block's ragged slots idle teams).  k is
+    ``cluster``, else the smallest k <= :data:`CLUSTER_MAX` for which a
+    block of one replica fits (:func:`pt_team_threads` of the cluster
+    build, ``max_threads``,
+    :func:`pt_warp_shared_bytes` with ``slots``); R as
+    :func:`pt_warp_geometry` takes it for that block.  ``grid`` counts
+    blocks: k a cluster.  Raises ``ValueError`` when no cluster of at
+    most :data:`CLUSTER_MAX` blocks (of ``cluster``) fits one replica."""
+    _check_warp_dim(d, dmax)
+    if T < 1 or C < 1:
+        raise ValueError(f"T={T} and C={C} must be >= 1")
+    cap = min(pt_team_threads(dmax, team, cluster=True), max_threads)
+
+    def shared(R, slots):
+        return pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal, team,
+                                    kind, rows, slots)
+
+    for k in ([cluster] if cluster else range(1, CLUSTER_MAX + 1)):
+        slots = -(-T // k)
+        fits = [R for R in range(1, cap // (team * slots) + 1)
+                if pt_block_threads(R, slots, team) <= cap
+                and shared(R, slots) <= BLOCK_SHARED]
+        if fits:
+            break
+    else:
+        k = cluster or CLUSTER_MAX
+        slots = -(-T // k)
+        raise ValueError(
+            f"one replica's ladder does not fit a cluster of {k} blocks: "
+            f"T={T} rung-teams of {team} lanes, {slots} a block, need "
+            f"{pt_block_threads(1, slots, team)} threads ({cap} allowed) "
+            f"and {shared(1, slots)} B of shared memory ({BLOCK_SHARED} B) "
+            f"a block")
+    whole = [R for R in fits if R * slots * team % 32 == 0]
+
+    def launch(R):
+        threads = pt_block_threads(R, slots, team)
+        return Geometry(R, threads, shared(R, slots),
+                        blocks_per_sm(regs, threads, shared(R, slots)),
+                        -(-C // R) * k, team=team, cluster=k, slots=slots)
 
     return max((launch(R) for R in whole or fits),
                key=lambda g: (g.blocks_per_sm * g.threads, g.replicas))
@@ -1018,22 +1120,28 @@ _INFO: dict[tuple, tuple] = {}
 
 def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
                 n_params: int = 0, runtime_r: bool = False,
-                team: int = 32) -> dict:
+                team: int = 32, cluster: int = 0) -> dict:
     """What library ``name``'s kernel and the CUDA runtime say of a launch
     at d coordinates (PT: T rungs, R replicas a block, the instantiation
     with a runtime R or the compile-time one; RWM: R chains a block; a warp
-    library: the instantiation of team size ``team``): ``registers``,
+    library: the instantiation of team size ``team``; PT's cluster build:
+    R replicas a cluster of ``cluster`` blocks): ``registers``,
     ``max_threads`` (``maxThreadsPerBlock``), ``local_bytes`` a thread,
-    ``shared_bytes`` and ``blocks_per_sm``
+    ``shared_bytes`` (a block's), ``blocks_per_sm``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where the launch
-    does not fit).  Needs the card."""
-    key = (name, d, T, R, n_params, runtime_r, team)
+    does not fit) and ``clusters`` (the cluster build's
+    ``cudaOccupancyMaxActiveClusters``, the clusters the card holds at
+    once; else 0).  Needs the card."""
+    key = (name, d, T, R, n_params, runtime_r, team, cluster)
     if key not in _INFO:
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 6)()
         warp = is_warp(name)
-        if _source(name).startswith("fused_pt"):
+        if _source(name).startswith("fused_pt") and warp:
             rc = entry(name, "rwm_pt_fused_pt_info")(
-                team if warp else int(runtime_r), d, T, R, n_params, out)
+                team, cluster, d, T, R, n_params, out)
+        elif _source(name).startswith("fused_pt"):
+            rc = entry(name, "rwm_pt_fused_pt_info")(
+                int(runtime_r), d, T, R, n_params, out)
         elif warp:
             rc = entry(name, "rwm_pt_fused_rwm_info")(team, d, R, n_params,
                                                       out)
@@ -1042,7 +1150,8 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
         check_launch(name, rc)
         _INFO[key] = tuple(out)
     return dict(zip(("registers", "max_threads", "local_bytes",
-                     "shared_bytes", "blocks_per_sm"), _INFO[key]))
+                     "shared_bytes", "blocks_per_sm", "clusters"),
+                    _INFO[key]))
 
 
 def library_teams(name: str) -> tuple[int, ...]:
@@ -1054,16 +1163,49 @@ def library_teams(name: str) -> tuple[int, ...]:
     return WARP_TEAMS[dmax]
 
 
+def _cluster_geometry(name: str, d: int, C: int, T: int, proposal: str,
+                      draw: str, n_params: int, team: int, words: int,
+                      rows: int, cluster: int | None) -> Geometry:
+    """:func:`pt_cluster_geometry` of library ``name``'s cluster build
+    (:func:`cluster_lib`) at team size ``team``: the smallest k whose
+    blocks fit and whose cluster the card schedules
+    (``cudaOccupancyMaxActiveClusters`` >= 1), or the k of ``cluster``
+    (forced, for comparisons: a cluster the card refuses raises at the
+    launch)."""
+    lib = cluster_lib(name)
+    a = kernel_info(lib, d, team=team, cluster=1)
+    for k in ([cluster] if cluster else range(1, CLUSTER_MAX + 1)):
+        try:
+            geo = pt_cluster_geometry(
+                a["registers"], a["max_threads"], d, words, T, C, proposal,
+                draw, n_params, team=team, rows=rows, cluster=k)
+        except ValueError:
+            if cluster:
+                raise
+            continue
+        if cluster or kernel_info(lib, d, T, geo.replicas, n_params,
+                                  team=team, cluster=k)["clusters"] >= 1:
+            return geo
+    raise ValueError(f"no cluster of {lib} at G={team} that the card "
+                     f"schedules takes T={T} rungs at d={d}")
+
+
 def launch_geometry(name: str, d: int, C: int, T: int = 0,
                     proposal: str = "Normal", draw: str = "icdf",
-                    n_params: int = 0, team: int | None = None) -> Geometry:
+                    n_params: int = 0, team: int | None = None,
+                    cluster: int | None = None) -> Geometry:
     """The geometry of a launch of library ``name`` (PT when ``T`` is
     given), from its kernel's registers and ``maxThreadsPerBlock``: the
     compile-time 32-replica PT instantiation where its attributes allow 32
     replicas, else the runtime-R one with its own attributes; a warp
     library's :func:`pt_warp_geometry` / :func:`rwm_warp_geometry` for each
-    team size it holds that fits, of which :func:`choose_team` takes one
-    (``team`` forces one, for comparisons)."""
+    team size it holds that fits, and for PT, at a team size where one
+    block does not hold a replica's ladder, its cluster build's
+    (:func:`pt_cluster_geometry`; ``geo.cluster`` > 0: launch
+    :func:`cluster_lib`), of which :func:`choose_team` takes one (``team``
+    forces one, ``cluster`` the cluster build with that many blocks a
+    cluster, as does a cluster library's ``name``; both for
+    comparisons)."""
     dmax = _parts(name)[4]
     fixed = fixed_shape(name) is not None
     if is_warp(name):
@@ -1072,26 +1214,41 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
         if team is not None and team not in teams:
             raise ValueError(f"{name} holds teams of {teams} lanes, not "
                              f"{team}")
+        forced = cluster is not None or is_cluster(name)
+        if forced and not T:
+            raise ValueError(f"{name}: the cluster build is PT's")
         geos = {}
         rows = team_rows(kind, fixed)
         for g in ([team] if team is not None else teams):
-            a = kernel_info(name, d, team=g)
             # a fixed shape's rows are sized by d (csrc/warp.cuh::row_dmax)
             words = sf_team_dmax(d, g) if fixed else dmax
             try:
-                geos[g] = (pt_warp_geometry(
-                    a["registers"], a["max_threads"], d, words, T, C,
-                    proposal, draw, n_params, team=g, rows=rows) if T else
-                    rwm_warp_geometry(a["registers"], a["max_threads"], d,
-                                      words, C, proposal, draw, n_params,
-                                      team=g, rows=rows))
+                if not forced:
+                    a = kernel_info(name, d, team=g)
+                    try:
+                        geos[g] = (pt_warp_geometry(
+                            a["registers"], a["max_threads"], d, words, T,
+                            C, proposal, draw, n_params, team=g, rows=rows)
+                            if T else rwm_warp_geometry(
+                                a["registers"], a["max_threads"], d, words,
+                                C, proposal, draw, n_params, team=g,
+                                rows=rows))
+                        continue
+                    except ValueError:
+                        if not T:   # RWM has no cluster build
+                            raise
+                # PT where one block does not hold the ladder, or forced
+                geos[g] = _cluster_geometry(name, d, C, T, proposal, draw,
+                                            n_params, g, words, rows,
+                                            cluster)
             except ValueError:
                 if team is not None:
                     raise
         return choose_team(geos, d)
-    if team is not None:
-        raise ValueError(f"{name} runs one thread a state: team= is for the "
-                         "warp libraries")
+    for opt, val in (("team", team), ("cluster", cluster)):
+        if val is not None:
+            raise ValueError(f"{name} runs one thread a state: {opt}= is "
+                             "for the warp libraries")
     kind = name.split(".")[1]
     if not T:
         a = kernel_info(name, d)
@@ -1126,52 +1283,123 @@ class Shard(NamedTuple):
 
 # ---------------------------------------------------------------- targets
 MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (1020)
-MAX_RUNGS = 32      # rungs a replica: T threads (T teams above d = 64)
+class RungsFit(NamedTuple):
+    """The most rungs a fused PT launch takes (``rungs``) and the layout
+    that sets them (``layout``, for the refusals' messages)."""
+    rungs: int
+    layout: str
+
+
+def _largest(fits, hi: int) -> int:
+    """The largest T in 1..hi for which ``fits(T)`` holds (``fits`` holds
+    for every T below one for which it holds), 0 if none."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def pt_runtime_threads(kind: str, dmax: int) -> int:
+    """The threads a block of ``csrc/fused_pt.cu``'s runtime-R
+    instantiation holds on target kind ``kind`` in register bucket
+    ``dmax``, known without a build: its launch bound
+    :data:`PT_BLOCK_THREADS`; :data:`PT_UNBOUND_THREADS` in a build with no
+    launch bound (:func:`min_blocks` 0) and for SuperFunnel, whose
+    fixed-shape builds bind 256 threads (its run-time-shape build, 320,
+    is held to the same)."""
+    if kind == "super_funnel" or min_blocks("fused_pt", kind, dmax) == 0:
+        return PT_UNBOUND_THREADS
+    return PT_BLOCK_THREADS
+
+
+@functools.lru_cache(maxsize=None)
+def rungs_fit(dim: int, kind: str | None = None, proposal: str = "Normal",
+              n_params: int | None = None) -> RungsFit:
+    """The most rungs T a fused PT launch takes at ``dim`` coordinates on
+    target kind ``kind`` under ``proposal`` (``n_params`` parameter words;
+    None: the most a block stages, :data:`PARAMS_SHARED_MAX`; ``kind``
+    None: the least over the kinds), for every normal draw, computed
+    without a build:
+
+    * up to 64 dimensions, one replica of T threads in one block of the
+      thread kernel's runtime-R instantiation: T within
+      :func:`pt_runtime_threads` (320, or 256) and its rows (Box-Muller's
+      sine row, the most a draw takes) within a block's shared memory
+      (0 where the parameters alone fill it: a SuperFunnel dataset that
+      no block holds, which :func:`pt_block_geometry` refuses);
+    * above, the team kernels: one replica's T rung-teams over a cluster
+      of at most :data:`CLUSTER_MAX` blocks (:func:`pt_cluster_geometry`,
+      which one block's launch never beats), at the warp bucket's team
+      size that takes the most.
+
+    At least 64 rungs at every d <= :data:`MAX_DIM` for every kind and
+    proposal (tests/test_torch_rungs.py)."""
+    if kind is None:
+        return min((rungs_fit(dim, k, proposal, n_params)
+                    for k in TARGET_KINDS), key=lambda f: f.rungs)
+    words = PARAMS_SHARED_MAX if n_params is None else n_params
+    if dim <= BUCKETS[-1]:
+        dmax = bucket(dim)
+        cap = pt_runtime_threads(kind, dmax)
+        T = _largest(lambda T: pt_shared_bytes(
+            words, T, dim, 1, dmax, proposal, "bm", kind) <= BLOCK_SHARED,
+            cap)
+        if not T:   # the launch's geometry refuses it, naming the words
+            return RungsFit(0, f"no rung: {words} parameter words fill a "
+                               f"block's shared memory")
+        return RungsFit(T, f"one thread a rung: one replica's ladder in one "
+                           f"block of the runtime-R instantiation, "
+                           + (f"{cap} threads" if T == cap else
+                              f"{BLOCK_SHARED} B of shared memory"))
+    dmax = warp_bucket(dim)
+    rows = team_rows(kind)
+    best = None
+    for g in WARP_TEAMS[dmax]:
+        cap = pt_team_threads(dmax, g, cluster=True)
+
+        def fits(T, cap=cap, g=g):
+            try:
+                pt_cluster_geometry(0, cap, dim, dmax, T, 1, proposal,
+                                    n_params=words, team=g, rows=rows)
+                return True
+            except ValueError:
+                return False
+
+        T = _largest(fits, CLUSTER_MAX * (cap // g))
+        if best is None or T > best[0]:
+            slots = -(-T // CLUSTER_MAX)
+            by = ("threads" if pt_block_threads(1, slots + 1, g) > cap
+                  else "shared memory")
+            best = (T, f"teams of {g} lanes over a cluster of {CLUSTER_MAX}"
+                       f" blocks, {slots} rung-teams a block by its {by}")
+    return RungsFit(*best)
 
 
 def max_rungs(dim: int, kind: str | None = None, proposal: str = "Normal",
               n_params: int | None = None) -> int:
-    """Rungs a fused PT launch takes at ``dim`` coordinates on target kind
-    ``kind`` under ``proposal``: :data:`MAX_RUNGS`, and above 64
-    dimensions the most T <= MAX_RUNGS for which :func:`pt_warp_geometry`
-    fits one replica of T rung-teams in a block at one of the warp
-    bucket's team sizes: its threads within :func:`pt_team_threads`, its
-    shared memory (``kind``'s rows, :func:`team_rows`, three where
-    ``kind`` is None; ``n_params`` parameter words, where None the most a
-    block stages, :data:`PARAMS_SHARED_MAX`; Laplace's T d scales) within
-    a block's.  32 up to d = 252 for every kind; above it the rows decide
-    (at d = 1020 about 27 rungs of a two-row kind, 18 of a three-row kind
-    or under Laplace)."""
-    if not BUCKETS[-1] < dim <= MAX_DIM:
-        return MAX_RUNGS
-    dmax = warp_bucket(dim)
-    rows = team_rows(kind) if kind is not None else 3
-    words = PARAMS_SHARED_MAX if n_params is None else n_params
+    """Rungs a fused PT launch takes: :func:`rungs_fit`'s."""
+    return rungs_fit(dim, kind, proposal, n_params).rungs
 
-    def fits(T):
-        for g in WARP_TEAMS[dmax]:
-            try:
-                pt_warp_geometry(0, pt_team_threads(dmax, g), dim, dmax, T,
-                                 1, proposal, n_params=words, team=g,
-                                 rows=rows)
-                return True
-            except ValueError:
-                pass
-        return False
 
-    return next(T for T in range(MAX_RUNGS, 0, -1) if fits(T))
+def target_rungs_fit(target, proposal: str = "Normal") -> RungsFit:
+    """:func:`rungs_fit` of a fused PT run on ``target`` under
+    ``proposal``: its kind and its parameter words
+    (:func:`kernel_target`); for a target the kernels do not take (which
+    the fused samplers refuse) the defaults' at its d, or above
+    :data:`MAX_DIM` at MAX_DIM: room for the ladder of a run that another
+    engine may take."""
+    try:
+        kind, params = kernel_target(target)
+    except NotImplementedError:
+        return rungs_fit(min(target.dim, MAX_DIM), proposal=proposal)
+    return rungs_fit(target.dim, kind, proposal, params.numel())
 
 
 def target_max_rungs(target, proposal: str = "Normal") -> int:
     """:func:`max_rungs` of a fused PT run on ``target`` under
-    ``proposal``: its kind and its parameter words
-    (:func:`kernel_target`); the defaults' for a target the kernels do not
-    take (which the fused samplers refuse)."""
-    try:
-        kind, params = kernel_target(target)
-    except NotImplementedError:
-        return max_rungs(target.dim, proposal=proposal)
-    return max_rungs(target.dim, kind, proposal, params.numel())
+    ``proposal`` (:func:`target_rungs_fit`)."""
+    return target_rungs_fit(target, proposal).rungs
 
 
 _LOG_2PI = math.log(2.0 * math.pi)

@@ -42,7 +42,13 @@
 // takes registers of its own, so it is held to one block an SM and does
 // not spill); the caller chooses R and the instantiation
 // (kernels/_build.py::launch_geometry) and the launcher refuses what does
-// not fit.
+// not fit.  Nothing in the layout or the sweep is tied to a number of
+// rungs: a ladder of more than 10 rungs (T up to the runtime-R
+// instantiation's kBlockThreads, 320 or 256, or 256 in a build with no
+// launch bound, whose thread ptxas gives at most 255 registers; fewer
+// where the slabs fill a block's shared memory:
+// kernels/_build.py::rungs_fit) runs R = floor(threads / T) replicas a
+// block, and at T = 50 six.
 // A swap does not move states between threads: it swaps the rung->slot map
 // in shared memory, and each thread then reads its new rung (its beta,
 // sigma and draw stream).  The states go to their rungs' places when the
@@ -409,7 +415,7 @@ extern "C" int rwm_pt_fused_pt(
     int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
     int rung0, const float* lap, float inv_d, float* rec, int record_every,
     int record_chains, int order, int R, int runtime_r, void* stream) {
-  if (d < 1 || d > kDmax || T < 1 || T > 32 || C < 1 || total < 0 ||
+  if (d < 1 || d > kDmax || T < 1 || C < 1 || total < 0 ||
       swap_every < 1 || kind != kKind || (order != 0 && order != 1) ||
       (kFixedDim && d != kFixedDim) ||
       R < 1 || R > kMaxReplicas || (!runtime_r && R != kMaxReplicas) ||

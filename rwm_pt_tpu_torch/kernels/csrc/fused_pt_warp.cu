@@ -64,23 +64,56 @@
 // up to 16 at G = 32; 70-80 registers there); a team of G < 32 lanes is
 // bound to 512 threads a block, so that T = 32 rungs fit at G = 8 (a cap
 // of 64 registers, two such blocks an SM, measured slower) and at G = 16
-// (the 1024 bucket's rows cap it below: kernels/_build.py::max_rungs).
+// (the 1024 bucket's rows cap one block below: a ladder no block holds
+// runs over a cluster, below).
 // Every loop over a lane's quads is rolled, so the registers do not grow
 // with the bucket's quads a lane (8 at G = 32 in the 1024 bucket, 16 at
 // G = 16).
 // The ragged edge (C not a multiple of R) and the idle teams are masked:
 // they run on zeros in their own rows and store nothing.
 //
+// The cluster build (-DRWM_PT_CLUSTER, libraries <variant>.<kind>.c<D>):
+// a ladder whose T rung-teams one block does not hold (more threads than
+// the launch bound, or rows beyond 227 KB: above 32 rungs at G = 16, 16
+// at G = 32, fewer in the 1024 bucket) runs one replica's rung-teams over
+// the k blocks of a thread-block cluster (k <= 8, the portable size;
+// cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension), each block
+// `slots` = ceil(T / k) of them (slots rank * slots .. of each of its R
+// replicas; the last block's ragged slots are idle teams).  Rows never
+// move: a block keeps its slots' state and scratch rows.  The sweep's
+// words of a replica (lp and u per slot and pair, the two maps, the
+// owner, the cold and beta-jump sums, the swap count) live in the
+// cluster's rank-0 block, which holds slot 0 and so the sweeper; each
+// team writes its lp and pair uniform there through distributed shared
+// memory (cooperative_groups::this_cluster().map_shared_rank), the swap
+// step's three barriers are cluster barriers (release / acquire), the
+// sweeper runs the same loop in the same order on rank 0's words, and
+// each team reads its new rung back from them.  The cold-rung jump across
+// a pair-0 swap reads the old owner's pre-move row from the owner's block,
+// which the third barrier keeps until it has been read.  Steps with no
+// swap need no cluster barrier: each block counts its slots' accepts in a
+// (T, R) table of its own, indexed by rung, summed over the cluster's
+// blocks once at the end (integers: the order does not matter).
+// Laplace's (T, d) scales are read through L2, not staged (200 KB at
+// T = 50, d = 1000).  The teams' arithmetic is the one-block kernel's, so
+// at one G the cluster build equals it bit for bit at any T both take.
+// kernels/_build.py::pt_cluster_geometry chooses k and R.  Bound: the
+// same int32 work as the one-block kernel (Philox's grows with T).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_TEAMS=m
+//        [-DRWM_PT_CLUSTER=1]
 //        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
 //         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "warp.cuh"
+
+namespace cg = cooperative_groups;
 
 #ifndef RWM_PT_PROPOSAL
 #define RWM_PT_PROPOSAL PROPOSAL_NORMAL
@@ -97,6 +130,11 @@
 #ifndef RWM_PT_TEAMS
 #define RWM_PT_TEAMS 36   // G = 4 and G = 32
 #endif
+#ifdef RWM_PT_CLUSTER
+constexpr bool kCluster = true;    // a replica's rungs over a cluster
+#else
+constexpr bool kCluster = false;   // a replica's rungs in one block
+#endif
 
 namespace {
 
@@ -105,16 +143,17 @@ constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the warp bucket: d + 4 <= kDmax
 constexpr int kMaxSharedBytes = 227 * 1024;     // a block's dynamic shared memory
-constexpr int kMaxRungs = 32;
 constexpr int kRows = kTeamRows<kKind>;   // rows a team
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
 
 // A block's threads, the launch bound: one warp a state (G = 32) takes 32
 // warps in the 128 bucket and 16 above it, whose sweep's bookkeeping needs
-// more registers (the 256 bucket's spilled at 64 and at 80); teams of
-// G < 32 lanes take 512 threads
+// more registers (the 256 bucket's spilled at 64 and at 80), and 16 in
+// every cluster build (the 128 bucket's spilled at 64); teams of G < 32
+// lanes take 512 threads
 template <int G>
-constexpr int kBlockThreads = G == 32 ? (kDmax > 128 ? 512 : 1024) : 512;
+constexpr int kBlockThreads =
+    G == 32 && kDmax == 128 && !kCluster ? 1024 : 512;
 // Blocks of that bound an SM: two for a build of fixed SuperFunnel shape
 // below G = 32, which caps it at 64 registers (at d = 68, G = 4 ptxas
 // took 65 without the cap: 14 replicas a block and 28 warps an SM in
@@ -135,14 +174,37 @@ __host__ __device__ constexpr int params_in_shared(int n_params) {
 // sweep's beta-jump sum, its compensation, its swap count (per replica:
 // kept in shared memory, not in the sweeping lane's registers) |
 // slot_of_rung, rung_of_slot, accepts | the slot that held rung 0 before a
-// sweep that moved it | Laplace scales (T, d).
-// kernels/_build.py::pt_warp_shared_bytes mirrors this count.
+// sweep that moved it | Laplace scales (T, d), but in the cluster build,
+// which reads them through L2 (every block of a cluster has the same
+// layout; the sweep's words are used in rank 0's, the accepts in each
+// block's own).  kernels/_build.py::pt_warp_shared_bytes mirrors this
+// count.
 __host__ __device__ constexpr size_t shared_words(int pitch, int n_params,
                                                   int T, int d, int R,
                                                   int teams) {
   return (size_t)teams * kRows * pitch + params_in_shared(n_params) + 2 * T +
          2 * T * R + 5 * R + 3 * T * R + R +
-         (kProp == PROPOSAL_LAPLACE ? T * d : 0);
+         (kProp == PROPOSAL_LAPLACE && !kCluster ? T * d : 0);
+}
+
+// The swap step's barrier: the block's, in the cluster build the cluster's
+// (its arrive releases and its wait acquires the words written before it
+// in any block's shared memory)
+__device__ __forceinline__ void sweep_sync() {
+  if constexpr (kCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// A word of the sweep's shared memory: the block's own, in the cluster
+// build rank 0's, through distributed shared memory
+template <typename W>
+__device__ __forceinline__ W* sweep_word(W* p) {
+  if constexpr (kCluster)
+    return cg::this_cluster().map_shared_rank(p, 0);
+  else
+    return p;
 }
 
 // (the explicit one block an SM matters: without it ptxas took fewer
@@ -174,8 +236,29 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   const int t = threadIdx.x & (G - 1);    // the lane in its team
   const int tid = threadIdx.x / G;        // the team: slot R + replica
   const int nteams = blockDim.x / G;      // R T and the idle teams
-  const bool live = tid < R * T;          // not an idle team
-  const int slot = live ? tid / R : T - 1, cx = live ? tid - slot * R : 0;
+  // the cluster build: this block is rank `rank` of a cluster of `nblk`,
+  // and holds slots rank * slots .. of each replica of cluster `group`
+  int rank = 0, nblk = 1, slots = T, group = blockIdx.x;
+  bool live;                              // not an idle team
+  int slot, cx;
+  if constexpr (kCluster) {
+    const cg::cluster_group cl = cg::this_cluster();
+    rank = (int)cl.block_rank();
+    nblk = (int)cl.num_blocks();
+    slots = (T + nblk - 1) / nblk;
+    group = blockIdx.x / nblk;
+    const int ls = tid / R;               // the slot in this block
+    live = tid < R * slots && rank * slots + ls < T;
+    slot = live ? rank * slots + ls : T - 1;
+    cx = live ? tid - ls * R : 0;
+    cl.sync();   // every block of the cluster runs before any reads another
+  } else {
+    live = tid < R * T;
+    slot = live ? tid / R : T - 1;
+    cx = live ? tid - slot * R : 0;
+  }
+  // the team's (slot, replica) word of the sweep's tables
+  const int gid = kCluster ? slot * R + cx : tid;
   const int flat = threadIdx.x;           // for block-wide loads
   const int nthreads = blockDim.x;
   const int n_shared = params_in_shared(n_params);
@@ -194,11 +277,15 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   int* s_swapacc = (int*)(s_bc + R);      // [replica]
   int* s_slot = s_swapacc + R;            // [rung][replica] -> slot
   int* s_rung = s_slot + T * R;           // [slot][replica] -> rung
-  int* s_acc = s_rung + T * R;            // [rung][replica]
+  int* s_acc = s_rung + T * R;            // [rung][replica], this block's
   int* s_owner = s_acc + T * R;           // [replica]
   float* s_lap = (float*)(s_owner + R);   // [rung][i], Laplace only
+  // (every team reads and writes the sweep's words through sweep_word:
+  // in the cluster build rank 0's, mapped where they are used)
+  // Laplace's scales: staged, or in the cluster build read through L2
+  const float* const lap_t = kCluster ? lap : s_lap;
 
-  const int c = blockIdx.x * R + cx;
+  const int c = group * R + cx;
   const bool valid = live && c < C;
   float* xs = s_x + tid * kPitch;         // this team's state row
   float* row = s_row + tid * kPitch;
@@ -209,13 +296,23 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     s_beta[i] = betas[i];
     s_sigma[i] = sigmas[i];
   }
-  if (kProp == PROPOSAL_LAPLACE)
+  if (kProp == PROPOSAL_LAPLACE && !kCluster)
     for (int i = flat; i < T * d; i += nthreads) s_lap[i] = lap[i];
+  if constexpr (kCluster) {
+    // this block's accepts: rung j's from acc0 where this block holds slot
+    // j (rung j's at the start), else 0
+    for (int i = flat; i < T * R; i += nthreads) {
+      const int j = i / R, ci = group * R + (i - j * R);
+      s_acc[i] = (j / slots == rank && ci < C) ? acc0[(size_t)j * C + ci]
+                                               : 0;
+    }
+  }
   if (t == 0 && live) {
-    s_slot[tid] = slot;
-    s_rung[tid] = slot;
-    s_acc[tid] = valid ? acc0[(size_t)slot * C + c] : 0;
-    if (slot == 0) {
+    sweep_word(s_slot)[gid] = slot;
+    sweep_word(s_rung)[gid] = slot;
+    if constexpr (!kCluster)
+      s_acc[tid] = valid ? acc0[(size_t)slot * C + c] : 0;
+    if (slot == 0) {   // (rank 0 in the cluster build)
       s_cold[cx] = valid ? cj0[c] : 0.0f;
       s_cc[cx] = 0.0f;
       s_bj[cx] = valid ? bj0[c] : 0.0f;
@@ -257,19 +354,19 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     const bool do_swap = post && (abs_step % swap_every == 0);
     float u_swap, part;
     const bool accept = team_mh_propose<KIND, kProp, kDraw, G, NQ>(
-        xs, row, trow, lp, d, p, s_sigma[rung], s_lap + rung * d, inv_d,
+        xs, row, trow, lp, d, p, s_sigma[rung], lap_t + rung * d, inv_d,
         s_beta[rung], lane, c + replica0, rung + rung0, abs_step, key0, key1,
         u_swap, part);
     if (t == 0 && live && post && accept) s_acc[rung * R + cx] += 1;
 
     int new_rung = rung, owner = -1;
-    if (do_swap) {   // the same for every team of the block
+    if (do_swap) {   // the same for every team of the block (the cluster)
       if (t == 0 && live) {
-        s_lp[tid] = lp;
-        if (rung < T - 1) s_u[rung * R + cx] = u_swap;
+        sweep_word(s_lp)[gid] = lp;
+        if (rung < T - 1) sweep_word(s_u)[rung * R + cx] = u_swap;
       }
-      __syncthreads();
-      if (sweeper) {
+      sweep_sync();
+      if (sweeper) {   // (rank 0 in the cluster build: its own words)
         const int first = s_slot[cx];   // rung 0's slot before the sweep
         int moved = 0, swapacc = s_swapacc[cx];
         float bj = s_bj[cx], bc = s_bc[cx];
@@ -301,10 +398,11 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
         s_bj[cx] = bj;
         s_bc[cx] = bc;
       }
-      __syncthreads();
+      sweep_sync();
       if (live) {
-        new_rung = s_rung[tid];
-        owner = s_owner[cx];   // >= 0: rung 0 changed hands in this sweep
+        new_rung = sweep_word(s_rung)[gid];
+        // >= 0: rung 0 changed hands in this sweep
+        owner = sweep_word(s_owner)[cx];
       }
     } else if (sweeper && s_bc[cx] != 0.0f) {
       // the sweep's compensation step with no swap accepted
@@ -330,19 +428,32 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     const bool cold = live && rung == 0;
     const bool took = cold && owner >= 0;
     float jump = 0.0f;
-    if (do_swap && __any_sync(kFullMask, took))
-      jump = team_sq_jump<G, NQ>(
-          accept ? row : xs, took ? s_x + (owner * R + cx) * kPitch : xs, d,
-          t);
+    if (do_swap && __any_sync(kFullMask, took)) {
+      // the old owner's state row: in this block, or in the cluster build
+      // in the block that holds its slot
+      const float* prev = xs;
+      if (took) {
+        if constexpr (kCluster) {
+          const int r = owner / slots;
+          prev = cg::this_cluster().map_shared_rank(
+              s_x + ((owner - r * slots) * R + cx) * kPitch, r);
+        } else {
+          prev = s_x + (owner * R + cx) * kPitch;
+        }
+      }
+      jump = team_sq_jump<G, NQ>(accept ? row : xs, prev, d, t);
+    }
     else if (__any_sync(kFullMask, cold && accept))
       jump = team_sum<G>(part);
-    if (cold && t == 0) {
-      const float yk = ((post && (took || accept)) ? jump : 0.0f) - s_cc[cx];
-      const float tot = s_cold[cx] + yk;
-      s_cc[cx] = (tot - s_cold[cx]) - yk;
-      s_cold[cx] = tot;
+    if (cold && t == 0) {   // (the cluster build: rank 0's sums)
+      float* const sum = sweep_word(s_cold);
+      float* const comp = sweep_word(s_cc);
+      const float yk = ((post && (took || accept)) ? jump : 0.0f) - comp[cx];
+      const float tot = sum[cx] + yk;
+      comp[cx] = (tot - sum[cx]) - yk;
+      sum[cx] = tot;
     }
-    if (do_swap) __syncthreads();   // the pre-move states have been read
+    if (do_swap) sweep_sync();   // the pre-move states have been read
     if (accept) team_copy<G, NQ>(row, xs, d, t);
     if (rec != nullptr && cold && c < record_chains &&
         (s + 1) % record_every == 0) {   // the cold chain, after the sweep
@@ -357,13 +468,19 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     }
   }
 
-  __syncthreads();
+  sweep_sync();   // (the cluster build: every block's accepts are final)
   if (valid) {
     for (int i = t; i < d; i += G)
       x_out[((size_t)i * T + rung) * C + c] = xs[i];
     if (t == 0) {
       lp_out[(size_t)rung * C + c] = lp;
-      acc_out[(size_t)slot * C + c] = s_acc[tid];
+      int a = s_acc[gid];
+      if constexpr (kCluster) {   // rung `slot`'s accepts over the blocks
+        a = 0;
+        for (int r = 0; r < nblk; ++r)
+          a += cg::this_cluster().map_shared_rank(s_acc, r)[gid];
+      }
+      acc_out[(size_t)slot * C + c] = a;
       if (slot == 0) {
         swapacc_out[c] = s_swapacc[cx];
         bj_out[c] = s_bj[cx];
@@ -371,6 +488,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
       }
     }
   }
+  // no block of a cluster leaves while another reads its accepts
+  if constexpr (kCluster) cg::this_cluster().sync();
 }
 
 using Kernel = decltype(&fused_pt_warp_kernel<kKind, kDmax, 32>);
@@ -413,23 +532,57 @@ cudaError_t prepare(Kernel k, size_t shmem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// The slots a block holds of each replica's T: all T on one block, in the
+// cluster build ceil(T / cluster) (a cluster of `cluster` blocks)
+int block_slots(int T, int cluster) {
+  return kCluster ? (T + cluster - 1) / cluster : T;
+}
+
+// Whether `cluster` is this build's: 0 (one block a ladder) in the
+// one-block build, k >= 1 blocks a cluster in the cluster build (a k the
+// card does not take, above the portable 8, is the launch's to refuse)
+bool cluster_ok(int cluster) { return kCluster ? cluster >= 1 : cluster == 0; }
+
+// The cluster build's launch configuration: `clusters` clusters of
+// `cluster` blocks of `threads`
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int clusters, int cluster, int threads, size_t shmem,
+                void* stream) : cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)clusters * (unsigned)cluster);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = shmem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 }  // namespace
 
 // Attributes of a launch of team size `team`, R replicas x T rung-teams at
-// d coordinates: out = {registers, maxThreadsPerBlock, local bytes a
-// thread, dynamic shared bytes, blocks per SM by
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor}.  The same C interface as
-// csrc/fused_pt.cu's, whose first argument (runtime_r there) is the team
-// size here.
-extern "C" int rwm_pt_fused_pt_info(int team, int d, int T, int R,
-                                    int n_params, int* out) {
+// d coordinates (the cluster build: R replicas a cluster of `cluster`
+// blocks): out = {registers, maxThreadsPerBlock, local bytes a thread,
+// dynamic shared bytes a block, blocks per SM by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, clusters the card holds at
+// once by cudaOccupancyMaxActiveClusters (the cluster build; else 0)}.
+// csrc/fused_pt.cu's C interface, whose first argument (runtime_r there)
+// is the team size here, with the blocks a cluster after it.
+extern "C" int rwm_pt_fused_pt_info(int team, int cluster, int d, int T,
+                                    int R, int n_params, int* out) {
   const Kernel k = kernel(team);
-  if (k == nullptr || d < 1 || T < 1 || R < 1 || n_params < 0)
+  if (k == nullptr || !cluster_ok(cluster) || d < 1 || T < 1 || R < 1 ||
+      n_params < 0)
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
-  const int threads = block_threads(team, R, T);
+  const int threads = block_threads(team, R, block_slots(T, cluster));
   const size_t shmem =
       shared_words(pitch(team), n_params, T, d, R, threads / team) *
       sizeof(float);
@@ -438,15 +591,22 @@ extern "C" int rwm_pt_fused_pt_info(int team, int d, int T, int R,
   out[2] = (int)attr.localSizeBytes;
   out[3] = (int)shmem;
   out[4] = 0;
+  out[5] = 0;
   if (shmem > kMaxSharedBytes || threads > attr.maxThreadsPerBlock) return 0;
   e = prepare(k, shmem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k,
-                                                            threads, shmem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k, threads,
+                                                    shmem);
+  if (e != cudaSuccess || !kCluster) return (int)e;
+  const ClusterLaunch l(1, cluster, threads, shmem, nullptr);
+  e = cudaOccupancyMaxActiveClusters(&out[5], (const void*)k, &l.cfg);
+  if (e != cudaSuccess) cudaGetLastError();   // leave no error behind
+  return (int)e;
 }
 
 // The run: the arguments of csrc/fused_pt.cu's rwm_pt_fused_pt, whose
-// runtime_r is the team size here
+// runtime_r is the team size here, then the blocks a cluster (0: the
+// one-block build's launch)
 extern "C" int rwm_pt_fused_pt(
     int kind, const float* params, int n_params, const float* betas,
     const float* sigmas, const float* x0, const int* acc0,
@@ -455,10 +615,11 @@ extern "C" int rwm_pt_fused_pt(
     float* cj_out, int d, int T, int C, int total, int burn_in,
     int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
     int rung0, const float* lap, float inv_d, float* rec, int record_every,
-    int record_chains, int order, int R, int team, void* stream) {
+    int record_chains, int order, int R, int team, int cluster,
+    void* stream) {
   const Kernel k = kernel(team);
-  if (k == nullptr || d < 1 || d + 4 > kDmax || T < 1 || T > kMaxRungs ||
-      C < 1 || total < 0 || swap_every < 1 || kind != kKind ||
+  if (k == nullptr || !cluster_ok(cluster) || d < 1 || d + 4 > kDmax ||
+      T < 1 || C < 1 || total < 0 || swap_every < 1 || kind != kKind ||
       (order != 0 && order != 1) || R < 1 ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
@@ -474,7 +635,7 @@ extern "C" int rwm_pt_fused_pt(
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
-  const int threads = block_threads(team, R, T);
+  const int threads = block_threads(team, R, block_slots(T, cluster));
   if (threads > attr.maxThreadsPerBlock)
     return (int)cudaErrorInvalidConfiguration;
   const size_t shmem =
@@ -483,6 +644,19 @@ extern "C" int rwm_pt_fused_pt(
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   e = prepare(k, shmem);
   if (e != cudaSuccess) return (int)e;
+  if (kCluster) {
+    const ClusterLaunch l((C + R - 1) / R, cluster, threads, shmem, stream);
+    e = cudaLaunchKernelEx(
+        &l.cfg, k, params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0,
+        cj0, x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C,
+        total, burn_in, swap_every, step0, key0, key1, replica0, rung0, lap,
+        inv_d, rec, record_every, record_chains, order, R);
+    if (e != cudaSuccess) {   // a cluster the card refuses
+      cudaGetLastError();
+      return (int)e;
+    }
+    return (int)cudaGetLastError();
+  }
   k<<<(C + R - 1) / R, threads, shmem, (cudaStream_t)stream>>>(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,

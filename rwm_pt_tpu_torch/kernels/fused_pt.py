@@ -141,26 +141,33 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      betas, sigmas, key, step0, total, burn_in, swap_every,
                      *, kind="Normal", record_every=0, record_chains=0,
                      draw="icdf", swap_sweep="sequential", warp=None,
-                     team=None, specialize=True, replica0=0, rung0=0):
+                     team=None, cluster=None, specialize=True, replica0=0,
+                     rung0=0):
     """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
     ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
     dataset fits takes the build with its shape fixed; ``warp=True`` takes
     the warp kernel at any d, to compare the layouts; ``team`` forces the
     warp kernel's team size G, the lanes a (replica, rung), where
-    ``_build.choose_team`` would pick one; ``specialize=False`` forces
-    SuperFunnel's run-time-shape library; ``team`` and ``specialize`` for
-    comparisons only) on the current stream; same
+    ``_build.choose_team`` would pick one; ``cluster=k`` forces the warp
+    kernel's cluster build, a replica's rung-teams over a cluster of k
+    blocks, where the geometry takes it only for a ladder one block does
+    not hold; ``specialize=False`` forces SuperFunnel's run-time-shape
+    library; ``team``, ``cluster`` and ``specialize`` for comparisons
+    only) on the current stream; same
     arguments and results as :func:`_run_pt_fused_plain`.  ``launches``
     counts each launch under ``_build.launch_key`` of its library (the name
     without its register bucket, ``fused_pt.rosenbrock``,
     ``fused_pt_bm.mvn_iso``, ``fused_pt_lax_erfinv.super_funnel.j5k3n20u2b3``,
     .., or a warp library's whole name,
-    ``fused_pt_lax_erfinv.mvn_iso.w128``; ``_build.by_variant`` sums them
+    ``fused_pt_lax_erfinv.mvn_iso.w128``, its cluster build's
+    ``fused_pt_lax_erfinv.mvn_iso.c1024``; ``_build.by_variant`` sums them
     by variant), and a recorded one also under ``fused_pt_record``.  The
     replicas a block come from ``_build.launch_geometry`` (the kernel's
     registers and launch bound, the rows' shared memory; a warp library's
-    team size too)."""
+    team size and blocks a cluster too).  A ladder of more rungs than
+    ``_build.target_rungs_fit`` raises ``NotImplementedError`` naming the
+    layout that sets the fit, before anything is built."""
     variant = _build.library("fused_pt", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
     if _build.fixed_shape(lib) is None or _build.is_warp(lib):
@@ -171,13 +178,11 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     order = SWEEPS.index(swap_sweep)
     if target.dim != d:
         raise ValueError(f"x0 has {d} coordinates, the target {target.dim}")
-    rungs = _build.target_max_rungs(target, kind)
-    if T > rungs:
+    fit = _build.target_rungs_fit(target, kind)
+    if 0 < fit.rungs < T:   # (no rung at all: the geometry names the words)
         raise NotImplementedError(
-            f"fused PT runs one thread (a team of lanes above 64 dimensions) "
-            f"per (replica, rung), at most {rungs} rungs at d={d} on "
-            f"{tkind} under {kind} (ROADMAP Queue A item 17, more rungs); "
-            f"T={T}")
+            f"fused PT takes at most {fit.rungs} rungs at d={d} on {tkind} "
+            f"under {kind} ({fit.layout}); T={T}")
     _build.check_cuda("fused_pt", torch.float32, x0=x0, betajump0=betajump0,
                       coldjump0=coldjump0, betas=betas, sigmas=sigmas)
     _build.check_cuda("fused_pt", torch.int32, acc0=acc0, swapacc0=swapacc0)
@@ -204,7 +209,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     bj = torch.empty_like(betajump0)
     cj = torch.empty_like(coldjump0)
     geo = _build.launch_geometry(lib, d, C, T, kind, draw, params.numel(),
-                                 team)
+                                 team, cluster)
+    if geo.cluster:
+        lib = _build.cluster_lib(lib)
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             betas.data_ptr(),
@@ -216,7 +223,8 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
             geo.replicas,
-            geo.team if _build.is_warp(lib) else int(geo.runtime_r),
+            *((geo.team, geo.cluster) if _build.is_warp(lib)
+              else (int(geo.runtime_r),)),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_pt_kernel.launches[_build.launch_key(lib)] += 1

@@ -301,18 +301,20 @@ EAGER_MAX_RUNGS = 1023
 
 
 def check_room(betas: List[float], max_rungs: int,
-               beta_min: float = 0.01) -> List[float]:
+               beta_min: float = 0.01, layout: str = "") -> List[float]:
     """``betas``, built by :func:`construct_iterative_ladder_device` with
     ``max_T = max_rungs + 1`` for a run that takes at most ``max_rungs``
     rungs (``experiment_pt``, ``MCMCSimulation``): where the cap did not
     stop the search the host loop's uncapped ladder, and returned; where
     it did (the search stood above beta_min + 1e-6 with ``max_rungs``
     rungs), the ladder needs more rungs than the run takes and
-    ``NotImplementedError`` is raised."""
+    ``NotImplementedError`` is raised, naming ``layout``, what sets the
+    run's rungs (``kernels/_build.py::rungs_fit``)."""
     if len(betas) >= max_rungs and betas[max_rungs - 1] > beta_min + 1e-6:
         raise NotImplementedError(
             f"the iterative ladder needs more than {max_rungs} rungs, the "
-            f"most this run takes (its search stood at beta "
-            f"{betas[max_rungs - 1]:.6g} with {max_rungs} rungs); pass a "
-            f"beta_ladder or ask for a lower swap rate")
+            f"most this run takes" + (f" ({layout})" if layout else "")
+            + f" (its search stood at beta {betas[max_rungs - 1]:.6g} with "
+            f"{max_rungs} rungs); pass a beta_ladder or ask for a lower "
+            f"swap rate")
     return betas

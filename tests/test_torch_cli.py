@@ -208,8 +208,9 @@ def test_pt_study_flags(tmp_path, monkeypatch):
     """``--geom_ladder`` runs the geometric ladder; ``--use_mesh`` (A13)
     runs the replicas sharded over a mesh (the CPU here) and writes the
     JSON of the run without it but for the times; a ladder longer than the
-    kernel's 32 rungs raises instead of falling back to the eager
-    engine."""
+    kernel's fit (``_build.target_max_rungs``: 320 at d = 3, one block of
+    the thread kernel) raises, naming the layout, instead of falling back
+    to the eager engine."""
     from rwm_pt_tpu_torch.cli import experiment_pt as tpt
     data = tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
                                "--output_dir", str(tmp_path)])
@@ -218,9 +219,15 @@ def test_pt_study_flags(tmp_path, monkeypatch):
                                  "--no_plots", "--output_dir",
                                  str(tmp_path / "mesh")])
     assert _untimed(meshed) == _untimed(data)
+    from rwm_pt_tpu_torch.kernels import _build
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+    fit = _build.target_max_rungs(get_target_distribution(
+        "ThreeMixture", 3, variant="pt_gpu", device="cpu"))
+    assert fit == 320
     monkeypatch.setattr(tpt, "construct_geometric_ladder",
-                        lambda: list(np.geomspace(1.0, 0.01, 33)))
-    with pytest.raises(NotImplementedError, match="33 rungs"):
+                        lambda: list(np.geomspace(1.0, 0.01, fit + 1)))
+    with pytest.raises(NotImplementedError,
+                       match=f"{fit + 1} rungs.*at most {fit} .one thread"):
         tpt.main(PT_ARGS + ["--geom_ladder", "--cpu", "--no_plots",
                             "--output_dir", str(tmp_path)])
 

@@ -557,7 +557,11 @@ def test_main_path_library_layout(algo):
 EDGE_CASES = [("pt", 1, 4, 1000), ("pt", 32, 4, 1000), ("pt", 33, 4, 1000),
               ("pt", 32, 1, 1000), ("pt", 1, 32, 1000), ("pt", 33, 3, 1),
               ("rwm", 1, 1, 1000), ("rwm", 32, 1, 1000),
-              ("rwm", 33, 1, 1000), ("rwm", 33, 1, 1)]
+              ("rwm", 33, 1, 1000), ("rwm", 33, 1, 1),
+              # more than 32 rungs: the runtime-R instantiation, 9, 6 and 5
+              # replicas a block
+              ("pt", 32, 33, 1000), ("pt", 10, 50, 1000),
+              ("pt", 64, 64, 1000)]
 
 
 @pytest.mark.parametrize("draw", ["icdf", "bm"])
@@ -1265,3 +1269,83 @@ def test_tempsharded_hybrid_across_partitions(d):
         ("x", "lp", "acc", "swapacc", "betajump"))
     assert ag.frac >= AGREE_MIN and not ag.mismatched, agreement.describe(ag)
     assert runs[0].state.swap_attempt_count == eo.state.swap_attempt_count
+
+
+# ---------------------------------------------------------- more rungs
+def _cluster_case(dev, d, T, C=1003, prop="Normal", steps=60):
+    """A PT launch of T rungs 1 .. 0.5 on the iso MVN at d coordinates
+    from its init (``prop`` of variance 2.38^2 / d), a swap every 3
+    steps: (target, args, kw)."""
+    tg = MultivariateNormal.create(d, device=dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    var = 2.38 ** 2 / d
+    pr = None if prop == "Normal" else create_proposal_distribution(
+        d, {"name": "Laplace", "params": {"base_variance_vector": var}},
+        device=dev)
+    betas = torch.logspace(0, -0.3, T, device=dev)
+    kind, sig = rung_scales(pr, var, betas, torch.ones_like(betas))
+    x0 = tg.init_sample(C, g).T[:, None].expand(d, T, C).contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    return tg, (tg, x0, zi(T, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(43), 0, steps, 10, 3), dict(kind=kind,
+                                                      draw=WARP_DRAW)
+
+
+@pytest.mark.parametrize("sweep", ["sequential", "even_odd"])
+def test_cluster_build_equals_one_block_bit_for_bit(sweep):
+    """At d = 300 and T = 16, which one block of teams of 16 lanes holds,
+    the cluster build forced over 2 and 3 blocks (the last one's slots
+    ragged) equals the one-block build bit for bit: x, lp, the counters,
+    both Kahan sums and the cold trace; its launches count under the
+    ``.c512`` library."""
+    dev = _card()
+    tg, args, kw = _cluster_case(dev, 300, 16)
+    kw.update(swap_sweep=sweep, record_every=5, record_chains=64, team=16)
+    one = launch_pt_kernel(*args, **kw)
+    variant = _build.library("fused_pt", "Normal", WARP_DRAW)
+    for k in (2, 3):
+        before = Counter(launch_pt_kernel.launches)
+        out = launch_pt_kernel(*args, cluster=k, **kw)
+        assert launch_pt_kernel.launches - before == Counter(
+            {f"{variant}.mvn_iso.c512": 1, "fused_pt_record": 1})
+        for name, a, b in zip(agreement.PT_REC_OUTPUTS, one, out):
+            assert torch.equal(a, b), (k, name)
+    assert (one[3] > 0).any() and (one[2] > 0).any()
+
+
+@pytest.mark.parametrize("prop,sweep,team", [
+    ("Normal", "sequential", None), ("Normal", "even_odd", 16),
+    ("Normal", "sequential", 32), ("Laplace", "even_odd", None)])
+def test_cluster_build_matches_plain_at_d1000_T50(prop, sweep, team):
+    """d = 1000 and T = 50, a ladder no block holds: the geometry takes the
+    cluster build (``.c1024``), here at the team size it picks and at
+    each forced, under Laplace with its scales read through L2; held
+    against the plain version (the agreement gate, counters exact)."""
+    dev = _card()
+    tg, args, kw = _cluster_case(dev, 1000, 50, C=300, prop=prop, steps=30)
+    kw["swap_sweep"] = sweep
+    before = Counter(launch_pt_kernel.launches)
+    k = launch_pt_kernel(*args, team=team, **kw)
+    seen = launch_pt_kernel.launches - before
+    assert list(seen) == [f"{_build.library('fused_pt', prop, WARP_DRAW)}"
+                          f".mvn_iso.c1024"], seen
+    a = agreement.hold(k, _run_pt_fused_plain(*args, **kw),
+                       agreement.PT_OUTPUTS, lp_of=tg.log_density_td)
+    assert a.frac >= AGREE_MIN and not a.mismatched, agreement.describe(a)
+    assert (k[3] > 0).any() and (k[2] > 0).any()
+
+
+def test_refused_cluster_raises():
+    """A cluster the card refuses (16 blocks: above the portable 8, which
+    the build does not unlock) raises at the launch and counts nothing;
+    nothing runs in its place."""
+    dev = _card()
+    _, args, kw = _cluster_case(dev, 300, 16, C=64, steps=4)
+    before = Counter(launch_pt_kernel.launches)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        launch_pt_kernel(*args, cluster=16, **kw)
+    assert launch_pt_kernel.launches == before
+    out = launch_pt_kernel(*args, cluster=2, **kw)   # the next launch runs
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[1]).all()

@@ -262,7 +262,10 @@ def test_the_256_bucket_fits_32_rungs_at_8_lanes(T, replicas, threads):
         geos = {8: _build.pt_warp_geometry(64, 512, 200, 256, T, C,
                                            n_params=201, team=8)}
         assert _build.choose_team(geos, 200).team == 8
-    assert _build.max_rungs(200) == 32
+    # more rungs run over a cluster of such blocks
+    assert _build.max_rungs(200) == 8 * _build.pt_cluster_geometry(
+        64, 512, 200, 256, _build.max_rungs(200), 1, n_params=12288, team=8,
+        rows=3).slots
 
 
 def test_pt_team_geometry_at_the_main_shape():

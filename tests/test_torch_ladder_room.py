@@ -152,10 +152,15 @@ def test_float64_target_builds_its_float32_ladder():
 
 
 @pytest.mark.parametrize("engine", ["pallas", "auto"])
-def test_harness_ladder_beyond_the_fused_kernel(engine):
-    """A ladder that needs more than the fused kernel's 32 rungs (42
-    here): ``engine='pallas'`` raises, the search stopped at its room;
-    ``'auto'`` takes the host loop's whole ladder, for the eager engine."""
+def test_harness_ladder_beyond_the_fused_kernel(engine, monkeypatch):
+    """A ladder that needs more than the fused kernel's rungs (42 here,
+    against a fit set to 32: the real fit at d = 10, 256, takes a ladder
+    whose search costs minutes on the CPU): ``engine='pallas'`` raises,
+    naming the fit's layout, the search stopped at its room; ``'auto'``
+    takes the host loop's whole ladder, for the eager engine."""
+    from rwm_pt_tpu_torch.kernels import _build
+    monkeypatch.setattr(_build, "target_rungs_fit",
+                        lambda *a: _build.RungsFit(32, "a fit of 32"))
     tg = tget("MultivariateNormal", 10, device=CPU)
     kw = dict(dim=10, sigma=0.5, num_iterations=10, algorithm="PT",
               target_dist=tg, num_chains=4, seed=1,
@@ -163,7 +168,8 @@ def test_harness_ladder_beyond_the_fused_kernel(engine):
               beta_min_iterative=1e-4, N_samples_swap_est=300,
               iterative_tolerance=0.05, device=CPU, engine=engine)
     if engine == "pallas":
-        with pytest.raises(NotImplementedError, match="more than 32 rungs"):
+        with pytest.raises(NotImplementedError,
+                           match=r"more than 32 rungs.*\(a fit of 32\)"):
             MCMCSimulation(**kw)
         return
     host = construct_iterative_ladder(

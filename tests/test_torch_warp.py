@@ -233,9 +233,11 @@ def test_the_256_bucket_takes_16_rungs():
     """The 256 bucket's one-warp-a-state instantiation (G = 32) is bound to
     16 warps a block (at 32 and at 24 it spilled): 16 rungs of one replica
     fit it, 17 do not.  Its libraries' smaller team (G < 32, 512 threads a
-    block, no spill in the smoke's phase 2) takes a replica of 32 rungs, so
-    PT takes 32 rungs up to d = 252, and the harness refuses 33 there as
-    it does below d = 125."""
+    block, no spill in the smoke's phase 2) takes a replica of 32 rungs in
+    one block; more run over a cluster of blocks, so PT takes its fit's
+    rungs (``_build.rungs_fit``: 256 up to d = 64, the thread kernel's one
+    block; 768 in the 128 bucket, 416 in the 256 one, eight blocks of a
+    cluster) and the harness refuses one more, naming the layout."""
     g = _build.pt_warp_geometry(96, 512, 200, 256, 16, 1000, n_params=201)
     assert (g.replicas, g.threads, g.team) == (1, 512, 32)
     g = _build.pt_warp_geometry(96, 512, 200, 256, 10, 1000, n_params=201)
@@ -247,7 +249,7 @@ def test_the_256_bucket_takes_16_rungs():
                                 team=small)
     assert g.threads == small * 32 * g.replicas <= 512
     assert [_build.max_rungs(d) for d in (30, 64, 100, 124, 125, 252)] == \
-        [32] * 6
+        [256, 256, 768, 768, 416, 416]
     kw = dict(sigma=0.01, num_iterations=2, algorithm="PT",
               target_dist="MultivariateNormal", num_chains=2, device=CPU)
     assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 32,
@@ -255,10 +257,14 @@ def test_the_256_bucket_takes_16_rungs():
     for T in (17, 31):   # odd ladders: G = 8 with an idle team
         assert MCMCSimulation(dim=200, beta_ladder=[1.0] * T,
                               **kw)._fused_refusal() is None
-    assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 33,
-                          **kw)._fused_refusal() == "at most 32 rungs"
-    assert MCMCSimulation(dim=124, beta_ladder=[1.0] * 33,
-                          **kw)._fused_refusal() == "at most 32 rungs"
+    for dim, fit in ((125, 512), (124, 1024)):   # the iso MVN's fits
+        assert fit == _build.max_rungs(dim, "mvn_iso", "Normal", dim + 1)
+        assert MCMCSimulation(dim=dim, beta_ladder=[1.0] * fit,
+                              **kw)._fused_refusal() is None
+        assert MCMCSimulation(dim=dim, beta_ladder=[1.0] * (fit + 1),
+                              **kw)._fused_refusal() == (
+            f"at most {fit} rungs "
+            f"({_build.rungs_fit(dim, 'mvn_iso', 'Normal', dim + 1).layout})")
 
 
 def test_pt_warp_geometry_refusals():

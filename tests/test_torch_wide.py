@@ -204,10 +204,11 @@ def _n_params(kind, d):
 @pytest.mark.parametrize("d", [500, 1000, 1020])
 def test_max_rungs_is_the_geometry_fit(d, proposal):
     """``max_rungs(d, kind, proposal)`` is the most rungs for which
-    ``pt_warp_geometry`` fits one replica at one of the bucket's team
-    sizes: T = max_rungs fits, T + 1 fits none (below 32); T = 10 fits at
+    ``pt_cluster_geometry`` fits one replica over a cluster of at most
+    eight blocks at one of the bucket's team sizes: T = max_rungs fits,
+    T + 1 fits none, and it is at least 64; T = 10 fits one block at
     d = 1020 for every kind and proposal, with the kind's words or the
-    most a block stages.  Up to d = 252 every kind keeps 32 rungs."""
+    most a block stages.  At d = 252 every kind takes at least 64."""
     dmax = _build.warp_bucket(d)
     for kind in _build.TARGET_KINDS:
         n = _n_params(kind, d) if d != 1020 else None
@@ -215,11 +216,11 @@ def test_max_rungs_is_the_geometry_fit(d, proposal):
         rows = _build.team_rows(kind)
         words = _build.PARAMS_SHARED_MAX if n is None else n
 
-        def fits(T):
+        def fits(T, geometry=_build.pt_cluster_geometry):
             ok = []
             for g in _build.WARP_TEAMS[dmax]:
                 try:
-                    geo = _build.pt_warp_geometry(
+                    geo = geometry(
                         64, _build.pt_team_threads(dmax, g), d, dmax, T,
                         65536, proposal, n_params=words, team=g, rows=rows)
                     ok.append(geo)
@@ -227,12 +228,12 @@ def test_max_rungs_is_the_geometry_fit(d, proposal):
                     pass
             return ok
 
-        assert 10 <= T <= _build.MAX_RUNGS, (kind, T)
-        assert fits(T) and fits(10)
-        if T < _build.MAX_RUNGS:
-            assert not fits(T + 1), (kind, T)
+        assert T >= 64, (kind, T)
+        assert fits(T) and fits(10, _build.pt_warp_geometry)
+        assert all(g.cluster <= _build.CLUSTER_MAX for g in fits(T))
+        assert not fits(T + 1), (kind, T)
         assert _build.max_rungs(d, kind, proposal) <= T   # most words
-        assert _build.max_rungs(252, kind, proposal) == 32
+        assert _build.max_rungs(252, kind, proposal) >= 64
     assert _build.max_rungs(d, None, proposal) == min(
         _build.max_rungs(d, k, proposal) for k in _build.TARGET_KINDS)
 
@@ -243,7 +244,7 @@ def test_pt_warp_geometry_in_the_wide_buckets():
     1024 bucket (8 KB of rows a state) G = 16 one block of two replicas
     (166 KB; two blocks of one hold as many threads).  The 1024 bucket's
     G = 32 (16 warps at most) refuses 17 rungs; G = 16 takes 26 of a
-    two-row kind."""
+    two-row kind in one block, and eight such blocks of a cluster 208."""
     g = _build.pt_warp_geometry(64, 512, 500, 512, 10, 65536, n_params=501,
                                 team=16)
     assert (g.replicas, g.threads, g.blocks_per_sm) == (1, 160, 5)
@@ -257,7 +258,7 @@ def test_pt_warp_geometry_in_the_wide_buckets():
     with pytest.raises(ValueError, match="does not fit a block"):
         _build.pt_warp_geometry(64, 512, 1000, 1024, 17, 65536,
                                 n_params=1001, team=32)
-    assert _build.max_rungs(1000, "mvn_iso", "Normal", 1001) == 26
+    assert _build.max_rungs(1000, "mvn_iso", "Normal", 1001) == 8 * 26
     with pytest.raises(ValueError, match="does not fit a block"):
         _build.pt_warp_geometry(64, 512, 1000, 1024, 27, 65536,
                                 n_params=1001, team=16)
@@ -280,30 +281,44 @@ def test_rwm_warp_geometry_in_the_wide_buckets(C):
 
 
 def test_harness_refuses_rungs_beyond_the_fit():
-    """``MCMCSimulation`` names the fit's rungs: 26 at d = 1000 on the iso
-    MVN, 18 under Laplace; a ladder within them is taken."""
+    """``MCMCSimulation`` names the fit's rungs and the layout that sets
+    them: 208 at d = 1000 on the iso MVN, teams of 16 lanes, 26 a block
+    over a cluster of 8 blocks, under Laplace too (its scales read through
+    L2); 256 at d = 500, 32 a block by its threads; a ladder within them
+    is taken."""
     kw = dict(num_iterations=2, algorithm="PT", num_chains=2,
               target_dist="MultivariateNormal", device=CPU)
-    assert MCMCSimulation(dim=1000, sigma=0.01, beta_ladder=[1.0] * 26,
+    shared = ("teams of 16 lanes over a cluster of 8 blocks, 26 rung-teams "
+              "a block by its shared memory")
+    assert MCMCSimulation(dim=1000, sigma=0.01, beta_ladder=[1.0] * 208,
                           **kw)._fused_refusal() is None
-    assert MCMCSimulation(dim=1000, sigma=0.01, beta_ladder=[1.0] * 27,
-                          **kw)._fused_refusal() == "at most 26 rungs"
+    assert MCMCSimulation(dim=1000, sigma=0.01, beta_ladder=[1.0] * 209,
+                          **kw)._fused_refusal() == \
+        f"at most 208 rungs ({shared})"
     lap = {"name": "Laplace", "params": {"base_variance_vector": 0.01}}
     assert MCMCSimulation(dim=1000, proposal_config=lap,
-                          beta_ladder=[1.0] * 19,
-                          **kw)._fused_refusal() == "at most 18 rungs"
-    assert MCMCSimulation(dim=500, sigma=0.01, beta_ladder=[1.0] * 32,
+                          beta_ladder=[1.0] * 209,
+                          **kw)._fused_refusal() == \
+        f"at most 208 rungs ({shared})"
+    assert MCMCSimulation(dim=500, sigma=0.01, beta_ladder=[1.0] * 256,
                           **kw)._fused_refusal() is None
+    assert MCMCSimulation(dim=500, sigma=0.01, beta_ladder=[1.0] * 257,
+                          **kw)._fused_refusal() == (
+        "at most 256 rungs (teams of 16 lanes over a cluster of 8 blocks, "
+        "32 rung-teams a block by its threads)")
 
 
 def test_pt_launch_refuses_rungs_beyond_the_fit():
     """The PT wrapper refuses a ladder over ``target_max_rungs`` before it
-    builds or launches anything, naming more rungs' queue item (A17)."""
+    builds or launches anything, naming the fit and the layout that sets
+    it (a cluster of eight blocks of teams)."""
     from rwm_pt_tpu_torch.kernels.fused_pt import launch_pt_kernel
     tg = tget("MultivariateNormal", 1000, device=CPU)
-    T, C = 27, 2
+    T, C = 209, 2
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="at most 26 rungs.*item 17"):
+    with pytest.raises(NotImplementedError,
+                       match=r"at most 208 rungs .*cluster of 8 blocks.*"
+                             r"T=209"):
         launch_pt_kernel(tg, z(1000, T, C), z(T, C, dtype=torch.int32),
                          z(C, dtype=torch.int32), z(C), z(C), torch.ones(T),
                          torch.ones(T), (1, 2), 0, 1, 0, 1)
