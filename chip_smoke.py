@@ -12,7 +12,10 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    registers, stack frame and spills per register bucket, and each
    library's launch geometry and blocks and warps per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` beside
-   ``kernels/_build.py``'s count); a stack frame or a spill fails;
+   ``kernels/_build.py``'s count); a stack frame or a spill fails (a
+   ladder library's local memory too); the warp libraries (d > 64, phases
+   16-22) build in the background of phases 3-15 and are reported and
+   gated before phase 16;
 3. kernel vs plain on one Philox stream: PT on FullRosenbrock d=30, T=10,
    C=2048 (200 steps, burn-in 50, swap every 10) and RWM on MVN d=10,
    C=2048: share of replicas whose final x agrees to 1e-3 (rounding can flip
@@ -31,9 +34,9 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    2000 steps), each timed through its entry point with CUDA events (best
    of 3).  Each kernel is then timed alone at its main path's size and
    beside its bound, and held against its plain version at the main path's
-   shapes over 200 steps, as in phase 3.
+   shapes over ``HOLD_STEPS`` (100) steps, as in phase 3.
 7. every new kernel variant against its plain version at main-path shapes
-   over 200 steps (phase 3's checks; a recorded trace must agree to 1e-3
+   over ``HOLD_STEPS`` steps (phase 3's checks; a recorded trace must agree to 1e-3
    on the agreeing replicas): RWM on 30-d FullRosenbrock at 65,536 chains
    and PT at the flagship shape, each with the Laplace and the
    UniformRadius proposal and with recording (Normal, every step; the held
@@ -88,14 +91,15 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    ``scripts/launch_pt_pod.sh``'s shape (ThreeMixture d=10, 200,000
    iterations, burn-in 1000, 1024 replicas, ``swap_accept_max`` 0.5,
    ``N_samples_swap_est`` 1e6, tolerance 1e-4, 1000 pn steps, fail factor
-   1, seed 1), all 30 configs: per config the ladder (one launch of the
+   1, seed 1), ``PT_STUDY["configs"]`` of its 30 configs (10: a cut of
+   depth to keep the smoke within its time limit): per config the ladder (one launch of the
    ladder kernel, phase 18), its build and run seconds, the actual
    swap acceptance beside the constructed rate, the beta-ESJD and exactly
    one fused launch; the ESJD-optimal swap acceptance; one
    ``MCMCSimulation(iterative_temp_spacing=True)`` PT run on ThreeMixture
    (one ladder launch, one fused launch);
    the study's library held against its plain version at the study's
-   shape (T=7, even/odd, 200 steps); fused ``even_odd`` against the eager
+   shape (T=7, even/odd, ``HOLD_STEPS`` steps); fused ``even_odd`` against the eager
    engine's ``even_odd`` on MVN d=10.
    The study's JSON and log go to ``smoke_out/pt_study/``;
 14. the draw study's normals: (a) the two probe kernels, launches counted:
@@ -114,7 +118,7 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    launch path's host work piece by piece; (b) the ``icdf_fastlog``,
    ``lax_erfinv`` and ``fake_uniform`` variants of both kernels, Normal
    and UniformRadius, timed at their main path's size and held against
-   their plain versions at its shapes over 200 steps; (c) the Geweke gate
+   their plain versions at its shapes over ``HOLD_STEPS`` steps; (c) the Geweke gate
    on MVN d=10 with ``icdf_fastlog`` and ``lax_erfinv`` forced; (d) the
    draw study (``scripts/bench_normal_impl.py``): the five draws timed
    interleaved, best of 3, through ``run_pt_fused`` at the flagship shape
@@ -179,7 +183,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    best of 3 through the entry point, routed to the fixed-shape builds;
    the run-time-shape library's entry point at n = 50 (a dataset too
    large for the fixed builds; 4096 replicas x T = 8 or chains, 200
-   steps); each kernel alone at its path's size, held against its plain
+   steps); each kernel alone at its path's size (the thread kernels' main
+   path over HOLD_STEPS of its steps), held against its plain
    version there on every replica (counters equal, lp rel diff 0), and
    beside the fixed-shape builds, as a side record, the run-time-shape
    library on their inputs (equal bit for bit); the plain version's run
@@ -198,7 +203,7 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    against eager at 4096 (per-rung MH and swap acceptance, z < 5; no
    direct sampler, so no Geweke gate); (c) ``experiment_rwm --target
    SuperFunnel`` at ``launch_rwm_pod.sh``'s shape (Normal, 1024 chains,
-   200,000 iterations, burn-in 1000), 4 of the CLI's 40 configs, s a
+   200,000 iterations, burn-in 1000), ``SF_STUDY_CONFIGS`` (2) of the CLI's 40 configs, s a
    config and the JAX study's JSON keys (``smoke_out/super_funnel/``);
    (d) a PT run with ``autotune_ladder=True``: the tuner, then one fused
    launch.
@@ -212,7 +217,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    (the same T and probes, betas to rtol 1e-5, the swap estimates
    non-finite at the same probes and some finite, to rtol 1e-5 up to the
    first that differs), timed beside its bound; (b) the PT
-   study's 30 ladders at ``experiment_pt``'s defaults and room (N =
+   study's ladders (``PT_STUDY``'s configs) at ``experiment_pt``'s
+   defaults and room (N =
    50,000, tolerance 5e-4, 500 pn steps, fail factor 1.5): the host loop
    against the kernel, seconds each, the ladders equal; (c) one
    production build (``launch_pt_pod.sh:27-30``: N = 10^6, tolerance
@@ -244,7 +250,7 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    sharded run's ms and MH steps/s beside the unsharded run's, with its
    launches and swap events; (d) each sharded entry point (4 shards; the
    hybrid on 5 temps shards) held against its plain version (every
-   shard's plain version on the card) over 200 steps at the main path's
+   shard's plain version on the card) over ``HOLD_STEPS`` steps at the main path's
    shapes, as phase 6 holds the kernels, and timed beside its bound: the
    kernel's bound for the same work plus the swap events' bytes.
 20. the wide warp buckets (252 < d <= 1020, A15's remainder: ``.w512``,
@@ -266,7 +272,7 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    its run-time-shape library; (c) Geweke at d = 500 on the iso MVN; (d)
    the main shapes at full width, FullRosenbrock and the iso MVN at d = 500
    and 1000 through ``run_pt_fused`` (65,536 replicas x T = 10) and
-   ``run_rwm_fused`` (65,536 chains), 2000 steps, best of 2 calls, the
+   ``run_rwm_fused`` (65,536 chains), 2000 steps, one call, the
    first's launches counted, beside the bound, the team the geometry picked,
    each kernel held against its plain version at that shape over 5 steps,
    the eager engine's ms a step; (e) ``MCMCSimulation`` RWM and PT at
@@ -277,8 +283,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    sampler at d = 500 (N = 3000; NealFunnel at sigma_v^2 = 0.01, whose
    swap estimates stay finite, and shown at its default 9, where they are
    NaN) and the iso MVN at d = 1000 (N = 20,000), the swap estimates
-   finite at the same probes, and d = 1021 refused with
-   ``NotImplementedError``;
+   finite at the same probes (the refusal above the last bucket is
+   phase 22e's);
    (f) the RWM acceptance on the iso MVN at d = 1000, from the target's
    init and from exact draws, beside 0.234.
 21. ladders of more than 32 rungs (A17): the thread kernel's runtime-R
@@ -306,6 +312,40 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    beside the eager engine's on the same ladder (16,384 replicas, 30
    steps).
 
+22. the widest warp buckets (1020 < d <= 4092, A15's remainder:
+   ``.w2048``, ``.w4096``, one warp a state, and PT's cluster builds
+   ``.c2048``, ``.c4096``; the ladder kernel's ``.d2048`` and ``.d4096``,
+   the full MVN's ladder in its warp form above the 16 bucket), built in
+   phase 2 with the ladder libraries' gate on every bucket: (a) each
+   library held against its plain version with the layout the geometry
+   takes (at least 99.6 % of replicas agree, counters exact): every kind
+   but SuperFunnel at d = 2000, the iso MVN, FullRosenbrock, IIDGamma and
+   the full MVN at d = 4092 (PT T = 10 on 128 replicas, RWM 256 chains,
+   20 steps), the proposals, every normal draw, recording and the
+   even/odd sweep at d = 2000, each bucket's most rungs by
+   ``rungs_fit`` over the cluster build, the edges d = 1021, 2044, 2045,
+   4092 (Box-Muller at the odd ones), SuperFunnel at J = 300, K = 3,
+   n = 20 (d = 1206, the run-time-shape library), and the chains-sharded
+   runs at d = 2000 on 1, 2 and 4 virtual shards bit for bit; (b) Geweke
+   at d = 2000 on the iso MVN (the cold and the hottest of six rungs);
+   (c) the main shapes, FullRosenbrock and the
+   iso MVN at d = 2000 and 4000 through ``run_pt_fused`` (65,536 replicas
+   x T = 10) and ``run_rwm_fused`` (65,536 chains), 200 steps, and
+   IIDGamma's PT at d = 2000 (the ``.c2048`` cluster build), each once
+   with its launches counted, beside the bound, the team, blocks a
+   cluster and warps an SM, each record held against its plain version at
+   4096 replicas (512 for IIDGamma) over 20 steps; (d) ``MCMCSimulation``
+   RWM and PT at d = 2000 and PT at 4000, recorded, ``experiment_rwm
+   --dim 2000`` (``smoke_out/wider/``) and
+   ``MCMCSimulation(iterative_temp_spacing=True)`` at d = 2000 down to
+   beta_min 0.01 on the fused path; (e) the ladder kernel, one build each
+   through ``construct_iterative_ladder_device`` (its launch counted), then
+   held against its plain version: the full MVN at d = 500 (phase 20e's
+   case, 6,583.497 ms in the earlier one-lane form) and 2000, the iso MVN at d = 2000
+   and 4000 (N = 3000, beta_min 0.3, tolerance 0.05), no local memory, and
+   d = 4093 refused with ``NotImplementedError``; (f) the RWM acceptance
+   on the iso MVN at d = 2000 and 4000 from exact draws, beside 0.234.
+
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
 """
@@ -315,6 +355,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -331,9 +372,13 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # results a clock an SM (the Hopper architecture white paper) at that clock
 PEAK_MUFU_OPS = 16 * 132 * 1.98e9
 AGREE_MIN = 0.95       # share of replicas whose final x must agree
+# nvcc processes at a time building the warp libraries behind phases 3-15
+# (of the card machine's 8 cores; all 208 at once doubled phases 7-10's
+# time)
+BACKGROUND_NVCC = 6
 Z_RATE_MAX = 5.0       # counters' rates, kernel vs plain
 Z_INV_MAX = 5.0        # Geweke invariance bound (scripts/tpu_smoke.py)
-HOLD_STEPS = 200       # steps of the kernel-vs-plain run at main-path shapes
+HOLD_STEPS = 100       # steps of the kernel-vs-plain run at main-path shapes
 
 # bench.py:63-95, the flagship PT workload
 FLAG = dict(dim=30, T=10, C=65536, iters=2000, swap_every=100,
@@ -346,14 +391,14 @@ STUDY = dict(target="RoughCarpetScaled", dim=20, iters=200000, burn_in=1000,
              C=1024, var_max=4.0, seed=1)
 # of the CLI's 40 scale configs per proposal: a config's time does not
 # depend on its scale, and a quarter of them keeps the smoke's time
-STUDY_CONFIGS = 10
+STUDY_CONFIGS = 5
 REC_CHAINS = 4         # replicas recorded by the harness runs (phase 9)
 REC_HOLD_CHAINS = 1024  # replicas recorded by the held runs (phase 7)
 NEW_PROPOSALS = ("Laplace", "UniformRadius")
 # scripts/launch_pt_pod.sh, the PT swap-rate study
 PT_STUDY = dict(target="ThreeMixture", dim=10, iters=200000, burn_in=1000,
                 C=1024, swap_accept_max=0.5, N=1000000, tol=1e-4, pn=1000,
-                fail=1.0, seed=1, configs=30)
+                fail=1.0, seed=1, configs=10)   # 10 of the pod's 30
 BM_STUDY_STEPS = 20000  # steps of the ICDF vs Box-Muller timing at the
 #                         RWM study's shape (a config runs 201,000)
 # phase 11: target kind -> (registry name, kwargs at the held d=10, kwargs
@@ -451,7 +496,7 @@ SF_VAR = 0.01
 SF_MAIN = dict(C=65536, iters=2000, swap_every=100)
 SF_TEAM_TIME = dict(C_pt=16384, C_rwm=65536, steps=50)
 SF_EAGER = dict(C=4096, iters=1000, burn_in=500, swap_every=100)
-SF_STUDY_CONFIGS = 4
+SF_STUDY_CONFIGS = 2
 SF_TUNE = dict(C=4096, burn_in=1000, iters=2000)
 # the keys of the JAX study's JSON (rwm_pt_tpu/cli/experiment_rwm.py:99-115)
 SF_STUDY_KEYS = {"target_distribution", "proposal_distribution", "dimension",
@@ -530,7 +575,8 @@ SHARD_STUDY_CONFIGS = 2
 # chains-sharded runs' shape
 WIDE_D = (500, 1000)
 WIDE_EDGES = (253, 508, 509, 1020)
-WIDE_HYBRID = {500: {"n1": 2, "n2": 499}, 1000: {"n1": 4, "n2": 333}}
+WIDE_HYBRID = {500: {"n1": 2, "n2": 499}, 1000: {"n1": 4, "n2": 333},
+               2000: {"n1": 2, "n2": 1999}}   # (2000: phase 22's)
 WIDE_KINDS_1000 = ("mvn_iso", "rosenbrock", "iid_gamma")
 WIDE_HOLD = dict(steps=30, burn_in=10, swap_every=10, T=10, C_pt=256,
                  C_rwm=512)
@@ -572,6 +618,46 @@ RUNGS_MAIN = ((30, 50, 2000), (100, 50, 2000), (500, 36, 200),
 RUNGS_TEAMS = ((1000, 50), (1000, 20))
 RUNGS_TEAM_ITERS = 50
 RUNGS_HARNESS = dict(iters=100, eager_C=16384, eager_steps=30)
+
+
+# phase 22, the widest warp buckets (1020 < d <= 4092, A15's remainder:
+# ``.w2048``, ``.w4096`` and PT's ``.c2048``, ``.c4096``, G = 32; the
+# ladder kernel's ``.d2048``, ``.d4096`` and the full MVN's warp form): the
+# d of each bucket's main shape, the kinds held at d = 4092 (the full MVN
+# among them; every kind but SuperFunnel at d = 2000; HybridRosenbrock's
+# blocks at d = 2000 in WIDE_HYBRID), the edges, the holds' shape
+# (PT T = 10 on 128 replicas, RWM 256 chains, 20 steps; the gate
+# RUNGS_AGREE_MIN), SuperFunnel's dataset (d = 1206: the run-time-shape
+# library, its dataset over the shared-memory budget), the main shapes'
+# replicas, rungs and steps, the records' holds (4096 replicas, 20 steps:
+# the plain version at the main shape would hold 10.5 GB of state at
+# d = 4000 beside its copies), Geweke's rungs, the chains-sharded runs,
+# the ladders' builds (N = 3000, beta_min 0.3 and tolerance 0.05: phase
+# 20e's full-MVN case at d = 500), the study's configs, the harness's replicas
+WIDER_D = (2000, 4000)
+WIDER_KINDS_4092 = ("mvn_iso", "rosenbrock", "iid_gamma", "mvn_full")
+WIDER_EDGES = (1021, 2044, 2045, 4092)
+WIDER_HOLD = dict(steps=20, burn_in=5, swap_every=5, T=10, C_pt=128,
+                  C_rwm=256)
+# kinds held at AGREE_MIN, not RUNGS_AGREE_MIN: RoughCarpet's d logsumexp
+# terms, summed in the butterfly's order, round ~1e-4 apart from the plain
+# version's sum at d = 2000, so about one accept decision in 10^4 flips
+# and its replica parts ways (2 of 128 PT replicas over 20 steps at
+# T = 10 on an H100)
+WIDER_AGREE = {"rough_carpet": AGREE_MIN}
+WIDER_SF = dict(J=300, K=3, n=20)
+WIDER_MAIN = dict(C=65536, T=10, iters=200)
+WIDER_RECORD_HOLD = dict(C=4096, steps=20)
+WIDER_GEWEKE = [0.9 ** (t / 5) for t in range(6)]
+# the rungs Geweke holds at d = 2000, the cold and the hottest: 2 (2d + 1)
+# statistics, so that a true z of 5 stays rare (all six gave 24,006, whose
+# max reached 4.92 in one run)
+WIDER_GEWEKE_RUNGS = (0, 5)
+WIDER_SHARD = dict(d=2000, C=4096, iters=100)
+WIDER_LADDER = dict(N_samples_swap_est=LADDER_HARNESS_N, beta_min=0.3,
+                    tolerance=0.05, seed=1)
+WIDER_STUDY_CONFIGS = 3
+WIDER_HARNESS = dict(C=4096, iters=100)
 
 
 def fail(msg):
@@ -3551,7 +3637,7 @@ def phase_17(torch, gen):
     # (the run-time team library) at the team size the geometry picks;
     # each held against its plain version there, whose run counts the
     # valid log-densities that the bound's work counts
-    records = [(thread_tg, algo, C, iters) for algo in ("pt", "rwm")]
+    records = [(thread_tg, algo, C, HOLD_STEPS) for algo in ("pt", "rwm")]
     records += [(run_time_tg, algo, SF_RUN_TIME_PATH["C"],
                  SF_RUN_TIME_PATH["iters"]) for algo in ("pt", "rwm")]
     records += [(sf_target(get_target_distribution, J, K, dev), algo,
@@ -3904,7 +3990,8 @@ def phase_18(torch, gen):
         kernels.append(rec)
     say(f"phase 18a {time.time() - t_phase:.1f} s")
 
-    # ---- (b) the PT study's 30 ladders, host loop against the kernel, in
+    # ---- (b) the PT study's ladders (PT_STUDY's configs), host loop
+    # against the kernel, in
     # the room experiment_pt gives them (the fused kernel's rungs)
     room = _build.max_rungs(PT_STUDY["dim"]) + 1
     tm = get_target_distribution(PT_STUDY["target"], PT_STUDY["dim"],
@@ -4502,8 +4589,9 @@ def phase_19(torch, card, dev=None):
 
 
 def wide_target(get_target_distribution, kind, d, dev):
-    """Phase 20's target of kernel kind ``kind`` at d coordinates and its
-    Normal variance: phase 16's (:func:`warp_target`), with
+    """Phase 20's (and 22's) target of kernel kind ``kind`` at d
+    coordinates and its Normal variance: phase 16's (:func:`warp_target`),
+    with
     HybridRosenbrock's blocks for d (:data:`WIDE_HYBRID`)."""
     if kind == "hybrid_rosenbrock":
         return kind_target(get_target_distribution, kind, d, dev,
@@ -4704,7 +4792,7 @@ def phase_20(torch, gen):
                     fail(f"phase 20d {kind} d={d} {algo}: launches "
                          f"{dict(seen)}, acc {acc}")
                 del st, res
-                times = [ms, cuda_ms(torch, lambda: run(1))[0]]
+                times = [ms]
                 n_params = _build.kernel_target(tg)[1].numel()
                 work = (pt_work(kind, d, T, C, iters, 0, FLAG["swap_every"],
                                 draw=rule[algo], n_params=n_params)
@@ -4753,7 +4841,7 @@ def phase_20(torch, gen):
                        eager_ms_per_step=e_ms / EAGER_STEPS)
             say(f"phase 20d {name} d={d} at the main shape ({C} "
                 f"{'replicas x T=10' if algo == 'pt' else 'chains'}, {iters} "
-                f"steps, through run_{algo}_fused, best of 2; team "
+                f"steps, through run_{algo}_fused, one call; team "
                 f"G={geo.team}, {geo.replicas} "
                 f"{'replicas' if algo == 'pt' else 'chains'} a block, "
                 f"{geo.blocks_per_sm} blocks an SM): FullRosenbrock "
@@ -4862,25 +4950,6 @@ def phase_20(torch, gen):
         f"held): {k.betas}, {k.probes} probes, "
         f"{sum(not math.isfinite(a) for a in k.a_hats)} of them NaN")
     kernels.append(ladder_rec)
-    # above the last bucket: no launch, NotImplementedError naming it
-    big, vb = target("mvn_iso", WIDE_EDGES[-1] + 1)
-    for fn in (lambda: run_pt_fused(big, 0, betas, base_variance=vb,
-                                    num_chains=4, num_iterations=2,
-                                    device=dev),
-               lambda: run_rwm_fused(big, 0, base_variance=vb, num_chains=4,
-                                     num_iterations=2, device=dev),
-               lambda: ladder_build.launch_ladder_kernel(big)):
-        reset_launches(launch_l, *wrappers)
-        try:
-            fn()
-        except NotImplementedError as e:
-            if "Queue A item 15" not in str(e) or read_launches(
-                    launch_l, *wrappers):
-                fail(f"phase 20e d={big.dim}: {e}")
-        else:
-            fail(f"phase 20e d={big.dim} ran")
-    say(f"phase 20e d={big.dim} raises NotImplementedError naming ROADMAP "
-        f"Queue A item 15 (run_pt_fused, run_rwm_fused, the ladder kernel)")
     say(f"phase 20 {time.time() - t_phase:.1f} s")
     return kernels
 
@@ -5180,6 +5249,451 @@ def phase_21(torch, gen):
     return records
 
 
+def wider_hold(torch, gen, label, algo, tg, var, C, steps, record=False,
+               sweep=None, **kw):
+    """One phase 22a hold: the launch of :func:`warp_case` (``kw`` its
+    options) with the layout the wrapper's geometry takes (one block, or
+    PT's cluster build where one block does not hold the ladder) against
+    its plain version, its launches counted under that library and nowhere
+    else; at least :data:`RUNGS_AGREE_MIN` of the replicas agree
+    (:data:`WIDER_AGREE`'s gate for its kinds), counters exact, else the
+    smoke fails.  ``record`` records every step of every
+    replica, ``sweep`` the PT pair order.  Returns ``(Agreement, kernel
+    ms, plain ms, work, library)``."""
+    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt, fused_rwm
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    launch, plain, names, args, lkw, work = warp_case(torch, gen, algo, tg,
+                                                      var, steps, C, **kw)
+    if sweep:
+        lkw["swap_sweep"] = sweep
+    if record:
+        lkw.update(record_every=1, record_chains=C)
+        names = names + ("chain",)
+        work = (work[0], work[1], work[2] + rec_bytes(tg.dim, steps, 1, C),
+                work[3])
+    lib, _, words = _build.route(_build.library(
+        f"fused_{algo}", lkw["kind"], lkw["draw"]), tg)
+    geo = _build.launch_geometry(lib, tg.dim, C, kw.get("T", 10)
+                                 if algo == "pt" else 0, lkw["kind"],
+                                 lkw["draw"], words.numel())
+    if geo.cluster:
+        lib = _build.cluster_lib(lib)
+    want = {_build.launch_key(lib)} | (
+        {f"fused_{algo}_record"} if record else set())
+    reset_launches(*wrappers)
+    ms, k = cuda_ms(torch, lambda: launch(*args, **lkw))
+    seen = read_launches(*wrappers, by_kind=True)
+    plain_ms, p = cuda_ms(torch, lambda: plain(*args, **lkw))
+    ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+    b_ms = (f"{bound(*work)[0]:.4f} ms by {bound(*work)[2]}"
+            if work is not None else "(SuperFunnel: phase 17's count)")
+    say(f"phase 22a {label}: {lib} (G={geo.team}, "
+        + (f"clusters of {geo.cluster} blocks of {geo.slots} slots"
+           if geo.cluster else f"{geo.replicas} a block")
+        + f") kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms}; "
+        f"{agreement.describe(ag)}")
+    gate = WIDER_AGREE.get(_build.target_kind(tg), RUNGS_AGREE_MIN)
+    if set(seen) != want or ag.frac < gate or ag.mismatched:
+        fail(f"phase 22a {label}: launches {dict(seen)} (want {want}), "
+             f"{agreement.describe(ag)}")
+    return ag, ms, plain_ms, work, lib
+
+
+def phase_22(torch, gen):
+    """Phase 22, the widest warp buckets (1020 < d <= 4092, A15's
+    remainder; module docstring): (a) the holds, the chains-sharded runs
+    bit for bit, (b) Geweke at d = 2000, (c) the main shapes at d = 2000
+    and 4000, (d) the entry points, (e) the ladder kernel, (f) the RWM
+    rate from exact draws.  Returns the kernels line's records: PT and RWM
+    of each new bucket, with the launches of their main paths in (c), and
+    the ladder kernel's full MVN at d = 500 and 2000 and iso MVN at
+    d = 2000 and 4000, with the launches of their main paths in (d) and
+    (e)."""
+    from rwm_pt_tpu_torch.api import MCMCSimulation
+    from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
+                                          fused_rwm, ladder_build,
+                                          run_pt_fused, run_pt_fused_sharded,
+                                          run_rwm_fused,
+                                          run_rwm_fused_sharded)
+    from rwm_pt_tpu_torch.kernels.fused_pt import SWEEPS
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    from rwm_pt_tpu_torch.ladders import construct_iterative_ladder_device
+    from rwm_pt_tpu_torch.parallel import make_mesh
+    from rwm_pt_tpu_torch.targets import get_target_distribution
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    wrappers = (fused_pt.launch_pt_kernel, fused_rwm.launch_rwm_kernel)
+    h = WIDER_HOLD
+    rule = {a: draws.resolve_normal_impl(a, 65536) for a in ("pt", "rwm")}
+    D2, D4 = WIDER_D
+
+    def target(kind, d):
+        return wide_target(get_target_distribution, kind, d, dev)
+
+    def hold(label, algo, tg, var, C=None, **kw):
+        return wider_hold(torch, gen, label, algo, tg, var,
+                          C or (h["C_pt"] if algo == "pt" else h["C_rwm"]),
+                          h["steps"], **dict(dict(
+                              T=h["T"], burn_in=h["burn_in"],
+                              swap_every=h["swap_every"],
+                              draw=rule[algo]), **kw))
+
+    # ---- (a) holds: every kind at d = 2000, four at d = 4092, the
+    # proposals, draws, recording and both sweeps at d = 2000, each
+    # bucket's most rungs, the edges, SuperFunnel, the sharded runs
+    worst = 1.0
+    for d, kinds in ((D2, [k for k in _build.TARGET_KINDS
+                           if k != "super_funnel"]),
+                     (WIDER_EDGES[-1], WIDER_KINDS_4092)):
+        for kind in kinds:
+            tg, var = target(kind, d)
+            for algo in ("rwm", "pt"):
+                worst = min(worst, hold(f"{kind} d={tg.dim} "
+                                        f"{algo.upper()}", algo, tg,
+                                        var)[0].frac)
+            del tg
+            torch.cuda.empty_cache()
+    mvn, var = target("mvn_iso", D2)
+    for algo in ("rwm", "pt"):
+        for prop in NEW_PROPOSALS:
+            hold(f"{prop} MVN d={D2} {algo.upper()}", algo, mvn, var,
+                 prop=prop)
+        hold(f"recorded MVN d={D2} {algo.upper()}", algo, mvn, var,
+             record=True)
+        for dr in draws.NORMAL_IMPLS:
+            if dr != rule[algo]:
+                hold(f"draw {dr} MVN d={D2} {algo.upper()}", algo, mvn, var,
+                     draw=dr)
+    rb, var_rb = target("rosenbrock", D2)
+    hold(f"FullRosenbrock d={D2} PT {SWEEPS[1]}", "pt", rb, var_rb,
+         sweep=SWEEPS[1])
+    for d in (D2, WIDER_EDGES[-1]):
+        tg, v = target("mvn_iso", d)
+        fit = _build.target_rungs_fit(tg)
+        hold(f"MVN d={d} PT at the fit's most rungs T={fit.rungs} "
+             f"({fit.layout})", "pt", tg, v, T=fit.rungs, C=64)
+    for d_e in WIDER_EDGES:
+        te, ve = target("mvn_iso", d_e)
+        for algo in ("rwm", "pt"):
+            hold(f"edge d={d_e} {algo.upper()} (1000, ragged)", algo, te, ve,
+                 C=1000, T=4)
+            if d_e % 2:
+                hold(f"edge d={d_e} {algo.upper()} Box-Muller (odd d)", algo,
+                     te, ve, C=1000, T=4, draw="bm")
+    sf = get_target_distribution("SuperFunnel", 0, J=WIDER_SF["J"],
+                                 K=WIDER_SF["K"], n_per_group=WIDER_SF["n"],
+                                 device=dev)
+    for algo in ("rwm", "pt"):
+        lib = hold(f"SuperFunnel d={sf.dim} {algo.upper()}", algo, sf,
+                   SF_VAR, T=8, draw=draws.resolve_normal_impl(
+                       algo, 65536, "super_funnel"))[4]
+        if _build.fixed_shape(lib) is not None or not (
+                lib.endswith(".w2048") or lib.endswith(".c2048")):
+            fail(f"phase 22a SuperFunnel d={sf.dim} routes to {lib}")
+    del sf
+    # chains-sharded on 1, 2 and 4 virtual shards of the card, bit for bit
+    sh = WIDER_SHARD
+    mvn2, v2 = target("mvn_iso", sh["d"])
+    betas = torch.logspace(0, -2, h["T"], device=dev)
+    for algo, fused, sharded, fields in (
+            ("pt", run_pt_fused, run_pt_fused_sharded, PT_STATE),
+            ("rwm", run_rwm_fused, run_rwm_fused_sharded, RWM_STATE)):
+        pre = (betas,) if algo == "pt" else ()
+        kw = dict(base_variance=v2, num_chains=sh["C"],
+                  num_iterations=sh["iters"],
+                  **({"swap_every": 10} if algo == "pt" else {}))
+        ref = fused(mvn2, 7, *pre, device=dev, **kw)
+        line = []
+        for n in SHARD_COUNTS:
+            reset_launches(*wrappers)
+            ms, res = cuda_ms(torch, lambda: sharded(
+                mvn2, 7, *pre, make_mesh((n,), ("chains",),
+                                         devices=[dev] * n), **kw))
+            seen = read_launches(*wrappers, by_kind=True)
+            bad = differ(torch, res, ref, fields)
+            if bad or sum(seen.values()) != n:
+                fail(f"phase 22a chains-sharded {algo} d={sh['d']} on {n} "
+                     f"shards: differs in {bad}; launches {dict(seen)}")
+            line.append(f"{n} shards {ms:.3f} ms ({dict(seen)})")
+        say(f"phase 22a chains-sharded {algo.upper()} d={sh['d']} "
+            f"({sh['C']} chains, {sh['iters']} steps): equal bit for bit "
+            f"({', '.join(fields)}) to the unsharded run; " + "; ".join(line))
+        del ref, res
+    say(f"phase 22a {time.time() - t_phase:.1f} s; least share of replicas "
+        f"that agree over the kinds {worst:.5f} (>= {RUNGS_AGREE_MIN}; "
+        f"{WIDER_AGREE} apart)")
+
+    # ---- (b) Geweke at d = 2000: the iso MVN, RWM and PT on six rungs
+    seed = int.from_bytes(os.urandom(4), "little")
+    reset_launches(*wrappers)
+    z_rwm, z_pt, sw = invariance(torch, mvn, seed, betas=WIDER_GEWEKE,
+                                 rungs=WIDER_GEWEKE_RUNGS, base_variance=var)
+    seen = read_launches(*wrappers, by_kind=True)
+    say(f"phase 22b invariance MVN d={D2} (seed {seed}): max z RWM "
+        f"{z_rwm:.2f}, PT {z_pt:.2f} (< {Z_INV_MAX}) at rungs "
+        f"{WIDER_GEWEKE_RUNGS} of 1 .. {WIDER_GEWEKE[-1]:.2f} (6); PT swap "
+        f"acc {sw:.3f}; launches "
+        f"{dict(seen)}")
+    if (max(z_rwm, z_pt) >= Z_INV_MAX or not swap_ok(sw, WIDER_GEWEKE)
+            or not all(k.endswith(".w2048") for k in seen)):
+        fail("phase 22b invariance failed")
+
+    # ---- (c) the main shapes at full width through the entry points, one
+    # call each, its launches counted (the main path); each library's
+    # record held against its plain version at WIDER_RECORD_HOLD
+    C, T, iters = WIDER_MAIN["C"], WIDER_MAIN["T"], WIDER_MAIN["iters"]
+    betas = torch.logspace(0, -2, T, device=dev)
+    records = []
+    for d in WIDER_D:
+        for algo, src, site in (
+                ("pt", "fused_pt_warp.cu",
+                 "rwm_pt_tpu/kernels/pallas_pt.py:399"),
+                ("rwm", "fused_rwm_warp.cu",
+                 "rwm_pt_tpu/kernels/pallas_rwm.py:570")):
+            variant = _build.library(f"fused_{algo}", "Normal", rule[algo])
+            launch, plain, names = (
+                (fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+                 agreement.PT_OUTPUTS) if algo == "pt" else
+                (fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+                 agreement.RWM_OUTPUTS))
+            main = {}
+            for kind in ("rosenbrock", "mvn_iso"):
+                tg, v = target(kind, d)
+                n_params = _build.kernel_target(tg)[1].numel()
+                lib = _build.route(variant, tg)[0]
+                geo = _build.launch_geometry(lib, d, C, T if algo == "pt"
+                                             else 0, "Normal", rule[algo],
+                                             n_params)
+                name = _build.by_variant({_build.launch_key(
+                    _build.cluster_lib(lib) if geo.cluster else lib): 1})
+                name = next(iter(name))
+                reset_launches(*wrappers)
+                ms, res = cuda_ms(torch, lambda: (
+                    run_pt_fused(tg, 0, betas, base_variance=v,
+                                 num_chains=C, num_iterations=iters,
+                                 swap_every=FLAG["swap_every"], device=dev)
+                    if algo == "pt" else
+                    run_rwm_fused(tg, 0, base_variance=v, num_chains=C,
+                                  num_iterations=iters, device=dev)))
+                seen = read_launches(*wrappers)
+                acc = res.acceptance_rate.mean().item()
+                if (dict(seen) != {name: 1}
+                        or not torch.isfinite(res.state.x).all()
+                        or not torch.isfinite(res.state.logp).all()
+                        or not 0 < acc < 1):
+                    fail(f"phase 22c {kind} d={d} {algo}: launches "
+                         f"{dict(seen)} (want {name}), acc {acc}")
+                del res
+                torch.cuda.empty_cache()
+                work = (pt_work(kind, d, T, C, iters, 0, FLAG["swap_every"],
+                                draw=rule[algo], n_params=n_params)
+                        if algo == "pt" else
+                        rwm_work(kind, d, C, iters, draw=rule[algo],
+                                 n_params=n_params))
+                b_ms, _, b_lim = bound(*work)
+                say(f"phase 22c {kind} d={d} {algo.upper()} at the main "
+                    f"shape ({C} {'replicas x T=10' if algo == 'pt' else 'chains'}"
+                    f", {iters} steps, through run_{algo}_fused): {name} "
+                    f"(G={geo.team}, "
+                    + (f"clusters of {geo.cluster} blocks of {geo.slots} "
+                       f"slots" if geo.cluster else
+                       f"{geo.replicas} a block")
+                    + f", {geo.blocks_per_sm} blocks, "
+                    f"{_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
+                    f"against its {b_ms:.3f} ms bound by {b_lim} "
+                    f"({100 * b_ms / ms:.1f} %); acceptance {acc:.4f}; "
+                    f"launches {dict(seen)}")
+                main[kind] = (ms, work, seen[name], acc, name, geo)
+            rb_ms, rb_work, launches, acc, name, geo = main["rosenbrock"]
+            rb, var_rb = target("rosenbrock", d)
+
+            def rb_case(steps, hold_, algo=algo, rb=rb, var_rb=var_rb):
+                _, _, _, args, kw, work = warp_case(
+                    torch, gen, algo, rb, var_rb, steps,
+                    WIDER_RECORD_HOLD["C"], T=T, draw=rule[algo], burn_in=0,
+                    swap_every=10)
+                return args, kw, work
+            rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
+                                + src, site, launches, launch, plain, names,
+                                rb_case, iters, phase="22c",
+                                hold_steps=WIDER_RECORD_HOLD["steps"],
+                                main=(rb_ms, rb_work))
+            if rec["agree_frac"] < RUNGS_AGREE_MIN:
+                fail(f"phase 22c {name}: {rec['agree_frac']} agree")
+            mvn_ms, mvn_work, _, mvn_acc, _, _ = main["mvn_iso"]
+            mb_ms, _, mb_lim = bound(*mvn_work)
+            rec.update(dim=d, team=geo.team, cluster=geo.cluster,
+                       replicas_a_block=geo.replicas,
+                       blocks_per_sm=geo.blocks_per_sm,
+                       warps_per_sm=_build.resident_warps(geo),
+                       acceptance=acc, hold_replicas=WIDER_RECORD_HOLD["C"],
+                       mvn_iso_ms=mvn_ms, mvn_iso_bound_ms=mb_ms,
+                       mvn_iso_bound_share=mb_ms / mvn_ms,
+                       mvn_iso_acceptance=mvn_acc)
+            records.append(rec)
+            torch.cuda.empty_cache()
+    # PT's cluster build in the 2048 bucket: a three-row kind (IIDGamma, its
+    # 6008 words staged) at T = 10 fills no one block; held at 512
+    # replicas (its plain version's logs are the slow part)
+    tg, v = target("iid_gamma", D2)
+    variant = _build.library("fused_pt", "Normal", rule["pt"])
+    n_params = _build.kernel_target(tg)[1].numel()
+    geo = _build.launch_geometry(_build.route(variant, tg)[0], D2, C, T,
+                                 "Normal", rule["pt"], n_params)
+    name = f"{variant}.c2048"
+    reset_launches(*wrappers)
+    ms, res = cuda_ms(torch, lambda: run_pt_fused(
+        tg, 0, betas, base_variance=v, num_chains=C, num_iterations=iters,
+        swap_every=FLAG["swap_every"], device=dev))
+    seen = read_launches(*wrappers)
+    acc = res.acceptance_rate.mean().item()
+    if (dict(seen) != {name: 1} or not torch.isfinite(res.state.x).all()
+            or not 0 < acc < 1):
+        fail(f"phase 22c iid_gamma d={D2} PT: launches {dict(seen)}, acc "
+             f"{acc}")
+    del res
+    work = pt_work("iid_gamma", D2, T, C, iters, 0, FLAG["swap_every"],
+                   draw=rule["pt"], n_params=n_params)
+
+    def gamma_case(steps, hold_):
+        _, _, _, args, kw, w = warp_case(
+            torch, gen, "pt", tg, v, steps, 512, T=T, draw=rule["pt"],
+            burn_in=0, swap_every=10)
+        return args, kw, w
+    rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
+                        "fused_pt_warp.cu",
+                        "rwm_pt_tpu/kernels/pallas_pt.py:399", seen[name],
+                        fused_pt.launch_pt_kernel,
+                        fused_pt._run_pt_fused_plain, agreement.PT_OUTPUTS,
+                        gamma_case, iters, phase="22c",
+                        hold_steps=WIDER_RECORD_HOLD["steps"],
+                        main=(ms, work))
+    if rec["agree_frac"] < RUNGS_AGREE_MIN or not geo.cluster:
+        fail(f"phase 22c {name}: {rec['agree_frac']} agree, {geo}")
+    rec.update(dim=D2, kind="iid_gamma", team=geo.team, cluster=geo.cluster,
+               replicas_a_block=geo.replicas, hold_replicas=512,
+               blocks_per_sm=geo.blocks_per_sm,
+               warps_per_sm=_build.resident_warps(geo), acceptance=acc)
+    say(f"phase 22c iid_gamma d={D2} PT at the main shape: {name} "
+        f"(G={geo.team}, clusters of {geo.cluster} blocks of {geo.slots} "
+        f"slots, {_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
+        f"against its {rec['main_path_bound_ms']:.3f} ms bound by "
+        f"{rec['main_path_bound_limit']} "
+        f"({100 * rec['main_path_bound_share']:.1f} %); acceptance "
+        f"{acc:.4f}; launches {dict(seen)}")
+    records.append(rec)
+    del tg
+    torch.cuda.empty_cache()
+    say(f"phase 22c {time.time() - t_phase:.1f} s")
+
+    # ---- (d) the entry points at d = 2000 (and the harness's PT at 4000)
+    for algo in ("RWM", "PT"):
+        harness_entry(torch, "22d", ".w2048", algo, D2, 200, sigma=var,
+                      target_dist=mvn)
+    mvn4, var4 = target("mvn_iso", D4)
+    harness_entry(torch, "22d", ".c4096", "PT", D4, 100, sigma=var4,
+                  target_dist=mvn4)
+    study_entry(torch, "22d", ".w2048", D2, WIDER_STUDY_CONFIGS, 1024,
+                os.path.join(HERE, "smoke_out", "wider", "study"))
+    launch_l = ladder_build.launch_ladder_kernel
+    reset_launches(launch_l, *wrappers)
+    sim = MCMCSimulation(
+        dim=D2, sigma=var, num_iterations=WIDER_HARNESS["iters"],
+        algorithm="PT", target_dist=mvn, num_chains=WIDER_HARNESS["C"],
+        seed=1, iterative_temp_spacing=True, record_chain=False,
+        device=dev)
+    sim.generate_samples(verbose=False)
+    torch.cuda.synchronize()
+    seen_l, seen = dict(launch_l.launches), read_launches(*wrappers)
+    n_rungs = len(sim.beta_ladder)
+    if (seen_l != {f"{_build.LADDER}.mvn_iso": 1}
+            or sim.engine_used != "pallas"
+            or abs(sim.beta_ladder[-1] - 0.01) > 1e-6
+            or sum(seen.values()) != 1
+            or not all(k[-6:] in (".w2048", ".c2048") for k in seen)):
+        fail(f"phase 22d ladder main path d={D2}: ladder {seen_l}, fused "
+             f"{dict(seen)}, engine {sim.engine_used}, {n_rungs} rungs")
+    say(f"phase 22d MCMCSimulation(iterative_temp_spacing=True) MVN d={D2} "
+        f"down to beta_min 0.01: {n_rungs} rungs (the fit takes "
+        f"{_build.target_max_rungs(mvn)}), {WIDER_HARNESS['C']} replicas x "
+        f"{WIDER_HARNESS['iters']} iterations, swap acc "
+        f"{sim.acceptance_rate():.4f}; launches {seen_l}, fused {dict(seen)}")
+    harness_launches = seen_l[f"{_build.LADDER}.mvn_iso"]
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- (e) the ladder kernel: the full MVN's warp form at d = 500 (PR
+    # 15's case: 6,583.497 ms, 143.1 ms a probe) and 2000, the iso MVN at
+    # d = 2000 and 4000; each one build through
+    # construct_iterative_ladder_device (its launch counted: the main path;
+    # the iso MVN at d = 2000's is the harness's in (d)), then held
+    held = dict(WIDER_LADDER, max_T=L.EAGER_MAX_RUNGS + 1)
+    for kind, d in (("mvn_full", 500), ("mvn_full", D2), ("mvn_iso", D2),
+                    ("mvn_iso", D4)):
+        tg = ladder_target(get_target_distribution, kind, d, dev)
+        launches = harness_launches
+        if (kind, d) != ("mvn_iso", D2):
+            reset_launches(launch_l)
+            construct_iterative_ladder_device(tg, **held)
+            launches = launch_l.launches[f"{_build.LADDER}.{kind}"]
+        got = ladder_hold(torch, "22e", tg, kind, f"ladder {kind} d={d}",
+                          held, reps=1)
+        rec = ladder_record(_build.ladder_lib(kind, d), launches, tg, kind,
+                            got)
+        if rec["local_bytes"]:
+            fail(f"phase 22e {rec['name']}: {rec['local_bytes']} B of local "
+                 f"memory")
+        say(f"phase 22e {rec['name']}: {got['us_a_probe']:.1f} us a probe "
+            f"({got['probes']} probes, N={held['N_samples_swap_est']}), "
+            f"{rec['registers']} registers, {rec['local_bytes']} B local, "
+            f"{rec['warps_per_sm']} warps an SM"
+            + (f"; the earlier one-lane form took 6,583.497 ms (143.1 ms "
+               f"a probe) for this build" if (kind, d) == ("mvn_full", 500)
+               else ""))
+        records.append(rec)
+        del tg
+        torch.cuda.empty_cache()
+    # above the last bucket: no launch, NotImplementedError naming it
+    big, vb = target("mvn_iso", WIDER_EDGES[-1] + 1)
+    for fn in (lambda: run_pt_fused(big, 0, betas, base_variance=vb,
+                                    num_chains=4, num_iterations=2,
+                                    device=dev),
+               lambda: run_rwm_fused(big, 0, base_variance=vb, num_chains=4,
+                                     num_iterations=2, device=dev),
+               lambda: ladder_build.launch_ladder_kernel(big)):
+        reset_launches(launch_l, *wrappers)
+        try:
+            fn()
+        except NotImplementedError as e:
+            if "Queue A item 15" not in str(e) or read_launches(
+                    launch_l, *wrappers):
+                fail(f"phase 22e d={big.dim}: {e}")
+        else:
+            fail(f"phase 22e d={big.dim} ran")
+    say(f"phase 22e d={big.dim} raises NotImplementedError naming ROADMAP "
+        f"Queue A item 15 (run_pt_fused, run_rwm_fused, the ladder kernel)")
+
+    # ---- (f) the RWM acceptance on the iso MVN at sigma^2 = 2.38^2 / d
+    # from exact draws, beside the d -> infinity limit
+    line = []
+    for d in WIDER_D:
+        tg, v = target("mvn_iso", d)
+        g = torch.Generator(device=dev).manual_seed(22)
+        stat = run_rwm_fused(tg, 22, base_variance=v, num_chains=4096,
+                             num_iterations=2000, device=dev,
+                             init_states=tg.direct_sample(4096, 1.0, g).T)
+        a = stat.acceptance_rate
+        line.append(f"d={d} {a.mean().item():.4f} (+- "
+                    f"{a.std().item() / math.sqrt(a.numel()):.4f})")
+    say(f"phase 22f RWM acceptance on the iso MVN at sigma^2 = 2.38^2/d from "
+        f"exact draws (4096 chains, 2000 steps): {'; '.join(line)}; the "
+        f"d -> infinity limit 2 Phi(-2.38/2) = "
+        f"{math.erfc(2.38 / 2 / math.sqrt(2)):.4f}")
+    say(f"phase 22 {time.time() - t_phase:.1f} s")
+    return records
+
+
 def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     """Phase 2's line for library ``name``: the launch geometry of a launch
     at d coordinates (default: the bucket's largest d) and T = 10 rungs
@@ -5196,11 +5710,14 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
     if sf and _build.is_warp(name):   # its padded dataset in shared memory
         n_params = _build.sf_team_words(sf["J"], sf["K"], sf["n"])
     pt = src.startswith("fused_pt")
+    if pt and _build.is_cluster(name):   # at most the rungs the fit takes
+        T = min(T, _build.max_rungs(d, name.split(".")[1], prop, n_params))
     geo = _build.launch_geometry(name, d, 65536, T if pt else 0, prop, draw,
                                  n_params)
     info = _build.kernel_info(
-        name, d, T if pt else 1, geo.replicas, n_params,
-        runtime_r=geo.runtime_r, team=geo.team, cluster=geo.cluster)
+        _build.cluster_lib(name) if geo.cluster else name, d,
+        T if pt else 1, geo.replicas, n_params, runtime_r=geo.runtime_r,
+        team=geo.team, cluster=geo.cluster)
     warps = -(-geo.threads // 32)
     team = f" G={geo.team}," if _build.is_warp(name) else ""
     if geo.cluster:
@@ -5214,6 +5731,52 @@ def occupancy(torch, _build, name, d=None, T=10, n_params=0):
             f"{geo.shared_bytes}); {info['blocks_per_sm']} blocks, "
             f"{info['blocks_per_sm'] * warps} warps per SM (calculated "
             f"{geo.blocks_per_sm} blocks)")
+
+
+def report_build(torch, _build, ptxas_report, logs):
+    """Phase 2's lines for the built libraries ``logs`` ({name: ptxas
+    report}): registers, stack frame and spills per instantiation, and the
+    launch geometry and occupancy (a ladder library: its registers, local
+    bytes and cooperative grid); a stack frame, a spill or a ladder
+    library's local memory fails the smoke."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    frames = []
+    for kname, log in logs.items():
+        entries = sorted(ptxas_report.parse(log))
+        line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
+                         for n, r, f, sp in entries)
+        if kname.startswith(_build.LADDER + "."):
+            # a ladder library's loops are unrolled up to the 64 bucket,
+            # rolled above it; the gate holds every bucket (stack frame,
+            # spill, local memory)
+            kind, tag, *stamps = kname.split(".")[1:]
+            if stamps:
+                # phase 18c's measuring build: no entry point launches it,
+                # and its stamps cost registers (no gate)
+                say(f"phase 2 build {kname} (measuring build): {line}")
+                continue
+            dmax = int(tag[1:])
+            frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
+            info = ladder_build.info(   # a d of this library's bucket
+                kind, dmax if dmax <= _build.BUCKETS[-1] else dmax - 4)
+            if info["local_bytes"]:
+                frames.append(f"{kname}: {info['local_bytes']} B local")
+            say(f"phase 2 build {kname}: {line}; {info['registers']} regs, "
+                f"{info['local_bytes']} B local; {info['blocks_per_sm']} "
+                f"blocks of {info['max_threads']} threads an SM at "
+                f"{info['shared_bytes']} B of dynamic shared memory, "
+                f"{info['sms']} SMs (a cooperative grid of "
+                f"{info['blocks_per_sm'] * info['sms']})")
+            continue
+        frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
+        if kname != _build.PROBES:
+            line += "; " + occupancy(   # SuperFunnel: its ladder's T = 8
+                torch, _build, kname,
+                T=8 if ".super_funnel." in kname else
+                50 if _build.is_cluster(kname) else 10)
+        say(f"phase 2 build {kname}: {line}")
+    if frames:
+        fail(f"a kernel has a stack frame or spills: {frames}")
 
 
 def smoke_libraries(_build):
@@ -5322,6 +5885,38 @@ def smoke_libraries(_build):
     names += [_build.cluster_lib(lib(_build.library("fused_pt", "Normal",
                                                     rule), "mvn_iso", d))
               for d, _ in RUNGS_SMALL]
+    sf_wider = get_target_distribution(
+        "SuperFunnel", 0, J=WIDER_SF["J"], K=WIDER_SF["K"],
+        n_per_group=WIDER_SF["n"], device="cpu")
+    D2, D4 = WIDER_D
+    for a in ("pt", "rwm"):                                      # 22
+        rule = resolve_normal_impl(a, 65536)
+        v = _build.library(f"fused_{a}", "Normal", rule)
+        team = [lib(v, k, D2) for k in _build.TARGET_KINDS
+                if k != "super_funnel"]
+        team += [lib(v, k, d) for k in WIDER_KINDS_4092
+                 for d in (WIDER_EDGES[-1], D4)]
+        team += [lib(_build.library(f"fused_{a}", p, rule), "mvn_iso", D2)
+                 for p in NEW_PROPOSALS]
+        team += [lib(_build.library(f"fused_{a}", "Normal", dr), "mvn_iso",
+                     D2) for dr in _build.DRAWS]
+        team += [lib(v, "mvn_iso", d) for d in WIDER_EDGES]
+        team += [lib(_build.library(f"fused_{a}", "Normal", "bm"), "mvn_iso",
+                     d) for d in WIDER_EDGES if d % 2]
+        team.append(_build.route(_build.library(
+            f"fused_{a}", "Normal", resolve_normal_impl(a, 65536,
+                                                        "super_funnel")),
+            sf_wider)[0])
+        names += team
+        if a == "pt":   # the cluster builds the geometry takes
+            names += [_build.cluster_lib(lib(v, k, D2)) for k in (
+                "mvn_iso", "mvn_full", "iid_gamma", "iid_beta")]
+            names += [_build.cluster_lib(lib(v, k, D4))
+                      for k in WIDER_KINDS_4092]
+            names.append(_build.cluster_lib(lib(_build.library(
+                "fused_pt", "Laplace", rule), "mvn_iso", D2)))
+    names += [_build.ladder_lib(k, d) for k, d in (
+        ("mvn_full", D2), ("mvn_iso", D2), ("mvn_iso", D4))]
     return list(dict.fromkeys(names))
 
 
@@ -5360,46 +5955,33 @@ def main():
         f"{torch.version.cuda}; nvidia-smi name, power.limit:")
     print(card, flush=True)
 
-    # ---- 2. build
-    t0 = time.time()
-    logs = _build.build(smoke_libraries(_build))
-    build_s = time.time() - t0
-    frames = []
-    for kname, log in logs.items():
-        entries = sorted(ptxas_report.parse(log))
-        line = "; ".join(f"{n} {r} regs, {f} B stack, {sp} B spill"
-                         for n, r, f, sp in entries)
-        if kname.startswith(_build.LADDER + "."):
-            # a ladder library's loops are unrolled up to the 64 bucket,
-            # rolled above it (no gate there)
-            from rwm_pt_tpu_torch.kernels import ladder_build
-            kind, tag, *stamps = kname.split(".")[1:]
-            if stamps:
-                # phase 18c's measuring build: no entry point launches it,
-                # and its stamps cost registers (no gate)
-                say(f"phase 2 build {kname} (measuring build): {line}")
-                continue
-            dmax = int(tag[1:])
-            if dmax <= _build.BUCKETS[-1]:
-                frames += [f"{kname} {n}" for n, _, f, sp in entries
-                           if f or sp]
-            info = ladder_build.info(   # a d of this library's bucket
-                kind, dmax if dmax <= _build.BUCKETS[-1] else dmax - 4)
-            say(f"phase 2 build {kname}: {line}; {info['registers']} regs, "
-                f"{info['local_bytes']} B local; {info['blocks_per_sm']} "
-                f"blocks of {info['max_threads']} threads an SM, "
-                f"{info['sms']} SMs (a cooperative grid of "
-                f"{info['blocks_per_sm'] * info['sms']})")
-            continue
-        frames += [f"{kname} {n}" for n, _, f, sp in entries if f or sp]
-        if kname != _build.PROBES:
-            line += "; " + occupancy(   # SuperFunnel: its ladder's T = 8
-                torch, _build, kname,
-                T=8 if ".super_funnel." in kname else
-                50 if _build.is_cluster(kname) else 10)
-        say(f"phase 2 build {kname}: {line}")
+    # ---- 2. build: the thread-per-state, ladder and probe libraries first,
+    # all at once; the warp libraries (d > 64, phases 16-22) in the
+    # background of phases 3-15, BACKGROUND_NVCC at a time (the host's
+    # other cores run those phases), reported and gated before phase 16
+    t_build = time.time()
+    names = smoke_libraries(_build)
+    late = [n for n in names if _build.is_warp(n)]
+    logs = _build.build([n for n in names if n not in late])
+    build_s = time.time() - t_build
+    background = {"logs": {}}
+
+    def build_late():
+        from concurrent.futures import ThreadPoolExecutor
+        try:   # one library a worker, BACKGROUND_NVCC in flight
+            with ThreadPoolExecutor(BACKGROUND_NVCC) as pool:
+                for got in pool.map(lambda n: _build.build([n]), late):
+                    background["logs"].update(got)
+        except Exception as e:   # reported at the join, before phase 16
+            background["error"] = e
+        background["s"] = time.time() - t_build
+    warp_build = threading.Thread(target=build_late)
+    warp_build.start()
+    report_build(torch, _build, ptxas_report, logs)
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
-        f"target kind and register bucket) in {build_s:.1f} s")
+        f"target kind and register bucket) in {build_s:.1f} s; "
+        f"{len(late)} warp libraries building in the background of phases "
+        f"3-15")
     flag_lib = _build.lib_name(_build.library(
         "fused_pt", "Normal", draws.resolve_normal_impl(
             "pt", FLAG["C"], "rosenbrock")), "rosenbrock", FLAG["dim"])
@@ -5407,20 +5989,6 @@ def main():
         f"T={FLAG['T']}, {FLAG['C']} replicas): " + occupancy(
             torch, _build, flag_lib, FLAG["dim"], FLAG["T"],
             n_params=FLAG["dim"] + 1))
-    warp_libs = [k for k in logs if k != _build.PROBES and _build.is_warp(k)
-                 and not k.startswith(_build.LADDER + ".")]
-    regs = [r for k in warp_libs for _, r, _, _ in ptxas_report.parse(logs[k])]
-    warp_main = _build.lib_name(_build.library(
-        "fused_pt", "Normal", draws.resolve_normal_impl(
-            "pt", FLAG["C"], "rosenbrock")), "rosenbrock", WARP_D)
-    say(f"phase 16a build: {len(warp_libs)} warp libraries (a team of G "
-        f"lanes a replica, d > 64; team sizes {_build.WARP_TEAMS}, RWM's "
-        f"{_build.RWM_WARP_TEAMS}), "
-        f"{min(regs)}-{max(regs)} registers; {warp_main} "
-        f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
-            torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
-    if frames:
-        fail(f"a kernel has a stack frame or spills: {frames}")
 
     zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
     zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=dev)  # noqa
@@ -5607,12 +6175,34 @@ def main():
     say(f"phases 11-13 {time.time() - t0:.1f} s")
     kernels.extend(phase_14(torch, gen, {r["name"] for r in kernels}))
     phase_15(torch)
+    t0 = time.time()
+    warp_build.join()
+    if "error" in background:
+        fail(f"phase 2 background build: {background['error']}")
+    say(f"phase 2 build, the warp libraries: {len(late)} in "
+        f"{background['s']:.1f} s from the start of phase 2, "
+        f"{BACKGROUND_NVCC} nvcc at a time (waited {time.time() - t0:.1f} s "
+        f"for them after phase 15)")
+    warp_logs = background["logs"]
+    report_build(torch, _build, ptxas_report, warp_logs)
+    regs = [r for k in warp_logs for _, r, _, _ in ptxas_report.parse(
+        warp_logs[k])]
+    warp_main = _build.lib_name(_build.library(
+        "fused_pt", "Normal", draws.resolve_normal_impl(
+            "pt", FLAG["C"], "rosenbrock")), "rosenbrock", WARP_D)
+    say(f"phase 16a build: {len(warp_logs)} warp libraries (a team of G "
+        f"lanes a replica, d > 64; team sizes {_build.WARP_TEAMS}, RWM's "
+        f"{_build.RWM_WARP_TEAMS}), "
+        f"{min(regs)}-{max(regs)} registers; {warp_main} "
+        f"at d={WARP_D}, T={FLAG['T']}: " + occupancy(
+            torch, _build, warp_main, WARP_D, FLAG["T"], n_params=WARP_D + 1))
     kernels.extend(phase_16(torch, gen))
     kernels.extend(phase_17(torch, gen))
     kernels.extend(phase_18(torch, gen))
     kernels.extend(phase_19(torch, card))
     kernels.extend(phase_20(torch, gen))
     kernels.extend(phase_21(torch, gen))
+    kernels.extend(phase_22(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")
     print(card, flush=True)

@@ -107,8 +107,8 @@ TARGET_KINDS = {"rosenbrock": 0, "mvn_iso": 1, "mvn_full": 2,
                 "hypercube": 8, "iid_gamma": 9, "iid_beta": 10,
                 "neal_funnel": 11, "super_funnel": 12}
 BUCKETS = (8, 16, 32, 64)    # register buckets: a thread's d <= DMAX floats
-WARP_BUCKETS = (128, 256, 512, 1024)   # warp buckets: d + 4 <= DMAX slots
-#                                        (warp.cuh)
+WARP_BUCKETS = (128, 256, 512, 1024, 2048, 4096)   # warp buckets: d + 4 <=
+#                                                    DMAX slots (warp.cuh)
 PROBES = "draw_probes"       # the probe kernels' library (csrc/draw_probes.cu)
 LADDER = "ladder_build"      # the ladder builder's source (csrc/ladder_build.cu)
 # Blocks of a kernel's launch bound (PT: 320 threads, RWM: 128) that an SM
@@ -174,11 +174,12 @@ _ENTRIES = {
              "rwm_pt_fast_log": [_P, _P, ctypes.c_int64, _P]},
     # params, n_params, sparams, d, N, key0, key1, rate, beta_min, tol,
     # initial_pn, pn_step, pn_lo, pn_hi, max_pn, fail_tol, max_T, bf16,
-    # trace_cap, tile_sums, ctl, out, stream | shared, out (5 ints)
+    # trace_cap, tile_sums, ctl, full, out, stream | n_params, d, out (6
+    # ints)
     LADDER: {"rwm_pt_ladder_build":
              [_P, _I, _P, _I, _I, _U, _U, _D, _D, _D, _D, _P, _D, _D, _I, _D,
-              _I, _I, _I, _P, _P, _P, _P],
-             "rwm_pt_ladder_build_info": [_I, _P]},
+              _I, _I, _I, _P, _P, _P, _P, _P],
+             "rwm_pt_ladder_build_info": [_I, _I, _P]},
 }
 # the warp kernels: PT takes the same arguments, the team size G in
 # runtime_r's place and the blocks a cluster after it (0: one block a
@@ -222,8 +223,11 @@ def warp_bucket(dim: int) -> int:
             return b
     raise NotImplementedError(
         f"fused kernels compile dims up to {MAX_DIM}, the {WARP_BUCKETS[-1]}"
-        f"-slot warp bucket; dim={dim} needs a larger bucket (ROADMAP "
-        f"Queue A item 15, the remainder above d = {MAX_DIM})")
+        f"-slot warp bucket; dim={dim} needs the {2 * WARP_BUCKETS[-1]}-"
+        f"slot bucket, whose rows ({8 * WARP_BUCKETS[-1] // 1024} KB each, "
+        f"two or three a rung-team) and staged parameters leave a block too "
+        f"few rungs for a ladder (ROADMAP Queue A item 15, the remainder "
+        f"above d = {MAX_DIM})")
 
 
 def lib_name(variant: str, kind: str, dim: int, warp: bool | None = None,
@@ -605,7 +609,8 @@ PT_MAX_REPLICAS = 32         # csrc/fused_pt.cu: kMaxReplicas
 RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
 # warp bucket -> the warps a block of csrc/fused_pt_warp.cu's one-warp-a-
 # state instantiation (G = 32) takes, its launch bound / 32
-PT_WARP_MAX_WARPS = {128: 32, 256: 16, 512: 16, 1024: 16}
+PT_WARP_MAX_WARPS = {128: 32, 256: 16, 512: 16, 1024: 16, 2048: 16,
+                     4096: 16}
 PT_TEAM_THREADS = 512        # fused_pt_warp.cu's launch bound below G = 32
 RWM_WARP_THREADS = 256       # csrc/fused_rwm_warp.cu: kThreads
 PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
@@ -778,8 +783,12 @@ TEAMS = (4, 8, 16, 32)       # the team sizes csrc/warp.cuh's layout takes
 # lost) and one warp a state for the grids that fill no SM (measured with
 # scripts/bench_torch_warp.py); above d = 252, where a state's rows (2 KB a
 # row in the 512 bucket, 4 KB in the 1024 one) cap the states an SM holds,
-# G = 16 and 32
-WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32)}
+# G = 16 and 32; in the 2048 and 4096 buckets one warp a state alone: a
+# state's rows (8 and 16 KB a row) leave G = 16 half G = 32's warps an SM
+# at T = 10 (5 against 10 at d = 2000), so choose_team's warps rule never
+# takes it, and its pitch (the bucket plus 16 words) holds no more rungs
+WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32),
+              2048: (32,), 4096: (32,)}
 # warp bucket -> the RWM libraries' team sizes where they differ from
 # WARP_TEAMS: in the wide buckets one warp a chain alone.  Forced in turns
 # on an H100 (scripts/bench_torch_warp.py --rwm-teams), G = 16 ran 2-9 %
@@ -1282,7 +1291,7 @@ class Shard(NamedTuple):
 
 
 # ---------------------------------------------------------------- targets
-MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (1020)
+MAX_DIM = WARP_BUCKETS[-1] - 4   # the largest d a warp bucket holds (4092)
 class RungsFit(NamedTuple):
     """The most rungs a fused PT launch takes (``rungs``) and the layout
     that sets them (``layout``, for the refusals' messages)."""
@@ -1333,8 +1342,11 @@ def rungs_fit(dim: int, kind: str | None = None, proposal: str = "Normal",
       which one block's launch never beats), at the warp bucket's team
       size that takes the most.
 
-    At least 64 rungs at every d <= :data:`MAX_DIM` for every kind and
-    proposal (tests/test_torch_rungs.py)."""
+    At least 64 rungs at every d <= 1020 and at least 24 at every d <=
+    :data:`MAX_DIM` (4092: three 16 KB rows a rung-team and up to 48 KB of
+    staged parameters leave a block of the 4096 bucket three rung-teams)
+    for every kind and proposal (tests/test_torch_rungs.py,
+    tests/test_torch_wider.py)."""
     if kind is None:
         return min((rungs_fit(dim, k, proposal, n_params)
                     for k in TARGET_KINDS), key=lambda f: f.rungs)

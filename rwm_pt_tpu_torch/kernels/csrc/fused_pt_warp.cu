@@ -3,7 +3,7 @@
 //
 // Replaces: rwm_pt_tpu/kernels/pallas_pt.py::_make_kernel (:107-148) and
 // _make_record_kernel (:151-222) with their body _pt_body_fn (:41-96), in
-// their 64 < d <= 1020 configuration (the Pallas kernel runs at any d and
+// their 64 < d <= 4092 configuration (the Pallas kernel runs at any d and
 // only shrinks its VMEM block as d grows, :31-38).  csrc/fused_pt.cu keeps
 // d <= 64 at one thread a (replica, rung); above that a thread's proposal
 // no longer fits its registers.
@@ -31,10 +31,13 @@
 // d = 100 main shape, 8 in the 256 bucket, 16 in the 512 bucket) and keeps
 // 16 warps an SM (in the 1024 bucket a state's 8 KB of rows leave G = 16
 // ten: G = 32 there), and G = 32 for grids that leave the card short of
-// warps.
+// warps.  The 2048 and 4096 buckets hold G = 32 alone (16 and 32 KB rows:
+// at d = 2000 and T = 10 one replica's ten rung-teams fill a block, 10
+// warps an SM; at d = 4000 every kind runs over a cluster).
 //
 // One library per (proposal, draw, target kind, warp bucket DMAX = 128,
-// 256, 512 or 1024 slots, d + 4 <= DMAX) from this source, holding the
+// 256, 512, 1024, 2048 or 4096 slots, d + 4 <= DMAX) from this source,
+// holding the
 // team sizes of RWM_PT_TEAMS (a mask of G values) as instantiations; the
 // launcher takes G.  Everything of csrc/fused_pt.cu carries over at the
 // team level: MH on

@@ -2,7 +2,7 @@
 // team of G lanes a chain, above 64 dimensions.
 //
 // Replaces: rwm_pt_tpu/kernels/pallas_rwm.py::_make_kernel (:259-321) and
-// _make_record_kernel (:324-414) in their 64 < d <= 1020 configuration
+// _make_record_kernel (:324-414) in their 64 < d <= 4092 configuration
 // (the Pallas kernel runs at any d and only shrinks its VMEM block as d
 // grows, :225-234).  csrc/fused_rwm.cu keeps d <= 64 at one thread a
 // chain; above that a thread's proposal no longer fits its registers.
@@ -24,12 +24,14 @@
 // wave of blocks: G = 4 at the d = 100 main shape, 8 in the 256 bucket,
 // and from 16,384 chains at d = 100) and keeps 16 warps an SM, and G = 32
 // where a smaller team would leave the card short of warps, as the
-// reference's 512-chain campaigns do.  The 512 and 1024 buckets' libraries
-// hold G = 32 alone (kernels/_build.py::RWM_WARP_TEAMS: G = 16 measured
-// slower at every grid there).
+// reference's 512-chain campaigns do.  The 512 to 4096 buckets' libraries
+// hold G = 32 alone (kernels/_build.py::RWM_WARP_TEAMS, WARP_TEAMS: G = 16
+// measured slower at every grid of the 512 and 1024 buckets).  At d = 4000
+// a block holds 6 chains of the iso MVN (32 KB of rows each), 4 of the
+// full MVN (three rows): 6 and 4 warps an SM, latency-bound.
 //
 // One library per (proposal, draw, target kind, warp bucket DMAX = 128,
-// 256, 512 or 1024 slots, d + 4 <= DMAX) from this source
+// 256, 512, 1024, 2048 or 4096 slots, d + 4 <= DMAX) from this source
 // (-DRWM_PT_PROPOSAL, -DRWM_PT_NORMAL, -DRWM_PT_TARGET, -DRWM_PT_DMAX),
 // holding the team sizes of RWM_PT_TEAMS (a mask of G values) as
 // instantiations; every proposal and normal draw of csrc/fused_rwm.cu,

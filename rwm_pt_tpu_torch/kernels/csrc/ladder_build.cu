@@ -4,7 +4,7 @@
 // Monte-Carlo swap estimates and its decisions, with no host round trip.
 // Each library is built for one target kind (-DRWM_PT_TARGET, the 11
 // kinds with a direct sampler) and one bucket (-DRWM_PT_DMAX: 8, 16, 32 or
-// 64, whose loops are unrolled whole; 128, 256, 512 or 1024, rolled).
+// 64, whose loops are unrolled whole; 128 to 4096, rolled).
 //
 // A probe of (beta, beta*) estimates a_hat = mean over n < N of
 // min(1, exp((beta - beta*)(lp(x*_n) - lp(x_n)))), x*_n drawn from the
@@ -61,6 +61,25 @@
 //   Rosenbrocks' scales, the scaled MVN's reciprocals), and the mixtures'
 //   quotients by sqrt(beta) and s_i take div_by, a product and two FMAs
 //   that round as the IEEE quotient does.
+// * The full-covariance MVN above the 16 bucket (kFullWarp) gives a side's
+//   sample to a warp, not a lane: its d x d work a sample would otherwise
+//   sit in one thread with its sample in local memory.  Once a probe the
+//   grid makes each side's S = L / sqrt(beta) into a global table,
+//   column-major (the lower triangle: L is a Cholesky factor, and its zero
+//   upper triangle adds exact zeros), and once a build cov_inv's
+//   transpose; then each warp takes side-samples grid-stride: its lanes
+//   draw z (Philox block k by lane k mod 32) into the warp's row in shared
+//   memory, split the rows i of x = mean + S z (row i = 32 r + lane of a
+//   chunk of 256, eight a lane, x_i summed over j in order, z_j read from
+//   the row by every lane alike), in chunks from the last, so that x - mean
+//   replaces the z's no later chunk reads; then the rows of y =
+//   cov_inv (x - mean) likewise (y_i over j in order), and lane 0 sums
+//   quad over i in index order.  Every product and sum is the one-lane
+//   form's, in its order, so the lp is bit for bit the one-lane form's
+//   (a lane a side-sample, its x in local memory); the lps go to a
+//   global buffer, and after a grid barrier the warp-units read them in
+//   place of drawing.  Two grid barriers a probe (table, lps) beside the
+//   probe's own.
 
 // A sample's draws use the plain version's arithmetic, each product,
 // quotient and sum rounded on its own (__fmul_rn, __fdiv_rn, __fadd_rn:
@@ -107,14 +126,21 @@ constexpr int kMinD = DMAX <= 8     ? 1
 // in the rolled ones
 constexpr int kThreads = kRolled ? 256 : 512;
 constexpr int kWarps = kThreads / 32;
-// blocks of the launch bound: 64 registers a thread (the full MVN, its
-// d x d products unrolled up to the 16 bucket, 128)
+// the kinds whose quotients take div_by where the build allows it
+constexpr bool kQuotients =
+    KIND == TARGET_THREE_MIXTURE || KIND == TARGET_ROUGH_CARPET;
+// blocks of the launch bound: 64 registers a thread (128: the full MVN in
+// the unrolled buckets, its d x d products unrolled up to the 16 bucket,
+// and the mixtures' 32 and 64 buckets, whose unrolled quotients spilled
+// 8-72 B at 64)
 constexpr int kMinBlocks =
-    KIND == TARGET_MVN_FULL && !kRolled ? 1 : 2048 / kThreads / 2;
+    (KIND == TARGET_MVN_FULL || (kQuotients && DMAX > 16)) && !kRolled
+        ? 1
+        : 2048 / kThreads / 2;
 // the full MVN's d x d products unrolled whole up to the 16 bucket (its
 // x and z in registers); above it d^2 Philox-fed FMAs a sample make the
-// whole unrolling take minutes to compile, and its arrays stay in local
-// memory
+// whole unrolling take minutes to compile, and a warp takes a side-sample
+// (kFullWarp)
 constexpr int kFullUnroll = DMAX <= 16 ? DMAX : 1;
 // the unrolled buckets' first coordinates drawn before the sum (kPre) and
 // Philox blocks made up front (kUp), all of them below kMinD
@@ -124,9 +150,10 @@ constexpr int kUp = kRolled ? 0 : ((kMinD + 3) / 4 < 4 ? (kMinD + 3) / 4 : 4);
 // probe's start: the scaled MVN's reciprocals 1 / (s_i sqrt(beta)), the
 // full MVN's L_ij / sqrt(beta) up to the 16 bucket
 constexpr bool kFullTable = KIND == TARGET_MVN_FULL && DMAX <= 16;
-constexpr int kRowWords = KIND == TARGET_SCALED_MVN ? DMAX
-                        : kFullTable              ? DMAX * DMAX
-                                                  : 1;
+// the full MVN above it: a warp a side-sample, S and cov_inv^T in global
+// tables (the header)
+constexpr bool kFullWarp = KIND == TARGET_MVN_FULL && !kFullTable;
+constexpr int kChunk = 256;           // rows a pass of a warp: 8 a lane
 constexpr uint32_t kLadderTag = 0x80000000u;
 constexpr uint32_t kGammaTag = 0x40000000u;
 constexpr unsigned kFull = 0xffffffffu;
@@ -322,7 +349,7 @@ __device__ __forceinline__ float mvn_full_lp(const float (&x)[DMAX], int d,
 // A side's per-probe constants, functions of its beta made once a probe by
 // each block's search thread (side_consts), so that no sample divides by
 // them: sb = sqrt(beta) and, by kind, k0 and k1 (below); the scaled and
-// the full MVN's go to a shared row (kRowWords)
+// the full MVN's go to a shared row (row_words)
 struct SideConst {
   float beta, sb, k0, k1;
 };
@@ -373,7 +400,7 @@ __device__ __forceinline__ SideConst side_consts(float beta,
 // sum's: the unrolled buckets draw kPre coordinates before summing).
 // p: the log-density's parameters (kernels/_build.py::kernel_target), sp:
 // the sampler's (kernels/ladder_build.py::sampler_params), k the side's
-// constants, rs its per-probe row (kRowWords), ys the reciprocals of the
+// constants, rs its per-probe row (row_words), ys the reciprocals of the
 // mixtures' divisors s_i and kFast whether their quotients take div_by.
 template <bool kFast>
 __device__ __forceinline__ float side_lp(const Side& s, int d,
@@ -432,12 +459,10 @@ __device__ __forceinline__ float side_lp(const Side& s, int d,
           });
       return -0.5f * quad + p[0];
     } else if constexpr (KIND == TARGET_MVN_FULL) {
+      // (kFullTable: up to the 16 bucket, unrolled whole, x in registers)
       // mean + z (L / sqrt(beta))^T, each row's product accumulated in
-      // order of j: by columns, so that z_j is used as it is drawn (in the
-      // rolled buckets x lies in local memory: 4 KB a thread in the 1024
-      // bucket, d^2 of its words read and written a sample)
+      // order of j: by columns, so that z_j is used as it is drawn
       float x[DMAX];
-      const float* L = sp + d;
       const int m = DMAX <= 16 ? DMAX : d;   // as in mvn_full_lp
 #pragma unroll (kFullUnroll)
       for (int i = 0; i < m; ++i)
@@ -451,8 +476,7 @@ __device__ __forceinline__ float side_lp(const Side& s, int d,
 #pragma unroll (kFullUnroll)
             for (int i = 0; i < m; ++i) {
               if (i < d) {
-                const float sc =
-                    kFullTable ? rs[i * d + j] : __fdiv_rn(L[i * d + j], sb);
+                const float sc = rs[i * d + j];
                 x[i] = fmaf(zj, bf16 ? bf16_round(sc) : sc, x[i]);
               }
             }
@@ -641,19 +665,123 @@ __device__ __forceinline__ float side_lp(const Side& s, int d,
   }
 }
 
-// the kinds whose quotients take div_by where the build allows it
-constexpr bool kQuotients =
-    KIND == TARGET_THREE_MIXTURE || KIND == TARGET_ROUGH_CARPET;
+// Words of a side's per-probe row in shared memory (made by the block at
+// each probe's start): the scaled MVN's reciprocals 1 / (s_i sqrt(beta)),
+// the full MVN's L_ij / sqrt(beta) up to the 16 bucket
+__host__ __device__ constexpr int row_words(int d) {
+  return KIND == TARGET_SCALED_MVN ? d : kFullTable ? d * d : 0;
+}
+// Words of a warp's rows in the full MVN's warp form: the sample's d words
+// (z, then x - mean) and a chunk's y
+__host__ __device__ constexpr int warp_row_words(int d) {
+  return kFullWarp ? (d + 3) / 4 * 4 + kChunk : 0;
+}
+// Words of a block's dynamic shared memory: the two sides' rows | the
+// mixtures' reciprocals of their divisors (d) | the warps' rows of the
+// full MVN's warp form | the staged log-density parameters (`staged`
+// words, 0 where they are read from global memory).  The rows come first,
+// so that a kind's one row starts at the base (no register holds it)
+__host__ __device__ constexpr int shared_words(int staged, int d) {
+  return 2 * row_words(d) + (kQuotients ? d : 0) +
+         kWarps * warp_row_words(d) + staged;
+}
+
+// The full MVN's warp form (kFullWarp; the header): the log-density of side
+// sample `s` tempered at the table's beta, in every lane, from the side's
+// table St (S_ij at j d + i, j <= i) and cov_inv^T (cT: cov_inv_ij at
+// j d + i, bf16-rounded where bf16), in the warp's rows `row` (d words)
+// and `yb` (kChunk).  x_i = mean_i + sum_{j <= i} z_j S_ij and y_i =
+// sum_j cov_inv_ij (x_j - mean_j), each over j in order, and quad over i
+// in order: the one-lane form's products and sums.
+__device__ __forceinline__ float full_warp_lp(const Side& s, int d,
+                                           const float* __restrict__ St,
+                                           const float* __restrict__ cT,
+                                           const float* __restrict__ p,
+                                           const float* __restrict__ sp,
+                                           float* row, float* yb, bool bf16) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();   // the rows' last readers are done
+#pragma unroll 1
+  for (int k = lane; 4 * k < d; k += 32) {   // z: Philox block k by lane k
+    const uint4 b = s.block(k);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int i = 4 * k + w;
+      if (i < d) {
+        const float z = normal_of(philox_word(b, w));
+        row[i] = bf16 ? bf16_round(z) : z;
+      }
+    }
+  }
+  __syncwarp();
+  const int n_chunks = (d + kChunk - 1) / kChunk;
+  // x - mean, from the last chunk of rows: chunk c reads z_j, j < its
+  // last row, so its own rows' words may then take x_i - mean_i
+#pragma unroll 1
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int i0 = c * kChunk;
+    const int j_end = min(d, i0 + kChunk);
+    float acc[kChunk / 32];
+#pragma unroll
+    for (int r = 0; r < kChunk / 32; ++r) acc[r] = 0.0f;
+#pragma unroll 2
+    for (int j = 0; j < j_end; ++j) {
+      const float z = row[j];
+      const float* col = St + (size_t)j * d;
+#pragma unroll
+      for (int r = 0; r < kChunk / 32; ++r) {
+        const int i = i0 + 32 * r + lane;
+        if (i < d && j <= i) acc[r] = fmaf(z, __ldcg(col + i), acc[r]);
+      }
+    }
+    __syncwarp();   // every lane's reads of this chunk's z are done
+#pragma unroll
+    for (int r = 0; r < kChunk / 32; ++r) {
+      const int i = i0 + 32 * r + lane;
+      if (i < d) row[i] = __fadd_rn(sp[i], acc[r]) - p[1 + i];
+    }
+    __syncwarp();
+  }
+  // y = cov_inv (x - mean) by chunks of rows; quad in lane 0, in order
+  float quad = 0.0f;
+#pragma unroll 1
+  for (int c = 0; c < n_chunks; ++c) {
+    const int i0 = c * kChunk;
+    float acc[kChunk / 32];
+#pragma unroll
+    for (int r = 0; r < kChunk / 32; ++r) acc[r] = 0.0f;
+#pragma unroll 2
+    for (int j = 0; j < d; ++j) {
+      const float xc = bf16 ? bf16_round(row[j]) : row[j];
+      const float* col = cT + (size_t)j * d;
+#pragma unroll
+      for (int r = 0; r < kChunk / 32; ++r) {
+        const int i = i0 + 32 * r + lane;
+        if (i < d) acc[r] = fmaf(col[i], xc, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kChunk / 32; ++r) yb[32 * r + lane] = acc[r];
+    __syncwarp();
+    if (lane == 0) {
+      const int n = min(kChunk, d - i0);
+      for (int k = 0; k < n; ++k) quad = fmaf(row[i0 + k], yb[k], quad);
+    }
+    __syncwarp();
+  }
+  return -0.5f * quad + p[0];
+}
 
 // The term of this lane's sample n (both lanes of the sample call it: lane
-// j draws side 0 at bs, lane j + 16 side 1 at bc; k: the sides' constants)
+// j draws side 0 at bs, lane j + 16 side 1 at bc; k: the sides' constants;
+// the full MVN's warp form reads the sides' lps from `lps`, side-major)
 // as a double in lane j (0 where n >= N, and in lanes j + 16): min(1,
 // exp((bc - bs)(lp(x*) - lp(x)))) in float32, a NaN staying NaN
 // (torch.clamp_max's rule, not fminf's)
 __device__ __forceinline__ double sample_term(
     int n, int N, int probe, const SideConst (&k)[2], int d,
     const float* __restrict__ p, const float* __restrict__ sp,
-    const float (&rs)[2][kRowWords], const float* ys, bool fast, bool bf16,
+    const float* rs, const float* ys, const float* lps, bool fast, bool bf16,
     uint32_t k0, uint32_t k1) {
   const int side = (threadIdx.x >> 4) & 1;
   float lp = 0.0f;
@@ -661,11 +789,14 @@ __device__ __forceinline__ double sample_term(
     const Side s{(uint32_t)n, kLadderTag | (uint32_t)side << 20,
                  (uint32_t)probe, k0, k1};
     const SideConst ks = k[side];
-    if constexpr (kQuotients) {
-      lp = fast ? side_lp<true>(s, d, ks, p, sp, rs[side], ys, bf16)
-                : side_lp<false>(s, d, ks, p, sp, rs[side], ys, bf16);
+    const float* const r = rs + side * row_words(d);
+    if constexpr (kFullWarp) {
+      lp = __ldcg(lps + (size_t)side * N + n);
+    } else if constexpr (kQuotients) {
+      lp = fast ? side_lp<true>(s, d, ks, p, sp, r, ys, bf16)
+                : side_lp<false>(s, d, ks, p, sp, r, ys, bf16);
     } else {
-      lp = side_lp<false>(s, d, ks, p, sp, rs[side], ys, bf16);
+      lp = side_lp<false>(s, d, ks, p, sp, r, ys, bf16);
     }
   }
   const float other = __shfl_xor_sync(kFull, lp, 16);
@@ -850,6 +981,8 @@ struct Args {
   uint32_t key0, key1;
   double* sums;           // the tiles' sums, their partials, their counts
   Control* ctl;
+  float* full;            // kFullWarp: S's tables (2 d^2), cov_inv^T (d^2),
+                          // the sides' lps (2 N)
   double* out;            // [T, probes, betas (max_T), trace (trace_cap)]
   Settings set;
   Search init;
@@ -889,12 +1022,10 @@ __device__ __forceinline__ double slot_sum(const double* sums, int n_tiles,
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     ladder_build_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float s_params[];
+  extern __shared__ float smem[];   // shared_words(staged, d)
   __shared__ double red[2][kUnits];
   __shared__ Search s;   // this block's copy of the search
   __shared__ SideConst sh_k[2];
-  __shared__ float sh_row[2][kRowWords];
-  __shared__ float sh_ys[kQuotients ? DMAX : 1];
   __shared__ int sh_done, sh_probe, sh_last;
   cg::grid_group grid = cg::this_grid();
   const float* p = a.params;
@@ -902,6 +1033,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const Settings& c = a.set;
   const float* sp = a.sparams;
   const int d = a.d;
+  float* const sh_row = smem;   // [side][i]
+  float* const sh_ys = sh_row + 2 * row_words(d);
+  // the full MVN's warp form: this warp's rows, the tables, the lps
+  float* const wrow = sh_ys + (kQuotients ? d : 0) + w * warp_row_words(d);
+  float* const s_params = sh_ys + (kQuotients ? d : 0) +
+                          kWarps * warp_row_words(d);
+  const size_t dd = (size_t)d * d;
+  float* const f_table = kFullWarp ? a.full : nullptr;   // [side][j][i]
+  float* const f_cinv_t = kFullWarp ? a.full + 2 * dd : nullptr;   // [j][i]
+  float* const f_lps = kFullWarp ? a.full + 3 * dd : nullptr;   // [side][n]
   Control* g = a.ctl;
   const int n_tiles = (a.N + kTile - 1) / kTile;
   double* const sums2 = a.sums;   // (2, n_tiles): probe p's in half p & 1
@@ -930,6 +1071,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int i = blockIdx.x * kThreads + tid; i < n_tiles;
          i += gridDim.x * kThreads)
       counts[i] = 0;
+  }
+  if constexpr (kFullWarp) {
+    // cov_inv^T (its operands' bfloat16 rounding where bf16), read
+    // coalesced by the rows' lanes
+    const float* cinv = a.params + 1 + d;
+    for (size_t e = (size_t)blockIdx.x * kThreads + tid; e < dd;
+         e += (size_t)gridDim.x * kThreads) {
+      const size_t i = e / d, j = e - i * d;
+      const float v = cinv[e];
+      f_cinv_t[j * d + i] = a.bf16 ? bf16_round(v) : v;
+    }
   }
   const bool fast = __syncthreads_and(ok);
   const bool writer = blockIdx.x == 0;
@@ -965,7 +1117,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       // the reciprocals 1 / (s_i sqrt(beta)) of both sides
       for (int i = tid; i < 2 * d; i += kThreads) {
         const int side = i >= d, j = i - side * d;
-        sh_row[side][j] = __fdiv_rn(1.0f, __fmul_rn(sp[j], sh_k[side].sb));
+        sh_row[side * d + j] =
+            __fdiv_rn(1.0f, __fmul_rn(sp[j], sh_k[side].sb));
       }
       __syncthreads();
     } else if constexpr (kFullTable) {
@@ -973,20 +1126,48 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       // mean)
       for (int i = tid; i < 2 * d * d; i += kThreads) {
         const int side = i >= d * d, j = i - side * d * d;
-        sh_row[side][j] = __fdiv_rn(sp[d + j], sh_k[side].sb);
+        sh_row[side * d * d + j] = __fdiv_rn(sp[d + j], sh_k[side].sb);
       }
       __syncthreads();
     }
     if (sh_done) break;
     const int probe = sh_probe;
     double* const tile_sums = sums2 + (probe & 1) * n_tiles;
+    if constexpr (kFullWarp) {
+      // each side's S_ij = L_ij / sqrt(beta), j <= i, column-major (the
+      // sampler's L after the mean, read by rows); every block has
+      // arrived at the last probe, so no warp reads the last table
+      const float* L = sp + d;
+      for (size_t e = (size_t)blockIdx.x * kThreads + tid; e < 2 * dd;
+           e += (size_t)gridDim.x * kThreads) {
+        const int side = e >= dd;
+        const size_t f = e - side * dd, i = f / d, j = f - i * d;
+        if (j <= i) {
+          const float v = __fdiv_rn(L[f], sh_k[side].sb);
+          f_table[side * dd + j * d + i] = a.bf16 ? bf16_round(v) : v;
+        }
+      }
+      grid.sync();
+      // the side-samples' lps, a warp each, grid-stride
+      for (int u = blockIdx.x * kWarps + w; u < 2 * a.N;
+           u += gridDim.x * kWarps) {
+        const int side = u >= a.N, n = u - side * a.N;
+        const Side sd{(uint32_t)n, kLadderTag | (uint32_t)side << 20,
+                      (uint32_t)probe, a.key0, a.key1};
+        const float lp = full_warp_lp(sd, d, f_table + side * dd, f_cinv_t,
+                                      p, sp, wrow, wrow + warp_row_words(d)
+                                      - kChunk, a.bf16);
+        if (lane == 0) f_lps[u] = lp;
+      }
+      grid.sync();
+    }
     if constexpr (!kRolled) {
       // whole tiles: sample 16 (lane & 15) + w of the tile in warp (unit) w
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int n = tile * kTile + (lane & 15) * kUnits + w;
         const double v = tree16(sample_term(n, a.N, probe, sh_k, d, p, sp,
-                                            sh_row, sh_ys, fast, a.bf16,
-                                            a.key0, a.key1));
+                                            sh_row, sh_ys, f_lps, fast,
+                                            a.bf16, a.key0, a.key1));
         if (lane == 0) red[buf][w] = v;
         __syncthreads();
         if (w == 0) {
@@ -1004,8 +1185,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const int tile = u / kUnits;
         const int n = tile * kTile + (lane & 15) * kUnits + u % kUnits;
         const double v = tree16(sample_term(n, a.N, probe, sh_k, d, p, sp,
-                                            sh_row, sh_ys, fast, a.bf16,
-                                            a.key0, a.key1));
+                                            sh_row, sh_ys, f_lps, fast,
+                                            a.bf16, a.key0, a.key1));
         int last = 0;
         if (lane == 0) {
           parts[u] = v;
@@ -1080,9 +1261,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// The launch's dynamic shared memory: shared_words of the staged
+// parameters (n_params words where they take at most 32 KB)
+int shared_bytes(int n_params, int d) {
+  const int staged = 4 * n_params <= 32 * 1024 ? n_params : 0;
+  return 4 * shared_words(staged, d);
+}
+
+// Blocks an SM holds at `shared` bytes of dynamic shared memory (the
+// kernel's attribute set to them first, so that above 48 KB it may take
+// them) and the SMs
 int blocks_per_sm(int shared, int& per_sm, int& sms) {
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = cudaFuncSetAttribute(
+      ladder_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
@@ -1104,26 +1298,30 @@ int blocks_per_sm(int shared, int& per_sm, int& sms) {
 // the tile sums' two halves, their partials, their counts), ctl (256
 // bytes), out (2 + max_T + trace_cap doubles: T, the probes, the ladder
 // with beta_min in its unused slots, the first trace_cap probes'
-// estimates).  The grid: the
-// blocks an SM holds times the SMs, at most the blocks the probe's tiles
-// (units) fill; one cooperative launch.
+// estimates), full (the full MVN above the 16 bucket: 3 d^2 + 2 N floats,
+// the tables and the lps; else unused).  The grid: the blocks an SM holds
+// times the SMs, at most the blocks the probe's tiles (units; the full
+// MVN's warp form: its side-samples, a warp each) fill; one cooperative
+// launch.
 extern "C" int rwm_pt_ladder_build(
     const float* params, int n_params, const float* sparams, int d, int N,
     uint32_t key0, uint32_t key1, double rate, double beta_min, double tol,
     double initial_pn, const double* pn_step, double pn_lo, double pn_hi,
     int max_pn, double fail_tol, int max_T, int bf16,
-    int trace_cap, double* sums, void* ctl, double* out, void* stream) {
-  if (d < kMinD || d > DMAX || N < 1 || max_T < 2 || trace_cap < 0)
+    int trace_cap, double* sums, void* ctl, float* full, double* out,
+    void* stream) {
+  if (d < kMinD || d > DMAX || N < 1 || max_T < 2 || trace_cap < 0 ||
+      (kFullWarp && full == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int stage_bytes = 4 * n_params;
-  const int stage = stage_bytes <= 32 * 1024;
-  const int shared = stage ? stage_bytes : 0;
+  const int stage = 4 * n_params <= 32 * 1024;
+  const int shared = shared_bytes(n_params, d);
   int per_sm = 0, sms = 0;
   int e = blocks_per_sm(shared, per_sm, sms);
   if (e) return e;
   const long long n_tiles = (N + kTile - 1) / kTile;
   const long long work =
-      kRolled ? (n_tiles * kUnits + kWarps - 1) / kWarps : n_tiles;
+      kFullWarp ? (2LL * N + kWarps - 1) / kWarps
+      : kRolled ? (n_tiles * kUnits + kWarps - 1) / kWarps : n_tiles;
   const long long room = (long long)per_sm * sms;
   Args a;
   a.params = params;
@@ -1137,6 +1335,7 @@ extern "C" int rwm_pt_ladder_build(
   a.key1 = key1;
   a.sums = sums;
   a.ctl = (Control*)ctl;
+  a.full = full;
   a.out = out;
   Settings& c = a.set;
   c.rate = rate;
@@ -1164,13 +1363,15 @@ extern "C" int rwm_pt_ladder_build(
       dim3(kThreads), args, shared, (cudaStream_t)stream);
 }
 
-// registers, local bytes, max threads a block, blocks an SM (at `shared`
-// bytes of dynamic shared memory), SMs
-extern "C" int rwm_pt_ladder_build_info(int shared, int* out) {
+// registers, local bytes, max threads a block, blocks an SM (at the
+// launch's dynamic shared memory for n_params log-density words at d
+// coordinates), SMs, those bytes
+extern "C" int rwm_pt_ladder_build_info(int n_params, int d, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, ladder_build_kernel);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, sms = 0;
+  const int shared = shared_bytes(n_params, d);
   const int r = blocks_per_sm(shared, per_sm, sms);
   if (r) return r;
   out[0] = attr.numRegs;
@@ -1178,5 +1379,6 @@ extern "C" int rwm_pt_ladder_build_info(int shared, int* out) {
   out[2] = attr.maxThreadsPerBlock;
   out[3] = per_sm;
   out[4] = sms;
+  out[5] = shared;
   return 0;
 }

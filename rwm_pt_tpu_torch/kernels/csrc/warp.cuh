@@ -8,8 +8,8 @@
 // Teams.  G (4, 8, 16 or 32, a template argument; a library instantiates
 // those of kernels/_build.py::library_teams: 4 and 32 in the 128-slot
 // bucket, 8 and 32 in the 256, 16 and 32 in the 512 and 1024, where RWM's
-// take 32 alone) divides the warp into 32 / G aligned teams of G lanes;
-// lane t = lane mod G of a team.  G = 32 is one warp a state.  A team's
+// take 32 alone, and 32 alone in the 2048 and 4096) divides the warp into
+// 32 / G aligned teams of G lanes; lane t = lane mod G of a team.  G = 32 is one warp a state.  A team's
 // shuffles (__shfl_xor_sync with m < G, __shfl_sync with width G) never
 // leave it, and every one of them is issued by all 32 lanes alike: the
 // teams of a warp follow the same control flow up to their per-state

@@ -403,8 +403,11 @@ def swap_uniforms(key: tuple[int, int], abs_step: int, dim: int,
 # ------------------------------------------------- the ladder probes' stream
 # The iterative ladder's swap-rate probes (ladders/ladders.py) draw from the
 # same Philox4x32-10 under ``seed_key(seed)``, with counters no fused run
-# uses: the fused layout's third word is a rung (< 32), a probe's carries
-# LADDER_TAG.  Block ``k`` of sample ``n`` on side ``side`` (0: the samples
+# uses: the fused layout's third word is a rung (any rung a fused launch
+# takes, up to 320 on the thread kernel, plus a shard's rung0: far below
+# 2^31), whose top bit is clear, and a probe's carries LADDER_TAG, that
+# top bit, which alone keeps the two streams apart.  Coordinate j of a
+# gamma variate takes the word's low 16 bits (d <= 4092 < 2^16).  Block ``k`` of sample ``n`` on side ``side`` (0: the samples
 # at beta*, 1: those at the current beta) of probe ``i`` (counted from 1 over
 # a build) is Philox of
 #     (k, n, LADDER_TAG | side << 20, i);

@@ -1,6 +1,6 @@
 """Fused whole-run Parallel Tempering: the CUDA kernels ``csrc/fused_pt.cu``
 (one thread a (replica, rung), d <= 64) and ``csrc/fused_pt_warp.cu`` (a
-team of G lanes a (replica, rung), 64 < d <= 1020) and their plain PyTorch
+team of G lanes a (replica, rung), 64 < d <= 4092) and their plain PyTorch
 version (port of ``rwm_pt_tpu.kernels.pallas_pt.run_pt_pallas`` with its
 cold-chain recording variant, the Normal, Laplace and UniformRadius
 proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind

@@ -1,6 +1,6 @@
 """Fused whole-run RWM: the CUDA kernels ``csrc/fused_rwm.cu`` (one thread a
 chain, d <= 64) and ``csrc/fused_rwm_warp.cu`` (a team of G lanes a
-chain, 64 < d <= 1020) and their plain PyTorch version (port of
+chain, 64 < d <= 4092) and their plain PyTorch version (port of
 ``rwm_pt_tpu.kernels.pallas_rwm.run_rwm_pallas`` with its recording variant, the Normal, Laplace and UniformRadius
 proposals, every normal draw of ``draws.NORMAL_IMPLS``, every target kind
 of ``_build.kernel_target``).

@@ -14,7 +14,8 @@ kinds with a direct sampler; a target of another kind raises
 ``launches`` under ``ladder_build.<kind>``.
 
 A build's host work is one allocation (the result and the kernel's
-workspaces, :func:`_workspace`), the launch and one read of the result:
+workspaces, :func:`_workspace`; the full MVN above the 16 bucket a second,
+its tables, :func:`full_words`), the launch and one read of the result:
 the target's parameter words and the pn-step table reach the card once and
 are kept (:func:`_words`, :func:`_pn_steps`).  :func:`probe_split`
 launches the library's measuring build instead and reads where a probe's
@@ -102,17 +103,31 @@ def ladder_kind(target) -> str:
 
 
 def info(kind: str, dim: int, n_params: int = 0) -> dict:
-    """Registers, local bytes, max threads a block, blocks an SM (with
-    ``n_params`` log-density words staged) and SMs of the library of
-    ``kind`` at ``dim``."""
+    """Registers, local bytes, max threads a block, blocks an SM, SMs and
+    the dynamic shared bytes a block of a launch of the library of ``kind``
+    at ``dim`` with ``n_params`` log-density words (staged where they take
+    at most :data:`STAGE_MAX_BYTES`), as the launcher counts them."""
     name = _build.ladder_lib(kind, dim)
-    out = (ctypes.c_int * 5)()
-    shared = 4 * n_params if 4 * n_params <= STAGE_MAX_BYTES else 0
+    out = (ctypes.c_int * 6)()
     _build.check_launch(name, _build.entry(
-        name, "rwm_pt_ladder_build_info")(shared, out))
+        name, "rwm_pt_ladder_build_info")(n_params, dim, out))
     keys = ("registers", "local_bytes", "max_threads", "blocks_per_sm",
-            "sms")
+            "sms", "shared_bytes")
     return dict(zip(keys, list(out)))
+
+
+def full_warp(kind: str, dim: int) -> bool:
+    """Whether the library of ``kind`` at ``dim`` runs the full MVN's warp
+    form (``csrc/ladder_build.cu::kFullWarp``: above the 16 bucket), which
+    takes the :func:`full_words` workspace."""
+    return kind == "mvn_full" and dim > 16
+
+
+def full_words(dim: int, n: int) -> int:
+    """Floats of the full MVN's warp-form workspace: each side's table of
+    S = L / sqrt(beta) and cov_inv's transpose (d^2 each), and the sides'
+    lps (N each)."""
+    return 3 * dim * dim + 2 * n
 
 
 def _words(target, kind: str):
@@ -211,6 +226,8 @@ def _launch(target, stamps: bool, *, target_swap_acceptance_rate: float =
     cap = max(1, min(TRACE_MAX, max_T * max_pn_adjustment_steps))
     out, sums, ctl = _workspace(n, max_T, cap, dev,
                                 1 + 4 * cap if stamps else 0)
+    full = (torch.empty(full_words(target.dim, n), dtype=torch.float32,
+                        device=dev) if full_warp(kind, target.dim) else None)
     steps = _pn_steps(float(pn_update_power), int(max_pn_adjustment_steps),
                       dev)
     k0, k1 = seed_key(seed)
@@ -223,7 +240,8 @@ def _launch(target, stamps: bool, *, target_swap_acceptance_rate: float =
                 float(pn_clamping_range[1]), int(max_pn_adjustment_steps),
                 float(convergence_failure_tolerance_factor), int(max_T),
                 int(matmul_precision == "bfloat16"), cap, sums.data_ptr(),
-                ctl.data_ptr(), out.data_ptr(), stream)
+                ctl.data_ptr(), None if full is None else full.data_ptr(),
+                out.data_ptr(), stream)
     _build.check_launch(name, rc)
     host = out.cpu()   # one read; only the words in use become floats
     T, probes = int(host[0]), int(host[1])

@@ -48,9 +48,12 @@ card's name and power limit):
   tree's again in the bench's own process after the sweep;
 * ``turns`` (with ``--parent``): every phase 18 hold (the 11 kinds at
   d = 10, N = 20,000), ThreeMixture at the harness's N = 3000, the d = 100
-  hold, the production build (N = 10^6, tolerance 1e-4, 1000 pn steps)
+  hold, the production build (N = 10^6, tolerance 1e-4, 1000 pn steps),
+  the full MVN at d = 30 (the hold's settings) and d = 500 (phase 20e's)
   and the sweep's cases, each timed parent, this, this, parent; T, probes
-  and the swap estimates compared bit for bit.
+  and the swap estimates compared bit for bit.  An earlier tree's kernel
+  that takes no full-MVN workspace is called through its own interface
+  (:func:`takes_full`).
 
 Needs the card, ``nvcc`` and ``cuobjdump``.
 """
@@ -106,23 +109,49 @@ def compile_libs(jobs):
     return built
 
 
-class Lib:
-    """A compiled ladder library, called through its C entry points."""
+# the ladder library's C entry points (kernels/_build.py::_ENTRIES), and
+# those of an earlier kernel, which takes no full-MVN workspace
+_P, _I, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_double)
+ENTRIES = {"rwm_pt_ladder_build":
+           [_P, _I, _P, _I, _I, _U, _U, _D, _D, _D, _D, _P, _D, _D, _I, _D,
+            _I, _I, _I, _P, _P, _P, _P, _P],
+           "rwm_pt_ladder_build_info": [_I, _I, _P]}
+EARLIER_ENTRIES = {
+    "rwm_pt_ladder_build": (ENTRIES["rwm_pt_ladder_build"][:21]
+                            + ENTRIES["rwm_pt_ladder_build"][22:]),
+    "rwm_pt_ladder_build_info": [_I, _P]}
 
-    def __init__(self, path):
-        from rwm_pt_tpu_torch.kernels import _build
-        self.path = path
+
+def takes_full(src):
+    """Whether the kernel source in ``src`` takes the full MVN's workspace
+    (its entry point's ``full`` argument after ``ctl``, and an info entry
+    point of n_params and d); an earlier one takes neither."""
+    with open(os.path.join(src, "ladder_build.cu")) as f:
+        return "float* full, double* out" in f.read()
+
+
+class Lib:
+    """A compiled ladder library, called through its C entry points (the
+    interface of its source, :func:`takes_full`)."""
+
+    def __init__(self, path, full):
+        self.path, self.full = path, full
         so = ctypes.CDLL(path)
-        for fn, argtypes in _build._ENTRIES[_build.LADDER].items():
+        entries = ENTRIES if full else EARLIER_ENTRIES
+        for fn, argtypes in entries.items():
             getattr(so, fn).argtypes = argtypes
             getattr(so, fn).restype = ctypes.c_int
         self.fn = so.rwm_pt_ladder_build
         self.info_fn = so.rwm_pt_ladder_build_info
 
-    def info(self, n_params):
-        out = (ctypes.c_int * 5)()
-        shared = 4 * n_params if 4 * n_params <= 32 * 1024 else 0
-        rc = self.info_fn(shared, out)
+    def info(self, n_params, d):
+        out = (ctypes.c_int * 6)()
+        if self.full:
+            rc = self.info_fn(n_params, d, out)
+        else:
+            rc = self.info_fn(4 * n_params if 4 * n_params <= 32 * 1024
+                              else 0, out)
         if rc:
             raise RuntimeError(f"{self.path}: info cudaError {rc}")
         return dict(zip(("registers", "local_bytes", "max_threads",
@@ -160,11 +189,19 @@ class Case:
             dtype=torch.float64).to(dev)
         self.key = seed_key(o["seed"])
         self.dev = dev
+        # (an earlier tree's wrapper, imported by --host-only --tree,
+        # takes no full-MVN workspace)
+        full_warp = getattr(ladder_build, "full_warp", None)
+        self.full = (torch.empty(ladder_build.full_words(tg.dim, self.n),
+                                 dtype=torch.float32, device=dev)
+                     if full_warp and full_warp(kind, tg.dim) else None)
 
     def launch(self, lib):
         o, torch = self.o, self.torch
         with torch.cuda.device(self.dev):
             stream = torch.cuda.current_stream(self.dev).cuda_stream
+            full = ([None if self.full is None else self.full.data_ptr()]
+                    if lib.full else [])
             rc = lib.fn(self.params.data_ptr(), self.params.numel(),
                         self.sparams.data_ptr(), self.d, self.n, *self.key,
                         float(o["target_swap_acceptance_rate"]),
@@ -175,7 +212,8 @@ class Case:
                         int(o["max_pn_adjustment_steps"]),
                         float(o["convergence_failure_tolerance_factor"]),
                         int(o["max_T"]), 0, self.cap, self.tiles.data_ptr(),
-                        self.ctl.data_ptr(), self.out.data_ptr(), stream)
+                        self.ctl.data_ptr(), *full, self.out.data_ptr(),
+                        stream)
         if rc:
             raise RuntimeError(f"{lib.path}: launch cudaError {rc}")
 
@@ -261,7 +299,7 @@ def host_us(torch, reps, host_reps):
         name = _build.ladder_lib(kind, d)
         _build.build([name])
         dev_ms, _ = Case(torch, tg, kind, kw).time(
-            Lib(str(_build._lib_path(name))), reps)
+            Lib(str(_build._lib_path(name)), takes_full(_build.CSRC)), reps)
         ladder_build.launch_ladder_kernel(tg, **kw)
         walls = []
         for _ in range(host_reps):
@@ -323,6 +361,12 @@ def main():
                                   tolerance=0.005))
     cases["production.three_mixture"] = (
         "three_mixture", 10, dict(LADDER_PROD, max_T=room10))
+    # the full MVN's warp form (above the 16 bucket): at d = 30 (the 32
+    # bucket) at the holds' settings, and at d = 500 at phase 20e's (N =
+    # 3000, beta_min 0.3, tolerance 0.05)
+    cases["full.mvn_full.d30"] = ("mvn_full", 30, held)
+    cases["full.mvn_full.d500"] = ("mvn_full", 500, dict(
+        held, N_samples_swap_est=HARNESS_N, beta_min=0.3, tolerance=0.05))
     for kind, d in (("three_mixture", 10), ("mvn_iso", 100)):
         for n in SWEEP_N:
             cases[f"sweep.{kind}.d{d}.n{n}"] = (
@@ -346,7 +390,8 @@ def main():
     stamped.join()
     print(f"built {len(built)} libraries in {time.time() - t0:.1f} s",
           flush=True)
-    loaded = {tag: Lib(path) for tag, (path, _) in built.items()}
+    loaded = {tag: Lib(path, takes_full(trees[tag.split(".")[0]]))
+              for tag, (path, _) in built.items()}
     targets = {}
 
     def target(kind, d):
@@ -360,7 +405,7 @@ def main():
         for kind, d in sorted(libs):
             tg = target(kind, d)
             info = loaded[f"{tree}.{kind}.d{d}"].info(
-                _build.kernel_target(tg)[1].numel())
+                _build.kernel_target(tg)[1].numel(), d)
             info["warps_per_sm"] = (info["blocks_per_sm"]
                                     * info["max_threads"] // 32)
             m = re.findall(r"Used (\d+) registers.*?(\d+) bytes cmem",

@@ -85,6 +85,10 @@ def _libraries():
     names += [_build.ladder_lib("mvn_iso", d) for d in (100, 200, 300, 1000)]
     names += [_build.ladder_lib(k, d) for k in LADDER_CASES
               for d in (72, 253, 509)]
+    for a, kind, d in WIDER_CASES:   # the widest buckets, both layouts
+        n = lib(_build.library(f"fused_{a}", "Normal", WARP_DRAW), kind, d)
+        names += [n] + ([_build.cluster_lib(n)] if a == "pt" else [])
+    names += [_build.ladder_lib("mvn_full", d) for d in WIDER_LADDER_D]
     _build.build(list(dict.fromkeys(names)))
 
 
@@ -212,7 +216,7 @@ def test_unsupported_inputs_raise_on_card(monkeypatch):
                           torch.tensor(0.1, device=dev), seed_key(1), 0, 2,
                           0)
     monkeypatch.undo()
-    wide = FullRosenbrock.create(1021, device=dev)   # above the warp buckets
+    wide = FullRosenbrock.create(4093, device=dev)   # above the warp buckets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pt_fused(wide, 0, [1.0, 0.5], base_variance=1.0, num_chains=4,
                      num_iterations=2, device=dev)
@@ -1191,9 +1195,9 @@ def test_ladder_kernel_refuses_before_launching():
         with pytest.raises(NotImplementedError):
             ladder_build.launch_ladder_kernel(
                 get_target_distribution(name, 4, device=dev))
-    with pytest.raises(NotImplementedError, match="1020"):
+    with pytest.raises(NotImplementedError, match="4092"):
         ladder_build.launch_ladder_kernel(
-            get_target_distribution("MultivariateNormal", 1021, device=dev))
+            get_target_distribution("MultivariateNormal", 4093, device=dev))
     assert not ladder_build.launch_ladder_kernel.launches
 
 
@@ -1349,3 +1353,90 @@ def test_refused_cluster_raises():
     out = launch_pt_kernel(*args, cluster=2, **kw)   # the next launch runs
     torch.cuda.synchronize()
     assert torch.isfinite(out[1]).all()
+
+
+# ------------------------------------------ the widest buckets (A15, d <= 4092)
+# (algo, kind, d): the 2048 and 4096 buckets' least and largest d beside
+# them, the iso MVN, FullRosenbrock and the full MVN (three rows, its
+# precision through L2)
+WIDER_CASES = [(a, k, d) for d in (2045, 4092)
+               for k in ("mvn_iso", "rosenbrock", "mvn_full")
+               for a in ("pt", "rwm")]
+WIDER_LADDER_D = (30, 500, 2000)
+
+
+def _wider_target(kind, d, dev):
+    if kind == "mvn_full":
+        a = np.random.default_rng(5).normal(size=(d, d))
+        return get_target_distribution("MultivariateNormal", d,
+                                       cov=a @ a.T / d + np.eye(d),
+                                       device=dev), 1.5 * 2.38 ** 2 / d
+    if kind == "mvn_iso":
+        return MultivariateNormal.create(d, device=dev), 2.38 ** 2 / d
+    return FullRosenbrock.create(d, device=dev), 0.5 ** 2 / d
+
+
+@pytest.mark.parametrize("algo,kind,d", WIDER_CASES)
+def test_wider_buckets_match_plain(algo, kind, d):
+    """Each library of the ``.w2048`` / ``.w4096`` buckets (one warp a
+    state) and PT's cluster builds ``.c2048`` / ``.c4096`` at d = 2045 and
+    4092, launched with the layout the geometry takes (PT at T = 10: one
+    block or a cluster), held against the plain version: the agreement
+    gate, counters exact; the launch counted under that library."""
+    dev = _card()
+    C = 64 if kind == "mvn_full" else 256
+    tg, var = _wider_target(kind, d, dev)
+    g = torch.Generator(device=dev).manual_seed(51)
+    x0 = tg.init_sample(C, g).T.contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    if algo == "pt":
+        T = 10
+        betas = torch.logspace(0, -2, T, device=dev)
+        sig = torch.sqrt(torch.tensor(var, device=dev) / betas)
+        args = (tg, x0[:, None].expand(d, T, C).contiguous(), zi(T, C),
+                zi(C), zf(C), zf(C), betas, sig, seed_key(52), 0, 20, 5, 5)
+        launch, plain, names = (launch_pt_kernel, _run_pt_fused_plain,
+                                agreement.PT_OUTPUTS)
+    else:
+        args = (tg, x0, zi(C), zf(C), torch.tensor(1.0, device=dev),
+                torch.sqrt(torch.tensor(var, device=dev)), seed_key(52), 0,
+                20, 5)
+        launch, plain, names = (launch_rwm_kernel, _run_rwm_fused_plain,
+                                agreement.RWM_OUTPUTS)
+    before = Counter(launch.launches)
+    k = launch(*args, draw=WARP_DRAW)
+    seen = launch.launches - before
+    variant = _build.library(f"fused_{algo}", "Normal", WARP_DRAW)
+    bucket = _build.warp_bucket(d)
+    assert len(seen) == 1 and sum(seen.values()) == 1, seen
+    key = next(iter(seen))
+    assert key in (f"{variant}.{kind}.w{bucket}", f"{variant}.{kind}.c"
+                   f"{bucket}"), key
+    a = agreement.hold(k, plain(*args, draw=WARP_DRAW), names,
+                       lp_of=tg.log_density_td)
+    assert a.frac >= AGREE_MIN and not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any()
+
+
+@pytest.mark.parametrize("d", WIDER_LADDER_D)
+def test_full_mvn_ladder_kernel_lands_plain_ladder(d):
+    """The full MVN's ladder in its warp form (above the 16 bucket: a warp
+    a side-sample, S and cov_inv^T in global tables) at d = 30, 500 and
+    2000: the plain version's ladder (the same rungs and probes, the swap
+    estimates to their ulps), one launch, no local memory."""
+    from rwm_pt_tpu_torch.kernels import ladder_build
+    from rwm_pt_tpu_torch.ladders import ladders as L
+    dev = _card()
+    tg, _ = _wider_target("mvn_full", d, dev)
+    opts = dict(N_samples_swap_est=3000, tolerance=0.05, beta_min=0.3,
+                seed=1, max_T=64)
+    ladder_build.launch_ladder_kernel.launches.clear()
+    k = ladder_build.launch_ladder_kernel(tg, **opts)
+    assert ladder_build.launch_ladder_kernel.launches == {
+        "ladder_build.mvn_full": 1}
+    _same_ladder(k, L._construct_iterative_ladder_device_plain(tg, **opts))
+    assert len(k.betas) >= 3
+    info = ladder_build.info("mvn_full", d,
+                             _build.kernel_target(tg)[1].numel())
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1

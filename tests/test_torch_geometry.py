@@ -216,13 +216,16 @@ def test_pt_team_blocks_are_whole_warps(dmax, team, T):
     sweep's words.  Up to d = 252 only G = 32 in the 256 bucket (16 warps)
     refuses a replica of more than 16 rungs; above it G = 32 (16 warps)
     does too, and a replica whose rows exceed a block's shared memory is
-    refused (the 1024 bucket's 4 KB rows: more than 27 rungs at G = 16)."""
+    refused (the 1024 bucket's 4 KB rows: more than 27 rungs at G = 16;
+    the 2048 and 4096 buckets' 8 and 16 KB rows, G = 32 alone: more than
+    13 and 6 rungs)."""
     d = dmax - 28
     cap = _build.pt_team_threads(dmax, team)
     rows = _build.pt_warp_shared_bytes(d + 1, T, d, 1, dmax, team=team)
     if T * team > cap or rows > _build.BLOCK_SHARED:
         assert ((dmax, team) == (256, 32) and T > 16) or (
-            dmax > 256 and (team == 32 and T > 16 or T > 27))
+            dmax in (512, 1024) and (team == 32 and T > 16 or T > 27)) or (
+            dmax > 1024 and T > {2048: 13, 4096: 6}[dmax])
         with pytest.raises(ValueError, match="does not fit a block"):
             _build.pt_warp_geometry(64, cap, d, dmax, T, 65536,
                                     n_params=d + 1, team=team)

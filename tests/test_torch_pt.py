@@ -278,10 +278,10 @@ def test_unsupported_inputs_raise():
                                         np.zeros(3),
                                         np.linalg.inv(cov).ravel()]),
         rtol=1e-6)
-    # above the warp kernels' largest bucket (d + 4 <= 1024 slots)
-    _build.kernel_target(FullRosenbrock.create(1020, device=CPU))
+    # above the warp kernels' largest bucket (d + 4 <= 4096 slots)
+    _build.kernel_target(FullRosenbrock.create(4092, device=CPU))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build.kernel_target(FullRosenbrock.create(1021, device=CPU))
+        _build.kernel_target(FullRosenbrock.create(4093, device=CPU))
     # every registry target is a kind; a target class outside the
     # registry is refused, naming the eager engine
     assert _build.kernel_target(

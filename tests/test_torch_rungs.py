@@ -189,10 +189,11 @@ def _params(kind, d):
     return {"mvn_full": 1 + d + d * d, "mvn_iso": 1 + d}.get(kind, 3 * d + 8)
 
 
-@pytest.mark.parametrize("d", [10, 64, 65, 252, 253, 1020])
+@pytest.mark.parametrize("d", [10, 64, 65, 252, 253, 4092])
 def test_max_rungs_is_at_least_64_and_the_layout_fit(d):
     """``max_rungs(d, kind, proposal, n_params)`` is at least 64 for every
-    kind and proposal, and the layout's own fit: up to d = 64 the most T
+    kind and proposal up to d = 1020 and at least 24 up to 4092, and the
+    layout's own fit: up to d = 64 the most T
     for which ``pt_block_geometry`` fits one replica in a block of the
     runtime-R instantiation's threads, for every draw (Box-Muller's sine
     row the most); above, the most T for which ``pt_cluster_geometry``
@@ -203,7 +204,8 @@ def test_max_rungs_is_at_least_64_and_the_layout_fit(d):
         for prop in _build.PROPOSALS:
             fit = _build.rungs_fit(d, kind, prop, n)
             T = fit.rungs
-            assert T == _build.max_rungs(d, kind, prop, n) >= 64, (kind, T)
+            assert T == _build.max_rungs(d, kind, prop, n) >= (
+                64 if d <= 1020 else 24), (kind, T)
             if d <= _build.BUCKETS[-1]:
                 dmax = _build.bucket(d)
                 cap = _build.pt_runtime_threads(kind, dmax)

@@ -209,17 +209,17 @@ def test_progress_bar_and_engine_refusal(capsys):
     sim.generate_samples(progress_bar=True)
     assert sim.engine_used == "pallas"
     assert "progress: 10/10 iterations" in capsys.readouterr().out
-    # the kernels compile dims up to 1020 (teams of lanes above 64): a
-    # 1021-d target is refused by engine='pallas' and runs on the eager
+    # the kernels compile dims up to 4092 (teams of lanes above 64): a
+    # 4093-d target is refused by engine='pallas' and runs on the eager
     # engine under 'auto'; a 65-d one takes the fused kernels
-    wide = TSim(dim=1021, sigma=0.01, num_iterations=10, engine="pallas",
-                target_dist=tget("FullRosenbrock", 1021, device=CPU),
+    wide = TSim(dim=4093, sigma=0.01, num_iterations=10, engine="pallas",
+                target_dist=tget("FullRosenbrock", 4093, device=CPU),
                 device=CPU)
     with pytest.raises(ValueError, match="fused CUDA kernels"):
         wide.generate_samples(verbose=False)
     auto = TSim(dim=1021, sigma=0.01, num_iterations=10, record_chains=1,
                 target_dist=wide.target_dist, device=CPU)
-    assert auto.generate_samples(verbose=False).shape == (10, 1021)
+    assert auto.generate_samples(verbose=False).shape == (10, 4093)
     assert auto.engine_used == "scan"
     auto65 = TSim(dim=65, sigma=0.01, num_iterations=10, record_chains=1,
                   target_dist=tget("FullRosenbrock", 65, device=CPU),
@@ -312,9 +312,9 @@ def test_autotune_run_refusals(monkeypatch):
     combined (JAX's message)."""
     from rwm_pt_tpu_torch.api import simulation
     monkeypatch.setattr(simulation, "run_rwm_adaptive", None)   # never run
-    wide = TSim(dim=1021, sigma=0.01, num_iterations=10, autotune=True,
+    wide = TSim(dim=4093, sigma=0.01, num_iterations=10, autotune=True,
                 burn_in=200, engine="pallas",
-                target_dist=tget("FullRosenbrock", 1021, device=CPU),
+                target_dist=tget("FullRosenbrock", 4093, device=CPU),
                 device=CPU)
     with pytest.raises(ValueError, match="autotune with engine='pallas'"):
         wide.generate_samples(verbose=False)

@@ -174,14 +174,14 @@ def test_warp_bucket_edges(d, dmax):
 
 
 def test_above_252_raises_and_64_stays_a_thread_bucket():
-    """The warp buckets end at 1020 dimensions (the 1024-slot bucket):
-    1021 raises, naming A15's remainder; 253 takes the 512 bucket."""
-    assert _build.MAX_DIM == 1020
+    """The warp buckets end at 4092 dimensions (the 4096-slot bucket):
+    4093 raises, naming A15's remainder; 253 takes the 512 bucket."""
+    assert _build.MAX_DIM == 4092
     assert _build.warp_bucket(253) == 512
     with pytest.raises(NotImplementedError, match="Queue A item 15"):
-        _build.warp_bucket(1021)
-    with pytest.raises(NotImplementedError, match="1020"):
-        _build.lib_name("fused_rwm", "mvn_iso", 1021)
+        _build.warp_bucket(4093)
+    with pytest.raises(NotImplementedError, match="4092"):
+        _build.lib_name("fused_rwm", "mvn_iso", 4093)
     assert _build.lib_name("fused_rwm", "mvn_iso", 64) == \
         "fused_rwm.mvn_iso.d64"
     assert _build.launch_key("fused_rwm.mvn_iso.d64") == "fused_rwm.mvn_iso"
@@ -415,7 +415,7 @@ def test_fused_rwm_plain_matches_pallas_body_at_d100(monkeypatch, kind):
 @pytest.mark.parametrize("algo", ["RWM", "PT"])
 def test_harness_takes_the_fused_kernels_at_d100(algo):
     """``engine='auto'`` takes the fused samplers at d = 100, as the JAX
-    harness takes its Pallas kernel at any d; above 1020 it names the
+    harness takes its Pallas kernel at any d; above 4092 it names the
     reason (ROADMAP A15's remainder)."""
     kw = dict(sigma=0.05, num_iterations=5, algorithm=algo,
               target_dist="MultivariateNormal", num_chains=4,
@@ -425,7 +425,7 @@ def test_harness_takes_the_fused_kernels_at_d100(algo):
     assert sim._fused_refusal() is None and sim._use_pallas()
     chain = sim.generate_samples(verbose=False)
     assert sim.engine_used == "pallas" and chain.shape == (5, D)
-    big = MCMCSimulation(dim=1021, **kw)
+    big = MCMCSimulation(dim=4093, **kw)
     assert not big._use_pallas()
     assert "Queue A item 15" in big._fused_refusal()
 
