@@ -331,7 +331,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    (c) the main shapes, FullRosenbrock and the
    iso MVN at d = 2000 and 4000 through ``run_pt_fused`` (65,536 replicas
    x T = 10) and ``run_rwm_fused`` (65,536 chains), 200 steps, and
-   IIDGamma's PT at d = 2000 (the ``.c2048`` cluster build), each once
+   IIDGamma's PT at d = 2000 (one block at G = 64, its terms row in L2),
+   each once
    with its launches counted, beside the bound, the team, blocks a
    cluster and warps an SM, each record held against its plain version at
    4096 replicas (512 for IIDGamma) over 20 steps; (d) ``MCMCSimulation``
@@ -344,7 +345,13 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    case, 6,583.497 ms in the earlier one-lane form) and 2000, the iso MVN at d = 2000
    and 4000 (N = 3000, beta_min 0.3, tolerance 0.05), no local memory, and
    d = 4093 refused with ``NotImplementedError``; (f) the RWM acceptance
-   on the iso MVN at d = 2000 and 4000 from exact draws, beside 0.234.
+   on the iso MVN at d = 2000 and 4000 from exact draws, beside 0.234;
+   (g) PT's wide teams (G = 64 at d = 2000, 64 and 128 at 4000) and G = 32
+   forced in turn, each against its plain version and twice bit for bit,
+   and IIDGamma, IIDBeta and NealFunnel (index-order sums) bit for bit
+   G = 32's under the Normal and Laplace proposals.  Phase 21d adds the
+   cluster build's swap step split by its measuring build's stamps
+   (``fused_pt.swap_split``).
 
 The line before the last holds the kernels' JSON record (every variant),
 the last line ``{"ok": true, "device": {...}}``.
@@ -617,6 +624,9 @@ RUNGS_MAIN = ((30, 50, 2000), (100, 50, 2000), (500, 36, 200),
               (1000, 50, 200))
 RUNGS_TEAMS = ((1000, 50), (1000, 20))
 RUNGS_TEAM_ITERS = 50
+# the cluster build's swap-step split (its measuring build): d, T, the
+# replicas, steps and swaps
+RUNGS_SPLIT = dict(d=1000, T=50, C=16384, steps=100, swap_every=10)
 RUNGS_HARNESS = dict(iters=100, eager_C=16384, eager_steps=30)
 
 
@@ -658,6 +668,16 @@ WIDER_LADDER = dict(N_samples_swap_est=LADDER_HARNESS_N, beta_min=0.3,
                     tolerance=0.05, seed=1)
 WIDER_STUDY_CONFIGS = 3
 WIDER_HARNESS = dict(C=4096, iters=100)
+# phase 22g: (d, kind, proposals) held at each team size of the library,
+# and the kinds that sum their log-density in index order (bit for bit
+# G = 32's at the wide teams)
+WIDE_TEAMS_HELD = (
+    (2000, "mvn_iso", ("Normal", "UniformRadius")),
+    (2000, "rosenbrock", ("Normal",)),
+    (2000, "iid_gamma", ("Normal", "Laplace")),
+    (2000, "neal_funnel", ("Normal",)),
+    (4000, "mvn_iso", ("Normal",)), (4000, "iid_beta", ("Normal",)))
+INDEX_ORDER_KINDS = ("iid_gamma", "iid_beta", "neal_funnel")
 
 
 def fail(msg):
@@ -4610,7 +4630,7 @@ def block_rungs(_build, d, n_params, kind="mvn_iso"):
             try:
                 _build.pt_warp_geometry(
                     0, _build.pt_team_threads(dmax, g), d, dmax, T, 1,
-                    n_params=n_params, team=g, rows=_build.team_rows(kind))
+                    n_params=n_params, team=g, kind=kind)
                 return True
             except ValueError:
                 pass
@@ -5198,6 +5218,27 @@ def phase_21(torch, gen):
         say(f"phase 21d teams forced in turns at d={d} T={T} ({C} replicas,"
             f" {RUNGS_TEAM_ITERS} steps; the geometry takes "
             f"G={geometry(d, T, C)[1].team}): " + "; ".join(line))
+    # the cluster build's swap step split by its measuring build's
+    # %globaltimer stamps (uncounted), at the geometry's team
+    d, T = RUNGS_SPLIT["d"], RUNGS_SPLIT["T"]
+    tg, var = target(d)
+    for team in (None, 16):
+        launch, _, _, args, lkw, _ = warp_case(
+            torch, gen, "pt", tg, var, RUNGS_SPLIT["steps"],
+            RUNGS_SPLIT["C"], T=T, swap_every=RUNGS_SPLIT["swap_every"])
+        sp = fused_pt.swap_split(*args, team=team, **lkw)
+        if not sp["swap_steps"] or sp["cluster"] < 2:
+            fail(f"phase 21d swap split: {sp}")
+        parts = ", ".join(f"{k} {sp[k]:.2f}" for k in fused_pt.SWAP_SPLIT)
+        bars = sum(sp[k] for k in ("barrier1", "barrier2", "barrier3"))
+        say(f"phase 21d the cluster build's swap step at d={d} T={T} "
+            f"(G={sp['team']}, clusters of {sp['cluster']}; block thread 0's "
+            f"%globaltimer stamps, us a swap step over the blocks): {parts}; "
+            f"the step {sp['swap_step']:.2f} us, its three cluster barriers "
+            f"{bars:.2f} us ({100 * bars / sp['swap_step']:.1f} %); a step "
+            f"with no swap {sp['step']:.2f} us")
+        del args
+        torch.cuda.empty_cache()
 
     # ---- (e) the harness's iterative ladders down to beta_min 0.01 at
     # d = 500 and 1000 on the fused kernels, beside the eager engine on the
@@ -5297,6 +5338,65 @@ def wider_hold(torch, gen, label, algo, tg, var, C, steps, record=False,
         fail(f"phase 22a {label}: launches {dict(seen)} (want {want}), "
              f"{agreement.describe(ag)}")
     return ag, ms, plain_ms, work, lib
+
+
+def wide_teams_22g(torch, gen, target):
+    """Phase 22g, PT's wide teams (G = 64, 128) and G = 32 forced in turn
+    at d = 2000 (one block at G = 32 and 64, a cluster at 128) and 4000
+    (clusters): each against its plain version (:data:`WIDER_AGREE` or
+    :data:`RUNGS_AGREE_MIN`, counters exact) and again bit for bit (no race
+    between a team's warps); the kinds that sum in index order (IIDGamma,
+    IIDBeta, NealFunnel) bit for bit G = 32's at every wide team under the
+    Normal and Laplace proposals (UniformRadius's norm is a butterfly sum
+    at every team size)."""
+    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt
+    t0 = time.time()
+    h = WIDER_HOLD
+    launch = fused_pt.launch_pt_kernel
+    for d, kind, props in WIDE_TEAMS_HELD:
+        tg, var = target(kind, d)
+        for prop in props:
+            _, plain, names, args, lkw, _ = warp_case(
+                torch, gen, "pt", tg, var, h["steps"], h["C_pt"], T=h["T"],
+                prop=prop, burn_in=h["burn_in"], swap_every=h["swap_every"])
+            p = plain(*args, **lkw)
+            lib = _build.route(_build.library("fused_pt", lkw["kind"],
+                                              lkw["draw"]), tg)[0]
+            ref, line = None, []
+            for team in _build.library_teams(lib):
+                reset_launches(launch)
+                k = launch(*args, team=team, **lkw)
+                again = launch(*args, team=team, **lkw)
+                seen = read_launches(launch, by_kind=True)
+                ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
+                gate = WIDER_AGREE.get(kind, RUNGS_AGREE_MIN)
+                race = [n for n, a, b in zip(names, k, again)
+                        if not torch.equal(a, b)]
+                if ag.frac < gate or ag.mismatched or race or sum(
+                        seen.values()) != 2:
+                    fail(f"phase 22g {kind} d={d} {prop} G={team}: "
+                         f"{agreement.describe(ag)}; repeat differs in "
+                         f"{race}; launches {dict(seen)}")
+                if team == 32:
+                    ref = k
+                elif kind in INDEX_ORDER_KINDS and prop != "UniformRadius":
+                    bad = [n for n, a, b in zip(names, k, ref)
+                           if not torch.equal(a, b)]
+                    if bad:
+                        fail(f"phase 22g {kind} d={d} {prop} G={team} "
+                             f"differs from G=32 in {bad}")
+                line.append(f"G={team} {next(iter(seen))} agree "
+                            f"{ag.frac:.5f}" + (
+                                ", = G=32 bit for bit" if team > 32 and
+                                kind in INDEX_ORDER_KINDS and
+                                prop != "UniformRadius" else ""))
+            say(f"phase 22g {kind} d={d} {prop} (PT {h['C_pt']} x T={h['T']},"
+                f" {h['steps']} steps; each run twice, bit for bit): "
+                + "; ".join(line))
+            del p, args
+        del tg
+        torch.cuda.empty_cache()
+    say(f"phase 22g {time.time() - t0:.1f} s")
 
 
 def phase_22(torch, gen):
@@ -5533,15 +5633,18 @@ def phase_22(torch, gen):
                        mvn_iso_acceptance=mvn_acc)
             records.append(rec)
             torch.cuda.empty_cache()
-    # PT's cluster build in the 2048 bucket: a three-row kind (IIDGamma, its
-    # 6008 words staged) at T = 10 fills no one block; held at 512
-    # replicas (its plain version's logs are the slow part)
+    # a three-row kind (IIDGamma, its 6008 words staged) in the 2048
+    # bucket: its terms row in L2, one block of ten rung-teams at T = 10
+    # (with its terms row in shared memory it took the cluster build); held
+    # at 512 replicas (its plain version's logs are the slow part)
     tg, v = target("iid_gamma", D2)
     variant = _build.library("fused_pt", "Normal", rule["pt"])
     n_params = _build.kernel_target(tg)[1].numel()
-    geo = _build.launch_geometry(_build.route(variant, tg)[0], D2, C, T,
-                                 "Normal", rule["pt"], n_params)
-    name = f"{variant}.c2048"
+    lib = _build.route(variant, tg)[0]
+    geo = _build.launch_geometry(lib, D2, C, T, "Normal", rule["pt"],
+                                 n_params)
+    name = next(iter(_build.by_variant({_build.launch_key(
+        _build.cluster_lib(lib) if geo.cluster else lib): 1})))
     reset_launches(*wrappers)
     ms, res = cuda_ms(torch, lambda: run_pt_fused(
         tg, 0, betas, base_variance=v, num_chains=C, num_iterations=iters,
@@ -5569,15 +5672,16 @@ def phase_22(torch, gen):
                         gamma_case, iters, phase="22c",
                         hold_steps=WIDER_RECORD_HOLD["steps"],
                         main=(ms, work))
-    if rec["agree_frac"] < RUNGS_AGREE_MIN or not geo.cluster:
+    if rec["agree_frac"] < RUNGS_AGREE_MIN or geo.cluster or geo.team < 64:
         fail(f"phase 22c {name}: {rec['agree_frac']} agree, {geo}")
+    rec["name"] = f"{name} (IIDGamma)"
     rec.update(dim=D2, kind="iid_gamma", team=geo.team, cluster=geo.cluster,
                replicas_a_block=geo.replicas, hold_replicas=512,
                blocks_per_sm=geo.blocks_per_sm,
                warps_per_sm=_build.resident_warps(geo), acceptance=acc)
     say(f"phase 22c iid_gamma d={D2} PT at the main shape: {name} "
-        f"(G={geo.team}, clusters of {geo.cluster} blocks of {geo.slots} "
-        f"slots, {_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
+        f"(G={geo.team}, one block of {geo.replicas} replicas, "
+        f"{_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
         f"against its {rec['main_path_bound_ms']:.3f} ms bound by "
         f"{rec['main_path_bound_limit']} "
         f"({100 * rec['main_path_bound_share']:.1f} %); acceptance "
@@ -5673,6 +5777,8 @@ def phase_22(torch, gen):
             fail(f"phase 22e d={big.dim} ran")
     say(f"phase 22e d={big.dim} raises NotImplementedError naming ROADMAP "
         f"Queue A item 15 (run_pt_fused, run_rwm_fused, the ladder kernel)")
+
+    wide_teams_22g(torch, gen, target)
 
     # ---- (f) the RWM acceptance on the iso MVN at sigma^2 = 2.38^2 / d
     # from exact draws, beside the d -> infinity limit
@@ -5885,6 +5991,9 @@ def smoke_libraries(_build):
     names += [_build.cluster_lib(lib(_build.library("fused_pt", "Normal",
                                                     rule), "mvn_iso", d))
               for d, _ in RUNGS_SMALL]
+    names.append(_build.cluster_lib(lib(_build.library(   # 21d's split
+        "fused_pt", "Normal", rule), "mvn_iso", RUNGS_SPLIT["d"]),
+        stamps=True))
     sf_wider = get_target_distribution(
         "SuperFunnel", 0, J=WIDER_SF["J"], K=WIDER_SF["K"],
         n_per_group=WIDER_SF["n"], device="cpu")
@@ -5915,6 +6024,13 @@ def smoke_libraries(_build):
                       for k in WIDER_KINDS_4092]
             names.append(_build.cluster_lib(lib(_build.library(
                 "fused_pt", "Laplace", rule), "mvn_iso", D2)))
+            # 22g: every team size of the held kinds and proposals (over a
+            # cluster at d = 4000)
+            for d, k, props in WIDE_TEAMS_HELD:
+                for p in props:
+                    w = lib(_build.library("fused_pt", p, rule), k, d)
+                    names += [w] + ([_build.cluster_lib(w)] if d == D4
+                                    else [])
     names += [_build.ladder_lib(k, d) for k, d in (
         ("mvn_full", D2), ("mvn_iso", D2), ("mvn_iso", D4))]
     return list(dict.fromkeys(names))
@@ -5961,7 +6077,10 @@ def main():
     # other cores run those phases), reported and gated before phase 16
     t_build = time.time()
     names = smoke_libraries(_build)
-    late = [n for n in names if _build.is_warp(n)]
+    # the warp libraries, the PT ones of the most team sizes first (the
+    # longest builds start first, so that the last to finish is short)
+    late = sorted((n for n in names if _build.is_warp(n)),
+                  key=lambda n: -len(_build.library_teams(n)))
     logs = _build.build([n for n in names if n not in late])
     build_s = time.time() - t_build
     background = {"logs": {}}

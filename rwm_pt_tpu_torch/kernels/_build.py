@@ -187,9 +187,13 @@ _ENTRIES = {
 # function the team size and the blocks a cluster first; RWM takes chains (teams) a block for threads and the
 # team size after them, and its info function the team size first
 _ENTRIES["fused_pt_warp"] = {
+    # the blocks a cluster after the team size, then the terms pool (rows,
+    # claim bitmask, slots; csrc/fused_pt_warp.cu::kGlobalTerms)
     "rwm_pt_fused_pt": _ENTRIES["fused_pt"]["rwm_pt_fused_pt"][:-1]
-    + [_I, _P],   # the blocks a cluster after the team size
-    "rwm_pt_fused_pt_info": [_I, _I, _I, _I, _I, _I, _P]}
+    + [_I, _P, _P, _I, _P],
+    "rwm_pt_fused_pt_info": [_I, _I, _I, _I, _I, _I, _P],
+    # out (kStampWords u64), reset: the measuring build's stamps
+    "rwm_pt_fused_pt_stamps": [_P, _I]}
 _ENTRIES["fused_rwm_warp"] = {
     "rwm_pt_fused_rwm": _ENTRIES["fused_rwm"]["rwm_pt_fused_rwm"][:-1]
     + [_I, _P],
@@ -269,14 +273,22 @@ def is_cluster(name: str) -> bool:
     return name.split(".")[-1].startswith("c")
 
 
-def cluster_lib(name: str) -> str:
+def is_stamps(name: str) -> bool:
+    """Whether library ``name`` is the cluster build's measuring build
+    (``.c<D>s``, ``-DRWM_PT_STAMPS``: ``%globaltimer`` stamps of a swap
+    step's parts, ``fused_pt.swap_split``), which no entry point takes."""
+    return is_cluster(name) and name.endswith("s")
+
+
+def cluster_lib(name: str, stamps: bool = False) -> str:
     """The cluster build of PT warp library ``name``: its warp bucket's tag
-    ``w<D>`` as ``c<D>`` (``fused_pt_lax_erfinv.mvn_iso.c1024``)."""
+    ``w<D>`` as ``c<D>`` (``fused_pt_lax_erfinv.mvn_iso.c1024``), with
+    ``stamps`` its measuring build ``c<D>s``."""
     head, tag = name.rsplit(".", 1)
     if tag[0] not in "wc" or not name.startswith("fused_pt"):
         raise ValueError(f"{name} has no cluster build: PT's team "
                          f"libraries (d > 64) have one")
-    return f"{head}.c{tag[1:]}"
+    return f"{head}.c{tag[1:].rstrip('s')}" + ("s" if stamps else "")
 
 
 def launch_key(name: str) -> str:
@@ -313,7 +325,10 @@ def _parts(name: str):
     src, pc, dc = VARIANTS[variant]
     if tag[0] not in "dwc" or (tag[0] == "c" and src != "fused_pt"):
         raise ValueError(f"no library {name}")
-    dmax = int(tag[1:])
+    if tag.endswith("s") and (tag[0] != "c" or shape is not None):
+        raise ValueError(f"no library {name}: the cluster build has the "
+                         f"measuring build")
+    dmax = int(tag[1:].rstrip("s"))
     if shape is not None:
         d = shape["dim"]
         team = BUCKETS[-1] < d <= MAX_DIM
@@ -498,6 +513,8 @@ def _flags(name: str) -> list[str]:
              if src.endswith(WARP) else [])
     if is_cluster(name):
         extra.append("-DRWM_PT_CLUSTER=1")
+    if is_stamps(name):
+        extra.append("-DRWM_PT_STAMPS=1")
     sf = fixed_shape(name)
     if sf is not None:
         extra += [f"-DRWM_PT_SF_{k.upper()}={sf[k]}"
@@ -612,6 +629,16 @@ RWM_THREADS = 128            # csrc/fused_rwm.cu: kThreads
 PT_WARP_MAX_WARPS = {128: 32, 256: 16, 512: 16, 1024: 16, 2048: 16,
                      4096: 16}
 PT_TEAM_THREADS = 512        # fused_pt_warp.cu's launch bound below G = 32
+# (target kind, proposal, draw) -> the cluster build's launch bound at
+# G = 32 where it is not PT_TEAM_THREADS (csrc/fused_pt_warp.cu::
+# kClusterThreads): 25 warps for the builds whose step fits the 72
+# registers that leaves (d = 1000, T = 50 over two blocks of 25 rung-teams;
+# IIDGamma and the uniform ball spilled at 72 on an H100)
+CLUSTER_THREADS = {("mvn_iso", "Normal", "lax_erfinv"): 800,
+                   ("rosenbrock", "Normal", "lax_erfinv"): 800}
+PT_CLUSTER_THREADS = max(CLUSTER_THREADS.values())   # the most of them
+PT_WIDE_THREADS = 640        # its bound at G = 64 and 128 (ten rung-teams
+#                              of 64 lanes, five of 128; 96 registers)
 RWM_WARP_THREADS = 256       # csrc/fused_rwm_warp.cu: kThreads
 PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
 SM_COUNT = 132               # the H100 SXM's SMs
@@ -776,19 +803,28 @@ def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
 
 # ------------------------------------------------ warp layout (csrc/warp.cuh)
-TEAMS = (4, 8, 16, 32)       # the team sizes csrc/warp.cuh's layout takes
+TEAMS = (4, 8, 16, 32)       # the team sizes within a warp (csrc/warp.cuh)
+WIDE_TEAMS = (64, 128)       # its teams of two and four warps (the 2048
+#                              and 4096 buckets' PT libraries)
+WIDE_WORDS = 8     # csrc/warp.cuh::kWideWords: a wide team's exchange words
+WIDE_MAX_TEAMS = 15   # csrc/warp.cuh::kMaxWideTeams: named barriers 1..15
 # warp bucket -> the team sizes G its libraries instantiate (-DRWM_PT_TEAMS;
 # the launchers' switch holds no other): the fastest at the main shape
 # (d = 100: G = 4; d = 200: G = 8, where G = 4's 13 block trips a step
 # lost) and one warp a state for the grids that fill no SM (measured with
 # scripts/bench_torch_warp.py); above d = 252, where a state's rows (2 KB a
 # row in the 512 bucket, 4 KB in the 1024 one) cap the states an SM holds,
-# G = 16 and 32; in the 2048 and 4096 buckets one warp a state alone: a
-# state's rows (8 and 16 KB a row) leave G = 16 half G = 32's warps an SM
-# at T = 10 (5 against 10 at d = 2000), so choose_team's warps rule never
-# takes it, and its pitch (the bucket plus 16 words) holds no more rungs
+# G = 16 and 32; in the 2048 and 4096 buckets one warp a state and the
+# wide teams of two and four warps (csrc/warp.cuh): a state's rows (8 and
+# 16 KB a row) cap the states an SM holds, so G = 32 left 5-10 warps an SM
+# (G = 16 would leave half that: its pitch, the bucket plus 16 words, holds
+# no more rungs) where G = 64 at d = 2000 and G = 128 at 4000 hold 20
+# (T = 10).  The 2048 bucket holds no G = 128: at d = 2000, T = 10 it
+# needs a cluster and ran 12-24 % slower than G = 64 in one block (on an
+# H100, scripts/bench_torch_warp.py).  G = 32 first, so that rungs_fit
+# takes it where the wide teams take no more rungs
 WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32),
-              2048: (32,), 4096: (32,)}
+              2048: (32, 64), 4096: (32, 64, 128)}
 # warp bucket -> the RWM libraries' team sizes where they differ from
 # WARP_TEAMS: in the wide buckets one warp a chain alone.  Forced in turns
 # on an H100 (scripts/bench_torch_warp.py --rwm-teams), G = 16 ran 2-9 %
@@ -796,13 +832,16 @@ WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32),
 # choose_team's rule would take it, 1.5x at 1024, and 1.6-2x at d = 1000;
 # one team size also halves the libraries' build.  RWM has no rungs that
 # only G = 16 takes
-RWM_WARP_TEAMS = {512: (32,), 1024: (32,)}
+RWM_WARP_TEAMS = {512: (32,), 1024: (32,), 2048: (32,), 4096: (32,)}
 
 
 def team_quads(dmax: int, team: int = 32) -> int:
     """Quads (four words) a lane holds in a row of warp bucket ``dmax``
-    with teams of ``team`` lanes: dmax / (4 team)."""
-    if team not in TEAMS or dmax % (4 * team):
+    with teams of ``team`` lanes: dmax / (4 team); the wide teams
+    (:data:`WIDE_TEAMS`) in the 2048 and 4096 buckets only (the layout;
+    :data:`WARP_TEAMS` says which a library instantiates)."""
+    if (team not in TEAMS + WIDE_TEAMS or dmax % (4 * team)
+            or (team > 32 and dmax <= 1024)):
         raise ValueError(f"no team of {team} lanes in warp bucket {dmax}")
     return dmax // (4 * team)
 
@@ -862,6 +901,23 @@ def team_rows(kind: str | None = None, fixed: bool = False) -> int:
     return 3 if kind in TERMS_ROW_KINDS and not fixed else 2
 
 
+def pt_global_terms(kind: str | None, dmax: int,
+                    cluster: bool = False) -> bool:
+    """Whether PT's team kernel keeps target kind ``kind``'s terms row
+    (:data:`TERMS_ROW_KINDS`) in global memory, a row a team in a pool of
+    block slots (``csrc/fused_pt_warp.cu::kGlobalTerms``), not in shared
+    memory: in the 2048 and 4096 buckets and in every ``cluster`` build
+    (a SuperFunnel build of fixed shape has no terms row: pass kind None)."""
+    return kind in TERMS_ROW_KINDS and (cluster or dmax > 1024)
+
+
+def pt_team_rows(kind: str | None, dmax: int, cluster: bool = False) -> int:
+    """Rows of :func:`team_pitch` words a team of PT's team kernel keeps in
+    shared memory: :func:`team_rows`, less the terms row where
+    :func:`pt_global_terms`."""
+    return team_rows(kind) - pt_global_terms(kind, dmax, cluster)
+
+
 def params_shared_words(n_params: int) -> int:
     """Parameter words a warp kernel keeps in shared memory: all of them up
     to :data:`PARAMS_SHARED_MAX` (12,288 words: the full-covariance MVN to
@@ -883,18 +939,23 @@ def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
                          slots: int | None = None) -> int:
     """Dynamic shared memory of a warp PT block of R replicas x T
     rung-teams whose rows' quads span ``dmax`` words (the warp bucket, or
-    :func:`sf_team_dmax`; ``csrc/fused_pt_warp.cu::shared_words``): each
-    team's ``rows`` rows (by default :func:`team_rows` of ``kind``; the
-    idle teams of :func:`pt_block_threads` too), the parameters that fit,
-    the ladder, the sweep's words (its per-replica sums too) and Laplace's
-    (T, d) scales.  ``slots``: a block of the cluster build, which holds
-    that many rung-teams of each replica and reads Laplace's scales
-    through L2 (its sweep's words sized by T as in every block)."""
-    rows = team_rows(kind) if rows is None else rows
+    :func:`sf_team_dmax`; ``csrc/fused_pt_warp.cu::shared_words``): a wide
+    team's :data:`WIDE_WORDS` (G > 32), each team's ``rows`` rows (by
+    default :func:`pt_team_rows` of ``kind``; the idle teams of
+    :func:`pt_block_threads` too), the parameters that fit, the ladder, the
+    sweep's words (its per-replica sums too), the block's slot of the
+    terms pool (:func:`pt_global_terms`) and Laplace's (T, d) scales.
+    ``slots``: a block of the cluster build, which holds that many
+    rung-teams of each replica and reads Laplace's scales through L2 (its
+    sweep's words sized by T as in every block)."""
+    cluster = slots is not None
+    terms = rows is None and pt_global_terms(kind, dmax, cluster)
+    rows = pt_team_rows(kind, dmax, cluster) if rows is None else rows
     teams = pt_block_threads(R, T if slots is None else slots, team) // team
-    words = (teams * rows * team_pitch(dmax, team)
+    words = ((teams * WIDE_WORDS if team > 32 else 0)
+             + teams * rows * team_pitch(dmax, team)
              + params_shared_words(n_params) + 2 * T
-             + 2 * T * R + 5 * R + 3 * T * R + R
+             + 2 * T * R + 5 * R + 3 * T * R + R + int(terms)
              + (T * d if proposal == "Laplace" and slots is None else 0))
     return 4 * words
 
@@ -918,16 +979,33 @@ def _check_warp_dim(d: int, dmax: int) -> None:
         raise ValueError(f"d={d} is not in the warp bucket 1..{dmax - 4}")
 
 
-def pt_team_threads(dmax: int, team: int = 32,
-                    cluster: bool = False) -> int:
+def pt_team_threads(dmax: int, team: int = 32, cluster: bool = False,
+                    kind: str | None = None, proposal: str = "Normal",
+                    draw: str | None = None) -> int:
     """The launch bound of ``csrc/fused_pt_warp.cu``'s team-size-``team``
     instantiation in warp bucket ``dmax``: 32 :data:`PT_WARP_MAX_WARPS`
-    threads at G = 32, :data:`PT_TEAM_THREADS` below; in the ``cluster``
-    build :data:`PT_TEAM_THREADS` at every G (its G = 32 spilled at the
-    128 bucket's 1024)."""
-    if team == 32 and not cluster:
+    threads at G = 32, :data:`PT_TEAM_THREADS` below,
+    :data:`PT_WIDE_THREADS` above; in the ``cluster`` build of target kind
+    ``kind`` under ``proposal`` and ``draw`` at G = 32 its
+    :data:`CLUSTER_THREADS` (``kind`` None: the most a build takes;
+    ``draw`` None: the least over the draws, which every draw takes)."""
+    if team > 32:
+        return PT_WIDE_THREADS
+    if team == 32 and cluster:
+        if kind is None:
+            return PT_CLUSTER_THREADS
+        return min(CLUSTER_THREADS.get((kind, proposal, dr), PT_TEAM_THREADS)
+                   for dr in ([draw] if draw else DRAWS))
+    if team == 32:
         return 32 * PT_WARP_MAX_WARPS[dmax]
     return PT_TEAM_THREADS
+
+
+def barriers_fit(threads: int, team: int) -> bool:
+    """Whether a block of ``threads`` has a named barrier for each of its
+    teams of ``team`` lanes: at most :data:`WIDE_MAX_TEAMS` wide teams
+    (G > 32; ``csrc/fused_pt_warp.cu::barriers_ok``)."""
+    return team <= 32 or threads // team <= WIDE_MAX_TEAMS
 
 
 def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
@@ -958,6 +1036,7 @@ def pt_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
 
     fits = [R for R in range(1, cap // (team * T) + 1)
             if pt_block_threads(R, T, team) <= cap
+            and barriers_fit(pt_block_threads(R, T, team), team)
             and shared(R) <= BLOCK_SHARED]
     if not fits:
         raise ValueError(
@@ -1000,7 +1079,8 @@ def pt_cluster_geometry(regs: int, max_threads: int, d: int, dmax: int,
     _check_warp_dim(d, dmax)
     if T < 1 or C < 1:
         raise ValueError(f"T={T} and C={C} must be >= 1")
-    cap = min(pt_team_threads(dmax, team, cluster=True), max_threads)
+    cap = min(pt_team_threads(dmax, team, True, kind, proposal, draw),
+              max_threads)
 
     def shared(R, slots):
         return pt_warp_shared_bytes(n_params, T, d, R, dmax, proposal, team,
@@ -1010,6 +1090,7 @@ def pt_cluster_geometry(regs: int, max_threads: int, d: int, dmax: int,
         slots = -(-T // k)
         fits = [R for R in range(1, cap // (team * slots) + 1)
                 if pt_block_threads(R, slots, team) <= cap
+                and barriers_fit(pt_block_threads(R, slots, team), team)
                 and shared(R, slots) <= BLOCK_SHARED]
         if fits:
             break
@@ -1163,18 +1244,41 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
                     _INFO[key]))
 
 
+# the kinds whose PT libraries hold no wide team: SuperFunnel's run-time
+# shape, whose step took 119 registers at G = 32 (PERF.md §6), above the
+# 96 that the wide teams' 640-thread bound leaves
+NO_WIDE_KINDS = ("super_funnel",)
+
+
+def wide_teams_ok(name: str) -> bool:
+    """Whether PT warp library ``name`` holds the wide teams
+    (:data:`WIDE_TEAMS`) of its bucket: not for :data:`NO_WIDE_KINDS`, nor
+    for the one-block Laplace build of a kind with a terms row, which
+    stages its scales and spilled 12 B at the wide teams' 96 registers
+    (IIDGamma on an H100; its cluster build, which reads them through L2,
+    holds them)."""
+    _, pc, _, _, _, _ = _parts(name)
+    kind = name.split(".")[1]
+    laplace = pc == PROPOSALS["Laplace"][1]
+    return kind not in NO_WIDE_KINDS and not (
+        laplace and kind in TERMS_ROW_KINDS and not is_cluster(name))
+
+
 def library_teams(name: str) -> tuple[int, ...]:
     """The team sizes warp library ``name`` instantiates
-    (:data:`WARP_TEAMS`, :data:`RWM_WARP_TEAMS`)."""
+    (:data:`WARP_TEAMS`, :data:`RWM_WARP_TEAMS`; the wide teams where
+    :func:`wide_teams_ok`)."""
     src, _, _, _, dmax, _ = _parts(name)
     if src == "fused_rwm" + WARP and dmax in RWM_WARP_TEAMS:
         return RWM_WARP_TEAMS[dmax]
+    if not wide_teams_ok(name):
+        return tuple(g for g in WARP_TEAMS[dmax] if g <= 32)
     return WARP_TEAMS[dmax]
 
 
 def _cluster_geometry(name: str, d: int, C: int, T: int, proposal: str,
                       draw: str, n_params: int, team: int, words: int,
-                      rows: int, cluster: int | None) -> Geometry:
+                      rows: int | None, cluster: int | None) -> Geometry:
     """:func:`pt_cluster_geometry` of library ``name``'s cluster build
     (:func:`cluster_lib`) at team size ``team``: the smallest k whose
     blocks fit and whose cluster the card schedules
@@ -1183,11 +1287,12 @@ def _cluster_geometry(name: str, d: int, C: int, T: int, proposal: str,
     launch)."""
     lib = cluster_lib(name)
     a = kernel_info(lib, d, team=team, cluster=1)
+    kind = None if rows is not None else name.split(".")[1]
     for k in ([cluster] if cluster else range(1, CLUSTER_MAX + 1)):
         try:
             geo = pt_cluster_geometry(
                 a["registers"], a["max_threads"], d, words, T, C, proposal,
-                draw, n_params, team=team, rows=rows, cluster=k)
+                draw, n_params, team=team, kind=kind, rows=rows, cluster=k)
         except ValueError:
             if cluster:
                 raise
@@ -1219,7 +1324,12 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     fixed = fixed_shape(name) is not None
     if is_warp(name):
         kind = name.split(".")[1]
-        teams = library_teams(name)
+        # the one-block build's team sizes, and for PT its cluster build's
+        # (which may hold a wide team the one-block build does not:
+        # wide_teams_ok)
+        one = library_teams(name)
+        teams = tuple(sorted(set(one) | set(
+            library_teams(cluster_lib(name)) if T else ())))
         if team is not None and team not in teams:
             raise ValueError(f"{name} holds teams of {teams} lanes, not "
                              f"{team}")
@@ -1227,17 +1337,21 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
         if forced and not T:
             raise ValueError(f"{name}: the cluster build is PT's")
         geos = {}
-        rows = team_rows(kind, fixed)
+        # RWM's rows; PT's from its kind (pt_team_rows: the terms row in
+        # global memory in the wide buckets and the cluster build), but a
+        # fixed shape's two
+        rows = team_rows(kind, fixed) if fixed or not T else None
         for g in ([team] if team is not None else teams):
             # a fixed shape's rows are sized by d (csrc/warp.cuh::row_dmax)
             words = sf_team_dmax(d, g) if fixed else dmax
             try:
-                if not forced:
+                if not forced and g in one:
                     a = kernel_info(name, d, team=g)
                     try:
                         geos[g] = (pt_warp_geometry(
                             a["registers"], a["max_threads"], d, words, T,
-                            C, proposal, draw, n_params, team=g, rows=rows)
+                            C, proposal, draw, n_params, team=g, kind=kind,
+                            rows=rows)
                             if T else rwm_warp_geometry(
                                 a["registers"], a["max_threads"], d, words,
                                 C, proposal, draw, n_params, team=g,
@@ -1272,6 +1386,31 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     return pt_block_geometry(a["registers"], a["max_threads"], d, dmax, T, C,
                              proposal, draw, n_params, kind,
                              fixed)._replace(runtime_r=True)
+
+
+def terms_pool(name: str, geo: Geometry, d: int, T: int, n_params: int,
+               device) -> tuple:
+    """``(rows, claim, pool)`` of a launch of PT warp library ``name`` at
+    ``geo``: where the kernel keeps its terms row in global memory
+    (:func:`pt_global_terms`), ``pool`` block slots of a row for each team
+    of a block (f32, uninitialised; the CUDA occupancy calculator's
+    resident blocks an SM, plus one, times the card's SMs: a block always
+    finds a free slot, since no more blocks run at once) and their claim
+    bitmask (int32, zeroed; every block frees its bit when it ends); else
+    ``(None, None, 0)``."""
+    kind, dmax = name.split(".")[1], _parts(name)[4]
+    if (fixed_shape(name) is not None
+            or not pt_global_terms(kind, dmax, is_cluster(name))):
+        return None, None, 0
+    resident = kernel_info(name, d, T, geo.replicas, n_params, team=geo.team,
+                           cluster=geo.cluster)["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    pool = sms * (max(resident, geo.blocks_per_sm, 1) + 1)
+    rows = torch.empty(pool * (geo.threads // geo.team)
+                       * team_pitch(dmax, geo.team), dtype=torch.float32,
+                       device=device)
+    claim = torch.zeros(-(-pool // 32), dtype=torch.int32, device=device)
+    return rows, claim, pool
 
 
 class Shard(NamedTuple):
@@ -1365,15 +1504,14 @@ def rungs_fit(dim: int, kind: str | None = None, proposal: str = "Normal",
                            + (f"{cap} threads" if T == cap else
                               f"{BLOCK_SHARED} B of shared memory"))
     dmax = warp_bucket(dim)
-    rows = team_rows(kind)
     best = None
     for g in WARP_TEAMS[dmax]:
-        cap = pt_team_threads(dmax, g, cluster=True)
+        cap = pt_team_threads(dmax, g, True, kind, proposal)
 
         def fits(T, cap=cap, g=g):
             try:
                 pt_cluster_geometry(0, cap, dim, dmax, T, 1, proposal,
-                                    n_params=words, team=g, rows=rows)
+                                    n_params=words, team=g, kind=kind)
                 return True
             except ValueError:
                 return False

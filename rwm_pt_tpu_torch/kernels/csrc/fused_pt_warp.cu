@@ -31,9 +31,29 @@
 // d = 100 main shape, 8 in the 256 bucket, 16 in the 512 bucket) and keeps
 // 16 warps an SM (in the 1024 bucket a state's 8 KB of rows leave G = 16
 // ten: G = 32 there), and G = 32 for grids that leave the card short of
-// warps.  The 2048 and 4096 buckets hold G = 32 alone (16 and 32 KB rows:
-// at d = 2000 and T = 10 one replica's ten rung-teams fill a block, 10
-// warps an SM; at d = 4000 every kind runs over a cluster).
+// warps.
+//
+// The 2048 and 4096 buckets: a state's two rows (8 and 16 KB each) cap an
+// SM at a block of ten rung-teams at d = 2000 and five at d = 4000, so one
+// warp a state left 5-10 warps an SM, each walking d / 128 Philox blocks a
+// lane with nothing to hide their latency.  Their libraries hold G = 64
+// (and in the 4096 bucket 128) beside 32: a state over W = G / 32 warps
+// (csrc/warp.cuh's wide teams: named barriers, the warps' partial sums and the broadcast slots
+// in kWideWords words a team at the start of shared memory), so the same
+// rows hold 2-4x the warps (d = 2000, T = 10: G = 64, ten rung-teams of
+// two warps, 20 warps an SM in one block; d = 4000: G = 128 over clusters
+// of two blocks of five, 20 warps).  A wide team's cold-rung squared jump
+// is summed by its first warp in G = 32's order (lane t's quads t + 32 k,
+// then the butterfly), so the cold-jump sum equals G = 32's bit for bit
+// wherever the trajectory does (the kinds that sum their lp in index
+// order).  The three-row kinds (IIDGamma, IIDBeta, the full MVN,
+// SuperFunnel's run-time shape) keep their terms row in global memory in
+// these buckets and in every cluster build (kGlobalTerms): a row a team of
+// a pool of (SMs x resident blocks) block slots, each block claiming a free
+// slot of the pool's bitmask when it starts and freeing it when it ends
+// (claim_slot), so a state's shared memory is its two rows and IIDGamma
+// at d = 2000 takes the one-block launch of the two-row kinds; the terms
+// are summed in index order from there (16-byte loads), the same adds.
 //
 // One library per (proposal, draw, target kind, warp bucket DMAX = 128,
 // 256, 512, 1024, 2048 or 4096 slots, d + 4 <= DMAX) from this source,
@@ -68,7 +88,8 @@
 // bound to 512 threads a block, so that T = 32 rungs fit at G = 8 (a cap
 // of 64 registers, two such blocks an SM, measured slower) and at G = 16
 // (the 1024 bucket's rows cap one block below: a ladder no block holds
-// runs over a cluster, below).
+// runs over a cluster, below); a wide team (G = 64, 128) to 640 threads,
+// at most 96 registers (80-96 on an H100), ten or five rung-teams a block.
 // Every loop over a lane's quads is rolled, so the registers do not grow
 // with the bucket's quads a lane (8 at G = 32 in the 1024 bucket, 16 at
 // G = 16).
@@ -101,12 +122,21 @@
 // T = 50, d = 1000).  The teams' arithmetic is the one-block kernel's, so
 // at one G the cluster build equals it bit for bit at any T both take.
 // kernels/_build.py::pt_cluster_geometry chooses k and R.  Bound: the
-// same int32 work as the one-block kernel (Philox's grows with T).
+// same int32 work as the one-block kernel (Philox's grows with T).  The
+// sweep's words in other blocks are reached by 32-bit shared::cluster
+// addresses (mapa.u32, ld / st.shared::cluster: a register an address
+// where a mapped generic pointer takes two), made where they are used.
+// G = 32's launch bound is 800 threads for the iso MVN and FullRosenbrock
+// under the Normal proposal and the rule's draw (kClusterThreads: d = 1000,
+// T = 50 in clusters of two blocks of 25).  The measuring build
+// (-DRWM_PT_STAMPS, library ...c<D>s, kernels/fused_pt.py::swap_split)
+// adds %globaltimer stamps of a swap step's parts as block thread 0 sees
+// them (stamp_words).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -Xptxas -v -DRWM_PT_PROPOSAL=p -DRWM_PT_NORMAL=n
 //        -DRWM_PT_TARGET=k -DRWM_PT_DMAX=D -DRWM_PT_TEAMS=m
-//        [-DRWM_PT_CLUSTER=1]
+//        [-DRWM_PT_CLUSTER=1 [-DRWM_PT_STAMPS=1]]
 //        [-DRWM_PT_SF_J=J -DRWM_PT_SF_K=K -DRWM_PT_SF_N=n
 //         -DRWM_PT_SF_UNROLL=u]   (no --use_fast_math)
 // Plain PyTorch version: fused_pt.py::_run_pt_fused_plain.
@@ -146,17 +176,38 @@ constexpr int kDraw = RWM_PT_NORMAL;
 constexpr int kKind = RWM_PT_TARGET;
 constexpr int kDmax = RWM_PT_DMAX;   // the warp bucket: d + 4 <= kDmax
 constexpr int kMaxSharedBytes = 227 * 1024;     // a block's dynamic shared memory
-constexpr int kRows = kTeamRows<kKind>;   // rows a team
+// The terms row of the kTermsRow kinds in global memory (the 2048 and 4096
+// buckets and every cluster build), else in shared memory
+constexpr bool kGlobalTerms =
+    kTermsRow<kKind> && !kFixedDim && (kCluster || kDmax > 1024);
+// rows a team keeps in shared memory
+constexpr int kRows = kTeamRows<kKind> - (kGlobalTerms ? 1 : 0);
 static_assert(kDmax % 128 == 0, "warp buckets are multiples of 128 slots");
+
+// The cluster build's launch bound at G = 32: 25 warps (d = 1000, T = 50
+// over two blocks of 25 rung-teams) for the builds whose step fits the 72
+// registers a thread that leaves (an SM's four register quarters hold 7
+// warps each at 72, 6 at 80): the iso MVN and FullRosenbrock under the
+// Normal proposal and the rule's draw (68-71 on an H100, no spill); 16
+// for the others (IIDGamma and the uniform ball spilled 16 B at 72)
+// (kernels/_build.py::CLUSTER_THREADS)
+constexpr int kClusterThreads =
+    (kKind == TARGET_MVN_ISO || kKind == TARGET_ROSENBROCK) &&
+            kProp == PROPOSAL_NORMAL && kDraw == DRAW_LAX_ERFINV
+        ? 800
+        : 512;
 
 // A block's threads, the launch bound: one warp a state (G = 32) takes 32
 // warps in the 128 bucket and 16 above it, whose sweep's bookkeeping needs
-// more registers (the 256 bucket's spilled at 64 and at 80), and 16 in
-// every cluster build (the 128 bucket's spilled at 64); teams of G < 32
-// lanes take 512 threads
+// more registers (the 256 bucket's spilled at 64 and at 80), and
+// kClusterThreads in every cluster build; teams of G < 32 lanes take 512
+// threads, wide teams (G = 64, 128) 640 (ten rung-teams of 64 lanes at
+// T = 10, five of 128; 96 registers)
 template <int G>
 constexpr int kBlockThreads =
-    G == 32 && kDmax == 128 && !kCluster ? 1024 : 512;
+    G > 32 ? 640
+    : G == 32 && kCluster ? kClusterThreads
+    : G == 32 && kDmax == 128 ? 1024 : 512;
 // Blocks of that bound an SM: two for a build of fixed SuperFunnel shape
 // below G = 32, which caps it at 64 registers (at d = 68, G = 4 ptxas
 // took 65 without the cap: 14 replicas a block and 28 warps an SM in
@@ -169,24 +220,28 @@ __host__ __device__ constexpr int params_in_shared(int n_params) {
   return n_params <= kParamsShared ? n_params : 0;
 }
 
-// Words of dynamic shared memory: state rows (teams x pitch, first, so
-// 16-byte aligned; the block's teams, idle ones too) | scratch rows (teams
-// x pitch) | the kTermsRow kinds' terms rows (teams x pitch) | params (when
+// Words of dynamic shared memory: a wide team's exchange words
+// (csrc/warp.cuh::kWideWords a team, G > 32 only; first, where team_words
+// finds them) | state rows (teams x pitch, 16-byte aligned; the block's
+// teams, idle ones too) | scratch rows (teams x pitch) | the kTermsRow
+// kinds' terms rows (teams x pitch), but where kGlobalTerms | params (when
 // they fit)
 // | beta, sigma | lp, u (per slot / pair) | cold sum, compensation, the
 // sweep's beta-jump sum, its compensation, its swap count (per replica:
 // kept in shared memory, not in the sweeping lane's registers) |
 // slot_of_rung, rung_of_slot, accepts | the slot that held rung 0 before a
-// sweep that moved it | Laplace scales (T, d), but in the cluster build,
+// sweep that moved it | the block's slot of the terms pool (kGlobalTerms) |
+// Laplace scales (T, d), but in the cluster build,
 // which reads them through L2 (every block of a cluster has the same
 // layout; the sweep's words are used in rank 0's, the accepts in each
 // block's own).  kernels/_build.py::pt_warp_shared_bytes mirrors this
 // count.
-__host__ __device__ constexpr size_t shared_words(int pitch, int n_params,
-                                                  int T, int d, int R,
-                                                  int teams) {
-  return (size_t)teams * kRows * pitch + params_in_shared(n_params) + 2 * T +
-         2 * T * R + 5 * R + 3 * T * R + R +
+__host__ __device__ constexpr size_t shared_words(int team, int pitch,
+                                                  int n_params, int T, int d,
+                                                  int R, int teams) {
+  return (team > 32 ? (size_t)teams * kWideWords : 0) +
+         (size_t)teams * kRows * pitch + params_in_shared(n_params) + 2 * T +
+         2 * T * R + 5 * R + 3 * T * R + R + (kGlobalTerms ? 1 : 0) +
          (kProp == PROPOSAL_LAPLACE && !kCluster ? T * d : 0);
 }
 
@@ -200,15 +255,101 @@ __device__ __forceinline__ void sweep_sync() {
     __syncthreads();
 }
 
-// A word of the sweep's shared memory: the block's own, in the cluster
-// build rank 0's, through distributed shared memory
-template <typename W>
-__device__ __forceinline__ W* sweep_word(W* p) {
-  if constexpr (kCluster)
-    return cg::this_cluster().map_shared_rank(p, 0);
-  else
-    return p;
+// The 32-bit shared::cluster address of shared word p in block `rank` of
+// the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
+  return a;
 }
+
+// A word of the sweep's shared memory, read and written: the block's own,
+// in the cluster build rank 0's, through distributed shared memory
+__device__ __forceinline__ float sweep_ld(const float* p) {
+  if constexpr (kCluster) {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];"
+                 : "=f"(v) : "r"(cluster_addr(p, 0)) : "memory");
+    return v;
+  } else {
+    return *p;
+  }
+}
+__device__ __forceinline__ int sweep_ld(const int* p, int rank = 0) {
+  if constexpr (kCluster) {
+    int v;
+    asm volatile("ld.shared::cluster.s32 %0, [%1];"
+                 : "=r"(v) : "r"(cluster_addr(p, rank)) : "memory");
+    return v;
+  } else {
+    return *p;
+  }
+}
+__device__ __forceinline__ void sweep_st(float* p, float v) {
+  if constexpr (kCluster)
+    asm volatile("st.shared::cluster.f32 [%0], %1;"
+                 :: "r"(cluster_addr(p, 0)), "f"(v) : "memory");
+  else
+    *p = v;
+}
+__device__ __forceinline__ void sweep_st(int* p, int v) {
+  if constexpr (kCluster)
+    asm volatile("st.shared::cluster.s32 [%0], %1;"
+                 :: "r"(cluster_addr(p, 0)), "r"(v) : "memory");
+  else
+    *p = v;
+}
+
+// A free slot of the terms pool (`pool` slots, a bit each in `claim`),
+// claimed for this block: at most SMs x resident blocks run at once, so
+// one is free or is about to be freed by a block that has ended
+__device__ int claim_slot(unsigned* claim, int pool) {
+  const int words = (pool + 31) >> 5;
+  for (unsigned n = 0;; ++n) {
+    const int w = (int)((blockIdx.x + n) % (unsigned)words);
+    const int bits = pool - 32 * w < 32 ? pool - 32 * w : 32;
+    const unsigned full = bits == 32 ? kFullMask : (1u << bits) - 1u;
+    unsigned m = atomicOr(&claim[w], 0u);
+    while ((m & full) != full) {
+      const unsigned bit = 1u << (__ffs(~m) - 1);
+      const unsigned prev = atomicOr(&claim[w], bit);
+      if (!(prev & bit)) {
+        __threadfence();   // the slot's last owner's writes come first
+        return 32 * w + __ffs(bit) - 1;
+      }
+      m = prev | bit;
+    }
+  }
+}
+
+// A wide team's cold-rung squared jump sum_i (a_i - b_i)^2: by its first
+// warp in G = 32's order (the other warps' value is unused: only team lane
+// 0 keeps it); a narrower team's own team_sq_jump
+template <int G, int NQ>
+__device__ __forceinline__ float cold_jump(const float* a, const float* b,
+                                           int d, int t) {
+  if constexpr (G > 32)
+    return t < 32 ? team_sq_jump<32, NQ * G / 32>(a, b, d, t) : 0.0f;
+  else
+    return team_sq_jump<G, NQ>(a, b, d, t);
+}
+
+#ifdef RWM_PT_STAMPS
+// The measuring build's split of a swap step, as block thread 0 sees it,
+// summed over the blocks in ns (kernels/fused_pt.py::SWAP_SPLIT): the MH
+// move, the first cluster barrier, the sweep (rank 0) or the wait for it,
+// the second barrier, the cold-rung jump, the third barrier; then the
+// swap steps and the steps with no swap and their ns
+constexpr int kStampWords = 9;
+__device__ unsigned long long stamp_words[kStampWords];
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
 
 // (the explicit one block an SM matters: without it ptxas took fewer
 // registers and the 256 bucket's G = 32 kernels spilled)
@@ -227,10 +368,12 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
         uint32_t key1, int replica0, int rung0,
         const float* __restrict__ lap, float inv_d,
         float* __restrict__ rec, int record_every, int record_chains,
-        int order, int R) {
+        int order, int R, float* __restrict__ terms,
+        unsigned* __restrict__ claim, int pool) {
   constexpr int NQ = DMAX / (4 * G);   // quads a lane holds in a row
   constexpr int kPitch = kTeamPitch<DMAX, G>;
   static_assert(DMAX % (4 * G) == 0, "a team's lanes split the bucket");
+  static_assert(G <= 32 || !kFixedDim, "no wide team in a fixed shape");
   extern __shared__ float4 smem4[];
 #ifdef RWM_PT_SF_N
   d = kFixedDim;   // a constant in a fixed-shape build
@@ -265,7 +408,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   const int flat = threadIdx.x;           // for block-wide loads
   const int nthreads = blockDim.x;
   const int n_shared = params_in_shared(n_params);
-  float* s_x = (float*)smem4;             // [team][i]
+  // [team][i]; after the wide teams' words
+  float* s_x = (float*)smem4 + (G > 32 ? nteams * kWideWords : 0);
   float* s_row = s_x + nteams * kPitch;   // [team][i], scratch
   float* s_terms = s_row + nteams * kPitch;   // [team][i], kTermsRow
   float* s_params = s_x + nteams * kRows * kPitch;
@@ -282,9 +426,11 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   int* s_rung = s_slot + T * R;           // [slot][replica] -> rung
   int* s_acc = s_rung + T * R;            // [rung][replica], this block's
   int* s_owner = s_acc + T * R;           // [replica]
-  float* s_lap = (float*)(s_owner + R);   // [rung][i], Laplace only
-  // (every team reads and writes the sweep's words through sweep_word:
-  // in the cluster build rank 0's, mapped where they are used)
+  int* s_claim = s_owner + R;             // the terms pool's slot
+  float* s_lap = (float*)(s_claim + (kGlobalTerms ? 1 : 0));   // [rung][i],
+                                                          // Laplace only
+  // (every team reads and writes the sweep's words through sweep_ld /
+  // sweep_st: in the cluster build rank 0's, mapped where they are used)
   // Laplace's scales: staged, or in the cluster build read through L2
   const float* const lap_t = kCluster ? lap : s_lap;
 
@@ -292,7 +438,7 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   const bool valid = live && c < C;
   float* xs = s_x + tid * kPitch;         // this team's state row
   float* row = s_row + tid * kPitch;
-  float* trow = s_terms + tid * kPitch;
+  if (kGlobalTerms && flat == 0) *s_claim = claim_slot(claim, pool);
 
   for (int i = flat; i < n_shared; i += nthreads) s_params[i] = params[i];
   for (int i = flat; i < T; i += nthreads) {
@@ -311,8 +457,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     }
   }
   if (t == 0 && live) {
-    sweep_word(s_slot)[gid] = slot;
-    sweep_word(s_rung)[gid] = slot;
+    sweep_st(s_slot + gid, slot);
+    sweep_st(s_rung + gid, slot);
     if constexpr (!kCluster)
       s_acc[tid] = valid ? acc0[(size_t)slot * C + c] : 0;
     if (slot == 0) {   // (rank 0 in the cluster build)
@@ -339,6 +485,11 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     }
   }
   __syncthreads();
+  // the team's terms row: in shared memory, or in the block's slot of the
+  // global pool
+  float* const trow =
+      kGlobalTerms ? terms + ((size_t)*s_claim * nteams + tid) * kPitch
+                   : s_terms + tid * kPitch;
 #ifdef RWM_PT_SF_N
   // the fixed dataset always lies in shared memory (the launcher checks
   // its words): LDS, not generic loads
@@ -355,6 +506,10 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     const int abs_step = step0 + s + 1;
     const bool post = abs_step > burn_in;
     const bool do_swap = post && (abs_step % swap_every == 0);
+#ifdef RWM_PT_STAMPS
+    unsigned long long st[7];
+    st[0] = globaltimer();
+#endif
     float u_swap, part;
     const bool accept = team_mh_propose<KIND, kProp, kDraw, G, NQ>(
         xs, row, trow, lp, d, p, s_sigma[rung], lap_t + rung * d, inv_d,
@@ -365,10 +520,16 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
     int new_rung = rung, owner = -1;
     if (do_swap) {   // the same for every team of the block (the cluster)
       if (t == 0 && live) {
-        sweep_word(s_lp)[gid] = lp;
-        if (rung < T - 1) sweep_word(s_u)[rung * R + cx] = u_swap;
+        sweep_st(s_lp + gid, lp);
+        if (rung < T - 1) sweep_st(s_u + rung * R + cx, u_swap);
       }
+#ifdef RWM_PT_STAMPS
+      st[1] = globaltimer();
+#endif
       sweep_sync();
+#ifdef RWM_PT_STAMPS
+      st[2] = globaltimer();
+#endif
       if (sweeper) {   // (rank 0 in the cluster build: its own words)
         const int first = s_slot[cx];   // rung 0's slot before the sweep
         int moved = 0, swapacc = s_swapacc[cx];
@@ -401,11 +562,17 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
         s_bj[cx] = bj;
         s_bc[cx] = bc;
       }
+#ifdef RWM_PT_STAMPS
+      st[3] = globaltimer();
+#endif
       sweep_sync();
+#ifdef RWM_PT_STAMPS
+      st[4] = globaltimer();
+#endif
       if (live) {
-        new_rung = sweep_word(s_rung)[gid];
+        new_rung = sweep_ld(s_rung + gid);
         // >= 0: rung 0 changed hands in this sweep
-        owner = sweep_word(s_owner)[cx];
+        owner = sweep_ld(s_owner + cx);
       }
     } else if (sweeper && s_bc[cx] != 0.0f) {
       // the sweep's compensation step with no swap accepted
@@ -444,19 +611,44 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
           prev = s_x + (owner * R + cx) * kPitch;
         }
       }
-      jump = team_sq_jump<G, NQ>(accept ? row : xs, prev, d, t);
+      jump = cold_jump<G, NQ>(accept ? row : xs, prev, d, t);
+    } else if (__any_sync(kFullMask, cold && accept)) {
+      // a wide team sums the rows in G = 32's order (part's order there)
+      jump = G > 32 ? cold_jump<G, NQ>(row, xs, d, t) : team_sum<G>(part);
     }
-    else if (__any_sync(kFullMask, cold && accept))
-      jump = team_sum<G>(part);
     if (cold && t == 0) {   // (the cluster build: rank 0's sums)
-      float* const sum = sweep_word(s_cold);
-      float* const comp = sweep_word(s_cc);
-      const float yk = ((post && (took || accept)) ? jump : 0.0f) - comp[cx];
-      const float tot = sum[cx] + yk;
-      comp[cx] = (tot - sum[cx]) - yk;
-      sum[cx] = tot;
+      const float sum = sweep_ld(s_cold + cx), comp = sweep_ld(s_cc + cx);
+      const float yk = ((post && (took || accept)) ? jump : 0.0f) - comp;
+      const float tot = sum + yk;
+      sweep_st(s_cc + cx, (tot - sum) - yk);
+      sweep_st(s_cold + cx, tot);
     }
+#ifdef RWM_PT_STAMPS
+    st[5] = globaltimer();
+#endif
     if (do_swap) sweep_sync();   // the pre-move states have been read
+    // a wide team's first warp has read the rows before its other warps
+    // copy their quads of an accepted proposal (a swap step's barrier
+    // above orders it there)
+    if constexpr (G > 32)
+      if (!do_swap && cold && accept) team_sync<G>();
+#ifdef RWM_PT_STAMPS
+    if (flat == 0) {
+      const unsigned long long now = globaltimer();
+      if (do_swap) {
+        atomicAdd(&stamp_words[0], st[1] - st[0]);
+        atomicAdd(&stamp_words[1], st[2] - st[1]);
+        atomicAdd(&stamp_words[2], st[3] - st[2]);
+        atomicAdd(&stamp_words[3], st[4] - st[3]);
+        atomicAdd(&stamp_words[4], st[5] - st[4]);
+        atomicAdd(&stamp_words[5], now - st[5]);
+        atomicAdd(&stamp_words[6], 1ull);
+      } else {
+        atomicAdd(&stamp_words[7], 1ull);
+        atomicAdd(&stamp_words[8], now - st[0]);
+      }
+    }
+#endif
     if (accept) team_copy<G, NQ>(row, xs, d, t);
     if (rec != nullptr && cold && c < record_chains &&
         (s + 1) % record_every == 0) {   // the cold chain, after the sweep
@@ -472,6 +664,10 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   }
 
   sweep_sync();   // (the cluster build: every block's accepts are final)
+  if (kGlobalTerms && flat == 0) {   // the pool's slot is free again
+    __threadfence();
+    atomicAnd(&claim[*s_claim >> 5], ~(1u << (*s_claim & 31)));
+  }
   if (valid) {
     for (int i = t; i < d; i += G)
       x_out[((size_t)i * T + rung) * C + c] = xs[i];
@@ -480,8 +676,7 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
       int a = s_acc[gid];
       if constexpr (kCluster) {   // rung `slot`'s accepts over the blocks
         a = 0;
-        for (int r = 0; r < nblk; ++r)
-          a += cg::this_cluster().map_shared_rank(s_acc, r)[gid];
+        for (int r = 0; r < nblk; ++r) a += sweep_ld(s_acc + gid, r);
       }
       acc_out[(size_t)slot * C + c] = a;
       if (slot == 0) {
@@ -512,6 +707,8 @@ Kernel kernel(int team) {
     case 8: return team_kernel<8>();
     case 16: return team_kernel<16>();
     case 32: return team_kernel<32>();
+    case 64: return team_kernel<64>();
+    case 128: return team_kernel<128>();
     default: return nullptr;
   }
 }
@@ -524,6 +721,12 @@ int pitch(int team) {
 // (kernels/_build.py::pt_block_threads)
 int block_threads(int team, int R, int T) {
   return (team * R * T + 31) / 32 * 32;
+}
+
+// Whether a block of `threads` has a named barrier for each of its teams
+// (G > 32; kernels/_build.py::WIDE_MAX_TEAMS)
+bool barriers_ok(int team, int threads) {
+  return team <= 32 || threads / team <= kMaxWideTeams;
 }
 
 cudaError_t prepare(Kernel k, size_t shmem) {
@@ -587,7 +790,7 @@ extern "C" int rwm_pt_fused_pt_info(int team, int cluster, int d, int T,
   if (e != cudaSuccess) return (int)e;
   const int threads = block_threads(team, R, block_slots(T, cluster));
   const size_t shmem =
-      shared_words(pitch(team), n_params, T, d, R, threads / team) *
+      shared_words(team, pitch(team), n_params, T, d, R, threads / team) *
       sizeof(float);
   out[0] = attr.numRegs;
   out[1] = attr.maxThreadsPerBlock;
@@ -595,7 +798,9 @@ extern "C" int rwm_pt_fused_pt_info(int team, int cluster, int d, int T,
   out[3] = (int)shmem;
   out[4] = 0;
   out[5] = 0;
-  if (shmem > kMaxSharedBytes || threads > attr.maxThreadsPerBlock) return 0;
+  if (shmem > kMaxSharedBytes || threads > attr.maxThreadsPerBlock ||
+      !barriers_ok(team, threads))
+    return 0;
   e = prepare(k, shmem);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k, threads,
@@ -609,7 +814,9 @@ extern "C" int rwm_pt_fused_pt_info(int team, int cluster, int d, int T,
 
 // The run: the arguments of csrc/fused_pt.cu's rwm_pt_fused_pt, whose
 // runtime_r is the team size here, then the blocks a cluster (0: the
-// one-block build's launch)
+// one-block build's launch), then the terms pool (kGlobalTerms builds:
+// `pool` block slots of rows for every team of a block, their bitmask
+// `claim` zeroed; else unread)
 extern "C" int rwm_pt_fused_pt(
     int kind, const float* params, int n_params, const float* betas,
     const float* sigmas, const float* x0, const int* acc0,
@@ -619,14 +826,15 @@ extern "C" int rwm_pt_fused_pt(
     int swap_every, int step0, uint32_t key0, uint32_t key1, int replica0,
     int rung0, const float* lap, float inv_d, float* rec, int record_every,
     int record_chains, int order, int R, int team, int cluster,
-    void* stream) {
+    float* terms, unsigned* claim, int pool, void* stream) {
   const Kernel k = kernel(team);
   if (k == nullptr || !cluster_ok(cluster) || d < 1 || d + 4 > kDmax ||
       T < 1 || C < 1 || total < 0 || swap_every < 1 || kind != kKind ||
       (order != 0 && order != 1) || R < 1 ||
       (kProp == PROPOSAL_LAPLACE && lap == nullptr) ||
       (rec != nullptr && (record_every < 1 || record_chains < 1 ||
-                          record_chains > C)))
+                          record_chains > C)) ||
+      (kGlobalTerms && (terms == nullptr || claim == nullptr || pool < 1)))
     return (int)cudaErrorInvalidValue;
 #ifdef RWM_PT_SF_N
   // a fixed-shape build: params is the host's padded dataset
@@ -639,10 +847,10 @@ extern "C" int rwm_pt_fused_pt(
   cudaError_t e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
   const int threads = block_threads(team, R, block_slots(T, cluster));
-  if (threads > attr.maxThreadsPerBlock)
+  if (threads > attr.maxThreadsPerBlock || !barriers_ok(team, threads))
     return (int)cudaErrorInvalidConfiguration;
   const size_t shmem =
-      shared_words(pitch(team), n_params, T, d, R, threads / team) *
+      shared_words(team, pitch(team), n_params, T, d, R, threads / team) *
       sizeof(float);
   if (shmem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   e = prepare(k, shmem);
@@ -653,7 +861,8 @@ extern "C" int rwm_pt_fused_pt(
         &l.cfg, k, params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0,
         cj0, x_out, lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C,
         total, burn_in, swap_every, step0, key0, key1, replica0, rung0, lap,
-        inv_d, rec, record_every, record_chains, order, R);
+        inv_d, rec, record_every, record_chains, order, R, terms, claim,
+        pool);
     if (e != cudaSuccess) {   // a cluster the card refuses
       cudaGetLastError();
       return (int)e;
@@ -664,6 +873,26 @@ extern "C" int rwm_pt_fused_pt(
       params, n_params, betas, sigmas, x0, acc0, swapacc0, bj0, cj0, x_out,
       lp_out, acc_out, swapacc_out, bj_out, cj_out, d, T, C, total, burn_in,
       swap_every, step0, key0, key1, replica0, rung0, lap, inv_d, rec,
-      record_every, record_chains, order, R);
+      record_every, record_chains, order, R, terms, claim, pool);
   return (int)cudaGetLastError();
+}
+
+// The measuring build's stamp words (kStampWords, ns and counts summed over
+// the blocks since the last reset) into `out`, and zeroed when `reset`;
+// cudaErrorInvalidValue in every other build
+extern "C" int rwm_pt_fused_pt_stamps(unsigned long long* out, int reset) {
+#ifdef RWM_PT_STAMPS
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess && out != nullptr)
+    e = cudaMemcpyFromSymbol(out, stamp_words, sizeof(stamp_words));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[kStampWords] = {};
+    e = cudaMemcpyToSymbol(stamp_words, zero, sizeof(zero));
+  }
+  return (int)e;
+#else
+  (void)out;
+  (void)reset;
+  return (int)cudaErrorInvalidValue;
+#endif
 }

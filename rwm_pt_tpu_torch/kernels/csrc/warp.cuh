@@ -5,16 +5,29 @@
 // layout in Python (warp_slot_owner, warp_blocks, bm_lanes, team_pitch,
 // team_rows).
 //
-// Teams.  G (4, 8, 16 or 32, a template argument; a library instantiates
-// those of kernels/_build.py::library_teams: 4 and 32 in the 128-slot
-// bucket, 8 and 32 in the 256, 16 and 32 in the 512 and 1024, where RWM's
-// take 32 alone, and 32 alone in the 2048 and 4096) divides the warp into
-// 32 / G aligned teams of G lanes; lane t = lane mod G of a team.  G = 32 is one warp a state.  A team's
-// shuffles (__shfl_xor_sync with m < G, __shfl_sync with width G) never
-// leave it, and every one of them is issued by all 32 lanes alike: the
-// teams of a warp follow the same control flow up to their per-state
-// branches (accept, the cold rung, a ragged edge), and no shuffle sits
-// inside one.
+// Teams.  G (4, 8, 16, 32, 64 or 128, a template argument; a library
+// instantiates those of kernels/_build.py::library_teams: 4 and 32 in the
+// 128-slot bucket, 8 and 32 in the 256, 16 and 32 in the 512 and 1024,
+// where RWM's take 32 alone, and PT's 32 and 64 in the 2048 and 32, 64 and
+// 128 in the 4096, where RWM's take 32 alone) divides the warp into 32 / G
+// aligned teams of G lanes; lane t = lane mod G of a team.  G = 32 is one
+// warp a state.  A team's shuffles (__shfl_xor_sync with m < G,
+// __shfl_sync with width G) never leave it, and every one of them is
+// issued by all 32 lanes alike: the teams of a warp follow the same
+// control flow up to their per-state branches (accept, the cold rung, a
+// ragged edge), and no shuffle sits inside one.
+//
+// Wide teams.  G = 64 or 128 is W = G / 32 warps a state (team lane t =
+// threadIdx.x mod G, team threadIdx.x / G of its block).  Its barrier
+// (team_sync, where a narrower team has __syncwarp) is named barrier 1 +
+// its team (bar.sync id, G; id 0 is __syncthreads'), so a block holds at
+// most kMaxWideTeams of them; its exchange is kWideWords words a team at
+// the start of the block's dynamic shared memory (team_words: the W warps'
+// partial sums or all-flags, then the broadcast slots d, d + 1, d + 2,
+// which the owner stores and every lane reads after a team barrier).  A
+// sum is each warp's butterfly, then the W partials read by every lane in
+// warp order between two team barriers: every lane still ends with the
+// same float.
 //
 // Layout.  Coordinate i = 4q + w belongs to team lane q mod G, and so does
 // Philox slot i: the lane computes block q = G k + t of the counter
@@ -38,7 +51,7 @@
 // Box-Muller (pair k < h = ceil(d/2) computed by the lane of coordinate k,
 // which alone reads slots k and h + k, or d + 3, and writes the cosine and
 // the sine over them) and the uniform ball's direction then work on the
-// row in place; after one __syncwarp every lane reads any word of the
+// row in place; after one team barrier every lane reads any word of the
 // proposal (a Rosenbrock neighbour, HybridRosenbrock's x0, the quadratic
 // form's columns) from the row.  The iso and scaled MVN (kOwnTerms) read
 // none back: a lane adds its words' terms of the log-density where it
@@ -131,11 +144,58 @@ __device__ __forceinline__ int block_trips(int d) {
   return NQ == 1 ? 1 : ((d + 3) >> 2) / G + 1;
 }
 
-// Butterfly sum over the team: every lane of it ends with the same float.
+// A wide team's exchange words (kernels/_build.py::WIDE_WORDS): words
+// 0..W-1 the warps' partials, kSlotWord.. the broadcast slots
+constexpr int kWideWords = 8;
+constexpr int kSlotWord = 4;
+// Wide teams a block: named barriers 1..15 (kernels/_build.py::
+// WIDE_MAX_TEAMS)
+constexpr int kMaxWideTeams = 15;
+
+// This lane's team's exchange words (G > 32): kWideWords a team at the
+// start of the block's dynamic shared memory, which a kernel of wide teams
+// lays out so
+template <int G>
+__device__ __forceinline__ float* team_words() {
+  static_assert(G > 32, "a team within a warp exchanges by shuffles");
+  extern __shared__ float4 wide_smem[];
+  return reinterpret_cast<float*>(wide_smem) + kWideWords * (threadIdx.x / G);
+}
+
+// The lane's place in its team from its warp lane: lane mod G within a
+// warp, threadIdx.x mod G in a wide team
+template <int G>
+__device__ __forceinline__ int team_lane(int lane) {
+  return (G > 32 ? (int)threadIdx.x : lane) & (G - 1);
+}
+
+// The team's barrier: __syncwarp within a warp, a named barrier of G
+// threads across warps (with the memory ordering of both among the team)
+template <int G>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (G <= 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(threadIdx.x / G + 1), "n"(G)
+                 : "memory");
+}
+
+// Butterfly sum over the team: every lane of it ends with the same float
+// (a wide team: each warp's butterfly, then the warps' partials in order).
 template <int G>
 __device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int m = G / 2; m > 0; m >>= 1) v += __shfl_xor_sync(kFullMask, v, m);
+  for (int m = (G < 32 ? G : 32) / 2; m > 0; m >>= 1)
+    v += __shfl_xor_sync(kFullMask, v, m);
+  if constexpr (G > 32) {
+    float* w = team_words<G>();
+    if ((threadIdx.x & 31) == 0) w[(threadIdx.x & (G - 1)) >> 5] = v;
+    team_sync<G>();
+    v = w[0];
+#pragma unroll
+    for (int i = 1; i < G / 32; ++i) v += w[i];
+    team_sync<G>();   // every lane has read the partials
+  }
   return v;
 }
 
@@ -145,9 +205,19 @@ __device__ __forceinline__ bool team_all(bool pred, int lane) {
   const unsigned b = __ballot_sync(kFullMask, pred);
   if constexpr (G == 32) {
     return b == kFullMask;
-  } else {
+  } else if constexpr (G < 32) {
     const unsigned m = ((1u << G) - 1u) << (lane & ~(G - 1));
     return (b & m) == m;
+  } else {
+    float* w = team_words<G>();
+    if (lane == 0)
+      w[(threadIdx.x & (G - 1)) >> 5] = b == kFullMask ? 1.0f : 0.0f;
+    team_sync<G>();
+    bool all = true;
+#pragma unroll
+    for (int i = 0; i < G / 32; ++i) all &= w[i] != 0.0f;
+    team_sync<G>();   // every lane has read the flags
+    return all;
   }
 }
 
@@ -171,6 +241,17 @@ __device__ __forceinline__ void take_slot(const uint4& b, int k, int j,
   const int q = j >> 2;
   if (k == q / G)
     w = __shfl_sync(kFullMask, philox_word(b, j & 3), q % G, G);
+}
+
+// A wide team's take_slot: the lane that holds slot j stores its word in
+// broadcast slot `at` of the team's words, which every lane reads after
+// the next team barrier
+template <int G>
+__device__ __forceinline__ void put_slot(const uint4& b, int k, int j, int t,
+                                         int at) {
+  const int q = j >> 2;
+  if (k == q / G && t == q % G)
+    team_words<G>()[kSlotWord + at] = __uint_as_float(philox_word(b, j & 3));
 }
 
 // The lane's quads of row `from` into row `to`
@@ -208,23 +289,33 @@ __device__ __forceinline__ float team_sq_jump(const float* a, const float* b,
   return team_sum<G>(s);
 }
 
-// sum_{i < d} row[i] in index order, read by every lane alike
+// sum_{i < d} row[i] in index order, read by every lane alike, a quad a
+// load (a 16-byte aligned row, in shared or global memory): the same adds,
+// in the same order, as a word at a time
 __device__ __forceinline__ float row_sum_in_order(const float* row, int d) {
   float s = 0.0f;
-  for (int i = 0; i < d; ++i) s += row[i];
+  const int full = d >> 2;
+  for (int q = 0; q < full; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(row)[q];
+    s += v.x;
+    s += v.y;
+    s += v.z;
+    s += v.w;
+  }
+  for (int i = 4 * full; i < d; ++i) s += row[i];
   return s;
 }
 
 // Box-Muller normals (csrc/mh.cuh::bm_normals' map) over the uniforms of
 // every slot, which the team's lanes have written to its scratch row: the
 // lane of coordinate i < h writes r cos over slot i and r sin over slot
-// h + i (words it alone reads), so after the second __syncwarp word i of
+// h + i (words it alone reads), so after the second team barrier word i of
 // the row is normal i, i < d.
 template <int G, int NQ>
 __device__ __forceinline__ void team_bm_rows(float* row, int d, int t) {
   const int h = (d + 1) >> 1;
   const int n = coord_trips<G, NQ>(d);
-  __syncwarp();   // every slot's uniform is in the row
+  team_sync<G>();   // every slot's uniform is in the row
 #pragma unroll 1
   for (int k = 0; k < n; ++k) {
 #pragma unroll
@@ -240,7 +331,7 @@ __device__ __forceinline__ void team_bm_rows(float* row, int d, int t) {
       }
     }
   }
-  __syncwarp();   // every sine is in the row
+  team_sync<G>();   // every sine is in the row
 }
 
 // Parameters of up to this many words lie in a block's shared memory
@@ -384,13 +475,13 @@ __device__ __forceinline__ float team_super_funnel_fixed(const float* y,
 // The log-density of the state in row y (words past d unread),
 // csrc/targets.cuh's formulas, every lane of the team the same float
 // (SuperFunnel's likelihood too: its groups split over the lanes).
-// Every word of y must be visible to the team (a __syncwarp after its
+// Every word of y must be visible to the team (a team barrier after its
 // last write); `trow` is the team's terms row (kTermsRow kinds).
 template <int KIND, int G, int NQ>
 __device__ __forceinline__ float team_log_density(const float* y,
                                                   float* trow, int d,
                                                   const float* p, int lane) {
-  const int t = lane & (G - 1);
+  const int t = team_lane<G>(lane);
   const int nc = coord_trips<G, NQ>(d);
   if constexpr (KIND == TARGET_ROSENBROCK || KIND == TARGET_EVEN_ROSENBROCK) {
     const int n = d - 1;
@@ -445,7 +536,7 @@ __device__ __forceinline__ float team_log_density(const float* y,
     // every row of the precision matrix, so a team reads a row's
     // contiguous words (shared memory or L2, kernels/_build.py
     // params_shared_words)
-    __syncwarp();   // the terms row's last readers are done
+    team_sync<G>();   // the terms row's last readers are done
 #pragma unroll 1
     for (int k = 0; k < nc; ++k) {
       const int q = G * k + t;
@@ -459,7 +550,7 @@ __device__ __forceinline__ float team_log_density(const float* y,
         row4(trow, q) = v;
       }
     }
-    __syncwarp();
+    team_sync<G>();
     const float* cinv = p + 1 + d;
     float acc = 0.0f;
     for (int i = 0; i < d; ++i) {
@@ -568,7 +659,7 @@ __device__ __forceinline__ float team_log_density(const float* y,
     return team_all<G>(inside, lane) ? p[2] : -INFINITY;
   } else if constexpr (KIND == TARGET_IID_GAMMA || KIND == TARGET_IID_BETA) {
     bool valid = true;
-    __syncwarp();   // the terms row's last readers are done
+    team_sync<G>();   // the terms row's last readers are done
 #pragma unroll 1
     for (int k = 0; k < nc; ++k) {
       const int q = G * k + t;
@@ -598,7 +689,7 @@ __device__ __forceinline__ float team_log_density(const float* y,
         row4(trow, q) = tq;
       }
     }
-    __syncwarp();
+    team_sync<G>();
     const float s = row_sum_in_order(trow, d);
     if (!team_all<G>(valid, lane)) return -INFINITY;
     return KIND == TARGET_IID_GAMMA ? s - p[2] : s + p[2];
@@ -614,11 +705,11 @@ __device__ __forceinline__ float team_log_density(const float* y,
     // lane, so `valid` holds team-wide.
     const auto x = [y](int i) { return y[i]; };
     const bool valid = super_funnel_taus_valid(y[d - 2], y[d - 1]);
-    __syncwarp();   // the terms row's last readers are done
+    team_sync<G>();   // the terms row's last readers are done
     if (valid)
       for (int j = t; j < (int)p[0]; j += G)
         trow[j] = super_funnel_group(x, j, p);
-    __syncwarp();
+    team_sync<G>();
     if (!valid) return -INFINITY;
     return super_funnel_valid(x, [trow](int j) { return trow[j]; }, d, p);
 #endif
@@ -658,18 +749,24 @@ __device__ __forceinline__ bool team_mh_propose(
     uint32_t key1, float& u_swap, float& jump) {
   constexpr bool kBM = PROP != PROPOSAL_LAPLACE && DRAW == DRAW_BM;
   constexpr bool kUR = PROP == PROPOSAL_UNIFORM_RADIUS;
-  const int t = lane & (G - 1);
+  const int t = team_lane<G>(lane);
   const int nb = block_trips<G, NQ>(d);
   uint32_t w_mh = 0u, w_sw = 0u, w_r = 0u;
   float sj = 0.0f, slp = 0.0f;   // the jump's and the lp's parts
-  __syncwarp();   // the scratch row's last readers are done
+  team_sync<G>();   // the scratch row's (and slots') last readers are done
 #pragma unroll 1
   for (int k = 0; k < nb; ++k) {
     const int q = G * k + t;
     const uint4 b = team_block(q, d, replica, rung, abs_step, key0, key1);
-    take_slot<G>(b, k, d, w_mh);
-    take_slot<G>(b, k, d + 1, w_sw);
-    if constexpr (kUR) take_slot<G>(b, k, d + 2, w_r);
+    if constexpr (G > 32) {
+      put_slot<G>(b, k, d, t, 0);
+      put_slot<G>(b, k, d + 1, t, 1);
+      if constexpr (kUR) put_slot<G>(b, k, d + 2, t, 2);
+    } else {
+      take_slot<G>(b, k, d, w_mh);
+      take_slot<G>(b, k, d + 1, w_sw);
+      if constexpr (kUR) take_slot<G>(b, k, d + 2, w_r);
+    }
     float4 v;
     if constexpr (kBM) {
       v = make_float4(uniform_from_bits(b.x), uniform_from_bits(b.y),
@@ -700,6 +797,13 @@ __device__ __forceinline__ bool team_mh_propose(
       }
     }
     if (4 * q <= d + 3) row4(row, q) = v;
+  }
+  if constexpr (G > 32) {   // the broadcast slots, from the team's words
+    team_sync<G>();
+    const float* w = team_words<G>() + kSlotWord;
+    w_mh = __float_as_uint(w[0]);
+    w_sw = __float_as_uint(w[1]);
+    if constexpr (kUR) w_r = __float_as_uint(w[2]);
   }
   if constexpr (kBM) team_bm_rows<G, NQ>(row, d, t);   // the normals
   if constexpr (kBM || kUR) {
@@ -774,7 +878,7 @@ __device__ __forceinline__ bool team_mh_propose(
   if constexpr (kOwnTerms<KIND>) {
     lp_prop = own_terms_density<KIND>(team_sum<G>(slp), p);
   } else {
-    __syncwarp();   // the proposal is in the row
+    team_sync<G>();   // the proposal is in the row
     lp_prop = team_log_density<KIND, G, NQ>(row, trow, d, p, lane);
   }
   const float log_ratio = beta * (lp_prop - lp);

@@ -275,9 +275,15 @@ def resolve_normal_impl(kernel: str, block: int,
     changes the pick: 122.516 ms at the flagship PT, 65,536 replicas
     (Box-Muller 169.530, ICDF 192.856), 13.129 ms at the RWM headline,
     65,536 chains (Box-Muller 18.176), 49.220 ms at the PT study's 1024
-    replicas (ICDF 59.651), 151.280 ms at the RWM study's 1024 chains
-    (ICDF 168.222) and 373.770 ms on the full-covariance MVN at the
-    flagship's shape (ICDF 442.222).  Above 64 dimensions the warp
+    replicas (ICDF 59.651) and 151.280 ms at the RWM study's 1024 chains
+    (ICDF 168.222).  The full-covariance MVN at the flagship's shape is
+    the exception: ``lax_erfinv`` took 373.770 ms there when the rule was
+    measured (Box-Muller 442.222), but 523.0-523.2 ms since the Philox
+    counter took its replica and rung offsets (Box-Muller 445.7-447.2),
+    so Box-Muller is the faster draw there now
+    (``scripts/bench_torch_pt_rungs.py --tree DIR --only mvn_full`` over
+    earlier trees, ROADMAP B4); the rule still takes ``lax_erfinv`` on
+    it.  Above 64 dimensions the warp
     kernels rank the draws the same (``chip_smoke.py`` phase 16f, the
     iso MVN at d = 100): 45.493 ms at 65,536 chains over 2000 steps (ICDF
     66.542, Box-Muller 86.642) and 72.122 ms at 65,536 replicas x 10

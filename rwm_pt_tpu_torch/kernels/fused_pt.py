@@ -23,6 +23,7 @@ in either order.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 
 import torch
@@ -142,7 +143,7 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
                      *, kind="Normal", record_every=0, record_chains=0,
                      draw="icdf", swap_sweep="sequential", warp=None,
                      team=None, cluster=None, specialize=True, replica0=0,
-                     rung0=0):
+                     rung0=0, _stamps=False):
     """Launch ``csrc/fused_pt.cu``, or above 64 dimensions
     ``csrc/fused_pt_warp.cu`` (the library built for proposal ``kind``,
     ``draw`` and the target's kind, ``_build.route``: a SuperFunnel whose
@@ -167,7 +168,9 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     registers and launch bound, the rows' shared memory; a warp library's
     team size and blocks a cluster too).  A ladder of more rungs than
     ``_build.target_rungs_fit`` raises ``NotImplementedError`` naming the
-    layout that sets the fit, before anything is built."""
+    layout that sets the fit, before anything is built.  ``_stamps``
+    launches the cluster build's measuring build, uncounted
+    (:func:`swap_split`)."""
     variant = _build.library("fused_pt", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
     if _build.fixed_shape(lib) is None or _build.is_warp(lib):
@@ -211,7 +214,14 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
     geo = _build.launch_geometry(lib, d, C, T, kind, draw, params.numel(),
                                  team, cluster)
     if geo.cluster:
-        lib = _build.cluster_lib(lib)
+        lib = _build.cluster_lib(lib, _stamps)
+    elif _stamps:
+        raise ValueError(f"{lib}: the measuring build is the cluster "
+                         f"build's; pass cluster=")
+    warp = _build.is_warp(lib)
+    rows, claim, pool = (_build.terms_pool(lib, geo, d, T, params.numel(),
+                                           x0.device)
+                         if warp else (None, None, 0))
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             betas.data_ptr(),
@@ -223,10 +233,14 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
             sigmas.data_ptr() if kind == "Laplace" else 0, 1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0, order,
             geo.replicas,
-            *((geo.team, geo.cluster) if _build.is_warp(lib)
+            *((geo.team, geo.cluster,
+               0 if rows is None else rows.data_ptr(),
+               0 if claim is None else claim.data_ptr(), pool) if warp
               else (int(geo.runtime_r),)),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
+    if _stamps:
+        return x, lp, acc, swapacc, bj, cj
     launch_pt_kernel.launches[_build.launch_key(lib)] += 1
     if n_rec:
         launch_pt_kernel.launches["fused_pt_record"] += 1
@@ -235,6 +249,44 @@ def launch_pt_kernel(target, x0, acc0, swapacc0, betajump0, coldjump0,
 
 
 launch_pt_kernel.launches = Counter()
+
+# the parts of a swap step between the cluster build's stamps
+# (csrc/fused_pt_warp.cu, -DRWM_PT_STAMPS): the MH move, the first cluster
+# barrier, the sweep (or the wait for it), the second barrier, the
+# cold-rung jump, the third barrier
+SWAP_SPLIT = ("mh", "barrier1", "sweep", "barrier2", "cold", "barrier3")
+
+
+def swap_split(*args, **kw) -> dict:
+    """One launch of the cluster build's measuring build (library
+    ``...c<D>s``, uncounted) with :func:`launch_pt_kernel`'s arguments
+    (``cluster=`` or a ladder no block holds): the mean µs a swap step of
+    each part of :data:`SWAP_SPLIT` as block thread 0 sees it, over the
+    blocks and the swap steps, with ``"swap_step"`` their sum,
+    ``"step"`` the mean µs of a step with no swap, and the counts
+    ``"swap_steps"`` and ``"steps"`` (block-steps).  Needs the card."""
+    x0 = args[1]
+    variant = _build.library("fused_pt", kw.get("kind", "Normal"),
+                             kw.get("draw", "icdf"))
+    lib = _build.route(variant, args[0], kw.get("warp"))[0]
+    geo = _build.launch_geometry(lib, x0.shape[0], x0.shape[2],
+                                 x0.shape[1], kw.get("kind", "Normal"),
+                                 kw.get("draw", "icdf"),
+                                 _build.kernel_target(args[0])[1].numel(),
+                                 kw.get("team"), kw.get("cluster"))
+    name = _build.cluster_lib(lib, stamps=True)
+    stamps = _build.entry(name, "rwm_pt_fused_pt_stamps")
+    words = (ctypes.c_uint64 * 9)()
+    _build.check_launch(name, stamps(None, 1))
+    launch_pt_kernel(*args, **kw, _stamps=True)
+    _build.check_launch(name, stamps(words, 0))
+    n_swap, n_step = max(words[6], 1), max(words[7], 1)
+    out = {k: words[i] / n_swap / 1e3 for i, k in enumerate(SWAP_SPLIT)}
+    out["swap_step"] = sum(out[k] for k in SWAP_SPLIT)
+    out["step"] = words[8] / n_step / 1e3
+    out["swap_steps"], out["steps"] = int(words[6]), int(words[7])
+    out["team"], out["cluster"] = geo.team, geo.cluster
+    return out
 
 
 def rung_scales(proposal, base_variance, betas, mult):

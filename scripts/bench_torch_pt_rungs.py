@@ -3,6 +3,7 @@ the flagship's 32 replicas a block: ladders of more than 10 rungs, the
 full-covariance MVN, Hypercube and the PT study's 1024 replicas.
 
     python scripts/bench_torch_pt_rungs.py [--tree DIR] [--out FILE]
+                                           [--reps N] [--only REGEX]
 
 ``--tree`` is a checkout of this repository whose ``rwm_pt_tpu_torch`` is
 imported (default: the one holding this script), so that an earlier tree
@@ -14,12 +15,16 @@ swap every 100) with each listed normal draw: a warm-up launch, then the
 best of ``--reps`` CUDA-event timings.  Prints one line a case (ms, mean
 acceptance, swaps a replica, and where the tree has it the launch
 geometry and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``'s blocks)
-and writes them as JSON to ``--out``.  Needs the card and ``nvcc``.
+and writes them as JSON to ``--out``; ``--only`` runs the cases whose
+target kind matches (``mvn_full``: the full-covariance MVN alone, with the
+rule's ``lax_erfinv`` and Box-Muller, for a bisect over trees).  Needs the
+card and ``nvcc``.
 """
 import argparse
 import json
 import math
 import os
+import re
 import sys
 
 D, C, STEPS, SWAP = 30, 65536, 2000, 100
@@ -31,6 +36,8 @@ def main():
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", default="",
+                    help="run the cases whose target kind matches")
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import numpy as np
@@ -63,6 +70,9 @@ def main():
                ("icdf",) + bl),
               ("hypercube", 10, C, STEPS, 2.38 ** 2 / 3 / D, bl),
               ("three_mixture", 7, 1024, 20000, 2.38 ** 2 / 10, bl)]
+    cases = [c for c in cases if re.search(a.only, c[0])]
+    if a.only:
+        cases = [c[:5] + (bl,) for c in cases]
     lib = {(k, dr): _build.lib_name(_build.library("fused_pt", "Normal", dr),
                                     k, targets[k].dim)
            for k, *_, drs in cases for dr in drs}

@@ -5,6 +5,7 @@ the tree has team sizes, with each one forced.
 
     python scripts/bench_torch_warp.py [--tree DIR] [--out FILE] [--reps N]
                                        [--only REGEX] [--rwm-teams G,G]
+                                       [--check FILE]
 
 ``--tree`` is a checkout of this repository whose ``rwm_pt_tpu_torch`` is
 imported (default: the one holding this script), so that an earlier tree
@@ -28,13 +29,23 @@ campaigns
 iterations, Hypercube 200,000, burn-in 1000), in seconds a point; and, the
 warp kernel forced (``warp=True``), the RWM study's shape (RoughCarpetScaled
 d = 20, UniformRadius, 1024 chains, 20,000 steps) and the flagship PT and
-RWM headline at d = 30.  Each launch: a warm-up, then the best of
+RWM headline at d = 30; and the widest rows (``WIDE_ROWS``, labels
+``wide ...``: 65,536 replicas x T or chains, 200 steps): PT at d = 2000 and
+4000, T = 10 (FullRosenbrock, the iso MVN), IIDGamma at d = 2000, the iso
+MVN at d = 500, T = 36 and d = 1000, T = 50 (a ladder no block holds),
+RWM at d = 2000 and 4000, each with the launch's registers and warps an
+SM.  Each launch: a warm-up, then the best of
 ``--reps`` CUDA-event timings, beside ``chip_smoke.py::bound`` (this
 script's checkout) and its share; ``--only`` times the shapes whose
 label matches; ``--rwm-teams`` builds the wide RWM libraries with these
 team sizes, forced in this order, in place of ``_build.RWM_WARP_TEAMS``
-(run ``16,32`` and ``32,16`` in turns to compare them).  Prints a line a
-launch and writes them as JSON to
+(run ``16,32`` and ``32,16`` in turns to compare them).  ``--check FILE``
+keeps a digest of every launch's outputs (x, lp, the counters and the Kahan
+sums, hashed on the card) in FILE, or, where FILE holds another tree's,
+compares them: every launch whose team size is the same and at most 32
+must equal the other tree's bit for bit; in one run, a kind that sums its
+log-density in index order (``INDEX_ORDER``) must give G = 32's digest at
+the wide teams too.  Prints a line a launch and writes them as JSON to
 ``--out``, with the card's name and power limit.  Needs the card and
 ``nvcc``.
 """
@@ -66,6 +77,32 @@ GRIDS = {(100, "pt"): (512, 1024, 2048, 4096, 8192, 16384),
          (500, "rwm"): (1024, 4096, 16384),
          (1000, "pt"): (1024, 4096, 16384),
          (1000, "rwm"): (1024, 4096, 16384)}
+# (algo, kind, d, T) of the widest rows, 200 steps at 65,536 replicas x T
+# or chains (PERF.md's rows of the 2048 and 4096 buckets and the cluster
+# build)
+WIDE_ROWS = (("pt", "rosenbrock", 2000, 10), ("pt", "mvn_iso", 2000, 10),
+             ("pt", "rosenbrock", 4000, 10), ("pt", "mvn_iso", 4000, 10),
+             ("pt", "iid_gamma", 2000, 10), ("pt", "mvn_iso", 500, 36),
+             ("pt", "mvn_iso", 1000, 50), ("rwm", "rosenbrock", 2000, 1),
+             ("rwm", "mvn_iso", 2000, 1), ("rwm", "rosenbrock", 4000, 1),
+             ("rwm", "mvn_iso", 4000, 1))
+WIDE_STEPS = 200
+# the kinds whose log-density every team size sums in index order
+INDEX_ORDER = ("iid_gamma", "iid_beta", "neal_funnel")
+
+
+def digest(torch, t) -> str:
+    """A hash of tensor ``t``'s bits, made on its device by chunks: two
+    position-weighted int64 sums (wrapping) a chunk."""
+    v = t.contiguous().view(-1)
+    v = v.view(torch.int32) if v.element_size() == 4 else v
+    h = []
+    for c in v.split(1 << 26):
+        c = c.to(torch.int64)
+        w = torch.arange(c.numel(), device=c.device, dtype=torch.int64)
+        h += [int(c.sum()), int((c * (2 * w + 1)).sum()),
+              int((c * (w * w + 7)).sum())]
+    return f"{t.dtype}{tuple(t.shape)}:{hash(tuple(h)) & (1 << 64) - 1:016x}"
 
 
 def main():
@@ -78,6 +115,9 @@ def main():
     ap.add_argument("--rwm-teams", default="",
                     help="team sizes of the wide RWM libraries, in the "
                     "order they are forced")
+    ap.add_argument("--check", default="",
+                    help="keep the outputs' digests here, or compare with "
+                    "the ones another tree kept")
     a = ap.parse_args()
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
@@ -87,7 +127,7 @@ def main():
     from rwm_pt_tpu_torch.proposals import create_proposal_distribution
     from rwm_pt_tpu_torch.targets import get_target_distribution
     sys.path.insert(0, HERE)
-    from chip_smoke import bound, pt_work, rwm_work
+    from chip_smoke import bound, pt_work, rwm_work, wide_target
     if a.rwm_teams:
         teams = tuple(int(g) for g in a.rwm_teams.split(","))
         _build.RWM_WARP_TEAMS.update(dict.fromkeys(_build.RWM_WARP_TEAMS,
@@ -152,6 +192,12 @@ def main():
         20, {"name": "UniformRadius", "params": {"base_radius": 2.4654}},
         device=dev)
     rb30, var30 = target("rosenbrock", 30)
+    for algo, kind, d, T in WIDE_ROWS:
+        tg, var = (target(kind, d) if kind != "iid_gamma" else
+                   wide_target(get_target_distribution, kind, d, dev))
+        cases.append((f"wide {algo} {kind} d={d}"
+                       + (f" T={T}" if algo == "pt" else ""), algo, tg, var,
+                       C_MAIN, T, WIDE_STEPS, 0, None, None, False))
     cases += [("record RWM study RoughCarpetScaled d=20 UniformRadius",
                "rwm", rc20, var20, 1024, 1, 20000, 0, study, True, False),
               ("record flagship PT d=30", "pt", rb30, var30, C_MAIN, T_MAIN,
@@ -190,7 +236,15 @@ def main():
             f"{n} {r} regs, {f} B stack, {sp} B spill"
             for n, r, f, sp in sorted(ptxas_report.parse(log))), flush=True)
 
-    res = {"tree": os.path.abspath(a.tree), "card": card, "cases": {}}
+    res = {"tree": os.path.abspath(a.tree), "card": card, "cases": {},
+           "check": {}}
+    other = None
+    if a.check and os.path.exists(a.check):
+        with open(a.check) as f:
+            other = json.load(f)
+        print(f"check against {other['tree']}", flush=True)
+    names = (("x", "lp", "acc", "swapacc", "betajump", "coldjump"),
+             ("x", "lp", "acc", "jump"))
     for label, algo, tg, var, C, T, steps, burn_in, pr, warp, per_point \
             in cases:
         launch, args, kind = launch_args(algo, tg, var, C, T, steps,
@@ -234,18 +288,71 @@ def main():
                        bound_share=b_ms / best, acc=acc,
                        team=picked if team is None else team,
                        replicas=geo.replicas if team is None else None)
+            if label.startswith("wide"):
+                row.update(layout(_build, lib, d, C, T if algo == "pt"
+                                  else 0, kind, n_params, team))
             if per_point:
                 row["s_a_point"] = best / 1e3
             rows[tag] = row
             print(f"{label} [{tag}]: {best:.3f} ms, bound {b_ms:.3f} ms by "
                   f"{b_limit} ({100 * b_ms / best:.1f} %), G={row['team']}"
-                  f", acc {acc:.4f}", flush=True)
+                  f", acc {acc:.4f}"
+                  + (f", {row['registers']} registers, "
+                     f"{row['warps_per_sm']} warps an SM, cluster "
+                     f"{row['cluster']}" if "registers" in row else ""),
+                  flush=True)
+            if a.check:
+                dig = {nm: digest(torch, o) for nm, o in
+                       zip(names[algo == "rwm"], out)}
+                res["check"].setdefault(label, {})[tag] = dict(
+                    team=row["team"], digest=dig)
+                check_one(other, res, label, tag, row["team"], dig, tkind)
         res["cases"][label] = rows
         del args
         torch.cuda.empty_cache()
     if a.out:
         with open(a.out, "w") as f:
             json.dump(res, f, indent=1)
+    if a.check and other is None:
+        with open(a.check, "w") as f:
+            json.dump({"tree": res["tree"], "check": res["check"]}, f)
+
+
+def layout(_build, lib, d, C, T, prop, n_params, team):
+    """A launch's team size, blocks a cluster, registers and warps an SM
+    (``_build.launch_geometry``, ``kernel_info``; what the tree has)."""
+    geo = _build.launch_geometry(lib, d, C, T, prop, "lax_erfinv", n_params,
+                                 team)
+    name = _build.cluster_lib(lib) if getattr(geo, "cluster", 0) else lib
+    kw = dict(team=geo.team)
+    if getattr(geo, "cluster", 0):
+        kw["cluster"] = geo.cluster
+    info = _build.kernel_info(name, d, max(T, 1), geo.replicas, n_params,
+                              **kw)
+    return dict(registers=info["registers"], cluster=getattr(geo, "cluster",
+                                                             0),
+                warps_per_sm=info["blocks_per_sm"] * -(-geo.threads // 32),
+                threads=geo.threads)
+
+
+def check_one(other, res, label, tag, team, dig, kind):
+    """Compare a launch's digests: with the other tree's at the same team
+    size (at most 32), and for the kinds of ``INDEX_ORDER`` a wide team's
+    with this run's G = 32.  Prints the verdict; a difference is printed,
+    not raised, so that the run times every row."""
+    if other is not None and team <= 32:
+        theirs = other["check"].get(label, {}).get(tag)
+        if theirs is not None and theirs["team"] == team:
+            bad = [k for k, v in dig.items() if theirs["digest"].get(k) != v]
+            print(f"check {label} [{tag}] against the other tree: "
+                  + ("bit for bit" if not bad else f"DIFFERS in {bad}"),
+                  flush=True)
+    g32 = res["check"].get(label, {}).get("G32")
+    if kind in INDEX_ORDER and team > 32 and g32 is not None:
+        bad = [k for k, v in dig.items() if g32["digest"].get(k) != v]
+        print(f"check {label} [{tag}] against G=32: "
+              + ("bit for bit" if not bad else f"DIFFERS in {bad}"),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1440,3 +1440,108 @@ def test_full_mvn_ladder_kernel_lands_plain_ladder(d):
     info = ladder_build.info("mvn_full", d,
                              _build.kernel_target(tg)[1].numel())
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
+
+
+# ------------------------------------ PT's wide teams (the 2048 and 4096 buckets)
+# (kind, d, team): teams of two and four warps a state, in one block (d =
+# 2000, G = 64) or over a cluster (G = 128 at d = 2000, both at d = 4000);
+# the kinds that sum their lp in index order, whose results equal G = 32's
+WIDE_TEAM_CASES = [(k, d, g, "Normal") for k, d, teams in (
+    ("mvn_iso", 2000, (64,)), ("rosenbrock", 2000, (64,)),
+    ("iid_gamma", 2000, (64,)), ("hypercube", 2000, (64,)),
+    ("mvn_iso", 4000, (64, 128)), ("iid_beta", 4000, (64, 128)))
+    for g in teams] + [("iid_gamma", 2000, 64, "UniformRadius"),
+                       ("iid_gamma", 4000, 128, "UniformRadius")]
+INDEX_ORDER_KINDS = ("iid_gamma", "iid_beta", "neal_funnel")
+WIDE_TEAM_NAMES = {"mvn_iso": "MultivariateNormal",
+                   "rosenbrock": "FullRosenbrock", "iid_gamma": "IIDGamma",
+                   "iid_beta": "IIDBeta", "neal_funnel": "NealFunnel",
+                   "hypercube": "Hypercube"}
+
+
+def _wide_team_case(kind, d, dev, C=96, steps=16, prop="Normal"):
+    """A PT launch of T = 10 rungs 1 .. 0.5 on ``kind`` at d from its
+    init (close enough that swaps are taken), a swap every 4 steps after 4
+    of burn-in: (target, args, kw)."""
+    tg = get_target_distribution(WIDE_TEAM_NAMES[kind], d, device=dev)
+    var = {"mvn_iso": 2.38 ** 2, "rosenbrock": 0.25}.get(kind, 0.1) / d
+    pr = None if prop == "Normal" else create_proposal_distribution(
+        d, {"name": prop, "params": (
+            {"base_radius": float(np.sqrt(var * d))}
+            if prop == "UniformRadius" else {"base_variance_vector": var})},
+        device=dev)
+    g = torch.Generator(device=dev).manual_seed(71)
+    betas = torch.logspace(0, -0.3, 10, device=dev)
+    k, sig = rung_scales(pr, var, betas, torch.ones_like(betas))
+    x0 = tg.init_sample(C, g).T[:, None].expand(d, 10, C).contiguous()
+    zi = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)  # noqa
+    zf = lambda *s: torch.zeros(*s, device=dev)  # noqa
+    return tg, (tg, x0, zi(10, C), zi(C), zf(C), zf(C), betas, sig,
+                seed_key(72), 0, steps, 4, 4), dict(kind=k, draw=WARP_DRAW)
+
+
+@pytest.mark.parametrize("kind,d,team,prop", WIDE_TEAM_CASES)
+def test_wide_teams_match_plain(kind, d, team, prop):
+    """Each wide team size (G = 64, 128: a state over two or four warps,
+    named barriers, the warps' partials in the team's words) held against
+    the plain version (the agreement gate, counters exact), launched once
+    under the bucket's library (one block) or its cluster build, and
+    again bit for bit (no race between a team's warps)."""
+    dev = _card()
+    tg, args, kw = _wide_team_case(kind, d, dev, prop=prop)
+    before = Counter(launch_pt_kernel.launches)
+    k = launch_pt_kernel(*args, team=team, **kw)
+    seen = launch_pt_kernel.launches - before
+    variant = _build.library("fused_pt", prop, WARP_DRAW)
+    bucket = _build.warp_bucket(d)
+    assert len(seen) == 1 and next(iter(seen)) in (
+        f"{variant}.{kind}.w{bucket}", f"{variant}.{kind}.c{bucket}"), seen
+    again = launch_pt_kernel(*args, team=team, **kw)
+    for name, a, b in zip(agreement.PT_OUTPUTS, k, again):
+        assert torch.equal(a, b), name
+    a = agreement.hold(k, _run_pt_fused_plain(*args, **kw),
+                       agreement.PT_OUTPUTS, lp_of=tg.log_density_td)
+    assert a.frac >= AGREE_MIN and not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any() and (k[3] > 0).any()
+
+
+@pytest.mark.parametrize("prop", ["Normal", "Laplace"])
+@pytest.mark.parametrize("team,d", [(64, 2000), (128, 4000)])
+@pytest.mark.parametrize("kind", INDEX_ORDER_KINDS)
+def test_wide_teams_equal_g32_on_index_order_kinds(kind, team, d, prop):
+    """IIDGamma, IIDBeta and NealFunnel sum their log-density in index order
+    at every team size, and a wide team sums its cold-rung jump in G = 32's
+    order: at G = 64 (d = 2000, one block) and 128 (d = 4000, a cluster;
+    the 2048 bucket holds no G = 128) x, lp, the counters
+    and both Kahan sums equal G = 32's bit for bit under the Normal and
+    Laplace proposals (UniformRadius's norm is a butterfly sum at every
+    team size, so it rounds by G as G = 4 and 32 do)."""
+    dev = _card()
+    tg, args, kw = _wide_team_case(kind, d, dev, C=64, prop=prop)
+    ref = launch_pt_kernel(*args, team=32, **kw)
+    out = launch_pt_kernel(*args, team=team, **kw)
+    for name, a, b in zip(agreement.PT_OUTPUTS, ref, out):
+        assert torch.equal(a, b), name
+    assert (ref[2] > 0).any()
+
+
+def test_wide_team_geometry_and_the_cluster_split():
+    """The geometry takes G = 64 in one block at d = 2000, T = 10 and
+    G = 128 over clusters of two blocks at d = 4000 (65,536 replicas);
+    the measuring build's split of a swap step at d = 1000, T = 50 has
+    every part and sums to a positive step."""
+    from rwm_pt_tpu_torch.kernels import fused_pt
+    dev = _card()
+    for d, team, cluster in ((2000, 64, 0), (4000, 128, 2)):
+        tg = get_target_distribution("MultivariateNormal", d, device=dev)
+        lib = _build.lib_name(_build.library("fused_pt", "Normal",
+                                             WARP_DRAW), "mvn_iso", d)
+        geo = _build.launch_geometry(lib, d, 65536, 10, "Normal", WARP_DRAW,
+                                     _build.kernel_target(tg)[1].numel())
+        assert (geo.team, geo.cluster) == (team, cluster), geo
+        assert _build.resident_warps(geo) >= _build.MIN_TEAM_WARPS
+    _, args, kw = _cluster_case(dev, 1000, 50, C=2048, steps=30)
+    split = fused_pt.swap_split(*args, **kw)
+    assert split["swap_steps"] > 0 and split["steps"] > 0
+    assert all(split[k] >= 0 for k in fused_pt.SWAP_SPLIT)
+    assert split["swap_step"] > 0 and split["cluster"] >= 2

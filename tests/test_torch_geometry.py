@@ -217,15 +217,18 @@ def test_pt_team_blocks_are_whole_warps(dmax, team, T):
     refuses a replica of more than 16 rungs; above it G = 32 (16 warps)
     does too, and a replica whose rows exceed a block's shared memory is
     refused (the 1024 bucket's 4 KB rows: more than 27 rungs at G = 16;
-    the 2048 and 4096 buckets' 8 and 16 KB rows, G = 32 alone: more than
-    13 and 6 rungs)."""
+    the 2048 and 4096 buckets' 8 and 16 KB rows: more than 13 and 6 rungs
+    at G = 32, and at G = 64 and 128 more than their 640 threads take,
+    ten and five rungs).  A wide team's block starts with its teams'
+    exchange words."""
     d = dmax - 28
     cap = _build.pt_team_threads(dmax, team)
     rows = _build.pt_warp_shared_bytes(d + 1, T, d, 1, dmax, team=team)
     if T * team > cap or rows > _build.BLOCK_SHARED:
         assert ((dmax, team) == (256, 32) and T > 16) or (
             dmax in (512, 1024) and (team == 32 and T > 16 or T > 27)) or (
-            dmax > 1024 and T > {2048: 13, 4096: 6}[dmax])
+            dmax > 1024 and T > {2048: 13, 4096: 6}[dmax]) or (
+            team > 32 and T * team > _build.PT_WIDE_THREADS)
         with pytest.raises(ValueError, match="does not fit a block"):
             _build.pt_warp_geometry(64, cap, d, dmax, T, 65536,
                                     n_params=d + 1, team=team)
@@ -240,7 +243,8 @@ def test_pt_team_blocks_are_whole_warps(dmax, team, T):
            for R in range(1, 33)):
         assert g.threads == live   # padded only where no whole warp fits
     pitch = _build.team_pitch(dmax, team)
-    words = (g.threads // team * 2 * pitch + d + 1 + 2 * T
+    words = ((g.threads // team * _build.WIDE_WORDS if team > 32 else 0)
+             + g.threads // team * 2 * pitch + d + 1 + 2 * T
              + 2 * T * g.replicas + 5 * g.replicas + 3 * T * g.replicas
              + g.replicas)
     assert g.shared_bytes == 4 * words
@@ -268,7 +272,7 @@ def test_the_256_bucket_fits_32_rungs_at_8_lanes(T, replicas, threads):
     # more rungs run over a cluster of such blocks
     assert _build.max_rungs(200) == 8 * _build.pt_cluster_geometry(
         64, 512, 200, 256, _build.max_rungs(200), 1, n_params=12288, team=8,
-        rows=3).slots
+        rows=2).slots
 
 
 def test_pt_team_geometry_at_the_main_shape():

@@ -222,15 +222,15 @@ def test_max_rungs_is_at_least_64_and_the_layout_fit(d):
                 assert "one thread a rung" in fit.layout
                 continue
             dmax = _build.warp_bucket(d)
-            rows = _build.team_rows(kind)
 
             def fits(T):
                 out = []
                 for g in _build.WARP_TEAMS[dmax]:
                     try:
                         out.append(_build.pt_cluster_geometry(
-                            64, _build.pt_team_threads(dmax, g), d, dmax, T,
-                            1, prop, n_params=n, team=g, rows=rows))
+                            64, _build.pt_team_threads(dmax, g, cluster=True),
+                            d, dmax, T, 1, prop, n_params=n, team=g,
+                            kind=kind))
                     except ValueError:
                         pass
                 return out
@@ -241,11 +241,16 @@ def test_max_rungs_is_at_least_64_and_the_layout_fit(d):
         _build.max_rungs(d, k) for k in _build.TARGET_KINDS)
 
 
-def _shared_words(pitch, n_params, T, d, R, teams, rows, laplace, cluster):
-    """``csrc/fused_pt_warp.cu::shared_words``, as the kernel counts it."""
+def _shared_words(pitch, n_params, T, d, R, teams, rows, laplace, cluster,
+                  team=32, terms=False):
+    """``csrc/fused_pt_warp.cu::shared_words``, as the kernel counts it:
+    a wide team's 8 exchange words, the rows, the staged parameters, the
+    sweep's words, the terms pool's slot where the terms row lies in
+    global memory, Laplace's staged scales."""
     shared = n_params if n_params <= 12288 else 0
-    return (teams * rows * pitch + shared + 2 * T + 2 * T * R + 5 * R
-            + 3 * T * R + R + (T * d if laplace and not cluster else 0))
+    return ((8 * teams if team > 32 else 0) + teams * rows * pitch + shared
+            + 2 * T + 2 * T * R + 5 * R + 3 * T * R + R + int(terms)
+            + (T * d if laplace and not cluster else 0))
 
 
 @pytest.mark.parametrize("d,T,team,prop,kind", [
@@ -259,11 +264,14 @@ def test_cluster_geometry_matches_the_kernel(d, T, team, prop, kind):
     that one replica fits, ceil(T / k) slots a block, whole warps of
     teams (the ragged slots and the odd T idle teams), the grid a whole
     number of clusters, and the shared bytes the kernel's ``shared_words``
-    counts (Laplace's scales through L2, not staged); k - 1 blocks do not
-    fit."""
+    counts (Laplace's scales through L2, not staged; the three-row kinds'
+    terms row in global memory, the block's slot of its pool in shared
+    memory); k - 1 blocks do not fit."""
     dmax = _build.warp_bucket(d)
     n = _params(kind, d)
-    rows = _build.team_rows(kind)
+    rows = _build.pt_team_rows(kind, dmax, cluster=True)
+    terms = _build.pt_global_terms(kind, dmax, cluster=True)
+    assert rows == 2 and terms == (kind in _build.TERMS_ROW_KINDS)
     cap = _build.pt_team_threads(dmax, team, cluster=True)
     C = 1000
     g = _build.pt_cluster_geometry(64, cap, d, dmax, T, C, prop, n_params=n,
@@ -277,7 +285,7 @@ def test_cluster_geometry_matches_the_kernel(d, T, team, prop, kind):
     pitch = _build.team_pitch(dmax, team)
     assert g.shared_bytes == 4 * _shared_words(
         pitch, n, T, d, g.replicas, g.threads // team, rows,
-        prop == "Laplace", True) <= _build.BLOCK_SHARED
+        prop == "Laplace", True, team, terms) <= _build.BLOCK_SHARED
     if k > 1:
         with pytest.raises(ValueError, match=f"cluster of {k - 1} blocks"):
             _build.pt_cluster_geometry(64, cap, d, dmax, T, C, prop,
@@ -286,8 +294,9 @@ def test_cluster_geometry_matches_the_kernel(d, T, team, prop, kind):
     # the one-block build's count (Laplace staged) where one block holds it
     one = _build.pt_warp_shared_bytes(n, T, d, 1, dmax, prop, team, kind)
     assert one == 4 * _shared_words(
-        pitch, n, T, d, 1, _build.pt_block_threads(1, T, team) // team, rows,
-        prop == "Laplace", False)
+        pitch, n, T, d, 1, _build.pt_block_threads(1, T, team) // team,
+        _build.pt_team_rows(kind, dmax), prop == "Laplace", False, team,
+        _build.pt_global_terms(kind, dmax))
 
 
 def test_cluster_library_names():

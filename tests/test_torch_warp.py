@@ -236,8 +236,9 @@ def test_the_256_bucket_takes_16_rungs():
     block, no spill in the smoke's phase 2) takes a replica of 32 rungs in
     one block; more run over a cluster of blocks, so PT takes its fit's
     rungs (``_build.rungs_fit``: 256 up to d = 64, the thread kernel's one
-    block; 768 in the 128 bucket, 416 in the 256 one, eight blocks of a
-    cluster) and the harness refuses one more, naming the layout."""
+    block; 1024 in the 128 bucket, 512 in the 256 one, eight blocks of a
+    cluster by their threads, two rows a rung-team there for every kind)
+    and the harness refuses one more, naming the layout."""
     g = _build.pt_warp_geometry(96, 512, 200, 256, 16, 1000, n_params=201)
     assert (g.replicas, g.threads, g.team) == (1, 512, 32)
     g = _build.pt_warp_geometry(96, 512, 200, 256, 10, 1000, n_params=201)
@@ -249,7 +250,7 @@ def test_the_256_bucket_takes_16_rungs():
                                 team=small)
     assert g.threads == small * 32 * g.replicas <= 512
     assert [_build.max_rungs(d) for d in (30, 64, 100, 124, 125, 252)] == \
-        [256, 256, 768, 768, 416, 416]
+        [256, 256, 1024, 1024, 512, 512]
     kw = dict(sigma=0.01, num_iterations=2, algorithm="PT",
               target_dist="MultivariateNormal", num_chains=2, device=CPU)
     assert MCMCSimulation(dim=125, beta_ladder=[1.0] * 32,

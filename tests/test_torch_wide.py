@@ -216,7 +216,6 @@ def test_max_rungs_is_the_geometry_fit(d, proposal):
     for kind in _build.TARGET_KINDS:
         n = _n_params(kind, d) if d != 1020 else None
         T = _build.max_rungs(d, kind, proposal, n)
-        rows = _build.team_rows(kind)
         words = _build.PARAMS_SHARED_MAX if n is None else n
 
         def fits(T, geometry=_build.pt_cluster_geometry):
@@ -224,8 +223,10 @@ def test_max_rungs_is_the_geometry_fit(d, proposal):
             for g in _build.WARP_TEAMS[dmax]:
                 try:
                     geo = geometry(
-                        64, _build.pt_team_threads(dmax, g), d, dmax, T,
-                        65536, proposal, n_params=words, team=g, rows=rows)
+                        64, _build.pt_team_threads(
+                            dmax, g, geometry is _build.pt_cluster_geometry),
+                        d, dmax, T, 65536, proposal, n_params=words, team=g,
+                        kind=kind)
                     ok.append(geo)
                 except ValueError:
                     pass

@@ -45,9 +45,12 @@ def test_every_slot_is_computed_by_one_lane_at_every_d(dmax):
     0..d+3 each come from exactly one lane, the lane ``warp_slot_owner``
     names, in a trip its block loop has (16 quads a lane in the 2048
     bucket, 32 in the 4096); the lanes' block counts differ by at most
-    one."""
+    one.  (PT's wide teams: tests/test_torch_wide_teams.py.)"""
     team = 32
-    assert _build.library_teams(f"fused_pt.mvn_iso.w{dmax}") == (team,)
+    assert _build.library_teams(f"fused_pt.mvn_iso.w{dmax}") == (
+        _build.WARP_TEAMS[dmax]) == ((32, 64) if dmax == 2048 else
+                                     (32, 64, 128))
+    assert _build.library_teams(f"fused_rwm.mvn_iso.w{dmax}") == (team,)
     nq = _build.team_quads(dmax, team)
     assert nq == dmax // 128
     for d in range(LOWEST[dmax], dmax - 3):
@@ -88,16 +91,27 @@ def test_box_muller_partners_stay_in_the_team_at_every_d(dmax):
 
 @pytest.mark.parametrize("dmax", WIDER)
 def test_wider_rows_pitch(dmax):
-    """One warp a state: a row is the bucket's words (no pad), 16-byte
-    aligned; G = 16 is not instantiated (its pitch, the bucket plus 16
-    words, holds no more rungs and half the warps)."""
-    assert _build.WARP_TEAMS[dmax] == (32,)
+    """One warp a state and PT's wide teams of two and four: a row is the
+    bucket's words (no pad), 16-byte aligned; G = 16 is not instantiated
+    (its pitch, the bucket plus 16 words, holds no more rungs and half the
+    warps).  G = 32's launch bound is 512 threads, 800 in the cluster
+    build at most; the wide teams' 640 in both (G = 128 in the 4096 bucket
+    only)."""
+    assert _build.WARP_TEAMS[dmax] == ((32, 64) if dmax == 2048 else
+                                       (32, 64, 128))
+    assert _build.RWM_WARP_TEAMS[dmax] == (32,)
     assert _build.team_pitch(dmax, 32) == dmax
     assert _build.team_pitch(dmax, 16) == dmax + 16
     assert _build.team_quads(dmax, 32) * 128 == dmax
+    for g in _build.WARP_TEAMS[dmax][1:]:
+        assert _build.team_pitch(dmax, g) == dmax
+        assert _build.team_quads(dmax, g) * 4 * g == dmax
+        assert _build.pt_team_threads(dmax, g) == 640
+        assert _build.pt_team_threads(dmax, g, cluster=True) == 640
     assert _build.PT_WARP_MAX_WARPS[dmax] == 16
     assert _build.pt_team_threads(dmax, 32) == 512
-    assert _build.pt_team_threads(dmax, 32, cluster=True) == 512
+    assert _build.pt_team_threads(dmax, 32, cluster=True) == \
+        _build.PT_CLUSTER_THREADS
 
 
 @pytest.mark.parametrize("d,dmax", [(1020, 1024), (1021, 2048), (2000, 2048),
@@ -115,7 +129,8 @@ def test_bucket_edges(d, dmax):
         src, _, _, _, bucket, blocks = _build._parts(name)
         assert src.endswith("_warp") and (bucket, blocks) == (dmax, 1)
         teams = _build.library_teams(name)
-        assert 32 in teams and (dmax <= 1024 or teams == (32,))
+        assert 32 in teams and (dmax <= 1024 or teams == (
+            _build.WARP_TEAMS[dmax] if v.startswith("fused_pt") else (32,)))
         assert {f"-DRWM_PT_DMAX={dmax}", f"-DRWM_PT_TEAMS={sum(teams)}"} \
             <= set(_build._flags(name))
         if v.startswith("fused_pt"):
@@ -166,7 +181,10 @@ def test_rungs_fit_is_at_least_24(d):
     buckets' largest d (56 up to 2044), with the layout named: one warp a
     rung-team over a cluster of eight blocks, by the block's shared
     memory; T fits ``pt_cluster_geometry``, T + 1 does not.  Up to 1020
-    the floor stays 64."""
+    the floor stays 64.  The cluster build's rung-teams keep two rows in
+    shared memory for every kind (the terms row in global memory), so the
+    fit is 88 rungs at d = 2044 and 40 at 4092 (56 and 24 with three
+    rows)."""
     floor = 56 if d <= 2044 else 24
     dmax = _build.warp_bucket(d)
     for kind in _build.TARGET_KINDS:
@@ -178,14 +196,14 @@ def test_rungs_fit_is_at_least_24(d):
                     "teams of 32 lanes over a cluster of 8 blocks")
                 assert fit.layout.endswith("by its shared memory")
                 words = _build.PARAMS_SHARED_MAX if n is None else n
-                kw = dict(n_params=words, team=32,
-                          rows=_build.team_rows(kind))
-                _build.pt_cluster_geometry(64, 512, d, dmax, fit.rungs, 1,
+                kw = dict(n_params=words, team=32, kind=kind)
+                cap = _build.PT_CLUSTER_THREADS
+                _build.pt_cluster_geometry(64, cap, d, dmax, fit.rungs, 1,
                                            prop, **kw)
                 with pytest.raises(ValueError):
-                    _build.pt_cluster_geometry(64, 512, d, dmax,
+                    _build.pt_cluster_geometry(64, cap, d, dmax,
                                                fit.rungs + 1, 1, prop, **kw)
-    assert _build.max_rungs(d) == floor
+    assert _build.max_rungs(d) == {2044: 88, 4092: 40}[d] >= floor
     assert min(_build.max_rungs(1020, k) for k in _build.TARGET_KINDS) >= 64
 
 
