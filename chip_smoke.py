@@ -15,7 +15,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    ``kernels/_build.py``'s count); a stack frame or a spill fails (a
    ladder library's local memory too); the warp libraries (d > 64, phases
    16-22) build in the background of phases 3-15 and are reported and
-   gated before phase 16;
+   gated before phase 16, but the 2048 and 4096 buckets', which build
+   last, behind phases 16-21, and are reported and gated before phase 22;
 3. kernel vs plain on one Philox stream: PT on FullRosenbrock d=30, T=10,
    C=2048 (200 steps, burn-in 50, swap every 10) and RWM on MVN d=10,
    C=2048: share of replicas whose final x agrees to 1e-3 (rounding can flip
@@ -313,8 +314,8 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    steps).
 
 22. the widest warp buckets (1020 < d <= 4092, A15's remainder:
-   ``.w2048``, ``.w4096``, one warp a state, and PT's cluster builds
-   ``.c2048``, ``.c4096``; the ladder kernel's ``.d2048`` and ``.d4096``,
+   ``.w2048``, ``.w4096``, teams of one, two and four warps a state, and
+   PT's cluster builds ``.c2048``, ``.c4096``; the ladder kernel's ``.d2048`` and ``.d4096``,
    the full MVN's ladder in its warp form above the 16 bucket), built in
    phase 2 with the ladder libraries' gate on every bucket: (a) each
    library held against its plain version with the layout the geometry
@@ -326,16 +327,18 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    ``rungs_fit`` over the cluster build, the edges d = 1021, 2044, 2045,
    4092 (Box-Muller at the odd ones), SuperFunnel at J = 300, K = 3,
    n = 20 (d = 1206, the run-time-shape library), and the chains-sharded
-   runs at d = 2000 on 1, 2 and 4 virtual shards bit for bit; (b) Geweke
+   runs at d = 2000 on 1, 2 and 4 virtual shards bit for bit, at the
+   team the unsharded run takes; (b) Geweke
    at d = 2000 on the iso MVN (the cold and the hottest of six rungs);
    (c) the main shapes, FullRosenbrock and the
    iso MVN at d = 2000 and 4000 through ``run_pt_fused`` (65,536 replicas
    x T = 10) and ``run_rwm_fused`` (65,536 chains), 200 steps, and
-   IIDGamma's PT at d = 2000 (one block at G = 64, its terms row in L2),
+   IIDGamma's PT and RWM at d = 2000 (its terms row in L2: PT one block
+   at G = 64, RWM 14 chains a block at G = 32, ``_build.SERIAL_LP_KINDS``),
    each once
    with its launches counted, beside the bound, the team, blocks a
    cluster and warps an SM, each record held against its plain version at
-   4096 replicas (512 for IIDGamma) over 20 steps; (d) ``MCMCSimulation``
+   4096 replicas (512 for IIDGamma's) over 20 steps; (d) ``MCMCSimulation``
    RWM and PT at d = 2000 and PT at 4000, recorded, ``experiment_rwm
    --dim 2000`` (``smoke_out/wider/``) and
    ``MCMCSimulation(iterative_temp_spacing=True)`` at d = 2000 down to
@@ -345,11 +348,13 @@ Drives ``rwm_pt_tpu_torch`` (never JAX) in phases, one line each:
    case, 6,583.497 ms in the earlier one-lane form) and 2000, the iso MVN at d = 2000
    and 4000 (N = 3000, beta_min 0.3, tolerance 0.05), no local memory, and
    d = 4093 refused with ``NotImplementedError``; (f) the RWM acceptance
-   on the iso MVN at d = 2000 and 4000 from exact draws, beside 0.234;
-   (g) PT's wide teams (G = 64 at d = 2000, 64 and 128 at 4000) and G = 32
-   forced in turn, each against its plain version and twice bit for bit,
-   and IIDGamma, IIDBeta and NealFunnel (index-order sums) bit for bit
-   G = 32's under the Normal and Laplace proposals.  Phase 21d adds the
+   on the iso MVN at d = 2000 and 4000 from exact draws, within
+   ``WIDER_RATE_TOL`` of the limit 0.234; (g) PT's and RWM's wide teams
+   (G = 64 at d = 2000, 64 and 128 at 4000) and G = 32 forced in turn,
+   each against its plain version and twice bit for bit, and IIDGamma,
+   IIDBeta and NealFunnel (index-order sums) bit for bit G = 32's under
+   the Normal and Laplace proposals (RWM on 1000 chains: blocks of
+   several teams and a ragged edge).  Phase 21d adds the
    cluster build's swap step split by its measuring build's stamps
    (``fused_pt.swap_split``).
 
@@ -678,6 +683,13 @@ WIDE_TEAMS_HELD = (
     (2000, "neal_funnel", ("Normal",)),
     (4000, "mvn_iso", ("Normal",)), (4000, "iid_beta", ("Normal",)))
 INDEX_ORDER_KINDS = ("iid_gamma", "iid_beta", "neal_funnel")
+# RWM's chains in 22g: blocks of 7 teams of 64 lanes at d = 2000 and 6 at
+# 4000 (the geometry keeps a block a SM), the last one ragged
+WIDE_TEAMS_RWM_C = 1000
+# phase 22f: the RWM rate from exact draws at 2.38^2 / d against the
+# d -> infinity limit 2 Phi(-1.19) (0.2344 +- 0.0002 at d = 2000, 0.2341 +-
+# 0.0002 at 4000 on an H100; a wrong accept or jump moves it by far more)
+WIDER_RATE_TOL = 0.002
 
 
 def fail(msg):
@@ -5341,61 +5353,69 @@ def wider_hold(torch, gen, label, algo, tg, var, C, steps, record=False,
 
 
 def wide_teams_22g(torch, gen, target):
-    """Phase 22g, PT's wide teams (G = 64, 128) and G = 32 forced in turn
-    at d = 2000 (one block at G = 32 and 64, a cluster at 128) and 4000
-    (clusters): each against its plain version (:data:`WIDER_AGREE` or
+    """Phase 22g, the wide teams (G = 64, 128) of PT and RWM and G = 32
+    forced in turn at d = 2000 (PT: one block at G = 32 and 64, a cluster
+    at 128; RWM: one block at every G) and 4000 (PT: clusters): each
+    against its plain version (:data:`WIDER_AGREE` or
     :data:`RUNGS_AGREE_MIN`, counters exact) and again bit for bit (no race
     between a team's warps); the kinds that sum in index order (IIDGamma,
     IIDBeta, NealFunnel) bit for bit G = 32's at every wide team under the
     Normal and Laplace proposals (UniformRadius's norm is a butterfly sum
     at every team size)."""
-    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt
+    from rwm_pt_tpu_torch.kernels import _build, agreement, fused_pt, fused_rwm
     t0 = time.time()
     h = WIDER_HOLD
-    launch = fused_pt.launch_pt_kernel
-    for d, kind, props in WIDE_TEAMS_HELD:
-        tg, var = target(kind, d)
-        for prop in props:
-            _, plain, names, args, lkw, _ = warp_case(
-                torch, gen, "pt", tg, var, h["steps"], h["C_pt"], T=h["T"],
-                prop=prop, burn_in=h["burn_in"], swap_every=h["swap_every"])
-            p = plain(*args, **lkw)
-            lib = _build.route(_build.library("fused_pt", lkw["kind"],
-                                              lkw["draw"]), tg)[0]
-            ref, line = None, []
-            for team in _build.library_teams(lib):
-                reset_launches(launch)
-                k = launch(*args, team=team, **lkw)
-                again = launch(*args, team=team, **lkw)
-                seen = read_launches(launch, by_kind=True)
-                ag = agreement.hold(k, p, names, lp_of=tg.log_density_td)
-                gate = WIDER_AGREE.get(kind, RUNGS_AGREE_MIN)
-                race = [n for n, a, b in zip(names, k, again)
-                        if not torch.equal(a, b)]
-                if ag.frac < gate or ag.mismatched or race or sum(
-                        seen.values()) != 2:
-                    fail(f"phase 22g {kind} d={d} {prop} G={team}: "
-                         f"{agreement.describe(ag)}; repeat differs in "
-                         f"{race}; launches {dict(seen)}")
-                if team == 32:
-                    ref = k
-                elif kind in INDEX_ORDER_KINDS and prop != "UniformRadius":
-                    bad = [n for n, a, b in zip(names, k, ref)
-                           if not torch.equal(a, b)]
-                    if bad:
-                        fail(f"phase 22g {kind} d={d} {prop} G={team} "
-                             f"differs from G=32 in {bad}")
-                line.append(f"G={team} {next(iter(seen))} agree "
-                            f"{ag.frac:.5f}" + (
-                                ", = G=32 bit for bit" if team > 32 and
-                                kind in INDEX_ORDER_KINDS and
-                                prop != "UniformRadius" else ""))
-            say(f"phase 22g {kind} d={d} {prop} (PT {h['C_pt']} x T={h['T']},"
-                f" {h['steps']} steps; each run twice, bit for bit): "
-                + "; ".join(line))
-            del p, args
-        del tg
-        torch.cuda.empty_cache()
+    for algo, launch in (("pt", fused_pt.launch_pt_kernel),
+                         ("rwm", fused_rwm.launch_rwm_kernel)):
+        shape = (f"PT {h['C_pt']} x T={h['T']}" if algo == "pt" else
+                 f"RWM {WIDE_TEAMS_RWM_C} chains")
+        for d, kind, props in WIDE_TEAMS_HELD:
+            tg, var = target(kind, d)
+            for prop in props:
+                _, plain, names, args, lkw, _ = warp_case(
+                    torch, gen, algo, tg, var, h["steps"],
+                    h["C_pt"] if algo == "pt" else WIDE_TEAMS_RWM_C,
+                    T=h["T"], prop=prop, burn_in=h["burn_in"],
+                    swap_every=h["swap_every"])
+                p = plain(*args, **lkw)
+                lib = _build.route(_build.library(
+                    f"fused_{algo}", lkw["kind"], lkw["draw"]), tg)[0]
+                ref, line = None, []
+                for team in _build.library_teams(lib):
+                    reset_launches(launch)
+                    k = launch(*args, team=team, **lkw)
+                    again = launch(*args, team=team, **lkw)
+                    seen = read_launches(launch, by_kind=True)
+                    ag = agreement.hold(k, p, names,
+                                        lp_of=tg.log_density_td)
+                    gate = WIDER_AGREE.get(kind, RUNGS_AGREE_MIN)
+                    race = [n for n, a, b in zip(names, k, again)
+                            if not torch.equal(a, b)]
+                    if ag.frac < gate or ag.mismatched or race or sum(
+                            seen.values()) != 2:
+                        fail(f"phase 22g {algo} {kind} d={d} {prop} "
+                             f"G={team}: {agreement.describe(ag)}; repeat "
+                             f"differs in {race}; launches {dict(seen)}")
+                    same_g32 = (team > 32 and kind in INDEX_ORDER_KINDS
+                                and prop != "UniformRadius")
+                    if team == 32:
+                        ref = k
+                    elif same_g32:
+                        bad = [n for n, a, b in zip(names, k, ref)
+                               if not torch.equal(a, b)]
+                        if bad:
+                            fail(f"phase 22g {algo} {kind} d={d} {prop} "
+                                 f"G={team} differs from G=32 in {bad}")
+                    line.append(f"G={team} {next(iter(seen))} agree "
+                                f"{ag.frac:.5f}" + (
+                                    ", = G=32 bit for bit" if same_g32
+                                    else ""))
+                say(f"phase 22g {kind} d={d} {prop} ({shape}, "
+                    f"{h['steps']} steps; each run twice, bit for bit): "
+                    + "; ".join(line))
+                del p, args
+            del tg
+            torch.cuda.empty_cache()
     say(f"phase 22g {time.time() - t0:.1f} s")
 
 
@@ -5411,8 +5431,9 @@ def phase_22(torch, gen):
     (e)."""
     from rwm_pt_tpu_torch.api import MCMCSimulation
     from rwm_pt_tpu_torch.kernels import (_build, agreement, draws, fused_pt,
-                                          fused_rwm, ladder_build,
-                                          run_pt_fused, run_pt_fused_sharded,
+                                          fused_rwm, fused_sharded,
+                                          ladder_build, run_pt_fused,
+                                          run_pt_fused_sharded,
                                           run_rwm_fused,
                                           run_rwm_fused_sharded)
     from rwm_pt_tpu_torch.kernels.fused_pt import SWEEPS
@@ -5504,6 +5525,9 @@ def phase_22(torch, gen):
                   num_iterations=sh["iters"],
                   **({"swap_every": 10} if algo == "pt" else {}))
         ref = fused(mvn2, 7, *pre, device=dev, **kw)
+        team = fused_sharded._layout(f"fused_{algo}", mvn2, None, sh["C"],
+                                     h["T"] if algo == "pt" else 0,
+                                     dev)[1]
         line = []
         for n in SHARD_COUNTS:
             reset_launches(*wrappers)
@@ -5517,7 +5541,8 @@ def phase_22(torch, gen):
                      f"shards: differs in {bad}; launches {dict(seen)}")
             line.append(f"{n} shards {ms:.3f} ms ({dict(seen)})")
         say(f"phase 22a chains-sharded {algo.upper()} d={sh['d']} "
-            f"({sh['C']} chains, {sh['iters']} steps): equal bit for bit "
+            f"({sh['C']} chains, {sh['iters']} steps, G={team}): equal bit "
+            f"for bit "
             f"({', '.join(fields)}) to the unsharded run; " + "; ".join(line))
         del ref, res
     say(f"phase 22a {time.time() - t_phase:.1f} s; least share of replicas "
@@ -5633,60 +5658,75 @@ def phase_22(torch, gen):
                        mvn_iso_acceptance=mvn_acc)
             records.append(rec)
             torch.cuda.empty_cache()
-    # a three-row kind (IIDGamma, its 6008 words staged) in the 2048
-    # bucket: its terms row in L2, one block of ten rung-teams at T = 10
-    # (with its terms row in shared memory it took the cluster build); held
-    # at 512 replicas (its plain version's logs are the slow part)
+    # a three-row kind (IIDGamma, its 3 words staged) in the 2048 bucket:
+    # its terms row in L2, PT in one block of ten rung-teams of 64 lanes at
+    # T = 10 (with its terms row in shared memory it took the cluster
+    # build), RWM in blocks of 14 chains (8 with it there) of one warp
+    # (_build.SERIAL_LP_KINDS); held at 512 replicas (its plain version's
+    # logs are the slow part)
     tg, v = target("iid_gamma", D2)
-    variant = _build.library("fused_pt", "Normal", rule["pt"])
     n_params = _build.kernel_target(tg)[1].numel()
-    lib = _build.route(variant, tg)[0]
-    geo = _build.launch_geometry(lib, D2, C, T, "Normal", rule["pt"],
-                                 n_params)
-    name = next(iter(_build.by_variant({_build.launch_key(
-        _build.cluster_lib(lib) if geo.cluster else lib): 1})))
-    reset_launches(*wrappers)
-    ms, res = cuda_ms(torch, lambda: run_pt_fused(
-        tg, 0, betas, base_variance=v, num_chains=C, num_iterations=iters,
-        swap_every=FLAG["swap_every"], device=dev))
-    seen = read_launches(*wrappers)
-    acc = res.acceptance_rate.mean().item()
-    if (dict(seen) != {name: 1} or not torch.isfinite(res.state.x).all()
-            or not 0 < acc < 1):
-        fail(f"phase 22c iid_gamma d={D2} PT: launches {dict(seen)}, acc "
-             f"{acc}")
-    del res
-    work = pt_work("iid_gamma", D2, T, C, iters, 0, FLAG["swap_every"],
-                   draw=rule["pt"], n_params=n_params)
+    for algo, src, site, launch, plain, outputs in (
+            ("pt", "fused_pt_warp.cu", "rwm_pt_tpu/kernels/pallas_pt.py:399",
+             fused_pt.launch_pt_kernel, fused_pt._run_pt_fused_plain,
+             agreement.PT_OUTPUTS),
+            ("rwm", "fused_rwm_warp.cu",
+             "rwm_pt_tpu/kernels/pallas_rwm.py:570",
+             fused_rwm.launch_rwm_kernel, fused_rwm._run_rwm_fused_plain,
+             agreement.RWM_OUTPUTS)):
+        variant = _build.library(f"fused_{algo}", "Normal", rule[algo])
+        lib = _build.route(variant, tg)[0]
+        geo = _build.launch_geometry(lib, D2, C, T if algo == "pt" else 0,
+                                     "Normal", rule[algo], n_params)
+        name = next(iter(_build.by_variant({_build.launch_key(
+            _build.cluster_lib(lib) if geo.cluster else lib): 1})))
+        reset_launches(*wrappers)
+        ms, res = cuda_ms(torch, lambda: (
+            run_pt_fused(tg, 0, betas, base_variance=v, num_chains=C,
+                         num_iterations=iters, swap_every=FLAG["swap_every"],
+                         device=dev) if algo == "pt" else
+            run_rwm_fused(tg, 0, base_variance=v, num_chains=C,
+                          num_iterations=iters, device=dev)))
+        seen = read_launches(*wrappers)
+        acc = res.acceptance_rate.mean().item()
+        if (dict(seen) != {name: 1} or not torch.isfinite(res.state.x).all()
+                or not 0 < acc < 1):
+            fail(f"phase 22c iid_gamma d={D2} {algo}: launches "
+                 f"{dict(seen)}, acc {acc}")
+        del res
+        work = (pt_work("iid_gamma", D2, T, C, iters, 0, FLAG["swap_every"],
+                        draw=rule[algo], n_params=n_params)
+                if algo == "pt" else
+                rwm_work("iid_gamma", D2, C, iters, draw=rule[algo],
+                         n_params=n_params))
 
-    def gamma_case(steps, hold_):
-        _, _, _, args, kw, w = warp_case(
-            torch, gen, "pt", tg, v, steps, 512, T=T, draw=rule["pt"],
-            burn_in=0, swap_every=10)
-        return args, kw, w
-    rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
-                        "fused_pt_warp.cu",
-                        "rwm_pt_tpu/kernels/pallas_pt.py:399", seen[name],
-                        fused_pt.launch_pt_kernel,
-                        fused_pt._run_pt_fused_plain, agreement.PT_OUTPUTS,
-                        gamma_case, iters, phase="22c",
-                        hold_steps=WIDER_RECORD_HOLD["steps"],
-                        main=(ms, work))
-    if rec["agree_frac"] < RUNGS_AGREE_MIN or geo.cluster or geo.team < 64:
-        fail(f"phase 22c {name}: {rec['agree_frac']} agree, {geo}")
-    rec["name"] = f"{name} (IIDGamma)"
-    rec.update(dim=D2, kind="iid_gamma", team=geo.team, cluster=geo.cluster,
-               replicas_a_block=geo.replicas, hold_replicas=512,
-               blocks_per_sm=geo.blocks_per_sm,
-               warps_per_sm=_build.resident_warps(geo), acceptance=acc)
-    say(f"phase 22c iid_gamma d={D2} PT at the main shape: {name} "
-        f"(G={geo.team}, one block of {geo.replicas} replicas, "
-        f"{_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
-        f"against its {rec['main_path_bound_ms']:.3f} ms bound by "
-        f"{rec['main_path_bound_limit']} "
-        f"({100 * rec['main_path_bound_share']:.1f} %); acceptance "
-        f"{acc:.4f}; launches {dict(seen)}")
-    records.append(rec)
+        def gamma_case(steps, hold_, algo=algo):
+            _, _, _, args, kw, w = warp_case(
+                torch, gen, algo, tg, v, steps, 512, T=T, draw=rule[algo],
+                burn_in=0, swap_every=10)
+            return args, kw, w
+        rec = kernel_record(torch, name, "rwm_pt_tpu_torch/kernels/csrc/"
+                            + src, site, seen[name], launch, plain, outputs,
+                            gamma_case, iters, phase="22c",
+                            hold_steps=WIDER_RECORD_HOLD["steps"],
+                            main=(ms, work))
+        if (rec["agree_frac"] < RUNGS_AGREE_MIN or geo.cluster
+                or geo.team != (64 if algo == "pt" else 32)):
+            fail(f"phase 22c {name}: {rec['agree_frac']} agree, {geo}")
+        rec["name"] = f"{name} (IIDGamma)"
+        rec.update(dim=D2, kind="iid_gamma", team=geo.team,
+                   cluster=geo.cluster, replicas_a_block=geo.replicas,
+                   hold_replicas=512, blocks_per_sm=geo.blocks_per_sm,
+                   warps_per_sm=_build.resident_warps(geo), acceptance=acc)
+        say(f"phase 22c iid_gamma d={D2} {algo.upper()} at the main shape: "
+            f"{name} (G={geo.team}, one block of {geo.replicas} "
+            f"{'replicas' if algo == 'pt' else 'chains'}, "
+            f"{_build.resident_warps(geo)} warps an SM) {ms:.3f} ms "
+            f"against its {rec['main_path_bound_ms']:.3f} ms bound by "
+            f"{rec['main_path_bound_limit']} "
+            f"({100 * rec['main_path_bound_share']:.1f} %); acceptance "
+            f"{acc:.4f}; launches {dict(seen)}")
+        records.append(rec)
     del tg
     torch.cuda.empty_cache()
     say(f"phase 22c {time.time() - t_phase:.1f} s")
@@ -5782,7 +5822,7 @@ def phase_22(torch, gen):
 
     # ---- (f) the RWM acceptance on the iso MVN at sigma^2 = 2.38^2 / d
     # from exact draws, beside the d -> infinity limit
-    line = []
+    line, rates = [], []
     for d in WIDER_D:
         tg, v = target("mvn_iso", d)
         g = torch.Generator(device=dev).manual_seed(22)
@@ -5790,12 +5830,16 @@ def phase_22(torch, gen):
                              num_iterations=2000, device=dev,
                              init_states=tg.direct_sample(4096, 1.0, g).T)
         a = stat.acceptance_rate
-        line.append(f"d={d} {a.mean().item():.4f} (+- "
+        rates.append(a.mean().item())
+        line.append(f"d={d} {rates[-1]:.4f} (+- "
                     f"{a.std().item() / math.sqrt(a.numel()):.4f})")
+    limit = math.erfc(2.38 / 2 / math.sqrt(2))
     say(f"phase 22f RWM acceptance on the iso MVN at sigma^2 = 2.38^2/d from "
-        f"exact draws (4096 chains, 2000 steps): {'; '.join(line)}; the "
-        f"d -> infinity limit 2 Phi(-2.38/2) = "
-        f"{math.erfc(2.38 / 2 / math.sqrt(2)):.4f}")
+        f"exact draws (4096 chains, 2000 steps, the team the geometry "
+        f"takes): {'; '.join(line)}; the d -> infinity limit 2 Phi(-2.38/2) "
+        f"= {limit:.4f} (within {WIDER_RATE_TOL})")
+    if max(abs(r - limit) for r in rates) > WIDER_RATE_TOL:
+        fail(f"phase 22f RWM acceptance {rates} is not {limit:.4f}")
     say(f"phase 22 {time.time() - t_phase:.1f} s")
     return records
 
@@ -6024,13 +6068,13 @@ def smoke_libraries(_build):
                       for k in WIDER_KINDS_4092]
             names.append(_build.cluster_lib(lib(_build.library(
                 "fused_pt", "Laplace", rule), "mvn_iso", D2)))
-            # 22g: every team size of the held kinds and proposals (over a
-            # cluster at d = 4000)
-            for d, k, props in WIDE_TEAMS_HELD:
-                for p in props:
-                    w = lib(_build.library("fused_pt", p, rule), k, d)
-                    names += [w] + ([_build.cluster_lib(w)] if d == D4
-                                    else [])
+        # 22g: every team size of the held kinds and proposals (PT's over a
+        # cluster at d = 4000)
+        for d, k, props in WIDE_TEAMS_HELD:
+            for p in props:
+                w = lib(_build.library(f"fused_{a}", p, rule), k, d)
+                names += [w] + ([_build.cluster_lib(w)]
+                                if a == "pt" and d == D4 else [])
     names += [_build.ladder_lib(k, d) for k, d in (
         ("mvn_full", D2), ("mvn_iso", D2), ("mvn_iso", D4))]
     return list(dict.fromkeys(names))
@@ -6074,33 +6118,46 @@ def main():
     # ---- 2. build: the thread-per-state, ladder and probe libraries first,
     # all at once; the warp libraries (d > 64, phases 16-22) in the
     # background of phases 3-15, BACKGROUND_NVCC at a time (the host's
-    # other cores run those phases), reported and gated before phase 16
+    # other cores run those phases), reported and gated before phase 16,
+    # but the 2048 and 4096 buckets' (phase 22's, the most team sizes),
+    # which build last, behind phases 16-21, and are gated before phase 22
     t_build = time.time()
     names = smoke_libraries(_build)
-    # the warp libraries, the PT ones of the most team sizes first (the
-    # longest builds start first, so that the last to finish is short)
+    # the warp libraries, those of the most team sizes first (the longest
+    # builds start first, so that the last to finish is short)
     late = sorted((n for n in names if _build.is_warp(n)),
                   key=lambda n: -len(_build.library_teams(n)))
-    logs = _build.build([n for n in names if n not in late])
+    widest = [n for n in late if _build._parts(n)[4] > 1024]
+    late = [n for n in late if n not in widest]
+    logs = _build.build([n for n in names if not _build.is_warp(n)])
     build_s = time.time() - t_build
-    background = {"logs": {}}
+    background = {"logs": {}, "widest": {}}
+    late_built = threading.Event()
 
     def build_late():
         from concurrent.futures import ThreadPoolExecutor
-        try:   # one library a worker, BACKGROUND_NVCC in flight
+        try:   # one library a worker, BACKGROUND_NVCC in flight, in order
             with ThreadPoolExecutor(BACKGROUND_NVCC) as pool:
-                for got in pool.map(lambda n: _build.build([n]), late):
-                    background["logs"].update(got)
-        except Exception as e:   # reported at the join, before phase 16
-            background["error"] = e
-        background["s"] = time.time() - t_build
+                jobs = {n: pool.submit(_build.build, [n])
+                        for n in late + widest}
+                for n in late:
+                    background["logs"].update(jobs[n].result())
+                background["s"] = time.time() - t_build
+                late_built.set()
+                for n in widest:
+                    background["widest"].update(jobs[n].result())
+        except Exception as e:   # reported at the joins, before phase 16
+            background["error"] = e   # or 22
+        late_built.set()
+        background["widest_s"] = time.time() - t_build
     warp_build = threading.Thread(target=build_late)
     warp_build.start()
     report_build(torch, _build, ptxas_report, logs)
     say(f"phase 2 build: {len(logs)} libraries (one per kernel variant, "
         f"target kind and register bucket) in {build_s:.1f} s; "
         f"{len(late)} warp libraries building in the background of phases "
-        f"3-15")
+        f"3-15, then the {len(widest)} of the 2048 and 4096 buckets behind "
+        f"phases 16-21")
     flag_lib = _build.lib_name(_build.library(
         "fused_pt", "Normal", draws.resolve_normal_impl(
             "pt", FLAG["C"], "rosenbrock")), "rosenbrock", FLAG["dim"])
@@ -6295,7 +6352,7 @@ def main():
     kernels.extend(phase_14(torch, gen, {r["name"] for r in kernels}))
     phase_15(torch)
     t0 = time.time()
-    warp_build.join()
+    late_built.wait()
     if "error" in background:
         fail(f"phase 2 background build: {background['error']}")
     say(f"phase 2 build, the warp libraries: {len(late)} in "
@@ -6321,6 +6378,14 @@ def main():
     kernels.extend(phase_19(torch, card))
     kernels.extend(phase_20(torch, gen))
     kernels.extend(phase_21(torch, gen))
+    t0 = time.time()
+    warp_build.join()
+    if "error" in background:
+        fail(f"phase 2 background build: {background['error']}")
+    say(f"phase 2 build, the 2048 and 4096 buckets' warp libraries: "
+        f"{len(widest)} in {background['widest_s']:.1f} s from the start of "
+        f"phase 2 (waited {time.time() - t0:.1f} s for them after phase 21)")
+    report_build(torch, _build, ptxas_report, background["widest"])
     kernels.extend(phase_22(torch, gen))
 
     say(f"total {time.time() - t_start:.1f} s; nvidia-smi name, power.limit:")

@@ -184,8 +184,9 @@ _ENTRIES = {
 # the warp kernels: PT takes the same arguments, the team size G in
 # runtime_r's place and the blocks a cluster after it (0: one block a
 # replica's ladder; csrc/fused_pt_warp.cu's cluster build), its info
-# function the team size and the blocks a cluster first; RWM takes chains (teams) a block for threads and the
-# team size after them, and its info function the team size first
+# function the team size and the blocks a cluster first; RWM takes chains
+# (teams) a block for threads and the team size after them, and its info
+# function the team size first
 _ENTRIES["fused_pt_warp"] = {
     # the blocks a cluster after the team size, then the terms pool (rows,
     # claim bitmask, slots; csrc/fused_pt_warp.cu::kGlobalTerms)
@@ -195,8 +196,10 @@ _ENTRIES["fused_pt_warp"] = {
     # out (kStampWords u64), reset: the measuring build's stamps
     "rwm_pt_fused_pt_stamps": [_P, _I]}
 _ENTRIES["fused_rwm_warp"] = {
+    # the team size, then the terms pool (rows, claim bitmask, slots;
+    # csrc/fused_rwm_warp.cu::kGlobalTerms)
     "rwm_pt_fused_rwm": _ENTRIES["fused_rwm"]["rwm_pt_fused_rwm"][:-1]
-    + [_I, _P],
+    + [_I, _P, _P, _I, _P],
     "rwm_pt_fused_rwm_info": [_I, _I, _I, _I, _P]}
 
 
@@ -639,7 +642,13 @@ CLUSTER_THREADS = {("mvn_iso", "Normal", "lax_erfinv"): 800,
 PT_CLUSTER_THREADS = max(CLUSTER_THREADS.values())   # the most of them
 PT_WIDE_THREADS = 640        # its bound at G = 64 and 128 (ten rung-teams
 #                              of 64 lanes, five of 128; 96 registers)
-RWM_WARP_THREADS = 256       # csrc/fused_rwm_warp.cu: kThreads
+# csrc/fused_rwm_warp.cu's launch bounds (kBlockThreads): 256 threads up to
+# the 1024 bucket; in the 2048 and 4096 buckets 512 at G = 32 (13 chains at
+# d = 2000) and 896 for the wide teams (13 chains of two warps at d = 2000,
+# 7 of four at d = 4000: at most 72 registers)
+RWM_WARP_THREADS = 256
+RWM_WIDER_THREADS = 512
+RWM_WIDE_THREADS = 896
 PARAMS_SHARED_MAX = 12288    # csrc/fused_*_warp.cu: kParamsShared (words)
 SM_COUNT = 132               # the H100 SXM's SMs
 
@@ -805,7 +814,7 @@ def rwm_block_geometry(regs: int, max_threads: int, d: int, dmax: int,
 # ------------------------------------------------ warp layout (csrc/warp.cuh)
 TEAMS = (4, 8, 16, 32)       # the team sizes within a warp (csrc/warp.cuh)
 WIDE_TEAMS = (64, 128)       # its teams of two and four warps (the 2048
-#                              and 4096 buckets' PT libraries)
+#                              and 4096 buckets)
 WIDE_WORDS = 8     # csrc/warp.cuh::kWideWords: a wide team's exchange words
 WIDE_MAX_TEAMS = 15   # csrc/warp.cuh::kMaxWideTeams: named barriers 1..15
 # warp bucket -> the team sizes G its libraries instantiate (-DRWM_PT_TEAMS;
@@ -826,13 +835,15 @@ WIDE_MAX_TEAMS = 15   # csrc/warp.cuh::kMaxWideTeams: named barriers 1..15
 WARP_TEAMS = {128: (4, 32), 256: (8, 32), 512: (16, 32), 1024: (16, 32),
               2048: (32, 64), 4096: (32, 64, 128)}
 # warp bucket -> the RWM libraries' team sizes where they differ from
-# WARP_TEAMS: in the wide buckets one warp a chain alone.  Forced in turns
-# on an H100 (scripts/bench_torch_warp.py --rwm-teams), G = 16 ran 2-9 %
-# slower than G = 32 at d = 500 from 4096 to 65,536 chains, where
+# WARP_TEAMS: one warp a chain in the 512 and 1024 buckets.  Forced in
+# turns on an H100 (scripts/bench_torch_warp.py --rwm-teams), G = 16 ran
+# 2-9 % slower than G = 32 at d = 500 from 4096 to 65,536 chains, where
 # choose_team's rule would take it, 1.5x at 1024, and 1.6-2x at d = 1000;
-# one team size also halves the libraries' build.  RWM has no rungs that
-# only G = 16 takes
-RWM_WARP_TEAMS = {512: (32,), 1024: (32,), 2048: (32,), 4096: (32,)}
+# one team size also halves the libraries' build.  In the 2048 and 4096
+# buckets G = 32 and the wide teams, as PT's: a chain's rows cap the chains
+# a block holds, so one warp a chain left 8 and 6 warps an SM
+RWM_WARP_TEAMS = {512: (32,), 1024: (32,), 2048: (32, 64),
+                  4096: (32, 64, 128)}
 
 
 def team_quads(dmax: int, team: int = 32) -> int:
@@ -901,21 +912,21 @@ def team_rows(kind: str | None = None, fixed: bool = False) -> int:
     return 3 if kind in TERMS_ROW_KINDS and not fixed else 2
 
 
-def pt_global_terms(kind: str | None, dmax: int,
-                    cluster: bool = False) -> bool:
-    """Whether PT's team kernel keeps target kind ``kind``'s terms row
+def global_terms(kind: str | None, dmax: int, cluster: bool = False) -> bool:
+    """Whether a team kernel keeps target kind ``kind``'s terms row
     (:data:`TERMS_ROW_KINDS`) in global memory, a row a team in a pool of
-    block slots (``csrc/fused_pt_warp.cu::kGlobalTerms``), not in shared
-    memory: in the 2048 and 4096 buckets and in every ``cluster`` build
-    (a SuperFunnel build of fixed shape has no terms row: pass kind None)."""
+    block slots (``kGlobalTerms`` of ``csrc/fused_pt_warp.cu`` and
+    ``csrc/fused_rwm_warp.cu``), not in shared memory: in the 2048 and
+    4096 buckets and in every ``cluster`` build (PT's; a SuperFunnel build
+    of fixed shape has no terms row: pass kind None)."""
     return kind in TERMS_ROW_KINDS and (cluster or dmax > 1024)
 
 
 def pt_team_rows(kind: str | None, dmax: int, cluster: bool = False) -> int:
-    """Rows of :func:`team_pitch` words a team of PT's team kernel keeps in
+    """Rows of :func:`team_pitch` words a team of a team kernel keeps in
     shared memory: :func:`team_rows`, less the terms row where
-    :func:`pt_global_terms`."""
-    return team_rows(kind) - pt_global_terms(kind, dmax, cluster)
+    :func:`global_terms` (RWM's kernel has no ``cluster`` build)."""
+    return team_rows(kind) - global_terms(kind, dmax, cluster)
 
 
 def params_shared_words(n_params: int) -> int:
@@ -944,12 +955,12 @@ def pt_warp_shared_bytes(n_params: int, T: int, d: int, R: int, dmax: int,
     default :func:`pt_team_rows` of ``kind``; the idle teams of
     :func:`pt_block_threads` too), the parameters that fit, the ladder, the
     sweep's words (its per-replica sums too), the block's slot of the
-    terms pool (:func:`pt_global_terms`) and Laplace's (T, d) scales.
+    terms pool (:func:`global_terms`) and Laplace's (T, d) scales.
     ``slots``: a block of the cluster build, which holds that many
     rung-teams of each replica and reads Laplace's scales through L2 (its
     sweep's words sized by T as in every block)."""
     cluster = slots is not None
-    terms = rows is None and pt_global_terms(kind, dmax, cluster)
+    terms = rows is None and global_terms(kind, dmax, cluster)
     rows = pt_team_rows(kind, dmax, cluster) if rows is None else rows
     teams = pt_block_threads(R, T if slots is None else slots, team) // team
     words = ((teams * WIDE_WORDS if team > 32 else 0)
@@ -966,11 +977,16 @@ def rwm_warp_shared_bytes(n_params: int, d: int, chains: int, dmax: int,
                           rows: int | None = None) -> int:
     """Dynamic shared memory of a warp RWM block of ``chains`` teams
     (``csrc/fused_rwm_warp.cu::shared_words``; ``dmax`` and ``rows`` as for
-    :func:`pt_warp_shared_bytes`)."""
-    rows = team_rows(kind) if rows is None else rows
-    words = (chains * rows * team_pitch(dmax, team)
+    :func:`pt_warp_shared_bytes`): a wide team's :data:`WIDE_WORDS`, the
+    rows (by default :func:`pt_team_rows` of ``kind``), the parameters
+    that fit, Laplace's (d,) scales and the block's slot of the terms pool
+    (:func:`global_terms`)."""
+    terms = rows is None and global_terms(kind, dmax)
+    rows = pt_team_rows(kind, dmax) if rows is None else rows
+    words = ((chains * WIDE_WORDS if team > 32 else 0)
+             + chains * rows * team_pitch(dmax, team)
              + params_shared_words(n_params)
-             + (d if proposal == "Laplace" else 0))
+             + (d if proposal == "Laplace" else 0) + int(terms))
     return 4 * words
 
 
@@ -1001,10 +1017,21 @@ def pt_team_threads(dmax: int, team: int = 32, cluster: bool = False,
     return PT_TEAM_THREADS
 
 
+def rwm_team_threads(dmax: int, team: int = 32) -> int:
+    """The launch bound of ``csrc/fused_rwm_warp.cu``'s team-size-``team``
+    instantiation in warp bucket ``dmax`` (``kBlockThreads``):
+    :data:`RWM_WIDE_THREADS` for the wide teams, :data:`RWM_WIDER_THREADS`
+    at G = 32 in the 2048 and 4096 buckets, else
+    :data:`RWM_WARP_THREADS`."""
+    if team > 32:
+        return RWM_WIDE_THREADS
+    return RWM_WIDER_THREADS if dmax > 1024 else RWM_WARP_THREADS
+
+
 def barriers_fit(threads: int, team: int) -> bool:
     """Whether a block of ``threads`` has a named barrier for each of its
     teams of ``team`` lanes: at most :data:`WIDE_MAX_TEAMS` wide teams
-    (G > 32; ``csrc/fused_pt_warp.cu::barriers_ok``)."""
+    (G > 32; ``csrc/warp.cuh::barriers_ok``)."""
     return team <= 32 or threads // team <= WIDE_MAX_TEAMS
 
 
@@ -1121,13 +1148,15 @@ def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                       team: int = 32, kind: str | None = None,
                       rows: int | None = None) -> Geometry:
     """The warp RWM launch of C chains at d coordinates (``rows`` rows of
-    ``dmax`` words, :func:`rwm_warp_shared_bytes`) with teams of ``team``
-    lanes: the most chains a block (G chains a multiple of 32, at most :data:`RWM_WARP_THREADS` threads,
-    within ``max_threads`` and a block's shared memory) whose grid still
-    gives each of the ``sms`` SMs a block (512 chains at G = 32: 3 a block,
-    171 blocks), the fewest a block when none does.  ``replicas`` is the
-    chains (teams) a block, ``threads`` G of them.  Raises ``ValueError``
-    when not even one chain fits."""
+    ``dmax`` words, :func:`rwm_warp_shared_bytes`; by default those of
+    ``kind``) with teams of ``team`` lanes: the most chains a block (G
+    chains a multiple of 32, within :func:`rwm_team_threads`,
+    ``max_threads``, a block's shared memory and, for a wide team, the
+    named barriers, :func:`barriers_fit`) whose grid still gives each of
+    the ``sms`` SMs a block (512 chains at G = 32: 3 a block, 171 blocks),
+    the fewest a block when none does.  ``replicas`` is the chains (teams)
+    a block, ``threads`` G of them.  Raises ``ValueError`` when not even
+    one chain fits."""
     _check_warp_dim(d, dmax)
     if C < 1:
         raise ValueError(f"C={C} must be >= 1")
@@ -1135,9 +1164,11 @@ def rwm_warp_geometry(regs: int, max_threads: int, d: int, dmax: int,
                                   kind, rows)
     per_chain = rwm_warp_shared_bytes(n_params, d, 1, dmax, proposal,
                                       team, kind, rows) - fixed
-    step = 32 // team                     # a warp's teams
-    n = min(min(RWM_WARP_THREADS, max_threads) // team,
+    step = max(32 // team, 1)             # a warp's teams
+    n = min(min(rwm_team_threads(dmax, team), max_threads) // team,
             (BLOCK_SHARED - fixed) // per_chain)
+    if team > 32:
+        n = min(n, WIDE_MAX_TEAMS)
     n -= n % step
     if n < step:
         raise ValueError(
@@ -1244,24 +1275,50 @@ def kernel_info(name: str, d: int, T: int = 1, R: int = 1,
                     _INFO[key]))
 
 
-# the kinds whose PT libraries hold no wide team: SuperFunnel's run-time
-# shape, whose step took 119 registers at G = 32 (PERF.md §6), above the
-# 96 that the wide teams' 640-thread bound leaves
+# the kinds whose libraries hold no wide team: SuperFunnel's run-time
+# shape, whose PT step took 119 registers at G = 32 (PERF.md §6), above the
+# 96 that PT's wide teams' 640-thread bound leaves and the 72 of RWM's 896
 NO_WIDE_KINDS = ("super_funnel",)
 
 
 def wide_teams_ok(name: str) -> bool:
-    """Whether PT warp library ``name`` holds the wide teams
+    """Whether warp library ``name`` holds the wide teams
     (:data:`WIDE_TEAMS`) of its bucket: not for :data:`NO_WIDE_KINDS`, nor
-    for the one-block Laplace build of a kind with a terms row, which
-    stages its scales and spilled 12 B at the wide teams' 96 registers
-    (IIDGamma on an H100; its cluster build, which reads them through L2,
-    holds them)."""
-    _, pc, _, _, _, _ = _parts(name)
+    for PT's one-block Laplace build of a kind with a terms row, which
+    stages its (T, d) scales and spilled 12 B at the wide teams' 96
+    registers (IIDGamma on an H100; its cluster build, which reads them
+    through L2, holds them)."""
+    src, pc, _, _, _, _ = _parts(name)
     kind = name.split(".")[1]
     laplace = pc == PROPOSALS["Laplace"][1]
+    pt = src.startswith("fused_pt")
     return kind not in NO_WIDE_KINDS and not (
-        laplace and kind in TERMS_ROW_KINDS and not is_cluster(name))
+        pt and laplace and kind in TERMS_ROW_KINDS and not is_cluster(name))
+
+
+# the kinds whose log-density every lane of a team sums over all d words in
+# index order (csrc/warp.cuh: IIDGamma's and IIDBeta's terms, NealFunnel's
+# squares): a wide team repeats that serial sum in two or four times the
+# lanes, and RWM's lost there (IIDGamma at d = 2000, 65,536 chains on an
+# H100: G = 64 284.3 ms at 28 warps an SM, G = 32 226.4 ms at 14;
+# scripts/bench_torch_warp.py), so RWM's geometry keeps one warp a chain
+# for them; the libraries still hold the wide teams, which team= forces
+# (the holds that show them bit for bit G = 32's)
+SERIAL_LP_KINDS = ("iid_gamma", "iid_beta", "neal_funnel")
+
+
+def geometry_teams(name: str, T: int = 0) -> tuple[int, ...]:
+    """The team sizes :func:`launch_geometry` weighs for warp library
+    ``name`` (PT when ``T`` is given): :func:`library_teams`, for PT with
+    its cluster build's (which may hold a wide team the one-block build
+    does not: :func:`wide_teams_ok`); RWM's of :data:`SERIAL_LP_KINDS`
+    no wider than a warp."""
+    teams = set(library_teams(name))
+    if T:
+        teams |= set(library_teams(cluster_lib(name)))
+    elif name.split(".")[1] in SERIAL_LP_KINDS:
+        teams = {g for g in teams if g <= 32}
+    return tuple(sorted(teams))
 
 
 def library_teams(name: str) -> tuple[int, ...]:
@@ -1269,11 +1326,10 @@ def library_teams(name: str) -> tuple[int, ...]:
     (:data:`WARP_TEAMS`, :data:`RWM_WARP_TEAMS`; the wide teams where
     :func:`wide_teams_ok`)."""
     src, _, _, _, dmax, _ = _parts(name)
-    if src == "fused_rwm" + WARP and dmax in RWM_WARP_TEAMS:
-        return RWM_WARP_TEAMS[dmax]
-    if not wide_teams_ok(name):
-        return tuple(g for g in WARP_TEAMS[dmax] if g <= 32)
-    return WARP_TEAMS[dmax]
+    teams = (RWM_WARP_TEAMS.get(dmax, WARP_TEAMS[dmax])
+             if src == "fused_rwm" + WARP else WARP_TEAMS[dmax])
+    return teams if wide_teams_ok(name) else tuple(g for g in teams
+                                                   if g <= 32)
 
 
 def _cluster_geometry(name: str, d: int, C: int, T: int, proposal: str,
@@ -1324,9 +1380,6 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
     fixed = fixed_shape(name) is not None
     if is_warp(name):
         kind = name.split(".")[1]
-        # the one-block build's team sizes, and for PT its cluster build's
-        # (which may hold a wide team the one-block build does not:
-        # wide_teams_ok)
         one = library_teams(name)
         teams = tuple(sorted(set(one) | set(
             library_teams(cluster_lib(name)) if T else ())))
@@ -1337,11 +1390,11 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
         if forced and not T:
             raise ValueError(f"{name}: the cluster build is PT's")
         geos = {}
-        # RWM's rows; PT's from its kind (pt_team_rows: the terms row in
-        # global memory in the wide buckets and the cluster build), but a
-        # fixed shape's two
-        rows = team_rows(kind, fixed) if fixed or not T else None
-        for g in ([team] if team is not None else teams):
+        # the rows of the kind (pt_team_rows: the terms row in global
+        # memory in the 2048 and 4096 buckets and PT's cluster build), but
+        # a fixed shape's two
+        rows = team_rows(kind, fixed) if fixed else None
+        for g in ([team] if team is not None else geometry_teams(name, T)):
             # a fixed shape's rows are sized by d (csrc/warp.cuh::row_dmax)
             words = sf_team_dmax(d, g) if fixed else dmax
             try:
@@ -1355,7 +1408,7 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
                             if T else rwm_warp_geometry(
                                 a["registers"], a["max_threads"], d, words,
                                 C, proposal, draw, n_params, team=g,
-                                rows=rows))
+                                kind=kind, rows=rows))
                         continue
                     except ValueError:
                         if not T:   # RWM has no cluster build
@@ -1390,17 +1443,17 @@ def launch_geometry(name: str, d: int, C: int, T: int = 0,
 
 def terms_pool(name: str, geo: Geometry, d: int, T: int, n_params: int,
                device) -> tuple:
-    """``(rows, claim, pool)`` of a launch of PT warp library ``name`` at
-    ``geo``: where the kernel keeps its terms row in global memory
-    (:func:`pt_global_terms`), ``pool`` block slots of a row for each team
-    of a block (f32, uninitialised; the CUDA occupancy calculator's
+    """``(rows, claim, pool)`` of a launch of warp library ``name`` (PT's
+    at T rungs, RWM's at T = 1) at ``geo``: where the kernel keeps its
+    terms row in global memory (:func:`global_terms`), ``pool`` block
+    slots of a row for each team of a block (f32, uninitialised; the CUDA occupancy calculator's
     resident blocks an SM, plus one, times the card's SMs: a block always
     finds a free slot, since no more blocks run at once) and their claim
     bitmask (int32, zeroed; every block frees its bit when it ends); else
     ``(None, None, 0)``."""
     kind, dmax = name.split(".")[1], _parts(name)[4]
     if (fixed_shape(name) is not None
-            or not pt_global_terms(kind, dmax, is_cluster(name))):
+            or not global_terms(kind, dmax, is_cluster(name))):
         return None, None, 0
     resident = kernel_info(name, d, T, geo.replicas, n_params, team=geo.team,
                            cluster=geo.cluster)["blocks_per_sm"]

@@ -51,8 +51,9 @@
 // these buckets and in every cluster build (kGlobalTerms): a row a team of
 // a pool of (SMs x resident blocks) block slots, each block claiming a free
 // slot of the pool's bitmask when it starts and freeing it when it ends
-// (claim_slot), so a state's shared memory is its two rows and IIDGamma
-// at d = 2000 takes the one-block launch of the two-row kinds; the terms
+// (csrc/warp.cuh::claim_slot), so a state's shared memory is its two rows
+// and IIDGamma at d = 2000 takes the one-block launch of the two-row
+// kinds; the terms
 // are summed in index order from there (16-byte loads), the same adds.
 //
 // One library per (proposal, draw, target kind, warp bucket DMAX = 128,
@@ -300,40 +301,6 @@ __device__ __forceinline__ void sweep_st(int* p, int v) {
                  :: "r"(cluster_addr(p, 0)), "r"(v) : "memory");
   else
     *p = v;
-}
-
-// A free slot of the terms pool (`pool` slots, a bit each in `claim`),
-// claimed for this block: at most SMs x resident blocks run at once, so
-// one is free or is about to be freed by a block that has ended
-__device__ int claim_slot(unsigned* claim, int pool) {
-  const int words = (pool + 31) >> 5;
-  for (unsigned n = 0;; ++n) {
-    const int w = (int)((blockIdx.x + n) % (unsigned)words);
-    const int bits = pool - 32 * w < 32 ? pool - 32 * w : 32;
-    const unsigned full = bits == 32 ? kFullMask : (1u << bits) - 1u;
-    unsigned m = atomicOr(&claim[w], 0u);
-    while ((m & full) != full) {
-      const unsigned bit = 1u << (__ffs(~m) - 1);
-      const unsigned prev = atomicOr(&claim[w], bit);
-      if (!(prev & bit)) {
-        __threadfence();   // the slot's last owner's writes come first
-        return 32 * w + __ffs(bit) - 1;
-      }
-      m = prev | bit;
-    }
-  }
-}
-
-// A wide team's cold-rung squared jump sum_i (a_i - b_i)^2: by its first
-// warp in G = 32's order (the other warps' value is unused: only team lane
-// 0 keeps it); a narrower team's own team_sq_jump
-template <int G, int NQ>
-__device__ __forceinline__ float cold_jump(const float* a, const float* b,
-                                           int d, int t) {
-  if constexpr (G > 32)
-    return t < 32 ? team_sq_jump<32, NQ * G / 32>(a, b, d, t) : 0.0f;
-  else
-    return team_sq_jump<G, NQ>(a, b, d, t);
 }
 
 #ifdef RWM_PT_STAMPS
@@ -611,10 +578,11 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
           prev = s_x + (owner * R + cx) * kPitch;
         }
       }
-      jump = cold_jump<G, NQ>(accept ? row : xs, prev, d, t);
+      jump = jump_g32_order<G, NQ>(accept ? row : xs, prev, d, t);
     } else if (__any_sync(kFullMask, cold && accept)) {
       // a wide team sums the rows in G = 32's order (part's order there)
-      jump = G > 32 ? cold_jump<G, NQ>(row, xs, d, t) : team_sum<G>(part);
+      jump = G > 32 ? jump_g32_order<G, NQ>(row, xs, d, t)
+                   : team_sum<G>(part);
     }
     if (cold && t == 0) {   // (the cluster build: rank 0's sums)
       const float sum = sweep_ld(s_cold + cx), comp = sweep_ld(s_cc + cx);
@@ -664,10 +632,8 @@ __global__ void __launch_bounds__(kBlockThreads<G>, kMinBlocks<G>)
   }
 
   sweep_sync();   // (the cluster build: every block's accepts are final)
-  if (kGlobalTerms && flat == 0) {   // the pool's slot is free again
-    __threadfence();
-    atomicAnd(&claim[*s_claim >> 5], ~(1u << (*s_claim & 31)));
-  }
+  if (kGlobalTerms && flat == 0)   // the pool's slot is free again
+    free_slot(claim, *s_claim);
   if (valid) {
     for (int i = t; i < d; i += G)
       x_out[((size_t)i * T + rung) * C + c] = xs[i];
@@ -721,12 +687,6 @@ int pitch(int team) {
 // (kernels/_build.py::pt_block_threads)
 int block_threads(int team, int R, int T) {
   return (team * R * T + 31) / 32 * 32;
-}
-
-// Whether a block of `threads` has a named barrier for each of its teams
-// (G > 32; kernels/_build.py::WIDE_MAX_TEAMS)
-bool barriers_ok(int team, int threads) {
-  return team <= 32 || threads / team <= kMaxWideTeams;
 }
 
 cudaError_t prepare(Kernel k, size_t shmem) {

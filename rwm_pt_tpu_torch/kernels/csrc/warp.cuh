@@ -8,8 +8,8 @@
 // Teams.  G (4, 8, 16, 32, 64 or 128, a template argument; a library
 // instantiates those of kernels/_build.py::library_teams: 4 and 32 in the
 // 128-slot bucket, 8 and 32 in the 256, 16 and 32 in the 512 and 1024,
-// where RWM's take 32 alone, and PT's 32 and 64 in the 2048 and 32, 64 and
-// 128 in the 4096, where RWM's take 32 alone) divides the warp into 32 / G
+// where RWM's take 32 alone, and 32 and 64 in the 2048 and 32, 64 and 128
+// in the 4096) divides the warp into 32 / G
 // aligned teams of G lanes; lane t = lane mod G of a team.  G = 32 is one
 // warp a state.  A team's shuffles (__shfl_xor_sync with m < G,
 // __shfl_sync with width G) never leave it, and every one of them is
@@ -152,6 +152,12 @@ constexpr int kSlotWord = 4;
 // WIDE_MAX_TEAMS)
 constexpr int kMaxWideTeams = 15;
 
+// Whether a block of `threads` has a named barrier for each of its teams
+// of `team` lanes (kernels/_build.py::barriers_fit)
+inline bool barriers_ok(int team, int threads) {
+  return team <= 32 || threads / team <= kMaxWideTeams;
+}
+
 // This lane's team's exchange words (G > 32): kWideWords a team at the
 // start of the block's dynamic shared memory, which a kernel of wide teams
 // lays out so
@@ -287,6 +293,52 @@ __device__ __forceinline__ float team_sq_jump(const float* a, const float* b,
     }
   }
   return team_sum<G>(s);
+}
+
+// sum_i (a_i - b_i)^2 over i < d in G = 32's order at every team size: a
+// wide team's first warp sums it as one warp a state does (lane t's quads
+// t + 32 k, then the butterfly), so the sum equals G = 32's bit for bit
+// wherever the rows do (the other warps' value is 0 and unused: only team
+// lane 0 keeps it; the caller orders the rows' next writes after it with a
+// team barrier); a narrower team's own team_sq_jump
+template <int G, int NQ>
+__device__ __forceinline__ float jump_g32_order(const float* a,
+                                               const float* b, int d, int t) {
+  if constexpr (G > 32)
+    return t < 32 ? team_sq_jump<32, NQ * G / 32>(a, b, d, t) : 0.0f;
+  else
+    return team_sq_jump<G, NQ>(a, b, d, t);
+}
+
+// The terms rows of the kTermsRow kinds in global memory (the 2048 and
+// 4096 buckets, PT's cluster build): a pool of `pool` block slots, each a
+// row for every team of a block, and a claim bitmask (a bit a slot,
+// zeroed by the wrapper, kernels/_build.py::terms_pool).  claim_slot
+// claims a free slot for this block when it starts: at most SMs x
+// resident blocks run at once, so one is free or is about to be freed by
+// a block that has ended; free_slot gives it back when the block ends,
+// after every team of the block is done with its row.
+__device__ inline int claim_slot(unsigned* claim, int pool) {
+  const int words = (pool + 31) >> 5;
+  for (unsigned n = 0;; ++n) {
+    const int w = (int)((blockIdx.x + n) % (unsigned)words);
+    const int bits = pool - 32 * w < 32 ? pool - 32 * w : 32;
+    const unsigned full = bits == 32 ? kFullMask : (1u << bits) - 1u;
+    unsigned m = atomicOr(&claim[w], 0u);
+    while ((m & full) != full) {
+      const unsigned bit = 1u << (__ffs(~m) - 1);
+      const unsigned prev = atomicOr(&claim[w], bit);
+      if (!(prev & bit)) {
+        __threadfence();   // the slot's last owner's writes come first
+        return 32 * w + __ffs(bit) - 1;
+      }
+      m = prev | bit;
+    }
+  }
+}
+__device__ inline void free_slot(unsigned* claim, int slot) {
+  __threadfence();
+  atomicAnd(&claim[slot >> 5], ~(1u << (slot & 31)));
 }
 
 // sum_{i < d} row[i] in index order, read by every lane alike, a quad a

@@ -106,8 +106,10 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     ``_build.by_variant`` sums them by variant), and a recorded one also
     under ``fused_rwm_record``.
     The chains a block (and a warp library's team size) come from
-    ``_build.launch_geometry``.  ``replica0`` offsets the Philox
-    counter's replica; its rung is the kernels' constant 0."""
+    ``_build.launch_geometry``; a three-row kind in the 2048 and 4096
+    buckets gets its terms rows' pool from ``_build.terms_pool``.
+    ``replica0`` offsets the Philox counter's replica; its rung is the
+    kernels' constant 0."""
     variant = _build.library("fused_rwm", kind, draw)
     lib, tkind, params = _build.route(variant, target, warp, specialize)
     if _build.fixed_shape(lib) is None or _build.is_warp(lib):
@@ -145,6 +147,10 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
     jump = torch.empty_like(jump0)
     geo = _build.launch_geometry(lib, d, C, proposal=kind, draw=draw,
                                  n_params=params.numel(), team=team)
+    warp = _build.is_warp(lib)
+    rows, claim, pool = (_build.terms_pool(lib, geo, d, 1, params.numel(),
+                                           x0.device)
+                         if warp else (None, None, 0))
     fn = _build.entry(lib)
     rc = fn(_build.TARGET_KINDS[tkind], params.data_ptr(), params.numel(),
             scalar, float(beta),
@@ -153,7 +159,10 @@ def launch_rwm_kernel(target, x0, acc0, jump0, beta, scale, key, step0,
             d, C, total, burn_in, step0, key[0], key[1], replica0, lap_ptr,
             1.0 / d,
             rec_ptr, record_every or 0, record_chains if n_rec else 0,
-            geo.replicas, *((geo.team,) if _build.is_warp(lib) else ()),
+            geo.replicas,
+            *((geo.team, 0 if rows is None else rows.data_ptr(),
+               0 if claim is None else claim.data_ptr(), pool) if warp
+              else ()),
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.check_launch(lib, rc)
     launch_rwm_kernel.launches[_build.launch_key(lib)] += 1

@@ -33,13 +33,18 @@ RWM headline at d = 30; and the widest rows (``WIDE_ROWS``, labels
 ``wide ...``: 65,536 replicas x T or chains, 200 steps): PT at d = 2000 and
 4000, T = 10 (FullRosenbrock, the iso MVN), IIDGamma at d = 2000, the iso
 MVN at d = 500, T = 36 and d = 1000, T = 50 (a ladder no block holds),
-RWM at d = 2000 and 4000, each with the launch's registers and warps an
-SM.  Each launch: a warm-up, then the best of
+RWM at d = 2000 and 4000 and IIDGamma's RWM at d = 2000, each with the
+launch's registers and warps an SM.  In the 2048 and 4096 buckets RWM's
+G = 32 launch (tag ``G32``) is one warp a chain at its raised launch bound
+(13 chains and warps an SM at d = 2000, where an earlier tree's took 8):
+the alternative its wide teams (``G64``, ``G128``) must beat.  Each
+launch: a warm-up, then the best of
 ``--reps`` CUDA-event timings, beside ``chip_smoke.py::bound`` (this
 script's checkout) and its share; ``--only`` times the shapes whose
-label matches; ``--rwm-teams`` builds the wide RWM libraries with these
-team sizes, forced in this order, in place of ``_build.RWM_WARP_TEAMS``
-(run ``16,32`` and ``32,16`` in turns to compare them).  ``--check FILE``
+label matches; ``--rwm-teams`` builds the RWM team libraries with these
+team sizes (those a bucket takes: 64 and 128 in the 2048 and 4096 ones),
+forced in this order, in place of ``_build.RWM_WARP_TEAMS`` (run ``16,32``
+and ``32,16`` in turns to compare them).  ``--check FILE``
 keeps a digest of every launch's outputs (x, lp, the counters and the Kahan
 sums, hashed on the card) in FILE, or, where FILE holds another tree's,
 compares them: every launch whose team size is the same and at most 32
@@ -85,7 +90,7 @@ WIDE_ROWS = (("pt", "rosenbrock", 2000, 10), ("pt", "mvn_iso", 2000, 10),
              ("pt", "iid_gamma", 2000, 10), ("pt", "mvn_iso", 500, 36),
              ("pt", "mvn_iso", 1000, 50), ("rwm", "rosenbrock", 2000, 1),
              ("rwm", "mvn_iso", 2000, 1), ("rwm", "rosenbrock", 4000, 1),
-             ("rwm", "mvn_iso", 4000, 1))
+             ("rwm", "mvn_iso", 4000, 1), ("rwm", "iid_gamma", 2000, 1))
 WIDE_STEPS = 200
 # the kinds whose log-density every team size sums in index order
 INDEX_ORDER = ("iid_gamma", "iid_beta", "neal_funnel")
@@ -130,8 +135,9 @@ def main():
     from chip_smoke import bound, pt_work, rwm_work, wide_target
     if a.rwm_teams:
         teams = tuple(int(g) for g in a.rwm_teams.split(","))
-        _build.RWM_WARP_TEAMS.update(dict.fromkeys(_build.RWM_WARP_TEAMS,
-                                                   teams))
+        _build.RWM_WARP_TEAMS.update({
+            b: tuple(g for g in teams if g <= 32 or b > 1024)
+            for b in _build.RWM_WARP_TEAMS})
 
     has_teams = "team" in inspect.signature(
         fused_pt.launch_pt_kernel).parameters

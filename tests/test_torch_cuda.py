@@ -1525,6 +1525,111 @@ def test_wide_teams_equal_g32_on_index_order_kinds(kind, team, d, prop):
     assert (ref[2] > 0).any()
 
 
+# ----------------------------------- RWM's wide teams (the 2048 and 4096 buckets)
+# (kind, d, team, proposal): chains over two and four warps, blocks of
+# several teams and a ragged edge (301 chains: 151 blocks of two); the
+# three-row kinds' terms row in the pool's global rows
+RWM_WIDE_TEAM_CASES = [(k, d, g, "Normal") for k, d, teams in (
+    ("mvn_iso", 2000, (64,)), ("rosenbrock", 2000, (64,)),
+    ("iid_gamma", 2000, (64,)), ("hypercube", 2000, (64,)),
+    ("neal_funnel", 2000, (64,)), ("mvn_iso", 4000, (64, 128)),
+    ("iid_beta", 4000, (64, 128))) for g in teams] + [
+        ("iid_gamma", 2000, 64, "UniformRadius"),
+        ("iid_gamma", 4000, 128, "UniformRadius"),
+        ("mvn_iso", 2000, 64, "Laplace")]
+
+
+def _rwm_wide_team_case(kind, d, dev, C=301, steps=16, prop="Normal"):
+    """An RWM launch on ``kind`` at d from its init, 4 steps of burn-in:
+    (target, args, kw)."""
+    tg = get_target_distribution(WIDE_TEAM_NAMES[kind], d, device=dev)
+    var = {"mvn_iso": 2.38 ** 2, "rosenbrock": 0.25}.get(kind, 0.1) / d
+    pr = None if prop == "Normal" else create_proposal_distribution(
+        d, {"name": prop, "params": (
+            {"base_radius": float(np.sqrt(var * d))}
+            if prop == "UniformRadius" else {"base_variance_vector": var})},
+        device=dev)
+    g = torch.Generator(device=dev).manual_seed(73)
+    beta = torch.tensor(1.0, device=dev)
+    k, scale = proposal_scale(pr, var, beta)
+    x0 = tg.init_sample(C, g).T.contiguous()
+    zi = torch.zeros(C, dtype=torch.int32, device=dev)
+    return tg, (tg, x0, zi, torch.zeros(C, device=dev), beta, scale,
+                seed_key(74), 0, steps, 4), dict(kind=k, draw=WARP_DRAW)
+
+
+@pytest.mark.parametrize("kind,d,team,prop", RWM_WIDE_TEAM_CASES)
+def test_rwm_wide_teams_match_plain(kind, d, team, prop):
+    """Each of RWM's wide team sizes (G = 64, 128: a chain over two or four
+    warps, named barriers, the first warp's jump in G = 32's order) held
+    against the plain version (the agreement gate, counters exact),
+    launched under the bucket's library, and again bit for bit (no race
+    between a team's warps, nor in the terms pool's slots)."""
+    dev = _card()
+    tg, args, kw = _rwm_wide_team_case(kind, d, dev, prop=prop)
+    before = Counter(launch_rwm_kernel.launches)
+    k = launch_rwm_kernel(*args, team=team, **kw)
+    seen = launch_rwm_kernel.launches - before
+    variant = _build.library("fused_rwm", prop, WARP_DRAW)
+    assert dict(seen) == {
+        f"{variant}.{kind}.w{_build.warp_bucket(d)}": 1}, seen
+    again = launch_rwm_kernel(*args, team=team, **kw)
+    for name, a, b in zip(agreement.RWM_OUTPUTS, k, again):
+        assert torch.equal(a, b), name
+    a = agreement.hold(k, _run_rwm_fused_plain(*args, **kw),
+                       agreement.RWM_OUTPUTS, lp_of=tg.log_density_td)
+    assert a.frac >= AGREE_MIN and not a.mismatched, agreement.describe(a)
+    assert (k[2] > 0).any()
+
+
+@pytest.mark.parametrize("prop", ["Normal", "Laplace"])
+@pytest.mark.parametrize("team,d", [(64, 2000), (128, 4000)])
+@pytest.mark.parametrize("kind", INDEX_ORDER_KINDS)
+def test_rwm_wide_teams_equal_g32_on_index_order_kinds(kind, team, d, prop):
+    """IIDGamma, IIDBeta and NealFunnel sum their log-density in index
+    order at every team size, and a wide team sums its squared jump in
+    G = 32's order: x, lp, the counter and the Kahan ESJD equal G = 32's
+    bit for bit at G = 64 (d = 2000) and 128 (d = 4000) under the Normal
+    and Laplace proposals."""
+    dev = _card()
+    tg, args, kw = _rwm_wide_team_case(kind, d, dev, C=200, prop=prop)
+    ref = launch_rwm_kernel(*args, team=32, **kw)
+    out = launch_rwm_kernel(*args, team=team, **kw)
+    for name, a, b in zip(agreement.RWM_OUTPUTS, ref, out):
+        assert torch.equal(a, b), name
+    assert (ref[2] > 0).any()
+
+
+def test_rwm_wide_team_geometry():
+    """RWM's geometry takes G = 64 at d = 2000 and G = 128 at 4000 for
+    65,536 chains (13 and 6 chains a block, one block an SM: 26 and 24
+    warps) and for the study CLI's 1024, and one warp a chain for IIDGamma
+    (14 chains a block, its terms row in L2); the card's occupancy agrees
+    with the count."""
+    dev = _card()
+    tg = get_target_distribution("IIDGamma", 2000, device=dev)
+    lib = _build.lib_name(_build.library("fused_rwm", "Normal", WARP_DRAW),
+                          "iid_gamma", 2000)
+    geo = _build.launch_geometry(lib, 2000, 65536, 0, "Normal", WARP_DRAW,
+                                 _build.kernel_target(tg)[1].numel())
+    assert (geo.team, geo.replicas) == (32, 14), geo
+    for d, team in ((2000, 64), (4000, 128)):
+        tg = get_target_distribution("MultivariateNormal", d, device=dev)
+        lib = _build.lib_name(_build.library("fused_rwm", "Normal",
+                                             WARP_DRAW), "mvn_iso", d)
+        n = _build.kernel_target(tg)[1].numel()
+        for C in (65536, 1024):
+            geo = _build.launch_geometry(lib, d, C, 0, "Normal", WARP_DRAW,
+                                         n)
+            assert geo.team == team, geo
+            info = _build.kernel_info(lib, d, 1, geo.replicas, n, team=team)
+            assert info["blocks_per_sm"] == geo.blocks_per_sm >= 1
+            assert info["local_bytes"] == 0
+            if C == 65536:
+                assert geo.replicas == (13 if d == 2000 else 6)
+                assert _build.resident_warps(geo) >= _build.MIN_TEAM_WARPS
+
+
 def test_wide_team_geometry_and_the_cluster_split():
     """The geometry takes G = 64 in one block at d = 2000, T = 10 and
     G = 128 over clusters of two blocks at d = 4000 (65,536 replicas);

@@ -270,7 +270,7 @@ def test_cluster_geometry_matches_the_kernel(d, T, team, prop, kind):
     dmax = _build.warp_bucket(d)
     n = _params(kind, d)
     rows = _build.pt_team_rows(kind, dmax, cluster=True)
-    terms = _build.pt_global_terms(kind, dmax, cluster=True)
+    terms = _build.global_terms(kind, dmax, cluster=True)
     assert rows == 2 and terms == (kind in _build.TERMS_ROW_KINDS)
     cap = _build.pt_team_threads(dmax, team, cluster=True)
     C = 1000
@@ -296,7 +296,7 @@ def test_cluster_geometry_matches_the_kernel(d, T, team, prop, kind):
     assert one == 4 * _shared_words(
         pitch, n, T, d, 1, _build.pt_block_threads(1, T, team) // team,
         _build.pt_team_rows(kind, dmax), prop == "Laplace", False, team,
-        _build.pt_global_terms(kind, dmax))
+        _build.global_terms(kind, dmax))
 
 
 def test_cluster_library_names():

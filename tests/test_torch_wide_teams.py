@@ -54,15 +54,15 @@ def test_every_block_and_pair_has_one_lane_at_every_d(dmax, team):
 @pytest.mark.parametrize("dmax", [128, 256, 512, 1024])
 def test_wide_teams_only_in_the_widest_buckets(dmax):
     """The wide teams are instantiated in the 2048 and 4096 buckets alone
-    (PT's libraries; RWM's hold G = 32 there; G = 128 in the 4096 bucket
-    only): no narrower bucket has a team of 64 or 128 lanes."""
+    (PT's libraries and RWM's; G = 128 in the 4096 bucket only): no
+    narrower bucket has a team of 64 or 128 lanes."""
     for g in WIDE:
         with pytest.raises(ValueError, match="no team"):
             _build.team_quads(dmax, g)
     for b, teams in ((2048, (32, 64)), (4096, (32, 64, 128))):
         assert _build.WARP_TEAMS[b] == teams
         assert _build.library_teams(f"fused_pt.mvn_iso.w{b}") == teams
-        assert _build.library_teams(f"fused_rwm.mvn_iso.w{b}") == (32,)
+        assert _build.library_teams(f"fused_rwm.mvn_iso.w{b}") == teams
         assert f"-DRWM_PT_TEAMS={sum(teams)}" in _build._flags(
             f"fused_pt_lax_erfinv.iid_gamma.c{b}")
         # no wide team where its registers would spill: SuperFunnel's
@@ -149,7 +149,7 @@ def test_shared_bytes_are_the_kernels_count(d, dmax, kind, prop):
                 cluster or dmax > 1024)
             rows = 3 if kind in _build.TERMS_ROW_KINDS and not terms else 2
             assert _build.pt_team_rows(kind, dmax, cluster) == rows
-            assert _build.pt_global_terms(kind, dmax, cluster) == terms
+            assert _build.global_terms(kind, dmax, cluster) == terms
             T = 10
             for R in (1, 2):
                 teams = _build.pt_block_threads(R, slots or T, team) // team
@@ -298,6 +298,6 @@ def test_measuring_build_and_the_terms_pool_off_the_card():
                  "fused_pt_lax_erfinv.super_funnel.j40k3n20u2.w256"):
         assert _build.terms_pool(name, geo, 1000, 10, 1,
                                  torch.device("cpu")) == (None, None, 0)
-    assert _build.pt_global_terms("iid_gamma", 1024, cluster=True)
-    assert _build.pt_global_terms("mvn_full", 2048)
-    assert not _build.pt_global_terms("neal_funnel", 4096, cluster=True)
+    assert _build.global_terms("iid_gamma", 1024, cluster=True)
+    assert _build.global_terms("mvn_full", 2048)
+    assert not _build.global_terms("neal_funnel", 4096, cluster=True)

@@ -45,12 +45,14 @@ def test_every_slot_is_computed_by_one_lane_at_every_d(dmax):
     0..d+3 each come from exactly one lane, the lane ``warp_slot_owner``
     names, in a trip its block loop has (16 quads a lane in the 2048
     bucket, 32 in the 4096); the lanes' block counts differ by at most
-    one.  (PT's wide teams: tests/test_torch_wide_teams.py.)"""
+    one.  (The wide teams: tests/test_torch_wide_teams.py, PT's, and
+    tests/test_torch_rwm_wide_teams.py, RWM's.)"""
     team = 32
     assert _build.library_teams(f"fused_pt.mvn_iso.w{dmax}") == (
         _build.WARP_TEAMS[dmax]) == ((32, 64) if dmax == 2048 else
                                      (32, 64, 128))
-    assert _build.library_teams(f"fused_rwm.mvn_iso.w{dmax}") == (team,)
+    assert _build.library_teams(f"fused_rwm.mvn_iso.w{dmax}") == (
+        _build.WARP_TEAMS[dmax])
     nq = _build.team_quads(dmax, team)
     assert nq == dmax // 128
     for d in range(LOWEST[dmax], dmax - 3):
@@ -91,7 +93,7 @@ def test_box_muller_partners_stay_in_the_team_at_every_d(dmax):
 
 @pytest.mark.parametrize("dmax", WIDER)
 def test_wider_rows_pitch(dmax):
-    """One warp a state and PT's wide teams of two and four: a row is the
+    """One warp a state and the wide teams of two and four: a row is the
     bucket's words (no pad), 16-byte aligned; G = 16 is not instantiated
     (its pitch, the bucket plus 16 words, holds no more rungs and half the
     warps).  G = 32's launch bound is 512 threads, 800 in the cluster
@@ -99,7 +101,7 @@ def test_wider_rows_pitch(dmax):
     only)."""
     assert _build.WARP_TEAMS[dmax] == ((32, 64) if dmax == 2048 else
                                        (32, 64, 128))
-    assert _build.RWM_WARP_TEAMS[dmax] == (32,)
+    assert _build.RWM_WARP_TEAMS[dmax] == _build.WARP_TEAMS[dmax]
     assert _build.team_pitch(dmax, 32) == dmax
     assert _build.team_pitch(dmax, 16) == dmax + 16
     assert _build.team_quads(dmax, 32) * 128 == dmax
@@ -129,8 +131,8 @@ def test_bucket_edges(d, dmax):
         src, _, _, _, bucket, blocks = _build._parts(name)
         assert src.endswith("_warp") and (bucket, blocks) == (dmax, 1)
         teams = _build.library_teams(name)
-        assert 32 in teams and (dmax <= 1024 or teams == (
-            _build.WARP_TEAMS[dmax] if v.startswith("fused_pt") else (32,)))
+        assert 32 in teams and (dmax <= 1024
+                                or teams == _build.WARP_TEAMS[dmax])
         assert {f"-DRWM_PT_DMAX={dmax}", f"-DRWM_PT_TEAMS={sum(teams)}"} \
             <= set(_build._flags(name))
         if v.startswith("fused_pt"):
